@@ -1,0 +1,209 @@
+"""Paged KV-cache page accounting — the serving tier's memory manager.
+
+The engine's device memory for KV caches is ONE pool of fixed-size pages
+per layer (``models/gpt.init_kv_pool``); every resident sequence draws
+pages from it, so HBM is sized by *total resident tokens*, not by
+``num_slots × max_len`` — the vLLM insight at the granularity this repo
+needs.  This module owns the page bookkeeping on the host:
+
+- :class:`PageAllocator` — free-list allocator with per-sequence page
+  lists.  Allocation order is deterministic: never-used pages first
+  (lowest index), then freed pages in FIFO order (oldest-freed reused
+  first), so tests can pin the reuse/eviction order exactly.
+- Reservations are worst-case at admission (``ceil((prompt + budget) /
+  page_size)``): a sequence can never hit an out-of-pages condition
+  mid-decode, so admission control is the ONLY backpressure point and
+  in-flight streams never need mid-stream eviction.
+- Internal fragmentation (the cost of fixed pages: the tail of the last
+  page is reserved but may go unwritten) is reported per pool snapshot —
+  the occupancy view the telemetry bus publishes every engine step.
+
+Device tensors never live here: the allocator hands out page indices and
+sentinel-padded page tables; :mod:`.engine` owns the arrays.
+"""
+
+from __future__ import annotations
+
+import collections
+import threading
+from typing import Iterable
+
+import numpy as np
+
+
+class OutOfPages(RuntimeError):
+    """The pool cannot cover a reservation — admission must wait/reject."""
+
+
+class PageAllocator:
+    """Host-side page bookkeeping for one paged KV pool.
+
+    ``num_pages`` physical pages of ``page_size`` token slots each.  The
+    sentinel index for "no page" in emitted page tables is ``num_pages``
+    itself — out of bounds by exactly one, so the engine's scatters drop
+    through it (``mode="drop"``) and gathers zero-fill (``mode="fill"``).
+    """
+
+    def __init__(self, num_pages: int, page_size: int):
+        if num_pages < 1 or page_size < 1:
+            raise ValueError(f"need positive pool geometry, got "
+                             f"{num_pages} pages x {page_size} slots")
+        self.num_pages = int(num_pages)
+        self.page_size = int(page_size)
+        # Never-used pages dispense lowest-first; freed pages append to the
+        # right and are reused oldest-freed-first once the fresh run is
+        # exhausted (deterministic, testable reuse order).
+        self._free: collections.deque[int] = collections.deque(
+            range(num_pages))
+        self._owned: dict[object, list[int]] = {}
+        self._reserved_tokens: dict[object, int] = {}
+        self._peak_in_use = 0      # occupancy high-water mark
+        # The engine thread is the only mutator, but statz/healthz handler
+        # threads read snapshot() concurrently — iterating
+        # _reserved_tokens while free() pops a key is a RuntimeError.
+        self._lock = threading.Lock()
+
+    # ------------------------------------------------------------ state
+
+    @property
+    def free_pages(self) -> int:
+        return len(self._free)
+
+    @property
+    def pages_in_use(self) -> int:
+        return self.num_pages - len(self._free)
+
+    @property
+    def peak_in_use(self) -> int:
+        """High-water mark of :attr:`pages_in_use` since construction."""
+        return self._peak_in_use
+
+    @property
+    def sequences(self) -> int:
+        return len(self._owned)
+
+    def pages_for(self, tokens: int) -> int:
+        """Pages needed to hold ``tokens`` token slots."""
+        return -(-int(tokens) // self.page_size)
+
+    def utilization(self) -> float:
+        """Fraction of the pool's pages currently reserved."""
+        return self.pages_in_use / self.num_pages
+
+    def internal_fragmentation(self) -> float:
+        """Reserved-but-unrequested token slots / reserved slots — the
+        fixed-page tax (0.0 when every reservation fills its last page,
+        or when nothing is reserved)."""
+        with self._lock:
+            return self._fragmentation_locked()
+
+    def _fragmentation_locked(self) -> float:
+        reserved_slots = self.pages_in_use * self.page_size
+        if not reserved_slots:
+            return 0.0
+        requested = sum(self._reserved_tokens.values())
+        return (reserved_slots - requested) / reserved_slots
+
+    def owned(self, seq_id) -> list[int]:
+        """The sequence's pages in logical order (copy)."""
+        return list(self._owned.get(seq_id, ()))
+
+    # ------------------------------------------------------ alloc / free
+
+    def can_alloc(self, tokens: int) -> bool:
+        return self.pages_for(tokens) <= len(self._free)
+
+    def alloc(self, seq_id, tokens: int) -> list[int]:
+        """Reserve pages covering ``tokens`` token slots for ``seq_id``.
+
+        Raises :class:`OutOfPages` without partial allocation when the
+        pool cannot cover it, ``ValueError`` on double-alloc.
+        """
+        with self._lock:
+            if seq_id in self._owned:
+                raise ValueError(f"sequence {seq_id!r} already holds "
+                                 "pages; use extend()")
+            need = self.pages_for(tokens)
+            if need > len(self._free):
+                raise OutOfPages(
+                    f"need {need} page(s) for {tokens} tokens, "
+                    f"{len(self._free)} free of {self.num_pages}")
+            pages = [self._free.popleft() for _ in range(need)]
+            self._owned[seq_id] = pages
+            self._reserved_tokens[seq_id] = int(tokens)
+            self._peak_in_use = max(self._peak_in_use, self.pages_in_use)
+            return list(pages)
+
+    def extend(self, seq_id, tokens: int) -> list[int]:
+        """Grow ``seq_id``'s reservation to cover ``tokens`` total token
+        slots; returns the newly added pages (possibly empty).  Raises
+        :class:`OutOfPages` leaving the existing reservation intact."""
+        with self._lock:
+            if seq_id not in self._owned:
+                raise ValueError(f"sequence {seq_id!r} holds no pages")
+            have = self._owned[seq_id]
+            need = self.pages_for(tokens) - len(have)
+            if need <= 0:
+                self._reserved_tokens[seq_id] = max(
+                    self._reserved_tokens[seq_id], int(tokens))
+                return []
+            if need > len(self._free):
+                raise OutOfPages(
+                    f"extend needs {need} page(s), {len(self._free)} free")
+            fresh = [self._free.popleft() for _ in range(need)]
+            have.extend(fresh)
+            self._reserved_tokens[seq_id] = int(tokens)
+            self._peak_in_use = max(self._peak_in_use, self.pages_in_use)
+            return fresh
+
+    def free(self, seq_id) -> int:
+        """Return ``seq_id``'s pages to the pool (FIFO reuse order);
+        returns how many were freed.  Freeing an unknown id is a no-op
+        (retire paths may race a server shutdown)."""
+        with self._lock:
+            pages = self._owned.pop(seq_id, None)
+            self._reserved_tokens.pop(seq_id, None)
+            if not pages:
+                return 0
+            self._free.extend(pages)
+            return len(pages)
+
+    # ------------------------------------------------------- page tables
+
+    def page_table(self, seq_id, max_pages: int) -> np.ndarray:
+        """[max_pages] int32 physical-page row for the engine, padded with
+        the OOB sentinel (``num_pages``)."""
+        pages = self._owned.get(seq_id, ())
+        if len(pages) > max_pages:
+            raise ValueError(
+                f"sequence {seq_id!r} holds {len(pages)} pages > "
+                f"max_pages={max_pages}")
+        row = np.full((max_pages,), self.num_pages, np.int32)
+        row[:len(pages)] = pages
+        return row
+
+    @staticmethod
+    def empty_table(num_pages: int, max_pages: int) -> np.ndarray:
+        """All-sentinel row — an idle slot's page table."""
+        return np.full((max_pages,), num_pages, np.int32)
+
+    def snapshot(self) -> dict:
+        """Occupancy view for telemetry/statz (handler-thread safe)."""
+        with self._lock:
+            return {
+                "num_pages": self.num_pages,
+                "page_size": self.page_size,
+                "pages_in_use": self.pages_in_use,
+                "peak_in_use": self._peak_in_use,
+                "free_pages": self.free_pages,
+                "sequences": self.sequences,
+                "utilization": round(self.utilization(), 4),
+                "internal_fragmentation": round(
+                    self._fragmentation_locked(), 4),
+            }
+
+
+def reservation_tokens(prompt_len: int, num_tokens: int) -> int:
+    """Worst-case token slots a request can touch: the prompt plus its
+    full generation budget (positions ``0 .. prompt+budget-1``)."""
+    return int(prompt_len) + int(num_tokens)

@@ -1,0 +1,543 @@
+"""Serving frontend: HTTP in, fair-scheduled continuous batching out.
+
+:class:`ServingServer` glues the pieces of docs/serving.md together —
+bounded per-tenant queues (:mod:`.scheduler`), the slot-batched engine
+(:mod:`.engine`), and an engine loop thread that interleaves admission
+with decode steps:
+
+    handler threads ──submit──> FairScheduler ──pop──┐
+                                                     v
+                 engine loop:  [apply swap] [admit while slots+pages]
+                               [decode one step] [complete retirees]
+
+The loop admits every admissible request BEFORE each decode step, so a
+request that arrives while other sequences are mid-decode joins the very
+next step — continuous batching, per step, not per batch.  Responses
+block their handler thread on the request's event (HTTP is the transport,
+not the scheduler); a caller that times out marks its request abandoned
+and the engine retires the lane at the next step boundary.
+
+Wire format (JSON over HTTP/1.1, keep-alive):
+
+- ``POST /generate``  ``{"prompt": [ids...], "num_tokens": N,
+  "tenant": "name", "eos_id": id?, "temperature": t?, "top_k": k?,
+  "top_p": p?, "seed": s?, "speculative": bool?}`` ->
+  ``{"tokens": [prompt+generated...], "ttft_ms": ..., "tpot_ms": ...,
+  "queue_ms": ..., "model_step": ...}`` (+ ``spec_rounds`` /
+  ``spec_accepted_per_round`` when the speculative arm served it);
+  400 malformed, 429 tenant queue full (back off), 503 timed out.
+  ``speculative`` opts the request into the engine's paged speculative
+  decode arm (greedy-only; honored when the server runs ``--spec_k``,
+  plain decode otherwise — same tokens either way, see
+  docs/speculative.md).
+- ``GET /healthz`` -> engine identity + occupancy (+ the ``replica``
+  identity block; status ``draining`` once a drain began).
+- ``GET /statz``  -> the ``replica`` identity block (id, model
+  namespace, uptime, engine generation), per-tenant scheduler stats,
+  latency histogram snapshots (global + per tenant), KV-pool occupancy,
+  SLO burn state (``tools/watch_serve.py``'s feed).
+- ``GET /metricz`` -> Prometheus text exposition of every serve_*
+  instrument, pool/queue occupancy, and SLO burn-rate gauges.
+- ``POST /drain`` -> finish queued + in-flight work, 429 new
+  submissions — the cooperative half of a fleet scale-down
+  (``serving/router.py``).
+"""
+
+from __future__ import annotations
+
+import json
+import threading
+import time
+from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
+
+from ..utils import tracing
+from ..utils.telemetry import split_instrument_label
+from .engine import DecodeEngine, _ensure_request_trace
+from .scheduler import FairScheduler, QueueFull, Request
+from .slo import SloEngine
+
+
+class ServingServer:
+    """Own the engine loop + HTTP frontend; ``start()`` / ``shutdown()``."""
+
+    def __init__(self, engine: DecodeEngine, scheduler: FairScheduler, *,
+                 port: int = 8700, host: str = "127.0.0.1",
+                 request_timeout_s: float = 120.0, telemetry=None,
+                 slo: SloEngine | None = None,
+                 slo_emit_every_s: float = 2.0,
+                 meta: dict | None = None, replica_id: str = "",
+                 trace_buffer=None):
+        self.engine = engine
+        self.scheduler = scheduler
+        self.telemetry = telemetry
+        self.slo = slo
+        # Tail-sampling ring (serving/trace_buffer.py).  The caller arms
+        # the same buffer onto the installed tracer; the server's job is
+        # the retirement verdict (_complete / 429 reject) and surfacing
+        # the kept/dropped counters on /statz.
+        self.trace_buffer = trace_buffer
+        self.slo_emit_every_s = float(slo_emit_every_s)
+        self._last_slo_emit = 0.0
+        self.request_timeout_s = float(request_timeout_s)
+        self.meta = dict(meta or {})
+        # Fleet identity (docs/serving.md, "Fleet"): which member of a
+        # replicated tier this process is.  Standalone servers leave it
+        # "" — the identity block still renders so a fleet of /statz
+        # snapshots is never indistinguishable.
+        self.replica_id = str(replica_id)
+        self._t_start_unix = time.time()
+        self._wake = threading.Condition()
+        self._stop = False
+        self._draining = False          # set by POST /drain (scale-down)
+        self._dead: str | None = None   # set by _engine_fatal
+        self._loop_thread: threading.Thread | None = None
+        self._http: ThreadingHTTPServer | None = None
+        self._http_thread: threading.Thread | None = None
+        self._host, self._port = host, int(port)
+
+    # -------------------------------------------------------- lifecycle
+
+    @property
+    def port(self) -> int:
+        assert self._http is not None, "start() first"
+        return self._http.server_address[1]
+
+    def start(self) -> None:
+        self._http = ThreadingHTTPServer((self._host, self._port),
+                                         self._make_handler())
+        self._loop_thread = threading.Thread(
+            target=self._engine_loop, daemon=True, name="serve-engine")
+        self._loop_thread.start()
+        self._http_thread = threading.Thread(
+            target=self._http.serve_forever, daemon=True,
+            name="serve-http")
+        self._http_thread.start()
+
+    def shutdown(self) -> None:
+        with self._wake:
+            self._stop = True
+            self._wake.notify_all()
+        if self._http is not None:
+            self._http.shutdown()
+            self._http.server_close()
+        if self._loop_thread is not None:
+            self._loop_thread.join(timeout=10.0)
+
+    # ------------------------------------------------------ engine loop
+
+    def _have_work(self) -> bool:
+        return (self.engine.active_slots > 0
+                or self.scheduler.depth() > 0)
+
+    def _engine_loop(self) -> None:
+        # Fatal-exception wrapper (docs/observability.md, "Flight
+        # recorder"): the per-iteration handler below keeps the loop
+        # alive through request-level failures, but anything that
+        # escapes it — a BaseException, or the handler itself failing —
+        # kills the serving thread.  Dump the telemetry ring first so a
+        # crashed server leaves its last records, then fail the callers
+        # so nobody blocks a full request_timeout_s on a dead loop.
+        try:
+            self._engine_loop_inner()
+        except BaseException as e:  # noqa: BLE001 — dying, leave evidence
+            self._engine_fatal(e)
+            raise
+
+    def _engine_fatal(self, exc: BaseException) -> None:
+        msg = f"engine loop died: {type(exc).__name__}: {exc}"
+        # Flag first: /healthz flips to 503 and new submissions fail
+        # fast instead of queueing into a loop that will never pop them.
+        self._dead = msg
+        if self.telemetry is not None:
+            # The record lands in the ring before the dump so the flight
+            # file names its own cause of death.
+            self.telemetry.emit("serve_fatal",
+                                step=self.engine.step_index,
+                                error=msg[:300])
+            self.telemetry.dump_flight(reason=msg)
+        try:
+            for req in self.engine.fail_active(msg):
+                self._complete(req)
+            # Queued requests were never served: release their callers
+            # WITHOUT running them through the admitted/completed books
+            # (a /statz scrape of the dead-but-listening server must not
+            # report them as served).
+            for req in self.scheduler.drain():
+                req.error = msg
+                req.event.set()
+        except Exception:  # noqa: BLE001 — best-effort caller release
+            pass
+
+    def _engine_loop_inner(self) -> None:
+        engine, sched = self.engine, self.scheduler
+        while True:
+            with self._wake:
+                # Idle wait with a timeout, dropping the lock each tick
+                # so housekeeping (swap adoption, SLO emission — file
+                # I/O) never runs under the condition submit() handlers
+                # need to grab.
+                if not self._stop and not self._have_work():
+                    self._wake.wait(timeout=0.5)
+                stop = self._stop
+            if stop:
+                self._slo_tick(force=True)
+                break
+            engine.apply_pending_swap()
+            self._slo_tick()
+            if engine.active_slots == 0 and sched.depth() == 0:
+                continue    # still idle — back to the timed wait
+            admitting = None
+            try:
+                # Admit everything admissible RIGHT NOW (slots + pages),
+                # fair-ordered; then one decode step for the whole batch.
+                while engine.free_slots > 0:
+                    admitting = sched.next_request(engine.can_admit)
+                    if admitting is None:
+                        break
+                    self._trace_queue(admitting)
+                    engine.admit(admitting)
+                    admitting = None
+                for req in engine.step(queue_depth=sched.depth()):
+                    self._complete(req)
+            except Exception as e:  # noqa: BLE001 — fail loud, stay up
+                msg = f"{type(e).__name__}: {e}"
+                if admitting is not None:
+                    # admit() raised after the pop: pages are freed and
+                    # the lane was never seated, so the request is in
+                    # neither the queue nor a slot — complete it here or
+                    # its caller blocks the full request_timeout_s.
+                    admitting.error = msg
+                    self._complete(admitting)
+                for req in self.engine.fail_active(msg):
+                    self._complete(req)
+
+    def _trace_queue(self, req: Request) -> None:
+        """Emit the request's ``serve.queue`` span at pop time: submit ->
+        scheduler release, with the tenant and the residual queue depth —
+        the span that tells queueing latency apart from prefill."""
+        tracer = tracing.active()
+        if tracer is None:
+            return
+        _ensure_request_trace(tracer, req)
+        dur_ms = (time.perf_counter() - req.t_submit) * 1e3
+        tracer.emit_span(
+            "serve.queue", req.t_submit_unix, dur_ms,
+            step=self.engine.step_index, parent_id=req.span_root,
+            trace=req.trace, request_id=req.id, tenant=req.tenant,
+            queue_depth=self.scheduler.depth())
+
+    def _slo_tick(self, force: bool = False) -> None:
+        """Periodic SLO evaluation -> ``kind="slo"`` + ``serve_tenant``
+        telemetry records and burn gauges (engine-loop thread only)."""
+        if self.slo is None and self.telemetry is None:
+            return
+        now = time.monotonic()
+        if not force and now - self._last_slo_emit < self.slo_emit_every_s:
+            return
+        self._last_slo_emit = now
+        tel = self.telemetry
+        step = self.engine.step_index
+        if self.slo is not None and tel is not None:
+            # Stream records only — /metricz gets the properly labelled
+            # serve_slo_burn_rate{tenant,objective,window} series from
+            # SloEngine.prometheus_lines (the bracket convention on
+            # instrument names is tenant-only).
+            for entry in self.slo.evaluate():
+                tel.emit("slo", step=step, **entry)
+        if tel is not None:
+            tel.gauge("serve_queue_depth_hwm").set(
+                self.scheduler.depth_hwm())
+            for tenant, st in self.scheduler.stats().items():
+                tel.emit("serve_tenant", step=step, tenant=tenant,
+                         queued=st["queued"], queued_hwm=st["queued_hwm"],
+                         rejected=st["rejected"],
+                         abandoned=st["abandoned"],
+                         completed=st["completed"],
+                         served_tokens=st["served_tokens"])
+                tel.gauge(f"serve_queued_hwm[{tenant}]").set(
+                    st["queued_hwm"])
+
+    def _complete(self, req: Request) -> None:
+        self.scheduler.account(req.tenant, len(req.tokens))
+        self.scheduler.complete(req.tenant)
+        if req.abandoned:
+            self.scheduler.note_abandoned(req.tenant)
+        ok = req.error is None and not req.abandoned
+        if self.slo is not None:
+            self.slo.observe_request(
+                req.tenant, ttft_ms=req.ttft_ms, tpot_ms=req.tpot_ms,
+                e2e_ms=req.e2e_ms, ok=ok)
+        # Retirement IS the tail-sampling decision point: every span this
+        # request parked (engine tree included — the root serve.request
+        # span was parked during engine retirement, just before this
+        # call) is flushed or dropped wholesale, now that the verdict
+        # (latency, error, upstream force flag) actually exists.
+        if self.trace_buffer is not None and req.trace is not None:
+            self.trace_buffer.retire(
+                req.trace, tenant=req.tenant, e2e_ms=req.e2e_ms,
+                ok=ok, status=200 if ok else 500,
+                forced=req.trace_forced)
+        req.event.set()
+
+    def adopt_wire_trace(self, request: Request, headers) -> None:
+        """Adopt inbound ``X-DTF-*`` trace context (utils/tracing.py):
+        the request's spans join the CALLER'S trace — the engine's
+        ``serve.request`` root nests under the routing tier's span
+        instead of starting a fresh tree.  ``_ensure_request_trace``
+        honors the pre-set ``span_root``/``trace``, so every downstream
+        span site is untouched."""
+        tracer = tracing.active()
+        if tracer is None:
+            return
+        trace, parent, forced = tracing.parse_wire(headers)
+        if trace is None:
+            return
+        request.trace = trace
+        request.wire_parent = parent
+        request.trace_forced = forced
+        request.span_root = tracer.allocate_id()
+
+    def retire_rejected(self, request: Request, status: int) -> None:
+        """Tail-sampling verdict for a request rejected BEFORE admission
+        (429 backpressure): it never reaches ``_complete``, but the
+        sampler still records the decision — a throttled request is
+        exactly the interesting tail the buffer exists to keep."""
+        if self.trace_buffer is not None and request.trace is not None:
+            self.trace_buffer.retire(
+                request.trace, tenant=request.tenant, status=int(status),
+                forced=request.trace_forced)
+
+    # ---------------------------------------------------------- submit
+
+    def submit(self, request: Request) -> Request:
+        """Queue + block until done; raises on error/backpressure."""
+        if self._dead:
+            # The engine loop is gone — nothing will ever pop the queue.
+            # Fail fast (500) instead of parking the caller for the full
+            # request_timeout_s on a dead server.
+            raise RuntimeError(self._dead)
+        if self._draining:
+            # Scale-down drain: in-flight and queued work finishes, new
+            # work backpressures (429) so a fleet router routes it to a
+            # sibling replica instead.
+            raise QueueFull(
+                f"replica {self.replica_id or '?'} is draining; "
+                "route elsewhere")
+        self.engine.validate(request)      # 400s before queueing
+        try:
+            self.scheduler.submit(request)  # may raise QueueFull (429)
+        except QueueFull:
+            if self.telemetry is not None:
+                self.telemetry.counter("serve_rejected").inc()
+                self.telemetry.counter(
+                    f"serve_rejected[{request.tenant}]").inc()
+            if self.slo is not None:
+                self.slo.observe_admission(request.tenant, rejected=True)
+            raise
+        if self.slo is not None:
+            self.slo.observe_admission(request.tenant, rejected=False)
+        with self._wake:
+            self._wake.notify_all()
+        if not request.event.wait(self.request_timeout_s):
+            request.abandoned = True
+            if self.telemetry is not None:
+                self.telemetry.counter("serve_timeouts").inc()
+            raise TimeoutError(
+                f"request waited past {self.request_timeout_s:.0f}s "
+                "(server overloaded)")
+        if request.error:
+            raise RuntimeError(request.error)
+        return request
+
+    def request_swap(self, params, step: int) -> None:
+        """Stage a hot swap and wake the loop (the watcher's swap_fn)."""
+        self.engine.swap_params(params, step)
+        with self._wake:
+            self._wake.notify_all()
+
+    def begin_drain(self) -> dict:
+        """Flip the replica into drain mode (``POST /drain``): queued and
+        in-flight requests finish, new submissions 429 so the router
+        spills them to siblings.  Returns the drain progress snapshot the
+        router polls to decide when the replica is empty."""
+        with self._wake:
+            self._draining = True
+            self._wake.notify_all()
+        return {"status": "draining",
+                "active": self.engine.active_slots,
+                "queued": self.scheduler.depth()}
+
+    # ------------------------------------------------------------ stats
+
+    def replica_info(self) -> dict:
+        """Identity block carried on ``/statz`` and ``/healthz`` so a
+        fleet of snapshots is attributable: replica id, the model
+        namespace served, process uptime, and the engine generation
+        (hot-swap count — two replicas on different generations are
+        serving different weights)."""
+        return {
+            "id": self.replica_id,
+            "model": self.meta.get("model"),
+            "uptime_s": round(time.time() - self._t_start_unix, 1),
+            "engine_generation": self.engine.swaps,
+            "model_step": self.engine.model_step,
+            "draining": self._draining,
+        }
+
+    def stats(self) -> dict:
+        out = {
+            "replica": self.replica_info(),
+            "engine": self.engine.stats(),
+            "tenants": self.scheduler.stats(),
+            "queue_depth": self.scheduler.depth(),
+            "queue_depth_hwm": self.scheduler.depth_hwm(),
+        }
+        if self.telemetry is not None:
+            snap = self.telemetry.summary()
+            out["latency"] = {
+                name: snap["histograms"].get(name, {"count": 0})
+                for name in ("serve_ttft_ms", "serve_tpot_ms",
+                             "serve_e2e_ms", "serve_step_ms")}
+            # Per-tenant distributions: bracketed instrument names
+            # ("serve_ttft_ms[search]") fan out into a tenant-keyed map
+            # for the watch_serve table.
+            per_tenant: dict = {}
+            for key, hist in snap["histograms"].items():
+                base, tenant = split_instrument_label(key)
+                if tenant is not None and base in (
+                        "serve_ttft_ms", "serve_tpot_ms", "serve_e2e_ms"):
+                    per_tenant.setdefault(tenant, {})[base] = hist
+            if per_tenant:
+                out["tenant_latency"] = per_tenant
+            out["counters"] = {
+                k: v for k, v in snap["counters"].items()
+                if k.startswith("serve_")}
+        if self.slo is not None:
+            out["slo"] = self.slo.snapshot()
+        if self.trace_buffer is not None:
+            out["serve_trace_sampled"] = self.trace_buffer.stats()
+        return out
+
+    def metricz_text(self) -> str:
+        """Prometheus text exposition (``GET /metricz``): every serve_*
+        instrument on the bus, live pool/queue occupancy, and the SLO
+        burn gauges — one scrape target per serving process."""
+        lines = ["# dtf serving metrics (docs/observability.md, "
+                 "'Serving tracing & SLOs')"]
+        if self.telemetry is not None:
+            lines.extend(self.telemetry.prometheus_lines(prefix="serve_"))
+        pool = self.engine.allocator.snapshot()
+        lines.extend([
+            "# TYPE serve_kv_pool_pages gauge",
+            f'serve_kv_pool_pages{{state="in_use"}} '
+            f'{pool["pages_in_use"]}',
+            f'serve_kv_pool_pages{{state="free"}} {pool["free_pages"]}',
+            f'serve_kv_pool_pages{{state="peak"}} {pool["peak_in_use"]}',
+            "# TYPE serve_kv_pool_fragmentation gauge",
+            f'serve_kv_pool_fragmentation '
+            f'{pool["internal_fragmentation"]}',
+            "# TYPE serve_queue_depth gauge",
+            f"serve_queue_depth {self.scheduler.depth()}",
+            "# TYPE serve_model_step gauge",
+            f"serve_model_step {self.engine.model_step}",
+        ])
+        if self.slo is not None:
+            lines.extend(self.slo.prometheus_lines())
+        return "\n".join(lines) + "\n"
+
+    # ------------------------------------------------------------- HTTP
+
+    def _make_handler(self):
+        server = self
+
+        class Handler(BaseHTTPRequestHandler):
+            protocol_version = "HTTP/1.1"
+
+            def log_message(self, *a):  # quiet server
+                pass
+
+            def _reply(self, code: int, payload: dict) -> None:
+                body = json.dumps(payload).encode()
+                self.send_response(code)
+                self.send_header("Content-Type", "application/json")
+                self.send_header("Content-Length", str(len(body)))
+                self.end_headers()
+                self.wfile.write(body)
+
+            def do_GET(self):
+                if self.path == "/healthz":
+                    if server._dead:
+                        # The frontend outlives a dead engine loop —
+                        # load balancers must stop routing here.
+                        return self._reply(503, {
+                            "status": "engine_dead",
+                            "error": server._dead,
+                            "replica": server.replica_info(),
+                            **server.meta})
+                    return self._reply(200, {
+                        "status": ("draining" if server._draining
+                                   else "ok"),
+                        "replica": server.replica_info(),
+                        **server.meta,
+                        **server.engine.stats()})
+                if self.path == "/statz":
+                    return self._reply(200, server.stats())
+                if self.path == "/metricz":
+                    body = server.metricz_text().encode()
+                    self.send_response(200)
+                    self.send_header("Content-Type",
+                                     "text/plain; version=0.0.4")
+                    self.send_header("Content-Length", str(len(body)))
+                    self.end_headers()
+                    self.wfile.write(body)
+                    return None
+                return self._reply(404, {"error": "unknown path"})
+
+            def do_POST(self):
+                if self.path == "/drain":
+                    return self._reply(200, server.begin_drain())
+                if self.path != "/generate":
+                    return self._reply(404, {"error": "unknown path"})
+                try:
+                    n = int(self.headers.get("Content-Length", 0))
+                    body = json.loads(self.rfile.read(n) or b"{}")
+                    request = Request(
+                        body["prompt"], int(body.get("num_tokens", 16)),
+                        tenant=str(body.get("tenant", "default")),
+                        eos_id=(int(body["eos_id"])
+                                if body.get("eos_id") is not None
+                                else None),
+                        temperature=float(body.get("temperature", 0.0)),
+                        top_k=int(body.get("top_k", 0)),
+                        top_p=float(body.get("top_p", 0.0)),
+                        seed=int(body.get("seed", 0)),
+                        speculative=bool(body.get("speculative", False)))
+                except (KeyError, TypeError, ValueError):
+                    return self._reply(400, {"error": "malformed request"})
+                server.adopt_wire_trace(request, self.headers)
+                try:
+                    server.submit(request)
+                except QueueFull as e:
+                    server.retire_rejected(request, 429)
+                    return self._reply(429, {"error": str(e)})
+                except TimeoutError as e:
+                    return self._reply(503, {"error": str(e)})
+                except ValueError as e:
+                    return self._reply(400, {"error": str(e)})
+                except RuntimeError as e:
+                    return self._reply(500, {"error": str(e)})
+                payload = {
+                    "tokens": request.prompt + request.tokens,
+                    "tokens_out": len(request.tokens),
+                    "queue_ms": request.queue_ms,
+                    "ttft_ms": request.ttft_ms,
+                    "tpot_ms": request.tpot_ms,
+                    "model_step": server.engine.model_step,
+                }
+                if request.speculative and request.spec_rounds:
+                    payload["spec_rounds"] = request.spec_rounds
+                    payload["spec_accepted_per_round"] = round(
+                        len(request.tokens) / request.spec_rounds, 2)
+                return self._reply(200, payload)
+
+        return Handler

@@ -1,0 +1,441 @@
+"""Unified per-host run telemetry (SURVEY §5) — one event bus, one stream.
+
+Before this module the observability pieces were fragmented: the training
+loop pushed ad-hoc records at :class:`~.metrics.MetricsLogger`, profiling
+snapshots lived in :mod:`.profiling`, cluster heartbeats stayed inside the
+coordination service, and the FLOP/MFU arithmetic hid in bench.py.  The
+:class:`Telemetry` bus unifies them:
+
+- **events** — kind-tagged JSONL records (``train_step``, ``eval``,
+  ``checkpoint``, ``cluster_health``, ``param_exchange``, ``run_meta``,
+  ``run_summary``; the serving tier adds ``serve_step``,
+  ``serve_request`` and ``model_swap`` — docs/serving.md) that
+  flow through the run's :class:`~.metrics.MetricsLogger`, so every
+  per-host stream is a single append-only file a tool can replay
+  (``tools/summarize_run.py`` renders the report);
+- **counters / gauges** — named in-process aggregates (eval pauses,
+  checkpoint saves, barrier crossings) snapshotted into the final
+  ``run_summary`` record;
+- **streaming histograms** — p50/p95/p99 of step time, host data-wait,
+  barrier waits... in constant memory (log-bucketed counts, no sample
+  storage), so a million-step run summarizes as cheaply as a 20-step one;
+- **MFU** — the live utilization figure, priced with the same FLOP model
+  as the bench artifacts (:mod:`..tools.check_mfu`);
+- **crash flight recorder** — a constant-memory ring of the last N
+  records (spans included) that :meth:`Telemetry.dump_flight` writes to
+  ``<metrics_file>.flight`` when the process is about to die (SIGTERM via
+  :class:`..training.preemption.ShutdownSignal` callbacks, a chaos
+  ``kill_at_step`` via :mod:`.faults`, or a fatal training-loop
+  exception), so a killed worker's last seconds survive it —
+  ``tools/summarize_run.py`` ingests the dump into the recovery section.
+
+Everything is optional and cheap when disabled: a ``Telemetry`` over a
+``MetricsLogger(None)`` aggregates but writes nothing, and call sites hold
+``telemetry=None`` fast paths.
+"""
+
+from __future__ import annotations
+
+import collections
+import json
+import math
+import os
+import threading
+import time
+from typing import Any, Callable
+
+from .metrics import MetricFieldError, MetricsLogger, _scalar
+
+#: Telemetry schema version, stamped into ``run_meta`` records so consumers
+#: can gate on incompatible layouts instead of guessing.
+SCHEMA_VERSION = 1
+
+
+class Counter:
+    """Monotonic named count (thread-safe; producers may live on threads)."""
+
+    __slots__ = ("name", "_value", "_lock")
+
+    def __init__(self, name: str):
+        self.name = name
+        self._value = 0
+        self._lock = threading.Lock()
+
+    def inc(self, n: int = 1) -> None:
+        with self._lock:
+            self._value += n
+
+    @property
+    def value(self) -> int:
+        with self._lock:
+            return self._value
+
+
+class Gauge:
+    """Last-written named value (thread-safe)."""
+
+    __slots__ = ("name", "_value", "_lock")
+
+    def __init__(self, name: str):
+        self.name = name
+        self._value: float | None = None
+        self._lock = threading.Lock()
+
+    def set(self, value: float) -> None:
+        with self._lock:
+            self._value = float(value)
+
+    @property
+    def value(self) -> float | None:
+        with self._lock:
+            return self._value
+
+
+class StreamingHistogram:
+    """Quantile estimator in constant memory — no sample storage.
+
+    Values land in log-scaled buckets (geometric bucket edges with ratio
+    ``1 + 2 * relative_error``), so ``quantile()`` answers within
+    ``relative_error`` of the true value for any positive input, using
+    O(distinct magnitudes) memory regardless of sample count.  Zero and
+    negative values collapse into a dedicated bucket (durations are the
+    target workload; a zero-length wait is still a wait).  Thread-safe:
+    prefetcher producer threads and the health reporter record into the
+    same bus the main loop reads.
+    """
+
+    __slots__ = ("name", "_log_base", "_buckets", "count", "total",
+                 "min", "max", "_lock")
+
+    def __init__(self, name: str = "", relative_error: float = 0.02):
+        if not 0 < relative_error < 1:
+            raise ValueError(
+                f"relative_error must be in (0, 1), got {relative_error}")
+        self.name = name
+        self._log_base = math.log1p(2 * relative_error)
+        self._buckets: dict[int, int] = {}
+        self.count = 0
+        self.total = 0.0
+        self.min = math.inf
+        self.max = -math.inf
+        self._lock = threading.Lock()
+
+    def _index(self, value: float) -> int:
+        if value <= 0:
+            return -(1 << 62)  # dedicated zero/negative bucket
+        return math.floor(math.log(value) / self._log_base)
+
+    def record(self, value: float) -> None:
+        value = float(value)
+        if math.isnan(value):
+            return  # a NaN duration is a caller bug, not a sample
+        idx = self._index(value)
+        with self._lock:
+            self._buckets[idx] = self._buckets.get(idx, 0) + 1
+            self.count += 1
+            self.total += value
+            self.min = min(self.min, value)
+            self.max = max(self.max, value)
+
+    @property
+    def mean(self) -> float | None:
+        return self.total / self.count if self.count else None
+
+    def quantile(self, q: float) -> float | None:
+        """Value at quantile ``q`` in [0, 1]; None before any record."""
+        if not 0 <= q <= 1:
+            raise ValueError(f"quantile must be in [0, 1], got {q}")
+        with self._lock:
+            if not self.count:
+                return None
+            # Rank of the q-th sample (1-based, nearest-rank convention),
+            # then walk buckets in value order until it is covered.
+            rank = max(1, math.ceil(q * self.count))
+            seen = 0
+            for idx in sorted(self._buckets):
+                seen += self._buckets[idx]
+                if seen >= rank:
+                    if idx == -(1 << 62):
+                        return max(self.min, 0.0) if self.min <= 0 else 0.0
+                    # Geometric midpoint of the bucket bounds, clamped to
+                    # the observed range so q=0/q=1 stay honest.
+                    lo = math.exp(idx * self._log_base)
+                    hi = math.exp((idx + 1) * self._log_base)
+                    return min(max(math.sqrt(lo * hi), self.min), self.max)
+            return self.max  # unreachable, defensive
+
+    def snapshot(self) -> dict[str, Any]:
+        """Summary dict: count/mean/min/max plus p50/p95/p99."""
+        with self._lock:
+            count, total = self.count, self.total
+            lo, hi = self.min, self.max
+        if not count:
+            return {"count": 0}
+        return {
+            "count": count,
+            "mean": round(total / count, 4),
+            "min": round(lo, 4),
+            "max": round(hi, 4),
+            "p50": round(self.quantile(0.50), 4),
+            "p95": round(self.quantile(0.95), 4),
+            "p99": round(self.quantile(0.99), 4),
+        }
+
+
+class Telemetry:
+    """Per-host event bus: every observability record flows through here.
+
+    ``logger`` is the run's :class:`MetricsLogger` (the JSONL stream);
+    ``flops_per_step`` / ``peak_flops_per_sec`` parameterize live MFU (both
+    optional — unknown chips report ``mfu: null`` rather than a fabricated
+    number).  Instruments are created on first use and keyed by name, so
+    call sites never coordinate registration.
+    """
+
+    def __init__(self, logger: MetricsLogger | None = None,
+                 flops_per_step: float | None = None,
+                 peak_flops_per_sec: float | None = None,
+                 flight_records: int = 256):
+        self._logger = logger if logger is not None else MetricsLogger(None)
+        self.flops_per_step = flops_per_step
+        self.peak_flops_per_sec = peak_flops_per_sec
+        self._counters: dict[str, Counter] = {}
+        self._gauges: dict[str, Gauge] = {}
+        self._histograms: dict[str, StreamingHistogram] = {}
+        self._lock = threading.Lock()
+        # Flight recorder: last N records in constant memory, dumped to
+        # disk when the process is about to die (docs/observability.md,
+        # "Flight recorder").  Appends are GIL-atomic deque ops — no lock
+        # on the emit hot path.
+        self._flight: collections.deque = collections.deque(
+            maxlen=max(int(flight_records), 1))
+        self._flight_path: str | None = None
+
+    # ------------------------------------------------------ instruments
+
+    def counter(self, name: str) -> Counter:
+        with self._lock:
+            if name not in self._counters:
+                self._counters[name] = Counter(name)
+            return self._counters[name]
+
+    def gauge(self, name: str) -> Gauge:
+        with self._lock:
+            if name not in self._gauges:
+                self._gauges[name] = Gauge(name)
+            return self._gauges[name]
+
+    def histogram(self, name: str,
+                  relative_error: float = 0.02) -> StreamingHistogram:
+        with self._lock:
+            if name not in self._histograms:
+                self._histograms[name] = StreamingHistogram(
+                    name, relative_error=relative_error)
+            return self._histograms[name]
+
+    # ----------------------------------------------------------- events
+
+    def emit(self, kind: str, step: int = 0, **fields: Any) -> None:
+        """Write one kind-tagged record to the stream.
+
+        Serialization errors never propagate: telemetry must not be able
+        to kill a training step (the bus may be written from background
+        threads racing ``MetricsLogger.close``).
+        """
+        # Ring first: a record that fails to serialize to the stream is
+        # still worth having in the crash dump (values are scalarized at
+        # dump time, where there is no hot path to protect).
+        self._flight.append((time.time(), step, kind, fields))
+        try:
+            self._logger.log(step, kind=kind, **fields)
+        except MetricFieldError:
+            raise  # reserved-key collisions are caller bugs — keep loud
+        except Exception:
+            # Everything else — including the plain ValueError a write
+            # racing MetricsLogger.close() raises ("I/O operation on
+            # closed file", background reporter threads at shutdown) —
+            # must not take training down.
+            pass
+
+    def mfu(self, steps_per_sec: float) -> float | None:
+        """Live model FLOP utilization at the given step rate, or None when
+        the FLOP model / chip peak is unknown."""
+        if not self.flops_per_step or not self.peak_flops_per_sec:
+            return None
+        if steps_per_sec <= 0:
+            return 0.0
+        return self.flops_per_step * steps_per_sec / self.peak_flops_per_sec
+
+    def model_flops_per_sec(self, steps_per_sec: float) -> float | None:
+        if not self.flops_per_step:
+            return None
+        return self.flops_per_step * max(steps_per_sec, 0.0)
+
+    # --------------------------------------------------------- summary
+
+    def summary(self) -> dict[str, Any]:
+        """Aggregate view of every instrument (JSON-ready)."""
+        with self._lock:
+            counters = {c.name: c.value for c in self._counters.values()}
+            gauges = {g.name: g.value for g in self._gauges.values()}
+            hists = {h.name: h.snapshot() for h in self._histograms.values()}
+        return {"counters": counters, "gauges": gauges, "histograms": hists}
+
+    def emit_summary(self, step: int = 0, **extra: Any) -> dict[str, Any]:
+        """Write the ``run_summary`` record (and return its payload)."""
+        payload = self.summary()
+        self.emit("run_summary", step=step, **payload, **extra)
+        return payload
+
+    def prometheus_lines(self, prefix: str = "") -> list[str]:
+        """Render the instrument registry as Prometheus text exposition
+        lines (the serving tier's ``GET /metricz``, docs/observability.md
+        "Serving tracing & SLOs").
+
+        Instrument names may carry one label in brackets —
+        ``serve_ttft_ms[search]`` becomes
+        ``serve_ttft_ms{tenant="search"}`` — so per-tenant instruments
+        need no separate registry.  Counters append the conventional
+        ``_total`` suffix; histograms expose quantile samples plus
+        ``_count``/``_sum`` (the Prometheus summary shape, from the
+        constant-memory streaming estimator).  ``prefix`` filters by
+        instrument-name prefix ("" = everything).
+        """
+        with self._lock:
+            counters = [(c.name, c.value) for c in self._counters.values()]
+            gauges = [(g.name, g.value) for g in self._gauges.values()]
+            hists = list(self._histograms.items())
+        lines: list[str] = []
+        typed: set[str] = set()
+
+        def base_and_labels(name: str) -> tuple[str, str]:
+            base, label = split_instrument_label(name)
+            if label is not None:
+                return base, '{tenant="%s"}' % _prom_escape(label)
+            return base, ""
+
+        def type_line(base: str, kind: str) -> None:
+            if base not in typed:
+                typed.add(base)
+                lines.append(f"# TYPE {base} {kind}")
+
+        for name, value in sorted(counters):
+            if not name.startswith(prefix):
+                continue
+            base, labels = base_and_labels(name)
+            type_line(base + "_total", "counter")
+            lines.append(f"{base}_total{labels} {value}")
+        for name, value in sorted(gauges):
+            if not name.startswith(prefix) or value is None:
+                continue
+            base, labels = base_and_labels(name)
+            type_line(base, "gauge")
+            lines.append(f"{base}{labels} {_prom_num(value)}")
+        for name, hist in sorted(hists):
+            if not name.startswith(prefix) or not hist.count:
+                continue
+            base, labels = base_and_labels(name)
+            tenant = labels[1:-1] + "," if labels else ""
+            type_line(base, "summary")
+            for q in (0.5, 0.95, 0.99):
+                lines.append(
+                    f'{base}{{{tenant}quantile="{q}"}} '
+                    f"{_prom_num(hist.quantile(q))}")
+            lines.append(f"{base}_count{labels} {hist.count}")
+            lines.append(f"{base}_sum{labels} {_prom_num(hist.total)}")
+        return lines
+
+    # ------------------------------------------------- flight recorder
+
+    def enable_flight_recorder(self, path: str) -> None:
+        """Arm the crash dump destination (``<metrics_file>.flight``).
+        Until armed, :meth:`dump_flight` without an explicit path no-ops —
+        a bus without a stream has nothing worth dumping."""
+        self._flight_path = os.fspath(path)
+
+    def dump_flight(self, reason: str = "",
+                    path: str | None = None) -> str | None:
+        """Write the ring to ``path`` (default: the armed flight path) as
+        JSONL — one ``flight_header`` record (reason, pid, ring size) then
+        the buffered records oldest-first, each with its ``t_unix`` emit
+        time.  Runs from signal handlers and the pre-SIGKILL chaos hook,
+        so it must never raise and must reach the disk before returning
+        (the process may have microseconds to live).  Returns the path
+        written, or None when disarmed/failed."""
+        path = path if path is not None else self._flight_path
+        if path is None:
+            return None
+        try:
+            # Stamp the stream's static fields (the worker index) so the
+            # dump groups under the same worker as its parent stream in
+            # summarize_run.
+            static = dict(getattr(self._logger, "_static", None) or {})
+            # Background threads (heartbeat spans, health snapshots) may
+            # append mid-snapshot; list() over a mutating deque raises
+            # RuntimeError — retry rather than lose the whole dump to one
+            # concurrent emit (the appends themselves are GIL-atomic).
+            records: list = []
+            for _ in range(10):
+                try:
+                    records = list(self._flight)
+                    break
+                except RuntimeError:
+                    continue
+            with open(path, "w") as fh:
+                header = {"step": 0, "kind": "flight_header",
+                          "reason": str(reason), "pid": os.getpid(),
+                          "t_unix": round(time.time(), 6),
+                          "records": len(records)}
+                header.update(static)
+                fh.write(json.dumps(header) + "\n")
+                for t_unix, step, kind, fields in records:
+                    rec = {"step": _scalar(step), "kind": kind}
+                    rec.update(static)
+                    for key, value in fields.items():
+                        if key not in rec:
+                            rec[key] = _scalar(value)
+                    # A record that carries its own epoch stamp keeps it
+                    # (a span's t_unix is its START — overwriting it with
+                    # the emit time would shift every span late by its own
+                    # duration); the ring's emit time is the fallback.
+                    rec.setdefault("t_unix", round(t_unix, 6))
+                    fh.write(json.dumps(rec) + "\n")
+                fh.flush()
+                os.fsync(fh.fileno())
+            return path
+        except Exception:
+            return None  # dying processes don't get to crash twice
+
+
+def split_instrument_label(name: str) -> tuple[str, str | None]:
+    """Split the bracketed-instrument-name convention —
+    ``"serve_ttft_ms[search]"`` -> ``("serve_ttft_ms", "search")`` —
+    used for per-tenant instruments (``(name, None)`` when unlabelled).
+    The ONE parser for the convention: Prometheus rendering and the
+    serving ``/statz`` per-tenant fan-out both go through here."""
+    if name.endswith("]") and "[" in name:
+        base, _, label = name.partition("[")
+        return base, label[:-1]
+    return name, None
+
+
+def _prom_escape(value: str) -> str:
+    """Escape a Prometheus label value (backslash, quote, newline)."""
+    return (str(value).replace("\\", r"\\").replace('"', r"\"")
+            .replace("\n", r"\n"))
+
+
+def _prom_num(value: float) -> str:
+    """Prometheus sample value: integers bare, floats rounded sanely."""
+    value = float(value)
+    if value.is_integer() and abs(value) < 1e15:
+        return str(int(value))
+    return repr(round(value, 6))
+
+
+def timed_ms(fn: Callable, *args, **kwargs) -> tuple[Any, float]:
+    """Run ``fn`` and return ``(result, elapsed_milliseconds)`` — the
+    instrumentation one-liner for eval/checkpoint pause accounting."""
+    t0 = time.perf_counter()
+    out = fn(*args, **kwargs)
+    return out, (time.perf_counter() - t0) * 1000.0
