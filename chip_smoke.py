@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's serving path on one NVIDIA GPU.
+"""Drive the PyTorch/CUDA port's serving and training paths on one
+NVIDIA GPU.
 
     python3 chip_smoke.py
 
@@ -8,9 +9,11 @@ Phases, one JSON line each on stdout:
 1. ``env``: the card (``nvidia-smi`` name and power limit), torch, CUDA.
 2. ``build``: the hand-written CUDA kernels, compiled from ``csrc/``.
 3. ``kernels``: each kernel against its plain PyTorch version on the card,
-   at the serving path's shapes in bf16, with the tolerance stated below,
-   its time, the plain version's time, one library call's time (used only
-   here, never by the port) and the least time the card could take.
+   in bf16 at the shapes each path gives it (K1 and K3 at the serving
+   path's and the train step's, K2a and K2b at the train step's), with the
+   tolerance stated below, its time, the plain version's time, one
+   library call's time (used only here, never by the port) and the least
+   time the card could take.
 4. ``serve``: a GPT at the widths of the repo's GPT-406M (hidden 2048,
    8 layers, 16 heads, MLP 8192, vocab 256, bf16, random weights from a
    seeded generator) behind ``ServingServer``; 8 concurrent HTTP requests
@@ -19,16 +22,29 @@ Phases, one JSON line each on stdout:
    counters are set to 0 just before and read just after.  Before it, the
    ``profile`` line: ``torch.profiler`` over one more request, the card's
    busy share of it and the kernels that took its device time.
+5. ``train``: the flagship GPT train step (``bench.py``'s: the same
+   widths, fp32 master weights, bf16 compute, ``attention_backend=
+   "pallas"``, plus ``fused_ln=True``; Adam 3e-4, B=8, S=1024, the
+   synthetic LM stream) through ``TrainState`` and
+   ``build_sync_train_step``.  First one step's loss and gradients through
+   the kernels against the plain path with the same weights and batch;
+   then 30 steps with the launch counters set to 0 just before and read
+   just after (the loss must stay finite and fall); then the
+   ``train_profile`` line, ``torch.profiler`` over one more step.
 
 Then the card's name and power limit, the kernels' summary object, and
-last ``{"ok": true, "device": {...}}``.  Any failing phase raises: the
-script exits non-zero and prints no result.  Without CUDA it exits 2.
+last ``{"ok": true, "device": {...}}``.  A summary row's numbers and
+launches are the train step's (this path runs all four kernels); its
+``paths`` hold each path's own shape, numbers and launches.
+Any failing phase raises: the script exits non-zero and prints no
+result.  Without CUDA it exits 2.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import json
+import math
 import os
 import statistics
 import subprocess
@@ -48,11 +64,27 @@ K1_LSE_TOL = 1e-3
 # K3: fp32 statistics and output on both sides; only summation order
 # differs (~1e-6 relative on values of magnitude <= ~5).
 K3_TOL = 1e-4
+# K2a, K2b (bf16), max abs error over the largest gradient magnitude:
+# the kernels round P and dS to bf16 as tensor-core operands and each
+# gradient to bf16 once; the plain version computes in fp32 and rounds
+# once, so the two land within about one bf16 ulp (2^-8) of the largest
+# gradient.
+K2_REL_TOL = 1e-2
 # Whole model, bf16: prefill logits through both kernels against the
 # plain path (dense attention, plain LayerNorm) with the same weights.
 # Per-layer differences of a bf16 ulp in the attention output carry
 # through 8 residual layers to logits of magnitude ~1.
 MODEL_LOGIT_TOL = 0.1
+# One train step, kernel path against plain path (same fp32 masters and
+# batch, bf16 compute): the attention output differs by a bf16 ulp per
+# layer (as for the logits above), which the loss, a mean over ~8000
+# next-token terms, averages down; the gradients go through 8 layers of
+# bf16 matmuls on both sides, so they agree in direction and norm closely
+# but not bit for bit.  (Measured on an H100 at B=8: loss 8.5e-5 apart,
+# norms 2.3e-4 relative, cosine 0.999996; the limits leave ~9x room.)
+TRAIN_LOSS_TOL = 1e-3          # absolute, on a loss of ~6
+TRAIN_GRAD_NORM_RTOL = 2e-3    # relative difference of the global norms
+TRAIN_GRAD_MIN_COS = 0.999     # cosine of the flattened gradients
 
 # Published H100 SXM peaks (dense): bf16 tensor cores and HBM3.
 PEAK_BF16_FLOPS = 989e12
@@ -66,6 +98,8 @@ ENGINE = dict(num_slots=8, page_size=16, num_pages=512,
 PROMPT_LENS = (100, 777, 250, 512, 640, 333, 700, 128)
 NEW_TOKENS = 64
 SEED = 0
+# The flagship train step (bench.py:456-531, :694): B=8, S=1024, Adam 3e-4.
+TRAIN = dict(batch=8, seq_len=1024, lr=3e-4, steps=30)
 
 
 def emit(phase: str, **fields) -> None:
@@ -108,13 +142,83 @@ def bound(bytes_moved: float, flops: float) -> tuple[float, str]:
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def check_kernels(dev):
-    """Phase 3: each kernel against its plain version at the path's
-    shapes; returns the summary rows (launches filled in later)."""
+def check_k1(name, q, k, v, mask, out, lse, *, causal, window):
+    """K1's output and logsumexp against the plain version on the same
+    inputs; returns (max_abs_err of the output, of the live lse rows)."""
     import torch
+    from distributed_tensorflow_tpu_torch.ops import flash_attention as fa
+    ref, ref_lse = fa.flash_attention_reference(q, k, v, mask, causal=causal,
+                                                window=window)
+    torch.cuda.synchronize()
+    err = (out.float() - ref.float()).abs().max().item()
+    live = ref_lse > -1e29
+    lse_err = (lse - ref_lse)[live].abs().max().item()
+    if not (torch.isfinite(out).all() and err <= K1_OUT_TOL
+            and lse_err <= K1_LSE_TOL
+            and bool(((lse > -1e29) == live).all())):
+        raise AssertionError(f"K1 {name}: max_abs_err {err} (tol "
+                             f"{K1_OUT_TOL}), lse err {lse_err} (tol "
+                             f"{K1_LSE_TOL})")
+    if name == "masked_rows" and out[0, :10].abs().max().item() != 0:
+        raise AssertionError("K1: fully masked rows must be 0")
+    return err, lse_err
+
+
+def k1_timings(q, k, v, mask, valid, *, causal, window) -> dict:
+    """K1's time, the plain version's, SDPA's and the bound, on [B, S, H,
+    D] bf16 inputs whose query/key pairs ``valid`` allows."""
     import torch.nn.functional as F
     from distributed_tensorflow_tpu_torch.ops import flash_attention as fa
+    B, S, H, D = q.shape
+    pairs = valid.sum().item() * H
+    bytes_moved = 4 * B * S * H * D * 2 + B * H * S * 4 + (
+        0 if mask is None else B * S * 4)
+    b_ms, b_by = bound(bytes_moved, 4 * D * pairs)
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    if mask is None and causal and not window:
+        def lib():
+            return F.scaled_dot_product_attention(qt, kt, vt, is_causal=True)
+    else:
+        def lib():
+            return F.scaled_dot_product_attention(qt, kt, vt,
+                                                  attn_mask=valid)
+    kw = dict(causal=causal, window=window)
+    return dict(ms=cuda_ms(lambda: fa.flash_attention(q, k, v, mask, **kw)),
+                plain_ms=cuda_ms(lambda: fa.flash_attention_reference(
+                    q, k, v, mask, **kw)),
+                library_ms=cuda_ms(lib), bound_ms=b_ms, bound_by=b_by)
+
+
+def check_k3(name, x, scale, bias) -> dict:
+    """K3 against the plain version on [rows, H] ``x``, with its times."""
+    import torch
+    import torch.nn.functional as F
     from distributed_tensorflow_tpu_torch.ops import layer_norm as ln
+    rows, Hd = x.shape
+    out = ln.layer_norm(x, scale, bias)
+    ref = ln.layer_norm_reference(x, scale, bias)
+    torch.cuda.synchronize()
+    err = (out - ref).abs().max().item()
+    if not (out.dtype == torch.float32 and err <= K3_TOL):
+        raise AssertionError(f"K3 {name}: max_abs_err {err} (tol "
+                             f"{K3_TOL}), dtype {out.dtype}")
+    s16, b16 = scale.to(torch.bfloat16), bias.to(torch.bfloat16)
+    b_ms, b_by = bound(rows * Hd * (x.element_size() + 4) + 2 * Hd * 4,
+                       8 * rows * Hd)
+    return dict(
+        case=name, rows=rows, H=Hd, max_abs_err=err, tol=K3_TOL,
+        ms=cuda_ms(lambda: ln.layer_norm(x, scale, bias)),
+        plain_ms=cuda_ms(lambda: ln.layer_norm_reference(x, scale, bias)),
+        # bf16 weights: F.layer_norm's one-call form writes bf16.
+        library_ms=cuda_ms(lambda: F.layer_norm(x, (Hd,), s16, b16, 1e-6)),
+        bound_ms=b_ms, bound_by=b_by)
+
+
+def check_kernels(dev):
+    """Phase 3: each kernel against its plain version at the paths'
+    shapes; returns the summary rows (launches filled in later)."""
+    import torch
+    from distributed_tensorflow_tpu_torch.ops import flash_attention as fa
     from distributed_tensorflow_tpu_torch.ops.flash_attention import (
         attention_valid)
 
@@ -134,95 +238,180 @@ def check_kernels(dev):
     masked_head[0, :10] = 0        # causal rows 0..9 see no valid key
     cases = [("causal", 1, None, 0), ("kv_mask", 2, masked_tail, 0),
              ("window", 1, None, 256), ("masked_rows", 1, masked_head, 0)]
-    k1_cases, k1_err = [], 0.0
+    k1_cases = []
     for name, B, mask, window in cases:
         q, k, v = qkv(B)
         out, lse = fa.flash_attention(q, k, v, mask, causal=True,
                                       window=window)
-        ref, ref_lse = fa.flash_attention_reference(
-            q, k, v, mask, causal=True, window=window)
-        torch.cuda.synchronize()
-        err = (out.float() - ref.float()).abs().max().item()
-        live = ref_lse > -1e29
-        lse_err = (lse - ref_lse)[live].abs().max().item()
-        if not (torch.isfinite(out).all() and err <= K1_OUT_TOL
-                and lse_err <= K1_LSE_TOL
-                and bool(((lse > -1e29) == live).all())):
-            raise AssertionError(f"K1 {name}: max_abs_err {err} (tol "
-                                 f"{K1_OUT_TOL}), lse err {lse_err} (tol "
-                                 f"{K1_LSE_TOL})")
-        if name == "masked_rows" and out[0, :10].abs().max().item() != 0:
-            raise AssertionError("K1: fully masked rows must be 0")
+        err, lse_err = check_k1(name, q, k, v, mask, out, lse, causal=True,
+                                window=window)
         valid = attention_valid(B, S, mask, causal=True, window=window,
                                 device=dev)
-        pairs = valid.sum().item() * H
-        bytes_moved = 4 * B * S * H * D * 2 + B * H * S * 4 + (
-            0 if mask is None else B * S * 4)
-        b_ms, b_by = bound(bytes_moved, 4 * D * pairs)
-        qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
-        if name == "causal":
-            def lib():
-                return F.scaled_dot_product_attention(qt, kt, vt,
-                                                      is_causal=True)
-        else:
-            def lib(m=valid):
-                return F.scaled_dot_product_attention(qt, kt, vt,
-                                                      attn_mask=m)
-        row = dict(case=name, B=B, S=S, H=H, D=D, window=window,
-                   max_abs_err=err, tol=K1_OUT_TOL, lse_err=lse_err,
-                   lse_tol=K1_LSE_TOL,
-                   ms=cuda_ms(lambda: fa.flash_attention(
-                       q, k, v, mask, causal=True, window=window)),
-                   plain_ms=cuda_ms(lambda: fa.flash_attention_reference(
-                       q, k, v, mask, causal=True, window=window)),
-                   library_ms=cuda_ms(lib), bound_ms=b_ms, bound_by=b_by)
-        k1_cases.append(row)
-        k1_err = max(k1_err, err)
+        k1_cases.append(dict(
+            case=name, B=B, S=S, H=H, D=D, window=window, max_abs_err=err,
+            tol=K1_OUT_TOL, lse_err=lse_err, lse_tol=K1_LSE_TOL,
+            **k1_timings(q, k, v, mask, valid, causal=True, window=window)))
 
-    k3_cases, k3_err = [], 0.0
+    k3_cases = []
     Hd = WIDTH["hidden_size"]
-    for name, rows in (("prefill", S), ("decode", ENGINE["num_slots"])):
+    # The serving path's prefill and decode rows, and the train step's
+    # B*S rows of the bf16 residual stream.
+    for name, rows in (("prefill", S), ("decode", ENGINE["num_slots"]),
+                       ("train", TRAIN["batch"] * TRAIN["seq_len"])):
         x = torch.randn(rows, Hd, generator=g, device=dev).to(torch.bfloat16)
         scale = 1 + 0.1 * torch.randn(Hd, generator=g, device=dev)
         bias = 0.1 * torch.randn(Hd, generator=g, device=dev)
-        out = ln.layer_norm(x, scale, bias)
-        ref = ln.layer_norm_reference(x, scale, bias)
-        torch.cuda.synchronize()
-        err = (out - ref).abs().max().item()
-        if not (out.dtype == torch.float32 and err <= K3_TOL):
-            raise AssertionError(f"K3 {name}: max_abs_err {err} (tol "
-                                 f"{K3_TOL}), dtype {out.dtype}")
-        s16, b16 = scale.to(torch.bfloat16), bias.to(torch.bfloat16)
-        b_ms, b_by = bound(rows * Hd * (2 + 4) + 2 * Hd * 4, 8 * rows * Hd)
-        k3_cases.append(dict(
-            case=name, rows=rows, H=Hd, max_abs_err=err, tol=K3_TOL,
-            ms=cuda_ms(lambda: ln.layer_norm(x, scale, bias)),
-            plain_ms=cuda_ms(lambda: ln.layer_norm_reference(
-                x, scale, bias)),
-            # bf16 weights: F.layer_norm's one-call form writes bf16.
-            library_ms=cuda_ms(lambda: F.layer_norm(x, (Hd,), s16, b16,
-                                                    1e-6)),
-            bound_ms=b_ms, bound_by=b_by))
-        k3_err = max(k3_err, err)
-    emit("kernels", flash_attention_fwd=k1_cases, layer_norm_fwd=k3_cases)
+        k3_cases.append(check_k3(name, x, scale, bias))
+    k2 = check_backward_kernels(dev, g, H, D)
+    k1_all = k1_cases + [k2["fwd"]]
+    emit("kernels", flash_attention_fwd=k1_all,
+         layer_norm_fwd=k3_cases, flash_attention_bwd_dq=k2["dq"],
+         flash_attention_bwd_dkv=k2["dkv"])
 
-    def summary(name, source, replaces, cases, err):
-        main = cases[0]
-        return dict(name=name, route="cuda", source=source,
-                    replaces=replaces, launches=0, max_abs_err=err,
-                    ms=main["ms"], plain_ms=main["plain_ms"],
-                    bound_ms=main["bound_ms"], bound_by=main["bound_by"],
-                    library_ms=main["library_ms"])
+    def summary(name, file, replaces, by_path, cases):
+        """One row per kernel.  Its numbers are those of the train step's
+        shape, the path whose launches it reports; ``paths`` holds each
+        path's own case (launches filled in after the paths ran)."""
+        keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+        main = by_path["train"]
+        return dict(
+            name=name, route="cuda",
+            source=f"distributed_tensorflow_tpu_torch/csrc/{file}",
+            replaces=f"distributed_tensorflow_tpu/ops/pallas/{replaces}",
+            launches=0, max_abs_err=max(c["max_abs_err"] for c in cases),
+            **{k: main[k] for k in keys},
+            paths={path: dict(case=c["case"], launches=0,
+                              max_abs_err=c["max_abs_err"],
+                              **{k: c[k] for k in keys})
+                   for path, c in by_path.items()})
     return [
-        summary("flash_attention_fwd",
-                "distributed_tensorflow_tpu_torch/csrc/flash_attention.cu",
-                "distributed_tensorflow_tpu/ops/pallas/flash_attention.py"
-                ":119", k1_cases, k1_err),
-        summary("layer_norm_fwd",
-                "distributed_tensorflow_tpu_torch/csrc/layer_norm.cu",
-                "distributed_tensorflow_tpu/ops/pallas/layer_norm.py:38",
-                k3_cases, k3_err),
+        summary("flash_attention_fwd", "flash_attention.cu",
+                "flash_attention.py:119",
+                {"serve": k1_cases[0], "train": k2["fwd"]}, k1_all),
+        summary("layer_norm_fwd", "layer_norm.cu", "layer_norm.py:38",
+                {"serve": k3_cases[0], "train": k3_cases[2]}, k3_cases),
+        summary("flash_attention_bwd_dkv", "flash_attention_bwd.cu",
+                "flash_attention.py:425", {"train": k2["dkv"][0]},
+                k2["dkv"]),
+        summary("flash_attention_bwd_dq", "flash_attention_bwd.cu",
+                "flash_attention.py:465", {"train": k2["dq"][0]},
+                k2["dq"]),
     ]
+
+
+def check_backward_kernels(dev, g, H, D):
+    """K2b (dq, with delta) and K2a (dk, dv) against the plain backward at
+    the train step's shape (S=1024, H=16, D=128, bf16; B=8 for the causal
+    case the step runs, B=2 for the others), on the forward kernel's own
+    output and logsumexp, which are first held against the plain forward
+    (K1 at the train shape; its times in the causal case are the ``fwd``
+    row).  The library time is ``torch.autograd.grad`` through
+    ``F.scaled_dot_product_attention``, which computes dq, dk and dv in one
+    call: the same number stands in both rows."""
+    import torch
+    import torch.nn.functional as F
+    from distributed_tensorflow_tpu_torch.ops import flash_attention as fa
+    from distributed_tensorflow_tpu_torch.ops.flash_attention import (
+        attention_valid)
+
+    S = TRAIN["seq_len"]
+    tail = torch.ones(2, S, dtype=torch.int32, device=dev)
+    tail[1, S - 300:] = 0
+    head = torch.ones(2, S, dtype=torch.int32, device=dev)
+    head[0, :10] = 0               # causal rows 0..9 see no valid key
+    # (name, B, kv_mask, causal, window, head_dim)
+    cases = [("causal", TRAIN["batch"], None, True, 0, D),
+             ("kv_mask", 2, tail, True, 0, D),
+             ("window", 2, None, True, 256, D),
+             ("masked_rows", 2, head, True, 0, D),
+             ("non_causal", 2, tail, False, 0, D),
+             ("head_dim_64", 2, None, True, 0, 64)]
+    rows = {"dq": [], "dkv": [], "fwd": None}
+    for name, B, mask, causal, window, d in cases:
+        t = torch.randn(B, S, 3, H, d, generator=g, device=dev,
+                        dtype=torch.float32).to(torch.bfloat16)
+        q, k, v = t[:, :, 0], t[:, :, 1], t[:, :, 2]
+        with torch.no_grad():
+            out, lse = fa.flash_attention(q, k, v, mask, causal=causal,
+                                          window=window)
+        fwd_err, fwd_lse_err = check_k1(name, q, k, v, mask, out, lse,
+                                        causal=causal, window=window)
+        dout = torch.randn(B, S, H, d, generator=g, device=dev,
+                           dtype=torch.float32).to(torch.bfloat16)
+        kw = dict(causal=causal, window=window)
+
+        def run_dq():
+            return fa.flash_attention_backward_dq(q, k, v, mask, out, lse,
+                                                  dout, **kw)
+        dq, delta = run_dq()
+
+        def run_dkv():
+            return fa.flash_attention_backward_dkv(q, k, v, mask, lse,
+                                                   delta, dout, **kw)
+        dk, dv = run_dkv()
+
+        def plain():
+            return fa.flash_attention_backward_reference(
+                q, k, v, mask, out, lse, dout, **kw)
+        ref = plain()
+        torch.cuda.synchronize()
+        errs = {}
+        for gname, got, want in zip(("dq", "dk", "dv"), (dq, dk, dv), ref):
+            abs_err = (got.float() - want.float()).abs().max().item()
+            rel = abs_err / max(want.float().abs().max().item(), 1e-6)
+            if not (torch.isfinite(got).all() and rel <= K2_REL_TOL):
+                raise AssertionError(f"K2 {name} {gname}: max_abs_err "
+                                     f"{abs_err}, relative {rel} (tol "
+                                     f"{K2_REL_TOL})")
+            errs[gname] = (abs_err, rel)
+        if name == "masked_rows" and dq[0, :10].abs().max().item() != 0:
+            raise AssertionError("K2: dq of fully masked rows must be 0")
+
+        valid = attention_valid(B, S, mask, causal=causal, window=window,
+                                device=dev)
+        if name == "causal":
+            rows["fwd"] = dict(
+                case="train", B=B, S=S, H=H, D=d, window=window,
+                max_abs_err=fwd_err, tol=K1_OUT_TOL, lse_err=fwd_lse_err,
+                lse_tol=K1_LSE_TOL, **k1_timings(q, k, v, mask, valid,
+                                                 causal=causal,
+                                                 window=window))
+        pairs = valid.sum().item() * H
+        one = B * S * H * d * 2                  # one bf16 [B, S, H, D]
+        stats = B * H * S * 4                    # lse or delta, fp32
+        extra = 0 if mask is None else B * S * 4
+        qt, kt, vt = (x.detach().transpose(1, 2).requires_grad_()
+                      for x in (q, k, v))
+        if mask is None and causal and not window:
+            lib_out = F.scaled_dot_product_attention(qt, kt, vt,
+                                                     is_causal=True)
+        else:
+            lib_out = F.scaled_dot_product_attention(qt, kt, vt,
+                                                     attn_mask=valid)
+        lib_dout = dout.transpose(1, 2)
+
+        def lib():
+            return torch.autograd.grad(lib_out, (qt, kt, vt), lib_dout,
+                                       retain_graph=True)
+        plain_ms, lib_ms = cuda_ms(plain), cuda_ms(lib)
+        base = dict(case=name, B=B, S=S, H=H, D=d, causal=causal,
+                    window=window, tol_rel=K2_REL_TOL, plain_ms=plain_ms,
+                    library_ms=lib_ms)
+        # dq: reads q, k, v, o, dO and lse, writes dq and delta; S, dP, dQ.
+        b_ms, b_by = bound(6 * one + 2 * stats + extra, 3 * 2 * pairs * d)
+        rows["dq"].append(dict(base, max_abs_err=errs["dq"][0],
+                               rel_err=errs["dq"][1], ms=cuda_ms(run_dq),
+                               bound_ms=b_ms, bound_by=b_by))
+        # dkv: reads q, k, v, dO, lse and delta, writes dk and dv; S, dP,
+        # dV, dK.
+        b_ms, b_by = bound(6 * one + 2 * stats + extra, 4 * 2 * pairs * d)
+        rows["dkv"].append(dict(
+            base, max_abs_err=max(errs["dk"][0], errs["dv"][0]),
+            rel_err=max(errs["dk"][1], errs["dv"][1]), ms=cuda_ms(run_dkv),
+            bound_ms=b_ms, bound_by=b_by))
+        del t, ref, lib_out, qt, kt, vt
+    torch.cuda.empty_cache()
+    return rows
 
 
 def check_model(dev, model, gpt):
@@ -365,6 +554,175 @@ def serve(dev):
     return launches
 
 
+def gpt_train_flops(cfg, B: int, S: int) -> float:
+    """bench.py:523-531's analytic matmul flops of one train step (3x the
+    forward: dense layers, attention scores and values, LM head)."""
+    H, L, I, V = (cfg.hidden_size, cfg.num_layers, cfg.intermediate_size,
+                  cfg.vocab_size)
+    per_layer = (2 * B * S * H * 3 * H + 2 * B * S * H * H
+                 + 2 * 2 * B * S * S * H + 2 * 2 * B * S * H * I)
+    return 3 * (L * per_layer + 2 * B * S * H * V)
+
+
+def check_train_step(dev, model, loss_fn, batch) -> dict:
+    """One step's loss and gradients through the kernels against the plain
+    path (dense attention, plain LayerNorm) with the same weights and
+    batch."""
+    import torch
+    from distributed_tensorflow_tpu_torch.models import gpt
+
+    plain = gpt.GptLM(dataclasses.replace(
+        model.cfg, attention_backend="xla", fused_ln=False), device=dev,
+        param_dtype=torch.float32)
+    plain.load_state_dict(model.state_dict())
+    losses, grads = [], []
+    for m in (model, plain):
+        m.train()
+        m.zero_grad(set_to_none=True)
+        loss, _ = loss_fn(m, batch)
+        loss.backward()
+        losses.append(loss.item())
+        grads.append(torch.cat([p.grad.float().flatten()
+                                for p in m.parameters()]))
+        m.zero_grad(set_to_none=True)
+    del plain
+    norms = [gr.norm().item() for gr in grads]
+    out = dict(
+        batch=len(batch["tokens"]), loss_kernel=losses[0],
+        loss_plain=losses[1], loss_diff=abs(losses[0] - losses[1]),
+        grad_norm_kernel=norms[0], grad_norm_plain=norms[1],
+        grad_norm_rel_diff=abs(norms[0] - norms[1]) / norms[1],
+        grad_cos=torch.nn.functional.cosine_similarity(
+            grads[0], grads[1], dim=0).item(),
+        loss_tol=TRAIN_LOSS_TOL, grad_norm_rtol=TRAIN_GRAD_NORM_RTOL,
+        grad_min_cos=TRAIN_GRAD_MIN_COS)
+    del grads
+    torch.cuda.empty_cache()
+    if not (all(map(math.isfinite, losses))
+            and out["loss_diff"] <= TRAIN_LOSS_TOL
+            and out["grad_norm_rel_diff"] <= TRAIN_GRAD_NORM_RTOL
+            and out["grad_cos"] >= TRAIN_GRAD_MIN_COS):
+        raise AssertionError(f"train step, kernel vs plain path: {out}")
+    return out
+
+
+def profile_train_step(step, state, batch) -> dict:
+    """``torch.profiler`` over one train step: the card's busy share of
+    the step (the sum of its kernels' times over the step's wall time),
+    the kernels that take most of it, and the operators they ran under
+    (an operator's device time is that of the kernels it launched, and a
+    user annotation such as the optimizer step spans kernels on the
+    device's timeline too: only the kernels are summed)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        state, metrics = step(state, batch)
+        float(metrics["loss"])
+        torch.cuda.synchronize()
+        window_ms = (time.perf_counter() - t0) * 1e3
+    kernels, ops = [], []
+    for e in prof.key_averages():
+        us = getattr(e, "self_device_time_total",
+                     getattr(e, "self_cuda_time_total", 0))
+        if us > 0:
+            row = (e.key, us / 1e3, e.count)
+            kernel = (e.device_type == DeviceType.CUDA
+                      and not getattr(e, "is_user_annotation", False))
+            (kernels if kernel else ops).append(row)
+    kernels.sort(key=lambda r: -r[1])
+    ops.sort(key=lambda r: -r[1])
+    busy_ms = sum(r[1] for r in kernels)
+    return dict(window_ms=window_ms, device_busy_ms=busy_ms,
+                busy_share=busy_ms / window_ms if kernels else None,
+                top_kernels=[[k[:60], ms, n] for k, ms, n in kernels[:10]],
+                top_ops=[[k[:60], ms, n] for k, ms, n in ops[:10]])
+
+
+def train(dev, smi: str):
+    """Phase 5: the port's GPT train step at GPT-406M width."""
+    import torch
+    from distributed_tensorflow_tpu_torch.data.lm import make_lm_datasets
+    from distributed_tensorflow_tpu_torch.models import gpt
+    from distributed_tensorflow_tpu_torch.ops import flash_attention as fa
+    from distributed_tensorflow_tpu_torch.ops import layer_norm as ln
+    from distributed_tensorflow_tpu_torch.parallel.sync import (
+        build_sync_train_step)
+    from distributed_tensorflow_tpu_torch.training.optimizers import (
+        make_optimizer)
+    from distributed_tensorflow_tpu_torch.training.state import TrainState
+
+    t0 = time.perf_counter()
+    B, S, steps = TRAIN["batch"], TRAIN["seq_len"], TRAIN["steps"]
+    cfg = gpt.GptConfig(**WIDTH)
+    model = gpt.GptLM(cfg, device=dev, seed=SEED, param_dtype=torch.float32)
+    n_params = sum(p.numel() for p in model.parameters())
+    data = make_lm_datasets(cfg, seq_len=S).train
+
+    def loss_fn(m, batch):
+        tokens = torch.as_tensor(batch["tokens"], device=dev).long()
+        loss, acc = gpt.lm_loss(m(tokens), tokens)
+        return loss, {"accuracy": acc}
+
+    checked = check_train_step(dev, model, loss_fn, data.next_batch(B))
+    state = TrainState.create(model, make_optimizer("adam", TRAIN["lr"]))
+    step = build_sync_train_step(loss_fn, log_grad_norm=True)
+    batches = [data.next_batch(B) for _ in range(steps + 1)]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    setup_s = time.perf_counter() - t0
+
+    fa.launches = fa.dq_launches = fa.dkv_launches = ln.launches = 0
+    losses, step_ms, grad_norms = [], [], []
+    for batch in batches[:steps]:
+        t = time.perf_counter()
+        state, metrics = step(state, batch)
+        losses.append(float(metrics["loss"]))      # waits for the step
+        step_ms.append((time.perf_counter() - t) * 1e3)
+        grad_norms.append(float(metrics["grad_norm"]))
+    launches = {"flash_attention_fwd": fa.launches,
+                "flash_attention_bwd_dq": fa.dq_launches,
+                "flash_attention_bwd_dkv": fa.dkv_launches,
+                "layer_norm_fwd": ln.launches}
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    profiled = profile_train_step(step, state, batches[steps])
+
+    L = cfg.num_layers
+    per_step = {"flash_attention_fwd": L, "flash_attention_bwd_dq": L,
+                "flash_attention_bwd_dkv": L, "layer_norm_fwd": 2 * L + 1}
+    if launches != {k: n * steps for k, n in per_step.items()}:
+        raise AssertionError(f"train launches {launches}, expected "
+                             f"{per_step} per step x {steps}")
+    if not all(map(math.isfinite, losses)):
+        raise AssertionError(f"non-finite train loss: {losses}")
+    last5 = statistics.mean(losses[-5:])
+    if not last5 < losses[0]:
+        raise AssertionError(f"loss did not fall: first {losses[0]}, mean "
+                             f"of the last 5 {last5}")
+    if state.global_step != steps + 2:
+        raise AssertionError(f"global_step {state.global_step}")
+    med_ms = statistics.median(step_ms[2:])
+    flops = gpt_train_flops(cfg, B, S)
+    emit("train_profile", **profiled)
+    emit("train", model="gpt_406m_width", params=n_params, batch=B,
+         seq_len=S, steps=steps, optimizer="adam", lr=TRAIN["lr"],
+         loss_first=losses[0], loss_last5_mean=last5, losses=losses,
+         grad_norms=grad_norms, step_ms_median=med_ms, step_ms=step_ms,
+         tokens_per_s=B * S / (med_ms / 1e3),
+         model_tflops_per_step=flops / 1e12,
+         mfu=flops / (med_ms / 1e3) / PEAK_BF16_FLOPS,
+         peak_mem_gb=peak_gb, launches=launches,
+         launches_per_step=per_step, kernel_vs_plain=checked,
+         setup_s=setup_s, card=smi)
+    del state, model
+    torch.cuda.empty_cache()
+    return launches
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -388,9 +746,14 @@ def main() -> int:
          sources=[os.path.basename(s) for s in kernels.sources()])
 
     rows = check_kernels(dev)
-    launches = serve(dev)
+    by_path = {"serve": serve(dev)}
+    torch.cuda.empty_cache()
+    by_path["train"] = train(dev, smi)
     for row in rows:
-        row["launches"] = launches[row["name"]]
+        # The train step runs all four kernels: the row's launches are its.
+        row["launches"] = by_path["train"][row["name"]]
+        for path, sub in row["paths"].items():
+            sub["launches"] = by_path[path][row["name"]]
     print(smi, flush=True)
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -1,20 +1,31 @@
-"""GPT decoder-only LM, the serving subset of
+"""GPT decoder-only LM, the training and serving subset of
 ``distributed_tensorflow_tpu/models/gpt.py`` in PyTorch.
 
 Pre-LayerNorm decoder: activations in ``cfg.dtype`` (bf16 by default)
 with fp32 LayerNorm and softmax, causal attention through
 :func:`..ops.attention.dot_product_attention` (``attention_backend``
-``"xla"`` is plain tensor code, ``"pallas"`` the flash-attention kernel),
-LayerNorms through the LayerNorm kernel when ``fused_ln``.
+``"xla"`` is plain tensor code, ``"pallas"`` the flash-attention kernels,
+forward and backward), LayerNorms through the LayerNorm kernel when
+``fused_ln``.
 
 Parameters keep the JAX package's names and kernel layouts (flax
 ``Dense`` kernels are [in, out], ``DenseGeneral`` kernels e.g.
 [hidden, 3, heads, head_dim]), so :func:`params_from_jax` only renames
 and converts, and the int8 per-channel rule of :mod:`..ops.quant` groups
 the same values as in JAX.  Projection and MLP weights are stored in
-``cfg.dtype`` (flax keeps fp32 masters and casts them at each call: the
-same values reach the matmuls); embeddings, norms and the LM head stay
-fp32, as flax leaves them.
+``param_dtype`` and cast to ``cfg.dtype`` at each call, as flax does.
+A model built for training passes ``param_dtype=torch.float32``: fp32
+master weights, as flax keeps them (bf16 parameters would round small
+optimizer updates away).  Serving leaves the default, ``cfg.dtype``
+storage: the same values reach the matmuls in half the memory.
+Embeddings, norms and the LM head are fp32 either way, as flax leaves
+them.
+
+Training (:meth:`GptLM.forward` in ``train()`` mode with a generator):
+dropout on the embedding, the attention output and the MLP output, as in
+the JAX model, drawn from explicit generators; ``cfg.remat`` recomputes
+each block in the backward (``torch.utils.checkpoint``), as
+``nn.remat(GptBlock)`` does.
 
 Serving entry points (:meth:`GptLM.prefill`, :meth:`GptLM.decode_paged`)
 run under ``torch.no_grad()`` and update the KV caches and pools IN
@@ -30,6 +41,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from ..ops.attention import dot_product_attention
 from ..ops.layer_norm import LayerNorm
@@ -217,6 +229,28 @@ def _bits(t: torch.Tensor) -> torch.Tensor:
     return t
 
 
+def dropout(x: torch.Tensor, rate: float,
+            generator: torch.Generator) -> torch.Tensor:
+    """flax ``nn.Dropout`` in training: keep each element with probability
+    ``1 - rate`` and scale what is kept by ``1 / (1 - rate)``.  The mask is
+    drawn on ``x``'s device from ``generator``."""
+    keep_prob = 1.0 - rate
+    if keep_prob <= 0.0:
+        return torch.zeros_like(x)
+    keep = torch.rand(x.shape, generator=generator,
+                      device=x.device) < keep_prob
+    return torch.where(keep, x / keep_prob, torch.zeros_like(x))
+
+
+def _generator(seed: int | None, device) -> torch.Generator | None:
+    """A generator on ``device`` seeded by ``seed`` (None: no dropout)."""
+    if seed is None:
+        return None
+    g = torch.Generator(device=device)
+    g.manual_seed(seed)
+    return g
+
+
 def paged_write_index(page_table: torch.Tensor, positions: torch.Tensor,
                       num_pages: int, page: int):
     """Where each row's new token lands in a paged pool: ``(rows, phys,
@@ -234,12 +268,14 @@ def paged_write_index(page_table: torch.Tensor, positions: torch.Tensor,
 class GptBlock(nn.Module):
     """One pre-LN decoder block."""
 
-    def __init__(self, cfg: GptConfig, device=None):
+    def __init__(self, cfg: GptConfig, device=None,
+                 param_dtype: torch.dtype | None = None):
         super().__init__()
         self.cfg = cfg
         dtype = cfg.torch_dtype
         H, nh, hd = cfg.hidden_size, cfg.num_heads, cfg.head_dim
-        kw = dict(dtype=dtype, param_dtype=dtype, device=device)
+        kw = dict(dtype=dtype, param_dtype=param_dtype or dtype,
+                  device=device)
         self.ln_attn = _norm(cfg, device)
         if cfg.num_kv_heads == cfg.num_heads:
             self.qkv = Dense((H,), (3, nh, hd), **kw)
@@ -283,23 +319,33 @@ class GptBlock(nn.Module):
             return kv
         return torch.repeat_interleave(kv, groups, dim=2)
 
-    def _mlp(self, x: torch.Tensor) -> torch.Tensor:
+    def _drop(self, y: torch.Tensor,
+              g: torch.Generator | None) -> torch.Tensor:
+        return y if g is None else dropout(y, self.cfg.dropout_rate, g)
+
+    def _mlp(self, x: torch.Tensor,
+             g: torch.Generator | None = None) -> torch.Tensor:
         cfg = self.cfg
         h = self.ln_mlp(x).to(cfg.torch_dtype)
         if cfg.activation == "swiglu":
             h = F.silu(self.mlp_gate(h)) * self.mlp_in(h)
         else:
             h = F.gelu(self.mlp_in(h), approximate="tanh")   # flax nn.gelu
-        return x + self.mlp_out(h)
+        return x + self._drop(self.mlp_out(h), g)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor,
+                seed: int | None = None) -> torch.Tensor:
+        """``seed`` (training with dropout) seeds the block's own generator,
+        so a recomputation under remat draws the same masks; None runs
+        without dropout."""
+        g = _generator(seed, x.device)
         q, k, v = self._qkv(x)
         ctx = dot_product_attention(q, self._expand_kv(k),
                                     self._expand_kv(v), causal=True,
                                     window=self.cfg.attention_window,
                                     backend=self.cfg.attention_backend)
-        x = x + self.out(ctx)
-        return self._mlp(x)
+        x = x + self._drop(self.out(ctx), g)
+        return self._mlp(x, g)
 
     @staticmethod
     def _write_prefill(cache: torch.Tensor, fresh: torch.Tensor) -> None:
@@ -429,9 +475,12 @@ class GptLM(nn.Module):
 
     ``device`` defaults to ``cuda`` (raises without CUDA: pass
     ``device="cpu"`` for the CPU).  Weights are drawn from flax's default
-    initializers with a generator seeded by ``seed``."""
+    initializers with a generator seeded by ``seed``.  ``param_dtype``
+    stores the projection and MLP weights (default ``cfg.dtype``, the
+    serving storage; training passes ``torch.float32`` masters)."""
 
-    def __init__(self, cfg: GptConfig, *, device=None, seed: int = 0):
+    def __init__(self, cfg: GptConfig, *, device=None, seed: int = 0,
+                 param_dtype: torch.dtype | None = None):
         super().__init__()
         if cfg.matmul_int8 or cfg.attn_int8:
             raise NotImplementedError(
@@ -445,8 +494,9 @@ class GptLM(nn.Module):
         if cfg.pos_encoding != "rope":
             # flax creates pos_emb's parameters only when it is used.
             self.pos_emb = Embed(cfg.max_position, H, device=device)
-        self.layers = nn.ModuleList(GptBlock(cfg, device=device)
-                                    for _ in range(cfg.num_layers))
+        self.layers = nn.ModuleList(
+            GptBlock(cfg, device=device, param_dtype=param_dtype)
+            for _ in range(cfg.num_layers))
         self.ln_final = _norm(cfg, device)
         self.lm_head = Dense((H,), (cfg.vocab_size,), dtype=None,
                              param_dtype=torch.float32, device=device)
@@ -479,22 +529,41 @@ class GptLM(nn.Module):
                 if isinstance(module, LayerNorm):
                     module.bias.zero_()
 
-    def _embed(self, input_ids: torch.Tensor,
-               positions: torch.Tensor) -> torch.Tensor:
+    def _embed(self, input_ids: torch.Tensor, positions: torch.Tensor,
+               g: torch.Generator | None = None) -> torch.Tensor:
         x = self.word_emb(input_ids)
         if self.cfg.pos_encoding != "rope":
             x = x + self.pos_emb(positions)
+        if g is not None:
+            x = dropout(x, self.cfg.dropout_rate, g)
         return x.to(self.cfg.torch_dtype)
 
     def _head(self, x: torch.Tensor) -> torch.Tensor:
         return self.lm_head(self.ln_final(x))
 
-    def forward(self, input_ids: torch.Tensor) -> torch.Tensor:
+    def forward(self, input_ids: torch.Tensor,
+                rng: torch.Generator | None = None) -> torch.Tensor:
+        """Logits [B, S, vocab].  Dropout runs in ``train()`` mode when
+        ``cfg.dropout_rate > 0`` and then needs ``rng``: one seed per
+        block (and one for the embedding) is drawn from it, the JAX
+        model's per-call dropout key split."""
+        cfg = self.cfg
         S = input_ids.shape[1]
+        seeds = [None] * (cfg.num_layers + 1)
+        if self.training and cfg.dropout_rate > 0.0:
+            if rng is None:
+                raise ValueError("dropout in training mode needs rng (a "
+                                 "torch.Generator)")
+            seeds = torch.randint(0, 2 ** 62, (cfg.num_layers + 1,),
+                                  generator=rng, device=rng.device).tolist()
         x = self._embed(input_ids,
-                        torch.arange(S, device=input_ids.device)[None, :])
-        for layer in self.layers:
-            x = layer(x)
+                        torch.arange(S, device=input_ids.device)[None, :],
+                        _generator(seeds[0], input_ids.device))
+        for layer, seed in zip(self.layers, seeds[1:]):
+            if cfg.remat and torch.is_grad_enabled():
+                x = checkpoint(layer, x, seed, use_reentrant=False)
+            else:
+                x = layer(x, seed)
         return self._head(x)  # [B, S, vocab]
 
     @torch.no_grad()
@@ -554,6 +623,48 @@ def init_kv_pool(cfg: GptConfig, num_pages: int, page_size: int,
     kw = dict(dtype=_cache_dtype(cfg, dtype), device=resolve_device(device))
     return [(torch.zeros(shape, **kw), torch.zeros(shape, **kw))
             for _ in range(cfg.num_layers)]
+
+
+# ------------------------------------------------------- loss and data
+
+
+def lm_loss(logits: torch.Tensor, tokens: torch.Tensor,
+            label_smoothing: float = 0.0):
+    """Next-token cross-entropy over positions 0..S-2 predicting 1..S-1.
+
+    ``logits``: [B, S, vocab] from ``GptLM(tokens)``; targets are the same
+    token stream shifted left.  Returns (loss, next-token accuracy), both
+    0-dim tensors.  ``label_smoothing`` mixes the targets with uniform."""
+    pred = logits[:, :-1]
+    targets = tokens[:, 1:].long()
+    logp = F.log_softmax(pred, dim=-1)
+    ll = torch.gather(logp, -1, targets[..., None])[..., 0]
+    if label_smoothing > 0.0:
+        ll = ((1.0 - label_smoothing) * ll
+              + label_smoothing * logp.mean(dim=-1))
+    loss = -ll.mean()
+    acc = (pred.argmax(-1) == targets).float().mean()
+    return loss, acc
+
+
+def synthetic_lm_batch(seed: int, batch_size: int, seq_len: int,
+                       cfg: GptConfig) -> dict:
+    """Deterministic learnable byte stream: position-dependent affine bigram
+    (numpy int32, the JAX package's stream bit for bit).
+
+    ``x[t+1] = (3 * x[t] + t) % vocab`` with a random start and occasional
+    noise tokens: a model must use both the previous token and its
+    position, so a decoder learns it quickly while a unigram baseline
+    cannot."""
+    rng = np.random.default_rng(seed)
+    vocab = cfg.vocab_size
+    toks = np.empty((batch_size, seq_len), np.int32)
+    toks[:, 0] = rng.integers(0, vocab, batch_size)
+    for t in range(seq_len - 1):
+        toks[:, t + 1] = (3 * toks[:, t] + t) % vocab
+    noise = rng.random((batch_size, seq_len)) < 0.02
+    toks = np.where(noise, rng.integers(0, vocab, toks.shape), toks)
+    return {"tokens": toks.astype(np.int32)}
 
 
 # -------------------------------------------------------------- sampling

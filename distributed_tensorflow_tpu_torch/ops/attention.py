@@ -7,8 +7,9 @@ same functional entry point and backends:
 - ``"xla"`` (default): dense attention in plain tensor code; logits and
   softmax in fp32 whatever the activation dtype.  The name is kept so a
   config written for the JAX package means the same here.
-- ``"pallas"``: the blockwise flash-attention kernel
-  (:mod:`.flash_attention`, hand-written CUDA on the GPU).  It takes
+- ``"pallas"``: the blockwise flash-attention kernels
+  (:mod:`.flash_attention`, hand-written CUDA on the GPU), differentiable:
+  the backward runs the FlashAttention-2 dq and dk/dv kernels.  It takes
   every sequence length; there is no dense fallback for odd shapes.
 - ``"ring"`` / ``"ulysses"``: sequence parallelism has not been ported
   yet and raises.

@@ -1,21 +1,27 @@
-"""Flash attention forward on [B, S, H, D]: output plus per-row logsumexp.
+"""Flash attention on [B, S, H, D]: forward (output plus per-row
+logsumexp) and its FlashAttention-2 backward.
 
-Counterpart of the forward half of
-``distributed_tensorflow_tpu/ops/pallas/flash_attention.py``
-(``_flash_forward``).  :func:`flash_attention` is one wrapper around two
-implementations of the same function:
+Counterpart of ``distributed_tensorflow_tpu/ops/pallas/flash_attention.py``
+(``_flash_forward``, ``_flash_backward`` and the ``custom_vjp`` around
+them).  :func:`flash_attention` is differentiable: a
+:class:`torch.autograd.Function` whose forward saves q, k, v, the output
+and the logsumexp, and whose backward is :func:`flash_attention_backward`.
+Each direction is one wrapper around two implementations of the same
+function:
 
-- on CUDA tensors, the hand-written kernel ``csrc/flash_attention.cu``
-  (one thread block per (batch*head, 64-row Q tile), K/V tiles looped
-  inside the block, fp32 online softmax, WMMA bf16 fragments);
-- on CPU tensors, :func:`flash_attention_reference`, the plain PyTorch
-  version: the dense masked softmax of ``ops/attention.py``'s ``xla``
-  branch (the port of ``_dense_reference``), plus the same logsumexp.
+- on CUDA tensors, hand-written kernels: the forward
+  ``csrc/flash_attention.cu`` (one thread block per (batch*head, 64-row Q
+  tile), K/V tiles looped inside the block, fp32 online softmax, WMMA bf16
+  fragments), the backward ``csrc/flash_attention_bwd.cu`` (dq with delta,
+  then dk/dv, one block per 64-row tile each);
+- on CPU tensors, the plain PyTorch versions
+  :func:`flash_attention_reference` (the dense masked softmax of
+  ``ops/attention.py``'s ``xla`` branch, the port of ``_dense_reference``,
+  plus the logsumexp) and :func:`flash_attention_backward_reference` (the
+  FA-2 formulas of ``_bwd_block`` evaluated densely).
 
-A CUDA tensor never takes the plain version.  The kernel takes every S
-(the ragged last tile is masked) and reads q/k/v through their strides.
-The backward kernels have not been ported: a call that would need a
-gradient raises instead of differentiating through the plain version.
+A CUDA tensor never takes a plain version.  The kernels take every S (the
+ragged last tile is masked) and read q/k/v/o/dO through their strides.
 """
 
 from __future__ import annotations
@@ -26,16 +32,16 @@ import torch
 
 from . import kernels
 
-# Kernel launches since the last reset (the serving smoke run resets it,
-# drives the main path, and reads it back).
+# Kernel launches since the last reset (a smoke run resets them, drives
+# the main path, and reads them back): the forward, and the backward's dq
+# and dk/dv kernels.
 launches = 0
+dq_launches = 0
+dkv_launches = 0
 
 _NEG = -1e30
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _HEAD_DIMS = (64, 128)
-_BACKWARD_TODO = ("flash_attention has no backward kernel yet (ROADMAP.md, "
-                  "PyTorch port: K2 flash-attention backward); call it "
-                  "under torch.no_grad()")
 
 
 def attention_valid(B: int, S: int, kv_mask: torch.Tensor | None, *,
@@ -88,6 +94,41 @@ def flash_attention_reference(q, k, v, kv_mask=None, *, causal: bool,
     return out.to(q.dtype), lse.reshape(B * H, S)
 
 
+def flash_attention_backward_reference(q, k, v, kv_mask, o, lse, dout, *,
+                                       causal: bool, window: int = 0):
+    """Plain PyTorch version of the backward: (dq, dk, dv) in the inputs'
+    dtypes, from the forward's output ``o`` and logsumexp ``lse``
+    [B*H, S].  The FA-2 formulas of ``_bwd_block``, dense and in fp32:
+    ``delta = rowsum(dO * o)``; ``P = exp(scale * q k^T - lse)``, masked
+    before the exp (a fully masked row gives exact zeros, never inf * 0);
+    ``dS = P (dO v^T - delta)``; ``dq = scale dS k``,
+    ``dk = dS^T (scale q)``, ``dv = P^T dO``."""
+    B, S, H, D = q.shape
+    scale = 1.0 / math.sqrt(D)
+    valid = attention_valid(B, S, kv_mask, causal=causal, window=window,
+                            device=q.device)
+    qs = q.float() * scale
+    kf, vf, df = k.float(), v.float(), dout.float()
+    delta = (df * o.float()).sum(-1).permute(0, 2, 1)[..., None]  # [B,H,S,1]
+    logits = torch.einsum("bqhd,bkhd->bhqk", qs, kf)
+    logits = torch.where(valid, logits, _NEG)
+    p = torch.where(valid, torch.exp(logits - lse.reshape(B, H, S, 1)), 0.0)
+    dp = torch.einsum("bqhd,bkhd->bhqk", df, vf)
+    ds = p * (dp - delta)
+    dq = scale * torch.einsum("bhqk,bkhd->bqhd", ds, kf)
+    dk = torch.einsum("bhqk,bqhd->bkhd", ds, qs)
+    dv = torch.einsum("bhqk,bqhd->bkhd", p, df)
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+def _aligned(t: torch.Tensor) -> bool:
+    """Last dim contiguous and every row start on a 16-byte boundary, as
+    the kernels' 16-byte loads need."""
+    vec = 16 // t.element_size()
+    return (t.stride(-1) == 1 and t.data_ptr() % 16 == 0
+            and all(s % vec == 0 for s in t.stride()[:-1]))
+
+
 def _check_operand(name: str, t: torch.Tensor, q: torch.Tensor) -> None:
     if t.shape != q.shape:
         raise ValueError(f"{name} shape {tuple(t.shape)} != q shape "
@@ -97,24 +138,26 @@ def _check_operand(name: str, t: torch.Tensor, q: torch.Tensor) -> None:
                          f"{q.dtype} on {q.device}")
     if t.stride(-1) != 1:
         raise ValueError(f"{name}'s last dim must be contiguous")
-    vec = 16 // t.element_size()
-    if t.data_ptr() % 16 or any(s % vec for s in t.stride()[:-1]):
+    if not _aligned(t):
         raise ValueError(f"{name} rows must start on 16-byte boundaries "
                          f"(strides {t.stride()})")
 
 
-def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                    kv_mask: torch.Tensor | None = None, *, causal: bool,
-                    window: int = 0):
-    """Blockwise attention forward.  q, k, v: [B, S, H, D] (same shape and
-    dtype); ``kv_mask`` [B, S], nonzero = attend; ``window`` > 0 (causal
-    only) keeps each query's ``window`` most recent keys.  Returns
-    ``(out [B, S, H, D] in q.dtype, lse [B*H, S] fp32)``."""
-    if window and not causal:
-        raise ValueError("window > 0 requires causal=True")
-    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
-                                    or v.requires_grad):
-        raise NotImplementedError(_BACKWARD_TODO)
+def _check_cuda_call(q, kv_mask, *, name: str):
+    """Shared CUDA-side checks; returns the int32 mask (or None)."""
+    B, S, H, D = q.shape
+    if q.dtype not in _DTYPE_CODE:
+        raise ValueError(f"{name} takes fp32/bf16, got {q.dtype}")
+    if D not in _HEAD_DIMS:
+        raise ValueError(f"{name} takes head_dim in {_HEAD_DIMS}, got {D}")
+    if kv_mask is None:
+        return None
+    if kv_mask.shape != (B, S) or kv_mask.device != q.device:
+        raise ValueError(f"kv_mask must be [{B}, {S}] on {q.device}")
+    return (kv_mask != 0).to(torch.int32).contiguous()
+
+
+def _forward(q, k, v, kv_mask, *, causal: bool, window: int):
     if q.dim() != 4:
         raise ValueError(f"q must be [B, S, H, D], got {tuple(q.shape)}")
     if q.device.type == "cpu":
@@ -124,26 +167,17 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError(f"flash_attention runs on cuda or cpu, got "
                          f"{q.device}")
     B, S, H, D = q.shape
-    if q.dtype not in _DTYPE_CODE:
-        raise ValueError(f"flash_attention takes fp32/bf16, got {q.dtype}")
-    if D not in _HEAD_DIMS:
-        raise ValueError(f"flash_attention takes head_dim in {_HEAD_DIMS}, "
-                         f"got {D}")
+    mask = _check_cuda_call(q, kv_mask, name="flash_attention")
     for name, t in (("q", q), ("k", k), ("v", v)):
         _check_operand(name, t, q)
-    mask_ptr = None
-    if kv_mask is not None:
-        if kv_mask.shape != (B, S) or kv_mask.device != q.device:
-            raise ValueError(f"kv_mask must be [{B}, {S}] on {q.device}")
-        kv_mask = (kv_mask != 0).to(torch.int32).contiguous()
-        mask_ptr = kv_mask.data_ptr()
     out = torch.empty((B, S, H, D), dtype=q.dtype, device=q.device)
     lse = torch.empty((B * H, S), dtype=torch.float32, device=q.device)
     if out.numel() == 0:
         return out, lse
     lib = kernels.load()
     rc = lib.dtt_flash_attention_fwd(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), mask_ptr,
+        q.data_ptr(), k.data_ptr(), v.data_ptr(),
+        None if mask is None else mask.data_ptr(),
         out.data_ptr(), lse.data_ptr(), B, S, H, D,
         q.stride(0), q.stride(1), q.stride(2),
         k.stride(0), k.stride(1), k.stride(2),
@@ -154,3 +188,132 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     global launches
     launches += 1
     return out, lse
+
+
+def _backward_operands(q, k, v, kv_mask, lse, dout, o=None):
+    """CUDA-side checks shared by the backward kernels; returns the int32
+    mask, dO (copied only when the kernels' 16-byte row loads cannot read
+    it where it lies: autograd hands it over in any layout) and lse."""
+    if q.device.type != "cuda":
+        raise ValueError(f"the backward kernels run on cuda, got "
+                         f"{q.device}")
+    B, S, H, _ = q.shape
+    mask = _check_cuda_call(q, kv_mask, name="flash_attention_backward")
+    for name, t in (("q", q), ("k", k), ("v", v), ("o", o)):
+        if t is not None:
+            _check_operand(name, t, q)
+    if dout.dtype != q.dtype:
+        dout = dout.to(q.dtype)
+    if not _aligned(dout):
+        dout = dout.contiguous()
+    _check_operand("dout", dout, q)
+    if lse.shape != (B * H, S) or lse.dtype != torch.float32:
+        raise ValueError(f"lse must be fp32 [{B * H}, {S}], got "
+                         f"{lse.dtype} {tuple(lse.shape)}")
+    return mask, dout, lse.contiguous()
+
+
+def _launch_backward(entry: str, q, k, v, mask, o, dout, lse, delta,
+                     out_a, out_b, *, causal: bool, window: int) -> None:
+    B, S, H, D = q.shape
+    o_strides = o.stride()[:3] if o is not None else (0, 0, 0)
+    rc = getattr(kernels.load(), f"dtt_{entry}")(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(),
+        None if mask is None else mask.data_ptr(),
+        None if o is None else o.data_ptr(), dout.data_ptr(),
+        lse.data_ptr(), delta.data_ptr(), out_a.data_ptr(),
+        None if out_b is None else out_b.data_ptr(), B, S, H, D,
+        *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *o_strides,
+        *dout.stride()[:3], int(causal), int(window), 1.0 / math.sqrt(D),
+        _DTYPE_CODE[q.dtype], kernels.stream_handle(q.device))
+    kernels.check(rc, entry)
+
+
+def flash_attention_backward_dq(q, k, v, kv_mask, o, lse, dout, *,
+                                causal: bool, window: int = 0):
+    """The dq kernel (K2b) on CUDA tensors: ``(dq [B, S, H, D] in q.dtype,
+    delta [B*H, S] fp32)``, delta = rowsum(dO * o) for the dk/dv kernel."""
+    mask, dout, lse = _backward_operands(q, k, v, kv_mask, lse, dout, o)
+    B, S, H, _ = q.shape
+    dq = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+    delta = torch.empty((B * H, S), dtype=torch.float32, device=q.device)
+    if dq.numel():
+        _launch_backward("flash_attention_bwd_dq", q, k, v, mask, o, dout,
+                         lse, delta, dq, None, causal=causal, window=window)
+        global dq_launches
+        dq_launches += 1
+    return dq, delta
+
+
+def flash_attention_backward_dkv(q, k, v, kv_mask, lse, delta, dout, *,
+                                 causal: bool, window: int = 0):
+    """The dk/dv kernel (K2a) on CUDA tensors, given the dq kernel's
+    ``delta``: ``(dk, dv)`` [B, S, H, D] in the inputs' dtype."""
+    mask, dout, lse = _backward_operands(q, k, v, kv_mask, lse, dout)
+    if delta.shape != lse.shape or delta.dtype != torch.float32:
+        raise ValueError(f"delta must be fp32 {tuple(lse.shape)}")
+    dk = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+    dv = torch.empty_like(dk)
+    if dk.numel():
+        _launch_backward("flash_attention_bwd_dkv", q, k, v, mask, None,
+                         dout, lse, delta.contiguous(), dk, dv,
+                         causal=causal, window=window)
+        global dkv_launches
+        dkv_launches += 1
+    return dk, dv
+
+
+def flash_attention_backward(q, k, v, kv_mask, o, lse, dout, *,
+                             causal: bool, window: int = 0):
+    """Gradients (dq, dk, dv) of :func:`flash_attention`'s output, in the
+    inputs' dtypes, given the forward's output ``o`` and logsumexp ``lse``
+    [B*H, S] and the output gradient ``dout``.  CPU tensors take
+    :func:`flash_attention_backward_reference`; CUDA tensors launch the dq
+    kernel (which also writes delta) and then the dk/dv kernel."""
+    if q.device.type == "cpu":
+        return flash_attention_backward_reference(
+            q, k, v, kv_mask, o, lse, dout, causal=causal, window=window)
+    dq, delta = flash_attention_backward_dq(q, k, v, kv_mask, o, lse, dout,
+                                            causal=causal, window=window)
+    dk, dv = flash_attention_backward_dkv(q, k, v, kv_mask, lse, delta,
+                                          dout, causal=causal, window=window)
+    return dq, dk, dv
+
+
+class _FlashAttention(torch.autograd.Function):
+    """``jax.custom_vjp`` of ``_flash``: the forward saves q, k, v, the
+    output and the logsumexp; the backward runs the FA-2 kernels (or the
+    plain version on the CPU).  The logsumexp is not differentiable."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, kv_mask, causal, window):
+        out, lse = _forward(q, k, v, kv_mask, causal=causal, window=window)
+        ctx.save_for_backward(q, k, v, kv_mask, out, lse)
+        ctx.causal, ctx.window = causal, window
+        ctx.mark_non_differentiable(lse)
+        return out, lse
+
+    @staticmethod
+    def backward(ctx, dout, _dlse):
+        q, k, v, kv_mask, out, lse = ctx.saved_tensors
+        dq, dk, dv = flash_attention_backward(
+            q, k, v, kv_mask, out, lse, dout, causal=ctx.causal,
+            window=ctx.window)
+        return dq, dk, dv, None, None, None
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    kv_mask: torch.Tensor | None = None, *, causal: bool,
+                    window: int = 0):
+    """Blockwise attention, differentiable in q, k and v.  q, k, v:
+    [B, S, H, D] (same shape and dtype); ``kv_mask`` [B, S], nonzero =
+    attend; ``window`` > 0 (causal only) keeps each query's ``window``
+    most recent keys.  Returns ``(out [B, S, H, D] in q.dtype, lse
+    [B*H, S] fp32)``.  Without a gradient to record the forward runs
+    bare, without the autograd node's host cost."""
+    if window and not causal:
+        raise ValueError("window > 0 requires causal=True")
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                    or v.requires_grad):
+        return _FlashAttention.apply(q, k, v, kv_mask, causal, window)
+    return _forward(q, k, v, kv_mask, causal=causal, window=window)

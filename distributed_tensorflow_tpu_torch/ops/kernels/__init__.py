@@ -53,6 +53,15 @@ SIGNATURES = {
     # x, scale, bias, out, rows, H, eps, dtype (0 fp32, 1 bf16, 2 fp16),
     # stream
     "dtt_layer_norm_fwd": [_P, _P, _P, _P, _L, _I, _F, _I, _P],
+    # Both backward entry points: q, k, v, kv_mask, o, dout, lse, delta,
+    # out_a, out_b, B, S, H, D, q/k/v/o/dout strides (batch, seq, head) in
+    # elements, causal, window, scale, dtype (0 = fp32, 1 = bf16), stream.
+    # dq: writes delta and out_a = dq.  dkv: reads delta, writes
+    # out_a = dk and out_b = dv.
+    "dtt_flash_attention_bwd_dq": [_P] * 10 + [_I] * 4 + [_L] * 15
+                                  + [_I, _I, _F, _I, _P],
+    "dtt_flash_attention_bwd_dkv": [_P] * 10 + [_I] * 4 + [_L] * 15
+                                   + [_I, _I, _F, _I, _P],
 }
 
 _lock = threading.Lock()

@@ -11,8 +11,13 @@ function:
 
 A CUDA tensor never takes the plain version: the kernel launches or the
 call raises.  The output is fp32 for any input dtype, as the models'
-``nn.LayerNorm(dtype=jnp.float32)`` convention has it.  There is no
-backward kernel yet; a call that would need a gradient raises.
+``nn.LayerNorm(dtype=jnp.float32)`` convention has it.
+
+:func:`layer_norm` is differentiable through a
+:class:`torch.autograd.Function` whose backward recomputes the gradients
+through :func:`layer_norm_reference`, as the JAX package's
+``_fused_ln_bwd`` does through ``_dense_reference``: the JAX package has
+no LayerNorm backward kernel, so neither does the port.
 """
 
 from __future__ import annotations
@@ -42,14 +47,8 @@ def layer_norm_reference(x: torch.Tensor, scale: torch.Tensor,
             + bias.to(torch.float32))
 
 
-def layer_norm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
-               eps: float = 1e-6) -> torch.Tensor:
-    """LayerNorm of ``x`` [..., H] with ``scale``/``bias`` [H]; fp32 out."""
-    if torch.is_grad_enabled() and (x.requires_grad or scale.requires_grad
-                                    or bias.requires_grad):
-        raise NotImplementedError(
-            "layer_norm has no backward kernel yet (ROADMAP.md, PyTorch "
-            "port: training slice); call it under torch.no_grad()")
+def _forward(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
+             eps: float) -> torch.Tensor:
     if x.device.type == "cpu":
         return layer_norm_reference(x, scale, bias, eps)
     if x.device.type != "cuda":
@@ -81,6 +80,38 @@ def layer_norm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
     global launches
     launches += 1
     return out
+
+
+class _LayerNorm(torch.autograd.Function):
+    """``jax.custom_vjp`` of ``_fused_ln``: the kernel forward, and a
+    backward that differentiates the plain version at the saved inputs."""
+
+    @staticmethod
+    def forward(ctx, x, scale, bias, eps):
+        ctx.save_for_backward(x, scale, bias)
+        ctx.eps = eps
+        return _forward(x, scale, bias, eps)
+
+    @staticmethod
+    def backward(ctx, g):
+        saved = [t.detach().requires_grad_() for t in ctx.saved_tensors]
+        with torch.enable_grad():
+            y = layer_norm_reference(*saved, ctx.eps)
+        grads = torch.autograd.grad(y, saved, g)
+        return (*(gr if need else None
+                  for gr, need in zip(grads, ctx.needs_input_grad)), None)
+
+
+def layer_norm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
+               eps: float = 1e-6) -> torch.Tensor:
+    """LayerNorm of ``x`` [..., H] with ``scale``/``bias`` [H]; fp32 out;
+    differentiable in all three.  Without a gradient to record (the
+    serving path runs under ``no_grad``) the forward runs bare, without
+    the autograd node's host cost."""
+    if torch.is_grad_enabled() and (x.requires_grad or scale.requires_grad
+                                    or bias.requires_grad):
+        return _LayerNorm.apply(x, scale, bias, eps)
+    return _forward(x, scale, bias, eps)
 
 
 class LayerNorm(nn.Module):

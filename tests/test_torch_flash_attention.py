@@ -104,16 +104,6 @@ def test_xla_backend_matches_jax_with_full_mask():
                                rtol=TOL)
 
 
-def test_flash_requires_grad_raises_naming_roadmap():
-    q, k, v = (torch.from_numpy(a).requires_grad_()
-               for a in _qkv(1, 16, 1, 8, seed=3))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tfa.flash_attention(q, k, v, causal=True)
-    with torch.no_grad():
-        out, _ = tfa.flash_attention(q, k, v, causal=True)
-    assert out.shape == (1, 16, 1, 8)
-
-
 def test_attention_rejects_unported_and_unknown_backends():
     q, k, v = map(torch.from_numpy, _qkv(1, 8, 1, 8, seed=4))
     for backend in ("ring", "ulysses"):

@@ -9,6 +9,7 @@ runs without the repo's JAX test setup:
 import pytest
 import torch
 
+from distributed_tensorflow_tpu_torch.ops import attention as tattn
 from distributed_tensorflow_tpu_torch.ops import flash_attention as tfa
 from distributed_tensorflow_tpu_torch.ops import layer_norm as ln
 
@@ -68,3 +69,126 @@ def test_flash_kernel_matches_plain_on_card(cuda_device, dtype, S, D,
     live = ref_lse > -1e29
     assert torch.equal(lse > -1e29, live)
     torch.testing.assert_close(lse[live], ref_lse[live], atol=1e-3, rtol=0)
+
+
+def _rel_err(got, want):
+    """Max abs error over the largest reference magnitude."""
+    return ((got.float() - want.float()).abs().max()
+            / want.float().abs().max().clamp_min(1e-6)).item()
+
+
+# K2 against its plain version.  bf16: the kernels round P and dS to bf16
+# as tensor-core operands and the gradients to bf16 once; the plain
+# version computes in fp32 and rounds once, so the two land within about
+# one bf16 ulp (2^-8) of the largest gradient.  fp32: the order of fp32
+# sums only.
+K2_REL_TOL = {torch.bfloat16: 1e-2, torch.float32: 1e-5}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("S,D,causal,window,masked", [
+    (1024, 128, True, 0, False), (300, 128, True, 0, True),
+    (300, 64, True, 64, True), (100, 64, False, 0, True),
+    (48, 128, False, 0, False)])
+def test_flash_backward_kernels_match_plain_on_card(cuda_device, dtype, S,
+                                                    D, causal, window,
+                                                    masked):
+    g = torch.Generator(device=cuda_device).manual_seed(S + D)
+    B, H = 2, 4
+    fused = torch.randn(B, S, 3, H, D, generator=g, device=cuda_device
+                        ).to(dtype)
+    q, k, v = fused[:, :, 0], fused[:, :, 1], fused[:, :, 2]
+    mask = None
+    if masked:
+        mask = torch.rand(B, S, generator=g, device=cuda_device) > 0.3
+        mask[0, :5] = False                    # causal rows 0..4: no key
+    out, lse = tfa.flash_attention(q, k, v, mask, causal=causal,
+                                   window=window)
+    dout = torch.randn(B, S, H, D, generator=g, device=cuda_device).to(dtype)
+    dq0, dkv0 = tfa.dq_launches, tfa.dkv_launches
+    got = tfa.flash_attention_backward(q, k, v, mask, out, lse, dout,
+                                       causal=causal, window=window)
+    assert (tfa.dq_launches, tfa.dkv_launches) == (dq0 + 1, dkv0 + 1)
+    want = tfa.flash_attention_backward_reference(
+        q, k, v, mask, out, lse, dout, causal=causal, window=window)
+    torch.cuda.synchronize()
+    for name, a, b in zip(("dq", "dk", "dv"), got, want):
+        assert a.dtype == dtype and torch.isfinite(a).all(), name
+        assert _rel_err(a, b) <= K2_REL_TOL[dtype], (name, _rel_err(a, b))
+    if masked and causal:
+        assert not got[0][0, :5].any()         # exact zeros, not NaN
+
+
+@pytest.mark.cuda
+def test_flash_autograd_on_card_matches_dense_backend(cuda_device):
+    g = torch.Generator(device=cuda_device).manual_seed(1)
+    B, S, H, D = 2, 256, 4, 128
+    q, k, v = (torch.randn(B, S, H, D, generator=g, device=cuda_device)
+               .to(torch.bfloat16).requires_grad_() for _ in range(3))
+    dout = torch.randn(B, S, H, D, generator=g, device=cuda_device
+                       ).to(torch.bfloat16)
+    grads = []
+    for backend in ("pallas", "xla"):
+        out = tattn.dot_product_attention(q, k, v, causal=True,
+                                          backend=backend)
+        grads.append(torch.autograd.grad(out, (q, k, v), dout))
+    for a, b in zip(*grads):
+        # The dense path rounds its softmax weights to bf16 before the V
+        # product and differentiates through that rounding: ~2 bf16 ulps.
+        assert _rel_err(a, b) <= 2e-2
+
+
+@pytest.mark.cuda
+def test_layer_norm_grads_on_card_match_plain(cuda_device):
+    g = torch.Generator(device=cuda_device).manual_seed(2)
+    x = (torch.randn(64, 2048, generator=g, device=cuda_device) * 3 + 1
+         ).to(torch.bfloat16).requires_grad_()
+    scale = torch.randn(2048, generator=g, device=cuda_device
+                        ).requires_grad_()
+    bias = torch.randn(2048, generator=g, device=cuda_device).requires_grad_()
+    dy = torch.randn(64, 2048, generator=g, device=cuda_device)
+    before = ln.launches
+    got = torch.autograd.grad(ln.layer_norm(x, scale, bias), (x, scale, bias),
+                              dy)
+    assert ln.launches == before + 1
+    want = torch.autograd.grad(ln.layer_norm_reference(x, scale, bias),
+                               (x, scale, bias), dy)
+    # The backward differentiates the same plain formula on both sides.
+    for a, b in zip(got, want):
+        torch.testing.assert_close(a, b, atol=1e-4, rtol=1e-5)
+
+
+@pytest.mark.cuda
+def test_gpt_train_step_on_card_launches_every_kernel(cuda_device):
+    """A small GPT (head_dim 64: the kernels take 64 and 128) through
+    TrainState and the sync step: each kernel launches once per layer (K3
+    twice, plus the final norm) and the loss comes out in range."""
+    from distributed_tensorflow_tpu_torch.models import gpt
+    from distributed_tensorflow_tpu_torch.parallel.sync import (
+        build_sync_train_step)
+    from distributed_tensorflow_tpu_torch.training.optimizers import (
+        make_optimizer)
+    from distributed_tensorflow_tpu_torch.training.state import TrainState
+
+    cfg = gpt.GptConfig(hidden_size=256, num_layers=2, num_heads=4,
+                        intermediate_size=512, max_position=128,
+                        attention_backend="pallas", fused_ln=True)
+    model = gpt.GptLM(cfg, device=cuda_device, param_dtype=torch.float32)
+    state = TrainState.create(model, make_optimizer("adam", 1e-3))
+
+    def loss_fn(m, batch):
+        tokens = torch.as_tensor(batch["tokens"], device=cuda_device).long()
+        loss, acc = gpt.lm_loss(m(tokens), tokens)
+        return loss, {"accuracy": acc}
+
+    step = build_sync_train_step(loss_fn)
+    batch = gpt.synthetic_lm_batch(0, 4, 128, cfg)
+    counts = (tfa.launches, tfa.dq_launches, tfa.dkv_launches, ln.launches)
+    state, metrics = step(state, batch)
+    loss = float(metrics["loss"])
+    L = cfg.num_layers
+    assert (tfa.launches - counts[0], tfa.dq_launches - counts[1],
+            tfa.dkv_launches - counts[2], ln.launches - counts[3]) == (
+                L, L, L, 2 * L + 1)
+    assert 4.0 < loss < 7.0 and state.global_step == 2

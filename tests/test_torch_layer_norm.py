@@ -54,12 +54,6 @@ def test_layer_norm_module_carries_flax_names_and_fp32_params():
                                rtol=TOL)
 
 
-def test_layer_norm_without_backward_kernel_refuses_grad():
-    x = torch.ones(2, 8, requires_grad=True)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ln.layer_norm(x, torch.ones(8), torch.zeros(8))
-
-
 def test_layer_norm_rejects_other_devices():
     x = torch.ones(2, 8, device="meta")
     with pytest.raises(ValueError, match="cuda or cpu"):
