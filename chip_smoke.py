@@ -10,10 +10,12 @@ Phases, one JSON line each on stdout:
 2. ``build``: the hand-written CUDA kernels, compiled from ``csrc/``.
 3. ``kernels``: each kernel against its plain PyTorch version on the card,
    in bf16 at the shapes each path gives it (K1 and K3 at the serving
-   path's and the train step's, K2a and K2b at the train step's), with the
+   path's and the train step's, K2a and K2b at the train step's, K4 and
+   K5 at the int8 MLP's four call sites of the int8 train step, every
+   epilogue and prologue variant, and one small non-square case), with the
    tolerance stated below, its time, the plain version's time, one
-   library call's time (used only here, never by the port) and the least
-   time the card could take.
+   library call's time (used only here, never by the port; K4/K5 have two
+   labelled yardsticks) and the least time the card could take.
 4. ``serve``: a GPT at the widths of the repo's GPT-406M (hidden 2048,
    8 layers, 16 heads, MLP 8192, vocab 256, bf16, random weights from a
    seeded generator) behind ``ServingServer``; 8 concurrent HTTP requests
@@ -31,11 +33,19 @@ Phases, one JSON line each on stdout:
    then 30 steps with the launch counters set to 0 just before and read
    just after (the loss must stay finite and fall); then the
    ``train_profile`` line, ``torch.profiler`` over one more step.
+6. ``train_int8``: the same step with ``matmul_int8=True`` (bench.py's
+   int8 arm, :2271): each block's gelu MLP through K4 and K5.  The same
+   kernel-vs-plain check (the plain path also takes the plain versions of
+   K4/K5), 30 steps with exact launch counts (K4 and K5 twice per layer),
+   the loss held to the bf16 phase's, the ``train_int8_profile`` line,
+   then a short arm with ``attn_int8=True`` as well (bench.py :2287).
 
 Then the card's name and power limit, the kernels' summary object, and
 last ``{"ok": true, "device": {...}}``.  A summary row's numbers and
-launches are the train step's (this path runs all four kernels); its
-``paths`` hold each path's own shape, numbers and launches.
+launches are those of its main path (``main``: the train step for
+K1/K2/K3, the int8 train step for K4/K5); its ``paths`` hold each path's
+own shape, numbers and launches, and K4/K5 rows list both call sites of
+their path under ``sites``.
 Any failing phase raises: the script exits non-zero and prints no
 result.  Without CUDA it exits 2.
 """
@@ -85,9 +95,32 @@ MODEL_LOGIT_TOL = 0.1
 TRAIN_LOSS_TOL = 1e-3          # absolute, on a loss of ~6
 TRAIN_GRAD_NORM_RTOL = 2e-3    # relative difference of the global norms
 TRAIN_GRAD_MIN_COS = 0.999     # cosine of the flattened gradients
+# K4 and K5 against their plain versions (same inputs, bf16): both
+# quantize with the same IEEE division and round half to even, add the
+# exact int32 K-block products into fp32 in the same order with every
+# step rounded, and take tanh from the same tanhf, so the int8 codes are
+# the same unless an ulp of tanh or of an FMA moves a value across a
+# rounding boundary.  K4: every output within one bf16 ulp of the
+# largest magnitude.  K5: max abs error over the largest magnitude at
+# most 1e-2 (one flipped code moves one product by ~1/127 of a row's
+# range); its g output (elementwise, no quantizer) within one bf16 ulp of
+# each element.
+K5_REL_TOL = 1e-2
+# One int8 train step, kernel path against plain path (plain attention,
+# LayerNorm and K4/K5 versions, same fp32 masters and batch): on top of
+# the bf16 step's differences (see above), a bf16 ulp of difference in an
+# activation can flip one int8 code, which moves a product by ~1/127 of a
+# row's range; the loss averages ~8000 next-token terms and the
+# gradients 406M entries, so flips stay far inside these limits.
+TRAIN_INT8_LOSS_TOL = 1e-2
+TRAIN_INT8_GRAD_NORM_RTOL = 2e-2
+TRAIN_INT8_GRAD_MIN_COS = 0.99
+# tests/test_int8_train.py:366: the int8 loss within 10% (+0.1) of bf16.
+INT8_LOSS_RATIO, INT8_LOSS_SLACK = 1.10, 0.1
 
 # Published H100 SXM peaks (dense): bf16 tensor cores and HBM3.
 PEAK_BF16_FLOPS = 989e12
+PEAK_INT8_OPS = 1979e12
 PEAK_BYTES = 3.35e12
 
 WIDTH = dict(vocab_size=256, hidden_size=2048, num_layers=8, num_heads=16,
@@ -100,6 +133,7 @@ NEW_TOKENS = 64
 SEED = 0
 # The flagship train step (bench.py:456-531, :694): B=8, S=1024, Adam 3e-4.
 TRAIN = dict(batch=8, seq_len=1024, lr=3e-4, steps=30)
+ATTN_INT8_STEPS = 5
 
 
 def emit(phase: str, **fields) -> None:
@@ -136,9 +170,10 @@ def cuda_ms(fn, min_ms: float = 25.0) -> float:
     return window(reps) / reps
 
 
-def bound(bytes_moved: float, flops: float) -> tuple[float, str]:
+def bound(bytes_moved: float, flops: float,
+          peak_ops: float = PEAK_BF16_FLOPS) -> tuple[float, str]:
     t_bytes = bytes_moved / PEAK_BYTES * 1e3
-    t_ops = flops / PEAK_BF16_FLOPS * 1e3
+    t_ops = flops / peak_ops * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -263,39 +298,60 @@ def check_kernels(dev):
         bias = 0.1 * torch.randn(Hd, generator=g, device=dev)
         k3_cases.append(check_k3(name, x, scale, bias))
     k2 = check_backward_kernels(dev, g, H, D)
+    k45 = check_int8_kernels(dev, g)
     k1_all = k1_cases + [k2["fwd"]]
     emit("kernels", flash_attention_fwd=k1_all,
          layer_norm_fwd=k3_cases, flash_attention_bwd_dq=k2["dq"],
-         flash_attention_bwd_dkv=k2["dkv"])
+         flash_attention_bwd_dkv=k2["dkv"], quant_matmul=k45["k4"],
+         quant_matmul_nt=k45["k5"])
 
-    def summary(name, file, replaces, by_path, cases):
-        """One row per kernel.  Its numbers are those of the train step's
-        shape, the path whose launches it reports; ``paths`` holds each
-        path's own case (launches filled in after the paths ran)."""
-        keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
-        main = by_path["train"]
-        return dict(
+    keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+
+    def summary(name, file, replaces, main, by_path, cases, sites=()):
+        """One row per kernel.  Its numbers are those of its main path's
+        case, the path whose launches it reports; ``paths`` holds each
+        path's own case (launches filled in after the paths ran) and
+        ``sites`` a path's other call sites."""
+        row = dict(
             name=name, route="cuda",
             source=f"distributed_tensorflow_tpu_torch/csrc/{file}",
             replaces=f"distributed_tensorflow_tpu/ops/pallas/{replaces}",
-            launches=0, max_abs_err=max(c["max_abs_err"] for c in cases),
-            **{k: main[k] for k in keys},
+            main=main, launches=0,
+            max_abs_err=max(c["max_abs_err"] for c in cases),
+            **{k: by_path[main][k] for k in keys},
             paths={path: dict(case=c["case"], launches=0,
                               max_abs_err=c["max_abs_err"],
                               **{k: c[k] for k in keys})
                    for path, c in by_path.items()})
+        if sites:
+            row["library_bf16_ms"] = by_path[main]["library_bf16_ms"]
+            row["sites"] = [dict(case=c["case"], variant=c["variant"],
+                                 M=c["M"], K=c["K"], N=c["N"],
+                                 max_abs_err=c["max_abs_err"],
+                                 library_bf16_ms=c["library_bf16_ms"],
+                                 **{k: c[k] for k in keys}) for c in sites]
+        return row
+    k4, k5 = k45["k4"], k45["k5"]
     return [
         summary("flash_attention_fwd", "flash_attention.cu",
-                "flash_attention.py:119",
+                "flash_attention.py:119", "train",
                 {"serve": k1_cases[0], "train": k2["fwd"]}, k1_all),
         summary("layer_norm_fwd", "layer_norm.cu", "layer_norm.py:38",
-                {"serve": k3_cases[0], "train": k3_cases[2]}, k3_cases),
+                "train", {"serve": k3_cases[0], "train": k3_cases[2]},
+                k3_cases),
         summary("flash_attention_bwd_dkv", "flash_attention_bwd.cu",
-                "flash_attention.py:425", {"train": k2["dkv"][0]},
+                "flash_attention.py:425", "train", {"train": k2["dkv"][0]},
                 k2["dkv"]),
         summary("flash_attention_bwd_dq", "flash_attention_bwd.cu",
-                "flash_attention.py:465", {"train": k2["dq"][0]},
+                "flash_attention.py:465", "train", {"train": k2["dq"][0]},
                 k2["dq"]),
+        # Each runs at two call sites per layer of the int8 step: the
+        # row's numbers are the mlp_in site's (K4 its forward, K5 its
+        # dgrad with g), ``sites`` has both.
+        summary("quant_matmul", "quant_matmul.cu", "quant_matmul.py:93",
+                "train_int8", {"train_int8": k4[0]}, k4, sites=k4[:2]),
+        summary("quant_matmul_nt", "quant_matmul.cu", "quant_matmul.py:185",
+                "train_int8", {"train_int8": k5[1]}, k5, sites=k5[:2]),
     ]
 
 
@@ -410,6 +466,122 @@ def check_backward_kernels(dev, g, H, D):
             rel_err=max(errs["dk"][1], errs["dv"][1]), ms=cuda_ms(run_dkv),
             bound_ms=b_ms, bound_by=b_by))
         del t, ref, lib_out, qt, kt, vt
+    torch.cuda.empty_cache()
+    return rows
+
+
+def bf16_ulp(t):
+    """One bf16 ulp of each element's magnitude (8 significant bits)."""
+    import torch
+    _, e = torch.frexp(t.float())
+    return torch.ldexp(torch.ones_like(t, dtype=torch.float32), e - 8)
+
+
+def int8_case(dev, g, kind, case, M, K, N, block_k, variant):
+    """K4 (``kind`` "k4": x [M, K] @ qw [K, N]) or K5 ("k5": da [M, K]
+    against qw [N, K]) on bf16 inputs against its plain version, with its
+    times, the two yardsticks and the bound."""
+    import torch
+    from distributed_tensorflow_tpu_torch.ops import quant_matmul as qmm
+    bf = torch.bfloat16
+    a = torch.randn(M, K, generator=g, device=dev).to(bf)
+    if kind == "k4":
+        qw, sw = qmm.quantize_cols(
+            0.02 * torch.randn(K, N, generator=g, device=dev))
+        kw = dict(block_k=block_k)
+        args = [a, qw, sw, None, None]
+        if variant != "plain":
+            args[3] = 0.1 * torch.randn(N, generator=g, device=dev)
+        if variant == "bias_gelu_preact":
+            kw.update(activation="gelu", want_preact=True)
+        if variant == "bias_residual":
+            args[4] = torch.randn(M, N, generator=g, device=dev).to(bf)
+        kernel, plain = qmm.quantized_matmul, qmm.quantized_matmul_reference
+        extra = sum(t.numel() * t.element_size() for t in args[3:]
+                    if t is not None)
+        outs = 2 if kw.get("want_preact") else 1
+        bytes_moved = (a.numel() * 2 + qw.numel() + 4 * N + extra
+                       + outs * M * N * 2)
+        # [K, N] K-contiguous: the layout the library's int8 GEMM takes
+        # fast (row-major it ran ~6x slower on the H100).
+        qw_lib = qw.t().contiguous().t()
+    else:
+        qw, sw = qmm.quantize_cols(
+            0.02 * torch.randn(N, K, generator=g, device=dev))
+        kw = dict(block_k=block_k, want_g=variant == "dgelu_fold_want_g")
+        args = [a, qw, sw, None]
+        if variant != "fold":
+            kw["prologue"] = "dgelu_fold"
+            args[3] = (2 * torch.randn(M, K, generator=g, device=dev)).to(bf)
+        kernel = qmm.quantized_matmul_nt
+        plain = qmm.quantized_matmul_nt_reference
+        bytes_moved = (a.numel() * 2 * (1 if args[3] is None else 2)
+                       + qw.numel() + 4 * K + M * N * 2
+                       + (M * K * 2 if kw["want_g"] else 0))
+        qw_lib = qw.t()                          # [K, N], K-contiguous
+    got = kernel(*args, **kw)
+    want = plain(*args, **kw)
+    torch.cuda.synchronize()
+    got = got if isinstance(got, tuple) else (got,)
+    want = want if isinstance(want, tuple) else (want,)
+    errs = []
+    for name, x, y in zip(("out", "second"), got, want):
+        err = (x.float() - y.float()).abs().max().item()
+        peak = y.float().abs().max().item()
+        if kind == "k5" and name == "second":          # g: elementwise
+            ok = bool(((x.float() - y.float()).abs()
+                       <= bf16_ulp(y)).all())
+            tol = "one bf16 ulp of each element"
+        elif kind == "k5":
+            ok, tol = err <= K5_REL_TOL * peak, f"{K5_REL_TOL} x peak"
+        else:
+            ulp = bf16_ulp(torch.tensor(peak)).item()
+            ok, tol = err <= ulp, f"one bf16 ulp of the peak ({ulp})"
+        if not (ok and torch.isfinite(x).all()):
+            raise AssertionError(f"{kind} {case} {variant} {name}: "
+                                 f"max_abs_err {err} at peak {peak}, tol "
+                                 f"{tol}")
+        errs.append(dict(output=name, max_abs_err=err, peak=peak, tol=tol))
+    b_ms, b_by = bound(bytes_moved, 2 * M * K * N, PEAK_INT8_OPS)
+    q_lib = torch.randint(-127, 128, (M, K), generator=g, device=dev,
+                          dtype=torch.int8)
+    w_bf16 = torch.randn(K, N, generator=g, device=dev).to(bf)
+    row = dict(case=case, variant=variant, M=M, K=K, N=N,
+               block_k=qmm._pick(K, block_k),
+               max_abs_err=max(e["max_abs_err"] for e in errs), errors=errs,
+               ms=cuda_ms(lambda: kernel(*args, **kw)),
+               plain_ms=cuda_ms(lambda: plain(*args, **kw)),
+               bound_ms=b_ms, bound_by=b_by,
+               # Yardsticks, never called by the port: the library's int8
+               # GEMM on operands already quantized, and the bf16 GEMM of
+               # the same M, K, N.
+               library_ms=cuda_ms(lambda: torch._int_mm(q_lib, qw_lib)),
+               library="torch._int_mm on pre-quantized int8 operands",
+               library_bf16_ms=cuda_ms(lambda: torch.matmul(a, w_bf16)))
+    del args, got, want, q_lib, w_bf16
+    return row
+
+
+def check_int8_kernels(dev, g):
+    """K4 and K5 at the int8 train step's four call sites (M = B*S = 8192
+    rows of GPT-406M: mlp_in H=2048 -> I=8192, mlp_out I -> H, and their
+    dgrads) in the variants those sites use, the other variants at the
+    same shapes, and one small non-square case (M=200, K=384 in three
+    K-blocks of 128, N=640)."""
+    M = TRAIN["batch"] * TRAIN["seq_len"]
+    H, I = WIDTH["hidden_size"], WIDTH["intermediate_size"]
+    k4 = [("mlp_in", M, H, I, 512, "bias_gelu_preact"),
+          ("mlp_out", M, I, H, 1024, "bias"),
+          ("mlp_out", M, I, H, 1024, "plain"),
+          ("mlp_out", M, I, H, 1024, "bias_residual"),
+          ("mini", 200, 384, 640, 512, "bias_gelu_preact")]
+    k5 = [("mlp_out_dgrad", M, H, I, 1024, "fold"),
+          ("mlp_in_dgrad", M, I, H, 512, "dgelu_fold_want_g"),
+          ("mlp_in_dgrad", M, I, H, 512, "dgelu_fold"),
+          ("mini", 200, 384, 640, 512, "dgelu_fold_want_g")]
+    rows = {"k4": [int8_case(dev, g, "k4", *c) for c in k4],
+            "k5": [int8_case(dev, g, "k5", *c) for c in k5]}
+    import torch
     torch.cuda.empty_cache()
     return rows
 
@@ -564,12 +736,28 @@ def gpt_train_flops(cfg, B: int, S: int) -> float:
     return 3 * (L * per_layer + 2 * B * S * H * V)
 
 
-def check_train_step(dev, model, loss_fn, batch) -> dict:
+def check_train_step(dev, model, loss_fn, batch, tols):
     """One step's loss and gradients through the kernels against the plain
-    path (dense attention, plain LayerNorm) with the same weights and
-    batch."""
+    path (dense attention, plain LayerNorm and, for ``matmul_int8``, the
+    plain versions of K4/K5) with the same weights and batch.  ``tols``:
+    (loss, relative grad norm, min cosine)."""
+    import contextlib
     import torch
     from distributed_tensorflow_tpu_torch.models import gpt
+    from distributed_tensorflow_tpu_torch.ops import quant_matmul as qmm
+    from distributed_tensorflow_tpu_torch.ops import quant_train as qt
+
+    @contextlib.contextmanager
+    def plain_versions():
+        """The int8 MLP through the plain versions of K4/K5, for this
+        comparison only (the wrappers launch the kernels on the card)."""
+        saved = qt.quantized_matmul, qt.quantized_matmul_nt
+        qt.quantized_matmul = qmm.quantized_matmul_reference
+        qt.quantized_matmul_nt = qmm.quantized_matmul_nt_reference
+        try:
+            yield
+        finally:
+            qt.quantized_matmul, qt.quantized_matmul_nt = saved
 
     plain = gpt.GptLM(dataclasses.replace(
         model.cfg, attention_backend="xla", fused_ln=False), device=dev,
@@ -579,14 +767,17 @@ def check_train_step(dev, model, loss_fn, batch) -> dict:
     for m in (model, plain):
         m.train()
         m.zero_grad(set_to_none=True)
-        loss, _ = loss_fn(m, batch)
-        loss.backward()
+        with (plain_versions() if m is plain and m.cfg.matmul_int8
+              else contextlib.nullcontext()):
+            loss, _ = loss_fn(m, batch)
+            loss.backward()
         losses.append(loss.item())
         grads.append(torch.cat([p.grad.float().flatten()
                                 for p in m.parameters()]))
         m.zero_grad(set_to_none=True)
     del plain
     norms = [gr.norm().item() for gr in grads]
+    loss_tol, norm_rtol, min_cos = tols
     out = dict(
         batch=len(batch["tokens"]), loss_kernel=losses[0],
         loss_plain=losses[1], loss_diff=abs(losses[0] - losses[1]),
@@ -594,14 +785,13 @@ def check_train_step(dev, model, loss_fn, batch) -> dict:
         grad_norm_rel_diff=abs(norms[0] - norms[1]) / norms[1],
         grad_cos=torch.nn.functional.cosine_similarity(
             grads[0], grads[1], dim=0).item(),
-        loss_tol=TRAIN_LOSS_TOL, grad_norm_rtol=TRAIN_GRAD_NORM_RTOL,
-        grad_min_cos=TRAIN_GRAD_MIN_COS)
+        loss_tol=loss_tol, grad_norm_rtol=norm_rtol, grad_min_cos=min_cos)
     del grads
     torch.cuda.empty_cache()
     if not (all(map(math.isfinite, losses))
-            and out["loss_diff"] <= TRAIN_LOSS_TOL
-            and out["grad_norm_rel_diff"] <= TRAIN_GRAD_NORM_RTOL
-            and out["grad_cos"] >= TRAIN_GRAD_MIN_COS):
+            and out["loss_diff"] <= loss_tol
+            and out["grad_norm_rel_diff"] <= norm_rtol
+            and out["grad_cos"] >= min_cos):
         raise AssertionError(f"train step, kernel vs plain path: {out}")
     return out
 
@@ -643,13 +833,36 @@ def profile_train_step(step, state, batch) -> dict:
                 top_ops=[[k[:60], ms, n] for k, ms, n in ops[:10]])
 
 
-def train(dev, smi: str):
-    """Phase 5: the port's GPT train step at GPT-406M width."""
+def launch_counts() -> dict:
+    """Every kernel's launch counter, by kernel name."""
+    from distributed_tensorflow_tpu_torch.ops import flash_attention as fa
+    from distributed_tensorflow_tpu_torch.ops import layer_norm as ln
+    from distributed_tensorflow_tpu_torch.ops import quant_matmul as qmm
+    return {"flash_attention_fwd": fa.launches,
+            "flash_attention_bwd_dq": fa.dq_launches,
+            "flash_attention_bwd_dkv": fa.dkv_launches,
+            "layer_norm_fwd": ln.launches,
+            "quant_matmul": qmm.launches,
+            "quant_matmul_nt": qmm.nt_launches}
+
+
+def reset_launch_counts() -> None:
+    from distributed_tensorflow_tpu_torch.ops import flash_attention as fa
+    from distributed_tensorflow_tpu_torch.ops import layer_norm as ln
+    from distributed_tensorflow_tpu_torch.ops import quant_matmul as qmm
+    fa.launches = fa.dq_launches = fa.dkv_launches = ln.launches = 0
+    qmm.launches = qmm.nt_launches = 0
+
+
+def train_run(dev, cfg, steps: int, check_tols=None,
+              profile=True) -> dict:
+    """The flagship step of ``cfg`` (fp32 masters, Adam, B=8, S=1024, the
+    synthetic stream from its seed): the kernel-vs-plain check when
+    ``check_tols`` is given, then ``steps`` steps with the launch counters
+    set to 0 just before and read just after, then one profiled step."""
     import torch
     from distributed_tensorflow_tpu_torch.data.lm import make_lm_datasets
     from distributed_tensorflow_tpu_torch.models import gpt
-    from distributed_tensorflow_tpu_torch.ops import flash_attention as fa
-    from distributed_tensorflow_tpu_torch.ops import layer_norm as ln
     from distributed_tensorflow_tpu_torch.parallel.sync import (
         build_sync_train_step)
     from distributed_tensorflow_tpu_torch.training.optimizers import (
@@ -657,8 +870,7 @@ def train(dev, smi: str):
     from distributed_tensorflow_tpu_torch.training.state import TrainState
 
     t0 = time.perf_counter()
-    B, S, steps = TRAIN["batch"], TRAIN["seq_len"], TRAIN["steps"]
-    cfg = gpt.GptConfig(**WIDTH)
+    B, S = TRAIN["batch"], TRAIN["seq_len"]
     model = gpt.GptLM(cfg, device=dev, seed=SEED, param_dtype=torch.float32)
     n_params = sum(p.numel() for p in model.parameters())
     data = make_lm_datasets(cfg, seq_len=S).train
@@ -668,7 +880,10 @@ def train(dev, smi: str):
         loss, acc = gpt.lm_loss(m(tokens), tokens)
         return loss, {"accuracy": acc}
 
-    checked = check_train_step(dev, model, loss_fn, data.next_batch(B))
+    checked = None
+    if check_tols is not None:
+        checked = check_train_step(dev, model, loss_fn, data.next_batch(B),
+                                   check_tols)
     state = TrainState.create(model, make_optimizer("adam", TRAIN["lr"]))
     step = build_sync_train_step(loss_fn, log_grad_norm=True)
     batches = [data.next_batch(B) for _ in range(steps + 1)]
@@ -676,7 +891,7 @@ def train(dev, smi: str):
     torch.cuda.reset_peak_memory_stats()
     setup_s = time.perf_counter() - t0
 
-    fa.launches = fa.dq_launches = fa.dkv_launches = ln.launches = 0
+    reset_launch_counts()
     losses, step_ms, grad_norms = [], [], []
     for batch in batches[:steps]:
         t = time.perf_counter()
@@ -684,43 +899,95 @@ def train(dev, smi: str):
         losses.append(float(metrics["loss"]))      # waits for the step
         step_ms.append((time.perf_counter() - t) * 1e3)
         grad_norms.append(float(metrics["grad_norm"]))
-    launches = {"flash_attention_fwd": fa.launches,
-                "flash_attention_bwd_dq": fa.dq_launches,
-                "flash_attention_bwd_dkv": fa.dkv_launches,
-                "layer_norm_fwd": ln.launches}
+    launches = launch_counts()
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
-    profiled = profile_train_step(step, state, batches[steps])
+    profiled = profile_train_step(step, state, batches[steps]) \
+        if profile else None
+    if not all(map(math.isfinite, losses)):
+        raise AssertionError(f"non-finite train loss: {losses}")
+    if state.global_step != steps + 1 + int(profile):
+        raise AssertionError(f"global_step {state.global_step}")
+    del state, model
+    torch.cuda.empty_cache()
+    med_ms = statistics.median(step_ms[2:]) if steps > 2 else None
+    flops = gpt_train_flops(cfg, B, S)
+    return dict(
+        params=n_params, batch=B, seq_len=S, steps=steps,
+        optimizer="adam", lr=TRAIN["lr"], loss_first=losses[0],
+        loss_last5_mean=statistics.mean(losses[-5:]), losses=losses,
+        grad_norms=grad_norms, step_ms_median=med_ms, step_ms=step_ms,
+        tokens_per_s=B * S / (med_ms / 1e3) if med_ms else None,
+        model_tflops_per_step=flops / 1e12,
+        mfu=flops / (med_ms / 1e3) / PEAK_BF16_FLOPS if med_ms else None,
+        peak_mem_gb=peak_gb, launches=launches, kernel_vs_plain=checked,
+        setup_s=setup_s, profiled=profiled)
 
+
+def expect_launches(name, launches, per_step, steps) -> None:
+    want = {k: per_step.get(k, 0) * steps for k in launches}
+    if launches != want:
+        raise AssertionError(f"{name} launches {launches}, expected "
+                             f"{per_step} per step x {steps}")
+
+
+def falls(name, run) -> None:
+    if not run["loss_last5_mean"] < run["loss_first"]:
+        raise AssertionError(f"{name}: loss did not fall: first "
+                             f"{run['loss_first']}, mean of the last 5 "
+                             f"{run['loss_last5_mean']}")
+
+
+def train(dev, smi: str):
+    """Phase 5: the port's GPT train step at GPT-406M width.  Returns the
+    launches and the step's numbers the int8 phase is held to."""
+    from distributed_tensorflow_tpu_torch.models import gpt
+    cfg = gpt.GptConfig(**WIDTH)
+    run = train_run(dev, cfg, TRAIN["steps"], check_tols=(
+        TRAIN_LOSS_TOL, TRAIN_GRAD_NORM_RTOL, TRAIN_GRAD_MIN_COS))
     L = cfg.num_layers
     per_step = {"flash_attention_fwd": L, "flash_attention_bwd_dq": L,
                 "flash_attention_bwd_dkv": L, "layer_norm_fwd": 2 * L + 1}
-    if launches != {k: n * steps for k, n in per_step.items()}:
-        raise AssertionError(f"train launches {launches}, expected "
-                             f"{per_step} per step x {steps}")
-    if not all(map(math.isfinite, losses)):
-        raise AssertionError(f"non-finite train loss: {losses}")
-    last5 = statistics.mean(losses[-5:])
-    if not last5 < losses[0]:
-        raise AssertionError(f"loss did not fall: first {losses[0]}, mean "
-                             f"of the last 5 {last5}")
-    if state.global_step != steps + 2:
-        raise AssertionError(f"global_step {state.global_step}")
-    med_ms = statistics.median(step_ms[2:])
-    flops = gpt_train_flops(cfg, B, S)
-    emit("train_profile", **profiled)
-    emit("train", model="gpt_406m_width", params=n_params, batch=B,
-         seq_len=S, steps=steps, optimizer="adam", lr=TRAIN["lr"],
-         loss_first=losses[0], loss_last5_mean=last5, losses=losses,
-         grad_norms=grad_norms, step_ms_median=med_ms, step_ms=step_ms,
-         tokens_per_s=B * S / (med_ms / 1e3),
-         model_tflops_per_step=flops / 1e12,
-         mfu=flops / (med_ms / 1e3) / PEAK_BF16_FLOPS,
-         peak_mem_gb=peak_gb, launches=launches,
-         launches_per_step=per_step, kernel_vs_plain=checked,
-         setup_s=setup_s, card=smi)
-    del state, model
-    torch.cuda.empty_cache()
-    return launches
+    expect_launches("train", run["launches"], per_step, TRAIN["steps"])
+    falls("train", run)
+    emit("train_profile", **run.pop("profiled"))
+    emit("train", model="gpt_406m_width", launches_per_step=per_step,
+         card=smi, **run)
+    return run["launches"], run
+
+
+def train_int8(dev, smi: str, bf16: dict):
+    """Phase 6: the same step with the int8 training MLP (K4, K5), then a
+    short arm with the int8 attention projections as well."""
+    from distributed_tensorflow_tpu_torch.models import gpt
+    cfg = gpt.GptConfig(**WIDTH, matmul_int8=True)
+    run = train_run(dev, cfg, TRAIN["steps"], check_tols=(
+        TRAIN_INT8_LOSS_TOL, TRAIN_INT8_GRAD_NORM_RTOL,
+        TRAIN_INT8_GRAD_MIN_COS))
+    L = cfg.num_layers
+    per_step = {"flash_attention_fwd": L, "flash_attention_bwd_dq": L,
+                "flash_attention_bwd_dkv": L, "layer_norm_fwd": 2 * L + 1,
+                "quant_matmul": 2 * L, "quant_matmul_nt": 2 * L}
+    expect_launches("train_int8", run["launches"], per_step, TRAIN["steps"])
+    falls("train_int8", run)
+    limit = INT8_LOSS_RATIO * bf16["loss_last5_mean"] + INT8_LOSS_SLACK
+    if not run["loss_last5_mean"] <= limit:
+        raise AssertionError(f"int8 loss {run['loss_last5_mean']} above "
+                             f"{limit} (bf16 {bf16['loss_last5_mean']})")
+    emit("train_int8_profile", **run.pop("profiled"))
+    # MFU in bf16-equivalent model flops (bench.py's
+    # gpt_int8_mfu_pct_bf16_equiv): the same flops over the bf16 peak.
+    emit("train_int8", model="gpt_406m_width", launches_per_step=per_step,
+         card=smi, loss_limit=limit, bf16_loss_last5_mean=bf16[
+             "loss_last5_mean"],
+         step_ms_ratio_to_bf16=run["step_ms_median"]
+         / bf16["step_ms_median"], mfu_convention="bf16-equivalent", **run)
+    arm = train_run(dev, gpt.GptConfig(**WIDTH, matmul_int8=True,
+                                       attn_int8=True), ATTN_INT8_STEPS,
+                    profile=False)
+    emit("train_int8_attn", model="gpt_406m_width", card=smi,
+         losses=arm["losses"], step_ms=arm["step_ms"],
+         launches=arm["launches"], peak_mem_gb=arm["peak_mem_gb"])
+    return run["launches"]
 
 
 def main() -> int:
@@ -748,10 +1015,10 @@ def main() -> int:
     rows = check_kernels(dev)
     by_path = {"serve": serve(dev)}
     torch.cuda.empty_cache()
-    by_path["train"] = train(dev, smi)
+    by_path["train"], bf16_step = train(dev, smi)
+    by_path["train_int8"] = train_int8(dev, smi, bf16_step)
     for row in rows:
-        # The train step runs all four kernels: the row's launches are its.
-        row["launches"] = by_path["train"][row["name"]]
+        row["launches"] = by_path[row["main"]][row["name"]]
         for path, sub in row["paths"].items():
             sub["launches"] = by_path[path][row["name"]]
     print(smi, flush=True)

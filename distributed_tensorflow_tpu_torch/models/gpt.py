@@ -73,7 +73,9 @@ class GptConfig:
     activation: str = "gelu"
     # "layernorm" or "rmsnorm" (no centring, no bias).
     norm: str = "layernorm"
-    # Train-time int8 matmuls in the JAX package; not ported (raise).
+    # Train-time int8 matmuls (ops/quant_train.py): the MLP's Dense layers
+    # (the whole gelu MLP through the int8 kernels where the shapes allow),
+    # and the attention projections.
     matmul_int8: bool = False
     attn_int8: bool = False
 
@@ -134,14 +136,18 @@ class Dense(nn.Module):
     """flax ``nn.Dense`` / ``nn.DenseGeneral``: ``kernel`` [*in, *out]
     contracts the last ``len(in_shape)`` axes of the input; ``bias``
     [*out].  With ``dtype`` set, input, kernel and bias are cast to it
-    (flax's compute dtype); without, to their promoted dtype."""
+    (flax's compute dtype); without, to their promoted dtype.  ``int8``
+    routes the contraction through ``ops.quant_train.int8_matmul`` on the
+    cast operands (the JAX package's ``int8_dot_general`` injection: the
+    flattened 2-D product, its weight gradient in the compute dtype)."""
 
     def __init__(self, in_shape: tuple, out_shape: tuple, *,
                  dtype: torch.dtype | None, param_dtype: torch.dtype,
-                 use_bias: bool = True, device=None):
+                 use_bias: bool = True, int8: bool = False, device=None):
         super().__init__()
         self.in_shape, self.out_shape = tuple(in_shape), tuple(out_shape)
         self.dtype = dtype
+        self.int8 = int8
         self.kernel = nn.Parameter(torch.empty(
             *self.in_shape, *self.out_shape, dtype=param_dtype,
             device=device))
@@ -158,8 +164,11 @@ class Dense(nn.Module):
         dt = self.dtype or torch.promote_types(x.dtype, kernel.dtype)
         n_out = math.prod(self.out_shape)
         lead = x.shape[:x.dim() - len(self.in_shape)]
-        y = x.reshape(-1, self.fan_in).to(dt) @ kernel.reshape(
-            self.fan_in, n_out).to(dt)
+        matmul = torch.matmul
+        if self.int8:
+            from ..ops.quant_train import int8_matmul as matmul
+        y = matmul(x.reshape(-1, self.fan_in).to(dt),
+                   kernel.reshape(self.fan_in, n_out).to(dt))
         if bias is not None:
             y = y + bias.reshape(n_out).to(dt)
         return y.reshape(*lead, *self.out_shape)
@@ -276,22 +285,27 @@ class GptBlock(nn.Module):
         H, nh, hd = cfg.hidden_size, cfg.num_heads, cfg.head_dim
         kw = dict(dtype=dtype, param_dtype=param_dtype or dtype,
                   device=device)
+        # attn_int8: the same projections, their contraction in int8.
+        proj = dict(kw, int8=cfg.attn_int8)
         self.ln_attn = _norm(cfg, device)
         if cfg.num_kv_heads == cfg.num_heads:
-            self.qkv = Dense((H,), (3, nh, hd), **kw)
+            self.qkv = Dense((H,), (3, nh, hd), **proj)
         else:
-            self.q_proj = Dense((H,), (nh, hd), **kw)
-            self.kv_proj = Dense((H,), (2, cfg.num_kv_heads, hd), **kw)
-        self.out = Dense((nh, hd), (H,), **kw)
+            self.q_proj = Dense((H,), (nh, hd), **proj)
+            self.kv_proj = Dense((H,), (2, cfg.num_kv_heads, hd), **proj)
+        self.out = Dense((nh, hd), (H,), **proj)
         self.ln_mlp = _norm(cfg, device)
         I = cfg.intermediate_size
+        dense = Dense
+        if cfg.matmul_int8:
+            from ..ops.quant_train import Int8Dense as dense
         if cfg.activation == "swiglu":
-            self.mlp_in = Dense((H,), (I,), use_bias=False, **kw)
-            self.mlp_gate = Dense((H,), (I,), use_bias=False, **kw)
-            self.mlp_out = Dense((I,), (H,), use_bias=False, **kw)
+            self.mlp_in = dense((H,), (I,), use_bias=False, **kw)
+            self.mlp_gate = dense((H,), (I,), use_bias=False, **kw)
+            self.mlp_out = dense((I,), (H,), use_bias=False, **kw)
         else:
-            self.mlp_in = Dense((H,), (I,), **kw)
-            self.mlp_out = Dense((I,), (H,), **kw)
+            self.mlp_in = dense((H,), (I,), **kw)
+            self.mlp_out = dense((I,), (H,), **kw)
 
     def _qkv(self, x: torch.Tensor, positions: torch.Tensor | None = None):
         """q [B,S,H,D] and k/v [B,S,G,D] (views into the fused
@@ -327,6 +341,22 @@ class GptBlock(nn.Module):
              g: torch.Generator | None = None) -> torch.Tensor:
         cfg = self.cfg
         h = self.ln_mlp(x).to(cfg.torch_dtype)
+        if cfg.matmul_int8 and cfg.activation == "gelu":
+            from ..ops import quant_train
+            H = cfg.hidden_size
+            M = h.numel() // H
+            # Per call, on this call's rows: a decode step's few rows take
+            # the Int8Dense formulation, as in the JAX package.
+            if quant_train.use_fused_mlp(M, H, cfg.intermediate_size):
+                params = (h.reshape(M, H), self.mlp_in.kernel,
+                          self.mlp_in.bias, self.mlp_out.kernel,
+                          self.mlp_out.bias)
+                # The fused residual add cannot see a dropout mask.
+                if quant_train.FUSED_MLP_RESIDUAL and g is None:
+                    return quant_train.int8_gelu_mlp_res(
+                        *params, x.reshape(M, H)).reshape(x.shape)
+                y = quant_train.int8_gelu_mlp(*params)
+                return x + self._drop(y.reshape(x.shape), g)
         if cfg.activation == "swiglu":
             h = F.silu(self.mlp_gate(h)) * self.mlp_in(h)
         else:
@@ -482,10 +512,6 @@ class GptLM(nn.Module):
     def __init__(self, cfg: GptConfig, *, device=None, seed: int = 0,
                  param_dtype: torch.dtype | None = None):
         super().__init__()
-        if cfg.matmul_int8 or cfg.attn_int8:
-            raise NotImplementedError(
-                "matmul_int8/attn_int8 (int8 training matmuls) are not "
-                "ported; see ROADMAP.md, PyTorch port")
         device = resolve_device(device)
         self.cfg = cfg
         self.device = device

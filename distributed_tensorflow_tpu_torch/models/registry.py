@@ -50,11 +50,15 @@ def build_gpt_mini(learning_rate: float, seed: int = 0, seq_len: int = 128,
                    attention_window: int = 0,
                    activation: str = "gelu",
                    norm: str = "layernorm",
+                   matmul_int8: bool = False,
+                   attn_int8: bool = False,
                    tokenizer: str = "byte",
                    stream_threshold_mb: int = 256, *,
                    device=None) -> ModelBundle:
     """GPT-mini decoder-only causal LM with fp32 master weights, its
-    optimizer (Adam by default) and the LM data streams.  ``device``
+    optimizer (Adam by default) and the LM data streams.  ``matmul_int8``
+    / ``attn_int8`` train the MLP / the attention projections through the
+    int8 matmuls of ``ops/quant_train.py``.  ``device``
     defaults to ``cuda`` (pass ``"cpu"`` for the CPU); the model's
     weights come from ``seed``, the dropout generator from ``seed + 1``."""
     from . import gpt as gpt_lib
@@ -64,7 +68,8 @@ def build_gpt_mini(learning_rate: float, seed: int = 0, seq_len: int = 128,
         gpt_lib.mini(), attention_backend=attention_backend, dtype=dtype,
         remat=remat, dropout_rate=dropout_rate, fused_ln=fused_ln,
         pos_encoding=pos_encoding, kv_heads=kv_heads,
-        attention_window=attention_window, activation=activation, norm=norm)
+        attention_window=attention_window, activation=activation, norm=norm,
+        matmul_int8=matmul_int8, attn_int8=attn_int8)
     if tokenizer == "bpe":
         raise NotImplementedError("the BPE tokenizer is not ported yet; see "
                                   "ROADMAP.md, PyTorch port")

@@ -62,6 +62,12 @@ SIGNATURES = {
                                   + [_I, _I, _F, _I, _P],
     "dtt_flash_attention_bwd_dkv": [_P] * 10 + [_I] * 4 + [_L] * 15
                                    + [_I, _I, _F, _I, _P],
+    # K4: x, qw, sw, bias, residual, out, pre (null where unused), M, N,
+    # K, bk, x's row stride, gelu, dtype (0 = fp32, 1 = bf16), stream.
+    "dtt_quant_matmul": [_P] * 7 + [_I] * 4 + [_L, _I, _I, _P],
+    # K5: da, pre (null: "fold"), qw, sf, out, g (null unless want_g), M,
+    # N, K, bk, da's and pre's row strides, dtype, stream.
+    "dtt_quant_matmul_nt": [_P] * 6 + [_I] * 4 + [_L, _L, _I, _P],
 }
 
 _lock = threading.Lock()

@@ -192,3 +192,166 @@ def test_gpt_train_step_on_card_launches_every_kernel(cuda_device):
             tfa.dkv_launches - counts[2], ln.launches - counts[3]) == (
                 L, L, L, 2 * L + 1)
     assert 4.0 < loss < 7.0 and state.global_step == 2
+
+
+def _bf16_ulp(x: float) -> float:
+    """One bf16 ulp at magnitude ``x`` (8 significant bits)."""
+    import math
+    return 2.0 ** (math.floor(math.log2(max(x, 1e-30))) - 7)
+
+
+def _qmm_inputs(g, dev, M, K, N, dtype):
+    from distributed_tensorflow_tpu_torch.ops import quant_matmul as qmm
+    x = torch.randn(M, K, generator=g, device=dev).to(dtype)
+    w = torch.randn(K, N, generator=g, device=dev) * 0.05
+    qw, sw = qmm.quantize_cols(w)
+    return x, qw, sw
+
+
+# K4/K5 against their plain versions on the same inputs.  Both quantize
+# with the same IEEE division and round half to even, add the exact int32
+# K-block products into fp32 in the same order with every step rounded
+# (no FMA contraction in the kernel), and evaluate tanh through the same
+# tanhf: the outputs agree to within one ulp of the working dtype at the
+# largest magnitude (bf16 2^-8 relative; fp32 a few 2^-24).
+K45_TOL = {torch.bfloat16: _bf16_ulp, torch.float32: lambda x: 4e-6 * x}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("variant", ["plain", "bias", "gelu_preact",
+                                     "residual"])
+@pytest.mark.parametrize("M,K,N,block_k", [(200, 384, 640, 512),
+                                           (1024, 2048, 1024, 1024),
+                                           (64, 1024, 256, 128)])
+def test_quantized_matmul_kernel_matches_plain_on_card(
+        cuda_device, dtype, variant, M, K, N, block_k):
+    from distributed_tensorflow_tpu_torch.ops import quant_matmul as qmm
+    g = torch.Generator(device=cuda_device).manual_seed(M + K + N)
+    x, qw, sw = _qmm_inputs(g, cuda_device, M, K, N, dtype)
+    kw = dict(block_k=block_k)
+    bias = residual = None
+    if variant != "plain":
+        bias = torch.randn(N, generator=g, device=cuda_device)
+    if variant == "gelu_preact":
+        kw.update(activation="gelu", want_preact=True)
+    if variant == "residual":
+        residual = torch.randn(M, N, generator=g, device=cuda_device
+                               ).to(dtype)
+    before = qmm.launches
+    got = qmm.quantized_matmul(x, qw, sw, bias, residual, **kw)
+    assert qmm.launches == before + 1
+    want = qmm.quantized_matmul_reference(x, qw, sw, bias, residual, **kw)
+    torch.cuda.synchronize()
+    got = got if isinstance(got, tuple) else (got,)
+    want = want if isinstance(want, tuple) else (want,)
+    for a, b in zip(got, want):
+        assert a.dtype == dtype and a.shape == (M, N)
+        peak = b.float().abs().max().item()
+        err = (a.float() - b.float()).abs().max().item()
+        assert err <= K45_TOL[dtype](peak), (err, peak)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("prologue,want_g", [("fold", False),
+                                             ("dgelu_fold", False),
+                                             ("dgelu_fold", True)])
+@pytest.mark.parametrize("M,K,N,block_k", [(200, 384, 640, 512),
+                                           (1024, 2048, 1024, 1024)])
+def test_quantized_matmul_nt_kernel_matches_plain_on_card(
+        cuda_device, dtype, prologue, want_g, M, K, N, block_k):
+    from distributed_tensorflow_tpu_torch.ops import quant_matmul as qmm
+    g = torch.Generator(device=cuda_device).manual_seed(M + K + N + 1)
+    da = torch.randn(M, K, generator=g, device=cuda_device).to(dtype)
+    w = torch.randn(N, K, generator=g, device=cuda_device) * 0.05
+    qw, sw = qmm.quantize_cols(w)            # the forward's [N, K] weight
+    pre = None
+    if prologue == "dgelu_fold":
+        pre = (2 * torch.randn(M, K, generator=g, device=cuda_device)
+               ).to(dtype)
+    kw = dict(prologue=prologue, want_g=want_g, block_k=block_k)
+    before = qmm.nt_launches
+    got = qmm.quantized_matmul_nt(da, qw, sw, pre, **kw)
+    assert qmm.nt_launches == before + 1
+    want = qmm.quantized_matmul_nt_reference(da, qw, sw, pre, **kw)
+    torch.cuda.synchronize()
+    got = got if isinstance(got, tuple) else (got,)
+    want = want if isinstance(want, tuple) else (want,)
+    for a, b in zip(got, want):
+        assert a.dtype == dtype
+        peak = b.float().abs().max().item()
+        err = (a.float() - b.float()).abs().max().item()
+        assert err <= K45_TOL[dtype](peak), (err, peak)
+
+
+@pytest.mark.cuda
+def test_quantized_matmul_kernels_read_strided_rows(cuda_device):
+    """x and da as row-strided views (a slice of wider rows) give what
+    their contiguous copies give."""
+    from distributed_tensorflow_tpu_torch.ops import quant_matmul as qmm
+    g = torch.Generator(device=cuda_device).manual_seed(3)
+    wide = torch.randn(256, 1024, generator=g, device=cuda_device
+                       ).to(torch.bfloat16)
+    x = wide[:, 256:768]
+    w = torch.randn(512, 256, generator=g, device=cuda_device) * 0.05
+    qw, sw = qmm.quantize_cols(w)
+    torch.testing.assert_close(qmm.quantized_matmul(x, qw, sw),
+                               qmm.quantized_matmul(x.contiguous(), qw, sw),
+                               atol=0, rtol=0)
+    qwt, swt = qmm.quantize_cols(w.t())                 # [256, 512]
+    torch.testing.assert_close(
+        qmm.quantized_matmul_nt(x, qwt, swt),
+        qmm.quantized_matmul_nt(x.contiguous(), qwt, swt), atol=0, rtol=0)
+
+
+@pytest.mark.cuda
+def test_quantized_matmul_kernels_refuse_what_they_cannot_take(cuda_device):
+    from distributed_tensorflow_tpu_torch.ops import quant_matmul as qmm
+    x = torch.randn(64, 256, device=cuda_device).to(torch.bfloat16)
+    qw, sw = qmm.quantize_cols(torch.randn(256, 200, device=cuda_device))
+    with pytest.raises(ValueError, match="N % 128"):
+        qmm.quantized_matmul(x, qw, sw)
+    qw, sw = qmm.quantize_cols(torch.randn(192, 256, device=cuda_device))
+    with pytest.raises(ValueError, match="K-block"):
+        qmm.quantized_matmul(torch.randn(64, 192, device=cuda_device),
+                             qw, sw)
+    with pytest.raises(ValueError, match="fp32/bf16"):
+        qmm.quantized_matmul(x.half(), *qmm.quantize_cols(
+            torch.randn(256, 128, device=cuda_device)))
+
+
+@pytest.mark.cuda
+def test_int8_gpt_train_step_on_card_launches_k4_and_k5(cuda_device):
+    """matmul_int8: each layer's gelu MLP runs two K4 and two K5 launches
+    per step (the shapes pass the fused gate), and the loss is in range."""
+    from distributed_tensorflow_tpu_torch.models import gpt
+    from distributed_tensorflow_tpu_torch.ops import quant_matmul as qmm
+    from distributed_tensorflow_tpu_torch.parallel.sync import (
+        build_sync_train_step)
+    from distributed_tensorflow_tpu_torch.training.optimizers import (
+        make_optimizer)
+    from distributed_tensorflow_tpu_torch.training.state import TrainState
+
+    cfg = gpt.GptConfig(hidden_size=256, num_layers=2, num_heads=4,
+                        intermediate_size=512, max_position=128,
+                        attention_backend="pallas", fused_ln=True,
+                        matmul_int8=True)
+    model = gpt.GptLM(cfg, device=cuda_device, param_dtype=torch.float32)
+    state = TrainState.create(model, make_optimizer("adam", 1e-3))
+
+    def loss_fn(m, batch):
+        tokens = torch.as_tensor(batch["tokens"], device=cuda_device).long()
+        loss, acc = gpt.lm_loss(m(tokens), tokens)
+        return loss, {"accuracy": acc}
+
+    step = build_sync_train_step(loss_fn)
+    batch = gpt.synthetic_lm_batch(0, 4, 128, cfg)
+    counts = (qmm.launches, qmm.nt_launches, tfa.launches)
+    state, metrics = step(state, batch)
+    loss = float(metrics["loss"])
+    L = cfg.num_layers
+    assert (qmm.launches - counts[0], qmm.nt_launches - counts[1],
+            tfa.launches - counts[2]) == (2 * L, 2 * L, L)
+    assert 4.0 < loss < 7.0 and state.global_step == 2
+    assert all(torch.isfinite(p).all() for p in model.parameters())

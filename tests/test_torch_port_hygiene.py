@@ -85,7 +85,7 @@ def test_entry_points_need_cuda_or_an_explicit_cpu(monkeypatch):
 def test_kernel_sources_ship_in_the_package_and_hash_stably():
     names = sorted(os.path.basename(s) for s in kernels.sources())
     assert names == ["flash_attention.cu", "flash_attention_bwd.cu",
-                     "layer_norm.cu"]
+                     "layer_norm.cu", "quant_matmul.cu"]
     assert kernels.source_hash() == kernels.source_hash()
     assert kernels.BUILD_ROOT.endswith("_build")
     with open(os.path.join(REPO, ".gitignore")) as f:
