@@ -12,10 +12,15 @@ Phases, one JSON line each on stdout:
    in bf16 at the shapes each path gives it (K1 and K3 at the serving
    path's and the train step's, K2a and K2b at the train step's, K4 and
    K5 at the int8 MLP's four call sites of the int8 train step, every
-   epilogue and prologue variant, and one small non-square case), with the
-   tolerance stated below, its time, the plain version's time, one
-   library call's time (used only here, never by the port; K4/K5 have two
-   labelled yardsticks) and the least time the card could take.
+   epilogue and prologue variant, and one small non-square case; K6, K7a
+   and K7b at the ring train step's per-hop shape, q/k/v shards [8, 256,
+   16, 128], for a chunk wholly visible, on the diagonal and wholly in the
+   future, a padding mask with fully masked rows, a window, non-causal
+   and D = 64, then the 4-shard ring over them against K1/K2 on the whole
+   sequence; K8, on no path, at the int8 MLP's mlp_in dgrad shape), with
+   the tolerance stated below, its time, the plain version's time, one
+   library call's time (used only here, never by the port; K4/K5/K8 have
+   two labelled yardsticks) and the least time the card could take.
 4. ``serve``: a GPT at the widths of the repo's GPT-406M (hidden 2048,
    8 layers, 16 heads, MLP 8192, vocab 256, bf16, random weights from a
    seeded generator) behind ``ServingServer``; 8 concurrent HTTP requests
@@ -39,13 +44,24 @@ Phases, one JSON line each on stdout:
    K4/K5), 30 steps with exact launch counts (K4 and K5 twice per layer),
    the loss held to the bf16 phase's, the ``train_int8_profile`` line,
    then a short arm with ``attn_int8=True`` as well (bench.py :2287).
+7. ``train_ring``: the same step with ``attention_backend="ring"``
+   (``train.py --sequence_parallel=4 --attention_backend=ring``) on a mesh
+   of four sequence shards of 256 on the card: each block's attention is
+   a 4-hop ring through K6 forward and K7a/K7b backward.  One step's loss
+   and gradients against the same ring through the plain chunk versions
+   and against the pallas step (K1/K2), then 30 steps with exact launch
+   counts (K6, K7a, K7b each 4 shards x 4 hops x 8 layers = 128 per step,
+   K3 17, K1/K2 none), a falling loss, and the ``train_ring_profile``
+   line.
 
 Then the card's name and power limit, the kernels' summary object, and
 last ``{"ok": true, "device": {...}}``.  A summary row's numbers and
 launches are those of its main path (``main``: the train step for
-K1/K2/K3, the int8 train step for K4/K5); its ``paths`` hold each path's
-own shape, numbers and launches, and K4/K5 rows list both call sites of
-their path under ``sites``.
+K1/K2/K3, the int8 train step for K4/K5, the ring train step for K6/K7,
+whose numbers are the mean per launch over a step's hops, and the
+``kernels`` phase itself for K8, which no path launches); its ``paths``
+hold each path's own shape, numbers and launches, and K4/K5/K8 rows list
+their call sites or variants under ``sites``.
 Any failing phase raises: the script exits non-zero and prints no
 result.  Without CUDA it exits 2.
 """
@@ -117,6 +133,22 @@ TRAIN_INT8_GRAD_NORM_RTOL = 2e-2
 TRAIN_INT8_GRAD_MIN_COS = 0.99
 # tests/test_int8_train.py:366: the int8 loss within 10% (+0.1) of bf16.
 INT8_LOSS_RATIO, INT8_LOSS_SLACK = 1.10, 0.1
+# K6, K7a and K7b against their plain versions (fp32 math) at the ring
+# path's per-hop shape, bf16: the kernels round P (and dS) to bf16 as
+# tensor-core operands, as K1/K2 do, so the acc carry and the gradient
+# partials land within about one bf16 ulp (2^-8) of their largest
+# magnitude (max abs error over the largest magnitude); m and l sum
+# unrounded fp32 probabilities and differ only in where the 1/sqrt(D)
+# scale is applied (after the product in the kernel, before it in the
+# plain version).
+K67_REL_TOL = 1e-2
+K6_M_ATOL = 1e-4               # on running maxima of magnitude ~3
+K6_L_REL_TOL = 1e-4
+# The 4-shard ring over K6/K7 against K1/K2 on the whole sequence (same q,
+# k, v, dO) is held to K1's output and K2's gradient tolerances: both
+# round P and dS to bf16, grouped per hop in the ring.  One ring train
+# step, against the plain chunk versions and against the pallas step, is
+# held to the TRAIN_* tolerances above, for the reason given there.
 
 # Published H100 SXM peaks (dense): bf16 tensor cores and HBM3.
 PEAK_BF16_FLOPS = 989e12
@@ -134,6 +166,9 @@ SEED = 0
 # The flagship train step (bench.py:456-531, :694): B=8, S=1024, Adam 3e-4.
 TRAIN = dict(batch=8, seq_len=1024, lr=3e-4, steps=30)
 ATTN_INT8_STEPS = 5
+# The ring train step's mesh: four sequence shards of 256 on the one card
+# (data=1, seq=4).
+RING_SEQ = 4
 
 
 def emit(phase: str, **fields) -> None:
@@ -299,11 +334,16 @@ def check_kernels(dev):
         k3_cases.append(check_k3(name, x, scale, bias))
     k2 = check_backward_kernels(dev, g, H, D)
     k45 = check_int8_kernels(dev, g)
+    k67 = check_ring_kernels(dev, g)
     k1_all = k1_cases + [k2["fwd"]]
     emit("kernels", flash_attention_fwd=k1_all,
          layer_norm_fwd=k3_cases, flash_attention_bwd_dq=k2["dq"],
          flash_attention_bwd_dkv=k2["dkv"], quant_matmul=k45["k4"],
-         quant_matmul_nt=k45["k5"])
+         quant_matmul_nt=k45["k5"], flash_attention_chunk=k67["k6"],
+         flash_attention_chunk_dq=k67["k7a"],
+         flash_attention_chunk_dkv=k67["k7b"],
+         ring_vs_flash=k67["ring_vs_flash"],
+         quant_matmul_dgelu=k45["k8"])
 
     keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
 
@@ -331,14 +371,14 @@ def check_kernels(dev):
                                  library_bf16_ms=c["library_bf16_ms"],
                                  **{k: c[k] for k in keys}) for c in sites]
         return row
-    k4, k5 = k45["k4"], k45["k5"]
+    k4, k5, k8 = k45["k4"], k45["k5"], k45["k8"]
     return [
         summary("flash_attention_fwd", "flash_attention.cu",
                 "flash_attention.py:119", "train",
                 {"serve": k1_cases[0], "train": k2["fwd"]}, k1_all),
         summary("layer_norm_fwd", "layer_norm.cu", "layer_norm.py:38",
-                "train", {"serve": k3_cases[0], "train": k3_cases[2]},
-                k3_cases),
+                "train", {"serve": k3_cases[0], "train": k3_cases[2],
+                          "train_ring": k3_cases[2]}, k3_cases),
         summary("flash_attention_bwd_dkv", "flash_attention_bwd.cu",
                 "flash_attention.py:425", "train", {"train": k2["dkv"][0]},
                 k2["dkv"]),
@@ -352,6 +392,22 @@ def check_kernels(dev):
                 "train_int8", {"train_int8": k4[0]}, k4, sites=k4[:2]),
         summary("quant_matmul_nt", "quant_matmul.cu", "quant_matmul.py:185",
                 "train_int8", {"train_int8": k5[1]}, k5, sites=k5[:2]),
+        # The ring's per-hop kernels: the row's numbers are the mean per
+        # launch over one train step's hops (visible, diagonal, future).
+        summary("flash_attention_chunk", "flash_attention_chunk.cu",
+                "flash_attention.py:624", "train_ring",
+                {"train_ring": k67["k6"][0]}, k67["k6"]),
+        summary("flash_attention_chunk_dq", "flash_attention_chunk.cu",
+                "flash_attention.py:767", "train_ring",
+                {"train_ring": k67["k7a"][0]}, k67["k7a"]),
+        summary("flash_attention_chunk_dkv", "flash_attention_chunk.cu",
+                "flash_attention.py:796", "train_ring",
+                {"train_ring": k67["k7b"][0]}, k67["k7b"]),
+        # On no path of the port (nor of the JAX package): its main is this
+        # phase, and its launches are this phase's.
+        summary("quant_matmul_dgelu", "quant_matmul.cu",
+                "quant_matmul.py:146", "kernels", {"kernels": k8[0]}, k8,
+                sites=k8),
     ]
 
 
@@ -470,6 +526,224 @@ def check_backward_kernels(dev, g, H, D):
     return rows
 
 
+def ring_chunk_case(dev, g, fused, name, q_off, k_off, *, causal=True,
+                    window=0, masked=False) -> dict:
+    """K6, K7a and K7b on one (query shard, key chunk) pair of the ring
+    path against their plain versions: q the shard of ``fused`` [B, S, 3,
+    H, D] at ``q_off``, k and v the chunk at ``k_off`` (views, as the ring
+    hands them over), an fp32 carry in flight.  Returns the three rows
+    with times, the library yardsticks and the bounds."""
+    import torch
+    import torch.nn.functional as F
+    from distributed_tensorflow_tpu_torch.ops import flash_attention as fa
+    B, S, _, H, D = fused.shape
+    n = S // RING_SEQ
+    q = fused[:, q_off:q_off + n, 0]
+    k, v = fused[:, k_off:k_off + n, 1], fused[:, k_off:k_off + n, 2]
+    mask = None
+    m = torch.randn(B, H, n, generator=g, device=dev)
+    l = 1 + torch.rand(B, H, n, generator=g, device=dev)
+    acc = torch.randn(B, H, n, D, generator=g, device=dev)
+    # Keys 0..9 of batch 0 masked: on the causal diagonal its rows 0..9
+    # then see no key; their carries say that none was seen before.
+    dead = masked and causal and q_off == k_off
+    if masked:
+        mask = torch.ones(B, n, dtype=torch.int32, device=dev)
+        mask[0, :10] = 0
+        m[0, :, :10], l[0, :, :10], acc[0, :, :10] = -1e30, 0.0, 0.0
+    kw = dict(q_offset=q_off, k_offset=k_off, causal=causal, window=window)
+    valid = fa.chunk_valid(B, n, n, mask, device=dev, **kw)
+    pairs = valid.sum().item() * H
+    one = B * n * H * D * 2                  # one bf16 [B, n, H, D]
+    stats = B * H * n * 4                    # m, l, lse or delta, fp32
+    carry = 2 * stats + stats * D            # m, l and acc
+    extra = 0 if mask is None else B * n * 4
+    base = dict(case=name, B=B, S_local=n, H=H, D=D, q_offset=q_off,
+                k_offset=k_off, causal=causal, window=window,
+                masked=masked, pairs=pairs)
+
+    def rel(got, want):
+        err = (got - want).abs().max().item()
+        return err, err / max(want.abs().max().item(), 1e-6)
+
+    # K6.
+    def run_fwd():
+        return fa.flash_attention_chunk(q, k, v, mask, m, l, acc, **kw)
+
+    def plain_fwd():
+        return fa.flash_attention_chunk_reference(q, k, v, mask, m, l, acc,
+                                                  **kw)
+    got, want = run_fwd(), plain_fwd()
+    torch.cuda.synchronize()
+    m_err = (got[0] - want[0]).abs().max().item()
+    l_err, l_rel = rel(got[1], want[1])
+    acc_err, acc_rel = rel(got[2], want[2])
+    if not (all(torch.isfinite(t).all() for t in got)
+            and m_err <= K6_M_ATOL and l_rel <= K6_L_REL_TOL
+            and acc_rel <= K67_REL_TOL):
+        raise AssertionError(f"K6 {name}: m err {m_err}, l rel {l_rel}, "
+                             f"acc rel {acc_rel}")
+    if not pairs and not all(torch.equal(a, b)
+                             for a, b in zip(got, (m, l, acc))):
+        raise AssertionError(f"K6 {name}: a skipped chunk must write its "
+                             "carries unchanged")
+    if dead and not (torch.equal(got[0][0, :, :10], m[0, :, :10])
+                       and not got[2][0, :, :10].any()):
+        raise AssertionError(f"K6 {name}: fully masked rows moved")
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+    lib_mask = None if (mask is None and not causal) else valid
+    # Operands and carries are needed only where some pair is visible.
+    b_ms, b_by = bound((3 * one + extra if pairs else 0) + 2 * carry,
+                       2 * 2 * pairs * D)
+    k6 = dict(base, max_abs_err=max(m_err, l_err, acc_err), m_err=m_err,
+              l_rel_err=l_rel, acc_rel_err=acc_rel, tol_rel=K67_REL_TOL,
+              ms=cuda_ms(run_fwd), plain_ms=cuda_ms(plain_fwd),
+              library_ms=cuda_ms(lambda: F.scaled_dot_product_attention(
+                  qt, kt, vt, attn_mask=lib_mask)),
+              library="SDPA forward on the chunk pair, same boolean mask "
+                      "(returns no carry)",
+              bound_ms=b_ms, bound_by=b_by)
+
+    # K7a and K7b from the finished state's lse.
+    lse = want[0] + torch.log(want[1].clamp_min(1e-30))
+    do = torch.randn(q.shape, generator=g, device=dev).to(q.dtype)
+    delta = torch.randn(B, H, n, generator=g, device=dev)
+    args = (q, k, v, mask, do, lse, delta)
+
+    def run_dq():
+        return fa.flash_attention_chunk_dq(*args, **kw)
+
+    def run_dkv():
+        return fa.flash_attention_chunk_dkv(*args, **kw)
+
+    def plain_dq():
+        return fa.flash_attention_chunk_dq_reference(*args, **kw)
+
+    def plain_dkv():
+        return fa.flash_attention_chunk_dkv_reference(*args, **kw)
+    errs = {}
+    for gname, a, b in zip(("dq", "dk", "dv"), (run_dq(), *run_dkv()),
+                           (plain_dq(), *plain_dkv())):
+        torch.cuda.synchronize()
+        err, r = rel(a, b)
+        zero_ok = bool(b.abs().max() > 0) or not a.any()
+        if not (torch.isfinite(a).all() and zero_ok
+                and (r <= K67_REL_TOL or b.abs().max() == 0)):
+            raise AssertionError(f"K7 {name} {gname}: max_abs_err {err}, "
+                                 f"relative {r}")
+        if dead and gname == "dq" and a[0, :, :10].any():
+            raise AssertionError("K7: dq of fully masked rows must be 0")
+        errs[gname] = (err, r)
+    ql, kl, vl = (x.detach().transpose(1, 2).requires_grad_()
+                  for x in (q, k, v))
+    lib_out = F.scaled_dot_product_attention(ql, kl, vl, attn_mask=lib_mask)
+    lib_do = do.transpose(1, 2)
+    lib_ms = cuda_ms(lambda: torch.autograd.grad(
+        lib_out, (ql, kl, vl), lib_do, retain_graph=True))
+    lib = dict(library_ms=lib_ms,
+               library="autograd.grad through SDPA on the chunk pair, "
+                       "dq, dk and dv in one call (same number both rows)")
+    ops_bytes = 4 * one + 2 * stats + extra if pairs else 0
+    # dq: S, dP, dQ; writes the fp32 dq partial.
+    b_ms, b_by = bound(ops_bytes + stats * D, 3 * 2 * pairs * D)
+    k7a = dict(base, max_abs_err=errs["dq"][0], rel_err=errs["dq"][1],
+               tol_rel=K67_REL_TOL, ms=cuda_ms(run_dq),
+               plain_ms=cuda_ms(plain_dq), bound_ms=b_ms, bound_by=b_by,
+               **lib)
+    # dkv: S, dP, dV, dK; writes the fp32 dk and dv partials.
+    b_ms, b_by = bound(ops_bytes + 2 * stats * D, 4 * 2 * pairs * D)
+    k7b = dict(base, max_abs_err=max(errs["dk"][0], errs["dv"][0]),
+               rel_err=max(errs["dk"][1], errs["dv"][1]),
+               tol_rel=K67_REL_TOL, ms=cuda_ms(run_dkv),
+               plain_ms=cuda_ms(plain_dkv), bound_ms=b_ms, bound_by=b_by,
+               **lib)
+    del got, want, lib_out, ql, kl, vl
+    return dict(k6=k6, k7a=k7a, k7b=k7b)
+
+
+def ring_vs_flash(dev, g) -> dict:
+    """The 4-shard ring over K6/K7 against K1/K2 over the whole train
+    sequence (B=8, S=1024, H=16, D=128, causal, bf16), same q, k, v, dO:
+    output and gradients."""
+    import torch
+    from distributed_tensorflow_tpu_torch.ops import flash_attention as fa
+    from distributed_tensorflow_tpu_torch.parallel.mesh import create_mesh
+    from distributed_tensorflow_tpu_torch.parallel.ring import (
+        make_ring_attention)
+    B, S = TRAIN["batch"], TRAIN["seq_len"]
+    H, D = WIDTH["num_heads"], WIDTH["hidden_size"] // WIDTH["num_heads"]
+    fused = torch.randn(B, S, 3, H, D, generator=g, device=dev,
+                        dtype=torch.float32).to(torch.bfloat16)
+    q, k, v = (fused[:, :, i].detach().requires_grad_() for i in range(3))
+    dout = torch.randn(B, S, H, D, generator=g, device=dev).to(q.dtype)
+    ring = make_ring_attention(
+        create_mesh(data=1, seq=RING_SEQ, devices=[dev] * RING_SEQ),
+        causal=True)
+    out = ring(q, k, v)
+    got = torch.autograd.grad(out, (q, k, v), dout)
+    ref = fa.flash_attention(q, k, v, causal=True)[0]
+    want = torch.autograd.grad(ref, (q, k, v), dout)
+    torch.cuda.synchronize()
+    row = dict(B=B, S=S, H=H, D=D, shards=RING_SEQ, causal=True,
+               out_max_abs_err=(out.float() - ref.float()).abs().max().item(),
+               out_tol=K1_OUT_TOL, grad_tol_rel=K2_REL_TOL)
+    for name, a, b in zip(("dq", "dk", "dv"), got, want):
+        row[f"{name}_rel_err"] = ((a.float() - b.float()).abs().max()
+                                  / b.float().abs().max()).item()
+    if not (torch.isfinite(out).all() and row["out_max_abs_err"]
+            <= K1_OUT_TOL and all(row[f"{x}_rel_err"] <= K2_REL_TOL
+                                  for x in ("dq", "dk", "dv"))):
+        raise AssertionError(f"ring over K6/K7 against K1/K2: {row}")
+    del fused, q, k, v, out, got, ref, want
+    torch.cuda.empty_cache()
+    return row
+
+
+def check_ring_kernels(dev, g) -> dict:
+    """K6, K7a and K7b at the ring path's per-hop shape (q, k, v shards
+    [8, 256, 16, 128] of the fused projection, bf16, fp32 carries) for
+    the three hop kinds of the causal ring (a chunk wholly visible, on the
+    diagonal, wholly in the future) and a padding mask with fully masked
+    rows, a window, non-causal and D = 64; then the ring against K1/K2.
+    The path's row is the per-launch mean over one step's hops: of the 16
+    (shard, chunk) pairs of a 4-shard causal ring 6 are visible, 4
+    diagonal, 6 in the future."""
+    import torch
+    B, S = TRAIN["batch"], TRAIN["seq_len"]
+    H, D = WIDTH["num_heads"], WIDTH["hidden_size"] // WIDTH["num_heads"]
+    n = S // RING_SEQ
+    cases = [("visible", 3 * n, 0, {}), ("diagonal", 2 * n, 2 * n, {}),
+             ("future", 0, 3 * n, {}),
+             ("masked_rows", 2 * n, 2 * n, dict(masked=True)),
+             ("window", 3 * n, 2 * n, dict(window=n)),
+             ("non_causal", 0, 3 * n, dict(causal=False, masked=True))]
+    rows = {"k6": [], "k7a": [], "k7b": []}
+    for d in (D, 64):
+        fused = torch.randn(B, S, 3, H, d, generator=g, device=dev,
+                            dtype=torch.float32).to(torch.bfloat16)
+        for name, q_off, k_off, kw in (cases if d == D else cases[1:2]):
+            label = name if d == D else f"head_dim_{d}"
+            for key, row in ring_chunk_case(dev, g, fused, label, q_off,
+                                            k_off, **kw).items():
+                rows[key].append(row)
+        del fused
+    weights = {"visible": 6, "diagonal": 4, "future": 6}
+    keys = ("ms", "plain_ms", "bound_ms", "library_ms", "pairs")
+    for key, cs in rows.items():
+        mix = [c for c in cs if c["case"] in weights]
+        total = sum(weights.values())
+        row = {k: sum(weights[c["case"]] * c[k] for c in mix) / total
+               for k in keys}
+        row.update(case="train_ring_hop_mean", hops=dict(weights),
+                   max_abs_err=max(c["max_abs_err"] for c in mix),
+                   bound_by=max(mix, key=lambda c: c["bound_ms"])[
+                       "bound_by"], library=mix[0]["library"])
+        rows[key].insert(0, row)
+    rows["ring_vs_flash"] = ring_vs_flash(dev, g)
+    torch.cuda.empty_cache()
+    return rows
+
+
 def bf16_ulp(t):
     """One bf16 ulp of each element's magnitude (8 significant bits)."""
     import torch
@@ -478,9 +752,10 @@ def bf16_ulp(t):
 
 
 def int8_case(dev, g, kind, case, M, K, N, block_k, variant):
-    """K4 (``kind`` "k4": x [M, K] @ qw [K, N]) or K5 ("k5": da [M, K]
-    against qw [N, K]) on bf16 inputs against its plain version, with its
-    times, the two yardsticks and the bound."""
+    """K4 (``kind`` "k4": x [M, K] @ qw [K, N]), K5 ("k5": da [M, K]
+    against qw [N, K]) or K8 ("k8": da * gelu'(pre) [M, K] @ qwt [K, N])
+    on bf16 inputs against its plain version, with its times, the two
+    yardsticks and the bound."""
     import torch
     from distributed_tensorflow_tpu_torch.ops import quant_matmul as qmm
     bf = torch.bfloat16
@@ -505,6 +780,17 @@ def int8_case(dev, g, kind, case, M, K, N, block_k, variant):
         # [K, N] K-contiguous: the layout the library's int8 GEMM takes
         # fast (row-major it ran ~6x slower on the H100).
         qw_lib = qw.t().contiguous().t()
+    elif kind == "k8":
+        qw, sw = qmm.quantize_cols(
+            0.02 * torch.randn(K, N, generator=g, device=dev))
+        kw = dict(block_k=block_k, want_g=variant == "dgelu_want_g")
+        pre = (2 * torch.randn(M, K, generator=g, device=dev)).to(bf)
+        args = [a, pre, qw, sw]
+        kernel = qmm.quantized_matmul_dgelu
+        plain = qmm.quantized_matmul_dgelu_reference
+        bytes_moved = (2 * a.numel() * 2 + qw.numel() + 4 * N + M * N * 2
+                       + (M * K * 2 if kw["want_g"] else 0))
+        qw_lib = qw.t().contiguous().t()         # K-contiguous, as for K4
     else:
         qw, sw = qmm.quantize_cols(
             0.02 * torch.randn(N, K, generator=g, device=dev))
@@ -528,11 +814,11 @@ def int8_case(dev, g, kind, case, M, K, N, block_k, variant):
     for name, x, y in zip(("out", "second"), got, want):
         err = (x.float() - y.float()).abs().max().item()
         peak = y.float().abs().max().item()
-        if kind == "k5" and name == "second":          # g: elementwise
+        if kind != "k4" and name == "second":          # g: elementwise
             ok = bool(((x.float() - y.float()).abs()
                        <= bf16_ulp(y)).all())
             tol = "one bf16 ulp of each element"
-        elif kind == "k5":
+        elif kind != "k4":
             ok, tol = err <= K5_REL_TOL * peak, f"{K5_REL_TOL} x peak"
         else:
             ulp = bf16_ulp(torch.tensor(peak)).item()
@@ -567,7 +853,8 @@ def check_int8_kernels(dev, g):
     rows of GPT-406M: mlp_in H=2048 -> I=8192, mlp_out I -> H, and their
     dgrads) in the variants those sites use, the other variants at the
     same shapes, and one small non-square case (M=200, K=384 in three
-    K-blocks of 128, N=640)."""
+    K-blocks of 128, N=640); K8 at the mlp_in dgrad's shape, with and
+    without g."""
     M = TRAIN["batch"] * TRAIN["seq_len"]
     H, I = WIDTH["hidden_size"], WIDTH["intermediate_size"]
     k4 = [("mlp_in", M, H, I, 512, "bias_gelu_preact"),
@@ -579,8 +866,13 @@ def check_int8_kernels(dev, g):
           ("mlp_in_dgrad", M, I, H, 512, "dgelu_fold_want_g"),
           ("mlp_in_dgrad", M, I, H, 512, "dgelu_fold"),
           ("mini", 200, 384, 640, 512, "dgelu_fold_want_g")]
+    # K8 (on no path) at the mlp_in dgrad's shape: da, pre [M, I], the
+    # re-quantized w_in.T [I, H].
+    k8 = [("mlp_in_dgrad", M, I, H, 512, "dgelu_want_g"),
+          ("mlp_in_dgrad", M, I, H, 512, "dgelu")]
     rows = {"k4": [int8_case(dev, g, "k4", *c) for c in k4],
-            "k5": [int8_case(dev, g, "k5", *c) for c in k5]}
+            "k5": [int8_case(dev, g, "k5", *c) for c in k5],
+            "k8": [int8_case(dev, g, "k8", *c) for c in k8]}
     import torch
     torch.cuda.empty_cache()
     return rows
@@ -736,6 +1028,43 @@ def gpt_train_flops(cfg, B: int, S: int) -> float:
     return 3 * (L * per_layer + 2 * B * S * H * V)
 
 
+def step_grads(model, loss_fn, batch, ctx=None):
+    """One step's loss and flattened fp32 gradients of ``model`` (under
+    ``ctx``), leaving no gradient behind."""
+    import contextlib
+    import torch
+    model.train()
+    model.zero_grad(set_to_none=True)
+    with ctx or contextlib.nullcontext():
+        loss, _ = loss_fn(model, batch)
+        loss.backward()
+    grads = torch.cat([p.grad.float().flatten() for p in model.parameters()])
+    model.zero_grad(set_to_none=True)
+    return loss.item(), grads
+
+
+def compare_steps(a, b, tols, names=("kernel", "plain")) -> dict:
+    """Two steps' (loss, gradients), ``a`` the kernels' and ``b`` the one
+    it is held to, within (loss, relative grad norm, min cosine)
+    tolerances; the dict names them by ``names``."""
+    import torch
+    (la, ga), (lb, gb) = a, b
+    na, nb = ga.norm().item(), gb.norm().item()
+    out = {f"loss_{names[0]}": la, f"loss_{names[1]}": lb,
+           "loss_diff": abs(la - lb), f"grad_norm_{names[0]}": na,
+           f"grad_norm_{names[1]}": nb,
+           "grad_norm_rel_diff": abs(na - nb) / nb,
+           "grad_cos": torch.nn.functional.cosine_similarity(
+               ga, gb, dim=0).item()}
+    loss_tol, norm_rtol, min_cos = tols
+    if not (math.isfinite(la) and math.isfinite(lb)
+            and out["loss_diff"] <= loss_tol
+            and out["grad_norm_rel_diff"] <= norm_rtol
+            and out["grad_cos"] >= min_cos):
+        raise AssertionError(f"train step, {names[0]} vs {names[1]}: {out}")
+    return out
+
+
 def check_train_step(dev, model, loss_fn, batch, tols):
     """One step's loss and gradients through the kernels against the plain
     path (dense attention, plain LayerNorm and, for ``matmul_int8``, the
@@ -763,36 +1092,17 @@ def check_train_step(dev, model, loss_fn, batch, tols):
         model.cfg, attention_backend="xla", fused_ln=False), device=dev,
         param_dtype=torch.float32)
     plain.load_state_dict(model.state_dict())
-    losses, grads = [], []
-    for m in (model, plain):
-        m.train()
-        m.zero_grad(set_to_none=True)
-        with (plain_versions() if m is plain and m.cfg.matmul_int8
-              else contextlib.nullcontext()):
-            loss, _ = loss_fn(m, batch)
-            loss.backward()
-        losses.append(loss.item())
-        grads.append(torch.cat([p.grad.float().flatten()
-                                for p in m.parameters()]))
-        m.zero_grad(set_to_none=True)
+    kernel = step_grads(model, loss_fn, batch)
+    plain_step = step_grads(plain, loss_fn, batch, plain_versions()
+                            if plain.cfg.matmul_int8 else None)
     del plain
-    norms = [gr.norm().item() for gr in grads]
     loss_tol, norm_rtol, min_cos = tols
-    out = dict(
-        batch=len(batch["tokens"]), loss_kernel=losses[0],
-        loss_plain=losses[1], loss_diff=abs(losses[0] - losses[1]),
-        grad_norm_kernel=norms[0], grad_norm_plain=norms[1],
-        grad_norm_rel_diff=abs(norms[0] - norms[1]) / norms[1],
-        grad_cos=torch.nn.functional.cosine_similarity(
-            grads[0], grads[1], dim=0).item(),
-        loss_tol=loss_tol, grad_norm_rtol=norm_rtol, grad_min_cos=min_cos)
-    del grads
+    out = dict(batch=len(batch["tokens"]),
+               **compare_steps(kernel, plain_step, tols),
+               loss_tol=loss_tol, grad_norm_rtol=norm_rtol,
+               grad_min_cos=min_cos)
+    del kernel, plain_step
     torch.cuda.empty_cache()
-    if not (all(map(math.isfinite, losses))
-            and out["loss_diff"] <= loss_tol
-            and out["grad_norm_rel_diff"] <= norm_rtol
-            and out["grad_cos"] >= min_cos):
-        raise AssertionError(f"train step, kernel vs plain path: {out}")
     return out
 
 
@@ -843,7 +1153,11 @@ def launch_counts() -> dict:
             "flash_attention_bwd_dkv": fa.dkv_launches,
             "layer_norm_fwd": ln.launches,
             "quant_matmul": qmm.launches,
-            "quant_matmul_nt": qmm.nt_launches}
+            "quant_matmul_nt": qmm.nt_launches,
+            "flash_attention_chunk": fa.chunk_launches,
+            "flash_attention_chunk_dq": fa.chunk_dq_launches,
+            "flash_attention_chunk_dkv": fa.chunk_dkv_launches,
+            "quant_matmul_dgelu": qmm.dgelu_launches}
 
 
 def reset_launch_counts() -> None:
@@ -851,15 +1165,17 @@ def reset_launch_counts() -> None:
     from distributed_tensorflow_tpu_torch.ops import layer_norm as ln
     from distributed_tensorflow_tpu_torch.ops import quant_matmul as qmm
     fa.launches = fa.dq_launches = fa.dkv_launches = ln.launches = 0
-    qmm.launches = qmm.nt_launches = 0
+    fa.chunk_launches = fa.chunk_dq_launches = fa.chunk_dkv_launches = 0
+    qmm.launches = qmm.nt_launches = qmm.dgelu_launches = 0
 
 
-def train_run(dev, cfg, steps: int, check_tols=None,
-              profile=True) -> dict:
+def train_run(dev, cfg, steps: int, check=None, profile=True,
+              mesh=None) -> dict:
     """The flagship step of ``cfg`` (fp32 masters, Adam, B=8, S=1024, the
-    synthetic stream from its seed): the kernel-vs-plain check when
-    ``check_tols`` is given, then ``steps`` steps with the launch counters
-    set to 0 just before and read just after, then one profiled step."""
+    synthetic stream from its seed; ``mesh``: the ring backend's): the
+    kernel-vs-plain ``check(model, loss_fn, batch)`` when given, then
+    ``steps`` steps with the launch counters set to 0 just before and read
+    just after, then one profiled step."""
     import torch
     from distributed_tensorflow_tpu_torch.data.lm import make_lm_datasets
     from distributed_tensorflow_tpu_torch.models import gpt
@@ -871,7 +1187,8 @@ def train_run(dev, cfg, steps: int, check_tols=None,
 
     t0 = time.perf_counter()
     B, S = TRAIN["batch"], TRAIN["seq_len"]
-    model = gpt.GptLM(cfg, device=dev, seed=SEED, param_dtype=torch.float32)
+    model = gpt.GptLM(cfg, device=dev, seed=SEED, param_dtype=torch.float32,
+                      mesh=mesh)
     n_params = sum(p.numel() for p in model.parameters())
     data = make_lm_datasets(cfg, seq_len=S).train
 
@@ -881,9 +1198,8 @@ def train_run(dev, cfg, steps: int, check_tols=None,
         return loss, {"accuracy": acc}
 
     checked = None
-    if check_tols is not None:
-        checked = check_train_step(dev, model, loss_fn, data.next_batch(B),
-                                   check_tols)
+    if check is not None:
+        checked = check(model, loss_fn, data.next_batch(B))
     state = TrainState.create(model, make_optimizer("adam", TRAIN["lr"]))
     step = build_sync_train_step(loss_fn, log_grad_norm=True)
     batches = [data.next_batch(B) for _ in range(steps + 1)]
@@ -942,8 +1258,9 @@ def train(dev, smi: str):
     launches and the step's numbers the int8 phase is held to."""
     from distributed_tensorflow_tpu_torch.models import gpt
     cfg = gpt.GptConfig(**WIDTH)
-    run = train_run(dev, cfg, TRAIN["steps"], check_tols=(
-        TRAIN_LOSS_TOL, TRAIN_GRAD_NORM_RTOL, TRAIN_GRAD_MIN_COS))
+    run = train_run(dev, cfg, TRAIN["steps"], check=lambda m, f, b: (
+        check_train_step(dev, m, f, b, (TRAIN_LOSS_TOL, TRAIN_GRAD_NORM_RTOL,
+                                        TRAIN_GRAD_MIN_COS))))
     L = cfg.num_layers
     per_step = {"flash_attention_fwd": L, "flash_attention_bwd_dq": L,
                 "flash_attention_bwd_dkv": L, "layer_norm_fwd": 2 * L + 1}
@@ -960,9 +1277,10 @@ def train_int8(dev, smi: str, bf16: dict):
     short arm with the int8 attention projections as well."""
     from distributed_tensorflow_tpu_torch.models import gpt
     cfg = gpt.GptConfig(**WIDTH, matmul_int8=True)
-    run = train_run(dev, cfg, TRAIN["steps"], check_tols=(
-        TRAIN_INT8_LOSS_TOL, TRAIN_INT8_GRAD_NORM_RTOL,
-        TRAIN_INT8_GRAD_MIN_COS))
+    run = train_run(dev, cfg, TRAIN["steps"], check=lambda m, f, b: (
+        check_train_step(dev, m, f, b, (TRAIN_INT8_LOSS_TOL,
+                                        TRAIN_INT8_GRAD_NORM_RTOL,
+                                        TRAIN_INT8_GRAD_MIN_COS))))
     L = cfg.num_layers
     per_step = {"flash_attention_fwd": L, "flash_attention_bwd_dq": L,
                 "flash_attention_bwd_dkv": L, "layer_norm_fwd": 2 * L + 1,
@@ -990,6 +1308,82 @@ def train_int8(dev, smi: str, bf16: dict):
     return run["launches"]
 
 
+def check_ring_step(dev, model, loss_fn, batch) -> dict:
+    """One ring step's loss and gradients through K6/K7 against the same
+    ring with the plain chunk versions, and against the pallas step (K1/K2
+    over the whole sequence), with the same weights and batch."""
+    import contextlib
+    import torch
+    from distributed_tensorflow_tpu_torch.models import gpt
+    from distributed_tensorflow_tpu_torch.ops import flash_attention as fa
+    from distributed_tensorflow_tpu_torch.parallel import ring
+
+    @contextlib.contextmanager
+    def plain_chunks():
+        """The ring's hops through the chunk functions' plain versions,
+        for this comparison only (the wrappers launch the kernels on the
+        card)."""
+        names = ("flash_attention_chunk", "flash_attention_chunk_dq",
+                 "flash_attention_chunk_dkv")
+        saved = [getattr(ring, n) for n in names]
+        for n in names:
+            setattr(ring, n, getattr(fa, n + "_reference"))
+        try:
+            yield
+        finally:
+            for n, f in zip(names, saved):
+                setattr(ring, n, f)
+
+    tols = (TRAIN_LOSS_TOL, TRAIN_GRAD_NORM_RTOL, TRAIN_GRAD_MIN_COS)
+    kernel = step_grads(model, loss_fn, batch)
+    vs_plain = compare_steps(kernel, step_grads(model, loss_fn, batch,
+                                                plain_chunks()),
+                             tols, ("kernel", "plain_chunks"))
+    pallas = gpt.GptLM(dataclasses.replace(
+        model.cfg, attention_backend="pallas"), device=dev,
+        param_dtype=torch.float32)
+    pallas.load_state_dict(model.state_dict())
+    vs_pallas = compare_steps(kernel, step_grads(pallas, loss_fn, batch),
+                              tols, ("kernel", "pallas"))
+    del pallas, kernel
+    out = dict(batch=len(batch["tokens"]), vs_plain_chunks=vs_plain,
+               vs_pallas=vs_pallas, loss_tol=tols[0],
+               grad_norm_rtol=tols[1], grad_min_cos=tols[2])
+    torch.cuda.empty_cache()
+    return out
+
+
+def train_ring(dev, smi: str, bf16: dict):
+    """Phase 7: the same step with sequence-parallel ring attention
+    (``attention_backend="ring"``) over four sequence shards of 256 on the
+    card: every block's attention through K6 forward and K7a/K7b backward
+    per hop, K3 as before, no K1/K2."""
+    from distributed_tensorflow_tpu_torch.models import gpt
+    from distributed_tensorflow_tpu_torch.parallel.mesh import create_mesh
+    from distributed_tensorflow_tpu_torch.parallel.ring import _ring_hops
+    cfg = gpt.GptConfig(**{**WIDTH, "attention_backend": "ring"})
+    mesh = create_mesh(data=1, seq=RING_SEQ, devices=[dev] * RING_SEQ)
+    run = train_run(dev, cfg, TRAIN["steps"], mesh=mesh,
+                    check=lambda m, f, b: check_ring_step(dev, m, f, b))
+    L = cfg.num_layers
+    hops = _ring_hops(RING_SEQ, TRAIN["seq_len"] // RING_SEQ, True,
+                      cfg.attention_window)
+    per_hop = RING_SEQ * hops * L
+    per_step = {"flash_attention_chunk": per_hop,
+                "flash_attention_chunk_dq": per_hop,
+                "flash_attention_chunk_dkv": per_hop,
+                "layer_norm_fwd": 2 * L + 1}
+    expect_launches("train_ring", run["launches"], per_step, TRAIN["steps"])
+    falls("train_ring", run)
+    emit("train_ring_profile", **run.pop("profiled"))
+    emit("train_ring", model="gpt_406m_width", launches_per_step=per_step,
+         card=smi, mesh=dict(data=1, seq=RING_SEQ, devices=str(dev)),
+         hops=hops, step_ms_ratio_to_bf16=run["step_ms_median"]
+         / bf16["step_ms_median"], bf16_loss_last5_mean=bf16[
+             "loss_last5_mean"], **run)
+    return run["launches"]
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1013,10 +1407,15 @@ def main() -> int:
          sources=[os.path.basename(s) for s in kernels.sources()])
 
     rows = check_kernels(dev)
-    by_path = {"serve": serve(dev)}
+    from distributed_tensorflow_tpu_torch.ops import quant_matmul as qmm
+    # K8 is on no path: its launches are the kernels phase's own.
+    by_path = {"kernels": {"quant_matmul_dgelu": qmm.dgelu_launches}}
+    by_path["serve"] = serve(dev)
     torch.cuda.empty_cache()
     by_path["train"], bf16_step = train(dev, smi)
     by_path["train_int8"] = train_int8(dev, smi, bf16_step)
+    torch.cuda.empty_cache()
+    by_path["train_ring"] = train_ring(dev, smi, bf16_step)
     for row in rows:
         row["launches"] = by_path[row["main"]][row["name"]]
         for path, sub in row["paths"].items():

@@ -1,9 +1,10 @@
-// Fused quantize-and-matmul on the int8 tensor cores: K4 (forward) and K5
-// (NT dgrad).
+// Fused quantize-and-matmul on the int8 tensor cores: K4 (forward), K5
+// (NT dgrad) and K8 (TN dgrad with the gelu backward in its prologue).
 //
 // Replaces: distributed_tensorflow_tpu/ops/pallas/quant_matmul.py,
-// _qmm_kernel (launched by quantized_matmul) and _qmm_nt_kernel (launched
-// by quantized_matmul_nt).  There the TPU walks the K-blocks as the last,
+// _qmm_kernel (launched by quantized_matmul), _qmm_nt_kernel (launched
+// by quantized_matmul_nt) and _qmm_dgelu_kernel (launched by
+// quantized_matmul_dgelu).  There the TPU walks the K-blocks as the last,
 // sequential grid axis, quantizes each (bm, bk) block of the activations
 // in VMEM and carries the fp32 accumulator in scratch.  Hopper blocks run
 // in parallel and in no order, so here one thread block owns a 64 x 128
@@ -14,6 +15,8 @@
 //     v   = K4: x[m, kb]                   K5: da[m, kb] (* gelu'(pre))
 //                                              (then g = v is written out
 //                                              with want_g) and v *= sf[k]
+//                                          K8: da[m, kb] * gelu'(pre) (g
+//                                              written with want_g), no fold
 //     sx  = max(amax_k |v[m, k]|, 1e-8) / 127          (per row, per kb)
 //     q   = clamp(rint(v / sx), -127, 127)             (IEEE division,
 //                                                       half to even)
@@ -22,6 +25,10 @@
 //   K4 epilogue: y = acc * sw[n] (+ bias[n]); with preact: pre = T(y),
 //                y = float(pre); gelu(y); + residual; out = T(y).
 //   K5 epilogue: out = T(acc).
+//   K8 epilogue: out = T(acc * sw[n]).
+// K8 is K5's prologue without the scale fold and K4's weight layout and
+// scale epilogue: the dgrad against an explicitly re-quantized w.T (the
+// TPU kernel's pre-NT formulation, on no training path; K5 replaced it).
 // Every rounding step is written with __f*_rn intrinsics so that nvcc does
 // not contract a multiply and an add into one FMA: the plain version
 // rounds each operation, and the kernel gives the same bits.
@@ -50,7 +57,8 @@
 //   cp.async, the first stages issued before the prologue.  The weight
 //   sits K-contiguous ([n][k]), as the mma's B operand wants: K5's qw
 //   [N, K] is so already; K4's qw [K, N] is handed over transposed (the
-//   wrapper makes one int8 K-major copy per call, N*K bytes).  A later
+//   wrapper makes one int8 K-major copy per call, N*K bytes; so does K8's
+//   for its qwt [K, N]).  A later
 //   wgmma/TMA design wants that layout too: quantize_cols could then emit
 //   both layouts once per step.
 // M is masked (any M); K must be a multiple of bk and N of 128, which the
@@ -79,19 +87,22 @@ constexpr int LDB = KS + 16;           // bytes per weight row in shared mem
 constexpr size_t kSxBytes = BM * sizeof(float);
 constexpr size_t kStageBytes = BN * LDB;
 
+// The three variants of one kernel body.
+enum Mode : int { kFwd = 0, kNt = 1, kDgelu = 2 };
+
 struct Params {
-  const void* a;        // K4: x [M, K]; K5: da [M, K] (row stride lda)
-  const void* pre_in;   // K5 dgelu: pre [M, K] (row stride ldpre)
-  const int8_t* qw;     // [N, K], K-contiguous (K4: the transposed copy)
-  const float* scale;   // K4: sw [N] (epilogue); K5: sf [K] (prologue)
+  const void* a;        // K4: x [M, K]; K5, K8: da [M, K] (row stride lda)
+  const void* pre_in;   // K5 dgelu, K8: pre [M, K] (row stride ldpre)
+  const int8_t* qw;     // [N, K], K-contiguous (K4, K8: the transposed copy)
+  const float* scale;   // K4, K8: sw [N] (epilogue); K5: sf [K] (prologue)
   const float* bias;    // K4, [N] or null
   const void* residual; // K4, [M, N] or null
   void* out;            // [M, N]
   void* pre_out;        // K4 with preact: [M, N], else null
-  void* g_out;          // K5 with want_g: [M, K], else null
+  void* g_out;          // K5, K8 with want_g: [M, K], else null
   int M, N, K, bk;
   long long lda, ldpre;
-  int gelu;             // K4: gelu epilogue; K5: dgelu prologue
+  int gelu;             // K4: gelu epilogue; K5, K8: dgelu prologue
 };
 
 __device__ __forceinline__ void load4(const float* p, float v[4]) {
@@ -233,9 +244,12 @@ __device__ __forceinline__ void wait_stages() {
   asm volatile("cp.async.wait_group %0;\n" :: "n"(kPending));
 }
 
-template <typename T, bool kNT, int kStages>
+template <typename T, int kMode, int kStages>
 __global__ void __launch_bounds__(kThreads, 2)
 qmm_kernel(const Params p) {
+  // K5 and K8 share the dgrad prologue (gelu', g out); K4 and K8 the
+  // weight-scale epilogue.
+  constexpr bool kDgrad = kMode != kFwd;
   extern __shared__ __align__(16) uint8_t smem[];
   float* sx = reinterpret_cast<float*>(smem);
   uint8_t* sB = smem + kSxBytes;                 // [kStages][BN][LDB]
@@ -257,7 +271,7 @@ qmm_kernel(const Params p) {
   const int rows_per = BM / csize;
   // g is written by the blocks of the last cluster along N, each for the
   // rows it quantizes: every element once.
-  const bool write_g = kNT && p.g_out != nullptr &&
+  const bool write_g = kDgrad && p.g_out != nullptr &&
                        (int)blockIdx.x >= (int)gridDim.x - csize;
 
   float acc[2][4][4];
@@ -299,7 +313,7 @@ qmm_kernel(const Params p) {
         const int k = kbase + lane * per + 4 * c;
         if (m < p.M) {
           load4(A + m * p.lda + k, v[c]);
-          if (kNT) {
+          if (kDgrad) {
             if (p.gelu) {
               float pr[4];
               load4(static_cast<const T*>(p.pre_in) + m * p.ldpre + k, pr);
@@ -309,10 +323,13 @@ qmm_kernel(const Params p) {
             }
             if (write_g)
               store4(static_cast<T*>(p.g_out) + m * p.K + k, v[c]);
-            float sf[4];
-            load4(p.scale + k, sf);
+            if (kMode == kNt) {
+              float sf[4];
+              load4(p.scale + k, sf);
 #pragma unroll
-            for (int i = 0; i < 4; ++i) v[c][i] = __fmul_rn(v[c][i], sf[i]);
+              for (int i = 0; i < 4; ++i)
+                v[c][i] = __fmul_rn(v[c][i], sf[i]);
+            }
           }
         } else {
 #pragma unroll
@@ -426,7 +443,10 @@ qmm_kernel(const Params p) {
         const int n = n0 + wn * 32 + ni * 8 + tg * 2;
         float y0 = acc[mi][ni][2 * h], y1 = acc[mi][ni][2 * h + 1];
         const long long o = m * p.N + n;
-        if (!kNT) {
+        if (kMode == kDgelu) {
+          y0 = __fmul_rn(y0, p.scale[n]);
+          y1 = __fmul_rn(y1, p.scale[n + 1]);
+        } else if (kMode == kFwd) {
           y0 = __fmul_rn(y0, p.scale[n]);
           y1 = __fmul_rn(y1, p.scale[n + 1]);
           if (p.bias) {
@@ -453,13 +473,13 @@ qmm_kernel(const Params p) {
     }
 }
 
-template <typename T, bool kNT, int kStages>
+template <typename T, int kMode, int kStages>
 cudaError_t launch_stages(const Params& p, cudaStream_t stream) {
   const size_t smem =
       kSxBytes + kStages * kStageBytes + (size_t)BM * (p.bk + 16);
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
-        qmm_kernel<T, kNT, kStages>,
+        qmm_kernel<T, kMode, kStages>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e != cudaSuccess) return e;
   }
@@ -478,17 +498,17 @@ cudaError_t launch_stages(const Params& p, cudaStream_t stream) {
   cfg.attrs = attr;
   cfg.numAttrs = 1;
   const cudaError_t e =
-      cudaLaunchKernelEx(&cfg, qmm_kernel<T, kNT, kStages>, p);
+      cudaLaunchKernelEx(&cfg, qmm_kernel<T, kMode, kStages>, p);
   if (e != cudaSuccess) return e;
   return cudaGetLastError();
 }
 
 // Three weight stages where two blocks still fit on an SM (bk <= 512:
 // <= 89 KB each), two for the 1024-wide K-block's 66 KB slab.
-template <typename T, bool kNT>
+template <typename T, int kMode>
 cudaError_t launch(const Params& p, cudaStream_t stream) {
-  return p.bk > 512 ? launch_stages<T, kNT, 2>(p, stream)
-                    : launch_stages<T, kNT, 3>(p, stream);
+  return p.bk > 512 ? launch_stages<T, kMode, 2>(p, stream)
+                    : launch_stages<T, kMode, 3>(p, stream);
 }
 
 bool valid(const Params& p) {
@@ -496,12 +516,18 @@ bool valid(const Params& p) {
          p.bk <= kMaxBk && (p.bk & (p.bk - 1)) == 0 && p.K % p.bk == 0;
 }
 
-cudaError_t dispatch(const Params& p, int dtype, bool nt, cudaStream_t s) {
+template <typename T>
+cudaError_t launch_mode(const Params& p, int mode, cudaStream_t s) {
+  if (mode == kFwd) return launch<T, kFwd>(p, s);
+  if (mode == kNt) return launch<T, kNt>(p, s);
+  if (mode == kDgelu) return launch<T, kDgelu>(p, s);
+  return cudaErrorInvalidValue;
+}
+
+cudaError_t dispatch(const Params& p, int dtype, int mode, cudaStream_t s) {
   if (!valid(p)) return cudaErrorInvalidValue;
-  if (dtype == 0) return nt ? launch<float, true>(p, s)
-                            : launch<float, false>(p, s);
-  if (dtype == 1) return nt ? launch<bf16, true>(p, s)
-                            : launch<bf16, false>(p, s);
+  if (dtype == 0) return launch_mode<float>(p, mode, s);
+  if (dtype == 1) return launch_mode<bf16>(p, mode, s);
   return cudaErrorInvalidValue;
 }
 
@@ -528,7 +554,7 @@ extern "C" int dtt_quant_matmul(const void* x, const void* qwt,
   p.M = M; p.N = N; p.K = K; p.bk = bk;
   p.lda = ldx;
   p.gelu = gelu;
-  return (int)dispatch(p, dtype, false, static_cast<cudaStream_t>(stream));
+  return (int)dispatch(p, dtype, kFwd, static_cast<cudaStream_t>(stream));
 }
 
 // K5.  da [M, K] (row stride ldda), pre [M, K] (row stride ldpre) or null
@@ -551,5 +577,27 @@ extern "C" int dtt_quant_matmul_nt(const void* da, const void* pre,
   p.lda = ldda;
   p.ldpre = ldpre;
   p.gelu = pre != nullptr;
-  return (int)dispatch(p, dtype, true, static_cast<cudaStream_t>(stream));
+  return (int)dispatch(p, dtype, kNt, static_cast<cudaStream_t>(stream));
+}
+
+// K8.  da, pre [M, K] (row strides ldda, ldpre), qwt [N, K] int8 (the
+// weight K-major: the transpose of quantize_cols' [K, N]), sw [N] fp32,
+// out [M, N], g [M, K] or null (want_g).  Returns cudaGetLastError().
+extern "C" int dtt_quant_matmul_dgelu(const void* da, const void* pre,
+                                      const void* qwt, const void* sw,
+                                      void* out, void* g, int M, int N, int K,
+                                      int bk, long long ldda, long long ldpre,
+                                      int dtype, void* stream) {
+  Params p{};
+  p.a = da;
+  p.pre_in = pre;
+  p.qw = static_cast<const int8_t*>(qwt);
+  p.scale = static_cast<const float*>(sw);
+  p.out = out;
+  p.g_out = g;
+  p.M = M; p.N = N; p.K = K; p.bk = bk;
+  p.lda = ldda;
+  p.ldpre = ldpre;
+  p.gelu = 1;
+  return (int)dispatch(p, dtype, kDgelu, static_cast<cudaStream_t>(stream));
 }

@@ -5,8 +5,15 @@ Pre-LayerNorm decoder: activations in ``cfg.dtype`` (bf16 by default)
 with fp32 LayerNorm and softmax, causal attention through
 :func:`..ops.attention.dot_product_attention` (``attention_backend``
 ``"xla"`` is plain tensor code, ``"pallas"`` the flash-attention kernels,
-forward and backward), LayerNorms through the LayerNorm kernel when
-``fused_ln``.
+forward and backward, ``"ring"`` sequence-parallel ring attention over a
+mesh's ``seq`` axis through the ring's chunk kernels), LayerNorms through
+the LayerNorm kernel when ``fused_ln``.
+
+A ``ring`` model's blocks hold their mesh: given to :class:`GptLM` (or
+``build_gpt_mini``) as ``mesh=``, or captured from
+:func:`..ops.attention.attention_mesh` at a block's first call, as a
+jitted JAX program captures it when traced.  The backward's recomputation
+under remat then finds it outside any ``with attention_mesh(...)``.
 
 Parameters keep the JAX package's names and kernel layouts (flax
 ``Dense`` kernels are [in, out], ``DenseGeneral`` kernels e.g.
@@ -43,7 +50,7 @@ import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
-from ..ops.attention import dot_product_attention
+from ..ops.attention import default_mesh, dot_product_attention
 from ..ops.layer_norm import LayerNorm
 from ..utils.device import resolve_device
 
@@ -281,6 +288,7 @@ class GptBlock(nn.Module):
                  param_dtype: torch.dtype | None = None):
         super().__init__()
         self.cfg = cfg
+        self.mesh = None              # the ring backend's (see the module doc)
         dtype = cfg.torch_dtype
         H, nh, hd = cfg.hidden_size, cfg.num_heads, cfg.head_dim
         kw = dict(dtype=dtype, param_dtype=param_dtype or dtype,
@@ -370,10 +378,13 @@ class GptBlock(nn.Module):
         without dropout."""
         g = _generator(seed, x.device)
         q, k, v = self._qkv(x)
+        if self.cfg.attention_backend == "ring" and self.mesh is None:
+            self.mesh = default_mesh()
         ctx = dot_product_attention(q, self._expand_kv(k),
                                     self._expand_kv(v), causal=True,
                                     window=self.cfg.attention_window,
-                                    backend=self.cfg.attention_backend)
+                                    backend=self.cfg.attention_backend,
+                                    mesh=self.mesh)
         x = x + self._drop(self.out(ctx), g)
         return self._mlp(x, g)
 
@@ -507,10 +518,11 @@ class GptLM(nn.Module):
     ``device="cpu"`` for the CPU).  Weights are drawn from flax's default
     initializers with a generator seeded by ``seed``.  ``param_dtype``
     stores the projection and MLP weights (default ``cfg.dtype``, the
-    serving storage; training passes ``torch.float32`` masters)."""
+    serving storage; training passes ``torch.float32`` masters).
+    ``mesh``: the ``ring`` backend's mesh (else captured at first call)."""
 
     def __init__(self, cfg: GptConfig, *, device=None, seed: int = 0,
-                 param_dtype: torch.dtype | None = None):
+                 param_dtype: torch.dtype | None = None, mesh=None):
         super().__init__()
         device = resolve_device(device)
         self.cfg = cfg
@@ -523,6 +535,8 @@ class GptLM(nn.Module):
         self.layers = nn.ModuleList(
             GptBlock(cfg, device=device, param_dtype=param_dtype)
             for _ in range(cfg.num_layers))
+        for layer in self.layers:
+            layer.mesh = mesh
         self.ln_final = _norm(cfg, device)
         self.lm_head = Dense((H,), (cfg.vocab_size,), dtype=None,
                              param_dtype=torch.float32, device=device)

@@ -54,11 +54,14 @@ def build_gpt_mini(learning_rate: float, seed: int = 0, seq_len: int = 128,
                    attn_int8: bool = False,
                    tokenizer: str = "byte",
                    stream_threshold_mb: int = 256, *,
-                   device=None) -> ModelBundle:
+                   device=None, mesh=None) -> ModelBundle:
     """GPT-mini decoder-only causal LM with fp32 master weights, its
     optimizer (Adam by default) and the LM data streams.  ``matmul_int8``
     / ``attn_int8`` train the MLP / the attention projections through the
-    int8 matmuls of ``ops/quant_train.py``.  ``device``
+    int8 matmuls of ``ops/quant_train.py``.  ``attention_backend="ring"``
+    trains with sequence-parallel ring attention over ``mesh``'s ``seq``
+    axis (a ``parallel.mesh.Mesh``; or the one of
+    ``ops.attention.attention_mesh`` around the first step).  ``device``
     defaults to ``cuda`` (pass ``"cpu"`` for the CPU); the model's
     weights come from ``seed``, the dropout generator from ``seed + 1``."""
     from . import gpt as gpt_lib
@@ -75,7 +78,7 @@ def build_gpt_mini(learning_rate: float, seed: int = 0, seq_len: int = 128,
                                   "ROADMAP.md, PyTorch port")
     device = resolve_device(device)
     model = gpt_lib.GptLM(cfg, device=device, seed=seed,
-                          param_dtype=torch.float32)
+                          param_dtype=torch.float32, mesh=mesh)
     if tx is None:
         tx = _default_transformer_tx(learning_rate, "gpt_mini")
     needs_rng = dropout_rate > 0.0

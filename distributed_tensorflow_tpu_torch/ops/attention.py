@@ -11,8 +11,11 @@ same functional entry point and backends:
   (:mod:`.flash_attention`, hand-written CUDA on the GPU), differentiable:
   the backward runs the FlashAttention-2 dq and dk/dv kernels.  It takes
   every sequence length; there is no dense fallback for odd shapes.
-- ``"ring"`` / ``"ulysses"``: sequence parallelism has not been ported
-  yet and raises.
+- ``"ring"``: sequence-parallel exact attention over the ``seq`` axis of
+  a mesh (:mod:`..parallel.ring`), passed as ``mesh=`` or made the default
+  by :func:`attention_mesh`; each hop runs the ring's chunk kernels.
+- ``"ulysses"``: not ported yet (it runs the K1/K2 kernels behind an
+  all-to-all and ports no kernel of its own); raises.
 
 Masks: ``kv_mask`` is the key-padding form [B, S] (nonzero = attend)
 accepted by every backend; the general ``mask`` (broadcastable to
@@ -21,10 +24,38 @@ accepted by every backend; the general ``mask`` (broadcastable to
 
 from __future__ import annotations
 
+import contextlib
+
 import torch
 
+from ..parallel.mesh import DATA_AXIS, MODEL_AXIS, SEQ_AXIS
+from ..parallel.ring import make_ring_attention
 from .flash_attention import (attention_valid, dense_attention,
                               flash_attention)
+
+# Mesh used by the ring backend when callers cannot thread one through (the
+# model configures attention by string).  Set by attention_mesh().
+_DEFAULT_MESH = None
+
+
+@contextlib.contextmanager
+def attention_mesh(mesh):
+    """Make ``mesh`` the default for the ``ring`` backend.  A GPT block
+    captures the mesh at its first call (``GptBlock.forward``), as a jitted
+    JAX program captures it when traced, so later calls (and the backward's
+    recomputation under remat) need no context."""
+    global _DEFAULT_MESH
+    prev = _DEFAULT_MESH
+    _DEFAULT_MESH = mesh
+    try:
+        yield
+    finally:
+        _DEFAULT_MESH = prev
+
+
+def default_mesh():
+    """The mesh of the innermost :func:`attention_mesh`, or None."""
+    return _DEFAULT_MESH
 
 
 def dot_product_attention(
@@ -37,11 +68,14 @@ def dot_product_attention(
     causal: bool = False,
     window: int = 0,
     backend: str = "xla",
+    mesh=None,
 ) -> torch.Tensor:
     """Multi-head scaled dot-product attention, batch-major BSHD layout.
 
     ``window`` > 0 (requires ``causal``) is sliding-window attention: each
-    query sees its ``window`` most recent keys only."""
+    query sees its ``window`` most recent keys only.  ``mesh`` (``ring``
+    only; default: :func:`attention_mesh`'s) is a ``parallel.mesh.Mesh``
+    with a ``seq`` axis."""
     if window and not causal:
         raise ValueError("window > 0 requires causal=True")
     if backend == "pallas":
@@ -51,10 +85,31 @@ def dot_product_attention(
         out, _ = flash_attention(q, k, v, kv_mask, causal=causal,
                                  window=window)
         return out
-    if backend in ("ring", "ulysses"):
+    if backend == "ulysses":
         raise NotImplementedError(
-            f"attention backend {backend!r} (sequence parallelism) is not "
-            "ported yet; see ROADMAP.md, PyTorch port")
+            "attention backend 'ulysses' (sequence parallelism by "
+            "all-to-all) is not ported yet; see ROADMAP.md, PyTorch port")
+    if backend == "ring":
+        if mask is not None:
+            raise ValueError("ring backend supports kv_mask/causal, not a "
+                             "full [B,H,S,S] mask")
+        if mesh is None:
+            mesh = _DEFAULT_MESH
+        if mesh is None:
+            raise ValueError("ring backend needs mesh= (with a 'seq' axis), "
+                             "passed directly or via attention_mesh(...)")
+        n_model = mesh.shape.get(MODEL_AXIS, 1)
+        if (q.shape[0] % mesh.shape.get(DATA_AXIS, 1)
+                or q.shape[1] % mesh.shape.get(SEQ_AXIS, 1)):
+            # Shapes that do not tile the mesh (ragged eval tails) take the
+            # dense path: both are exact attention, so this changes layout,
+            # never math.
+            backend = "xla"
+        else:
+            return make_ring_attention(
+                mesh, causal=causal, window=window,
+                heads_sharded=n_model > 1 and q.shape[2] % n_model == 0)(
+                    q, k, v, kv_mask)
     if backend != "xla":
         raise ValueError(f"Unknown attention backend: {backend!r}")
 

@@ -62,12 +62,25 @@ SIGNATURES = {
                                   + [_I, _I, _F, _I, _P],
     "dtt_flash_attention_bwd_dkv": [_P] * 10 + [_I] * 4 + [_L] * 15
                                    + [_I, _I, _F, _I, _P],
+    # K6: q, k, v, kv_mask, m_in, l_in, acc_in, m_out, l_out, acc_out,
+    # B, Sq, Sk, H, D, q/k/v strides (batch, seq, head), q_off, k_off,
+    # causal, window, scale, dtype, stream.
+    "dtt_flash_attention_chunk": [_P] * 10 + [_I] * 5 + [_L] * 9
+                                 + [_I] * 4 + [_F, _I, _P],
+    # K7a/K7b: q, k, v, kv_mask, dout, lse, delta, out_a, out_b, B, Sq,
+    # Sk, H, D, q/k/v/dout strides, q_off, k_off, causal, window, scale,
+    # dtype, dkv (0: out_a = dq; 1: out_a = dk, out_b = dv), stream.
+    "dtt_flash_attention_chunk_bwd": [_P] * 9 + [_I] * 5 + [_L] * 12
+                                     + [_I] * 4 + [_F, _I, _I, _P],
     # K4: x, qw, sw, bias, residual, out, pre (null where unused), M, N,
     # K, bk, x's row stride, gelu, dtype (0 = fp32, 1 = bf16), stream.
     "dtt_quant_matmul": [_P] * 7 + [_I] * 4 + [_L, _I, _I, _P],
     # K5: da, pre (null: "fold"), qw, sf, out, g (null unless want_g), M,
     # N, K, bk, da's and pre's row strides, dtype, stream.
     "dtt_quant_matmul_nt": [_P] * 6 + [_I] * 4 + [_L, _L, _I, _P],
+    # K8: da, pre, qwt (K-major [N, K]), sw, out, g (null unless want_g),
+    # M, N, K, bk, da's and pre's row strides, dtype, stream.
+    "dtt_quant_matmul_dgelu": [_P] * 6 + [_I] * 4 + [_L, _L, _I, _P],
 }
 
 _lock = threading.Lock()

@@ -2,7 +2,8 @@
 per (row, K-block) inside the matmul.
 
 Counterpart of ``distributed_tensorflow_tpu/ops/pallas/quant_matmul.py``
-(``quantize_cols``, ``quantized_matmul``, ``quantized_matmul_nt``).
+(``quantize_cols``, ``quantized_matmul``, ``quantized_matmul_nt``,
+``quantized_matmul_dgelu``).
 Weights are quantized per output column outside the kernels
 (:func:`quantize_cols`, once per step); activations get one scale per row
 and per K-block of width ``bk = _pick(K, block_k)``, computed in the
@@ -16,9 +17,13 @@ Each function is one wrapper around two implementations:
   (K4 :func:`quantized_matmul`, the forward with its bias / gelu /
   pre-activation / residual epilogue; K5 :func:`quantized_matmul_nt`, the
   dgrad against the forward's quantized weight with the scale fold and the
-  gelu backward in its prologue), on the int8 tensor cores;
-- on CPU tensors, the plain versions :func:`quantized_matmul_reference`
-  and :func:`quantized_matmul_nt_reference`.
+  gelu backward in its prologue; K8 :func:`quantized_matmul_dgelu`, the
+  dgrad against an explicitly re-quantized ``w.T`` with the gelu backward
+  in its prologue and no fold, on no training path), on the int8 tensor
+  cores;
+- on CPU tensors, the plain versions :func:`quantized_matmul_reference`,
+  :func:`quantized_matmul_nt_reference` and
+  :func:`quantized_matmul_dgelu_reference`.
 
 A CUDA tensor never takes a plain version: the kernel launches or the call
 raises.  The kernels take every M; K must have a power-of-two K-block of
@@ -36,6 +41,7 @@ from . import kernels
 # the main path, and reads them back).
 launches = 0
 nt_launches = 0
+dgelu_launches = 0
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _TILE_N = 128          # the kernels' output-column tile
@@ -225,6 +231,34 @@ def quantized_matmul_nt_reference(da, qw, sw, pre=None, *,
     return (out, g.to(da.dtype)) if want_g else out
 
 
+def _check_dgelu(da, pre, qwt, swt):
+    M, K = da.shape
+    if pre.shape != da.shape:
+        raise ValueError(f"pre shape {tuple(pre.shape)} != da shape "
+                         f"{tuple(da.shape)}")
+    K2, N = qwt.shape
+    if K != K2 or tuple(swt.shape) != (1, N):
+        raise ValueError(f"shape mismatch: da {tuple(da.shape)}, qwt "
+                         f"{tuple(qwt.shape)}, swt {tuple(swt.shape)}")
+    return M, K, N
+
+
+def quantized_matmul_dgelu_reference(da, pre, qwt, swt, *,
+                                     want_g: bool = False,
+                                     block_k: int = 512):
+    """Plain version of :func:`quantized_matmul_dgelu`
+    (``_qmm_dgelu_kernel``): ``g = da * gelu'(pre)`` in fp32, quantized per
+    (row, K-block), ``@ qwt [K, N]`` block by block, ``* swt [1, N]``, one
+    cast to da.dtype; ``want_g`` also returns g in da.dtype."""
+    M, K, N = _check_dgelu(da, pre, qwt, swt)
+    bk = _block_k(K, block_k)
+    g = da.to(torch.float32) * _dgelu(pre.to(torch.float32))
+    q, sg = _quant_block(g.reshape(M, K // bk, bk))
+    out = (_blocked_product(q, sg, qwt, bk, nt=False)
+           * swt.to(torch.float32)).to(da.dtype)
+    return (out, g.to(da.dtype)) if want_g else out
+
+
 def _rows_ok(t: torch.Tensor) -> bool:
     """Last dim contiguous and rows on a 16-byte boundary: the kernels
     load four elements per lane (8 bytes in bf16, 16 in fp32)."""
@@ -342,4 +376,43 @@ def quantized_matmul_nt(da, qw, sw, pre=None, *, prologue: str = "fold",
     kernels.check(rc, "quant_matmul_nt")
     global nt_launches
     nt_launches += 1
+    return (out, g) if want_g else out
+
+
+def quantized_matmul_dgelu(da, pre, qwt, swt, *, want_g: bool = False,
+                           block_k: int = 512):
+    """``(da * gelu'(pre)) [M, K] @ (qwt [K, N] int8 * swt [1, N])`` in
+    da.dtype, the gelu backward and the per-(row, K-block) quantize in the
+    kernel's prologue; ``want_g`` also returns ``g = da * gelu'(pre)``.
+    The dgrad against an explicitly re-quantized ``w.T``: the JAX package
+    keeps it tested but trains through :func:`quantized_matmul_nt`.  K8 on
+    a CUDA tensor, :func:`quantized_matmul_dgelu_reference` on a CPU
+    tensor."""
+    if da.device.type == "cpu":
+        return quantized_matmul_dgelu_reference(da, pre, qwt, swt,
+                                                want_g=want_g,
+                                                block_k=block_k)
+    M, K, N = _check_dgelu(da, pre, qwt, swt)
+    bk = _block_k(K, block_k)
+    _kernel_shape(da, K, N, bk)
+    _check_cuda("pre", pre, da, da.dtype)
+    _check_cuda("qwt", qwt, da, torch.int8)
+    _check_cuda("swt", swt, da, torch.float32)
+    # The kernel reads the weight K-major, as the int8 mma's B operand
+    # wants: one int8 transpose per call (as K4's wrapper).
+    da, pre = _rows(da), _rows(pre)
+    qw, swt = qwt.t().contiguous(), swt.contiguous()
+    out = torch.empty(M, N, dtype=da.dtype, device=da.device)
+    g = torch.empty(M, K, dtype=da.dtype, device=da.device) if want_g \
+        else None
+    if M == 0:
+        return (out, g) if want_g else out
+    rc = kernels.load().dtt_quant_matmul_dgelu(
+        da.data_ptr(), pre.data_ptr(), qw.data_ptr(), swt.data_ptr(),
+        out.data_ptr(), None if g is None else g.data_ptr(), M, N, K, bk,
+        da.stride(0), pre.stride(0), _DTYPE_CODE[da.dtype],
+        kernels.stream_handle(da.device))
+    kernels.check(rc, "quant_matmul_dgelu")
+    global dgelu_launches
+    dgelu_launches += 1
     return (out, g) if want_g else out

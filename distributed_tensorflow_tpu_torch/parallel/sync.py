@@ -1,10 +1,15 @@
-"""The synchronous train step, on one device.
+"""The synchronous train step, in one process.
 
 Counterpart of ``distributed_tensorflow_tpu/parallel/sync.py``'s
 ``build_sync_train_step``.  There the step is one jitted function whose
 gradient mean over the ``data`` mesh axis XLA turns into an AllReduce;
-here it runs eagerly on one device.  The gradient all-reduce over
-``torch.distributed`` is later work (ROADMAP.md, PyTorch port).
+here it runs eagerly in one process.  A model whose attention is
+sharded over a mesh (``attention_backend="ring"``) needs no all-reduce
+of its own: the replicated weights are one set of tensors, and autograd
+sums every shard's contribution into their gradients, which is what
+GSPMD's AllReduce over ``data`` and ``seq`` does in the JAX step.  The
+gradient all-reduce across processes over ``torch.distributed`` is later
+work (ROADMAP.md, PyTorch port).
 """
 
 from __future__ import annotations

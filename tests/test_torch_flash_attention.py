@@ -106,10 +106,18 @@ def test_xla_backend_matches_jax_with_full_mask():
 
 def test_attention_rejects_unported_and_unknown_backends():
     q, k, v = map(torch.from_numpy, _qkv(1, 8, 1, 8, seed=4))
-    for backend in ("ring", "ulysses"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            tattn.dot_product_attention(q, k, v, causal=True,
-                                        backend=backend)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        tattn.dot_product_attention(q, k, v, causal=True, backend="ulysses")
+    # The ring is ported (parallel/ring.py) but needs a mesh; with heads
+    # sharded over a model axis (tensor parallelism) it is not.
+    with pytest.raises(ValueError, match="needs mesh"):
+        tattn.dot_product_attention(q, k, v, causal=True, backend="ring")
+    from distributed_tensorflow_tpu_torch.parallel.mesh import create_mesh
+    tp = create_mesh(data=1, model=2, devices=[torch.device("cpu")] * 2)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        tattn.dot_product_attention(
+            q.expand(1, 8, 2, 8), k.expand(1, 8, 2, 8), v.expand(1, 8, 2, 8),
+            causal=True, backend="ring", mesh=tp)
     with pytest.raises(ValueError, match="Unknown"):
         tattn.dot_product_attention(q, k, v, backend="nope")
     with pytest.raises(ValueError, match="causal"):

@@ -45,6 +45,8 @@ def test_every_port_module_imports_without_jax():
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stdout + out.stderr
     assert len(_port_modules()) >= 15
+    assert {f"{port.__name__}.parallel.mesh",
+            f"{port.__name__}.parallel.ring"} <= set(_port_modules())
 
 
 def test_no_port_file_or_chip_smoke_names_jax_in_an_import():
@@ -80,12 +82,18 @@ def test_entry_points_need_cuda_or_an_explicit_cpu(monkeypatch):
     engine = DecodeEngine(model, None, EngineConfig(num_slots=1),
                           device="cpu")
     assert engine.pools[0][0].device.type == "cpu"
+    # A mesh defaults to the visible cards; the CPU only by devices=.
+    from distributed_tensorflow_tpu_torch.parallel.mesh import create_mesh
+    with pytest.raises(RuntimeError, match="devices="):
+        create_mesh(seq=2)
+    assert create_mesh(seq=2, devices=["cpu"] * 2).shape["seq"] == 2
 
 
 def test_kernel_sources_ship_in_the_package_and_hash_stably():
     names = sorted(os.path.basename(s) for s in kernels.sources())
     assert names == ["flash_attention.cu", "flash_attention_bwd.cu",
-                     "layer_norm.cu", "quant_matmul.cu"]
+                     "flash_attention_chunk.cu", "layer_norm.cu",
+                     "quant_matmul.cu"]
     assert kernels.source_hash() == kernels.source_hash()
     assert kernels.BUILD_ROOT.endswith("_build")
     with open(os.path.join(REPO, ".gitignore")) as f:

@@ -222,6 +222,37 @@ def test_quantized_matmul_nt_plain_version_matches_pallas(variant, dtype):
         _close(a, b, dtype, name, step if name == "dx" else 0.0)
 
 
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+@pytest.mark.parametrize("want_g", [False, True])
+def test_quantized_matmul_dgelu_plain_version_matches_pallas(want_g, dtype):
+    """K8, test_int8_train.py:124's case: da, pre [M=256, K=512] against
+    an explicitly quantized w.T [K, N=256] in four K-blocks of 128, the
+    gelu backward in the prologue, no fold, g out with want_g.  On the CPU
+    the wrapper computes the plain version and counts no launch."""
+    rng = np.random.default_rng(4)
+    M, K, N = 256, 512, 256
+    jda, tda = _pair(rng, (M, K), dtype)
+    jp, tp = _pair(rng, (M, K), dtype, 2.0)
+    (jq, js), (tq, ts) = _weights(rng, K, N)
+    want = jqm.quantized_matmul_dgelu(jda, jp, jq, js, want_g=want_g,
+                                      block_m=128, block_n=256, block_k=128,
+                                      interpret=True)
+    before = tqm.dgelu_launches
+    got = tqm.quantized_matmul_dgelu(tda, tp, tq, ts, want_g=want_g,
+                                     block_k=128)
+    assert tqm.dgelu_launches == before
+    # The frameworks' tanh differ by ulps, which can move an element of g
+    # across a rounding boundary; one code step of dx is then at most
+    # sg * 127 * max(swt) = max |g| of the row times max(swt).
+    g = tda.float() * tqm._dgelu(tp.float())
+    step = float(g.abs().max() * ts.max())
+    if not want_g:
+        want, got = (want,), (got,)
+    for name, a, b in zip(("dx", "g"), got, want):
+        assert a.dtype == DTYPES[dtype][1]
+        _close(a, b, dtype, name, step if name == "dx" else 0.0)
+
+
 def test_quantized_matmul_rejects_what_jax_rejects():
     x = torch.zeros(128, 128)
     qw, sw = tqm.quantize_cols(torch.ones(128, 256))
