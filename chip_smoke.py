@@ -7,7 +7,10 @@ NVIDIA GPU.
 Phases, one JSON line each on stdout:
 
 1. ``env``: the card (``nvidia-smi`` name and power limit), torch, CUDA.
-2. ``build``: the hand-written CUDA kernels, compiled from ``csrc/``.
+2. ``build``: the hand-written CUDA kernels, compiled from ``csrc/``,
+   with ``-Xptxas -v``'s registers, spills and static shared memory of
+   the K1/K2 bf16 (wgmma) kernels beside the dynamic shared memory their
+   launchers request.
 3. ``kernels``: each kernel against its plain PyTorch version on the card,
    in bf16 at the shapes each path gives it (K1 and K3 at the serving
    path's and the train step's, K2a and K2b at the train step's, K4 and
@@ -20,7 +23,13 @@ Phases, one JSON line each on stdout:
    sequence; K8, on no path, at the int8 MLP's mlp_in dgrad shape), with
    the tolerance stated below, its time, the plain version's time, one
    library call's time (used only here, never by the port; K4/K5/K8 have
-   two labelled yardsticks) and the least time the card could take.
+   two labelled yardsticks) and the least time the card could take; K1
+   and K2 rows also carry ``ratio_to_library`` (kernel over library time;
+   K2's library call computes dq, dk and dv, so its rows add
+   ``pair_ratio_to_library`` for K2a + K2b) and ``tflops`` (the useful
+   operations the bound counts, over the kernel's time); K1 rows add
+   ``host_ms`` and ``library_host_ms``, the host time per call of each
+   (at the serving shape it exceeds the kernel's device time).
 4. ``serve``: a GPT at the widths of the repo's GPT-406M (hidden 2048,
    8 layers, 16 heads, MLP 8192, vocab 256, bf16, random weights from a
    seeded generator) behind ``ServingServer``; 8 concurrent HTTP requests
@@ -205,11 +214,60 @@ def cuda_ms(fn, min_ms: float = 25.0) -> float:
     return window(reps) / reps
 
 
+def host_ms(fn, reps: int = 500) -> float:
+    """Host milliseconds per call of back-to-back calls (the wrapper's
+    Python and launch cost; the card is left to catch up afterwards).
+    Where it exceeds the device time, ``cuda_ms`` times the host."""
+    import torch
+    for _ in range(20):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    dt = (time.perf_counter() - t0) / reps * 1e3
+    torch.cuda.synchronize()
+    return dt
+
+
+def warm_up(dev, seconds: float = 1.0) -> None:
+    """Bring the card's clocks up before the first timing (the kernels
+    phase times K1 at the serving shape first): back-to-back bf16 GEMMs
+    for about ``seconds``."""
+    import torch
+    a = torch.randn(4096, 4096, device=dev).to(torch.bfloat16)
+    t0 = time.perf_counter()
+    while time.perf_counter() - t0 < seconds:
+        for _ in range(20):
+            a @ a
+        torch.cuda.synchronize()
+
+
 def bound(bytes_moved: float, flops: float,
           peak_ops: float = PEAK_BF16_FLOPS) -> tuple[float, str]:
     t_bytes = bytes_moved / PEAK_BYTES * 1e3
     t_ops = flops / peak_ops * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def flash_build_report(kernels, lib) -> list[dict]:
+    """ptxas's registers, spills and static shared memory (``-Xptxas
+    -v``) of the K1/K2 bf16 kernels, with the dynamic shared memory their
+    launchers request."""
+    import re
+    rows = []
+    for kind, entry in (("flash_fwd_wgmma", lib.dtt_flash_attention_fwd_smem),
+                        ("flash_bwd_dq_wgmma",
+                         lib.dtt_flash_attention_bwd_smem),
+                        ("flash_bwd_dkv_wgmma",
+                         lib.dtt_flash_attention_bwd_smem)):
+        for r in kernels.ptxas_report(kind):
+            d = int(re.search(kind + r"ILi(\d+)E", r["kernel"]).group(1))
+            rows.append(dict(kernel=f"{kind}<{d}>", registers=r.get(
+                "registers"), spill_stores=r["spill_stores"],
+                spill_loads=r["spill_loads"], stack_bytes=r["stack_bytes"],
+                smem_static=r["smem_static"], smem_dynamic=entry(d)))
+    return rows
 
 
 def check_k1(name, q, k, v, mask, out, lse, *, causal, window):
@@ -253,10 +311,16 @@ def k1_timings(q, k, v, mask, valid, *, causal, window) -> dict:
             return F.scaled_dot_product_attention(qt, kt, vt,
                                                   attn_mask=valid)
     kw = dict(causal=causal, window=window)
-    return dict(ms=cuda_ms(lambda: fa.flash_attention(q, k, v, mask, **kw)),
-                plain_ms=cuda_ms(lambda: fa.flash_attention_reference(
+
+    def kernel():
+        return fa.flash_attention(q, k, v, mask, **kw)
+    ms, library_ms = cuda_ms(kernel), cuda_ms(lib)
+    return dict(ms=ms, plain_ms=cuda_ms(lambda: fa.flash_attention_reference(
                     q, k, v, mask, **kw)),
-                library_ms=cuda_ms(lib), bound_ms=b_ms, bound_by=b_by)
+                library_ms=library_ms, bound_ms=b_ms, bound_by=b_by,
+                ratio_to_library=ms / library_ms,
+                tflops=4 * D * pairs / (ms * 1e-3) / 1e12,
+                host_ms=host_ms(kernel), library_host_ms=host_ms(lib))
 
 
 def check_k3(name, x, scale, bias) -> dict:
@@ -295,6 +359,7 @@ def check_kernels(dev):
     g = torch.Generator(device=dev).manual_seed(SEED)
     H, D = WIDTH["num_heads"], WIDTH["hidden_size"] // WIDTH["num_heads"]
     S = 784                       # the longest prompt's prefill bucket
+    warm_up(dev)
 
     def qkv(B):
         # Views into one fused [B, S, 3, H, D] projection, as on the path.
@@ -346,6 +411,10 @@ def check_kernels(dev):
          quant_matmul_dgelu=k45["k8"])
 
     keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+    # K1 and K2 also carry their time over the library call's and the
+    # useful TFLOP/s they reach (the valid pairs the bound counts).
+    extra = ("ratio_to_library", "tflops", "pair_ms",
+             "pair_ratio_to_library", "host_ms", "library_host_ms")
 
     def summary(name, file, replaces, main, by_path, cases, sites=()):
         """One row per kernel.  Its numbers are those of its main path's
@@ -359,9 +428,11 @@ def check_kernels(dev):
             main=main, launches=0,
             max_abs_err=max(c["max_abs_err"] for c in cases),
             **{k: by_path[main][k] for k in keys},
+            **{k: by_path[main][k] for k in extra if k in by_path[main]},
             paths={path: dict(case=c["case"], launches=0,
                               max_abs_err=c["max_abs_err"],
-                              **{k: c[k] for k in keys})
+                              **{k: c[k] for k in keys},
+                              **{k: c[k] for k in extra if k in c})
                    for path, c in by_path.items()})
         if sites:
             row["library_bf16_ms"] = by_path[main]["library_bf16_ms"]
@@ -510,17 +581,25 @@ def check_backward_kernels(dev, g, H, D):
                     window=window, tol_rel=K2_REL_TOL, plain_ms=plain_ms,
                     library_ms=lib_ms)
         # dq: reads q, k, v, o, dO and lse, writes dq and delta; S, dP, dQ.
+        # dkv: reads q, k, v, dO, lse and delta, writes dk and dv; S, dP,
+        # dV, dK.  Each row's ratio is its own time over the library's
+        # (which computes all three gradients); the pair's is their sum's.
+        dq_ms, dkv_ms = cuda_ms(run_dq), cuda_ms(run_dkv)
+        pair = dict(pair_ms=dq_ms + dkv_ms,
+                    pair_ratio_to_library=(dq_ms + dkv_ms) / lib_ms)
         b_ms, b_by = bound(6 * one + 2 * stats + extra, 3 * 2 * pairs * d)
         rows["dq"].append(dict(base, max_abs_err=errs["dq"][0],
-                               rel_err=errs["dq"][1], ms=cuda_ms(run_dq),
-                               bound_ms=b_ms, bound_by=b_by))
-        # dkv: reads q, k, v, dO, lse and delta, writes dk and dv; S, dP,
-        # dV, dK.
+                               rel_err=errs["dq"][1], ms=dq_ms,
+                               bound_ms=b_ms, bound_by=b_by,
+                               ratio_to_library=dq_ms / lib_ms,
+                               tflops=3 * 2 * pairs * d / (dq_ms * 1e-3)
+                               / 1e12, **pair))
         b_ms, b_by = bound(6 * one + 2 * stats + extra, 4 * 2 * pairs * d)
         rows["dkv"].append(dict(
             base, max_abs_err=max(errs["dk"][0], errs["dv"][0]),
-            rel_err=max(errs["dk"][1], errs["dv"][1]), ms=cuda_ms(run_dkv),
-            bound_ms=b_ms, bound_by=b_by))
+            rel_err=max(errs["dk"][1], errs["dv"][1]), ms=dkv_ms,
+            bound_ms=b_ms, bound_by=b_by, ratio_to_library=dkv_ms / lib_ms,
+            tflops=4 * 2 * pairs * d / (dkv_ms * 1e-3) / 1e12, **pair))
         del t, ref, lib_out, qt, kt, vt
     torch.cuda.empty_cache()
     return rows
@@ -1402,9 +1481,10 @@ def main() -> int:
          count=torch.cuda.device_count())
 
     t0 = time.perf_counter()
-    kernels.load()
+    lib = kernels.load()
     emit("build", seconds=time.perf_counter() - t0,
-         sources=[os.path.basename(s) for s in kernels.sources()])
+         sources=[os.path.basename(s) for s in kernels.sources()],
+         flash_bf16_kernels=flash_build_report(kernels, lib))
 
     rows = check_kernels(dev)
     from distributed_tensorflow_tpu_torch.ops import quant_matmul as qmm

@@ -6,63 +6,72 @@
 // There the TPU walks the streamed blocks as the last, sequential grid axis
 // and carries the fp32 dk/dv (or dq) accumulators in VMEM scratch.  Hopper
 // blocks run in parallel and in no order, so here one thread block owns one
-// 64-row tile and loops over the streamed tiles itself:
-//   K2a (dkv): a block per (batch*head, K tile) walks the Q tiles that can
-//              see it, accumulating dK and dV;
-//   K2b (dq):  a block per (batch*head, Q tile) walks the K tiles it can
-//              see, accumulating dQ.
+// tile and loops over the streamed tiles itself:
+//   K2b (dq):  a block per (batch*head, Q tile) walks the K/V tiles it can
+//              see, accumulating dQ;
+//   K2a (dkv): a block per (batch*head, K tile) walks the Q/dO tiles that
+//              can see it, accumulating dK and dV.
 // The TPU's two-call split is kept: neither kernel needs atomics, so the
-// gradients are deterministic.  K2b also computes delta = rowsum(dO * o)
-// for its Q tile (the JAX code does it in XLA before both calls) and writes
-// it out for K2a, so the dq call runs first.
+// gradients are deterministic, bit for bit from call to call.  K2b also
+// computes delta = rowsum(dO * o) for its Q tile (the JAX code does it in
+// XLA before both calls) and writes it out for K2a, so the dq call runs
+// first.  The pair runs 7 products (K2b: S, dP, dQ; K2a: S, dP, dV, dK)
+// where one fused pass would run 5.
 //
-// Bound on the H100: at the train shape (S = 1024, D = 128, causal) the
-// work per (q, k) pair is 2 D flops for each of the products a kernel runs
-// (K2a: S, dP, dV, dK; K2b: S, dP, dQ) against ~10 S D bytes of operands
-// per head: ~S/2 * D flops per byte, above the bf16 ridge (~295 flop/byte),
-// so the bound is tensor-core flops.  Each kernel recomputes S and dP,
-// which a fused kernel would share: the pair does 7 products where 5 would
-// do.
+// Bound on the H100: at the train shape (S = 1024, D = 128, causal) each
+// product is 2 D flops per valid (q, k) pair against ~10 S D bytes of
+// operands per head: the tensor cores bound K2a, K2b sits at the ridge.
 //
-// Design, simple first.  Four warps per block, each owning 16 rows of the
-// block's tile.  The block's own two operand tiles (K2a: K, V; K2b: Q, dO)
-// are read once; each streamed tile pair (K2a: Q, dO; K2b: K, V) is read
-// once per block.  For each streamed tile a warp computes its 16 x 64 slice
-// of S = own1 . str1^T and dP = own2 . str2^T, then
-//   P = exp(scale * S - lse)   for valid (q, k), exactly 0 otherwise,
-//   dS = P * (dP - delta),
-// and accumulates dQ += dS . K (K2b) or dK += dS^T . Q and dV += P^T . dO
-// (K2a: own rows are keys, so the warp's slices are already transposed).
-// bf16 products run on the tensor cores through WMMA fragments with fp32
-// accumulation; P and dS are rounded to bf16 as tensor-core operands, as in
-// FlashAttention-2.  fp32 inputs take a scalar FMA path at full precision.
-// The accumulators stay in registers (WMMA accumulator fragments, or
-// per-lane arrays in the fp32 path); S and dP share one fp32 scratch tile
-// per warp, so the bf16 D = 128 kernel needs ~105 KB of shared memory and
-// two blocks fit on an SM (the wrapper opts in above 48 KB).  wgmma, TMA
-// and a fused single-pass variant are left for later work.
+// Design, bf16 (flash_bwd_dq_wgmma, flash_bwd_dkv_wgmma), K1's:
+//   - A block is three warpgroups: a producer and two consumers, each
+//     consumer owning 64 rows of the block's 128-row tile.  The producer
+//     TMA-loads the block's own two tiles once (K2b: Q, dO; K2a: K, V),
+//     then streams 64-row tile pairs (K2b: K, V; K2a: Q, dO) through a
+//     ring of two stages on full/empty mbarriers, so the next pair is in
+//     flight while the current one is multiplied.
+//   - The products run on wgmma with fp32 accumulators in registers:
+//     K2b: S = Q K^T and dP = dO V^T (m64n64k16, both operands K-major in
+//          shared memory), then dQ += dS K with dS from registers and K
+//          MN-major (transpose-B);
+//     K2a: the transposed form, own rows are keys: S^T = K Q^T and
+//          dP^T = V dO^T, then dV += P^T dO and dK += dS^T Q with P^T and
+//          dS^T from registers.  P and dS are never a B operand, so
+//          nothing is staged through shared memory: dK and dV (64 x D fp32
+//          each) stay in the consumer's registers (setmaxnreg gives the
+//          consumers 232 a thread).
+//   - P = exp2(S * scale * log2(e) - lse * log2(e)) and dS = P (dP -
+//     delta) in registers; the mask is applied before the exp, and only
+//     on tiles where some pair can be invalid, so a masked pair gives an
+//     exact zero and a fully masked row (lse ~ -1e30) exact zero
+//     gradients, never inf * 0.  Rows past S are zeros from TMA and
+//     contribute nothing (lse +inf for a streamed query past S).
+//   - K2a's streamed queries need their lse and delta by column: a second
+//     producer warp stages them (lse already in log2 units) into the
+//     stage beside the Q/dO tiles and arrives on the same full barrier.
+//   - Causal tiles above the diagonal and, with a window, tiles outside
+//     the band are never visited.  K2b launches its heaviest (last) Q
+//     tiles first, K2a its heaviest (first) K tiles.  q, k, v, o and dO
+//     are read through their [B, S, H, D] strides, so the fused qkv
+//     projection's slices need no copy; dq, dk and dv are written
+//     contiguous.
 //
-// Masking happens before the exp, as in the TPU kernel: an invalid pair
-// (key padding, causal, outside the window, past S) gets P = 0 without
-// evaluating exp, so a fully masked row (lse ~ -1e30) gives exact zeros
-// and never inf * 0.  Causal tiles above the diagonal and, with a window,
-// tiles below the band are never visited.  q, k, v, o and dO are read
-// through their [B, S, H, D] strides (last dim contiguous, rows 16-byte
-// aligned), so the fused qkv projection's slices need no copy; dq, dk and
-// dv are written contiguous.
+// fp32 inputs (on no main path) take the scalar kernel flash_bwd_f32:
+// four warps per 64-row tile, S and dP through one fp32 shared scratch per
+// warp, full fp32 precision.
 
-#include <cuda_runtime.h>
+#include <cuda.h>
 #include <cuda_bf16.h>
-#include <mma.h>
+#include <cuda_runtime.h>
+#include <math.h>
+
+#include "hopper.cuh"
+#include "launch.cuh"
 
 namespace {
 
-using namespace nvcuda;
 using bf16 = __nv_bfloat16;
 
-constexpr int BT = 64;         // rows of the own tile and of each streamed tile
-constexpr int kWarps = 4;      // 16 own rows each
-constexpr int kThreads = kWarps * 32;
+constexpr float kLog2e = 1.4426950408889634f;
 
 struct Params {
   const void* q;
@@ -82,80 +91,476 @@ struct Params {
   float scale;
 };
 
-template <typename T> __device__ __forceinline__ T from_f(float x);
-template <> __device__ __forceinline__ float from_f<float>(float x) {
-  return x;
-}
-template <> __device__ __forceinline__ bf16 from_f<bf16>(float x) {
-  return __float2bfloat16(x);
-}
-__device__ __forceinline__ float to_f(float x) { return x; }
-__device__ __forceinline__ float to_f(bf16 x) { return __bfloat162float(x); }
+// ==== bf16: wgmma + TMA ======================================================
 
-// Shared-memory geometry.  bf16 rows are padded by 8 elements (16 bytes) so
-// WMMA fragment pointers stay 32-byte aligned and rows fall on other banks;
-// fp32 rows by one element (operand tiles) or four (score tiles).
-template <typename T, int D> struct Geo {
-  static constexpr bool kBf16 = sizeof(T) == 2;
-  static constexpr int LD = D + (kBf16 ? 8 : 1);      // operand tiles
-  static constexpr int LDP = BT + (kBf16 ? 8 : 4);    // P and dS (type T)
-  static constexpr int LDS = BT + 4;                  // fp32 S / dP scratch
-  static constexpr size_t kTile = sizeof(T) * (size_t)BT * LD;
-  static constexpr size_t kPS = sizeof(T) * (size_t)BT * LDP;
-  // fp32 inputs: the scratch aliases the dS tile (same type and pitch).
-  static constexpr size_t kSc = kBf16 ? sizeof(float) * (size_t)BT * LDS : 0;
+constexpr int kOwn = 128;          // rows of the block's own tile
+constexpr int kStr = 64;           // rows of a streamed tile
+constexpr int kStages = 2;
+constexpr int kConsumers = 2;
+constexpr int kThreadsW = 128 * (1 + kConsumers);
+
+template <int D> struct BwdSmem {
+  static constexpr int kOwnTile = kOwn * D * 2;
+  static constexpr int kStrTile = kStr * D * 2;
+  static constexpr int kStage = 2 * kStrTile;
+  static constexpr int kStats = kStages * 2 * kStr * 4;   // lse2, delta
+  static constexpr int kDelta = kOwn * 4;                 // dq: own delta
+  static constexpr int kBarriers =
+      2 * kOwnTile + kStages * kStage + kStats + kDelta;
+  static constexpr size_t kBytes =
+      1024 + kBarriers + (1 + 2 * kStages) * sizeof(uint64_t);
+};
+
+// The producer warpgroup: lane 0 of warp 0 issues the TMA copies, warp 1
+// (K2a only) stages the streamed rows' lse (log2 units) and delta.
+// `own_a`/`own_b` load once; streamed tile it covers rows str0(it).
+template <int D, bool kStats>
+__device__ __forceinline__ void produce(
+    const CUtensorMap* own_a, const CUtensorMap* own_b,
+    const CUtensorMap* str_a, const CUtensorMap* str_b, uint8_t* smem,
+    uint64_t* bar_own, uint64_t* full, uint64_t* empty, float* stats,
+    const Params& p, int b, int h, int own0, int st_begin, int n_tiles) {
+  using G = BwdSmem<D>;
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  if (warp == 0 && lane == 0) {
+    dtt::mbar_expect_tx(bar_own, 2 * G::kOwnTile);
+    dtt::tma_load_tile<D, kOwn>(smem, own_a, bar_own, h, own0, b);
+    dtt::tma_load_tile<D, kOwn>(smem + G::kOwnTile, own_b, bar_own, h, own0,
+                                b);
+    uint8_t* stages = smem + 2 * G::kOwnTile;
+    for (int it = 0; it < n_tiles; ++it) {
+      const int s = it % kStages;
+      dtt::mbar_wait(&empty[s], ((it / kStages) & 1) ^ 1);
+      dtt::mbar_expect_tx(&full[s], G::kStage);
+      const int r0 = (st_begin + it) * kStr;
+      uint8_t* st = stages + s * G::kStage;
+      dtt::tma_load_tile<D, kStr>(st, str_a, &full[s], h, r0, b);
+      dtt::tma_load_tile<D, kStr>(st + G::kStrTile, str_b, &full[s], h, r0,
+                                  b);
+    }
+  } else if (kStats && warp == 1) {
+    const long long row = (long long)(b * p.H + h) * p.S;
+    for (int it = 0; it < n_tiles; ++it) {
+      const int s = it % kStages;
+      dtt::mbar_wait(&empty[s], ((it / kStages) & 1) ^ 1);
+      float* lse2 = stats + s * 2 * kStr;
+      float* del = lse2 + kStr;
+#pragma unroll
+      for (int e = 0; e < kStr / 32; ++e) {
+        const int i = lane + 32 * e;
+        const int qpos = (st_begin + it) * kStr + i;
+        const bool in = qpos < p.S;
+        lse2[i] = in ? p.lse[row + qpos] * kLog2e : INFINITY;
+        del[i] = in ? p.delta[row + qpos] : 0.f;
+      }
+      dtt::mbar_arrive(&full[s]);   // one arrival a lane, after its stores
+    }
+  }
+}
+
+template <int D>
+__device__ __forceinline__ void store_rows(const float (&acc)[D / 2],
+                                           bf16* base, int row0, int S,
+                                           int H, float scale, int col0) {
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int pos = row0 + 8 * r;
+    if (pos >= S) continue;
+    bf16* dst = base + (long long)pos * H * D;
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j)
+      *reinterpret_cast<__nv_bfloat162*>(dst + 8 * j + col0) =
+          __floats2bfloat162_rn(acc[4 * j + 2 * r] * scale,
+                                acc[4 * j + 2 * r + 1] * scale);
+  }
+}
+
+// K2b: dq and delta.  Own: Q, dO; streamed: K, V.
+template <int D>
+__global__ void __launch_bounds__(kThreadsW, 1)
+    flash_bwd_dq_wgmma(const __grid_constant__ CUtensorMap tq,
+                       const __grid_constant__ CUtensorMap tk,
+                       const __grid_constant__ CUtensorMap tv,
+                       const __grid_constant__ CUtensorMap tdo, Params p) {
+  using G = BwdSmem<D>;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = reinterpret_cast<uint8_t*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  const uint8_t* Qs = smem;
+  const uint8_t* dOs = smem + G::kOwnTile;
+  const uint8_t* stages = smem + 2 * G::kOwnTile;
+  float* delta_s = reinterpret_cast<float*>(smem + G::kBarriers - G::kDelta);
+  uint64_t* bar = reinterpret_cast<uint64_t*>(smem + G::kBarriers);
+  uint64_t* bar_own = bar;
+  uint64_t* full = bar + 1;
+  uint64_t* empty = bar + 1 + kStages;
+
+  const int S = p.S, H = p.H;
+  const int bh = blockIdx.x, b = bh / H, h = bh % H;
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * kOwn;   // heaviest first
+  const int tid = threadIdx.x;
+
+  // Key tiles that can hold a valid key for some row of this Q tile.
+  const int q_last = min(S - 1, q0 + kOwn - 1);
+  int st_begin = 0, st_end = (S + kStr - 1) / kStr;
+  if (p.causal) {
+    st_end = min(st_end, q_last / kStr + 1);
+    if (p.window > 0 && q0 - p.window + 1 > 0)
+      st_begin = (q0 - p.window + 1) / kStr;
+  }
+  const int n_tiles = st_end - st_begin;
+
+  if (tid == 0) {
+    dtt::mbar_init(bar_own, 1);
+    for (int s = 0; s < kStages; ++s) {
+      dtt::mbar_init(&full[s], 1);
+      dtt::mbar_init(&empty[s], 4 * kConsumers);
+    }
+    dtt::mbar_fence_init();
+  }
+  __syncthreads();
+
+  const int wg = tid / 128;
+  if (wg == 0) {
+    dtt::regs_dec<40>();
+    produce<D, false>(&tq, &tdo, &tk, &tv, smem, bar_own, full, empty,
+                      nullptr, p, b, h, q0, st_begin, n_tiles);
+    return;
+  }
+
+  dtt::regs_inc<232>();
+  const int c = wg - 1;
+  const int t = tid % 128, warp = t / 32, lane = t % 32;
+  const int q_lo = q0 + 64 * c;
+  const int row0 = q_lo + 16 * warp + lane / 4;   // and row0 + 8
+  const int col0 = 2 * (lane % 4);
+  const float cs = p.scale * kLog2e;
+  const long long srow = (long long)bh * S;
+  const int* kvm = p.kv_mask ? p.kv_mask + (long long)b * S : nullptr;
+
+  // delta = rowsum(dO * o) in fp32 for this warp's 16 rows, read from
+  // device memory (the swizzled dO tile is for the products).
+  {
+    const bf16* ob = static_cast<const bf16*>(p.o) + b * p.osb + h * p.osh;
+    const bf16* db =
+        static_cast<const bf16*>(p.dout) + b * p.dsb + h * p.dsh;
+    for (int i = 0; i < 16; ++i) {
+      const int r = 64 * c + 16 * warp + i, pos = q0 + r;
+      float s = 0.f;
+      if (pos < S) {
+#pragma unroll
+        for (int d = 2 * lane; d < D; d += 64) {
+          const float2 x = __bfloat1622float2(
+              *reinterpret_cast<const __nv_bfloat162*>(ob + pos * p.oss + d));
+          const float2 y = __bfloat1622float2(
+              *reinterpret_cast<const __nv_bfloat162*>(db + pos * p.dss + d));
+          s = fmaf(x.x, y.x, fmaf(x.y, y.y, s));
+        }
+      }
+#pragma unroll
+      for (int off = 16; off > 0; off >>= 1)
+        s += __shfl_xor_sync(0xffffffffu, s, off);
+      if (lane == 0) {
+        delta_s[r] = s;
+        if (pos < S) p.delta[srow + pos] = s;
+      }
+    }
+    __syncwarp();
+  }
+  float lse2[2], dl[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int pos = row0 + 8 * r;
+    lse2[r] = pos < S ? p.lse[srow + pos] * kLog2e : INFINITY;
+    dl[r] = delta_s[pos - q0];
+  }
+
+  float dq[D / 2];
+  dtt::zero(dq);
+  dtt::mbar_wait(bar_own, 0);
+  for (int it = 0; it < n_tiles; ++it) {
+    const int s = it % kStages;
+    const int k0 = (st_begin + it) * kStr;
+    const uint8_t* Ks = stages + s * G::kStage;
+    const uint8_t* Vs = Ks + G::kStrTile;
+    dtt::mbar_wait(&full[s], (it / kStages) & 1);
+
+    float sc[kStr / 2], dp[kStr / 2];
+    dtt::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk)
+      dtt::wgmma_ss<kStr>(sc, dtt::tile_kmajor<kOwn>(Qs, 64 * c, kk),
+                          dtt::tile_kmajor<kStr>(Ks, 0, kk), kk > 0);
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk)
+      dtt::wgmma_ss<kStr>(dp, dtt::tile_kmajor<kOwn>(dOs, 64 * c, kk),
+                          dtt::tile_kmajor<kStr>(Vs, 0, kk), kk > 0);
+    dtt::wgmma_commit();
+    dtt::wgmma_wait_all();
+    dtt::fence_regs(sc);
+    dtt::fence_regs(dp);
+
+    const bool need_mask =
+        kvm != nullptr ||
+        (p.causal && (k0 + kStr - 1 > q_lo ||
+                      (p.window > 0 && q_lo + 63 - k0 >= p.window)));
+#pragma unroll
+    for (int i = 0; i < kStr / 2; ++i) {
+      const int r = (i / 2) % 2;
+      bool ok = true;
+      if (need_mask) {
+        const int kpos = k0 + 8 * (i / 4) + col0 + i % 2;
+        const int qpos = row0 + 8 * r;
+        ok = kvm == nullptr || (kpos < S && kvm[kpos] != 0);
+        if (p.causal) {
+          ok = ok && qpos >= kpos;
+          if (p.window > 0) ok = ok && qpos - kpos < p.window;
+        }
+      }
+      const float pr = ok ? dtt::fast_exp2(fmaf(sc[i], cs, -lse2[r])) : 0.f;
+      sc[i] = pr * (dp[i] - dl[r]);   // dS
+    }
+
+    uint32_t ds[kStr / 16][4];
+#pragma unroll
+    for (int kk = 0; kk < kStr / 16; ++kk) dtt::to_a_frag(sc, kk, ds[kk]);
+    dtt::fence_frags(ds);
+    dtt::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < kStr / 16; ++kk)
+      dtt::wgmma_rs<D>(dq, ds[kk], dtt::tile_mnmajor<kStr>(Ks, kk), 1);
+    dtt::wgmma_commit();
+    dtt::wgmma_wait_all();
+    dtt::fence_regs(dq);
+    dtt::fence_frags(ds);
+    __syncwarp();
+    if (lane == 0) dtt::mbar_arrive(&empty[s]);
+  }
+
+  // dq = scale dS K: the scale folds in here.
+  store_rows<D>(dq, static_cast<bf16*>(p.out_a) + ((long long)b * S * H + h) * D,
+                row0, S, H, p.scale, col0);
+}
+
+// K2a: dk and dv.  Own: K, V; streamed: Q, dO (and their lse, delta).
+template <int D>
+__global__ void __launch_bounds__(kThreadsW, 1)
+    flash_bwd_dkv_wgmma(const __grid_constant__ CUtensorMap tq,
+                        const __grid_constant__ CUtensorMap tk,
+                        const __grid_constant__ CUtensorMap tv,
+                        const __grid_constant__ CUtensorMap tdo, Params p) {
+  using G = BwdSmem<D>;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = reinterpret_cast<uint8_t*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  const uint8_t* Ks = smem;
+  const uint8_t* Vs = smem + G::kOwnTile;
+  const uint8_t* stages = smem + 2 * G::kOwnTile;
+  float* stats = reinterpret_cast<float*>(smem + 2 * G::kOwnTile +
+                                          kStages * G::kStage);
+  uint64_t* bar = reinterpret_cast<uint64_t*>(smem + G::kBarriers);
+  uint64_t* bar_own = bar;
+  uint64_t* full = bar + 1;
+  uint64_t* empty = bar + 1 + kStages;
+
+  const int S = p.S, H = p.H;
+  const int bh = blockIdx.x, b = bh / H, h = bh % H;
+  const int k0 = blockIdx.y * kOwn;      // causal: the first are heaviest
+  const int tid = threadIdx.x;
+
+  // Query tiles that can hold a valid query for some key of this tile:
+  // q >= k, and with a window q <= k + window - 1.
+  const int k_last = min(S - 1, k0 + kOwn - 1);
+  const int n_q = (S + kStr - 1) / kStr;
+  int st_begin = 0, st_end = n_q;
+  if (p.causal) {
+    st_begin = k0 / kStr;
+    if (p.window > 0) st_end = min(n_q, (k_last + p.window - 1) / kStr + 1);
+  }
+  const int n_tiles = st_end - st_begin;
+
+  if (tid == 0) {
+    dtt::mbar_init(bar_own, 1);
+    for (int s = 0; s < kStages; ++s) {
+      dtt::mbar_init(&full[s], 1 + 32);   // TMA thread + the stats warp
+      dtt::mbar_init(&empty[s], 4 * kConsumers);
+    }
+    dtt::mbar_fence_init();
+  }
+  __syncthreads();
+
+  const int wg = tid / 128;
+  if (wg == 0) {
+    dtt::regs_dec<40>();
+    produce<D, true>(&tk, &tv, &tq, &tdo, smem, bar_own, full, empty, stats,
+                     p, b, h, k0, st_begin, n_tiles);
+    return;
+  }
+
+  dtt::regs_inc<232>();
+  const int c = wg - 1;
+  const int t = tid % 128, warp = t / 32, lane = t % 32;
+  const int k_lo = k0 + 64 * c;
+  const int row0 = k_lo + 16 * warp + lane / 4;   // key rows row0, row0 + 8
+  const int col0 = 2 * (lane % 4);
+  const float cs = p.scale * kLog2e;
+  const int* kvm = p.kv_mask ? p.kv_mask + (long long)b * S : nullptr;
+  bool key_ok[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r)
+    key_ok[r] = kvm == nullptr ||
+                (row0 + 8 * r < S && kvm[row0 + 8 * r] != 0);
+
+  float dk[D / 2], dv[D / 2];
+  dtt::zero(dk);
+  dtt::zero(dv);
+  dtt::mbar_wait(bar_own, 0);
+  for (int it = 0; it < n_tiles; ++it) {
+    const int s = it % kStages;
+    const int qs0 = (st_begin + it) * kStr;
+    const uint8_t* Qt = stages + s * G::kStage;
+    const uint8_t* dOt = Qt + G::kStrTile;
+    const float* lse2 = stats + s * 2 * kStr;
+    const float* del = lse2 + kStr;
+    dtt::mbar_wait(&full[s], (it / kStages) & 1);
+
+    float st[kStr / 2], dpt[kStr / 2];
+    dtt::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk)
+      dtt::wgmma_ss<kStr>(st, dtt::tile_kmajor<kOwn>(Ks, 64 * c, kk),
+                          dtt::tile_kmajor<kStr>(Qt, 0, kk), kk > 0);
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk)
+      dtt::wgmma_ss<kStr>(dpt, dtt::tile_kmajor<kOwn>(Vs, 64 * c, kk),
+                          dtt::tile_kmajor<kStr>(dOt, 0, kk), kk > 0);
+    dtt::wgmma_commit();
+    dtt::wgmma_wait_all();
+    dtt::fence_regs(st);
+    dtt::fence_regs(dpt);
+
+    const bool need_mask =
+        kvm != nullptr ||
+        (p.causal && (qs0 < k_lo + 63 ||
+                      (p.window > 0 && qs0 + kStr - 1 - k_lo >= p.window)));
+#pragma unroll
+    for (int i = 0; i < kStr / 2; ++i) {
+      const int r = (i / 2) % 2;
+      const int col = 8 * (i / 4) + col0 + i % 2;
+      bool ok = true;
+      if (need_mask) {
+        const int kpos = row0 + 8 * r, qpos = qs0 + col;
+        ok = key_ok[r];
+        if (p.causal) {
+          ok = ok && qpos >= kpos;
+          if (p.window > 0) ok = ok && qpos - kpos < p.window;
+        }
+      }
+      const float pr = ok ? dtt::fast_exp2(fmaf(st[i], cs, -lse2[col])) : 0.f;
+      st[i] = pr;                          // P^T
+      dpt[i] = pr * (dpt[i] - del[col]);   // dS^T
+    }
+
+    uint32_t pa[kStr / 16][4], da[kStr / 16][4];
+#pragma unroll
+    for (int kk = 0; kk < kStr / 16; ++kk) {
+      dtt::to_a_frag(st, kk, pa[kk]);
+      dtt::to_a_frag(dpt, kk, da[kk]);
+    }
+    dtt::fence_frags(pa);
+    dtt::fence_frags(da);
+    dtt::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < kStr / 16; ++kk)
+      dtt::wgmma_rs<D>(dv, pa[kk], dtt::tile_mnmajor<kStr>(dOt, kk), 1);
+#pragma unroll
+    for (int kk = 0; kk < kStr / 16; ++kk)
+      dtt::wgmma_rs<D>(dk, da[kk], dtt::tile_mnmajor<kStr>(Qt, kk), 1);
+    dtt::wgmma_commit();
+    dtt::wgmma_wait_all();
+    dtt::fence_regs(dk);
+    dtt::fence_regs(dv);
+    dtt::fence_frags(pa);
+    dtt::fence_frags(da);
+    __syncwarp();
+    if (lane == 0) dtt::mbar_arrive(&empty[s]);
+  }
+
+  // dk = dS^T (scale q): the scale folds in here.
+  const long long base = ((long long)b * S * H + h) * D;
+  store_rows<D>(dk, static_cast<bf16*>(p.out_a) + base, row0, S, H, p.scale,
+                col0);
+  store_rows<D>(dv, static_cast<bf16*>(p.out_b) + base, row0, S, H, 1.f,
+                col0);
+}
+
+template <int D, bool kDKV>
+cudaError_t launch_wgmma(const Params& p, cudaStream_t stream) {
+  CUtensorMap tq, tk, tv, tdo;
+  // The own tiles are 128-row boxes, the streamed ones 64-row boxes.
+  const int rq = kDKV ? kStr : kOwn, rk = kDKV ? kOwn : kStr;
+  cudaError_t e;
+  if ((e = dtt::make_tile_map(&tq, p.q, p.B, p.S, p.H, D, p.qsb, p.qss,
+                              p.qsh, rq)) != cudaSuccess ||
+      (e = dtt::make_tile_map(&tk, p.k, p.B, p.S, p.H, D, p.ksb, p.kss,
+                              p.ksh, rk)) != cudaSuccess ||
+      (e = dtt::make_tile_map(&tv, p.v, p.B, p.S, p.H, D, p.vsb, p.vss,
+                              p.vsh, rk)) != cudaSuccess ||
+      (e = dtt::make_tile_map(&tdo, p.dout, p.B, p.S, p.H, D, p.dsb, p.dss,
+                              p.dsh, rq)) != cudaSuccess)
+    return e;
+  constexpr size_t smem = BwdSmem<D>::kBytes;
+  auto kernel = kDKV ? flash_bwd_dkv_wgmma<D> : flash_bwd_dq_wgmma<D>;
+  static bool done[dtt::kMaxDevices];
+  if ((e = dtt::opt_in_smem(kernel, smem, done)) != cudaSuccess) return e;
+  dim3 grid(p.B * p.H, (p.S + kOwn - 1) / kOwn);
+  kernel<<<grid, kThreadsW, smem, stream>>>(tq, tk, tv, tdo, p);
+  return cudaGetLastError();
+}
+
+// ==== fp32: the scalar kernel ================================================
+
+constexpr int BT = 64;         // rows of the own tile and of each streamed tile
+constexpr int kWarps = 4;      // 16 own rows each
+constexpr int kThreads = kWarps * 32;
+
+// Shared-memory geometry: rows padded by one element (operand tiles) or
+// four (P / dS; the fp32 S and dP scratch aliases the dS tile).
+template <int D> struct Geo {
+  static constexpr int LD = D + 1;       // operand tiles
+  static constexpr int LDP = BT + 4;     // P, dS and the S / dP scratch
+  static constexpr int LDS = LDP;
+  static constexpr size_t kTile = sizeof(float) * (size_t)BT * LD;
+  static constexpr size_t kPS = sizeof(float) * (size_t)BT * LDP;
   static constexpr size_t kInfo = (4 * sizeof(float) + 2 * sizeof(int)) * BT;
-  static constexpr size_t kBytes = 4 * kTile + 2 * kPS + kSc + kInfo;
+  static constexpr size_t kBytes = 4 * kTile + 2 * kPS + kInfo;
 };
 
 // Rows [row0, row0 + 64) of one head into shared memory, 16 bytes per
 // load; rows at or past S read as zeros.
-template <typename T, int D>
-__device__ __forceinline__ void load_tile(T* dst, const T* base,
+template <int D>
+__device__ __forceinline__ void load_tile(float* dst, const float* base,
                                           long long row_stride, int row0,
                                           int S) {
-  constexpr int V = 16 / sizeof(T);
-  constexpr int kChunks = D / V;
-  constexpr int LD = Geo<T, D>::LD;
+  constexpr int kChunks = D / 4;
+  constexpr int LD = Geo<D>::LD;
   for (int c = threadIdx.x; c < BT * kChunks; c += kThreads) {
-    const int r = c / kChunks, d = (c % kChunks) * V;
+    const int r = c / kChunks, d = (c % kChunks) * 4;
     const int s = row0 + r;
-    uint4 val = make_uint4(0u, 0u, 0u, 0u);
-    if (s < S)
-      val = *reinterpret_cast<const uint4*>(base + s * row_stride + d);
-    const T* e = reinterpret_cast<const T*>(&val);
-#pragma unroll
-    for (int i = 0; i < V; ++i) dst[r * LD + d + i] = e[i];
+    float4 val = make_float4(0.f, 0.f, 0.f, 0.f);
+    if (s < S) val = *reinterpret_cast<const float4*>(base + s * row_stride + d);
+    dst[r * LD + d] = val.x;
+    dst[r * LD + d + 1] = val.y;
+    dst[r * LD + d + 2] = val.z;
+    dst[r * LD + d + 3] = val.w;
   }
 }
 
-// ---- C[16 x 64] = A[16 x D] . B[64 x D]^T for this warp's rows ----------
-
-template <int D>
-__device__ __forceinline__ void mm_nt(const bf16* A, const bf16* Bm, float* C,
-                                      int /*lane*/) {
-  using G = Geo<bf16, D>;
-  wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> a;
-  wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major> b;
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc;
-#pragma unroll
-  for (int n = 0; n < BT / 16; ++n) {
-    wmma::fill_fragment(acc, 0.f);
-#pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk) {
-      wmma::load_matrix_sync(a, A + kk * 16, G::LD);
-      // B^T(k, n) = B[n][k]: column-major with leading dimension LD.
-      wmma::load_matrix_sync(b, Bm + (n * 16) * G::LD + kk * 16, G::LD);
-      wmma::mma_sync(acc, a, b, acc);
-    }
-    wmma::store_matrix_sync(C + n * 16, acc, G::LDS, wmma::mem_row_major);
-  }
-}
-
+// C[16 x 64] = A[16 x D] . B[64 x D]^T for this warp's rows.
 template <int D>
 __device__ __forceinline__ void mm_nt(const float* A, const float* Bm,
                                       float* C, int lane) {
-  using G = Geo<float, D>;
+  using G = Geo<D>;
   float c0[16], c1[16];
 #pragma unroll
   for (int rr = 0; rr < 16; ++rr) c0[rr] = c1[rr] = 0.f;
@@ -176,59 +581,9 @@ __device__ __forceinline__ void mm_nt(const float* A, const float* Bm,
   }
 }
 
-// ---- a warp's 16 x D fp32 accumulator: acc += A[16 x 64] . B[64 x D] -----
-
-template <typename T, int D> struct Acc;
-
-template <int D> struct Acc<bf16, D> {
-  using G = Geo<bf16, D>;
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> f[D / 16];
-
-  __device__ __forceinline__ void zero() {
-#pragma unroll
-    for (int n = 0; n < D / 16; ++n) wmma::fill_fragment(f[n], 0.f);
-  }
-
-  __device__ __forceinline__ void mma(const bf16* A, const bf16* Bm,
-                                      int /*lane*/) {
-    wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> a;
-    wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> b;
-#pragma unroll
-    for (int kk = 0; kk < BT / 16; ++kk) {
-      wmma::load_matrix_sync(a, A + kk * 16, G::LDP);
-#pragma unroll
-      for (int n = 0; n < D / 16; ++n) {
-        wmma::load_matrix_sync(b, Bm + (kk * 16) * G::LD + n * 16, G::LD);
-        wmma::mma_sync(f[n], a, b, f[n]);
-      }
-    }
-  }
-
-  // scale * acc -> rows [pos0, pos0 + 16) of out (row pitch `pitch`),
-  // staged through the warp's fp32 scratch 64 columns at a time.
-  __device__ __forceinline__ void store(float* stage, bf16* out,
-                                        long long pitch, int pos0, int S,
-                                        float scale, int lane) {
-#pragma unroll
-    for (int c0 = 0; c0 < D; c0 += BT) {
-#pragma unroll
-      for (int n = 0; n < BT / 16; ++n)
-        wmma::store_matrix_sync(stage + n * 16, f[c0 / 16 + n], G::LDS,
-                                wmma::mem_row_major);
-      __syncwarp();
-      for (int e = lane; e < 16 * BT; e += 32) {
-        const int r = e / BT, c = e % BT;
-        if (pos0 + r < S)
-          out[(long long)(pos0 + r) * pitch + c0 + c] =
-              __float2bfloat16(stage[r * G::LDS + c] * scale);
-      }
-      __syncwarp();
-    }
-  }
-};
-
-template <int D> struct Acc<float, D> {
-  using G = Geo<float, D>;
+// A warp's 16 x D fp32 accumulator: acc += A[16 x 64] . B[64 x D].
+template <int D> struct Acc {
+  using G = Geo<D>;
   static constexpr int J = D / 32;   // lane owns columns lane + 32 j
   float f[16][J];
 
@@ -254,9 +609,9 @@ template <int D> struct Acc<float, D> {
     }
   }
 
-  __device__ __forceinline__ void store(float* /*stage*/, float* out,
-                                        long long pitch, int pos0, int S,
-                                        float scale, int lane) {
+  __device__ __forceinline__ void store(float* out, long long pitch,
+                                        int pos0, int S, float scale,
+                                        int lane) {
 #pragma unroll
     for (int rr = 0; rr < 16; ++rr) {
       if (pos0 + rr >= S) break;
@@ -268,26 +623,20 @@ template <int D> struct Acc<float, D> {
   }
 };
 
-// ---- the kernel ------------------------------------------------------------
 // kDKV = true: K2a (own tile = keys, streamed = queries) -> dk, dv.
 // kDKV = false: K2b (own tile = queries, streamed = keys) -> dq, delta.
-
-template <typename T, int D, bool kDKV>
-__global__ void __launch_bounds__(kThreads) flash_bwd_kernel(Params p) {
-  using G = Geo<T, D>;
-  constexpr bool kBf16 = G::kBf16;
+template <int D, bool kDKV>
+__global__ void __launch_bounds__(kThreads) flash_bwd_f32(Params p) {
+  using G = Geo<D>;
   extern __shared__ __align__(128) unsigned char smem[];
-  T* own1 = reinterpret_cast<T*>(smem);
-  T* own2 = reinterpret_cast<T*>(smem + G::kTile);
-  T* str1 = reinterpret_cast<T*>(smem + 2 * G::kTile);
-  T* str2 = reinterpret_cast<T*>(smem + 3 * G::kTile);
-  T* Ps = reinterpret_cast<T*>(smem + 4 * G::kTile);
-  T* dSs = reinterpret_cast<T*>(smem + 4 * G::kTile + G::kPS);
-  float* Sc = kBf16 ? reinterpret_cast<float*>(smem + 4 * G::kTile +
-                                               2 * G::kPS)
-                    : reinterpret_cast<float*>(dSs);
-  float* own_lse = reinterpret_cast<float*>(smem + 4 * G::kTile +
-                                            2 * G::kPS + G::kSc);
+  float* own1 = reinterpret_cast<float*>(smem);
+  float* own2 = reinterpret_cast<float*>(smem + G::kTile);
+  float* str1 = reinterpret_cast<float*>(smem + 2 * G::kTile);
+  float* str2 = reinterpret_cast<float*>(smem + 3 * G::kTile);
+  float* Ps = reinterpret_cast<float*>(smem + 4 * G::kTile);
+  float* dSs = reinterpret_cast<float*>(smem + 4 * G::kTile + G::kPS);
+  float* Sc = dSs;
+  float* own_lse = reinterpret_cast<float*>(smem + 4 * G::kTile + 2 * G::kPS);
   float* own_delta = own_lse + BT;
   float* str_lse = own_delta + BT;
   float* str_delta = str_lse + BT;
@@ -299,17 +648,18 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_kernel(Params p) {
   const int own0 = blockIdx.x * BT;
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const long long row0 = (long long)bh * S;   // lse / delta row base
-  const T* qb = static_cast<const T*>(p.q) + b * p.qsb + h * p.qsh;
-  const T* kb = static_cast<const T*>(p.k) + b * p.ksb + h * p.ksh;
-  const T* vb = static_cast<const T*>(p.v) + b * p.vsb + h * p.vsh;
-  const T* db = static_cast<const T*>(p.dout) + b * p.dsb + h * p.dsh;
+  const float* qb = static_cast<const float*>(p.q) + b * p.qsb + h * p.qsh;
+  const float* kb = static_cast<const float*>(p.k) + b * p.ksb + h * p.ksh;
+  const float* vb = static_cast<const float*>(p.v) + b * p.vsb + h * p.vsh;
+  const float* db =
+      static_cast<const float*>(p.dout) + b * p.dsb + h * p.dsh;
 
   if (kDKV) {
-    load_tile<T, D>(own1, kb, p.kss, own0, S);
-    load_tile<T, D>(own2, vb, p.vss, own0, S);
+    load_tile<D>(own1, kb, p.kss, own0, S);
+    load_tile<D>(own2, vb, p.vss, own0, S);
   } else {
-    load_tile<T, D>(own1, qb, p.qss, own0, S);
-    load_tile<T, D>(own2, db, p.dss, own0, S);
+    load_tile<D>(own1, qb, p.qss, own0, S);
+    load_tile<D>(own2, db, p.dss, own0, S);
   }
   for (int i = tid; i < BT; i += kThreads) {
     const int pos = own0 + i;
@@ -325,13 +675,13 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_kernel(Params p) {
 
   if (!kDKV) {
     // delta = rowsum(dO * o) for this warp's 16 query rows, fp32.
-    const T* ob = static_cast<const T*>(p.o) + b * p.osb + h * p.osh;
+    const float* ob = static_cast<const float*>(p.o) + b * p.osb + h * p.osh;
     for (int rr = 0; rr < 16; ++rr) {
       const int r = warp * 16 + rr, pos = own0 + r;
       float s = 0.f;
       if (pos < S)
         for (int d = lane; d < D; d += 32)
-          s += to_f(own2[r * G::LD + d]) * to_f(ob[pos * p.oss + d]);
+          s += own2[r * G::LD + d] * ob[pos * p.oss + d];
 #pragma unroll
       for (int off = 16; off > 0; off >>= 1)
         s += __shfl_xor_sync(0xffffffffu, s, off);
@@ -363,25 +713,25 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_kernel(Params p) {
     }
   }
 
-  Acc<T, D> acc_a, acc_b;   // dq | dk, and dv
+  Acc<D> acc_a, acc_b;   // dq | dk, and dv
   acc_a.zero();
   if (kDKV) acc_b.zero();
 
-  const T* own1_w = own1 + (warp * 16) * G::LD;
-  const T* own2_w = own2 + (warp * 16) * G::LD;
-  T* P_w = Ps + (warp * 16) * G::LDP;
-  T* dS_w = dSs + (warp * 16) * G::LDP;
+  const float* own1_w = own1 + (warp * 16) * G::LD;
+  const float* own2_w = own2 + (warp * 16) * G::LD;
+  float* P_w = Ps + (warp * 16) * G::LDP;
+  float* dS_w = dSs + (warp * 16) * G::LDP;
   float* Sc_w = Sc + (warp * 16) * G::LDS;
 
   for (int st = st_begin; st < st_end; ++st) {
     const int str0 = st * BT;
     __syncthreads();   // every warp is done with the previous streamed tile
     if (kDKV) {
-      load_tile<T, D>(str1, qb, p.qss, str0, S);
-      load_tile<T, D>(str2, db, p.dss, str0, S);
+      load_tile<D>(str1, qb, p.qss, str0, S);
+      load_tile<D>(str2, db, p.dss, str0, S);
     } else {
-      load_tile<T, D>(str1, kb, p.kss, str0, S);
-      load_tile<T, D>(str2, vb, p.vss, str0, S);
+      load_tile<D>(str1, kb, p.kss, str0, S);
+      load_tile<D>(str2, vb, p.vss, str0, S);
     }
     if (tid < BT) {
       const int pos = str0 + tid;
@@ -417,7 +767,7 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_kernel(Params p) {
       const float pv =
           valid ? expf(Sc_w[r * G::LDS + c] * p.scale - lse) : 0.f;
       pr[i] = pv;
-      P_w[r * G::LDP + c] = from_f<T>(pv);
+      P_w[r * G::LDP + c] = pv;
     }
     __syncwarp();
 
@@ -428,47 +778,43 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_kernel(Params p) {
     for (int i = 0; i < 32; ++i) {
       const int r = i >> 1, c = (i & 1) * 32 + lane;
       const float dl = kDKV ? str_delta[c] : own_delta[warp * 16 + r];
-      dS_w[r * G::LDP + c] = from_f<T>(pr[i] * (Sc_w[r * G::LDS + c] - dl));
+      dS_w[r * G::LDP + c] = pr[i] * (Sc_w[r * G::LDS + c] - dl);
     }
     __syncwarp();
 
-    acc_a.mma(dS_w, str1, lane);        // dq += dS K  |  dk += dS^T Q
+    acc_a.mma(dS_w, str1, lane);            // dq += dS K  |  dk += dS^T Q
     if (kDKV) acc_b.mma(P_w, str2, lane);   // dv += P^T dO
   }
 
   // dq = scale dS K and dk = dS^T (scale q): the scale folds in here.
   const long long pitch = (long long)H * D;
   const int pos0 = own0 + warp * 16;
-  T* out_a = static_cast<T*>(p.out_a) + ((long long)b * S * H + h) * D;
-  acc_a.store(Sc_w, out_a, pitch, pos0, S, p.scale, lane);
+  float* out_a = static_cast<float*>(p.out_a) + ((long long)b * S * H + h) * D;
+  acc_a.store(out_a, pitch, pos0, S, p.scale, lane);
   if (kDKV) {
-    T* out_b = static_cast<T*>(p.out_b) + ((long long)b * S * H + h) * D;
-    acc_b.store(Sc_w, out_b, pitch, pos0, S, 1.f, lane);
+    float* out_b =
+        static_cast<float*>(p.out_b) + ((long long)b * S * H + h) * D;
+    acc_b.store(out_b, pitch, pos0, S, 1.f, lane);
   }
 }
 
-template <typename T, int D, bool kDKV>
-cudaError_t launch(const Params& p, cudaStream_t stream) {
-  constexpr size_t smem = Geo<T, D>::kBytes;
-  static bool configured = false;
-  if (!configured) {
-    cudaError_t e = cudaFuncSetAttribute(
-        flash_bwd_kernel<T, D, kDKV>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (e != cudaSuccess) return e;
-    configured = true;
-  }
+template <int D, bool kDKV>
+cudaError_t launch_f32(const Params& p, cudaStream_t stream) {
+  constexpr size_t smem = Geo<D>::kBytes;
+  static bool done[dtt::kMaxDevices];
+  const cudaError_t e = dtt::opt_in_smem(flash_bwd_f32<D, kDKV>, smem, done);
+  if (e != cudaSuccess) return e;
   dim3 grid((p.S + BT - 1) / BT, p.B * p.H);
-  flash_bwd_kernel<T, D, kDKV><<<grid, kThreads, smem, stream>>>(p);
+  flash_bwd_f32<D, kDKV><<<grid, kThreads, smem, stream>>>(p);
   return cudaGetLastError();
 }
 
 template <bool kDKV>
 int dispatch(const Params& p, int D, int dtype, cudaStream_t s) {
-  if (dtype == 1 && D == 128) return (int)launch<bf16, 128, kDKV>(p, s);
-  if (dtype == 1 && D == 64) return (int)launch<bf16, 64, kDKV>(p, s);
-  if (dtype == 0 && D == 128) return (int)launch<float, 128, kDKV>(p, s);
-  if (dtype == 0 && D == 64) return (int)launch<float, 64, kDKV>(p, s);
+  if (dtype == 1 && D == 128) return (int)launch_wgmma<128, kDKV>(p, s);
+  if (dtype == 1 && D == 64) return (int)launch_wgmma<64, kDKV>(p, s);
+  if (dtype == 0 && D == 128) return (int)launch_f32<128, kDKV>(p, s);
+  if (dtype == 0 && D == 64) return (int)launch_f32<64, kDKV>(p, s);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -504,12 +850,20 @@ Params make_params(const void* q, const void* k, const void* v,
 
 }  // namespace
 
+// Dynamic shared memory of the bf16 kernels at head_dim D (both use the
+// same layout; for reports).
+extern "C" long long dtt_flash_attention_bwd_smem(int D) {
+  return D == 64 ? (long long)BwdSmem<64>::kBytes
+                 : (long long)BwdSmem<128>::kBytes;
+}
+
 // Both entry points take the same arguments.  dtype: 0 = fp32, 1 = bf16;
 // D in {64, 128}.  Strides (batch, seq, head) of q, k, v, o and dout, in
-// elements; the last dim must be contiguous and every row start 16-byte
-// aligned (the Python wrapper checks).  kv_mask is int32 [B, S] or null.
-// lse and delta are fp32 [B*H, S]; outputs are contiguous [B, S, H, D] in
-// the input dtype.  Returns cudaGetLastError().
+// elements; the last dim must be contiguous and the base and every stride
+// 16-byte aligned (the Python wrapper checks).  kv_mask is int32 [B, S] or
+// null.  lse and delta are fp32 [B*H, S]; outputs are contiguous
+// [B, S, H, D] in the input dtype.  Launch on the current device; return
+// cudaGetLastError().
 //
 // dq:  reads q, k, v, o, dout, lse; writes delta and out_a = dq (out_b
 //      unused).  Run it first.

@@ -56,6 +56,8 @@
 #include <cuda_bf16.h>
 #include <mma.h>
 
+#include "launch.cuh"
+
 namespace {
 
 using namespace nvcuda;
@@ -635,20 +637,11 @@ __global__ void __launch_bounds__(kThreads) chunk_bwd_kernel(Params p) {
   }
 }
 
-template <typename Kernel>
-cudaError_t opt_in(Kernel kernel, size_t smem, bool& configured) {
-  if (configured) return cudaSuccess;
-  const cudaError_t e = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (e == cudaSuccess) configured = true;
-  return e;
-}
-
 template <typename T, int D>
 cudaError_t launch_fwd(const Params& p, cudaStream_t stream) {
   constexpr size_t smem = Geo<T, D>::kFwdBytes;
-  static bool configured = false;
-  const cudaError_t e = opt_in(chunk_fwd_kernel<T, D>, smem, configured);
+  static bool done[dtt::kMaxDevices];
+  const cudaError_t e = dtt::opt_in_smem(chunk_fwd_kernel<T, D>, smem, done);
   if (e != cudaSuccess) return e;
   dim3 grid((p.Sq + BT - 1) / BT, p.B * p.H);
   chunk_fwd_kernel<T, D><<<grid, kThreads, smem, stream>>>(p);
@@ -658,9 +651,9 @@ cudaError_t launch_fwd(const Params& p, cudaStream_t stream) {
 template <typename T, int D, bool kDKV>
 cudaError_t launch_bwd(const Params& p, cudaStream_t stream) {
   constexpr size_t smem = Geo<T, D>::kBwdBytes;
-  static bool configured = false;
+  static bool done[dtt::kMaxDevices];
   const cudaError_t e =
-      opt_in(chunk_bwd_kernel<T, D, kDKV>, smem, configured);
+      dtt::opt_in_smem(chunk_bwd_kernel<T, D, kDKV>, smem, done);
   if (e != cudaSuccess) return e;
   dim3 grid(((kDKV ? p.Sk : p.Sq) + BT - 1) / BT, p.B * p.H);
   chunk_bwd_kernel<T, D, kDKV><<<grid, kThreads, smem, stream>>>(p);

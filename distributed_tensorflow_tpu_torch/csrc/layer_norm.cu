@@ -20,6 +20,8 @@
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
 
+#include "launch.cuh"
+
 namespace {
 
 constexpr int kThreads = 256;
@@ -82,9 +84,10 @@ cudaError_t launch(const void* x, const void* scale, const void* bias,
                    cudaStream_t stream) {
   const size_t smem = sizeof(float) * (size_t)H;
   if (smem > 48 * 1024) {
-    cudaError_t e = cudaFuncSetAttribute(
-        layer_norm_fwd_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem);
+    // Once per device, for the widest row the wrapper admits (56 Ki).
+    static bool done[dtt::kMaxDevices];
+    cudaError_t e = dtt::opt_in_smem(layer_norm_fwd_kernel<T>,
+                                     sizeof(float) * 56 * 1024, done);
     if (e != cudaSuccess) return e;
   }
   layer_norm_fwd_kernel<T><<<(unsigned)rows, kThreads, smem, stream>>>(

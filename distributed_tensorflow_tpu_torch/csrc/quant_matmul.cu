@@ -70,6 +70,8 @@
 #include <cuda_bf16.h>
 #include <stdint.h>
 
+#include "launch.cuh"
+
 namespace {
 
 namespace cg = cooperative_groups;
@@ -478,9 +480,12 @@ cudaError_t launch_stages(const Params& p, cudaStream_t stream) {
   const size_t smem =
       kSxBytes + kStages * kStageBytes + (size_t)BM * (p.bk + 16);
   if (smem > 48 * 1024) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        qmm_kernel<T, kMode, kStages>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    // Once per device, for the largest K-block (kMaxBk).
+    static bool done[dtt::kMaxDevices];
+    const cudaError_t e = dtt::opt_in_smem(
+        qmm_kernel<T, kMode, kStages>, kSxBytes + kStages * kStageBytes +
+                                           (size_t)BM * (kMaxBk + 16),
+        done);
     if (e != cudaSuccess) return e;
   }
   int cn = kMaxCluster;

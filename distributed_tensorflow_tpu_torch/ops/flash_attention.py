@@ -10,11 +10,13 @@ and the logsumexp, and whose backward is :func:`flash_attention_backward`.
 Each direction is one wrapper around two implementations of the same
 function:
 
-- on CUDA tensors, hand-written kernels: the forward
-  ``csrc/flash_attention.cu`` (one thread block per (batch*head, 64-row Q
-  tile), K/V tiles looped inside the block, fp32 online softmax, WMMA bf16
-  fragments), the backward ``csrc/flash_attention_bwd.cu`` (dq with delta,
-  then dk/dv, one block per 64-row tile each);
+- on CUDA tensors, hand-written Hopper kernels: the forward
+  ``csrc/flash_attention.cu`` (one block per (batch*head, 128-row Q tile):
+  a TMA producer warpgroup streams K/V tiles through two mbarrier stages,
+  two consumer warpgroups run QK^T and PV on wgmma with the fp32 online
+  softmax and output in registers), the backward
+  ``csrc/flash_attention_bwd.cu`` (the same structure: dq with delta,
+  then dk/dv, no atomics); fp32 inputs take scalar kernels;
 - on CPU tensors, the plain PyTorch versions
   :func:`flash_attention_reference` (the dense masked softmax of
   ``ops/attention.py``'s ``xla`` branch, the port of ``_dense_reference``,
@@ -135,8 +137,8 @@ def flash_attention_backward_reference(q, k, v, kv_mask, o, lse, dout, *,
 
 
 def _aligned(t: torch.Tensor) -> bool:
-    """Last dim contiguous and every row start on a 16-byte boundary, as
-    the kernels' 16-byte loads need."""
+    """Last dim contiguous, base and every stride on a 16-byte boundary,
+    as the kernels' 16-byte loads and TMA tensor maps need."""
     vec = 16 // t.element_size()
     return (t.stride(-1) == 1 and t.data_ptr() % 16 == 0
             and all(s % vec == 0 for s in t.stride()[:-1]))
@@ -187,17 +189,12 @@ def _forward(q, k, v, kv_mask, *, causal: bool, window: int):
     lse = torch.empty((B * H, S), dtype=torch.float32, device=q.device)
     if out.numel() == 0:
         return out, lse
-    lib = kernels.load()
-    rc = lib.dtt_flash_attention_fwd(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(),
-        None if mask is None else mask.data_ptr(),
-        out.data_ptr(), lse.data_ptr(), B, S, H, D,
-        q.stride(0), q.stride(1), q.stride(2),
-        k.stride(0), k.stride(1), k.stride(2),
-        v.stride(0), v.stride(1), v.stride(2),
-        int(causal), int(window), 1.0 / math.sqrt(D), _DTYPE_CODE[q.dtype],
-        kernels.stream_handle(q.device))
-    kernels.check(rc, "flash_attention_fwd")
+    kernels.launch(
+        "flash_attention_fwd", q.device, q.data_ptr(), k.data_ptr(),
+        v.data_ptr(), None if mask is None else mask.data_ptr(),
+        out.data_ptr(), lse.data_ptr(), B, S, H, D, *q.stride()[:3],
+        *k.stride()[:3], *v.stride()[:3], int(causal), int(window),
+        1.0 / math.sqrt(D), _DTYPE_CODE[q.dtype])
     global launches
     launches += 1
     return out, lse
@@ -230,16 +227,15 @@ def _launch_backward(entry: str, q, k, v, mask, o, dout, lse, delta,
                      out_a, out_b, *, causal: bool, window: int) -> None:
     B, S, H, D = q.shape
     o_strides = o.stride()[:3] if o is not None else (0, 0, 0)
-    rc = getattr(kernels.load(), f"dtt_{entry}")(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(),
+    kernels.launch(
+        entry, q.device, q.data_ptr(), k.data_ptr(), v.data_ptr(),
         None if mask is None else mask.data_ptr(),
         None if o is None else o.data_ptr(), dout.data_ptr(),
         lse.data_ptr(), delta.data_ptr(), out_a.data_ptr(),
         None if out_b is None else out_b.data_ptr(), B, S, H, D,
         *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *o_strides,
         *dout.stride()[:3], int(causal), int(window), 1.0 / math.sqrt(D),
-        _DTYPE_CODE[q.dtype], kernels.stream_handle(q.device))
-    kernels.check(rc, entry)
+        _DTYPE_CODE[q.dtype])
 
 
 def flash_attention_backward_dq(q, k, v, kv_mask, o, lse, dout, *,
@@ -498,15 +494,13 @@ def flash_attention_chunk(q, k, v, kv_mask, m, l, acc, *, q_offset: int,
     m_out, l_out, acc_out = (torch.empty_like(t) for t in (m, l, acc))
     if m_out.numel() == 0:
         return m_out, l_out, acc_out
-    rc = kernels.load().dtt_flash_attention_chunk(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(),
-        None if mask is None else mask.data_ptr(), m.data_ptr(),
+    kernels.launch(
+        "flash_attention_chunk", q.device, q.data_ptr(), k.data_ptr(),
+        v.data_ptr(), None if mask is None else mask.data_ptr(), m.data_ptr(),
         l.data_ptr(), acc.data_ptr(), m_out.data_ptr(), l_out.data_ptr(),
         acc_out.data_ptr(), B, Sq, Sk, H, D, *q.stride()[:3],
         *k.stride()[:3], *v.stride()[:3], int(q_offset), int(k_offset),
-        int(causal), int(window), 1.0 / math.sqrt(D), _DTYPE_CODE[q.dtype],
-        kernels.stream_handle(q.device))
-    kernels.check(rc, "flash_attention_chunk")
+        int(causal), int(window), 1.0 / math.sqrt(D), _DTYPE_CODE[q.dtype])
     global chunk_launches
     chunk_launches += 1
     return m_out, l_out, acc_out
@@ -533,16 +527,15 @@ def _chunk_bwd(dkv: bool, q, k, v, kv_mask, do, lse, delta, *, q_offset,
                         device=q.device)
     out_b = torch.empty_like(out_a) if dkv else None
     if out_a.numel():
-        rc = kernels.load().dtt_flash_attention_chunk_bwd(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(),
+        kernels.launch(
+            "flash_attention_chunk_bwd", q.device, q.data_ptr(),
+            k.data_ptr(), v.data_ptr(),
             None if mask is None else mask.data_ptr(), do.data_ptr(),
             lse.data_ptr(), delta.data_ptr(), out_a.data_ptr(),
             None if out_b is None else out_b.data_ptr(), B, Sq, Sk, H, D,
             *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
             *do.stride()[:3], int(q_offset), int(k_offset), int(causal),
-            int(window), 1.0 / math.sqrt(D), _DTYPE_CODE[q.dtype], int(dkv),
-            kernels.stream_handle(q.device))
-        kernels.check(rc, name)
+            int(window), 1.0 / math.sqrt(D), _DTYPE_CODE[q.dtype], int(dkv))
         global chunk_dq_launches, chunk_dkv_launches
         if dkv:
             chunk_dkv_launches += 1

@@ -11,8 +11,10 @@ the flags: ``_build/<hash>/`` beside this package's ``csrc/`` (listed in
 ``.gitignore``).  A finished build is reused; a half-written one never
 is, because the library is renamed into place only after it linked.
 
-Every C entry point returns ``cudaGetLastError()`` after its launch;
-:func:`check` turns a non-zero code into an exception naming the kernel.
+Every wrapper calls its C entry point through :func:`launch`, which
+enters the operands' device first; every C entry point returns
+``cudaGetLastError()`` after its launch, and :func:`check` turns a
+non-zero code into an exception naming the kernel.
 Nothing here runs at import time: the CPU tests import every module and
 take the kernels' plain versions instead.
 """
@@ -34,6 +36,9 @@ BUILD_ROOT = os.path.join(_PKG, "_build")
 LIB_NAME = "libdtt_kernels.so"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC"]
+# ptxas's per-kernel report (registers, spills, static shared memory),
+# kept beside the library as ``<source>.log``: see :func:`ptxas_report`.
+COMPILE_FLAGS = ["-Xptxas", "-v"]
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -93,7 +98,7 @@ def sources() -> list[str]:
 
 
 def source_hash() -> str:
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    h = hashlib.sha256(" ".join(NVCC_FLAGS + COMPILE_FLAGS).encode())
     for path in sources():
         h.update(os.path.basename(path).encode())
         with open(path, "rb") as f:
@@ -126,13 +131,15 @@ def build() -> str:
         procs = []
         for src in cus:
             obj = os.path.join(work, os.path.basename(src) + ".o")
-            cmd = [nvcc, *NVCC_FLAGS, "-I", CSRC, "-c", src, "-o", obj]
+            cmd = [nvcc, *NVCC_FLAGS, *COMPILE_FLAGS, "-I", CSRC, "-c", src,
+                   "-o", obj]
             procs.append((src, obj, subprocess.Popen(
                 cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
                 text=True)))
-        failed = []
+        failed, logs = [], {}
         for src, _, proc in procs:
             out, _ = proc.communicate()
+            logs[os.path.basename(src) + ".log"] = out
             if proc.returncode != 0:
                 failed.append(f"{os.path.basename(src)}:\n{out}")
         if failed:
@@ -145,10 +152,51 @@ def build() -> str:
         if link.returncode != 0:
             raise RuntimeError("nvcc link failed:\n" + link.stdout)
         os.makedirs(out_dir, exist_ok=True)
+        for name, text in logs.items():
+            with open(os.path.join(out_dir, name), "w") as f:
+                f.write(text)
         os.replace(tmp_lib, lib_path)
     finally:
         shutil.rmtree(work, ignore_errors=True)
     return lib_path
+
+
+def ptxas_report(pattern: str) -> list[dict]:
+    """ptxas's lines for every kernel of the built library whose mangled
+    name contains ``pattern``: registers, spill bytes (stores, loads),
+    stack and static shared memory (dynamic shared memory is the
+    launcher's and not in it)."""
+    import re
+    out_dir = os.path.dirname(build())
+    rows, cur = [], None
+    for name in sorted(os.listdir(out_dir)):
+        if not name.endswith(".log"):
+            continue
+        with open(os.path.join(out_dir, name)) as f:
+            for line in f:
+                m = re.search(r"Compiling entry function '(\S+)'", line)
+                if m:
+                    cur = (dict(kernel=m.group(1), source=name[:-4],
+                                stack_bytes=0, spill_stores=0,
+                                spill_loads=0, smem_static=0)
+                           if pattern in m.group(1) else None)
+                    if cur:
+                        rows.append(cur)
+                    continue
+                m = re.search(r"Function properties for (\S+)", line)
+                if m and cur is not None and m.group(1) != cur["kernel"]:
+                    cur = None         # a device function's properties
+                if cur is None:
+                    continue
+                for key, rx in (("registers", r"Used (\d+) registers"),
+                                ("stack_bytes", r"(\d+) bytes stack frame"),
+                                ("spill_stores", r"(\d+) bytes spill stores"),
+                                ("spill_loads", r"(\d+) bytes spill loads"),
+                                ("smem_static", r"(\d+) bytes smem")):
+                    m = re.search(rx, line)
+                    if m:
+                        cur[key] = int(m.group(1))
+    return rows
 
 
 def load():
@@ -163,6 +211,10 @@ def load():
                 fn.restype = ctypes.c_int
             lib.dtt_error_string.argtypes = [_I]
             lib.dtt_error_string.restype = ctypes.c_char_p
+            for name in ("dtt_flash_attention_fwd_smem",
+                         "dtt_flash_attention_bwd_smem"):
+                getattr(lib, name).argtypes = [_I]
+                getattr(lib, name).restype = ctypes.c_longlong
             _lib = lib
     return _lib
 
@@ -175,6 +227,15 @@ def check(rc: int, kernel: str) -> None:
                            f"({what})")
 
 
-def stream_handle(device) -> int:
+def launch(entry: str, device, *args) -> None:
+    """Call the C entry point ``dtt_<entry>(*args, stream)`` on
+    ``device``, the operands' card: inside ``torch.cuda.device(device)``,
+    so the launch, its per-device shared-memory opt-in and the stream
+    (``device``'s current one) all belong to that card, whichever card
+    is current outside.  Raises on a launch error."""
     import torch
-    return torch.cuda.current_stream(device).cuda_stream
+    lib = load()
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        rc = getattr(lib, f"dtt_{entry}")(*args, stream)
+    check(rc, entry)

@@ -71,12 +71,10 @@ def _forward(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
     rows = x.numel() // H
     if rows == 0:
         return out
-    lib = kernels.load()
-    rc = lib.dtt_layer_norm_fwd(
-        x.data_ptr(), scale.data_ptr(), bias.data_ptr(), out.data_ptr(),
-        rows, H, float(eps), _DTYPE_CODE[x.dtype],
-        kernels.stream_handle(x.device))
-    kernels.check(rc, "layer_norm_fwd")
+    kernels.launch(
+        "layer_norm_fwd", x.device, x.data_ptr(), scale.data_ptr(),
+        bias.data_ptr(), out.data_ptr(), rows, H, float(eps),
+        _DTYPE_CODE[x.dtype])
     global launches
     launches += 1
     return out

@@ -324,15 +324,13 @@ def quantized_matmul(x, qw, sw, bias=None, residual=None, *,
     pre = torch.empty_like(out) if want_preact else None
     if M == 0:
         return (out, pre) if want_preact else out
-    lib = kernels.load()
-    rc = lib.dtt_quant_matmul(
-        x.data_ptr(), qwt.data_ptr(), sw.data_ptr(),
-        None if bias is None else bias.data_ptr(),
+    kernels.launch(
+        "quant_matmul", x.device, x.data_ptr(), qwt.data_ptr(),
+        sw.data_ptr(), None if bias is None else bias.data_ptr(),
         None if residual is None else residual.data_ptr(),
         out.data_ptr(), None if pre is None else pre.data_ptr(),
         M, N, K, bk, x.stride(0), int(activation == "gelu"),
-        _DTYPE_CODE[x.dtype], kernels.stream_handle(x.device))
-    kernels.check(rc, "quant_matmul")
+        _DTYPE_CODE[x.dtype])
     global launches
     launches += 1
     return (out, pre) if want_preact else out
@@ -366,14 +364,12 @@ def quantized_matmul_nt(da, qw, sw, pre=None, *, prologue: str = "fold",
         else None
     if M == 0:
         return (out, g) if want_g else out
-    lib = kernels.load()
-    rc = lib.dtt_quant_matmul_nt(
-        da.data_ptr(), None if pre is None else pre.data_ptr(),
-        qw.data_ptr(), sw.data_ptr(), out.data_ptr(),
-        None if g is None else g.data_ptr(), M, N, K, bk, da.stride(0),
-        0 if pre is None else pre.stride(0), _DTYPE_CODE[da.dtype],
-        kernels.stream_handle(da.device))
-    kernels.check(rc, "quant_matmul_nt")
+    kernels.launch(
+        "quant_matmul_nt", da.device, da.data_ptr(),
+        None if pre is None else pre.data_ptr(), qw.data_ptr(),
+        sw.data_ptr(), out.data_ptr(), None if g is None else g.data_ptr(),
+        M, N, K, bk, da.stride(0), 0 if pre is None else pre.stride(0),
+        _DTYPE_CODE[da.dtype])
     global nt_launches
     nt_launches += 1
     return (out, g) if want_g else out
@@ -407,12 +403,11 @@ def quantized_matmul_dgelu(da, pre, qwt, swt, *, want_g: bool = False,
         else None
     if M == 0:
         return (out, g) if want_g else out
-    rc = kernels.load().dtt_quant_matmul_dgelu(
-        da.data_ptr(), pre.data_ptr(), qw.data_ptr(), swt.data_ptr(),
-        out.data_ptr(), None if g is None else g.data_ptr(), M, N, K, bk,
-        da.stride(0), pre.stride(0), _DTYPE_CODE[da.dtype],
-        kernels.stream_handle(da.device))
-    kernels.check(rc, "quant_matmul_dgelu")
+    kernels.launch(
+        "quant_matmul_dgelu", da.device, da.data_ptr(), pre.data_ptr(),
+        qw.data_ptr(), swt.data_ptr(), out.data_ptr(),
+        None if g is None else g.data_ptr(), M, N, K, bk, da.stride(0),
+        pre.stride(0), _DTYPE_CODE[da.dtype])
     global dgelu_launches
     dgelu_launches += 1
     return (out, g) if want_g else out

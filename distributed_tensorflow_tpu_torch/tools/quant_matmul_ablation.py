@@ -63,8 +63,8 @@ def build(srcs: dict, work: str) -> dict:
         with open(cu, "w") as f:
             f.write(text)
         procs[name] = subprocess.Popen(
-            [nvcc, *kernels.NVCC_FLAGS, "-shared", "-o",
-             os.path.join(work, f"{name}.so"), cu],
+            [nvcc, *kernels.NVCC_FLAGS, "-I", kernels.CSRC, "-shared",
+             "-o", os.path.join(work, f"{name}.so"), cu],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
     libs = {}
     for name, proc in procs.items():
@@ -93,13 +93,20 @@ def cuda_ms(fn, reps: int = 10) -> float:
 
 
 def main() -> None:
-    dev = torch.device("cuda")
+    dev = torch.device("cuda", torch.cuda.current_device())
+    # The variants' entry points launch on the current device: make it
+    # the operands' one, as ``kernels.launch`` does for the port's calls.
+    with torch.cuda.device(dev):
+        run(dev)
+
+
+def run(dev) -> None:
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                            "--format=csv,noheader"], capture_output=True,
                           text=True, check=True).stdout.strip()
     with open(os.path.join(kernels.CSRC, "quant_matmul.cu")) as f:
         src = f.read()
-    stream = torch.cuda.current_stream().cuda_stream
+    stream = torch.cuda.current_stream(dev).cuda_stream
     g = torch.Generator(device=dev).manual_seed(0)
     M = 8192
     with tempfile.TemporaryDirectory() as work:

@@ -120,6 +120,178 @@ def test_flash_backward_kernels_match_plain_on_card(cuda_device, dtype, S,
         assert not got[0][0, :5].any()         # exact zeros, not NaN
 
 
+# The wgmma kernels' tiling: 128-row Q tiles and 128-row K tiles (K1),
+# 128-row own tiles and 64-row streamed tiles (K2), so the sweep crosses
+# every edge of both, and the serving (784) and train (1024) lengths.
+SWEEP_S = (1, 63, 64, 65, 127, 129, 784, 1000, 1024)
+
+
+def _fused_qkv(g, dev, B, S, H, D, dtype=torch.bfloat16):
+    """q, k, v as strided views into one fused [B, S, 3, H, D] projection,
+    as the model hands them over."""
+    fused = torch.randn(B, S, 3, H, D, generator=g, device=dev).to(dtype)
+    return fused[:, :, 0], fused[:, :, 1], fused[:, :, 2]
+
+
+def _check_forward(q, k, v, mask, causal, window):
+    out, lse = tfa.flash_attention(q, k, v, mask, causal=causal,
+                                   window=window)
+    ref, ref_lse = tfa.flash_attention_reference(q, k, v, mask,
+                                                 causal=causal, window=window)
+    # K1's tolerances (chip_smoke.py K1_OUT_TOL, K1_LSE_TOL).
+    torch.testing.assert_close(out.float(), ref.float(), atol=2e-2, rtol=0)
+    live = ref_lse > -1e29
+    assert torch.equal(lse > -1e29, live)
+    torch.testing.assert_close(lse[live], ref_lse[live], atol=1e-3, rtol=0)
+    return out, lse
+
+
+def _check_backward(q, k, v, mask, out, lse, dout, causal, window):
+    """K2 against its plain version: each gradient's max abs error over
+    the largest magnitude of the three reference gradients, K2_REL_TOL.
+    (At S = 1 the only probability is 1 and dS = dP - delta cancels: the
+    exact dq and dk are 0, and both sides hold fp32 rounding noise, so a
+    gradient is measured against the case's scale, not its own.)"""
+    got = tfa.flash_attention_backward(q, k, v, mask, out, lse, dout,
+                                       causal=causal, window=window)
+    want = tfa.flash_attention_backward_reference(
+        q, k, v, mask, out, lse, dout, causal=causal, window=window)
+    torch.cuda.synchronize()
+    scale = max(w.float().abs().max().item() for w in want)
+    for name, a, b in zip(("dq", "dk", "dv"), got, want):
+        assert a.dtype == q.dtype and torch.isfinite(a).all(), name
+        err = (a.float() - b.float()).abs().max().item()
+        assert err <= K2_REL_TOL[q.dtype] * max(scale, 1e-6), (name, err,
+                                                               scale)
+    return got
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("D", [64, 128])
+@pytest.mark.parametrize("S", SWEEP_S)
+def test_flash_kernels_tile_edges_on_card(cuda_device, S, D, causal):
+    g = torch.Generator(device=cuda_device).manual_seed(S * D + causal)
+    q, k, v = _fused_qkv(g, cuda_device, 2, S, 2, D)
+    counts = (tfa.launches, tfa.dq_launches, tfa.dkv_launches)
+    out, lse = _check_forward(q, k, v, None, causal, 0)
+    dout = torch.randn(q.shape, generator=g, device=cuda_device
+                       ).to(q.dtype)
+    _check_backward(q, k, v, None, out, lse, dout, causal, 0)
+    assert (tfa.launches, tfa.dq_launches, tfa.dkv_launches) == tuple(
+        n + 1 for n in counts)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("D", [64, 128])
+@pytest.mark.parametrize("S", [300, 1024])
+def test_flash_kernels_window_edge_off_tile_on_card(cuda_device, S, D):
+    """A window of 100 keys: the band's lower edge falls inside a tile of
+    every size the kernels use (64, 128)."""
+    g = torch.Generator(device=cuda_device).manual_seed(S + D)
+    q, k, v = _fused_qkv(g, cuda_device, 2, S, 4, D)
+    out, lse = _check_forward(q, k, v, None, True, 100)
+    dout = torch.randn(q.shape, generator=g, device=cuda_device
+                       ).to(q.dtype)
+    _check_backward(q, k, v, None, out, lse, dout, True, 100)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("D", [64, 128])
+def test_flash_kernels_fully_masked_rows_on_card(cuda_device, D, causal):
+    """kv_mask: batch 0 masks its first 70 keys (causal rows 0..69 see no
+    key, across a 64-row tile edge), batch 1 its last 200 (masked keys
+    take no gradient)."""
+    g = torch.Generator(device=cuda_device).manual_seed(D + causal)
+    B, S, H = 2, 784, 4
+    q, k, v = _fused_qkv(g, cuda_device, B, S, H, D)
+    mask = torch.ones(B, S, dtype=torch.bool, device=cuda_device)
+    mask[0, :70] = False
+    mask[1, S - 200:] = False
+    out, lse = _check_forward(q, k, v, mask, causal, 0)
+    dout = torch.randn(q.shape, generator=g, device=cuda_device
+                       ).to(q.dtype)
+    dq, dk, dv = _check_backward(q, k, v, mask, out, lse, dout, causal, 0)
+    if causal:
+        assert not out[0, :70].any() and not dq[0, :70].any()
+        assert (lse.reshape(B, H, S)[0, :, :70] <= -1e29).all()
+    assert not dk[1, S - 200:].any() and not dv[1, S - 200:].any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("D", [64, 128])
+def test_flash_kernels_are_bitwise_repeatable_on_card(cuda_device, D):
+    """No atomics: two calls on the same inputs give the same bits, in
+    the forward and in every gradient."""
+    g = torch.Generator(device=cuda_device).manual_seed(D)
+    q, k, v = (t.detach().requires_grad_() for t in
+               _fused_qkv(g, cuda_device, 2, 1024, 4, D))
+    dout = torch.randn(q.shape, generator=g, device=cuda_device
+                       ).to(q.dtype)
+    runs = []
+    for _ in range(2):
+        out, lse = tfa.flash_attention(q, k, v, causal=True)
+        grads = torch.autograd.grad(out, (q, k, v), dout)
+        runs.append((out, lse, *grads))
+    for name, a, b in zip(("out", "lse", "dq", "dk", "dv"), *runs):
+        assert torch.equal(a, b), name
+
+
+@pytest.mark.cuda
+def test_kernels_launch_on_a_second_card():
+    """Every kernel on cuda:1 while cuda:0 is current: the wrappers enter
+    the operands' device and each launcher opts in to its shared memory on
+    that card.  Needs two cards."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA devices")
+    from distributed_tensorflow_tpu_torch.ops import quant_matmul as qmm
+    dev = torch.device("cuda", 1)
+    g = torch.Generator(device=dev).manual_seed(5)
+    with torch.cuda.device(0):
+        q, k, v = _fused_qkv(g, dev, 2, 300, 4, 128)
+        out, lse = _check_forward(q, k, v, None, True, 0)
+        dout = torch.randn(q.shape, generator=g, device=dev).to(q.dtype)
+        _check_backward(q, k, v, None, out, lse, dout, True, 0)
+        x = torch.randn(64, 2048, generator=g, device=dev)
+        one = torch.ones(2048, device=dev)
+        torch.testing.assert_close(
+            ln.layer_norm(x, one, 0 * one),
+            ln.layer_norm_reference(x, one, 0 * one), atol=1e-4, rtol=1e-5)
+        xq, qw, sw = _qmm_inputs(g, dev, 200, 384, 640, torch.bfloat16)
+        for got, want in (
+                (qmm.quantized_matmul(xq, qw, sw),
+                 qmm.quantized_matmul_reference(xq, qw, sw)),
+                (qmm.quantized_matmul_nt(xq, *qmm.quantize_cols(qw.t().float())),
+                 qmm.quantized_matmul_nt_reference(
+                     xq, *qmm.quantize_cols(qw.t().float()))),
+                (qmm.quantized_matmul_dgelu(xq, xq, qw, sw),
+                 qmm.quantized_matmul_dgelu_reference(xq, xq, qw, sw))):
+            peak = want.float().abs().max().item()
+            assert (got.float() - want.float()).abs().max().item() <= \
+                K45_TOL[torch.bfloat16](peak)
+        qc, kc, vc, mask, m, l, acc = _chunk_inputs(g, dev, torch.bfloat16,
+                                                    128, 128, 128, False)
+        kw = dict(q_offset=128, k_offset=0, causal=True)
+        got = tfa.flash_attention_chunk(qc, kc, vc, mask, m, l, acc, **kw)
+        want = tfa.flash_attention_chunk_reference(qc, kc, vc, mask, m, l,
+                                                   acc, **kw)
+        assert _rel_err(got[2], want[2]) <= 1e-2
+        lse_c = want[0] + torch.log(want[1])
+        do = torch.randn(qc.shape, generator=g, device=dev).to(qc.dtype)
+        delta = torch.randn(lse_c.shape, generator=g, device=dev)
+        dq = tfa.flash_attention_chunk_dq(qc, kc, vc, mask, do, lse_c,
+                                          delta, **kw)
+        dk, dv = tfa.flash_attention_chunk_dkv(qc, kc, vc, mask, do, lse_c,
+                                               delta, **kw)
+        assert _rel_err(dq, tfa.flash_attention_chunk_dq_reference(
+            qc, kc, vc, mask, do, lse_c, delta, **kw)) <= 1e-2
+        for a, b in zip((dk, dv), tfa.flash_attention_chunk_dkv_reference(
+                qc, kc, vc, mask, do, lse_c, delta, **kw)):
+            assert _rel_err(a, b) <= 1e-2
+        torch.cuda.synchronize(dev)
+
+
 @pytest.mark.cuda
 def test_flash_autograd_on_card_matches_dense_backend(cuda_device):
     g = torch.Generator(device=cuda_device).manual_seed(1)

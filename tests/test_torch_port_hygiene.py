@@ -92,13 +92,15 @@ def test_entry_points_need_cuda_or_an_explicit_cpu(monkeypatch):
 def test_kernel_sources_ship_in_the_package_and_hash_stably():
     names = sorted(os.path.basename(s) for s in kernels.sources())
     assert names == ["flash_attention.cu", "flash_attention_bwd.cu",
-                     "flash_attention_chunk.cu", "layer_norm.cu",
-                     "quant_matmul.cu"]
+                     "flash_attention_chunk.cu", "hopper.cuh", "launch.cuh",
+                     "layer_norm.cu", "quant_matmul.cu"]
     assert kernels.source_hash() == kernels.source_hash()
     assert kernels.BUILD_ROOT.endswith("_build")
     with open(os.path.join(REPO, ".gitignore")) as f:
         assert "_build/" in f.read().split()
     for src in kernels.sources():
+        if src.endswith(".cuh"):        # shared helpers, no kernel of their own
+            continue
         with open(src) as f:
             head = f.read(3000)
         # Each source says what TPU kernel it replaces and what bounds it.
