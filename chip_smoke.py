@@ -13,23 +13,30 @@ Phases, one JSON line each on stdout:
    launchers request.
 3. ``kernels``: each kernel against its plain PyTorch version on the card,
    in bf16 at the shapes each path gives it (K1 and K3 at the serving
-   path's and the train step's, K2a and K2b at the train step's, K4 and
-   K5 at the int8 MLP's four call sites of the int8 train step, every
-   epilogue and prologue variant, and one small non-square case; K6, K7a
-   and K7b at the ring train step's per-hop shape, q/k/v shards [8, 256,
-   16, 128], for a chunk wholly visible, on the diagonal and wholly in the
-   future, a padding mask with fully masked rows, a window, non-causal
-   and D = 64, then the 4-shard ring over them against K1/K2 on the whole
-   sequence; K8, on no path, at the int8 MLP's mlp_in dgrad shape), with
-   the tolerance stated below, its time, the plain version's time, one
-   library call's time (used only here, never by the port; K4/K5/K8 have
-   two labelled yardsticks) and the least time the card could take; K1
-   and K2 rows also carry ``ratio_to_library`` (kernel over library time;
-   K2's library call computes dq, dk and dv, so its rows add
-   ``pair_ratio_to_library`` for K2a + K2b) and ``tflops`` (the useful
-   operations the bound counts, over the kernel's time); K1 rows add
-   ``host_ms`` and ``library_host_ms``, the host time per call of each
-   (at the serving shape it exceeds the kernel's device time).
+   path's and the train step's, K3 also at the decode step's 8 rows, K2a
+   and K2b at the train step's, K1, K2a and K2b also at head_dim 64 and
+   32, K4 and K5 at the int8 MLP's four call sites of the int8 train
+   step, every epilogue and prologue variant, and one small non-square
+   case; K6, K7a and K7b at the ring train step's per-hop shape, q/k/v
+   shards [8, 256, 16, 128], for a chunk wholly visible, on the diagonal
+   and wholly in the future, a padding mask with fully masked rows, a
+   window, non-causal, D = 64 and D = 32, K6 in the in-place form the
+   ring calls (held bit for bit to its out-of-place form, and a chunk in
+   the future must leave the carries untouched), then the 4-shard ring
+   over them against K1/K2 on the whole sequence; K8, on no path, at the
+   int8 MLP's mlp_in dgrad shape), with the tolerance stated below, its
+   time, the plain version's time, one library call's time (used only
+   here, never by the port; K4/K5/K8 have two labelled yardsticks) and
+   the least time the card could take; K1, K2, K3 and K6 rows also carry
+   ``ratio_to_library`` (kernel over library time; K2's library call
+   computes dq, dk and dv, so its rows add ``pair_ratio_to_library`` for
+   K2a + K2b), K1/K2 ``tflops`` (the useful operations the bound counts,
+   over the kernel's time); K1 and K3 rows add ``host_ms`` and
+   ``library_host_ms``, the host time per call of each (at the serving
+   shapes it exceeds the kernel's device time; K6 ``host_ms`` too), K3
+   and K6 rows ``device_ms`` (K3 also ``library_device_ms``), the
+   device's time per call apart from the host's (calls captured in a
+   CUDA graph and replayed, ``utils/cuda_timing.py``).
 4. ``serve``: a GPT at the widths of the repo's GPT-406M (hidden 2048,
    8 layers, 16 heads, MLP 8192, vocab 256, bf16, random weights from a
    seeded generator) behind ``ServingServer``; 8 concurrent HTTP requests
@@ -69,8 +76,9 @@ launches are those of its main path (``main``: the train step for
 K1/K2/K3, the int8 train step for K4/K5, the ring train step for K6/K7,
 whose numbers are the mean per launch over a step's hops, and the
 ``kernels`` phase itself for K8, which no path launches); its ``paths``
-hold each path's own shape, numbers and launches, and K4/K5/K8 rows list
-their call sites or variants under ``sites``.
+hold each path's own shape, numbers and launches, K4/K5/K8 rows list
+their call sites or variants under ``sites``, and K6's ``hop_kinds``
+hold its visible and diagonal hops' own times and ratios to SDPA.
 Any failing phase raises: the script exits non-zero and prints no
 result.  Without CUDA it exits 2.
 """
@@ -252,15 +260,17 @@ def bound(bytes_moved: float, flops: float,
 
 def flash_build_report(kernels, lib) -> list[dict]:
     """ptxas's registers, spills and static shared memory (``-Xptxas
-    -v``) of the K1/K2 bf16 kernels, with the dynamic shared memory their
-    launchers request."""
+    -v``) of the K1/K2/K6 bf16 kernels, with the dynamic shared memory
+    their launchers request."""
     import re
     rows = []
     for kind, entry in (("flash_fwd_wgmma", lib.dtt_flash_attention_fwd_smem),
                         ("flash_bwd_dq_wgmma",
                          lib.dtt_flash_attention_bwd_smem),
                         ("flash_bwd_dkv_wgmma",
-                         lib.dtt_flash_attention_bwd_smem)):
+                         lib.dtt_flash_attention_bwd_smem),
+                        ("chunk_fwd_wgmma",
+                         lib.dtt_flash_attention_chunk_smem)):
         for r in kernels.ptxas_report(kind):
             d = int(re.search(kind + r"ILi(\d+)E", r["kernel"]).group(1))
             rows.append(dict(kernel=f"{kind}<{d}>", registers=r.get(
@@ -328,6 +338,7 @@ def check_k3(name, x, scale, bias) -> dict:
     import torch
     import torch.nn.functional as F
     from distributed_tensorflow_tpu_torch.ops import layer_norm as ln
+    from distributed_tensorflow_tpu_torch.utils.cuda_timing import graph_ms
     rows, Hd = x.shape
     out = ln.layer_norm(x, scale, bias)
     ref = ln.layer_norm_reference(x, scale, bias)
@@ -339,13 +350,22 @@ def check_k3(name, x, scale, bias) -> dict:
     s16, b16 = scale.to(torch.bfloat16), bias.to(torch.bfloat16)
     b_ms, b_by = bound(rows * Hd * (x.element_size() + 4) + 2 * Hd * 4,
                        8 * rows * Hd)
+
+    def kernel():
+        return ln.layer_norm(x, scale, bias)
+
+    def lib():
+        # bf16 weights: F.layer_norm's one-call form writes bf16 (2 bytes
+        # an element where K3 writes 4: the yardstick moves fewer bytes).
+        return F.layer_norm(x, (Hd,), s16, b16, 1e-6)
+    ms, library_ms = cuda_ms(kernel), cuda_ms(lib)
     return dict(
-        case=name, rows=rows, H=Hd, max_abs_err=err, tol=K3_TOL,
-        ms=cuda_ms(lambda: ln.layer_norm(x, scale, bias)),
+        case=name, rows=rows, H=Hd, max_abs_err=err, tol=K3_TOL, ms=ms,
         plain_ms=cuda_ms(lambda: ln.layer_norm_reference(x, scale, bias)),
-        # bf16 weights: F.layer_norm's one-call form writes bf16.
-        library_ms=cuda_ms(lambda: F.layer_norm(x, (Hd,), s16, b16, 1e-6)),
-        bound_ms=b_ms, bound_by=b_by)
+        library_ms=library_ms, ratio_to_library=ms / library_ms,
+        library="F.layer_norm, bf16 weights, bf16 out", bound_ms=b_ms,
+        bound_by=b_by, host_ms=host_ms(kernel), library_host_ms=host_ms(lib),
+        device_ms=graph_ms(kernel), library_device_ms=graph_ms(lib))
 
 
 def check_kernels(dev):
@@ -361,9 +381,9 @@ def check_kernels(dev):
     S = 784                       # the longest prompt's prefill bucket
     warm_up(dev)
 
-    def qkv(B):
+    def qkv(B, d=D):
         # Views into one fused [B, S, 3, H, D] projection, as on the path.
-        t = torch.randn(B, S, 3, H, D, generator=g, device=dev,
+        t = torch.randn(B, S, 3, H, d, generator=g, device=dev,
                         dtype=torch.float32).to(torch.bfloat16)
         return t[:, :, 0], t[:, :, 1], t[:, :, 2]
 
@@ -371,11 +391,15 @@ def check_kernels(dev):
     masked_tail[1, S - 300:] = 0
     masked_head = torch.ones(1, S, dtype=torch.int32, device=dev)
     masked_head[0, :10] = 0        # causal rows 0..9 see no valid key
-    cases = [("causal", 1, None, 0), ("kv_mask", 2, masked_tail, 0),
-             ("window", 1, None, 256), ("masked_rows", 1, masked_head, 0)]
+    # (name, B, kv_mask, window, head_dim); head_dim 32 is the JAX
+    # GptConfig's default width (hidden 128, 4 heads).
+    cases = [("causal", 1, None, 0, D), ("kv_mask", 2, masked_tail, 0, D),
+             ("window", 1, None, 256, D), ("masked_rows", 1, masked_head, 0,
+                                           D),
+             ("head_dim_32", 1, None, 0, 32)]
     k1_cases = []
-    for name, B, mask, window in cases:
-        q, k, v = qkv(B)
+    for name, B, mask, window, d in cases:
+        q, k, v = qkv(B, d)
         out, lse = fa.flash_attention(q, k, v, mask, causal=True,
                                       window=window)
         err, lse_err = check_k1(name, q, k, v, mask, out, lse, causal=True,
@@ -383,7 +407,7 @@ def check_kernels(dev):
         valid = attention_valid(B, S, mask, causal=True, window=window,
                                 device=dev)
         k1_cases.append(dict(
-            case=name, B=B, S=S, H=H, D=D, window=window, max_abs_err=err,
+            case=name, B=B, S=S, H=H, D=d, window=window, max_abs_err=err,
             tol=K1_OUT_TOL, lse_err=lse_err, lse_tol=K1_LSE_TOL,
             **k1_timings(q, k, v, mask, valid, causal=True, window=window)))
 
@@ -411,10 +435,12 @@ def check_kernels(dev):
          quant_matmul_dgelu=k45["k8"])
 
     keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
-    # K1 and K2 also carry their time over the library call's and the
-    # useful TFLOP/s they reach (the valid pairs the bound counts).
+    # K1, K2, K3 and K6 also carry their time over the library call's, K1
+    # and K2 the useful TFLOP/s they reach (the valid pairs the bound
+    # counts), K1 and K3 their host time per call.
     extra = ("ratio_to_library", "tflops", "pair_ms",
-             "pair_ratio_to_library", "host_ms", "library_host_ms")
+             "pair_ratio_to_library", "host_ms", "library_host_ms",
+             "device_ms", "library_device_ms", "out_of_place_ms")
 
     def summary(name, file, replaces, main, by_path, cases, sites=()):
         """One row per kernel.  Its numbers are those of its main path's
@@ -443,13 +469,25 @@ def check_kernels(dev):
                                  **{k: c[k] for k in keys}) for c in sites]
         return row
     k4, k5, k8 = k45["k4"], k45["k5"], k45["k8"]
+    # K6's hop mean counts the future hops, a bare launch in place against
+    # SDPA's full masked attention: its visible and diagonal hops carry
+    # their own time over SDPA's.
+    k6 = summary("flash_attention_chunk", "flash_attention_chunk.cu",
+                 "flash_attention.py:624", "train_ring",
+                 {"train_ring": k67["k6"][0]}, k67["k6"])
+    k6["hop_kinds"] = {c["case"]: {k: c[k] for k in (
+        "ms", "device_ms", "library_ms", "ratio_to_library")}
+        for c in k67["k6"] if c["case"] in ("visible", "diagonal")}
     return [
         summary("flash_attention_fwd", "flash_attention.cu",
                 "flash_attention.py:119", "train",
                 {"serve": k1_cases[0], "train": k2["fwd"]}, k1_all),
+        # Serving launches K3 at its prefill and its decode rows: both
+        # rows carry the serving run's launches (one counter).
         summary("layer_norm_fwd", "layer_norm.cu", "layer_norm.py:38",
-                "train", {"serve": k3_cases[0], "train": k3_cases[2],
-                          "train_ring": k3_cases[2]}, k3_cases),
+                "train", {"serve": k3_cases[0], "serve_decode": k3_cases[1],
+                          "train": k3_cases[2], "train_ring": k3_cases[2]},
+                k3_cases),
         summary("flash_attention_bwd_dkv", "flash_attention_bwd.cu",
                 "flash_attention.py:425", "train", {"train": k2["dkv"][0]},
                 k2["dkv"]),
@@ -465,9 +503,7 @@ def check_kernels(dev):
                 "train_int8", {"train_int8": k5[1]}, k5, sites=k5[:2]),
         # The ring's per-hop kernels: the row's numbers are the mean per
         # launch over one train step's hops (visible, diagonal, future).
-        summary("flash_attention_chunk", "flash_attention_chunk.cu",
-                "flash_attention.py:624", "train_ring",
-                {"train_ring": k67["k6"][0]}, k67["k6"]),
+        k6,
         summary("flash_attention_chunk_dq", "flash_attention_chunk.cu",
                 "flash_attention.py:767", "train_ring",
                 {"train_ring": k67["k7a"][0]}, k67["k7a"]),
@@ -508,7 +544,8 @@ def check_backward_kernels(dev, g, H, D):
              ("window", 2, None, True, 256, D),
              ("masked_rows", 2, head, True, 0, D),
              ("non_causal", 2, tail, False, 0, D),
-             ("head_dim_64", 2, None, True, 0, 64)]
+             ("head_dim_64", 2, None, True, 0, 64),
+             ("head_dim_32", 2, None, True, 0, 32)]
     rows = {"dq": [], "dkv": [], "fwd": None}
     for name, B, mask, causal, window, d in cases:
         t = torch.randn(B, S, 3, H, d, generator=g, device=dev,
@@ -615,6 +652,7 @@ def ring_chunk_case(dev, g, fused, name, q_off, k_off, *, causal=True,
     import torch
     import torch.nn.functional as F
     from distributed_tensorflow_tpu_torch.ops import flash_attention as fa
+    from distributed_tensorflow_tpu_torch.utils.cuda_timing import graph_ms
     B, S, _, H, D = fused.shape
     n = S // RING_SEQ
     q = fused[:, q_off:q_off + n, 0]
@@ -645,15 +683,31 @@ def ring_chunk_case(dev, g, fused, name, q_off, k_off, *, causal=True,
         err = (got - want).abs().max().item()
         return err, err / max(want.abs().max().item(), 1e-6)
 
-    # K6.
+    # K6, in the in-place form the ring calls (on copies of the carries),
+    # held bit for bit to the out-of-place form and to the plain version.
     def run_fwd():
         return fa.flash_attention_chunk(q, k, v, mask, m, l, acc, **kw)
+
+    carries = [t.clone() for t in (m, l, acc)]
+
+    def run_in_place():
+        return fa.flash_attention_chunk(q, k, v, mask, *carries, **kw,
+                                        in_place=True)
 
     def plain_fwd():
         return fa.flash_attention_chunk_reference(q, k, v, mask, m, l, acc,
                                                   **kw)
     got, want = run_fwd(), plain_fwd()
+    in_place = run_in_place()
     torch.cuda.synchronize()
+    if not all(a is b for a, b in zip(in_place, carries)) or not all(
+            torch.equal(a, b) for a, b in zip(in_place, got)):
+        raise AssertionError(f"K6 {name}: in place differs from out of "
+                             "place")
+    if not pairs and not all(torch.equal(a, b)
+                             for a, b in zip(carries, (m, l, acc))):
+        raise AssertionError(f"K6 {name}: a chunk in the future must leave "
+                             "the carries untouched in place")
     m_err = (got[0] - want[0]).abs().max().item()
     l_err, l_rel = rel(got[1], want[1])
     acc_err, acc_rel = rel(got[2], want[2])
@@ -671,14 +725,20 @@ def ring_chunk_case(dev, g, fused, name, q_off, k_off, *, causal=True,
         raise AssertionError(f"K6 {name}: fully masked rows moved")
     qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
     lib_mask = None if (mask is None and not causal) else valid
-    # Operands and carries are needed only where some pair is visible.
-    b_ms, b_by = bound((3 * one + extra if pairs else 0) + 2 * carry,
+    # In place, operands and carries move only where some pair is visible:
+    # a chunk in the future needs no byte moved.
+    b_ms, b_by = bound(3 * one + extra + 2 * carry if pairs else 0,
                        2 * 2 * pairs * D)
+    ms = cuda_ms(run_in_place)
+    library_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
+        qt, kt, vt, attn_mask=lib_mask))
     k6 = dict(base, max_abs_err=max(m_err, l_err, acc_err), m_err=m_err,
               l_rel_err=l_rel, acc_rel_err=acc_rel, tol_rel=K67_REL_TOL,
-              ms=cuda_ms(run_fwd), plain_ms=cuda_ms(plain_fwd),
-              library_ms=cuda_ms(lambda: F.scaled_dot_product_attention(
-                  qt, kt, vt, attn_mask=lib_mask)),
+              ms=ms, device_ms=graph_ms(run_in_place),
+              host_ms=host_ms(run_in_place),
+              out_of_place_ms=cuda_ms(run_fwd),
+              plain_ms=cuda_ms(plain_fwd), library_ms=library_ms,
+              ratio_to_library=ms / library_ms,
               library="SDPA forward on the chunk pair, same boolean mask "
                       "(returns no carry)",
               bound_ms=b_ms, bound_by=b_by)
@@ -736,7 +796,7 @@ def ring_chunk_case(dev, g, fused, name, q_off, k_off, *, causal=True,
                tol_rel=K67_REL_TOL, ms=cuda_ms(run_dkv),
                plain_ms=cuda_ms(plain_dkv), bound_ms=b_ms, bound_by=b_by,
                **lib)
-    del got, want, lib_out, ql, kl, vl
+    del got, want, in_place, carries, lib_out, ql, kl, vl
     return dict(k6=k6, k7a=k7a, k7b=k7b)
 
 
@@ -783,10 +843,10 @@ def check_ring_kernels(dev, g) -> dict:
     [8, 256, 16, 128] of the fused projection, bf16, fp32 carries) for
     the three hop kinds of the causal ring (a chunk wholly visible, on the
     diagonal, wholly in the future) and a padding mask with fully masked
-    rows, a window, non-causal and D = 64; then the ring against K1/K2.
-    The path's row is the per-launch mean over one step's hops: of the 16
-    (shard, chunk) pairs of a 4-shard causal ring 6 are visible, 4
-    diagonal, 6 in the future."""
+    rows, a window, non-causal, D = 64 and D = 32; then the ring against
+    K1/K2.  The path's row is the per-launch mean over one step's hops: of
+    the 16 (shard, chunk) pairs of a 4-shard causal ring 6 are visible, 4
+    diagonal, 6 in the future (K6 timed in place, as the ring calls it)."""
     import torch
     B, S = TRAIN["batch"], TRAIN["seq_len"]
     H, D = WIDTH["num_heads"], WIDTH["hidden_size"] // WIDTH["num_heads"]
@@ -797,7 +857,7 @@ def check_ring_kernels(dev, g) -> dict:
              ("window", 3 * n, 2 * n, dict(window=n)),
              ("non_causal", 0, 3 * n, dict(causal=False, masked=True))]
     rows = {"k6": [], "k7a": [], "k7b": []}
-    for d in (D, 64):
+    for d in (D, 64, 32):
         fused = torch.randn(B, S, 3, H, d, generator=g, device=dev,
                             dtype=torch.float32).to(torch.bfloat16)
         for name, q_off, k_off, kw in (cases if d == D else cases[1:2]):
@@ -807,12 +867,16 @@ def check_ring_kernels(dev, g) -> dict:
                 rows[key].append(row)
         del fused
     weights = {"visible": 6, "diagonal": 4, "future": 6}
-    keys = ("ms", "plain_ms", "bound_ms", "library_ms", "pairs")
     for key, cs in rows.items():
         mix = [c for c in cs if c["case"] in weights]
         total = sum(weights.values())
+        keys = [k for k in ("ms", "device_ms", "host_ms", "out_of_place_ms",
+                            "plain_ms", "bound_ms", "library_ms", "pairs")
+                if k in mix[0]]
         row = {k: sum(weights[c["case"]] * c[k] for c in mix) / total
                for k in keys}
+        if key == "k6":
+            row["ratio_to_library"] = row["ms"] / row["library_ms"]
         row.update(case="train_ring_hop_mean", hops=dict(weights),
                    max_abs_err=max(c["max_abs_err"] for c in mix),
                    bound_by=max(mix, key=lambda c: c["bound_ms"])[
@@ -1407,6 +1471,11 @@ def check_ring_step(dev, model, loss_fn, batch) -> dict:
         saved = [getattr(ring, n) for n in names]
         for n in names:
             setattr(ring, n, getattr(fa, n + "_reference"))
+        # The ring asks K6 for its in-place form; the plain version returns
+        # new carries, which the ring takes all the same.
+        ring.flash_attention_chunk = (
+            lambda *a, in_place=False, **kw:
+            fa.flash_attention_chunk_reference(*a, **kw))
         try:
             yield
         finally:
@@ -1491,6 +1560,7 @@ def main() -> int:
     # K8 is on no path: its launches are the kernels phase's own.
     by_path = {"kernels": {"quant_matmul_dgelu": qmm.dgelu_launches}}
     by_path["serve"] = serve(dev)
+    by_path["serve_decode"] = by_path["serve"]
     torch.cuda.empty_cache()
     by_path["train"], bf16_step = train(dev, smi)
     by_path["train_int8"] = train_int8(dev, smi, bf16_step)

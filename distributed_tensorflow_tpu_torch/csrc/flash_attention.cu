@@ -29,7 +29,8 @@
 //     multiplied, and the two consumers run unsynchronised, one's softmax
 //     overlapping the other's products.
 //   - S = Q K^T is wgmma m64n128k16 with Q and K K-major in shared memory
-//     (128-byte swizzle, see hopper.cuh), into 64 fp32 registers a thread.
+//     (128-byte swizzle, 64-byte at D = 32, see hopper.cuh), into 64 fp32
+//     registers a thread.
 //   - The online softmax runs on those registers: a row's 32 values of a
 //     thread are reduced locally, then across the row's 4 lanes with two
 //     shuffles; exp2 with scale * log2(e) folded into one FMA; the running
@@ -55,6 +56,12 @@
 //   - q, k and v are read through their [B, S, H, D] strides (TMA tensor
 //     maps over the 4-D view), so the fused qkv projection's slices need
 //     no copy.
+//
+// Head dims 32, 64 and 128.  At D = 32 a bf16 row is 64 bytes, too narrow
+// for the 128-byte swizzle: the tiles take the 64-byte one (a TMA map with
+// SWIZZLE_64B and the wgmma descriptor's 64-byte layout, hopper.cuh), so
+// QK^T runs two k-steps of 16 and PV is m64n32k16.  The other route, a
+// 64-column box over the 32-column tensor, would double every product.
 //
 // fp32 inputs (on no main path) take the scalar kernel flash_fwd_f32,
 // which keeps full fp32 precision: one block of four warps per 64-row Q
@@ -198,8 +205,8 @@ __global__ void __launch_bounds__(kThreadsW, 1)
     dtt::wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < D / 16; ++kk)
-      dtt::wgmma_ss<kBK>(sc, dtt::tile_kmajor<kBQ>(Qs, 64 * c, kk),
-                         dtt::tile_kmajor<kBK>(Ks, 0, kk), kk > 0);
+      dtt::wgmma_ss<kBK>(sc, dtt::tile_kmajor<D, kBQ>(Qs, 64 * c, kk),
+                         dtt::tile_kmajor<D, kBK>(Ks, 0, kk), kk > 0);
     dtt::wgmma_commit();
     dtt::wgmma_wait_all();
     dtt::fence_regs(sc);
@@ -267,7 +274,7 @@ __global__ void __launch_bounds__(kThreadsW, 1)
     dtt::wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < kBK / 16; ++kk)
-      dtt::wgmma_rs<D>(o, pa[kk], dtt::tile_mnmajor<kBK>(Vs, kk), 1);
+      dtt::wgmma_rs<D>(o, pa[kk], dtt::tile_mnmajor<D, kBK>(Vs, kk), 1);
     dtt::wgmma_commit();
     dtt::wgmma_wait_all();
     dtt::fence_regs(o);
@@ -543,11 +550,12 @@ cudaError_t launch_f32(const Params& p, cudaStream_t stream) {
 
 // Dynamic shared memory of the bf16 kernel at head_dim D (for reports).
 extern "C" long long dtt_flash_attention_fwd_smem(int D) {
-  return D == 64 ? (long long)FwdSmem<64>::kBytes
-                 : (long long)FwdSmem<128>::kBytes;
+  return D == 32   ? (long long)FwdSmem<32>::kBytes
+         : D == 64 ? (long long)FwdSmem<64>::kBytes
+                   : (long long)FwdSmem<128>::kBytes;
 }
 
-// dtype: 0 = fp32, 1 = bf16.  D in {64, 128}.  Strides in elements; the
+// dtype: 0 = fp32, 1 = bf16.  D in {32, 64, 128}.  Strides in elements; the
 // last dim must be contiguous and the base and every stride 16-byte
 // aligned (the Python wrapper checks).  Launches on the current device;
 // returns cudaGetLastError().
@@ -577,7 +585,9 @@ extern "C" int dtt_flash_attention_fwd(
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 1 && D == 128) return (int)launch_wgmma<128>(p, s);
   if (dtype == 1 && D == 64) return (int)launch_wgmma<64>(p, s);
+  if (dtype == 1 && D == 32) return (int)launch_wgmma<32>(p, s);
   if (dtype == 0 && D == 128) return (int)launch_f32<128>(p, s);
   if (dtype == 0 && D == 64) return (int)launch_f32<64>(p, s);
+  if (dtype == 0 && D == 32) return (int)launch_f32<32>(p, s);
   return (int)cudaErrorInvalidValue;
 }

@@ -31,7 +31,8 @@
 //     flight while the current one is multiplied.
 //   - The products run on wgmma with fp32 accumulators in registers:
 //     K2b: S = Q K^T and dP = dO V^T (m64n64k16, both operands K-major in
-//          shared memory), then dQ += dS K with dS from registers and K
+//          shared memory; at D = 32 the tiles take the 64-byte swizzle,
+//          hopper.cuh), then dQ += dS K with dS from registers and K
 //          MN-major (transpose-B);
 //     K2a: the transposed form, own rows are keys: S^T = K Q^T and
 //          dP^T = V dO^T, then dV += P^T dO and dK += dS^T Q with P^T and
@@ -54,6 +55,9 @@
 //     are read through their [B, S, H, D] strides, so the fused qkv
 //     projection's slices need no copy; dq, dk and dv are written
 //     contiguous.
+//
+// Head dims 32, 64 and 128; D = 32 takes the 64-byte swizzle, as K1 does
+// (flash_attention.cu says why).
 //
 // fp32 inputs (on no main path) take the scalar kernel flash_bwd_f32:
 // four warps per 64-row tile, S and dP through one fp32 shared scratch per
@@ -289,12 +293,12 @@ __global__ void __launch_bounds__(kThreadsW, 1)
     dtt::wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < D / 16; ++kk)
-      dtt::wgmma_ss<kStr>(sc, dtt::tile_kmajor<kOwn>(Qs, 64 * c, kk),
-                          dtt::tile_kmajor<kStr>(Ks, 0, kk), kk > 0);
+      dtt::wgmma_ss<kStr>(sc, dtt::tile_kmajor<D, kOwn>(Qs, 64 * c, kk),
+                          dtt::tile_kmajor<D, kStr>(Ks, 0, kk), kk > 0);
 #pragma unroll
     for (int kk = 0; kk < D / 16; ++kk)
-      dtt::wgmma_ss<kStr>(dp, dtt::tile_kmajor<kOwn>(dOs, 64 * c, kk),
-                          dtt::tile_kmajor<kStr>(Vs, 0, kk), kk > 0);
+      dtt::wgmma_ss<kStr>(dp, dtt::tile_kmajor<D, kOwn>(dOs, 64 * c, kk),
+                          dtt::tile_kmajor<D, kStr>(Vs, 0, kk), kk > 0);
     dtt::wgmma_commit();
     dtt::wgmma_wait_all();
     dtt::fence_regs(sc);
@@ -328,7 +332,7 @@ __global__ void __launch_bounds__(kThreadsW, 1)
     dtt::wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < kStr / 16; ++kk)
-      dtt::wgmma_rs<D>(dq, ds[kk], dtt::tile_mnmajor<kStr>(Ks, kk), 1);
+      dtt::wgmma_rs<D>(dq, ds[kk], dtt::tile_mnmajor<D, kStr>(Ks, kk), 1);
     dtt::wgmma_commit();
     dtt::wgmma_wait_all();
     dtt::fence_regs(dq);
@@ -428,12 +432,12 @@ __global__ void __launch_bounds__(kThreadsW, 1)
     dtt::wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < D / 16; ++kk)
-      dtt::wgmma_ss<kStr>(st, dtt::tile_kmajor<kOwn>(Ks, 64 * c, kk),
-                          dtt::tile_kmajor<kStr>(Qt, 0, kk), kk > 0);
+      dtt::wgmma_ss<kStr>(st, dtt::tile_kmajor<D, kOwn>(Ks, 64 * c, kk),
+                          dtt::tile_kmajor<D, kStr>(Qt, 0, kk), kk > 0);
 #pragma unroll
     for (int kk = 0; kk < D / 16; ++kk)
-      dtt::wgmma_ss<kStr>(dpt, dtt::tile_kmajor<kOwn>(Vs, 64 * c, kk),
-                          dtt::tile_kmajor<kStr>(dOt, 0, kk), kk > 0);
+      dtt::wgmma_ss<kStr>(dpt, dtt::tile_kmajor<D, kOwn>(Vs, 64 * c, kk),
+                          dtt::tile_kmajor<D, kStr>(dOt, 0, kk), kk > 0);
     dtt::wgmma_commit();
     dtt::wgmma_wait_all();
     dtt::fence_regs(st);
@@ -472,10 +476,10 @@ __global__ void __launch_bounds__(kThreadsW, 1)
     dtt::wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < kStr / 16; ++kk)
-      dtt::wgmma_rs<D>(dv, pa[kk], dtt::tile_mnmajor<kStr>(dOt, kk), 1);
+      dtt::wgmma_rs<D>(dv, pa[kk], dtt::tile_mnmajor<D, kStr>(dOt, kk), 1);
 #pragma unroll
     for (int kk = 0; kk < kStr / 16; ++kk)
-      dtt::wgmma_rs<D>(dk, da[kk], dtt::tile_mnmajor<kStr>(Qt, kk), 1);
+      dtt::wgmma_rs<D>(dk, da[kk], dtt::tile_mnmajor<D, kStr>(Qt, kk), 1);
     dtt::wgmma_commit();
     dtt::wgmma_wait_all();
     dtt::fence_regs(dk);
@@ -813,8 +817,10 @@ template <bool kDKV>
 int dispatch(const Params& p, int D, int dtype, cudaStream_t s) {
   if (dtype == 1 && D == 128) return (int)launch_wgmma<128, kDKV>(p, s);
   if (dtype == 1 && D == 64) return (int)launch_wgmma<64, kDKV>(p, s);
+  if (dtype == 1 && D == 32) return (int)launch_wgmma<32, kDKV>(p, s);
   if (dtype == 0 && D == 128) return (int)launch_f32<128, kDKV>(p, s);
   if (dtype == 0 && D == 64) return (int)launch_f32<64, kDKV>(p, s);
+  if (dtype == 0 && D == 32) return (int)launch_f32<32, kDKV>(p, s);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -853,12 +859,13 @@ Params make_params(const void* q, const void* k, const void* v,
 // Dynamic shared memory of the bf16 kernels at head_dim D (both use the
 // same layout; for reports).
 extern "C" long long dtt_flash_attention_bwd_smem(int D) {
-  return D == 64 ? (long long)BwdSmem<64>::kBytes
-                 : (long long)BwdSmem<128>::kBytes;
+  return D == 32   ? (long long)BwdSmem<32>::kBytes
+         : D == 64 ? (long long)BwdSmem<64>::kBytes
+                   : (long long)BwdSmem<128>::kBytes;
 }
 
 // Both entry points take the same arguments.  dtype: 0 = fp32, 1 = bf16;
-// D in {64, 128}.  Strides (batch, seq, head) of q, k, v, o and dout, in
+// D in {32, 64, 128}.  Strides (batch, seq, head) of q, k, v, o and dout, in
 // elements; the last dim must be contiguous and the base and every stride
 // 16-byte aligned (the Python wrapper checks).  kv_mask is int32 [B, S] or
 // null.  lse and delta are fp32 [B*H, S]; outputs are contiguous

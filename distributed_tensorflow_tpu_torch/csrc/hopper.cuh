@@ -1,21 +1,28 @@
 // Hopper building blocks shared by the flash-attention kernels (K1 in
-// flash_attention.cu, K2 in flash_attention_bwd.cu): mbarriers, TMA tile
-// loads through a tensor map, wgmma shared-memory descriptors and the
-// warpgroup products themselves.  sm_90a only (wgmma, setmaxnreg).
+// flash_attention.cu, K2 in flash_attention_bwd.cu, K6 in
+// flash_attention_chunk.cu): mbarriers, TMA tile loads through a tensor
+// map, wgmma shared-memory descriptors and the warpgroup products
+// themselves.  sm_90a only (wgmma, setmaxnreg).
 //
-// Shared-memory tiles.  A [rows, D] bf16 tile is stored as D / 64 "boxes"
-// of [rows, 64]: one TMA box each, 128 bytes a row, with the 128-byte
-// swizzle (the 16-byte chunk c of row r lands at chunk c ^ (r % 8)).  A
-// box starts on a 1024-byte boundary, so rows r .. r + 7 form one swizzle
-// atom.  wgmma reads such a tile two ways:
-//   K-major (the contraction runs along the row): rows 128 bytes apart,
-//     8-row groups 1024 bytes apart (the descriptor's stride offset); a
+// Shared-memory tiles.  A [rows, D] bf16 tile is stored as D / W "boxes"
+// of [rows, W], W = min(D, 64) columns: one TMA box each, 2 W bytes a row
+// (128 at D = 64 and 128, 64 at D = 32), with the swizzle of that width
+// (128-byte: the 16-byte chunk c of row r lands at chunk c ^ (r % 8);
+// 64-byte: at chunk c ^ ((r / 2) % 4)).  A box starts on a 1024-byte
+// boundary, so rows r .. r + 7 form one swizzle atom (1024 bytes, or 512
+// at D = 32).  wgmma reads such a tile two ways:
+//   K-major (the contraction runs along the row): rows 2 W bytes apart,
+//     8-row groups one atom apart (the descriptor's stride offset); a
 //     16-column k-slice starts 32 bytes into the box, the next box after
-//     64 columns (tile_kmajor);
+//     W columns (tile_kmajor);
 //   MN-major (the contraction runs down the rows, "transposed" B): 16 rows
-//     of k per instruction, 8-row groups 1024 bytes apart (stride offset),
-//     and the next 64 output columns one box further (leading offset)
+//     of k per instruction, 8-row groups one atom apart (stride offset),
+//     and the next W output columns one box further (leading offset)
 //     (tile_mnmajor, with the instruction's transpose-B bit set).
+// At D = 32 a row is 64 bytes, so the 128-byte swizzle cannot hold it:
+// the tile takes the 64-byte mode in both the TMA map and the wgmma
+// descriptor (layout type 2) rather than a 64-column box over a 32-column
+// tensor, which would double every product.
 //
 // Accumulator layout of wgmma m64nNk16 with fp32 D, per warpgroup thread
 // t (warp w = t / 32, lane l): register i holds row 16 w + l / 4 + 8 *
@@ -32,6 +39,17 @@
 #include <stdint.h>
 
 namespace dtt {
+
+// Tile geometry of a bf16 [rows, D] operand tile, D in {32, 64, 128}.
+template <int D> struct TileGeo {
+  static_assert(D == 32 || D == 64 || D == 128, "head_dim 32, 64 or 128");
+  static constexpr int kBoxCols = D < 64 ? D : 64;   // columns of a box
+  static constexpr int kRowBytes = 2 * kBoxCols;     // 64 or 128
+  static constexpr int kAtom = 8 * kRowBytes;        // 8-row swizzle atom
+  static constexpr int kSlices = kBoxCols / 16;      // k-slices of a box
+  // wgmma descriptor layout type: 1 = 128-byte swizzle, 2 = 64-byte.
+  static constexpr uint64_t kLayout = D < 64 ? 2 : 1;
+};
 
 // ---- host: tensor maps --------------------------------------------------
 
@@ -57,27 +75,66 @@ inline EncodeTiled encode_tiled() {
   return fn;
 }
 
+// Everything a tile map's encoding reads: equal keys give the same map,
+// bit for bit.
+struct MapKey {
+  const void* base;
+  long long sb, ss, sh;
+  int B, S, H, D, rows;
+  bool operator==(const MapKey& o) const {
+    return base == o.base && sb == o.sb && ss == o.ss && sh == o.sh &&
+           B == o.B && S == o.S && H == o.H && D == o.D && rows == o.rows;
+  }
+  size_t slot(size_t n) const {
+    const long long fields[] = {sb, ss, sh, B, S, H, D, rows};
+    uint64_t h = reinterpret_cast<uintptr_t>(base);
+    for (long long v : fields) h = (h ^ (uint64_t)v) * 0x100000001b3ull;
+    return (size_t)(h ^ (h >> 29)) % n;
+  }
+};
+
 // A bf16 [B, S, H, D] view with element strides (sb, ss, sh) and a
 // contiguous last dim, as the 4-D tensor (D, H, S, B); boxes of
-// [rows, 64] (one head, one batch), 128-byte swizzle, rows past S read
-// as zeros.  Base and strides must be 16-byte multiples.
+// [rows, min(D, 64)] (one head, one batch) with the swizzle of the box's
+// row width (TileGeo), rows past S read as zeros.  Base and strides must
+// be 16-byte multiples.  Encoding costs the host microseconds, about a
+// launch's worth, and the ring's hops and the serving prefill pass the
+// same few views again and again: the maps stay in a small per-thread
+// cache keyed on everything the encoding reads.
 inline cudaError_t make_tile_map(CUtensorMap* map, const void* base, int B,
                                  int S, int H, int D, long long sb,
                                  long long ss, long long sh, int rows) {
+  struct Entry {
+    CUtensorMap map;
+    MapKey key;
+    bool valid;
+  };
+  constexpr size_t kSlots = 64;
+  thread_local Entry cache[kSlots] = {};
+  const MapKey key{base, sb, ss, sh, B, S, H, D, rows};
+  Entry& e = cache[key.slot(kSlots)];
+  if (e.valid && e.key == key) {
+    *map = e.map;
+    return cudaSuccess;
+  }
   EncodeTiled encode = encode_tiled();
   if (encode == nullptr) return cudaErrorNotSupported;
   const cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)H, (cuuint64_t)S,
                               (cuuint64_t)B};
   const cuuint64_t strides[3] = {(cuuint64_t)sh * 2, (cuuint64_t)ss * 2,
                                  (cuuint64_t)sb * 2};
-  const cuuint32_t box[4] = {64, 1, (cuuint32_t)rows, 1};
+  const cuuint32_t box[4] = {(cuuint32_t)(D < 64 ? D : 64), 1,
+                             (cuuint32_t)rows, 1};
   const cuuint32_t elem[4] = {1, 1, 1, 1};
   const CUresult r = encode(
       map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base),
       dims, strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
-      CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+      D < 64 ? CU_TENSOR_MAP_SWIZZLE_64B : CU_TENSOR_MAP_SWIZZLE_128B,
+      CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
       CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+  if (r != CUDA_SUCCESS) return cudaErrorInvalidValue;
+  e = Entry{*map, key, true};
+  return cudaSuccess;
 }
 
 // ---- device: barriers and copies -----------------------------------------
@@ -125,7 +182,7 @@ __device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
   } while (!done);
 }
 
-// One [rows, 64] box of head h, batch b, starting at column d0 and row s0,
+// One [rows, W] box of head h, batch b, starting at column d0 and row s0,
 // into shared memory; completion (and its bytes) land on `bar`.
 __device__ __forceinline__ void tma_load_box(void* dst,
                                              const CUtensorMap* map,
@@ -139,41 +196,48 @@ __device__ __forceinline__ void tma_load_box(void* dst,
       : "memory");
 }
 
-// The whole [rows, D] tile (D / 64 boxes of rows * 128 bytes each).
+// The whole [rows, D] tile (D / W boxes of rows * 2 W bytes each).
 template <int D, int ROWS>
 __device__ __forceinline__ void tma_load_tile(uint8_t* dst,
                                               const CUtensorMap* map,
                                               uint64_t* bar, int h, int s0,
                                               int b) {
+  using T = TileGeo<D>;
 #pragma unroll
-  for (int box = 0; box < D / 64; ++box)
-    tma_load_box(dst + box * ROWS * 128, map, bar, box * 64, h, s0, b);
+  for (int box = 0; box < D / T::kBoxCols; ++box)
+    tma_load_box(dst + box * ROWS * T::kRowBytes, map, bar,
+                 box * T::kBoxCols, h, s0, b);
 }
 
 // ---- device: warpgroup products ------------------------------------------
 
-__device__ __forceinline__ uint64_t desc_sw128(uint32_t addr, uint32_t lbo,
-                                               uint32_t sbo) {
+// A swizzled shared-memory matrix descriptor: start address, leading and
+// stride byte offsets, layout type (TileGeo::kLayout).
+__device__ __forceinline__ uint64_t desc_sw(uint32_t addr, uint32_t lbo,
+                                            uint32_t sbo, uint64_t layout) {
   return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)(lbo >> 4) << 16) |
-         ((uint64_t)(sbo >> 4) << 32) | (1ull << 62);
+         ((uint64_t)(sbo >> 4) << 32) | (layout << 62);
 }
 
 // K-major operand: rows [row0, row0 + 64 or N) of a [ROWS, D] tile, the
 // 16-column k-slice kk.
-template <int ROWS>
+template <int D, int ROWS>
 __device__ __forceinline__ uint64_t tile_kmajor(const uint8_t* tile,
                                                 int row0, int kk) {
-  return desc_sw128(smem_addr(tile) + (kk / 4) * ROWS * 128 + row0 * 128 +
-                        (kk % 4) * 32,
-                    16, 1024);
+  using T = TileGeo<D>;
+  return desc_sw(smem_addr(tile) + (kk / T::kSlices) * ROWS * T::kRowBytes +
+                     row0 * T::kRowBytes + (kk % T::kSlices) * 32,
+                 16, T::kAtom, T::kLayout);
 }
 
 // MN-major operand (transpose-B): rows [16 kk, 16 kk + 16) of a [ROWS, D]
 // tile, all D columns.
-template <int ROWS>
+template <int D, int ROWS>
 __device__ __forceinline__ uint64_t tile_mnmajor(const uint8_t* tile,
                                                  int kk) {
-  return desc_sw128(smem_addr(tile) + kk * 16 * 128, ROWS * 128, 1024);
+  using T = TileGeo<D>;
+  return desc_sw(smem_addr(tile) + kk * 16 * T::kRowBytes,
+                 ROWS * T::kRowBytes, T::kAtom, T::kLayout);
 }
 
 __device__ __forceinline__ void wgmma_fence() {
@@ -251,6 +315,43 @@ template <int N>
 __device__ __forceinline__ void wgmma_rs(float (&d)[N / 2],
                                          const uint32_t (&a)[4], uint64_t db,
                                          int scale_d);
+
+template <>
+__device__ __forceinline__ void wgmma_ss<32>(float (&d)[16], uint64_t da,
+                                                uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15"
+      "}, %16, %17, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_rs<32>(float (&d)[16],
+                                                const uint32_t (&a)[4],
+                                                uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15"
+      "}, {%16, %17, %18, %19}, %20, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
+}
 
 template <>
 __device__ __forceinline__ void wgmma_ss<64>(float (&d)[32], uint64_t da,

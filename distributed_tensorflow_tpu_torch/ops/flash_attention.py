@@ -25,11 +25,14 @@ function:
 
 The ring's chunk functions (counterparts of ``flash_attention_chunk``,
 ``flash_attention_chunk_dq`` and ``flash_attention_chunk_dkv``) fold one
-K/V chunk into the carried online-softmax state ``(m, l, acc)`` and give
-the per-hop gradient partials, with the chunk's global position as two
-run-time offsets: on CUDA tensors the kernels of
-``csrc/flash_attention_chunk.cu`` (K6, K7a, K7b), on CPU tensors
+K/V chunk into the carried online-softmax state ``(m, l, acc)`` (in new
+tensors, or in place) and give the per-hop gradient partials, with the
+chunk's global position as two run-time offsets: on CUDA tensors the
+kernels of ``csrc/flash_attention_chunk.cu`` (K6 on K1's Hopper design
+with the carries in registers, K7a, K7b), on CPU tensors
 :func:`flash_attention_chunk_reference` and its two backward partners.
+
+Head dims 32, 64 and 128 on the card (the plain versions take any).
 
 A CUDA tensor never takes a plain version.  The kernels take every S (the
 ragged last tile is masked) and read q/k/v/o/dO through their strides.
@@ -56,7 +59,7 @@ chunk_dkv_launches = 0
 
 _NEG = -1e30
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
-_HEAD_DIMS = (64, 128)
+_HEAD_DIMS = (32, 64, 128)
 
 
 def attention_valid(B: int, S: int, kv_mask: torch.Tensor | None, *,
@@ -475,23 +478,36 @@ def _f32_rows(name: str, t: torch.Tensor, shape: tuple, like) -> torch.Tensor:
 
 def flash_attention_chunk(q, k, v, kv_mask, m, l, acc, *, q_offset: int,
                           k_offset: int, causal: bool = False,
-                          window: int = 0):
+                          window: int = 0, in_place: bool = False):
     """Fold one K/V chunk into the running state ``(m, l, acc)`` and return
-    the updated state (new tensors; the inputs are not written).  Finalise
+    the updated state.  By default, as the JAX function, in new tensors
+    (the inputs are not written); ``in_place=True`` writes the update into
+    ``m``, ``l`` and ``acc`` themselves (contiguous fp32) and returns them,
+    so a chunk that no query can see costs no memory traffic.  Finalise
     with ``acc / max(l, 1e-30)`` after the last chunk.  K6 on CUDA
     tensors, :func:`flash_attention_chunk_reference` on CPU tensors."""
     if q.device.type == "cpu":
-        return flash_attention_chunk_reference(
+        new = flash_attention_chunk_reference(
             q, k, v, kv_mask, m, l, acc, q_offset=q_offset,
             k_offset=k_offset, causal=causal, window=window)
+        if not in_place:
+            return new
+        for t, n in zip((m, l, acc), new):
+            t.copy_(n)
+        return m, l, acc
     mask = _chunk_operands(q, k, v, kv_mask, causal=causal, window=window,
                            name="flash_attention_chunk")
     B, Sq, H, D = q.shape
     Sk = k.shape[1]
+    if in_place and not all(t.is_contiguous() for t in (m, l, acc)):
+        raise ValueError("in_place needs contiguous m, l and acc")
     m = _f32_rows("m", m, (B, H, Sq), q)
     l = _f32_rows("l", l, (B, H, Sq), q)
     acc = _f32_rows("acc", acc, (B, H, Sq, D), q)
-    m_out, l_out, acc_out = (torch.empty_like(t) for t in (m, l, acc))
+    if acc.data_ptr() % 16:
+        raise ValueError("acc must start on a 16-byte boundary")
+    m_out, l_out, acc_out = ((m, l, acc) if in_place else
+                             (torch.empty_like(t) for t in (m, l, acc)))
     if m_out.numel() == 0:
         return m_out, l_out, acc_out
     kernels.launch(

@@ -90,6 +90,7 @@ SIGNATURES = {
 
 _lock = threading.Lock()
 _lib = None
+_entries: dict = {}     # entry point name -> bound function, once loaded
 
 
 def sources() -> list[str]:
@@ -209,10 +210,12 @@ def load():
                 fn = getattr(lib, name)
                 fn.argtypes = argtypes
                 fn.restype = ctypes.c_int
+                _entries[name[len("dtt_"):]] = fn
             lib.dtt_error_string.argtypes = [_I]
             lib.dtt_error_string.restype = ctypes.c_char_p
             for name in ("dtt_flash_attention_fwd_smem",
-                         "dtt_flash_attention_bwd_smem"):
+                         "dtt_flash_attention_bwd_smem",
+                         "dtt_flash_attention_chunk_smem"):
                 getattr(lib, name).argtypes = [_I]
                 getattr(lib, name).restype = ctypes.c_longlong
             _lib = lib
@@ -229,13 +232,25 @@ def check(rc: int, kernel: str) -> None:
 
 def launch(entry: str, device, *args) -> None:
     """Call the C entry point ``dtt_<entry>(*args, stream)`` on
-    ``device``, the operands' card: inside ``torch.cuda.device(device)``,
-    so the launch, its per-device shared-memory opt-in and the stream
-    (``device``'s current one) all belong to that card, whichever card
-    is current outside.  Raises on a launch error."""
+    ``device``, the operands' card, so that the launch, its per-device
+    shared-memory opt-in and the stream (``device``'s current one) all
+    belong to that card, whichever card is current outside: when
+    ``device`` is not the current card the call runs inside
+    ``torch.cuda.device(device)``.  Raises on a launch error.  The bound
+    function is looked up once per entry point and the stream read as a
+    raw handle: at the serving shapes this host path is the kernels'
+    whole cost."""
     import torch
-    lib = load()
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream(device).cuda_stream
-        rc = getattr(lib, f"dtt_{entry}")(*args, stream)
-    check(rc, entry)
+    fn = _entries.get(entry) or getattr(load(), f"dtt_{entry}")
+    idx = device.index
+    # torch._C's bindings behind torch.cuda.current_device() and
+    # torch.cuda.current_stream(idx).cuda_stream, without the public
+    # calls' lazy-init check and Stream object (PyTorch 2.11 on the H100;
+    # tests/test_torch_kernels_cuda.py holds them to the public calls).
+    if torch._C._cuda_getDevice() == idx:          # the current card
+        rc = fn(*args, torch._C._cuda_getCurrentRawStream(idx))
+    else:
+        with torch.cuda.device(device):
+            rc = fn(*args, torch._C._cuda_getCurrentRawStream(idx))
+    if rc:
+        check(rc, entry)

@@ -5,7 +5,10 @@ Counterpart of ``distributed_tensorflow_tpu/ops/pallas/layer_norm.py``.
 function:
 
 - on a CUDA tensor, the hand-written kernel ``csrc/layer_norm.cu``
-  (one block per row; the row is read once and written once);
+  (up to H = 8192 a row lives in the registers of one to four warps,
+  read in vectors of four values and written in 16-byte fp32 vectors,
+  several rows to a block; wider rows take one block each, staged in
+  shared memory; the row is read once and written once);
 - on a CPU tensor, :func:`layer_norm_reference`, the plain PyTorch
   version (the port of ``_dense_reference``).
 
@@ -49,34 +52,41 @@ def layer_norm_reference(x: torch.Tensor, scale: torch.Tensor,
 
 def _forward(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
              eps: float) -> torch.Tensor:
-    if x.device.type == "cpu":
+    if x.is_cpu:
         return layer_norm_reference(x, scale, bias, eps)
-    if x.device.type != "cuda":
-        raise ValueError(f"layer_norm runs on cuda or cpu, got {x.device}")
-    H = x.shape[-1]
-    if x.dtype not in _DTYPE_CODE:
+    # Only the checks that protect the kernel, and no conversion of
+    # operands that are already what it takes: at the serving shapes the
+    # host's work is the call's whole cost.
+    dev = x.device
+    if not x.is_cuda:
+        raise ValueError(f"layer_norm runs on cuda or cpu, got {dev}")
+    code = _DTYPE_CODE.get(x.dtype)
+    if code is None:
         raise ValueError(f"layer_norm takes fp32/bf16/fp16, got {x.dtype}")
+    H = x.shape[-1]
     if scale.shape != (H,) or bias.shape != (H,):
         raise ValueError(f"scale/bias must be [{H}], got "
                          f"{tuple(scale.shape)} / {tuple(bias.shape)}")
     if not 0 < H <= _MAX_H:
         raise ValueError(f"layer_norm takes 0 < H <= {_MAX_H}, got {H}")
-    for name, t in (("scale", scale), ("bias", bias)):
-        if t.device != x.device:
-            raise ValueError(f"{name} is on {t.device}, x on {x.device}")
-    x = x.contiguous()
-    scale = scale.to(torch.float32).contiguous()
-    bias = bias.to(torch.float32).contiguous()
-    out = torch.empty(x.shape, dtype=torch.float32, device=x.device)
+    if scale.device != dev:
+        raise ValueError(f"scale is on {scale.device}, x on {dev}")
+    if bias.device != dev:
+        raise ValueError(f"bias is on {bias.device}, x on {dev}")
+    if not x.is_contiguous():
+        x = x.contiguous()
+    if scale.dtype != torch.float32 or not scale.is_contiguous():
+        scale = scale.to(torch.float32).contiguous()
+    if bias.dtype != torch.float32 or not bias.is_contiguous():
+        bias = bias.to(torch.float32).contiguous()
+    out = torch.empty_like(x, dtype=torch.float32)   # x is contiguous
     rows = x.numel() // H
-    if rows == 0:
-        return out
-    kernels.launch(
-        "layer_norm_fwd", x.device, x.data_ptr(), scale.data_ptr(),
-        bias.data_ptr(), out.data_ptr(), rows, H, float(eps),
-        _DTYPE_CODE[x.dtype])
-    global launches
-    launches += 1
+    if rows:
+        kernels.launch("layer_norm_fwd", dev, x.data_ptr(),
+                       scale.data_ptr(), bias.data_ptr(), out.data_ptr(),
+                       rows, H, eps, code)
+        global launches
+        launches += 1
     return out
 
 

@@ -17,7 +17,8 @@ shards live on one device, as in ``create_mesh(seq=4, devices=[cuda0] *
   hop issued before the step's compute.  An online-softmax carry
   ``(m, l, acc)`` folds each visiting chunk in, so attention is exact.
 - On the flash path (the default) each hop is the chunk kernel K6
-  (:func:`..ops.flash_attention.flash_attention_chunk`), and the
+  (:func:`..ops.flash_attention.flash_attention_chunk`, updating the
+  shard's carries in place), and the
   backward is hand-rolled as in JAX: ``delta = sum(dO * out)`` once, then
   per hop the dq kernel K7a (dq accumulates locally) and the dk/dv kernel
   K7b, whose partials travel the ring with their chunk and arrive home
@@ -166,10 +167,13 @@ def _ring_flash_forward(plan: _RingPlan, qs, ks, vs):
         nxt = ([_hop(x, perm, devices) for x in held] if t + 1 < n_hops
                else None)
         for my in range(n):
+            # The carries are this ring's own: updated in place, so a
+            # chunk in the future of every query costs a launch and no
+            # memory traffic.
             m[my], l[my], acc[my] = flash_attention_chunk(
                 qs[my], held[0][my], held[1][my], held[2][my], m[my], l[my],
                 acc[my], q_offset=my * Sq, k_offset=src_fn(my, t) * Sk,
-                causal=plan.causal, window=plan.window)
+                causal=plan.causal, window=plan.window, in_place=True)
         held = nxt
     outs, lses = [], []
     for i in range(n):

@@ -8,13 +8,13 @@ before it calls ``lib.dtt_*``: otherwise a call on ``cuda:1`` while
 CPU: the operands are fake tensors on ``cuda:1``
 (``torch._subclasses.fake_tensor``), the library is a recorder, and
 ``torch.cuda.device`` is a stand-in that records which device is entered
-when each entry point is called.  The card-side test is
+when each entry point is called (a wrapper whose operands' card is
+already current may call straight in).  The card-side test is
 ``test_kernels_launch_on_a_second_card`` in
 ``tests/test_torch_kernels_cuda.py``.
 """
 
 import contextlib
-import types
 import warnings
 
 import pytest
@@ -30,11 +30,17 @@ CARD = torch.device("cuda", 1)
 
 
 class _Recorder:
-    """The fake library and the ``torch.cuda.device`` stand-in."""
+    """The fake library and the stand-ins for ``torch.cuda.device`` and
+    the current-device query."""
 
     def __init__(self):
+        self.current = 0       # the current card outside any guard
         self.entered = []      # devices currently entered, innermost last
-        self.calls = []        # (entry point, device entered at the call)
+        self.guards = 0        # guards entered so far
+        self.calls = []        # (entry point, current card at the call)
+
+    def current_device(self):
+        return self.entered[-1].index if self.entered else self.current
 
     def device(self, dev):
         rec = self
@@ -42,6 +48,7 @@ class _Recorder:
         @contextlib.contextmanager
         def guard():
             rec.entered.append(torch.device(dev))
+            rec.guards += 1
             try:
                 yield
             finally:
@@ -53,8 +60,8 @@ class _Recorder:
             raise AttributeError(name)
 
         def entry(*args):
-            self.calls.append((name, self.entered[-1] if self.entered
-                               else None))
+            self.calls.append((name, torch.device("cuda",
+                                                  self.current_device())))
             return 0
         return entry
 
@@ -72,9 +79,15 @@ def recorder(monkeypatch):
     rec = _Recorder()
     monkeypatch.setattr(kernels, "load", lambda: rec)
     monkeypatch.setattr(torch.cuda, "device", rec.device)
-    monkeypatch.setattr(torch.cuda, "current_stream",
-                        lambda device=None: types.SimpleNamespace(
-                            cuda_stream=0))
+    # launch reads the current card and the raw stream handle through
+    # bindings that a CPU build of PyTorch does not have (hence
+    # raising=False); test_launch_reads_the_card_and_stream_that_torch_
+    # cuda_reports in tests/test_torch_kernels_cuda.py holds them on the
+    # card.
+    monkeypatch.setattr(torch._C, "_cuda_getDevice", rec.current_device,
+                        raising=False)
+    monkeypatch.setattr(torch._C, "_cuda_getCurrentRawStream",
+                        lambda index: 0, raising=False)
     monkeypatch.setattr(torch.Tensor, "contiguous", _contiguous)
     with warnings.catch_warnings():
         # data_ptr() of a fake tensor is 0, with a deprecation warning.
@@ -173,6 +186,56 @@ def test_wrapper_enters_the_operands_device(recorder, kernel, drive, entry):
     drive()
     assert recorder.calls == [(entry, CARD)], kernel
     assert recorder.entered == []          # the guard was left again
+
+
+@pytest.mark.parametrize("kernel,drive,entry", WRAPPERS,
+                         ids=[w[0] for w in WRAPPERS])
+def test_wrapper_calls_straight_in_when_its_card_is_current(recorder, kernel,
+                                                            drive, entry):
+    recorder.current = CARD.index
+    drive()
+    assert recorder.calls == [(entry, CARD)], kernel
+    assert recorder.guards == 0            # no guard: the card was current
+
+
+def _attention_d32(kernel):
+    """Drive K1, K2b, K2a, K6, K7a or K7b at head_dim 32 (the JAX
+    GptConfig's default width)."""
+    q, k, v, o, do = (_empty(2, 64, 4, 32) for _ in range(5))
+    stats = _empty(8, 64, dtype=torch.float32)
+    rows = _empty(2, 4, 64, dtype=torch.float32)
+    acc = _empty(2, 4, 64, 32, dtype=torch.float32)
+    chunk = dict(q_offset=64, k_offset=0, causal=True)
+    {"K1": lambda: fa.flash_attention(q, k, v, causal=True),
+     "K2b": lambda: fa.flash_attention_backward_dq(q, k, v, None, o, stats,
+                                                   do, causal=True),
+     "K2a": lambda: fa.flash_attention_backward_dkv(q, k, v, None, stats,
+                                                    stats, do, causal=True),
+     "K6": lambda: fa.flash_attention_chunk(q, k, v, None, rows, rows, acc,
+                                            in_place=True, **chunk),
+     "K7a": lambda: fa.flash_attention_chunk_dq(q, k, v, None, do, rows,
+                                                rows, **chunk),
+     "K7b": lambda: fa.flash_attention_chunk_dkv(q, k, v, None, do, rows,
+                                                 rows, **chunk)}[kernel]()
+
+
+@pytest.mark.parametrize("kernel,entry", [
+    ("K1", "dtt_flash_attention_fwd"), ("K2b", "dtt_flash_attention_bwd_dq"),
+    ("K2a", "dtt_flash_attention_bwd_dkv"),
+    ("K6", "dtt_flash_attention_chunk"),
+    ("K7a", "dtt_flash_attention_chunk_bwd"),
+    ("K7b", "dtt_flash_attention_chunk_bwd")])
+def test_attention_wrappers_take_head_dim_32(recorder, kernel, entry):
+    """The CUDA-side checks pass head_dim 32 on to the kernel."""
+    _attention_d32(kernel)
+    assert recorder.calls == [(entry, CARD)], kernel
+
+
+def test_attention_wrappers_refuse_other_head_dims(recorder):
+    q = _empty(2, 64, 4, 48)
+    with pytest.raises(ValueError, match="head_dim"):
+        fa.flash_attention(q, q, q, causal=True)
+    assert recorder.calls == []
 
 
 def test_launch_enters_the_device_and_raises_on_a_launch_error(recorder):

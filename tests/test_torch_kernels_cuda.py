@@ -6,6 +6,8 @@ runs without the repo's JAX test setup:
     python -m pytest --noconftest -m cuda tests/test_torch_kernels_cuda.py
 """
 
+import dataclasses
+
 import pytest
 import torch
 
@@ -39,11 +41,51 @@ def test_layer_norm_kernel_matches_plain_on_card(cuda_device, shape, dtype):
     torch.testing.assert_close(got, want, atol=1e-4, rtol=1e-5)
 
 
+# K3 at the decode (8), prefill (784) and train (8192) row counts and one
+# row, across both kernels: rows in registers up to H = 8192 (one to four
+# warps a row; 1001 is ragged, so it takes one-element accesses), one
+# block a row in shared memory at 16384.  Held to chip_smoke.py's K3_TOL.
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16])
+@pytest.mark.parametrize("H", [128, 1000, 1001, 2048, 8192, 16384])
+@pytest.mark.parametrize("rows", [1, 8, 784, 8192])
+def test_layer_norm_kernels_at_every_row_count_and_width_on_card(
+        cuda_device, rows, H, dtype):
+    g = torch.Generator(device=cuda_device).manual_seed(rows + H)
+    x = (torch.randn(rows, H, generator=g, device=cuda_device) * 3 + 1
+         ).to(dtype)
+    scale = torch.randn(H, generator=g, device=cuda_device)
+    bias = torch.randn(H, generator=g, device=cuda_device)
+    before = ln.launches
+    got = ln.layer_norm(x, scale, bias)
+    assert ln.launches == before + 1 and got.dtype == torch.float32
+    want = ln.layer_norm_reference(x, scale, bias)
+    torch.testing.assert_close(got, want, atol=1e-4, rtol=1e-5)
+
+
+@pytest.mark.cuda
+def test_layer_norm_kernel_reads_an_unaligned_row_on_card(cuda_device):
+    """x contiguous but 2 bytes off a 16-byte boundary: the one-element
+    accesses of the register kernel."""
+    g = torch.Generator(device=cuda_device).manual_seed(3)
+    flat = torch.randn(8 * 2048 + 1, generator=g, device=cuda_device
+                       ).to(torch.bfloat16)
+    x = flat[1:].view(8, 2048)
+    assert x.is_contiguous() and x.data_ptr() % 16
+    scale = torch.randn(2048, generator=g, device=cuda_device)
+    bias = torch.randn(2048, generator=g, device=cuda_device)
+    torch.testing.assert_close(ln.layer_norm(x, scale, bias),
+                               ln.layer_norm_reference(x, scale, bias),
+                               atol=1e-4, rtol=1e-5)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 @pytest.mark.parametrize("S,D,window,masked", [
     (784, 128, 0, False), (112, 128, 0, True), (100, 64, 32, False),
-    (48, 64, 0, True), (300, 128, 64, True)])
+    (48, 64, 0, True), (300, 128, 64, True), (784, 32, 0, False),
+    (300, 32, 64, True)])
 def test_flash_kernel_matches_plain_on_card(cuda_device, dtype, S, D,
                                             window, masked):
     g = torch.Generator(device=cuda_device).manual_seed(S)
@@ -90,7 +132,8 @@ K2_REL_TOL = {torch.bfloat16: 1e-2, torch.float32: 1e-5}
 @pytest.mark.parametrize("S,D,causal,window,masked", [
     (1024, 128, True, 0, False), (300, 128, True, 0, True),
     (300, 64, True, 64, True), (100, 64, False, 0, True),
-    (48, 128, False, 0, False)])
+    (48, 128, False, 0, False), (1024, 32, True, 0, False),
+    (300, 32, True, 64, True), (100, 32, False, 0, True)])
 def test_flash_backward_kernels_match_plain_on_card(cuda_device, dtype, S,
                                                     D, causal, window,
                                                     masked):
@@ -168,7 +211,7 @@ def _check_backward(q, k, v, mask, out, lse, dout, causal, window):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("causal", [True, False])
-@pytest.mark.parametrize("D", [64, 128])
+@pytest.mark.parametrize("D", [32, 64, 128])
 @pytest.mark.parametrize("S", SWEEP_S)
 def test_flash_kernels_tile_edges_on_card(cuda_device, S, D, causal):
     g = torch.Generator(device=cuda_device).manual_seed(S * D + causal)
@@ -183,7 +226,7 @@ def test_flash_kernels_tile_edges_on_card(cuda_device, S, D, causal):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("D", [64, 128])
+@pytest.mark.parametrize("D", [32, 64, 128])
 @pytest.mark.parametrize("S", [300, 1024])
 def test_flash_kernels_window_edge_off_tile_on_card(cuda_device, S, D):
     """A window of 100 keys: the band's lower edge falls inside a tile of
@@ -198,7 +241,7 @@ def test_flash_kernels_window_edge_off_tile_on_card(cuda_device, S, D):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("causal", [True, False])
-@pytest.mark.parametrize("D", [64, 128])
+@pytest.mark.parametrize("D", [32, 64, 128])
 def test_flash_kernels_fully_masked_rows_on_card(cuda_device, D, causal):
     """kv_mask: batch 0 masks its first 70 keys (causal rows 0..69 see no
     key, across a 64-row tile edge), batch 1 its last 200 (masked keys
@@ -220,7 +263,7 @@ def test_flash_kernels_fully_masked_rows_on_card(cuda_device, D, causal):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("D", [64, 128])
+@pytest.mark.parametrize("D", [32, 64, 128])
 def test_flash_kernels_are_bitwise_repeatable_on_card(cuda_device, D):
     """No atomics: two calls on the same inputs give the same bits, in
     the forward and in every gradient."""
@@ -290,6 +333,31 @@ def test_kernels_launch_on_a_second_card():
                 qc, kc, vc, mask, do, lse_c, delta, **kw)):
             assert _rel_err(a, b) <= 1e-2
         torch.cuda.synchronize(dev)
+
+
+@pytest.mark.cuda
+def test_launch_reads_the_card_and_stream_that_torch_cuda_reports(
+        cuda_device):
+    """``kernels.launch`` reads the current card and stream through
+    PyTorch's private bindings (``torch._C._cuda_getDevice``,
+    ``torch._C._cuda_getCurrentRawStream``): they must exist and give
+    what ``torch.cuda.current_device()`` and
+    ``torch.cuda.current_stream(i).cuda_stream`` give, on the default
+    stream and inside a side stream, so a PyTorch that renames them fails
+    here by name."""
+    idx = torch.cuda.current_device()
+    assert torch._C._cuda_getDevice() == idx
+    assert (torch._C._cuda_getCurrentRawStream(idx)
+            == torch.cuda.current_stream(idx).cuda_stream)
+    side = torch.cuda.Stream(cuda_device)
+    with torch.cuda.stream(side):
+        assert torch._C._cuda_getCurrentRawStream(idx) == side.cuda_stream
+        x = torch.randn(8, 2048, device=cuda_device)
+        one = torch.ones(2048, device=cuda_device)
+        got = ln.layer_norm(x, one, 0 * one)
+    side.synchronize()
+    torch.testing.assert_close(got, ln.layer_norm_reference(x, one, 0 * one),
+                               atol=1e-4, rtol=1e-5)
 
 
 @pytest.mark.cuda
@@ -364,6 +432,42 @@ def test_gpt_train_step_on_card_launches_every_kernel(cuda_device):
             tfa.dkv_launches - counts[2], ln.launches - counts[3]) == (
                 L, L, L, 2 * L + 1)
     assert 4.0 < loss < 7.0 and state.global_step == 2
+
+
+@pytest.mark.cuda
+def test_gpt_train_step_at_the_jax_default_width_on_card(cuda_device):
+    """The JAX GptConfig's default width (hidden 128, 4 heads: head_dim
+    32) with attention_backend="pallas" and fused_ln: one step launches
+    K1, K2b, K2a once per layer and K3 2L + 1 times, and its loss and
+    gradients match the plain path (dense attention, plain LayerNorm) with
+    the same fp32 masters and batch, within chip_smoke.py's TRAIN_*
+    tolerances."""
+    from distributed_tensorflow_tpu_torch.models import gpt
+
+    cfg = gpt.GptConfig(attention_backend="pallas", fused_ln=True)
+    assert cfg.head_dim == 32
+    model = gpt.GptLM(cfg, device=cuda_device, param_dtype=torch.float32)
+    plain = gpt.GptLM(dataclasses.replace(cfg, attention_backend="xla",
+                                          fused_ln=False),
+                      device=cuda_device, param_dtype=torch.float32)
+    plain.load_state_dict(model.state_dict())
+    tokens = torch.as_tensor(gpt.synthetic_lm_batch(0, 4, 128, cfg)[
+        "tokens"], device=cuda_device).long()
+    counts = (tfa.launches, tfa.dq_launches, tfa.dkv_launches, ln.launches)
+    steps = []
+    for m in (model, plain):
+        loss, _ = gpt.lm_loss(m(tokens), tokens)
+        loss.backward()
+        steps.append((loss.item(), torch.cat(
+            [p.grad.flatten() for p in m.parameters()])))
+    L = cfg.num_layers
+    assert (tfa.launches - counts[0], tfa.dq_launches - counts[1],
+            tfa.dkv_launches - counts[2], ln.launches - counts[3]) == (
+                L, L, L, 2 * L + 1)
+    (la, ga), (lb, gb) = steps
+    assert 4.0 < la < 7.0 and abs(la - lb) <= 1e-3
+    assert abs(ga.norm() - gb.norm()) / gb.norm() <= 2e-3
+    assert torch.nn.functional.cosine_similarity(ga, gb, dim=0) >= 0.999
 
 
 def _bf16_ulp(x: float) -> float:
@@ -550,7 +654,17 @@ CHUNK_CASES = [(256, 256, 128, 768, 0, True, 0, False),
                (256, 256, 128, 0, 768, True, 0, False),
                (256, 256, 128, 512, 256, True, 300, True),
                (200, 136, 64, 136, 0, False, 0, True),
-               (100, 100, 64, 100, 100, True, 0, True)]
+               (100, 100, 64, 100, 100, True, 0, True),
+               (256, 256, 32, 256, 256, True, 0, False),
+               (200, 136, 32, 136, 0, True, 100, True),
+               (100, 100, 32, 0, 100, True, 0, False)]
+# The ring's three hop kinds at its per-hop shape (B 2, H 4): visible,
+# diagonal, future; for K6's in-place form.
+HOP_CASES = [(256, 256, 128, 768, 0, True, 0, False),
+             (256, 256, 128, 512, 512, True, 0, False),
+             (256, 256, 128, 0, 768, True, 0, False),
+             (256, 256, 32, 512, 512, True, 0, False),
+             (256, 256, 64, 256, 0, True, 0, True)]
 
 
 def _chunk_inputs(g, dev, dtype, Sq, Sk, D, masked, B=2, H=4):
@@ -622,6 +736,46 @@ def test_ring_chunk_kernels_match_plain_on_card(cuda_device, dtype, case):
                                                             _rel_err(a, b))
     if masked:
         assert not dq[0].any() and not dk[0].any() and not dv[0].any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("case", HOP_CASES)
+def test_ring_chunk_in_place_equals_out_of_place_on_card(cuda_device, dtype,
+                                                         case):
+    """K6 in place (the ring's form) against K6 out of place, bit for bit,
+    on every hop kind; a chunk wholly in the future leaves m, l and acc
+    untouched in place."""
+    Sq, Sk, D, q_off, k_off, causal, window, masked = case
+    g = torch.Generator(device=cuda_device).manual_seed(Sq + D + q_off)
+    q, k, v, mask, m, l, acc = _chunk_inputs(g, cuda_device, dtype, Sq, Sk,
+                                             D, masked)
+    kw = dict(q_offset=q_off, k_offset=k_off, causal=causal, window=window)
+    out = tfa.flash_attention_chunk(q, k, v, mask, m, l, acc, **kw)
+    carries = [t.clone() for t in (m, l, acc)]
+    before = tfa.chunk_launches
+    got = tfa.flash_attention_chunk(q, k, v, mask, *carries, **kw,
+                                    in_place=True)
+    assert tfa.chunk_launches == before + 1
+    torch.cuda.synchronize()
+    for name, a, c, b in zip(("m", "l", "acc"), got, carries, out):
+        assert a is c, name                       # written where it lies
+        assert torch.equal(a, b), name
+    if causal and q_off + Sq <= k_off:            # wholly in the future
+        for a, b in zip(carries, (m, l, acc)):
+            assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_ring_chunk_in_place_refuses_strided_carries(cuda_device):
+    q, k, v, mask, m, l, acc = _chunk_inputs(
+        torch.Generator(device=cuda_device).manual_seed(1), cuda_device,
+        torch.bfloat16, 64, 64, 64, False)
+    with pytest.raises(ValueError, match="contiguous"):
+        tfa.flash_attention_chunk(q, k, v, mask, m, l,
+                                  acc.transpose(2, 3).contiguous()
+                                  .transpose(2, 3), q_offset=0, k_offset=0,
+                                  causal=True, in_place=True)
 
 
 @pytest.mark.cuda

@@ -103,6 +103,31 @@ def test_ring_matches_jax_ring_forward_and_gradients(case):
         assert not got[1][0].any() and not got[2][0].any()
 
 
+@pytest.mark.parametrize("case", ["causal", "window"])
+def test_ring_forward_updates_its_carries_in_place(monkeypatch, case):
+    """Every hop of the forward asks the chunk function for its in-place
+    form and gets back the very carries it passed; the ring so run still
+    matches the JAX ring."""
+    causal, window, mask_kind = CASES[case]
+    args = _inputs(sorted(CASES).index(case), mask_kind)
+    chunk, calls = tring.flash_attention_chunk, []
+
+    def spy(*a, **kw):
+        out = chunk(*a, **kw)
+        calls.append(kw.get("in_place", False)
+                     and all(x is y for x, y in zip(out, a[4:7])))
+        return out
+    monkeypatch.setattr(tring, "flash_attention_chunk", spy)
+    got = _port_ring(*args, causal, window)
+    hops = tring._ring_hops(4, S // 4, causal, window)
+    assert calls == [True] * (2 * 4 * hops)        # 2 data shards x 4 seq
+    want = _jax_ring(*args, causal, window)
+    for name, a, b in zip(("out", "dq", "dk", "dv"), got, want):
+        np.testing.assert_allclose(a, b, err_msg=name,
+                                   **(OUT_TOL if name == "out"
+                                      else GRAD_TOL))
+
+
 @pytest.mark.parametrize("causal,window", [(True, 0), (True, 20),
                                            (False, 0)])
 def test_ring_flash_and_einsum_paths_agree(causal, window):

@@ -122,6 +122,31 @@ def test_chunk_functions_match_pallas_chunk_kernels(dtype, case):
         assert not dq[0, :, :8].any()
 
 
+@pytest.mark.parametrize("dtype,case", [("float32", c) for c in sorted(CASES)]
+                         + [("bfloat16", "diagonal")])
+def test_chunk_in_place_matches_out_of_place_and_pallas(dtype, case):
+    """``in_place=True`` writes the update into the carries it is given
+    and returns them: the same values as the out-of-place form and the
+    Pallas chunk kernel."""
+    q_off, k_off, causal, window, masked = CASES[case]
+    q, k, v, _, m, l, acc, mask = _inputs(sorted(CASES).index(case), masked)
+    (jq, jk, jv), (tq, tk, tv) = _both([q, k, v], dtype)
+    jmask = None if mask is None else jnp.asarray(mask)
+    tmask = None if mask is None else torch.from_numpy(mask)
+    kw = dict(q_offset=q_off, k_offset=k_off, causal=causal, window=window)
+    carries = [torch.from_numpy(a.copy()) for a in (m, l, acc)]
+    out = tfa.flash_attention_chunk(tq, tk, tv, tmask, *(
+        torch.from_numpy(a) for a in (m, l, acc)), **kw)
+    got = tfa.flash_attention_chunk(tq, tk, tv, tmask, *carries, **kw,
+                                    in_place=True)
+    want = jfa.flash_attention_chunk(jq, jk, jv, jmask, *(
+        jnp.asarray(a) for a in (m, l, acc)), **kw)
+    for name, a, c, o, w in zip(("m", "l", "acc"), got, carries, out, want):
+        assert a is c, name
+        assert torch.equal(a, o), name
+        _check(a, w, name)
+
+
 def test_chunk_valid_is_the_global_band():
     """Query q_offset + i sees key k_offset + j iff the key is not padding,
     not in the future and, with a window, within it."""
