@@ -22,19 +22,22 @@ Phases, one JSON line each on stdout:
    and wholly in the future, a padding mask with fully masked rows, a
    window, non-causal, D = 64 and D = 32, K6 in the in-place form the
    ring calls (held bit for bit to its out-of-place form, and a chunk in
-   the future must leave the carries untouched), then the 4-shard ring
+   the future must leave the carries untouched), K7a and K7b adding into
+   fp32 sums as the ring calls them (held bit for bit to the out-of-place
+   partial + ``add_``, a chunk in the future leaving the sums untouched,
+   two calls bit-equal), then the 4-shard ring
    over them against K1/K2 on the whole sequence; K8, on no path, at the
    int8 MLP's mlp_in dgrad shape), with the tolerance stated below, its
    time, the plain version's time, one library call's time (used only
    here, never by the port; K4/K5/K8 have two labelled yardsticks) and
    the least time the card could take; K1, K2, K3 and K6 rows also carry
-   ``ratio_to_library`` (kernel over library time; K2's library call
-   computes dq, dk and dv, so its rows add ``pair_ratio_to_library`` for
-   K2a + K2b), K1/K2 ``tflops`` (the useful operations the bound counts,
+   ``ratio_to_library`` (kernel over library time; K2's and K7's library
+   call computes dq, dk and dv, so their rows give ``pair_ratio_to_library``
+   for K2a + K2b, K7a + K7b), K1/K2 ``tflops`` (the useful operations the bound counts,
    over the kernel's time); K1 and K3 rows add ``host_ms`` and
    ``library_host_ms``, the host time per call of each (at the serving
-   shapes it exceeds the kernel's device time; K6 ``host_ms`` too), K3
-   and K6 rows ``device_ms`` (K3 also ``library_device_ms``), the
+   shapes it exceeds the kernel's device time; K6/K7 ``host_ms`` too),
+   K3, K6 and K7 rows ``device_ms`` (K3 also ``library_device_ms``), the
    device's time per call apart from the host's (calls captured in a
    CUDA graph and replayed, ``utils/cuda_timing.py``).
 4. ``serve``: a GPT at the widths of the repo's GPT-406M (hidden 2048,
@@ -78,7 +81,8 @@ whose numbers are the mean per launch over a step's hops, and the
 ``kernels`` phase itself for K8, which no path launches); its ``paths``
 hold each path's own shape, numbers and launches, K4/K5/K8 rows list
 their call sites or variants under ``sites``, and K6's ``hop_kinds``
-hold its visible and diagonal hops' own times and ratios to SDPA.
+hold its visible and diagonal hops' own times and ratios to SDPA, K7a's
+and K7b's every hop kind's, with the pair's ratio to SDPA's backward.
 Any failing phase raises: the script exits non-zero and prints no
 result.  Without CUDA it exits 2.
 """
@@ -260,7 +264,7 @@ def bound(bytes_moved: float, flops: float,
 
 def flash_build_report(kernels, lib) -> list[dict]:
     """ptxas's registers, spills and static shared memory (``-Xptxas
-    -v``) of the K1/K2/K6 bf16 kernels, with the dynamic shared memory
+    -v``) of the K1/K2/K6/K7 bf16 kernels, with the dynamic shared memory
     their launchers request."""
     import re
     rows = []
@@ -270,7 +274,11 @@ def flash_build_report(kernels, lib) -> list[dict]:
                         ("flash_bwd_dkv_wgmma",
                          lib.dtt_flash_attention_bwd_smem),
                         ("chunk_fwd_wgmma",
-                         lib.dtt_flash_attention_chunk_smem)):
+                         lib.dtt_flash_attention_chunk_smem),
+                        ("chunk_dq_wgmma", lambda d: (
+                            lib.dtt_flash_attention_chunk_bwd_smem(d, 0))),
+                        ("chunk_dkv_wgmma", lambda d: (
+                            lib.dtt_flash_attention_chunk_bwd_smem(d, 1)))):
         for r in kernels.ptxas_report(kind):
             d = int(re.search(kind + r"ILi(\d+)E", r["kernel"]).group(1))
             rows.append(dict(kernel=f"{kind}<{d}>", registers=r.get(
@@ -478,6 +486,19 @@ def check_kernels(dev):
     k6["hop_kinds"] = {c["case"]: {k: c[k] for k in (
         "ms", "device_ms", "library_ms", "ratio_to_library")}
         for c in k67["k6"] if c["case"] in ("visible", "diagonal")}
+    # K7a and K7b: each hop kind's own times, in place and out of place,
+    # and the pair's over SDPA's backward.
+    k7 = {}
+    for key, name, line in (("k7a", "flash_attention_chunk_dq", 767),
+                            ("k7b", "flash_attention_chunk_dkv", 796)):
+        k7[key] = summary(name, "flash_attention_chunk.cu",
+                          f"flash_attention.py:{line}", "train_ring",
+                          {"train_ring": k67[key][0]}, k67[key])
+        k7[key]["hop_kinds"] = {c["case"]: {k: c[k] for k in (
+            "ms", "device_ms", "out_of_place_ms", "library_ms",
+            "pair_ratio_to_library")}
+            for c in k67[key] if c["case"] in ("visible", "diagonal",
+                                               "future")}
     return [
         summary("flash_attention_fwd", "flash_attention.cu",
                 "flash_attention.py:119", "train",
@@ -503,13 +524,7 @@ def check_kernels(dev):
                 "train_int8", {"train_int8": k5[1]}, k5, sites=k5[:2]),
         # The ring's per-hop kernels: the row's numbers are the mean per
         # launch over one train step's hops (visible, diagonal, future).
-        k6,
-        summary("flash_attention_chunk_dq", "flash_attention_chunk.cu",
-                "flash_attention.py:767", "train_ring",
-                {"train_ring": k67["k7a"][0]}, k67["k7a"]),
-        summary("flash_attention_chunk_dkv", "flash_attention_chunk.cu",
-                "flash_attention.py:796", "train_ring",
-                {"train_ring": k67["k7b"][0]}, k67["k7b"]),
+        k6, k7["k7a"], k7["k7b"],
         # On no path of the port (nor of the JAX package): its main is this
         # phase, and its launches are this phase's.
         summary("quant_matmul_dgelu", "quant_matmul.cu",
@@ -743,17 +758,28 @@ def ring_chunk_case(dev, g, fused, name, q_off, k_off, *, causal=True,
                       "(returns no carry)",
               bound_ms=b_ms, bound_by=b_by)
 
-    # K7a and K7b from the finished state's lse.
+    # K7a and K7b from the finished state's lse; timed in the form the
+    # ring calls, adding into fp32 sums in flight (copies), held bit for
+    # bit to the out-of-place partial + add_.
     lse = want[0] + torch.log(want[1].clamp_min(1e-30))
     do = torch.randn(q.shape, generator=g, device=dev).to(q.dtype)
     delta = torch.randn(B, H, n, generator=g, device=dev)
     args = (q, k, v, mask, do, lse, delta)
+    bufs = [torch.randn(B, H, n, D, generator=g, device=dev)
+            for _ in range(3)]                   # dq, dk, dv sums
+    sums = [t.clone() for t in bufs]
 
     def run_dq():
         return fa.flash_attention_chunk_dq(*args, **kw)
 
     def run_dkv():
         return fa.flash_attention_chunk_dkv(*args, **kw)
+
+    def add_dq(out=sums[0]):
+        return fa.flash_attention_chunk_dq(*args, **kw, out=out)
+
+    def add_dkv(out=(sums[1], sums[2])):
+        return fa.flash_attention_chunk_dkv(*args, **kw, out=out)
 
     def plain_dq():
         return fa.flash_attention_chunk_dq_reference(*args, **kw)
@@ -773,6 +799,23 @@ def ring_chunk_case(dev, g, fused, name, q_off, k_off, *, causal=True,
         if dead and gname == "dq" and a[0, :, :10].any():
             raise AssertionError("K7: dq of fully masked rows must be 0")
         errs[gname] = (err, r)
+    parts = (run_dq(), *run_dkv())
+    added = (add_dq(), *add_dkv())
+    again = [t.clone() for t in bufs]
+    add_dq(again[0])
+    add_dkv(tuple(again[1:]))
+    torch.cuda.synchronize()
+    if not all(a is t for a, t in zip(added, sums)):
+        raise AssertionError(f"K7 {name}: out= must return the buffers")
+    if not all(torch.equal(a, b + p) for a, b, p in zip(added, bufs, parts)):
+        raise AssertionError(f"K7 {name}: adding in place differs from the "
+                             "out-of-place partial + add_")
+    if not pairs and not all(torch.equal(a, b) for a, b in zip(added, bufs)):
+        raise AssertionError(f"K7 {name}: a chunk in the future must leave "
+                             "the sums untouched")
+    if not all(torch.equal(a, b) for a, b in zip(again, added)) or not all(
+            torch.equal(a, b) for a, b in zip(parts, (run_dq(), *run_dkv()))):
+        raise AssertionError(f"K7 {name}: two calls differ")
     ql, kl, vl = (x.detach().transpose(1, 2).requires_grad_()
                   for x in (q, k, v))
     lib_out = F.scaled_dot_product_attention(ql, kl, vl, attn_mask=lib_mask)
@@ -782,21 +825,33 @@ def ring_chunk_case(dev, g, fused, name, q_off, k_off, *, causal=True,
     lib = dict(library_ms=lib_ms,
                library="autograd.grad through SDPA on the chunk pair, "
                        "dq, dk and dv in one call (same number both rows)")
+    # Added in place, operands and sums move only where some pair is
+    # visible: an fp32 sum's rows read and written once (a chunk in the
+    # future needs no byte moved).
     ops_bytes = 4 * one + 2 * stats + extra if pairs else 0
-    # dq: S, dP, dQ; writes the fp32 dq partial.
-    b_ms, b_by = bound(ops_bytes + stats * D, 3 * 2 * pairs * D)
+    sum_bytes = 2 * stats * D if pairs else 0
+
+    def times(add, run, plain):
+        ms = cuda_ms(add)
+        return dict(ms=ms, device_ms=graph_ms(add), host_ms=host_ms(add),
+                    out_of_place_ms=cuda_ms(run), plain_ms=cuda_ms(plain))
+    # dq: S, dP, dQ, into the dq sum.
+    b_ms, b_by = bound(ops_bytes + sum_bytes, 3 * 2 * pairs * D)
     k7a = dict(base, max_abs_err=errs["dq"][0], rel_err=errs["dq"][1],
-               tol_rel=K67_REL_TOL, ms=cuda_ms(run_dq),
-               plain_ms=cuda_ms(plain_dq), bound_ms=b_ms, bound_by=b_by,
-               **lib)
-    # dkv: S, dP, dV, dK; writes the fp32 dk and dv partials.
-    b_ms, b_by = bound(ops_bytes + 2 * stats * D, 4 * 2 * pairs * D)
+               tol_rel=K67_REL_TOL, **times(add_dq, run_dq, plain_dq),
+               bound_ms=b_ms, bound_by=b_by, **lib)
+    # dkv: S, dP, dV, dK, into the dk and dv sums.
+    b_ms, b_by = bound(ops_bytes + 2 * sum_bytes, 4 * 2 * pairs * D)
     k7b = dict(base, max_abs_err=max(errs["dk"][0], errs["dv"][0]),
                rel_err=max(errs["dk"][1], errs["dv"][1]),
-               tol_rel=K67_REL_TOL, ms=cuda_ms(run_dkv),
-               plain_ms=cuda_ms(plain_dkv), bound_ms=b_ms, bound_by=b_by,
-               **lib)
-    del got, want, in_place, carries, lib_out, ql, kl, vl
+               tol_rel=K67_REL_TOL, **times(add_dkv, run_dkv, plain_dkv),
+               bound_ms=b_ms, bound_by=b_by, **lib)
+    # The pair against SDPA's backward, which computes dq, dk and dv.
+    pair = dict(pair_ms=k7a["ms"] + k7b["ms"],
+                pair_ratio_to_library=(k7a["ms"] + k7b["ms"]) / lib_ms)
+    k7a.update(pair)
+    k7b.update(pair)
+    del got, want, in_place, carries, lib_out, ql, kl, vl, bufs, sums, again
     return dict(k6=k6, k7a=k7a, k7b=k7b)
 
 
@@ -877,6 +932,12 @@ def check_ring_kernels(dev, g) -> dict:
                for k in keys}
         if key == "k6":
             row["ratio_to_library"] = row["ms"] / row["library_ms"]
+        else:
+            row["pair_ms"] = sum(
+                sum(weights[c["case"]] * c["ms"] for c in rows[kk]
+                    if c["case"] in weights) / total
+                for kk in ("k7a", "k7b"))
+            row["pair_ratio_to_library"] = row["pair_ms"] / row["library_ms"]
         row.update(case="train_ring_hop_mean", hops=dict(weights),
                    max_abs_err=max(c["max_abs_err"] for c in mix),
                    bound_by=max(mix, key=lambda c: c["bound_ms"])[

@@ -14,9 +14,10 @@
 //        rows of its tile, folds in the K/V tiles its rows can see and
 //        writes the updated rows (no division: the ring finalises);
 //   K7a: a block per (batch*head, Q tile) walks the K tiles it can see and
-//        writes the fp32 dq partial of its rows;
+//        writes, or adds into the ring's buffer, the fp32 dq partial of its
+//        rows;
 //   K7b: a block per (batch*head, K tile) walks the Q tiles that can see it
-//        and writes the fp32 dk, dv partials of its rows.
+//        and writes, or adds, the fp32 dk, dv partials of its rows.
 // Causal and window masks use the global positions q_off + i and k_off + j;
 // the offsets are plain int arguments, so one compiled kernel serves every
 // hop.  A tile is visited only when some pair in it can be valid (the guard
@@ -26,10 +27,10 @@
 //
 // Bound on the H100: at the ring path's per-hop shape (q, k, v
 // [8, 256, 16, 128] bf16, 128 heads of 256 x 256 pairs) a visible chunk is
-// ~1 GFLOP per product, while K6 moves the fp32 carries in and out (34 MB
-// of its ~59 MB): K6 is bound by bytes; K7a/K7b by bytes for a visible
-// chunk too (their fp32 outputs).  A chunk wholly in the future needs no
-// byte moved at all when K6 updates the carries in place.
+// ~2.1 GFLOP per product, while K6 moves the fp32 carries in and out (34 MB
+// of its ~59 MB): K6 is bound by bytes, and so are K7a/K7b (below).  A
+// chunk wholly in the future needs no byte moved at all when K6 updates
+// the carries in place and K7 adds into the ring's sums.
 //
 // K6, bf16 (chunk_fwd_wgmma): K1's design (flash_attention.cu) with the
 // carries in and out.
@@ -57,39 +58,68 @@
 //   - Tiles at the ring shape (256 query rows a head): a 128-row Q tile
 //     (two consumers), 64-row K/V tiles in two stages; see kFwdConsumers
 //     below and PERF.md for the same-call A/B.
-// fp32 inputs (on no main path) take the scalar kernel chunk_fwd_f32
-// (shared-memory accumulator, full fp32 precision).
 //
-// K7, the pre-Hopper design: four warps per 64-row tile, each owning 16
-// rows; S, dP, dQ, dK and dV through WMMA bf16 fragments with fp32
-// accumulation (fp32 inputs take a scalar FMA path); P and dS rounded to
-// bf16 as tensor-core operands, as in K2.  The scale multiplies the fp32
-// scores after the product (the Pallas kernel scales q in fp32 before
-// it): a difference of rounding only.  q, k, v and dO are read through
-// their [B, S, H, D] strides; lse, delta and the partials are contiguous
-// [B, H, S(, D)] fp32.  A chunk wholly in the future writes zeros.
+// K7a and K7b, bf16 (chunk_dq_wgmma, chunk_dkv_wgmma, in place of
+// _chunk_dq_kernel and _chunk_dkv_kernel): K2's design
+// (flash_attention_bwd.cu) with K6's run-time offsets, delta as an input
+// and fp32 partials added in place.  On a visible hop of the ring shape
+// they are bound by bytes: the fp32 sums' read and write are half of
+// K7a's ~67 MB and two thirds of K7b's ~101 MB, against 6.4 and 8.6 GFLOP
+// of products (~0.007-0.009 ms at the tensor cores' peak).  So no
+// intermediate leaves the registers, the sums are read and written once
+// in the epilogue (no partial tensor, no separate add_ pass), a hop that
+// no query sees moves no byte, and two blocks share an SM so that one's
+// memory phases overlap the other's products.
+//   - A block is a TMA producer warpgroup and a wgmma consumer warpgroup
+//     of 64 own rows; two blocks share an SM, so one block's epilogue and
+//     tile loads run beside the other's products (with one block an SM
+//     the phases ran one after the other).  The producer loads the own tiles
+//     once (K7a: Q, dO; K7b: K, V) and streams 64-row tile pairs (K7a: K,
+//     V; K7b: Q, dO) through mbarrier stages.  K7a: S = Q K^T and dP =
+//     dO V^T on wgmma (both K-major), dQ += dS K with dS as a register-A
+//     fragment and K MN-major.  K7b, transposed (own rows are keys): S^T =
+//     K Q^T, dP^T = V dO^T, dV += P^T dO and dK += dS^T Q from registers;
+//     its streamed queries' lse (log2 units) and delta come by column,
+//     staged by a second producer warp into the stage.  No score tile
+//     touches shared memory; the accumulators (dq, or dk and dv) stay in
+//     the consumers' registers.
+//   - P = exp2(S scale log2(e) - lse log2(e)), dS = P (dP - delta); masks
+//     only on the tiles where a pair of the consumer's rows can be invalid
+//     (global positions); heaviest tiles launch first.
+//   - The epilogue scales (dq and dk by 1/sqrt(D)) and, with `accumulate`,
+//     reads the block's own rows of the ring's fp32 buffer once, adds the
+//     partial with one rounded fp32 addition (no FMA: bit for bit what
+//     out-of-place + add_ gives) and writes them back; each block owns its
+//     rows, so aliasing is safe.  A block whose rows see no pair of the
+//     chunk returns at once: in accumulate form a future hop touches no
+//     memory; out of place it writes its zeros.
+//   - No atomics: repeated calls are bit for bit the same.  Tiles: see
+//     kDqConsumers / kDkvConsumers below and PERF.md for the same-call
+//     A/B (tools/chunk_tile_ablation.py).
 //
-// Head dims 32, 64 and 128 (D = 32 takes the 64-byte swizzle in K6, as K1
-// does).  Masked probabilities are exactly 0 (never exp(0) = 1 for a row
-// whose keys so far are all masked): a row with no valid key keeps m =
-// -1e30, l = 0, acc = 0, and in the backward (lse ~ -1e30) gets exact zero
-// gradients, never inf * 0.
+// fp32 inputs (on no main path) take the scalar kernels chunk_fwd_f32 and
+// chunk_bwd_f32: four warps per 64-row tile, fp32 scores staged in shared
+// memory, full fp32 precision, the same offsets, guard and accumulate form.
+//
+// Head dims 32, 64 and 128 (D = 32 takes the 64-byte swizzle in the wgmma
+// kernels, as K1 does).  Masked probabilities are exactly 0 (never exp(0) =
+// 1 for a row whose keys so far are all masked): a row with no valid key
+// keeps m = -1e30, l = 0, acc = 0, and in the backward (lse ~ -1e30) gets
+// exact zero gradients, never inf * 0.
 
 #include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
-#include <mma.h>
 
 #include "hopper.cuh"
 #include "launch.cuh"
 
 namespace {
 
-using namespace nvcuda;
 using bf16 = __nv_bfloat16;
 
-constexpr int BT = 64;         // rows of a tile, own or streamed
+constexpr int BT = 64;         // fp32 kernels: rows of a tile
 constexpr int kWarps = 4;      // 16 rows each
 constexpr int kThreads = kWarps * 32;
 constexpr float kNeg = -1e30f;
@@ -112,58 +142,47 @@ struct Params {
   int B, Sq, Sk, H;
   long long qsb, qss, qsh, ksb, kss, ksh, vsb, vss, vsh, dsb, dss, dsh;
   int q_off, k_off, causal, window;
+  int accumulate;       // K7: add the partials into out_a (, out_b)
   float scale;
 };
 
-template <typename T> __device__ __forceinline__ T from_f(float x);
-template <> __device__ __forceinline__ float from_f<float>(float x) {
-  return x;
-}
-template <> __device__ __forceinline__ bf16 from_f<bf16>(float x) {
-  return __float2bfloat16(x);
-}
-
-// Shared-memory geometry.  bf16 rows are padded by 8 elements (16 bytes)
-// so WMMA fragment pointers stay 32-byte aligned and rows fall on other
-// banks; fp32 rows by one element (operand tiles) or four (score tiles).
-template <typename T, int D> struct Geo {
-  static constexpr bool kBf16 = sizeof(T) == 2;
-  static constexpr int LD = D + (kBf16 ? 8 : 1);      // operand tiles
-  static constexpr int LDS = BT + 4;                  // fp32 scores
-  static constexpr int LDP = BT + (kBf16 ? 8 : 4);    // P and dS (type T)
-  static constexpr int LDO = D + 4;                   // K6's fp32 acc
-  static constexpr size_t kTile = sizeof(T) * (size_t)BT * LD;
+// Shared-memory geometry of the fp32 kernels: rows padded by one element
+// (operand tiles) or four (score tiles).
+template <int D> struct Geo {
+  static constexpr int LD = D + 1;       // operand tiles
+  static constexpr int LDS = BT + 4;     // fp32 scores
+  static constexpr int LDP = BT + 4;     // P and dS
+  static constexpr int LDO = D + 4;      // K6's fp32 acc
+  static constexpr size_t kTile = sizeof(float) * (size_t)BT * LD;
   static constexpr size_t kS = sizeof(float) * (size_t)BT * LDS;
-  static constexpr size_t kP = sizeof(T) * (size_t)BT * LDP;
+  static constexpr size_t kP = sizeof(float) * (size_t)BT * LDP;
   static constexpr size_t kO = sizeof(float) * (size_t)BT * LDO;
   // K6: Q, K, V, scores, P, acc, m, l, key validity.
   static constexpr size_t kFwdBytes =
       3 * kTile + kS + kP + kO + 2 * sizeof(float) * BT + sizeof(int) * BT;
-  // K7: two own and two streamed tiles, P, dS, the fp32 S / dP scratch
-  // (aliasing dS in the fp32 path), lse/delta of both tiles, validity.
-  static constexpr size_t kSc = kBf16 ? kS : 0;
+  // K7: two own and two streamed tiles, P, dS (the S / dP scratch aliases
+  // it), lse/delta of both tiles, validity.
   static constexpr size_t kInfo = (4 * sizeof(float) + 2 * sizeof(int)) * BT;
-  static constexpr size_t kBwdBytes = 4 * kTile + 2 * kP + kSc + kInfo;
+  static constexpr size_t kBwdBytes = 4 * kTile + 2 * kP + kInfo;
 };
 
 // Rows [row0, row0 + 64) of one head into shared memory, 16 bytes per
 // load; rows at or past S read as zeros.
-template <typename T, int D>
-__device__ __forceinline__ void load_tile(T* dst, const T* base,
+template <int D>
+__device__ __forceinline__ void load_tile(float* dst, const float* base,
                                           long long row_stride, int row0,
                                           int S) {
-  constexpr int V = 16 / sizeof(T);
-  constexpr int kChunks = D / V;
-  constexpr int LD = Geo<T, D>::LD;
+  constexpr int kChunks = D / 4;
+  constexpr int LD = Geo<D>::LD;
   for (int c = threadIdx.x; c < BT * kChunks; c += kThreads) {
-    const int r = c / kChunks, d = (c % kChunks) * V;
+    const int r = c / kChunks, d = (c % kChunks) * 4;
     const int s = row0 + r;
-    uint4 val = make_uint4(0u, 0u, 0u, 0u);
-    if (s < S)
-      val = *reinterpret_cast<const uint4*>(base + s * row_stride + d);
-    const T* e = reinterpret_cast<const T*>(&val);
-#pragma unroll
-    for (int i = 0; i < V; ++i) dst[r * LD + d + i] = e[i];
+    float4 val = make_float4(0.f, 0.f, 0.f, 0.f);
+    if (s < S) val = *reinterpret_cast<const float4*>(base + s * row_stride + d);
+    dst[r * LD + d] = val.x;
+    dst[r * LD + d + 1] = val.y;
+    dst[r * LD + d + 2] = val.z;
+    dst[r * LD + d + 3] = val.w;
   }
 }
 
@@ -175,33 +194,11 @@ __device__ __forceinline__ bool pair_valid(int causal, int window, int qpos,
   return qpos >= kpos && (window <= 0 || qpos - kpos < window);
 }
 
-// ---- C[16 x 64] = A[16 x D] . B[64 x D]^T for one warp's rows -----------
-
-template <int D>
-__device__ __forceinline__ void mm_nt(const bf16* A, const bf16* Bm, float* C,
-                                      int /*lane*/) {
-  using G = Geo<bf16, D>;
-  wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> a;
-  wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major> b;
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc;
-#pragma unroll
-  for (int n = 0; n < BT / 16; ++n) {
-    wmma::fill_fragment(acc, 0.f);
-#pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk) {
-      wmma::load_matrix_sync(a, A + kk * 16, G::LD);
-      // B^T(k, n) = B[n][k]: column-major with leading dimension LD.
-      wmma::load_matrix_sync(b, Bm + (n * 16) * G::LD + kk * 16, G::LD);
-      wmma::mma_sync(acc, a, b, acc);
-    }
-    wmma::store_matrix_sync(C + n * 16, acc, G::LDS, wmma::mem_row_major);
-  }
-}
-
+// C[16 x 64] = A[16 x D] . B[64 x D]^T for one warp's rows.
 template <int D>
 __device__ __forceinline__ void mm_nt(const float* A, const float* Bm,
                                       float* C, int lane) {
-  using G = Geo<float, D>;
+  using G = Geo<D>;
   float c0[16], c1[16];
 #pragma unroll
   for (int rr = 0; rr < 16; ++rr) c0[rr] = c1[rr] = 0.f;
@@ -227,7 +224,7 @@ __device__ __forceinline__ void mm_nt(const float* A, const float* Bm,
 template <int D>
 __device__ __forceinline__ void pv(const float* Ps, const float* Vs,
                                    float* Os, int warp, int lane) {
-  using G = Geo<float, D>;
+  using G = Geo<D>;
   constexpr int J = D / 32;
   float acc[16][J];
 #pragma unroll
@@ -253,7 +250,7 @@ __device__ __forceinline__ void pv(const float* Ps, const float* Vs,
       Os[(warp * 16 + rr) * G::LDO + lane + 32 * j] = acc[rr][j];
 }
 
-// ---- K6 fp32 -----------------------------------------------------------
+// ---- tile guards ---------------------------------------------------------
 
 // The K tiles [kt_begin, kt_end) of Sk that can hold a key visible to some
 // query of local rows [q0, q_last], with the chunk's global offsets: key
@@ -275,16 +272,38 @@ __device__ __forceinline__ void chunk_key_tiles(const Params& p, int q0,
   }
 }
 
+// The Q tiles [qt_begin, qt_end) of Sq holding a query that sees some key
+// of local rows [k0, k_last]: the oldest such query is k_off + k0 (local
+// k_off + k0 - q_off), the newest, with a window, k_off + k_last +
+// window - 1.  Empty when none is.
+__device__ __forceinline__ void chunk_query_tiles(const Params& p, int k0,
+                                                  int k_last, int tile,
+                                                  int& qt_begin,
+                                                  int& qt_end) {
+  const int n_qt = (p.Sq + tile - 1) / tile;
+  qt_begin = 0;
+  qt_end = n_qt;
+  if (p.causal) {
+    if (p.window > 0) {
+      const int hi = p.k_off + k_last + p.window - 1 - p.q_off;
+      qt_end = hi < 0 ? 0 : min(n_qt, hi / tile + 1);
+    }
+    const int lo = p.k_off + k0 - p.q_off;
+    if (lo > 0) qt_begin = min(qt_end, lo / tile);
+  }
+}
+
+// ---- K6 fp32 -----------------------------------------------------------
+
 template <int D>
 __global__ void __launch_bounds__(kThreads) chunk_fwd_f32(Params p) {
-  using T = float;
-  using G = Geo<T, D>;
+  using G = Geo<D>;
   extern __shared__ __align__(128) unsigned char smem[];
-  T* Qs = reinterpret_cast<T*>(smem);
-  T* Ks = reinterpret_cast<T*>(smem + G::kTile);
-  T* Vs = reinterpret_cast<T*>(smem + 2 * G::kTile);
+  float* Qs = reinterpret_cast<float*>(smem);
+  float* Ks = reinterpret_cast<float*>(smem + G::kTile);
+  float* Vs = reinterpret_cast<float*>(smem + 2 * G::kTile);
   float* Ss = reinterpret_cast<float*>(smem + 3 * G::kTile);
-  T* Ps = reinterpret_cast<T*>(smem + 3 * G::kTile + G::kS);
+  float* Ps = reinterpret_cast<float*>(smem + 3 * G::kTile + G::kS);
   float* Os = reinterpret_cast<float*>(smem + 3 * G::kTile + G::kS + G::kP);
   float* m_s = Os + BT * G::LDO;
   float* l_s = m_s + BT;
@@ -295,9 +314,9 @@ __global__ void __launch_bounds__(kThreads) chunk_fwd_f32(Params p) {
   const int q0 = blockIdx.x * BT;
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const long long row0 = (long long)bh * Sq;     // carry row base
-  const T* qb = static_cast<const T*>(p.q) + b * p.qsb + h * p.qsh;
-  const T* kb = static_cast<const T*>(p.k) + b * p.ksb + h * p.ksh;
-  const T* vb = static_cast<const T*>(p.v) + b * p.vsb + h * p.vsh;
+  const float* qb = static_cast<const float*>(p.q) + b * p.qsb + h * p.qsh;
+  const float* kb = static_cast<const float*>(p.k) + b * p.ksb + h * p.ksh;
+  const float* vb = static_cast<const float*>(p.v) + b * p.vsb + h * p.vsh;
 
   int kt_begin, kt_end;
   chunk_key_tiles(p, q0, min(Sq - 1, q0 + BT - 1), BT, kt_begin, kt_end);
@@ -306,7 +325,7 @@ __global__ void __launch_bounds__(kThreads) chunk_fwd_f32(Params p) {
 
   // Seed from the incoming state (not neutral values): the chunk continues
   // an online softmax already in flight.  Rows past Sq stay neutral.
-  load_tile<T, D>(Qs, qb, p.qss, q0, Sq);
+  load_tile<D>(Qs, qb, p.qss, q0, Sq);
   for (int i = tid; i < BT * D; i += kThreads) {
     const int r = i / D, d = i % D;
     Os[r * G::LDO + d] =
@@ -322,8 +341,8 @@ __global__ void __launch_bounds__(kThreads) chunk_fwd_f32(Params p) {
   for (int kt = kt_begin; kt < kt_end; ++kt) {
     const int k0 = kt * BT;
     __syncthreads();   // every warp is done with the previous K/V tile
-    load_tile<T, D>(Ks, kb, p.kss, k0, Sk);
-    load_tile<T, D>(Vs, vb, p.vss, k0, Sk);
+    load_tile<D>(Ks, kb, p.kss, k0, Sk);
+    load_tile<D>(Vs, vb, p.vss, k0, Sk);
     if (tid < BT) {
       const int s = k0 + tid;
       mask_s[tid] =
@@ -364,7 +383,7 @@ __global__ void __launch_bounds__(kThreads) chunk_fwd_f32(Params p) {
         // m_new still at -1e30, exp(sv - m_new) would be exp(0) = 1.
         const float pr = (ok >> j) & 1u ? expf(sv[j] - m_new) : 0.f;
         sum += pr;
-        Ps[r * G::LDP + half * 32 + ((j + lane) & 31)] = from_f<T>(pr);
+        Ps[r * G::LDP + half * 32 + ((j + lane) & 31)] = pr;
       }
       sum += __shfl_xor_sync(0xffffffffu, sum, 1);
       const float corr = expf(m_prev - m_new);
@@ -683,59 +702,443 @@ cudaError_t launch_fwd_wgmma(const Params& p, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
-// ---- K7: a warp's 16 x D fp32 accumulator, acc += A[16 x 64] . B[64 x D] --
+// ---- K7a / K7b bf16: wgmma + TMA ----------------------------------------
 
-template <typename T, int D> struct Acc;
+// Tiles for the ring's hop (256 rows a head): one consumer of 64 own rows
+// a block, so that two blocks share an SM (BwdRegs below), and two stages
+// of 64-row streamed tiles.  The same-call A/B of
+// tools/chunk_tile_ablation.py (PERF.md) chose them: two consumers a block
+// (one block an SM) lose 6% (K7a) and 3% (K7b) of the hop mean, a third
+// stage leaves room for one block an SM and loses a third.
+constexpr int kDqConsumers = 1;
+constexpr int kDqStages = 2;
+constexpr int kDkvConsumers = 1;
+constexpr int kDkvStages = 2;
+constexpr int kBwdStr = 64;                   // rows of a streamed tile
 
-template <int D> struct Acc<bf16, D> {
-  using G = Geo<bf16, D>;
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> f[D / 16];
-
-  __device__ __forceinline__ void zero() {
-#pragma unroll
-    for (int n = 0; n < D / 16; ++n) wmma::fill_fragment(f[n], 0.f);
-  }
-
-  __device__ __forceinline__ void mma(const bf16* A, const bf16* Bm,
-                                      int /*lane*/) {
-    wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> a;
-    wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> b;
-#pragma unroll
-    for (int kk = 0; kk < BT / 16; ++kk) {
-      wmma::load_matrix_sync(a, A + kk * 16, G::LDP);
-#pragma unroll
-      for (int n = 0; n < D / 16; ++n) {
-        wmma::load_matrix_sync(b, Bm + (kk * 16) * G::LD + n * 16, G::LD);
-        wmma::mma_sync(f[n], a, b, f[n]);
-      }
-    }
-  }
-
-  // scale * acc -> fp32 rows [pos0, pos0 + 16) of out (row pitch D), staged
-  // through the warp's fp32 scratch kW columns at a time.
-  __device__ __forceinline__ void store(float* stage, float* out, int pos0,
-                                        int S, float scale, int lane) {
-    constexpr int kW = D < BT ? D : BT;
-#pragma unroll
-    for (int c0 = 0; c0 < D; c0 += kW) {
-#pragma unroll
-      for (int n = 0; n < kW / 16; ++n)
-        wmma::store_matrix_sync(stage + n * 16, f[c0 / 16 + n], G::LDS,
-                                wmma::mem_row_major);
-      __syncwarp();
-      for (int e = lane; e < 16 * kW; e += 32) {
-        const int r = e / kW, c = e % kW;
-        if (pos0 + r < S)
-          out[(long long)(pos0 + r) * D + c0 + c] =
-              stage[r * G::LDS + c] * scale;
-      }
-      __syncwarp();
-    }
-  }
+// Registers a thread of a block with C consumers: the producer warpgroup
+// gives its own back, the consumers take them.  One consumer's block is
+// small enough (128 x 24 + 128 x 232 = 32K registers) for two blocks to
+// share an SM, so that one's epilogue runs beside the other's products.
+template <int C> struct BwdRegs {
+  static constexpr int kBlocksPerSm = C == 1 ? 2 : 1;
+  static constexpr int kProducer = C == 1 ? 24 : 40;   // consumers: 232
 };
 
-template <int D> struct Acc<float, D> {
-  using G = Geo<float, D>;
+template <int D, int C, int ST, bool kStats> struct BwdSmem {
+  static constexpr int kOwn = 64 * C;                 // own rows a block
+  static constexpr int kOwnTile = kOwn * D * 2;
+  static constexpr int kStrTile = kBwdStr * D * 2;
+  static constexpr int kStage = 2 * kStrTile;
+  static constexpr int kStatBytes = kStats ? ST * 2 * kBwdStr * 4 : 0;
+  static constexpr int kStages = 2 * kOwnTile;        // offset of stage 0
+  static constexpr int kStatsAt = kStages + ST * kStage;
+  static constexpr int kBarriers = kStatsAt + kStatBytes;
+  // + 1 KB so the tiles can start on a 1024-byte boundary.
+  static constexpr size_t kBytes =
+      1024 + kBarriers + (1 + 2 * ST) * sizeof(uint64_t);
+};
+template <int D>
+using DqSmem = BwdSmem<D, kDqConsumers, kDqStages, false>;
+template <int D>
+using DkvSmem = BwdSmem<D, kDkvConsumers, kDkvStages, true>;
+
+// The producer warpgroup: lane 0 of warp 0 TMA-loads the block's two own
+// tiles (rows own0..) once, then streams tile pairs from row
+// (st_begin + it) * 64 through ST stages; with kStats (K7b) warp 1 stages
+// the streamed queries' lse (log2 units; +inf past Sq, so P = 0 there) and
+// delta beside them and arrives on the same full barrier.
+template <int D, int C, int ST, bool kStats>
+__device__ __forceinline__ void produce_bwd(
+    const CUtensorMap* own_a, const CUtensorMap* own_b,
+    const CUtensorMap* str_a, const CUtensorMap* str_b, uint8_t* smem,
+    uint64_t* bar_own, uint64_t* full, uint64_t* empty, const Params& p,
+    int bh, int b, int h, int own0, int st_begin, int n_tiles) {
+  using G = BwdSmem<D, C, ST, kStats>;
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  if (warp == 0 && lane == 0) {
+    dtt::mbar_expect_tx(bar_own, 2 * G::kOwnTile);
+    dtt::tma_load_tile<D, G::kOwn>(smem, own_a, bar_own, h, own0, b);
+    dtt::tma_load_tile<D, G::kOwn>(smem + G::kOwnTile, own_b, bar_own, h,
+                                   own0, b);
+    for (int it = 0; it < n_tiles; ++it) {
+      const int s = it % ST;
+      dtt::mbar_wait(&empty[s], ((it / ST) & 1) ^ 1);
+      dtt::mbar_expect_tx(&full[s], G::kStage);
+      const int r0 = (st_begin + it) * kBwdStr;
+      uint8_t* st = smem + G::kStages + s * G::kStage;
+      dtt::tma_load_tile<D, kBwdStr>(st, str_a, &full[s], h, r0, b);
+      dtt::tma_load_tile<D, kBwdStr>(st + G::kStrTile, str_b, &full[s], h,
+                                     r0, b);
+    }
+  } else if (kStats && warp == 1) {
+    const long long row = (long long)bh * p.Sq;
+    float* stats = reinterpret_cast<float*>(smem + G::kStatsAt);
+    for (int it = 0; it < n_tiles; ++it) {
+      const int s = it % ST;
+      dtt::mbar_wait(&empty[s], ((it / ST) & 1) ^ 1);
+      float* lse2 = stats + s * 2 * kBwdStr;
+      float* del = lse2 + kBwdStr;
+#pragma unroll
+      for (int e = 0; e < kBwdStr / 32; ++e) {
+        const int i = lane + 32 * e;
+        const int qpos = (st_begin + it) * kBwdStr + i;
+        const bool in = qpos < p.Sq;
+        lse2[i] = in ? p.lse[row + qpos] * kLog2e : INFINITY;
+        del[i] = in ? p.delta[row + qpos] : 0.f;
+      }
+      dtt::mbar_arrive(&full[s]);   // one arrival a lane, after its stores
+    }
+  }
+}
+
+// Rows [0, n) x D of a contiguous fp32 block of rows set to zero (an
+// out-of-place partial of a block that sees no pair).
+__device__ __forceinline__ void zero_rows(float* dst, int n, int threads) {
+  float4* d4 = reinterpret_cast<float4*>(dst);
+  for (int i = threadIdx.x; i < n / 4; i += threads)
+    d4[i] = make_float4(0.f, 0.f, 0.f, 0.f);
+}
+
+// A consumer thread's two accumulator rows (local rows row, row + 8 of
+// the [S, D] fp32 partial at `base`) times `scale`, written, or added to
+// what the rows hold: each value one rounded product and, in accumulate
+// form, one rounded sum (no FMA), as out-of-place + add_ computes it.
+template <int D>
+__device__ __forceinline__ void store_partial(const float (&acc)[D / 2],
+                                              float* base, int row, int S,
+                                              float scale, int col0,
+                                              bool accumulate) {
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int pos = row + 8 * r;
+    if (pos >= S) continue;
+    float2* dst = reinterpret_cast<float2*>(base + (long long)pos * D + col0);
+    float2 old[D / 8];
+    if (accumulate) {
+#pragma unroll
+      for (int j = 0; j < D / 8; ++j) old[j] = dst[4 * j];
+    }
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j) {
+      float2 v = make_float2(__fmul_rn(acc[4 * j + 2 * r], scale),
+                             __fmul_rn(acc[4 * j + 2 * r + 1], scale));
+      if (accumulate) {
+        v.x = __fadd_rn(old[j].x, v.x);
+        v.y = __fadd_rn(old[j].y, v.y);
+      }
+      dst[4 * j] = v;
+    }
+  }
+}
+
+// K7a: the dq partial.  Own: Q, dO; streamed: K, V.
+template <int D>
+__global__ void __launch_bounds__(128 * (1 + kDqConsumers),
+                                  BwdRegs<kDqConsumers>::kBlocksPerSm)
+    chunk_dq_wgmma(const __grid_constant__ CUtensorMap tq,
+                   const __grid_constant__ CUtensorMap tk,
+                   const __grid_constant__ CUtensorMap tv,
+                   const __grid_constant__ CUtensorMap tdo, Params p) {
+  using G = DqSmem<D>;
+  constexpr int kOwn = G::kOwn, ST = kDqStages;
+  const int Sq = p.Sq, Sk = p.Sk, H = p.H;
+  const int bh = blockIdx.x, b = bh / H, h = bh % H;
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * kOwn;   // heaviest first
+  const int tid = threadIdx.x;
+  const int rows = min(kOwn, Sq - q0);
+  float* out = p.out_a + (long long)bh * Sq * D;
+
+  int kt_begin, kt_end;
+  chunk_key_tiles(p, q0, q0 + rows - 1, kBwdStr, kt_begin, kt_end);
+  const int n_tiles = kt_end - kt_begin;
+  if (n_tiles == 0) {
+    // No key of the chunk is visible to these rows: the partial is zero.
+    // Added in place that is no work at all.
+    if (!p.accumulate)
+      zero_rows(out + (long long)q0 * D, rows * D, blockDim.x);
+    return;
+  }
+
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = reinterpret_cast<uint8_t*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  const uint8_t* Qs = smem;
+  const uint8_t* dOs = smem + G::kOwnTile;
+  uint64_t* bar = reinterpret_cast<uint64_t*>(smem + G::kBarriers);
+  uint64_t* bar_own = bar;
+  uint64_t* full = bar + 1;
+  uint64_t* empty = bar + 1 + ST;
+
+  if (tid == 0) {
+    dtt::mbar_init(bar_own, 1);
+    for (int s = 0; s < ST; ++s) {
+      dtt::mbar_init(&full[s], 1);
+      dtt::mbar_init(&empty[s], 4 * kDqConsumers);   // one arrival a warp
+    }
+    dtt::mbar_fence_init();
+  }
+  __syncthreads();
+
+  const int wg = tid / 128;
+  if (wg == 0) {
+    dtt::regs_dec<BwdRegs<kDqConsumers>::kProducer>();
+    produce_bwd<D, kDqConsumers, ST, false>(&tq, &tdo, &tk, &tv, smem,
+                                            bar_own, full, empty, p, bh, b,
+                                            h, q0, kt_begin, n_tiles);
+    return;
+  }
+
+  dtt::regs_inc<232>();
+  const int c = wg - 1;
+  const int t = tid % 128, warp = t / 32, lane = t % 32;
+  const int q_lo = q0 + 64 * c;
+  const int row0 = q_lo + 16 * warp + lane / 4;   // and row0 + 8
+  const int col0 = 2 * (lane % 4);
+  const float cs = p.scale * kLog2e;
+  const long long srow = (long long)bh * Sq;
+  const int* kvm = p.kv_mask ? p.kv_mask + (long long)b * Sk : nullptr;
+  const uint8_t* stages = smem + G::kStages;
+
+  float lse2[2], dl[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int pos = row0 + 8 * r;
+    lse2[r] = pos < Sq ? p.lse[srow + pos] * kLog2e : INFINITY;
+    dl[r] = pos < Sq ? p.delta[srow + pos] : 0.f;
+  }
+
+  float dq[D / 2];
+  dtt::zero(dq);
+  dtt::mbar_wait(bar_own, 0);
+  for (int it = 0; it < n_tiles; ++it) {
+    const int s = it % ST;
+    const int k0 = (kt_begin + it) * kBwdStr;
+    const uint8_t* Ks = stages + s * G::kStage;
+    const uint8_t* Vs = Ks + G::kStrTile;
+    dtt::mbar_wait(&full[s], (it / ST) & 1);
+
+    float sc[kBwdStr / 2], dp[kBwdStr / 2];
+    dtt::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk)
+      dtt::wgmma_ss<kBwdStr>(sc, dtt::tile_kmajor<D, kOwn>(Qs, 64 * c, kk),
+                             dtt::tile_kmajor<D, kBwdStr>(Ks, 0, kk),
+                             kk > 0);
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk)
+      dtt::wgmma_ss<kBwdStr>(dp, dtt::tile_kmajor<D, kOwn>(dOs, 64 * c, kk),
+                             dtt::tile_kmajor<D, kBwdStr>(Vs, 0, kk),
+                             kk > 0);
+    dtt::wgmma_commit();
+    dtt::wgmma_wait_all();
+    dtt::fence_regs(sc);
+    dtt::fence_regs(dp);
+
+    // Masks, only where some pair of this warpgroup's rows can be invalid
+    // (global positions q_off + local row, k_off + local key; keys past Sk
+    // are zeros from TMA and masked too).
+    const int gq = p.q_off + q_lo, gk = p.k_off + k0;
+    const bool need_mask =
+        kvm != nullptr || k0 + kBwdStr > Sk ||
+        (p.causal && (gk + kBwdStr - 1 > gq ||
+                      (p.window > 0 && gq + 63 - gk >= p.window)));
+#pragma unroll
+    for (int i = 0; i < kBwdStr / 2; ++i) {
+      const int r = (i / 2) % 2;
+      bool ok = true;
+      if (need_mask) {
+        const int kpos = k0 + 8 * (i / 4) + col0 + i % 2;
+        ok = kpos < Sk && (kvm == nullptr || kvm[kpos] != 0) &&
+             pair_valid(p.causal, p.window, p.q_off + row0 + 8 * r,
+                        p.k_off + kpos);
+      }
+      const float pr = ok ? dtt::fast_exp2(fmaf(sc[i], cs, -lse2[r])) : 0.f;
+      sc[i] = pr * (dp[i] - dl[r]);   // dS
+    }
+
+    uint32_t ds[kBwdStr / 16][4];
+#pragma unroll
+    for (int kk = 0; kk < kBwdStr / 16; ++kk) dtt::to_a_frag(sc, kk, ds[kk]);
+    dtt::fence_frags(ds);
+    dtt::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < kBwdStr / 16; ++kk)
+      dtt::wgmma_rs<D>(dq, ds[kk], dtt::tile_mnmajor<D, kBwdStr>(Ks, kk), 1);
+    dtt::wgmma_commit();
+    dtt::wgmma_wait_all();
+    dtt::fence_regs(dq);
+    dtt::fence_frags(ds);
+    __syncwarp();
+    if (lane == 0) dtt::mbar_arrive(&empty[s]);
+  }
+
+  // dq = scale dS K: the scale folds in here.
+  store_partial<D>(dq, out, row0, Sq, p.scale, col0, p.accumulate != 0);
+}
+
+// K7b: the dk and dv partials.  Own: K, V; streamed: Q, dO (and their lse,
+// delta).
+template <int D>
+__global__ void __launch_bounds__(128 * (1 + kDkvConsumers),
+                                  BwdRegs<kDkvConsumers>::kBlocksPerSm)
+    chunk_dkv_wgmma(const __grid_constant__ CUtensorMap tq,
+                    const __grid_constant__ CUtensorMap tk,
+                    const __grid_constant__ CUtensorMap tv,
+                    const __grid_constant__ CUtensorMap tdo, Params p) {
+  using G = DkvSmem<D>;
+  constexpr int kOwn = G::kOwn, ST = kDkvStages;
+  const int Sk = p.Sk, H = p.H;
+  const int bh = blockIdx.x, b = bh / H, h = bh % H;
+  const int k0 = blockIdx.y * kOwn;      // causal: the first are heaviest
+  const int tid = threadIdx.x;
+  const int rows = min(kOwn, Sk - k0);
+  float* out_k = p.out_a + (long long)bh * Sk * D;
+  float* out_v = p.out_b + (long long)bh * Sk * D;
+
+  int qt_begin, qt_end;
+  chunk_query_tiles(p, k0, k0 + rows - 1, kBwdStr, qt_begin, qt_end);
+  const int n_tiles = qt_end - qt_begin;
+  if (n_tiles == 0) {
+    // No query of the chunk sees these keys: the partials are zero.
+    if (!p.accumulate) {
+      zero_rows(out_k + (long long)k0 * D, rows * D, blockDim.x);
+      zero_rows(out_v + (long long)k0 * D, rows * D, blockDim.x);
+    }
+    return;
+  }
+
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = reinterpret_cast<uint8_t*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  const uint8_t* Ks = smem;
+  const uint8_t* Vs = smem + G::kOwnTile;
+  const uint8_t* stages = smem + G::kStages;
+  const float* stats = reinterpret_cast<const float*>(smem + G::kStatsAt);
+  uint64_t* bar = reinterpret_cast<uint64_t*>(smem + G::kBarriers);
+  uint64_t* bar_own = bar;
+  uint64_t* full = bar + 1;
+  uint64_t* empty = bar + 1 + ST;
+
+  if (tid == 0) {
+    dtt::mbar_init(bar_own, 1);
+    for (int s = 0; s < ST; ++s) {
+      dtt::mbar_init(&full[s], 1 + 32);   // TMA thread + the stats warp
+      dtt::mbar_init(&empty[s], 4 * kDkvConsumers);
+    }
+    dtt::mbar_fence_init();
+  }
+  __syncthreads();
+
+  const int wg = tid / 128;
+  if (wg == 0) {
+    dtt::regs_dec<BwdRegs<kDkvConsumers>::kProducer>();
+    produce_bwd<D, kDkvConsumers, ST, true>(&tk, &tv, &tq, &tdo, smem,
+                                            bar_own, full, empty, p, bh, b,
+                                            h, k0, qt_begin, n_tiles);
+    return;
+  }
+
+  dtt::regs_inc<232>();
+  const int c = wg - 1;
+  const int t = tid % 128, warp = t / 32, lane = t % 32;
+  const int k_lo = k0 + 64 * c;
+  const int row0 = k_lo + 16 * warp + lane / 4;   // key rows row0, row0 + 8
+  const int col0 = 2 * (lane % 4);
+  const float cs = p.scale * kLog2e;
+  const int* kvm = p.kv_mask ? p.kv_mask + (long long)b * Sk : nullptr;
+  bool key_ok[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r)
+    key_ok[r] = kvm == nullptr ||
+                (row0 + 8 * r < Sk && kvm[row0 + 8 * r] != 0);
+
+  float dk[D / 2], dv[D / 2];
+  dtt::zero(dk);
+  dtt::zero(dv);
+  dtt::mbar_wait(bar_own, 0);
+  for (int it = 0; it < n_tiles; ++it) {
+    const int s = it % ST;
+    const int qs0 = (qt_begin + it) * kBwdStr;
+    const uint8_t* Qt = stages + s * G::kStage;
+    const uint8_t* dOt = Qt + G::kStrTile;
+    const float* lse2 = stats + s * 2 * kBwdStr;
+    const float* del = lse2 + kBwdStr;
+    dtt::mbar_wait(&full[s], (it / ST) & 1);
+
+    float st[kBwdStr / 2], dpt[kBwdStr / 2];
+    dtt::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk)
+      dtt::wgmma_ss<kBwdStr>(st, dtt::tile_kmajor<D, kOwn>(Ks, 64 * c, kk),
+                             dtt::tile_kmajor<D, kBwdStr>(Qt, 0, kk),
+                             kk > 0);
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk)
+      dtt::wgmma_ss<kBwdStr>(dpt, dtt::tile_kmajor<D, kOwn>(Vs, 64 * c, kk),
+                             dtt::tile_kmajor<D, kBwdStr>(dOt, 0, kk),
+                             kk > 0);
+    dtt::wgmma_commit();
+    dtt::wgmma_wait_all();
+    dtt::fence_regs(st);
+    dtt::fence_regs(dpt);
+
+    // Masks where some pair of this warpgroup's keys and the tile's
+    // queries can be invalid (queries past Sq have lse +inf: P = 0).
+    const int gk = p.k_off + k_lo, gq = p.q_off + qs0;
+    const bool need_mask =
+        kvm != nullptr ||
+        (p.causal && (gk + 63 > gq ||
+                      (p.window > 0 && gq + kBwdStr - 1 - gk >= p.window)));
+#pragma unroll
+    for (int i = 0; i < kBwdStr / 2; ++i) {
+      const int r = (i / 2) % 2;
+      const int col = 8 * (i / 4) + col0 + i % 2;
+      bool ok = true;
+      if (need_mask)
+        ok = key_ok[r] && pair_valid(p.causal, p.window, gq + col,
+                                     p.k_off + row0 + 8 * r);
+      const float pr = ok ? dtt::fast_exp2(fmaf(st[i], cs, -lse2[col])) : 0.f;
+      st[i] = pr;                          // P^T
+      dpt[i] = pr * (dpt[i] - del[col]);   // dS^T
+    }
+
+    uint32_t pa[kBwdStr / 16][4], da[kBwdStr / 16][4];
+#pragma unroll
+    for (int kk = 0; kk < kBwdStr / 16; ++kk) {
+      dtt::to_a_frag(st, kk, pa[kk]);
+      dtt::to_a_frag(dpt, kk, da[kk]);
+    }
+    dtt::fence_frags(pa);
+    dtt::fence_frags(da);
+    dtt::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < kBwdStr / 16; ++kk)
+      dtt::wgmma_rs<D>(dv, pa[kk], dtt::tile_mnmajor<D, kBwdStr>(dOt, kk), 1);
+#pragma unroll
+    for (int kk = 0; kk < kBwdStr / 16; ++kk)
+      dtt::wgmma_rs<D>(dk, da[kk], dtt::tile_mnmajor<D, kBwdStr>(Qt, kk), 1);
+    dtt::wgmma_commit();
+    dtt::wgmma_wait_all();
+    dtt::fence_regs(dk);
+    dtt::fence_regs(dv);
+    dtt::fence_frags(pa);
+    dtt::fence_frags(da);
+    __syncwarp();
+    if (lane == 0) dtt::mbar_arrive(&empty[s]);
+  }
+
+  // dk = dS^T (scale q): the scale folds in here.
+  const bool acc = p.accumulate != 0;
+  store_partial<D>(dk, out_k, row0, Sk, p.scale, col0, acc);
+  store_partial<D>(dv, out_v, row0, Sk, 1.f, col0, acc);
+}
+
+// ---- K7 fp32: the scalar kernel --------------------------------------------
+
+// A warp's 16 x D fp32 accumulator: acc += A[16 x 64] . B[64 x D].
+template <int D> struct Acc {
+  using G = Geo<D>;
   static constexpr int J = D / 32;   // lane owns columns lane + 32 j
   float f[16][J];
 
@@ -761,39 +1164,38 @@ template <int D> struct Acc<float, D> {
     }
   }
 
-  __device__ __forceinline__ void store(float* /*stage*/, float* out,
-                                        int pos0, int S, float scale,
+  // scale * acc into rows [pos0, pos0 + 16) of out (row pitch D): written,
+  // or added with one rounded fp32 sum, as store_partial does.
+  __device__ __forceinline__ void store(float* out, int pos0, int S,
+                                        float scale, bool accumulate,
                                         int lane) {
 #pragma unroll
     for (int rr = 0; rr < 16; ++rr) {
       if (pos0 + rr >= S) break;
 #pragma unroll
-      for (int j = 0; j < J; ++j)
-        out[(long long)(pos0 + rr) * D + lane + 32 * j] = f[rr][j] * scale;
+      for (int j = 0; j < J; ++j) {
+        float* o = out + (long long)(pos0 + rr) * D + lane + 32 * j;
+        const float v = __fmul_rn(f[rr][j], scale);
+        *o = accumulate ? __fadd_rn(*o, v) : v;
+      }
     }
   }
 };
 
-// ---- K7 -------------------------------------------------------------------
 // kDKV = true: K7b (own tile = keys, streamed = queries) -> dk, dv.
 // kDKV = false: K7a (own tile = queries, streamed = keys) -> dq.
-
-template <typename T, int D, bool kDKV>
-__global__ void __launch_bounds__(kThreads) chunk_bwd_kernel(Params p) {
-  using G = Geo<T, D>;
-  constexpr bool kBf16 = G::kBf16;
+template <int D, bool kDKV>
+__global__ void __launch_bounds__(kThreads) chunk_bwd_f32(Params p) {
+  using G = Geo<D>;
   extern __shared__ __align__(128) unsigned char smem[];
-  T* own1 = reinterpret_cast<T*>(smem);
-  T* own2 = reinterpret_cast<T*>(smem + G::kTile);
-  T* str1 = reinterpret_cast<T*>(smem + 2 * G::kTile);
-  T* str2 = reinterpret_cast<T*>(smem + 3 * G::kTile);
-  T* Ps = reinterpret_cast<T*>(smem + 4 * G::kTile);
-  T* dSs = reinterpret_cast<T*>(smem + 4 * G::kTile + G::kP);
-  float* Sc = kBf16 ? reinterpret_cast<float*>(smem + 4 * G::kTile +
-                                               2 * G::kP)
-                    : reinterpret_cast<float*>(dSs);
-  float* own_lse = reinterpret_cast<float*>(smem + 4 * G::kTile +
-                                            2 * G::kP + G::kSc);
+  float* own1 = reinterpret_cast<float*>(smem);
+  float* own2 = reinterpret_cast<float*>(smem + G::kTile);
+  float* str1 = reinterpret_cast<float*>(smem + 2 * G::kTile);
+  float* str2 = reinterpret_cast<float*>(smem + 3 * G::kTile);
+  float* Ps = reinterpret_cast<float*>(smem + 4 * G::kTile);
+  float* dSs = reinterpret_cast<float*>(smem + 4 * G::kTile + G::kP);
+  float* Sc = dSs;   // the S / dP scratch, consumed before dS is written
+  float* own_lse = reinterpret_cast<float*>(smem + 4 * G::kTile + 2 * G::kP);
   float* own_delta = own_lse + BT;
   float* str_lse = own_delta + BT;
   float* str_delta = str_lse + BT;
@@ -806,17 +1208,28 @@ __global__ void __launch_bounds__(kThreads) chunk_bwd_kernel(Params p) {
   const int own0 = blockIdx.x * BT;
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const long long qrow0 = (long long)bh * Sq;   // lse / delta row base
-  const T* qb = static_cast<const T*>(p.q) + b * p.qsb + h * p.qsh;
-  const T* kb = static_cast<const T*>(p.k) + b * p.ksb + h * p.ksh;
-  const T* vb = static_cast<const T*>(p.v) + b * p.vsb + h * p.vsh;
-  const T* db = static_cast<const T*>(p.dout) + b * p.dsb + h * p.dsh;
+  const float* qb = static_cast<const float*>(p.q) + b * p.qsb + h * p.qsh;
+  const float* kb = static_cast<const float*>(p.k) + b * p.ksb + h * p.ksh;
+  const float* vb = static_cast<const float*>(p.v) + b * p.vsb + h * p.vsh;
+  const float* db =
+      static_cast<const float*>(p.dout) + b * p.dsb + h * p.dsh;
+
+  // Streamed tiles that can hold a valid pair for some own row.
+  const int own_last = min(S_own - 1, own0 + BT - 1);
+  int st_begin, st_end;
+  if (kDKV)
+    chunk_query_tiles(p, own0, own_last, BT, st_begin, st_end);
+  else
+    chunk_key_tiles(p, own0, own_last, BT, st_begin, st_end);
+  // Nothing visible and the partials added in place: nothing to do.
+  if (st_begin == st_end && p.accumulate) return;
 
   if (kDKV) {
-    load_tile<T, D>(own1, kb, p.kss, own0, Sk);
-    load_tile<T, D>(own2, vb, p.vss, own0, Sk);
+    load_tile<D>(own1, kb, p.kss, own0, Sk);
+    load_tile<D>(own2, vb, p.vss, own0, Sk);
   } else {
-    load_tile<T, D>(own1, qb, p.qss, own0, Sq);
-    load_tile<T, D>(own2, db, p.dss, own0, Sq);
+    load_tile<D>(own1, qb, p.qss, own0, Sq);
+    load_tile<D>(own2, db, p.dss, own0, Sq);
   }
   for (int i = tid; i < BT; i += kThreads) {
     const int pos = own0 + i;
@@ -831,49 +1244,25 @@ __global__ void __launch_bounds__(kThreads) chunk_bwd_kernel(Params p) {
   }
   __syncthreads();
 
-  // Streamed tiles that can hold a valid pair for some own row, in global
-  // positions (query q_off + i sees key k_off + j iff k_off + j <= q_off + i
-  // and, with a window, q_off + i - (k_off + j) < window).
-  const int own_last = min(S_own - 1, own0 + BT - 1);
-  const int n_tiles = (S_str + BT - 1) / BT;
-  int st_begin = 0, st_end = n_tiles;
-  if (p.causal) {
-    if (kDKV) {
-      const int lo = p.k_off + own0 - p.q_off;   // oldest query that sees
-      if (lo > 0) st_begin = lo / BT;
-      if (p.window > 0) {
-        const int hi = p.k_off + own_last + p.window - 1 - p.q_off;
-        st_end = hi < 0 ? 0 : min(n_tiles, hi / BT + 1);
-      }
-    } else {
-      const int hi = p.q_off + own_last - p.k_off;   // newest visible key
-      st_end = hi < 0 ? 0 : min(n_tiles, hi / BT + 1);
-      if (p.window > 0) {
-        const int lo = p.q_off + own0 - p.window + 1 - p.k_off;
-        if (lo > 0) st_begin = lo / BT;
-      }
-    }
-  }
-
-  Acc<T, D> acc_a, acc_b;   // dq | dk, and dv
+  Acc<D> acc_a, acc_b;   // dq | dk, and dv
   acc_a.zero();
   if (kDKV) acc_b.zero();
 
-  const T* own1_w = own1 + (warp * 16) * G::LD;
-  const T* own2_w = own2 + (warp * 16) * G::LD;
-  T* P_w = Ps + (warp * 16) * G::LDP;
-  T* dS_w = dSs + (warp * 16) * G::LDP;
+  const float* own1_w = own1 + (warp * 16) * G::LD;
+  const float* own2_w = own2 + (warp * 16) * G::LD;
+  float* P_w = Ps + (warp * 16) * G::LDP;
+  float* dS_w = dSs + (warp * 16) * G::LDP;
   float* Sc_w = Sc + (warp * 16) * G::LDS;
 
   for (int st = st_begin; st < st_end; ++st) {
     const int str0 = st * BT;
     __syncthreads();   // every warp is done with the previous streamed tile
     if (kDKV) {
-      load_tile<T, D>(str1, qb, p.qss, str0, Sq);
-      load_tile<T, D>(str2, db, p.dss, str0, Sq);
+      load_tile<D>(str1, qb, p.qss, str0, Sq);
+      load_tile<D>(str2, db, p.dss, str0, Sq);
     } else {
-      load_tile<T, D>(str1, kb, p.kss, str0, Sk);
-      load_tile<T, D>(str2, vb, p.vss, str0, Sk);
+      load_tile<D>(str1, kb, p.kss, str0, Sk);
+      load_tile<D>(str2, vb, p.vss, str0, Sk);
     }
     if (tid < BT) {
       const int pos = str0 + tid;
@@ -908,7 +1297,7 @@ __global__ void __launch_bounds__(kThreads) chunk_bwd_kernel(Params p) {
       const float pv =
           valid ? expf(Sc_w[r * G::LDS + c] * p.scale - lse) : 0.f;
       pr[i] = pv;
-      P_w[r * G::LDP + c] = from_f<T>(pv);
+      P_w[r * G::LDP + c] = pv;
     }
     __syncwarp();
 
@@ -919,7 +1308,7 @@ __global__ void __launch_bounds__(kThreads) chunk_bwd_kernel(Params p) {
     for (int i = 0; i < 32; ++i) {
       const int r = i >> 1, c = (i & 1) * 32 + lane;
       const float dl = kDKV ? str_delta[c] : own_delta[warp * 16 + r];
-      dS_w[r * G::LDP + c] = from_f<T>(pr[i] * (Sc_w[r * G::LDS + c] - dl));
+      dS_w[r * G::LDP + c] = pr[i] * (Sc_w[r * G::LDS + c] - dl);
     }
     __syncwarp();
 
@@ -929,17 +1318,19 @@ __global__ void __launch_bounds__(kThreads) chunk_bwd_kernel(Params p) {
 
   // dq = scale dS K and dk = dS^T (scale q): the scale folds in here.
   const int pos0 = own0 + warp * 16;
-  float* out_a = p.out_a + (long long)bh * S_own * D;
-  acc_a.store(Sc_w, out_a, pos0, S_own, p.scale, lane);
-  if (kDKV) {
-    float* out_b = p.out_b + (long long)bh * S_own * D;
-    acc_b.store(Sc_w, out_b, pos0, S_own, 1.f, lane);
-  }
+  const bool accumulate = p.accumulate != 0;
+  acc_a.store(p.out_a + (long long)bh * S_own * D, pos0, S_own, p.scale,
+              accumulate, lane);
+  if (kDKV)
+    acc_b.store(p.out_b + (long long)bh * S_own * D, pos0, S_own, 1.f,
+                accumulate, lane);
 }
+
+// ---- launchers --------------------------------------------------------------
 
 template <int D>
 cudaError_t launch_fwd_f32(const Params& p, cudaStream_t stream) {
-  constexpr size_t smem = Geo<float, D>::kFwdBytes;
+  constexpr size_t smem = Geo<D>::kFwdBytes;
   static bool done[dtt::kMaxDevices];
   const cudaError_t e = dtt::opt_in_smem(chunk_fwd_f32<D>, smem, done);
   if (e != cudaSuccess) return e;
@@ -948,34 +1339,62 @@ cudaError_t launch_fwd_f32(const Params& p, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
-template <typename T, int D, bool kDKV>
-cudaError_t launch_bwd(const Params& p, cudaStream_t stream) {
-  constexpr size_t smem = Geo<T, D>::kBwdBytes;
+template <int D, bool kDKV>
+cudaError_t launch_bwd_f32(const Params& p, cudaStream_t stream) {
+  constexpr size_t smem = Geo<D>::kBwdBytes;
   static bool done[dtt::kMaxDevices];
-  const cudaError_t e =
-      dtt::opt_in_smem(chunk_bwd_kernel<T, D, kDKV>, smem, done);
+  const cudaError_t e = dtt::opt_in_smem(chunk_bwd_f32<D, kDKV>, smem, done);
   if (e != cudaSuccess) return e;
   dim3 grid(((kDKV ? p.Sk : p.Sq) + BT - 1) / BT, p.B * p.H);
-  chunk_bwd_kernel<T, D, kDKV><<<grid, kThreads, smem, stream>>>(p);
+  chunk_bwd_f32<D, kDKV><<<grid, kThreads, smem, stream>>>(p);
+  return cudaGetLastError();
+}
+
+template <int D, bool kDKV>
+cudaError_t launch_bwd_wgmma(const Params& p, cudaStream_t stream) {
+  constexpr int kOwn = kDKV ? DkvSmem<D>::kOwn : DqSmem<D>::kOwn;
+  constexpr size_t smem = kDKV ? DkvSmem<D>::kBytes : DqSmem<D>::kBytes;
+  constexpr int threads =
+      128 * (1 + (kDKV ? kDkvConsumers : kDqConsumers));
+  // The own tiles are kOwn-row boxes, the streamed ones 64-row boxes; an
+  // empty side (Sq or Sk = 0) loads nothing, its maps need only encode.
+  const int rq = kDKV ? kBwdStr : kOwn, rk = kDKV ? kOwn : kBwdStr;
+  const int Sq = p.Sq > 0 ? p.Sq : 1, Sk = p.Sk > 0 ? p.Sk : 1;
+  CUtensorMap tq, tk, tv, tdo;
+  cudaError_t e;
+  if ((e = dtt::make_tile_map(&tq, p.q, p.B, Sq, p.H, D, p.qsb, p.qss,
+                              p.qsh, rq)) != cudaSuccess ||
+      (e = dtt::make_tile_map(&tk, p.k, p.B, Sk, p.H, D, p.ksb, p.kss,
+                              p.ksh, rk)) != cudaSuccess ||
+      (e = dtt::make_tile_map(&tv, p.v, p.B, Sk, p.H, D, p.vsb, p.vss,
+                              p.vsh, rk)) != cudaSuccess ||
+      (e = dtt::make_tile_map(&tdo, p.dout, p.B, Sq, p.H, D, p.dsb, p.dss,
+                              p.dsh, rq)) != cudaSuccess)
+    return e;
+  auto kernel = kDKV ? chunk_dkv_wgmma<D> : chunk_dq_wgmma<D>;
+  static bool done[dtt::kMaxDevices];
+  if ((e = dtt::opt_in_smem(kernel, smem, done)) != cudaSuccess) return e;
+  dim3 grid(p.B * p.H, ((kDKV ? p.Sk : p.Sq) + kOwn - 1) / kOwn);
+  kernel<<<grid, threads, smem, stream>>>(tq, tk, tv, tdo, p);
   return cudaGetLastError();
 }
 
 // kind: 0 = K6, 1 = K7a, 2 = K7b.
 int dispatch(const Params& p, int kind, int D, int dtype, cudaStream_t s) {
-#define DTT_CHUNK_CASE(T, DD, FWD)                                  \
+#define DTT_CHUNK_CASE(DD, FWD, BWD)                                \
   if (D == DD) {                                                    \
     if (kind == 0) return (int)FWD<DD>(p, s);                       \
-    if (kind == 1) return (int)launch_bwd<T, DD, false>(p, s);      \
-    if (kind == 2) return (int)launch_bwd<T, DD, true>(p, s);       \
+    if (kind == 1) return (int)BWD<DD, false>(p, s);                \
+    if (kind == 2) return (int)BWD<DD, true>(p, s);                 \
   }
   if (dtype == 1) {
-    DTT_CHUNK_CASE(bf16, 128, launch_fwd_wgmma)
-    DTT_CHUNK_CASE(bf16, 64, launch_fwd_wgmma)
-    DTT_CHUNK_CASE(bf16, 32, launch_fwd_wgmma)
+    DTT_CHUNK_CASE(128, launch_fwd_wgmma, launch_bwd_wgmma)
+    DTT_CHUNK_CASE(64, launch_fwd_wgmma, launch_bwd_wgmma)
+    DTT_CHUNK_CASE(32, launch_fwd_wgmma, launch_bwd_wgmma)
   } else if (dtype == 0) {
-    DTT_CHUNK_CASE(float, 128, launch_fwd_f32)
-    DTT_CHUNK_CASE(float, 64, launch_fwd_f32)
-    DTT_CHUNK_CASE(float, 32, launch_fwd_f32)
+    DTT_CHUNK_CASE(128, launch_fwd_f32, launch_bwd_f32)
+    DTT_CHUNK_CASE(64, launch_fwd_f32, launch_bwd_f32)
+    DTT_CHUNK_CASE(32, launch_fwd_f32, launch_bwd_f32)
   }
 #undef DTT_CHUNK_CASE
   return (int)cudaErrorInvalidValue;
@@ -1015,6 +1434,17 @@ extern "C" long long dtt_flash_attention_chunk_smem(int D) {
                    : (long long)FwdSmem<128>::kBytes;
 }
 
+// The same for the bf16 K7a (dkv = 0) and K7b (dkv = 1) kernels.
+extern "C" long long dtt_flash_attention_chunk_bwd_smem(int D, int dkv) {
+  if (dkv)
+    return D == 32   ? (long long)DkvSmem<32>::kBytes
+           : D == 64 ? (long long)DkvSmem<64>::kBytes
+                     : (long long)DkvSmem<128>::kBytes;
+  return D == 32   ? (long long)DqSmem<32>::kBytes
+         : D == 64 ? (long long)DqSmem<64>::kBytes
+                   : (long long)DqSmem<128>::kBytes;
+}
+
 // K6.  q [B, Sq, H, D], k, v [B, Sk, H, D] (strides in elements; last dim
 // contiguous, rows 16-byte aligned), kv_mask int32 [B, Sk] or null;
 // m_in, l_in [B*H, Sq] and acc_in [B*H, Sq, D] fp32 contiguous (acc
@@ -1045,9 +1475,12 @@ extern "C" int dtt_flash_attention_chunk(
 
 // K7a (dkv = 0) and K7b (dkv = 1).  q, dout [B, Sq, H, D] and k, v
 // [B, Sk, H, D] (strides in elements, as K6), kv_mask int32 [B, Sk] or
-// null, lse and delta fp32 [B*H, Sq].  K7a writes out_a = dq fp32
-// [B*H, Sq, D]; K7b writes out_a = dk and out_b = dv fp32 [B*H, Sk, D].
-// D in {32, 64, 128}.  Returns cudaGetLastError().
+// null, lse and delta fp32 [B*H, Sq].  K7a's out_a is dq fp32
+// [B*H, Sq, D]; K7b's out_a and out_b are dk and dv fp32 [B*H, Sk, D]
+// (contiguous, 16-byte aligned).  accumulate = 0: the partials are
+// written there; 1: added to what they hold (old + partial, one fp32
+// rounding), and rows that see no pair are not touched.  D in {32, 64,
+// 128}.  Returns cudaGetLastError().
 extern "C" int dtt_flash_attention_chunk_bwd(
     const void* q, const void* k, const void* v, const void* kv_mask,
     const void* dout, const void* lse, const void* delta, void* out_a,
@@ -1055,8 +1488,9 @@ extern "C" int dtt_flash_attention_chunk_bwd(
     long long qss, long long qsh, long long ksb, long long kss, long long ksh,
     long long vsb, long long vss, long long vsh, long long dsb, long long dss,
     long long dsh, int q_off, int k_off, int causal, int window, float scale,
-    int dtype, int dkv, void* stream) {
-  // An empty chunk (Sk = 0) still gets its dq partial written: zeros.
+    int dtype, int dkv, int accumulate, void* stream) {
+  // An empty chunk (Sk = 0) still gets its dq partial: zeros, or nothing
+  // to add.
   if (B <= 0 || H <= 0 || (dkv ? Sk : Sq) <= 0) return (int)cudaSuccess;
   const long long st[12] = {qsb, qss, qsh, ksb, kss, ksh,
                             vsb, vss, vsh, dsb, dss, dsh};
@@ -1067,6 +1501,7 @@ extern "C" int dtt_flash_attention_chunk_bwd(
   p.delta = static_cast<const float*>(delta);
   p.out_a = static_cast<float*>(out_a);
   p.out_b = static_cast<float*>(out_b);
+  p.accumulate = accumulate;
   return dispatch(p, dkv ? 2 : 1, D, dtype,
                   static_cast<cudaStream_t>(stream));
 }

@@ -1,5 +1,5 @@
 // Hopper building blocks shared by the flash-attention kernels (K1 in
-// flash_attention.cu, K2 in flash_attention_bwd.cu, K6 in
+// flash_attention.cu, K2 in flash_attention_bwd.cu, K6 and K7 in
 // flash_attention_chunk.cu): mbarriers, TMA tile loads through a tensor
 // map, wgmma shared-memory descriptors and the warpgroup products
 // themselves.  sm_90a only (wgmma, setmaxnreg).

@@ -29,7 +29,8 @@ K/V chunk into the carried online-softmax state ``(m, l, acc)`` (in new
 tensors, or in place) and give the per-hop gradient partials, with the
 chunk's global position as two run-time offsets: on CUDA tensors the
 kernels of ``csrc/flash_attention_chunk.cu`` (K6 on K1's Hopper design
-with the carries in registers, K7a, K7b), on CPU tensors
+with the carries in registers, K7a and K7b on K2's, adding their
+partials into the ring's buffers in place), on CPU tensors
 :func:`flash_attention_chunk_reference` and its two backward partners.
 
 Head dims 32, 64 and 128 on the card (the plain versions take any).
@@ -404,32 +405,60 @@ def _chunk_bwd_reference(q, k, v, kv_mask, do, lse, delta, *, q_offset,
     return p, p * (dp - delta[..., None]), scale
 
 
+def _chunk_outs(dkv: bool, out, shape: tuple, like) -> tuple:
+    """The sums a backward partial is added into, checked, as a tuple
+    (dq,) or (dk, dv): fp32 of the partial's shape on the operands'
+    device, contiguous and 16-byte aligned (the kernels read and write
+    their rows in place)."""
+    if dkv != isinstance(out, (tuple, list)) or (dkv and len(out) != 2):
+        raise ValueError("out is one tensor for the dq partial and the "
+                         "pair (dk, dv) for the dk/dv partials")
+    outs = tuple(out) if dkv else (out,)
+    for name, t in zip(("dk", "dv") if dkv else ("dq",), outs):
+        _f32_rows(f"out {name}", t, shape, like)
+        if not t.is_contiguous() or t.data_ptr() % 16:
+            raise ValueError(f"out {name} must be contiguous and start on "
+                             "a 16-byte boundary")
+    return outs
+
+
 def flash_attention_chunk_dq_reference(q, k, v, kv_mask, do, lse, delta, *,
                                        q_offset: int, k_offset: int,
                                        causal: bool = False,
-                                       window: int = 0):
+                                       window: int = 0, out=None):
     """Plain version of :func:`flash_attention_chunk_dq`: the fp32 dq
     partial [B, H, Sq, D] of the local queries against one chunk,
-    ``scale dS k``."""
+    ``scale dS k``; with ``out``, added into it (``out.add_(partial)``)
+    and ``out`` returned."""
+    B, Sq, H, D = q.shape
+    if out is not None:
+        _chunk_outs(False, out, (B, H, Sq, D), q)
     _, ds, scale = _chunk_bwd_reference(
         q, k, v, kv_mask, do, lse, delta, q_offset=q_offset,
         k_offset=k_offset, causal=causal, window=window)
-    return scale * torch.einsum("bhqk,bkhd->bhqd", ds, k.float())
+    dq = scale * torch.einsum("bhqk,bkhd->bhqd", ds, k.float())
+    return dq if out is None else out.add_(dq)
 
 
 def flash_attention_chunk_dkv_reference(q, k, v, kv_mask, do, lse, delta,
                                         *, q_offset: int, k_offset: int,
                                         causal: bool = False,
-                                        window: int = 0):
+                                        window: int = 0, out=None):
     """Plain version of :func:`flash_attention_chunk_dkv`: the fp32
     partials (dk, dv) [B, H, Sk, D] of one chunk from the local queries,
-    ``dS^T (scale q)`` and ``P^T dO``."""
+    ``dS^T (scale q)`` and ``P^T dO``; with ``out`` = (dk, dv), added
+    into them and ``out`` returned."""
+    B, Sk, H, D = k.shape
+    if out is not None:
+        out = _chunk_outs(True, out, (B, H, Sk, D), q)
     p, ds, scale = _chunk_bwd_reference(
         q, k, v, kv_mask, do, lse, delta, q_offset=q_offset,
         k_offset=k_offset, causal=causal, window=window)
     dk = torch.einsum("bhqk,bqhd->bhkd", ds, q.float() * scale)
     dv = torch.einsum("bhqk,bqhd->bhkd", p, do.float())
-    return dk, dv
+    if out is None:
+        return dk, dv
+    return out[0].add_(dk), out[1].add_(dv)
 
 
 def _chunk_operands(q, k, v, kv_mask, *, causal: bool, window: int,
@@ -523,8 +552,9 @@ def flash_attention_chunk(q, k, v, kv_mask, m, l, acc, *, q_offset: int,
 
 
 def _chunk_bwd(dkv: bool, q, k, v, kv_mask, do, lse, delta, *, q_offset,
-               k_offset, causal, window):
-    """Launch K7a (``dkv`` False: dq) or K7b (dk, dv) on CUDA tensors."""
+               k_offset, causal, window, out):
+    """Launch K7a (``dkv`` False: dq) or K7b (dk, dv) on CUDA tensors,
+    into new tensors or, with ``out``, adding into it."""
     name = "flash_attention_chunk_dkv" if dkv else "flash_attention_chunk_dq"
     mask = _chunk_operands(q, k, v, kv_mask, causal=causal, window=window,
                            name=name)
@@ -538,10 +568,13 @@ def _chunk_bwd(dkv: bool, q, k, v, kv_mask, do, lse, delta, *, q_offset,
         do = do.contiguous()
     lse = _f32_rows("lse", lse, (B, H, Sq), q)
     delta = _f32_rows("delta", delta, (B, H, Sq), q)
-    rows = Sk if dkv else Sq
-    out_a = torch.empty((B, H, rows, D), dtype=torch.float32,
-                        device=q.device)
-    out_b = torch.empty_like(out_a) if dkv else None
+    shape = (B, H, Sk if dkv else Sq, D)
+    if out is None:
+        out_a = torch.empty(shape, dtype=torch.float32, device=q.device)
+        out_b = torch.empty_like(out_a) if dkv else None
+    else:
+        outs = _chunk_outs(dkv, out, shape, q)
+        out_a, out_b = outs[0], outs[1] if dkv else None
     if out_a.numel():
         kernels.launch(
             "flash_attention_chunk_bwd", q.device, q.data_ptr(),
@@ -551,7 +584,8 @@ def _chunk_bwd(dkv: bool, q, k, v, kv_mask, do, lse, delta, *, q_offset,
             None if out_b is None else out_b.data_ptr(), B, Sq, Sk, H, D,
             *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
             *do.stride()[:3], int(q_offset), int(k_offset), int(causal),
-            int(window), 1.0 / math.sqrt(D), _DTYPE_CODE[q.dtype], int(dkv))
+            int(window), 1.0 / math.sqrt(D), _DTYPE_CODE[q.dtype], int(dkv),
+            int(out is not None))
         global chunk_dq_launches, chunk_dkv_launches
         if dkv:
             chunk_dkv_launches += 1
@@ -562,14 +596,18 @@ def _chunk_bwd(dkv: bool, q, k, v, kv_mask, do, lse, delta, *, q_offset,
 
 def flash_attention_chunk_dq(q, k, v, kv_mask, do, lse, delta, *,
                              q_offset: int, k_offset: int,
-                             causal: bool = False, window: int = 0):
+                             causal: bool = False, window: int = 0,
+                             out=None):
     """The fp32 dq partial [B, H, Sq, D] of the local queries against one
     K/V chunk, from the ring's saved ``lse`` and its ``delta`` (both
-    [B, H, Sq] fp32); the ring sums the partials over its hops.  K7a on
-    CUDA tensors, :func:`flash_attention_chunk_dq_reference` on CPU
-    tensors."""
+    [B, H, Sq] fp32).  Without ``out``, in a new tensor; with ``out`` (the
+    ring's fp32 dq, contiguous, of the partial's shape) the partial is
+    added into it, ``out + partial`` with one fp32 rounding as ``add_``
+    gives, and ``out`` is returned: a chunk no query sees leaves it
+    untouched.  K7a on CUDA tensors,
+    :func:`flash_attention_chunk_dq_reference` on CPU tensors."""
     kw = dict(q_offset=q_offset, k_offset=k_offset, causal=causal,
-              window=window)
+              window=window, out=out)
     if q.device.type == "cpu":
         return flash_attention_chunk_dq_reference(q, k, v, kv_mask, do, lse,
                                                   delta, **kw)
@@ -578,13 +616,15 @@ def flash_attention_chunk_dq(q, k, v, kv_mask, do, lse, delta, *,
 
 def flash_attention_chunk_dkv(q, k, v, kv_mask, do, lse, delta, *,
                               q_offset: int, k_offset: int,
-                              causal: bool = False, window: int = 0):
+                              causal: bool = False, window: int = 0,
+                              out=None):
     """The fp32 partials (dk, dv) [B, H, Sk, D] of one K/V chunk from the
-    local queries; they travel the ring with their chunk.  K7b on CUDA
-    tensors, :func:`flash_attention_chunk_dkv_reference` on CPU
-    tensors."""
+    local queries; they travel the ring with their chunk.  ``out``, the
+    pair (dk, dv), takes them added in place, as for
+    :func:`flash_attention_chunk_dq`.  K7b on CUDA tensors,
+    :func:`flash_attention_chunk_dkv_reference` on CPU tensors."""
     kw = dict(q_offset=q_offset, k_offset=k_offset, causal=causal,
-              window=window)
+              window=window, out=out)
     if q.device.type == "cpu":
         return flash_attention_chunk_dkv_reference(q, k, v, kv_mask, do,
                                                    lse, delta, **kw)

@@ -74,9 +74,11 @@ SIGNATURES = {
                                  + [_I] * 4 + [_F, _I, _P],
     # K7a/K7b: q, k, v, kv_mask, dout, lse, delta, out_a, out_b, B, Sq,
     # Sk, H, D, q/k/v/dout strides, q_off, k_off, causal, window, scale,
-    # dtype, dkv (0: out_a = dq; 1: out_a = dk, out_b = dv), stream.
+    # dtype, dkv (0: out_a = dq; 1: out_a = dk, out_b = dv), accumulate
+    # (0: write the partials; 1: add them to what out_a/out_b hold),
+    # stream.
     "dtt_flash_attention_chunk_bwd": [_P] * 9 + [_I] * 5 + [_L] * 12
-                                     + [_I] * 4 + [_F, _I, _I, _P],
+                                     + [_I] * 4 + [_F, _I, _I, _I, _P],
     # K4: x, qw, sw, bias, residual, out, pre (null where unused), M, N,
     # K, bk, x's row stride, gelu, dtype (0 = fp32, 1 = bf16), stream.
     "dtt_quant_matmul": [_P] * 7 + [_I] * 4 + [_L, _I, _I, _P],
@@ -213,10 +215,12 @@ def load():
                 _entries[name[len("dtt_"):]] = fn
             lib.dtt_error_string.argtypes = [_I]
             lib.dtt_error_string.restype = ctypes.c_char_p
-            for name in ("dtt_flash_attention_fwd_smem",
-                         "dtt_flash_attention_bwd_smem",
-                         "dtt_flash_attention_chunk_smem"):
-                getattr(lib, name).argtypes = [_I]
+            for name, argtypes in (
+                    ("dtt_flash_attention_fwd_smem", [_I]),
+                    ("dtt_flash_attention_bwd_smem", [_I]),
+                    ("dtt_flash_attention_chunk_smem", [_I]),
+                    ("dtt_flash_attention_chunk_bwd_smem", [_I, _I])):
+                getattr(lib, name).argtypes = argtypes
                 getattr(lib, name).restype = ctypes.c_longlong
             _lib = lib
     return _lib

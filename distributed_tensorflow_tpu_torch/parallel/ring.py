@@ -19,10 +19,11 @@ shards live on one device, as in ``create_mesh(seq=4, devices=[cuda0] *
 - On the flash path (the default) each hop is the chunk kernel K6
   (:func:`..ops.flash_attention.flash_attention_chunk`, updating the
   shard's carries in place), and the
-  backward is hand-rolled as in JAX: ``delta = sum(dO * out)`` once, then
-  per hop the dq kernel K7a (dq accumulates locally) and the dk/dv kernel
-  K7b, whose partials travel the ring with their chunk and arrive home
-  summed.  CPU tensors take the chunk functions' plain versions.
+  backward is hand-rolled as in JAX: ``delta = sum(dO * out)`` once and
+  zeroed fp32 sums, then per hop the dq kernel K7a (adding into the
+  shard's dq in place) and the dk/dv kernel K7b (adding into the dk/dv
+  sums that travel the ring with their chunk and arrive home complete).
+  CPU tensors take the chunk functions' plain versions.
 - A causal sliding window truncates the ring to the hops whose chunks can
   meet the band and runs it reversed; the dk/dv partials then take one
   shift home instead of finishing the loop.  Forward and backward share
@@ -186,16 +187,20 @@ def _ring_flash_forward(plan: _RingPlan, qs, ks, vs):
 
 def _ring_flash_backward(plan: _RingPlan, qs, ks, vs, outs, lses, douts):
     """(dqs, dks, dvs) per shard: K7a and K7b per hop on the forward's
-    schedule; dq accumulates on its shard, the dk/dv partials travel with
-    their chunk (one shift home after a truncated ring)."""
+    schedule, each adding its partial into fp32 sums zeroed once, as the
+    JAX ring's ``dq``, ``dk0`` and ``dv0``: dq stays on its shard, the dk/dv
+    sums travel with their chunk (one shift home after a truncated ring).
+    A hop whose chunk no query sees then touches no memory."""
     n, devices = len(qs), plan.devices
-    Sq, Sk = qs[0].shape[1], ks[0].shape[1]
+    B, Sq, H, D = qs[0].shape
+    Sk = ks[0].shape[1]
     n_hops, perm, src_fn = _ring_schedule(n, Sk, plan.causal, plan.window)
     # Softmax-jacobian row term, in the kernels' [B, H, Sq] layout.
     delta = [(do.float() * o.float()).sum(-1).transpose(1, 2).contiguous()
              for do, o in zip(douts, outs)]
-    dq = [None] * n
-    dk, dv = [None] * n, [None] * n
+    dq = [torch.zeros((B, H, Sq, D), device=d) for d in devices]
+    dk = [torch.zeros((B, H, Sk, D), device=d) for d in devices]
+    dv = [torch.zeros((B, H, Sk, D), device=d) for d in devices]
     held = (ks, vs, plan.masks)
     kw = dict(causal=plan.causal, window=plan.window)
     for t in range(n_hops):
@@ -207,11 +212,9 @@ def _ring_flash_backward(plan: _RingPlan, qs, ks, vs, outs, lses, douts):
             args = (qs[my], held[0][my], held[1][my], held[2][my],
                     douts[my], lses[my], delta[my])
             offs = dict(q_offset=my * Sq, k_offset=src_fn(my, t) * Sk)
-            part = flash_attention_chunk_dq(*args, **offs, **kw)
-            dq[my] = part if dq[my] is None else dq[my].add_(part)
-            dkc, dvc = flash_attention_chunk_dkv(*args, **offs, **kw)
-            dk[my] = dkc if dk[my] is None else dk[my].add_(dkc)
-            dv[my] = dvc if dv[my] is None else dv[my].add_(dvc)
+            flash_attention_chunk_dq(*args, **offs, **kw, out=dq[my])
+            flash_attention_chunk_dkv(*args, **offs, **kw,
+                                      out=(dk[my], dv[my]))
         dk, dv = _hop(dk, perm, devices), _hop(dv, perm, devices)
         held = nxt
     if n_hops < n:

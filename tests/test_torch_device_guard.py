@@ -38,6 +38,7 @@ class _Recorder:
         self.entered = []      # devices currently entered, innermost last
         self.guards = 0        # guards entered so far
         self.calls = []        # (entry point, current card at the call)
+        self.args = []         # each call's arguments, the stream included
 
     def current_device(self):
         return self.entered[-1].index if self.entered else self.current
@@ -62,6 +63,7 @@ class _Recorder:
         def entry(*args):
             self.calls.append((name, torch.device("cuda",
                                                   self.current_device())))
+            self.args.append(args)
             return 0
         return entry
 
@@ -168,6 +170,24 @@ def _k7b():
                                  k_offset=0, causal=True, window=32)
 
 
+def _k7a_out():
+    """K7a adding into the ring's dq sum (``out=``)."""
+    q, k, v, do, rows = _chunk_state()
+    fa.flash_attention_chunk_dq(q, k, v, None, do, rows, rows, q_offset=64,
+                                k_offset=0, causal=True,
+                                out=_empty(2, 4, 64, 128,
+                                           dtype=torch.float32))
+
+
+def _k7b_out():
+    """K7b adding into the ring's dk and dv sums (``out=``)."""
+    q, k, v, do, rows = _chunk_state()
+    sums = tuple(_empty(2, 4, 64, 128, dtype=torch.float32)
+                 for _ in range(2))
+    fa.flash_attention_chunk_dkv(q, k, v, None, do, rows, rows, q_offset=64,
+                                 k_offset=0, causal=True, out=sums)
+
+
 WRAPPERS = [("K1", _k1, "dtt_flash_attention_fwd"),
             ("K2b", _k2b, "dtt_flash_attention_bwd_dq"),
             ("K2a", _k2a, "dtt_flash_attention_bwd_dkv"),
@@ -177,6 +197,8 @@ WRAPPERS = [("K1", _k1, "dtt_flash_attention_fwd"),
             ("K6", _k6, "dtt_flash_attention_chunk"),
             ("K7a", _k7a, "dtt_flash_attention_chunk_bwd"),
             ("K7b", _k7b, "dtt_flash_attention_chunk_bwd"),
+            ("K7a_out", _k7a_out, "dtt_flash_attention_chunk_bwd"),
+            ("K7b_out", _k7b_out, "dtt_flash_attention_chunk_bwd"),
             ("K8", _k8, "dtt_quant_matmul_dgelu")]
 
 
@@ -196,6 +218,20 @@ def test_wrapper_calls_straight_in_when_its_card_is_current(recorder, kernel,
     drive()
     assert recorder.calls == [(entry, CARD)], kernel
     assert recorder.guards == 0            # no guard: the card was current
+
+
+@pytest.mark.parametrize("kernel,drive,entry", WRAPPERS,
+                         ids=[w[0] for w in WRAPPERS])
+def test_wrapper_passes_every_argument_of_the_signature(recorder, kernel,
+                                                        drive, entry):
+    """Each call hands its entry point as many arguments as
+    ``kernels.SIGNATURES`` declares (the stream last); K7a/K7b pass
+    ``accumulate`` before the stream: 1 with ``out=``, else 0."""
+    drive()
+    (args,) = recorder.args
+    assert len(args) == len(kernels.SIGNATURES[entry]), kernel
+    if kernel.startswith("K7"):
+        assert args[-2] == int(kernel.endswith("_out")), kernel
 
 
 def _attention_d32(kernel):

@@ -766,6 +766,77 @@ def test_ring_chunk_in_place_equals_out_of_place_on_card(cuda_device, dtype,
             assert torch.equal(a, b)
 
 
+def _chunk_bwd_case(g, dev, dtype, case):
+    """The chunk's operands, a finished lse and a delta for K7a/K7b."""
+    Sq, Sk, D, q_off, k_off, causal, window, masked = case
+    q, k, v, mask, m, l, acc = _chunk_inputs(g, dev, dtype, Sq, Sk, D, masked)
+    kw = dict(q_offset=q_off, k_offset=k_off, causal=causal, window=window)
+    want = tfa.flash_attention_chunk_reference(q, k, v, mask, m, l, acc, **kw)
+    lse = want[0] + torch.log(want[1].clamp_min(1e-30))
+    do = torch.randn(q.shape, generator=g, device=dev).to(dtype)
+    delta = torch.randn(lse.shape, generator=g, device=dev)
+    return (q, k, v, mask, do, lse, delta), kw
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("case", CHUNK_CASES)
+def test_ring_chunk_bwd_adds_into_out_on_card(cuda_device, dtype, case):
+    """K7a/K7b with ``out`` (the ring's form) add their partial into the
+    given fp32 sums and return them: bit for bit the out-of-place partial
+    + add_; a chunk wholly in the future leaves them untouched, fully
+    masked rows add exact zeros, and two calls give the same bits."""
+    Sq, Sk, D, q_off, k_off, causal, window, masked = case
+    g = torch.Generator(device=cuda_device).manual_seed(Sq + 3 * Sk + D)
+    args, kw = _chunk_bwd_case(g, cuda_device, dtype, case)
+    B, H = args[0].shape[0], args[0].shape[2]
+    bufs = [torch.randn(B, H, S, D, generator=g, device=cuda_device)
+            for S in (Sq, Sk, Sk)]
+    parts = (tfa.flash_attention_chunk_dq(*args, **kw),
+             *tfa.flash_attention_chunk_dkv(*args, **kw))
+    runs = []
+    for _ in range(2):
+        sums = [t.clone() for t in bufs]
+        counts = (tfa.chunk_dq_launches, tfa.chunk_dkv_launches)
+        dq = tfa.flash_attention_chunk_dq(*args, **kw, out=sums[0])
+        dk, dv = tfa.flash_attention_chunk_dkv(*args, **kw,
+                                               out=(sums[1], sums[2]))
+        assert (tfa.chunk_dq_launches, tfa.chunk_dkv_launches) == (
+            counts[0] + 1, counts[1] + 1)
+        assert dq is sums[0] and dk is sums[1] and dv is sums[2]
+        runs.append(sums)
+    torch.cuda.synchronize()
+    for name, a, b, p, again in zip(("dq", "dk", "dv"), runs[0], bufs, parts,
+                                    runs[1]):
+        assert torch.equal(a, b + p), name
+        assert torch.equal(a, again), name
+        if causal and q_off + Sq <= k_off:        # wholly in the future
+            assert torch.equal(a, b), name
+        if masked:                                # batch 0 sees no key
+            assert torch.equal(a[0], b[0]), name
+
+
+@pytest.mark.cuda
+def test_ring_chunk_bwd_refuses_a_wrong_out_on_card(cuda_device):
+    """A CUDA ``out`` of another dtype, shape, device or layout raises
+    before any launch."""
+    g = torch.Generator(device=cuda_device).manual_seed(3)
+    case = (128, 128, 64, 128, 0, True, 0, False)
+    args, kw = _chunk_bwd_case(g, cuda_device, torch.bfloat16, case)
+    ok = torch.zeros(2, 4, 128, 64, device=cuda_device)
+    bad = [ok.to(torch.bfloat16), ok[:, :, :64], ok.cpu(),
+           ok.transpose(2, 3).contiguous().transpose(2, 3)]
+    counts = (tfa.chunk_dq_launches, tfa.chunk_dkv_launches)
+    for out in bad:
+        with pytest.raises(ValueError, match="out"):
+            tfa.flash_attention_chunk_dq(*args, **kw, out=out)
+        with pytest.raises(ValueError, match="out"):
+            tfa.flash_attention_chunk_dkv(*args, **kw, out=(ok, out))
+    with pytest.raises(ValueError, match="pair"):
+        tfa.flash_attention_chunk_dkv(*args, **kw, out=ok)
+    assert (tfa.chunk_dq_launches, tfa.chunk_dkv_launches) == counts
+
+
 @pytest.mark.cuda
 def test_ring_chunk_in_place_refuses_strided_carries(cuda_device):
     q, k, v, mask, m, l, acc = _chunk_inputs(

@@ -4,7 +4,8 @@ their plain versions on CPU tensors) against the JAX package's Pallas
 chunk kernels (K6 _chunk_kernel, K7 _chunk_dq_kernel / _chunk_dkv_kernel)
 in interpret mode: a chunk in the past, on the diagonal and wholly in the
 future, a padding mask with fully masked rows, a sliding window, and
-non-causal attention.  Small shapes; inputs from a seeded numpy
+non-causal attention; K6 out of place and in place, K7's partials out of
+place and added into the ring's buffers (``out=``).  Small shapes; inputs from a seeded numpy
 generator, fed to both sides.
 
 Tolerance: both sides compute in fp32 from the same inputs (bf16 inputs
@@ -145,6 +146,73 @@ def test_chunk_in_place_matches_out_of_place_and_pallas(dtype, case):
         assert a is c, name
         assert torch.equal(a, o), name
         _check(a, w, name)
+
+
+@pytest.mark.parametrize("dtype,case", [("float32", c) for c in sorted(CASES)]
+                         + [("bfloat16", "diagonal")])
+def test_chunk_partials_add_into_out(dtype, case):
+    """With ``out`` (the ring's form), the dq and dk/dv partials are added
+    into the given fp32 buffers, which come back: exactly the out-of-place
+    partial plus the buffer, and the Pallas chunk kernel's partial plus
+    the buffer within TOL; a chunk wholly in the future leaves the buffers
+    bit-equal."""
+    q_off, k_off, causal, window, masked = CASES[case]
+    q, k, v, do, m, l, acc, mask = _inputs(sorted(CASES).index(case),
+                                           masked)
+    (jq, jk, jv, jdo), (tq, tk, tv, tdo) = _both([q, k, v, do], dtype)
+    jmask = None if mask is None else jnp.asarray(mask)
+    tmask = None if mask is None else torch.from_numpy(mask)
+    kw = dict(q_offset=q_off, k_offset=k_off, causal=causal, window=window)
+    tm, tl, _ = tfa.flash_attention_chunk(tq, tk, tv, tmask, *(
+        torch.from_numpy(a) for a in (m, l, acc)), **kw)
+    tlse = tm + torch.log(tl.clamp_min(1e-30))
+    rng = np.random.default_rng(11)
+    delta, *bufs = (rng.standard_normal(shape).astype(np.float32)
+                    for shape in ((B, H, S), *[(B, H, S, D)] * 3))
+    tdelta = torch.from_numpy(delta)
+    sums = [torch.from_numpy(b.copy()) for b in bufs]
+    targs = (tq, tk, tv, tmask, tdo, tlse, tdelta)
+
+    launches = (tfa.chunk_dq_launches, tfa.chunk_dkv_launches)
+    dq = tfa.flash_attention_chunk_dq(*targs, **kw, out=sums[0])
+    dk, dv = tfa.flash_attention_chunk_dkv(*targs, **kw,
+                                           out=(sums[1], sums[2]))
+    assert (tfa.chunk_dq_launches, tfa.chunk_dkv_launches) == launches
+    assert dq is sums[0] and dk is sums[1] and dv is sums[2]
+    parts = (tfa.flash_attention_chunk_dq(*targs, **kw),
+             *tfa.flash_attention_chunk_dkv(*targs, **kw))
+    jargs = (jq, jk, jv, jmask, jdo, jnp.asarray(tlse.numpy()),
+             jnp.asarray(delta))
+    want = (jfa.flash_attention_chunk_dq(*jargs, **kw),
+            *jfa.flash_attention_chunk_dkv(*jargs, **kw))
+    for name, got, b, p, w in zip(("dq", "dk", "dv"), sums, bufs, parts,
+                                  want):
+        assert torch.equal(got, torch.from_numpy(b) + p), name
+        _check(got, b + np.asarray(w), name)
+        if case == "future":
+            assert torch.equal(got, torch.from_numpy(b)), name
+
+
+@pytest.mark.parametrize("kind", ["shape", "dtype", "layout", "not_a_pair"])
+def test_chunk_partials_refuse_a_wrong_out(kind):
+    """``out`` must be fp32, contiguous, of the partial's shape; the dk/dv
+    partials take the pair (dk, dv)."""
+    q, k, v, do, _, _, _, _ = _inputs(0, False)
+    args = [torch.from_numpy(a) for a in (q, k, v)] + [None, torch.from_numpy(
+        do), torch.zeros(B, H, S), torch.zeros(B, H, S)]
+    kw = dict(q_offset=S, k_offset=0, causal=True)
+    ok = torch.zeros(B, H, S, D)
+    bad = {"shape": ok[:, :, :-1], "dtype": ok.double(),
+           "layout": ok.transpose(2, 3).contiguous().transpose(2, 3),
+           "not_a_pair": ok}[kind]
+    before = ok.clone()
+    with pytest.raises(ValueError, match="out"):
+        tfa.flash_attention_chunk_dkv(*args, **kw, out=(
+            bad if kind == "not_a_pair" else (ok, bad)))
+    if kind != "not_a_pair":
+        with pytest.raises(ValueError, match="out"):
+            tfa.flash_attention_chunk_dq(*args, **kw, out=bad)
+    assert torch.equal(ok, before)
 
 
 def test_chunk_valid_is_the_global_band():
