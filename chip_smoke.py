@@ -9,15 +9,18 @@ Phases, one JSON line each on stdout:
 1. ``env``: the card (``nvidia-smi`` name and power limit), torch, CUDA.
 2. ``build``: the hand-written CUDA kernels, compiled from ``csrc/``,
    with ``-Xptxas -v``'s registers, spills and static shared memory of
-   the K1/K2 bf16 (wgmma) kernels beside the dynamic shared memory their
-   launchers request.
+   the K1/K2/K6/K7 bf16 (wgmma) kernels and of K4/K5's quantize pass and
+   int8 GEMM, beside the dynamic shared memory their launchers request.
 3. ``kernels``: each kernel against its plain PyTorch version on the card,
    in bf16 at the shapes each path gives it (K1 and K3 at the serving
    path's and the train step's, K3 also at the decode step's 8 rows, K2a
    and K2b at the train step's, K1, K2a and K2b also at head_dim 64 and
    32, K4 and K5 at the int8 MLP's four call sites of the int8 train
    step, every epilogue and prologue variant, and one small non-square
-   case; K6, K7a and K7b at the ring train step's per-hop shape, q/k/v
+   case, each also as its two kernels apart (the quantize pass and the
+   block-scaled GEMM, each held bit for bit to its plain version, the
+   GEMM's gelu output within one ulp; K4's weight transpose too); K6, K7a
+   and K7b at the ring train step's per-hop shape, q/k/v
    shards [8, 256, 16, 128], for a chunk wholly visible, on the diagonal
    and wholly in the future, a padding mask with fully masked rows, a
    window, non-causal, D = 64 and D = 32, K6 in the in-place form the
@@ -60,7 +63,8 @@ Phases, one JSON line each on stdout:
 6. ``train_int8``: the same step with ``matmul_int8=True`` (bench.py's
    int8 arm, :2271): each block's gelu MLP through K4 and K5.  The same
    kernel-vs-plain check (the plain path also takes the plain versions of
-   K4/K5), 30 steps with exact launch counts (K4 and K5 twice per layer),
+   K4/K5), 30 steps with exact launch counts (K4 and K5 twice per layer,
+   each call one quantize pass and one GEMM, K4's one weight transpose),
    the loss held to the bf16 phase's, the ``train_int8_profile`` line,
    then a short arm with ``attn_int8=True`` as well (bench.py :2287).
 7. ``train_ring``: the same step with ``attention_backend="ring"``
@@ -288,6 +292,29 @@ def flash_build_report(kernels, lib) -> list[dict]:
     return rows
 
 
+def quant_build_report(kernels, lib) -> list[dict]:
+    """ptxas's registers and spills of K4/K5's kernel A (quantize_blocks,
+    per dtype and K-block) and kernel B (qgemm_wgmma, per dtype, with the
+    dynamic shared memory its launcher requests)."""
+    import re
+    rows = []
+    for kind in ("quantize_blocks", "qgemm_wgmma"):
+        for r in kernels.ptxas_report(kind):
+            # <T, bk> or <T, BN, stages>, as the mangled name gives them.
+            m = re.search(kind + r"I(13__nv_bfloat16|f)(.*?)EEEv",
+                          r["kernel"])
+            targs = ["bf16" if "bfloat" in m.group(1) else "f32"] + \
+                re.findall(r"Li(\d+)E", m.group(2) + "E")
+            rows.append(dict(
+                kernel=f"{kind}<{', '.join(targs)}>",
+                registers=r.get("registers"),
+                spill_stores=r["spill_stores"], spill_loads=r["spill_loads"],
+                stack_bytes=r["stack_bytes"],
+                smem_dynamic=(lib.dtt_quant_gemm_smem()
+                              if kind == "qgemm_wgmma" else 0)))
+    return rows
+
+
 def check_k1(name, q, k, v, mask, out, lse, *, causal, window):
     """K1's output and logsumexp against the plain version on the same
     inputs; returns (max_abs_err of the output, of the live lse rows)."""
@@ -449,6 +476,11 @@ def check_kernels(dev):
     extra = ("ratio_to_library", "tflops", "pair_ms",
              "pair_ratio_to_library", "host_ms", "library_host_ms",
              "device_ms", "library_device_ms", "out_of_place_ms")
+    # K4/K5's two kernels (A, the quantize pass; B, the GEMM) and K4's
+    # weight transpose, per call site.
+    stage_keys = ("a_ms", "a_bound_ms", "a_bound_by", "b_ms", "b_bound_ms",
+                  "b_bound_by", "b_tops", "b_ratio_to_library",
+                  "transpose_ms", "transpose_plain_ms", "stages_bit_equal")
 
     def summary(name, file, replaces, main, by_path, cases, sites=()):
         """One row per kernel.  Its numbers are those of its main path's
@@ -474,7 +506,12 @@ def check_kernels(dev):
                                  M=c["M"], K=c["K"], N=c["N"],
                                  max_abs_err=c["max_abs_err"],
                                  library_bf16_ms=c["library_bf16_ms"],
-                                 **{k: c[k] for k in keys}) for c in sites]
+                                 **{k: c[k] for k in keys},
+                                 **{k: c[k] for k in stage_keys if k in c})
+                            for c in sites]
+            # K4/K5: kernel A's and kernel B's own numbers at the main site.
+            row.update({k: by_path[main][k] for k in stage_keys
+                        if k in by_path[main]})
         return row
     k4, k5, k8 = k45["k4"], k45["k5"], k45["k8"]
     # K6's hop mean counts the future hops, a bare launch in place against
@@ -518,9 +555,9 @@ def check_kernels(dev):
         # Each runs at two call sites per layer of the int8 step: the
         # row's numbers are the mlp_in site's (K4 its forward, K5 its
         # dgrad with g), ``sites`` has both.
-        summary("quant_matmul", "quant_matmul.cu", "quant_matmul.py:93",
+        summary("quant_matmul", "quant_gemm.cu", "quant_matmul.py:93",
                 "train_int8", {"train_int8": k4[0]}, k4, sites=k4[:2]),
-        summary("quant_matmul_nt", "quant_matmul.cu", "quant_matmul.py:185",
+        summary("quant_matmul_nt", "quant_gemm.cu", "quant_matmul.py:185",
                 "train_int8", {"train_int8": k5[1]}, k5, sites=k5[:2]),
         # The ring's per-hop kernels: the row's numbers are the mean per
         # launch over one train step's hops (visible, diagonal, future).
@@ -1015,10 +1052,14 @@ def int8_case(dev, g, kind, case, M, K, N, block_k, variant):
     got = got if isinstance(got, tuple) else (got,)
     want = want if isinstance(want, tuple) else (want,)
     errs = []
+    # K4 without gelu and K5's fold variant hold the plain version's bits.
+    no_tanh = variant in ("plain", "bias", "bias_residual", "fold")
     for name, x, y in zip(("out", "second"), got, want):
         err = (x.float() - y.float()).abs().max().item()
         peak = y.float().abs().max().item()
-        if kind != "k4" and name == "second":          # g: elementwise
+        if no_tanh:
+            ok, tol = torch.equal(x, y), "bit-equal (no tanh enters)"
+        elif kind != "k4" and name == "second":          # g: elementwise
             ok = bool(((x.float() - y.float()).abs()
                        <= bf16_ulp(y)).all())
             tol = "one bf16 ulp of each element"
@@ -1036,6 +1077,7 @@ def int8_case(dev, g, kind, case, M, K, N, block_k, variant):
     q_lib = torch.randint(-127, 128, (M, K), generator=g, device=dev,
                           dtype=torch.int8)
     w_bf16 = torch.randn(K, N, generator=g, device=dev).to(bf)
+    library_ms = cuda_ms(lambda: torch._int_mm(q_lib, qw_lib))
     row = dict(case=case, variant=variant, M=M, K=K, N=N,
                block_k=qmm._pick(K, block_k),
                max_abs_err=max(e["max_abs_err"] for e in errs), errors=errs,
@@ -1045,11 +1087,101 @@ def int8_case(dev, g, kind, case, M, K, N, block_k, variant):
                # Yardsticks, never called by the port: the library's int8
                # GEMM on operands already quantized, and the bf16 GEMM of
                # the same M, K, N.
-               library_ms=cuda_ms(lambda: torch._int_mm(q_lib, qw_lib)),
+               library_ms=library_ms,
                library="torch._int_mm on pre-quantized int8 operands",
                library_bf16_ms=cuda_ms(lambda: torch.matmul(a, w_bf16)))
+    if kind != "k8":
+        row.update(int8_stages(kind, args, kw, library_ms))
     del args, got, want, q_lib, w_bf16
     return row
+
+
+def int8_stages(kind, args, kw, library_ms) -> dict:
+    """K4's or K5's two kernels one at a time on the call's inputs: kernel
+    A (the quantize pass) and kernel B (the block-scaled GEMM on A's
+    codes) each held bit for bit to its plain version (B within one ulp of
+    the peak where gelu enters), each timed, with its bound; B's TOP/s and
+    its time over ``torch._int_mm``'s (``library_ms``); for K4 the weight
+    transpose kernel, held bit for bit to ``qw.t()`` and timed beside
+    ``qw.t().contiguous()``."""
+    import torch
+    from distributed_tensorflow_tpu_torch.ops import quant_matmul as qmm
+    a, qw, sw = args[:3]
+    M, K = a.shape
+    bk = qmm._block_k(K, kw["block_k"])
+    if kind == "k4":
+        bias, residual = args[3], args[4]
+        qa = dict(pre=None, sf=None, want_g=False)
+        w = qw.t().contiguous()
+        gemm_args = (w, bk, sw, bias, residual)
+        gemm_kw = dict(activation=kw.get("activation"),
+                       want_preact=kw.get("want_preact", False),
+                       out_dtype=a.dtype)
+    else:
+        qa = dict(pre=args[3], sf=sw, want_g=kw.get("want_g", False))
+        w = qw
+        gemm_args = (w, bk)
+        gemm_kw = dict(out_dtype=a.dtype)
+    N = w.shape[0]
+
+    def stage_a():
+        return qmm.quantize_blocks(a, bk, qa["pre"], qa["sf"],
+                                   want_g=qa["want_g"])
+
+    got_a = stage_a()
+    want_a = qmm.quantize_blocks_reference(a, bk, qa["pre"], qa["sf"],
+                                           want_g=qa["want_g"])
+    q, sx, _ = want_a
+
+    def stage_b():
+        return qmm.blocked_gemm(q, sx, *gemm_args, **gemm_kw)
+
+    got_b = stage_b()
+    want_b = qmm.blocked_gemm_reference(q, sx, *gemm_args, **gemm_kw)
+    torch.cuda.synchronize()
+    for name, x, y in zip(("q", "sx", "g"), got_a, want_a):
+        if (x is None) != (y is None) or (x is not None
+                                          and not torch.equal(x, y)):
+            raise AssertionError(f"{kind} kernel A: {name} differs from "
+                                 "its plain version")
+    got_b = got_b if isinstance(got_b, tuple) else (got_b,)
+    want_b = want_b if isinstance(want_b, tuple) else (want_b,)
+    b_err = 0.0
+    for i, (x, y) in enumerate(zip(got_b, want_b)):
+        if gemm_kw.get("activation") != "gelu" or i == 1:
+            if not torch.equal(x, y):
+                raise AssertionError(f"{kind} kernel B: output {i} differs "
+                                     "from its plain version")
+            continue
+        b_err = (x.float() - y.float()).abs().max().item()
+        peak = y.float().abs().max().item()
+        if not b_err <= bf16_ulp(torch.tensor(peak)).item():
+            raise AssertionError(f"{kind} kernel B: max_abs_err {b_err} at "
+                                 f"peak {peak}")
+    esize = a.element_size()
+    a_bytes = (a.numel() * esize * (1 if qa["pre"] is None else 2) + M * K
+               + (M * K * esize if qa["want_g"] else 0) + 4 * M * (K // bk)
+               + (4 * K if qa["sf"] is not None else 0))
+    a_ms = cuda_ms(stage_a)
+    gemm_ms = cuda_ms(stage_b)
+    out = dict(a_ms=a_ms, a_bound_ms=a_bytes / PEAK_BYTES * 1e3,
+               a_bound_by="bytes", b_ms=gemm_ms,
+               b_bound_ms=2 * M * K * N / PEAK_INT8_OPS * 1e3,
+               b_bound_by="operations",
+               b_tops=2 * M * K * N / (gemm_ms * 1e-3) / 1e12,
+               b_ratio_to_library=gemm_ms / library_ms,
+               stages_bit_equal="A; B" + (" (gelu output: max_abs_err "
+                                          f"{b_err})" if b_err else ""))
+    if kind == "k4":
+        wt = qmm.transpose_s8(qw)
+        torch.cuda.synchronize()
+        if not torch.equal(wt, qw.t()):
+            raise AssertionError("transpose_s8 differs from qw.t()")
+        out["transpose_ms"] = cuda_ms(lambda: qmm.transpose_s8(qw))
+        out["transpose_plain_ms"] = cuda_ms(lambda: qw.t().contiguous())
+        del wt
+    del got_a, want_a, got_b, want_b, q, sx, w
+    return out
 
 
 def check_int8_kernels(dev, g):
@@ -1310,13 +1442,15 @@ def check_train_step(dev, model, loss_fn, batch, tols):
     return out
 
 
-def profile_train_step(step, state, batch) -> dict:
+def profile_train_step(step, state, batch, named=None) -> dict:
     """``torch.profiler`` over one train step: the card's busy share of
     the step (the sum of its kernels' times over the step's wall time),
     the kernels that take most of it, and the operators they ran under
     (an operator's device time is that of the kernels it launched, and a
     user annotation such as the optimizer step spans kernels on the
-    device's timeline too: only the kernels are summed)."""
+    device's timeline too: only the kernels are summed).  ``named``:
+    {label: substring}, each label's device ms and calls over the kernels
+    and operators whose name holds the substring."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -1341,10 +1475,18 @@ def profile_train_step(step, state, batch) -> dict:
     kernels.sort(key=lambda r: -r[1])
     ops.sort(key=lambda r: -r[1])
     busy_ms = sum(r[1] for r in kernels)
-    return dict(window_ms=window_ms, device_busy_ms=busy_ms,
-                busy_share=busy_ms / window_ms if kernels else None,
-                top_kernels=[[k[:60], ms, n] for k, ms, n in kernels[:10]],
-                top_ops=[[k[:60], ms, n] for k, ms, n in ops[:10]])
+    out = dict(window_ms=window_ms, device_busy_ms=busy_ms,
+               busy_share=busy_ms / window_ms if kernels else None,
+               top_kernels=[[k[:60], ms, n] for k, ms, n in kernels[:10]],
+               top_ops=[[k[:60], ms, n] for k, ms, n in ops[:10]])
+    if named:
+        out["named"] = {
+            label: dict(kernel_ms=sum(ms for k, ms, _ in kernels if sub in k),
+                        kernel_calls=sum(n for k, _, n in kernels if sub in k),
+                        op_ms=sum(ms for k, ms, _ in ops if sub in k),
+                        op_calls=sum(n for k, _, n in ops if sub in k))
+            for label, sub in named.items()}
+    return out
 
 
 def launch_counts() -> dict:
@@ -1361,7 +1503,11 @@ def launch_counts() -> dict:
             "flash_attention_chunk": fa.chunk_launches,
             "flash_attention_chunk_dq": fa.chunk_dq_launches,
             "flash_attention_chunk_dkv": fa.chunk_dkv_launches,
-            "quant_matmul_dgelu": qmm.dgelu_launches}
+            "quant_matmul_dgelu": qmm.dgelu_launches,
+            # K4/K5's two kernels: each call of either launches both.
+            "quantize_blocks": qmm.quantize_launches,
+            "quant_gemm": qmm.gemm_launches,
+            "transpose_s8": qmm.transpose_launches}
 
 
 def reset_launch_counts() -> None:
@@ -1371,10 +1517,11 @@ def reset_launch_counts() -> None:
     fa.launches = fa.dq_launches = fa.dkv_launches = ln.launches = 0
     fa.chunk_launches = fa.chunk_dq_launches = fa.chunk_dkv_launches = 0
     qmm.launches = qmm.nt_launches = qmm.dgelu_launches = 0
+    qmm.quantize_launches = qmm.gemm_launches = qmm.transpose_launches = 0
 
 
 def train_run(dev, cfg, steps: int, check=None, profile=True,
-              mesh=None) -> dict:
+              mesh=None, named=None) -> dict:
     """The flagship step of ``cfg`` (fp32 masters, Adam, B=8, S=1024, the
     synthetic stream from its seed; ``mesh``: the ring backend's): the
     kernel-vs-plain ``check(model, loss_fn, batch)`` when given, then
@@ -1421,7 +1568,7 @@ def train_run(dev, cfg, steps: int, check=None, profile=True,
         grad_norms.append(float(metrics["grad_norm"]))
     launches = launch_counts()
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
-    profiled = profile_train_step(step, state, batches[steps]) \
+    profiled = profile_train_step(step, state, batches[steps], named) \
         if profile else None
     if not all(map(math.isfinite, losses)):
         raise AssertionError(f"non-finite train loss: {losses}")
@@ -1481,14 +1628,21 @@ def train_int8(dev, smi: str, bf16: dict):
     short arm with the int8 attention projections as well."""
     from distributed_tensorflow_tpu_torch.models import gpt
     cfg = gpt.GptConfig(**WIDTH, matmul_int8=True)
+    # K4/K5's kernels and the weight transpose by name in the profile.
+    named = {"kernel A (quantize_blocks)": "quantize_blocks",
+             "kernel B (qgemm_wgmma)": "qgemm_wgmma",
+             "K4 weight transpose (transpose_s8)": "transpose_s8"}
     run = train_run(dev, cfg, TRAIN["steps"], check=lambda m, f, b: (
         check_train_step(dev, m, f, b, (TRAIN_INT8_LOSS_TOL,
                                         TRAIN_INT8_GRAD_NORM_RTOL,
-                                        TRAIN_INT8_GRAD_MIN_COS))))
+                                        TRAIN_INT8_GRAD_MIN_COS))),
+        named=named)
     L = cfg.num_layers
     per_step = {"flash_attention_fwd": L, "flash_attention_bwd_dq": L,
                 "flash_attention_bwd_dkv": L, "layer_norm_fwd": 2 * L + 1,
-                "quant_matmul": 2 * L, "quant_matmul_nt": 2 * L}
+                "quant_matmul": 2 * L, "quant_matmul_nt": 2 * L,
+                "quantize_blocks": 4 * L, "quant_gemm": 4 * L,
+                "transpose_s8": 2 * L}
     expect_launches("train_int8", run["launches"], per_step, TRAIN["steps"])
     falls("train_int8", run)
     limit = INT8_LOSS_RATIO * bf16["loss_last5_mean"] + INT8_LOSS_SLACK
@@ -1614,7 +1768,8 @@ def main() -> int:
     lib = kernels.load()
     emit("build", seconds=time.perf_counter() - t0,
          sources=[os.path.basename(s) for s in kernels.sources()],
-         flash_bf16_kernels=flash_build_report(kernels, lib))
+         flash_bf16_kernels=flash_build_report(kernels, lib),
+         quant_kernels=quant_build_report(kernels, lib))
 
     rows = check_kernels(dev)
     from distributed_tensorflow_tpu_torch.ops import quant_matmul as qmm

@@ -1,8 +1,16 @@
 // Hopper building blocks shared by the flash-attention kernels (K1 in
 // flash_attention.cu, K2 in flash_attention_bwd.cu, K6 and K7 in
-// flash_attention_chunk.cu): mbarriers, TMA tile loads through a tensor
-// map, wgmma shared-memory descriptors and the warpgroup products
-// themselves.  sm_90a only (wgmma, setmaxnreg).
+// flash_attention_chunk.cu) and the block-scaled int8 GEMM (K4/K5 in
+// quant_gemm.cu): mbarriers, TMA tile loads through a tensor map, wgmma
+// shared-memory descriptors and the warpgroup products themselves.
+// sm_90a only (wgmma, setmaxnreg).
+//
+// int8 tiles.  A row of 128 int8 codes is 128 bytes, the geometry of a
+// bf16 row of D = 64, and an s8 k32 slice is 32 bytes, like a bf16 k16
+// slice: a [rows, 128] code tile loaded with the 128-byte swizzle
+// (make_u8_map) is read by tile_kmajor<64, ROWS> unchanged, its k-slice
+// kk (0..3) being codes 32 kk .. 32 kk + 31.  The s32 accumulator of
+// wgmma m64nNk32 has the fp32 one's layout (below).
 //
 // Shared-memory tiles.  A [rows, D] bf16 tile is stored as D / W "boxes"
 // of [rows, W], W = min(D, 64) columns: one TMA box each, 2 W bytes a row
@@ -137,6 +145,48 @@ inline cudaError_t make_tile_map(CUtensorMap* map, const void* base, int B,
   return cudaSuccess;
 }
 
+// A row-major uint8 [rows, cols] matrix (row pitch ld bytes; base and ld
+// 16-byte multiples) as boxes of [box_rows, 128 bytes] with the 128-byte
+// swizzle, rows and columns past the matrix read as zeros.  Cached per
+// thread as make_tile_map's maps are: a training step passes the same
+// few codes and weights again and again.
+inline cudaError_t make_u8_map(CUtensorMap* map, const void* base,
+                               long long rows, long long cols, long long ld,
+                               int box_rows) {
+  struct Entry {
+    CUtensorMap map;
+    const void* base;
+    long long rows, cols, ld;
+    int box_rows;
+    bool valid;
+  };
+  constexpr size_t kSlots = 32;
+  thread_local Entry cache[kSlots] = {};
+  const long long fields[] = {rows, cols, ld, box_rows};
+  uint64_t h = reinterpret_cast<uintptr_t>(base);
+  for (long long v : fields) h = (h ^ (uint64_t)v) * 0x100000001b3ull;
+  Entry& e = cache[(size_t)(h ^ (h >> 29)) % kSlots];
+  if (e.valid && e.base == base && e.rows == rows && e.cols == cols &&
+      e.ld == ld && e.box_rows == box_rows) {
+    *map = e.map;
+    return cudaSuccess;
+  }
+  EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return cudaErrorNotSupported;
+  const cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
+  const cuuint64_t strides[1] = {(cuuint64_t)ld};
+  const cuuint32_t box[2] = {128, (cuuint32_t)box_rows};
+  const cuuint32_t elem[2] = {1, 1};
+  const CUresult r = encode(
+      map, CU_TENSOR_MAP_DATA_TYPE_UINT8, 2, const_cast<void*>(base), dims,
+      strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
+      CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+      CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  if (r != CUDA_SUCCESS) return cudaErrorInvalidValue;
+  e = Entry{*map, base, rows, cols, ld, box_rows, true};
+  return cudaSuccess;
+}
+
 // ---- device: barriers and copies -----------------------------------------
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
@@ -209,6 +259,17 @@ __device__ __forceinline__ void tma_load_tile(uint8_t* dst,
                  box * T::kBoxCols, h, s0, b);
 }
 
+// One box of a 2-D map (make_u8_map): columns c0.., rows r0...
+__device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map,
+                                            uint64_t* bar, int c0, int r0) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4}], [%2];\n" ::"r"(smem_addr(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_addr(bar)), "r"(c0),
+      "r"(r0)
+      : "memory");
+}
+
 // ---- device: warpgroup products ------------------------------------------
 
 // A swizzled shared-memory matrix descriptor: start address, leading and
@@ -249,6 +310,11 @@ __device__ __forceinline__ void wgmma_commit() {
 __device__ __forceinline__ void wgmma_wait_all() {
   asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
 }
+// Wait until at most N committed groups of products are still in flight.
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
 
 // Keep the compiler from moving accumulator reads or writes across the
 // asynchronous products (the registers change behind its back).
@@ -256,6 +322,12 @@ template <int N>
 __device__ __forceinline__ void fence_regs(float (&d)[N]) {
 #pragma unroll
   for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+template <int N>
+__device__ __forceinline__ void fence_regs(int (&d)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+r"(d[i])::"memory");
 }
 
 // The same for register-A fragments: a register-A wgmma reads them
@@ -272,6 +344,12 @@ template <int N>
 __device__ __forceinline__ void zero(float (&d)[N]) {
 #pragma unroll
   for (int i = 0; i < N; ++i) d[i] = 0.f;
+}
+
+// Barrier `id` (1..15; 0 is __syncthreads) over `n` threads, e.g. one
+// warpgroup's.
+__device__ __forceinline__ void named_sync(int id, int n) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(n) : "memory");
 }
 
 // Register budget of a warp-specialised block: the producer warpgroup
@@ -473,6 +551,96 @@ __device__ __forceinline__ void wgmma_rs<128>(float (&d)[64],
         "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
         "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
+}
+
+// D[64 x N] (+)= A[64 x 32] . B[32 x N] in int32, A and B int8 K-major in
+// shared memory (the only layout wgmma takes 8-bit operands in).
+template <int N>
+__device__ __forceinline__ void wgmma_ss_s8(int (&d)[N / 2], uint64_t da,
+                                            uint64_t db, int scale_d);
+
+template <>
+__device__ __forceinline__ void wgmma_ss_s8<128>(int (&d)[64], uint64_t da,
+                                                 uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k32.s32.s8.s8 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63"
+      "}, %64, %65, p;\n}\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]),
+        "+r"(d[4]), "+r"(d[5]), "+r"(d[6]), "+r"(d[7]),
+        "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]),
+        "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15]),
+        "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]),
+        "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]),
+        "+r"(d[24]), "+r"(d[25]), "+r"(d[26]), "+r"(d[27]),
+        "+r"(d[28]), "+r"(d[29]), "+r"(d[30]), "+r"(d[31]),
+        "+r"(d[32]), "+r"(d[33]), "+r"(d[34]), "+r"(d[35]),
+        "+r"(d[36]), "+r"(d[37]), "+r"(d[38]), "+r"(d[39]),
+        "+r"(d[40]), "+r"(d[41]), "+r"(d[42]), "+r"(d[43]),
+        "+r"(d[44]), "+r"(d[45]), "+r"(d[46]), "+r"(d[47]),
+        "+r"(d[48]), "+r"(d[49]), "+r"(d[50]), "+r"(d[51]),
+        "+r"(d[52]), "+r"(d[53]), "+r"(d[54]), "+r"(d[55]),
+        "+r"(d[56]), "+r"(d[57]), "+r"(d[58]), "+r"(d[59]),
+        "+r"(d[60]), "+r"(d[61]), "+r"(d[62]), "+r"(d[63])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_ss_s8<192>(int (&d)[96], uint64_t da,
+                                                 uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %98, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n192k32.s32.s8.s8 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63, "
+      "%64, %65, %66, %67, %68, %69, %70, %71, "
+      "%72, %73, %74, %75, %76, %77, %78, %79, "
+      "%80, %81, %82, %83, %84, %85, %86, %87, "
+      "%88, %89, %90, %91, %92, %93, %94, %95"
+      "}, %96, %97, p;\n}\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]),
+        "+r"(d[4]), "+r"(d[5]), "+r"(d[6]), "+r"(d[7]),
+        "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]),
+        "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15]),
+        "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]),
+        "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]),
+        "+r"(d[24]), "+r"(d[25]), "+r"(d[26]), "+r"(d[27]),
+        "+r"(d[28]), "+r"(d[29]), "+r"(d[30]), "+r"(d[31]),
+        "+r"(d[32]), "+r"(d[33]), "+r"(d[34]), "+r"(d[35]),
+        "+r"(d[36]), "+r"(d[37]), "+r"(d[38]), "+r"(d[39]),
+        "+r"(d[40]), "+r"(d[41]), "+r"(d[42]), "+r"(d[43]),
+        "+r"(d[44]), "+r"(d[45]), "+r"(d[46]), "+r"(d[47]),
+        "+r"(d[48]), "+r"(d[49]), "+r"(d[50]), "+r"(d[51]),
+        "+r"(d[52]), "+r"(d[53]), "+r"(d[54]), "+r"(d[55]),
+        "+r"(d[56]), "+r"(d[57]), "+r"(d[58]), "+r"(d[59]),
+        "+r"(d[60]), "+r"(d[61]), "+r"(d[62]), "+r"(d[63]),
+        "+r"(d[64]), "+r"(d[65]), "+r"(d[66]), "+r"(d[67]),
+        "+r"(d[68]), "+r"(d[69]), "+r"(d[70]), "+r"(d[71]),
+        "+r"(d[72]), "+r"(d[73]), "+r"(d[74]), "+r"(d[75]),
+        "+r"(d[76]), "+r"(d[77]), "+r"(d[78]), "+r"(d[79]),
+        "+r"(d[80]), "+r"(d[81]), "+r"(d[82]), "+r"(d[83]),
+        "+r"(d[84]), "+r"(d[85]), "+r"(d[86]), "+r"(d[87]),
+        "+r"(d[88]), "+r"(d[89]), "+r"(d[90]), "+r"(d[91]),
+        "+r"(d[92]), "+r"(d[93]), "+r"(d[94]), "+r"(d[95])
+      : "l"(da), "l"(db), "r"(scale_d));
 }
 
 }  // namespace dtt

@@ -1,29 +1,35 @@
 """Fused quantize-and-matmul: int8 products with the activations quantized
-per (row, K-block) inside the matmul.
+per (row, K-block).
 
 Counterpart of ``distributed_tensorflow_tpu/ops/pallas/quant_matmul.py``
 (``quantize_cols``, ``quantized_matmul``, ``quantized_matmul_nt``,
 ``quantized_matmul_dgelu``).
 Weights are quantized per output column outside the kernels
 (:func:`quantize_cols`, once per step); activations get one scale per row
-and per K-block of width ``bk = _pick(K, block_k)``, computed in the
-kernel's prologue.  The K-block is part of the function: each block's
-int32 product is rescaled by its own scale into an fp32 accumulator,
-``acc += float(part) * sx``, block after block.
+and per K-block of width ``bk = _pick(K, block_k)``.  The K-block is part
+of the function: each block's int32 product is rescaled by its own scale
+into an fp32 accumulator, ``acc += float(part) * sx``, block after block.
 
 Each function is one wrapper around two implementations:
 
-- on CUDA tensors, the hand-written kernels of ``csrc/quant_matmul.cu``
-  (K4 :func:`quantized_matmul`, the forward with its bias / gelu /
-  pre-activation / residual epilogue; K5 :func:`quantized_matmul_nt`, the
-  dgrad against the forward's quantized weight with the scale fold and the
-  gelu backward in its prologue; K8 :func:`quantized_matmul_dgelu`, the
-  dgrad against an explicitly re-quantized ``w.T`` with the gelu backward
-  in its prologue and no fold, on no training path), on the int8 tensor
-  cores;
+- on CUDA tensors, hand-written kernels on the int8 tensor cores.  K4
+  (:func:`quantized_matmul`, the forward with its bias / gelu /
+  pre-activation / residual epilogue) and K5 (:func:`quantized_matmul_nt`,
+  the dgrad against the forward's quantized weight with the scale fold and
+  the gelu backward in its prologue) are two kernels of
+  ``csrc/quant_gemm.cu`` each: the quantize pass
+  (:func:`quantize_blocks`, codes and scales once per element) and the
+  block-scaled int8 GEMM (:func:`blocked_gemm`, wgmma, with K4's
+  epilogue; K4's weight made K-major first by :func:`transpose_s8`).  K8
+  (:func:`quantized_matmul_dgelu`, the dgrad against an explicitly
+  re-quantized ``w.T``, on no training path) is
+  ``csrc/quant_matmul.cu``'s fused kernel;
 - on CPU tensors, the plain versions :func:`quantized_matmul_reference`,
   :func:`quantized_matmul_nt_reference` and
-  :func:`quantized_matmul_dgelu_reference`.
+  :func:`quantized_matmul_dgelu_reference` (the specification), and for
+  the two stages :func:`quantize_blocks_reference` and
+  :func:`blocked_gemm_reference`, whose composition gives the first two
+  bit for bit.
 
 A CUDA tensor never takes a plain version: the kernel launches or the call
 raises.  The kernels take every M; K must have a power-of-two K-block of
@@ -39,9 +45,12 @@ from . import kernels
 
 # Kernel launches since the last reset (a smoke run resets them, drives
 # the main path, and reads them back).
-launches = 0
-nt_launches = 0
-dgelu_launches = 0
+launches = 0              # K4 calls (each launches A, then B)
+nt_launches = 0           # K5 calls (each launches A, then B)
+dgelu_launches = 0        # K8
+quantize_launches = 0     # kernel A, the quantize pass
+gemm_launches = 0         # kernel B, the block-scaled int8 GEMM
+transpose_launches = 0    # K4's weight transpose
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _TILE_N = 128          # the kernels' output-column tile
@@ -259,9 +268,66 @@ def quantized_matmul_dgelu_reference(da, pre, qwt, swt, *,
     return (out, g.to(da.dtype)) if want_g else out
 
 
+def quantize_blocks_reference(a, bk: int, pre=None, sf=None, *,
+                              want_g: bool = False):
+    """Plain version of :func:`quantize_blocks`, the quantize stage of K4
+    and K5: ``v = a`` (fp32), times ``gelu'(pre)`` when ``pre`` is given
+    (``g = v`` in a.dtype with ``want_g``), times ``sf [K]`` (the fold)
+    when given; then per (row, K-block of ``bk``) ``sx = max(amax |v|,
+    1e-8) / 127`` and ``q = clamp(round(v / sx), -127, 127)``.  Returns
+    ``(q [M, K] int8, sx [K / bk, M] fp32, g or None)``."""
+    M, K = a.shape
+    if want_g and pre is None:
+        raise ValueError("want_g needs pre: g is v before the fold")
+    v = a.to(torch.float32)
+    if pre is not None:
+        v = v * _dgelu(pre.to(torch.float32))
+    g = v.to(a.dtype) if want_g else None
+    if sf is not None:
+        v = v * sf.reshape(1, K).to(torch.float32)
+    q, sx = _quant_block(v.reshape(M, K // bk, bk))
+    return (q.reshape(M, K).to(torch.int8),
+            sx.reshape(M, K // bk).t().contiguous(), g)
+
+
+def blocked_gemm_reference(q, sx, w, bk: int, sw=None, bias=None,
+                           residual=None, *, activation: str | None = None,
+                           want_preact: bool = False,
+                           out_dtype=torch.float32):
+    """Plain version of :func:`blocked_gemm`, the GEMM stage of K4 and K5:
+    ``acc = sum_kb float(q_kb @ w_kb.T) * sx[kb]`` in fp32, K-blocks in
+    order, for codes ``q [M, K]``, scales ``sx [K / bk, M]`` and the
+    K-major weight ``w [N, K]`` (int8).  Without ``sw`` the output is
+    ``acc`` in ``out_dtype`` (K5); with it K4's epilogue: ``* sw``, ``+
+    bias``, the pre-activation rounded to ``out_dtype`` (returned with
+    ``want_preact``) and re-read, gelu, ``+ residual``, one cast."""
+    M, K = q.shape
+    acc = torch.zeros(M, w.shape[0], dtype=torch.float32, device=q.device)
+    for kb in range(K // bk):
+        cols = slice(kb * bk, (kb + 1) * bk)
+        # One K-block: exact in fp32 because bk <= 1024 (see int_dot).
+        part = q[:, cols].to(torch.float32) @ w[:, cols].t().to(torch.float32)
+        acc = acc + part * sx[kb].reshape(M, 1)
+    if sw is None:
+        return acc.to(out_dtype)
+    y = acc * sw.reshape(1, -1).to(torch.float32)
+    if bias is not None:
+        y = y + bias.reshape(1, -1).to(torch.float32)
+    pre = None
+    if want_preact:
+        pre = y.to(out_dtype)
+        y = pre.to(torch.float32)
+    if activation == "gelu":
+        y = _gelu(y)
+    if residual is not None:
+        y = y + residual.to(torch.float32)
+    out = y.to(out_dtype)
+    return (out, pre) if want_preact else out
+
+
 def _rows_ok(t: torch.Tensor) -> bool:
     """Last dim contiguous and rows on a 16-byte boundary: the kernels
-    load four elements per lane (8 bytes in bf16, 16 in fp32)."""
+    load 16 bytes per lane (8 in bf16 at a K-block of 128)."""
     return (t.stride(-1) == 1 and t.data_ptr() % 16 == 0
             and (t.stride(0) * t.element_size()) % 16 == 0)
 
@@ -279,28 +345,164 @@ def _check_cuda(name: str, t: torch.Tensor, like: torch.Tensor,
         raise ValueError(f"{name} must be {dtype}, got {t.dtype}")
 
 
-def _kernel_shape(x: torch.Tensor, K: int, N: int, bk: int) -> None:
+def _kernel_bk(K: int, bk: int) -> None:
+    if bk < 128 or bk > _MAX_BK or bk & (bk - 1) or K % bk:
+        raise ValueError(f"the kernels need a power-of-two K-block of 128 "
+                         f"to {_MAX_BK} dividing K={K}, got {bk}")
+
+
+def _kernel_n(N: int) -> None:
+    if N % _TILE_N:
+        raise ValueError(f"the kernels need N % {_TILE_N} == 0, got {N}")
+
+
+def _kernel_input(x: torch.Tensor, K: int, bk: int) -> None:
     if x.device.type != "cuda":
         raise ValueError(f"quantized matmuls run on cuda or cpu, got "
                          f"{x.device}")
     if x.dtype not in _DTYPE_CODE:
         raise ValueError(f"the kernels take fp32/bf16 activations, got "
                          f"{x.dtype}")
-    if bk < 128 or K % bk:
-        raise ValueError(f"the kernels need a power-of-two K-block of 128 "
-                         f"to {_MAX_BK} dividing K={K}, got {bk}")
-    if N % _TILE_N:
-        raise ValueError(f"the kernels need N % {_TILE_N} == 0, got {N}")
+    _kernel_bk(K, bk)
+
+
+def _kernel_shape(x: torch.Tensor, K: int, N: int, bk: int) -> None:
+    _kernel_input(x, K, bk)
+    _kernel_n(N)
+
+
+def _aligned(t: torch.Tensor) -> torch.Tensor:
+    """``t`` contiguous on a 16-byte boundary (TMA's and the vector
+    loads' requirement), copied only where it is not."""
+    t = t.contiguous()
+    return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
+def quantize_blocks(a, bk: int, pre=None, sf=None, *, want_g: bool = False):
+    """Kernel A of K4/K5: per-(row, K-block) int8 codes and scales of ``v =
+    a [* gelu'(pre)] [* sf]`` (and ``g``, ``v`` before the fold, with
+    ``want_g``).  See :func:`quantize_blocks_reference`; on a CPU tensor it
+    is that plain version.  Returns ``(q [M, K] int8, sx [K / bk, M] fp32,
+    g or None)``."""
+    if a.device.type == "cpu":
+        return quantize_blocks_reference(a, bk, pre, sf, want_g=want_g)
+    M, K = a.shape
+    _kernel_input(a, K, bk)
+    if want_g and pre is None:
+        raise ValueError("want_g needs pre: g is v before the fold")
+    a = _rows(a)
+    if pre is not None:
+        _check_cuda("pre", pre, a, a.dtype)
+        if pre.shape != a.shape:
+            raise ValueError(f"pre shape {tuple(pre.shape)} != "
+                             f"{tuple(a.shape)}")
+        pre = _rows(pre)
+    if sf is not None:
+        _check_cuda("sf", sf, a, torch.float32)
+        if sf.numel() != K:
+            raise ValueError(f"sf has {sf.numel()} values, K is {K}")
+        sf = _aligned(sf)          # read 16 bytes a lane
+    q = torch.empty(M, K, dtype=torch.int8, device=a.device)
+    sx = torch.empty(K // bk, M, dtype=torch.float32, device=a.device)
+    g = torch.empty(M, K, dtype=a.dtype, device=a.device) if want_g \
+        else None
+    if M:
+        kernels.launch(
+            "quant_blocks", a.device, a.data_ptr(),
+            None if pre is None else pre.data_ptr(),
+            None if sf is None else sf.data_ptr(), q.data_ptr(),
+            sx.data_ptr(), None if g is None else g.data_ptr(), M, K, bk,
+            a.stride(0), 0 if pre is None else pre.stride(0),
+            _DTYPE_CODE[a.dtype])
+        global quantize_launches
+        quantize_launches += 1
+    return q, sx, g
+
+
+def blocked_gemm(q, sx, w, bk: int, sw=None, bias=None, residual=None, *,
+                 activation: str | None = None, want_preact: bool = False,
+                 out_dtype=torch.float32):
+    """Kernel B of K4/K5: the block-scaled int8 GEMM of codes ``q [M, K]``
+    and scales ``sx [K / bk, M]`` (:func:`quantize_blocks`) against the
+    K-major weight ``w [N, K]`` int8, with K4's epilogue when ``sw`` is
+    given.  See :func:`blocked_gemm_reference`; on a CPU tensor it is that
+    plain version."""
+    if q.device.type == "cpu":
+        return blocked_gemm_reference(
+            q, sx, w, bk, sw, bias, residual, activation=activation,
+            want_preact=want_preact, out_dtype=out_dtype)
+    M, K = q.shape
+    N = w.shape[0]
+    if q.dtype != torch.int8 or tuple(w.shape) != (N, K):
+        raise ValueError(f"codes {q.dtype} {tuple(q.shape)} against weight "
+                         f"{w.dtype} {tuple(w.shape)}: int8 [M, K], [N, K]")
+    _check_cuda("w", w, q, torch.int8)
+    _check_cuda("sx", sx, q, torch.float32)
+    if tuple(sx.shape) != (K // bk, M):
+        raise ValueError(f"sx shape {tuple(sx.shape)} != ({K // bk}, {M})")
+    if out_dtype not in _DTYPE_CODE:
+        raise ValueError(f"the kernels write fp32/bf16, got {out_dtype}")
+    _kernel_bk(K, bk)
+    _kernel_n(N)
+    if sw is None and (bias is not None or residual is not None
+                       or activation or want_preact):
+        raise ValueError("the epilogue (bias, residual, gelu, preact) "
+                         "comes with the weight scale sw")
+    q, sx, w = _aligned(q), sx.contiguous(), _aligned(w)
+    if sw is not None:
+        _check_cuda("sw", sw, q, torch.float32)
+        sw = sw.reshape(-1).contiguous()
+    if bias is not None:
+        _check_cuda("bias", bias, q)
+        bias = bias.reshape(-1).to(torch.float32).contiguous()
+    if residual is not None:
+        _check_cuda("residual", residual, q, out_dtype)
+        residual = residual.contiguous()
+    out = torch.empty(M, N, dtype=out_dtype, device=q.device)
+    pre = torch.empty_like(out) if want_preact else None
+    if M:
+        kernels.launch(
+            "quant_gemm", q.device, q.data_ptr(), sx.data_ptr(),
+            w.data_ptr(), None if sw is None else sw.data_ptr(),
+            None if bias is None else bias.data_ptr(),
+            None if residual is None else residual.data_ptr(),
+            out.data_ptr(), None if pre is None else pre.data_ptr(),
+            M, N, K, bk, int(activation == "gelu"), _DTYPE_CODE[out_dtype])
+        global gemm_launches
+        gemm_launches += 1
+    return (out, pre) if want_preact else out
+
+
+def transpose_s8(w):
+    """``w [R, C]`` int8 -> its transpose ``[C, R]``, contiguous: K4's
+    weight made K-major for kernel B (wgmma takes 8-bit operands K-major
+    only).  A kernel of its own on a CUDA tensor (R and C multiples of
+    64), ``w.t().contiguous()`` on a CPU tensor."""
+    if w.device.type == "cpu":
+        return w.t().contiguous()
+    R, C = w.shape
+    if w.dtype != torch.int8 or R % 64 or C % 64:
+        raise ValueError(f"the transpose kernel takes int8 [R, C] with R "
+                         f"and C multiples of 64, got {w.dtype} "
+                         f"{tuple(w.shape)}")
+    w = _aligned(w)
+    out = torch.empty(C, R, dtype=torch.int8, device=w.device)
+    kernels.launch("transpose_s8", w.device, w.data_ptr(), out.data_ptr(),
+                   R, C)
+    global transpose_launches
+    transpose_launches += 1
+    return out
 
 
 def quantized_matmul(x, qw, sw, bias=None, residual=None, *,
                      activation: str | None = None,
                      want_preact: bool = False, block_k: int = 512):
     """``x [M, K] (bf16/fp32) @ (qw [K, N] int8 * sw [1, N])`` -> x.dtype,
-    with x quantized per (row, K-block) in the kernel's prologue and the
-    epilogue of :func:`quantized_matmul_reference`.  Returns ``(y, pre)``
-    with ``want_preact``.  K4 on a CUDA tensor, the plain version on a CPU
-    tensor."""
+    with x quantized per (row, K-block) and the epilogue of
+    :func:`quantized_matmul_reference`.  Returns ``(y, pre)`` with
+    ``want_preact``.  K4 on a CUDA tensor (kernel A, the quantize pass,
+    the weight's transpose, then kernel B, the GEMM with the epilogue),
+    the plain version on a CPU tensor."""
     if x.device.type == "cpu":
         return quantized_matmul_reference(
             x, qw, sw, bias, residual, activation=activation,
@@ -311,29 +513,18 @@ def quantized_matmul(x, qw, sw, bias=None, residual=None, *,
     _kernel_shape(x, K, N, bk)
     _check_cuda("qw", qw, x, torch.int8)
     _check_cuda("sw", sw, x, torch.float32)
-    # The kernel reads the weight K-major, as the int8 mma's B operand
-    # wants: one int8 transpose per call.
-    x, qwt, sw = _rows(x), qw.t().contiguous(), sw.contiguous()
-    if bias is not None:
-        _check_cuda("bias", bias, x)
-        bias = bias.contiguous()
-    if residual is not None:
-        _check_cuda("residual", residual, x, x.dtype)
-        residual = residual.contiguous()
-    out = torch.empty(M, N, dtype=x.dtype, device=x.device)
-    pre = torch.empty_like(out) if want_preact else None
     if M == 0:
-        return (out, pre) if want_preact else out
-    kernels.launch(
-        "quant_matmul", x.device, x.data_ptr(), qwt.data_ptr(),
-        sw.data_ptr(), None if bias is None else bias.data_ptr(),
-        None if residual is None else residual.data_ptr(),
-        out.data_ptr(), None if pre is None else pre.data_ptr(),
-        M, N, K, bk, x.stride(0), int(activation == "gelu"),
-        _DTYPE_CODE[x.dtype])
+        out = torch.empty(0, N, dtype=x.dtype, device=x.device)
+        return (out, torch.empty_like(out)) if want_preact else out
+    q, sx, _ = quantize_blocks(x, bk)
+    # wgmma takes 8-bit operands K-major only: one int8 transpose of the
+    # weight per call (N * K bytes each way).
+    out = blocked_gemm(q, sx, transpose_s8(qw), bk, sw, bias, residual,
+                       activation=activation, want_preact=want_preact,
+                       out_dtype=x.dtype)
     global launches
     launches += 1
-    return (out, pre) if want_preact else out
+    return out
 
 
 def quantized_matmul_nt(da, qw, sw, pre=None, *, prologue: str = "fold",
@@ -342,8 +533,9 @@ def quantized_matmul_nt(da, qw, sw, pre=None, *, prologue: str = "fold",
     [N, K]`` / ``sw [1, K]`` (the forward's :func:`quantize_cols` output,
     contracted on its last axis) -> ``dx [M, N]`` in da.dtype, and the
     unfolded ``g`` with ``want_g``.  See
-    :func:`quantized_matmul_nt_reference`.  K5 on a CUDA tensor, the plain
-    version on a CPU tensor."""
+    :func:`quantized_matmul_nt_reference`.  K5 on a CUDA tensor (kernel A
+    with the gelu' and fold prologue, then kernel B), the plain version on
+    a CPU tensor."""
     if da.device.type == "cpu":
         return quantized_matmul_nt_reference(
             da, qw, sw, pre, prologue=prologue, want_g=want_g,
@@ -353,23 +545,11 @@ def quantized_matmul_nt(da, qw, sw, pre=None, *, prologue: str = "fold",
     _kernel_shape(da, K, N, bk)
     _check_cuda("qw", qw, da, torch.int8)
     _check_cuda("sw", sw, da, torch.float32)
-    da, qw, sw = _rows(da), qw.contiguous(), sw.contiguous()
-    if sw.data_ptr() % 16:
-        sw = sw.clone()            # the prologue reads sw 16 bytes a lane
-    if pre is not None:
-        _check_cuda("pre", pre, da, da.dtype)
-        pre = _rows(pre)
-    out = torch.empty(M, N, dtype=da.dtype, device=da.device)
-    g = torch.empty(M, K, dtype=da.dtype, device=da.device) if want_g \
-        else None
     if M == 0:
-        return (out, g) if want_g else out
-    kernels.launch(
-        "quant_matmul_nt", da.device, da.data_ptr(),
-        None if pre is None else pre.data_ptr(), qw.data_ptr(),
-        sw.data_ptr(), out.data_ptr(), None if g is None else g.data_ptr(),
-        M, N, K, bk, da.stride(0), 0 if pre is None else pre.stride(0),
-        _DTYPE_CODE[da.dtype])
+        out = torch.empty(0, N, dtype=da.dtype, device=da.device)
+        return (out, torch.empty_like(da)) if want_g else out
+    q, sx, g = quantize_blocks(da, bk, pre, sw, want_g=want_g)
+    out = blocked_gemm(q, sx, qw, bk, out_dtype=da.dtype)
     global nt_launches
     nt_launches += 1
     return (out, g) if want_g else out

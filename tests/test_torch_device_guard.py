@@ -192,8 +192,11 @@ WRAPPERS = [("K1", _k1, "dtt_flash_attention_fwd"),
             ("K2b", _k2b, "dtt_flash_attention_bwd_dq"),
             ("K2a", _k2a, "dtt_flash_attention_bwd_dkv"),
             ("K3", _k3, "dtt_layer_norm_fwd"),
-            ("K4", _k4, "dtt_quant_matmul"),
-            ("K5", _k5, "dtt_quant_matmul_nt"),
+            # K4 and K5 launch two kernels each, the quantize pass and the
+            # block-scaled GEMM; K4 transposes its weight between them.
+            ("K4", _k4, ("dtt_quant_blocks", "dtt_transpose_s8",
+                         "dtt_quant_gemm")),
+            ("K5", _k5, ("dtt_quant_blocks", "dtt_quant_gemm")),
             ("K6", _k6, "dtt_flash_attention_chunk"),
             ("K7a", _k7a, "dtt_flash_attention_chunk_bwd"),
             ("K7b", _k7b, "dtt_flash_attention_chunk_bwd"),
@@ -202,11 +205,17 @@ WRAPPERS = [("K1", _k1, "dtt_flash_attention_fwd"),
             ("K8", _k8, "dtt_quant_matmul_dgelu")]
 
 
+def _calls(entry):
+    """The (entry point, card) calls a wrapper makes, in order."""
+    return [(e, CARD) for e in ((entry,) if isinstance(entry, str)
+                                else entry)]
+
+
 @pytest.mark.parametrize("kernel,drive,entry", WRAPPERS,
                          ids=[w[0] for w in WRAPPERS])
 def test_wrapper_enters_the_operands_device(recorder, kernel, drive, entry):
     drive()
-    assert recorder.calls == [(entry, CARD)], kernel
+    assert recorder.calls == _calls(entry), kernel
     assert recorder.entered == []          # the guard was left again
 
 
@@ -216,7 +225,7 @@ def test_wrapper_calls_straight_in_when_its_card_is_current(recorder, kernel,
                                                             drive, entry):
     recorder.current = CARD.index
     drive()
-    assert recorder.calls == [(entry, CARD)], kernel
+    assert recorder.calls == _calls(entry), kernel
     assert recorder.guards == 0            # no guard: the card was current
 
 
@@ -228,8 +237,9 @@ def test_wrapper_passes_every_argument_of_the_signature(recorder, kernel,
     ``kernels.SIGNATURES`` declares (the stream last); K7a/K7b pass
     ``accumulate`` before the stream: 1 with ``out=``, else 0."""
     drive()
-    (args,) = recorder.args
-    assert len(args) == len(kernels.SIGNATURES[entry]), kernel
+    assert len(recorder.args) == len(_calls(entry)), kernel
+    for (name, _), args in zip(recorder.calls, recorder.args):
+        assert len(args) == len(kernels.SIGNATURES[name]), kernel
     if kernel.startswith("K7"):
         assert args[-2] == int(kernel.endswith("_out")), kernel
 

@@ -514,15 +514,23 @@ def test_quantized_matmul_kernel_matches_plain_on_card(
     if variant == "residual":
         residual = torch.randn(M, N, generator=g, device=cuda_device
                                ).to(dtype)
-    before = qmm.launches
+    before = (qmm.launches, qmm.quantize_launches, qmm.transpose_launches,
+              qmm.gemm_launches)
     got = qmm.quantized_matmul(x, qw, sw, bias, residual, **kw)
-    assert qmm.launches == before + 1
+    # One K4 call: kernel A (the quantize pass), the weight's transpose,
+    # then kernel B (the GEMM).
+    assert (qmm.launches, qmm.quantize_launches, qmm.transpose_launches,
+            qmm.gemm_launches) == tuple(n + 1 for n in before)
     want = qmm.quantized_matmul_reference(x, qw, sw, bias, residual, **kw)
     torch.cuda.synchronize()
     got = got if isinstance(got, tuple) else (got,)
     want = want if isinstance(want, tuple) else (want,)
     for a, b in zip(got, want):
         assert a.dtype == dtype and a.shape == (M, N)
+        if variant != "gelu_preact":
+            # No tanh enters: the same bits as the plain version.
+            assert torch.equal(a, b)
+            continue
         peak = b.float().abs().max().item()
         err = (a.float() - b.float()).abs().max().item()
         assert err <= K45_TOL[dtype](peak), (err, peak)
@@ -547,15 +555,20 @@ def test_quantized_matmul_nt_kernel_matches_plain_on_card(
         pre = (2 * torch.randn(M, K, generator=g, device=cuda_device)
                ).to(dtype)
     kw = dict(prologue=prologue, want_g=want_g, block_k=block_k)
-    before = qmm.nt_launches
+    before = (qmm.nt_launches, qmm.quantize_launches, qmm.gemm_launches)
     got = qmm.quantized_matmul_nt(da, qw, sw, pre, **kw)
-    assert qmm.nt_launches == before + 1
+    assert (qmm.nt_launches, qmm.quantize_launches,
+            qmm.gemm_launches) == tuple(n + 1 for n in before)
     want = qmm.quantized_matmul_nt_reference(da, qw, sw, pre, **kw)
     torch.cuda.synchronize()
     got = got if isinstance(got, tuple) else (got,)
     want = want if isinstance(want, tuple) else (want,)
     for a, b in zip(got, want):
         assert a.dtype == dtype
+        if prologue == "fold":
+            # No tanh enters: the same bits as the plain version.
+            assert torch.equal(a, b)
+            continue
         peak = b.float().abs().max().item()
         err = (a.float() - b.float()).abs().max().item()
         assert err <= K45_TOL[dtype](peak), (err, peak)
@@ -595,6 +608,20 @@ def test_quantized_matmul_kernels_refuse_what_they_cannot_take(cuda_device):
     with pytest.raises(ValueError, match="fp32/bf16"):
         qmm.quantized_matmul(x.half(), *qmm.quantize_cols(
             torch.randn(256, 128, device=cuda_device)))
+    # The two stages on their own.
+    with pytest.raises(ValueError, match="K-block"):
+        qmm.quantize_blocks(x, 384)
+    with pytest.raises(ValueError, match="want_g needs pre"):
+        qmm.quantize_blocks(x, 128, want_g=True)
+    q, sx, _ = qmm.quantize_blocks(x, 128)
+    w = torch.zeros(200, 256, dtype=torch.int8, device=cuda_device)
+    with pytest.raises(ValueError, match="N % 128"):
+        qmm.blocked_gemm(q, sx, w, 128)
+    with pytest.raises(ValueError, match="sx shape"):
+        qmm.blocked_gemm(q, sx.t(), w[:128], 128)
+    with pytest.raises(ValueError, match="epilogue"):
+        qmm.blocked_gemm(q, sx, w[:128], 128, bias=torch.zeros(
+            128, device=cuda_device))
 
 
 @pytest.mark.cuda
@@ -623,14 +650,160 @@ def test_int8_gpt_train_step_on_card_launches_k4_and_k5(cuda_device):
 
     step = build_sync_train_step(loss_fn)
     batch = gpt.synthetic_lm_batch(0, 4, 128, cfg)
-    counts = (qmm.launches, qmm.nt_launches, tfa.launches)
+    counts = (qmm.launches, qmm.nt_launches, tfa.launches,
+              qmm.quantize_launches, qmm.gemm_launches,
+              qmm.transpose_launches)
     state, metrics = step(state, batch)
     loss = float(metrics["loss"])
     L = cfg.num_layers
+    # Each K4 and K5 call runs kernel A, then kernel B; K4 transposes its
+    # weight between them.
     assert (qmm.launches - counts[0], qmm.nt_launches - counts[1],
-            tfa.launches - counts[2]) == (2 * L, 2 * L, L)
+            tfa.launches - counts[2], qmm.quantize_launches - counts[3],
+            qmm.gemm_launches - counts[4],
+            qmm.transpose_launches - counts[5]) == (
+                2 * L, 2 * L, L, 4 * L, 4 * L, 2 * L)
     assert 4.0 < loss < 7.0 and state.global_step == 2
     assert all(torch.isfinite(p).all() for p in model.parameters())
+
+
+# ------------------------------------------------- K4/K5 kernels A and B
+
+QUANT_PROLOGUES = ("none", "fold", "dgelu_fold", "dgelu_fold_want_g")
+
+
+def _quant_operands(g, dev, M, K, dtype, prologue):
+    a = torch.randn(M, K, generator=g, device=dev).to(dtype)
+    pre = sf = None
+    if prologue != "none":
+        sf = 0.01 + 0.01 * torch.rand(K, generator=g, device=dev)
+    if prologue.startswith("dgelu"):
+        pre = (2 * torch.randn(M, K, generator=g, device=dev)).to(dtype)
+    return a, pre, sf
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("prologue", QUANT_PROLOGUES)
+@pytest.mark.parametrize("M,K,bk", [(200, 384, 128), (64, 1024, 256),
+                                    (1024, 2048, 512), (256, 2048, 1024)])
+def test_quantize_blocks_kernel_is_bit_equal_to_plain_on_card(
+        cuda_device, dtype, prologue, M, K, bk):
+    """Kernel A against its plain version on the same inputs: codes,
+    scales and g bit for bit (the same IEEE division, rounding half to
+    even; gelu' in the plain version's operation order), at every K-block
+    width and row count."""
+    from distributed_tensorflow_tpu_torch.ops import quant_matmul as qmm
+    g = torch.Generator(device=cuda_device).manual_seed(M + K + bk)
+    a, pre, sf = _quant_operands(g, cuda_device, M, K, dtype, prologue)
+    want_g = prologue.endswith("want_g")
+    before = qmm.quantize_launches
+    got = qmm.quantize_blocks(a, bk, pre, sf, want_g=want_g)
+    assert qmm.quantize_launches == before + 1
+    want = qmm.quantize_blocks_reference(a, bk, pre, sf, want_g=want_g)
+    torch.cuda.synchronize()
+    for name, x, y in zip(("q", "sx", "g"), got, want):
+        if y is None:
+            assert x is None, name
+            continue
+        assert x.dtype == y.dtype and x.shape == y.shape, name
+        assert torch.equal(x, y), name
+
+
+GEMM_EPILOGUES = {"none": dict(), "plain": dict(sw=True),
+                  "bias": dict(sw=True, bias=True),
+                  "bias_residual": dict(sw=True, bias=True, residual=True),
+                  "bias_gelu_preact": dict(sw=True, bias=True,
+                                           activation="gelu",
+                                           want_preact=True)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("epilogue", sorted(GEMM_EPILOGUES))
+@pytest.mark.parametrize("M,K,N,bk", [(200, 384, 640, 128),
+                                      (1024, 2048, 1024, 1024),
+                                      (64, 1024, 256, 512)])
+def test_blocked_gemm_kernel_is_bit_equal_to_plain_on_card(
+        cuda_device, dtype, epilogue, M, K, N, bk):
+    """Kernel B against its plain version on the same codes and scales:
+    bit for bit where no tanh enters (the int32 K-block sums are exact and
+    promoted with the plain version's roundings, in its order); with gelu
+    within one ulp of the working dtype at the peak, as K4."""
+    from distributed_tensorflow_tpu_torch.ops import quant_matmul as qmm
+    spec = GEMM_EPILOGUES[epilogue]
+    g = torch.Generator(device=cuda_device).manual_seed(M + K + N + bk)
+    q = torch.randint(-127, 128, (M, K), generator=g, device=cuda_device,
+                      dtype=torch.int8)
+    sx = 0.01 * (1 + torch.rand(K // bk, M, generator=g, device=cuda_device))
+    w = torch.randint(-127, 128, (N, K), generator=g, device=cuda_device,
+                      dtype=torch.int8)
+    args = [None, None, None]
+    if spec.get("sw"):
+        args[0] = 1e-3 * (1 + torch.rand(N, generator=g, device=cuda_device))
+    if spec.get("bias"):
+        args[1] = torch.randn(N, generator=g, device=cuda_device)
+    if spec.get("residual"):
+        args[2] = torch.randn(M, N, generator=g, device=cuda_device
+                              ).to(dtype)
+    kw = {k: v for k, v in spec.items() if k in ("activation",
+                                                 "want_preact")}
+    before = qmm.gemm_launches
+    got = qmm.blocked_gemm(q, sx, w, bk, *args, out_dtype=dtype, **kw)
+    assert qmm.gemm_launches == before + 1
+    want = qmm.blocked_gemm_reference(q, sx, w, bk, *args, out_dtype=dtype,
+                                      **kw)
+    torch.cuda.synchronize()
+    got = got if isinstance(got, tuple) else (got,)
+    want = want if isinstance(want, tuple) else (want,)
+    for i, (a, b) in enumerate(zip(got, want)):
+        assert a.dtype == dtype and a.shape == (M, N)
+        if "activation" not in kw or i == 1:   # pre comes before gelu
+            assert torch.equal(a, b)
+            continue
+        peak = b.float().abs().max().item()
+        err = (a.float() - b.float()).abs().max().item()
+        assert err <= K45_TOL[dtype](peak), (err, peak)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("R,C", [(2048, 8192), (8192, 2048), (384, 640),
+                                 (64, 128)])
+def test_transpose_kernel_is_bit_equal_to_plain_on_card(cuda_device, R, C):
+    from distributed_tensorflow_tpu_torch.ops import quant_matmul as qmm
+    g = torch.Generator(device=cuda_device).manual_seed(R + C)
+    w = torch.randint(-127, 128, (R, C), generator=g, device=cuda_device,
+                      dtype=torch.int8)
+    before = qmm.transpose_launches
+    got = qmm.transpose_s8(w)
+    assert qmm.transpose_launches == before + 1
+    assert got.is_contiguous() and torch.equal(got, w.t())
+    with pytest.raises(ValueError, match="multiples of 64"):
+        qmm.transpose_s8(w[:, :C - 32])
+
+
+@pytest.mark.cuda
+def test_quantized_matmul_kernels_are_bitwise_repeatable_on_card(
+        cuda_device):
+    """Two calls of K4 (every epilogue output) and K5 (with g) on the same
+    inputs give the same bits: no atomics, no order that changes."""
+    from distributed_tensorflow_tpu_torch.ops import quant_matmul as qmm
+    g = torch.Generator(device=cuda_device).manual_seed(9)
+    x, qw, sw = _qmm_inputs(g, cuda_device, 1000, 2048, 1024,
+                            torch.bfloat16)
+    bias = torch.randn(1024, generator=g, device=cuda_device)
+    pre = (2 * torch.randn(1000, 2048, generator=g, device=cuda_device)
+           ).to(torch.bfloat16)
+    qwn, swn = qmm.quantize_cols(torch.randn(1024, 2048, generator=g,
+                                             device=cuda_device) * 0.05)
+    runs = [(*qmm.quantized_matmul(x, qw, sw, bias, activation="gelu",
+                                   want_preact=True),
+             *qmm.quantized_matmul_nt(x, qwn, swn, pre,
+                                      prologue="dgelu_fold", want_g=True))
+            for _ in range(2)]
+    torch.cuda.synchronize()
+    for name, a, b in zip(("out", "pre", "dx", "g"), *runs):
+        assert torch.equal(a, b), name
 
 
 # ---------------------------------------------------------------- K6, K7

@@ -93,7 +93,8 @@ def test_kernel_sources_ship_in_the_package_and_hash_stably():
     names = sorted(os.path.basename(s) for s in kernels.sources())
     assert names == ["flash_attention.cu", "flash_attention_bwd.cu",
                      "flash_attention_chunk.cu", "hopper.cuh", "launch.cuh",
-                     "layer_norm.cu", "quant_matmul.cu"]
+                     "layer_norm.cu", "quant.cuh", "quant_gemm.cu",
+                     "quant_matmul.cu"]
     assert kernels.source_hash() == kernels.source_hash()
     assert kernels.BUILD_ROOT.endswith("_build")
     with open(os.path.join(REPO, ".gitignore")) as f:
