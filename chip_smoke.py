@@ -30,7 +30,9 @@ Phases, one JSON line each on stdout:
    partial + ``add_``, a chunk in the future leaving the sums untouched,
    two calls bit-equal), then the 4-shard ring
    over them against K1/K2 on the whole sequence; K8, on no path, at the
-   int8 MLP's mlp_in dgrad shape), with the tolerance stated below, its
+   int8 MLP's mlp_in dgrad shape, with and without g, also as its three
+   launches apart, as K4's; K3 also at the chunked prefill's dispatch
+   and the speculative verify's rows), with the tolerance stated below, its
    time, the plain version's time, one library call's time (used only
    here, never by the port; K4/K5/K8 have two labelled yardsticks) and
    the least time the card could take; K1, K2, K3 and K6 rows also carry
@@ -51,7 +53,23 @@ Phases, one JSON line each on stdout:
    counters are set to 0 just before and read just after.  Before it, the
    ``profile`` line: ``torch.profiler`` over one more request, the card's
    busy share of it and the kernels that took its device time.
-5. ``train``: the flagship GPT train step (``bench.py``'s: the same
+5. ``serve_chunked``: the same model and requests through an engine with
+   ``prefill_chunk=128``.  Gate: in fp32 at the full width and 2 layers,
+   every prompt's greedy tokens equal the whole-bucket engine's.  Then
+   each prompt's first-token logits within
+   ``MODEL_LOGIT_TOL`` of the whole-bucket engine's, each request's tokens
+   against the serve phase's (the first divergence printed, not gated: a
+   bf16 near-tie may flip an argmax), K3's launches exact (2 a layer a
+   chunk dispatch, 2 a layer + 1 a decode step, no K1), and tokens/s,
+   TTFT and TPOT beside the serve phase's.
+6. ``serve_spec``: the speculative arm (``spec_k=4``, ``spec_ngram=3``)
+   on greedy ``speculative=True`` requests whose prompts repeat a seeded
+   24-token phrase to the serve phase's lengths.  Gate: in fp32 at the
+   full width and 2 layers, every request's tokens equal the plain
+   engine's.  Then the bf16 model over HTTP, the plain engine and the
+   speculative one: the accepted share of the drafts, spec rounds,
+   tokens/s and TPOT, K1 and K3 launches exact.
+7. ``train``: the flagship GPT train step (``bench.py``'s: the same
    widths, fp32 master weights, bf16 compute, ``attention_backend=
    "pallas"``, plus ``fused_ln=True``; Adam 3e-4, B=8, S=1024, the
    synthetic LM stream) through ``TrainState`` and
@@ -60,14 +78,14 @@ Phases, one JSON line each on stdout:
    then 30 steps with the launch counters set to 0 just before and read
    just after (the loss must stay finite and fall); then the
    ``train_profile`` line, ``torch.profiler`` over one more step.
-6. ``train_int8``: the same step with ``matmul_int8=True`` (bench.py's
+8. ``train_int8``: the same step with ``matmul_int8=True`` (bench.py's
    int8 arm, :2271): each block's gelu MLP through K4 and K5.  The same
    kernel-vs-plain check (the plain path also takes the plain versions of
    K4/K5), 30 steps with exact launch counts (K4 and K5 twice per layer,
    each call one quantize pass and one GEMM, K4's one weight transpose),
    the loss held to the bf16 phase's, the ``train_int8_profile`` line,
    then a short arm with ``attn_int8=True`` as well (bench.py :2287).
-7. ``train_ring``: the same step with ``attention_backend="ring"``
+9. ``train_ring``: the same step with ``attention_backend="ring"``
    (``train.py --sequence_parallel=4 --attention_backend=ring``) on a mesh
    of four sequence shards of 256 on the card: each block's attention is
    a 4-hop ring through K6 forward and K7a/K7b backward.  One step's loss
@@ -187,6 +205,9 @@ ENGINE = dict(num_slots=8, page_size=16, num_pages=512,
               max_pages_per_seq=64)
 PROMPT_LENS = (100, 777, 250, 512, 640, 333, 700, 128)
 NEW_TOKENS = 64
+# The serve_chunked and serve_spec phases' engine arms.
+PREFILL_CHUNK = 128
+SPEC_K = 4
 SEED = 0
 # The flagship train step (bench.py:456-531, :694): B=8, S=1024, Adam 3e-4.
 TRAIN = dict(batch=8, seq_len=1024, lr=3e-4, steps=30)
@@ -450,8 +471,12 @@ def check_kernels(dev):
     Hd = WIDTH["hidden_size"]
     # The serving path's prefill and decode rows, and the train step's
     # B*S rows of the bf16 residual stream.
+    # The chunked prefill's dispatch (every slot's chunk) and the
+    # speculative verify (every slot's spec_k tokens) too.
     for name, rows in (("prefill", S), ("decode", ENGINE["num_slots"]),
-                       ("train", TRAIN["batch"] * TRAIN["seq_len"])):
+                       ("train", TRAIN["batch"] * TRAIN["seq_len"]),
+                       ("chunk_prefill", ENGINE["num_slots"] * PREFILL_CHUNK),
+                       ("verify", ENGINE["num_slots"] * SPEC_K)):
         x = torch.randn(rows, Hd, generator=g, device=dev).to(torch.bfloat16)
         scale = 1 + 0.1 * torch.randn(Hd, generator=g, device=dev)
         bias = 0.1 * torch.randn(Hd, generator=g, device=dev)
@@ -480,7 +505,8 @@ def check_kernels(dev):
     # weight transpose, per call site.
     stage_keys = ("a_ms", "a_bound_ms", "a_bound_by", "b_ms", "b_bound_ms",
                   "b_bound_by", "b_tops", "b_ratio_to_library",
-                  "transpose_ms", "transpose_plain_ms", "stages_bit_equal")
+                  "transpose_ms", "transpose_plain_ms", "stages_bit_equal",
+                  "bit_equal")
 
     def summary(name, file, replaces, main, by_path, cases, sites=()):
         """One row per kernel.  Its numbers are those of its main path's
@@ -544,7 +570,9 @@ def check_kernels(dev):
         # rows carry the serving run's launches (one counter).
         summary("layer_norm_fwd", "layer_norm.cu", "layer_norm.py:38",
                 "train", {"serve": k3_cases[0], "serve_decode": k3_cases[1],
-                          "train": k3_cases[2], "train_ring": k3_cases[2]},
+                          "train": k3_cases[2], "train_ring": k3_cases[2],
+                          "serve_chunked": k3_cases[3],
+                          "serve_spec": k3_cases[4]},
                 k3_cases),
         summary("flash_attention_bwd_dkv", "flash_attention_bwd.cu",
                 "flash_attention.py:425", "train", {"train": k2["dkv"][0]},
@@ -564,7 +592,7 @@ def check_kernels(dev):
         k6, k7["k7a"], k7["k7b"],
         # On no path of the port (nor of the JAX package): its main is this
         # phase, and its launches are this phase's.
-        summary("quant_matmul_dgelu", "quant_matmul.cu",
+        summary("quant_matmul_dgelu", "quant_gemm.cu",
                 "quant_matmul.py:146", "kernels", {"kernels": k8[0]}, k8,
                 sites=k8),
     ]
@@ -1090,26 +1118,36 @@ def int8_case(dev, g, kind, case, M, K, N, block_k, variant):
                library_ms=library_ms,
                library="torch._int_mm on pre-quantized int8 operands",
                library_bf16_ms=cuda_ms(lambda: torch.matmul(a, w_bf16)))
-    if kind != "k8":
-        row.update(int8_stages(kind, args, kw, library_ms))
+    # Bit for bit or not (every no-tanh variant is held to it above).
+    row["bit_equal"] = all(torch.equal(x, y) for x, y in zip(got, want))
+    row.update(int8_stages(kind, args, kw, library_ms))
     del args, got, want, q_lib, w_bf16
     return row
 
 
 def int8_stages(kind, args, kw, library_ms) -> dict:
-    """K4's or K5's two kernels one at a time on the call's inputs: kernel
-    A (the quantize pass) and kernel B (the block-scaled GEMM on A's
+    """K4's, K5's or K8's two kernels one at a time on the call's inputs:
+    kernel A (the quantize pass) and kernel B (the block-scaled GEMM on A's
     codes) each held bit for bit to its plain version (B within one ulp of
     the peak where gelu enters), each timed, with its bound; B's TOP/s and
-    its time over ``torch._int_mm``'s (``library_ms``); for K4 the weight
-    transpose kernel, held bit for bit to ``qw.t()`` and timed beside
-    ``qw.t().contiguous()``."""
+    its time over ``torch._int_mm``'s (``library_ms``); for K4 and K8 the
+    weight transpose kernel, held bit for bit to ``qw.t()`` and timed
+    beside ``qw.t().contiguous()``."""
     import torch
     from distributed_tensorflow_tpu_torch.ops import quant_matmul as qmm
-    a, qw, sw = args[:3]
+    if kind == "k8":
+        a, pre, qw, sw = args
+    else:
+        a, qw, sw = args[:3]
     M, K = a.shape
     bk = qmm._block_k(K, kw["block_k"])
-    if kind == "k4":
+    if kind == "k8":
+        # A with gelu' and g but no fold; B with the bare ``* sw``.
+        qa = dict(pre=pre, sf=None, want_g=kw["want_g"])
+        w = qw.t().contiguous()
+        gemm_args = (w, bk, sw)
+        gemm_kw = dict(out_dtype=a.dtype)
+    elif kind == "k4":
         bias, residual = args[3], args[4]
         qa = dict(pre=None, sf=None, want_g=False)
         w = qw.t().contiguous()
@@ -1172,7 +1210,7 @@ def int8_stages(kind, args, kw, library_ms) -> dict:
                b_ratio_to_library=gemm_ms / library_ms,
                stages_bit_equal="A; B" + (" (gelu output: max_abs_err "
                                           f"{b_err})" if b_err else ""))
-    if kind == "k4":
+    if kind in ("k4", "k8"):
         wt = qmm.transpose_s8(qw)
         torch.cuda.synchronize()
         if not torch.equal(wt, qw.t()):
@@ -1264,67 +1302,22 @@ def profile_request(client, prompt) -> dict:
                 top=[[name[:60], ms, n] for name, ms, n in rows[:8]])
 
 
-def serve(dev):
-    """Phase 4: the port's serving path over HTTP."""
-    import numpy as np
-    import torch
-    from distributed_tensorflow_tpu_torch.models import gpt
-    from distributed_tensorflow_tpu_torch.ops import flash_attention as fa
-    from distributed_tensorflow_tpu_torch.ops import layer_norm as ln
-    from distributed_tensorflow_tpu_torch.serving.client import ServeClient
-    from distributed_tensorflow_tpu_torch.serving.engine import (
-        DecodeEngine, EngineConfig)
-    from distributed_tensorflow_tpu_torch.serving.scheduler import (
-        FairScheduler)
-    from distributed_tensorflow_tpu_torch.serving.server import ServingServer
-    from distributed_tensorflow_tpu_torch.utils.telemetry import Telemetry
+def burst(client, prompts, kw_for) -> tuple[list, float]:
+    """Every prompt as a concurrent HTTP request (``NEW_TOKENS`` each,
+    ``kw_for(i)`` its options); the responses and the wall seconds."""
+    results: list = [None] * len(prompts)
 
+    def send(i):
+        results[i] = client.generate(prompts[i], NEW_TOKENS, **kw_for(i))
+
+    threads = [threading.Thread(target=send, args=(i,))
+               for i in range(len(prompts))]
     t0 = time.perf_counter()
-    model = gpt.GptLM(gpt.GptConfig(**WIDTH), device=dev, seed=SEED)
-    n_params = sum(p.numel() for p in model.parameters())
-    logit_err = check_model(dev, model, gpt)
-    telemetry = Telemetry()
-    engine = DecodeEngine(model, None, EngineConfig(**ENGINE), telemetry,
-                          device=dev)
-    server = ServingServer(engine, FairScheduler(), port=0,
-                           host="127.0.0.1", telemetry=telemetry)
-    server.start()
-    try:
-        client = ServeClient(f"http://127.0.0.1:{server.port}",
-                             timeout_s=600.0)
-        rng = np.random.default_rng(SEED)
-        prompts = [rng.integers(0, WIDTH["vocab_size"], n).tolist()
-                   for n in PROMPT_LENS]
-        client.generate(prompts[0][:16], 4)            # warm-up
-        torch.cuda.synchronize()
-        setup_s = time.perf_counter() - t0
-
-        fa.launches = 0
-        ln.launches = 0
-        results: list = [None] * len(prompts)
-
-        def send(i):
-            kw = dict(tenant=("search", "ads")[i % 2])
-            if i % 2:
-                kw.update(temperature=0.8, top_k=40, seed=100 + i)
-            results[i] = client.generate(prompts[i], NEW_TOKENS, **kw)
-
-        threads = [threading.Thread(target=send, args=(i,))
-                   for i in range(len(prompts))]
-        t_burst = time.perf_counter()
-        for t in threads:
-            t.start()
-        for t in threads:
-            t.join()
-        burst_s = time.perf_counter() - t_burst
-        again = client.generate(prompts[0], NEW_TOKENS, tenant="search")
-        launches = {"flash_attention_fwd": fa.launches,
-                    "layer_norm_fwd": ln.launches}
-        stats = client.stats()
-        profiled = profile_request(client, prompts[3])
-    finally:
-        server.shutdown()
-
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    burst_s = time.perf_counter() - t0
     done = [r for r in results if r is not None]
     if len(done) != len(prompts):
         raise AssertionError(f"{len(done)}/{len(prompts)} requests done")
@@ -1334,24 +1327,306 @@ def serve(dev):
             raise AssertionError(f"incomplete response: {r['tokens_out']}")
         if not all(0 <= t < WIDTH["vocab_size"] for t in r["tokens"]):
             raise AssertionError("token outside the vocabulary")
+    return done, burst_s
+
+
+def burst_numbers(results, burst_s) -> dict:
+    """The end-to-end serving metrics of one burst."""
+    ttft = [r["ttft_ms"] for r in results]
+    return dict(tokens_per_s=len(results) * NEW_TOKENS / burst_s,
+                burst_s=burst_s, ttft_p50_ms=statistics.median(ttft),
+                ttft_ms=ttft,
+                tpot_p50_ms=statistics.median(r["tpot_ms"]
+                                              for r in results))
+
+
+def mixed_kw(i) -> dict:
+    """The serve phase's request mix: two tenants, the odd requests
+    sampled with seeds."""
+    kw = dict(tenant=("search", "ads")[i % 2])
+    if i % 2:
+        kw.update(temperature=0.8, top_k=40, seed=100 + i)
+    return kw
+
+
+class Serving:
+    """An engine behind ``ServingServer`` on localhost and a client."""
+
+    def __init__(self, dev, model, **engine_kw):
+        from distributed_tensorflow_tpu_torch.serving.client import (
+            ServeClient)
+        from distributed_tensorflow_tpu_torch.serving.engine import (
+            DecodeEngine, EngineConfig)
+        from distributed_tensorflow_tpu_torch.serving.scheduler import (
+            FairScheduler)
+        from distributed_tensorflow_tpu_torch.serving.server import (
+            ServingServer)
+        from distributed_tensorflow_tpu_torch.utils.telemetry import (
+            Telemetry)
+        self.telemetry = Telemetry()
+        self.engine = DecodeEngine(model, None,
+                                   EngineConfig(**{**ENGINE, **engine_kw}),
+                                   self.telemetry, device=dev)
+        self.server = ServingServer(self.engine, FairScheduler(), port=0,
+                                    host="127.0.0.1",
+                                    telemetry=self.telemetry)
+        self.server.start()
+        self.client = ServeClient(f"http://127.0.0.1:{self.server.port}",
+                                  timeout_s=600.0)
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        self.server.shutdown()
+
+
+def serve(dev) -> tuple[dict, object, dict]:
+    """Phase 4: the port's serving path over HTTP.  Returns the launches,
+    the model (the later serving phases reuse its weights) and this
+    whole-bucket arm's prompts, responses and numbers."""
+    import numpy as np
+    import torch
+    from distributed_tensorflow_tpu_torch.models import gpt
+    from distributed_tensorflow_tpu_torch.ops import flash_attention as fa
+    from distributed_tensorflow_tpu_torch.ops import layer_norm as ln
+
+    t0 = time.perf_counter()
+    model = gpt.GptLM(gpt.GptConfig(**WIDTH), device=dev, seed=SEED)
+    n_params = sum(p.numel() for p in model.parameters())
+    logit_err = check_model(dev, model, gpt)
+    rng = np.random.default_rng(SEED)
+    prompts = [rng.integers(0, WIDTH["vocab_size"], n).tolist()
+               for n in PROMPT_LENS]
+    with Serving(dev, model) as srv:
+        client = srv.client
+        client.generate(prompts[0][:16], 4)            # warm-up
+        torch.cuda.synchronize()
+        setup_s = time.perf_counter() - t0
+
+        fa.launches = 0
+        ln.launches = 0
+        done, burst_s = burst(client, prompts, mixed_kw)
+        again = client.generate(prompts[0], NEW_TOKENS, tenant="search")
+        launches = {"flash_attention_fwd": fa.launches,
+                    "layer_norm_fwd": ln.launches}
+        stats = client.stats()
+        profiled = profile_request(client, prompts[3])
+
     if again["tokens"] != done[0]["tokens"]:
         raise AssertionError("repeated greedy request gave other tokens")
     if min(launches.values()) < 1:
         raise AssertionError(f"a kernel was not launched: {launches}")
-    ttft = [r["ttft_ms"] for r in done]
+    numbers = burst_numbers(done, burst_s)
     emit("profile", **profiled)
     emit("serve", model="gpt_406m_width", params=n_params,
          requests=len(done), new_tokens_each=NEW_TOKENS,
-         prompt_lens=list(PROMPT_LENS), tokens_per_s=len(done) * NEW_TOKENS
-         / burst_s, burst_s=burst_s, ttft_p50_ms=statistics.median(ttft),
-         ttft_ms=ttft, tpot_p50_ms=statistics.median(
-             r["tpot_ms"] for r in done),
+         prompt_lens=list(PROMPT_LENS), **numbers,
          engine_steps=stats["engine"]["engine_step"],
          greedy_repeat_identical=True, launches=launches,
          model_logit_err=logit_err, model_logit_tol=MODEL_LOGIT_TOL,
          setup_s=setup_s,
          peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
+    return launches, model, dict(prompts=prompts, results=done, **numbers)
+
+
+def first_token_logits(engine, prompt):
+    """Admit ``prompt`` alone (greedy, one new token) and step the engine
+    until the lane emits: the fp32 logits row its token was chosen from."""
+    from distributed_tensorflow_tpu_torch.serving.scheduler import Request
+    seen = []
+    sample = engine._sample
+
+    def spy(logits):
+        seen.append(logits.float())
+        return sample(logits)
+
+    engine._sample = spy
+    try:
+        req = Request(prompt, 1)
+        slot = engine.admit(req)
+        while not req.tokens:
+            engine.step()
+    finally:
+        del engine._sample
+    return seen[-1][slot]
+
+
+def first_divergence(a, b):
+    """Index of the first token where two streams differ (None: equal)."""
+    for i, (x, y) in enumerate(zip(a, b)):
+        if x != y:
+            return i
+    return None if len(a) == len(b) else min(len(a), len(b))
+
+
+def fp32_model(dev):
+    """The serving width in fp32 with 2 layers: the setting in which the
+    JAX package's tests hold the engine's arms to token parity."""
+    from distributed_tensorflow_tpu_torch.models import gpt
+    return gpt.GptLM(gpt.GptConfig(**{**WIDTH, "num_layers": 2,
+                                      "dtype": "float32"}),
+                     device=dev, seed=SEED)
+
+
+def engine_tokens(dev, model, prompts, **engine_kw):
+    """Every prompt's ``NEW_TOKENS`` greedy tokens (and spec rounds) from
+    an engine stepped in this thread, all requests admitted at once with
+    ``speculative=True`` (honoured where the engine has ``spec_k``)."""
+    from distributed_tensorflow_tpu_torch.serving.engine import (
+        DecodeEngine, EngineConfig)
+    from distributed_tensorflow_tpu_torch.serving.scheduler import Request
+    engine = DecodeEngine(model, None,
+                          EngineConfig(**{**ENGINE, **engine_kw}),
+                          device=dev)
+    reqs = [Request(p, NEW_TOKENS, speculative=True) for p in prompts]
+    for r in reqs:
+        engine.admit(r)
+    while engine.active_slots:
+        engine.step()
+    if not all(len(r.tokens) == NEW_TOKENS for r in reqs):
+        raise AssertionError("a request ended early")
+    return [r.tokens for r in reqs], [r.spec_rounds for r in reqs]
+
+
+def fp32_parity(dev, prompts, **engine_kw) -> list:
+    """Gate: in fp32 at the full width and 2 layers, the engine arm's
+    tokens equal the plain whole-bucket engine's for every prompt.
+    Returns the arm's spec rounds per request."""
+    f32 = fp32_model(dev)
+    arm, rounds = engine_tokens(dev, f32, prompts, **engine_kw)
+    plain, _ = engine_tokens(dev, f32, prompts)
+    del f32
+    divergence = [first_divergence(a, b) for a, b in zip(arm, plain)]
+    if any(d is not None for d in divergence):
+        raise AssertionError(f"fp32 {engine_kw} tokens differ from the "
+                             f"plain engine's at {divergence}")
+    return rounds
+
+
+def serve_chunked(dev, model, whole: dict) -> dict:
+    """Phase ``serve_chunked``: the serve phase's model, engine and
+    requests with ``prefill_chunk=PREFILL_CHUNK``.  Gate: in fp32 at the
+    full width and 2 layers, every prompt's greedy tokens equal the
+    whole-bucket engine's.  Then, in bf16, each prompt's first-token
+    logits against the whole-bucket engine's; each request's tokens
+    against the serve phase's (reported, not gated: a bf16 near-tie may
+    flip an argmax); K3's launches exact."""
+    import torch
+    from distributed_tensorflow_tpu_torch.ops import flash_attention as fa
+    from distributed_tensorflow_tpu_torch.ops import layer_norm as ln
+    from distributed_tensorflow_tpu_torch.serving.engine import (
+        DecodeEngine, EngineConfig)
+
+    prompts = whole["prompts"]
+    fp32_parity(dev, prompts, prefill_chunk=PREFILL_CHUNK)
+    # Engines of their own, stepped in this thread.
+    engines = [DecodeEngine(model, None, EngineConfig(**{
+        **ENGINE, "prefill_chunk": c}), device=dev) for c in
+        (PREFILL_CHUNK, 0)]
+    logit_errs = [(first_token_logits(engines[0], p)
+                   - first_token_logits(engines[1], p)).abs().max().item()
+                  for p in prompts]
+    del engines
+    with Serving(dev, model, prefill_chunk=PREFILL_CHUNK) as srv:
+        srv.client.generate(prompts[0][:40], 4)           # warm-up
+        torch.cuda.synchronize()
+        fa.launches = ln.launches = 0
+        chunk_ms = srv.telemetry.histogram("serve_prefill_chunk_ms")
+        steps0, chunks0 = srv.engine.step_index, chunk_ms.count
+        done, burst_s = burst(srv.client, prompts, mixed_kw)
+        launches = {"flash_attention_fwd": fa.launches,
+                    "layer_norm_fwd": ln.launches}
+        steps = srv.engine.step_index - steps0
+        dispatches = chunk_ms.count - chunks0
+        prefill_ms = srv.engine.prefill_ms_total
+    L = WIDTH["num_layers"]
+    want_ln = 2 * L * dispatches + (2 * L + 1) * steps
+    if launches != {"flash_attention_fwd": 0, "layer_norm_fwd": want_ln}:
+        raise AssertionError(f"launches {launches}: expected K3 "
+                             f"{want_ln} ({dispatches} chunk dispatches, "
+                             f"{steps} decode steps) and no K1")
+    if not max(logit_errs) <= MODEL_LOGIT_TOL:
+        raise AssertionError(f"first-token logits {logit_errs} against the "
+                             f"whole-bucket engine's (tol "
+                             f"{MODEL_LOGIT_TOL})")
+    divergence = [first_divergence(r["tokens"], w["tokens"])
+                  for r, w in zip(done, whole["results"])]
+    numbers = burst_numbers(done, burst_s)
+    emit("serve_chunked", prefill_chunk=PREFILL_CHUNK, requests=len(done),
+         fp32_2_layers=dict(tokens_equal_whole_bucket=len(prompts)),
+         new_tokens_each=NEW_TOKENS, prompt_lens=list(PROMPT_LENS),
+         **numbers, whole_bucket={k: whole[k] for k in (
+             "tokens_per_s", "ttft_p50_ms", "tpot_p50_ms")},
+         first_token_logit_err=logit_errs, logit_tol=MODEL_LOGIT_TOL,
+         tokens_equal_whole_bucket=sum(d is None for d in divergence),
+         first_divergence=divergence, chunk_dispatches=dispatches,
+         decode_steps=steps, prefill_ms_total=prefill_ms,
+         launches=launches)
     return launches
+
+
+def phrase_prompts() -> list:
+    """A seeded 24-token phrase repeated to each of ``PROMPT_LENS``: the
+    n-gram drafter finds the phrase's continuation in every prompt."""
+    import numpy as np
+    phrase = np.random.default_rng(SEED + 2).integers(
+        0, WIDTH["vocab_size"], 24)
+    return [np.resize(phrase, n).tolist() for n in PROMPT_LENS]
+
+
+def serve_spec(dev, model) -> dict:
+    """Phase ``serve_spec``: the speculative arm (``spec_k=SPEC_K``,
+    ``spec_ngram=3``) on greedy ``speculative=True`` requests for the
+    repeated-phrase prompts.  Gate: in fp32 at the full width and 2
+    layers, each request's tokens equal those of the same engine with
+    ``spec_k=0``.  Then the bf16 model of the serve phase over HTTP, the
+    plain engine beside it: the accepted share of the drafts, tokens/s,
+    TPOT, and K1/K3 launches exact."""
+    import torch
+    from distributed_tensorflow_tpu_torch.ops import flash_attention as fa
+    from distributed_tensorflow_tpu_torch.ops import layer_norm as ln
+
+    prompts = phrase_prompts()
+    spec_cfg = dict(spec_k=SPEC_K, spec_ngram=3)
+    f32_rounds = fp32_parity(dev, prompts, **spec_cfg)
+
+    L = WIDTH["num_layers"]
+    arms = {}
+    for name, kw in (("plain", {}), ("spec", spec_cfg)):
+        with Serving(dev, model, **kw) as srv:
+            srv.client.generate(prompts[0][:40], 4, speculative=True)
+            torch.cuda.synchronize()
+            fa.launches = ln.launches = 0
+            steps0 = srv.engine.step_index
+            done, burst_s = burst(srv.client, prompts, lambda i: dict(
+                speculative=True))
+            launches = {"flash_attention_fwd": fa.launches,
+                        "layer_norm_fwd": ln.launches}
+            steps = srv.engine.step_index - steps0
+        # Whole-bucket prefills (K1 once a layer, K3 2 a layer + 1), then
+        # one decode or verify dispatch a step (K3 2 a layer + 1).
+        n = len(prompts)
+        want = {"flash_attention_fwd": L * n,
+                "layer_norm_fwd": (2 * L + 1) * (n + steps)}
+        if launches != want:
+            raise AssertionError(f"{name}: launches {launches}, expected "
+                                 f"{want} ({steps} steps)")
+        arm = dict(burst_numbers(done, burst_s), steps=steps,
+                   launches=launches)
+        if name == "spec":
+            rounds = sum(r.get("spec_rounds", 0) for r in done)
+            drafted = (SPEC_K - 1) * rounds
+            accepted = sum(r["tokens_out"] for r in done) - rounds
+            arm.update(spec_rounds=rounds, drafted=drafted,
+                       accepted_drafts=accepted,
+                       accepted_share=accepted / drafted if drafted else 0.0)
+        arms[name] = arm
+    emit("serve_spec", spec_k=SPEC_K, spec_ngram=3, requests=len(prompts),
+         new_tokens_each=NEW_TOKENS, prompt_lens=list(PROMPT_LENS),
+         fp32_2_layers=dict(tokens_equal_plain=len(prompts),
+                            spec_rounds=f32_rounds), **arms)
+    return arms["spec"]["launches"]
 
 
 def gpt_train_flops(cfg, B: int, S: int) -> float:
@@ -1775,8 +2050,11 @@ def main() -> int:
     from distributed_tensorflow_tpu_torch.ops import quant_matmul as qmm
     # K8 is on no path: its launches are the kernels phase's own.
     by_path = {"kernels": {"quant_matmul_dgelu": qmm.dgelu_launches}}
-    by_path["serve"] = serve(dev)
+    by_path["serve"], model, whole = serve(dev)
     by_path["serve_decode"] = by_path["serve"]
+    by_path["serve_chunked"] = serve_chunked(dev, model, whole)
+    by_path["serve_spec"] = serve_spec(dev, model)
+    del model, whole
     torch.cuda.empty_cache()
     by_path["train"], bf16_step = train(dev, smi)
     by_path["train_int8"] = train_int8(dev, smi, bf16_step)

@@ -1,7 +1,7 @@
-// Shared by the int8 kernels (quant_gemm.cu: K4/K5's quantize pass and
-// block-scaled GEMM; quant_matmul.cu: K8): the tanh-approximation gelu and
-// its derivative, the IEEE-exact int8 quantizer, and vector loads and
-// stores of fp32 or bf16 rows as fp32.
+// Helpers of the int8 kernels (quant_gemm.cu: K4/K5/K8's quantize pass
+// and block-scaled GEMM): the tanh-approximation gelu and its derivative,
+// the IEEE-exact int8 quantizer, and vector loads and stores of fp32 or
+// bf16 rows as fp32.
 //
 // Every rounding step is written with __f*_rn intrinsics so that nvcc does
 // not contract a multiply and an add into one FMA: the plain versions in

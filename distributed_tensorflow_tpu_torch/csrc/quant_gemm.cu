@@ -1,10 +1,12 @@
-// K4 (the int8 MLP's quantize-matmul forward) and K5 (its NT dgrad) as two
-// kernels: a quantize pass over the activations, then a block-scaled int8
-// GEMM on wgmma.
+// K4 (the int8 MLP's quantize-matmul forward), K5 (its NT dgrad) and K8
+// (the TN dgrad against a re-quantized w.T) as two kernels each: a
+// quantize pass over the activations, then a block-scaled int8 GEMM on
+// wgmma.
 //
 // Replaces: distributed_tensorflow_tpu/ops/pallas/quant_matmul.py,
-// _qmm_kernel (launched by quantized_matmul) and _qmm_nt_kernel (launched
-// by quantized_matmul_nt).  There the TPU walks the K-blocks as the last,
+// _qmm_kernel (launched by quantized_matmul), _qmm_nt_kernel (launched
+// by quantized_matmul_nt) and _qmm_dgelu_kernel (launched by
+// quantized_matmul_dgelu).  There the TPU walks the K-blocks as the last,
 // sequential grid axis and quantizes each (bm, bk) block of the
 // activations in VMEM right before its product.
 //
@@ -12,6 +14,8 @@
 //   A, per row m and K-block kb of width bk (a power of two, 128..1024):
 //     v   = K4: x[m, kb]           K5: da[m, kb] (* gelu'(pre)) (then
 //                                      g = T(v) with want_g), v *= sf[k]
+//                                  K8: da[m, kb] * gelu'(pre) (g with
+//                                      want_g), no fold
 //     sx[kb, m] = max(amax_k |v[m, k]|, 1e-8) / 127   (IEEE division)
 //     q[m, k]   = clamp(rint(v / sx), -127, 127)      (half to even)
 //   B, per output element:
@@ -19,8 +23,10 @@
 //     part = sum_{k in kb} q[m, k] * w[n, k]   (int32, exact: 127^2 * 1024)
 //     K4: y = acc * sw[n] (+ bias[n]); with preact pre = T(y), y = float(pre);
 //         gelu(y); + residual; out = T(y).       K5: out = T(acc).
+//     K8: out = T(acc * sw[n]).
 // w is the weight K-major, [N, K]: K5's qw is so already, K4's qw [K, N]
-// is transposed once per call (T below, N * K bytes each way).
+// and K8's qwt [K, N] are transposed once per call (T below, N * K bytes
+// each way).
 //
 // Bound on the H100, at the int8 MLP's sites (M = 8192 rows, K and N
 // 2048/8192): the GEMM is 2 M K N = 2.75e11 int8 operations, 0.139 ms at

@@ -34,7 +34,8 @@ the JAX model, drawn from explicit generators; ``cfg.remat`` recomputes
 each block in the backward (``torch.utils.checkpoint``), as
 ``nn.remat(GptBlock)`` does.
 
-Serving entry points (:meth:`GptLM.prefill`, :meth:`GptLM.decode_paged`)
+Serving entry points (:meth:`GptLM.prefill`, :meth:`GptLM.decode_paged`,
+:meth:`GptLM.decode_chunk_paged`, :meth:`GptLM.prefill_chunk_paged`)
 run under ``torch.no_grad()`` and update the KV caches and pools IN
 PLACE, where the JAX code returns new arrays.
 """
@@ -190,7 +191,14 @@ class Embed(nn.Module):
             num, features, dtype=torch.float32, device=device))
 
     def forward(self, ids: torch.Tensor) -> torch.Tensor:
-        return self.embedding[ids]
+        """Rows of ``ids``; ids outside the table give NaN rows, as
+        ``jnp.take``'s default mode (and so flax's ``Embed``) does, where
+        indexing would raise (on a card, a device-side assert): a
+        speculative chunk's drafts may run past ``max_position``."""
+        num = self.embedding.shape[0]
+        rows = self.embedding[ids.clamp(0, num - 1)]
+        inside = ((ids >= 0) & (ids < num))[..., None]
+        return torch.where(inside, rows, torch.nan)
 
 
 class RMSNorm(nn.Module):
@@ -265,6 +273,47 @@ def _generator(seed: int | None, device) -> torch.Generator | None:
     g = torch.Generator(device=device)
     g.manual_seed(seed)
     return g
+
+
+def paged_gather(pool: torch.Tensor, page_table: torch.Tensor,
+                 dtype: torch.dtype) -> torch.Tensor:
+    """Each row's pages of ``pool`` [num_pages, page, G, D] as one
+    contiguous [B, MP * page, G, D] in ``dtype``; sentinel table entries
+    (``num_pages``) read as zeros, as ``jnp.take(..., mode="fill")``.
+    The whole table is gathered: the paged decode step and the paged
+    chunk share this copy."""
+    num_pages, page = pool.shape[0], pool.shape[1]
+    B, MP = page_table.shape
+    allocated = page_table < num_pages
+    safe = page_table.clamp(max=num_pages - 1).long()
+    rows = _bits(pool)[safe].view(pool.dtype).to(dtype)
+    rows = torch.where(allocated[:, :, None, None, None], rows, 0)
+    return rows.reshape(B, MP * page, *pool.shape[2:])
+
+
+def paged_allocated(page_table: torch.Tensor, num_pages: int,
+                    page: int) -> torch.Tensor:
+    """[B, MP * page]: whether each logical slot's page is allocated."""
+    return (page_table < num_pages).repeat_interleave(page, dim=1)
+
+
+def chunk_write_index(page_table: torch.Tensor, positions: torch.Tensor,
+                      K: int, num_pages: int, page: int):
+    """Where a K-token chunk's K/V land in a paged pool: ``(rows, cols,
+    phys, off)`` for the chunk tokens (row b, column i at logical position
+    ``positions[b] + i``) whose page is allocated.  A token whose logical
+    page falls outside the table goes to the sentinel ``num_pages``, as a
+    sentinel table entry does, and both are left out: the write is
+    dropped, never clamped onto the last real page (the JAX code scatters
+    through the sentinel with ``mode="drop"``).  One host sync."""
+    MP = page_table.shape[1]
+    pos = positions[:, None] + torch.arange(K, device=positions.device)
+    lpage = pos // page
+    phys = torch.gather(page_table, 1, lpage.clamp(0, MP - 1).long())
+    phys = torch.where(lpage < MP, phys, num_pages)
+    rows, cols = torch.nonzero(phys < num_pages, as_tuple=True)
+    return rows, cols, phys[rows, cols].long(), (pos[rows, cols]
+                                                 % page).long()
 
 
 def paged_write_index(page_table: torch.Tensor, positions: torch.Tensor,
@@ -484,7 +533,7 @@ class GptBlock(nn.Module):
                 "paged decode needs full-cache addressing (position == "
                 "logical slot); the windowed ring cache is not pageable")
         num_pages, page = k_pool.shape[0], k_pool.shape[1]
-        B, MP = page_table.shape
+        MP = page_table.shape[1]
         q, k, v = self._qkv(x, positions=positions[:, None])   # [B,1,*,D]
         if write_index is None:
             write_index = paged_write_index(page_table, positions,
@@ -494,19 +543,85 @@ class GptBlock(nn.Module):
                                  _bits(k[rows, 0].to(k_pool.dtype)))
         _bits(v_pool).index_put_((phys, off),
                                  _bits(v[rows, 0].to(v_pool.dtype)))
-        allocated = page_table < num_pages                       # [B, MP]
-        safe = page_table.clamp(max=num_pages - 1).long()
-
-        def gather(pool):
-            rows_ = _bits(pool)[safe].view(pool.dtype).to(q.dtype)
-            rows_ = torch.where(allocated[:, :, None, None, None], rows_, 0)
-            return rows_.reshape(B, MP * page, *pool.shape[2:])
-
         s = torch.arange(MP * page, device=x.device)
         valid = ((s[None, :] <= positions[:, None])
-                 & allocated.repeat_interleave(page, dim=1))     # [B, S]
-        ctx = self._attend_cache(q, gather(k_pool), gather(v_pool),
+                 & paged_allocated(page_table, num_pages, page))  # [B, S]
+        ctx = self._attend_cache(q, paged_gather(k_pool, page_table, q.dtype),
+                                 paged_gather(v_pool, page_table, q.dtype),
                                  valid[:, None, None, None, :])
+        x = x + self.out(ctx)
+        return self._mlp(x), k_pool, v_pool
+
+    def _attend_cache_chunk(self, q: torch.Tensor, k_cache: torch.Tensor,
+                            v_cache: torch.Tensor, k_new: torch.Tensor,
+                            v_new: torch.Tensor, prefix_valid: torch.Tensor,
+                            chunk_valid: torch.Tensor) -> torch.Tensor:
+        """A K-token chunk's attention in one softmax over ``[prefix |
+        chunk]`` logits: the K queries [B, K, H, D] attend the committed
+        cache [B, M, G, D] through one shared ``prefix_valid`` [B, M] mask,
+        and the chunk's own ``k_new`` / ``v_new`` [B, K, G, D] through the
+        ``chunk_valid`` [K, K] intra-chunk mask.  Logits in fp32, masked
+        with fp32's lowest value; the weights go back to the compute dtype
+        for the two V products."""
+        cfg = self.cfg
+        depth = q.shape[-1]
+        scale = 1.0 / math.sqrt(depth)
+        compute = q.dtype
+        B, K, M = q.shape[0], q.shape[1], k_cache.shape[1]
+        G, R = cfg.num_kv_heads, cfg.num_heads // cfg.num_kv_heads
+        qg = q.reshape(B, K, G, R, depth).float()
+        neg = torch.finfo(torch.float32).min
+        lp = torch.einsum("bqgrd,bkgd->bgrqk", qg,
+                          k_cache.to(compute).float()) * scale
+        lp = torch.where(prefix_valid[:, None, None, None, :], lp, neg)
+        lc = torch.einsum("bqgrd,bjgd->bgrqj", qg,
+                          k_new.to(compute).float()) * scale
+        lc = torch.where(chunk_valid, lc, neg)
+        w = torch.softmax(torch.cat([lp, lc], dim=-1), dim=-1)
+        ctx = (torch.einsum("bgrqk,bkgd->bqgrd", w[..., :M].to(compute),
+                            v_cache.to(compute))
+               + torch.einsum("bgrqj,bjgd->bqgrd", w[..., M:].to(compute),
+                              v_new.to(compute)))
+        return ctx.reshape(B, K, cfg.num_heads, depth)
+
+    def decode_chunk_paged(self, x: torch.Tensor, k_pool: torch.Tensor,
+                           v_pool: torch.Tensor, page_table: torch.Tensor,
+                           positions: torch.Tensor, write_index=None):
+        """K tokens per row against a paged KV pool in one pass: row b's
+        chunk token i sits at logical position ``positions[b] + i``.  The
+        chunk's K/V are cast to the pool's dtype (the values a later step
+        reads back from the pool, float8 included), written IN PLACE
+        (see :func:`chunk_write_index`: a token past the page table is
+        dropped), and attended fresh through the causal intra-chunk mask;
+        the committed prefix is the slots before ``positions[b]`` on
+        allocated pages (:meth:`_attend_cache_chunk`).  Slots at or past
+        the frontier hold this chunk or junk from rejected drafts, masked
+        until real tokens overwrite them."""
+        if self.cfg.attention_window:
+            raise ValueError(
+                "paged decode needs full-cache addressing (position == "
+                "logical slot); the windowed ring cache is not pageable")
+        num_pages, page = k_pool.shape[0], k_pool.shape[1]
+        MP = page_table.shape[1]
+        K = x.shape[1]
+        ar = torch.arange(K, device=x.device)
+        q, k, v = self._qkv(x, positions=positions[:, None] + ar[None, :])
+        if write_index is None:
+            write_index = chunk_write_index(page_table, positions, K,
+                                            num_pages, page)
+        rows, cols, phys, off = write_index
+        # The cache-dtype round trip before attending.
+        k, v = k.to(k_pool.dtype), v.to(v_pool.dtype)
+        _bits(k_pool).index_put_((phys, off), _bits(k)[rows, cols])
+        _bits(v_pool).index_put_((phys, off), _bits(v)[rows, cols])
+        s = torch.arange(MP * page, device=x.device)
+        prefix_valid = ((s[None, :] < positions[:, None])
+                        & paged_allocated(page_table, num_pages, page))
+        chunk_valid = ar[:, None] >= ar[None, :]                  # causal
+        ctx = self._attend_cache_chunk(
+            q, paged_gather(k_pool, page_table, q.dtype),
+            paged_gather(v_pool, page_table, q.dtype), k, v, prefix_valid,
+            chunk_valid)
         x = x + self.out(ctx)
         return self._mlp(x), k_pool, v_pool
 
@@ -634,6 +749,48 @@ class GptLM(nn.Module):
             x, _, _ = layer.decode_step_paged(x, k_pool, v_pool, page_tables,
                                               positions, write_index)
         return self._head(x)[:, 0], pools
+
+    def _chunk_paged_body(self, tokens: torch.Tensor, pools,
+                          page_tables: torch.Tensor,
+                          positions: torch.Tensor) -> torch.Tensor:
+        """K tokens per row through the layer stack's paged chunk
+        attention (:meth:`GptBlock.decode_chunk_paged`), the pools updated
+        in place.  One body for the speculative verify and the chunked
+        prefill, so that neither can drift from the other.  Returns the
+        last block's output [B, K, hidden]."""
+        K = tokens.shape[1]
+        pos = positions[:, None] + torch.arange(K, device=tokens.device)
+        x = self._embed(tokens, pos)
+        num_pages, page = pools[0][0].shape[0], pools[0][0].shape[1]
+        write_index = chunk_write_index(page_tables, positions, K,
+                                        num_pages, page)
+        for layer, (k_pool, v_pool) in zip(self.layers, pools):
+            x, _, _ = layer.decode_chunk_paged(x, k_pool, v_pool,
+                                               page_tables, positions,
+                                               write_index)
+        return x
+
+    @torch.no_grad()
+    def decode_chunk_paged(self, tokens: torch.Tensor, pools,
+                           page_tables: torch.Tensor,
+                           positions: torch.Tensor):
+        """K tokens per row against per-layer paged pools, the serving
+        engine's speculative verify: ``tokens`` [B, K] at positions
+        ``positions[b] .. positions[b] + K - 1``.  Returns (logits [B, K,
+        vocab], one next-token distribution per fed token; pools)."""
+        x = self._chunk_paged_body(tokens, pools, page_tables, positions)
+        return self._head(x), pools
+
+    @torch.no_grad()
+    def prefill_chunk_paged(self, tokens: torch.Tensor, pools,
+                            page_tables: torch.Tensor,
+                            positions: torch.Tensor):
+        """The chunked prefill's per-step advance: :meth:`decode_chunk_paged`
+        without the LM head (only the K/V writes are wanted).  Rows that
+        are not prefilling ride along with sentinel tables: their writes
+        drop and their outputs are ignored.  Returns the pools."""
+        self._chunk_paged_body(tokens, pools, page_tables, positions)
+        return pools
 
 
 def _cache_dtype(cfg: GptConfig, dtype) -> torch.dtype:

@@ -79,19 +79,17 @@ SIGNATURES = {
     # stream.
     "dtt_flash_attention_chunk_bwd": [_P] * 9 + [_I] * 5 + [_L] * 12
                                      + [_I] * 4 + [_F, _I, _I, _I, _P],
-    # K4/K5 kernel A, the quantize pass: a, pre (null: no gelu'), sf
+    # K4/K5/K8 kernel A, the quantize pass: a, pre (null: no gelu'), sf
     # (null: no fold), q, sx, g (null unless want_g), M, K, bk, a's and
     # pre's row strides, dtype (0 = fp32, 1 = bf16), stream.
     "dtt_quant_blocks": [_P] * 6 + [_I] * 3 + [_L, _L, _I, _P],
-    # K4/K5 kernel B, the block-scaled GEMM: q, sx, w (K-major), sw (null:
+    # K4/K5/K8 kernel B, the block-scaled GEMM: q, sx, w (K-major), sw (null:
     # K5's bare cast), bias, residual, out, pre (null where unused), M, N,
     # K, bk, gelu, dtype, stream.
     "dtt_quant_gemm": [_P] * 8 + [_I] * 6 + [_P],
-    # K4's weight transpose: in [R, C] int8, out [C, R], R, C, stream.
+    # K4's and K8's weight transpose: in [R, C] int8, out [C, R], R, C,
+    # stream.
     "dtt_transpose_s8": [_P, _P, _I, _I, _P],
-    # K8: da, pre, qwt (K-major [N, K]), sw, out, g (null unless want_g),
-    # M, N, K, bk, da's and pre's row strides, dtype, stream.
-    "dtt_quant_matmul_dgelu": [_P] * 6 + [_I] * 4 + [_L, _L, _I, _P],
 }
 
 _lock = threading.Lock()

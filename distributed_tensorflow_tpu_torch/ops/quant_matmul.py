@@ -22,14 +22,15 @@ Each function is one wrapper around two implementations:
   block-scaled int8 GEMM (:func:`blocked_gemm`, wgmma, with K4's
   epilogue; K4's weight made K-major first by :func:`transpose_s8`).  K8
   (:func:`quantized_matmul_dgelu`, the dgrad against an explicitly
-  re-quantized ``w.T``, on no training path) is
-  ``csrc/quant_matmul.cu``'s fused kernel;
+  re-quantized ``w.T``, on no training path) is the same three launches:
+  kernel A with gelu' and no fold, the transpose, kernel B with the bare
+  ``* sw`` epilogue;
 - on CPU tensors, the plain versions :func:`quantized_matmul_reference`,
   :func:`quantized_matmul_nt_reference` and
   :func:`quantized_matmul_dgelu_reference` (the specification), and for
   the two stages :func:`quantize_blocks_reference` and
-  :func:`blocked_gemm_reference`, whose composition gives the first two
-  bit for bit.
+  :func:`blocked_gemm_reference`, whose composition gives all three bit
+  for bit.
 
 A CUDA tensor never takes a plain version: the kernel launches or the call
 raises.  The kernels take every M; K must have a power-of-two K-block of
@@ -45,12 +46,12 @@ from . import kernels
 
 # Kernel launches since the last reset (a smoke run resets them, drives
 # the main path, and reads them back).
-launches = 0              # K4 calls (each launches A, then B)
+launches = 0              # K4 calls (each launches A, T, then B)
 nt_launches = 0           # K5 calls (each launches A, then B)
-dgelu_launches = 0        # K8
+dgelu_launches = 0        # K8 calls (each launches A, T, then B)
 quantize_launches = 0     # kernel A, the quantize pass
 gemm_launches = 0         # kernel B, the block-scaled int8 GEMM
-transpose_launches = 0    # K4's weight transpose
+transpose_launches = 0    # T, K4's and K8's weight transpose
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _TILE_N = 128          # the kernels' output-column tile
@@ -270,8 +271,8 @@ def quantized_matmul_dgelu_reference(da, pre, qwt, swt, *,
 
 def quantize_blocks_reference(a, bk: int, pre=None, sf=None, *,
                               want_g: bool = False):
-    """Plain version of :func:`quantize_blocks`, the quantize stage of K4
-    and K5: ``v = a`` (fp32), times ``gelu'(pre)`` when ``pre`` is given
+    """Plain version of :func:`quantize_blocks`, the quantize stage of K4,
+    K5 and K8: ``v = a`` (fp32), times ``gelu'(pre)`` when ``pre`` is given
     (``g = v`` in a.dtype with ``want_g``), times ``sf [K]`` (the fold)
     when given; then per (row, K-block of ``bk``) ``sx = max(amax |v|,
     1e-8) / 127`` and ``q = clamp(round(v / sx), -127, 127)``.  Returns
@@ -294,13 +295,14 @@ def blocked_gemm_reference(q, sx, w, bk: int, sw=None, bias=None,
                            residual=None, *, activation: str | None = None,
                            want_preact: bool = False,
                            out_dtype=torch.float32):
-    """Plain version of :func:`blocked_gemm`, the GEMM stage of K4 and K5:
+    """Plain version of :func:`blocked_gemm`, the GEMM stage of K4, K5, K8:
     ``acc = sum_kb float(q_kb @ w_kb.T) * sx[kb]`` in fp32, K-blocks in
     order, for codes ``q [M, K]``, scales ``sx [K / bk, M]`` and the
     K-major weight ``w [N, K]`` (int8).  Without ``sw`` the output is
     ``acc`` in ``out_dtype`` (K5); with it K4's epilogue: ``* sw``, ``+
     bias``, the pre-activation rounded to ``out_dtype`` (returned with
-    ``want_preact``) and re-read, gelu, ``+ residual``, one cast."""
+    ``want_preact``) and re-read, gelu, ``+ residual``, one cast (K8:
+    ``* sw`` and the cast alone)."""
     M, K = q.shape
     acc = torch.zeros(M, w.shape[0], dtype=torch.float32, device=q.device)
     for kb in range(K // bk):
@@ -379,7 +381,7 @@ def _aligned(t: torch.Tensor) -> torch.Tensor:
 
 
 def quantize_blocks(a, bk: int, pre=None, sf=None, *, want_g: bool = False):
-    """Kernel A of K4/K5: per-(row, K-block) int8 codes and scales of ``v =
+    """Kernel A of K4/K5/K8: per-(row, K-block) int8 codes and scales of ``v =
     a [* gelu'(pre)] [* sf]`` (and ``g``, ``v`` before the fold, with
     ``want_g``).  See :func:`quantize_blocks_reference`; on a CPU tensor it
     is that plain version.  Returns ``(q [M, K] int8, sx [K / bk, M] fp32,
@@ -422,7 +424,7 @@ def quantize_blocks(a, bk: int, pre=None, sf=None, *, want_g: bool = False):
 def blocked_gemm(q, sx, w, bk: int, sw=None, bias=None, residual=None, *,
                  activation: str | None = None, want_preact: bool = False,
                  out_dtype=torch.float32):
-    """Kernel B of K4/K5: the block-scaled int8 GEMM of codes ``q [M, K]``
+    """Kernel B of K4/K5/K8: the block-scaled int8 GEMM of codes ``q [M, K]``
     and scales ``sx [K / bk, M]`` (:func:`quantize_blocks`) against the
     K-major weight ``w [N, K]`` int8, with K4's epilogue when ``sw`` is
     given.  See :func:`blocked_gemm_reference`; on a CPU tensor it is that
@@ -474,8 +476,8 @@ def blocked_gemm(q, sx, w, bk: int, sw=None, bias=None, residual=None, *,
 
 
 def transpose_s8(w):
-    """``w [R, C]`` int8 -> its transpose ``[C, R]``, contiguous: K4's
-    weight made K-major for kernel B (wgmma takes 8-bit operands K-major
+    """``w [R, C]`` int8 -> its transpose ``[C, R]``, contiguous: K4's and
+    K8's weight made K-major for kernel B (wgmma takes 8-bit operands K-major
     only).  A kernel of its own on a CUDA tensor (R and C multiples of
     64), ``w.t().contiguous()`` on a CPU tensor."""
     if w.device.type == "cpu":
@@ -562,8 +564,9 @@ def quantized_matmul_dgelu(da, pre, qwt, swt, *, want_g: bool = False,
     kernel's prologue; ``want_g`` also returns ``g = da * gelu'(pre)``.
     The dgrad against an explicitly re-quantized ``w.T``: the JAX package
     keeps it tested but trains through :func:`quantized_matmul_nt`.  K8 on
-    a CUDA tensor, :func:`quantized_matmul_dgelu_reference` on a CPU
-    tensor."""
+    a CUDA tensor (kernel A with the gelu' prologue, the weight's
+    transpose, then kernel B with the ``* swt`` epilogue),
+    :func:`quantized_matmul_dgelu_reference` on a CPU tensor."""
     if da.device.type == "cpu":
         return quantized_matmul_dgelu_reference(da, pre, qwt, swt,
                                                 want_g=want_g,
@@ -574,20 +577,13 @@ def quantized_matmul_dgelu(da, pre, qwt, swt, *, want_g: bool = False,
     _check_cuda("pre", pre, da, da.dtype)
     _check_cuda("qwt", qwt, da, torch.int8)
     _check_cuda("swt", swt, da, torch.float32)
-    # The kernel reads the weight K-major, as the int8 mma's B operand
-    # wants: one int8 transpose per call (as K4's wrapper).
-    da, pre = _rows(da), _rows(pre)
-    qw, swt = qwt.t().contiguous(), swt.contiguous()
-    out = torch.empty(M, N, dtype=da.dtype, device=da.device)
-    g = torch.empty(M, K, dtype=da.dtype, device=da.device) if want_g \
-        else None
     if M == 0:
-        return (out, g) if want_g else out
-    kernels.launch(
-        "quant_matmul_dgelu", da.device, da.data_ptr(), pre.data_ptr(),
-        qw.data_ptr(), swt.data_ptr(), out.data_ptr(),
-        None if g is None else g.data_ptr(), M, N, K, bk, da.stride(0),
-        pre.stride(0), _DTYPE_CODE[da.dtype])
+        out = torch.empty(0, N, dtype=da.dtype, device=da.device)
+        return (out, torch.empty_like(da)) if want_g else out
+    # Kernel A with gelu' and g but no fold, the weight made K-major, then
+    # kernel B with the bare ``* swt`` epilogue.
+    q, sx, g = quantize_blocks(da, bk, pre, want_g=want_g)
+    out = blocked_gemm(q, sx, transpose_s8(qwt), bk, swt, out_dtype=da.dtype)
     global dgelu_launches
     dgelu_launches += 1
     return (out, g) if want_g else out

@@ -24,8 +24,19 @@ by ``(seed, position + 1)`` (:func:`..models.gpt.row_uniforms`), so a
 sampled stream is reproducible under any batch composition.  The bits
 differ from the JAX engine's threefry keys; greedy streams are the same.
 
-Not ported yet (``EngineConfig`` raises): the speculative arm
-(``spec_k >= 2``) and chunked prefill (``prefill_chunk >= 1``).
+Chunked prefill (``prefill_chunk >= 1``): a new request's lane is seated
+at once as a masked passenger (sentinel page table) and its prompt
+advances ``prefill_chunk`` positions per engine step through
+:meth:`..models.gpt.GptLM.prefill_chunk_paged`, one dispatch over the
+slot batch, while the other lanes keep decoding; a long prompt no longer
+stalls every live lane for its whole forward.  The speculative arm
+(``spec_k >= 2``): whenever a live lane opted in
+(``Request.speculative``), the step is one ``spec_k``-wide
+:meth:`..models.gpt.GptLM.decode_chunk_paged` verify over the slot batch;
+a speculative lane feeds its current token and ``spec_k - 1``
+prompt-lookup drafts (:class:`..models.drafting.NGramIndex`) and emits
+the accepted prefix plus the free correction, a plain lane emits its
+sample from the chunk's first column.
 
 Single-threaded by contract: one thread (the server's engine loop) calls
 :meth:`admit` / :meth:`step`; :meth:`swap_params` may be called from any
@@ -44,6 +55,7 @@ from torch import nn
 from torch.func import functional_call
 
 from ..models import gpt as gpt_lib
+from ..models.drafting import NGramIndex
 from ..ops.quant import (load_inference_tree, prepare_inference_tree,
                          resolve_kv_dtype, validate_quantize)
 from ..utils import tracing
@@ -78,9 +90,15 @@ class EngineConfig:
     max_pages_per_seq: int = 8    # page-table width (caps seq length)
     quantize: str = ""            # "" | "int8" weight storage
     kv_dtype: str = ""            # "" | "bfloat16" | "float8" pool dtype
-    # Speculative decode and chunked prefill: not ported yet, must stay 0.
+    # Speculative decode arm: 0 disables; >= 2 verifies spec_k tokens a
+    # step (decode_chunk_paged) whenever a live lane opted in
+    # (Request.speculative), with drafts from an n-gram index of order
+    # spec_ngram over each lane's tokens (models/drafting.py).
     spec_k: int = 0
     spec_ngram: int = 3
+    # Chunked prefill: 0 = whole-bucket prefill at admission; >= 1 = a
+    # prefilling lane advances prefill_chunk prompt tokens per engine
+    # step (prefill_chunk_paged) while the other lanes keep decoding.
     prefill_chunk: int = 0
     # Kept for config compatibility with the JAX engine, which bounds its
     # per-bucket compiled prefill programs; eager PyTorch compiles none.
@@ -98,34 +116,71 @@ class EngineConfig:
         if self.spec_k == 1 or self.spec_k < 0:
             raise ValueError(f"spec_k must be 0 (off) or >= 2, "
                              f"got {self.spec_k}")
+        if self.spec_k and self.spec_ngram < 1:
+            raise ValueError(f"spec_ngram must be >= 1, "
+                             f"got {self.spec_ngram}")
         if self.prefill_chunk < 0:
             raise ValueError(f"prefill_chunk must be >= 0, "
                              f"got {self.prefill_chunk}")
         if self.prefill_cache_cap < 1:
             raise ValueError(f"prefill_cache_cap must be >= 1, "
                              f"got {self.prefill_cache_cap}")
-        if self.spec_k:
-            raise NotImplementedError(
-                "spec_k >= 2 (speculative decode: decode_chunk_paged and "
-                "models/drafting.py) is not ported yet; see ROADMAP.md, "
-                "PyTorch port")
-        if self.prefill_chunk:
-            raise NotImplementedError(
-                "prefill_chunk >= 1 (chunked prefill: prefill_chunk_paged) "
-                "is not ported yet; see ROADMAP.md, PyTorch port")
 
 
 class _Slot:
     """One live sequence's lane state (host side)."""
 
-    __slots__ = ("request", "prompt_len", "budget", "generated", "table")
+    __slots__ = ("request", "prompt_len", "budget", "generated", "spec",
+                 "history", "hist_len", "index", "table", "prefill_pos",
+                 "prefill_target", "prefill_chunks", "prefill_pages",
+                 "t_prefill_start")
 
-    def __init__(self, request: Request):
+    def __init__(self, request: Request, spec_ngram: int = 0):
         self.request = request
         self.prompt_len = len(request.prompt)
         self.budget = request.num_tokens
         self.generated = 0
         self.table = None             # full page table, np [MP]
+        # Chunked prefill: positions [prefill_pos, prefill_target) of the
+        # prompt still owe their K/V to the pool (target stays 0 on the
+        # whole-bucket path).
+        self.prefill_pos = 0
+        self.prefill_target = 0
+        self.prefill_chunks = 0
+        self.prefill_pages = 0
+        self.t_prefill_start = 0.0
+        # A speculative lane keeps its token history and an incremental
+        # n-gram index on the host.
+        self.spec = bool(spec_ngram)
+        if self.spec:
+            self.history = np.zeros(self.prompt_len + self.budget, np.int32)
+            self.history[:self.prompt_len] = request.prompt
+            self.hist_len = self.prompt_len
+            self.index = NGramIndex(spec_ngram)
+            self.index.update(self.history, self.hist_len - 1)
+        else:
+            self.history = None
+            self.hist_len = 0
+            self.index = None
+
+    @property
+    def prefilling(self) -> bool:
+        """Seated, but the prompt's K/V not all in the pool yet: the lane
+        rides the decode batch as a masked passenger (sentinel table)."""
+        return self.prefill_pos < self.prefill_target
+
+    def draft(self, k: int) -> np.ndarray:
+        """[k] drafted continuation tokens for the lane's current tail."""
+        return self.index.draft(self.history, self.hist_len, k)
+
+    def commit(self, tokens: list[int]) -> None:
+        """Fold the tokens emitted this step into the history and the
+        index (the last token stays unindexed, so that the next tail
+        cannot match itself)."""
+        n = len(tokens)
+        self.history[self.hist_len:self.hist_len + n] = tokens
+        self.hist_len += n
+        self.index.update(self.history, self.hist_len - 1)
 
 
 class _Method(nn.Module):
@@ -170,6 +225,8 @@ class DecodeEngine:
                            for k, v in model.state_dict().items()}
         self._decode = _Method(model, "decode_paged")
         self._prefill = _Method(model, "prefill")
+        self._verify = _Method(model, "decode_chunk_paged")
+        self._chunk_prefill = _Method(model, "prefill_chunk_paged")
         self._tree = self._prepare_params(
             model.state_dict() if params is None else params)
         self._pending: tuple[Any, int] | None = None  # (tree, label step)
@@ -192,6 +249,10 @@ class DecodeEngine:
 
         self.step_index = 0
         self._admitted_since_step = 0
+        self._spec_rows_last_step = 0
+        # Milliseconds spent producing prompt K/V (whole-bucket prefills
+        # and chunk dispatches).
+        self.prefill_ms_total = 0.0
 
     # ------------------------------------------------------------ params
 
@@ -271,6 +332,17 @@ class DecodeEngine:
     def _to_device(self, a: np.ndarray) -> torch.Tensor:
         return torch.from_numpy(a).to(self.device)
 
+    def _sample(self, logits: torch.Tensor) -> torch.Tensor:
+        """Each lane's next token from its [B, vocab] logits, its noise
+        drawn from ``(seed, position + 1)``."""
+        sampled = np.flatnonzero(self._temp > 0.0)
+        uniforms = gpt_lib.row_uniforms(
+            self._seeds, self._positions + 1, logits.shape[-1],
+            rows=sampled)
+        return gpt_lib.sample_logits_dynamic(
+            logits, uniforms.to(self.device), self._to_device(self._temp),
+            self._to_device(self._top_k), self._to_device(self._top_p))
+
     def _run_decode(self) -> np.ndarray:
         """One decode step over the slot batch; the next token per lane."""
         tokens = self._to_device(self._tokens).long()
@@ -279,14 +351,23 @@ class DecodeEngine:
         logits, self.pools = functional_call(
             self._decode, self._params(self._tree),
             (tokens, self.pools, tables, positions))
-        sampled = np.flatnonzero(self._temp > 0.0)
-        uniforms = gpt_lib.row_uniforms(
-            self._seeds, self._positions + 1, logits.shape[-1],
-            rows=sampled)
-        nxt = gpt_lib.sample_logits_dynamic(
-            logits, uniforms.to(self.device), self._to_device(self._temp),
-            self._to_device(self._top_k), self._to_device(self._top_p))
-        return nxt.cpu().numpy()
+        return self._sample(logits).cpu().numpy()
+
+    def _run_verify(self, chunk: np.ndarray):
+        """The speculative arm's step: one ``decode_chunk_paged`` over the
+        slot batch.  Column 0 of ``chunk`` [B, spec_k] is each lane's
+        current token, so ``logits[:, 0]`` is what the plain step computes
+        and a plain lane samples from it exactly as the plain step would;
+        columns 1.. are drafts.  Returns (greedy [B, spec_k], the column-0
+        sample [B])."""
+        positions = self._to_device(self._positions).long()
+        logits, self.pools = functional_call(
+            self._verify, self._params(self._tree),
+            (self._to_device(chunk).long(), self.pools,
+             self._to_device(self._tables), positions))
+        greedy = torch.argmax(logits, dim=-1)
+        sampled0 = self._sample(logits[:, 0])
+        return greedy.cpu().numpy(), sampled0.cpu().numpy()
 
     def _run_prefill(self, toks: np.ndarray, phys: np.ndarray) -> None:
         """The prompt bucket's forward, then its K/V into pool pages."""
@@ -359,11 +440,14 @@ class DecodeEngine:
             reservation_tokens(len(request.prompt), request.num_tokens))
 
     def admit(self, request: Request) -> int:
-        """Prefill the prompt into fresh pages and seat the request.
+        """Reserve the request's pages and seat it.
 
-        The first GENERATED token comes from the next :meth:`step`: the
-        lane is seeded with the last prompt token at position P-1, so the
-        decode step produces token P like any other step."""
+        Whole-bucket path: the prompt prefills into its pages here, in one
+        forward.  Chunked path (``prefill_chunk >= 1``): the lane is seated
+        at once with a sentinel table and its prompt advances chunk by
+        chunk in :meth:`step`.  Either way the first GENERATED token comes
+        from a decode step: the lane is seeded with the last prompt token
+        at position P-1, so the step produces token P like any other."""
         cfg = self.config
         slot = next(i for i, s in enumerate(self._slots) if s is None)
         P = len(request.prompt)
@@ -381,31 +465,47 @@ class DecodeEngine:
                 trace=request.trace, request_id=request.id,
                 tenant=request.tenant, pages=len(pages))
         n_prefill = self.allocator.pages_for(P)
-        # Whole-bucket prefill: one forward over the padded prompt bucket,
-        # blocking this engine step for its full duration.
-        try:
-            toks = np.zeros((1, n_prefill * cfg.page_size), np.int32)
-            toks[0, :P] = request.prompt
-            self._run_prefill(toks, np.asarray(pages[:n_prefill], np.int32))
-            # Synchronise before timing: the span records device time,
-            # not launch time.
-            self._sync()
-        except Exception:
-            self.allocator.free(request.id)
-            raise
-        if tracer is not None:
-            tracer.emit_span(
-                "serve.prefill", _unix_at(t_pre),
-                (time.perf_counter() - t_pre) * 1e3,
-                step=self.step_index, parent_id=request.span_root,
-                trace=request.trace, request_id=request.id,
-                tenant=request.tenant, bucket=n_prefill,
-                pages=n_prefill, prompt_tokens=P, chunks=1)
-        state = _Slot(request)
+        chunked = cfg.prefill_chunk > 0
+        if not chunked:
+            # Whole-bucket prefill: one forward over the padded prompt
+            # bucket, blocking this engine step for its full duration.
+            try:
+                toks = np.zeros((1, n_prefill * cfg.page_size), np.int32)
+                toks[0, :P] = request.prompt
+                self._run_prefill(toks,
+                                  np.asarray(pages[:n_prefill], np.int32))
+                # Synchronise before timing: the span records device
+                # time, not launch time.
+                self._sync()
+            except Exception:
+                self.allocator.free(request.id)
+                raise
+            self.prefill_ms_total += (time.perf_counter() - t_pre) * 1e3
+            if tracer is not None:
+                tracer.emit_span(
+                    "serve.prefill", _unix_at(t_pre),
+                    (time.perf_counter() - t_pre) * 1e3,
+                    step=self.step_index, parent_id=request.span_root,
+                    trace=request.trace, request_id=request.id,
+                    tenant=request.tenant, bucket=n_prefill,
+                    pages=n_prefill, prompt_tokens=P, chunks=1)
+        spec = bool(cfg.spec_k) and request.speculative
+        state = _Slot(request, cfg.spec_ngram if spec else 0)
         state.table = self.allocator.page_table(request.id,
                                                 cfg.max_pages_per_seq)
+        state.prefill_pages = n_prefill
         self._slots[slot] = state
-        self._tables[slot] = state.table
+        if chunked and P > 1:
+            # Seated prefilling: the row keeps the sentinel table (its
+            # decode-batch writes drop, its outputs are ignored, as an idle
+            # lane's) while step() advances positions [0, P-1); the decode
+            # step writes P-1 itself, as after a whole-bucket prefill.
+            state.prefill_target = P - 1
+            state.t_prefill_start = t_pre
+        else:
+            # Whole-bucket path, or a one-token prompt, which owes no K/V:
+            # the lane decodes from the next step.
+            self._tables[slot] = state.table
         self._tokens[slot] = request.prompt[-1]
         self._positions[slot] = P - 1
         self._temp[slot] = request.temperature
@@ -443,13 +543,19 @@ class DecodeEngine:
                 if value is not None:
                     tel.histogram(name).record(value)
                     tel.histogram(f"{name}[{req.tenant}]").record(value)
+            extra = {}
+            if state.spec and req.spec_rounds:
+                extra = {"speculative": True,
+                         "spec_rounds": req.spec_rounds,
+                         "spec_accepted_per_round": round(
+                             len(req.tokens) / req.spec_rounds, 2)}
             tel.emit("serve_request", step=self.step_index,
                      tenant=req.tenant, status=status,
                      prompt_tokens=state.prompt_len,
                      tokens_out=len(req.tokens),
                      queue_ms=req.queue_ms, ttft_ms=req.ttft_ms,
                      tpot_ms=req.tpot_ms, e2e_ms=req.e2e_ms,
-                     model_step=self.model_step)
+                     model_step=self.model_step, **extra)
         tracer = tracing.active()
         if tracer is not None:
             _ensure_request_trace(tracer, req)
@@ -473,15 +579,108 @@ class DecodeEngine:
 
     # ------------------------------------------------------------- step
 
+    def _spec_slots_active(self) -> bool:
+        # A prefilling spec lane drafts nothing yet: it is a masked
+        # passenger until its prompt K/V is in the pool.
+        return any(s is not None and s.spec and not s.prefilling
+                   for s in self._slots)
+
+    def _advance_prefill(self) -> tuple[float, int]:
+        """One chunk-prefill dispatch: every prefilling lane advances up to
+        ``prefill_chunk`` prompt positions through ``prefill_chunk_paged``;
+        a lane whose frontier reaches P-1 goes live (its real table
+        installed) and its seed token rides the decode dispatch that
+        follows.  The other rows ride along with sentinel tables.  Pad
+        columns of a last partial chunk carry token 0 at positions >= the
+        target: their junk K/V lands where the lane's decode steps write
+        before its frontier reaches them.  Returns (ms, rows advanced)."""
+        cfg = self.config
+        C = cfg.prefill_chunk
+        B, MP = cfg.num_slots, cfg.max_pages_per_seq
+        t0 = time.perf_counter()
+        tokens = np.zeros((B, C), np.int32)
+        positions = np.zeros((B,), np.int32)
+        tables = np.full((B, MP), cfg.num_pages, np.int32)
+        rows: list[tuple[int, _Slot, int]] = []
+        for slot, state in enumerate(self._slots):
+            if (state is None or not state.prefilling
+                    or state.request.abandoned):
+                continue
+            f = state.prefill_pos
+            r = min(C, state.prefill_target - f)
+            tokens[slot, :r] = state.request.prompt[f:f + r]
+            positions[slot] = f
+            tables[slot] = state.table
+            rows.append((slot, state, r))
+        if not rows:
+            return 0.0, 0
+        functional_call(self._chunk_prefill, self._params(self._tree),
+                        (self._to_device(tokens).long(), self.pools,
+                         self._to_device(tables),
+                         self._to_device(positions).long()))
+        # Device time, not launch time (the decode step would absorb it).
+        self._sync()
+        dur_ms = (time.perf_counter() - t0) * 1e3
+        self.prefill_ms_total += dur_ms
+        tracer = tracing.active()
+        now = time.perf_counter()
+        for slot, state, r in rows:
+            state.prefill_pos += r
+            state.prefill_chunks += 1
+            if state.prefilling:
+                continue
+            self._tables[slot] = state.table       # live from now on
+            req = state.request
+            if tracer is not None:
+                _ensure_request_trace(tracer, req)
+                tracer.emit_span(
+                    "serve.prefill", _unix_at(state.t_prefill_start),
+                    (now - state.t_prefill_start) * 1e3,
+                    step=self.step_index, parent_id=req.span_root,
+                    trace=req.trace, request_id=req.id,
+                    tenant=req.tenant, bucket=state.prefill_pages,
+                    pages=state.prefill_pages,
+                    prompt_tokens=state.prompt_len,
+                    chunks=state.prefill_chunks, chunk_tokens=C)
+        if self.telemetry is not None:
+            self.telemetry.counter("serve_prefill_chunks").inc(len(rows))
+            self.telemetry.histogram("serve_prefill_chunk_ms").record(
+                dur_ms)
+        return dur_ms, len(rows)
+
     def step(self, queue_depth: int = 0) -> list[Request]:
         """One decode step over the whole slot batch; returns the requests
         retired this step (completed/abandoned).  No-op (after adopting a
-        staged swap) when every lane is idle."""
+        staged swap) when every lane is idle.
+
+        With chunked prefill the prompt chunks go first.  When a live lane
+        opted into speculation the step is the verify dispatch: a
+        speculative lane may emit several tokens (the accepted drafts and
+        the free correction), a plain lane emits exactly what the plain
+        step would."""
         self.apply_pending_swap()
         if self.active_slots == 0:
             return []
+        prefill_ms, prefill_rows = 0.0, 0
+        if self.config.prefill_chunk:
+            prefill_ms, prefill_rows = self._advance_prefill()
+        K = self.config.spec_k
+        spec_mode = bool(K) and self._spec_slots_active()
         t0 = time.perf_counter()
-        nxt = self._run_decode()
+        if spec_mode:
+            chunk = np.zeros((self.config.num_slots, K), np.int32)
+            chunk[:, 0] = self._tokens
+            spec_rows = 0
+            for slot, state in enumerate(self._slots):
+                if state is not None and state.spec \
+                        and not state.prefilling:
+                    chunk[slot, 1:] = state.draft(K - 1)
+                    spec_rows += 1
+            greedy, nxt = self._run_verify(chunk)
+            self._spec_rows_last_step = spec_rows
+        else:
+            nxt = self._run_decode()
+            self._spec_rows_last_step = 0
         now = time.perf_counter()
         step_ms = (now - t0) * 1e3
         self.step_index += 1
@@ -493,8 +692,10 @@ class DecodeEngine:
             round_id = tracer.emit_span(
                 "serve.decode_round", t_round_unix, step_ms,
                 step=self.step_index, parent_id=0,
-                active_slots=self.active_slots, spec_rows=0,
+                active_slots=self.active_slots,
+                spec_rows=self._spec_rows_last_step,
                 model_step=self.model_step)
+        spec_accepted = 0
         retired: list[Request] = []
         for slot, state in enumerate(self._slots):
             if state is None:
@@ -503,25 +704,55 @@ class DecodeEngine:
             if req.abandoned:
                 retired.append(self._retire(slot, "abandoned"))
                 continue
-            token = int(nxt[slot])
+            if state.prefilling:
+                continue              # a masked passenger: no token yet
+            if spec_mode and state.spec:
+                # The longest drafted prefix that matches the greedy
+                # argmaxes, plus the free correction, clamped to the
+                # lane's remaining budget; an accepted eos ends it.
+                row, g = chunk[slot], greedy[slot]
+                accept = 1
+                while (accept < K and row[accept] == g[accept - 1]
+                       and not (req.eos_id is not None
+                                and row[accept - 1] == req.eos_id)):
+                    accept += 1
+                accept = min(accept, state.budget - state.generated)
+                emitted = [int(t) for t in row[1:accept]]
+                emitted.append(int(g[accept - 1]))
+                req.spec_rounds += 1
+            else:
+                emitted = [int(nxt[slot])]
             if req.t_first_token is None:
                 req.t_first_token = now
-            req.tokens.append(token)
-            state.generated += 1
-            done = ((req.eos_id is not None and token == req.eos_id)
-                    or state.generated >= state.budget)
+            done = False
+            count = 0
+            for token in emitted:
+                req.tokens.append(token)
+                state.generated += 1
+                count += 1
+                if ((req.eos_id is not None and token == req.eos_id)
+                        or state.generated >= state.budget):
+                    done = True
+                    break
+            if state.spec:
+                state.commit(emitted[:count])
+                # What landed: an eos cuts the emission mid-chunk.
+                spec_accepted += count
             if tracer is not None:
                 _ensure_request_trace(tracer, req)
+                lane_attrs = {}
+                if spec_mode and state.spec:
+                    lane_attrs = {"accepted": count, "drafted": K - 1}
                 tracer.emit_span(
                     "serve.decode_lane", t_round_unix, step_ms,
                     step=self.step_index, parent_id=round_id,
                     trace=req.trace, request_id=req.id,
-                    tenant=req.tenant, tokens=1)
+                    tenant=req.tenant, tokens=count, **lane_attrs)
             if done:
                 retired.append(self._retire(slot, "ok"))
             else:
-                self._tokens[slot] = token
-                self._positions[slot] += 1
+                self._tokens[slot] = emitted[count - 1]
+                self._positions[slot] += count
         if self.telemetry is not None:
             tel = self.telemetry
             tel.histogram("serve_step_ms").record(step_ms)
@@ -532,14 +763,19 @@ class DecodeEngine:
             tel.gauge("serve_kv_fragmentation").set(
                 self.allocator.internal_fragmentation())
             tel.gauge("serve_compile_cache").set(0)
+            if spec_accepted:
+                tel.counter("serve_spec_tokens").inc(spec_accepted)
             tel.emit("serve_step", step=self.step_index,
                      active_slots=self.active_slots + len(retired),
                      admitted=self._admitted_since_step,
                      retired=len(retired), queue_depth=queue_depth,
                      kv_pages_in_use=self.allocator.pages_in_use,
                      kv_pages_total=self.config.num_pages,
-                     step_ms=round(step_ms, 3), spec_rows=0,
-                     spec_accepted=0, prefill_rows=0, prefill_ms=0.0,
+                     step_ms=round(step_ms, 3),
+                     spec_rows=self._spec_rows_last_step,
+                     spec_accepted=spec_accepted,
+                     prefill_rows=prefill_rows,
+                     prefill_ms=round(prefill_ms, 3),
                      model_step=self.model_step)
         self._admitted_since_step = 0
         return retired
@@ -568,9 +804,10 @@ class DecodeEngine:
             "quantize": self.config.quantize,
             "kv_dtype": self.config.kv_dtype,
             "spec_k": self.config.spec_k,
-            "spec_rows": 0,
+            "spec_rows": self._spec_rows_last_step,
             "prefill_chunk": self.config.prefill_chunk,
-            "prefilling_slots": 0,
+            "prefilling_slots": sum(
+                1 for s in self._slots if s is not None and s.prefilling),
             "compile_cache": {
                 "prefill_programs": 0,
                 "chunk_programs": 0,

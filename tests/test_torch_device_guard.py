@@ -202,7 +202,9 @@ WRAPPERS = [("K1", _k1, "dtt_flash_attention_fwd"),
             ("K7b", _k7b, "dtt_flash_attention_chunk_bwd"),
             ("K7a_out", _k7a_out, "dtt_flash_attention_chunk_bwd"),
             ("K7b_out", _k7b_out, "dtt_flash_attention_chunk_bwd"),
-            ("K8", _k8, "dtt_quant_matmul_dgelu")]
+            # K8: the quantize pass with gelu', K4's transpose, the GEMM.
+            ("K8", _k8, ("dtt_quant_blocks", "dtt_transpose_s8",
+                         "dtt_quant_gemm"))]
 
 
 def _calls(entry):

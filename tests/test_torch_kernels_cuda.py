@@ -1116,9 +1116,13 @@ def test_quantized_matmul_dgelu_kernel_matches_plain_on_card(
     qwt, swt = qmm.quantize_cols(
         torch.randn(K, N, generator=g, device=cuda_device) * 0.05)
     kw = dict(want_g=want_g, block_k=block_k)
-    before = qmm.dgelu_launches
+    before = (qmm.dgelu_launches, qmm.quantize_launches,
+              qmm.transpose_launches, qmm.gemm_launches)
     got = qmm.quantized_matmul_dgelu(da, pre, qwt, swt, **kw)
-    assert qmm.dgelu_launches == before + 1
+    # One call: kernel A, the weight's transpose, kernel B.
+    assert (qmm.dgelu_launches, qmm.quantize_launches,
+            qmm.transpose_launches, qmm.gemm_launches) == tuple(
+                n + 1 for n in before)
     want = qmm.quantized_matmul_dgelu_reference(da, pre, qwt, swt, **kw)
     torch.cuda.synchronize()
     got = got if isinstance(got, tuple) else (got,)

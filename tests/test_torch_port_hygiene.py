@@ -46,7 +46,8 @@ def test_every_port_module_imports_without_jax():
     assert out.returncode == 0, out.stdout + out.stderr
     assert len(_port_modules()) >= 15
     assert {f"{port.__name__}.parallel.mesh",
-            f"{port.__name__}.parallel.ring"} <= set(_port_modules())
+            f"{port.__name__}.parallel.ring",
+            f"{port.__name__}.models.drafting"} <= set(_port_modules())
 
 
 def test_no_port_file_or_chip_smoke_names_jax_in_an_import():
@@ -93,8 +94,7 @@ def test_kernel_sources_ship_in_the_package_and_hash_stably():
     names = sorted(os.path.basename(s) for s in kernels.sources())
     assert names == ["flash_attention.cu", "flash_attention_bwd.cu",
                      "flash_attention_chunk.cu", "hopper.cuh", "launch.cuh",
-                     "layer_norm.cu", "quant.cuh", "quant_gemm.cu",
-                     "quant_matmul.cu"]
+                     "layer_norm.cu", "quant.cuh", "quant_gemm.cu"]
     assert kernels.source_hash() == kernels.source_hash()
     assert kernels.BUILD_ROOT.endswith("_build")
     with open(os.path.join(REPO, ".gitignore")) as f:

@@ -1,4 +1,4 @@
-"""K4 and K5 as two stages: the port's quantize pass (kernel A's plain
+"""K4, K5 and K8 as two stages: the port's quantize pass (kernel A's plain
 version, ``quantize_blocks_reference``) against the JAX package's
 ``_quant_block``, and the quantize pass composed with the block-scaled
 GEMM (kernel B's plain version, ``blocked_gemm_reference``) against the
@@ -192,6 +192,32 @@ def test_k5_stages_compose_to_the_plain_version(variant, dtype, M, bk):
                                              want_g=kw.get("want_g", False))
     got = tqm.blocked_gemm_reference(q, sx, qw, bk, out_dtype=td)
     _equal((got, g) if kw.get("want_g") else got, want)
+
+
+@pytest.mark.parametrize("M,K,N,bk", [(128, 1024, 256, 128),
+                                      (200, 384, 640, 512)])
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+@pytest.mark.parametrize("want_g", [False, True])
+def test_k8_stages_compose_to_the_plain_version(want_g, dtype, M, K, N, bk):
+    """K8 as the card runs it: the quantize pass with gelu' and no fold,
+    the weight transposed K-major, the GEMM with the bare ``* swt``
+    epilogue: bit for bit the monolithic quantized_matmul_dgelu_reference
+    (and its g)."""
+    rng = np.random.default_rng(M + K + bk + 2)
+    td = DTYPES[dtype][1]
+    da = torch.from_numpy(rng.standard_normal((M, K)).astype(np.float32)
+                          ).to(td)
+    pre = torch.from_numpy(
+        (2 * rng.standard_normal((M, K))).astype(np.float32)).to(td)
+    qwt, swt = tqm.quantize_cols(torch.from_numpy(
+        (0.05 * rng.standard_normal((K, N))).astype(np.float32)))
+    want = tqm.quantized_matmul_dgelu_reference(da, pre, qwt, swt,
+                                                want_g=want_g, block_k=bk)
+    kb = tqm._block_k(K, bk)
+    q, sx, g = tqm.quantize_blocks_reference(da, kb, pre, want_g=want_g)
+    got = tqm.blocked_gemm_reference(q, sx, tqm.transpose_s8(qwt), kb, swt,
+                                     out_dtype=td)
+    _equal((got, g) if want_g else got, want)
 
 
 @pytest.mark.parametrize("kind", ["k4", "k5"])
