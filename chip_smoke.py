@@ -32,7 +32,8 @@ Phases, one JSON line each on stdout:
    over them against K1/K2 on the whole sequence; K8, on no path, at the
    int8 MLP's mlp_in dgrad shape, with and without g, also as its three
    launches apart, as K4's; K3 also at the chunked prefill's dispatch
-   and the speculative verify's rows), with the tolerance stated below, its
+   and the speculative verify's rows; K1 at the generate phase's prefill
+   and K3 at its decode step's rows), with the tolerance stated below, its
    time, the plain version's time, one library call's time (used only
    here, never by the port; K4/K5/K8 have two labelled yardsticks) and
    the least time the card could take; K1, K2, K3 and K6 rows also carry
@@ -69,7 +70,20 @@ Phases, one JSON line each on stdout:
    engine's.  Then the bf16 model over HTTP, the plain engine and the
    speculative one: the accepted share of the drafts, spec rounds,
    tokens/s and TPOT, K1 and K3 launches exact.
-7. ``train``: the flagship GPT train step (``bench.py``'s: the same
+7. ``generate``: the library decode family on the same model
+   (``generate``, ``generate_cached``, ``beam_search_cached``,
+   ``generate_cached_speculative`` and ``..._device``) at B=4 prompts of
+   384 tokens.  Gates, in fp32 at the full width and 2 layers: every
+   greedy arm gives ``generate_cached``'s tokens, and with
+   ``attention_window=256`` the ring cache gives the uncached loop's
+   (K1's window band).  Then the bf16 model: ``generate_cached``'s
+   tokens/s, ms a step, prefill ms and peak memory (128 new tokens), a
+   width-4 beam's ms a token, both speculative loops on repeated-phrase
+   prompts beside ``generate_cached``, the int8-weight / float8-cache
+   arm's first divergence from bf16 (not gated), and the
+   ``generate_profile`` line over 16 tokens; every arm's K1 and K3
+   launches exact (the fp32 host loop's fallback finish aside).
+8. ``train``: the flagship GPT train step (``bench.py``'s: the same
    widths, fp32 master weights, bf16 compute, ``attention_backend=
    "pallas"``, plus ``fused_ln=True``; Adam 3e-4, B=8, S=1024, the
    synthetic LM stream) through ``TrainState`` and
@@ -78,22 +92,22 @@ Phases, one JSON line each on stdout:
    then 30 steps with the launch counters set to 0 just before and read
    just after (the loss must stay finite and fall); then the
    ``train_profile`` line, ``torch.profiler`` over one more step.
-8. ``train_int8``: the same step with ``matmul_int8=True`` (bench.py's
+9. ``train_int8``: the same step with ``matmul_int8=True`` (bench.py's
    int8 arm, :2271): each block's gelu MLP through K4 and K5.  The same
    kernel-vs-plain check (the plain path also takes the plain versions of
    K4/K5), 30 steps with exact launch counts (K4 and K5 twice per layer,
    each call one quantize pass and one GEMM, K4's one weight transpose),
    the loss held to the bf16 phase's, the ``train_int8_profile`` line,
    then a short arm with ``attn_int8=True`` as well (bench.py :2287).
-9. ``train_ring``: the same step with ``attention_backend="ring"``
-   (``train.py --sequence_parallel=4 --attention_backend=ring``) on a mesh
-   of four sequence shards of 256 on the card: each block's attention is
-   a 4-hop ring through K6 forward and K7a/K7b backward.  One step's loss
-   and gradients against the same ring through the plain chunk versions
-   and against the pallas step (K1/K2), then 30 steps with exact launch
-   counts (K6, K7a, K7b each 4 shards x 4 hops x 8 layers = 128 per step,
-   K3 17, K1/K2 none), a falling loss, and the ``train_ring_profile``
-   line.
+10. ``train_ring``: the same step with ``attention_backend="ring"``
+    (``train.py --sequence_parallel=4 --attention_backend=ring``) on a
+    mesh of four sequence shards of 256 on the card: each block's
+    attention is a 4-hop ring through K6 forward and K7a/K7b backward.
+    One step's loss and gradients against the same ring through the
+    plain chunk versions and against the pallas step (K1/K2), then 30
+    steps with exact launch counts (K6, K7a, K7b each 4 shards x 4 hops x
+    8 layers = 128 per step, K3 17, K1/K2 none), a falling loss, and the
+    ``train_ring_profile`` line.
 
 Then the card's name and power limit, the kernels' summary object, and
 last ``{"ok": true, "device": {...}}``.  A summary row's numbers and
@@ -101,7 +115,9 @@ launches are those of its main path (``main``: the train step for
 K1/K2/K3, the int8 train step for K4/K5, the ring train step for K6/K7,
 whose numbers are the mean per launch over a step's hops, and the
 ``kernels`` phase itself for K8, which no path launches); its ``paths``
-hold each path's own shape, numbers and launches, K4/K5/K8 rows list
+hold each path's own shape, numbers and launches (K1's and K3's
+``generate``: the prefill of B=4 x 384 and the decode step's 4 rows,
+with the bf16 ``generate_cached`` arm's launches), K4/K5/K8 rows list
 their call sites or variants under ``sites``, and K6's ``hop_kinds``
 hold its visible and diagonal hops' own times and ratios to SDPA, K7a's
 and K7b's every hop kind's, with the pair's ratio to SDPA's backward.
@@ -209,6 +225,13 @@ NEW_TOKENS = 64
 PREFILL_CHUNK = 128
 SPEC_K = 4
 SEED = 0
+# The generate phase: B prompts of `prompt` tokens; `new` tokens in the
+# fp32 gates (`uncached` for the O(S^2) loop), `bf16_new` at full depth;
+# a width-4 beam over `beam_new`; spec_k 8; the window gate's window
+# (total length above it).
+GEN = dict(batch=4, prompt=384, new=64, uncached=16, bf16_new=128,
+           beam=4, beam_new=64, spec_k=8, window=256, window_prompt=300,
+           window_new=24)
 # The flagship train step (bench.py:456-531, :694): B=8, S=1024, Adam 3e-4.
 TRAIN = dict(batch=8, seq_len=1024, lr=3e-4, steps=30)
 ATTN_INT8_STEPS = 5
@@ -437,9 +460,9 @@ def check_kernels(dev):
     S = 784                       # the longest prompt's prefill bucket
     warm_up(dev)
 
-    def qkv(B, d=D):
+    def qkv(B, d=D, s=S):
         # Views into one fused [B, S, 3, H, D] projection, as on the path.
-        t = torch.randn(B, S, 3, H, d, generator=g, device=dev,
+        t = torch.randn(B, s, 3, H, d, generator=g, device=dev,
                         dtype=torch.float32).to(torch.bfloat16)
         return t[:, :, 0], t[:, :, 1], t[:, :, 2]
 
@@ -447,23 +470,26 @@ def check_kernels(dev):
     masked_tail[1, S - 300:] = 0
     masked_head = torch.ones(1, S, dtype=torch.int32, device=dev)
     masked_head[0, :10] = 0        # causal rows 0..9 see no valid key
-    # (name, B, kv_mask, window, head_dim); head_dim 32 is the JAX
-    # GptConfig's default width (hidden 128, 4 heads).
-    cases = [("causal", 1, None, 0, D), ("kv_mask", 2, masked_tail, 0, D),
-             ("window", 1, None, 256, D), ("masked_rows", 1, masked_head, 0,
-                                           D),
-             ("head_dim_32", 1, None, 0, 32)]
+    # (name, B, kv_mask, window, head_dim, S); head_dim 32 is the JAX
+    # GptConfig's default width (hidden 128, 4 heads); the generate
+    # phase's prefill is B=4 prompts of 384 tokens.
+    cases = [("causal", 1, None, 0, D, S),
+             ("kv_mask", 2, masked_tail, 0, D, S),
+             ("window", 1, None, 256, D, S),
+             ("masked_rows", 1, masked_head, 0, D, S),
+             ("head_dim_32", 1, None, 0, 32, S),
+             ("generate_prefill", GEN["batch"], None, 0, D, GEN["prompt"])]
     k1_cases = []
-    for name, B, mask, window, d in cases:
-        q, k, v = qkv(B, d)
+    for name, B, mask, window, d, s in cases:
+        q, k, v = qkv(B, d, s)
         out, lse = fa.flash_attention(q, k, v, mask, causal=True,
                                       window=window)
         err, lse_err = check_k1(name, q, k, v, mask, out, lse, causal=True,
                                 window=window)
-        valid = attention_valid(B, S, mask, causal=True, window=window,
+        valid = attention_valid(B, s, mask, causal=True, window=window,
                                 device=dev)
         k1_cases.append(dict(
-            case=name, B=B, S=S, H=H, D=d, window=window, max_abs_err=err,
+            case=name, B=B, S=s, H=H, D=d, window=window, max_abs_err=err,
             tol=K1_OUT_TOL, lse_err=lse_err, lse_tol=K1_LSE_TOL,
             **k1_timings(q, k, v, mask, valid, causal=True, window=window)))
 
@@ -472,11 +498,13 @@ def check_kernels(dev):
     # The serving path's prefill and decode rows, and the train step's
     # B*S rows of the bf16 residual stream.
     # The chunked prefill's dispatch (every slot's chunk) and the
-    # speculative verify (every slot's spec_k tokens) too.
+    # speculative verify (every slot's spec_k tokens) too, and the generate
+    # phase's decode step (its B rows).
     for name, rows in (("prefill", S), ("decode", ENGINE["num_slots"]),
                        ("train", TRAIN["batch"] * TRAIN["seq_len"]),
                        ("chunk_prefill", ENGINE["num_slots"] * PREFILL_CHUNK),
-                       ("verify", ENGINE["num_slots"] * SPEC_K)):
+                       ("verify", ENGINE["num_slots"] * SPEC_K),
+                       ("generate_decode", GEN["batch"])):
         x = torch.randn(rows, Hd, generator=g, device=dev).to(torch.bfloat16)
         scale = 1 + 0.1 * torch.randn(Hd, generator=g, device=dev)
         bias = 0.1 * torch.randn(Hd, generator=g, device=dev)
@@ -565,14 +593,16 @@ def check_kernels(dev):
     return [
         summary("flash_attention_fwd", "flash_attention.cu",
                 "flash_attention.py:119", "train",
-                {"serve": k1_cases[0], "train": k2["fwd"]}, k1_all),
+                {"serve": k1_cases[0], "train": k2["fwd"],
+                 "generate": k1_cases[5]}, k1_all),
         # Serving launches K3 at its prefill and its decode rows: both
         # rows carry the serving run's launches (one counter).
         summary("layer_norm_fwd", "layer_norm.cu", "layer_norm.py:38",
                 "train", {"serve": k3_cases[0], "serve_decode": k3_cases[1],
                           "train": k3_cases[2], "train_ring": k3_cases[2],
                           "serve_chunked": k3_cases[3],
-                          "serve_spec": k3_cases[4]},
+                          "serve_spec": k3_cases[4],
+                          "generate": k3_cases[5]},
                 k3_cases),
         summary("flash_attention_bwd_dkv", "flash_attention_bwd.cu",
                 "flash_attention.py:425", "train", {"train": k2["dkv"][0]},
@@ -1275,17 +1305,17 @@ def check_model(dev, model, gpt):
     return err
 
 
-def profile_request(client, prompt) -> dict:
-    """``torch.profiler`` over one request (512-token prompt, 64 new
-    tokens) through the HTTP tier: the card's busy share of the window
-    and the kernels that take most of its device time."""
+def profile_window(fn) -> dict:
+    """``torch.profiler`` over ``fn()``: the window's wall time, the
+    card's busy share of it and the kernels that take most of its device
+    time."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        client.generate(prompt, NEW_TOKENS, tenant="profile")
+        fn()
         torch.cuda.synchronize()
         window_ms = (time.perf_counter() - t0) * 1e3
     rows = []
@@ -1296,10 +1326,17 @@ def profile_request(client, prompt) -> dict:
             rows.append((e.key, us / 1e3, e.count))
     rows.sort(key=lambda r: -r[1])
     busy_ms = sum(r[1] for r in rows)
-    return dict(prompt_tokens=len(prompt), new_tokens=NEW_TOKENS,
-                window_ms=window_ms, device_busy_ms=busy_ms,
+    return dict(window_ms=window_ms, device_busy_ms=busy_ms,
                 busy_share=busy_ms / window_ms if rows else None,
                 top=[[name[:60], ms, n] for name, ms, n in rows[:8]])
+
+
+def profile_request(client, prompt) -> dict:
+    """One request (512-token prompt, 64 new tokens) through the HTTP
+    tier under :func:`profile_window`."""
+    return dict(prompt_tokens=len(prompt), new_tokens=NEW_TOKENS,
+                **profile_window(lambda: client.generate(
+                    prompt, NEW_TOKENS, tenant="profile")))
 
 
 def burst(client, prompts, kw_for) -> tuple[list, float]:
@@ -1627,6 +1664,203 @@ def serve_spec(dev, model) -> dict:
          fp32_2_layers=dict(tokens_equal_plain=len(prompts),
                             spec_rounds=f32_rounds), **arms)
     return arms["spec"]["launches"]
+
+
+def generate_prompts(V: int):
+    """The generate phase's prompts: ``GEN["batch"]`` random rows, and as
+    many rows repeating a seeded 24-token phrase (each from another
+    offset), all ``GEN["prompt"]`` tokens long."""
+    import numpy as np
+    B, P = GEN["batch"], GEN["prompt"]
+    rand = np.random.default_rng(SEED + 3).integers(0, V, (B, P))
+    phrase = np.random.default_rng(SEED + 2).integers(0, V, 24)
+    return rand, np.stack([np.resize(np.roll(phrase, -5 * b), P)
+                           for b in range(B)])
+
+
+class DecodeArm:
+    """One arm of the generate phase: the launch counters set to 0 just
+    before ``fn()`` runs and read just after, and ``check(result,
+    launches)`` (by default: equal to ``want(result)``, the exact counts)
+    must hold; ``ms`` is the call's wall time, ending in a synchronise."""
+
+    def __init__(self, name, fn, want=None, check=None):
+        import torch
+        reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        self.result = fn()
+        torch.cuda.synchronize()
+        self.ms = (time.perf_counter() - t0) * 1e3
+        self.launches = {k: v for k, v in launch_counts().items() if v}
+        if check is None:
+            def check(result, launches):
+                return launches == {k: v for k, v in want(result).items()
+                                    if v}
+        if not check(self.result, self.launches):
+            raise AssertionError(f"generate {name}: launches "
+                                 f"{self.launches}")
+
+
+def generate_phase(dev, model) -> dict:
+    """Phase ``generate``: the library decode family (``generate``,
+    ``generate_cached``, ``beam_search_cached`` and both speculative
+    loops) at the serve phase's widths.  Gates, in fp32 at the full width
+    and 2 layers: every greedy arm gives ``generate_cached``'s tokens;
+    with ``attention_window`` 256, the ring cache gives the uncached
+    loop's (K1's window band).  Then the bf16 model of the serve phase at
+    full depth: tokens/s, ms a step, prefill ms and peak memory of
+    ``generate_cached``, a width-4 beam's ms a token, both speculative
+    loops against ``generate_cached`` on repeated-phrase prompts, and the
+    int8-weight / float8-cache arm's first divergence from bf16 (not
+    gated).  Every arm's launches exact (K1 once a layer a prefill and an
+    uncached step, K3 2L + 1 a prefill, step or chunk), but for the fp32
+    host loop's fallback finish, whose steps its stats do not count.
+    Returns the bf16 ``generate_cached`` arm's launches."""
+    import torch
+    from distributed_tensorflow_tpu_torch.models import gpt
+
+    t_phase = time.perf_counter()
+    V = WIDTH["vocab_size"]
+    rand, phrase = generate_prompts(V)
+    B, P, N, K = GEN["batch"], GEN["prompt"], GEN["new"], GEN["spec_k"]
+
+    def counts(L, passes, uncached=0):
+        """K1 once a layer a prefill or uncached step, K3 2L + 1 each
+        pass (the first of ``passes`` a prefill)."""
+        return {"flash_attention_fwd": L * (1 if passes else 0)
+                + L * uncached,
+                "layer_norm_fwd": (2 * L + 1) * (passes + uncached)}
+
+    def equal(name, got, want):
+        if not torch.equal(got, want):
+            where = [first_divergence(a, b)
+                     for a, b in zip(got.tolist(), want.tolist())]
+            raise AssertionError(f"generate {name}: tokens differ from "
+                                 f"generate_cached's at {where}")
+
+    # Gate 1: fp32, full width, 2 layers.
+    f32 = fp32_model(dev)
+    L = f32.cfg.num_layers
+    cached = DecodeArm("fp32 cached", lambda: gpt.generate_cached(
+        f32, None, rand, N), lambda r: counts(L, N)).result
+    n = GEN["uncached"]
+    uncached = DecodeArm("fp32 uncached", lambda: gpt.generate(
+        f32, None, rand, n), lambda r: counts(L, 0, n)).result
+    equal("fp32 uncached", uncached, cached[:, :P + n])
+    beam1 = DecodeArm("fp32 beam 1", lambda: gpt.beam_search_cached(
+        f32, None, rand, N, beam_size=1), lambda r: counts(L, N))
+    equal("fp32 beam 1", beam1.result[0], cached)
+    plain_phrase = gpt.generate_cached(f32, None, phrase, N)
+    f_host = DecodeArm(
+        "fp32 spec host", lambda: gpt.generate_cached_speculative(
+            f32, None, phrase, N, spec_k=K),
+        check=lambda r, got: (
+            set(got) == {"flash_attention_fwd", "layer_norm_fwd"}
+            and got["flash_attention_fwd"] == L
+            and got["layer_norm_fwd"] % (2 * L + 1) == 0
+            and got["layer_norm_fwd"] >= (2 * L + 1) * (1 + r[1]["rounds"])))
+    equal("fp32 spec host", f_host.result[0], plain_phrase)
+    f_dev = DecodeArm(
+        "fp32 spec device", lambda: gpt.generate_cached_speculative_device(
+            f32, None, phrase, N, spec_k=K),
+        lambda r: counts(L, 1 + r[1]["rounds"]))
+    equal("fp32 spec device", f_dev.result[0], plain_phrase)
+    del f32
+
+    # Gate 2: the window (ring cache against K1's window band).
+    wmodel = gpt.GptLM(gpt.GptConfig(**{
+        **WIDTH, "num_layers": 2, "dtype": "float32",
+        "attention_window": GEN["window"]}), device=dev, seed=SEED)
+    wp, wn = rand[:2, :GEN["window_prompt"]], GEN["window_new"]
+    ring = DecodeArm("window cached", lambda: gpt.generate_cached(
+        wmodel, None, wp, wn), lambda r: counts(2, wn)).result
+    band = DecodeArm("window uncached", lambda: gpt.generate(
+        wmodel, None, wp, wn), lambda r: counts(2, 0, wn)).result
+    equal("window uncached", band, ring)
+    del wmodel
+    torch.cuda.empty_cache()
+
+    # bf16 at full depth: the serve phase's model.
+    L, N = model.cfg.num_layers, GEN["bf16_new"]
+    gpt.generate_cached(model, None, rand[:, :32], 4)             # warm-up
+    prompt = torch.as_tensor(rand, device=dev)
+    caches = gpt.init_kv_cache(model.cfg, B, P + N, device=dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    model.prefill(prompt, caches)
+    torch.cuda.synchronize()
+    prefill_ms = (time.perf_counter() - t0) * 1e3
+    del caches
+    torch.cuda.reset_peak_memory_stats()
+    resident_gb = torch.cuda.memory_allocated() / 1e9
+    main = DecodeArm("bf16 cached", lambda: gpt.generate_cached(
+        model, None, rand, N), lambda r: counts(L, N))
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    toks = main.result
+    if not (toks.shape == (B, P + N) and torch.equal(toks[:, :P], prompt)
+            and int(toks.min()) >= 0 and int(toks.max()) < V):
+        raise AssertionError("bf16 generate_cached: malformed tokens")
+    nb = GEN["beam_new"]
+    beam = DecodeArm("bf16 beam", lambda: gpt.beam_search_cached(
+        model, None, rand[:1], nb, beam_size=GEN["beam"]),
+        lambda r: counts(L, nb))
+    if not torch.isfinite(beam.result[1]).all():
+        raise AssertionError("bf16 beam: non-finite logprob")
+    plain = DecodeArm("bf16 cached, phrase", lambda: gpt.generate_cached(
+        model, None, phrase, N), lambda r: counts(L, N))
+    # The host loop with the fallback off: every pass is the prefill or a
+    # round's chunk, so its launches are exact.
+    host = DecodeArm("bf16 spec host", lambda: gpt.generate_cached_speculative(
+        model, None, phrase, N, spec_k=K, fallback_rounds=0),
+        lambda r: counts(L, 1 + r[1]["rounds"]))
+    dev_spec = DecodeArm(
+        "bf16 spec device", lambda: gpt.generate_cached_speculative_device(
+            model, None, phrase, N, spec_k=K),
+        lambda r: counts(L, 1 + r[1]["rounds"]))
+    spec = {name: dict(
+        arm.result[1], ms=arm.ms, tokens_per_s=B * N / (arm.ms / 1e3),
+        speedup_over_cached=plain.ms / arm.ms,
+        rows_equal_cached=sum(a == b for a, b in zip(
+            arm.result[0].tolist(), plain.result.tolist())),
+        launches=arm.launches)
+        for name, arm in (("host_no_fallback", host), ("device", dev_spec))}
+    q8 = DecodeArm("bf16 int8 + float8", lambda: gpt.generate_cached(
+        model, None, rand, N, quantize="int8", kv_dtype="float8"),
+        lambda r: counts(L, N))
+    emit("generate_profile", batch=B, prompt_tokens=P, new_tokens=16,
+         **profile_window(lambda: gpt.generate_cached(model, None, rand,
+                                                      16)))
+    emit("generate", model="gpt_406m_width", batch=B, prompt_tokens=P,
+         seconds=time.perf_counter() - t_phase,
+         fp32_2_layers=dict(
+             new_tokens=GEN["new"], uncached_new_tokens=GEN["uncached"],
+             equal_to_generate_cached=[
+                 "generate", "beam_search_cached(beam_size=1)",
+                 "generate_cached_speculative",
+                 "generate_cached_speculative_device"],
+             spec_host=f_host.result[1], spec_device=f_dev.result[1]),
+         window_gate=dict(attention_window=GEN["window"], batch=2,
+                          prompt_tokens=GEN["window_prompt"],
+                          new_tokens=wn, ring_cache_equal_to_band=True),
+         new_tokens=N, generate_cached=dict(
+             tokens_per_s=B * N / (main.ms / 1e3), wall_ms=main.ms,
+             prefill_ms=prefill_ms,
+             ms_per_step=(main.ms - prefill_ms) / (N - 1),
+             peak_mem_gb=peak_gb, resident_before_gb=resident_gb,
+             launches=main.launches),
+         beam=dict(beam_size=GEN["beam"], batch=1, new_tokens=nb,
+                   ms=beam.ms, ms_per_token=beam.ms / nb,
+                   logprob=beam.result[1].tolist(), launches=beam.launches),
+         phrase_generate_cached=dict(ms=plain.ms, tokens_per_s=B * N / (
+             plain.ms / 1e3), launches=plain.launches),
+         spec=spec, spec_k=K,
+         int8_float8=dict(ms=q8.ms, tokens_per_s=B * N / (q8.ms / 1e3),
+                          first_divergence_from_bf16=[
+                              first_divergence(a[P:], b[P:]) for a, b in zip(
+                                  q8.result.tolist(), toks.tolist())],
+                          launches=q8.launches))
+    return main.launches
 
 
 def gpt_train_flops(cfg, B: int, S: int) -> float:
@@ -2054,6 +2288,7 @@ def main() -> int:
     by_path["serve_decode"] = by_path["serve"]
     by_path["serve_chunked"] = serve_chunked(dev, model, whole)
     by_path["serve_spec"] = serve_spec(dev, model)
+    by_path["generate"] = generate_phase(dev, model)
     del model, whole
     torch.cuda.empty_cache()
     by_path["train"], bf16_step = train(dev, smi)

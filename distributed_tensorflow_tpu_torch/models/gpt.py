@@ -1,4 +1,4 @@
-"""GPT decoder-only LM, the training and serving subset of
+"""GPT decoder-only LM, the training, serving and decoding subset of
 ``distributed_tensorflow_tpu/models/gpt.py`` in PyTorch.
 
 Pre-LayerNorm decoder: activations in ``cfg.dtype`` (bf16 by default)
@@ -35,9 +35,19 @@ each block in the backward (``torch.utils.checkpoint``), as
 ``nn.remat(GptBlock)`` does.
 
 Serving entry points (:meth:`GptLM.prefill`, :meth:`GptLM.decode_paged`,
-:meth:`GptLM.decode_chunk_paged`, :meth:`GptLM.prefill_chunk_paged`)
-run under ``torch.no_grad()`` and update the KV caches and pools IN
-PLACE, where the JAX code returns new arrays.
+:meth:`GptLM.decode_chunk_paged`, :meth:`GptLM.prefill_chunk_paged`) and
+the cached decode bodies (:meth:`GptLM.decode_step`,
+:meth:`GptLM.decode_ragged`, :meth:`GptLM.decode_chunk`) run under
+``torch.no_grad()`` and update the KV caches and pools IN PLACE, where the
+JAX code returns new arrays.
+
+The decode family (:func:`generate`, :func:`generate_cached`,
+:func:`beam_search_cached`, :func:`generate_cached_speculative`,
+:func:`generate_cached_speculative_device`) keeps the JAX functions'
+names and arguments, with a ``torch.Generator`` for the JAX PRNG key and
+``params`` a parameter mapping (None: the model's own weights), run as
+the serving engine runs it (:class:`MethodCall`).  Sampled streams are
+reproducible from the generator's seed but are not JAX's.
 """
 
 from __future__ import annotations
@@ -49,11 +59,15 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.func import functional_call
 from torch.utils.checkpoint import checkpoint
 
 from ..ops.attention import default_mesh, dot_product_attention
 from ..ops.layer_norm import LayerNorm
+from ..ops.quant import (load_inference_tree, prepare_inference_tree,
+                         resolve_kv_dtype)
 from ..utils.device import resolve_device
+from . import drafting
 
 
 @dataclasses.dataclass(frozen=True)
@@ -316,6 +330,38 @@ def chunk_write_index(page_table: torch.Tensor, positions: torch.Tensor,
                                                  % page).long()
 
 
+def write_rows(dst: torch.Tensor, start: torch.Tensor, src: torch.Tensor,
+               mask: torch.Tensor | None = None) -> None:
+    """``dst[b, start[b] + i] = src[b, i]`` in place for ``mask[b, i]``
+    (default all) where the slot lies inside ``dst`` [B, M, ...]; a write
+    past the end is dropped, as the JAX code's ``mode="drop"`` scatter
+    drops it, never clamped onto the last slot.  ``start`` >= 0.
+
+    Each row reads and rewrites one window of min(K, M) distinct slots
+    that holds all of its in-range writes, ``[min(start[b], M - Kw),
+    +Kw)``: slots the row does not write keep their value.  No index
+    repeats (a repeated index in one ``scatter_`` is undefined on CUDA)
+    and no host read (dropping the rows would need ``nonzero``)."""
+    B, M = dst.shape[0], dst.shape[1]
+    K = src.shape[1]
+    Kw = min(K, M)
+    ar = torch.arange(Kw, device=dst.device)
+    first = torch.clamp(start, max=M - Kw)
+    slots = first[:, None] + ar[None, :]                     # [B, Kw]
+    i = slots - start[:, None]                               # src column
+    take = (i >= 0) & (i < K)
+    i = i.clamp(0, K - 1)
+    if mask is not None:
+        take = take & torch.gather(mask, 1, i)
+    tail = (1,) * (dst.dim() - 2)
+    idx = slots.view(B, Kw, *tail).expand(B, Kw, *dst.shape[2:]).long()
+    d, s = _bits(dst), _bits(src)
+    new = torch.gather(s, 1, i.view(B, Kw, *tail).expand(
+        B, Kw, *src.shape[2:]).long())
+    d.scatter_(1, idx, torch.where(take.view(B, Kw, *tail), new,
+                                   torch.gather(d, 1, idx)))
+
+
 def paged_write_index(page_table: torch.Tensor, positions: torch.Tensor,
                       num_pages: int, page: int):
     """Where each row's new token lands in a paged pool: ``(rows, phys,
@@ -515,6 +561,63 @@ class GptBlock(nn.Module):
                            v_cache.to(compute))
         return ctx.reshape(B, Q, cfg.num_heads, depth)
 
+    def _check_ring(self, M: int) -> None:
+        """Ring addressing is the window mask: a cache longer than the
+        window would keep out-of-band keys resident and attend them."""
+        if self.cfg.attention_window and M > self.cfg.attention_window:
+            raise ValueError(
+                f"windowed decode cache has {M} rows > attention_window="
+                f"{self.cfg.attention_window}; allocate via init_kv_cache")
+
+    def decode_step(self, x: torch.Tensor, k_cache: torch.Tensor,
+                    v_cache: torch.Tensor, position: int):
+        """One token per row at the absolute ``position`` (an int, the
+        same for every row) against a [B, M, G, D] cache addressed as a
+        ring: position p at slot p % M (the identity for a full-length
+        cache; the last ``attention_window`` positions for a windowed
+        one, see :func:`init_kv_cache`).  The new K/V are written in
+        place.  A written slot holds a position in [position - M + 1,
+        position], inside the band, so the only invalid slots are those
+        of a ring not yet full."""
+        M = k_cache.shape[1]
+        self._check_ring(M)
+        position = int(position)
+        slot = position % M
+        # A fill on the device, not a copy from the host (which would
+        # wait for the card at every layer).
+        q, k, v = self._qkv(x, positions=torch.full(
+            (1,), position, dtype=torch.long, device=x.device))
+        _bits(k_cache)[:, slot] = _bits(k[:, 0].to(k_cache.dtype))
+        _bits(v_cache)[:, slot] = _bits(v[:, 0].to(v_cache.dtype))
+        s = torch.arange(M, device=x.device)
+        valid = (s <= position) | (position >= M)
+        ctx = self._attend_cache(q, k_cache, v_cache, valid)
+        x = x + self.out(ctx)
+        return self._mlp(x), k_cache, v_cache
+
+    def decode_step_ragged(self, x: torch.Tensor, k_cache: torch.Tensor,
+                           v_cache: torch.Tensor, positions: torch.Tensor):
+        """:meth:`decode_step` with a position per row (``positions``
+        [B]), ring-safe: row b's slot s is valid iff ``s <= positions[b]``
+        or the ring is full (``positions[b] >= M``), provided every
+        position before it was written (ragged prefill and sequential
+        decode see to that).  One write per row, so no index repeats."""
+        M = k_cache.shape[1]
+        self._check_ring(M)
+        B = x.shape[0]
+        slot = torch.remainder(positions, M).long()
+        q, k, v = self._qkv(x, positions=positions[:, None])   # [B,1,*,D]
+        rows = torch.arange(B, device=x.device)
+        _bits(k_cache)[rows, slot] = _bits(k[:, 0].to(k_cache.dtype))
+        _bits(v_cache)[rows, slot] = _bits(v[:, 0].to(v_cache.dtype))
+        s = torch.arange(M, device=x.device)
+        valid = ((s[None, :] <= positions[:, None])
+                 | (positions[:, None] >= M))                    # [B, M]
+        ctx = self._attend_cache(q, k_cache, v_cache,
+                                 valid[:, None, None, None, :])
+        x = x + self.out(ctx)
+        return self._mlp(x), k_cache, v_cache
+
     def decode_step_paged(self, x: torch.Tensor, k_pool: torch.Tensor,
                           v_pool: torch.Tensor, page_table: torch.Tensor,
                           positions: torch.Tensor, write_index=None):
@@ -583,6 +686,55 @@ class GptBlock(nn.Module):
                + torch.einsum("bgrqj,bjgd->bqgrd", w[..., M:].to(compute),
                               v_new.to(compute)))
         return ctx.reshape(B, K, cfg.num_heads, depth)
+
+    def decode_chunk(self, x: torch.Tensor, k_cache: torch.Tensor,
+                     v_cache: torch.Tensor, positions: torch.Tensor,
+                     depths: torch.Tensor | None = None,
+                     anc: torch.Tensor | None = None):
+        """K tokens per row against a full-length [B, M, G, D] cache in one
+        pass: row b's chunk fills slots ``positions[b] .. positions[b] +
+        K - 1`` (rows may sit at different frontiers).
+
+        Linear (``depths`` and ``anc`` None): token i is the row's next
+        token at depth i, position ``positions[b] + i``, and the
+        intra-chunk mask is causal.  Tree (a speculative draft tree, see
+        :func:`spec_tree`): node i embeds and ropes at ``positions[b] +
+        depths[i]``, writes its K/V at slot ``positions[b] + i`` and
+        attends the committed prefix and its ancestors (``anc`` [K, K]);
+        :func:`fixup_tree_caches` moves an accepted path down to slot ==
+        position afterwards.
+
+        The chunk's K/V are cast to the cache dtype before they are
+        attended (the values a later step reads back, float8 included),
+        then written in place; a slot past the cache end is dropped, never
+        clamped onto the last slot (:func:`write_rows`, which needs no
+        host read).  The committed prefix is the slots before
+        ``positions[b]``; slots at or past it hold this chunk or junk from
+        rejected drafts, masked until real tokens overwrite them."""
+        if self.cfg.attention_window:
+            raise ValueError(
+                "decode_chunk needs the full-length cache (slot == absolute "
+                "position); the windowed ring cache would attend stale "
+                "entries: use sequential decode_step instead")
+        K, M = x.shape[1], k_cache.shape[1]
+        ar = torch.arange(K, device=x.device)
+        if depths is None:
+            pos = positions[:, None] + ar[None, :]
+            chunk_valid = ar[:, None] >= ar[None, :]              # causal
+        else:
+            pos = positions[:, None] + depths[None, :]
+            chunk_valid = anc
+        q, k, v = self._qkv(x, positions=pos)
+        # The cache-dtype round trip before attending.
+        k, v = k.to(k_cache.dtype), v.to(v_cache.dtype)
+        write_rows(k_cache, positions, k)
+        write_rows(v_cache, positions, v)
+        prefix_valid = (torch.arange(M, device=x.device)[None, :]
+                        < positions[:, None])
+        ctx = self._attend_cache_chunk(q, k_cache, v_cache, k, v,
+                                       prefix_valid, chunk_valid)
+        x = x + self.out(ctx)
+        return self._mlp(x), k_cache, v_cache
 
     def decode_chunk_paged(self, x: torch.Tensor, k_pool: torch.Tensor,
                            v_pool: torch.Tensor, page_table: torch.Tensor,
@@ -697,15 +849,17 @@ class GptLM(nn.Module):
         return self.lm_head(self.ln_final(x))
 
     def forward(self, input_ids: torch.Tensor,
-                rng: torch.Generator | None = None) -> torch.Tensor:
+                rng: torch.Generator | None = None,
+                deterministic: bool = False) -> torch.Tensor:
         """Logits [B, S, vocab].  Dropout runs in ``train()`` mode when
         ``cfg.dropout_rate > 0`` and then needs ``rng``: one seed per
         block (and one for the embedding) is drawn from it, the JAX
-        model's per-call dropout key split."""
+        model's per-call dropout key split.  ``deterministic`` turns
+        dropout off in either mode (the uncached decode's forward)."""
         cfg = self.cfg
         S = input_ids.shape[1]
         seeds = [None] * (cfg.num_layers + 1)
-        if self.training and cfg.dropout_rate > 0.0:
+        if self.training and cfg.dropout_rate > 0.0 and not deterministic:
             if rng is None:
                 raise ValueError("dropout in training mode needs rng (a "
                                  "torch.Generator)")
@@ -733,6 +887,49 @@ class GptLM(nn.Module):
             x, _, _ = layer.prefill(x, k_cache, v_cache, lengths)
         # Only the last position's logits matter: slice before the head.
         return self._head(x[:, -1:])[:, 0], caches
+
+    @torch.no_grad()
+    def decode_step(self, token: torch.Tensor, caches, position: int):
+        """One generation step: ``token`` [B] at ``position`` (an int)
+        against per-layer caches (:func:`init_kv_cache`), updated in
+        place.  Returns (logits [B, vocab], caches)."""
+        position = int(position)
+        x = self._embed(token[:, None], torch.full(
+            (1, 1), position, dtype=torch.long, device=token.device))
+        for layer, (k_cache, v_cache) in zip(self.layers, caches):
+            x, _, _ = layer.decode_step(x, k_cache, v_cache, position)
+        return self._head(x)[:, 0], caches
+
+    @torch.no_grad()
+    def decode_ragged(self, token: torch.Tensor, caches,
+                      positions: torch.Tensor):
+        """One token per row at per-row ``positions`` [B], ring-cache safe
+        (:meth:`GptBlock.decode_step_ragged`).  Returns (logits [B,
+        vocab], caches)."""
+        x = self._embed(token[:, None], positions[:, None])
+        for layer, (k_cache, v_cache) in zip(self.layers, caches):
+            x, _, _ = layer.decode_step_ragged(x, k_cache, v_cache,
+                                               positions)
+        return self._head(x)[:, 0], caches
+
+    @torch.no_grad()
+    def decode_chunk(self, tokens: torch.Tensor, caches,
+                     positions: torch.Tensor,
+                     depths: torch.Tensor | None = None,
+                     anc: torch.Tensor | None = None):
+        """K tokens per row against full-length caches in one pass (the
+        speculative verify, :meth:`GptBlock.decode_chunk`): ``tokens``
+        [B, K] from per-row ``positions`` [B]; ``depths`` / ``anc`` select
+        tree verification.  Returns (logits [B, K, vocab], one next-token
+        distribution per fed token; caches)."""
+        K = tokens.shape[1]
+        offsets = (torch.arange(K, device=tokens.device) if depths is None
+                   else depths)
+        x = self._embed(tokens, positions[:, None] + offsets[None, :])
+        for layer, (k_cache, v_cache) in zip(self.layers, caches):
+            x, _, _ = layer.decode_chunk(x, k_cache, v_cache, positions,
+                                         depths, anc)
+        return self._head(x), caches
 
     @torch.no_grad()
     def decode_paged(self, token: torch.Tensor, pools,
@@ -921,6 +1118,687 @@ def sample_logits_dynamic(step_logits: torch.Tensor, uniforms: torch.Tensor,
     sampled = torch.gather(order, -1, samp_sorted[:, None])[:, 0]
     greedy = torch.argmax(step_logits, dim=-1)
     return torch.where(temperature > 0.0, sampled, greedy).to(torch.int32)
+
+
+def sample_logits(step_logits: torch.Tensor,
+                  generator: torch.Generator, *, temperature: float = 1.0,
+                  top_k: int = 0, top_p: float = 0.0) -> torch.Tensor:
+    """Sample next tokens [B] from [B, V] logits with temperature / top-k
+    / top-p.  ``top_k > 0`` keeps the k highest logits (and any tied with
+    the k-th); ``top_p`` in (0, 1) keeps the smallest nucleus whose mass
+    reaches it (the most likely token always survives); filters compose,
+    k first.  The draw is Gumbel-max over one [B, V] block of uniforms
+    from ``generator`` (JAX's ``categorical``): reproducible from its
+    seed, other bits than JAX's threefry."""
+    logits = step_logits / max(temperature, 1e-6)
+    neg = torch.finfo(logits.dtype).min
+    if top_k > 0:
+        kth = torch.topk(logits, top_k, dim=-1).values[:, -1:]
+        logits = torch.where(logits < kth, neg, logits)
+    if 0.0 < top_p < 1.0:
+        order = torch.argsort(-logits, dim=-1, stable=True)
+        probs = torch.softmax(torch.gather(logits, -1, order), dim=-1)
+        # Exclusive cumulative mass: the first token is always kept.
+        keep_sorted = (torch.cumsum(probs, dim=-1) - probs) < top_p
+        keep = torch.zeros_like(keep_sorted).scatter_(-1, order,
+                                                      keep_sorted)
+        logits = torch.where(keep, logits, neg)
+    u = torch.rand(logits.shape, generator=generator,
+                   device=generator.device).clamp_min_(1e-20)
+    gumbel = -torch.log(-torch.log(u.to(logits.device)))
+    return torch.argmax(logits + gumbel, dim=-1)
+
+
+# ------------------------------------------------------------ decoding
+
+
+class MethodCall(nn.Module):
+    """Calls one method of ``model``, so :func:`torch.func.functional_call`
+    can run it with a substituted parameter mapping (JAX's
+    ``model.apply({"params": tree}, ..., method=...)``)."""
+
+    def __init__(self, model: nn.Module, name: str):
+        super().__init__()
+        self.model = model
+        self.name = name
+
+    def forward(self, *args):
+        return getattr(self.model, self.name)(*args)
+
+
+def cast_params(params: dict, reference: dict, device) -> dict:
+    """``params`` (``state_dict`` names, e.g. from :func:`params_from_jax`)
+    checked against ``reference`` (name -> (shape, dtype)) and each tensor
+    cast to its parameter's dtype on ``device``."""
+    missing = set(reference) ^ set(params)
+    if missing:
+        raise ValueError(f"params do not match the model's parameters: "
+                         f"{sorted(missing)[:6]}")
+    tree = {}
+    for name, t in params.items():
+        shape, dtype = reference[name]
+        if tuple(t.shape) != tuple(shape):
+            raise ValueError(f"{name}: shape {tuple(t.shape)} != "
+                             f"{tuple(shape)}")
+        tree[name] = t.detach().to(device=device, dtype=dtype)
+    return tree
+
+
+def _decode_setup(model: GptLM, params: dict | None, quantize: str,
+                  kv_dtype: str):
+    """The decode family's weights and cache dtype: ``(run, cache_dtype)``
+    where ``run(name, *args)`` calls ``model.<name>`` with ``params``
+    (None: the model's own) as the serving engine does, stored int8 under
+    ``quantize="int8"`` and dequantized at each call."""
+    cache_dtype = resolve_kv_dtype(kv_dtype)
+    if params is None and not quantize:
+        # The model's own weights as they are: no substitution, which
+        # swaps every parameter in and out of the module at each call.
+        return (lambda name, *args: getattr(model, name)(*args),
+                cache_dtype)
+    reference = {k: (v.shape, v.dtype)
+                 for k, v in model.state_dict().items()}
+    tree = prepare_inference_tree(cast_params(
+        model.state_dict() if params is None else params, reference,
+        model.device), quantize)
+    compute = model.cfg.torch_dtype
+    methods: dict = {}
+
+    def run(name, *args):
+        method = methods.setdefault(name, MethodCall(model, name))
+        weights = load_inference_tree(tree, quantize, compute)
+        return functional_call(method, {f"model.{k}": v
+                                        for k, v in weights.items()}, args)
+    return run, cache_dtype
+
+
+def _prompt(model: GptLM, prompt) -> torch.Tensor:
+    return torch.as_tensor(prompt, device=model.device).long()
+
+
+def _next_token(step_logits, generator, temperature, top_k, top_p):
+    """Greedy or sampled selection, shared by both decode loops: a sampled
+    step draws from ``generator`` once."""
+    if temperature > 0.0:
+        return sample_logits(step_logits, generator,
+                             temperature=temperature, top_k=top_k,
+                             top_p=top_p)
+    return torch.argmax(step_logits, dim=-1)
+
+
+def _validate_sampling(model, total, temperature, top_p, generator):
+    if total > model.cfg.max_position:
+        raise ValueError(f"prompt + num_tokens = {total} exceeds "
+                         f"max_position {model.cfg.max_position}")
+    if temperature > 0.0 and generator is None:
+        raise ValueError("sampling (temperature > 0) needs a generator")
+    if not 0.0 <= top_p <= 1.0:
+        raise ValueError(f"top_p must be in [0, 1], got {top_p}")
+
+
+def _validate_eos(model, eos_id):
+    if eos_id is not None and not 0 <= eos_id < model.cfg.vocab_size:
+        raise ValueError(f"eos_id must be in [0, {model.cfg.vocab_size}), "
+                         f"got {eos_id}")
+
+
+def _output(prompt: torch.Tensor, total: int, eos_id):
+    """[B, total] tokens holding the prompt; the generated region is eos
+    padding when there is an eos (a row that stops early reads as
+    stopped), else zeros."""
+    B, P = prompt.shape
+    toks = torch.full((B, total), 0 if eos_id is None else eos_id,
+                      dtype=torch.long, device=prompt.device)
+    toks[:, :P] = prompt
+    return toks
+
+
+def _stop(nxt, done, eos_id):
+    """Apply eos to one step's tokens: stopped rows emit eos.  Returns
+    (tokens, done, whether every row has stopped; one host read)."""
+    if eos_id is None:
+        return nxt, done, False
+    nxt = torch.where(done, eos_id, nxt)
+    done = done | (nxt == eos_id)
+    return nxt, done, bool(done.all())
+
+
+@torch.no_grad()
+def generate(model: GptLM, params: dict | None, prompt, num_tokens: int,
+             *, temperature: float = 0.0, top_k: int = 0, top_p: float = 0.0,
+             generator: torch.Generator | None = None,
+             eos_id: int | None = None) -> torch.Tensor:
+    """Uncached autoregressive decoding, greedy (``temperature=0``) or
+    sampled (temperature with optional top-k / nucleus filtering, drawn
+    from ``generator``).  Each step runs the whole forward over the
+    tokens so far (O(S^2) a token; K1 at every step on the pallas
+    backend) and takes the last position's logits.
+
+    ``prompt`` [B, P]; returns [B, P + num_tokens] on the model's device.
+    ``eos_id``: a row that emits it stops (later positions are eos) and
+    the loop ends once every row has stopped."""
+    prompt = _prompt(model, prompt)
+    B, P = prompt.shape
+    total = P + num_tokens
+    _validate_sampling(model, total, temperature, top_p, generator)
+    _validate_eos(model, eos_id)
+    run, _ = _decode_setup(model, params, "", "")
+    toks = _output(prompt, total, eos_id)
+    done = torch.zeros(B, dtype=torch.bool, device=prompt.device)
+    for t in range(P, total):
+        logits = run("forward", toks[:, :t], None, True)[:, -1]
+        nxt = _next_token(logits, generator, temperature, top_k, top_p)
+        nxt, done, stopped = _stop(nxt, done, eos_id)
+        toks[:, t] = nxt
+        if stopped:
+            break
+    return toks
+
+
+@torch.no_grad()
+def generate_cached(model: GptLM, params: dict | None, prompt,
+                    num_tokens: int, *, temperature: float = 0.0,
+                    top_k: int = 0, top_p: float = 0.0,
+                    generator: torch.Generator | None = None,
+                    quantize: str = "", kv_dtype: str = "",
+                    eos_id: int | None = None) -> torch.Tensor:
+    """KV-cached decoding, the same contract as :func:`generate` (the
+    same draws from ``generator`` in the same order, so a sampled run
+    equals the uncached one from the same seed): the prompt fills the
+    caches in one causal pass (:meth:`GptLM.prefill`, K1), then each new
+    token goes through :meth:`GptLM.decode_step` (O(total) a token).
+
+    ``quantize="int8"`` stores the weights as per-channel int8 and
+    dequantizes them at each call; ``kv_dtype="float8"`` keeps the caches
+    in ``float8_e4m3fn`` (upcast on read).  ``eos_id`` as in
+    :func:`generate`."""
+    prompt = _prompt(model, prompt)
+    B, P = prompt.shape
+    total = P + num_tokens
+    _validate_sampling(model, total, temperature, top_p, generator)
+    _validate_eos(model, eos_id)
+    run, cache_dtype = _decode_setup(model, params, quantize, kv_dtype)
+    caches = init_kv_cache(model.cfg, B, total, dtype=cache_dtype,
+                           device=model.device)
+    logits, _ = run("prefill", prompt, caches)
+    toks = _output(prompt, total, eos_id)
+    done = torch.zeros(B, dtype=torch.bool, device=prompt.device)
+    for t in range(P, total):
+        nxt = _next_token(logits, generator, temperature, top_k, top_p)
+        nxt, done, stopped = _stop(nxt, done, eos_id)
+        toks[:, t] = nxt
+        if stopped or t + 1 == total:
+            break
+        logits, _ = run("decode_step", nxt, caches, t)
+    return toks
+
+
+def _top_k(x: torch.Tensor, k: int):
+    """The k largest of each row, ties to the lower index (as
+    ``jax.lax.top_k``)."""
+    values, index = torch.sort(x, dim=-1, descending=True, stable=True)
+    return values[:, :k], index[:, :k]
+
+
+@torch.no_grad()
+def beam_search_cached(model: GptLM, params: dict | None, prompt,
+                       num_tokens: int, *, beam_size: int,
+                       quantize: str = "", kv_dtype: str = "",
+                       eos_id: int | None = None,
+                       length_penalty: float = 1.0):
+    """Beam search over the cached decode path: each step extends every
+    live beam by every token, keeps the ``beam_size`` best cumulative
+    log-probabilities per row and reorders the caches (in place) to the
+    surviving beams' parents.  ``beam_size=1`` is greedy decoding.
+
+    ``eos_id``: a beam that emits it is frozen (its only continuation is
+    eos at logp 0, so its score stops changing) and keeps competing; the
+    loop ends once every beam has stopped.  The final pick divides each
+    score by the GNMT length penalty ``((5 + gen_len) / 6) **
+    length_penalty``.  Returns (tokens [B, P + num_tokens], the picked
+    beam's cumulative log-probability [B])."""
+    prompt = _prompt(model, prompt)
+    B, P = prompt.shape
+    K = beam_size
+    total = P + num_tokens
+    _validate_sampling(model, total, 0.0, 0.0, None)
+    _validate_eos(model, eos_id)
+    if K < 1:
+        raise ValueError(f"beam_size must be >= 1, got {K}")
+    if K > model.cfg.vocab_size:
+        raise ValueError(
+            f"beam_size must be <= vocab_size ({model.cfg.vocab_size}), "
+            f"got {K}: the first top-k over the vocabulary cannot seed "
+            f"more beams than there are tokens")
+    if num_tokens < 1:
+        raise ValueError(f"num_tokens must be >= 1, got {num_tokens}")
+    if length_penalty <= 0.0:
+        raise ValueError(f"length_penalty must be > 0, got {length_penalty}")
+    run, cache_dtype = _decode_setup(model, params, quantize, kv_dtype)
+    dev = model.device
+    V = model.cfg.vocab_size
+
+    # Prefill at batch B, then tile each cache K-fold: row b's beams sit
+    # at b*K .. b*K + K - 1.
+    caches = init_kv_cache(model.cfg, B, total, dtype=cache_dtype,
+                           device=dev)
+    logits, _ = run("prefill", prompt, caches)
+    tile = torch.arange(B, device=dev).repeat_interleave(K)
+    caches = [tuple(_bits(c)[tile].view(c.dtype) for c in pair)
+              for pair in caches]
+
+    # The first step seeds the beams with the top-K first tokens.
+    scores, first = _top_k(torch.log_softmax(logits.float(), dim=-1), K)
+    toks = _output(prompt, total, eos_id)[tile]
+    toks[:, P] = first.reshape(B * K)
+    done = (first == eos_id if eos_id is not None
+            else torch.zeros_like(first, dtype=torch.bool))
+    stopped = eos_id is not None and bool(done.all())
+    gen_len = torch.ones((B, K), dtype=torch.long, device=dev)
+    if eos_id is not None:
+        frozen = torch.full((V,), -1e9, device=dev)
+        frozen[eos_id] = 0.0
+    base = torch.arange(B, device=dev)[:, None] * K
+    token = toks[:, P]
+    for t in range(P + 1, total):
+        if stopped:
+            break
+        logits, _ = run("decode_step", token, caches, t - 1)
+        logp = torch.log_softmax(logits.float(), dim=-1).reshape(B, K, V)
+        if eos_id is not None:
+            logp = torch.where(done[..., None], frozen, logp)
+        # [B, K*V] joint scores; the top K pick (parent beam, token).
+        scores, idx = _top_k((scores[..., None] + logp).reshape(B, K * V),
+                             K)
+        parent, token = idx // V, idx % V
+        flat_parent = (base + parent).reshape(B * K)
+        toks = toks[flat_parent]
+        for cache in (c for pair in caches for c in pair):
+            _bits(cache).copy_(_bits(cache)[flat_parent])
+        gen_len = torch.gather(gen_len, 1, parent)
+        if eos_id is not None:
+            done = torch.gather(done, 1, parent)
+            gen_len = torch.where(done, gen_len, gen_len + 1)
+            done = done | (token == eos_id)
+            stopped = bool(done.all())
+        else:
+            gen_len = gen_len + 1
+        token = token.reshape(B * K)
+        toks[:, t] = token
+    # GNMT length penalty: neutral when every beam has the same length.
+    lp = ((5.0 + gen_len.float()) / 6.0) ** length_penalty
+    best = torch.argmax(scores / lp, dim=-1)                     # [B]
+    return (toks[torch.arange(B, device=dev) * K + best],
+            torch.gather(scores, 1, best[:, None])[:, 0])
+
+
+def spec_tree(spec_k: int, branch_len: int = 0):
+    """Static draft-tree arrays for tree-verified speculation: a main
+    chain of ``spec_k - branch_len`` nodes (node 0 the known-correct
+    pending token, node i extending node i-1) and, when ``branch_len >
+    0``, one alternate branch forking at the root (the continuation after
+    the tail gram's second most recent occurrence).
+
+    Returns numpy ``(depths [K], anc [K, K], parent [K], path [K, K])``:
+    each node's depth below the frontier, the ancestor-or-self matrix
+    (the tree attention mask), each node's parent (-1 for the root), and
+    ``path[i, d]``, node i's ancestor at depth d (-1 past its depth)."""
+    K = int(spec_k)
+    branch_len = int(branch_len)
+    main = K - branch_len
+    if main < 2 and K >= 2:
+        raise ValueError(f"spec_tree needs a main chain of >= 2 nodes; "
+                         f"spec_k={K} branch_len={branch_len}")
+    parent = [-1] + list(range(main - 1))
+    if branch_len:
+        parent += [0] + list(range(main, K - 1))
+    depth = np.zeros(K, np.int32)
+    anc = np.zeros((K, K), bool)
+    path = np.full((K, K), -1, np.int32)
+    for i in range(K):
+        chain = []
+        j = i
+        while j >= 0:
+            chain.append(j)
+            j = parent[j]
+        depth[i] = len(chain) - 1
+        for j in chain:
+            anc[i, j] = True
+            path[i, depth[j]] = j
+    return depth, anc, np.asarray(parent, np.int32), path
+
+
+def fixup_tree_caches(caches, positions: torch.Tensor, sel: torch.Tensor,
+                      accept: torch.Tensor):
+    """Move the accepted root path's K/V down to slot == position, in
+    place: tree verification stores node i at slot ``positions[b] + i``
+    while its position is ``positions[b] + depth(i)``; ``sel`` [B, K]
+    holds the accepted node per depth, and rows ``positions[b] ..
+    positions[b] + accept[b] - 1`` take those nodes' rows (read before
+    any is written).  Writes past ``accept`` or the cache end drop.
+    Returns the caches."""
+    K = sel.shape[1]
+    write = torch.arange(K, device=sel.device)[None, :] < accept[:, None]
+    for cache in (c for pair in caches for c in pair):
+        bits = _bits(cache)
+        src = (positions[:, None] + sel).clamp(0, cache.shape[1] - 1)
+        tail = (1,) * (cache.dim() - 2)
+        rows = torch.gather(bits, 1, src.view(*src.shape, *tail).expand(
+            *src.shape, *cache.shape[2:]).long())
+        write_rows(bits, positions, rows, write)
+    return caches
+
+
+@torch.no_grad()
+def generate_cached_speculative(model: GptLM, params: dict | None, prompt,
+                                num_tokens: int, *, spec_k: int = 8,
+                                ngram: int = 3, eos_id: int | None = None,
+                                quantize: str = "", kv_dtype: str = "",
+                                fallback_rounds: int = 8,
+                                fallback_accept: float = 1.5):
+    """Greedy decoding with speculative verification, the host loop: the
+    same tokens as greedy :func:`generate_cached` (up to floating-point
+    ties between the chunk and step programs), often in fewer passes.
+
+    Each round feeds one ``spec_k``-wide chunk per row through
+    :meth:`GptLM.decode_chunk`: the row's known-correct next token and
+    ``spec_k - 1`` prompt-lookup drafts from the row's
+    :class:`..models.drafting.NGramIndex` (updated with the tokens
+    committed since the last round).  The longest draft prefix matching
+    the chunk's greedy argmaxes is accepted, plus the free correction.
+    After ``fallback_rounds`` rounds with fewer than ``fallback_accept``
+    tokens a round a row, the rest is plain sequential decode of the same
+    caches on the device (``fallback_rounds=0`` never falls back).
+
+    Returns (tokens [B, P + num_tokens], stats ``{"rounds",
+    "tokens_generated", "mean_accepted_per_round",
+    "fallback_at_round"}``)."""
+    prompt = _prompt(model, prompt)
+    B, P = prompt.shape
+    total = P + num_tokens
+    _validate_sampling(model, total, 0.0, 0.0, None)
+    _validate_eos(model, eos_id)
+    if model.cfg.attention_window:
+        raise ValueError(
+            "speculative decoding needs the full-length cache; the windowed "
+            "ring cache cannot mask rejected speculative writes")
+    if spec_k < 2:
+        raise ValueError(f"spec_k must be >= 2, got {spec_k}")
+    if num_tokens < 1:
+        raise ValueError(f"num_tokens must be >= 1, got {num_tokens}")
+    run, cache_dtype = _decode_setup(model, params, quantize, kv_dtype)
+    dev = model.device
+    caches = init_kv_cache(model.cfg, B, total, dtype=cache_dtype,
+                           device=dev)
+    last_logits, _ = run("prefill", prompt, caches)
+
+    def on_device(a):
+        return torch.from_numpy(np.asarray(a)).to(dev).long()
+
+    K = spec_k
+    toks = np.zeros((B, total), np.int32)
+    toks[:, :P] = prompt.cpu().numpy()
+    lens = np.full(B, P)                      # per-row frontier
+    pending = torch.argmax(last_logits, dim=-1).cpu().numpy()
+    done = np.zeros(B, bool)
+    indexes = [drafting.NGramIndex(ngram) for _ in range(B)]
+    rounds = 0
+    fallback_at = None
+    while not np.all(done | (lens >= total)):
+        if (fallback_rounds and rounds >= fallback_rounds
+                and (np.sum(lens - P) / rounds / B) < fallback_accept):
+            fallback_at = rounds
+            break
+        chunk = np.zeros((B, K), np.int32)
+        for b in range(B):
+            chunk[b, 0] = pending[b]
+            # Index the tokens committed since the last round, then draft
+            # for the tail ending in the pending token.
+            indexes[b].update(toks[b], int(lens[b]))
+            row = np.concatenate([toks[b, :lens[b]], pending[b:b + 1]])
+            chunk[b, 1:] = indexes[b].draft(row, int(lens[b]) + 1, K - 1)
+        # Rows already done still ride the batch: their writes land past
+        # their frontier and are never accepted.
+        logits, _ = run("decode_chunk", on_device(chunk), caches,
+                        on_device(lens))
+        greedy = torch.argmax(logits, dim=-1).cpu().numpy()       # [B, K]
+        rounds += 1
+        for b in range(B):
+            if done[b] or lens[b] >= total:
+                continue
+            budget = total - lens[b]
+            # chunk[b, 0] is known-correct; draft i is accepted while it
+            # is the greedy continuation of the token before it.
+            accept = 1
+            while (accept < min(K, budget)
+                   and chunk[b, accept] == greedy[b, accept - 1]
+                   and not (eos_id is not None
+                            and chunk[b, accept - 1] == eos_id)):
+                accept += 1
+            wrote = chunk[b, :accept]
+            toks[b, lens[b]:lens[b] + accept] = wrote
+            lens[b] += accept
+            pending[b] = greedy[b, accept - 1]
+            if eos_id is not None and eos_id in wrote:
+                hit = int(np.flatnonzero(wrote == eos_id)[0])
+                lens[b] = lens[b] - accept + hit + 1
+                done[b] = True
+        done |= lens >= total
+    spec_generated = int(np.sum(lens - P))
+
+    if fallback_at is not None and not np.all(done | (lens >= total)):
+        # Plain sequential finish over the same caches: place the
+        # known-correct pending token, then decode the rest on the device.
+        for b in range(B):
+            if done[b] or lens[b] >= total:
+                continue
+            toks[b, lens[b]] = pending[b]
+            lens[b] += 1
+            if eos_id is not None and pending[b] == eos_id:
+                done[b] = True
+        live = ~(done | (lens >= total))
+        if np.any(live):
+            steps = int(np.max(np.where(live, total - lens, 0)))
+            token = on_device(toks[np.arange(B), np.maximum(lens - 1, 0)])
+            pos = on_device(lens - 1)
+            stopped = on_device(done).bool()
+            out = torch.zeros((B, steps), dtype=torch.long, device=dev)
+            for i in range(steps):
+                logits, _ = run("decode_chunk", token[:, None], caches, pos)
+                token = torch.argmax(logits[:, 0], dim=-1)
+                if eos_id is not None:
+                    token = torch.where(stopped, eos_id, token)
+                    stopped = stopped | (token == eos_id)
+                out[:, i] = token
+                pos = pos + 1
+            out = out.cpu().numpy()
+            for b in np.flatnonzero(live):
+                wrote = out[b, :total - lens[b]]
+                if eos_id is not None and eos_id in wrote:
+                    hit = int(np.flatnonzero(wrote == eos_id)[0])
+                    wrote = wrote[:hit + 1]
+                    done[b] = True
+                toks[b, lens[b]:lens[b] + len(wrote)] = wrote
+                lens[b] += len(wrote)
+
+    if eos_id is not None:
+        for b in range(B):
+            toks[b, lens[b]:] = eos_id
+    generated = int(np.sum(lens - P))
+    stats = {"rounds": rounds, "tokens_generated": generated,
+             "mean_accepted_per_round": round(
+                 spec_generated / max(rounds, 1), 2),
+             "fallback_at_round": fallback_at}
+    return on_device(toks), stats
+
+
+#: Chunk width of the adaptive loop's small round: the pending token and
+#: one draft, barely more than a decode step.
+_SPEC_K_SMALL = 2
+
+
+@torch.no_grad()
+def generate_cached_speculative_device(model: GptLM, params: dict | None,
+                                       prompt, num_tokens: int, *,
+                                       spec_k: int = 8, ngram: int = 3,
+                                       eos_id: int | None = None,
+                                       quantize: str = "",
+                                       kv_dtype: str = "",
+                                       spec_branch: int = 2,
+                                       adaptive: bool = True,
+                                       adapt_threshold: float = 1.5,
+                                       probe_every: int = 8):
+    """Speculative greedy decoding with drafting, verification and
+    acceptance on the device: the round's state lives in device tensors
+    and the host reads one pair of flags a round (is a row still live,
+    and is the acceptance EMA above ``adapt_threshold``).  The same
+    tokens as greedy :func:`generate_cached`.
+
+    - Drafts come from a device n-gram index (:mod:`.drafting`'s
+      ``index_build2`` over the prompt, then ``index_update2`` with each
+      round's accepted tokens), the host drafter's table and hash.
+    - Tree verification (``spec_branch > 0``): the chunk is a main drafted
+      chain and one branch, the continuation of the tail gram's second
+      most recent occurrence; one :meth:`GptLM.decode_chunk` verifies the
+      tree through its ancestor mask, the longest accepted root path wins
+      and :func:`fixup_tree_caches` compacts it.
+    - Adaptive K: while the acceptance EMA is below ``adapt_threshold``
+      a round is a 2-wide linear chunk, with a full round every
+      ``probe_every`` rounds.
+
+    Returns (tokens [B, P + num_tokens], stats ``{"rounds",
+    "rounds_full", "rounds_small", "branch_hits", "tokens_generated",
+    "mean_accepted_per_round"}``; ``branch_hits`` counts rows whose
+    winning leaf sat on the branch)."""
+    prompt = _prompt(model, prompt)
+    B, P = prompt.shape
+    total = P + num_tokens
+    _validate_sampling(model, total, 0.0, 0.0, None)
+    _validate_eos(model, eos_id)
+    if model.cfg.attention_window:
+        raise ValueError(
+            "speculative decoding needs the full-length cache; the windowed "
+            "ring cache cannot mask rejected speculative writes")
+    if spec_k < 2:
+        raise ValueError(f"spec_k must be >= 2, got {spec_k}")
+    if num_tokens < 1:
+        raise ValueError(f"num_tokens must be >= 1, got {num_tokens}")
+    if ngram < 1:
+        raise ValueError(f"ngram must be >= 1, got {ngram}")
+    if probe_every < 1:
+        raise ValueError(f"probe_every must be >= 1, got {probe_every}")
+    branch_len = int(spec_branch)
+    if branch_len < 0:
+        raise ValueError(f"spec_branch must be >= 0, got {spec_branch}")
+    if branch_len and spec_k - branch_len < 2:
+        # No room for a branch beside a 2-node main chain: run linear.
+        branch_len = max(0, spec_k - 2)
+    run, cache_dtype = _decode_setup(model, params, quantize, kv_dtype)
+    dev = model.device
+    K, n = spec_k, ngram
+    main = K - branch_len
+    depths, anc, parent, path = (torch.from_numpy(a).to(dev)
+                                 for a in spec_tree(K, branch_len))
+    depths, parent, path = depths.long(), parent.long(), path.long()
+    pidx = parent.clamp(min=0)[None, :].expand(B, K)
+    nodes = torch.arange(K, device=dev)
+    eos = -1 if eos_id is None else eos_id
+
+    caches = init_kv_cache(model.cfg, B, total, dtype=cache_dtype,
+                           device=dev)
+    logits, _ = run("prefill", prompt, caches)
+    toks = _output(prompt, total, None)
+    lens = torch.full((B,), P, dtype=torch.long, device=dev)
+    pending = torch.argmax(logits, dim=-1)
+    done = torch.zeros(B, dtype=torch.bool, device=dev)
+    last, prev = drafting.index_build2(toks, lens, n=n, max_len=P)
+    ema = torch.tensor(float(K), device=dev)
+    branch_hits = torch.zeros((), dtype=torch.long, device=dev)
+    rounds = rounds_full = 0
+    while True:
+        live, high = torch.stack([torch.any(~done & (lens < total)),
+                                  ema >= adapt_threshold]).tolist()
+        if not live:
+            break
+        full = not adaptive or high or rounds % probe_every == 0
+        # Commit the known-correct pending token at each live frontier.
+        keep = ~done & (lens < total)
+        write_rows(toks, lens, pending[:, None], keep[:, None])
+        eff = lens + keep.long()
+        tail = drafting.tail_gram(toks, eff, n=n)
+        budget = total - lens
+        if full:
+            parts = [pending[:, None]]
+            if main > 1:
+                parts.append(drafting.index_draft(last, toks, tail, eff,
+                                                  n=n, k=main - 1))
+            if branch_len:
+                parts.append(drafting.index_draft(prev, toks, tail, eff,
+                                                  n=n, k=branch_len))
+            chunk = torch.cat(parts, dim=1)                       # [B, K]
+            logits, _ = run("decode_chunk", chunk, caches, lens, depths,
+                            anc)
+            greedy = torch.argmax(logits, dim=-1)
+            # A node matches when it is the greedy continuation of its
+            # parent and no eos precedes it; the root always matches.  A
+            # node is accepted when all of its ancestors match.
+            match = ((chunk == torch.gather(greedy, 1, pidx))
+                     & (torch.gather(chunk, 1, pidx) != eos))
+            match[:, 0] = True
+            chain = torch.where(anc[None], match[:, None, :], True).all(-1)
+            # Depth and slot inside the budget: a node's K/V sit at slot
+            # lens + i, and a write past the cache end was dropped.
+            eligible = (chain & (depths[None, :] < budget[:, None])
+                        & (nodes[None, :] < budget[:, None]))
+            score = torch.where(eligible, depths[None, :], -1)
+            # The deepest accepted node; ties to the main chain.
+            best = torch.argmax(score, dim=1)
+            accept = torch.gather(score, 1, best[:, None])[:, 0] + 1
+            accept = torch.where(keep, accept, 0)
+            sel = path[best].clamp(min=0)                         # [B, K]
+            accepted = torch.gather(chunk, 1, sel)
+            fixup_tree_caches(caches, lens, sel, accept)
+            branch_hits += ((best >= main) & keep).sum()
+            rounds_full += 1
+        else:
+            drafts = drafting.index_draft(last, toks, tail, eff, n=n,
+                                          k=_SPEC_K_SMALL - 1)
+            accepted = torch.cat([pending[:, None], drafts], dim=1)
+            logits, _ = run("decode_chunk", accepted, caches, lens)
+            greedy = torch.argmax(logits, dim=-1)
+            i_idx = torch.arange(1, _SPEC_K_SMALL, device=dev)[None, :]
+            ok = ((accepted[:, 1:] == greedy[:, :-1])
+                  & (i_idx < budget[:, None]) & (accepted[:, :-1] != eos))
+            accept = 1 + torch.cumprod(ok.long(), dim=1).sum(dim=1)
+            accept = torch.where(keep, torch.minimum(accept, budget), 0)
+            best = (accept - 1).clamp(min=0)
+        # The round's tail: token writes, the pending hand-off, eos, the
+        # index update with the committed tokens, the acceptance EMA.
+        width = accepted.shape[1]
+        write = torch.arange(width, device=dev)[None, :] < accept[:, None]
+        write_rows(toks, lens, accepted, write)
+        pending = torch.gather(greedy, 1, best[:, None])[:, 0]
+        hit_eos = (write & (accepted == eos)).any(dim=1)
+        new_lens = lens + accept
+        drafting.index_update2(last, prev, toks, lens, new_lens, n=n,
+                               span=width)
+        done = done | hit_eos | (new_lens >= total)
+        n_live = keep.sum()
+        acc_mean = accept.sum().float() / n_live.clamp(min=1).float()
+        ema = torch.where(n_live > 0, 0.7 * ema + 0.3 * acc_mean, ema)
+        lens = new_lens
+        rounds += 1
+    if eos_id is not None:
+        tail_pos = torch.arange(total, device=dev)[None, :] >= lens[:, None]
+        toks = torch.where(tail_pos, eos_id, toks)
+    generated = int((lens - P).sum())
+    stats = {"rounds": rounds, "rounds_full": rounds_full,
+             "rounds_small": rounds - rounds_full,
+             "branch_hits": int(branch_hits),
+             "tokens_generated": generated,
+             "mean_accepted_per_round": round(generated / max(rounds, 1),
+                                              2)}
+    return toks, stats
 
 
 # ------------------------------------------------- weights from the JAX tree

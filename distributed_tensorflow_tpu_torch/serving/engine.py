@@ -51,7 +51,6 @@ from typing import Any
 
 import numpy as np
 import torch
-from torch import nn
 from torch.func import functional_call
 
 from ..models import gpt as gpt_lib
@@ -183,19 +182,6 @@ class _Slot:
         self.index.update(self.history, self.hist_len - 1)
 
 
-class _Method(nn.Module):
-    """Calls one method of ``model``, so :func:`functional_call` can run
-    it with a substituted parameter mapping."""
-
-    def __init__(self, model: nn.Module, name: str):
-        super().__init__()
-        self.model = model
-        self.name = name
-
-    def forward(self, *args):
-        return getattr(self.model, self.name)(*args)
-
-
 class DecodeEngine:
     """Slot-batched continuous decoding over a paged KV pool.
 
@@ -223,10 +209,11 @@ class DecodeEngine:
         self._cache_dtype = resolve_kv_dtype(cfg.kv_dtype)
         self._reference = {k: (v.shape, v.dtype)
                            for k, v in model.state_dict().items()}
-        self._decode = _Method(model, "decode_paged")
-        self._prefill = _Method(model, "prefill")
-        self._verify = _Method(model, "decode_chunk_paged")
-        self._chunk_prefill = _Method(model, "prefill_chunk_paged")
+        self._decode = gpt_lib.MethodCall(model, "decode_paged")
+        self._prefill = gpt_lib.MethodCall(model, "prefill")
+        self._verify = gpt_lib.MethodCall(model, "decode_chunk_paged")
+        self._chunk_prefill = gpt_lib.MethodCall(model,
+                                                 "prefill_chunk_paged")
         self._tree = self._prepare_params(
             model.state_dict() if params is None else params)
         self._pending: tuple[Any, int] | None = None  # (tree, label step)
@@ -259,21 +246,13 @@ class DecodeEngine:
     def _prepare_params(self, params: dict) -> dict:
         """Parameter mapping -> device-resident serving mapping (each
         tensor in its model parameter's dtype, int8 when asked)."""
-        missing = set(self._reference) ^ set(params)
-        if missing:
-            raise ValueError(f"params do not match the model's parameters: "
-                             f"{sorted(missing)[:6]}")
-        tree = {}
-        for name, t in params.items():
-            shape, dtype = self._reference[name]
-            if tuple(t.shape) != tuple(shape):
-                raise ValueError(f"{name}: shape {tuple(t.shape)} != "
-                                 f"{tuple(shape)}")
-            tree[name] = t.detach().to(device=self.device, dtype=dtype)
-        return prepare_inference_tree(tree, self.config.quantize)
+        return prepare_inference_tree(
+            gpt_lib.cast_params(params, self._reference, self.device),
+            self.config.quantize)
 
     def _params(self, tree: dict) -> dict:
-        """The mapping ``functional_call`` takes for a :class:`_Method`."""
+        """The mapping ``functional_call`` takes for a
+        :class:`..models.gpt.MethodCall`."""
         params = load_inference_tree(tree, self.config.quantize,
                                      self.model.cfg.torch_dtype)
         return {f"model.{k}": v for k, v in params.items()}

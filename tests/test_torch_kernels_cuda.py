@@ -470,6 +470,43 @@ def test_gpt_train_step_at_the_jax_default_width_on_card(cuda_device):
     assert torch.nn.functional.cosine_similarity(ga, gb, dim=0) >= 0.999
 
 
+@pytest.mark.cuda
+def test_cached_decode_family_gives_the_plain_tokens_on_card(cuda_device):
+    """generate_cached and generate_cached_speculative_device on a small
+    fp32 model through K1 (prefill) and K3 (every LayerNorm) give the
+    greedy tokens of the same model on the plain path (dense attention,
+    plain LayerNorm): K1 once a layer a prefill, K3 2L + 1 a prefill and a
+    decode step or chunk."""
+    import numpy as np
+
+    from distributed_tensorflow_tpu_torch.models import gpt
+
+    cfg = gpt.GptConfig(vocab_size=64, hidden_size=128, num_layers=2,
+                        num_heads=4, intermediate_size=256,
+                        max_position=128, dtype="float32",
+                        attention_backend="pallas", fused_ln=True)
+    model = gpt.GptLM(cfg, device=cuda_device, seed=1)
+    plain = gpt.GptLM(dataclasses.replace(cfg, attention_backend="xla",
+                                          fused_ln=False),
+                      device=cuda_device)
+    plain.load_state_dict(model.state_dict())
+    phrase = np.random.default_rng(0).integers(0, 64, 9)
+    prompt = np.stack([np.resize(phrase, 40), np.resize(phrase[4:], 40)])
+    L, N = cfg.num_layers, 24
+    want = gpt.generate_cached(plain, None, prompt, N)
+    before = (tfa.launches, ln.launches)
+    got = gpt.generate_cached(model, None, prompt, N)
+    assert (tfa.launches - before[0], ln.launches - before[1]) == (
+        L, (2 * L + 1) * N)
+    assert torch.equal(got, want)
+    before = (tfa.launches, ln.launches)
+    spec, stats = gpt.generate_cached_speculative_device(model, None,
+                                                         prompt, N)
+    assert (tfa.launches - before[0], ln.launches - before[1]) == (
+        L, (2 * L + 1) * (1 + stats["rounds"]))
+    assert torch.equal(spec, want)
+
+
 def _bf16_ulp(x: float) -> float:
     """One bf16 ulp at magnitude ``x`` (8 significant bits)."""
     import math
