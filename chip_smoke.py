@@ -83,7 +83,22 @@ Phases, one JSON line each on stdout:
    arm's first divergence from bf16 (not gated), and the
    ``generate_profile`` line over 16 tokens; every arm's K1 and K3
    launches exact (the fp32 host loop's fallback finish aside).
-8. ``train``: the flagship GPT train step (``bench.py``'s: the same
+8. ``checkpoint``: from a checkpoint on disk to tokens, on the same
+   model.  ``save_raw`` writes it as the JAX trainer saves (fp32 arrays,
+   ``{params, global_step}``, step 1) under a ``tempfile`` directory
+   (removed afterwards); the serving CLI (``tools/serve.py --hot_swap``)
+   serves it as a process and gets the serve phase's 8 requests (gate:
+   the greedy ones' tokens are the serve phase's in-process engine's);
+   step 2 (seed-1 weights) is saved while a 900-token request streams
+   (gates: the stream runs to its budget, ``/statz`` shows the swap, a
+   later request gets the tokens of an engine on the step-2 weights in
+   memory); in this process, an engine on the restored tree gives the
+   in-memory engine's tokens with K1 8 a prefill and K3 17 a prefill or
+   step; ``train.py --mode=generate`` greedy, beam 4 and speculative 8,
+   each a process, give the in-process decode family's tokens.  It
+   prints the write and restore GB/s, the CLI's startup seconds, the
+   time from step 2's rename into place to its adoption, and tokens/s.
+9. ``train``: the flagship GPT train step (``bench.py``'s: the same
    widths, fp32 master weights, bf16 compute, ``attention_backend=
    "pallas"``, plus ``fused_ln=True``; Adam 3e-4, B=8, S=1024, the
    synthetic LM stream) through ``TrainState`` and
@@ -92,14 +107,14 @@ Phases, one JSON line each on stdout:
    then 30 steps with the launch counters set to 0 just before and read
    just after (the loss must stay finite and fall); then the
    ``train_profile`` line, ``torch.profiler`` over one more step.
-9. ``train_int8``: the same step with ``matmul_int8=True`` (bench.py's
+10. ``train_int8``: the same step with ``matmul_int8=True`` (bench.py's
    int8 arm, :2271): each block's gelu MLP through K4 and K5.  The same
    kernel-vs-plain check (the plain path also takes the plain versions of
    K4/K5), 30 steps with exact launch counts (K4 and K5 twice per layer,
    each call one quantize pass and one GEMM, K4's one weight transpose),
    the loss held to the bf16 phase's, the ``train_int8_profile`` line,
    then a short arm with ``attn_int8=True`` as well (bench.py :2287).
-10. ``train_ring``: the same step with ``attention_backend="ring"``
+11. ``train_ring``: the same step with ``attention_backend="ring"``
     (``train.py --sequence_parallel=4 --attention_backend=ring``) on a
     mesh of four sequence shards of 256 on the card: each block's
     attention is a 4-hop ring through K6 forward and K7a/K7b backward.
@@ -117,7 +132,8 @@ whose numbers are the mean per launch over a step's hops, and the
 ``kernels`` phase itself for K8, which no path launches); its ``paths``
 hold each path's own shape, numbers and launches (K1's and K3's
 ``generate``: the prefill of B=4 x 384 and the decode step's 4 rows,
-with the bf16 ``generate_cached`` arm's launches), K4/K5/K8 rows list
+with the bf16 ``generate_cached`` arm's launches; their ``checkpoint``:
+the serve prefill's case, with the restored engine's launches), K4/K5/K8 rows list
 their call sites or variants under ``sites``, and K6's ``hop_kinds``
 hold its visible and diagonal hops' own times and ratios to SDPA, K7a's
 and K7b's every hop kind's, with the pair's ratio to SDPA's backward.
@@ -131,9 +147,13 @@ import dataclasses
 import json
 import math
 import os
+import queue
+import shutil
+import signal
 import statistics
 import subprocess
 import sys
+import tempfile
 import threading
 import time
 
@@ -594,7 +614,8 @@ def check_kernels(dev):
         summary("flash_attention_fwd", "flash_attention.cu",
                 "flash_attention.py:119", "train",
                 {"serve": k1_cases[0], "train": k2["fwd"],
-                 "generate": k1_cases[5]}, k1_all),
+                 "generate": k1_cases[5], "checkpoint": k1_cases[0]},
+                k1_all),
         # Serving launches K3 at its prefill and its decode rows: both
         # rows carry the serving run's launches (one counter).
         summary("layer_norm_fwd", "layer_norm.cu", "layer_norm.py:38",
@@ -602,7 +623,8 @@ def check_kernels(dev):
                           "train": k3_cases[2], "train_ring": k3_cases[2],
                           "serve_chunked": k3_cases[3],
                           "serve_spec": k3_cases[4],
-                          "generate": k3_cases[5]},
+                          "generate": k3_cases[5],
+                          "checkpoint": k3_cases[0]},
                 k3_cases),
         summary("flash_attention_bwd_dkv", "flash_attention_bwd.cu",
                 "flash_attention.py:425", "train", {"train": k2["dkv"][0]},
@@ -1863,6 +1885,299 @@ def generate_phase(dev, model) -> dict:
     return main.launches
 
 
+class CliProcess:
+    """A port CLI as a process of its own beside this one: its output
+    drained by a thread, stopped (SIGTERM, then SIGKILL) on exit."""
+
+    def __init__(self, module: str, *args):
+        root = os.path.dirname(os.path.abspath(__file__))
+        env = dict(os.environ, PYTHONPATH=root)
+        self.lines: queue.Queue = queue.Queue()
+        self.seen: list = []
+        self.proc = subprocess.Popen(
+            [sys.executable, "-m", f"distributed_tensorflow_tpu_torch.{module}",
+             *map(str, args)], cwd=root, env=env, text=True,
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT)
+        threading.Thread(target=self._drain, daemon=True).start()
+
+    def _drain(self):
+        for line in self.proc.stdout:
+            self.lines.put(line)
+        self.lines.put(None)
+
+    def wait_for(self, prefix: str, timeout_s: float) -> str:
+        """The first output line starting with ``prefix``."""
+        deadline = time.perf_counter() + timeout_s
+        while True:
+            try:
+                line = self.lines.get(
+                    timeout=max(deadline - time.perf_counter(), 0.01))
+            except queue.Empty:
+                line = None
+            if line is None:
+                raise AssertionError(f"no {prefix!r} line from the CLI: "
+                                     + "".join(self.seen[-30:]))
+            self.seen.append(line)
+            if line.startswith(prefix):
+                return line
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        if self.proc.poll() is None:
+            self.proc.send_signal(signal.SIGTERM)
+            try:
+                self.proc.wait(timeout=60)
+            except subprocess.TimeoutExpired:
+                self.proc.kill()
+                self.proc.wait()
+
+
+def generate_cli(dev, logdir, prompt, *flags) -> tuple[list, float, list]:
+    """``train.py --mode=generate`` as a process: its generated tokens,
+    wall seconds and output lines."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    t0 = time.perf_counter()
+    out = subprocess.run(
+        [sys.executable, "-m", "distributed_tensorflow_tpu_torch.train",
+         "--mode=generate", "--model=gpt_mini", f"--logdir={logdir}",
+         f"--device={dev}", f"--gen_tokens={NEW_TOKENS}",
+         "--gen_prompt=" + ",".join(map(str, prompt)), *flags],
+        cwd=root, env=dict(os.environ, PYTHONPATH=root), text=True,
+        capture_output=True, timeout=600)
+    seconds = time.perf_counter() - t0
+    lines = out.stdout.splitlines()
+    if out.returncode or "Restored global step: 2" not in lines:
+        raise AssertionError(f"train --mode=generate {flags}: rc "
+                             f"{out.returncode}\n{out.stdout[-3000:]}"
+                             f"{out.stderr[-3000:]}")
+    (gen,) = [x for x in lines if x.startswith("Generated tokens:")]
+    return [int(t) for t in gen.split(":", 1)[1].split()], seconds, lines
+
+
+def checkpoint_phase(dev, smi: str, model, whole: dict) -> dict:
+    """Phase ``checkpoint``: from a checkpoint on disk to tokens.  The
+    serve phase's model is saved as the JAX trainer saves (``save_raw`` of
+    ``{params, global_step}``, fp32 arrays, step 1), served by the serving
+    CLI as a process (``--hot_swap``), which gets the serve phase's 8
+    requests (gate: the greedy ones' tokens equal the serve phase's
+    in-process engine's); step 2 (seed-1 weights) is saved while a long
+    request streams (gates: the stream runs to its budget, the swap to
+    step 2 shows in ``/statz``, a request after it gets the tokens of an
+    engine on the step-2 weights in memory).  In this process, the
+    restore recipe (``load_gpt_serving_model``) and an engine on the
+    restored tree: the in-memory engine's tokens, K1 8 a prefill, K3 17 a
+    prefill or step.  Then ``train.py --mode=generate``, greedy, beam 4
+    and speculative 8, each as a process: the in-process decode family's
+    tokens on the step-2 weights.  Returns the in-process run's
+    launches."""
+    import numpy as np
+    import torch
+    from distributed_tensorflow_tpu_torch.models import gpt
+    from distributed_tensorflow_tpu_torch.serving.client import ServeClient
+    from distributed_tensorflow_tpu_torch.serving.engine import (
+        DecodeEngine, EngineConfig)
+    from distributed_tensorflow_tpu_torch.serving.scheduler import Request
+    from distributed_tensorflow_tpu_torch.tools import checkpoint_io
+    from distributed_tensorflow_tpu_torch.tools.export_model import (
+        clear_restore_memo)
+    from distributed_tensorflow_tpu_torch.tools.serve import (
+        load_gpt_serving_model)
+
+    t_phase = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_checkpoint_")
+    run_dir = os.path.join(tmp, "gpt_mini")
+    ckpt_dir = os.path.join(run_dir, "checkpoints")
+
+    def save(m, step) -> dict:
+        """``save_raw`` of ``m``'s weights as step ``step``: the data
+        written and renamed into place (``visible_unix``), then the
+        manifest's CRC pass (``manifest_unix``)."""
+        t0 = time.perf_counter()
+        tree = {"params": gpt.params_to_jax(m.state_dict()),
+                "global_step": np.asarray(step, np.int32)}
+        to_host_s = time.perf_counter() - t0
+        gb = 4 * sum(t.numel() for t in m.state_dict().values()) / 1e9
+        started = time.time()
+        step_dir = checkpoint_io.save_raw(ckpt_dir, step, tree)
+        # The rename is the last change to the checkpoints directory.
+        visible = os.path.getmtime(ckpt_dir)
+        manifest = os.path.getmtime(os.path.join(
+            step_dir, checkpoint_io.MANIFEST_NAME))
+        return dict(gb=gb, to_host_s=to_host_s, write_s=visible - started,
+                    write_gb_per_s=gb / (visible - started),
+                    manifest_s=manifest - visible, step_dir=step_dir,
+                    visible_unix=visible, manifest_unix=manifest)
+
+    def verify(saved) -> None:
+        t0 = time.perf_counter()
+        verdict = checkpoint_io.verify_checkpoint(saved.pop("step_dir"))
+        if verdict[0] != "valid":
+            raise AssertionError(f"{verdict}")
+        saved.update(verify=verdict[1],
+                     verify_s=time.perf_counter() - t0)
+
+    def engine_run(m, params, prompt) -> tuple[list, dict, int]:
+        """One greedy request alone through an engine stepped here: its
+        tokens, the launches and the engine steps."""
+        engine = DecodeEngine(m, params, EngineConfig(**ENGINE), device=dev)
+        req = Request(prompt, NEW_TOKENS)
+        reset_launch_counts()
+        engine.admit(req)
+        while engine.active_slots:
+            engine.step()
+        torch.cuda.synchronize()
+        return (req.tokens, {k: v for k, v in launch_counts().items() if v},
+                engine.step_index)
+
+    try:
+        saved1 = save(model, 1)
+        verify(saved1)
+        prompts, served = whole["prompts"], whole["results"]
+        metrics = os.path.join(tmp, "serve.jsonl")
+        with CliProcess(
+                "tools.serve", "--logdir", run_dir, "--port", 0,
+                "--device", dev, "--hot_swap", "--swap_poll_s", 0.2,
+                "--slots", ENGINE["num_slots"],
+                "--page_size", ENGINE["page_size"],
+                "--num_pages", ENGINE["num_pages"],
+                "--max_pages_per_seq", ENGINE["max_pages_per_seq"],
+                "--tenants", "search:1,ads:1",
+                "--metrics_file", metrics) as cli:
+            t0 = time.perf_counter()
+            banner = cli.wait_for("serving gpt_mini ", 600)
+            startup_s = time.perf_counter() - t0
+            port = int(banner.split(" on :")[1].split(" ")[0])
+            client = ServeClient(f"http://127.0.0.1:{port}",
+                                 timeout_s=600.0)
+            client.generate(prompts[0][:16], 4)             # warm-up
+            done, burst_s = burst(client, prompts, mixed_kw)
+            same = [a["tokens"] == b["tokens"]
+                    for a, b in zip(done, served)]
+            greedy = [i for i in range(len(prompts)) if "seed" not in
+                      mixed_kw(i)]
+            if not all(same[i] for i in greedy):
+                raise AssertionError(
+                    "CLI greedy tokens differ from the in-process "
+                    "engine's: " + str([first_divergence(
+                        done[i]["tokens"], served[i]["tokens"])
+                        for i in greedy]))
+
+            # The hot swap: step 2 saved while a long request streams.
+            long_new = 900
+            streamed: dict = {}
+            stream = threading.Thread(target=lambda: streamed.update(
+                r=client.generate(prompts[0], long_new, tenant="search")))
+            stream.start()
+            while client.stats()["engine"]["active_slots"] < 1:
+                time.sleep(0.01)
+            model2 = gpt.GptLM(gpt.GptConfig(**WIDTH), device=dev,
+                               seed=SEED + 1)
+            saved2 = save(model2, 2)
+            deadline = time.perf_counter() + 300
+            while client.stats()["engine"]["model_step"] != 2:
+                if time.perf_counter() > deadline:
+                    raise AssertionError("the hot swap never landed")
+                time.sleep(0.01)
+            seen_s = time.time() - saved2["visible_unix"]
+            verify(saved2)
+            stream.join(timeout=600)
+            if stream.is_alive() or streamed["r"]["tokens_out"] != long_new:
+                raise AssertionError("the stream across the swap did not "
+                                     "run to its budget")
+            after = client.generate(prompts[2], NEW_TOKENS, tenant="search")
+            stats = client.stats()["engine"]
+        if cli.proc.returncode != 0:
+            raise AssertionError(f"serve CLI exited {cli.proc.returncode}")
+        want2, _ = engine_tokens(dev, model2, [prompts[2]])
+        if not (after["model_step"] == 2 and stats["swaps"] == 1
+                and after["tokens"][len(prompts[2]):] == want2[0]):
+            raise AssertionError("after the swap: not the step-2 tokens")
+        with open(metrics) as fh:
+            records = [json.loads(x) for x in fh]
+        (swap,) = [r for r in records if r.get("kind") == "model_swap"]
+        spans = {r["name"]: r for r in records if r.get("kind") == "span"
+                 and r.get("name") in ("serve.swap", "serve.swap_load")}
+        adopted = spans["serve.swap"]["t_unix"] + spans[
+            "serve.swap"]["dur_ms"] / 1e3
+
+        # In process: the restore recipe, and launches on the restored
+        # model (the 777-token prompt: K1 and K3 at the serve cases'
+        # 784-row prefill bucket).
+        clear_restore_memo()
+        t0 = time.perf_counter()
+        cfg, tree, step = load_gpt_serving_model(run_dir, 1)
+        restore_s = time.perf_counter() - t0
+        restored = gpt.GptLM(cfg, device=dev)
+        params = gpt.params_from_jax(tree)
+        del tree
+        clear_restore_memo()
+        want, want_launches, want_steps = engine_run(model, None, prompts[1])
+        got, launches, steps = engine_run(restored, params, prompts[1])
+        L = cfg.num_layers
+        exact = {"flash_attention_fwd": L,
+                 "layer_norm_fwd": (2 * L + 1) * (1 + steps)}
+        if not (step == 1 and got == want and launches == exact
+                and want_launches == exact and steps == want_steps):
+            raise AssertionError(f"restored engine: tokens equal "
+                                 f"{got == want}, launches {launches} (want "
+                                 f"{exact}), in memory {want_launches}")
+        del restored, params
+
+        # train.py --mode=generate, against the decode family in process
+        # on the step-2 weights.
+        rand, phrase = generate_prompts(WIDTH["vocab_size"])
+        arms = {}
+        for name, prompt, flags, ref in (
+                ("greedy", rand[0], (), lambda p: gpt.generate_cached(
+                    model2, None, p, NEW_TOKENS)),
+                ("beam_4", rand[0], ("--gen_beams=4",),
+                 lambda p: gpt.beam_search_cached(
+                     model2, None, p, NEW_TOKENS, beam_size=4)[0]),
+                ("speculative_8", phrase[0], ("--gen_speculative=8",),
+                 lambda p: gpt.generate_cached_speculative_device(
+                     model2, None, p, NEW_TOKENS, spec_k=8)[0])):
+            toks, seconds, lines = generate_cli(dev, tmp, prompt.tolist(),
+                                                *flags)
+            want = ref(prompt[None]).cpu()[0, prompt.size:].tolist()
+            if toks != want:
+                raise AssertionError(f"train --mode=generate {name}: first "
+                                     f"divergence {first_divergence(toks, want)}")
+            arms[name] = dict(wall_s=seconds, tokens_equal_in_process=True,
+                              line=[x for x in lines if x.startswith(
+                                  ("Beam search", "Speculative decode"))])
+        del model2
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    emit("checkpoint", card=smi, model="gpt_406m_width",
+         seconds=time.perf_counter() - t_phase,
+         save_step1=saved1, save_step2=saved2,
+         restore_in_process=dict(step=1, seconds=restore_s,
+                                 gb_per_s=saved1["gb"] / restore_s),
+         serve_cli=dict(startup_s=startup_s, requests=len(done),
+                        **burst_numbers(done, burst_s),
+                        greedy_equal_in_process=len(greedy),
+                        sampled_equal_in_process=sum(
+                            same[i] for i in range(len(done))
+                            if i not in greedy)),
+         hot_swap=dict(stream_new_tokens=long_new,
+                       in_flight_at_swap=swap["in_flight"],
+                       visible_to_adopted_s=adopted - saved2["visible_unix"],
+                       adopted_before_manifest=adopted < saved2[
+                           "manifest_unix"],
+                       visible_to_statz_s=seen_s,
+                       load_ms=spans["serve.swap_load"]["dur_ms"],
+                       adopt_ms=spans["serve.swap"]["dur_ms"],
+                       after_swap_tokens_equal_step2=True),
+         restored_engine=dict(prompt_tokens=len(prompts[1]),
+                              new_tokens=NEW_TOKENS, steps=steps,
+                              tokens_equal_in_memory=True,
+                              launches=launches),
+         train_generate=arms)
+    return launches
+
+
 def gpt_train_flops(cfg, B: int, S: int) -> float:
     """bench.py:523-531's analytic matmul flops of one train step (3x the
     forward: dense layers, attention scores and values, LM head)."""
@@ -2289,6 +2604,7 @@ def main() -> int:
     by_path["serve_chunked"] = serve_chunked(dev, model, whole)
     by_path["serve_spec"] = serve_spec(dev, model)
     by_path["generate"] = generate_phase(dev, model)
+    by_path["checkpoint"] = checkpoint_phase(dev, smi, model, whole)
     del model, whole
     torch.cuda.empty_cache()
     by_path["train"], bf16_step = train(dev, smi)

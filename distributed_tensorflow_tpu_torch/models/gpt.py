@@ -137,6 +137,55 @@ def mini() -> GptConfig:
     return GptConfig()
 
 
+def infer_widths(tree: dict) -> dict:
+    """The widths a plain-layout checkpoint tree reveals: hidden size and
+    vocabulary from ``word_emb``, depth from the ``layer{i}`` blocks, heads
+    from ``qkv`` [H, 3, heads, D] (or GQA's ``q_proj`` [H, heads, D]), the
+    MLP width from ``mlp_in``, and with learned positions ``max_position``
+    from ``pos_emb``.  (The JAX package's restore takes all but the
+    vocabulary from :func:`mini`, so it serves only checkpoints of
+    ``mini()``'s widths; at those widths the two agree.)"""
+    vocab, hidden = tree["word_emb"]["embedding"].shape
+    layer0 = tree["layer0"]
+    q = layer0["qkv"] if "qkv" in layer0 else layer0["q_proj"]
+    widths = dict(vocab_size=int(vocab), hidden_size=int(hidden),
+                  num_layers=sum(1 for k in tree if k.startswith("layer")
+                                 and k[5:].isdigit()),
+                  num_heads=int(q["kernel"].shape[-2]),
+                  intermediate_size=int(layer0["mlp_in"]["kernel"].shape[1]))
+    if "pos_emb" in tree:
+        widths["max_position"] = int(tree["pos_emb"]["embedding"].shape[0])
+    return widths
+
+
+def merge_pipeline_params(pp_params, num_layers: int, n_virtual: int = 1):
+    """Inverse of the JAX package's ``split_params_for_pipeline``: rebuild
+    the plain tree (``word_emb``/``pos_emb``/``layer{i}``/``ln_final``/
+    ``lm_head``) from a stage-stacked pipeline tree (``{"embed", "stages",
+    "head"}``, every ``stages`` leaf [n_pipe, per, ...]), e.g. to decode
+    from a checkpoint written by a ``--pipeline_parallel`` run.
+    ``n_virtual`` > 1: an interleaved run's tree ([n_virtual, n_pipe, per,
+    ...] leaves, chunk ``i * n_pipe + s`` at [i, s]); flattening the two
+    chunk dims recovers the natural chunk-major stack.  Leaves may be
+    tensors or numpy arrays."""
+    def tree_map(fn, tree):
+        if isinstance(tree, dict):
+            return {k: tree_map(fn, v) for k, v in tree.items()}
+        return fn(tree)
+
+    stages = pp_params["stages"]
+    if n_virtual > 1:
+        stages = tree_map(lambda x: x.reshape((-1,) + tuple(x.shape[2:])),
+                          stages)
+    flat = tree_map(lambda x: x.reshape((num_layers,) + tuple(x.shape[2:])),
+                    stages)
+    params = dict(pp_params["embed"])
+    params.update(pp_params["head"])
+    for i in range(num_layers):
+        params[f"layer{i}"] = tree_map(lambda x: x[i], flat)
+    return params
+
+
 def infer_arch_from_layer0(layer0: dict) -> dict:
     """Architecture knobs a checkpoint's first decoder block reveals:
     swiglu adds a gate matrix, rmsnorm's norm carries no bias, GQA's kv
@@ -1821,14 +1870,18 @@ def params_from_jax(tree: dict) -> dict:
     every kernel keeps its flax layout: ``qkv`` [H, 3, heads, D],
     ``q_proj`` [H, heads, D], ``kv_proj`` [H, 2, G, D], ``out``
     [heads, D, H], Dense [in, out], Embed [V, H], norm ``scale``/``bias``
-    [H]."""
+    [H].  Leaves may be arrays or tensors (a restored checkpoint's,
+    :func:`..tools.checkpoint_io.restore_raw`)."""
     out = {}
     for name, leaf in _leaves(tree):
         head, _, rest = name.partition(".")
         if head.startswith("layer") and head[5:].isdigit():
             name = f"layers.{int(head[5:])}.{rest}"
-        out[name] = torch.from_numpy(
-            np.array(np.asarray(leaf), dtype=np.float32))
+        if isinstance(leaf, torch.Tensor):       # a restored checkpoint's
+            out[name] = leaf.detach().to("cpu", torch.float32)
+        else:
+            out[name] = torch.from_numpy(
+                np.array(np.asarray(leaf), dtype=np.float32))
     return out
 
 

@@ -2,7 +2,9 @@
 
 Counterpart of ``distributed_tensorflow_tpu/models/registry.py``, so far
 for the GPT-mini decoder (:func:`build_gpt_mini`), the entry point that
-``tests/test_gpt.py`` and ``bench.py`` train through in the JAX package.
+``tests/test_gpt.py`` and ``bench.py`` train through in the JAX package,
+and the pipelined GPT's checkpoint namespace
+(:func:`pipeline_bundle_name`).
 """
 
 from __future__ import annotations
@@ -112,3 +114,12 @@ def build_gpt_mini(learning_rate: float, seed: int = 0, seq_len: int = 128,
     return ModelBundle(state, loss_fn, load_datasets,
                        lambda: make_lm_eval_fn(lambda m, t: m(t)),
                        "gpt_mini", needs_rng=needs_rng)
+
+
+def pipeline_bundle_name(n_pipe: int, schedule: str,
+                         virtual_stages: int) -> str:
+    """The pipelined GPT bundle/checkpoint namespace, as the JAX package's
+    builders name it (``train.py --mode=generate`` restores from it)."""
+    if schedule == "interleaved":
+        return f"gpt_mini_pp{n_pipe}x{virtual_stages}"
+    return f"gpt_mini_pp{n_pipe}"

@@ -15,3 +15,13 @@ def resolve_device(device=None) -> torch.device:
         raise RuntimeError(
             "CUDA is not available; pass device='cpu' to run on the CPU")
     return torch.device("cuda")
+
+
+def cli_device(name: str) -> torch.device:
+    """A command line's ``--device``: ``cuda`` (the CLIs' default) raises
+    without a card instead of carrying on on the CPU."""
+    device = torch.device(name)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "CUDA is not available; pass --device=cpu to run on the CPU")
+    return device

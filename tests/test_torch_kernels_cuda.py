@@ -507,6 +507,48 @@ def test_cached_decode_family_gives_the_plain_tokens_on_card(cuda_device):
     assert torch.equal(spec, want)
 
 
+@pytest.mark.cuda
+def test_checkpoint_round_trip_serves_through_the_kernels_on_card(
+        cuda_device, tmp_path):
+    """save_raw -> restore_raw -> the serving CLI's restore recipe on the
+    card: the restored model (K1 in the prefill, K3 in every LayerNorm)
+    gives the in-memory model's logits, exactly: the same weights in the
+    same dtypes through the same kernels."""
+    from distributed_tensorflow_tpu_torch.models import gpt
+    from distributed_tensorflow_tpu_torch.tools import checkpoint_io, serve
+    from distributed_tensorflow_tpu_torch.tools.export_model import (
+        clear_restore_memo)
+
+    cfg = gpt.GptConfig(vocab_size=64, hidden_size=256, num_layers=2,
+                        num_heads=2, intermediate_size=512,
+                        max_position=128, dtype="bfloat16",
+                        attention_backend="pallas", fused_ln=True)
+    model = gpt.GptLM(cfg, device=cuda_device, seed=2)
+    checkpoint_io.save_raw(
+        str(tmp_path / "checkpoints"), 5,
+        {"params": gpt.params_to_jax(model.state_dict()),
+         "global_step": torch.tensor(5, dtype=torch.int32)})
+    restored, step, _ = checkpoint_io.restore_raw(str(tmp_path))
+    assert step == 5 and int(restored["global_step"]) == 5
+    clear_restore_memo()
+    rcfg, tree, step = serve.load_gpt_serving_model(str(tmp_path))
+    assert step == 5 and rcfg == cfg
+    again = gpt.GptLM(rcfg, device=cuda_device, seed=3)
+    again.load_state_dict(gpt.params_from_jax(tree))
+    tokens = torch.randint(0, 64, (2, 100), device=cuda_device,
+                           generator=torch.Generator(
+                               device=cuda_device).manual_seed(0))
+    logits = []
+    for m in (model, again):
+        before = (tfa.launches, ln.launches)
+        caches = gpt.init_kv_cache(cfg, 2, 100, device=cuda_device)
+        logits.append(m.prefill(tokens, caches)[0])
+        assert (tfa.launches - before[0], ln.launches - before[1]) == (
+            cfg.num_layers, 2 * cfg.num_layers + 1)
+    assert torch.equal(logits[0], logits[1])
+    clear_restore_memo()
+
+
 def _bf16_ulp(x: float) -> float:
     """One bf16 ulp at magnitude ``x`` (8 significant bits)."""
     import math
