@@ -2,7 +2,8 @@
 """Drive the PyTorch/CUDA port's serving and training paths on one
 NVIDIA GPU.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py            # one card
+    python3 chip_smoke.py --nccl     # 2+ cards: the reference job over NCCL
 
 Phases, one JSON line each on stdout:
 
@@ -123,6 +124,33 @@ Phases, one JSON line each on stdout:
     steps with exact launch counts (K6, K7a, K7b each 4 shards x 4 hops x
     8 layers = 128 per step, K3 17, K1/K2 none), a falling loss, and the
     ``train_ring_profile`` line.
+12. ``trainer``: the port's trainer CLI (``train.py``) as processes.
+    ``trainer_reference``: the reference job with
+    ``examples/launch_local_cluster.sh``'s flags (one PS and two sync
+    workers, MNIST MLP 784-100-10, global batch 100, 200 steps, lr 0.01,
+    synthetic MNIST), both workers on the one card with a gloo all-reduce
+    a step.  Gates: both workers exit 0 with the reference's lines (the
+    chief's ``Initailizing session``, worker 1's ``Waiting for
+    session``), the PS alive until stopped, the two workers' parameter
+    digests equal (bit-equal parameters), the test accuracy within
+    ``TRAINER["accuracy_tol"]`` of the JAX CLI's with the same flags.  It
+    prints step ms, steps/s, the all-reduce's share of a step and each
+    worker's busy share (``--profile_dir``).  ``trainer_gpt``: gpt_mini
+    at ``mini()``'s width through ``--attention_backend=pallas
+    --fused_layer_norm`` (B=32, S=512, 59 steps, a checkpoint every 20),
+    one worker and no PS; gates: its K1, K2a, K2b and K3 launches exactly
+    as its steps and eval forwards predict, a falling loss, ``--mode=eval``
+    on its logdir reproducing its test accuracy, ``--mode=generate``'s
+    greedy tokens equal to an in-process decode of the restored tree.
+    It prints step ms, tokens/s and peak memory, and
+    ``trainer_gpt_profile`` the busy share of the same bundle's step in
+    this process.  The K1/K2a/K2b/K3 rows' ``trainer`` paths hold the
+    kernels at this run's shapes (the ``kernels`` phase's ``trainer``
+    cases) with its launches.
+
+With ``--nccl`` the script runs ``env`` and the reference job alone,
+with one worker on each visible card (the backend rule of
+``cluster/server.py`` then picks NCCL), under the same gates.
 
 Then the card's name and power limit, the kernels' summary object, and
 last ``{"ok": true, "device": {...}}``.  A summary row's numbers and
@@ -133,7 +161,8 @@ whose numbers are the mean per launch over a step's hops, and the
 hold each path's own shape, numbers and launches (K1's and K3's
 ``generate``: the prefill of B=4 x 384 and the decode step's 4 rows,
 with the bf16 ``generate_cached`` arm's launches; their ``checkpoint``:
-the serve prefill's case, with the restored engine's launches), K4/K5/K8 rows list
+the serve prefill's case, with the restored engine's launches; K1-K3's
+``trainer``: the gpt_mini trainer CLI's shapes and launches), K4/K5/K8 rows list
 their call sites or variants under ``sites``, and K6's ``hop_kinds``
 hold its visible and diagonal hops' own times and ratios to SDPA, K7a's
 and K7b's every hop kind's, with the pair's ratio to SDPA's backward.
@@ -143,6 +172,7 @@ result.  Without CUDA it exits 2.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import math
@@ -258,6 +288,17 @@ ATTN_INT8_STEPS = 5
 # The ring train step's mesh: four sequence shards of 256 on the one card
 # (data=1, seq=4).
 RING_SEQ = 4
+# The trainer phase.  The reference job: examples/launch_local_cluster.sh's
+# flags (200 steps, global batch 100, hidden 100, lr 0.01, synthetic MNIST).
+# The JAX CLI with the same flags on a CPU (one worker, the same global
+# batch) reaches a test accuracy of 1; the port's two workers draw other
+# shuffles of the same data, so the tolerance allows two hundredths (100
+# of the 10000 test examples).  gpt_mini: mini()'s width (hidden 128, 4
+# layers, 4 heads, head_dim 32) at S=512, B=32; generate 32 tokens.
+TRAINER = dict(steps=200, batch=100, hidden=100, lr=0.01,
+               jax_cpu_test_accuracy=1.0, accuracy_tol=0.02,
+               gpt_batch=32, gpt_seq=512, gpt_steps=60, gpt_save=20,
+               gen_tokens=32)
 
 
 def emit(phase: str, **fields) -> None:
@@ -520,22 +561,32 @@ def check_kernels(dev):
     # The chunked prefill's dispatch (every slot's chunk) and the
     # speculative verify (every slot's spec_k tokens) too, and the generate
     # phase's decode step (its B rows).
-    for name, rows in (("prefill", S), ("decode", ENGINE["num_slots"]),
-                       ("train", TRAIN["batch"] * TRAIN["seq_len"]),
-                       ("chunk_prefill", ENGINE["num_slots"] * PREFILL_CHUNK),
-                       ("verify", ENGINE["num_slots"] * SPEC_K),
-                       ("generate_decode", GEN["batch"])):
-        x = torch.randn(rows, Hd, generator=g, device=dev).to(torch.bfloat16)
-        scale = 1 + 0.1 * torch.randn(Hd, generator=g, device=dev)
-        bias = 0.1 * torch.randn(Hd, generator=g, device=dev)
+    # The trainer CLI's gpt_mini: B*S rows of its 128-wide stream.
+    mini = dict(hidden=128, heads=4, head_dim=32)
+    for name, rows, h in (
+            ("prefill", S, Hd), ("decode", ENGINE["num_slots"], Hd),
+            ("train", TRAIN["batch"] * TRAIN["seq_len"], Hd),
+            ("chunk_prefill", ENGINE["num_slots"] * PREFILL_CHUNK, Hd),
+            ("verify", ENGINE["num_slots"] * SPEC_K, Hd),
+            ("generate_decode", GEN["batch"], Hd),
+            ("trainer", TRAINER["gpt_batch"] * TRAINER["gpt_seq"],
+             mini["hidden"])):
+        x = torch.randn(rows, h, generator=g, device=dev).to(torch.bfloat16)
+        scale = 1 + 0.1 * torch.randn(h, generator=g, device=dev)
+        bias = 0.1 * torch.randn(h, generator=g, device=dev)
         k3_cases.append(check_k3(name, x, scale, bias))
     k2 = check_backward_kernels(dev, g, H, D)
+    k2t = check_backward_kernels(
+        dev, g, mini["heads"], mini["head_dim"], S=TRAINER["gpt_seq"],
+        cases=[("trainer", TRAINER["gpt_batch"], None, True, 0,
+                mini["head_dim"])])
     k45 = check_int8_kernels(dev, g)
     k67 = check_ring_kernels(dev, g)
-    k1_all = k1_cases + [k2["fwd"]]
+    k1_all = k1_cases + [k2["fwd"], k2t["fwd"]]
     emit("kernels", flash_attention_fwd=k1_all,
-         layer_norm_fwd=k3_cases, flash_attention_bwd_dq=k2["dq"],
-         flash_attention_bwd_dkv=k2["dkv"], quant_matmul=k45["k4"],
+         layer_norm_fwd=k3_cases, flash_attention_bwd_dq=k2["dq"] + k2t["dq"],
+         flash_attention_bwd_dkv=k2["dkv"] + k2t["dkv"],
+         quant_matmul=k45["k4"],
          quant_matmul_nt=k45["k5"], flash_attention_chunk=k67["k6"],
          flash_attention_chunk_dq=k67["k7a"],
          flash_attention_chunk_dkv=k67["k7b"],
@@ -614,7 +665,8 @@ def check_kernels(dev):
         summary("flash_attention_fwd", "flash_attention.cu",
                 "flash_attention.py:119", "train",
                 {"serve": k1_cases[0], "train": k2["fwd"],
-                 "generate": k1_cases[5], "checkpoint": k1_cases[0]},
+                 "generate": k1_cases[5], "checkpoint": k1_cases[0],
+                 "trainer": k2t["fwd"]},
                 k1_all),
         # Serving launches K3 at its prefill and its decode rows: both
         # rows carry the serving run's launches (one counter).
@@ -624,14 +676,17 @@ def check_kernels(dev):
                           "serve_chunked": k3_cases[3],
                           "serve_spec": k3_cases[4],
                           "generate": k3_cases[5],
-                          "checkpoint": k3_cases[0]},
+                          "checkpoint": k3_cases[0],
+                          "trainer": k3_cases[6]},
                 k3_cases),
         summary("flash_attention_bwd_dkv", "flash_attention_bwd.cu",
-                "flash_attention.py:425", "train", {"train": k2["dkv"][0]},
-                k2["dkv"]),
+                "flash_attention.py:425", "train",
+                {"train": k2["dkv"][0], "trainer": k2t["dkv"][0]},
+                k2["dkv"] + k2t["dkv"]),
         summary("flash_attention_bwd_dq", "flash_attention_bwd.cu",
-                "flash_attention.py:465", "train", {"train": k2["dq"][0]},
-                k2["dq"]),
+                "flash_attention.py:465", "train",
+                {"train": k2["dq"][0], "trainer": k2t["dq"][0]},
+                k2["dq"] + k2t["dq"]),
         # Each runs at two call sites per layer of the int8 step: the
         # row's numbers are the mlp_in site's (K4 its forward, K5 its
         # dgrad with g), ``sites`` has both.
@@ -650,13 +705,14 @@ def check_kernels(dev):
     ]
 
 
-def check_backward_kernels(dev, g, H, D):
+def check_backward_kernels(dev, g, H, D, S=None, cases=None):
     """K2b (dq, with delta) and K2a (dk, dv) against the plain backward at
     the train step's shape (S=1024, H=16, D=128, bf16; B=8 for the causal
     case the step runs, B=2 for the others), on the forward kernel's own
     output and logsumexp, which are first held against the plain forward
-    (K1 at the train shape; its times in the causal case are the ``fwd``
-    row).  The library time is ``torch.autograd.grad`` through
+    (K1 at the train shape; its times in the first case are the ``fwd``
+    row).  ``S`` and ``cases`` give another path's shape (the trainer
+    CLI's gpt_mini).  The library time is ``torch.autograd.grad`` through
     ``F.scaled_dot_product_attention``, which computes dq, dk and dv in one
     call: the same number stands in both rows."""
     import torch
@@ -665,19 +721,19 @@ def check_backward_kernels(dev, g, H, D):
     from distributed_tensorflow_tpu_torch.ops.flash_attention import (
         attention_valid)
 
-    S = TRAIN["seq_len"]
+    S = S or TRAIN["seq_len"]
     tail = torch.ones(2, S, dtype=torch.int32, device=dev)
     tail[1, S - 300:] = 0
     head = torch.ones(2, S, dtype=torch.int32, device=dev)
     head[0, :10] = 0               # causal rows 0..9 see no valid key
     # (name, B, kv_mask, causal, window, head_dim)
-    cases = [("causal", TRAIN["batch"], None, True, 0, D),
-             ("kv_mask", 2, tail, True, 0, D),
-             ("window", 2, None, True, 256, D),
-             ("masked_rows", 2, head, True, 0, D),
-             ("non_causal", 2, tail, False, 0, D),
-             ("head_dim_64", 2, None, True, 0, 64),
-             ("head_dim_32", 2, None, True, 0, 32)]
+    cases = cases or [("causal", TRAIN["batch"], None, True, 0, D),
+                      ("kv_mask", 2, tail, True, 0, D),
+                      ("window", 2, None, True, 256, D),
+                      ("masked_rows", 2, head, True, 0, D),
+                      ("non_causal", 2, tail, False, 0, D),
+                      ("head_dim_64", 2, None, True, 0, 64),
+                      ("head_dim_32", 2, None, True, 0, 32)]
     rows = {"dq": [], "dkv": [], "fwd": None}
     for name, B, mask, causal, window, d in cases:
         t = torch.randn(B, S, 3, H, d, generator=g, device=dev,
@@ -721,9 +777,10 @@ def check_backward_kernels(dev, g, H, D):
 
         valid = attention_valid(B, S, mask, causal=causal, window=window,
                                 device=dev)
-        if name == "causal":
+        if rows["fwd"] is None:
             rows["fwd"] = dict(
-                case="train", B=B, S=S, H=H, D=d, window=window,
+                case="train" if name == "causal" else name, B=B, S=S, H=H,
+                D=d, window=window,
                 max_abs_err=fwd_err, tol=K1_OUT_TOL, lse_err=fwd_lse_err,
                 lse_tol=K1_LSE_TOL, **k1_timings(q, k, v, mask, valid,
                                                  causal=causal,
@@ -2571,8 +2628,325 @@ def train_ring(dev, smi: str, bf16: dict):
     return run["launches"]
 
 
+# ------------------------------------------------------------- trainer
+
+
+def free_port() -> int:
+    import socket
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def finish(proc: CliProcess, timeout_s: float) -> list:
+    """Every output line of a CLI process that must exit 0 within
+    ``timeout_s``."""
+    deadline = time.perf_counter() + timeout_s
+    while True:
+        try:
+            line = proc.lines.get(
+                timeout=max(deadline - time.perf_counter(), 0.01))
+        except queue.Empty:
+            raise AssertionError("CLI timed out: "
+                                 + "".join(proc.seen[-30:])) from None
+        if line is None:
+            break
+        proc.seen.append(line)
+    if proc.proc.wait(timeout=60) != 0:
+        raise AssertionError(f"CLI exited {proc.proc.returncode}: "
+                             + "".join(proc.seen[-40:]))
+    return proc.seen
+
+
+def line_value(lines, prefix: str) -> str:
+    """The rest of the last line that starts with ``prefix``."""
+    hits = [x[len(prefix):].strip() for x in lines if x.startswith(prefix)]
+    if not hits:
+        raise AssertionError(f"no {prefix!r} line: " + "".join(lines[-30:]))
+    return hits[-1]
+
+
+def run_summary(path: str) -> dict:
+    """The trainer's telemetry: its ``run_summary`` record and the
+    ``step_ms`` of its ``train_step`` records (``--log_every=1``)."""
+    records = [json.loads(x) for x in open(path)]
+    (summary,) = [r for r in records if r.get("kind") == "run_summary"]
+    steps = [r["data_wait_ms"] + r["compute_ms"] for r in records
+             if r.get("kind") == "train_step"]
+    return dict(summary=summary, step_ms=steps)
+
+
+def trainer_numbers(lines, metrics: str, task: int,
+                    profile: str | None = None) -> dict:
+    """A trainer process's numbers: its printed lines, its telemetry
+    (``step_ms`` is data wait + compute, the step synchronised with the
+    card each step) and, with ``--profile_dir``, its profile summary."""
+    tele = run_summary(metrics)
+    steady = tele["step_ms"][2:]
+    step_ms = statistics.median(steady)
+    out = dict(
+        test_accuracy=float(line_value(lines, f"Worker {task}: test "
+                                              "accuracy")),
+        train_s=float(line_value(lines, "Training elapsed time:")
+                      .rstrip(" s")),
+        step_ms_median=step_ms, step_ms_mean=statistics.mean(steady),
+        steps_per_s=1e3 / step_ms,
+        steps=len(tele["step_ms"]),
+        digest=line_value(lines, f"Worker {task}: parameter digest"),
+        launches=json.loads(line_value(lines,
+                                       f"Worker {task}: kernel launches")))
+    if profile is not None:
+        with open(os.path.join(profile, "summary.json")) as fh:
+            prof = json.load(fh)
+        out.update(busy_share=prof["busy_share"],
+                   profile_window_ms=prof["window_ms"],
+                   device_busy_ms=prof["device_busy_ms"],
+                   top_kernels=prof["top_kernels"][:5])
+    return out
+
+
+def reference_job(device: str, tmp: str, smi: str, workers: int = 2,
+                  backend: str = "gloo") -> dict:
+    """The reference job, ``examples/launch_local_cluster.sh``'s flags:
+    one PS and ``workers`` sync workers, MNIST MLP at the reference's
+    width, one all-reduce a step over ``backend`` (the one the workers
+    must print).  ``device``: ``cuda:0`` puts every worker on the one card
+    (gloo), ``cuda`` gives worker i card i (NCCL with a card each)."""
+    ps_port = free_port()
+    ports = [free_port() for _ in range(workers)]
+    T = TRAINER
+    logdir = os.path.join(tmp, "reference")
+    common = [f"--ps_hosts=localhost:{ps_port}",
+              "--worker_hosts=" + ",".join(f"localhost:{p}" for p in ports),
+              f"--data_dir={os.path.join(tmp, 'no-mnist')}",
+              f"--train_steps={T['steps']}", f"--batch_size={T['batch']}",
+              f"--hidden_units={T['hidden']}",
+              f"--learning_rate={T['lr']}", "--sync_replicas=true",
+              "--log_every=1", f"--logdir={logdir}", f"--device={device}",
+              f"--metrics_file={os.path.join(tmp, 'ref.jsonl')}",
+              f"--profile_dir={os.path.join(tmp, 'ref_profile')}"]
+    t0 = time.perf_counter()
+    with contextlib.ExitStack() as stack:
+        ps = stack.enter_context(CliProcess(
+            "train", "--job_name=ps", "--task_index=0", *common))
+        # The non-chiefs first: they wait for the chief's init signal.
+        procs = {t: stack.enter_context(CliProcess(
+            "train", "--job_name=worker", f"--task_index={t}", *common))
+            for t in [*range(1, workers), 0]}
+        outs = {t: finish(procs[t], 300) for t in range(workers)}
+        ps_alive = ps.proc.poll() is None
+    wall_s = time.perf_counter() - t0
+    if not ps_alive:
+        raise AssertionError("the PS exited before it was stopped: "
+                             + "".join(ps.seen[-20:]))
+    for task, lines in outs.items():
+        text = "".join(lines)
+        want = "Initailizing session" if task == 0 else "Waiting for session"
+        for needle in (want, f"Worker {task}: test accuracy",
+                       "Training elapsed time", f" over {backend} "):
+            if needle not in text:
+                raise AssertionError(f"worker {task}: no {needle!r}: "
+                                     + text[-3000:])
+    nums = [trainer_numbers(outs[t], os.path.join(tmp, f"ref.jsonl.task{t}"),
+                            t, os.path.join(tmp, "ref_profile", f"task{t}"))
+            for t in range(workers)]
+    digests = {n["digest"] for n in nums}
+    if len(digests) != 1:
+        raise AssertionError(f"worker parameters differ: digests {digests}")
+    acc = nums[0]["test_accuracy"]
+    if abs(acc - T["jax_cpu_test_accuracy"]) > T["accuracy_tol"]:
+        raise AssertionError(
+            f"test accuracy {acc}, the JAX CLI's {T['jax_cpu_test_accuracy']}"
+            f" (tol {T['accuracy_tol']})")
+    allreduce = line_value(outs[0], "Worker 0: all-reduce")
+    ar_ms = float(allreduce.split(" ms")[0])
+    emit("trainer_reference", card=smi, wall_s=wall_s, workers_n=workers,
+         jax_cpu_test_accuracy=T["jax_cpu_test_accuracy"],
+         accuracy_tol=T["accuracy_tol"],
+         bring_up=line_value(outs[0], "Worker 0: process group"),
+         allreduce=allreduce, allreduce_ms=ar_ms,
+         allreduce_share_of_step=ar_ms / nums[0]["step_ms_median"],
+         workers=nums)
+    return nums[0]
+
+
+def gpt_trainer_busy(dev) -> dict:
+    """The busy share of the trainer's gpt_mini step: the bundle the CLI
+    builds from its flags (``models/registry.build``) and its sync step,
+    one step profiled in this process after three (the CLI's own
+    ``--profile_dir`` would add the profiler's start and its trace export,
+    ~45 s, to the phase)."""
+    import types
+    from distributed_tensorflow_tpu_torch.models import registry
+    from distributed_tensorflow_tpu_torch.parallel.sync import (
+        build_sync_train_step)
+    from distributed_tensorflow_tpu_torch.training.loop import to_device
+    T = TRAINER
+    flags = types.SimpleNamespace(
+        learning_rate=0.01, seed=0, bert_seq_len=T["gpt_seq"],
+        attention_backend="pallas", fused_layer_norm=True,
+        bert_dtype="bfloat16", optimizer="")
+    bundle = registry.build("gpt_mini", flags, dev)
+    step = build_sync_train_step(bundle.loss_fn)
+    data = bundle.load_datasets(None).train
+    state = bundle.state
+    for _ in range(3):
+        state, metrics = step(state, to_device(
+            data.next_batch(T["gpt_batch"]), dev))
+    float(metrics["loss"])
+    out = profile_train_step(step, state, to_device(
+        data.next_batch(T["gpt_batch"]), dev))
+    del bundle, state
+    return out
+
+
+def gpt_trainer(dev, tmp: str, smi: str) -> dict:
+    """gpt_mini at mini()'s full width through the trainer CLI (one
+    worker, no PS: the reference's config #1, the worker hosting the
+    coordination service) on the hand-written kernels, then
+    ``--mode=eval`` and ``--mode=generate`` on its checkpoint."""
+    import torch
+    from distributed_tensorflow_tpu_torch.models import gpt
+    from distributed_tensorflow_tpu_torch.tools.checkpoint_io import (
+        restore_raw)
+    from distributed_tensorflow_tpu_torch.tools.export_model import (
+        kernel_config)
+    T = TRAINER
+    logdir = os.path.join(tmp, "gpt")
+    common = ["--model=gpt_mini", "--attention_backend=pallas",
+              "--fused_layer_norm", f"--bert_seq_len={T['gpt_seq']}",
+              f"--batch_size={T['gpt_batch']}", f"--logdir={logdir}",
+              f"--device={dev}", "--job_name=worker", "--task_index=0",
+              f"--worker_hosts=localhost:{free_port()}", "--ps_hosts=",
+              "--sync_replicas=true"]
+    t0 = time.perf_counter()
+    with CliProcess("train", *common, f"--train_steps={T['gpt_steps']}",
+                    f"--save_interval_steps={T['gpt_save']}",
+                    "--log_every=1",
+                    f"--metrics_file={os.path.join(tmp, 'gpt.jsonl')}"
+                    ) as proc:
+        lines = finish(proc, 400)
+    train_wall_s = time.perf_counter() - t0
+    nums = trainer_numbers(lines, os.path.join(tmp, "gpt.jsonl"), 0)
+    losses = [float(x.split(" loss ")[1].split()[0]) for x in lines
+              if x.startswith("Worker 0: traing step")]
+    steps = nums["steps"]
+    if steps != T["gpt_steps"] - 1 or len(losses) != steps:
+        raise AssertionError(f"{steps} steps, {len(losses)} loss lines; "
+                             f"expected {T['gpt_steps'] - 1}")
+    if not (all(map(math.isfinite, losses))
+            and statistics.mean(losses[-5:]) < losses[0]):
+        raise AssertionError(f"gpt_mini loss did not fall: {losses}")
+    L = gpt.mini().num_layers
+    # Each train step: K1, K2a, K2b once a layer, K3 twice a layer and
+    # once at the end; each eval forward (the validation at step 0 and the
+    # final test, ``make_lm_eval_fn``'s 4 batches each) K1 and K3 as a
+    # step's forward.
+    forwards = steps + 2 * 4
+    want = {"flash_attention_fwd": L * forwards,
+            "flash_attention_bwd_dq": L * steps,
+            "flash_attention_bwd_dkv": L * steps,
+            "layer_norm_fwd": (2 * L + 1) * forwards,
+            "quant_matmul": 0, "quant_matmul_nt": 0}
+    if nums["launches"] != want:
+        raise AssertionError(f"trainer launches {nums['launches']}, "
+                             f"expected {want}")
+    peak_gib = float(line_value(lines, "Worker 0: peak device memory")
+                     .split()[0])
+
+    t0 = time.perf_counter()
+    with CliProcess("train", *common, "--mode=eval") as proc:
+        eval_lines = finish(proc, 300)
+    eval_s = time.perf_counter() - t0
+    eval_acc = float(line_value(eval_lines, "Worker 0: test accuracy"))
+    if eval_acc != nums["test_accuracy"]:
+        raise AssertionError(f"--mode=eval test accuracy {eval_acc}, the "
+                             f"trained process's {nums['test_accuracy']}")
+    restored = int(line_value(eval_lines, "Worker 0: restored global step"))
+    if restored != T["gpt_steps"]:
+        raise AssertionError(f"--mode=eval restored step {restored}")
+
+    prompt = list(range(1, 17))
+    t0 = time.perf_counter()
+    gen = subprocess.run(
+        [sys.executable, "-m", "distributed_tensorflow_tpu_torch.train",
+         "--mode=generate", "--model=gpt_mini", f"--logdir={logdir}",
+         f"--device={dev}", f"--gen_tokens={T['gen_tokens']}",
+         "--gen_prompt=" + ",".join(map(str, prompt))],
+        cwd=os.path.dirname(os.path.abspath(__file__)),
+        env=dict(os.environ, PYTHONPATH=os.path.dirname(
+            os.path.abspath(__file__))),
+        text=True, capture_output=True, timeout=300)
+    gen_s = time.perf_counter() - t0
+    if gen.returncode:
+        raise AssertionError(f"--mode=generate rc {gen.returncode}: "
+                             f"{gen.stdout[-2000:]}{gen.stderr[-2000:]}")
+    got = [int(t) for t in line_value(gen.stdout.splitlines(True),
+                                      "Generated tokens:").split()]
+    tree = restore_raw(os.path.join(logdir, "gpt_mini"))[0]
+    params = tree.get("ema_params") or tree["params"]
+    cfg = dataclasses.replace(gpt.mini(), **gpt.infer_widths(params))
+    model = gpt.GptLM(kernel_config(cfg), device=dev)
+    model.load_state_dict(gpt.params_from_jax(params))
+    want_toks = gpt.generate_cached(
+        model, None, torch.tensor([prompt], dtype=torch.int32),
+        T["gen_tokens"])[0, len(prompt):].tolist()
+    if got != want_toks:
+        raise AssertionError(f"--mode=generate tokens {got}, in process "
+                             f"{want_toks}")
+    del model
+    profiled = gpt_trainer_busy(dev)
+    torch.cuda.empty_cache()
+    tokens = T["gpt_batch"] * T["gpt_seq"]
+    emit("trainer_gpt", card=smi, train_wall_s=train_wall_s,
+         eval_wall_s=eval_s, generate_wall_s=gen_s, batch=T["gpt_batch"],
+         seq_len=T["gpt_seq"], loss_first=losses[0],
+         loss_last5_mean=statistics.mean(losses[-5:]),
+         tokens_per_s=tokens / (nums["step_ms_median"] / 1e3),
+         peak_mem_gib=peak_gib, launches_expected=want,
+         eval_test_accuracy=eval_acc,
+         eval_validation_accuracy=float(line_value(
+             eval_lines, "Worker 0: validation accuracy")),
+         generated=got, busy_share=profiled["busy_share"], **nums)
+    emit("trainer_gpt_profile", **profiled)
+    return nums["launches"]
+
+
+def trainer(dev, smi: str) -> dict:
+    """Phase ``trainer``: the port's CLI trainer as processes (the
+    reference job, then gpt_mini with eval and generate).  Returns the
+    gpt_mini run's kernel launches."""
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_trainer_")
+    try:
+        reference_job(str(dev), tmp, smi)
+        return gpt_trainer(dev, tmp, smi)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def trainer_nccl(smi: str) -> None:
+    """``--nccl``: the reference job with one worker on each visible card
+    (worker i on card i), so the workers' all-reduce goes over NCCL; the
+    same gates as ``trainer_reference``.  Needs 2 or more cards whose count
+    divides the global batch of 100."""
+    import torch
+    n = torch.cuda.device_count()
+    if n < 2 or TRAINER["batch"] % n:
+        raise AssertionError(f"--nccl needs 2+ cards dividing the batch of "
+                             f"{TRAINER['batch']}, found {n}")
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_nccl_")
+    try:
+        reference_job("cuda", tmp, smi, workers=n, backend="nccl")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
 def main() -> int:
     import torch
+    args = sys.argv[1:]
+    if args not in ([], ["--nccl"]):
+        print("usage: chip_smoke.py [--nccl]", file=sys.stderr)
+        return 2
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the GPU",
               file=sys.stderr)
@@ -2587,6 +2961,13 @@ def main() -> int:
     emit("env", card=smi, torch=torch.__version__, cuda=torch.version.cuda,
          device=torch.cuda.get_device_name(0),
          count=torch.cuda.device_count())
+    if args == ["--nccl"]:
+        trainer_nccl(smi)
+        print(smi, flush=True)
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count()}}), flush=True)
+        return 0
 
     t0 = time.perf_counter()
     lib = kernels.load()
@@ -2611,6 +2992,8 @@ def main() -> int:
     by_path["train_int8"] = train_int8(dev, smi, bf16_step)
     torch.cuda.empty_cache()
     by_path["train_ring"] = train_ring(dev, smi, bf16_step)
+    torch.cuda.empty_cache()
+    by_path["trainer"] = trainer(dev, smi)
     for row in rows:
         row["launches"] = by_path[row["main"]][row["name"]]
         for path, sub in row["paths"].items():

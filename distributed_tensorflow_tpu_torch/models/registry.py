@@ -1,10 +1,12 @@
 """Model bundles: a model with its train state, loss, data and eval.
 
 Counterpart of ``distributed_tensorflow_tpu/models/registry.py``, so far
-for the GPT-mini decoder (:func:`build_gpt_mini`), the entry point that
-``tests/test_gpt.py`` and ``bench.py`` train through in the JAX package,
-and the pipelined GPT's checkpoint namespace
-(:func:`pipeline_bundle_name`).
+for the reference MNIST MLP (:func:`build_mnist_mlp`), the GPT-mini
+decoder (:func:`build_gpt_mini`), :func:`build` (the trainer's
+``--model`` lookup for those two) and the pipelined GPT's checkpoint
+namespace (:func:`pipeline_bundle_name`).  The other JAX models
+(``lenet5``, ``resnet20``, ``vit_tiny``, ``bert_tiny``, ``bert_moe``) raise
+``NotImplementedError`` (ROADMAP.md, section 1, item 7).
 """
 
 from __future__ import annotations
@@ -88,7 +90,9 @@ def build_gpt_mini(learning_rate: float, seed: int = 0, seq_len: int = 128,
     if needs_rng:
         rng = torch.Generator()
         rng.manual_seed(seed + 1)
-    state = TrainState.create(model, tx, rng=rng)
+    state = TrainState.create(model, tx, rng=rng,
+                              params_to_tree=gpt_lib.params_to_jax,
+                              params_from_tree=gpt_lib.params_from_jax)
 
     def _loss(model, batch, rng=None):
         tokens = torch.as_tensor(batch["tokens"], device=device).long()
@@ -123,3 +127,87 @@ def pipeline_bundle_name(n_pipe: int, schedule: str,
     if schedule == "interleaved":
         return f"gpt_mini_pp{n_pipe}x{virtual_stages}"
     return f"gpt_mini_pp{n_pipe}"
+
+
+def build_mnist_mlp(hidden_units: int, learning_rate: float, seed: int = 0,
+                    tx: OptimizerSpec | None = None,
+                    label_smoothing: float = 0.0, *,
+                    device=None) -> ModelBundle:
+    """The reference model (:class:`.mlp.MnistMLP`) with plain SGD at
+    ``learning_rate`` (reference ``distributed.py:89``) unless ``tx`` is
+    given, the MNIST splits (:func:`..data.datasets.read_data_sets`: the
+    IDX files under ``data_dir``, else the synthetic stand-in) and the
+    full-split accuracy.  ``device`` defaults to ``cuda``."""
+    from . import mlp
+    from ..data.datasets import read_data_sets
+    from ..training.loop import make_eval_fn
+
+    device = resolve_device(device)
+    model = mlp.MnistMLP(hidden_units, seed=seed, device=device)
+    state = TrainState.create(model, tx or make_optimizer("sgd",
+                                                          learning_rate),
+                              params_to_tree=mlp.params_to_jax,
+                              params_from_tree=mlp.params_from_jax)
+
+    def loss_fn(model, batch):
+        images, labels = batch
+        images = torch.as_tensor(images, device=device)
+        labels = torch.as_tensor(labels, device=device)
+        logits = model(images)
+        return mlp.cross_entropy_loss(logits, labels,
+                                      label_smoothing=label_smoothing), {
+            "accuracy": mlp.accuracy(logits, labels)}
+
+    return ModelBundle(state, loss_fn, read_data_sets,
+                       lambda: make_eval_fn(lambda m, x: m(x)), "mnist_mlp")
+
+
+def _seed(FLAGS) -> int:
+    return getattr(FLAGS, "seed", 0)
+
+
+#: ``--model`` name -> ``(FLAGS, tx, device) -> ModelBundle``; the flag
+#: wiring of the JAX ``BUILDERS`` table for the ported models.
+BUILDERS = {
+    "mnist_mlp": lambda FLAGS, tx, device: build_mnist_mlp(
+        FLAGS.hidden_units, FLAGS.learning_rate, seed=_seed(FLAGS), tx=tx,
+        label_smoothing=getattr(FLAGS, "label_smoothing", 0.0),
+        device=device),
+    "gpt_mini": lambda FLAGS, tx, device: build_gpt_mini(
+        FLAGS.learning_rate, seed=_seed(FLAGS),
+        seq_len=getattr(FLAGS, "bert_seq_len", 128),
+        attention_backend=getattr(FLAGS, "attention_backend", "xla"),
+        dtype=getattr(FLAGS, "bert_dtype", "bfloat16"),
+        remat=getattr(FLAGS, "remat", False), tx=tx,
+        dropout_rate=getattr(FLAGS, "bert_dropout", 0.0),
+        fused_ln=getattr(FLAGS, "fused_layer_norm", False),
+        label_smoothing=getattr(FLAGS, "label_smoothing", 0.0),
+        pos_encoding=getattr(FLAGS, "gpt_positions", "learned"),
+        kv_heads=getattr(FLAGS, "gpt_kv_heads", 0),
+        attention_window=getattr(FLAGS, "attention_window", 0),
+        activation=getattr(FLAGS, "gpt_activation", "gelu"),
+        norm=getattr(FLAGS, "gpt_norm", "layernorm"),
+        matmul_int8=getattr(FLAGS, "gpt_matmul_int8", False),
+        attn_int8=getattr(FLAGS, "gpt_attn_int8", False),
+        tokenizer=getattr(FLAGS, "gpt_tokenizer", "byte"),
+        stream_threshold_mb=getattr(FLAGS, "gpt_stream_corpus_mb", 256),
+        device=device),
+}
+
+#: The JAX package's other ``--model`` names.
+NOT_PORTED = ("lenet5", "resnet20", "vit_tiny", "bert_tiny", "bert_moe")
+
+
+def build(name: str, FLAGS, device=None) -> ModelBundle:
+    """The bundle for ``--model=name`` from the flag set; an explicit
+    ``--optimizer`` takes full control of the optimizer (including the
+    schedule), as in the JAX package."""
+    from ..training.optimizers import from_flags
+    if name in NOT_PORTED:
+        raise NotImplementedError(
+            f"--model={name} is not ported yet; see ROADMAP.md, section 1, "
+            "item 7")
+    if name not in BUILDERS:
+        raise ValueError(f"Unknown model {name!r}; available: "
+                         f"{sorted([*BUILDERS, *NOT_PORTED])}")
+    return BUILDERS[name](FLAGS, from_flags(FLAGS), device)

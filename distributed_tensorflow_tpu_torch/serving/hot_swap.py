@@ -7,9 +7,10 @@ swap_params`).  The watcher here is the detection/loading half:
 
 - **Discovery** — poll ``<logdir>/checkpoints`` for a step newer than the
   one being served (``tools/checkpoint_io.list_step_dirs``).  (The JAX
-  package first consults the coordination service's init-done key as a
-  cheap "newest step" hint; the coordination client is not ported yet, so
-  a ``coord_client`` raises here: see ROADMAP.md, section 1, slice 7.)
+  package first consults the coordination service's init-done key,
+  :data:`..training.supervisor.INIT_DONE_KEY`, as a cheap "newest step"
+  hint; that hint comes with the fleet tier's coordination paths, so a
+  ``coord_client`` raises here: see ROADMAP.md, section 1, slice 6d.)
 - **Integrity** — a candidate is loaded only when
   ``tools/checkpoint_io.verify_checkpoint`` accepts it (``valid``, or
   ``unverified`` for legacy saves); a half-written or corrupt save is
@@ -32,12 +33,8 @@ import time
 from typing import Callable
 
 from ..tools.checkpoint_io import list_step_dirs, verify_checkpoint
+from ..training.supervisor import INIT_DONE_KEY
 from ..utils import tracing
-
-# The chief's init-done key (JAX training/supervisor.py:33), republished
-# at every durable save: the watcher's newest-step hint once the
-# coordination client and the supervisor are ported (slice 7).
-INIT_DONE_KEY = "dtf/initialized"
 
 
 def newest_verified_step(ckpt_dir: str, min_step: int = -1
@@ -69,9 +66,8 @@ class ModelWatcher:
                  coord_client=None, telemetry=None):
         if coord_client is not None:
             raise NotImplementedError(
-                f"the coordination hint ({INIT_DONE_KEY!r}) needs the "
-                "coordination client, which is not ported yet; see "
-                "ROADMAP.md, section 1, slice 7")
+                f"the coordination hint ({INIT_DONE_KEY!r}) is not ported "
+                "yet; see ROADMAP.md, section 1, slice 6d (after slice 7b)")
         self._ckpt_dir = os.path.join(logdir, "checkpoints")
         self._load_fn = load_fn
         self._swap_fn = swap_fn

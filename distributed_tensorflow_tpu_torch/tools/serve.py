@@ -27,7 +27,7 @@ prefill, the LayerNorm kernel (K3) in every LayerNorm.  ``--device``
 (default ``cuda``, which raises without a card) takes the place of the
 JAX CLI's ``--platform``.  ``--coord host:port`` (the coordination KV's
 newest-step hint) is not ported yet and raises: see ROADMAP.md, section
-1, slice 7.
+1, slice 6d.
 
 ``--watch http://host:port`` turns the CLI into a live observer of a
 RUNNING server (``watch_run``-style table over ``/statz``): per-tenant
@@ -236,8 +236,8 @@ def main(argv=None) -> int:
     if args.coord:
         raise NotImplementedError(
             "--coord (the coordination service's newest-step hint and "
-            "clock alignment) needs the coordination client, which is not "
-            "ported yet; see ROADMAP.md, section 1, slice 7")
+            "clock alignment) is not ported yet; see ROADMAP.md, section "
+            "1, slice 6d (after slice 7b)")
     from ..utils.device import cli_device
     device = cli_device(args.device)
 

@@ -1,43 +1,62 @@
-"""The command-line entry point, the counterpart of
-``distributed_tensorflow_tpu/train.py``; so far ``--mode=generate`` only::
+"""CLI training driver, the counterpart of ``distributed_tensorflow_tpu/train.py``.
 
-    python -m distributed_tensorflow_tpu_torch.train --mode=generate \\
-        --logdir <run> [--gen_prompt 1,2,3] [--gen_tokens 32] \\
-        [--gen_beams N | --gen_speculative K] [--device cpu]
+The reference's launch shape (``README.md:7-15``), one process per worker
+and one parameter-server process::
 
-It restores the newest checkpoint under ``<logdir>/<namespace>/
-checkpoints`` (one the JAX trainer or :func:`.tools.checkpoint_io.
-save_raw` wrote) and decodes with the port's decode family
-(:mod:`.models.gpt`) on the hand-written kernels: flash attention (K1)
-over the prompt and the LayerNorm kernel (K3) in every LayerNorm.  It
-prints the JAX CLI's lines (``Restored global step:``, ``Prompt
-tokens:``, ``Generated tokens:``, and the beam or speculative line).
+    python -m distributed_tensorflow_tpu_torch.train --job_name=ps \
+        --task_index=0 --ps_hosts=h0:2222 --worker_hosts=h1:2223,h2:2224
+    python -m distributed_tensorflow_tpu_torch.train --job_name=worker \
+        --task_index=0 --ps_hosts=h0:2222 --worker_hosts=h1:2223,h2:2224 \
+        --sync_replicas=true
+
+A ``--job_name=ps`` process hosts the coordination service and blocks
+(``server.join()`` parity, reference ``distributed.py:55-56``).  Sync
+workers form a ``torch.distributed`` process group (rank = task index; the
+backend rule is :mod:`.cluster.server`'s and each worker prints it) and
+average their gradients with one all-reduce a step
+(:mod:`.parallel.sync`); the chief initializes or restores the state and
+signals the others through the coordination service
+(:mod:`.training.supervisor`), and :mod:`.training.loop` prints the
+reference's lines (``Initailizing session...``, ``traing step``,
+``Training elapsed time:``, ``test accuracy``, typos kept).
+
+Modes: ``train`` (default), ``eval`` (restore the newest checkpoint, print
+validation and test accuracy) and ``generate`` (gpt_mini decode from a
+checkpoint: the newest one under ``<logdir>/<namespace>/checkpoints``, on
+the hand-written kernels, printing the JAX CLI's lines).  ``--model`` is
+``mnist_mlp`` (the reference model) or ``gpt_mini``; with
+``--attention_backend=pallas --fused_layer_norm`` the gpt_mini trainer
+runs the flash-attention (K1, K2a/K2b) and LayerNorm (K3) kernels.
 
 Every flag of the JAX ``train.py`` is declared, so a JAX command line
 parses; the port adds ``--device`` (default ``cuda``, which raises without
 a card) in place of ``--platform``.  Not ported yet (each raises
-``NotImplementedError``, see ROADMAP.md, section 1): ``--mode=train`` and
-``--mode=eval`` (the PS/worker trainer, slice 7), and
-``--gen_prompt_text`` / ``--gen_stop_text`` (the run's BPE tokenizer,
-item 7; a run's ``tokenizer.json`` is not read, so no ``Generated text:``
-line is printed).  The flags of the modes not ported yet are parsed and
-unused.
+``NotImplementedError`` naming ROADMAP.md's entry): ``--sync_replicas=false``
+(async replicas) and the elastic, straggler-lag, coordinator-HA and
+selective fine-tuning flags (slice 7b); the parallelism flags (item 6);
+the other models, the BPE tokenizer, ``--gen_prompt_text`` and
+``--gen_stop_text`` (item 7); ``--profile`` run profiles (item 8).
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import hashlib
+import json
 import os
+import time
 
 import torch
 
-from .config import app, define_training_flags, flags
+from .config import app, define_training_flags, flags, validate_role_flags
 
 FLAGS = define_training_flags()
 flags.DEFINE_string("mode", "train",
-                    "train, eval or generate; only generate is ported: "
-                    "decode --gen_tokens tokens from a seed prompt "
-                    "(gpt_mini only)")
+                    "train (default), eval or generate. eval: restore the "
+                    "latest checkpoint from --logdir and report validation "
+                    "+ test accuracy, no training. generate: decode "
+                    "--gen_tokens tokens from a seed prompt (gpt_mini only)")
 flags.DEFINE_integer("gen_tokens", 32, "Tokens to generate in --mode=generate")
 flags.DEFINE_string("gen_prompt", "",
                     "Comma-separated token ids to seed --mode=generate "
@@ -82,13 +101,16 @@ flags.DEFINE_boolean("gen_speculative_device", True,
                      "acceptance on the device, reading the host once a "
                      "round (default); false runs the host loop")
 flags.DEFINE_string("model", "mnist_mlp",
-                    "Model/workload; --mode=generate needs gpt_mini")
+                    "Model/workload: mnist_mlp | gpt_mini (lenet5, "
+                    "resnet20, vit_tiny, bert_tiny and bert_moe are not "
+                    "ported yet); --mode=generate needs gpt_mini")
 flags.DEFINE_string("logdir", "/tmp/dtf_tpu_train",
-                    "Run directory: checkpoints under "
+                    "Checkpoint/recovery directory: checkpoints under "
                     "<logdir>/<model namespace>/checkpoints")
 flags.DEFINE_integer("bert_seq_len", 128,
-                     "Sequence length of the stream-sampled default prompt "
-                     "(half of it)")
+                     "Sequence length of gpt_mini's training windows (and "
+                     "of --mode=generate's stream-sampled prompt, half of "
+                     "it)")
 flags.DEFINE_string("bert_dtype", "bfloat16",
                     "Activation dtype: bfloat16 | float32")
 flags.DEFINE_integer("pipeline_parallel", 1,
@@ -113,84 +135,155 @@ flags.DEFINE_integer("gpt_kv_heads", 0,
                      "Grouped-query K/V heads (0 = the checkpoint's, or "
                      "plain multi-head attention)")
 flags.DEFINE_integer("seed", 0,
-                     "Seed of the random init without a checkpoint, of the "
-                     "default prompt and of sampling")
+                     "Model-initialization seed (all workers must agree: "
+                     "identical initial state everywhere); also the "
+                     "default prompt's and sampling's in --mode=generate")
 flags.DEFINE_string("device", "cuda",
-                    "torch device (cuda raises without a card; cpu for a "
-                    "CPU run); the port's --platform")
+                    "torch device: cuda (worker i takes card i modulo the "
+                    "card count; raises without a card), cuda:N, or cpu "
+                    "for a CPU run; the port's --platform")
 
-# The JAX train.py's other flags (train and eval modes, not ported yet):
-# declared so its command lines parse, and unused.
+
+# The trainer's flags (the JAX train.py's, with shorter help).
+flags.DEFINE_integer("save_interval_steps", 1000,
+                     "Checkpoint every N global steps")
+flags.DEFINE_integer("max_checkpoints_to_keep", 3,
+                     "Keep the last K checkpoints plus, always, the newest "
+                     "one that passes integrity verification; 0 keeps all")
+flags.DEFINE_integer("log_every", 1, "Print metrics every N local steps")
+flags.DEFINE_integer("validation_every", 10000,
+                     "Evaluate the validation split every N local steps "
+                     "(reference distributed.py:140); 0 disables")
+flags.DEFINE_float("bert_dropout", 0.0,
+                   "Dropout rate for gpt_mini (0 keeps training "
+                   "deterministic)")
+flags.DEFINE_boolean("remat", False,
+                     "Recompute transformer layers in the backward pass")
+flags.DEFINE_string("attention_backend", "xla",
+                    "Attention backend for gpt_mini: xla (PyTorch) | pallas "
+                    "(the hand-written flash-attention kernels) | ring "
+                    "(needs --sequence_parallel, not ported in the CLI)")
+flags.DEFINE_boolean("gpt_matmul_int8", False,
+                     "Train gpt_mini's MLP through the int8 matmul kernels")
+flags.DEFINE_boolean("gpt_attn_int8", False,
+                     "Also route gpt_mini's attention projections through "
+                     "the int8 path")
+flags.DEFINE_boolean("fused_layer_norm", False,
+                     "Route transformer LayerNorms through the LayerNorm "
+                     "kernel")
+flags.DEFINE_string("gpt_tokenizer", "byte",
+                    "gpt_mini corpus tokenizer: byte | bpe (not ported yet)")
+flags.DEFINE_integer("gpt_stream_corpus_mb", 256,
+                     "Corpus size (MB) above which the LM corpus streams "
+                     "(not ported yet)")
+flags.DEFINE_float("label_smoothing", 0.0,
+                   "Mix one-hot targets with the uniform distribution")
+flags.DEFINE_boolean("log_grad_norm", False,
+                     "Add the global gradient L2 norm to each step's "
+                     "metrics (sync plain/scanned/accumulating steps)")
+flags.DEFINE_string("optimizer", "",
+                    "Override the model's optimizer: sgd | momentum | "
+                    "nesterov | adam | adamw (lamb, adagrad, rmsprop and "
+                    "adafactor are not ported yet); empty keeps the model's "
+                    "own (SGD for mnist_mlp, Adam for gpt_mini)")
+flags.DEFINE_float("momentum", 0.9, "Momentum for momentum/nesterov")
+flags.DEFINE_float("weight_decay", 0.0,
+                   "Weight decay with --optimizer: decoupled for adamw, "
+                   "L2 for the others")
+flags.DEFINE_string("lr_schedule", "constant",
+                    "Learning-rate schedule with --optimizer: constant | "
+                    "cosine | linear | rsqrt")
+flags.DEFINE_integer("warmup_steps", 0, "Linear lr warmup steps")
+flags.DEFINE_integer("decay_steps", 0,
+                     "Schedule horizon; 0 means --train_steps")
+flags.DEFINE_float("end_lr_factor", 0.0,
+                   "Final lr as a fraction of the peak (cosine/linear)")
+flags.DEFINE_float("grad_clip_norm", 0.0,
+                   "Clip gradients to this global norm (needs --optimizer)")
+flags.DEFINE_float("heartbeat_timeout", 10.0,
+                   "Seconds without a heartbeat before the coordination "
+                   "service marks a worker dead (drives the R<N mask)")
+flags.DEFINE_string("inject_step_delay", "",
+                    "Fault injection: comma-separated 'SECS:N' (sleep SECS "
+                    "after each of the first N local steps) or "
+                    "'SECS:START:END' windows")
+flags.DEFINE_integer("steps_per_call", 1,
+                     "Optimizer steps per train-step call; logging, "
+                     "validation and checkpoints move to chunk boundaries")
+flags.DEFINE_integer("grad_accum_steps", 1,
+                     "Accumulate gradients over N microbatches per "
+                     "optimizer step (sync only; exclusive with "
+                     "--steps_per_call)")
+flags.DEFINE_float("ema_decay", 0.0,
+                   "Keep an exponential moving average of the weights; "
+                   "evaluation and the final test use it (sync only)")
+flags.DEFINE_boolean("log_sharding", False,
+                     "Print each parameter's placement at startup")
+flags.DEFINE_boolean("graceful_shutdown", True,
+                     "On SIGTERM/SIGINT: finish the step, checkpoint, exit")
+flags.DEFINE_integer("prefetch", 2,
+                     "Host->device input prefetch depth (background thread, "
+                     "pinned non-blocking copies; 0 feeds synchronously)")
+flags.DEFINE_string("feed_dtype", "float32",
+                    "Training-feed image dtype: float32 | uint8 (raw bytes "
+                    "host->device, normalized on the device; image models)")
+flags.DEFINE_string("metrics_file", None,
+                    "Append structured JSONL metric records here")
+flags.DEFINE_boolean("telemetry", True,
+                     "With --metrics_file: the per-step data-wait/compute "
+                     "breakdown (the step synchronised each step), MFU, "
+                     "device-memory watermarks and a final run_summary")
+flags.DEFINE_float("peak_tflops", 0.0,
+                   "Per-device peak TFLOP/s for the telemetry MFU (0 = "
+                   "the card's table entry; none on the CPU)")
+flags.DEFINE_float("health_report_every", 10.0,
+                   "Seconds between cluster-health telemetry snapshots; "
+                   "0 disables")
+flags.DEFINE_string("summary_dir", None,
+                    "Write TensorBoard scalar summaries here (chief only)")
+flags.DEFINE_boolean("summary_histograms", False,
+                     "Also write per-parameter weight histograms at the "
+                     "validation cadence (requires --summary_dir)")
+flags.DEFINE_string("profile_dir", None,
+                    "Profile the training loop with torch.profiler into "
+                    "this directory (trace.json and summary.json with the "
+                    "card's busy share; task<i>/ with several workers)")
+
+# The JAX train.py's flags of paths not ported yet: declared so its command
+# lines parse; a value other than the default raises NotImplementedError
+# naming ROADMAP.md's entry.
 _UNPORTED_FLAGS = (
-    ("integer", "save_interval_steps", 1000),
-    ("integer", "max_checkpoints_to_keep", 3),
-    ("integer", "log_every", 1),
-    ("integer", "validation_every", 10000),
-    ("string", "async_mode", "local_sgd"),
-    ("integer", "async_sync_period", 16),
-    ("boolean", "async_overlap_exchange", False),
-    ("string", "async_compress", "off"),
-    ("integer", "async_anchor_every", 8),
-    ("integer", "async_quant_block", 1024),
-    ("integer", "slice_size", 0),
-    ("string", "coord_standbys", ""),
-    ("integer", "coord_instances", 1),
-    ("float", "bert_dropout", 0.0),
-    ("boolean", "remat", False),
-    ("integer", "tensor_parallel", 1),
-    ("integer", "sequence_parallel", 1),
-    ("integer", "pipeline_microbatches", 4),
-    ("boolean", "sharded_feed", True),
-    ("boolean", "fsdp", False),
-    ("integer", "fsdp_min_size", 65536),
-    ("integer", "dcn_data_parallel", 1),
-    ("integer", "expert_parallel", 1),
-    ("integer", "num_experts", 4),
-    ("string", "attention_backend", "xla"),
-    ("string", "gpt_tokenizer", "byte"),
-    ("integer", "gpt_bpe_vocab", 512),
-    ("integer", "gpt_stream_corpus_mb", 256),
-    ("boolean", "gpt_matmul_int8", False),
-    ("boolean", "gpt_attn_int8", False),
-    ("float", "label_smoothing", 0.0),
-    ("boolean", "data_augmentation", False),
-    ("boolean", "log_grad_norm", False),
-    ("boolean", "fused_layer_norm", False),
-    ("string", "optimizer", ""),
-    ("string", "trainable_params", ""),
-    ("float", "momentum", 0.9),
-    ("float", "weight_decay", 0.0),
-    ("string", "lr_schedule", "constant"),
-    ("integer", "warmup_steps", 0),
-    ("integer", "decay_steps", 0),
-    ("float", "end_lr_factor", 0.0),
-    ("float", "grad_clip_norm", 0.0),
-    ("float", "heartbeat_timeout", 10.0),
-    ("string", "elastic_mode", "auto"),
-    ("integer", "elastic_reshard_margin", 20),
-    ("integer", "straggler_lag", 0),
-    ("string", "inject_step_delay", ""),
-    ("integer", "steps_per_call", 1),
-    ("integer", "grad_accum_steps", 1),
-    ("float", "ema_decay", 0.0),
-    ("boolean", "log_sharding", False),
-    ("boolean", "graceful_shutdown", True),
-    ("integer", "prefetch", 2),
-    ("string", "feed_dtype", "float32"),
-    ("string", "metrics_file", None),
-    ("boolean", "telemetry", True),
-    ("float", "peak_tflops", 0.0),
-    ("float", "health_report_every", 10.0),
-    ("string", "summary_dir", None),
-    ("boolean", "summary_histograms", False),
-    ("string", "profile_dir", None),
-    ("string", "platform", None),
-    ("string", "profile", ""),
+    ("string", "async_mode", "local_sgd", "slice 7b"),
+    ("integer", "async_sync_period", 16, "slice 7b"),
+    ("boolean", "async_overlap_exchange", False, "slice 7b"),
+    ("string", "async_compress", "off", "slice 7b"),
+    ("integer", "async_anchor_every", 8, "slice 7b"),
+    ("integer", "async_quant_block", 1024, "slice 7b"),
+    ("integer", "slice_size", 0, "slice 7b"),
+    ("string", "elastic_mode", "auto", "slice 7b"),
+    ("integer", "elastic_reshard_margin", 20, "slice 7b"),
+    ("integer", "straggler_lag", 0, "slice 7b"),
+    ("string", "trainable_params", "", "slice 7b"),
+    ("string", "coord_standbys", "", "slice 7b"),
+    ("integer", "coord_instances", 1, "slice 7b"),
+    ("integer", "tensor_parallel", 1, "item 6"),
+    ("integer", "sequence_parallel", 1, "item 6"),
+    ("integer", "pipeline_microbatches", 4, "item 6"),
+    ("boolean", "sharded_feed", True, "item 6"),
+    ("boolean", "fsdp", False, "item 6"),
+    ("integer", "fsdp_min_size", 65536, "item 6"),
+    ("integer", "dcn_data_parallel", 1, "item 6"),
+    ("integer", "expert_parallel", 1, "item 6"),
+    ("integer", "num_experts", 4, "item 7"),
+    ("boolean", "data_augmentation", False, "item 7"),
+    ("integer", "gpt_bpe_vocab", 512, "item 7"),
+    ("string", "platform", None, "item 8; --device is the port's switch"),
+    ("string", "profile", "", "item 8"),
 )
-for _kind, _name, _default in _UNPORTED_FLAGS:
+for _kind, _name, _default, _where in _UNPORTED_FLAGS:
     getattr(flags, f"DEFINE_{_kind}")(
-        _name, _default, "JAX train.py flag of a mode not ported yet "
-        "(parsed, unused)")
+        _name, _default, f"JAX train.py flag, not ported yet ({_where}); "
+        "parsed, and a non-default value raises")
 
 
 def _not_ported(what: str, where: str) -> NotImplementedError:
@@ -357,11 +450,477 @@ def run_generate():
     return toks
 
 
+def _parameter_digest(model: torch.nn.Module) -> str:
+    """sha256 over every parameter's bytes in name order: equal digests
+    mean bit-equal parameters."""
+    h = hashlib.sha256()
+    for name, p in sorted(model.named_parameters()):
+        h.update(name.encode())
+        h.update(p.detach().to("cpu").contiguous().view(torch.uint8)
+                 .numpy().tobytes())
+    return h.hexdigest()[:16]
+
+
+def _kernel_launches() -> dict:
+    """The hand-written kernels' launch counters in this process (each
+    wrapper adds one where it launches its kernel)."""
+    from .ops import flash_attention as fa
+    from .ops import layer_norm as ln
+    from .ops import quant_matmul as qmm
+    return {"flash_attention_fwd": fa.launches,
+            "flash_attention_bwd_dq": fa.dq_launches,
+            "flash_attention_bwd_dkv": fa.dkv_launches,
+            "layer_norm_fwd": ln.launches,
+            "quant_matmul": qmm.launches,
+            "quant_matmul_nt": qmm.nt_launches}
+
+
+def _check_unported_flags() -> None:
+    for _, name, default, where in _UNPORTED_FLAGS:
+        if getattr(FLAGS, name) != default:
+            raise _not_ported(f"--{name}", where)
+
+
+def _step_delay(spec: str, step_fn):
+    """``--inject_step_delay``: sleep after the local steps of its
+    windows."""
+    windows = []
+    try:
+        for part in spec.split(","):
+            bits = part.split(":")
+            if len(bits) == 2:
+                windows.append((float(bits[0]), 0, int(bits[1])))
+            elif len(bits) == 3:
+                windows.append((float(bits[0]), int(bits[1]), int(bits[2])))
+            else:
+                raise ValueError(bits)
+    except ValueError:
+        raise ValueError(
+            f"--inject_step_delay windows must be 'SECS:N' or "
+            f"'SECS:START:END', got {spec!r}") from None
+    count = {"n": 0}
+
+    def step(*args):
+        out = step_fn(*args)
+        i = count["n"]
+        count["n"] += 1
+        delay = sum(d for d, lo, hi in windows if lo <= i < hi)
+        if delay > 0:
+            time.sleep(delay)
+        return out
+
+    return step
+
+
 def main(unused_argv):
+    from .cluster.server import Server, worker_device
+    from .cluster.spec import ClusterSpec, is_chief
+    from .models import registry
+    from .parallel import sync as sync_lib
+    from .parallel.mesh import ParallelConfig
+    from .training.loop import parameters_swapped, run_training_loop
+    from .training.optimizers import schedule_from_flags
+    from .training.preemption import ShutdownSignal
+    from .training.supervisor import Supervisor
+    from .utils import faults, profiling
+    from .utils.metrics import MetricsLogger
+    from .utils.summary import SummaryWriter
+
+    # Chaos harness: arm any DTF_CHAOS-specified faults before bring-up (a
+    # no-op when the variable is unset).
+    faults.install_from_env()
+
     if FLAGS.mode == "generate":
         return run_generate()
-    raise _not_ported(f"--mode={FLAGS.mode} (the PS/worker trainer, its "
-                      "eval and supervision)", "slice 7")
+    if FLAGS.mode not in ("train", "eval"):
+        raise ValueError(
+            f"--mode must be train, eval or generate, got {FLAGS.mode}")
+
+    validate_role_flags(FLAGS)
+    _check_unported_flags()
+    if FLAGS.feed_dtype not in ("float32", "uint8"):
+        raise ValueError(
+            f"--feed_dtype must be float32 or uint8, got {FLAGS.feed_dtype}")
+    if FLAGS.ema_decay != 0 and not (0 < FLAGS.ema_decay < 1):
+        raise ValueError(f"--ema_decay must be in (0, 1), got {FLAGS.ema_decay}")
+    if not 0 <= FLAGS.label_smoothing < 1:
+        raise ValueError(f"--label_smoothing must be in [0, 1), got "
+                         f"{FLAGS.label_smoothing}")
+    if FLAGS.attention_window < 0:
+        raise ValueError(f"--attention_window must be >= 0, got "
+                         f"{FLAGS.attention_window}")
+    if FLAGS.gpt_tokenizer not in ("byte", "bpe"):
+        raise ValueError(f"--gpt_tokenizer must be byte or bpe, got "
+                         f"{FLAGS.gpt_tokenizer!r}")
+    if (FLAGS.mode == "train" and FLAGS.job_name == "worker"
+            and not FLAGS.sync_replicas):
+        raise _not_ported("--sync_replicas=false (async replicas: "
+                          "parallel/async_replicas.py, cluster/param_sync.py)",
+                          "slice 7b")
+    # One declarative layout; only the data axis is ported.
+    pcfg = ParallelConfig.from_flags(FLAGS)
+
+    cluster = ClusterSpec({"ps": FLAGS.ps_hosts, "worker": FLAGS.worker_hosts})
+    num_workers = cluster.num_workers
+    device = (worker_device(FLAGS.device, FLAGS.task_index)
+              if FLAGS.job_name == "worker" else None)
+    server = Server(cluster, FLAGS.job_name, FLAGS.task_index, device=device,
+                    initialize_distributed=(None if FLAGS.mode == "train"
+                                            else False),
+                    heartbeat_timeout=FLAGS.heartbeat_timeout,
+                    kv_persist_path=os.path.join(
+                        FLAGS.logdir, "coordination_kv.journal"))
+    if FLAGS.job_name == "ps":
+        server.join()
+        return
+
+    task = FLAGS.task_index
+    chief = is_chief(task)
+    world = server.world_size
+    if server.process_group:
+        print(f"Worker {task}: process group rank {task} of {world} over "
+              f"{server.backend} ({server.backend_reason}) on {device}, "
+              f"layout {pcfg.describe()}")
+    else:
+        print(f"Worker {task}: no process group; training alone on {device}")
+
+    bundle = registry.build(FLAGS.model, FLAGS, device)
+    state = bundle.state
+    if FLAGS.log_sharding:
+        for name, p in state.model.named_parameters():
+            print(f"Worker {task}: param {name.replace('.', '/')} "
+                  f"{tuple(p.shape)} -> replicated on {p.device}")
+    if FLAGS.ema_decay > 0:
+        # Seed the average at a copy of the initial weights.
+        state.ema_params = {n: p.detach().clone()
+                            for n, p in state.model.named_parameters()}
+
+    datasets = bundle.load_datasets(FLAGS.data_dir)
+    if FLAGS.feed_dtype == "uint8":
+        import numpy as np
+        images = getattr(datasets.train, "images", None)
+        if not (isinstance(images, np.ndarray)
+                and images.dtype == np.float32):
+            raise ValueError(
+                f"--feed_dtype=uint8 applies to the image models "
+                f"(float image pipelines); --model={FLAGS.model} feeds "
+                f"{type(datasets.train).__name__} batches")
+        from .data.datasets import uint8_feed
+        datasets = uint8_feed(datasets)
+    eval_fn = bundle.make_eval_fn()
+    if FLAGS.ema_decay > 0:
+        # Evaluate the averaged weights (validation AND the final test).
+        raw_eval = eval_fn
+
+        def eval_fn(st, split, _base=raw_eval):
+            with parameters_swapped(st.model, st.ema_params):
+                return _base(st, split)
+
+    if FLAGS.mode == "eval":
+        # Restore the newest checkpoint into the state this run's flags
+        # build, then report validation + test accuracy in the reference's
+        # output shape.
+        sv = Supervisor(is_chief=True,
+                        logdir=os.path.join(FLAGS.logdir, bundle.name),
+                        init_fn=lambda: state)
+        try:
+            if sv.latest_step() is None:
+                print(f"WARNING: no checkpoint found under "
+                      f"{os.path.join(sv.logdir, 'checkpoints')}; "
+                      "evaluating the fresh initialization")
+            try:
+                state = sv.prepare_or_wait_for_state()
+            except ValueError as e:
+                raise ValueError(
+                    "--mode=eval could not restore the checkpoint: its "
+                    "structure does not match the state this run's flags "
+                    "build. Common causes: flags differing from the "
+                    "training run (--optimizer, --ema_decay, model-size "
+                    "flags), or an async run's per-replica checkpoint") from e
+            validation_accuracy = eval_fn(state, datasets.validation)
+            test_accuracy = eval_fn(state, datasets.test)
+        finally:
+            sv.close()
+            server.shutdown()
+        restored_step = int(state.global_step)
+        print(f"Worker {task}: restored global step {restored_step}")
+        print(f"Worker {task}: validation accuracy {validation_accuracy:g}")
+        print(f"Worker {task}: test accuracy {test_accuracy:g}")
+        print(f"Worker {task}: kernel launches "
+              f"{json.dumps(_kernel_launches())}")
+        return {"global_step": restored_step,
+                "validation_accuracy": validation_accuracy,
+                "test_accuracy": test_accuracy}
+
+    # R is counted in worker tasks (reference distributed.py:92-99): one
+    # data replica a worker, held by its process under a process group, or
+    # all of them by a worker that trains alone (its batch split into one
+    # shard a task, as the JAX single-controller worker shards its batch
+    # over its devices).
+    all_reduce = (sync_lib.GradientAllReduce() if server.process_group
+                  else None)
+    coord = server.coordination_client
+    replicas_to_aggregate = sync_lib.resolve_replicas_to_aggregate(
+        FLAGS.replicas_to_aggregate, num_workers)
+    use_masked = replicas_to_aggregate < num_workers and coord is not None
+    if use_masked and FLAGS.ema_decay > 0:
+        raise ValueError("--ema_decay with R<N masked sync is unsupported")
+    if use_masked and FLAGS.steps_per_call > 1:
+        raise ValueError(
+            "--steps_per_call > 1 is incompatible with R<N masked sync "
+            "(the replica mask is sampled per step)")
+    if use_masked and bundle.needs_rng:
+        raise ValueError(
+            "--bert_dropout with R<N masked sync is unsupported; use "
+            "--replicas_to_aggregate equal to the worker count")
+    if FLAGS.steps_per_call > 1 and FLAGS.grad_accum_steps > 1:
+        raise ValueError("--steps_per_call and --grad_accum_steps are "
+                         "exclusive")
+    if FLAGS.log_grad_norm and use_masked:
+        print(f"Worker {task}: --log_grad_norm is not available on the "
+              "masked (R<N) sync path — ignoring")
+    replica_mask_fn = None
+    if use_masked:
+        # Per-task health bits (cached by a background poller: no TCP on
+        # the hot path), one replica a task.
+        import numpy as np
+        coord.start_health_polling(interval=1.0, num_tasks=num_workers)
+        train_step = sync_lib.build_masked_sync_train_step(
+            bundle.loss_fn, num_workers, all_reduce=all_reduce,
+            rank=task if server.process_group else 0)
+        last_mask = [None]
+        mask_progress = {"base": 0, "n": 0}
+
+        def replica_mask_fn():
+            mask_progress["n"] += 1
+            coord.set_progress(mask_progress["base"] + mask_progress["n"])
+            mask = sync_lib.replica_mask_from_tasks(coord.cached_health(),
+                                                    num_workers, 1)
+            if last_mask[0] is None or not np.array_equal(mask, last_mask[0]):
+                print(f"Worker {task}: live replica mask "
+                      f"{mask.astype(int).tolist()}")
+                last_mask[0] = mask.copy()
+            return mask
+    elif FLAGS.steps_per_call > 1:
+        train_step = sync_lib.build_scanned_sync_train_step(
+            bundle.loss_fn, num_steps=FLAGS.steps_per_call,
+            needs_rng=bundle.needs_rng, ema_decay=FLAGS.ema_decay,
+            log_grad_norm=FLAGS.log_grad_norm, all_reduce=all_reduce)
+    elif FLAGS.grad_accum_steps > 1:
+        train_step = sync_lib.build_accumulating_sync_train_step(
+            bundle.loss_fn, accum_steps=FLAGS.grad_accum_steps,
+            needs_rng=bundle.needs_rng, ema_decay=FLAGS.ema_decay,
+            log_grad_norm=FLAGS.log_grad_norm, all_reduce=all_reduce)
+    else:
+        train_step = sync_lib.build_sync_train_step(
+            bundle.loss_fn, needs_rng=bundle.needs_rng,
+            ema_decay=FLAGS.ema_decay, log_grad_norm=FLAGS.log_grad_norm,
+            all_reduce=all_reduce)
+
+    if coord is not None:
+        from .cluster.coordination import CoordinationError
+        try:
+            # A single worker must not hang on an absent coordinator (the
+            # reference's config #1, "1 host, no PS").
+            coord.register(timeout=5.0 if num_workers == 1 else 120.0)
+            coord.start_heartbeats()
+            if coord.restarts:
+                print(f"Worker {task}: rejoined coordination service "
+                      f"(restart #{coord.restarts}); restoring from the last "
+                      "good checkpoint")
+        except CoordinationError:
+            if num_workers > 1:
+                raise
+            print(f"Worker {task}: no coordination service at "
+                  f"{cluster.coordinator_address}; running standalone.")
+            coord.close()
+            coord = None
+
+    if chief:
+        print(f"Worker {task}: Initailizing session...")
+    else:
+        print(f"Worker {task}: Waiting for session to be initaialized...")
+
+    init_state = state
+    # Namespace checkpoints per model: a shared logdir must never restore
+    # one model's tree into another's.
+    sv = Supervisor(
+        is_chief=chief, logdir=os.path.join(FLAGS.logdir, bundle.name),
+        init_fn=lambda: init_state, recovery_wait_secs=1,
+        save_interval_steps=FLAGS.save_interval_steps,
+        coordination_client=coord,
+        max_to_keep=FLAGS.max_checkpoints_to_keep)
+    state = sv.prepare_or_wait_for_state()
+    print(f"Worker {task}: Session initialization  complete.")
+    if replica_mask_fn is not None:
+        # Progress heartbeats count from the restored step, so a rejoining
+        # worker is not taken for a straggler while it resumes.
+        mask_progress["base"] = int(state.global_step)
+
+    if FLAGS.inject_step_delay:
+        train_step = _step_delay(FLAGS.inject_step_delay, train_step)
+
+    log_every, validation_every = FLAGS.log_every, FLAGS.validation_every
+    if FLAGS.steps_per_call > 1:
+        # Chunked stepping can only log/validate at chunk boundaries.
+        k = FLAGS.steps_per_call
+        rounded = tuple(((n + k - 1) // k) * k if n else 0
+                        for n in (log_every, validation_every))
+        if rounded != (log_every, validation_every):
+            print(f"Worker {task}: rounding log_every {log_every}->"
+                  f"{rounded[0]}, validation_every {validation_every}->"
+                  f"{rounded[1]} to --steps_per_call={k} chunk boundaries")
+            log_every, validation_every = rounded
+
+    feed_split, feed_batch_size = datasets.train, FLAGS.batch_size
+    if server.process_group:
+        # --batch_size is global: each rank feeds its share from its own
+        # strided shard of the train split.
+        if FLAGS.batch_size % world:
+            raise ValueError(f"--batch_size={FLAGS.batch_size} must divide "
+                             f"over the {world} workers of the process group")
+        feed_split = feed_split.shard(task, world)
+        feed_batch_size = FLAGS.batch_size // world
+        print(f"Worker {task}: sharded feed — this process loads "
+              f"{feed_batch_size}/{FLAGS.batch_size} examples per step")
+
+    metrics_path = FLAGS.metrics_file
+    if metrics_path and num_workers > 1:
+        # One file per process: concurrent appends would interleave.
+        metrics_path = f"{metrics_path}.task{task}"
+    metrics_logger = MetricsLogger(metrics_path,
+                                   static_fields={"worker": task})
+    telemetry = None
+    health_reporter = None
+    if metrics_path and FLAGS.telemetry:
+        from .utils import tracing as tracing_lib
+        from .utils.telemetry import SCHEMA_VERSION, Telemetry
+        n_params = sum(p.numel() for p in state.model.parameters())
+        seq_tokens = FLAGS.model == "gpt_mini"
+        tokens = FLAGS.batch_size * (FLAGS.bert_seq_len if seq_tokens else 1)
+        if seq_tokens:
+            cfg = state.model.cfg
+            flops_per_step = profiling.train_step_flops(
+                n_params, tokens, num_layers=cfg.num_layers,
+                hidden_size=cfg.hidden_size, seq_len=FLAGS.bert_seq_len,
+                window=FLAGS.attention_window)
+        else:
+            flops_per_step = profiling.train_step_flops(n_params, tokens)
+        if FLAGS.grad_accum_steps > 1:
+            flops_per_step *= FLAGS.grad_accum_steps
+        per_device = (FLAGS.peak_tflops * 1e12 if FLAGS.peak_tflops > 0
+                      else profiling.peak_flops_per_device(device))
+        peak = None if per_device is None else per_device * world
+        telemetry = Telemetry(metrics_logger, flops_per_step=flops_per_step,
+                              peak_flops_per_sec=peak)
+        telemetry.enable_flight_recorder(metrics_path + ".flight")
+        run_id = os.path.basename(os.path.normpath(FLAGS.logdir)) or "run"
+        tracing_lib.install(tracing_lib.Tracer(telemetry, run_id=run_id))
+        sv.attach_telemetry(telemetry)
+        if faults.active() is not None:
+            faults.active().attach_telemetry(telemetry)
+        if coord is not None and coord.restarts:
+            telemetry.emit("recovery", step=int(state.global_step),
+                           action="rejoin", restarts=coord.restarts)
+        telemetry.emit(
+            "run_meta", schema_version=SCHEMA_VERSION, model=FLAGS.model,
+            n_params=n_params, batch_size=FLAGS.batch_size,
+            tokens_per_step=tokens, flops_per_step=flops_per_step,
+            peak_flops_per_sec=peak,
+            device_kind=(torch.cuda.get_device_name(device)
+                         if device.type == "cuda" else "cpu"),
+            n_devices=world, process_index=task if server.process_group else 0,
+            process_count=world, steps_per_call=FLAGS.steps_per_call,
+            grad_accum_steps=FLAGS.grad_accum_steps,
+            backend=server.backend)
+        if coord is not None:
+            from .cluster.coordination import (ClusterHealthReporter,
+                                               CoordinationError)
+            coord.attach_telemetry(telemetry)
+            try:
+                offset_s, rtt_s = coord.clock_offset()
+                telemetry.emit(
+                    "clock_sync", step=0,
+                    offset_ms=round(offset_s * 1000.0, 3),
+                    rtt_ms=round(rtt_s * 1000.0, 3),
+                    t_unix=round(time.time(), 6), source="coord_time")
+            except CoordinationError:
+                pass  # no alignment beats no run
+            if FLAGS.health_report_every > 0:
+                health_reporter = ClusterHealthReporter(
+                    coord, telemetry, num_tasks=num_workers,
+                    interval=FLAGS.health_report_every)
+                health_reporter.set_step_fn(
+                    lambda: max(coord._progress_step, 0))
+                health_reporter.start()
+    stat_publish_fn = None
+    if telemetry is not None and coord is not None:
+        from .cluster.coordination import CoordinationError as _CoordErr
+
+        def stat_publish_fn(payload, _coord=coord):
+            try:
+                _coord.stat_put(payload)
+            except (_CoordErr, ValueError):
+                pass
+
+    summary_writer = (SummaryWriter(FLAGS.summary_dir)
+                      if FLAGS.summary_dir and chief else None)
+    summary_ctx = summary_writer or contextlib.nullcontext()
+    profile_ctx = contextlib.nullcontext()
+    if FLAGS.profile_dir:
+        profile_dir = (os.path.join(FLAGS.profile_dir, f"task{task}")
+                       if num_workers > 1 else FLAGS.profile_dir)
+        profile_ctx = profiling.trace(profile_dir, device)
+    shutdown_ctx = (ShutdownSignal() if FLAGS.graceful_shutdown
+                    else contextlib.nullcontext())
+    if device.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(device)
+    try:
+        with profile_ctx, metrics_logger, summary_ctx, \
+                shutdown_ctx as shutdown:
+            if shutdown is not None and telemetry is not None:
+                shutdown.add_callback(lambda: telemetry.dump_flight(
+                    reason=f"signal:{shutdown.signal_name}"))
+            state, result = run_training_loop(
+                state=state, train_step=train_step, datasets=datasets,
+                batch_size=FLAGS.batch_size, train_steps=FLAGS.train_steps,
+                eval_fn=eval_fn, device=device, task_index=task,
+                feed_split=feed_split, feed_batch_size=feed_batch_size,
+                validation_every=validation_every, log_every=log_every,
+                supervisor=sv, replica_mask_fn=replica_mask_fn,
+                metrics_logger=metrics_logger, telemetry=telemetry,
+                summary_writer=summary_writer,
+                summary_histograms=FLAGS.summary_histograms,
+                lr_fn=schedule_from_flags(FLAGS),
+                steps_per_call=FLAGS.steps_per_call,
+                accum_steps=FLAGS.grad_accum_steps,
+                prefetch=FLAGS.prefetch, shutdown=shutdown,
+                stat_publish_fn=stat_publish_fn)
+    except BaseException as e:
+        if telemetry is not None:
+            telemetry.dump_flight(reason=f"fatal:{type(e).__name__}")
+        raise
+    finally:
+        if health_reporter is not None:
+            health_reporter.close()
+        if telemetry is not None:
+            from .utils import tracing as _tracing
+            _tracing.clear()
+    if all_reduce is not None and all_reduce.calls:
+        ms = all_reduce.seconds * 1e3 / all_reduce.calls
+        print(f"Worker {task}: all-reduce {ms:.4f} ms a call over "
+              f"{server.backend}, {all_reduce.calls} calls after the first "
+              f"({all_reduce.first_seconds * 1e3:.1f} ms), "
+              f"{all_reduce.seconds / max(result.train_time, 1e-9):.4f} of "
+              "the training time")
+    if device.type == "cuda":
+        print(f"Worker {task}: peak device memory "
+              f"{torch.cuda.max_memory_allocated(device) / 2 ** 30:.3f} GiB")
+    print(f"Worker {task}: kernel launches {json.dumps(_kernel_launches())}")
+    print(f"Worker {task}: parameter digest {_parameter_digest(state.model)}")
+    sv.close()
+    server.shutdown()
+    return result
 
 
 if __name__ == "__main__":

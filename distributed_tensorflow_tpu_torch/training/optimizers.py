@@ -24,6 +24,7 @@ import dataclasses
 import math
 from typing import Callable, Iterable
 
+import numpy as np
 import torch
 
 OPTIMIZERS = ("sgd", "momentum", "nesterov", "adam", "adamw", "lamb",
@@ -52,6 +53,16 @@ def _join(first: Schedule, second: Schedule, boundary: int) -> Schedule:
         second(step - boundary)
 
 
+def constant_schedule(learning_rate: float) -> Schedule:
+    """A fixed rate.  Tagged ``constant``: optax keeps no state for a
+    float rate where a schedule keeps a step count, and the checkpoint
+    layout (:meth:`Optimizer.optax_state`) follows which it is."""
+    def rate(step: int) -> float:
+        return learning_rate
+    rate.constant = True
+    return rate
+
+
 def make_schedule(name: str, learning_rate: float, *,
                   warmup_steps: int = 0, decay_steps: int = 0,
                   end_lr_factor: float = 0.0) -> Schedule:
@@ -75,7 +86,7 @@ def make_schedule(name: str, learning_rate: float, *,
     ramp = _linear(0.0, learning_rate, warmup_steps)
 
     if name == "constant":
-        return ramp if warmup_steps else (lambda step: learning_rate)
+        return ramp if warmup_steps else constant_schedule(learning_rate)
     if name == "cosine":
         # optax warmup_cosine_decay_schedule: cosine from the peak to
         # end_value over decay_steps - warmup_steps, after the ramp.
@@ -159,6 +170,92 @@ class Optimizer:
         self.base.step()
         self.count += 1
 
+    # -- optax's checkpoint layout ----------------------------------------
+
+    def optax_state(self, names: dict, to_tree: Callable[[dict], dict]):
+        """The slots in the layout optax gives the JAX package's
+        ``make_optimizer(...)`` state, so each package restores the other's
+        checkpoints: ``names`` maps each parameter to its ``state_dict``
+        name, ``to_tree`` turns a ``{name: tensor}`` dict into the model's
+        flax tree.  ``sgd`` is ``[identity, lr]``, ``momentum`` /
+        ``nesterov`` ``[{trace}, lr]``, ``adam`` ``[{count, mu, nu}, lr]``,
+        ``adamw`` ``[{count, mu, nu}, decay, lr]``, where ``lr`` is None
+        for a fixed rate and ``{count}`` for a schedule; a clip and a
+        coupled decay chain in front as Nones (their optax states are
+        empty)."""
+        spec = self.spec
+
+        def slot(key: str) -> dict:
+            out = {}
+            for p in self.params:
+                v = self.base.state.get(p, {}).get(key)
+                out[names[p]] = torch.zeros_like(p) if v is None else v
+            return to_tree(out)
+
+        count = np.asarray(self.count, np.int32)
+        lr = (None if getattr(spec.schedule, "constant", False)
+              else {"count": count})
+        if spec.name == "sgd":
+            base = [None, lr]
+        elif spec.name in ("momentum", "nesterov"):
+            base = [{"trace": slot("momentum_buffer")}, lr]
+        else:
+            adam = {"count": count, "mu": slot("exp_avg"),
+                    "nu": slot("exp_avg_sq")}
+            base = [adam, None, lr] if spec.name == "adamw" else [adam, lr]
+        chain = _chain_prefix(spec)
+        return chain + [base] if chain else base
+
+    def load_optax_state(self, opt_state, names: dict,
+                         from_tree: Callable[[dict], dict]) -> None:
+        """Inverse of :meth:`optax_state` (a checkpoint of either package).
+        Raises ``ValueError`` when ``opt_state`` is not this optimizer's
+        layout (another ``--optimizer``, schedule, clip or decay)."""
+        spec = self.spec
+        try:
+            chain = _chain_prefix(spec)
+            if chain:
+                if len(opt_state) != len(chain) + 1 or any(
+                        x is not None for x in opt_state[:-1]):
+                    raise ValueError("chain")
+                opt_state = opt_state[-1]
+            want = 3 if spec.name == "adamw" else 2
+            if len(opt_state) != want:
+                raise ValueError("length")
+            lr = opt_state[-1]
+            if (lr is None) != getattr(spec.schedule, "constant", False):
+                raise ValueError("schedule")
+            state = opt_state[0]
+            if spec.name == "sgd":
+                if state is not None:
+                    raise ValueError("sgd")
+                slots = {}
+            elif spec.name in ("momentum", "nesterov"):
+                slots = {"momentum_buffer": from_tree(state["trace"])}
+            else:
+                slots = {"exp_avg": from_tree(state["mu"]),
+                         "exp_avg_sq": from_tree(state["nu"])}
+                adam_count = int(state["count"])
+        except (KeyError, TypeError, ValueError) as e:
+            raise ValueError(f"checkpoint opt_state is not the layout of "
+                             f"optimizer {spec.name!r} ({e})") from None
+        for key, tree in slots.items():
+            missing = {names[p] for p in self.params} - set(tree)
+            if missing:
+                raise ValueError(f"checkpoint opt_state lacks {sorted(missing)}")
+        for p in self.params:
+            st = {}
+            for key, tree in slots.items():
+                st[key] = tree[names[p]].to(p.device, p.dtype).clone()
+            if "exp_avg" in slots:
+                st["step"] = torch.tensor(float(adam_count),
+                                          dtype=torch.float32)
+            self.base.state[p] = st
+        if lr is not None:
+            self.count = int(lr["count"])
+        elif "exp_avg" in slots:
+            self.count = adam_count
+
 
 @dataclasses.dataclass(frozen=True)
 class OptimizerSpec:
@@ -186,7 +283,62 @@ def make_optimizer(name: str, learning_rate, *, momentum: float = 0.9,
             f"optimizer {name!r} is not ported yet (its optax constants "
             "differ from torch.optim's); see ROADMAP.md, PyTorch port")
     schedule = (learning_rate if callable(learning_rate)
-                else (lambda step, lr=float(learning_rate): lr))
+                else constant_schedule(float(learning_rate)))
     return OptimizerSpec(name=name, schedule=schedule, momentum=momentum,
                          weight_decay=weight_decay,
                          grad_clip_norm=grad_clip_norm)
+
+
+def _chain_prefix(spec: OptimizerSpec) -> list:
+    """The optax states chained in front of the base rule (the JAX
+    ``make_optimizer``'s clip and coupled decay; both are empty)."""
+    chain = []
+    if spec.grad_clip_norm > 0.0:
+        chain.append(None)
+    if spec.weight_decay > 0.0 and spec.name != "adamw":
+        chain.append(None)
+    return chain
+
+
+def _flag_schedule(FLAGS) -> Schedule:
+    """The schedule the ``--optimizer`` override uses (the JAX package's
+    one resolution of the flag surface)."""
+    decay_steps = getattr(FLAGS, "decay_steps", 0) or FLAGS.train_steps
+    return make_schedule(getattr(FLAGS, "lr_schedule", "constant"),
+                         FLAGS.learning_rate,
+                         warmup_steps=getattr(FLAGS, "warmup_steps", 0),
+                         decay_steps=decay_steps,
+                         end_lr_factor=getattr(FLAGS, "end_lr_factor", 0.0))
+
+
+def schedule_from_flags(FLAGS) -> Schedule | None:
+    """The ``--optimizer`` override's learning-rate schedule, or None when
+    no override is active (each model's own optimizer then sets its
+    rate).  The loop logs it beside the loss."""
+    if not (getattr(FLAGS, "optimizer", "") or ""):
+        return None
+    return _flag_schedule(FLAGS)
+
+
+def from_flags(FLAGS, *, default=None) -> OptimizerSpec | None:
+    """Optimizer from the CLI surface; ``default`` (None: the model's own)
+    when ``--optimizer`` is empty.  Any explicit name takes full control:
+    the schedule horizon defaults to ``--train_steps``."""
+    name = getattr(FLAGS, "optimizer", "") or ""
+    if not name:
+        ignored = [flag for flag, active in (
+            ("grad_clip_norm", getattr(FLAGS, "grad_clip_norm", 0.0) > 0),
+            ("weight_decay", getattr(FLAGS, "weight_decay", 0.0) > 0),
+            ("warmup_steps", getattr(FLAGS, "warmup_steps", 0) > 0),
+            ("lr_schedule",
+             getattr(FLAGS, "lr_schedule", "constant") != "constant"),
+        ) if active]
+        if ignored:
+            print("WARNING: " + ", ".join(f"--{f}" for f in ignored)
+                  + " ignored without --optimizer (the model's own optimizer "
+                  "is in effect); set --optimizer to apply them")
+        return default
+    return make_optimizer(name, _flag_schedule(FLAGS),
+                          momentum=getattr(FLAGS, "momentum", 0.9),
+                          weight_decay=getattr(FLAGS, "weight_decay", 0.0),
+                          grad_clip_norm=getattr(FLAGS, "grad_clip_norm", 0.0))

@@ -1211,3 +1211,43 @@ def test_quantized_matmul_dgelu_kernel_matches_plain_on_card(
         peak = b.float().abs().max().item()
         err = (a.float() - b.float()).abs().max().item()
         assert err <= K45_TOL[dtype](peak), (err, peak)
+
+
+@pytest.mark.cuda
+def test_trainer_cli_runs_gpt_mini_through_the_kernels_on_card(
+        cuda_device, tmp_path, monkeypatch):
+    """``train.py --model=gpt_mini --attention_backend=pallas
+    --fused_layer_norm`` on the card, in this process (no coordination
+    service, no process group): two train steps and the final test eval
+    (4 batches) launch K1/K2a/K2b once a layer a step, K1 once a layer an
+    eval forward, K3 twice a layer and once at the end a forward; then
+    ``--mode=eval`` restores the checkpoint to the same test accuracy."""
+    from distributed_tensorflow_tpu_torch import train as ttrain
+    from distributed_tensorflow_tpu_torch.cluster.server import Server
+    from distributed_tensorflow_tpu_torch.models import gpt
+
+    orig = Server.__init__
+
+    def standalone(self, cluster, job_name, task_index, **kw):
+        kw["coord_service"] = False
+        kw["initialize_distributed"] = False
+        orig(self, cluster, job_name, task_index, **kw)
+    monkeypatch.setattr(Server, "__init__", standalone)
+    flags = ["--job_name=worker", "--task_index=0", "--model=gpt_mini",
+             "--attention_backend=pallas", "--fused_layer_norm",
+             "--bert_seq_len=128", "--batch_size=4", "--train_steps=3",
+             "--validation_every=0", "--sync_replicas=true",
+             f"--logdir={tmp_path}", "--device=cuda"]
+    before = {"fwd": tfa.launches, "dq": tfa.dq_launches,
+              "dkv": tfa.dkv_launches, "ln": ln.launches}
+    result = ttrain.app.run(ttrain.main, flags)
+    L = gpt.mini().num_layers
+    steps, forwards = 2, 2 + 4
+    assert result.final_global_step == 3
+    assert tfa.launches - before["fwd"] == L * forwards
+    assert tfa.dq_launches - before["dq"] == L * steps
+    assert tfa.dkv_launches - before["dkv"] == L * steps
+    assert ln.launches - before["ln"] == (2 * L + 1) * forwards
+    evaluated = ttrain.app.run(ttrain.main, ["--mode=eval", *flags])
+    assert evaluated["global_step"] == 3
+    assert evaluated["test_accuracy"] == result.test_accuracy

@@ -36,10 +36,16 @@ def test_every_port_module_imports_without_jax():
         "import importlib, sys\n"
         f"for name in {_port_modules()!r}:\n"
         "    importlib.import_module(name)\n"
+        "from distributed_tensorflow_tpu_torch.cluster import coordination\n"
+        "coordination._load_library()\n"
         "bad = sorted(m for m in sys.modules if m == 'jax'\n"
         "             or m.startswith(('jax.', 'jaxlib', 'flax', 'optax',\n"
         "                              'orbax', 'tensorstore', 'zstandard'))\n"
         "             or m.split('.')[0] == 'distributed_tensorflow_tpu')\n"
+        "# No shared object of the JAX package's tree is mapped.\n"
+        "bad += sorted({line.split()[-1] for line in open('/proc/self/maps')\n"
+        "               if '/distributed_tensorflow_tpu/' in line\n"
+        "               or '/src/coordination/' in line})\n"
         "print('BAD', bad)\n"
         "sys.exit(1 if bad else 0)\n")
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
@@ -51,7 +57,27 @@ def test_every_port_module_imports_without_jax():
     assert {f"{port.__name__}.{name}" for name in (
         "parallel.mesh", "parallel.ring", "models.drafting",
         "tools.checkpoint_io", "tools.export_model", "tools.serve",
-        "serving.hot_swap", "config", "train")} <= set(_port_modules())
+        "serving.hot_swap", "config", "train",
+        # The reference trainer, sync mode.
+        "cluster.spec", "cluster.server", "cluster.coordination",
+        "utils.faults", "utils.native", "utils.summary", "utils.profiling",
+        "models.mlp", "models.image_input", "data.datasets",
+        "data.prefetch", "parallel.sync", "training.preemption",
+        "training.supervisor", "training.loop")} <= set(_port_modules())
+
+
+def test_the_native_coordination_library_is_built_from_the_port():
+    """The port compiles its own copy of the coordination service's source
+    into its own tree; it never names the JAX package's source or
+    library (``src/`` is a link into the JAX package)."""
+    from distributed_tensorflow_tpu_torch.cluster import coordination
+    root = os.path.dirname(port.__file__)
+    assert coordination._SRC == os.path.join(root, "csrc", "coordination",
+                                             "coord.cc")
+    assert os.path.isfile(coordination._SRC)
+    assert coordination._BUILD == os.path.join(root, "_build")
+    with open(os.path.join(REPO, ".gitignore")) as f:
+        assert "*.so" in f.read().split()
 
 
 def test_no_port_file_or_chip_smoke_names_jax_in_an_import():

@@ -176,8 +176,11 @@ def test_no_checkpoint_warns_and_decodes_a_seeded_init(tmp_path, capsys):
 @pytest.mark.parametrize("flags,error,match", [
     (["--gen_prompt_text=hi"], NotImplementedError, "ROADMAP.*item 7"),
     (["--gen_stop_text=."], NotImplementedError, "ROADMAP.*item 7"),
-    (["--mode=train"], NotImplementedError, "ROADMAP.*slice 7"),
-    (["--mode=eval"], NotImplementedError, "ROADMAP.*slice 7"),
+    # The trainer's paths of slice 7b (async replicas, elastic membership).
+    (["--mode=train", "--job_name=worker", "--task_index=0"],
+     NotImplementedError, "ROADMAP.*slice 7"),
+    (["--mode=eval", "--job_name=worker", "--task_index=0",
+      "--elastic_mode=off"], NotImplementedError, "ROADMAP.*slice 7"),
     (["--model=mnist_mlp"], ValueError, "gpt_mini"),
     (["--gen_beams=2", "--gen_speculative=4"], ValueError, "exclusive"),
     (["--gen_beams=2", "--gen_temperature=0.5"], ValueError, "exclusive"),
