@@ -147,6 +147,35 @@ Phases, one JSON line each on stdout:
     this process.  The K1/K2a/K2b/K3 rows' ``trainer`` paths hold the
     kernels at this run's shapes (the ``kernels`` phase's ``trainer``
     cases) with its launches.
+13. ``async_trainer``: the trainer in async mode (``--sync_replicas=
+    false``, one replica a worker, the workers averaging through the
+    coordination service), processes on the one card.
+    ``async_reference``: the reference job with ``--async_sync_period=4``,
+    steps paced and worker 1 started once worker 0 has published (as
+    ``tests/test_multiprocess.py:240`` does); gates: both exit 0 with a
+    test accuracy within ``TRAINER["accuracy_tol"]`` of the JAX CLI's with
+    the same flags on a CPU, ``averaged parameters with 1 peer(s)`` and
+    ``(kv publish`` printed, worker 1 adopting the published parameters.
+    ``async_overlap``: the same job with ``--async_compress=int8
+    --async_overlap_exchange=true``; gates: the compressed exchange on,
+    overlapped averages applied in the background, no foreground average,
+    the accuracy gate; it prints the wire bytes of a round beside the
+    full state's.  Both print step ms (paced), the exchange's ms a period
+    and its share of the training time, and publish MB/s.
+    ``async_gpt``: gpt_mini at ``mini()``'s width through the kernels, two
+    workers and no PS, a merge every 10 local steps; gates: each worker's
+    K1, K2a, K2b and K3 launches exactly as its local steps and eval
+    forwards predict, a falling loss, an average with the peer.  It prints
+    the exchange ms a period and peak memory, and the async step's ms,
+    tokens/s and busy share in this process.  ``async_exchange``: two
+    ``ParamAverager``s on one in-process coordination service exchange a
+    GPT-406M-width bf16 tree through the logdir side-channel (gate: the
+    consensus adopted onto the card is bit-equal to the fp32 mean cast to
+    bf16 on the card), then two int8 ``CompressedShardedAverager``s (gates:
+    a round's wire bytes at least 4x below the full state's, the consensus
+    within the codec's error bound of the exact mean); it prints each leg's
+    ms and GB/s.  The K1/K2a/K2b/K3 rows carry ``async_trainer_launches``
+    (both workers of ``async_gpt``).
 
 With ``--nccl`` the script runs ``env`` and the reference job alone,
 with one worker on each visible card (the backend rule of
@@ -2941,6 +2970,511 @@ def trainer_nccl(smi: str) -> None:
         shutil.rmtree(tmp, ignore_errors=True)
 
 
+# The async_trainer phase.  The reference job's flags plus a merge every 4
+# local steps, the steps paced (as tests/test_multiprocess.py paces its
+# async workers) so that the two workers' windows overlap: 100 ms where
+# worker 1 starts after worker 0 has published (a worker takes ~10 s to
+# start on the card), 60 ms where both start together; the JAX CLI with
+# the same flags on a CPU (a PS and two workers, one device each) reaches
+# a test accuracy of 1 on both workers, the tolerance is the sync job's.
+# gpt_mini: the trainer phase's width, S=512, B=32, 40 global steps of one
+# replica (39 local steps), a merge every 10, paced as well.
+ASYNC = dict(period=4, pace_s=0.1, overlap_pace_s=0.06, gpt_period=10,
+             gpt_steps=40,
+             gpt_pace_s=0.15, jax_cpu_test_accuracy=1.0,
+             # Full-state bytes over the int8 round's: the JAX package's
+             # acceptance bar (tests/test_param_exchange.py:177).
+             min_wire_ratio=4.0, drift_share=0.1, drift_scale=0.01)
+
+
+def exchange_records(path: str) -> list:
+    """The ``param_exchange`` telemetry records of a trainer's metrics
+    file (one an exchange period; the overlapped exchange writes its own
+    from its thread)."""
+    out = []
+    for line in open(path):
+        try:
+            r = json.loads(line)
+        except ValueError:
+            continue
+        if r.get("kind") == "param_exchange":
+            out.append(r)
+    return out
+
+
+def exchange_numbers(lines, metrics: str, task: int, train_s: float) -> dict:
+    """A worker's exchange: ms a period (the averager's own clock; in the
+    overlapped mode the background thread's), its share of the training
+    time, the bytes on the wire a period beside the full state's, and the
+    publish rate the trainer prints."""
+    recs = exchange_records(metrics)
+    if not recs:
+        raise AssertionError(f"worker {task}: no param_exchange records")
+    ms = [r["dur_ms"] for r in recs]
+    rates = [float(x.split("publish, ")[1].split(" MB/s")[0])
+             for x in lines if "publish, " in x and " MB/s)" in x]
+    wire = [r["bytes_on_wire"] for r in recs if r["peers"]]
+    full = [r["full_state_bytes"] for r in recs if r["peers"]]
+    return dict(exchanges=len(recs), exchange_ms_mean=statistics.mean(ms),
+                exchange_ms_median=statistics.median(ms),
+                exchange_share_of_train=sum(ms) / 1e3 / train_s,
+                publish_mb_per_s=statistics.mean(rates) if rates else None,
+                wire_bytes_per_round=statistics.mean(wire) if wire else None,
+                full_state_bytes_per_round=(statistics.mean(full)
+                                            if full else None),
+                compressed=any(r["compressed"] for r in recs))
+
+
+def async_job(device: str, tmp: str, smi: str, label: str, *extra,
+              pace_s: float, stagger: bool = True) -> dict:
+    """The reference job in async mode: a PS and two workers on
+    ``device``, each step paced by ``pace_s``; with ``stagger``, worker 1
+    starts once worker 0 has published (its first exchange runs at local
+    step 4, before the step-5 line)."""
+    ps_port = free_port()
+    ports = [free_port(), free_port()]
+    T, A = TRAINER, ASYNC
+    logdir = os.path.join(tmp, label)
+    common = [f"--ps_hosts=localhost:{ps_port}",
+              "--worker_hosts=" + ",".join(f"localhost:{p}" for p in ports),
+              f"--data_dir={os.path.join(tmp, 'no-mnist')}",
+              f"--train_steps={T['steps']}", f"--batch_size={T['batch']}",
+              f"--hidden_units={T['hidden']}",
+              f"--learning_rate={T['lr']}", "--sync_replicas=false",
+              f"--async_sync_period={A['period']}",
+              f"--inject_step_delay={pace_s}:0:1000000000",
+              "--log_every=1", f"--logdir={logdir}", f"--device={device}",
+              f"--metrics_file={os.path.join(tmp, label + '.jsonl')}",
+              *extra]
+
+    def worker(t):
+        return CliProcess("train", "--job_name=worker", f"--task_index={t}",
+                          *common)
+
+    t0 = time.perf_counter()
+    with contextlib.ExitStack() as stack:
+        ps = stack.enter_context(CliProcess(
+            "train", "--job_name=ps", "--task_index=0", *common))
+        w0 = stack.enter_context(worker(0))
+        if stagger:
+            w0.wait_for("Worker 0: traing step 5 ", 300)
+        w1 = stack.enter_context(worker(1))
+        outs = {1: finish(w1, 300), 0: finish(w0, 300)}
+        ps_alive = ps.proc.poll() is None
+    wall_s = time.perf_counter() - t0
+    if not ps_alive:
+        raise AssertionError("the PS exited before it was stopped: "
+                             + "".join(ps.seen[-20:]))
+    nums = []
+    for t in (0, 1):
+        metrics = os.path.join(tmp, f"{label}.jsonl.task{t}")
+        try:
+            n = trainer_numbers(outs[t], metrics, t)
+            n.update(exchange_numbers(outs[t], metrics, t, n["train_s"]))
+        except (ValueError, KeyError, AssertionError) as e:
+            kinds = [json.loads(x).get("kind") for x in open(metrics)]
+            raise AssertionError(
+                f"{label} worker {t}: {e!r}; records "
+                f"{ {k: kinds.count(k) for k in set(kinds)} }: "
+                + "".join(outs[t][-40:])) from e
+        acc = n["test_accuracy"]
+        if abs(acc - A["jax_cpu_test_accuracy"]) > T["accuracy_tol"]:
+            raise AssertionError(
+                f"{label} worker {t}: test accuracy {acc}, the JAX CLI's "
+                f"{A['jax_cpu_test_accuracy']} (tol {T['accuracy_tol']})")
+        n["step_ms_unpaced"] = n["step_ms_median"] - pace_s * 1e3
+        nums.append(n)
+    text = {t: "".join(outs[t]) for t in (0, 1)}
+    return dict(wall_s=wall_s, text=text, workers=nums)
+
+
+def async_mlp_busy(dev, tmp: str) -> dict:
+    """The busy share of the reference job's async local step (the
+    trainer's MNIST bundle, one replica) in this process: one step
+    profiled after three (the CLI's profiler takes ~17 s to start, longer
+    than a paced run)."""
+    import types
+    from distributed_tensorflow_tpu_torch.models import registry
+    from distributed_tensorflow_tpu_torch.parallel.async_replicas import (
+        build_async_train_step)
+    from distributed_tensorflow_tpu_torch.training.loop import to_device
+    T = TRAINER
+    flags = types.SimpleNamespace(hidden_units=T["hidden"],
+                                  learning_rate=T["lr"], seed=0,
+                                  optimizer="")
+    bundle = registry.build("mnist_mlp", flags, dev)
+    step, astate = build_async_train_step(
+        bundle.loss_fn, bundle.state, num_replicas=1,
+        sync_period=ASYNC["period"])
+    data = bundle.load_datasets(os.path.join(tmp, "no-mnist")).train
+    for _ in range(3):
+        astate, metrics = step(astate, to_device(data.next_batch(T["batch"]),
+                                                 dev))
+    float(metrics["loss"])
+    return profile_train_step(step, astate, to_device(
+        data.next_batch(T["batch"]), dev))
+
+
+def async_reference(dev, tmp: str, smi: str) -> None:
+    """``async_reference``: averaging through the KV, a late joiner's
+    adoption, the accuracy gate."""
+    out = async_job(str(dev), tmp, smi, "async_ref",
+                    pace_s=ASYNC["pace_s"])
+    both = out["text"][0] + out["text"][1]
+    for needle in ("averaged parameters with 1 peer(s)", "(kv publish"):
+        if needle not in both:
+            raise AssertionError(f"async_reference: no {needle!r}: "
+                                 + both[-3000:])
+    if "adopted published collective parameters" not in out["text"][1]:
+        raise AssertionError("async_reference: worker 1 did not adopt the "
+                             "published parameters: "
+                             + out["text"][1][-3000:])
+    busy = async_mlp_busy(dev, tmp)
+    emit("async_reference", card=smi, wall_s=out["wall_s"],
+         pace_ms=ASYNC["pace_s"] * 1e3, period=ASYNC["period"],
+         busy_share=busy["busy_share"], busy_window_ms=busy["window_ms"],
+         jax_cpu_test_accuracy=ASYNC["jax_cpu_test_accuracy"],
+         accuracy_tol=TRAINER["accuracy_tol"],
+         averaged_lines=[both.count("averaged parameters with 1 peer(s)")],
+         workers=out["workers"])
+
+
+def async_overlap(dev, tmp: str, smi: str) -> None:
+    """``async_overlap``: the compressed (int8) exchange overlapped with
+    training, both workers started together (tests/test_multiprocess.py:
+    282)."""
+    out = async_job(str(dev), tmp, smi, "async_ovl",
+                    "--async_compress=int8", "--async_overlap_exchange=true",
+                    pace_s=ASYNC["overlap_pace_s"], stagger=False)
+    both = out["text"][0] + out["text"][1]
+    for needle in ("compressed parameter exchange on",
+                   "applied overlapped average with 1 peer(s)",
+                   "in background"):
+        if needle not in both:
+            raise AssertionError(f"async_overlap: no {needle!r}: "
+                                 + both[-3000:])
+    if "averaged parameters with" in both:
+        raise AssertionError("async_overlap: a foreground average ran")
+    wire = [w["wire_bytes_per_round"] for w in out["workers"]]
+    full = [w["full_state_bytes_per_round"] for w in out["workers"]]
+    emit("async_overlap", card=smi, wall_s=out["wall_s"],
+         pace_ms=ASYNC["overlap_pace_s"] * 1e3, wire_bytes_per_round=wire,
+         full_state_bytes_per_round=full,
+         applied_lines=both.count("applied overlapped average"),
+         workers=out["workers"])
+
+
+def async_gpt_busy(dev) -> dict:
+    """The async local step of the trainer's gpt_mini bundle (one replica,
+    as the trainer builds it) in this process, not in the CLI: its ms a
+    step over 10 (no exchange, no telemetry, no pace) and one step
+    profiled, for the busy share (the CLI's profiler takes ~17 s to
+    start)."""
+    import types
+    import torch
+    from distributed_tensorflow_tpu_torch.models import registry
+    from distributed_tensorflow_tpu_torch.parallel.async_replicas import (
+        build_async_train_step)
+    from distributed_tensorflow_tpu_torch.training.loop import to_device
+    T, A = TRAINER, ASYNC
+    flags = types.SimpleNamespace(
+        learning_rate=0.01, seed=0, bert_seq_len=T["gpt_seq"],
+        attention_backend="pallas", fused_layer_norm=True,
+        bert_dtype="bfloat16", optimizer="")
+    bundle = registry.build("gpt_mini", flags, dev)
+    step, astate = build_async_train_step(
+        bundle.loss_fn, bundle.state, num_replicas=1,
+        sync_period=A["gpt_period"])
+    data = bundle.load_datasets(None).train
+    batches = [to_device(data.next_batch(T["gpt_batch"]), dev)
+               for _ in range(13)]
+    for b in batches[:3]:
+        astate, metrics = step(astate, b)
+    float(metrics["loss"])
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for b in batches[3:]:
+        astate, metrics = step(astate, b)
+    float(metrics["loss"])
+    step_ms = (time.perf_counter() - t0) * 1e3 / 10
+    out = profile_train_step(step, astate, batches[0])
+    del bundle, astate
+    return dict(in_process_step_ms=step_ms,
+                in_process_tokens_per_s=(T["gpt_batch"] * T["gpt_seq"]
+                                         / step_ms * 1e3),
+                **out)
+
+
+def async_gpt(dev, tmp: str, smi: str) -> dict:
+    """``async_gpt``: gpt_mini async through the kernels, two workers on
+    the card and no PS (the chief hosts the coordination service).
+    Returns the two workers' summed launches."""
+    import torch
+    from distributed_tensorflow_tpu_torch.models import gpt
+    T, A = TRAINER, ASYNC
+    ports = [free_port(), free_port()]
+    logdir = os.path.join(tmp, "async_gpt")
+    common = ["--model=gpt_mini", "--attention_backend=pallas",
+              "--fused_layer_norm", f"--bert_seq_len={T['gpt_seq']}",
+              f"--batch_size={T['gpt_batch']}", f"--logdir={logdir}",
+              f"--device={dev}", "--ps_hosts=",
+              "--worker_hosts=" + ",".join(f"localhost:{p}" for p in ports),
+              "--sync_replicas=false",
+              f"--async_sync_period={A['gpt_period']}",
+              f"--train_steps={A['gpt_steps']}", "--log_every=1",
+              f"--inject_step_delay={A['gpt_pace_s']}:0:1000000000"]
+    t0 = time.perf_counter()
+    with contextlib.ExitStack() as stack:
+        procs = {t: stack.enter_context(CliProcess(
+            "train", "--job_name=worker", f"--task_index={t}", *common,
+            f"--metrics_file={os.path.join(tmp, 'async_gpt.jsonl')}"))
+            for t in (1, 0)}
+        outs = {t: finish(procs[t], 400) for t in (0, 1)}
+    wall_s = time.perf_counter() - t0
+    L = gpt.mini().num_layers
+    local = A["gpt_steps"] - 1
+    # A local step: K1, K2a, K2b once a layer, K3 twice a layer and once
+    # at the end; an eval forward (the validation at step 0 and the final
+    # test, 4 batches each) K1 and K3 as a step's forward.
+    forwards = local + 2 * 4
+    want = {"flash_attention_fwd": L * forwards,
+            "flash_attention_bwd_dq": L * local,
+            "flash_attention_bwd_dkv": L * local,
+            "layer_norm_fwd": (2 * L + 1) * forwards,
+            "quant_matmul": 0, "quant_matmul_nt": 0}
+    workers, total = [], {}
+    for t in (0, 1):
+        lines = outs[t]
+        launches = json.loads(line_value(lines,
+                                         f"Worker {t}: kernel launches"))
+        if launches != want:
+            raise AssertionError(f"async_gpt worker {t}: launches "
+                                 f"{launches}, expected {want}")
+        losses = [float(x.split(" loss ")[1].split()[0]) for x in lines
+                  if x.startswith(f"Worker {t}: traing step")]
+        if len(losses) != local or not (
+                all(map(math.isfinite, losses))
+                and statistics.mean(losses[-5:]) < losses[0]):
+            raise AssertionError(f"async_gpt worker {t}: losses {losses}")
+        metrics = os.path.join(tmp, f"async_gpt.jsonl.task{t}")
+        # The CLI worker's own telemetry step (data wait + compute, the
+        # card synchronised each step), less the pace.
+        nums = trainer_numbers(lines, metrics, t)
+        step_ms = nums["step_ms_median"] - A["gpt_pace_s"] * 1e3
+        ex = exchange_numbers(lines, metrics, t, nums["train_s"])
+        workers.append(dict(
+            test_accuracy=nums["test_accuracy"],
+            step_ms=step_ms,
+            tokens_per_s=T["gpt_batch"] * T["gpt_seq"] / step_ms * 1e3,
+            loss_first=losses[0], loss_last5_mean=statistics.mean(losses[-5:]),
+            peak_mem_gib=float(line_value(
+                lines, f"Worker {t}: peak device memory").split()[0]),
+            averaged_lines=sum("averaged parameters with 1 peer(s)" in x
+                               for x in lines),
+            train_s=nums["train_s"], launches=launches, **ex))
+        for k, v in launches.items():
+            total[k] = total.get(k, 0) + v
+    if not any(w["averaged_lines"] for w in workers):
+        raise AssertionError("async_gpt: no 'averaged parameters with 1 "
+                             "peer(s)' line: " + "".join(outs[0][-20:]))
+    busy = async_gpt_busy(dev)
+    torch.cuda.empty_cache()
+    emit("async_gpt", card=smi, wall_s=wall_s, batch=T["gpt_batch"],
+         seq_len=T["gpt_seq"], local_steps=local, period=A["gpt_period"],
+         pace_ms=A["gpt_pace_s"] * 1e3, launches_expected=want,
+         step_ms=[w["step_ms"] for w in workers],
+         tokens_per_s=[w["tokens_per_s"] for w in workers],
+         busy_share_in_process=busy["busy_share"], workers=workers)
+    emit("async_gpt_profile", card=smi, **busy)
+    return total
+
+
+def async_exchange(dev, tmp: str, smi: str) -> None:
+    """``async_exchange``: the exchange at transformer scale, in this
+    process, through the trainer's own functions.  A GPT-406M-width bf16
+    model (seeded weights) as one async replica, and a drifted copy of its
+    parameters (a tenth of the coordinates moved, as SGD moves them): the
+    consensus tree off the card (``host_tree``), two ``ParamAverager``s
+    over the logdir side-channel (publish, fetch, average), the consensus
+    back onto the card (``adopt_consensus``); then two int8
+    ``CompressedShardedAverager``s to their first assembled round."""
+    import numpy as np
+    import torch
+    from distributed_tensorflow_tpu_torch.cluster import param_sync as ps
+    from distributed_tensorflow_tpu_torch.cluster.coordination import (
+        CoordinationClient, CoordinationServer)
+    from distributed_tensorflow_tpu_torch.models import gpt
+    from distributed_tensorflow_tpu_torch.parallel.async_replicas import (
+        adopt_consensus, host_tree, make_async_state)
+    from distributed_tensorflow_tpu_torch.training.optimizers import (
+        make_optimizer)
+    from distributed_tensorflow_tpu_torch.training.state import TrainState
+    from distributed_tensorflow_tpu_torch.utils.pytree import tree_leaves
+    A = ASYNC
+    torch.manual_seed(SEED)
+    model = gpt.GptLM(gpt.GptConfig(**WIDTH), device=dev)
+    astate = make_async_state(TrainState.create(
+        model, make_optimizer("sgd", 0.0), params_to_tree=gpt.params_to_jax,
+        params_from_tree=gpt.params_from_jax), 1)
+    del model
+    mine = {n: t[0].clone() for n, t in astate.params.items()}
+    g = torch.Generator(device=dev).manual_seed(SEED + 1)
+    drifted = {}
+    for n, p in mine.items():
+        move = torch.rand(p.shape, generator=g, device=dev) < A["drift_share"]
+        step = torch.randn(p.shape, generator=g, device=dev) * A["drift_scale"]
+        drifted[n] = (p.float() + step * move).to(p.dtype)
+    nbytes = sum(t.numel() * t.element_size() for t in mine.values())
+    host_tree(astate)          # allocates the state's pinned buffers
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    tree_a = host_tree(astate)
+    d2h_s = time.perf_counter() - t0
+    tree_b = host_tree(astate, drifted)
+    srv = CoordinationServer(port=0, num_tasks=2, heartbeat_timeout=60.0)
+    srv.start()
+    clients = [CoordinationClient("127.0.0.1", srv.port, task_id=t)
+               for t in (0, 1)]
+    xdir = os.path.join(tmp, "async_exchange")
+    try:
+        avg = [ps.ParamAverager(clients[t], t, 2, namespace="plain",
+                                exchange_dir=xdir) for t in (0, 1)]
+        legs = {"publish": 0.0, "fetch": 0.0}
+
+        def timed(name, fn):
+            def call(*args, **kw):
+                t0 = time.perf_counter()
+                try:
+                    return fn(*args, **kw)
+                finally:
+                    legs[name] += time.perf_counter() - t0
+            return call
+        # Worker 1's exchange as the trainer calls it, its legs timed:
+        # publish, fetch of worker 0's file, and the rest (fingerprints,
+        # the bf16 mean).
+        avg[0].exchange(tree_a)
+        if avg[0].last_publish_transport != "binary":
+            raise AssertionError("the 406M-width tree did not take the "
+                                 "binary side-channel")
+        avg[1]._publish = timed("publish", avg[1]._publish)
+        avg[1]._fetch_peer = timed("fetch", avg[1]._fetch_peer)
+        t0 = time.perf_counter()
+        consensus, peers = avg[1].exchange(tree_b)
+        exchange_s = time.perf_counter() - t0
+        if peers != 1:
+            raise AssertionError(f"plain exchange saw {peers} peers")
+        publish_s, fetch_s = legs["publish"], legs["fetch"]
+        average_s = exchange_s - publish_s - fetch_s
+        plain_wire = avg[1].last_bytes_out + avg[1].last_bytes_in
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        adopt_consensus(astate, consensus)
+        torch.cuda.synchronize()
+        h2d_s = time.perf_counter() - t0
+        for n, t in astate.params.items():
+            want = ((mine[n].float() + drifted[n].float()) / 2).to(t.dtype)
+            if not torch.equal(t[0].view(torch.int16),
+                               want.view(torch.int16)):
+                raise AssertionError(f"{n}: the adopted consensus is not "
+                                     "the fp32 mean cast to bf16 on the card")
+
+        # The int8 compressed exchange of the same two trees, to the first
+        # assembled round (worker 1's: worker 0 anchors, both publish
+        # deltas, each freezes its shard, worker 1 assembles).
+        comp = [ps.CompressedShardedAverager(
+            clients[t], t, 2, namespace="int8", exchange_dir=xdir,
+            quant="int8") for t in (0, 1)]
+        params = [tree_a, tree_b]
+        rounds = []
+        t0 = time.perf_counter()
+        for _ in range(4):
+            for t in (0, 1):
+                r0 = time.perf_counter()
+                params[t], _ = comp[t].exchange(params[t])
+                rounds.append(dict(
+                    task=t, ms=(time.perf_counter() - r0) * 1e3,
+                    bytes_on_wire=comp[t].last_bytes_out
+                    + comp[t].last_bytes_in,
+                    rounds_completed=comp[t].rounds_completed,
+                    fallbacks=comp[t].fallback_exchanges))
+                if comp[t].rounds_completed:
+                    break
+            if any(c.rounds_completed for c in comp):
+                break
+        int8_s = time.perf_counter() - t0
+        done = [c for c in comp if c.rounds_completed]
+        if not done:
+            raise AssertionError(f"int8 exchange assembled no round: {rounds}")
+        # A round after the bootstrap's anchor (full precision by design):
+        # the delta publish, the frozen reduce and the assembly.
+        wire = max(r["bytes_on_wire"] for r in rounds
+                   if r["rounds_completed"] >= 1)
+        full = 2 * nbytes               # a full-state publish and fetch
+        ratio = full / wire
+        if ratio < A["min_wire_ratio"]:
+            raise AssertionError(f"int8 round moved {wire} bytes, full "
+                                 f"state {full}: ratio {ratio:.2f}")
+        # The codec's bound: an int8 quantization errs by at most half a
+        # step (its block's absmax / 127 / 2), and the consensus is
+        # quantized twice (the delta, then the reduced shard): it lies
+        # within one step of the largest delta of the exact mean.
+        fa, fb = ps._flatten_f32(tree_a), ps._flatten_f32(tree_b)
+        exact = (fa.astype(np.float64) + fb) / 2
+        c = done[0]._consensus
+        bound_abs = float(np.abs(fb - fa).max()) / 127 + 1e-6
+        err = float(np.abs(c - exact).max())
+        if err > bound_abs:
+            raise AssertionError(f"int8 consensus off the exact mean by "
+                                 f"{err}, bound {bound_abs}")
+        plain_err = float(np.abs(ps._flatten_f32(consensus) - exact).max())
+        leaves = len(tree_leaves(tree_a))
+    finally:
+        for c in clients:
+            c.close()
+        srv.stop()
+    del astate, mine, drifted
+    torch.cuda.empty_cache()
+
+    def gbs(seconds):
+        return nbytes / seconds / 1e9
+    emit("async_exchange", card=smi, tree_bytes=nbytes, leaves=leaves,
+         d2h_ms=d2h_s * 1e3, d2h_gb_per_s=gbs(d2h_s),
+         publish_ms=publish_s * 1e3, publish_gb_per_s=gbs(publish_s),
+         fetch_ms=fetch_s * 1e3, fetch_gb_per_s=gbs(fetch_s),
+         average_and_rest_ms=average_s * 1e3,
+         average_and_rest_gb_per_s=gbs(average_s),
+         exchange_ms=exchange_s * 1e3,
+         h2d_adopt_ms=h2d_s * 1e3, h2d_adopt_gb_per_s=gbs(h2d_s),
+         plain_wire_bytes=plain_wire, plain_err_vs_exact=plain_err,
+         int8_wall_ms=int8_s * 1e3, int8_rounds=rounds,
+         int8_wire_bytes_per_round=wire, full_state_bytes_per_round=full,
+         int8_wire_ratio=ratio, int8_err_vs_exact=err,
+         int8_err_bound=bound_abs)
+
+
+def async_trainer(dev, smi: str) -> dict:
+    """Phase ``async_trainer``.  Returns the gpt_mini workers' summed
+    kernel launches."""
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_async_")
+    seconds = {}
+
+    def timed(name, fn):
+        t0 = time.perf_counter()
+        out = fn(dev, tmp, smi)
+        seconds[name] = time.perf_counter() - t0
+        return out
+    try:
+        timed("async_reference", async_reference)
+        timed("async_overlap", async_overlap)
+        launches = timed("async_gpt", async_gpt)
+        timed("async_exchange", async_exchange)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    emit("async_trainer", card=smi, seconds=sum(seconds.values()),
+         seconds_by_part=seconds)
+    return launches
+
+
 def main() -> int:
     import torch
     args = sys.argv[1:]
@@ -2969,7 +3503,7 @@ def main() -> int:
             "count": torch.cuda.device_count()}}), flush=True)
         return 0
 
-    t0 = time.perf_counter()
+    t_start = t0 = time.perf_counter()
     lib = kernels.load()
     emit("build", seconds=time.perf_counter() - t0,
          sources=[os.path.basename(s) for s in kernels.sources()],
@@ -2994,10 +3528,15 @@ def main() -> int:
     by_path["train_ring"] = train_ring(dev, smi, bf16_step)
     torch.cuda.empty_cache()
     by_path["trainer"] = trainer(dev, smi)
+    by_path["async_trainer"] = async_trainer(dev, smi)
     for row in rows:
         row["launches"] = by_path[row["main"]][row["name"]]
+        if row["name"] in by_path["async_trainer"]:
+            row["async_trainer_launches"] = \
+                by_path["async_trainer"][row["name"]]
         for path, sub in row["paths"].items():
             sub["launches"] = by_path[path][row["name"]]
+    emit("done", seconds=time.perf_counter() - t_start)
     print(smi, flush=True)
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -72,22 +72,35 @@ def choose_backend(device: torch.device, num_workers: int) -> tuple[str, str]:
 
 class Server:
     """One per process.  Forms the process group and exposes the
-    control-plane handle the supervisor layer uses.  (The JAX server's
-    sharded coordination plane and warm standbys, ``coord_instances`` and
-    ``coord_standbys``, come with slice 7b.)"""
+    control-plane handle the supervisor layer uses.
+
+    ``coord_instances > 1`` hosts the sharded coordination plane, as the
+    JAX server does: instance ``i`` on the coordination port + ``i``
+    carrying shard identity ``(i, N)``, instance 0 the control shard, and
+    the workers talk to it through a
+    :class:`.coordination.CoordinationRouter`.  ``coord_standbys`` wires
+    warm-standby endpoint lists (a plain ``h:p,...`` list for the control
+    shard, or ``0:h:p;1:h:p`` a KV shard), walked on a dead or demoted
+    primary (:func:`.coordination.parse_standby_map`)."""
 
     def __init__(self, cluster: ClusterSpec, job_name: str, task_index: int,
                  *, device: torch.device | None = None,
                  initialize_distributed: bool | None = None,
                  coord_service: bool = True,
                  heartbeat_timeout: float = 10.0,
-                 kv_persist_path: str | None = None):
+                 kv_persist_path: str | None = None,
+                 coord_instances: int = 1,
+                 coord_standbys: str | None = None):
         self.cluster = cluster
         self.job_name = job_name
         self.task_index = task_index
         self.is_chief = is_chief(task_index) and job_name == "worker"
         self._coord_server = None
+        self._coord_extra_servers: list = []
         self._coord_client = None
+        if coord_instances < 1:
+            raise ValueError(
+                f"coord_instances must be >= 1, got {coord_instances}")
         self.backend: str | None = None
         self.backend_reason = ""
         self.process_group = False
@@ -119,15 +132,32 @@ class Server:
             if job_name == "ps" or (job_name == "worker" and self.is_chief
                                     and not cluster.job_tasks("ps")):
                 # The process at the coordination address hosts the service
-                # — the PS role's surviving responsibility.
-                self._coord_server = coordination.CoordinationServer(
-                    port=int(port), num_tasks=max(num_workers, 1),
-                    heartbeat_timeout=heartbeat_timeout,
-                    persist_path=kv_persist_path)
-                self._coord_server.start()
+                # — the PS role's surviving responsibility — and, with
+                # coord_instances > 1, the whole sharded plane.
+                for i in range(coord_instances):
+                    srv = coordination.CoordinationServer(
+                        port=int(port) + i, num_tasks=max(num_workers, 1),
+                        heartbeat_timeout=heartbeat_timeout,
+                        persist_path=(f"{kv_persist_path}.shard{i}"
+                                      if kv_persist_path and i else
+                                      kv_persist_path),
+                        shard=i, nshards=coord_instances)
+                    srv.start()
+                    if i == 0:
+                        self._coord_server = srv
+                    else:
+                        self._coord_extra_servers.append(srv)
             if job_name == "worker":
-                self._coord_client = coordination.CoordinationClient(
-                    host, int(port), task_id=task_index)
+                standby_map = coordination.parse_standby_map(coord_standbys)
+                if coord_instances > 1:
+                    spec = ",".join(f"{host}:{int(port) + i}"
+                                    for i in range(coord_instances))
+                    self._coord_client = coordination.CoordinationRouter(
+                        spec, task_id=task_index, standbys=standby_map)
+                else:
+                    self._coord_client = coordination.CoordinationClient(
+                        host, int(port), task_id=task_index,
+                        standbys=standby_map.get(0))
 
     @property
     def coordination_client(self):
@@ -160,6 +190,9 @@ class Server:
             import torch.distributed as dist
             dist.destroy_process_group()
             self.process_group = False
+        for srv in self._coord_extra_servers:
+            srv.stop()
+        self._coord_extra_servers = []
         if self._coord_server is not None:
             self._coord_server.stop()
             self._coord_server = None

@@ -32,9 +32,11 @@ A model whose attention is sharded over a single-process mesh
 replicated weights are one set of tensors, and autograd sums every
 shard's contribution into their gradients.
 
-The stateful steps (BatchNorm models) wait for those models;
-``slice_topology`` and ``build_intra_slice_reduce`` wait for the async
-half (ROADMAP.md, section 1).
+The stateful steps (BatchNorm models) wait for those models.  The async
+half's helpers live here too, as in JAX: the hierarchical exchange's
+topology map (:func:`slice_topology` and its exporter election) and the
+intra-slice reduction (:func:`build_intra_slice_reduce`), used by
+:mod:`..cluster.param_sync`.
 """
 
 from __future__ import annotations
@@ -376,3 +378,108 @@ def _ema_update(decay: float, state: TrainState) -> None:
     for name, p in state.model.named_parameters():
         e = state.ema_params[name]
         e.mul_(decay).add_(p.detach().to(e.dtype), alpha=1.0 - decay)
+
+
+def slice_topology(active, slice_size: int) -> list[tuple[int, ...]]:
+    """Group the active task ids into slices of ``slice_size`` — the
+    topology map of the hierarchical exchange (docs/param_exchange.md,
+    "Hierarchical exchange").
+
+    Tasks are sorted and grouped contiguously (pod slices are assigned
+    contiguous task ranges by every launcher in this repo's lineage), the
+    last slice absorbing the remainder of an uneven split.  The map is a
+    pure function of ``(active, slice_size)``: every worker derives the
+    identical grouping from the membership epoch's active set, with no
+    negotiation — an evicted task simply vanishes from its slice at the
+    next epoch and the map re-keys (the PR-5 evicted-owner rule one level
+    up).
+    """
+    if slice_size < 1:
+        raise ValueError(f"slice_size must be >= 1, got {slice_size}")
+    tasks = sorted(active)
+    if not tasks:
+        return []
+    slices = [tuple(tasks[lo:lo + slice_size])
+              for lo in range(0, len(tasks), slice_size)]
+    if (len(slices) > 1 and len(slices[-1]) < max(1, slice_size // 2)
+            and len(slices[-2]) + len(slices[-1]) <= 32):
+        # Runt slice: fold a too-small tail into its neighbor rather than
+        # electing an exporter for one or two stragglers — but never past
+        # 32 members, the u32 contributor-mask width the exchange levels
+        # are built on (a 33-member fold would turn a valid config or an
+        # elastic shrink into a per-exchange crash downstream).
+        tail = slices.pop()
+        slices[-1] = slices[-1] + tail
+    return slices
+
+
+def slice_exporters(slices) -> tuple[int, ...]:
+    """Exporter election: the lowest task id of each slice — the one
+    member that quantizes the slice-reduced delta and speaks to the other
+    slices' exporters over DCN.  Pure function of the topology map, so
+    (like shard ownership) every worker agrees without negotiation; the
+    global chief (lowest active task) is always slice 0's exporter."""
+    return tuple(min(s) for s in slices)
+
+
+def slice_of_task(slices, task: int) -> int | None:
+    """Index of the slice containing ``task`` (None when not a member)."""
+    for g, members in enumerate(slices):
+        if task in members:
+            return g
+    return None
+
+
+def auto_slice_size(num_workers: int, dcn_slices: int = 1) -> int:
+    """Slice size derived from the mesh topology: with ``dcn_slices`` ICI
+    domains (the ``--dcn_data_parallel`` factor), workers split evenly
+    into that many slices; otherwise 1 (every worker its own slice — the
+    flat protocol's degenerate case)."""
+    if dcn_slices > 1 and num_workers % dcn_slices == 0:
+        return max(num_workers // dcn_slices, 1)
+    return 1
+
+
+def build_intra_slice_reduce(device: torch.device | str | None = None):
+    """The intra-slice reduction: the mean of the local replicas' delta
+    vectors, the ICI leg of the hierarchical exchange when a slice's
+    members are local replicas (no KV traffic, no quantization).
+
+    In JAX this is a jitted ``psum`` over the mesh's ``data`` axis.  Here
+    the local replicas' deltas sit on one device (:mod:`.async_replicas`
+    stacks them there), so it is one reduction on that device.  Returns
+    ``reduce(stacked) -> mean``: ``stacked`` is ``[k, n]`` (one flat
+    float32 delta a replica; a numpy array or a tensor), the result the
+    float32 ``[n]`` mean as a host numpy array."""
+
+    def reduce(stacked) -> np.ndarray:
+        t = torch.as_tensor(stacked, dtype=torch.float32)
+        if device is not None:
+            t = t.to(device)
+        return t.mean(dim=0).cpu().numpy()
+
+    return reduce
+
+
+def contiguous_shard_bounds(n: int, k: int) -> list[tuple[int, int]]:
+    """Partition ``n`` elements into ``k`` contiguous shards, sizes within 1.
+
+    The cross-replica update-sharding rule (Xu et al., arXiv:2004.13336):
+    instead of every replica reducing the full parameter vector, replica
+    ``i`` owns shard ``i`` of the flat buffer and reduces only that —
+    turning an N-way full mirror into a reduce-scatter.  The first
+    ``n % k`` shards carry the extra element, so the map is a pure
+    function of ``(n, k)``: every worker derives identical bounds from
+    the membership epoch's active count, with no negotiation.
+    ``cluster/param_sync.py`` keys its compressed exchange on this.
+    """
+    if k < 1:
+        raise ValueError(f"shard count must be >= 1, got {k}")
+    base, extra = divmod(n, k)
+    bounds = []
+    lo = 0
+    for i in range(k):
+        hi = lo + base + (1 if i < extra else 0)
+        bounds.append((lo, hi))
+        lo = hi
+    return bounds

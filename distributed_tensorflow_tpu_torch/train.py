@@ -14,7 +14,12 @@ A ``--job_name=ps`` process hosts the coordination service and blocks
 workers form a ``torch.distributed`` process group (rank = task index; the
 backend rule is :mod:`.cluster.server`'s and each worker prints it) and
 average their gradients with one all-reduce a step
-(:mod:`.parallel.sync`); the chief initializes or restores the state and
+(:mod:`.parallel.sync`).  Async workers (``--sync_replicas=false``, the
+reference's default mode) join no group: each trains its own replica
+(:mod:`.parallel.async_replicas`) and every ``--async_sync_period`` local
+steps averages its parameters with its peers' through the coordination
+service (:mod:`.cluster.param_sync`: full-state, compressed, hierarchical,
+or overlapped with training).  The chief initializes or restores the state and
 signals the others through the coordination service
 (:mod:`.training.supervisor`), and :mod:`.training.loop` prints the
 reference's lines (``Initailizing session...``, ``traing step``,
@@ -31,10 +36,8 @@ runs the flash-attention (K1, K2a/K2b) and LayerNorm (K3) kernels.
 Every flag of the JAX ``train.py`` is declared, so a JAX command line
 parses; the port adds ``--device`` (default ``cuda``, which raises without
 a card) in place of ``--platform``.  Not ported yet (each raises
-``NotImplementedError`` naming ROADMAP.md's entry): ``--sync_replicas=false``
-(async replicas) and the elastic, straggler-lag, coordinator-HA and
-selective fine-tuning flags (slice 7b); the parallelism flags (item 6);
-the other models, the BPE tokenizer, ``--gen_prompt_text`` and
+``NotImplementedError`` naming ROADMAP.md's entry): the parallelism flags
+(item 6); the other models, the BPE tokenizer, ``--gen_prompt_text`` and
 ``--gen_stop_text`` (item 7); ``--profile`` run profiles (item 8).
 """
 
@@ -244,6 +247,48 @@ flags.DEFINE_string("summary_dir", None,
 flags.DEFINE_boolean("summary_histograms", False,
                      "Also write per-parameter weight histograms at the "
                      "validation cadence (requires --summary_dir)")
+flags.DEFINE_string("async_mode", "local_sgd",
+                    "Async flavour with --sync_replicas=false: local_sgd "
+                    "(periodic parameter averaging)")
+flags.DEFINE_integer("async_sync_period", 16,
+                     "Local steps between parameter averages in async mode")
+flags.DEFINE_boolean("async_overlap_exchange", False,
+                     "Run the async parameter exchange in a background "
+                     "thread; its consensus lands one period late as a "
+                     "delta against its snapshot")
+flags.DEFINE_string("async_compress", "off",
+                    "Compressed sharded parameter exchange: int8 | bf16 "
+                    "deltas with error feedback, or off (full state)")
+flags.DEFINE_integer("async_anchor_every", 8,
+                     "Full-state anchor cadence (consensus rounds) of the "
+                     "compressed exchange")
+flags.DEFINE_integer("async_quant_block", 1024,
+                     "Elements per scale block of the int8 exchange format")
+flags.DEFINE_integer("slice_size", 0,
+                     "Hierarchical compressed exchange: workers per slice "
+                     "(0 = auto from the topology, 1 = flat)")
+flags.DEFINE_string("coord_standbys", "",
+                    "Coordinator HA: warm-standby endpoints, 'h:p,...' for "
+                    "the control shard or '0:h:p;1:h:p' an instance")
+flags.DEFINE_integer("coord_instances", 1,
+                     "Sharded coordination plane: coordinator instances "
+                     "(instance i on the coordinator port + i)")
+flags.DEFINE_string("trainable_params", "",
+                    "Selective fine-tuning: regex over flax parameter paths "
+                    "(hid/kernel); only matching parameters train, the "
+                    "rest are frozen with no optimizer slots")
+flags.DEFINE_string("elastic_mode", "auto",
+                    "Elastic membership: auto | off | in_place (masked sync "
+                    "flips its mask; an evicted worker rejoins and "
+                    "restores) | reshard (checkpoint at a negotiated stop "
+                    "step and exit for relaunch)")
+flags.DEFINE_integer("elastic_reshard_margin", 20,
+                     "reshard mode: steps between the chief's announcement "
+                     "and the collective stop-and-checkpoint")
+flags.DEFINE_integer("straggler_lag", 0,
+                     "R<N masked sync: drop a live worker whose heartbeat "
+                     "step falls more than this many steps behind the "
+                     "front-runner (0 drops only on heartbeat death)")
 flags.DEFINE_string("profile_dir", None,
                     "Profile the training loop with torch.profiler into "
                     "this directory (trace.json and summary.json with the "
@@ -253,19 +298,6 @@ flags.DEFINE_string("profile_dir", None,
 # lines parse; a value other than the default raises NotImplementedError
 # naming ROADMAP.md's entry.
 _UNPORTED_FLAGS = (
-    ("string", "async_mode", "local_sgd", "slice 7b"),
-    ("integer", "async_sync_period", 16, "slice 7b"),
-    ("boolean", "async_overlap_exchange", False, "slice 7b"),
-    ("string", "async_compress", "off", "slice 7b"),
-    ("integer", "async_anchor_every", 8, "slice 7b"),
-    ("integer", "async_quant_block", 1024, "slice 7b"),
-    ("integer", "slice_size", 0, "slice 7b"),
-    ("string", "elastic_mode", "auto", "slice 7b"),
-    ("integer", "elastic_reshard_margin", 20, "slice 7b"),
-    ("integer", "straggler_lag", 0, "slice 7b"),
-    ("string", "trainable_params", "", "slice 7b"),
-    ("string", "coord_standbys", "", "slice 7b"),
-    ("integer", "coord_instances", 1, "slice 7b"),
     ("integer", "tensor_parallel", 1, "item 6"),
     ("integer", "sequence_parallel", 1, "item 6"),
     ("integer", "pipeline_microbatches", 4, "item 6"),
@@ -512,6 +544,179 @@ def _step_delay(spec: str, step_fn):
     return step
 
 
+def _elastic_controller(coord, sv, elastic_ctx: dict, num_workers: int,
+                        chief: bool, *, masked_single: bool,
+                        multi_process_sync: bool):
+    """Resolve ``--elastic_mode`` and build its controller (None when
+    off).  ``auto`` is ``in_place`` on a masked (R<N) sync worker outside
+    a process group (the mask flips), ``reshard`` for the sync workers of
+    a process group (a fixed world size: save and relaunch), else off."""
+    mode = FLAGS.elastic_mode
+    if mode not in ("auto", "off", "in_place", "reshard"):
+        raise ValueError(f"--elastic_mode must be auto, off, in_place or "
+                         f"reshard, got {mode!r}")
+    if mode == "auto":
+        if masked_single and coord is not None:
+            mode = "in_place"
+        elif multi_process_sync and coord is not None:
+            mode = "reshard"
+        else:
+            mode = "off"
+    if mode == "off":
+        return None
+    if coord is None:
+        raise ValueError(
+            f"--elastic_mode={FLAGS.elastic_mode} needs a coordination "
+            "service (standalone runs have no membership to watch)")
+    from .cluster.coordination import MembershipWatcher
+    from .training.elastic import ElasticController
+    watcher = MembershipWatcher(coord, num_workers, interval=1.0)
+    watcher.start()
+    elastic_ctx["watcher"] = watcher
+    controller = ElasticController(
+        watcher=watcher, client=coord, task_index=FLAGS.task_index,
+        num_workers=num_workers, supervisor=sv, mode=mode, is_chief=chief,
+        reshard_margin_steps=FLAGS.elastic_reshard_margin)
+    print(f"Worker {FLAGS.task_index}: elastic membership active "
+          f"(mode={mode})")
+    return controller
+
+
+def _async_exchange(state, train_step, coord, num_workers: int):
+    """The cross-process exchange of async mode (the reference PS's role,
+    SURVEY N2/N4): choose the averager from ``--async_compress`` and
+    ``--slice_size``, adopt the collective's published parameters, and
+    wrap ``train_step`` to exchange every period, in the foreground or
+    (``--async_overlap_exchange``) in a background thread.  Returns
+    ``(train_step, averager, finalize)``; ``finalize(state)`` drains an
+    overlapped exchange at the end (None otherwise)."""
+    from .cluster.coordination import CoordinationError
+    from .cluster.param_sync import (CompressedShardedAverager,
+                                     HierarchicalCompressedAverager,
+                                     OverlappedAverager, ParamAverager,
+                                     run_namespace)
+    from .parallel.async_replicas import (adopt_consensus,
+                                          adopt_consensus_delta, host_tree)
+    from .parallel.sync import auto_slice_size
+
+    task = FLAGS.task_index
+    # The binary side-channel lives next to the checkpoints (the same
+    # shared-FS assumption), so transformer-scale trees exchange at disk
+    # bandwidth instead of base64 through one socket.
+    kwargs = dict(namespace=run_namespace(FLAGS.logdir),
+                  exchange_dir=os.path.join(FLAGS.logdir, "async_exchange"))
+    if FLAGS.async_compress not in ("off", "int8", "bf16"):
+        raise ValueError(f"--async_compress must be off, int8 or bf16, "
+                         f"got {FLAGS.async_compress!r}")
+    if FLAGS.async_compress != "off":
+        # Shard ownership is keyed on the membership epoch, so every worker
+        # derives the same owner map.  --dcn_data_parallel is not ported,
+        # so the auto slice size sees one DCN slice.
+        slice_size = (FLAGS.slice_size if FLAGS.slice_size > 0
+                      else auto_slice_size(num_workers, 1))
+        common = dict(quant=FLAGS.async_compress,
+                      block=FLAGS.async_quant_block,
+                      anchor_every=FLAGS.async_anchor_every,
+                      epoch_fn=coord.members, **kwargs)
+        if slice_size > 1:
+            averager = HierarchicalCompressedAverager(
+                coord, task, num_workers, slice_size=slice_size, **common)
+            print(f"Worker {task}: hierarchical compressed exchange on "
+                  f"(slice_size={slice_size}, delta+{FLAGS.async_compress} "
+                  f"inter-slice shard reduce, anchor every "
+                  f"{FLAGS.async_anchor_every} rounds)")
+        else:
+            averager = CompressedShardedAverager(coord, task, num_workers,
+                                                 **common)
+            print(f"Worker {task}: compressed parameter exchange on "
+                  f"(delta+{FLAGS.async_compress} sharded reduce, anchor "
+                  f"every {FLAGS.async_anchor_every} rounds)")
+    else:
+        averager = ParamAverager(coord, task, num_workers, **kwargs)
+    coord.start_health_polling(interval=1.0, num_tasks=num_workers)
+
+    # Restart-and-rejoin: adopt the collective's published state instead
+    # of starting from scratch (the PS-durability behaviour).
+    try:
+        latest = averager.pull_latest(host_tree(state))
+    except (CoordinationError, OSError):
+        latest = None
+    if latest is not None:
+        adopt_consensus(state, latest)
+        print(f"Worker {task}: adopted published collective parameters "
+              "from the coordination service")
+
+    base_step = train_step
+    # A scanned async step covers a full sync period a call.
+    period = (1 if FLAGS.steps_per_call > 1
+              else max(FLAGS.async_sync_period, 1))
+    calls = {"n": 0}
+    finalize = None
+
+    if FLAGS.async_overlap_exchange:
+        overlapped = OverlappedAverager(averager,
+                                        alive_fn=coord.cached_health)
+
+        def apply_ready(s, result):
+            avg, snap, peers = result
+            if peers:
+                adopt_consensus_delta(s, avg, snap)
+                secs = overlapped.last_exchange_seconds
+                print(f"Worker {task}: applied overlapped average with "
+                      f"{peers} peer(s) at local step {calls['n']} "
+                      f"(exchange ran {secs:.1f}s in background, "
+                      f"{averager.last_publish_transport} publish)")
+            return s
+
+        def exchange(s):
+            result = overlapped.poll()
+            if result is not None:
+                s = apply_ready(s, result)
+            if not overlapped.busy:
+                # Snapshot only when the thread can take it: the device-
+                # to-host copy is itself the stall being hidden.  The
+                # thread touches host arrays only, never a device tensor.
+                overlapped.submit(host_tree(s))
+            return s
+
+        def finalize(s):
+            """End of training: collect the in-flight exchange so the
+            final parameters carry the last consensus pull, then stop the
+            thread."""
+            result = overlapped.drain(timeout=60.0)
+            if result is not None:
+                s = apply_ready(s, result)
+            overlapped.close()
+            return s
+    else:
+        def exchange(s):
+            try:
+                avg, peers = averager.exchange(host_tree(s),
+                                               alive=coord.cached_health())
+            except (CoordinationError, OSError):
+                # Async workers must not depend on peers: skip this
+                # exchange and keep stepping.
+                print(f"Worker {task}: parameter exchange failed "
+                      "(coordination unreachable); continuing")
+                return s
+            if peers:
+                adopt_consensus(s, avg)
+                print(f"Worker {task}: averaged parameters with {peers} "
+                      f"peer(s) at local step {calls['n']} "
+                      f"({averager.last_publish_transport} publish, "
+                      f"{averager.last_publish_mb_per_sec:.0f} MB/s)")
+            return s
+
+    def train_step(s, batch, _base=base_step):
+        s, m = _base(s, batch)
+        calls["n"] += 1
+        if calls["n"] % period == 0:
+            s = exchange(s)
+        return s, m
+
+    return train_step, averager, finalize
+
+
 def main(unused_argv):
     from .cluster.server import Server, worker_device
     from .cluster.spec import ClusterSpec, is_chief
@@ -552,11 +757,9 @@ def main(unused_argv):
     if FLAGS.gpt_tokenizer not in ("byte", "bpe"):
         raise ValueError(f"--gpt_tokenizer must be byte or bpe, got "
                          f"{FLAGS.gpt_tokenizer!r}")
-    if (FLAGS.mode == "train" and FLAGS.job_name == "worker"
-            and not FLAGS.sync_replicas):
-        raise _not_ported("--sync_replicas=false (async replicas: "
-                          "parallel/async_replicas.py, cluster/param_sync.py)",
-                          "slice 7b")
+    if FLAGS.async_mode != "local_sgd":
+        raise ValueError(f"--async_mode must be local_sgd, got "
+                         f"{FLAGS.async_mode!r}")
     # One declarative layout; only the data axis is ported.
     pcfg = ParallelConfig.from_flags(FLAGS)
 
@@ -564,12 +767,18 @@ def main(unused_argv):
     num_workers = cluster.num_workers
     device = (worker_device(FLAGS.device, FLAGS.task_index)
               if FLAGS.job_name == "worker" else None)
+    # Async workers meet only at the coordination service, never in a
+    # collective (reference distributed.py:102,145): a process group would
+    # tie their independent cadences together.
     server = Server(cluster, FLAGS.job_name, FLAGS.task_index, device=device,
-                    initialize_distributed=(None if FLAGS.mode == "train"
-                                            else False),
+                    initialize_distributed=(
+                        None if FLAGS.mode == "train" and FLAGS.sync_replicas
+                        else False),
                     heartbeat_timeout=FLAGS.heartbeat_timeout,
                     kv_persist_path=os.path.join(
-                        FLAGS.logdir, "coordination_kv.journal"))
+                        FLAGS.logdir, "coordination_kv.journal"),
+                    coord_instances=FLAGS.coord_instances,
+                    coord_standbys=FLAGS.coord_standbys or None)
     if FLAGS.job_name == "ps":
         server.join()
         return
@@ -586,6 +795,18 @@ def main(unused_argv):
 
     bundle = registry.build(FLAGS.model, FLAGS, device)
     state = bundle.state
+    if FLAGS.trainable_params:
+        # Selective fine-tuning: only matching parameters train, and the
+        # optimizer is re-initialized so frozen ones carry no slots.
+        from .training.optimizers import freeze_except
+        from .training.state import apply_freeze, checkpoint_tree
+        tx, n_train, n_total = freeze_except(
+            state.optimizer.spec, checkpoint_tree(state)["params"],
+            FLAGS.trainable_params)
+        apply_freeze(state, tx)
+        print(f"Worker {task}: --trainable_params="
+              f"{FLAGS.trainable_params!r} trains {n_train:,} of "
+              f"{n_total:,} parameters")
     if FLAGS.log_sharding:
         for name, p in state.model.named_parameters():
             print(f"Worker {task}: param {name.replace('.', '/')} "
@@ -660,9 +881,14 @@ def main(unused_argv):
     all_reduce = (sync_lib.GradientAllReduce() if server.process_group
                   else None)
     coord = server.coordination_client
+    # Late-bound elastic-membership context: the masked-sync replica mask
+    # reads the watcher from here once it exists (built after the
+    # supervisor, the mask function before it).
+    elastic_ctx: dict = {"watcher": None}
     replicas_to_aggregate = sync_lib.resolve_replicas_to_aggregate(
         FLAGS.replicas_to_aggregate, num_workers)
-    use_masked = replicas_to_aggregate < num_workers and coord is not None
+    use_masked = (FLAGS.sync_replicas
+                  and replicas_to_aggregate < num_workers and coord is not None)
     if use_masked and FLAGS.ema_decay > 0:
         raise ValueError("--ema_decay with R<N masked sync is unsupported")
     if use_masked and FLAGS.steps_per_call > 1:
@@ -680,11 +906,55 @@ def main(unused_argv):
         print(f"Worker {task}: --log_grad_norm is not available on the "
               "masked (R<N) sync path — ignoring")
     replica_mask_fn = None
-    if use_masked:
+    async_mode_active = False
+    if not FLAGS.sync_replicas:
+        if FLAGS.ema_decay > 0:
+            raise ValueError("--ema_decay requires sync mode")
+        if (FLAGS.steps_per_call > 1
+                and FLAGS.steps_per_call != FLAGS.async_sync_period):
+            raise ValueError(
+                f"--steps_per_call={FLAGS.steps_per_call} in async mode must "
+                f"equal --async_sync_period={FLAGS.async_sync_period}: each "
+                "dispatch scans one full sync period (local steps + merge)")
+        if FLAGS.grad_accum_steps > 1:
+            raise ValueError("--grad_accum_steps > 1 requires sync mode")
+        if bundle.needs_rng:
+            raise ValueError(
+                "--bert_dropout requires sync mode (async replica steps "
+                "are rng-free)")
+        if FLAGS.log_grad_norm:
+            raise ValueError(
+                "--log_grad_norm requires sync mode (async replicas step "
+                "independently; there is no single global gradient)")
+        from .parallel.async_replicas import (
+            build_async_train_step, build_scanned_async_train_step,
+            consensus_model)
+        async_mode_active = True
+        # One replica a task (the port's rule): the workers average across
+        # processes through the coordination service below.
+        if FLAGS.steps_per_call > 1:
+            train_step, state = build_scanned_async_train_step(
+                bundle.loss_fn, state, num_replicas=1,
+                sync_period=FLAGS.async_sync_period)
+        else:
+            train_step, state = build_async_train_step(
+                bundle.loss_fn, state, num_replicas=1,
+                sync_period=FLAGS.async_sync_period)
+        # Evaluate the consensus mean of the replicas.
+        base_eval = eval_fn
+
+        def eval_fn(astate, split, _base=base_eval):
+            with consensus_model(astate):
+                return _base(astate, split)
+    elif use_masked:
         # Per-task health bits (cached by a background poller: no TCP on
-        # the hot path), one replica a task.
+        # the hot path), one replica a task.  Health drops dead workers
+        # and, with --straggler_lag, slow-but-alive ones behind the
+        # front-runner; with elastic membership the mask is ANDed with the
+        # membership watcher's active set.
         import numpy as np
-        coord.start_health_polling(interval=1.0, num_tasks=num_workers)
+        coord.start_health_polling(interval=1.0, num_tasks=num_workers,
+                                   straggler_lag=FLAGS.straggler_lag)
         train_step = sync_lib.build_masked_sync_train_step(
             bundle.loss_fn, num_workers, all_reduce=all_reduce,
             rank=task if server.process_group else 0)
@@ -694,8 +964,11 @@ def main(unused_argv):
         def replica_mask_fn():
             mask_progress["n"] += 1
             coord.set_progress(mask_progress["base"] + mask_progress["n"])
-            mask = sync_lib.replica_mask_from_tasks(coord.cached_health(),
-                                                    num_workers, 1)
+            watcher = elastic_ctx.get("watcher")
+            mask = sync_lib.replica_mask_from_tasks(
+                coord.cached_health(), num_workers, 1,
+                members=(watcher.active_mask(num_workers)
+                         if watcher is not None else None))
             if last_mask[0] is None or not np.array_equal(mask, last_mask[0]):
                 print(f"Worker {task}: live replica mask "
                       f"{mask.astype(int).tolist()}")
@@ -757,6 +1030,17 @@ def main(unused_argv):
         # worker is not taken for a straggler while it resumes.
         mask_progress["base"] = int(state.global_step)
 
+    elastic_controller = _elastic_controller(
+        coord, sv, elastic_ctx, num_workers, chief,
+        masked_single=(replica_mask_fn is not None
+                       and not server.process_group),
+        multi_process_sync=server.process_group and FLAGS.sync_replicas)
+
+    finalize_async = averager = None
+    if async_mode_active and num_workers > 1 and coord is not None:
+        train_step, averager, finalize_async = _async_exchange(
+            state, train_step, coord, num_workers)
+
     if FLAGS.inject_step_delay:
         train_step = _step_delay(FLAGS.inject_step_delay, train_step)
 
@@ -817,6 +1101,14 @@ def main(unused_argv):
         run_id = os.path.basename(os.path.normpath(FLAGS.logdir)) or "run"
         tracing_lib.install(tracing_lib.Tracer(telemetry, run_id=run_id))
         sv.attach_telemetry(telemetry)
+        if averager is not None:
+            # Per-period kind="param_exchange" records (bytes on the wire,
+            # compression ratio, residual) and the exchange gauges.
+            averager.attach_telemetry(telemetry)
+        if elastic_controller is not None:
+            elastic_controller.attach_telemetry(telemetry)
+            elastic_ctx["watcher"].set_step_fn(
+                lambda: max(coord._progress_step, 0))
         if faults.active() is not None:
             faults.active().attach_telemetry(telemetry)
         if coord is not None and coord.restarts:
@@ -895,7 +1187,7 @@ def main(unused_argv):
                 steps_per_call=FLAGS.steps_per_call,
                 accum_steps=FLAGS.grad_accum_steps,
                 prefetch=FLAGS.prefetch, shutdown=shutdown,
-                stat_publish_fn=stat_publish_fn)
+                stat_publish_fn=stat_publish_fn, elastic=elastic_controller)
     except BaseException as e:
         if telemetry is not None:
             telemetry.dump_flight(reason=f"fatal:{type(e).__name__}")
@@ -903,9 +1195,16 @@ def main(unused_argv):
     finally:
         if health_reporter is not None:
             health_reporter.close()
+        if elastic_ctx["watcher"] is not None:
+            elastic_ctx["watcher"].close()
         if telemetry is not None:
             from .utils import tracing as _tracing
             _tracing.clear()
+    if finalize_async is not None:
+        # Collect the in-flight background exchange, so the saved
+        # parameters carry the last consensus pull, and save it.
+        state = finalize_async(state)
+        sv.maybe_save(state, force=True)
     if all_reduce is not None and all_reduce.calls:
         ms = all_reduce.seconds * 1e3 / all_reduce.calls
         print(f"Worker {task}: all-reduce {ms:.4f} ms a call over "
@@ -917,7 +1216,12 @@ def main(unused_argv):
         print(f"Worker {task}: peak device memory "
               f"{torch.cuda.max_memory_allocated(device) / 2 ** 30:.3f} GiB")
     print(f"Worker {task}: kernel launches {json.dumps(_kernel_launches())}")
-    print(f"Worker {task}: parameter digest {_parameter_digest(state.model)}")
+    if async_mode_active:
+        with consensus_model(state) as model:
+            digest = _parameter_digest(model)
+    else:
+        digest = _parameter_digest(state.model)
+    print(f"Worker {task}: parameter digest {digest}")
     sv.close()
     server.shutdown()
     return result

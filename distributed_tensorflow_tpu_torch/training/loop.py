@@ -145,6 +145,7 @@ def run_training_loop(
     accum_steps: int = 1,
     shutdown=None,
     stat_publish_fn: Callable[[dict], None] | None = None,
+    elastic=None,
 ) -> tuple[Any, TrainLoopResult]:
     """Run the reference's training loop shape against a train step.
 
@@ -168,7 +169,11 @@ def run_training_loop(
     compute, the step synchronised with the device each step), eval and
     checkpoint pauses, MFU and device-memory high-watermarks in the same
     JSONL stream; ``stat_publish_fn`` receives a compact summary a logged
-    step (best-effort)."""
+    step (best-effort).  ``elastic`` (a
+    :class:`..training.elastic.ElasticController`) sees every completed
+    step: it may swap in a restored state after a rejoin, or end the loop
+    for a checkpoint-reshard-resume cycle (``result.resharded``; no final
+    evaluation, the caller relaunches)."""
     if steps_per_call < 1:
         raise ValueError(f"steps_per_call must be >= 1, got {steps_per_call}")
     if accum_steps < 1:
@@ -232,7 +237,8 @@ def run_training_loop(
                 prefetcher=prefetcher, put=put, device=device,
                 result=result, rate_meter=rate_meter,
                 host_batch_fn=host_batch_fn, steps_per_call=steps_per_call,
-                shutdown=shutdown, stat_publish_fn=stat_publish_fn)
+                shutdown=shutdown, stat_publish_fn=stat_publish_fn,
+                elastic=elastic)
     finally:
         if prefetcher is not None:
             prefetcher.close()
@@ -244,6 +250,10 @@ def run_training_loop(
     if result.interrupted:
         print_fn(f"Worker {task_index}: shutdown requested; checkpointing at "
                  f"global step {result.final_global_step} and exiting")
+    elif result.resharded:
+        print_fn(f"Worker {task_index}: elastic reshard requested; "
+                 f"checkpointed at global step {result.final_global_step} "
+                 "and exiting for relaunch")
     else:
         test_accuracy = eval_fn(state, datasets.test)
         result.test_accuracy = test_accuracy
@@ -294,7 +304,7 @@ def _step_loop(*, state, train_step, datasets, batch_size, train_steps,
                replica_mask_fn, print_fn, metrics_logger, telemetry,
                summary_writer, summary_histograms, lr_fn, prefetcher, put,
                device, result, rate_meter, host_batch_fn, steps_per_call,
-               shutdown, stat_publish_fn=None):
+               shutdown, stat_publish_fn=None, elastic=None):
     local_step = 0
     metrics = None
     data_wait_acc = compute_acc = 0.0
@@ -463,6 +473,15 @@ def _step_loop(*, state, train_step, datasets, batch_size, train_steps,
         # Chaos harness hook: a no-op single check unless an injector is
         # armed (deterministic kill-at-step for the fault-recovery tests).
         faults.on_step(step)
+        # Elastic membership hook (after faults.on_step, so an
+        # evict_at_step directive is armed before it looks): may hand back
+        # a freshly restored state after a rejoin, or request a
+        # checkpoint-reshard-resume exit.
+        if elastic is not None:
+            state, reshard_stop = elastic.on_step(state, step)
+            if reshard_stop:
+                result.resharded = True
+                break
         # Shutdown wins over normal completion: under preemption the hard
         # kill can land during the (slow) final eval, so exit the
         # checkpoint-first path even if train_steps was reached this step.

@@ -13,6 +13,10 @@ decoupled decay is ``p - lr (u + wd p)``, which ``torch.optim.AdamW``'s
 ``p (1 - lr wd) - lr u`` equals.  Schedules count optimizer steps from 0,
 as optax's state does.
 
+:func:`freeze_except` (``--trainable_params``) trains only the parameters
+whose flax path matches a pattern: the frozen ones get no update and no
+slots, and the checkpoint layout is optax's ``multi_transform`` state.
+
 ``lamb``, ``adagrad``, ``rmsprop`` and ``adafactor`` raise: their optax
 constants differ from ``torch.optim``'s and need their own parity work
 (ROADMAP.md, PyTorch port).
@@ -22,6 +26,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
+import re
 from typing import Callable, Iterable
 
 import numpy as np
@@ -122,11 +127,12 @@ class Optimizer:
     :meth:`step` reads each parameter's ``.grad``, clips by global norm,
     sets the scheduled rate and applies the base rule (which adds coupled
     decay to the gradient where it applies).  Updates the parameters IN
-    PLACE, where optax returns new ones."""
+    PLACE, where optax returns new ones.  It updates every tensor of
+    ``params`` (:meth:`OptimizerSpec.init` leaves the frozen ones out)."""
 
     def __init__(self, spec: "OptimizerSpec", params):
         self.spec = spec
-        self.params = [p for p in params if p.requires_grad]
+        self.params = list(params)
         self.count = 0
         lr0 = spec.schedule(0)
         wd = spec.weight_decay
@@ -182,15 +188,23 @@ class Optimizer:
         ``adamw`` ``[{count, mu, nu}, decay, lr]``, where ``lr`` is None
         for a fixed rate and ``{count}`` for a schedule; a clip and a
         coupled decay chain in front as Nones (their optax states are
-        empty)."""
+        empty).  A frozen spec (:func:`freeze_except`) wraps that in
+        ``multi_transform``'s ``{inner_states: {freeze: {inner_state:
+        None}, train: {inner_state: ...}}}``, each slot tree None at the
+        frozen leaves (optax's ``MaskedNode``)."""
         spec = self.spec
 
         def slot(key: str) -> dict:
             out = {}
-            for p in self.params:
+            # A frozen spec's slot trees span every parameter (``names``),
+            # the frozen ones masked to None below.
+            for p in (names if spec.trainable is not None else self.params):
                 v = self.base.state.get(p, {}).get(key)
                 out[names[p]] = torch.zeros_like(p) if v is None else v
-            return to_tree(out)
+            tree = to_tree(out)
+            if spec.trainable is not None:
+                tree = _mask_tree(tree, spec.trainable)
+            return tree
 
         count = np.asarray(self.count, np.int32)
         lr = (None if getattr(spec.schedule, "constant", False)
@@ -204,15 +218,32 @@ class Optimizer:
                     "nu": slot("exp_avg_sq")}
             base = [adam, None, lr] if spec.name == "adamw" else [adam, lr]
         chain = _chain_prefix(spec)
-        return chain + [base] if chain else base
+        state = chain + [base] if chain else base
+        if spec.trainable is not None:
+            state = {"inner_states": {"freeze": {"inner_state": None},
+                                      "train": {"inner_state": state}}}
+        return state
 
     def load_optax_state(self, opt_state, names: dict,
                          from_tree: Callable[[dict], dict]) -> None:
         """Inverse of :meth:`optax_state` (a checkpoint of either package).
         Raises ``ValueError`` when ``opt_state`` is not this optimizer's
-        layout (another ``--optimizer``, schedule, clip or decay)."""
+        layout (another ``--optimizer``, schedule, clip, decay or
+        ``--trainable_params``)."""
         spec = self.spec
+        if spec.trainable is not None:
+            # The frozen leaves' Nones are dropped before the slot trees
+            # reach ``from_tree``.
+            raw_from_tree = from_tree
+
+            def from_tree(tree):
+                return raw_from_tree(_drop_none(tree))
         try:
+            if spec.trainable is not None:
+                inner = opt_state["inner_states"]
+                if inner["freeze"]["inner_state"] is not None:
+                    raise ValueError("freeze")
+                opt_state = inner["train"]["inner_state"]
             chain = _chain_prefix(spec)
             if chain:
                 if len(opt_state) != len(chain) + 1 or any(
@@ -266,9 +297,56 @@ class OptimizerSpec:
     momentum: float = 0.9
     weight_decay: float = 0.0
     grad_clip_norm: float = 0.0
+    #: Flax paths (``a/b``) of the trainable parameters when
+    #: :func:`freeze_except` froze the rest; None trains every parameter.
+    trainable: frozenset | None = None
 
     def init(self, params) -> Optimizer:
-        return Optimizer(self, params)
+        """The optimizer over the parameters of ``params`` that require a
+        gradient (a frozen one gets no update and no slots)."""
+        return Optimizer(self, [p for p in params if p.requires_grad])
+
+
+def freeze_except(tx: OptimizerSpec, params: dict, pattern: str
+                  ) -> tuple[OptimizerSpec, int, int]:
+    """Selective fine-tuning (``--trainable_params``): only parameters
+    whose flax path (``hid/kernel``, as the JAX package's ``path_str``)
+    matches ``pattern`` train.  ``params`` is the flax-named tree
+    (:func:`..training.state.checkpoint_tree`'s ``params``).  Returns
+    ``(frozen_spec, n_trainable, n_total)``; :func:`..training.state.
+    apply_freeze` turns a state's frozen parameters off and re-inits its
+    optimizer from the spec, so frozen parameters get no update and no
+    slots (optax's ``set_to_zero`` partition)."""
+    from ..utils.pytree import tree_paths
+
+    pat = re.compile(pattern)
+    paths = tree_paths(params)
+    n_total = sum(int(np.size(leaf)) for _, leaf in paths)
+    trainable = frozenset(p for p, _ in paths if pat.search(p))
+    n_train = sum(int(np.size(leaf)) for p, leaf in paths if p in trainable)
+    if n_train == 0:
+        raise ValueError(
+            f"--trainable_params pattern {pattern!r} matches no parameters; "
+            "nothing would train")
+    return dataclasses.replace(tx, trainable=trainable), n_train, n_total
+
+
+def _mask_tree(tree, trainable: frozenset, prefix: str = ""):
+    """``tree`` with every leaf whose path is not in ``trainable`` set to
+    None."""
+    if isinstance(tree, dict):
+        return {k: _mask_tree(v, trainable, f"{prefix}{k}/")
+                for k, v in tree.items()}
+    return tree if prefix[:-1] in trainable else None
+
+
+def _drop_none(tree):
+    """A slot tree without its None (masked) leaves."""
+    if isinstance(tree, dict):
+        out = {k: _drop_none(v) for k, v in tree.items() if v is not None}
+        return {k: v for k, v in out.items()
+                if not (isinstance(v, dict) and not v)}
+    return tree
 
 
 def make_optimizer(name: str, learning_rate, *, momentum: float = 0.9,

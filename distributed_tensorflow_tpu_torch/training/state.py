@@ -100,10 +100,38 @@ def _param_names(state: TrainState) -> dict:
     return {p: n for n, p in state.model.named_parameters()}
 
 
+def param_paths(names, to_tree: Callable[[dict], dict]) -> dict:
+    """``{state_dict name: flax path}`` (``a/b``, the JAX package's
+    ``path_str``) for the parameter ``names`` under a model's ``to_tree``,
+    found by converting one marker value a name."""
+    from ..utils.pytree import tree_paths
+    names = list(names)
+    marked = to_tree({n: torch.tensor(float(i)) for i, n in enumerate(names)})
+    return {names[int(np.asarray(leaf))]: path
+            for path, leaf in tree_paths(marked)}
+
+
+def apply_freeze(state: TrainState, spec: OptimizerSpec) -> TrainState:
+    """Freeze the parameters a :func:`..training.optimizers.freeze_except`
+    spec does not train (``requires_grad`` off) and re-init the optimizer
+    from the spec, so the frozen ones carry no slots (the JAX trainer
+    re-inits ``opt_state`` from the wrapped transformation)."""
+    named = dict(state.model.named_parameters())
+    paths = param_paths(named, state.params_to_tree)
+    for name, p in named.items():
+        p.requires_grad_(paths[name] in spec.trainable)
+    state.optimizer = spec.init(state.model.parameters())
+    return state
+
+
 def checkpoint_tree(state: TrainState) -> dict:
     """The tree the JAX supervisor saves for this state (``_pure_tree``):
     parameters, optimizer slots in optax's layout, the global step as an
-    int32 scalar, and the moving average when there is one."""
+    int32 scalar, and the moving average when there is one.  An async
+    state (:class:`..parallel.async_replicas.AsyncTrainState`) gives its
+    own, with per-replica stacks."""
+    if not isinstance(state, TrainState):
+        return state.checkpoint_tree()
     params = {n: p.detach() for n, p in state.model.named_parameters()}
     tree = {"params": state.params_to_tree(params),
             "opt_state": state.optimizer.optax_state(_param_names(state),
@@ -123,6 +151,8 @@ def load_checkpoint_tree(state: TrainState, tree: dict) -> TrainState:
     follows the JAX supervisor: a checkpoint without one re-seeds an
     EMA-enabled state from the restored weights, and one with it restores
     into an EMA-disabled state by dropping it."""
+    if not isinstance(state, TrainState):
+        return state.load_checkpoint_tree(tree)
     try:
         params = state.params_from_tree(tree["params"])
         with torch.no_grad():

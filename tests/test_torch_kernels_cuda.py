@@ -471,6 +471,56 @@ def test_gpt_train_step_at_the_jax_default_width_on_card(cuda_device):
 
 
 @pytest.mark.cuda
+def test_async_local_step_runs_each_replica_through_the_kernels_on_card(
+        cuda_device):
+    """One async local step of two replicas (``parallel/async_replicas``)
+    at the JAX default width with the kernels: each replica's forward and
+    backward launches K1, K2b, K2a once a layer and K3 2L + 1 times (2x in
+    all), each replica's update equals a sync step of the same model on
+    its half of the batch through the same kernels, and the merge sets
+    both copies to their mean."""
+    from distributed_tensorflow_tpu_torch.models import gpt
+    from distributed_tensorflow_tpu_torch.parallel import async_replicas
+    from distributed_tensorflow_tpu_torch.parallel.sync import (
+        _split, build_sync_train_step)
+    from distributed_tensorflow_tpu_torch.training.optimizers import (
+        make_optimizer)
+    from distributed_tensorflow_tpu_torch.training.state import TrainState
+
+    cfg = gpt.GptConfig(attention_backend="pallas", fused_ln=True)
+
+    def state():
+        torch.manual_seed(0)
+        model = gpt.GptLM(cfg, device=cuda_device, param_dtype=torch.float32)
+        return TrainState.create(model, make_optimizer("adam", 1e-3))
+
+    def loss_fn(model, tokens):
+        loss, accuracy = gpt.lm_loss(model(tokens), tokens)
+        return loss, {"accuracy": accuracy}
+
+    tokens = torch.as_tensor(gpt.synthetic_lm_batch(0, 4, 128, cfg)[
+        "tokens"], device=cuda_device).long()
+    local = async_replicas.build_async_local_step(loss_fn)
+    astate = async_replicas.make_async_state(state(), 2)
+    counts = (tfa.launches, tfa.dq_launches, tfa.dkv_launches, ln.launches)
+    astate, raw = local(astate, tokens)
+    L = cfg.num_layers
+    assert (tfa.launches - counts[0], tfa.dq_launches - counts[1],
+            tfa.dkv_launches - counts[2], ln.launches - counts[3]) == (
+                2 * L, 2 * L, 2 * L, 2 * (2 * L + 1))
+    for r in (0, 1):
+        solo = state()
+        solo, m = build_sync_train_step(loss_fn)(solo, _split(tokens, 2, r))
+        for n, p in solo.model.named_parameters():
+            torch.testing.assert_close(astate.params[n][r], p.detach(),
+                                       atol=1e-6, rtol=0)
+        assert abs(float(raw["loss"][r]) - float(m["loss"])) <= 1e-6
+    async_replicas.build_merge_step()(astate)
+    for t in astate.params.values():
+        assert torch.equal(t[0], t[1])
+
+
+@pytest.mark.cuda
 def test_cached_decode_family_gives_the_plain_tokens_on_card(cuda_device):
     """generate_cached and generate_cached_speculative_device on a small
     fp32 model through K1 (prefill) and K3 (every LayerNorm) give the

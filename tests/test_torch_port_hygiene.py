@@ -31,7 +31,9 @@ def _port_modules():
 def test_every_port_module_imports_without_jax():
     """A fresh interpreter (this one has JAX loaded by the test setup).
     The checkpoint reader imports tensorstore and zstandard only where a
-    layout needs them, so importing the port loads neither."""
+    layout needs them, so importing the port loads neither; the exchange
+    holds bf16 as 16-bit words, so nothing loads ``ml_dtypes`` (the card's
+    machine has none)."""
     code = (
         "import importlib, sys\n"
         f"for name in {_port_modules()!r}:\n"
@@ -40,7 +42,8 @@ def test_every_port_module_imports_without_jax():
         "coordination._load_library()\n"
         "bad = sorted(m for m in sys.modules if m == 'jax'\n"
         "             or m.startswith(('jax.', 'jaxlib', 'flax', 'optax',\n"
-        "                              'orbax', 'tensorstore', 'zstandard'))\n"
+        "                              'orbax', 'tensorstore', 'zstandard',\n"
+        "                              'ml_dtypes'))\n"
         "             or m.split('.')[0] == 'distributed_tensorflow_tpu')\n"
         "# No shared object of the JAX package's tree is mapped.\n"
         "bad += sorted({line.split()[-1] for line in open('/proc/self/maps')\n"
@@ -63,7 +66,10 @@ def test_every_port_module_imports_without_jax():
         "utils.faults", "utils.native", "utils.summary", "utils.profiling",
         "models.mlp", "models.image_input", "data.datasets",
         "data.prefetch", "parallel.sync", "training.preemption",
-        "training.supervisor", "training.loop")} <= set(_port_modules())
+        "training.supervisor", "training.loop",
+        # The reference trainer, async mode.
+        "parallel.async_replicas", "cluster.param_sync", "training.elastic",
+        "utils.pytree")} <= set(_port_modules())
 
 
 def test_the_native_coordination_library_is_built_from_the_port():
@@ -97,7 +103,8 @@ def test_no_port_file_or_chip_smoke_names_jax_in_an_import():
             for name in names:
                 top = name.split(".")[0]
                 assert top not in ("jax", "jaxlib", "flax", "optax",
-                                   "orbax", "distributed_tensorflow_tpu"), \
+                                   "orbax", "ml_dtypes",
+                                   "distributed_tensorflow_tpu"), \
                     f"{path} imports {name}"
 
 

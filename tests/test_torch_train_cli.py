@@ -175,9 +175,9 @@ def test_metrics_file_summaries_and_profile(tmp_path, standalone):
 
 
 @pytest.mark.parametrize("flags,match", [
-    (("--sync_replicas=false",), "slice 7b"),
-    (("--sync_replicas=true", "--straggler_lag=3"), "slice 7b"),
-    (("--sync_replicas=true", "--elastic_mode=in_place"), "slice 7b"),
+    (("--sync_replicas=true", "--fsdp=true"), "item 6"),
+    (("--sync_replicas=true", "--dcn_data_parallel=2"), "item 6"),
+    (("--sync_replicas=true", "--data_augmentation=true"), "item 7"),
     (("--sync_replicas=true", "--tensor_parallel=2"), "item 6"),
     (("--sync_replicas=true", "--pipeline_parallel=2"), "item 6"),
     (("--sync_replicas=true", "--model=resnet20"), "item 7"),

@@ -176,11 +176,12 @@ def test_no_checkpoint_warns_and_decodes_a_seeded_init(tmp_path, capsys):
 @pytest.mark.parametrize("flags,error,match", [
     (["--gen_prompt_text=hi"], NotImplementedError, "ROADMAP.*item 7"),
     (["--gen_stop_text=."], NotImplementedError, "ROADMAP.*item 7"),
-    # The trainer's paths of slice 7b (async replicas, elastic membership).
-    (["--mode=train", "--job_name=worker", "--task_index=0"],
-     NotImplementedError, "ROADMAP.*slice 7"),
+    # The trainer's paths not ported yet (its async mode is, since slice
+    # 7b): the parallelism axes and run profiles.
+    (["--mode=train", "--job_name=worker", "--task_index=0",
+      "--tensor_parallel=2"], NotImplementedError, "ROADMAP.*item 6"),
     (["--mode=eval", "--job_name=worker", "--task_index=0",
-      "--elastic_mode=off"], NotImplementedError, "ROADMAP.*slice 7"),
+      "--profile=p.json"], NotImplementedError, "ROADMAP.*item 8"),
     (["--model=mnist_mlp"], ValueError, "gpt_mini"),
     (["--gen_beams=2", "--gen_speculative=4"], ValueError, "exclusive"),
     (["--gen_beams=2", "--gen_temperature=0.5"], ValueError, "exclusive"),
