@@ -99,7 +99,36 @@ Phases, one JSON line each on stdout:
    each a process, give the in-process decode family's tokens.  It
    prints the write and restore GB/s, the CLI's startup seconds, the
    time from step 2's rename into place to its adoption, and tokens/s.
-9. ``train``: the flagship GPT train step (``bench.py``'s: the same
+9. ``fleet``: the serving fleet tier on the same model, saved as the
+   ``checkpoint`` phase saves it.  ``tools/serve_fleet.py`` spawns two
+   replicas (``tools/serve.py`` processes on the card, ``ENGINE``'s pool,
+   tenants ``search:2,ads:1``) behind its router, with ``--respawn`` and
+   an autoscaler armed up to three.  ``fleet_serve``: the serve phase's 8
+   prompts greedy through the router (gate: each request's tokens are the
+   in-process engine's; ``watch_serve --fleet --once --json`` shows 2
+   healthy members).  ``fleet_kill``: 16 concurrent requests, ``r1``
+   SIGKILLed once half have completed (gates: no failed request, every
+   response the in-process tokens, ``r1`` dead, a respawned member
+   healthy, the survivor serving both tenants).  ``fleet_autoscale``:
+   requests of a tenant whose objective every request breaks until a
+   third member is healthy (gate: one ``scale_up``), then the 8 prompts
+   again, a tenant each, spread over the three live members (gate: the
+   in-process engine's tokens).  The router's stream passes
+   ``summarize_run --check`` with ``replica_dead`` and ``failed == 0``.
+   ``cells_drill``: two one-replica ``tools/serve_cell.py`` cells
+   (each a coordination shard, its standby, a fleet and a replica) behind
+   a global router; ``tools/loadgen.py``'s ``cell_kill`` schedule (14 s,
+   2 qps, seed 7, 128-token prompts, 16 new) SIGKILLs cell a at 4 s
+   (gates: no failed request, no objective ever burning, ``cell_dead``
+   and ``tenant_rehome`` on the global stream, ``summarize_run --check``
+   green).  Every process is stopped with SIGTERM; each replica that
+   served a request printed its launches on exit (gate: K1 a positive
+   multiple of 8, K3 of 17, no other kernel).  It prints each replica's
+   spawn-to-healthy seconds, the router's added ms a request (p50, p95),
+   the fleet's tokens/s over the 8-request and the 16-request bursts
+   beside the serve phase's, the kill's and the autoscaler's seconds,
+   and the drill's failover gap, re-homes and 429s.
+10. ``train``: the flagship GPT train step (``bench.py``'s: the same
    widths, fp32 master weights, bf16 compute, ``attention_backend=
    "pallas"``, plus ``fused_ln=True``; Adam 3e-4, B=8, S=1024, the
    synthetic LM stream) through ``TrainState`` and
@@ -108,14 +137,14 @@ Phases, one JSON line each on stdout:
    then 30 steps with the launch counters set to 0 just before and read
    just after (the loss must stay finite and fall); then the
    ``train_profile`` line, ``torch.profiler`` over one more step.
-10. ``train_int8``: the same step with ``matmul_int8=True`` (bench.py's
+11. ``train_int8``: the same step with ``matmul_int8=True`` (bench.py's
    int8 arm, :2271): each block's gelu MLP through K4 and K5.  The same
    kernel-vs-plain check (the plain path also takes the plain versions of
    K4/K5), 30 steps with exact launch counts (K4 and K5 twice per layer,
    each call one quantize pass and one GEMM, K4's one weight transpose),
    the loss held to the bf16 phase's, the ``train_int8_profile`` line,
    then a short arm with ``attn_int8=True`` as well (bench.py :2287).
-11. ``train_ring``: the same step with ``attention_backend="ring"``
+12. ``train_ring``: the same step with ``attention_backend="ring"``
     (``train.py --sequence_parallel=4 --attention_backend=ring``) on a
     mesh of four sequence shards of 256 on the card: each block's
     attention is a 4-hop ring through K6 forward and K7a/K7b backward.
@@ -124,7 +153,7 @@ Phases, one JSON line each on stdout:
     steps with exact launch counts (K6, K7a, K7b each 4 shards x 4 hops x
     8 layers = 128 per step, K3 17, K1/K2 none), a falling loss, and the
     ``train_ring_profile`` line.
-12. ``trainer``: the port's trainer CLI (``train.py``) as processes.
+13. ``trainer``: the port's trainer CLI (``train.py``) as processes.
     ``trainer_reference``: the reference job with
     ``examples/launch_local_cluster.sh``'s flags (one PS and two sync
     workers, MNIST MLP 784-100-10, global batch 100, 200 steps, lr 0.01,
@@ -147,7 +176,7 @@ Phases, one JSON line each on stdout:
     this process.  The K1/K2a/K2b/K3 rows' ``trainer`` paths hold the
     kernels at this run's shapes (the ``kernels`` phase's ``trainer``
     cases) with its launches.
-13. ``async_trainer``: the trainer in async mode (``--sync_replicas=
+14. ``async_trainer``: the trainer in async mode (``--sync_replicas=
     false``, one replica a worker, the workers averaging through the
     coordination service), processes on the one card.
     ``async_reference``: the reference job with ``--async_sync_period=4``,
@@ -171,10 +200,12 @@ Phases, one JSON line each on stdout:
     ``ParamAverager``s on one in-process coordination service exchange a
     GPT-406M-width bf16 tree through the logdir side-channel (gate: the
     consensus adopted onto the card is bit-equal to the fp32 mean cast to
-    bf16 on the card), then two int8 ``CompressedShardedAverager``s (gates:
-    a round's wire bytes at least 4x below the full state's, the consensus
-    within the codec's error bound of the exact mean); it prints each leg's
-    ms and GB/s.  The K1/K2a/K2b/K3 rows carry ``async_trainer_launches``
+    bf16 on the card), then two int8 ``CompressedShardedAverager``s over
+    a quarter of the tree cut by depth (the embeddings and the first two
+    of the eight blocks, widths unchanged; the codec is host numpy and
+    zlib) (gates: a round's wire bytes at least 4x below that part's full
+    state, the consensus within the codec's error bound of the exact
+    mean); it prints each leg's ms and GB/s.  The K1/K2a/K2b/K3 rows carry ``async_trainer_launches``
     (both workers of ``async_gpt``).
 
 With ``--nccl`` the script runs ``env`` and the reference job alone,
@@ -190,7 +221,9 @@ whose numbers are the mean per launch over a step's hops, and the
 hold each path's own shape, numbers and launches (K1's and K3's
 ``generate``: the prefill of B=4 x 384 and the decode step's 4 rows,
 with the bf16 ``generate_cached`` arm's launches; their ``checkpoint``:
-the serve prefill's case, with the restored engine's launches; K1-K3's
+the serve prefill's case, with the restored engine's launches; their
+``fleet``: the serve prefill's case, with the replicas' summed launches;
+K1-K3's
 ``trainer``: the gpt_mini trainer CLI's shapes and launches), K4/K5/K8 rows list
 their call sites or variants under ``sites``, and K6's ``hop_kinds``
 hold its visible and diagonal hops' own times and ratios to SDPA, K7a's
@@ -695,7 +728,7 @@ def check_kernels(dev):
                 "flash_attention.py:119", "train",
                 {"serve": k1_cases[0], "train": k2["fwd"],
                  "generate": k1_cases[5], "checkpoint": k1_cases[0],
-                 "trainer": k2t["fwd"]},
+                 "fleet": k1_cases[0], "trainer": k2t["fwd"]},
                 k1_all),
         # Serving launches K3 at its prefill and its decode rows: both
         # rows carry the serving run's launches (one counter).
@@ -706,6 +739,7 @@ def check_kernels(dev):
                           "serve_spec": k3_cases[4],
                           "generate": k3_cases[5],
                           "checkpoint": k3_cases[0],
+                          "fleet": k3_cases[0],
                           "trainer": k3_cases[6]},
                 k3_cases),
         summary("flash_attention_bwd_dkv", "flash_attention_bwd.cu",
@@ -2264,6 +2298,478 @@ def checkpoint_phase(dev, smi: str, model, whole: dict) -> dict:
     return launches
 
 
+# The fleet phase: the serve phase's model as a checkpoint served by
+# tools/serve_fleet.py (each replica a tools/serve.py process on the
+# card) and by two tools/serve_cell.py cells behind a global router.
+FLEET = dict(replicas=2, poll_s=0.5, fail_after=2, tenants="search:2,ads:1",
+             autoscale_max=3, burn_sustain_s=2.0, cooldown_s=5.0,
+             # An objective every request of the tenant "probe" breaks, in
+             # 5 s / 30 s windows: the autoscaler's burn, as
+             # tests/test_router.py:749 induces it (the serving tenants
+             # carry no objective, so nothing burns before the probe).
+             burn_slo="probe:ttft_p95_ms<=1", slo_short_window_s=5.0,
+             slo_long_window_s=30.0, slo_emit_every_s=0.5,
+             kill_burst=16,
+             # The two-cell drill: tests/test_cells.py:524's objectives,
+             # schedule and kill, at a 128-token prompt and 16 new tokens.
+             cell_slo="search:e2e_p95_ms<=60000,ads:e2e_p95_ms<=60000",
+             cell_schedule=dict(duration_s=14.0, qps=2.0, seed=7,
+                                prompt_len=128, gen_len=16),
+             kill_at_s=4.0, rehome_bound=8, rehome_window_s=30.0)
+
+
+def engine_flags() -> list:
+    """``ENGINE``'s pool as the serving CLIs' flags."""
+    return ["--slots", ENGINE["num_slots"], "--page_size",
+            ENGINE["page_size"], "--num_pages", ENGINE["num_pages"],
+            "--max_pages_per_seq", ENGINE["max_pages_per_seq"]]
+
+
+class FleetWatch:
+    """A router's ``/fleetz`` polled every 0.1 s from a thread: the
+    newest snapshot, and the first ``time.time()`` each member was seen
+    in each state."""
+
+    def __init__(self, url: str):
+        from distributed_tensorflow_tpu_torch.serving.client import (
+            ServeClient)
+        self.client = ServeClient(url, timeout_s=5.0, retries=0)
+        self.snap: dict | None = None
+        self.seen: dict = {}
+        self._stop = threading.Event()
+        self._thread = threading.Thread(target=self._poll, daemon=True)
+        self._thread.start()
+
+    def _poll(self):
+        while not self._stop.is_set():
+            try:
+                snap = self.client.fleetz()
+            except Exception:  # noqa: BLE001 — the next poll retries
+                snap = None
+            if snap is not None:
+                now = time.time()
+                for m in snap["members"]:
+                    self.seen.setdefault((m["id"], m["state"]), now)
+                self.snap = snap
+            self._stop.wait(0.1)
+
+    def wait(self, pred, timeout_s: float, what: str) -> dict:
+        deadline = time.time() + timeout_s
+        while True:
+            snap = self.snap
+            if snap is not None and pred(snap):
+                return snap
+            if time.time() > deadline:
+                raise AssertionError(f"{what}: not within {timeout_s} s: "
+                                     f"{snap and snap['router']}")
+            time.sleep(0.05)
+
+    def close(self):
+        self._stop.set()
+        self._thread.join()
+
+
+def members(snap) -> dict:
+    return {m["id"]: m for m in snap["members"]}
+
+
+def replica_launches(log_dir: str) -> dict:
+    """Each replica's ``kernel launches`` line (printed on its clean
+    exit) from the ``replica-<id>.log`` files in ``log_dir``."""
+    out = {}
+    for name in sorted(os.listdir(log_dir)):
+        if name.startswith("replica-") and name.endswith(".log"):
+            with open(os.path.join(log_dir, name)) as fh:
+                lines = [x for x in fh if x.startswith("kernel launches ")]
+            if lines:
+                out[name[len("replica-"):-len(".log")]] = json.loads(
+                    lines[-1][len("kernel launches "):])
+    return out
+
+
+def check_replica_launches(where: str, launches: dict, served: dict,
+                           num_layers: int) -> None:
+    """Gate: every replica that served a request exited cleanly with K1
+    a positive multiple of the layers (one a layer a prefill), K3 a
+    positive multiple of 2 a layer + 1 (a prefill or a decode step), and
+    no other kernel."""
+    k3 = 2 * num_layers + 1
+    for rid, n in served.items():
+        if not n:
+            continue
+        got = launches.get(rid)
+        if got is None:
+            raise AssertionError(f"{where} {rid} served {n} requests and "
+                                 "printed no launch line")
+        k1, ln = got["flash_attention_fwd"], got["layer_norm_fwd"]
+        other = {k: v for k, v in got.items() if v and k not in (
+            "flash_attention_fwd", "layer_norm_fwd")}
+        if not (k1 > 0 and k1 % num_layers == 0 and ln > 0 and ln % k3 == 0
+                and not other):
+            raise AssertionError(f"{where} {rid}: launches {got}")
+
+
+def fleet_stream(path: str) -> tuple[list, dict]:
+    """A router's or global router's telemetry: its records, and the
+    ``summarize_run --check`` verdict on it (gate: exit 0)."""
+    from distributed_tensorflow_tpu_torch.tools import summarize_run
+    if summarize_run.main([path, "--check"]) != 0:
+        raise AssertionError(f"summarize_run --check failed on {path}")
+    records, errors = summarize_run.load_records(path)
+    return records, summarize_run.build_summary(records)
+
+
+def fleet_drill(dev, run_dir: str, tmp: str, prompts, want) -> dict:
+    """``fleet_serve``, ``fleet_kill`` and ``fleet_autoscale`` on one
+    ``serve_fleet``, then the prompts once more from a tenant each, spread
+    over the three live members: the numbers, each replica's launches and
+    served requests."""
+    from distributed_tensorflow_tpu_torch.serving.client import ServeClient
+    F = FLEET
+    metrics = os.path.join(tmp, "fleet.jsonl")
+    state = os.path.join(tmp, "fleet.json")
+    log_dir = os.path.join(tmp, "fleet")
+    root = os.path.dirname(os.path.abspath(__file__))
+    seconds = {}
+    t_part = time.perf_counter()
+    with CliProcess(
+            "tools.serve_fleet", "--logdir", run_dir, "--port", 0,
+            "--device", dev, "--replicas", F["replicas"], *engine_flags(),
+            "--tenants", F["tenants"], "--respawn", "--poll_s", F["poll_s"],
+            "--fail_after", F["fail_after"],
+            "--autoscale_min", F["replicas"],
+            "--autoscale_max", F["autoscale_max"],
+            "--burn_sustain_s", F["burn_sustain_s"],
+            "--cooldown_s", F["cooldown_s"], "--idle_sustain_s", 1e9,
+            "--slo", F["burn_slo"],
+            "--slo_short_window_s", F["slo_short_window_s"],
+            "--slo_long_window_s", F["slo_long_window_s"],
+            "--slo_emit_every_s", F["slo_emit_every_s"],
+            "--metrics_file", metrics, "--state_file", state,
+            "--fleet_dir", log_dir) as cli:
+        banner = cli.wait_for("routing fleet on :", 120)
+        t_spawn = time.time()
+        url = f"http://127.0.0.1:{int(banner.split(' on :')[1].split()[0])}"
+        client = ServeClient(url, timeout_s=600.0, retries=3)
+        watch = FleetWatch(url)
+        try:
+            # fleet_serve: the serve phase's 8 prompts, greedy, tenants
+            # alternating, each traced (route.fleet spans by trace id).
+            watch.wait(lambda s: s["router"]["healthy"] >= 2, 300,
+                       "two healthy replicas")
+            first = [watch.seen[(r, "healthy")] - t_spawn
+                     for r in ("r0", "r1")]
+            done, serve_s = burst(client, prompts, lambda i: dict(
+                tenant=("search", "ads")[i % 2], trace=f"serve-{i}"))
+            for i, r in enumerate(done):
+                if r["tokens"][len(prompts[i]):] != want[i]:
+                    raise AssertionError(
+                        f"fleet request {i}: not the in-process engine's "
+                        f"tokens (first divergence {first_divergence(r['tokens'][len(prompts[i]):], want[i])})")
+            out = subprocess.run(
+                [sys.executable, "-m",
+                 "distributed_tensorflow_tpu_torch.tools.watch_serve",
+                 "--fleet", "--url", url, "--once", "--json"], cwd=root,
+                env=dict(os.environ, PYTHONPATH=root), capture_output=True,
+                text=True, timeout=60)
+            watched = json.loads(out.stdout) if out.returncode == 0 else {}
+            healthy = [m["id"] for m in watched.get("members", ())
+                       if m["state"] == "healthy"]
+            if len(healthy) != 2:
+                raise AssertionError(f"watch_serve --fleet: {out.returncode}"
+                                     f" {healthy} {out.stderr[-2000:]}")
+            seconds["fleet_serve"] = time.perf_counter() - t_part
+
+            # fleet_kill: 16 concurrent requests (the prompts twice), r1
+            # SIGKILLed once half have completed.
+            t_part = time.perf_counter()
+            with open(state) as fh:
+                pids = {m["id"]: m["pid"] for m in json.load(fh)["members"]}
+            n = F["kill_burst"]
+            results: list = [None] * n
+            errors: list = []
+            half = threading.Event()
+
+            def call(i):
+                try:
+                    results[i] = client.generate(
+                        prompts[i % len(prompts)], NEW_TOKENS,
+                        tenant=("search", "ads")[i % 2], trace=f"kill-{i}")
+                except Exception as e:  # noqa: BLE001 — the gate's target
+                    errors.append((i, repr(e)))
+                if sum(r is not None for r in results) + len(errors) \
+                        >= n // 2:
+                    half.set()
+            threads = [threading.Thread(target=call, args=(i,))
+                       for i in range(n)]
+            t0 = time.perf_counter()
+            for t in threads:
+                t.start()
+            if not half.wait(600):
+                raise AssertionError("half the kill burst never completed")
+            t_kill = time.time()
+            os.kill(pids["r1"], signal.SIGKILL)
+            for t in threads:
+                t.join(600)
+            kill_burst_s = time.perf_counter() - t0
+            if errors or any(r is None for r in results):
+                raise AssertionError(f"failed requests through the kill: "
+                                     f"{errors}")
+            for i, r in enumerate(results):
+                if r["tokens_out"] != NEW_TOKENS or r["tokens"][
+                        len(prompts[i % len(prompts)]):] != want[
+                        i % len(prompts)]:
+                    raise AssertionError(f"kill burst request {i}: "
+                                         f"{r['tokens_out']} tokens, not "
+                                         "the in-process engine's")
+            snap = watch.wait(lambda s: members(s)["r1"]["state"] == "dead",
+                              30, "r1 marked dead")
+            dead_s = watch.seen[("r1", "dead")] - t_kill
+            for tenant in ("search", "ads"):     # the survivor serves both
+                r = client.generate(prompts[0][:16], 4, tenant=tenant)
+                if r["tokens_out"] != 4:
+                    raise AssertionError(f"after the kill: {tenant} {r}")
+            snap = watch.wait(lambda s: any(
+                m["state"] == "healthy" and m["id"] not in ("r0", "r1")
+                for m in s["members"]), 300, "a respawned member healthy")
+            (respawned,) = [m for m in members(snap) if m not in ("r0", "r1")]
+            respawn_s = (watch.seen[(respawned, "healthy")]
+                         - watch.seen[(respawned, "starting")])
+            failovers = snap["router"]["failovers"]
+            if snap["router"]["failed"]:
+                raise AssertionError(f"fleet failed {snap['router']}")
+            seconds["fleet_kill"] = time.perf_counter() - t_part
+
+            # fleet_autoscale: the probe tenant's burn until a third
+            # member is healthy.
+            t_part = time.perf_counter()
+            stop_burn = threading.Event()
+
+            def burn():
+                while not stop_burn.is_set():
+                    try:
+                        client.generate(prompts[0][:16], 4, tenant="probe")
+                    except Exception:  # noqa: BLE001 — keep burning
+                        time.sleep(0.2)
+            burner = threading.Thread(target=burn)
+            t_burn = time.time()
+            burner.start()
+            try:
+                snap = watch.wait(lambda s: s["router"]["healthy"] >= 3, 300,
+                                  "the autoscaled member healthy")
+            finally:
+                stop_burn.set()
+                burner.join(600)
+            (scaled,) = [m for m in members(snap)
+                         if m not in ("r0", "r1", respawned)]
+            up_s = watch.seen[(scaled, "starting")] - t_burn
+            up_healthy_s = (watch.seen[(scaled, "healthy")]
+                            - watch.seen[(scaled, "starting")])
+            # The prompts again, each from a tenant of its own: the
+            # least-loaded choice spreads them over the three members,
+            # the respawned and the autoscaled one included.
+            spread, _ = burst(client, prompts,
+                              lambda i: dict(tenant=f"spread{i}"))
+            final = client.fleetz()
+            for i, r in enumerate(spread):
+                if r["tokens"][len(prompts[i]):] != want[i]:
+                    raise AssertionError(f"spread request {i}: not the "
+                                         "in-process engine's tokens")
+            seconds["fleet_autoscale"] = time.perf_counter() - t_part
+        finally:
+            watch.close()
+    t_part = time.perf_counter()
+    if cli.proc.returncode != 0:
+        raise AssertionError(f"serve_fleet exited {cli.proc.returncode}")
+    records, summary = fleet_stream(metrics)
+    (worker,) = summary["workers"].values()
+    fleet = worker["fleet"]
+    actions = fleet["actions"]
+    if not (actions.get("replica_dead", 0) >= 1 and fleet["failed"] == 0
+            and actions.get("scale_up", 0) == 1
+            and actions.get("respawn", 0) >= 1):
+        raise AssertionError(f"router stream: {fleet}")
+    # The router's added latency: a request's route.fleet span (the wall
+    # its kind="route" record's route_ms holds) less the replica's e2e
+    # (ttft + tpot x (tokens - 1), submit to done), for the requests
+    # that needed no failover.
+    spans = {r["trace_id"]: r for r in records if r.get("kind") == "span"
+             and r.get("name") == "route.fleet"}
+    traced = [(f"serve-{i}", r) for i, r in enumerate(done)] + [
+        (f"kill-{i}", r) for i, r in enumerate(results)]
+    added = [spans[t]["dur_ms"] - (r["ttft_ms"] + r["tpot_ms"] * (
+        r["tokens_out"] - 1)) for t, r in traced
+        if t in spans and spans[t]["failovers"] == 0]
+    # The replicas still in the fleet at its SIGTERM (r1 was SIGKILLed).
+    served = {m["id"]: m["served"] for m in final["members"]
+              if m["state"] != "dead"}
+    launches = replica_launches(log_dir)
+    seconds["fleet_stop"] = time.perf_counter() - t_part
+    return dict(
+        spawn_to_healthy_s={"r0": first[0], "r1": first[1],
+                            respawned: respawn_s, scaled: up_healthy_s},
+        router_added_ms=dict(p50=statistics.median(added),
+                             p95=statistics.quantiles(added, n=20)[-1],
+                             requests=len(added)),
+        serve_burst=dict(requests=len(done), burst_s=serve_s,
+                         tokens_per_s=len(done) * NEW_TOKENS / serve_s),
+        kill_burst=dict(requests=n, failed=0, burst_s=kill_burst_s,
+                        tokens_per_s=n * NEW_TOKENS / kill_burst_s,
+                        kill_to_dead_s=dead_s, failovers=failovers,
+                        respawned=respawned,
+                        respawn_to_healthy_s=respawn_s),
+        autoscale=dict(burn_to_up_s=up_s, up_to_healthy_s=up_healthy_s,
+                       member=scaled, scale_up_actions=actions["scale_up"]),
+        router=dict(routed=fleet["routed"], failed=fleet["failed"],
+                    actions=actions),
+        watch_serve_healthy=healthy, served=served, launches=launches,
+        seconds=seconds)
+
+
+def cells_drill(dev, run_dir: str, tmp: str) -> dict:
+    """``cells_drill``: two one-replica cells and a global router; loadgen's
+    ``cell_kill`` SIGKILLs cell a wholesale at 4 s."""
+    from distributed_tensorflow_tpu_torch.serving.client import ServeClient
+    from distributed_tensorflow_tpu_torch.tools import loadgen, summarize_run
+    from distributed_tensorflow_tpu_torch.utils import faults
+    F = FLEET
+    states = {c: os.path.join(tmp, f"cell_{c}.json") for c in "ab"}
+    gstream = os.path.join(tmp, "global.jsonl")
+    gstate = os.path.join(tmp, "global.json")
+    with contextlib.ExitStack() as stack:
+        t0 = time.time()
+        cells = {c: stack.enter_context(CliProcess(
+            "tools.serve_cell", "--cell", c, "--logdir", run_dir,
+            "--replicas", 1, "--device", dev, *engine_flags(),
+            "--tenants", F["tenants"], "--poll_s", F["poll_s"],
+            "--fail_after", F["fail_after"], "--slo", F["cell_slo"],
+            "--metrics_file", os.path.join(tmp, f"cell_{c}.jsonl"),
+            "--state_file", states[c],
+            "--cell_dir", os.path.join(tmp, f"cell_{c}"))) for c in "ab"}
+        urls = {}
+        for c, cli in cells.items():
+            cli.wait_for(f"serving cell {c} on :", 120)
+            with open(states[c]) as fh:
+                urls[c] = json.load(fh)["router_url"]
+        healthy_s = {}
+        for c, url in urls.items():
+            probe = ServeClient(url, timeout_s=10.0, retries=0)
+            deadline = time.time() + 300
+            while True:
+                try:
+                    if probe.fleetz()["router"]["healthy"] >= 1:
+                        break
+                except Exception:  # noqa: BLE001 — still booting
+                    pass
+                if time.time() > deadline:
+                    raise AssertionError(f"cell {c} never became healthy")
+                time.sleep(0.1)
+            healthy_s[c] = time.time() - t0
+        glob = stack.enter_context(CliProcess(
+            "tools.serve_cell", "--cell_state",
+            f"{states['a']},{states['b']}", "--poll_s", F["poll_s"],
+            "--fail_after", F["fail_after"],
+            "--rehome_bound", F["rehome_bound"],
+            "--rehome_window_s", F["rehome_window_s"],
+            "--metrics_file", gstream, "--state_file", gstate))
+        glob.wait_for("routing 2 cell(s) on :", 120)
+        with open(gstate) as fh:
+            gurl = json.load(fh)["router_url"]
+        probe = ServeClient(gurl, timeout_s=60.0)
+        deadline = time.time() + 60
+        while True:
+            try:
+                if probe.cellz()["global"]["healthy_cells"] == 2:
+                    break
+            except Exception:  # noqa: BLE001 — still adopting the cells
+                pass
+            if time.time() > deadline:
+                raise AssertionError("the global router never saw 2 "
+                                     "healthy cells")
+            time.sleep(0.1)
+        for tenant in ("search", "ads"):         # pin the tenants' homes
+            probe.generate([1, 2, 3], 2, tenant=tenant)
+        schedule = loadgen.build_schedule("cell_kill",
+                                          **F["cell_schedule"])
+        report = loadgen.run_schedule(
+            gurl, schedule, slo=F["cell_slo"], timeout_s=60.0,
+            kill_at_s=F["kill_at_s"], scenario="cell_kill",
+            kill_fn=lambda: faults.kill_cell(states["a"], "a"))
+        if report["failed"] or not report["ok"] \
+                or report["ever_burning"] != []:
+            raise AssertionError(f"cell_kill: {report}")
+        snap = ServeClient(urls["b"], timeout_s=10.0).fleetz()
+        for m in snap["members"]:
+            slo = (m.get("statz") or {}).get("slo") or {}
+            if slo.get("ever_burning", []) != []:
+                raise AssertionError(f"cell b burned: {m}")
+        served = {m["id"]: m["served"] for m in snap["members"]}
+    records, _ = fleet_stream(gstream)
+    section = summarize_run.cell_summary(records)
+    if not (section.get("cell_deaths", 0) >= 1
+            and section.get("rehomes", 0) >= 1):
+        raise AssertionError(f"global stream: {section}")
+    return dict(
+        spawn_to_healthy_s=healthy_s,
+        loadgen={k: report[k] for k in ("requests", "ok", "rejected",
+                                        "failed", "ever_burning")
+                 if k in report},
+        failover_gap_ms=section.get("failover_gap_ms_max"),
+        failover_gaps=section.get("failover_gaps"),
+        rehomes=section["rehomes"], rejected_429=report["rejected"],
+        throttle_rejects=section.get("throttle_rejects"),
+        actions=section.get("actions"), served=served,
+        launches=replica_launches(os.path.join(tmp, "cell_b")))
+
+
+def fleet_phase(dev, smi: str, model, whole: dict) -> dict:
+    """Phase ``fleet``: the serving fleet tier at the serve phase's width.
+    ``save_raw`` writes the model as the ``checkpoint`` phase does; the
+    fleet's two replicas give the in-process engine's greedy tokens,
+    survive a replica's SIGKILL with no failed request (respawn), and
+    scale up on a burning objective; two cells survive a cell's SIGKILL
+    behind the global router.  Returns the replicas' summed launches."""
+    import numpy as np
+    from distributed_tensorflow_tpu_torch.models import gpt
+    from distributed_tensorflow_tpu_torch.tools import checkpoint_io
+
+    t_phase = t0 = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_fleet_")
+    run_dir = os.path.join(tmp, "gpt_mini")
+    try:
+        checkpoint_io.save_raw(
+            os.path.join(run_dir, "checkpoints"), 1,
+            {"params": gpt.params_to_jax(model.state_dict()),
+             "global_step": np.asarray(1, np.int32)})
+        prompts = whole["prompts"]
+        want, _ = engine_tokens(dev, model, prompts)
+        setup_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        fleet = fleet_drill(dev, run_dir, tmp, prompts, want)
+        t1 = time.perf_counter()
+        cells = cells_drill(dev, run_dir, tmp)
+        cells_s = time.perf_counter() - t1
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    L = WIDTH["num_layers"]
+    check_replica_launches("fleet", fleet["launches"], fleet["served"], L)
+    check_replica_launches("cell b", cells["launches"], cells["served"], L)
+    total: dict = {}
+    for counts in [*fleet["launches"].values(),
+                   *cells["launches"].values()]:
+        for k, v in counts.items():
+            total[k] = total.get(k, 0) + v
+    emit("fleet", card=smi, model="gpt_406m_width",
+         seconds=time.perf_counter() - t_phase,
+         seconds_by_part=dict(setup=setup_s, **fleet.pop("seconds"),
+                              cells_drill=cells_s),
+         fleet_tokens_per_s=fleet["kill_burst"]["tokens_per_s"],
+         serve_tokens_per_s=whole["tokens_per_s"],
+         tokens_equal_in_process=len(whole["prompts"]),
+         **fleet, cells=cells, launches_total=total)
+    return total
+
+
 def gpt_train_flops(cfg, B: int, S: int) -> float:
     """bench.py:523-531's analytic matmul flops of one train step (3x the
     forward: dense layers, attention scores and values, LM head)."""
@@ -2400,24 +2906,10 @@ def profile_train_step(step, state, batch, named=None) -> dict:
 
 
 def launch_counts() -> dict:
-    """Every kernel's launch counter, by kernel name."""
-    from distributed_tensorflow_tpu_torch.ops import flash_attention as fa
-    from distributed_tensorflow_tpu_torch.ops import layer_norm as ln
-    from distributed_tensorflow_tpu_torch.ops import quant_matmul as qmm
-    return {"flash_attention_fwd": fa.launches,
-            "flash_attention_bwd_dq": fa.dq_launches,
-            "flash_attention_bwd_dkv": fa.dkv_launches,
-            "layer_norm_fwd": ln.launches,
-            "quant_matmul": qmm.launches,
-            "quant_matmul_nt": qmm.nt_launches,
-            "flash_attention_chunk": fa.chunk_launches,
-            "flash_attention_chunk_dq": fa.chunk_dq_launches,
-            "flash_attention_chunk_dkv": fa.chunk_dkv_launches,
-            "quant_matmul_dgelu": qmm.dgelu_launches,
-            # K4/K5's two kernels: each call of either launches both.
-            "quantize_blocks": qmm.quantize_launches,
-            "quant_gemm": qmm.gemm_launches,
-            "transpose_s8": qmm.transpose_launches}
+    """Every kernel's launch counter, by kernel name (the counters a
+    serving CLI prints on exit)."""
+    from distributed_tensorflow_tpu_torch.ops import kernels
+    return kernels.launch_counts()
 
 
 def reset_launch_counts() -> None:
@@ -2984,7 +3476,12 @@ ASYNC = dict(period=4, pace_s=0.1, overlap_pace_s=0.06, gpt_period=10,
              gpt_pace_s=0.15, jax_cpu_test_accuracy=1.0,
              # Full-state bytes over the int8 round's: the JAX package's
              # acceptance bar (tests/test_param_exchange.py:177).
-             min_wire_ratio=4.0, drift_share=0.1, drift_scale=0.01)
+             min_wire_ratio=4.0, drift_share=0.1, drift_scale=0.01,
+             # The int8 leg's part of the tree: the embeddings and the
+             # first two of the eight blocks (widths unchanged; ~103M of
+             # the 406M parameters).  The codec is host numpy and zlib,
+             # 12-40 s an exchange over the whole tree.
+             int8_leaves=("word_emb", "pos_emb", "layer0", "layer1"))
 
 
 def exchange_records(path: str) -> list:
@@ -3297,7 +3794,10 @@ def async_exchange(dev, tmp: str, smi: str) -> None:
     consensus tree off the card (``host_tree``), two ``ParamAverager``s
     over the logdir side-channel (publish, fetch, average), the consensus
     back onto the card (``adopt_consensus``); then two int8
-    ``CompressedShardedAverager``s to their first assembled round."""
+    ``CompressedShardedAverager``s to their first assembled round, on a
+    quarter of the tree cut by depth (``ASYNC["int8_leaves"]``: the
+    embeddings and the first two of the eight blocks, widths unchanged),
+    with the same gates: the wire cut and the codec's error bound."""
     import numpy as np
     import torch
     from distributed_tensorflow_tpu_torch.cluster import param_sync as ps
@@ -3378,13 +3878,16 @@ def async_exchange(dev, tmp: str, smi: str) -> None:
                 raise AssertionError(f"{n}: the adopted consensus is not "
                                      "the fp32 mean cast to bf16 on the card")
 
-        # The int8 compressed exchange of the same two trees, to the first
-        # assembled round (worker 1's: worker 0 anchors, both publish
-        # deltas, each freezes its shard, worker 1 assembles).
+        # The int8 compressed exchange of the same two trees' first
+        # quarter by depth, to the first assembled round (worker 1's:
+        # worker 0 anchors, both publish deltas, each freezes its shard,
+        # worker 1 assembles).
+        part_a, part_b = ({k: t[k] for k in A["int8_leaves"]}
+                          for t in (tree_a, tree_b))
         comp = [ps.CompressedShardedAverager(
             clients[t], t, 2, namespace="int8", exchange_dir=xdir,
             quant="int8") for t in (0, 1)]
-        params = [tree_a, tree_b]
+        params = [part_a, part_b]
         rounds = []
         t0 = time.perf_counter()
         for _ in range(4):
@@ -3409,7 +3912,8 @@ def async_exchange(dev, tmp: str, smi: str) -> None:
         # the delta publish, the frozen reduce and the assembly.
         wire = max(r["bytes_on_wire"] for r in rounds
                    if r["rounds_completed"] >= 1)
-        full = 2 * nbytes               # a full-state publish and fetch
+        part_bytes = sum(x.nbytes for x in tree_leaves(part_a))
+        full = 2 * part_bytes           # a full-state publish and fetch
         ratio = full / wire
         if ratio < A["min_wire_ratio"]:
             raise AssertionError(f"int8 round moved {wire} bytes, full "
@@ -3418,7 +3922,7 @@ def async_exchange(dev, tmp: str, smi: str) -> None:
         # step (its block's absmax / 127 / 2), and the consensus is
         # quantized twice (the delta, then the reduced shard): it lies
         # within one step of the largest delta of the exact mean.
-        fa, fb = ps._flatten_f32(tree_a), ps._flatten_f32(tree_b)
+        fa, fb = ps._flatten_f32(part_a), ps._flatten_f32(part_b)
         exact = (fa.astype(np.float64) + fb) / 2
         c = done[0]._consensus
         bound_abs = float(np.abs(fb - fa).max()) / 127 + 1e-6
@@ -3426,7 +3930,9 @@ def async_exchange(dev, tmp: str, smi: str) -> None:
         if err > bound_abs:
             raise AssertionError(f"int8 consensus off the exact mean by "
                                  f"{err}, bound {bound_abs}")
-        plain_err = float(np.abs(ps._flatten_f32(consensus) - exact).max())
+        plain_err = float(np.abs(ps._flatten_f32(consensus) - (
+            ps._flatten_f32(tree_a).astype(np.float64)
+            + ps._flatten_f32(tree_b)) / 2).max())
         leaves = len(tree_leaves(tree_a))
     finally:
         for c in clients:
@@ -3446,6 +3952,7 @@ def async_exchange(dev, tmp: str, smi: str) -> None:
          exchange_ms=exchange_s * 1e3,
          h2d_adopt_ms=h2d_s * 1e3, h2d_adopt_gb_per_s=gbs(h2d_s),
          plain_wire_bytes=plain_wire, plain_err_vs_exact=plain_err,
+         int8_leaves=list(A["int8_leaves"]), int8_tree_bytes=part_bytes,
          int8_wall_ms=int8_s * 1e3, int8_rounds=rounds,
          int8_wire_bytes_per_round=wire, full_state_bytes_per_round=full,
          int8_wire_ratio=ratio, int8_err_vs_exact=err,
@@ -3520,6 +4027,7 @@ def main() -> int:
     by_path["serve_spec"] = serve_spec(dev, model)
     by_path["generate"] = generate_phase(dev, model)
     by_path["checkpoint"] = checkpoint_phase(dev, smi, model, whole)
+    by_path["fleet"] = fleet_phase(dev, smi, model, whole)
     del model, whole
     torch.cuda.empty_cache()
     by_path["train"], bf16_step = train(dev, smi)

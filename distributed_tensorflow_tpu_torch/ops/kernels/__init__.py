@@ -229,6 +229,29 @@ def load():
     return _lib
 
 
+def launch_counts() -> dict:
+    """Every wrapper's launch counter in this process, by kernel name
+    (each wrapper adds one where it launches its kernel, and nowhere
+    else; a CPU tensor takes the plain version and counts nothing)."""
+    from .. import flash_attention as fa
+    from .. import layer_norm as ln
+    from .. import quant_matmul as qmm
+    return {"flash_attention_fwd": fa.launches,
+            "flash_attention_bwd_dq": fa.dq_launches,
+            "flash_attention_bwd_dkv": fa.dkv_launches,
+            "layer_norm_fwd": ln.launches,
+            "quant_matmul": qmm.launches,
+            "quant_matmul_nt": qmm.nt_launches,
+            "flash_attention_chunk": fa.chunk_launches,
+            "flash_attention_chunk_dq": fa.chunk_dq_launches,
+            "flash_attention_chunk_dkv": fa.chunk_dkv_launches,
+            "quant_matmul_dgelu": qmm.dgelu_launches,
+            # K4/K5's two kernels: each call of either launches both.
+            "quantize_blocks": qmm.quantize_launches,
+            "quant_gemm": qmm.gemm_launches,
+            "transpose_s8": qmm.transpose_launches}
+
+
 def check(rc: int, kernel: str) -> None:
     """Raise when a C entry point reported a CUDA error at launch."""
     if rc != 0:

@@ -6,11 +6,12 @@ side of that contract lives in :meth:`..serving.engine.DecodeEngine.
 swap_params`).  The watcher here is the detection/loading half:
 
 - **Discovery** — poll ``<logdir>/checkpoints`` for a step newer than the
-  one being served (``tools/checkpoint_io.list_step_dirs``).  (The JAX
-  package first consults the coordination service's init-done key,
-  :data:`..training.supervisor.INIT_DONE_KEY`, as a cheap "newest step"
-  hint; that hint comes with the fleet tier's coordination paths, so a
-  ``coord_client`` raises here: see ROADMAP.md, section 1, slice 6d.)
+  one being served (``tools/checkpoint_io.list_step_dirs``).  When a
+  coordination client is supplied, the chief's init-done key
+  (:data:`..training.supervisor.INIT_DONE_KEY` — republished at every
+  durable save by ``training/supervisor.py``) is consulted first as a
+  cheap "newest step" hint, so the common no-news poll is one KV round
+  trip, not a directory walk.
 - **Integrity** — a candidate is loaded only when
   ``tools/checkpoint_io.verify_checkpoint`` accepts it (``valid``, or
   ``unverified`` for legacy saves); a half-written or corrupt save is
@@ -64,25 +65,35 @@ class ModelWatcher:
                  swap_fn: Callable[[object, int], None], *,
                  initial_step: int = 0, poll_s: float = 2.0,
                  coord_client=None, telemetry=None):
-        if coord_client is not None:
-            raise NotImplementedError(
-                f"the coordination hint ({INIT_DONE_KEY!r}) is not ported "
-                "yet; see ROADMAP.md, section 1, slice 6d (after slice 7b)")
         self._ckpt_dir = os.path.join(logdir, "checkpoints")
         self._load_fn = load_fn
         self._swap_fn = swap_fn
         self.current_step = int(initial_step)
         self._poll_s = float(poll_s)
+        self._coord = coord_client
         self._telemetry = telemetry
         self._stop = threading.Event()
         self._thread: threading.Thread | None = None
 
     # ------------------------------------------------------------ polls
 
+    def _hint_step(self) -> int | None:
+        """The coordination plane's newest-durable-step hint, if any."""
+        if self._coord is None:
+            return None
+        try:
+            value = self._coord.kv_get(INIT_DONE_KEY)
+            return int(value) if value is not None else None
+        except Exception:
+            return None  # the directory poll below is the ground truth
+
     def poll_once(self) -> int | None:
         """One discovery+verify+load+stage cycle; returns the step swapped
         in, or None when there was nothing newer (or the candidate failed
         verification/loading — retried next poll)."""
+        hint = self._hint_step()
+        if hint is not None and hint <= self.current_step:
+            return None  # cheap no-news exit: nothing newer is durable
         try:
             found = newest_verified_step(self._ckpt_dir, self.current_step)
         except OSError as e:

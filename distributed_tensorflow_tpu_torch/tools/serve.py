@@ -25,9 +25,13 @@ architecture come from the tree (:func:`load_gpt_serving_model`), and the
 model runs the hand-written kernels: flash attention (K1) in every
 prefill, the LayerNorm kernel (K3) in every LayerNorm.  ``--device``
 (default ``cuda``, which raises without a card) takes the place of the
-JAX CLI's ``--platform``.  ``--coord host:port`` (the coordination KV's
-newest-step hint) is not ported yet and raises: see ROADMAP.md, section
-1, slice 6d.
+JAX CLI's ``--platform``.  ``--coord host:port`` additionally consults
+the coordination KV's init-done key as a cheap newest-step hint (the
+chief republishes it at every durable save) and stamps one
+``clock_sync`` record against that service.  On a clean exit (SIGTERM
+or SIGINT) the CLI prints one line, ``kernel launches {json}``: every
+hand-written kernel's launches in this process (zeros on the CPU, where
+the kernels' plain versions run).
 
 ``--watch http://host:port`` turns the CLI into a live observer of a
 RUNNING server (``watch_run``-style table over ``/statz``): per-tenant
@@ -48,6 +52,7 @@ objectives (``serving/slo.py``) surfaced via ``GET /metricz``
 from __future__ import annotations
 
 import argparse
+import json
 import os
 import signal
 import sys
@@ -233,15 +238,11 @@ def main(argv=None) -> int:
     if not args.logdir:
         parser.error("--logdir is required (or use --watch URL)")
 
-    if args.coord:
-        raise NotImplementedError(
-            "--coord (the coordination service's newest-step hint and "
-            "clock alignment) is not ported yet; see ROADMAP.md, section "
-            "1, slice 6d (after slice 7b)")
     from ..utils.device import cli_device
     device = cli_device(args.device)
 
     from ..models import gpt as gpt_lib
+    from ..ops.kernels import launch_counts
     from ..serving.engine import DecodeEngine, EngineConfig
     from ..serving.hot_swap import ModelWatcher
     from ..serving.scheduler import FairScheduler, parse_tenants
@@ -316,12 +317,34 @@ def main(argv=None) -> int:
                    kv_dtype=args.kv_dtype, spec_k=args.spec_k,
                    prefill_chunk=args.prefill_chunk, slo=args.slo)
 
+    coord_client = None
     watcher = None
+    if args.coord:
+        from ..cluster.coordination import (CoordinationClient,
+                                            CoordinationError)
+        host, _, port = args.coord.rpartition(":")
+        if not host or not port.isdigit():
+            parser.error(f"--coord must be HOST:PORT, got "
+                         f"{args.coord!r}")
+        coord_client = CoordinationClient.observer(host, int(port))
+        # Clock alignment for mixed train+serve traces: the serving
+        # stream stamps the same clock_sync record training workers do,
+        # so export_trace aligns serve spans onto the coordination
+        # server's timeline alongside the training rows.
+        try:
+            offset_s, rtt_s = coord_client.clock_offset()
+            telemetry.emit(
+                "clock_sync", step=0,
+                offset_ms=round(offset_s * 1000.0, 3),
+                rtt_ms=round(rtt_s * 1000.0, 3),
+                t_unix=round(time.time(), 6), source="coord_time")
+        except CoordinationError:
+            pass  # no alignment beats no serving; export falls back to 0
     if args.hot_swap:
         watcher = ModelWatcher(
             args.logdir, load_params, server.request_swap,
             initial_step=global_step, poll_s=args.swap_poll_s,
-            telemetry=telemetry)
+            coord_client=coord_client, telemetry=telemetry)
         watcher.start()
 
     stop = threading.Event()
@@ -340,9 +363,12 @@ def main(argv=None) -> int:
     finally:
         if watcher is not None:
             watcher.close()
+        if coord_client is not None:
+            coord_client.close()
         server.shutdown()
         telemetry.emit_summary(step=engine.step_index, role="serve")
         logger.close()
+        print(f"kernel launches {json.dumps(launch_counts())}", flush=True)
     return 0
 
 

@@ -1301,3 +1301,62 @@ def test_trainer_cli_runs_gpt_mini_through_the_kernels_on_card(
     evaluated = ttrain.app.run(ttrain.main, ["--mode=eval", *flags])
     assert evaluated["global_step"] == 3
     assert evaluated["test_accuracy"] == result.test_accuracy
+
+
+@pytest.mark.cuda
+def test_serve_cli_prints_its_kernel_launches_on_exit_on_card(
+        cuda_device, tmp_path):
+    """The serving CLI as a process on the card (the fleet's replica):
+    two greedy requests, then SIGTERM; its clean exit prints ``kernel
+    launches {json}`` with K1 once a layer a prefill, K3 twice a layer
+    and once more a prefill or engine step, and no other kernel."""
+    import json
+    import os
+    import signal
+    import subprocess
+    import sys
+
+    from distributed_tensorflow_tpu_torch.models import gpt
+    from distributed_tensorflow_tpu_torch.serving.client import ServeClient
+    from distributed_tensorflow_tpu_torch.tools import checkpoint_io
+
+    cfg = gpt.GptConfig(vocab_size=256, hidden_size=256, num_layers=2,
+                        num_heads=2, intermediate_size=512,
+                        max_position=128, dtype="bfloat16",
+                        attention_backend="pallas", fused_ln=True)
+    model = gpt.GptLM(cfg, device=cuda_device, seed=4)
+    checkpoint_io.save_raw(
+        str(tmp_path / "run" / "checkpoints"), 1,
+        {"params": gpt.params_to_jax(model.state_dict()),
+         "global_step": torch.tensor(1, dtype=torch.int32)})
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "distributed_tensorflow_tpu_torch.tools.serve",
+         "--logdir", str(tmp_path / "run"), "--port", "0", "--device",
+         "cuda", "--slots", "2", "--page_size", "16", "--num_pages", "32",
+         "--max_pages_per_seq", "8"],
+        cwd=repo, env=dict(os.environ, PYTHONPATH=repo),
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    try:
+        seen = []
+        for line in proc.stdout:
+            seen.append(line)
+            if line.startswith("serving ") and " on :" in line:
+                break
+        port = int(seen[-1].split(" on :")[1].split(" ")[0])
+        client = ServeClient(f"http://127.0.0.1:{port}", timeout_s=120.0)
+        for prompt in ([3, 4, 5], list(range(40))):
+            assert client.generate(prompt, 6)["tokens_out"] == 6
+        steps = client.stats()["engine"]["engine_step"]
+        assert steps == 12              # one engine step a new token
+    finally:
+        proc.send_signal(signal.SIGTERM)
+        rest, _ = proc.communicate(timeout=60)
+    assert proc.returncode == 0, "".join(seen) + rest
+    (line,) = [x for x in rest.splitlines()
+               if x.startswith("kernel launches ")]
+    counts = json.loads(line[len("kernel launches "):])
+    L = cfg.num_layers
+    assert counts.pop("flash_attention_fwd") == L * 2
+    assert counts.pop("layer_norm_fwd") == (2 * L + 1) * (2 + steps)
+    assert not any(counts.values()), counts

@@ -39,20 +39,28 @@ from distributed_tensorflow_tpu_torch.parallel.sync import (
 TESTS = os.path.dirname(os.path.abspath(__file__))
 
 #: The JAX modules whose imports a mirrored test points at the port (the
-#: exchange and what it stands on); any other JAX import stays JAX's.
+#: exchange and what it stands on, the serving tier's host modules and
+#: tools); any other JAX import stays JAX's.  A module path a test hands
+#: to ``python -m`` is an import too: it spawns the port's CLI.
 PORTED_IMPORTS = ("distributed_tensorflow_tpu.cluster",
                   "distributed_tensorflow_tpu.parallel.sync",
                   "distributed_tensorflow_tpu.parallel.async_replicas",
+                  "distributed_tensorflow_tpu.serving",
+                  "distributed_tensorflow_tpu.tools",
                   "distributed_tensorflow_tpu.training.elastic",
                   "distributed_tensorflow_tpu.utils")
 
 
-def mirror_module(filename: str) -> types.ModuleType:
+def mirror_module(filename: str, replace=()) -> types.ModuleType:
     """The JAX test module ``filename`` with its :data:`PORTED_IMPORTS`
-    pointed at the port (the file on disk is not changed)."""
+    pointed at the port, and each ``(old, new)`` of ``replace`` applied
+    to its source (the file on disk is not changed)."""
     path = os.path.join(TESTS, filename)
     with open(path) as fh:
         src = fh.read()
+    for old, new in replace:
+        assert old in src, f"{filename} has no {old!r}"
+        src = src.replace(old, new)
     for name in PORTED_IMPORTS:
         src = src.replace(name, name.replace("distributed_tensorflow_tpu",
                                              "distributed_tensorflow_tpu_torch",
@@ -63,9 +71,11 @@ def mirror_module(filename: str) -> types.ModuleType:
     return mod
 
 
-def run_mirrored(fn, request):
-    """Call a mirrored test function with the fixtures it names."""
-    kwargs = {p: request.getfixturevalue(p)
+def run_mirrored(fn, request, given=None):
+    """Call a mirrored test function with the fixtures it names, or the
+    values in ``given`` (a parametrised case's arguments)."""
+    given = given or {}
+    kwargs = {p: given[p] if p in given else request.getfixturevalue(p)
               for p in inspect.signature(fn).parameters}
     return fn(**kwargs)
 

@@ -69,7 +69,12 @@ def test_every_port_module_imports_without_jax():
         "training.supervisor", "training.loop",
         # The reference trainer, async mode.
         "parallel.async_replicas", "cluster.param_sync", "training.elastic",
-        "utils.pytree")} <= set(_port_modules())
+        "utils.pytree",
+        # The serving fleet tier.
+        "serving.router", "serving.cells", "tools.serve_fleet",
+        "tools.serve_cell", "tools.coord_shard", "tools.loadgen",
+        "tools.watch_serve", "tools.summarize_run",
+        "tools.export_trace")} <= set(_port_modules())
 
 
 def test_the_native_coordination_library_is_built_from_the_port():
@@ -106,6 +111,80 @@ def test_no_port_file_or_chip_smoke_names_jax_in_an_import():
                                    "orbax", "ml_dtypes",
                                    "distributed_tensorflow_tpu"), \
                     f"{path} imports {name}"
+
+
+def _port_sources():
+    files = [os.path.join(REPO, "chip_smoke.py")]
+    for root, _, names in os.walk(os.path.dirname(port.__file__)):
+        files += [os.path.join(root, n) for n in names if n.endswith(".py")]
+    return files
+
+
+def _module_of(node, assigned):
+    """The module name an expression after ``"-m"`` evaluates to: a string,
+    or an f-string whose names bound to strings in the same file are
+    filled in (any other part reads ``{?}``); None for anything else."""
+    if isinstance(node, ast.Constant) and isinstance(node.value, str):
+        return node.value
+    if isinstance(node, ast.JoinedStr):
+        parts = []
+        for v in node.values:
+            if isinstance(v, ast.Constant):
+                parts.append(v.value)
+            elif (isinstance(v, ast.FormattedValue)
+                  and isinstance(v.value, ast.Name)
+                  and v.value.id in assigned):
+                parts.append(assigned[v.value.id])
+            else:
+                parts.append("{?}")
+        return "".join(parts)
+    return None
+
+
+def test_every_module_a_port_source_spawns_is_the_ports():
+    """A ``python -m`` target in a port source (or ``chip_smoke.py``) is
+    a module of the port: a fleet or cell copied with the JAX package's
+    name left in would spawn the JAX package's replicas.  No string in
+    them names a JAX module (``distributed_tensorflow_tpu.<...>``)."""
+    spawned = []
+    for path in _port_sources():
+        with open(path) as f:
+            tree = ast.parse(f.read(), path)
+        assigned = {t.id: node.value.value for node in ast.walk(tree)
+                    if isinstance(node, ast.Assign)
+                    and isinstance(node.value, ast.Constant)
+                    and isinstance(node.value.value, str)
+                    for t in node.targets if isinstance(t, ast.Name)}
+        docstrings = {id(n.body[0].value) for n in ast.walk(tree)
+                      if isinstance(n, (ast.Module, ast.FunctionDef,
+                                        ast.ClassDef))
+                      and n.body and isinstance(n.body[0], ast.Expr)
+                      and isinstance(n.body[0].value, ast.Constant)}
+        for node in ast.walk(tree):
+            if (isinstance(node, ast.Constant) and isinstance(node.value, str)
+                    and id(node) not in docstrings):
+                assert "distributed_tensorflow_tpu." not in node.value, \
+                    f"{path}: {node.value!r}"
+            if isinstance(node, (ast.List, ast.Tuple)):
+                elts = node.elts
+            elif isinstance(node, ast.Call):
+                elts = node.args
+            else:
+                continue
+            for i, e in enumerate(elts[:-1]):
+                if isinstance(e, ast.Constant) and e.value == "-m":
+                    mod = _module_of(elts[i + 1], assigned)
+                    assert mod is not None, f"{path}:{e.lineno}"
+                    spawned.append((os.path.basename(path), mod))
+    for where, mod in spawned:
+        assert mod.startswith("distributed_tensorflow_tpu_torch."), \
+            (where, mod)
+    assert {("serve_fleet.py", "distributed_tensorflow_tpu_torch.tools."
+             "serve"),
+            ("serve_cell.py", "distributed_tensorflow_tpu_torch.tools."
+             "coord_shard"),
+            ("serve_cell.py", "distributed_tensorflow_tpu_torch.tools."
+             "serve_fleet")} <= set(spawned)
 
 
 def test_entry_points_need_cuda_or_an_explicit_cpu(monkeypatch):

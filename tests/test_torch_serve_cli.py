@@ -16,6 +16,7 @@ import dataclasses
 import json
 import os
 import signal
+import socket
 import subprocess
 import sys
 import threading
@@ -28,10 +29,13 @@ import optax
 import pytest
 import torch
 
+from distributed_tensorflow_tpu.cluster import coordination as jcoord
 from distributed_tensorflow_tpu.models import gpt as jgpt
+from distributed_tensorflow_tpu.serving import hot_swap as jhot_swap
 from distributed_tensorflow_tpu.tools import serve as jserve
 from distributed_tensorflow_tpu.training.state import TrainState
 from distributed_tensorflow_tpu.training.supervisor import Supervisor
+from distributed_tensorflow_tpu_torch.cluster import coordination as tcoord
 from distributed_tensorflow_tpu_torch.models import gpt as tgpt
 from distributed_tensorflow_tpu_torch.serving.client import ServeClient
 from distributed_tensorflow_tpu_torch.serving.engine import (DecodeEngine,
@@ -42,6 +46,8 @@ from distributed_tensorflow_tpu_torch.serving.scheduler import Request
 from distributed_tensorflow_tpu_torch.tools import checkpoint_io
 from distributed_tensorflow_tpu_torch.tools import export_model as texport
 from distributed_tensorflow_tpu_torch.tools import serve as tserve
+from distributed_tensorflow_tpu_torch.training.supervisor import (
+    INIT_DONE_KEY)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 # f32 logits of the restored model against the JAX model's.
@@ -182,10 +188,98 @@ def test_model_watcher_load_failure_degrades_to_stale(tmp_path):
     assert watcher.current_step == 0
 
 
-def test_model_watcher_coordination_hint_is_not_ported(tmp_path):
-    with pytest.raises(NotImplementedError, match="ROADMAP.*slice 7"):
-        ModelWatcher(str(tmp_path), lambda s: None, lambda *a: None,
-                     coord_client=object())
+# The coordination hint (INIT_DONE_KEY, the chief's newest durable step),
+# through the port's watcher and the JAX package's with the same inputs:
+# each package's observer client on one in-process coordination service.
+WATCHERS = {"port": (ModelWatcher, tcoord.CoordinationClient),
+            "jax": (jhot_swap.ModelWatcher, jcoord.CoordinationClient)}
+
+
+@pytest.fixture()
+def coord():
+    srv = tcoord.CoordinationServer(port=0, num_tasks=1,
+                                    heartbeat_timeout=60.0)
+    srv.start()
+    yield srv
+    srv.stop()
+
+
+def _steps_on_disk(tmp_path, steps):
+    for step in steps:
+        d = tmp_path / "checkpoints" / str(step)
+        d.mkdir(parents=True)
+        (d / "data.bin").write_bytes(b"w" * 32)
+        checkpoint_io.write_manifest(str(d))
+
+
+def _hinted_watcher(side, tmp_path, port, hint, swapped, retry_budget=6.0):
+    watcher_cls, client_cls = WATCHERS[side]
+    client = client_cls.observer("127.0.0.1", port,
+                                 retry_budget=retry_budget)
+    if hint is not None:
+        client.kv_set(INIT_DONE_KEY, str(hint))
+    watcher = watcher_cls(
+        str(tmp_path), lambda step: {"step": step},
+        lambda params, step: swapped.append(step), initial_step=2,
+        coord_client=client)
+    return watcher, client
+
+
+@pytest.mark.parametrize("side", sorted(WATCHERS))
+def test_model_watcher_hint_at_or_below_current_skips_the_scan(
+        side, coord, tmp_path):
+    """The chief's hint says nothing newer than the served step is
+    durable: the poll ends on one KV read, so step 5 on disk is not
+    seen until the hint moves."""
+    _steps_on_disk(tmp_path, (2, 5))
+    swapped = []
+    for hint in (1, 2):
+        watcher, client = _hinted_watcher(side, tmp_path, coord.port, hint,
+                                          swapped)
+        try:
+            assert watcher.poll_once() is None
+        finally:
+            client.close()
+    assert swapped == [] and watcher.current_step == 2
+
+
+@pytest.mark.parametrize("side", sorted(WATCHERS))
+def test_model_watcher_hint_above_current_lets_the_swap_proceed(
+        side, coord, tmp_path):
+    _steps_on_disk(tmp_path, (2, 5))
+    swapped = []
+    watcher, client = _hinted_watcher(side, tmp_path, coord.port, 5, swapped)
+    try:
+        assert watcher.poll_once() == 5
+    finally:
+        client.close()
+    assert swapped == [5] and watcher.current_step == 5
+
+
+@pytest.mark.parametrize("side", sorted(WATCHERS))
+def test_model_watcher_unreachable_service_degrades_to_the_directory_poll(
+        side, coord, tmp_path):
+    """No hint (the key unset), then no service at all: the directory
+    scan is the ground truth both times."""
+    _steps_on_disk(tmp_path, (2, 5, 7))
+    swapped = []
+    watcher, client = _hinted_watcher(side, tmp_path, coord.port, None,
+                                      swapped)
+    try:
+        assert watcher.poll_once() == 7
+    finally:
+        client.close()
+    with socket.socket() as sock:           # a port nothing listens on
+        sock.bind(("127.0.0.1", 0))
+        dead = sock.getsockname()[1]
+    watcher, client = _hinted_watcher(side, tmp_path, dead, None, swapped,
+                                      retry_budget=0.2)
+    (tmp_path / "checkpoints" / "7" / "data.bin").write_bytes(b"w" * 31)
+    try:
+        assert watcher.poll_once() == 5     # 7 no longer verifies
+    finally:
+        client.close()
+    assert swapped == [7, 5]
 
 
 # ------------------------------------------------------------- the CLI
@@ -212,8 +306,11 @@ def test_render_statz_prints_the_references_table():
 
 def test_cli_refuses_what_it_cannot_do(run, monkeypatch, capsys):
     logdir, _ = run
-    with pytest.raises(NotImplementedError, match="ROADMAP.*slice 7"):
-        tserve.main(["--logdir", str(logdir), "--coord", "localhost:1"])
+    # --coord must name HOST:PORT (the JAX CLI's parser error).
+    with pytest.raises(SystemExit):
+        tserve.main(["--logdir", str(logdir), "--device", "cpu", "--port",
+                     "0", "--coord", "localhost"])
+    assert "--coord must be HOST:PORT" in capsys.readouterr().err
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="--device=cpu"):
         tserve.main(["--logdir", str(logdir)])
@@ -321,3 +418,42 @@ def test_serve_cli_hot_swaps_mid_stream_with_nothing_dropped(run,
     assert (swap["from_model_step"], swap["to_model_step"]) == (1, 2)
     served = [r for r in records if r.get("kind") == "serve_request"]
     assert {r.get("tenant") for r in served} >= {"alice", "bob"}
+
+
+def test_serve_cli_coord_stamps_clock_sync_and_prints_launches_on_exit(
+        run, coord, tmp_path):
+    """``--coord``: the CLI consults the service (an observer: it never
+    registers) and stamps one ``clock_sync`` record against it, and its
+    clean exit on SIGTERM prints ``kernel launches {json}`` with every
+    counter at zero (on the CPU the kernels' plain versions ran)."""
+    logdir, _ = run
+    metrics = tmp_path / "serve.jsonl"
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env.update(PYTHONPATH=REPO, OMP_NUM_THREADS="1")
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "distributed_tensorflow_tpu_torch.tools.serve",
+         "--logdir", str(logdir), "--port", "0", "--device", "cpu",
+         "--slots", "2", "--page_size", "8", "--num_pages", "32",
+         "--max_pages_per_seq", "8", "--metrics_file", str(metrics),
+         "--hot_swap", "--swap_poll_s", "0.2",
+         "--coord", f"127.0.0.1:{coord.port}"],
+        env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    try:
+        line, seen = _read_banner(proc)
+        assert line.startswith("serving gpt_mini "), "".join(seen)
+        port = int(line.split(" on :")[1].split(" ")[0])
+        client = ServeClient(f"http://127.0.0.1:{port}", timeout_s=120.0)
+        assert len(client.generate([3, 4, 5], 4)["tokens"]) == 7
+    finally:
+        proc.send_signal(signal.SIGTERM)
+        out, _ = proc.communicate(timeout=60)
+    assert proc.returncode == 0, out
+    (launches,) = [x for x in out.splitlines()
+                   if x.startswith("kernel launches ")]
+    counts = json.loads(launches[len("kernel launches "):])
+    assert {"flash_attention_fwd", "layer_norm_fwd"} <= set(counts)
+    assert not any(counts.values())
+    records = [json.loads(x) for x in metrics.read_text().splitlines()]
+    (sync,) = [r for r in records if r.get("kind") == "clock_sync"]
+    assert sync["source"] == "coord_time" and sync["rtt_ms"] >= 0
+    assert abs(sync["offset_ms"]) < 1000.0      # one host, one clock
