@@ -30,7 +30,11 @@ Phases, one JSON line each on stdout:
    fp32 sums as the ring calls them (held bit for bit to the out-of-place
    partial + ``add_``, a chunk in the future leaving the sums untouched,
    two calls bit-equal), then the 4-shard ring
-   over them against K1/K2 on the whole sequence; K8, on no path, at the
+   over them against K1/K2 on the whole sequence; K1, K2a and K2b also at
+   the train_parallel arms' per-shard shapes (8 and 4 heads of the train
+   step; the parallel CLI's gpt_mini, 1 head a seq device), K6, K7a and
+   K7b at the tp2 x ring2 step's hops ([8, 512, 8, 128]: visible,
+   diagonal, future); K8, on no path, at the
    int8 MLP's mlp_in dgrad shape, with and without g, also as its three
    launches apart, as K4's; K3 also at the chunked prefill's dispatch
    and the speculative verify's rows; K1 at the generate phase's prefill
@@ -96,7 +100,8 @@ Phases, one JSON line each on stdout:
    memory); in this process, an engine on the restored tree gives the
    in-memory engine's tokens with K1 8 a prefill and K3 17 a prefill or
    step; ``train.py --mode=generate`` greedy, beam 4 and speculative 8,
-   each a process, give the in-process decode family's tokens.  It
+   three processes side by side, give the in-process decode family's
+   tokens.  It
    prints the write and restore GB/s, the CLI's startup seconds, the
    time from step 2's rename into place to its adoption, and tokens/s.
 9. ``fleet``: the serving fleet tier on the same model, saved as the
@@ -153,7 +158,25 @@ Phases, one JSON line each on stdout:
     steps with exact launch counts (K6, K7a, K7b each 4 shards x 4 hops x
     8 layers = 128 per step, K3 17, K1/K2 none), a falling loss, and the
     ``train_ring_profile`` line.
-13. ``trainer``: the port's trainer CLI (``train.py``) as processes.
+13. ``train_parallel``: the same step with its mesh positions on the
+    card (``ParallelConfig.place_state``: ``gpt_sharding_rules`` over the
+    model axis, Megatron's split), four arms: ``tp2`` (pallas, seq=1 x
+    model=2), ``ulysses4`` (seq=4), ``tp2_ring2`` (each model column its
+    own ring over its 8 heads) and ``tp2_ulysses2``.  Each arm: one step
+    (the shards' gradients gathered) against the unsharded pallas step
+    under the TRAIN_* tolerances, ``PARALLEL["steps"]`` steps with exact
+    launches per shard (K1/K2a/K2b once a layer per (model column, seq
+    device); K6/K7a/K7b once a hop per (model column, seq shard); K3 2L +
+    1, replicated) and a falling loss; it prints step ms, its ratio to
+    the ``train`` phase's, MFU and peak memory, and a
+    ``train_parallel_profile`` line (one profiled step).  Then
+    ``train_parallel_cli``: ``train.py --model=gpt_mini
+    --tensor_parallel=2 --sequence_parallel=2 --attention_backend=ulysses
+    --fused_layer_norm --log_sharding`` (``--device=cuda``: four positions
+    on the one card, as its layout line says; B=32, S=512, 29 steps), its
+    launches exact, then ``--mode=eval`` (its test accuracy) and
+    ``--mode=generate`` (an in-process decode's tokens) on its logdir.
+14. ``trainer``: the port's trainer CLI (``train.py``) as processes.
     ``trainer_reference``: the reference job with
     ``examples/launch_local_cluster.sh``'s flags (one PS and two sync
     workers, MNIST MLP 784-100-10, global batch 100, 200 steps, lr 0.01,
@@ -170,13 +193,14 @@ Phases, one JSON line each on stdout:
     one worker and no PS; gates: its K1, K2a, K2b and K3 launches exactly
     as its steps and eval forwards predict, a falling loss, ``--mode=eval``
     on its logdir reproducing its test accuracy, ``--mode=generate``'s
-    greedy tokens equal to an in-process decode of the restored tree.
+    greedy tokens equal to an in-process decode of the restored tree
+    (eval and generate side by side).
     It prints step ms, tokens/s and peak memory, and
     ``trainer_gpt_profile`` the busy share of the same bundle's step in
     this process.  The K1/K2a/K2b/K3 rows' ``trainer`` paths hold the
     kernels at this run's shapes (the ``kernels`` phase's ``trainer``
     cases) with its launches.
-14. ``async_trainer``: the trainer in async mode (``--sync_replicas=
+15. ``async_trainer``: the trainer in async mode (``--sync_replicas=
     false``, one replica a worker, the workers averaging through the
     coordination service), processes on the one card.
     ``async_reference``: the reference job with ``--async_sync_period=4``,
@@ -224,7 +248,12 @@ with the bf16 ``generate_cached`` arm's launches; their ``checkpoint``:
 the serve prefill's case, with the restored engine's launches; their
 ``fleet``: the serve prefill's case, with the replicas' summed launches;
 K1-K3's
-``trainer``: the gpt_mini trainer CLI's shapes and launches), K4/K5/K8 rows list
+``trainer``: the gpt_mini trainer CLI's shapes and launches; K1-K3's
+and K6/K7's ``train_parallel_<arm>``: each arm's per-shard shape, K1/K2
+[8, 1024, 8, 128] for tp2 and [8, 1024, 4, 128] for the ulysses arms,
+K6/K7 the tp2 x ring2 hop mean at [8, 512, 8, 128], with the arm's
+launches; K1-K3's ``train_parallel_cli``: K1/K2 at [32, 512, 1, 32] and
+K3 at the trainer's rows, with the parallel CLI's launches), K4/K5/K8 rows list
 their call sites or variants under ``sites``, and K6's ``hop_kinds``
 hold its visible and diagonal hops' own times and ratios to SDPA, K7a's
 and K7b's every hop kind's, with the pair's ratio to SDPA's backward.
@@ -350,6 +379,14 @@ ATTN_INT8_STEPS = 5
 # The ring train step's mesh: four sequence shards of 256 on the one card
 # (data=1, seq=4).
 RING_SEQ = 4
+# The train_parallel phase: each arm (name, seq, model, attention) on
+# [cuda0] * (seq x model) at GPT-406M width for `steps` steps; then the
+# trainer CLI with tp2 x ulysses2 at mini()'s width (B=32, S=512).
+PARALLEL = dict(steps=10, arms=(("tp2", 1, 2, "pallas"),
+                                ("ulysses4", 4, 1, "ulysses"),
+                                ("tp2_ring2", 2, 2, "ring"),
+                                ("tp2_ulysses2", 2, 2, "ulysses")),
+                cli_batch=32, cli_seq=512, cli_steps=30, gen_tokens=16)
 # The trainer phase.  The reference job: examples/launch_local_cluster.sh's
 # flags (200 steps, global batch 100, hidden 100, lr 0.01, synthetic MNIST).
 # The JAX CLI with the same flags on a CPU (one worker, the same global
@@ -642,16 +679,33 @@ def check_kernels(dev):
         dev, g, mini["heads"], mini["head_dim"], S=TRAINER["gpt_seq"],
         cases=[("trainer", TRAINER["gpt_batch"], None, True, 0,
                 mini["head_dim"])])
+    # The train_parallel arms' per-shard shapes: tp2's 8 heads a model
+    # column, ulysses' 4 heads a seq device (ulysses4, and tp2 x ulysses2's
+    # 8 heads a column over 2 seq devices).
+    k2p = {arm: check_backward_kernels(
+        dev, g, h, D, cases=[(arm, TRAIN["batch"], None, True, 0, D)])
+        for arm, h in (("tp2", H // 2), ("ulysses", H // 4))}
+    # The parallel CLI's gpt_mini at tp2 x ulysses2: its 4 heads, 2 a model
+    # column, give each seq device 1 head of the whole sequence.
+    k2p["cli"] = check_backward_kernels(
+        dev, g, mini["heads"] // 4, mini["head_dim"], S=PARALLEL["cli_seq"],
+        cases=[("train_parallel_cli", PARALLEL["cli_batch"], None, True, 0,
+                mini["head_dim"])])
     k45 = check_int8_kernels(dev, g)
     k67 = check_ring_kernels(dev, g)
-    k1_all = k1_cases + [k2["fwd"], k2t["fwd"]]
+    k67p = check_parallel_ring_kernels(dev, g)
+    k1_all = k1_cases + [k2["fwd"], k2t["fwd"]] + [
+        r["fwd"] for r in k2p.values()]
+    k2_dq = k2["dq"] + k2t["dq"] + [r["dq"][0] for r in k2p.values()]
+    k2_dkv = k2["dkv"] + k2t["dkv"] + [r["dkv"][0] for r in k2p.values()]
     emit("kernels", flash_attention_fwd=k1_all,
-         layer_norm_fwd=k3_cases, flash_attention_bwd_dq=k2["dq"] + k2t["dq"],
-         flash_attention_bwd_dkv=k2["dkv"] + k2t["dkv"],
+         layer_norm_fwd=k3_cases, flash_attention_bwd_dq=k2_dq,
+         flash_attention_bwd_dkv=k2_dkv,
          quant_matmul=k45["k4"],
-         quant_matmul_nt=k45["k5"], flash_attention_chunk=k67["k6"],
-         flash_attention_chunk_dq=k67["k7a"],
-         flash_attention_chunk_dkv=k67["k7b"],
+         quant_matmul_nt=k45["k5"],
+         flash_attention_chunk=k67["k6"] + k67p["k6"],
+         flash_attention_chunk_dq=k67["k7a"] + k67p["k7a"],
+         flash_attention_chunk_dkv=k67["k7b"] + k67p["k7b"],
          ring_vs_flash=k67["ring_vs_flash"],
          quant_matmul_dgelu=k45["k8"])
 
@@ -706,7 +760,9 @@ def check_kernels(dev):
     # their own time over SDPA's.
     k6 = summary("flash_attention_chunk", "flash_attention_chunk.cu",
                  "flash_attention.py:624", "train_ring",
-                 {"train_ring": k67["k6"][0]}, k67["k6"])
+                 {"train_ring": k67["k6"][0],
+                  "train_parallel_tp2_ring2": k67p["k6"][0]},
+                 k67["k6"] + k67p["k6"])
     k6["hop_kinds"] = {c["case"]: {k: c[k] for k in (
         "ms", "device_ms", "library_ms", "ratio_to_library")}
         for c in k67["k6"] if c["case"] in ("visible", "diagonal")}
@@ -717,18 +773,34 @@ def check_kernels(dev):
                             ("k7b", "flash_attention_chunk_dkv", 796)):
         k7[key] = summary(name, "flash_attention_chunk.cu",
                           f"flash_attention.py:{line}", "train_ring",
-                          {"train_ring": k67[key][0]}, k67[key])
+                          {"train_ring": k67[key][0],
+                           "train_parallel_tp2_ring2": k67p[key][0]},
+                          k67[key] + k67p[key])
         k7[key]["hop_kinds"] = {c["case"]: {k: c[k] for k in (
             "ms", "device_ms", "out_of_place_ms", "library_ms",
             "pair_ratio_to_library")}
             for c in k67[key] if c["case"] in ("visible", "diagonal",
                                                "future")}
+    # The train_parallel arms' paths, each with the per-shard case of its
+    # kernels' shape; the CLI's K3 rows are the trainer's (16384 x 128).
+    flash_arms = {"train_parallel_tp2": "tp2",
+                  "train_parallel_ulysses4": "ulysses",
+                  "train_parallel_tp2_ulysses2": "ulysses",
+                  "train_parallel_cli": "cli"}
+
+    def arms(kind):
+        return {path: k2p[arm][kind] if kind == "fwd" else k2p[arm][kind][0]
+                for path, arm in flash_arms.items()}
+    k3_arms = {path: k3_cases[2] for path in (
+        *flash_arms, "train_parallel_tp2_ring2")}
+    k3_arms["train_parallel_cli"] = k3_cases[6]
     return [
         summary("flash_attention_fwd", "flash_attention.cu",
                 "flash_attention.py:119", "train",
                 {"serve": k1_cases[0], "train": k2["fwd"],
                  "generate": k1_cases[5], "checkpoint": k1_cases[0],
-                 "fleet": k1_cases[0], "trainer": k2t["fwd"]},
+                 "fleet": k1_cases[0], "trainer": k2t["fwd"],
+                 **arms("fwd")},
                 k1_all),
         # Serving launches K3 at its prefill and its decode rows: both
         # rows carry the serving run's launches (one counter).
@@ -740,16 +812,16 @@ def check_kernels(dev):
                           "generate": k3_cases[5],
                           "checkpoint": k3_cases[0],
                           "fleet": k3_cases[0],
-                          "trainer": k3_cases[6]},
+                          "trainer": k3_cases[6], **k3_arms},
                 k3_cases),
         summary("flash_attention_bwd_dkv", "flash_attention_bwd.cu",
                 "flash_attention.py:425", "train",
-                {"train": k2["dkv"][0], "trainer": k2t["dkv"][0]},
-                k2["dkv"] + k2t["dkv"]),
+                {"train": k2["dkv"][0], "trainer": k2t["dkv"][0],
+                 **arms("dkv")}, k2_dkv),
         summary("flash_attention_bwd_dq", "flash_attention_bwd.cu",
                 "flash_attention.py:465", "train",
-                {"train": k2["dq"][0], "trainer": k2t["dq"][0]},
-                k2["dq"] + k2t["dq"]),
+                {"train": k2["dq"][0], "trainer": k2t["dq"][0],
+                 **arms("dq")}, k2_dq),
         # Each runs at two call sites per layer of the int8 step: the
         # row's numbers are the mlp_in site's (K4 its forward, K5 its
         # dgrad with g), ``sites`` has both.
@@ -895,7 +967,7 @@ def check_backward_kernels(dev, g, H, D, S=None, cases=None):
 
 
 def ring_chunk_case(dev, g, fused, name, q_off, k_off, *, causal=True,
-                    window=0, masked=False) -> dict:
+                    window=0, masked=False, shards=RING_SEQ) -> dict:
     """K6, K7a and K7b on one (query shard, key chunk) pair of the ring
     path against their plain versions: q the shard of ``fused`` [B, S, 3,
     H, D] at ``q_off``, k and v the chunk at ``k_off`` (views, as the ring
@@ -906,7 +978,7 @@ def ring_chunk_case(dev, g, fused, name, q_off, k_off, *, causal=True,
     from distributed_tensorflow_tpu_torch.ops import flash_attention as fa
     from distributed_tensorflow_tpu_torch.utils.cuda_timing import graph_ms
     B, S, _, H, D = fused.shape
-    n = S // RING_SEQ
+    n = S // shards
     q = fused[:, q_off:q_off + n, 0]
     k, v = fused[:, k_off:k_off + n, 1], fused[:, k_off:k_off + n, 2]
     mask = None
@@ -1158,7 +1230,17 @@ def check_ring_kernels(dev, g) -> dict:
                                             k_off, **kw).items():
                 rows[key].append(row)
         del fused
-    weights = {"visible": 6, "diagonal": 4, "future": 6}
+    hop_mean(rows, {"visible": 6, "diagonal": 4, "future": 6},
+             "train_ring_hop_mean")
+    rows["ring_vs_flash"] = ring_vs_flash(dev, g)
+    torch.cuda.empty_cache()
+    return rows
+
+
+def hop_mean(rows: dict, weights: dict, label: str) -> None:
+    """Put first in each of ``rows``' K6/K7a/K7b lists the per-launch mean
+    over one step's hops, ``weights`` counting each hop kind's (shard,
+    chunk) pairs."""
     for key, cs in rows.items():
         mix = [c for c in cs if c["case"] in weights]
         total = sum(weights.values())
@@ -1175,12 +1257,35 @@ def check_ring_kernels(dev, g) -> dict:
                     if c["case"] in weights) / total
                 for kk in ("k7a", "k7b"))
             row["pair_ratio_to_library"] = row["pair_ms"] / row["library_ms"]
-        row.update(case="train_ring_hop_mean", hops=dict(weights),
+        row.update(case=label, hops=dict(weights),
                    max_abs_err=max(c["max_abs_err"] for c in mix),
                    bound_by=max(mix, key=lambda c: c["bound_ms"])[
                        "bound_by"], library=mix[0]["library"])
         rows[key].insert(0, row)
-    rows["ring_vs_flash"] = ring_vs_flash(dev, g)
+
+
+def check_parallel_ring_kernels(dev, g) -> dict:
+    """K6, K7a and K7b at the tp2 x ring2 step's per-hop shape: each model
+    column's ring over its 8 heads, q/k/v shards [8, 512, 8, 128] of the
+    fused projection.  Of a 2-shard causal ring's 4 (shard, chunk) pairs 1
+    is visible, 2 diagonal, 1 in the future: the row is their per-launch
+    mean."""
+    import torch
+    B, S = TRAIN["batch"], TRAIN["seq_len"]
+    H = WIDTH["num_heads"] // 2
+    D = WIDTH["hidden_size"] // WIDTH["num_heads"]
+    n = S // 2
+    fused = torch.randn(B, S, 3, H, D, generator=g, device=dev,
+                        dtype=torch.float32).to(torch.bfloat16)
+    rows = {"k6": [], "k7a": [], "k7b": []}
+    for name, q_off, k_off in (("visible", n, 0), ("diagonal", 0, 0),
+                               ("future", 0, n)):
+        for key, row in ring_chunk_case(dev, g, fused, name, q_off, k_off,
+                                        shards=2).items():
+            rows[key].append(row)
+    hop_mean(rows, {"visible": 1, "diagonal": 2, "future": 1},
+             "train_parallel_tp2_ring2_hop_mean")
+    del fused
     torch.cuda.empty_cache()
     return rows
 
@@ -2007,13 +2112,16 @@ def generate_phase(dev, model) -> dict:
 
 class CliProcess:
     """A port CLI as a process of its own beside this one: its output
-    drained by a thread, stopped (SIGTERM, then SIGKILL) on exit."""
+    drained by a thread, stopped (SIGTERM, then SIGKILL) on exit.
+    ``ended``: the ``perf_counter`` time its output closed (its own end,
+    when processes run side by side)."""
 
     def __init__(self, module: str, *args):
         root = os.path.dirname(os.path.abspath(__file__))
         env = dict(os.environ, PYTHONPATH=root)
         self.lines: queue.Queue = queue.Queue()
         self.seen: list = []
+        self.ended = None
         self.proc = subprocess.Popen(
             [sys.executable, "-m", f"distributed_tensorflow_tpu_torch.{module}",
              *map(str, args)], cwd=root, env=env, text=True,
@@ -2023,6 +2131,7 @@ class CliProcess:
     def _drain(self):
         for line in self.proc.stdout:
             self.lines.put(line)
+        self.ended = time.perf_counter()
         self.lines.put(None)
 
     def wait_for(self, prefix: str, timeout_s: float) -> str:
@@ -2054,26 +2163,29 @@ class CliProcess:
                 self.proc.wait()
 
 
-def generate_cli(dev, logdir, prompt, *flags) -> tuple[list, float, list]:
-    """``train.py --mode=generate`` as a process: its generated tokens,
-    wall seconds and output lines."""
-    root = os.path.dirname(os.path.abspath(__file__))
+def generate_clis(dev, logdir, runs) -> list:
+    """``train.py --mode=generate`` as processes, one for each ``(prompt,
+    flags)`` of ``runs``, all started together (each restores the same
+    checkpoint): each one's generated tokens, wall seconds (from the
+    common start to its own end) and output lines."""
     t0 = time.perf_counter()
-    out = subprocess.run(
-        [sys.executable, "-m", "distributed_tensorflow_tpu_torch.train",
-         "--mode=generate", "--model=gpt_mini", f"--logdir={logdir}",
-         f"--device={dev}", f"--gen_tokens={NEW_TOKENS}",
-         "--gen_prompt=" + ",".join(map(str, prompt)), *flags],
-        cwd=root, env=dict(os.environ, PYTHONPATH=root), text=True,
-        capture_output=True, timeout=600)
-    seconds = time.perf_counter() - t0
-    lines = out.stdout.splitlines()
-    if out.returncode or "Restored global step: 2" not in lines:
-        raise AssertionError(f"train --mode=generate {flags}: rc "
-                             f"{out.returncode}\n{out.stdout[-3000:]}"
-                             f"{out.stderr[-3000:]}")
-    (gen,) = [x for x in lines if x.startswith("Generated tokens:")]
-    return [int(t) for t in gen.split(":", 1)[1].split()], seconds, lines
+    with contextlib.ExitStack() as stack:
+        procs = [stack.enter_context(CliProcess(
+            "train", "--mode=generate", "--model=gpt_mini",
+            f"--logdir={logdir}", f"--device={dev}",
+            f"--gen_tokens={NEW_TOKENS}",
+            "--gen_prompt=" + ",".join(map(str, prompt)), *flags))
+            for prompt, flags in runs]
+        outs = []
+        for proc, (_, flags) in zip(procs, runs):
+            lines = [x.rstrip("\n") for x in finish(proc, 600)]
+            if "Restored global step: 2" not in lines:
+                raise AssertionError(f"train --mode=generate {flags}: "
+                                     + "\n".join(lines[-40:]))
+            gen = line_value(lines, "Generated tokens:")
+            outs.append(([int(t) for t in gen.split()], proc.ended - t0,
+                         lines))
+    return outs
 
 
 def checkpoint_phase(dev, smi: str, model, whole: dict) -> dict:
@@ -2246,20 +2358,22 @@ def checkpoint_phase(dev, smi: str, model, whole: dict) -> dict:
         del restored, params
 
         # train.py --mode=generate, against the decode family in process
-        # on the step-2 weights.
+        # on the step-2 weights; the three processes run side by side
+        # (``wall_s``: from the common start to each one's own end).
         rand, phrase = generate_prompts(WIDTH["vocab_size"])
         arms = {}
-        for name, prompt, flags, ref in (
-                ("greedy", rand[0], (), lambda p: gpt.generate_cached(
+        runs = (("greedy", rand[0], (), lambda p: gpt.generate_cached(
                     model2, None, p, NEW_TOKENS)),
                 ("beam_4", rand[0], ("--gen_beams=4",),
                  lambda p: gpt.beam_search_cached(
                      model2, None, p, NEW_TOKENS, beam_size=4)[0]),
                 ("speculative_8", phrase[0], ("--gen_speculative=8",),
                  lambda p: gpt.generate_cached_speculative_device(
-                     model2, None, p, NEW_TOKENS, spec_k=8)[0])):
-            toks, seconds, lines = generate_cli(dev, tmp, prompt.tolist(),
-                                                *flags)
+                     model2, None, p, NEW_TOKENS, spec_k=8)[0]))
+        outs = generate_clis(dev, tmp, [(prompt.tolist(), flags)
+                                        for _, prompt, flags, _ in runs])
+        for (name, prompt, _, ref), (toks, seconds, lines) in zip(runs,
+                                                                   outs):
             want = ref(prompt[None]).cpu()[0, prompt.size:].tolist()
             if toks != want:
                 raise AssertionError(f"train --mode=generate {name}: first "
@@ -2782,15 +2896,21 @@ def gpt_train_flops(cfg, B: int, S: int) -> float:
 
 def step_grads(model, loss_fn, batch, ctx=None):
     """One step's loss and flattened fp32 gradients of ``model`` (under
-    ``ctx``), leaving no gradient behind."""
+    ``ctx``) in parameter-name order, a parameter split over the model
+    axis gathered whole, leaving no gradient behind."""
     import contextlib
     import torch
+    from distributed_tensorflow_tpu_torch.parallel.sharding import (
+        gather_named)
     model.train()
     model.zero_grad(set_to_none=True)
     with ctx or contextlib.nullcontext():
         loss, _ = loss_fn(model, batch)
         loss.backward()
-    grads = torch.cat([p.grad.float().flatten() for p in model.parameters()])
+    grads = gather_named(model, {n: p.grad for n, p in
+                                 model.named_parameters()})
+    grads = torch.cat([g.float().flatten().to(loss.device)
+                       for _, g in sorted(grads.items())])
     model.zero_grad(set_to_none=True)
     return loss.item(), grads
 
@@ -2923,12 +3043,14 @@ def reset_launch_counts() -> None:
 
 
 def train_run(dev, cfg, steps: int, check=None, profile=True,
-              mesh=None, named=None) -> dict:
+              mesh=None, named=None, place=None) -> dict:
     """The flagship step of ``cfg`` (fp32 masters, Adam, B=8, S=1024, the
-    synthetic stream from its seed; ``mesh``: the ring backend's): the
-    kernel-vs-plain ``check(model, loss_fn, batch)`` when given, then
-    ``steps`` steps with the launch counters set to 0 just before and read
-    just after, then one profiled step."""
+    synthetic stream from its seed; ``mesh``: the sequence-parallel
+    backends' and the tensor-parallel heads'; ``place(state)``: the
+    layout's placement, ``ParallelConfig.place_state``): the
+    kernel-vs-plain ``check(model, loss_fn, batch)`` when given, on the
+    placed model, then ``steps`` steps with the launch counters set to 0
+    just before and read just after, then one profiled step."""
     import torch
     from distributed_tensorflow_tpu_torch.data.lm import make_lm_datasets
     from distributed_tensorflow_tpu_torch.models import gpt
@@ -2950,10 +3072,14 @@ def train_run(dev, cfg, steps: int, check=None, profile=True,
         loss, acc = gpt.lm_loss(m(tokens), tokens)
         return loss, {"accuracy": acc}
 
+    state = TrainState.create(model, make_optimizer("adam", TRAIN["lr"]),
+                              params_to_tree=gpt.params_to_jax,
+                              params_from_tree=gpt.params_from_jax)
+    if place is not None:
+        state = place(state)
     checked = None
     if check is not None:
-        checked = check(model, loss_fn, data.next_batch(B))
-    state = TrainState.create(model, make_optimizer("adam", TRAIN["lr"]))
+        checked = check(state.model, loss_fn, data.next_batch(B))
     step = build_sync_train_step(loss_fn, log_grad_norm=True)
     batches = [data.next_batch(B) for _ in range(steps + 1)]
     torch.cuda.synchronize()
@@ -3149,6 +3275,167 @@ def train_ring(dev, smi: str, bf16: dict):
     return run["launches"]
 
 
+def check_parallel_step(dev, model, loss_fn, batch) -> dict:
+    """One step of the placed model (its shards' gradients gathered)
+    against the unsharded pallas step (K1/K2 over the whole sequence and
+    every head) with the same weights and batch."""
+    import torch
+    from distributed_tensorflow_tpu_torch.models import gpt
+    from distributed_tensorflow_tpu_torch.parallel.sharding import (
+        gather_named)
+    tols = (TRAIN_LOSS_TOL, TRAIN_GRAD_NORM_RTOL, TRAIN_GRAD_MIN_COS)
+    pallas = gpt.GptLM(dataclasses.replace(
+        model.cfg, attention_backend="pallas"), device=dev,
+        param_dtype=torch.float32)
+    pallas.load_state_dict(gather_named(model, model.state_dict()))
+    kernel = step_grads(model, loss_fn, batch)
+    out = dict(batch=len(batch["tokens"]), vs_pallas=compare_steps(
+        kernel, step_grads(pallas, loss_fn, batch), tols,
+        ("parallel", "pallas")), loss_tol=tols[0], grad_norm_rtol=tols[1],
+        grad_min_cos=tols[2])
+    del pallas, kernel
+    torch.cuda.empty_cache()
+    return out
+
+
+def parallel_launches(L: int, seq: int, model: int, backend: str) -> dict:
+    """One step's launches on a seq x model mesh: K1/K2 once a layer per
+    (model column, seq device) for pallas and ulysses (each seq device
+    attends over its head block of the whole sequence), K6/K7 once a hop
+    per (model column, seq shard) for the causal ring (``seq`` hops), and
+    K3 2L + 1 on the replicated residual stream."""
+    per = {"layer_norm_fwd": 2 * L + 1}
+    if backend == "ring":
+        for name in ("flash_attention_chunk", "flash_attention_chunk_dq",
+                     "flash_attention_chunk_dkv"):
+            per[name] = L * model * seq * seq
+    else:
+        for name in ("flash_attention_fwd", "flash_attention_bwd_dq",
+                     "flash_attention_bwd_dkv"):
+            per[name] = L * model * seq
+    return per
+
+
+def train_parallel(dev, smi: str, bf16: dict) -> dict:
+    """Phase ``train_parallel``: the train step at GPT-406M width with its
+    positions on the one card, placed by ``ParallelConfig.place_state``
+    (``gpt_sharding_rules`` over the model axis): each arm's first step
+    against the unsharded pallas step, then ``PARALLEL["steps"]`` steps
+    with exact launches and a falling loss, and a profiled step (the
+    ``train_parallel_profile`` line); then the trainer CLI with
+    ``--tensor_parallel=2 --sequence_parallel=2
+    --attention_backend=ulysses``.  Returns each arm's launches by path
+    name."""
+    from distributed_tensorflow_tpu_torch.models import gpt
+    from distributed_tensorflow_tpu_torch.parallel.mesh import ParallelConfig
+    t0 = time.perf_counter()
+    out = {}
+    for arm, seq, model_axis, backend in PARALLEL["arms"]:
+        pc = ParallelConfig(model=model_axis, seq=seq, attention=backend)
+        mesh = pc.build_mesh([dev] * (seq * model_axis))
+        cfg = gpt.GptConfig(**{**WIDTH, "attention_backend": backend})
+        run = train_run(
+            dev, cfg, PARALLEL["steps"], mesh=mesh,
+            place=lambda st: pc.place_state(mesh, st,
+                                            gpt.gpt_sharding_rules()),
+            check=lambda m, f, b: check_parallel_step(dev, m, f, b))
+        per_step = parallel_launches(cfg.num_layers, seq, model_axis, backend)
+        expect_launches(f"train_parallel {arm}", run["launches"], per_step,
+                        PARALLEL["steps"])
+        falls(f"train_parallel {arm}", run)
+        emit("train_parallel_profile", arm=arm, **run.pop("profiled"))
+        emit("train_parallel", arm=arm, model="gpt_406m_width", card=smi,
+             layout=pc.describe(), mesh=dict(data=1, seq=seq,
+                                             model=model_axis,
+                                             devices=str(dev)),
+             attention=backend, launches_per_step=per_step,
+             step_ms_ratio_to_bf16=run["step_ms_median"]
+             / bf16["step_ms_median"],
+             bf16_step_ms_median=bf16["step_ms_median"], **run)
+        out[f"train_parallel_{arm}"] = run["launches"]
+    arms_s = time.perf_counter() - t0
+    out["train_parallel_cli"] = parallel_cli(dev, smi)
+    emit("train_parallel_done", arms_s=arms_s,
+         seconds=time.perf_counter() - t0)
+    return out
+
+
+def parallel_cli(dev, smi: str) -> dict:
+    """``train.py --model=gpt_mini --tensor_parallel=2 --sequence_parallel=2
+    --attention_backend=ulysses --fused_layer_norm`` on the card (its four
+    positions on the one card, as the CLI prints), with
+    ``--log_sharding``; then ``--mode=eval`` (gate: the trained process's
+    test accuracy) and ``--mode=generate`` (gate: an in-process decode of
+    the restored tree) on its logdir.  Gate: its launches exactly as its
+    steps and eval forwards predict."""
+    from distributed_tensorflow_tpu_torch.models import gpt
+    T = PARALLEL
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_parallel_")
+    try:
+        logdir = os.path.join(tmp, "run")
+        common = ["--model=gpt_mini", "--tensor_parallel=2",
+                  "--sequence_parallel=2", "--attention_backend=ulysses",
+                  "--fused_layer_norm", f"--bert_seq_len={T['cli_seq']}",
+                  f"--batch_size={T['cli_batch']}", f"--logdir={logdir}",
+                  # No card index: the CLI lays the positions round robin
+                  # over the visible cards (here all on the one).
+                  f"--device={dev.type}", "--job_name=worker",
+                  "--task_index=0",
+                  f"--worker_hosts=localhost:{free_port()}", "--ps_hosts=",
+                  "--sync_replicas=true"]
+        t0 = time.perf_counter()
+        with CliProcess("train", *common, f"--train_steps={T['cli_steps']}",
+                        f"--save_interval_steps={T['cli_steps']}",
+                        "--log_every=1", "--log_sharding",
+                        f"--metrics_file={os.path.join(tmp, 'm.jsonl')}"
+                        ) as proc:
+            lines = finish(proc, 300)
+        train_s = time.perf_counter() - t0
+        layout = line_value(lines, "Worker 0: mesh")
+        if "4 positions on 1 distinct device(s)" not in layout:
+            raise AssertionError(f"parallel CLI layout: {layout}")
+        placed = [x for x in lines if x.startswith("Worker 0: param ")]
+        if not any("layer0/qkv/kernel (128, 3, 4, 32) -> PartitionSpec("
+                   "None, None, 'model', None)" in x for x in placed):
+            raise AssertionError(f"parallel CLI placement: {placed[:8]}")
+        nums = trainer_numbers(lines, os.path.join(tmp, "m.jsonl"), 0)
+        losses = [float(x.split(" loss ")[1].split()[0]) for x in lines
+                  if x.startswith("Worker 0: traing step")]
+        steps = nums["steps"]
+        if steps != T["cli_steps"] - 1 or len(losses) != steps:
+            raise AssertionError(f"{steps} steps, {len(losses)} loss lines")
+        if not (all(map(math.isfinite, losses))
+                and statistics.mean(losses[-5:]) < losses[0]):
+            raise AssertionError(f"parallel CLI loss did not fall: {losses}")
+        L = gpt.mini().num_layers
+        # Each train step and eval forward: K1 (and in the step K2a/K2b)
+        # once a layer per (model column, seq device); K3 2L + 1.  The
+        # evaluations: the validation at step 0 and the final test,
+        # make_lm_eval_fn's 4 batches each.
+        per = 2 * 2 * L
+        forwards = steps + 2 * 4
+        want = {"flash_attention_fwd": per * forwards,
+                "flash_attention_bwd_dq": per * steps,
+                "flash_attention_bwd_dkv": per * steps,
+                "layer_norm_fwd": (2 * L + 1) * forwards,
+                "quant_matmul": 0, "quant_matmul_nt": 0}
+        if nums["launches"] != want:
+            raise AssertionError(f"parallel CLI launches {nums['launches']}"
+                                 f", expected {want}")
+        after = eval_and_generate(dev, common, logdir, nums, T["cli_steps"],
+                                  T["gen_tokens"])
+        emit("train_parallel_cli", card=smi, layout_line=layout,
+             train_wall_s=train_s, batch=T["cli_batch"], seq_len=T["cli_seq"],
+             loss_first=losses[0],
+             loss_last5_mean=statistics.mean(losses[-5:]),
+             tokens_per_s=T["cli_batch"] * T["cli_seq"]
+             / (nums["step_ms_median"] / 1e3),
+             launches_expected=want, **after, **nums)
+        return nums["launches"]
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
 # ------------------------------------------------------------- trainer
 
 
@@ -3291,6 +3578,62 @@ def reference_job(device: str, tmp: str, smi: str, workers: int = 2,
     return nums[0]
 
 
+def eval_and_generate(dev, common: list, logdir: str, nums: dict,
+                      steps: int, gen_tokens: int) -> dict:
+    """``--mode=eval`` and ``--mode=generate`` on a trainer CLI's logdir
+    (``common``: its flags).  They read the same checkpoint, so they run
+    side by side, each wall time from their common start to its own end.
+    Gates: eval restores step ``steps`` and reports the trained process's
+    test accuracy; generate's tokens are an in-process decode of the
+    restored tree (its EMA parameters where it has them) through the
+    kernels."""
+    import torch
+    from distributed_tensorflow_tpu_torch.models import gpt
+    from distributed_tensorflow_tpu_torch.tools.checkpoint_io import (
+        restore_raw)
+    from distributed_tensorflow_tpu_torch.tools.export_model import (
+        kernel_config)
+    device = next(a for a in common if a.startswith("--device="))
+    prompt = list(range(1, 17))
+    t0 = time.perf_counter()
+    with CliProcess("train", *common, "--mode=eval") as proc, \
+            CliProcess("train", "--mode=generate", "--model=gpt_mini",
+                       f"--logdir={logdir}", device,
+                       f"--gen_tokens={gen_tokens}",
+                       "--gen_prompt=" + ",".join(map(str, prompt))) as gen:
+        eval_lines = finish(proc, 300)
+        gen_lines = finish(gen, 300)
+    eval_s, gen_s = proc.ended - t0, gen.ended - t0
+    eval_acc = float(line_value(eval_lines, "Worker 0: test accuracy"))
+    if eval_acc != nums["test_accuracy"]:
+        raise AssertionError(f"--mode=eval test accuracy {eval_acc}, the "
+                             f"trained process's {nums['test_accuracy']}")
+    restored = int(line_value(eval_lines, "Worker 0: restored global step"))
+    if restored != steps:
+        raise AssertionError(f"--mode=eval restored step {restored}, "
+                             f"expected {steps}")
+    got = [int(t) for t in line_value(gen_lines,
+                                      "Generated tokens:").split()]
+    tree = restore_raw(os.path.join(logdir, "gpt_mini"))[0]
+    params = tree.get("ema_params") or tree["params"]
+    cfg = dataclasses.replace(gpt.mini(), **gpt.infer_widths(params))
+    model = gpt.GptLM(kernel_config(cfg), device=dev)
+    model.load_state_dict(gpt.params_from_jax(params))
+    want = gpt.generate_cached(
+        model, None, torch.tensor([prompt], dtype=torch.int32),
+        gen_tokens)[0, len(prompt):].tolist()
+    if got != want:
+        raise AssertionError(f"--mode=generate tokens {got}, in process "
+                             f"{want}")
+    del model
+    torch.cuda.empty_cache()
+    return dict(eval_wall_s=eval_s, generate_wall_s=gen_s,
+                eval_test_accuracy=eval_acc,
+                eval_validation_accuracy=float(line_value(
+                    eval_lines, "Worker 0: validation accuracy")),
+                generated=got)
+
+
 def gpt_trainer_busy(dev) -> dict:
     """The busy share of the trainer's gpt_mini step: the bundle the CLI
     builds from its flags (``models/registry.build``) and its sync step,
@@ -3328,10 +3671,6 @@ def gpt_trainer(dev, tmp: str, smi: str) -> dict:
     ``--mode=eval`` and ``--mode=generate`` on its checkpoint."""
     import torch
     from distributed_tensorflow_tpu_torch.models import gpt
-    from distributed_tensorflow_tpu_torch.tools.checkpoint_io import (
-        restore_raw)
-    from distributed_tensorflow_tpu_torch.tools.export_model import (
-        kernel_config)
     T = TRAINER
     logdir = os.path.join(tmp, "gpt")
     common = ["--model=gpt_mini", "--attention_backend=pallas",
@@ -3375,60 +3714,17 @@ def gpt_trainer(dev, tmp: str, smi: str) -> dict:
     peak_gib = float(line_value(lines, "Worker 0: peak device memory")
                      .split()[0])
 
-    t0 = time.perf_counter()
-    with CliProcess("train", *common, "--mode=eval") as proc:
-        eval_lines = finish(proc, 300)
-    eval_s = time.perf_counter() - t0
-    eval_acc = float(line_value(eval_lines, "Worker 0: test accuracy"))
-    if eval_acc != nums["test_accuracy"]:
-        raise AssertionError(f"--mode=eval test accuracy {eval_acc}, the "
-                             f"trained process's {nums['test_accuracy']}")
-    restored = int(line_value(eval_lines, "Worker 0: restored global step"))
-    if restored != T["gpt_steps"]:
-        raise AssertionError(f"--mode=eval restored step {restored}")
-
-    prompt = list(range(1, 17))
-    t0 = time.perf_counter()
-    gen = subprocess.run(
-        [sys.executable, "-m", "distributed_tensorflow_tpu_torch.train",
-         "--mode=generate", "--model=gpt_mini", f"--logdir={logdir}",
-         f"--device={dev}", f"--gen_tokens={T['gen_tokens']}",
-         "--gen_prompt=" + ",".join(map(str, prompt))],
-        cwd=os.path.dirname(os.path.abspath(__file__)),
-        env=dict(os.environ, PYTHONPATH=os.path.dirname(
-            os.path.abspath(__file__))),
-        text=True, capture_output=True, timeout=300)
-    gen_s = time.perf_counter() - t0
-    if gen.returncode:
-        raise AssertionError(f"--mode=generate rc {gen.returncode}: "
-                             f"{gen.stdout[-2000:]}{gen.stderr[-2000:]}")
-    got = [int(t) for t in line_value(gen.stdout.splitlines(True),
-                                      "Generated tokens:").split()]
-    tree = restore_raw(os.path.join(logdir, "gpt_mini"))[0]
-    params = tree.get("ema_params") or tree["params"]
-    cfg = dataclasses.replace(gpt.mini(), **gpt.infer_widths(params))
-    model = gpt.GptLM(kernel_config(cfg), device=dev)
-    model.load_state_dict(gpt.params_from_jax(params))
-    want_toks = gpt.generate_cached(
-        model, None, torch.tensor([prompt], dtype=torch.int32),
-        T["gen_tokens"])[0, len(prompt):].tolist()
-    if got != want_toks:
-        raise AssertionError(f"--mode=generate tokens {got}, in process "
-                             f"{want_toks}")
-    del model
+    after = eval_and_generate(dev, common, logdir, nums, T["gpt_steps"],
+                              T["gen_tokens"])
     profiled = gpt_trainer_busy(dev)
     torch.cuda.empty_cache()
     tokens = T["gpt_batch"] * T["gpt_seq"]
     emit("trainer_gpt", card=smi, train_wall_s=train_wall_s,
-         eval_wall_s=eval_s, generate_wall_s=gen_s, batch=T["gpt_batch"],
-         seq_len=T["gpt_seq"], loss_first=losses[0],
+         batch=T["gpt_batch"], seq_len=T["gpt_seq"], loss_first=losses[0],
          loss_last5_mean=statistics.mean(losses[-5:]),
          tokens_per_s=tokens / (nums["step_ms_median"] / 1e3),
          peak_mem_gib=peak_gib, launches_expected=want,
-         eval_test_accuracy=eval_acc,
-         eval_validation_accuracy=float(line_value(
-             eval_lines, "Worker 0: validation accuracy")),
-         generated=got, busy_share=profiled["busy_share"], **nums)
+         busy_share=profiled["busy_share"], **after, **nums)
     emit("trainer_gpt_profile", **profiled)
     return nums["launches"]
 
@@ -4034,6 +4330,8 @@ def main() -> int:
     by_path["train_int8"] = train_int8(dev, smi, bf16_step)
     torch.cuda.empty_cache()
     by_path["train_ring"] = train_ring(dev, smi, bf16_step)
+    torch.cuda.empty_cache()
+    by_path.update(train_parallel(dev, smi, bf16_step))
     torch.cuda.empty_cache()
     by_path["trainer"] = trainer(dev, smi)
     by_path["async_trainer"] = async_trainer(dev, smi)

@@ -36,6 +36,7 @@ import os
 
 import torch
 
+from ..parallel.mesh import worker_positions
 from .spec import ClusterSpec, is_chief
 
 #: Set to 1 to keep sync workers out of a process group.
@@ -49,14 +50,9 @@ COLLECTIVE_TIMEOUT_S = 300.0
 def worker_device(name: str, task_index: int) -> torch.device:
     """The card a worker trains on: ``--device=cuda`` without an index
     means card ``task_index % device_count`` (one card a worker where
-    there are enough); an explicit ``cuda:N`` or ``cpu`` is kept."""
-    device = torch.device(name)
-    if device.type == "cuda" and device.index is None:
-        if not torch.cuda.is_available():
-            raise RuntimeError(
-                "CUDA is not available; pass --device=cpu to run on the CPU")
-        device = torch.device("cuda", task_index % torch.cuda.device_count())
-    return device
+    there are enough); an explicit ``cuda:N`` or ``cpu`` is kept.  The
+    rule is :func:`..parallel.mesh.worker_positions`' for one position."""
+    return worker_positions(name, task_index, 1)[0]
 
 
 def choose_backend(device: torch.device, num_workers: int) -> tuple[str, str]:

@@ -9,11 +9,23 @@ forward and backward, ``"ring"`` sequence-parallel ring attention over a
 mesh's ``seq`` axis through the ring's chunk kernels), LayerNorms through
 the LayerNorm kernel when ``fused_ln``.
 
-A ``ring`` model's blocks hold their mesh: given to :class:`GptLM` (or
-``build_gpt_mini``) as ``mesh=``, or captured from
+A ``ring`` or ``ulysses`` model's blocks hold their mesh: given to
+:class:`GptLM` (or ``build_gpt_mini``) as ``mesh=``, or captured from
 :func:`..ops.attention.attention_mesh` at a block's first call, as a
 jitted JAX program captures it when traced.  The backward's recomputation
 under remat then finds it outside any ``with attention_mesh(...)``.
+
+Tensor parallelism: :func:`gpt_sharding_rules` are the JAX package's
+Megatron rules over the ``model`` axis, and a model placed by
+``parallel/sharding.shard_state`` computes Megatron's way: ``qkv`` /
+``q_proj`` / ``mlp_in`` / ``mlp_gate`` column parallel
+(:meth:`Dense.column`), attention on each shard's heads (over its own
+column of the mesh with a sequence-parallel backend), ``out`` /
+``mlp_out`` row parallel (:meth:`Dense.row`: the partial products summed,
+the bias added once), the embeddings vocab parallel and the LM head
+column parallel, its logits gathered over the vocabulary.  LayerNorms,
+residuals and dropout stay replicated, so the dropout masks are the
+unsharded model's.
 
 Parameters keep the JAX package's names and kernel layouts (flax
 ``Dense`` kernels are [in, out], ``DenseGeneral`` kernels e.g.
@@ -66,6 +78,7 @@ from ..ops.attention import default_mesh, dot_product_attention
 from ..ops.layer_norm import LayerNorm
 from ..ops.quant import (load_inference_tree, prepare_inference_tree,
                          resolve_kv_dtype)
+from ..parallel.sharding import P, ShardingRules, full, shard_dim, shards
 from ..utils.device import resolve_device
 from . import drafting
 
@@ -231,6 +244,16 @@ class Dense(nn.Module):
         return math.prod(self.in_shape)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        dim = shard_dim(self, "kernel")
+        if dim is not None:
+            # Tensor parallel (parallel/sharding.py): the shards' products,
+            # gathered along the output or summed over the input.
+            if dim >= len(self.in_shape):
+                return torch.cat(self.column(x), dim=x.dim() - len(
+                    self.in_shape) + dim - len(self.in_shape))
+            return self.row(list(x.chunk(len(shards(self, "kernel")),
+                                         dim=x.dim() - len(self.in_shape)
+                                         + dim)))
         kernel, bias = self.kernel, self.bias
         dt = self.dtype or torch.promote_types(x.dtype, kernel.dtype)
         n_out = math.prod(self.out_shape)
@@ -242,6 +265,59 @@ class Dense(nn.Module):
                    kernel.reshape(self.fan_in, n_out).to(dt))
         if bias is not None:
             y = y + bias.reshape(n_out).to(dt)
+        return y.reshape(*lead, *self.out_shape)
+
+    def _check_tp(self) -> None:
+        if self.int8:
+            raise NotImplementedError(
+                "int8 matmuls with tensor parallelism are not ported yet; "
+                "see ROADMAP.md, section 1, item 6, slice 8b")
+
+    def column(self, x: torch.Tensor) -> list:
+        """Column parallel (the kernel split along an output dim): each
+        shard's output [*lead, *out shard] on its shard's device, from the
+        replicated ``x``; the bias is split the same way."""
+        self._check_tp()
+        kernels = shards(self, "kernel")
+        dim = shard_dim(self, "kernel") - len(self.in_shape)
+        biases = shards(self, "bias")
+        if biases is None:
+            biases = ([None] * len(kernels) if self.bias is None
+                      else list(self.bias.chunk(len(kernels), dim=dim)))
+        lead = x.shape[:x.dim() - len(self.in_shape)]
+        outs = []
+        for kernel, b in zip(kernels, biases):
+            dt = self.dtype or torch.promote_types(x.dtype, kernel.dtype)
+            out_shape = kernel.shape[len(self.in_shape):]
+            n_out = math.prod(out_shape)
+            h = x.to(kernel.device).reshape(-1, self.fan_in).to(dt)
+            y = h @ kernel.reshape(self.fan_in, n_out).to(dt)
+            if b is not None:
+                y = y + b.to(kernel.device).reshape(n_out).to(dt)
+            outs.append(y.reshape(*lead, *out_shape))
+        return outs
+
+    def row(self, parts: list) -> torch.Tensor:
+        """Row parallel (the kernel split along an input dim): each
+        shard's partial product of its input part, summed in fp32 on
+        shard 0's device (the all-reduce), then the bias, once."""
+        self._check_tp()
+        kernels = shards(self, "kernel")
+        home = kernels[0].device
+        n_out = math.prod(self.out_shape)
+        lead = parts[0].shape[:parts[0].dim() - len(self.in_shape)]
+        total, dt = None, None
+        for x, kernel in zip(parts, kernels):
+            dt = self.dtype or torch.promote_types(x.dtype, kernel.dtype)
+            fan_in = math.prod(kernel.shape[:len(self.in_shape)])
+            y = (x.to(kernel.device).reshape(-1, fan_in).to(dt)
+                 @ kernel.reshape(fan_in, n_out).to(dt))
+            y = y.to(home, torch.float32)
+            total = y if total is None else total + y
+        y = total.to(dt)
+        bias = full(self, "bias")
+        if bias is not None:
+            y = y + bias.to(home).reshape(n_out).to(dt)
         return y.reshape(*lead, *self.out_shape)
 
 
@@ -257,10 +333,28 @@ class Embed(nn.Module):
         """Rows of ``ids``; ids outside the table give NaN rows, as
         ``jnp.take``'s default mode (and so flax's ``Embed``) does, where
         indexing would raise (on a card, a device-side assert): a
-        speculative chunk's drafts may run past ``max_position``."""
-        num = self.embedding.shape[0]
-        rows = self.embedding[ids.clamp(0, num - 1)]
-        inside = ((ids >= 0) & (ids < num))[..., None]
+        speculative chunk's drafts may run past ``max_position``.
+
+        A table split over the model axis on its rows (vocab parallel):
+        each shard looks up the ids in its own range, the others give
+        zero rows, and the shards' rows are summed on shard 0's device."""
+        tables = shards(self, "embedding")
+        if tables is None or shard_dim(self, "embedding") != 0:
+            table = full(self, "embedding")
+            num = table.shape[0]
+            rows = table[ids.clamp(0, num - 1)]
+            inside = ((ids >= 0) & (ids < num))[..., None]
+            return torch.where(inside, rows, torch.nan)
+        home = tables[0].device
+        rows, start = None, 0
+        for table in tables:
+            n = table.shape[0]
+            local = ids.to(table.device) - start
+            inside = ((local >= 0) & (local < n))[..., None]
+            part = torch.where(inside, table[local.clamp(0, n - 1)], 0.0)
+            rows = part.to(home) if rows is None else rows + part.to(home)
+            start += n
+        inside = ((ids >= 0) & (ids < start))[..., None].to(home)
         return torch.where(inside, rows, torch.nan)
 
 
@@ -489,9 +583,71 @@ class GptBlock(nn.Module):
               g: torch.Generator | None) -> torch.Tensor:
         return y if g is None else dropout(y, self.cfg.dropout_rate, g)
 
+    def _head_parts(self, x: torch.Tensor) -> list | None:
+        """Tensor parallel (the head projection's kernel split over its
+        heads by ``parallel/sharding.py``): each shard's (q, k, v) for its
+        heads [B, S, heads / model, D], on its shard's device; None for an
+        unsharded block.  GQA's ``kv_proj`` stays replicated: each shard
+        takes the kv heads of its own query heads."""
+        cfg = self.cfg
+        mha = cfg.num_kv_heads == cfg.num_heads
+        proj = self.qkv if mha else self.q_proj
+        if shard_dim(proj, "kernel") != len(proj.in_shape) + int(mha):
+            return None
+        h = self.ln_attn(x).to(cfg.torch_dtype)
+        rope = cfg.pos_encoding == "rope"
+        positions = torch.arange(x.shape[1], device=x.device)
+        if mha:
+            parts = [(t[:, :, 0], t[:, :, 1], t[:, :, 2])
+                     for t in self.qkv.column(h)]
+            if rope:
+                parts = [(apply_rope(q, positions.to(q.device)),
+                          apply_rope(k, positions.to(q.device)), v)
+                         for q, k, v in parts]
+            return parts
+        kv = self.kv_proj(h)
+        k, v = kv[:, :, 0], kv[:, :, 1]
+        if rope:
+            k = apply_rope(k, positions)
+        groups = cfg.num_heads // cfg.num_kv_heads
+        parts, first = [], 0
+        for q in self.q_proj.column(h):
+            if rope:
+                q = apply_rope(q, positions.to(q.device))
+            n = q.shape[2]
+            lo, hi = first // groups, (first + n - 1) // groups + 1
+            skip = first - lo * groups
+
+            def heads(t):
+                t = torch.repeat_interleave(t[:, :, lo:hi], groups, dim=2)
+                return t[:, :, skip:skip + n].to(q.device)
+            parts.append((q, heads(k), heads(v)))
+            first += n
+        return parts
+
+    def _mlp_tp(self, x: torch.Tensor, g) -> torch.Tensor:
+        """Megatron's MLP: ``mlp_in`` (and ``mlp_gate``) column parallel,
+        the activation per shard, ``mlp_out`` row parallel (the rules
+        split all three over the MLP width, so they are split together)."""
+        cfg = self.cfg
+        if cfg.matmul_int8:
+            raise NotImplementedError(
+                "int8 matmuls with tensor parallelism are not ported yet; "
+                "see ROADMAP.md, section 1, item 6, slice 8b")
+        h = self.ln_mlp(x).to(cfg.torch_dtype)
+        hidden = self.mlp_in.column(h)
+        if cfg.activation == "swiglu":
+            hidden = [F.silu(gt) * a for gt, a in zip(
+                self.mlp_gate.column(h), hidden)]
+        else:
+            hidden = [F.gelu(a, approximate="tanh") for a in hidden]
+        return x + self._drop(self.mlp_out.row(hidden), g)
+
     def _mlp(self, x: torch.Tensor,
              g: torch.Generator | None = None) -> torch.Tensor:
         cfg = self.cfg
+        if shard_dim(self.mlp_in, "kernel") == 1:
+            return self._mlp_tp(x, g)
         h = self.ln_mlp(x).to(cfg.torch_dtype)
         if cfg.matmul_int8 and cfg.activation == "gelu":
             from ..ops import quant_train
@@ -521,15 +677,26 @@ class GptBlock(nn.Module):
         so a recomputation under remat draws the same masks; None runs
         without dropout."""
         g = _generator(seed, x.device)
-        q, k, v = self._qkv(x)
-        if self.cfg.attention_backend == "ring" and self.mesh is None:
+        cfg = self.cfg
+        if cfg.attention_backend in ("ring", "ulysses") and self.mesh is None:
             self.mesh = default_mesh()
-        ctx = dot_product_attention(q, self._expand_kv(k),
-                                    self._expand_kv(v), causal=True,
-                                    window=self.cfg.attention_window,
-                                    backend=self.cfg.attention_backend,
-                                    mesh=self.mesh)
-        x = x + self._drop(self.out(ctx), g)
+        attend = dict(causal=True, window=cfg.attention_window,
+                      backend=cfg.attention_backend)
+        parts = self._head_parts(x)
+        if parts is None:
+            q, k, v = self._qkv(x)
+            ctx = dot_product_attention(q, self._expand_kv(k),
+                                        self._expand_kv(v), mesh=self.mesh,
+                                        **attend)
+            x = x + self._drop(self.out(ctx), g)
+            return self._mlp(x, g)
+        # Each heads shard attends on its own: with a sequence-parallel
+        # backend over its own column of the mesh (its ring or ulysses).
+        # ``out`` is split over the heads as the head projection is.
+        ctxs = [dot_product_attention(
+            q, k, v, mesh=None if self.mesh is None else self.mesh.column(j),
+            **attend) for j, (q, k, v) in enumerate(parts)]
+        x = x + self._drop(self.out.row(ctxs), g)
         return self._mlp(x, g)
 
     @staticmethod
@@ -1848,6 +2015,30 @@ def generate_cached_speculative_device(model: GptLM, params: dict | None,
              "mean_accepted_per_round": round(generated / max(rounds, 1),
                                               2)}
     return toks, stats
+
+
+def gpt_sharding_rules() -> ShardingRules:
+    """Megatron pairing over the ``model`` axis (the JAX package's rules,
+    against the same flax paths: :func:`params_to_jax`'s names)."""
+    return ShardingRules([
+        (r"qkv/kernel", P(None, None, "model", None)),
+        (r"qkv/bias", P(None, "model", None)),
+        (r"q_proj/kernel", P(None, "model", None)),
+        (r"q_proj/bias", P("model", None)),
+        # kv_proj deliberately REPLICATES under TP: its kv-head axis is
+        # usually smaller than the model axis, and at heads/G compression
+        # the tensor is tiny — every device holding full K/V is the
+        # standard GQA tensor-parallel layout.
+        (r"/out/kernel", P("model", None, None)),  # attention proj only
+                                                   # (mlp_out matches below)
+        (r"mlp_in/kernel", P(None, "model")),
+        (r"mlp_in/bias", P("model")),
+        (r"mlp_gate/kernel", P(None, "model")),   # column-parallel like mlp_in
+        (r"mlp_out/kernel", P("model", None)),
+        (r"(word_emb|pos_emb)/embedding", P("model", None)),
+        (r"lm_head/kernel", P(None, "model")),
+        (r"lm_head/bias", P("model")),
+    ])
 
 
 # ------------------------------------------------- weights from the JAX tree

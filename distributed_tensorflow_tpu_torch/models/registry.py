@@ -31,6 +31,9 @@ class ModelBundle:
     # True when loss_fn takes (model, batch, rng): dropout-style stochastic
     # training; the state then carries the generator.
     needs_rng: bool = False
+    # Tensor-parallel placement rules over the mesh's ``model`` axis
+    # (parallel/sharding.py); None: the model trains replicated.
+    sharding_rules: object = None
 
 
 def _default_transformer_tx(learning_rate: float, name: str) -> OptimizerSpec:
@@ -63,9 +66,11 @@ def build_gpt_mini(learning_rate: float, seed: int = 0, seq_len: int = 128,
     optimizer (Adam by default) and the LM data streams.  ``matmul_int8``
     / ``attn_int8`` train the MLP / the attention projections through the
     int8 matmuls of ``ops/quant_train.py``.  ``attention_backend="ring"``
-    trains with sequence-parallel ring attention over ``mesh``'s ``seq``
-    axis (a ``parallel.mesh.Mesh``; or the one of
-    ``ops.attention.attention_mesh`` around the first step).  ``device``
+    (or ``"ulysses"``) trains with sequence-parallel attention over
+    ``mesh``'s ``seq`` axis (a ``parallel.mesh.Mesh``; or the one of
+    ``ops.attention.attention_mesh`` around the first step).  The bundle's
+    ``sharding_rules`` are :func:`.gpt.gpt_sharding_rules`, which
+    ``ParallelConfig.place_state`` applies over a ``model`` axis.  ``device``
     defaults to ``cuda`` (pass ``"cpu"`` for the CPU); the model's
     weights come from ``seed``, the dropout generator from ``seed + 1``."""
     from . import gpt as gpt_lib
@@ -117,7 +122,8 @@ def build_gpt_mini(learning_rate: float, seed: int = 0, seq_len: int = 128,
 
     return ModelBundle(state, loss_fn, load_datasets,
                        lambda: make_lm_eval_fn(lambda m, t: m(t)),
-                       "gpt_mini", needs_rng=needs_rng)
+                       "gpt_mini", needs_rng=needs_rng,
+                       sharding_rules=gpt_lib.gpt_sharding_rules())
 
 
 def pipeline_bundle_name(n_pipe: int, schedule: str,
@@ -166,14 +172,14 @@ def _seed(FLAGS) -> int:
     return getattr(FLAGS, "seed", 0)
 
 
-#: ``--model`` name -> ``(FLAGS, tx, device) -> ModelBundle``; the flag
-#: wiring of the JAX ``BUILDERS`` table for the ported models.
+#: ``--model`` name -> ``(FLAGS, tx, device, mesh) -> ModelBundle``; the
+#: flag wiring of the JAX ``BUILDERS`` table for the ported models.
 BUILDERS = {
-    "mnist_mlp": lambda FLAGS, tx, device: build_mnist_mlp(
+    "mnist_mlp": lambda FLAGS, tx, device, mesh: build_mnist_mlp(
         FLAGS.hidden_units, FLAGS.learning_rate, seed=_seed(FLAGS), tx=tx,
         label_smoothing=getattr(FLAGS, "label_smoothing", 0.0),
         device=device),
-    "gpt_mini": lambda FLAGS, tx, device: build_gpt_mini(
+    "gpt_mini": lambda FLAGS, tx, device, mesh: build_gpt_mini(
         FLAGS.learning_rate, seed=_seed(FLAGS),
         seq_len=getattr(FLAGS, "bert_seq_len", 128),
         attention_backend=getattr(FLAGS, "attention_backend", "xla"),
@@ -191,17 +197,19 @@ BUILDERS = {
         attn_int8=getattr(FLAGS, "gpt_attn_int8", False),
         tokenizer=getattr(FLAGS, "gpt_tokenizer", "byte"),
         stream_threshold_mb=getattr(FLAGS, "gpt_stream_corpus_mb", 256),
-        device=device),
+        device=device, mesh=mesh),
 }
 
 #: The JAX package's other ``--model`` names.
 NOT_PORTED = ("lenet5", "resnet20", "vit_tiny", "bert_tiny", "bert_moe")
 
 
-def build(name: str, FLAGS, device=None) -> ModelBundle:
+def build(name: str, FLAGS, device=None, mesh=None) -> ModelBundle:
     """The bundle for ``--model=name`` from the flag set; an explicit
     ``--optimizer`` takes full control of the optimizer (including the
-    schedule), as in the JAX package."""
+    schedule), as in the JAX package.  ``mesh`` (the trainer's
+    ``ParallelConfig.build_mesh``) goes to the model's blocks: the
+    sequence-parallel backends' and the tensor-parallel heads' mesh."""
     from ..training.optimizers import from_flags
     if name in NOT_PORTED:
         raise NotImplementedError(
@@ -210,4 +218,4 @@ def build(name: str, FLAGS, device=None) -> ModelBundle:
     if name not in BUILDERS:
         raise ValueError(f"Unknown model {name!r}; available: "
                          f"{sorted([*BUILDERS, *NOT_PORTED])}")
-    return BUILDERS[name](FLAGS, from_flags(FLAGS), device)
+    return BUILDERS[name](FLAGS, from_flags(FLAGS), device, mesh)

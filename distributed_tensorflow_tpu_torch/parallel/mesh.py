@@ -1,43 +1,59 @@
 """Device meshes: named axes over an array of devices.
 
-Counterpart of ``distributed_tensorflow_tpu/parallel/mesh.py``, the
-subset that ring attention needs: the axis names and
-:func:`create_mesh`.  The JAX mesh is a ``jax.sharding.Mesh`` that
-``shard_map`` programs over; here a :class:`Mesh` is a numpy object array
-of :class:`torch.device` with the same axis names, and one process drives
-every shard of it (single controller, as a JAX program over a mesh).
+Counterpart of ``distributed_tensorflow_tpu/parallel/mesh.py``.  The JAX
+mesh is a ``jax.sharding.Mesh`` that ``shard_map`` programs (and GSPMD)
+run over; here a :class:`Mesh` is a numpy object array of
+:class:`torch.device` with the same axis names, and one process drives
+every position of it (single controller, as a JAX program over a mesh):
 
 - ``data``  — data parallelism (batch axis)
-- ``seq``   — sequence/context parallelism (ring attention)
-- ``model`` — tensor parallelism (heads; not ported yet, see ROADMAP.md)
+- ``seq``   — sequence/context parallelism (ring and ulysses attention)
+- ``pipe``  — pipeline parallelism (kept at size 1: ROADMAP.md, slice 8c)
+- ``expert``— expert parallelism (kept at size 1: ROADMAP.md, item 7)
+- ``model`` — tensor parallelism (heads and hidden columns, Megatron's
+  layout: :mod:`.sharding`, ``models/gpt.py``)
 
-Axes of size 1 are kept, so one set of rules works at any scale.
+Axes of size 1 are kept, so one set of rules works at any scale.  A
+collective between positions is a ``.to(device)`` copy plus an op on
+tensors; where two positions share a device (the tests' ``[cpu] * 8``,
+one card driving several positions), the copy is a no-op and the code
+path is the same.
 
-:class:`ParallelConfig` is the trainer's declarative layout, so far for
-the data axis alone: its data replicas are the sync trainer's worker
-processes (one replica a worker, the reference's ``num_workers``).  A
-layout that asks for tensor, sequence, pipeline or expert parallelism,
-FSDP or a DCN factor raises ``NotImplementedError`` (ROADMAP.md, section
-1, item 6), as do ``pipe``, ``expert`` and the DCN factor of
-:func:`create_mesh`.
+:class:`ParallelConfig` is the trainer's declarative layout.  Its data
+replicas are the sync trainer's worker processes (one replica a worker,
+the reference's ``num_workers``), so a worker's mesh is ``data=1 x seq x
+model``: the trainer lays those positions over the worker's cards round
+robin (:func:`worker_positions`).  FSDP (slice 8b), the pipeline (8c),
+the DCN factor and data shards inside one process beside tensor
+parallelism (8d) and experts (item 7) raise ``NotImplementedError``
+naming ROADMAP.md's entry.  :func:`save_run_profile` /
+:func:`load_run_profile` write and read the JAX package's run-profile
+JSON.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import json
 import math
+import os
 from typing import Any, Sequence
 
 import numpy as np
 import torch
 
 DATA_AXIS = "data"
-SEQ_AXIS = "seq"
 MODEL_AXIS = "model"
+SEQ_AXIS = "seq"
+PIPE_AXIS = "pipe"
+EXPERT_AXIS = "expert"
 
-# The JAX package's order with pipe and expert left out: model innermost,
-# data outermost.
-AXIS_ORDER = (DATA_AXIS, SEQ_AXIS, MODEL_AXIS)
+AXIS_ORDER = (DATA_AXIS, SEQ_AXIS, PIPE_AXIS, EXPERT_AXIS, MODEL_AXIS)
+
+
+def _roadmap(what: str, where: str) -> NotImplementedError:
+    return NotImplementedError(f"{what} is not ported yet; see ROADMAP.md, "
+                               f"section 1, {where}")
 
 
 class Mesh:
@@ -57,19 +73,49 @@ class Mesh:
     def shape(self) -> dict:
         return dict(zip(self.axis_names, self.devices.shape))
 
+    def grid(self, model: int = 0) -> np.ndarray:
+        """The ``[data, seq]`` devices of model column ``model`` (pipe
+        and expert at their one position)."""
+        index = [slice(None)] * self.devices.ndim
+        for axis in (PIPE_AXIS, EXPERT_AXIS):
+            index[self.axis_names.index(axis)] = 0
+        index[self.axis_names.index(MODEL_AXIS)] = model
+        return self.devices[tuple(index)]
+
+    def model_devices(self) -> list:
+        """The device of each model coordinate (data, seq, pipe and
+        expert at 0): where a parameter's shard ``j`` lives."""
+        return [self.grid(j)[0, 0] for j in range(self.shape[MODEL_AXIS])]
+
+    def column(self, j: int) -> "Mesh":
+        """Model column ``j`` as a mesh of its own (model axis of size 1):
+        the ring or ulysses attention of the heads shard ``j`` holds."""
+        axis = self.axis_names.index(MODEL_AXIS)
+        return Mesh(self.devices.take([j], axis=axis), self.axis_names)
+
 
 def create_mesh(data: int = -1, model: int = 1, seq: int = 1,
-                devices: Sequence | None = None) -> Mesh:
+                pipe: int = 1, expert: int = 1,
+                devices: Sequence | None = None,
+                dcn_data: int = 1) -> Mesh:
     """A named mesh over ``devices``.
 
-    One axis size may be -1 (inferred from the device count).  ``devices``
-    defaults to every visible CUDA device, and then, as in the JAX
-    package, the mesh must use them all.  An explicit list may name one
-    device more than once: ``create_mesh(seq=4, devices=[cuda0] * 4)``
-    runs four sequence shards on one card (the ring's hop between shards
-    on one device is a re-indexing, between devices a copy), and the CPU
-    tests build ``devices=[cpu] * 8``.  JAX's ``create_mesh`` requires
-    distinct devices."""
+    One axis size may be -1 (inferred from the device count).  The axis
+    order puts ``model`` innermost and ``data`` outermost, as the JAX
+    package's.  ``devices`` defaults to every visible CUDA device, and
+    then, as in the JAX package, the mesh must use them all.  An explicit
+    list may name one device more than once: ``create_mesh(seq=4,
+    devices=[cuda0] * 4)`` runs four sequence shards on one card, and the
+    CPU tests build ``devices=[cpu] * 8``.  JAX's ``create_mesh``
+    requires distinct devices.  ``pipe``/``expert`` > 1 and ``dcn_data``
+    > 1 raise (not ported)."""
+    if pipe > 1:
+        raise _roadmap(f"the pipe axis (pipe={pipe})", "item 6, slice 8c")
+    if expert > 1:
+        raise _roadmap(f"the expert axis (expert={expert})", "item 7")
+    if dcn_data > 1:
+        raise _roadmap(f"the DCN data factor (dcn_data={dcn_data})",
+                       "item 6, slice 8d")
     if devices is None:
         if not torch.cuda.is_available():
             raise RuntimeError("CUDA is not available; pass devices= (for "
@@ -78,7 +124,8 @@ def create_mesh(data: int = -1, model: int = 1, seq: int = 1,
                    for i in range(torch.cuda.device_count())]
     devices = [torch.device(d) for d in devices]
     n = len(devices)
-    sizes = {DATA_AXIS: data, SEQ_AXIS: seq, MODEL_AXIS: model}
+    sizes = {DATA_AXIS: data, SEQ_AXIS: seq, PIPE_AXIS: pipe,
+             EXPERT_AXIS: expert, MODEL_AXIS: model}
     unknown = [k for k, v in sizes.items() if v == -1]
     if len(unknown) > 1:
         raise ValueError("At most one mesh axis may be -1")
@@ -97,6 +144,61 @@ def create_mesh(data: int = -1, model: int = 1, seq: int = 1,
                 AXIS_ORDER)
 
 
+def data_parallel_mesh(num_devices: int | None = None,
+                       devices: Sequence | None = None) -> Mesh:
+    """Pure data-parallel mesh, the reference's replica topology."""
+    if devices is None:
+        if not torch.cuda.is_available():
+            raise RuntimeError("CUDA is not available; pass devices=")
+        devices = [torch.device("cuda", i)
+                   for i in range(torch.cuda.device_count())]
+    devices = list(devices)
+    if num_devices is not None:
+        devices = devices[:num_devices]
+    return create_mesh(data=len(devices), devices=devices)
+
+
+def batch_sharding(mesh: Mesh) -> tuple:
+    """The input batches' spec: dim 0 over ``data`` and, with a
+    non-trivial ``seq`` axis, dim 1 over ``seq`` (a
+    :class:`.sharding.P` value; the port places no input by it)."""
+    from .sharding import P
+    if mesh.shape[SEQ_AXIS] > 1:
+        return P(DATA_AXIS, SEQ_AXIS)
+    return P(DATA_AXIS)
+
+
+def stacked_batch_sharding(mesh: Mesh) -> tuple:
+    """The spec of a stack of K batches (leading microstep dim
+    unsharded)."""
+    from .sharding import P
+    if mesh.shape[SEQ_AXIS] > 1:
+        return P(None, DATA_AXIS, SEQ_AXIS)
+    return P(None, DATA_AXIS)
+
+
+def num_replicas(mesh: Mesh) -> int:
+    """Number of data-parallel replicas (the reference's ``num_workers``)."""
+    return mesh.shape[DATA_AXIS]
+
+
+def worker_positions(name: str, task_index: int, positions: int) -> list:
+    """The devices of a worker's ``positions`` mesh positions (its ``seq x
+    model``) for the ``--device`` value ``name``: ``cuda`` lays them round
+    robin over the visible cards from card ``task_index x positions``, as
+    worker ``i`` with one position takes card ``i`` mod the count; an
+    explicit ``cuda:N`` or ``cpu`` holds every position."""
+    device = torch.device(name)
+    if device.type != "cuda" or device.index is not None:
+        return [device] * positions
+    if not torch.cuda.is_available():
+        raise RuntimeError(
+            "CUDA is not available; pass --device=cpu to run on the CPU")
+    count = torch.cuda.device_count()
+    return [torch.device("cuda", (task_index * positions + p) % count)
+            for p in range(positions)]
+
+
 _QUANT_ARMS = ("off", "int8")
 _ATTENTION_BACKENDS = ("auto", "xla", "pallas", "ring", "ulysses")
 
@@ -104,10 +206,12 @@ _ATTENTION_BACKENDS = ("auto", "xla", "pallas", "ring", "ulysses")
 @dataclasses.dataclass(frozen=True)
 class ParallelConfig:
     """Declarative parallelism layout (the JAX package's fields):
-    ``data`` (``-1``: every worker), ``model``, ``seq``, ``pipe``,
-    ``expert``, ``dcn_data``, ``microbatch`` (gradient accumulation),
-    ``quantize``, ``attention``, ``fsdp`` and ``fsdp_min_size``.  Only a
-    data-parallel layout is ported."""
+    ``data`` (``-1``: the rest of the devices), ``model``, ``seq``,
+    ``pipe``, ``expert``, ``dcn_data``, ``microbatch`` (gradient
+    accumulation), ``quantize``, ``attention`` (``auto``: ring when
+    ``seq > 1``), ``fsdp`` and ``fsdp_min_size``.  Every layout parses
+    and describes itself; :meth:`build_mesh` and :meth:`place_state`
+    raise for the axes not ported yet."""
 
     data: int = -1
     model: int = 1
@@ -122,6 +226,9 @@ class ParallelConfig:
     fsdp_min_size: int = 2 ** 16
 
     def __post_init__(self):
+        self.validate()
+
+    def validate(self) -> None:
         for name in ("model", "seq", "pipe", "expert", "dcn_data",
                      "microbatch"):
             v = getattr(self, name)
@@ -139,23 +246,113 @@ class ParallelConfig:
             raise ValueError(f"ParallelConfig.attention must be one of "
                              f"{_ATTENTION_BACKENDS}, "
                              f"got {self.attention!r}")
-        unported = [f"{name}={getattr(self, name)}" for name in
-                    ("model", "seq", "pipe", "expert", "dcn_data")
-                    if getattr(self, name) > 1]
-        if self.fsdp:
-            unported.append("fsdp")
-        if unported:
-            raise NotImplementedError(
-                f"parallel layout {', '.join(unported)} is not ported yet "
-                "(the trainer's data axis only); see ROADMAP.md, section "
-                "1, item 6")
+        if self.seq > 1 and self.attention in ("xla", "pallas"):
+            raise ValueError(
+                f"seq={self.seq} needs a sequence-parallel attention "
+                f"backend (ring/ulysses/auto), got {self.attention!r}")
+
+    def axis_sizes(self) -> dict[str, int]:
+        """Mesh axis name -> size (``data`` may still be -1 here)."""
+        return {DATA_AXIS: self.data, SEQ_AXIS: self.seq,
+                PIPE_AXIS: self.pipe, EXPERT_AXIS: self.expert,
+                MODEL_AXIS: self.model}
+
+    def total_devices(self, n_available: int | None = None) -> int:
+        """Devices this layout occupies (resolving ``data=-1`` against
+        ``n_available``, which is then required)."""
+        fixed = self.model * self.seq * self.pipe * self.expert
+        if self.data != -1:
+            return fixed * self.data
+        if n_available is None:
+            raise ValueError("data=-1 needs n_available to resolve")
+        if n_available % fixed:
+            raise ValueError(f"{n_available} devices not divisible by the "
+                             f"fixed axes product {fixed}")
+        return n_available
+
+    def resolve(self, n_available: int) -> "ParallelConfig":
+        """Concrete copy: ``data=-1`` filled in from ``n_available``."""
+        total = self.total_devices(n_available)
+        if total > n_available:
+            raise ValueError(f"layout needs {total} devices, only "
+                             f"{n_available} available")
+        fixed = self.model * self.seq * self.pipe * self.expert
+        return dataclasses.replace(self, data=total // fixed)
+
+    def resolved_attention(self) -> str:
+        """``auto`` resolved against the seq axis (ring when seq > 1)."""
+        if self.attention != "auto":
+            return self.attention
+        return "ring" if self.seq > 1 else "xla"
 
     def describe(self) -> str:
-        """Compact label, e.g. ``dp2-mb1``."""
-        parts = [f"dp{self.data}", f"mb{self.microbatch}"]
+        """Compact label, e.g. ``dp4-tp2-mb2-int8``."""
+        parts = [f"dp{self.data}"]
+        for tag, v in (("tp", self.model), ("sp", self.seq),
+                       ("pp", self.pipe), ("ep", self.expert),
+                       ("dcn", self.dcn_data)):
+            if v > 1:
+                parts.append(f"{tag}{v}")
+        parts.append(f"mb{self.microbatch}")
         if self.quantize != "off":
             parts.append(self.quantize)
+        if self.fsdp:
+            parts.append("fsdp")
         return "-".join(parts)
+
+    def build_mesh(self, devices: Sequence | None = None) -> Mesh:
+        """The layout as a named mesh.  A fully concrete config takes a
+        device prefix of the size it needs; ``data=-1`` spans every
+        device (default: every visible card).  ``devices`` may repeat a
+        device (positions sharing a card)."""
+        if devices is None:
+            if not torch.cuda.is_available():
+                raise RuntimeError("CUDA is not available; pass devices=")
+            devices = [torch.device("cuda", i)
+                       for i in range(torch.cuda.device_count())]
+        devices = list(devices)
+        total = self.total_devices(len(devices))
+        if total > len(devices):
+            raise ValueError(f"layout {self.describe()} needs {total} "
+                             f"devices, only {len(devices)} available")
+        return create_mesh(data=self.data, model=self.model, seq=self.seq,
+                           pipe=self.pipe, expert=self.expert,
+                           devices=devices[:total], dcn_data=self.dcn_data)
+
+    def batch_sharding(self, mesh: Mesh, *, stacked: bool = False) -> tuple:
+        """The input-batch spec of this layout (``stacked``: the
+        microstep-stacked layouts)."""
+        return (stacked_batch_sharding(mesh) if stacked
+                else batch_sharding(mesh))
+
+    def place_state(self, mesh: Mesh, state: Any, rules: Any = None) -> Any:
+        """Place a TrainState on ``mesh`` under this layout: FSDP, else
+        the bundle's tensor-parallel ``rules`` (they engage only when the
+        mesh has a non-trivial ``model``/``expert`` axis), else
+        replicated."""
+        from .sharding import fsdp_state, replicate_state, shard_state
+        use_rules = rules is not None and (
+            mesh.shape[MODEL_AXIS] > 1 or mesh.shape[EXPERT_AXIS] > 1)
+        if self.fsdp:
+            return fsdp_state(mesh, state, rules if use_rules else None,
+                              min_size=self.fsdp_min_size)
+        if use_rules:
+            return shard_state(mesh, state, rules)
+        return replicate_state(mesh, state)
+
+    def to_dict(self) -> dict[str, Any]:
+        return dataclasses.asdict(self)
+
+    @classmethod
+    def from_dict(cls, d: dict[str, Any]) -> "ParallelConfig":
+        """Strict parse: unknown keys are an error (a typo'd profile key
+        must never silently fall back to the default layout)."""
+        known = {f.name for f in dataclasses.fields(cls)}
+        unknown = sorted(set(d) - known)
+        if unknown:
+            raise ValueError(f"unknown ParallelConfig key(s) {unknown}; "
+                             f"known: {sorted(known)}")
+        return cls(**d)
 
     @classmethod
     def from_flags(cls, FLAGS: Any) -> "ParallelConfig":
@@ -175,3 +372,47 @@ class ParallelConfig:
             fsdp=g("fsdp", False),
             fsdp_min_size=g("fsdp_min_size", 2 ** 16),
         )
+
+
+# The autotuner's artifact: the winning ParallelConfig with the workload,
+# serving knobs and tuning evidence, as the JAX package writes it (its
+# CLI's --profile is not ported yet: ROADMAP.md, item 8).
+PROFILE_SCHEMA = "dtf_run_profile/v1"
+
+
+def save_run_profile(path: str, parallel: ParallelConfig | None, *,
+                     workload: dict | None = None,
+                     serving: dict | None = None,
+                     tuning: dict | None = None) -> dict:
+    """Write a run profile; returns the payload written."""
+    payload: dict[str, Any] = {"schema": PROFILE_SCHEMA}
+    if parallel is not None:
+        payload["parallel"] = parallel.to_dict()
+    if workload:
+        payload["workload"] = dict(workload)
+    if serving:
+        payload["serving"] = dict(serving)
+    if tuning:
+        payload["tuning"] = dict(tuning)
+    tmp = f"{path}.tmp"
+    with open(tmp, "w") as fh:
+        json.dump(payload, fh, indent=2, sort_keys=True)
+        fh.write("\n")
+    os.replace(tmp, path)
+    return payload
+
+
+def load_run_profile(path: str) -> dict:
+    """Read and validate a run profile: the schema is pinned, and the
+    ``parallel`` section (when present) must parse into a
+    ParallelConfig."""
+    with open(path) as fh:
+        payload = json.load(fh)
+    if not isinstance(payload, dict) \
+            or payload.get("schema") != PROFILE_SCHEMA:
+        raise ValueError(
+            f"{path} is not a {PROFILE_SCHEMA} run profile "
+            f"(schema={payload.get('schema') if isinstance(payload, dict) else None!r})")
+    if "parallel" in payload:
+        ParallelConfig.from_dict(payload["parallel"])
+    return payload

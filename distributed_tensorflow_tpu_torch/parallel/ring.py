@@ -29,9 +29,11 @@ shards live on one device, as in ``create_mesh(seq=4, devices=[cuda0] *
   shift home instead of finishing the loop.  Forward and backward share
   one :func:`_ring_schedule`.
 
-The multi-process transport (one rank per card over ``torch.distributed``)
-and tensor parallelism (heads over ``model``) are later work (ROADMAP.md,
-PyTorch port).
+With ``heads_sharded`` (tensor parallelism) each model column runs its
+own ring over its heads, as JAX's ``shard_map`` with ``P(data, seq,
+model, None)`` does.  The multi-process transport (one rank per card over
+``torch.distributed``, the hops as point-to-point sends) is later work
+(ROADMAP.md, section 1, item 6, slice 8d).
 """
 
 from __future__ import annotations
@@ -279,6 +281,50 @@ def ring_attention_local(q: list, k: list, v: list, kv_mask: list | None,
                         causal=causal, window=window)
 
 
+def over_mesh(mesh: Mesh, local: Callable, *, heads_sharded: bool,
+              q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+              kv_mask: torch.Tensor | None) -> torch.Tensor:
+    """Run a sequence-parallel ``local(qs, ks, vs, masks, devices)`` over
+    ``mesh`` on global [B, S, H, D] tensors, as ``shard_map`` with
+    ``P(data, seq, model or None, None)`` does: the batch splits over
+    ``data``, the sequence over ``seq`` and, with ``heads_sharded``, the
+    heads over ``model``; each (data, model) block's seq shards are views
+    of the global tensors placed on its column's devices (no copy where
+    they already lie there), and the output comes back as one global
+    tensor on q's device.  Without ``heads_sharded`` the blocks run on the
+    first model column."""
+    n_data, n_seq = mesh.shape[DATA_AXIS], mesh.shape[SEQ_AXIS]
+    n_model = mesh.shape[MODEL_AXIS] if heads_sharded else 1
+    B, S, H = q.shape[0], q.shape[1], q.shape[2]
+    if S % n_seq:
+        raise ValueError(
+            f"sequence length {S} not divisible by seq axis {n_seq}")
+    if B % n_data:
+        raise ValueError(f"batch {B} not divisible by data axis {n_data}")
+    if H % n_model:
+        raise ValueError(f"heads {H} not divisible by model axis {n_model}")
+    b_loc, s_loc, h_loc = B // n_data, S // n_seq, H // n_model
+    rows = []
+    for d in range(n_data):
+        cols = []
+        for j in range(n_model):
+            grid = mesh.grid(j)[d]
+
+            def split(t, heads=True):
+                t = t[d * b_loc:(d + 1) * b_loc]
+                if heads:
+                    t = t[:, :, j * h_loc:(j + 1) * h_loc]
+                # Views of the global tensor (split's backward is one cat).
+                return [x.to(dev) for x, dev in zip(t.split(s_loc, dim=1),
+                                                    grid)]
+            shards = local(split(q), split(k), split(v),
+                           None if kv_mask is None else split(kv_mask, False),
+                           list(grid))
+            cols.append(torch.cat([o.to(q.device) for o in shards], dim=1))
+        rows.append(torch.cat(cols, dim=2))
+    return torch.cat(rows, dim=0)
+
+
 def make_ring_attention(
     mesh: Mesh,
     *,
@@ -291,43 +337,17 @@ def make_ring_attention(
     model]) mesh.
 
     Inputs are global [B, S, H, D] tensors: batch splits over ``data``,
-    sequence over ``seq``, each block is placed on its mesh device (no
-    copy where it already lies there), every data shard runs its ring, and
-    the output comes back as one global tensor on q's device.  With a
-    ``model`` axis (heads not sharded) the rings run on its first
-    devices."""
-    if heads_sharded:
-        raise NotImplementedError(
-            "ring attention with heads sharded over the model axis (tensor "
-            "parallelism) is not ported yet; see ROADMAP.md, PyTorch port")
-    n_data, n_seq = mesh.shape[DATA_AXIS], mesh.shape[SEQ_AXIS]
-    model_index = mesh.axis_names.index(MODEL_AXIS)
-    grid = mesh.devices.take(0, axis=model_index)     # [data, seq]
+    sequence over ``seq``, and with ``heads_sharded`` heads over
+    ``model``, so that each model column runs its own ring over its heads
+    (tensor parallelism; :func:`over_mesh`).  Without it the rings run on
+    the first model column."""
+    def local(qs, ks, vs, masks, devices):
+        return ring_attention_local(qs, ks, vs, masks, devices=devices,
+                                    causal=causal, window=window,
+                                    use_flash=use_flash)
 
     def attention(q, k, v, kv_mask=None):
-        B, S = q.shape[0], q.shape[1]
-        if S % n_seq:
-            raise ValueError(
-                f"sequence length {S} not divisible by seq axis {n_seq}")
-        if B % n_data:
-            raise ValueError(
-                f"batch {B} not divisible by data axis {n_data}")
-        b_loc, s_loc = B // n_data, S // n_seq
-
-        def split(t, d):
-            # Views of the global tensor (split's backward is one cat), each
-            # on its shard's device.
-            return [x.to(dev) for x, dev in zip(
-                t.split(b_loc)[d].split(s_loc, dim=1), grid[d])]
-
-        outs = []
-        for d in range(n_data):
-            shards = ring_attention_local(
-                split(q, d), split(k, d), split(v, d),
-                None if kv_mask is None else split(kv_mask, d),
-                devices=list(grid[d]), causal=causal, window=window,
-                use_flash=use_flash)
-            outs.append(torch.cat([o.to(q.device) for o in shards], dim=1))
-        return torch.cat(outs, dim=0)
+        return over_mesh(mesh, local, heads_sharded=heads_sharded, q=q, k=k,
+                         v=v, kv_mask=kv_mask)
 
     return attention

@@ -1,0 +1,422 @@
+"""Parameter-placement rules over a mesh's ``model`` axis.
+
+Counterpart of ``distributed_tensorflow_tpu/parallel/sharding.py``: an
+ordered list of (regex, spec) rules matched against flax parameter paths
+(``layer0/qkv/kernel``), the first match winning and no match meaning
+replicated.  A spec is a :class:`P`, the ``PartitionSpec`` of the JAX
+package: one entry per dimension, an axis name, a tuple of them or None.
+
+Placement is single-controller, as :mod:`.mesh` is.  A parameter whose
+spec fits splits into its shards along the dimension the ``model`` axis
+names: shard ``j`` is an ``nn.Parameter`` of its own, registered on the
+owning module as ``<name>_shard<j>`` and living on the mesh device of
+model coordinate ``j`` (:meth:`.mesh.Mesh.model_devices`).  The module
+records the split in ``tp_shards`` (name -> :class:`ShardInfo`), and
+:func:`full` gathers the whole tensor where a computation needs it.
+Every other parameter stays one replicated tensor on the first device; a
+copy carries it to the other positions and autograd sums its gradient.
+Optimizer slots live per shard (a shard is a parameter to the optimizer),
+as the JAX package's slots follow their parameter's path;
+:func:`gather_named` and :func:`split_named` turn ``{name: tensor}``
+dicts between the shard names and the whole names, so a checkpoint holds
+whole arrays in the JAX layout.
+
+FSDP (``fsdp_state``, sharding over ``data``) is slice 8b: the spec
+functions are here, the placement raises.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+import re
+from typing import Any, Sequence
+
+import torch
+from torch import nn
+
+from .mesh import DATA_AXIS, MODEL_AXIS, Mesh
+
+
+class P(tuple):
+    """``jax.sharding.PartitionSpec``: a tuple of per-dimension entries
+    (an axis name, a tuple of axis names, or None), printed as JAX prints
+    it."""
+
+    def __new__(cls, *entries):
+        return super().__new__(cls, entries)
+
+    def __repr__(self) -> str:
+        return f"PartitionSpec{tuple.__repr__(self)}"
+
+    __str__ = __repr__
+
+
+class ShardingRules:
+    """Ordered (regex, :class:`P`) rules applied to flattened parameter
+    paths.  First match wins; no match means replicated."""
+
+    def __init__(self, rules: Sequence[tuple[str, P]] = ()) -> None:
+        self._rules = [(re.compile(pat), spec) for pat, spec in rules]
+
+    def spec_for(self, path: str, value: Any = None) -> P:
+        for pat, spec in self._rules:
+            if pat.search(path):
+                return spec
+        return P()
+
+    def tree_shardings(self, mesh: Mesh, tree: Any,
+                       warn_label: str | None = None) -> Any:
+        """A tree of specs shaped like ``tree`` (nested dicts, lists and
+        tuples of leaves with a ``shape``).  A spec that cannot partition
+        its leaf (rank overflow or indivisible dim) falls back to
+        replicated; ``warn_label`` (placing parameters, where that means a
+        misconfigured rule) prints a warning naming the leaf."""
+        def walk(node, path):
+            if node is None:
+                return None
+            if isinstance(node, dict):
+                return {k: walk(v, path + (k,)) for k, v in node.items()}
+            if isinstance(node, (list, tuple)):
+                return type(node)(walk(v, path + (i,))
+                                  for i, v in enumerate(node))
+            return self._fitted(mesh, path_str(path), node, warn_label)
+        return walk(tree, ())
+
+    def _fitted(self, mesh: Mesh, path: str, leaf: Any,
+                warn_label: str | None) -> P:
+        spec = self.spec_for(path, leaf)
+        shape = tuple(getattr(leaf, "shape", ()) or ())
+        if not _spec_fits(mesh, spec, shape):
+            if warn_label is not None:
+                print(f"WARNING: sharding rule {spec} cannot partition "
+                      f"{warn_label} {path} {shape} on this "
+                      "mesh — leaving it replicated")
+            spec = P()
+        return spec
+
+
+def _spec_fits(mesh: Mesh, spec: P, shape: tuple) -> bool:
+    """True when ``spec`` can partition an array of ``shape`` on ``mesh``:
+    no more entries than dims, and every assigned dim divisible by the
+    product of its mesh axes."""
+    if len(spec) > len(shape):
+        return False
+    for dim, entry in zip(shape, spec):
+        if entry is None:
+            continue
+        axes = entry if isinstance(entry, tuple) else (entry,)
+        need = math.prod(mesh.shape[a] for a in axes)
+        if dim % need:
+            return False
+    return True
+
+
+def path_str(path: tuple) -> str:
+    """A key path as ``a/b/c`` for regex matching."""
+    return "/".join(str(k) for k in path)
+
+
+REPLICATED_RULES = ShardingRules(())
+
+
+# ------------------------------------------------------------ placement
+
+
+@dataclasses.dataclass(frozen=True)
+class ShardInfo:
+    """How one parameter is split: along ``dim`` into the parameters
+    ``names`` (in model-coordinate order), by ``spec``."""
+
+    dim: int
+    names: tuple
+    spec: P
+
+
+def _infos(module: nn.Module) -> dict:
+    return module.__dict__.get("tp_shards", {})
+
+
+def shards(module: nn.Module, name: str) -> list | None:
+    """The shards of ``module``'s parameter ``name`` in model-coordinate
+    order, or None where it is not sharded."""
+    info = _infos(module).get(name)
+    if info is None:
+        return None
+    return [module._parameters[n] for n in info.names]
+
+
+def shard_dim(module: nn.Module, name: str) -> int | None:
+    """The dimension ``name`` is split along, or None."""
+    info = _infos(module).get(name)
+    return None if info is None else info.dim
+
+
+def full(module: nn.Module, name: str):
+    """``module``'s parameter ``name`` whole: itself, or its shards
+    concatenated on shard 0's device (differentiable: the gradient goes
+    back to each shard)."""
+    parts = shards(module, name)
+    if parts is None:
+        return getattr(module, name)
+    home = parts[0].device
+    return torch.cat([p.to(home) for p in parts], dim=shard_dim(module, name))
+
+
+def is_sharded(model: nn.Module) -> bool:
+    return any(_infos(m) for m in model.modules())
+
+
+def _sharded_entries(model: nn.Module):
+    """``(whole name, ShardInfo, shard names)`` of every sharded
+    parameter of ``model``."""
+    for prefix, module in model.named_modules():
+        for name, info in _infos(module).items():
+            pre = f"{prefix}." if prefix else ""
+            yield pre + name, info, [pre + n for n in info.names]
+
+
+def gather_named(model: nn.Module, named: dict) -> dict:
+    """``{state_dict name: tensor}`` with every sharded parameter's shards
+    (by their names) replaced by the whole tensor under its own name
+    (shards absent from ``named`` are left out)."""
+    out = dict(named)
+    for whole, info, names in _sharded_entries(model):
+        if not all(n in out for n in names):
+            continue
+        parts = [out.pop(n) for n in names]
+        home = parts[0].device
+        out[whole] = torch.cat([p.to(home) for p in parts], dim=info.dim)
+    return out
+
+
+def split_named(model: nn.Module, named: dict) -> dict:
+    """Inverse of :func:`gather_named`: whole tensors split into the
+    shards' names (each piece on the whole tensor's device)."""
+    out = dict(named)
+    for whole, info, names in _sharded_entries(model):
+        if whole in out:
+            for n, piece in zip(names, out.pop(whole).chunk(len(names),
+                                                            dim=info.dim)):
+                out[n] = piece
+    return out
+
+
+def _model_dim(mesh: Mesh, spec: P) -> int | None:
+    """The dimension ``spec`` puts on a non-trivial ``model`` axis (None:
+    the leaf is replicated); any other axis it names must have size 1."""
+    dim = None
+    for i, entry in enumerate(spec):
+        if entry is None:
+            continue
+        for axis in entry if isinstance(entry, tuple) else (entry,):
+            if mesh.shape[axis] == 1:
+                continue
+            if axis != MODEL_AXIS:
+                raise NotImplementedError(
+                    f"sharding a parameter over the {axis!r} axis is not "
+                    "ported yet; see ROADMAP.md, section 1, item 6, slice "
+                    "8b")
+            dim = i
+    return dim
+
+
+def _owner(model: nn.Module, name: str):
+    prefix, _, attr = name.rpartition(".")
+    return (model.get_submodule(prefix) if prefix else model), attr
+
+
+def _named_slots(state) -> dict:
+    """``{parameter name: optimizer slot dict}`` of ``state``."""
+    own = state.optimizer.base.state
+    return {n: own[p] for n, p in state.model.named_parameters()
+            if p in own}
+
+
+def _slot_piece(v, shape, n: int, dim: int, j: int, device):
+    """Shard ``j``'s part of one optimizer slot: a tensor of the
+    parameter's shape split as the parameter is, any other tensor (Adam's
+    step count) copied: each shard's optimizer updates its own."""
+    if not torch.is_tensor(v):
+        return v
+    if v.shape == shape:
+        return v.chunk(n, dim=dim)[j].to(device).clone()
+    return v.clone()
+
+
+def _rebuild_optimizer(state, slots: dict) -> None:
+    """A fresh optimizer over the model's (new) parameters, carrying the
+    old one's step count and its slots (``slots``: by the new names)."""
+    old = state.optimizer
+    state.optimizer = old.spec.init(state.model.parameters())
+    state.optimizer.count = old.count
+    for name, p in state.model.named_parameters():
+        if name in slots and p in set(state.optimizer.params):
+            state.optimizer.base.state[p] = slots[name]
+
+
+def _move(state, home: torch.device) -> None:
+    """Every parameter that is not sharded (and its slots and moving
+    average) onto ``home``, the mesh's first device."""
+    with torch.no_grad():
+        for name, p in state.model.named_parameters():
+            if p.device != home:
+                p.data = p.data.to(home)
+                for key, v in state.optimizer.base.state.get(p, {}).items():
+                    if torch.is_tensor(v) and v.dim():
+                        state.optimizer.base.state[p][key] = v.to(home)
+                if state.ema_params is not None:
+                    state.ema_params[name] = state.ema_params[name].to(home)
+
+
+def replicate_state(mesh: Mesh, state: Any) -> Any:
+    """Every parameter one tensor on the mesh's first device, used by
+    every position: the data-parallel layout (the gradient sums over the
+    positions that read it, through autograd; over workers, the
+    all-reduce of :mod:`.sync`).  ``global_step`` and the rng stay as
+    they are."""
+    _move(state, mesh.model_devices()[0])
+    return state
+
+
+def shard_state(mesh: Mesh, state: Any, rules: ShardingRules) -> Any:
+    """Place a TrainState under tensor-parallel ``rules``, IN PLACE (the
+    model's parameters are replaced by their shards; the optimizer is
+    rebuilt over them with its slots split the same way, as the JAX
+    package's slots follow their parameter's path; the moving average
+    too).  A rule that cannot partition its parameter prints the JAX
+    package's warning and leaves it replicated.  ``global_step`` and the
+    rng stay replicated.  The model's modules that hold a mesh (the GPT
+    blocks' ``mesh``) take this one.  One process holds one data replica
+    here: a mesh with ``data > 1`` beside ``model > 1`` raises."""
+    from ..training.state import param_paths
+    n_model = mesh.shape[MODEL_AXIS]
+    if mesh.shape[DATA_AXIS] > 1 and n_model > 1:
+        raise NotImplementedError(
+            f"data={mesh.shape[DATA_AXIS]} with model={n_model} in one "
+            "process is not ported yet (the data axis is the worker "
+            "processes); see ROADMAP.md, section 1, item 6, slice 8d")
+    model = state.model
+    if is_sharded(model):
+        raise ValueError("the state's parameters are sharded already")
+    devices = mesh.model_devices()
+    _move(state, devices[0])
+    named = dict(model.named_parameters())
+    paths = param_paths(named, state.params_to_tree)
+    slots = _named_slots(state)
+    with torch.no_grad():
+        # In the JAX tree's order (keys sorted at every level), so the
+        # warnings come in the JAX package's order.
+        for name in sorted(named, key=lambda n: paths[n].split("/")):
+            p = named[name]
+            spec = rules._fitted(mesh, paths[name], p, "param")
+            dim = _model_dim(mesh, spec)
+            if dim is None:
+                continue
+            module, attr = _owner(model, name)
+            del module._parameters[attr]
+            names = tuple(f"{attr}_shard{j}" for j in range(n_model))
+            pre = name[:len(name) - len(attr)]
+            for j, (n, piece) in enumerate(zip(names, p.chunk(n_model,
+                                                              dim=dim))):
+                module.register_parameter(n, nn.Parameter(
+                    piece.to(devices[j]).clone(),
+                    requires_grad=p.requires_grad))
+            module.__dict__.setdefault("tp_shards", {})[attr] = ShardInfo(
+                dim, names, spec)
+            whole_slots = slots.pop(name, None)
+            if whole_slots is not None:
+                for j, n in enumerate(names):
+                    slots[pre + n] = {
+                        k: _slot_piece(v, p.shape, n_model, dim, j,
+                                       devices[j])
+                        for k, v in whole_slots.items()}
+            if state.ema_params is not None:
+                ema = state.ema_params.pop(name)
+                for j, (n, piece) in enumerate(zip(names, ema.chunk(
+                        n_model, dim=dim))):
+                    state.ema_params[pre + n] = piece.to(devices[j]).clone()
+    _rebuild_optimizer(state, slots)
+    for module in model.modules():
+        if hasattr(module, "mesh"):
+            module.mesh = mesh
+    return state
+
+
+def apply_rules(mesh: Mesh, tree: Any, rules: ShardingRules,
+                warn_label: str | None = None) -> Any:
+    """A tree of arrays or tensors as its per-leaf shard lists: each
+    leaf whose fitted spec splits it over ``model`` becomes the list of
+    its pieces (piece ``j`` on model device ``j``), every other leaf a
+    one-element list on the first device."""
+    devices = mesh.model_devices()
+    specs = rules.tree_shardings(mesh, tree, warn_label)
+
+    def place(leaf, spec):
+        t = torch.as_tensor(leaf)
+        dim = _model_dim(mesh, spec)
+        if dim is None:
+            return [t.to(devices[0])]
+        return [x.to(d) for x, d in zip(t.chunk(len(devices), dim=dim),
+                                        devices)]
+
+    def walk(node, spec):
+        if node is None:
+            return None
+        if isinstance(node, dict):
+            return {k: walk(v, spec[k]) for k, v in node.items()}
+        if isinstance(node, (list, tuple)) and not isinstance(node, P):
+            return type(node)(walk(v, s) for v, s in zip(node, spec))
+        return place(node, spec)
+    return walk(tree, specs)
+
+
+# ------------------------------------------------------------------ FSDP
+
+
+def fsdp_spec(base: P, shape: tuple, axis_size: int, *,
+              axis_name: str = DATA_AXIS, min_size: int = 2 ** 16) -> P:
+    """Extend ``base`` (a TP spec or ``P()``) with the data axis, ZeRO/FSDP:
+    the LARGEST dim of ``shape`` not claimed by ``base`` and divisible by
+    ``axis_size`` shards over ``axis_name``.  Leaves smaller than
+    ``min_size`` elements keep the base spec; ``base`` comes back
+    unchanged when no dim qualifies."""
+    if axis_size <= 1 or math.prod(shape) < min_size or len(base) > len(shape):
+        return base
+    entries = list(base) + [None] * (len(shape) - len(base))
+    best = -1
+    for i, (e, d) in enumerate(zip(entries, shape)):
+        if e is None and d % axis_size == 0 and (best < 0 or d > shape[best]):
+            best = i
+    if best < 0:
+        return base
+    entries[best] = axis_name
+    return P(*entries)
+
+
+class FsdpRules(ShardingRules):
+    """Shape-aware rule set: the TP rules first, then FSDP over the data
+    axis (:func:`fsdp_spec`)."""
+
+    def __init__(self, base: ShardingRules | None, axis_size: int, *,
+                 min_size: int = 2 ** 16) -> None:
+        super().__init__(())
+        self._base = base or REPLICATED_RULES
+        self._axis_size = axis_size
+        self._min_size = min_size
+
+    def spec_for(self, path: str, value: Any = None) -> P:
+        base = self._base.spec_for(path, value)
+        shape = tuple(getattr(value, "shape", ()) or ())
+        if not shape:
+            return base
+        return fsdp_spec(base, shape, self._axis_size,
+                         min_size=self._min_size)
+
+
+def fsdp_state(mesh: Mesh, state: Any, rules: ShardingRules | None = None,
+               *, min_size: int = 2 ** 16) -> Any:
+    """ZeRO-3/FSDP placement over the ``data`` axis: not ported yet."""
+    raise NotImplementedError(
+        "FSDP placement (--fsdp) is not ported yet; see ROADMAP.md, "
+        "section 1, item 6, slice 8b")

@@ -27,10 +27,13 @@ the order of the sums.  Without a process group a worker trains on the
 whole batch alone (the JAX multi-process tests' single-controller
 workers).
 
-A model whose attention is sharded over a single-process mesh
-(``attention_backend="ring"``) needs no all-reduce of its own: the
-replicated weights are one set of tensors, and autograd sums every
-shard's contribution into their gradients.
+A model sharded over a single-process mesh (``attention_backend="ring"``
+or ``"ulysses"``, tensor parallelism by ``parallel/sharding.shard_state``)
+needs no all-reduce of its own: a replicated weight is one tensor, and
+autograd sums every position's contribution into its gradient; a split
+weight is its shards, one parameter each.  So the global norm (clipping,
+``log_grad_norm``) counts each shard once, the moving average runs per
+shard, and :class:`GradientAllReduce` flattens every shard.
 
 The stateful steps (BatchNorm models) wait for those models.  The async
 half's helpers live here too, as in JAX: the hierarchical exchange's
@@ -76,7 +79,10 @@ class GradientAllReduce:
 
     def sum_(self, tensors: Sequence[torch.Tensor]) -> None:
         """In place: every tensor becomes its sum over the ranks."""
-        flat = torch.cat([t.detach().reshape(-1).to(torch.float32)
+        # Every shard of a tensor-parallel state too, each from its own
+        # device.
+        home = tensors[0].device
+        flat = torch.cat([t.detach().reshape(-1).to(home, torch.float32)
                           for t in tensors])
         if flat.is_cuda:
             torch.cuda.synchronize(flat.device)

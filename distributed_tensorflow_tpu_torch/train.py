@@ -33,12 +33,24 @@ the hand-written kernels, printing the JAX CLI's lines).  ``--model`` is
 ``--attention_backend=pallas --fused_layer_norm`` the gpt_mini trainer
 runs the flash-attention (K1, K2a/K2b) and LayerNorm (K3) kernels.
 
+Parallelism: the data axis is the worker processes.  Each worker's mesh
+is ``data=1 x seq x model`` (``--sequence_parallel``,
+``--tensor_parallel``), its positions laid round robin over the worker's
+cards (all on one card where there is one; the CLI prints the layout),
+one process driving them all.  ``--tensor_parallel`` places gpt_mini by
+its Megatron rules (``--log_sharding`` prints each parameter's spec);
+``--attention_backend=ring|ulysses`` runs sequence-parallel attention
+over the seq axis.  A model without rules (``mnist_mlp``) trains
+replicated.
+
 Every flag of the JAX ``train.py`` is declared, so a JAX command line
 parses; the port adds ``--device`` (default ``cuda``, which raises without
 a card) in place of ``--platform``.  Not ported yet (each raises
-``NotImplementedError`` naming ROADMAP.md's entry): the parallelism flags
-(item 6); the other models, the BPE tokenizer, ``--gen_prompt_text`` and
-``--gen_stop_text`` (item 7); ``--profile`` run profiles (item 8).
+``NotImplementedError`` naming ROADMAP.md's entry): FSDP (item 6, slice
+8b), the pipeline (8c), the DCN factor and the multi-controller sharded
+feed (8d); the experts, the other models, the BPE tokenizer,
+``--gen_prompt_text`` and ``--gen_stop_text`` (item 7); ``--profile`` run
+profiles (item 8).
 """
 
 from __future__ import annotations
@@ -165,7 +177,9 @@ flags.DEFINE_boolean("remat", False,
 flags.DEFINE_string("attention_backend", "xla",
                     "Attention backend for gpt_mini: xla (PyTorch) | pallas "
                     "(the hand-written flash-attention kernels) | ring "
-                    "(needs --sequence_parallel, not ported in the CLI)")
+                    "(K/V hops over --sequence_parallel shards) | ulysses "
+                    "(head/sequence all-to-all, heads divisible by "
+                    "--sequence_parallel)")
 flags.DEFINE_boolean("gpt_matmul_int8", False,
                      "Train gpt_mini's MLP through the int8 matmul kernels")
 flags.DEFINE_boolean("gpt_attn_int8", False,
@@ -297,15 +311,21 @@ flags.DEFINE_string("profile_dir", None,
 # The JAX train.py's flags of paths not ported yet: declared so its command
 # lines parse; a value other than the default raises NotImplementedError
 # naming ROADMAP.md's entry.
+flags.DEFINE_integer("tensor_parallel", 1,
+                     "Size of the 'model' mesh axis (tensor parallelism: "
+                     "Megatron's split of gpt_mini over the worker's "
+                     "positions)")
+flags.DEFINE_integer("sequence_parallel", 1,
+                     "Size of the 'seq' mesh axis (sequence/context "
+                     "parallelism; pairs with --attention_backend=ring "
+                     "or ulysses)")
 _UNPORTED_FLAGS = (
-    ("integer", "tensor_parallel", 1, "item 6"),
-    ("integer", "sequence_parallel", 1, "item 6"),
-    ("integer", "pipeline_microbatches", 4, "item 6"),
-    ("boolean", "sharded_feed", True, "item 6"),
-    ("boolean", "fsdp", False, "item 6"),
-    ("integer", "fsdp_min_size", 65536, "item 6"),
-    ("integer", "dcn_data_parallel", 1, "item 6"),
-    ("integer", "expert_parallel", 1, "item 6"),
+    ("integer", "pipeline_microbatches", 4, "item 6, slice 8c"),
+    ("boolean", "sharded_feed", True, "item 6, slice 8d"),
+    ("boolean", "fsdp", False, "item 6, slice 8b"),
+    ("integer", "fsdp_min_size", 65536, "item 6, slice 8b"),
+    ("integer", "dcn_data_parallel", 1, "item 6, slice 8d"),
+    ("integer", "expert_parallel", 1, "item 7"),
     ("integer", "num_experts", 4, "item 7"),
     ("boolean", "data_augmentation", False, "item 7"),
     ("integer", "gpt_bpe_vocab", 512, "item 7"),
@@ -483,10 +503,13 @@ def run_generate():
 
 
 def _parameter_digest(model: torch.nn.Module) -> str:
-    """sha256 over every parameter's bytes in name order: equal digests
-    mean bit-equal parameters."""
+    """sha256 over every parameter's bytes in name order, a parameter
+    split over the model axis taken whole: equal digests mean bit-equal
+    parameters."""
+    from .parallel.sharding import gather_named
     h = hashlib.sha256()
-    for name, p in sorted(model.named_parameters()):
+    for name, p in sorted(gather_named(
+            model, dict(model.named_parameters())).items()):
         h.update(name.encode())
         h.update(p.detach().to("cpu").contiguous().view(torch.uint8)
                  .numpy().tobytes())
@@ -507,10 +530,55 @@ def _kernel_launches() -> dict:
             "quant_matmul_nt": qmm.nt_launches}
 
 
+def _validate_parallel_flags() -> None:
+    """The JAX CLI's checks of the pipeline and expert flags, ahead of
+    those paths' ``NotImplementedError``s."""
+    if FLAGS.pipeline_parallel > 1:
+        if FLAGS.tensor_parallel > 1:
+            raise ValueError(
+                "--pipeline_parallel with --tensor_parallel is not supported")
+        if FLAGS.sequence_parallel > 1 or FLAGS.attention_backend in (
+                "ring", "ulysses"):
+            raise ValueError(
+                "--pipeline_parallel cannot nest sequence-parallel attention "
+                "(--sequence_parallel/--attention_backend=ring|ulysses): "
+                "shard_map inside shard_map is unsupported")
+        raise _not_ported("--pipeline_parallel", "item 6, slice 8c")
+    if FLAGS.expert_parallel > 1:
+        if FLAGS.model != "bert_moe":
+            raise ValueError(
+                f"--expert_parallel={FLAGS.expert_parallel} needs an MoE "
+                f"model (--model=bert_moe), got --model={FLAGS.model}")
+        if FLAGS.num_experts % FLAGS.expert_parallel:
+            raise ValueError(
+                f"--num_experts={FLAGS.num_experts} must be divisible by "
+                f"--expert_parallel={FLAGS.expert_parallel}")
+    if FLAGS.tensor_parallel > 1 and FLAGS.model == "gpt_mini" and (
+            FLAGS.gpt_matmul_int8 or FLAGS.gpt_attn_int8):
+        raise _not_ported("--gpt_matmul_int8/--gpt_attn_int8 with "
+                          "--tensor_parallel", "item 6, slice 8b")
+
+
 def _check_unported_flags() -> None:
     for _, name, default, where in _UNPORTED_FLAGS:
         if getattr(FLAGS, name) != default:
             raise _not_ported(f"--{name}", where)
+
+
+def _log_placement(task: int, state) -> None:
+    """``--log_sharding``: each parameter's placement, in the JAX CLI's
+    format (its flax path, whole shape and spec), with its devices."""
+    from .parallel.sharding import P, _sharded_entries, gather_named
+    from .training.state import param_paths
+    model = state.model
+    whole = gather_named(model, dict(model.named_parameters()))
+    split = {name: (info.spec, [p.device for p in (
+        model.get_parameter(n) for n in names)])
+        for name, info, names in _sharded_entries(model)}
+    for name, path in param_paths(whole, state.params_to_tree).items():
+        spec, devices = split.get(name, (P(), [whole[name].device]))
+        print(f"Worker {task}: param {path} {tuple(whole[name].shape)} -> "
+              f"{spec} on {', '.join(map(str, devices))}")
 
 
 def _step_delay(spec: str, step_fn):
@@ -718,11 +786,12 @@ def _async_exchange(state, train_step, coord, num_workers: int):
 
 
 def main(unused_argv):
-    from .cluster.server import Server, worker_device
+    from .cluster.server import Server
     from .cluster.spec import ClusterSpec, is_chief
     from .models import registry
     from .parallel import sync as sync_lib
-    from .parallel.mesh import ParallelConfig
+    from .parallel import mesh as mesh_lib
+    from .parallel.mesh import ParallelConfig, worker_positions
     from .training.loop import parameters_swapped, run_training_loop
     from .training.optimizers import schedule_from_flags
     from .training.preemption import ShutdownSignal
@@ -742,6 +811,7 @@ def main(unused_argv):
             f"--mode must be train, eval or generate, got {FLAGS.mode}")
 
     validate_role_flags(FLAGS)
+    _validate_parallel_flags()
     _check_unported_flags()
     if FLAGS.feed_dtype not in ("float32", "uint8"):
         raise ValueError(
@@ -760,13 +830,18 @@ def main(unused_argv):
     if FLAGS.async_mode != "local_sgd":
         raise ValueError(f"--async_mode must be local_sgd, got "
                          f"{FLAGS.async_mode!r}")
-    # One declarative layout; only the data axis is ported.
+    # One declarative layout.  Its data axis is the worker processes; each
+    # worker's mesh is data=1 x seq x model, its positions laid over the
+    # worker's cards round robin.
     pcfg = ParallelConfig.from_flags(FLAGS)
 
     cluster = ClusterSpec({"ps": FLAGS.ps_hosts, "worker": FLAGS.worker_hosts})
     num_workers = cluster.num_workers
-    device = (worker_device(FLAGS.device, FLAGS.task_index)
-              if FLAGS.job_name == "worker" else None)
+    device = positions = None
+    if FLAGS.job_name == "worker":
+        positions = worker_positions(FLAGS.device, FLAGS.task_index,
+                                     pcfg.seq * pcfg.model)
+        device = positions[0]
     # Async workers meet only at the coordination service, never in a
     # collective (reference distributed.py:102,145): a process group would
     # tie their independent cadences together.
@@ -793,8 +868,18 @@ def main(unused_argv):
     else:
         print(f"Worker {task}: no process group; training alone on {device}")
 
-    bundle = registry.build(FLAGS.model, FLAGS, device)
+    mesh = pcfg.build_mesh(positions)
+    if len(positions) > 1:
+        print(f"Worker {task}: mesh {pcfg.describe()} (seq={pcfg.seq}, "
+              f"model={pcfg.model}): {len(positions)} positions on "
+              f"{len(set(positions))} distinct device(s) "
+              f"{', '.join(map(str, positions))}")
+    bundle = registry.build(FLAGS.model, FLAGS, device, mesh=mesh)
     state = bundle.state
+    # Rules engage only when the mesh has a model axis (JAX's use_tp), so
+    # mnist_mlp with --tensor_parallel trains replicated.
+    use_tp = (bundle.sharding_rules is not None
+              and mesh.shape[mesh_lib.MODEL_AXIS] > 1)
     if FLAGS.trainable_params:
         # Selective fine-tuning: only matching parameters train, and the
         # optimizer is re-initialized so frozen ones carry no slots.
@@ -807,14 +892,15 @@ def main(unused_argv):
         print(f"Worker {task}: --trainable_params="
               f"{FLAGS.trainable_params!r} trains {n_train:,} of "
               f"{n_total:,} parameters")
-    if FLAGS.log_sharding:
-        for name, p in state.model.named_parameters():
-            print(f"Worker {task}: param {name.replace('.', '/')} "
-                  f"{tuple(p.shape)} -> replicated on {p.device}")
     if FLAGS.ema_decay > 0:
         # Seed the average at a copy of the initial weights.
         state.ema_params = {n: p.detach().clone()
                             for n, p in state.model.named_parameters()}
+    # The layout's placement: the bundle's rules over the model axis, else
+    # replicated (one set of tensors on the first position).
+    state = pcfg.place_state(mesh, state, bundle.sharding_rules)
+    if FLAGS.log_sharding:
+        _log_placement(task, state)
 
     datasets = bundle.load_datasets(FLAGS.data_dir)
     if FLAGS.feed_dtype == "uint8":
@@ -887,7 +973,11 @@ def main(unused_argv):
     elastic_ctx: dict = {"watcher": None}
     replicas_to_aggregate = sync_lib.resolve_replicas_to_aggregate(
         FLAGS.replicas_to_aggregate, num_workers)
-    use_masked = (FLAGS.sync_replicas
+    if use_tp and not FLAGS.sync_replicas:
+        print(f"Worker {task}: tensor parallelism requires lockstep "
+              "replicas; async mode unsupported — using sync.")
+    sync_mode = FLAGS.sync_replicas or use_tp
+    use_masked = (sync_mode and not use_tp
                   and replicas_to_aggregate < num_workers and coord is not None)
     if use_masked and FLAGS.ema_decay > 0:
         raise ValueError("--ema_decay with R<N masked sync is unsupported")
@@ -907,7 +997,7 @@ def main(unused_argv):
               "masked (R<N) sync path — ignoring")
     replica_mask_fn = None
     async_mode_active = False
-    if not FLAGS.sync_replicas:
+    if not sync_mode:
         if FLAGS.ema_decay > 0:
             raise ValueError("--ema_decay requires sync mode")
         if (FLAGS.steps_per_call > 1

@@ -117,9 +117,11 @@ def make_schedule(name: str, learning_rate: float, *,
 
 
 def global_norm(tensors: Iterable[torch.Tensor]) -> torch.Tensor:
-    """L2 norm over all tensors, in fp32 (a 0-dim tensor)."""
+    """L2 norm over all tensors, in fp32 (a 0-dim tensor on the first
+    tensor's device).  A parameter split over the model axis is its
+    shards, each counted once."""
     sq = [t.detach().float().pow(2).sum() for t in tensors]
-    return torch.stack(sq).sum().sqrt()
+    return torch.stack([x.to(sq[0].device) for x in sq]).sum().sqrt()
 
 
 class Optimizer:
@@ -168,8 +170,9 @@ class Optimizer:
             # reaches the limit, untouched below it.
             below = norm < clip
             for p in self.params:
-                n = norm.to(p.grad.dtype)
-                p.grad.copy_(torch.where(below, p.grad, p.grad / n * clip))
+                n = norm.to(p.grad.device, p.grad.dtype)
+                p.grad.copy_(torch.where(below.to(p.grad.device), p.grad,
+                                         p.grad / n * clip))
         lr = self.spec.schedule(self.count)
         for group in self.base.param_groups:
             group["lr"] = lr

@@ -9,7 +9,10 @@ model and the optimizer's slots are updated IN PLACE and
 :func:`checkpoint_tree` and :func:`load_checkpoint_tree` convert a state to
 and from the tree the JAX supervisor checkpoints (``{params, opt_state,
 global_step[, ema_params]}`` with flax's names and optax's slot layout),
-so each package restores the other's checkpoints.
+so each package restores the other's checkpoints.  A tensor-parallel
+state (``parallel/sharding.shard_state``) holds its split parameters as
+shards; its checkpoint tree gathers them into whole arrays and loading
+splits them again, so its checkpoint is an unsharded run's.
 """
 
 from __future__ import annotations
@@ -100,6 +103,20 @@ def _param_names(state: TrainState) -> dict:
     return {p: n for n, p in state.model.named_parameters()}
 
 
+def _tree_fns(state: TrainState):
+    """``(to_tree, from_tree)`` between ``{name: tensor}`` dicts of the
+    model's own parameter names and the JAX package's tree: a parameter
+    split over the model axis (``parallel/sharding.py``) is gathered into
+    one whole array on the way out and split again on the way in, so a
+    sharded run's checkpoint is an unsharded run's."""
+    from ..parallel.sharding import gather_named, is_sharded, split_named
+    if not is_sharded(state.model):
+        return state.params_to_tree, state.params_from_tree
+    model = state.model
+    return (lambda named: state.params_to_tree(gather_named(model, named)),
+            lambda tree: split_named(model, state.params_from_tree(tree)))
+
+
 def param_paths(names, to_tree: Callable[[dict], dict]) -> dict:
     """``{state_dict name: flax path}`` (``a/b``, the JAX package's
     ``path_str``) for the parameter ``names`` under a model's ``to_tree``,
@@ -132,13 +149,14 @@ def checkpoint_tree(state: TrainState) -> dict:
     own, with per-replica stacks."""
     if not isinstance(state, TrainState):
         return state.checkpoint_tree()
+    to_tree, _ = _tree_fns(state)
     params = {n: p.detach() for n, p in state.model.named_parameters()}
-    tree = {"params": state.params_to_tree(params),
+    tree = {"params": to_tree(params),
             "opt_state": state.optimizer.optax_state(_param_names(state),
-                                                     state.params_to_tree),
+                                                     to_tree),
             "global_step": np.asarray(state.global_step, np.int32)}
     if state.ema_params is not None:
-        tree["ema_params"] = state.params_to_tree(state.ema_params)
+        tree["ema_params"] = to_tree(state.ema_params)
     return tree
 
 
@@ -153,8 +171,9 @@ def load_checkpoint_tree(state: TrainState, tree: dict) -> TrainState:
     into an EMA-disabled state by dropping it."""
     if not isinstance(state, TrainState):
         return state.load_checkpoint_tree(tree)
+    _, from_tree = _tree_fns(state)
     try:
-        params = state.params_from_tree(tree["params"])
+        params = from_tree(tree["params"])
         with torch.no_grad():
             own = dict(state.model.named_parameters())
             if set(params) != set(own):
@@ -165,19 +184,18 @@ def load_checkpoint_tree(state: TrainState, tree: dict) -> TrainState:
                     raise ValueError(f"{name} of shape "
                                      f"{tuple(params[name].shape)}, expected "
                                      f"{tuple(p.shape)}")
-                p.copy_(params[name])
+                p.copy_(params[name].to(p.device))
         global_step = int(tree["global_step"])
     except KeyError as e:
         raise ValueError(f"checkpoint tree lacks {e}") from None
     state.optimizer.count = global_step - 1
     state.optimizer.load_optax_state(tree.get("opt_state"),
-                                     _param_names(state),
-                                     state.params_from_tree)
+                                     _param_names(state), from_tree)
     state.global_step = global_step
     if state.ema_params is not None:
         saved = tree.get("ema_params")
-        ema = (state.params_from_tree(saved) if saved is not None
+        ema = (from_tree(saved) if saved is not None
                else {n: p.detach() for n, p in own.items()})
         for name, e in state.ema_params.items():
-            e.copy_(ema[name])
+            e.copy_(ema[name].to(e.device))
     return state

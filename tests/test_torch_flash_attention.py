@@ -106,18 +106,21 @@ def test_xla_backend_matches_jax_with_full_mask():
 
 def test_attention_rejects_unported_and_unknown_backends():
     q, k, v = map(torch.from_numpy, _qkv(1, 8, 1, 8, seed=4))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    # Both sequence-parallel backends are ported (parallel/ring.py,
+    # parallel/ulysses.py) and need a mesh; with heads sharded over a
+    # model axis (tensor parallelism) each model column attends over its
+    # own heads, the dense result.
+    with pytest.raises(ValueError, match="needs mesh"):
         tattn.dot_product_attention(q, k, v, causal=True, backend="ulysses")
-    # The ring is ported (parallel/ring.py) but needs a mesh; with heads
-    # sharded over a model axis (tensor parallelism) it is not.
     with pytest.raises(ValueError, match="needs mesh"):
         tattn.dot_product_attention(q, k, v, causal=True, backend="ring")
     from distributed_tensorflow_tpu_torch.parallel.mesh import create_mesh
     tp = create_mesh(data=1, model=2, devices=[torch.device("cpu")] * 2)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tattn.dot_product_attention(
-            q.expand(1, 8, 2, 8), k.expand(1, 8, 2, 8), v.expand(1, 8, 2, 8),
-            causal=True, backend="ring", mesh=tp)
+    two = [t.expand(1, 8, 2, 8) for t in (q, k, v)]
+    torch.testing.assert_close(
+        tattn.dot_product_attention(*two, causal=True, backend="ring",
+                                    mesh=tp),
+        tattn.dot_product_attention(*two, causal=True), atol=1e-6, rtol=0)
     with pytest.raises(ValueError, match="Unknown"):
         tattn.dot_product_attention(q, k, v, backend="nope")
     with pytest.raises(ValueError, match="causal"):

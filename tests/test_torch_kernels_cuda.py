@@ -470,6 +470,68 @@ def test_gpt_train_step_at_the_jax_default_width_on_card(cuda_device):
     assert torch.nn.functional.cosine_similarity(ga, gb, dim=0) >= 0.999
 
 
+# chip_smoke.py's train_parallel arms: (seq, model, backend).
+PARALLEL_ARMS = {"tp2": (1, 2, "pallas"), "ulysses4": (4, 1, "ulysses"),
+                 "tp2_ring2": (2, 2, "ring"), "tp2_ulysses2": (2, 2, "ulysses")}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arm", sorted(PARALLEL_ARMS))
+def test_parallel_train_step_on_card_matches_the_pallas_step(cuda_device,
+                                                            arm):
+    """One step of a small GPT (head_dim 64, 8 heads) placed by
+    ``ParallelConfig.place_state`` on a seq x model mesh of positions on
+    the one card: the loss and the gathered gradients match the unsharded
+    pallas step within chip_smoke.py's TRAIN_* tolerances, and the
+    kernels launch exactly per shard: K1/K2 once a layer per (model
+    column, seq device) for pallas and ulysses, K6/K7 once a hop per
+    (model column, seq shard) for the ring, K3 2L + 1 (replicated)."""
+    from distributed_tensorflow_tpu_torch.models import gpt
+    from distributed_tensorflow_tpu_torch.parallel.mesh import ParallelConfig
+    from distributed_tensorflow_tpu_torch.parallel.sharding import (
+        gather_named)
+    from distributed_tensorflow_tpu_torch.training.optimizers import (
+        make_optimizer)
+    from distributed_tensorflow_tpu_torch.training.state import TrainState
+
+    seq, model_axis, backend = PARALLEL_ARMS[arm]
+    pc = ParallelConfig(model=model_axis, seq=seq, attention=backend)
+    mesh = pc.build_mesh([cuda_device] * (seq * model_axis))
+    cfg = gpt.GptConfig(hidden_size=512, num_layers=2, num_heads=8,
+                        intermediate_size=1024, max_position=256,
+                        attention_backend=backend, fused_ln=True)
+    model = gpt.GptLM(cfg, device=cuda_device, param_dtype=torch.float32,
+                      mesh=mesh)
+    plain = gpt.GptLM(dataclasses.replace(cfg, attention_backend="pallas"),
+                      device=cuda_device, param_dtype=torch.float32)
+    plain.load_state_dict(model.state_dict())
+    state = pc.place_state(mesh, TrainState.create(
+        model, make_optimizer("adam", 1e-3), params_to_tree=gpt.params_to_jax,
+        params_from_tree=gpt.params_from_jax), gpt.gpt_sharding_rules())
+    tokens = torch.as_tensor(gpt.synthetic_lm_batch(0, 4, 256, cfg)[
+        "tokens"], device=cuda_device).long()
+    names = ("launches", "dq_launches", "dkv_launches", "chunk_launches",
+             "chunk_dq_launches", "chunk_dkv_launches")
+    steps = []
+    for m in (state.model, plain):
+        before = [getattr(tfa, n) for n in names] + [ln.launches]
+        loss, _ = gpt.lm_loss(m(tokens), tokens)
+        loss.backward()
+        after = [getattr(tfa, n) for n in names] + [ln.launches]
+        grads = gather_named(m, {n: p.grad for n, p in m.named_parameters()})
+        steps.append((loss.item(), torch.cat(
+            [grads[n].flatten() for n, _ in plain.named_parameters()]),
+            [a - b for a, b in zip(after, before)]))
+    L = cfg.num_layers
+    flash = 0 if backend == "ring" else L * model_axis * seq
+    chunk = L * model_axis * seq * seq if backend == "ring" else 0
+    assert steps[0][2] == [flash] * 3 + [chunk] * 3 + [2 * L + 1]
+    (la, ga, _), (lb, gb, _) = steps
+    assert 4.0 < la < 7.0 and abs(la - lb) <= 1e-3
+    assert abs(ga.norm() - gb.norm()) / gb.norm() <= 2e-3
+    assert torch.nn.functional.cosine_similarity(ga, gb, dim=0) >= 0.999
+
+
 @pytest.mark.cuda
 def test_async_local_step_runs_each_replica_through_the_kernels_on_card(
         cuda_device):
@@ -1184,6 +1246,33 @@ def test_ring_on_card_matches_flash_kernels(cuda_device, window):
     torch.testing.assert_close(out.float(), ref.float(), atol=2e-2, rtol=0)
     for name, a, b in zip(("dq", "dk", "dv"), got, want):
         assert _rel_err(a, b) <= 1e-2, (name, _rel_err(a, b))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("backend", ["ring", "ulysses"])
+def test_attention_dispatch_on_card_never_takes_the_dense_path(cuda_device,
+                                                               backend):
+    """Shapes that do not tile a seq=4 x model=2 mesh on one card: local
+    heads that seq does not divide (H=4, two a model column) send ulysses
+    to the ring's chunk kernels, and a sequence that seq does not divide
+    (1022) runs K1 over the whole of it; both agree with the dense path
+    (bf16, as above)."""
+    from distributed_tensorflow_tpu_torch.parallel.mesh import create_mesh
+    g = torch.Generator(device=cuda_device).manual_seed(11)
+    mesh = create_mesh(data=1, seq=4, model=2, devices=[cuda_device] * 8)
+    for S, want_chunk in ((1024, True), (1022, False)):
+        q, k, v = (torch.randn(2, S, 4, 128, generator=g, device=cuda_device
+                               ).to(torch.bfloat16) for _ in range(3))
+        counts = (tfa.chunk_launches, tfa.launches)
+        out = tattn.dot_product_attention(q, k, v, causal=True,
+                                          backend=backend, mesh=mesh)
+        chunk, flash = (tfa.chunk_launches - counts[0],
+                        tfa.launches - counts[1])
+        assert (chunk > 0, flash > 0) == (want_chunk, not want_chunk), (
+            S, chunk, flash)
+        ref = tattn.dot_product_attention(q, k, v, causal=True)
+        torch.testing.assert_close(out.float(), ref.float(), atol=2e-2,
+                                   rtol=0)
 
 
 @pytest.mark.cuda

@@ -59,6 +59,8 @@ def test_every_port_module_imports_without_jax():
     assert len(_port_modules()) >= 15
     assert {f"{port.__name__}.{name}" for name in (
         "parallel.mesh", "parallel.ring", "models.drafting",
+        # Tensor and sequence parallelism in one process.
+        "parallel.sharding", "parallel.ulysses",
         "tools.checkpoint_io", "tools.export_model", "tools.serve",
         "serving.hot_swap", "config", "train",
         # The reference trainer, sync mode.

@@ -150,10 +150,11 @@ def test_ring_rejects_what_it_cannot_take():
     with pytest.raises(ValueError, match="window"):
         tring.make_ring_attention(mesh, window=4)(x[:, :8], x[:, :8],
                                                   x[:, :8])
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    # Heads sharded over a model axis they do not divide.
+    with pytest.raises(ValueError, match="not divisible by model axis"):
         tring.make_ring_attention(
             tmesh.create_mesh(data=2, seq=2, model=2, devices=CPU8),
-            heads_sharded=True)
+            heads_sharded=True)(x[:, :8, :1], x[:, :8, :1], x[:, :8, :1])
 
 
 @pytest.mark.parametrize("window", [0, 20, 40])
@@ -174,7 +175,7 @@ def test_create_mesh_follows_jax_rules_and_may_repeat_a_device():
     assert tmesh.create_mesh(seq=4, devices=CPU8[:4]).shape[
         tmesh.DATA_AXIS] == 1                      # data=-1 inferred
     assert tmesh.create_mesh(data=-1, seq=2, devices=CPU8).shape == {
-        "data": 4, "seq": 2, "model": 1}
+        "data": 4, "seq": 2, "pipe": 1, "expert": 1, "model": 1}
     with pytest.raises(ValueError, match="At most one"):
         tmesh.create_mesh(data=-1, seq=-1, devices=CPU8)
     with pytest.raises(ValueError, match="not divisible"):
@@ -186,7 +187,7 @@ def test_create_mesh_follows_jax_rules_and_may_repeat_a_device():
 def test_attention_entry_point_dispatches_the_ring():
     """backend="ring" with the mesh of attention_mesh (or mesh=) runs the
     ring; shapes that do not tile the mesh take the dense path; no mesh,
-    a full mask or ulysses raise."""
+    a full mask or ulysses without a mesh raise."""
     rng = np.random.default_rng(3)
     q, k, v = (torch.from_numpy(rng.standard_normal((B, S, H, D)).astype(
         np.float32)) for _ in range(3))
@@ -212,5 +213,5 @@ def test_attention_entry_point_dispatches_the_ring():
     with pytest.raises(ValueError, match="full"):
         tattn.dot_product_attention(q, k, v, mask=torch.ones(1, 1, S, S),
                                     backend="ring", mesh=mesh)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tattn.dot_product_attention(q, k, v, backend="ulysses", mesh=mesh)
+    with pytest.raises(ValueError, match="needs mesh"):
+        tattn.dot_product_attention(q, k, v, backend="ulysses")

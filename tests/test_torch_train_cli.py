@@ -65,7 +65,8 @@ def test_sync_training_prints_the_reference_lines(tmp_path, standalone,
     result = run_main(tmp_path, "--sync_replicas=true", "--log_sharding")
     out = capsys.readouterr().out
     for line in ("Worker 0: Initailizing session...",
-                 "Worker 0: param hid/kernel (784, 32) -> replicated on cpu",
+                 "Worker 0: param hid/kernel (784, 32) -> PartitionSpec() "
+                 "on cpu",
                  "Worker 0: Session initialization  complete.",
                  "Worker 0: validation accuracy",
                  "Worker 0: traing step 10 (global step:11) loss",
@@ -178,7 +179,7 @@ def test_metrics_file_summaries_and_profile(tmp_path, standalone):
     (("--sync_replicas=true", "--fsdp=true"), "item 6"),
     (("--sync_replicas=true", "--dcn_data_parallel=2"), "item 6"),
     (("--sync_replicas=true", "--data_augmentation=true"), "item 7"),
-    (("--sync_replicas=true", "--tensor_parallel=2"), "item 6"),
+    (("--sync_replicas=true", "--sharded_feed=false"), "item 6"),
     (("--sync_replicas=true", "--pipeline_parallel=2"), "item 6"),
     (("--sync_replicas=true", "--model=resnet20"), "item 7"),
     (("--sync_replicas=true", "--profile=p.json"), "item 8"),
