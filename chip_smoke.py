@@ -18,7 +18,11 @@ Phases, one JSON line each on stdout:
    and K2b at the train step's, K1, K2a and K2b also at head_dim 64 and
    32, K4 and K5 at the int8 MLP's four call sites of the int8 train
    step, every epilogue and prologue variant, and one small non-square
-   case, each also as its two kernels apart (the quantize pass and the
+   case (and, beside tensor parallelism, each tp2 shard's sites: the
+   column ones at N / 2, the split-K ones at K / 2 with fp32 partials,
+   also at gpt_mini's width, whose K-blocks span both shards and take
+   kernel A twice, the second time with the block's scales given, held
+   bit for bit to its plain version), each also as its two kernels apart (the quantize pass and the
    block-scaled GEMM, each held bit for bit to its plain version, the
    GEMM's gelu output within one ulp; K4's weight transpose too); K6, K7a
    and K7b at the ring train step's per-hop shape, q/k/v
@@ -32,7 +36,9 @@ Phases, one JSON line each on stdout:
    two calls bit-equal), then the 4-shard ring
    over them against K1/K2 on the whole sequence; K1, K2a and K2b also at
    the train_parallel arms' per-shard shapes (8 and 4 heads of the train
-   step; the parallel CLI's gpt_mini, 1 head a seq device), K6, K7a and
+   step; the parallel CLI's gpt_mini, 1 head a seq device) and at a
+   pipeline stage's micro-batch (the train step's [1, 1024, 16, 128],
+   the pipeline CLI's [8, 512, 4, 32]; K3 at their rows), K6, K7a and
    K7b at the tp2 x ring2 step's hops ([8, 512, 8, 128]: visible,
    diagonal, future); K8, on no path, at the
    int8 MLP's mlp_in dgrad shape, with and without g, also as its three
@@ -160,23 +166,48 @@ Phases, one JSON line each on stdout:
     ``train_ring_profile`` line.
 13. ``train_parallel``: the same step with its mesh positions on the
     card (``ParallelConfig.place_state``: ``gpt_sharding_rules`` over the
-    model axis, Megatron's split), four arms: ``tp2`` (pallas, seq=1 x
+    model axis, Megatron's split), five arms: ``tp2`` (pallas, seq=1 x
     model=2), ``ulysses4`` (seq=4), ``tp2_ring2`` (each model column its
-    own ring over its 8 heads) and ``tp2_ulysses2``.  Each arm: one step
-    (the shards' gradients gathered) against the unsharded pallas step
-    under the TRAIN_* tolerances, ``PARALLEL["steps"]`` steps with exact
-    launches per shard (K1/K2a/K2b once a layer per (model column, seq
-    device); K6/K7a/K7b once a hop per (model column, seq shard); K3 2L +
-    1, replicated) and a falling loss; it prints step ms, its ratio to
-    the ``train`` phase's, MFU and peak memory, and a
-    ``train_parallel_profile`` line (one profiled step).  Then
-    ``train_parallel_cli``: ``train.py --model=gpt_mini
-    --tensor_parallel=2 --sequence_parallel=2 --attention_backend=ulysses
-    --fused_layer_norm --log_sharding`` (``--device=cuda``: four positions
-    on the one card, as its layout line says; B=32, S=512, 29 steps), its
-    launches exact, then ``--mode=eval`` (its test accuracy) and
-    ``--mode=generate`` (an in-process decode's tokens) on its logdir.
-14. ``trainer``: the port's trainer CLI (``train.py``) as processes.
+    own ring over its 8 heads), ``tp2_ulysses2`` and ``tp2_int8`` (tp2
+    with the int8 MLP: K4/K5 a shard, held to the unsharded int8 step
+    under the TRAIN_INT8_* tolerances).  Each arm: one step (the shards'
+    gradients gathered) against the unsharded pallas step under the
+    TRAIN_* tolerances, ``PARALLEL["steps"]`` steps with exact launches
+    per shard (K1/K2a/K2b once a layer per (model column, seq device);
+    K6/K7a/K7b once a hop per (model column, seq shard); K3 2L + 1,
+    replicated; K4/K5 twice a layer per shard) and a falling loss; it
+    prints step ms, its ratio to the ``train`` phase's, MFU and peak
+    memory, and a ``train_parallel_profile`` line (one profiled step).
+14. ``train_pipeline``: the same step (Adam, seed-0 weights) with its
+    decoder blocks as pipeline stages on the card
+    (``models/registry.build_gpt_pipeline``), three arms of 8
+    micro-batches: ``gpipe`` and ``1f1b`` over pipe=4, ``interleaved``
+    over pipe=2 with 2 virtual stages.  Each: its first step against the
+    unpipelined pallas step (TRAIN_*), ``PIPELINE["steps"]`` steps with
+    launches exactly the schedule's count (:func:`pipeline_launches`:
+    1F1B and interleaved recompute each chunk's forward but the last's)
+    and a falling loss; it prints step ms, its ratio to the bf16 step's,
+    peak memory (against the bf16 step's: the stash bound), the most
+    stage inputs stashed at once, and the busy share.
+15. ``train_fsdp``, beside the two CLIs of 16: ZeRO-3 over two sync
+    workers on the one card (two gloo ranks as processes, B=8 each),
+    ``FSDP["steps"]`` steps of the FSDP state (parameters and Adam slots
+    split by ``fsdp_state``, gathered for the step, reduce-scattered after
+    it) and of the replicated two-rank step; the first step's loss and
+    gradients under TRAIN_* (bit-equality stated); it prints each rank's
+    persistent parameter and slot bytes (gate: under 0.55 of replicated),
+    peak memory, step ms and the all-gather and reduce-scatter ms a step.
+16. Two gpt_mini trainer CLIs beside ``train_fsdp`` (B=32, S=512,
+    each with ``--mode=eval`` (its test accuracy) and ``--mode=generate``
+    (an in-process decode's tokens) on its logdir, its launches exact):
+    ``train_parallel_cli`` (``--tensor_parallel=2 --sequence_parallel=2
+    --attention_backend=ulysses --fused_layer_norm --log_sharding``:
+    four positions on the one card, as its layout line says, 15 steps)
+    and ``train_pipeline_cli`` (``--pipeline_parallel=2
+    --pipeline_schedule=1f1b --pipeline_microbatches=4``, pallas and
+    fused LN, 11 steps; generate from the stage-stacked checkpoint of
+    namespace ``gpt_mini_pp2``).
+17. ``trainer``: the port's trainer CLI (``train.py``) as processes.
     ``trainer_reference``: the reference job with
     ``examples/launch_local_cluster.sh``'s flags (one PS and two sync
     workers, MNIST MLP 784-100-10, global batch 100, 200 steps, lr 0.01,
@@ -187,9 +218,14 @@ Phases, one JSON line each on stdout:
     digests equal (bit-equal parameters), the test accuracy within
     ``TRAINER["accuracy_tol"]`` of the JAX CLI's with the same flags.  It
     prints step ms, steps/s, the all-reduce's share of a step and each
-    worker's busy share (``--profile_dir``).  ``trainer_gpt``: gpt_mini
+    worker's busy share (``--profile_dir``).  Beside it,
+    ``trainer_reference_fsdp``: the same job with ``--fsdp=true`` (the
+    MLP's hid/kernel split over the two workers), under the same gates
+    and its test accuracy within the tolerance of the replicated job's,
+    and ``trainer_gpt`` and ``async_gpt`` (of 18; the four run side by
+    side): gpt_mini
     at ``mini()``'s width through ``--attention_backend=pallas
-    --fused_layer_norm`` (B=32, S=512, 59 steps, a checkpoint every 20),
+    --fused_layer_norm`` (B=32, S=512, 29 steps, a checkpoint every 10),
     one worker and no PS; gates: its K1, K2a, K2b and K3 launches exactly
     as its steps and eval forwards predict, a falling loss, ``--mode=eval``
     on its logdir reproducing its test accuracy, ``--mode=generate``'s
@@ -200,7 +236,7 @@ Phases, one JSON line each on stdout:
     this process.  The K1/K2a/K2b/K3 rows' ``trainer`` paths hold the
     kernels at this run's shapes (the ``kernels`` phase's ``trainer``
     cases) with its launches.
-15. ``async_trainer``: the trainer in async mode (``--sync_replicas=
+18. ``async_trainer``: the trainer in async mode (``--sync_replicas=
     false``, one replica a worker, the workers averaging through the
     coordination service), processes on the one card.
     ``async_reference``: the reference job with ``--async_sync_period=4``,
@@ -214,7 +250,10 @@ Phases, one JSON line each on stdout:
     overlapped averages applied in the background, no foreground average,
     the accuracy gate; it prints the wire bytes of a round beside the
     full state's.  Both print step ms (paced), the exchange's ms a period
-    and its share of the training time, and publish MB/s.
+    and its share of the training time, and publish MB/s.  These two jobs
+    run side by side, ``async_exchange`` after them; ``async_gpt`` runs
+    beside the ``trainer`` phase's jobs (one in-process busy profile at
+    a time).
     ``async_gpt``: gpt_mini at ``mini()``'s width through the kernels, two
     workers and no PS, a merge every 10 local steps; gates: each worker's
     K1, K2a, K2b and K3 launches exactly as its local steps and eval
@@ -225,8 +264,8 @@ Phases, one JSON line each on stdout:
     GPT-406M-width bf16 tree through the logdir side-channel (gate: the
     consensus adopted onto the card is bit-equal to the fp32 mean cast to
     bf16 on the card), then two int8 ``CompressedShardedAverager``s over
-    a quarter of the tree cut by depth (the embeddings and the first two
-    of the eight blocks, widths unchanged; the codec is host numpy and
+    an eighth of the tree cut by depth (the embeddings and the first of
+    the eight blocks, widths unchanged; the codec is host numpy and
     zlib) (gates: a round's wire bytes at least 4x below that part's full
     state, the consensus within the codec's error bound of the exact
     mean); it prints each leg's ms and GB/s.  The K1/K2a/K2b/K3 rows carry ``async_trainer_launches``
@@ -253,7 +292,12 @@ and K6/K7's ``train_parallel_<arm>``: each arm's per-shard shape, K1/K2
 [8, 1024, 8, 128] for tp2 and [8, 1024, 4, 128] for the ulysses arms,
 K6/K7 the tp2 x ring2 hop mean at [8, 512, 8, 128], with the arm's
 launches; K1-K3's ``train_parallel_cli``: K1/K2 at [32, 512, 1, 32] and
-K3 at the trainer's rows, with the parallel CLI's launches), K4/K5/K8 rows list
+K3 at the trainer's rows, with the parallel CLI's launches; K1-K3's
+``train_pipeline_<arm>``: a stage's micro-batch, K1/K2 [1, 1024, 16,
+128] and K3 1024 x 2048, and ``train_pipeline_cli`` [8, 512, 4, 32] and
+4096 x 128, with each arm's launches; K1-K3's ``train_fsdp``: the train
+shapes, with rank 0's FSDP launches; K4/K5's ``train_parallel_tp2_int8``:
+the column site's shard, with the arm's launches), K4/K5/K8 rows list
 their call sites or variants under ``sites``, and K6's ``hop_kinds``
 hold its visible and diagonal hops' own times and ratios to SDPA, K7a's
 and K7b's every hop kind's, with the pair's ratio to SDPA's backward.
@@ -382,11 +426,29 @@ RING_SEQ = 4
 # The train_parallel phase: each arm (name, seq, model, attention) on
 # [cuda0] * (seq x model) at GPT-406M width for `steps` steps; then the
 # trainer CLI with tp2 x ulysses2 at mini()'s width (B=32, S=512).
-PARALLEL = dict(steps=10, arms=(("tp2", 1, 2, "pallas"),
-                                ("ulysses4", 4, 1, "ulysses"),
-                                ("tp2_ring2", 2, 2, "ring"),
-                                ("tp2_ulysses2", 2, 2, "ulysses")),
-                cli_batch=32, cli_seq=512, cli_steps=30, gen_tokens=16)
+# (8 steps an arm and 16 CLI steps, cut from 10 and 30 to make room for
+# train_pipeline and train_fsdp; 6 failed `falls`, Adam's first steps
+# raising the loss.)  tp2_int8: the int8 MLP (K4/K5 per shard) beside
+# tp2.
+PARALLEL = dict(steps=8, arms=(("tp2", 1, 2, "pallas", False),
+                               ("ulysses4", 4, 1, "ulysses", False),
+                               ("tp2_ring2", 2, 2, "ring", False),
+                               ("tp2_ulysses2", 2, 2, "ulysses", False),
+                               ("tp2_int8", 1, 2, "pallas", True)),
+                cli_batch=32, cli_seq=512, cli_steps=16, gen_tokens=16)
+# The train_pipeline phase: each arm (name, pipe, virtual stages) of the
+# flagship step at GPT-406M width with `micro` micro-batches of the B=8
+# batch, its stages on [cuda0] * pipe, for `steps` steps; then the trainer
+# CLI with --pipeline_parallel=2 --pipeline_schedule=1f1b at mini()'s
+# width (B=32, S=512, `cli_micro` micro-batches).
+PIPELINE = dict(steps=5, micro=8, arms=(("gpipe", 4, 1), ("1f1b", 4, 1),
+                                        ("interleaved", 2, 2)),
+                cli_batch=32, cli_seq=512, cli_micro=4, cli_steps=12,
+                gen_tokens=16)
+# The train_fsdp phase: two sync workers (gloo ranks) on cuda0 at GPT-406M
+# width, B=8 a rank (the train step's shapes), `steps` steps of the FSDP
+# state against as many of the replicated state on the same batches.
+FSDP = dict(ranks=2, steps=3, timeout_s=300, min_size=65536)
 # The trainer phase.  The reference job: examples/launch_local_cluster.sh's
 # flags (200 steps, global batch 100, hidden 100, lr 0.01, synthetic MNIST).
 # The JAX CLI with the same flags on a CPU (one worker, the same global
@@ -396,12 +458,41 @@ PARALLEL = dict(steps=10, arms=(("tp2", 1, 2, "pallas"),
 # layers, 4 heads, head_dim 32) at S=512, B=32; generate 32 tokens.
 TRAINER = dict(steps=200, batch=100, hidden=100, lr=0.01,
                jax_cpu_test_accuracy=1.0, accuracy_tol=0.02,
-               gpt_batch=32, gpt_seq=512, gpt_steps=60, gpt_save=20,
+               # gpt_mini's 30 steps (a checkpoint every 10) cut from 60
+               # (every 20) to make room for the pipeline and FSDP phases.
+               gpt_batch=32, gpt_seq=512, gpt_steps=30, gpt_save=10,
                gen_tokens=32)
 
 
+_EMIT_LOCK = threading.Lock()
+
+
 def emit(phase: str, **fields) -> None:
-    print(json.dumps({"phase": phase, **fields}), flush=True)
+    """One JSON line on stdout, whole (parts run side by side, each
+    emitting its own lines: :func:`side_by_side`)."""
+    line = json.dumps({"phase": phase, **fields}) + "\n"
+    with _EMIT_LOCK:
+        sys.stdout.write(line)
+        sys.stdout.flush()
+
+
+# One in-process profile at a time: a part's busy share profiles this
+# process's own step, so no other part may run steps in this process
+# meanwhile (the parts that run side by side otherwise only drive their
+# own processes, or decode outside any profile).
+_BUSY_LOCK = threading.Lock()
+
+
+def side_by_side(*calls) -> list:
+    """Independent parts that drive CLI processes (``(fn, *args)`` each),
+    run at once on threads: the card is nearly idle under them and the
+    host has cores to spare, so together they take the longest one's
+    time, not the sum.  Their results in order; the first failure is
+    raised once every part has ended."""
+    from concurrent.futures import ThreadPoolExecutor
+    with ThreadPoolExecutor(len(calls)) as pool:
+        futures = [pool.submit(fn, *args) for fn, *args in calls]
+        return [f.result() for f in futures]
 
 
 def card() -> str:
@@ -669,7 +760,13 @@ def check_kernels(dev):
             ("verify", ENGINE["num_slots"] * SPEC_K, Hd),
             ("generate_decode", GEN["batch"], Hd),
             ("trainer", TRAINER["gpt_batch"] * TRAINER["gpt_seq"],
-             mini["hidden"])):
+             mini["hidden"]),
+            # A pipeline stage's rows: one micro-batch of the train step,
+            # and of the pipeline CLI's gpt_mini.
+            ("pipeline_micro", TRAIN["seq_len"] * TRAIN["batch"]
+             // PIPELINE["micro"], Hd),
+            ("pipeline_cli_micro", PIPELINE["cli_seq"] * PIPELINE[
+                "cli_batch"] // PIPELINE["cli_micro"], mini["hidden"])):
         x = torch.randn(rows, h, generator=g, device=dev).to(torch.bfloat16)
         scale = 1 + 0.1 * torch.randn(h, generator=g, device=dev)
         bias = 0.1 * torch.randn(h, generator=g, device=dev)
@@ -691,18 +788,28 @@ def check_kernels(dev):
         dev, g, mini["heads"] // 4, mini["head_dim"], S=PARALLEL["cli_seq"],
         cases=[("train_parallel_cli", PARALLEL["cli_batch"], None, True, 0,
                 mini["head_dim"])])
+    # The train_pipeline arms' stages: one micro-batch of the train step.
+    k2pp = check_backward_kernels(
+        dev, g, H, D, cases=[("train_pipeline", TRAIN["batch"]
+                              // PIPELINE["micro"], None, True, 0, D)])
+    k2pc = check_backward_kernels(
+        dev, g, mini["heads"], mini["head_dim"], S=PIPELINE["cli_seq"],
+        cases=[("train_pipeline_cli", PIPELINE["cli_batch"]
+                // PIPELINE["cli_micro"], None, True, 0, mini["head_dim"])])
     k45 = check_int8_kernels(dev, g)
     k67 = check_ring_kernels(dev, g)
     k67p = check_parallel_ring_kernels(dev, g)
-    k1_all = k1_cases + [k2["fwd"], k2t["fwd"]] + [
-        r["fwd"] for r in k2p.values()]
-    k2_dq = k2["dq"] + k2t["dq"] + [r["dq"][0] for r in k2p.values()]
-    k2_dkv = k2["dkv"] + k2t["dkv"] + [r["dkv"][0] for r in k2p.values()]
+    k1_all = k1_cases + [k2["fwd"], k2t["fwd"], k2pp["fwd"],
+                         k2pc["fwd"]] + [r["fwd"] for r in k2p.values()]
+    k2_dq = (k2["dq"] + k2t["dq"] + k2pp["dq"] + k2pc["dq"]
+             + [r["dq"][0] for r in k2p.values()])
+    k2_dkv = (k2["dkv"] + k2t["dkv"] + k2pp["dkv"] + k2pc["dkv"]
+              + [r["dkv"][0] for r in k2p.values()])
     emit("kernels", flash_attention_fwd=k1_all,
          layer_norm_fwd=k3_cases, flash_attention_bwd_dq=k2_dq,
          flash_attention_bwd_dkv=k2_dkv,
-         quant_matmul=k45["k4"],
-         quant_matmul_nt=k45["k5"],
+         quant_matmul=k45["k4"] + k45["tp"]["k4"],
+         quant_matmul_nt=k45["k5"] + k45["tp"]["k5"],
          flash_attention_chunk=k67["k6"] + k67p["k6"],
          flash_attention_chunk_dq=k67["k7a"] + k67p["k7a"],
          flash_attention_chunk_dkv=k67["k7b"] + k67p["k7b"],
@@ -792,15 +899,37 @@ def check_kernels(dev):
         return {path: k2p[arm][kind] if kind == "fwd" else k2p[arm][kind][0]
                 for path, arm in flash_arms.items()}
     k3_arms = {path: k3_cases[2] for path in (
-        *flash_arms, "train_parallel_tp2_ring2")}
+        *flash_arms, "train_parallel_tp2_ring2", "train_parallel_tp2_int8",
+        "train_fsdp")}
     k3_arms["train_parallel_cli"] = k3_cases[6]
+    # The pipeline's stages run K1/K2/K3 a micro-batch (its CLI: gpt_mini's
+    # micro-batch of 8 rows of 512).
+    pipe_paths = ("train_pipeline_gpipe", "train_pipeline_1f1b",
+                  "train_pipeline_interleaved")
+    k3_arms.update({p: k3_cases[7] for p in pipe_paths})
+    k3_arms["train_pipeline_cli"] = k3_cases[8]
+
+    def pipeline(kind):
+        row = k2pp[kind] if kind == "fwd" else k2pp[kind][0]
+        out = {p: row for p in pipe_paths}
+        out["train_pipeline_cli"] = (k2pc[kind] if kind == "fwd"
+                                     else k2pc[kind][0])
+        return out
+
+    # tp2_int8 runs the tp2 arm's attention shapes; the FSDP ranks the
+    # train step's.
+    def parallel_more(kind):
+        row = k2p["tp2"][kind] if kind == "fwd" else k2p["tp2"][kind][0]
+        train_row = k2[kind] if kind == "fwd" else k2[kind][0]
+        return {"train_parallel_tp2_int8": row, "train_fsdp": train_row}
     return [
         summary("flash_attention_fwd", "flash_attention.cu",
                 "flash_attention.py:119", "train",
                 {"serve": k1_cases[0], "train": k2["fwd"],
                  "generate": k1_cases[5], "checkpoint": k1_cases[0],
                  "fleet": k1_cases[0], "trainer": k2t["fwd"],
-                 **arms("fwd")},
+                 **arms("fwd"), **pipeline("fwd"),
+                 **parallel_more("fwd")},
                 k1_all),
         # Serving launches K3 at its prefill and its decode rows: both
         # rows carry the serving run's launches (one counter).
@@ -817,18 +946,30 @@ def check_kernels(dev):
         summary("flash_attention_bwd_dkv", "flash_attention_bwd.cu",
                 "flash_attention.py:425", "train",
                 {"train": k2["dkv"][0], "trainer": k2t["dkv"][0],
-                 **arms("dkv")}, k2_dkv),
+                 **arms("dkv"), **pipeline("dkv"), **parallel_more("dkv")},
+                k2_dkv),
         summary("flash_attention_bwd_dq", "flash_attention_bwd.cu",
                 "flash_attention.py:465", "train",
                 {"train": k2["dq"][0], "trainer": k2t["dq"][0],
-                 **arms("dq")}, k2_dq),
+                 **arms("dq"), **pipeline("dq"), **parallel_more("dq")},
+                k2_dq),
         # Each runs at two call sites per layer of the int8 step: the
         # row's numbers are the mlp_in site's (K4 its forward, K5 its
         # dgrad with g), ``sites`` has both.
+        # tp2_int8: each shard's K4/K5 at the column site (mlp_in's N / 2,
+        # the mlp_out dgrad's N / 2) and the split-K site (mlp_out's K / 2
+        # writing fp32 partials, the mlp_in dgrad's K / 2); its path row
+        # is the column site's.
         summary("quant_matmul", "quant_gemm.cu", "quant_matmul.py:93",
-                "train_int8", {"train_int8": k4[0]}, k4, sites=k4[:2]),
+                "train_int8", {"train_int8": k4[0],
+                               "train_parallel_tp2_int8": k45["tp"]["k4"][0]},
+                k4 + k45["tp"]["k4"],
+                sites=k4[:2] + k45["tp"]["k4"]),
         summary("quant_matmul_nt", "quant_gemm.cu", "quant_matmul.py:185",
-                "train_int8", {"train_int8": k5[1]}, k5, sites=k5[:2]),
+                "train_int8", {"train_int8": k5[1],
+                               "train_parallel_tp2_int8": k45["tp"]["k5"][0]},
+                k5 + k45["tp"]["k5"],
+                sites=k5[:2] + k45["tp"]["k5"]),
         # The ring's per-hop kernels: the row's numbers are the mean per
         # launch over one train step's hops (visible, diagonal, future).
         k6, k7["k7a"], k7["k7b"],
@@ -1499,6 +1640,126 @@ def int8_stages(kind, args, kw, library_ms) -> dict:
     return out
 
 
+@contextlib.contextmanager
+def plain_int8_stages():
+    """The quantize pass, the GEMM and the transpose of ``quant_matmul``
+    through their plain versions, for a comparison only (the wrappers
+    launch the kernels on the card)."""
+    from distributed_tensorflow_tpu_torch.ops import quant_matmul as qmm
+    saved = qmm.quantize_blocks, qmm.blocked_gemm, qmm.transpose_s8
+    qmm.quantize_blocks = qmm.quantize_blocks_reference
+    qmm.blocked_gemm = qmm.blocked_gemm_reference
+    qmm.transpose_s8 = lambda w: w.t().contiguous()
+    try:
+        yield
+    finally:
+        qmm.quantize_blocks, qmm.blocked_gemm, qmm.transpose_s8 = saved
+
+
+def split_k_case(dev, g, kind, case, M, K, N, n, block_k, variant):
+    """K4 (``kind`` "k4": ``quantized_matmul_split_k``, the row-parallel
+    mlp_out: x [M, K] split into ``n`` K parts against the weight's row
+    shards quantized with the whole K's column scales, fp32 partials out)
+    or K5 ("k5": ``quantized_matmul_nt_split_k``, the mlp_in dgrad: da
+    [M, K] split into K parts, gelu' with g for ``dgelu_fold_want_g``)
+    against the same composition of the plain stages, shard by shard.
+    Where the whole K's K-block spans shards (gpt_mini's 512 over shards
+    of 256) kernel A runs twice a shard, the second time with the block's
+    scales given (the max over its parts): that given-scale pass is also
+    held bit for bit to its plain version."""
+    import torch
+    from distributed_tensorflow_tpu_torch.ops import quant_matmul as qmm
+    bf = torch.bfloat16
+    a = torch.randn(M, K, generator=g, device=dev).to(bf)
+    parts = list(a.chunk(n, dim=1))
+    Kj = K // n
+    if kind == "k4":
+        w = 0.02 * torch.randn(K, N, generator=g, device=dev)
+        sw = qmm.col_scales(list(w.chunk(n)))
+        qws = [qmm.quantize_cols(p, sw)[0] for p in w.chunk(n)]
+
+        def run():
+            return qmm.quantized_matmul_split_k(parts, qws, sw,
+                                                block_k=block_k)
+        lib_w = [q.t().contiguous().t() for q in qws]
+        bytes_moved = M * K * 2 + K * N + 4 * N + n * M * N * 4
+    else:
+        qw, sw = qmm.quantize_cols(0.02 * torch.randn(N, K, generator=g,
+                                                      device=dev))
+        qws = [q.contiguous() for q in qw.chunk(n, dim=1)]
+        sws = [s.contiguous() for s in sw.chunk(n, dim=1)]
+        pres = [p for p in (2 * torch.randn(M, K, generator=g, device=dev)
+                            ).to(bf).chunk(n, dim=1)]
+
+        def run():
+            parts_out, gs = qmm.quantized_matmul_nt_split_k(
+                parts, qws, sws, pres, prologue="dgelu_fold", want_g=True,
+                block_k=block_k)
+            return parts_out + gs
+        lib_w = [q.t() for q in qws]
+        bytes_moved = 2 * M * K * 2 + N * K + 4 * K + n * M * N * 4 \
+            + M * K * 2
+    got = run()
+    with plain_int8_stages():
+        want = run()
+    torch.cuda.synchronize()
+    errs = []
+    for i, (x, y) in enumerate(zip(got, want)):
+        err = (x.float() - y.float()).abs().max().item()
+        peak = y.float().abs().max().item()
+        if kind == "k4":
+            ok, tol = torch.equal(x, y), "bit-equal (no tanh enters)"
+        elif i >= n:                                    # g: elementwise
+            ok = bool(((x.float() - y.float()).abs() <= bf16_ulp(y)).all())
+            tol = "one bf16 ulp of each element"
+        else:
+            ok, tol = err <= K5_REL_TOL * peak, f"{K5_REL_TOL} x peak"
+        if not (ok and torch.isfinite(x).all()):
+            raise AssertionError(f"{kind} {case}: output {i} max_abs_err "
+                                 f"{err} at peak {peak}, tol {tol}")
+        errs.append(dict(output=i, max_abs_err=err, peak=peak, tol=tol))
+    bk = qmm._block_k(K, block_k)
+    sub = math.gcd(bk, Kj)
+    given = None
+    if sub < bk:
+        # Kernel A with given scales (the straddling block's), bit for bit.
+        sx = torch.rand(Kj // sub, M, generator=g, device=dev) * 0.05 + 1e-3
+        got_a = qmm.quantize_blocks(parts[0], sub, sx=sx)
+        want_a = qmm.quantize_blocks_reference(parts[0], sub, sx=sx)
+        torch.cuda.synchronize()
+        if not (torch.equal(got_a[0], want_a[0])
+                and torch.equal(got_a[1], want_a[1])):
+            raise AssertionError(f"{case}: kernel A with given scales "
+                                 "differs from its plain version")
+        given = dict(sub_block=sub, block=bk, bit_equal=True,
+                     a_ms=cuda_ms(lambda: qmm.quantize_blocks(
+                         parts[0], sub, sx=sx)))
+    q_lib = torch.randint(-127, 128, (M, Kj), generator=g, device=dev,
+                          dtype=torch.int8)
+    w_bf16 = torch.randn(Kj, N, generator=g, device=dev).to(bf)
+    b_ms, b_by = bound(bytes_moved, 2 * M * K * N, PEAK_INT8_OPS)
+
+    def plain():
+        with plain_int8_stages():
+            return run()
+    row = dict(case=case, variant=variant, M=M, K=K, N=N, shards=n,
+               block_k=bk, gemm_block=sub, max_abs_err=max(
+                   e["max_abs_err"] for e in errs), errors=errs,
+               ms=cuda_ms(run), plain_ms=cuda_ms(plain), bound_ms=b_ms,
+               bound_by=b_by,
+               library_ms=cuda_ms(lambda: [torch._int_mm(q_lib, w)
+                                           for w in lib_w]),
+               library="torch._int_mm on pre-quantized int8 operands, one "
+                       "a shard",
+               library_bf16_ms=cuda_ms(lambda: [torch.matmul(
+                   a[:, :Kj], w_bf16) for _ in range(n)]),
+               bit_equal=all(torch.equal(x, y) for x, y in zip(got, want)))
+    if given is not None:
+        row["given_scales"] = given
+    del a, parts, got, want, q_lib, w_bf16
+    return row
+
+
 def check_int8_kernels(dev, g):
     """K4 and K5 at the int8 train step's four call sites (M = B*S = 8192
     rows of GPT-406M: mlp_in H=2048 -> I=8192, mlp_out I -> H, and their
@@ -1524,6 +1785,26 @@ def check_int8_kernels(dev, g):
     rows = {"k4": [int8_case(dev, g, "k4", *c) for c in k4],
             "k5": [int8_case(dev, g, "k5", *c) for c in k5],
             "k8": [int8_case(dev, g, "k8", *c) for c in k8]}
+    # int8 beside tensor parallelism (the train_parallel phase's tp2_int8
+    # arm): each shard's column sites, mlp_in at N / 2 and the mlp_out
+    # dgrad at N / 2, and its split-K sites, mlp_out at K / 2 (fp32
+    # partials, the whole K's scales) and the mlp_in dgrad at K / 2; then
+    # the same split at gpt_mini's width (B=32, S=512), whose K-blocks of
+    # 512 span both shards of 256.
+    cli_m = TRAINER["gpt_batch"] * TRAINER["gpt_seq"]
+    rows["tp"] = {
+        "k4": [int8_case(dev, g, "k4", "tp2_mlp_in", M, H, I // 2, 512,
+                         "bias_gelu_preact"),
+               split_k_case(dev, g, "k4", "tp2_mlp_out", M, I, H, 2, 1024,
+                            "partials"),
+               split_k_case(dev, g, "k4", "tp2_cli_mlp_out", cli_m, 512,
+                            128, 2, 1024, "partials")],
+        "k5": [int8_case(dev, g, "k5", "tp2_mlp_out_dgrad", M, H, I // 2,
+                         1024, "fold"),
+               split_k_case(dev, g, "k5", "tp2_mlp_in_dgrad", M, I, H, 2,
+                            512, "dgelu_fold_want_g"),
+               split_k_case(dev, g, "k5", "tp2_cli_mlp_in_dgrad", cli_m,
+                            512, 128, 2, 512, "dgelu_fold_want_g")]}
     import torch
     torch.cuda.empty_cache()
     return rows
@@ -2118,7 +2399,9 @@ class CliProcess:
 
     def __init__(self, module: str, *args):
         root = os.path.dirname(os.path.abspath(__file__))
-        env = dict(os.environ, PYTHONPATH=root)
+        # Unbuffered: a line reaches ``wait_for`` when the process prints
+        # it (through a pipe Python would hold it until a block filled).
+        env = dict(os.environ, PYTHONPATH=root, PYTHONUNBUFFERED="1")
         self.lines: queue.Queue = queue.Queue()
         self.seen: list = []
         self.ended = None
@@ -2919,15 +3202,21 @@ def compare_steps(a, b, tols, names=("kernel", "plain")) -> dict:
     """Two steps' (loss, gradients), ``a`` the kernels' and ``b`` the one
     it is held to, within (loss, relative grad norm, min cosine)
     tolerances; the dict names them by ``names``."""
-    import torch
     (la, ga), (lb, gb) = a, b
-    na, nb = ga.norm().item(), gb.norm().item()
+    # Float64 sums a chunk at a time: an fp32 dot product of 406M terms
+    # on the CPU can read a cosine above 1.
+    dot = na2 = nb2 = 0.0
+    for x, y in zip(ga.split(1 << 24), gb.split(1 << 24)):
+        x, y = x.double(), y.to(x.device).double()
+        dot += (x @ y).item()
+        na2 += (x @ x).item()
+        nb2 += (y @ y).item()
+    na, nb = math.sqrt(na2), math.sqrt(nb2)
     out = {f"loss_{names[0]}": la, f"loss_{names[1]}": lb,
            "loss_diff": abs(la - lb), f"grad_norm_{names[0]}": na,
            f"grad_norm_{names[1]}": nb,
            "grad_norm_rel_diff": abs(na - nb) / nb,
-           "grad_cos": torch.nn.functional.cosine_similarity(
-               ga, gb, dim=0).item()}
+           "grad_cos": dot / (na * nb)}
     loss_tol, norm_rtol, min_cos = tols
     if not (math.isfinite(la) and math.isfinite(lb)
             and out["loss_diff"] <= loss_tol
@@ -3275,15 +3564,16 @@ def train_ring(dev, smi: str, bf16: dict):
     return run["launches"]
 
 
-def check_parallel_step(dev, model, loss_fn, batch) -> dict:
+def check_parallel_step(dev, model, loss_fn, batch, tols=None) -> dict:
     """One step of the placed model (its shards' gradients gathered)
     against the unsharded pallas step (K1/K2 over the whole sequence and
-    every head) with the same weights and batch."""
+    every head; the int8 MLP's K4/K5 unsharded for an int8 model) with
+    the same weights and batch, within ``tols`` (default TRAIN_*)."""
     import torch
     from distributed_tensorflow_tpu_torch.models import gpt
     from distributed_tensorflow_tpu_torch.parallel.sharding import (
         gather_named)
-    tols = (TRAIN_LOSS_TOL, TRAIN_GRAD_NORM_RTOL, TRAIN_GRAD_MIN_COS)
+    tols = tols or (TRAIN_LOSS_TOL, TRAIN_GRAD_NORM_RTOL, TRAIN_GRAD_MIN_COS)
     pallas = gpt.GptLM(dataclasses.replace(
         model.cfg, attention_backend="pallas"), device=dev,
         param_dtype=torch.float32)
@@ -3298,13 +3588,22 @@ def check_parallel_step(dev, model, loss_fn, batch) -> dict:
     return out
 
 
-def parallel_launches(L: int, seq: int, model: int, backend: str) -> dict:
+def parallel_launches(L: int, seq: int, model: int, backend: str,
+                      int8: bool = False) -> dict:
     """One step's launches on a seq x model mesh: K1/K2 once a layer per
     (model column, seq device) for pallas and ulysses (each seq device
     attends over its head block of the whole sequence), K6/K7 once a hop
     per (model column, seq shard) for the causal ring (``seq`` hops), and
-    K3 2L + 1 on the replicated residual stream."""
+    K3 2L + 1 on the replicated residual stream.  ``int8``: the MLP's K4
+    twice a shard a layer (mlp_in's columns, mlp_out's K part) and K5
+    twice (their dgrads), each K4 and K5 one quantize pass and one GEMM,
+    each K4 one weight transpose (the K-blocks align with the shards at
+    GPT-406M width: one pass a shard)."""
     per = {"layer_norm_fwd": 2 * L + 1}
+    if int8:
+        per.update(quant_matmul=2 * model * L, quant_matmul_nt=2 * model * L,
+                   quantize_blocks=4 * model * L, quant_gemm=4 * model * L,
+                   transpose_s8=2 * model * L)
     if backend == "ring":
         for name in ("flash_attention_chunk", "flash_attention_chunk_dq",
                      "flash_attention_chunk_dkv"):
@@ -3330,16 +3629,21 @@ def train_parallel(dev, smi: str, bf16: dict) -> dict:
     from distributed_tensorflow_tpu_torch.parallel.mesh import ParallelConfig
     t0 = time.perf_counter()
     out = {}
-    for arm, seq, model_axis, backend in PARALLEL["arms"]:
-        pc = ParallelConfig(model=model_axis, seq=seq, attention=backend)
+    for arm, seq, model_axis, backend, int8 in PARALLEL["arms"]:
+        pc = ParallelConfig(model=model_axis, seq=seq, attention=backend,
+                            quantize="int8" if int8 else "off")
         mesh = pc.build_mesh([dev] * (seq * model_axis))
-        cfg = gpt.GptConfig(**{**WIDTH, "attention_backend": backend})
+        cfg = gpt.GptConfig(**{**WIDTH, "attention_backend": backend,
+                               "matmul_int8": int8})
+        tols = ((TRAIN_INT8_LOSS_TOL, TRAIN_INT8_GRAD_NORM_RTOL,
+                 TRAIN_INT8_GRAD_MIN_COS) if int8 else None)
         run = train_run(
             dev, cfg, PARALLEL["steps"], mesh=mesh,
             place=lambda st: pc.place_state(mesh, st,
                                             gpt.gpt_sharding_rules()),
-            check=lambda m, f, b: check_parallel_step(dev, m, f, b))
-        per_step = parallel_launches(cfg.num_layers, seq, model_axis, backend)
+            check=lambda m, f, b: check_parallel_step(dev, m, f, b, tols))
+        per_step = parallel_launches(cfg.num_layers, seq, model_axis, backend,
+                                     int8)
         expect_launches(f"train_parallel {arm}", run["launches"], per_step,
                         PARALLEL["steps"])
         falls(f"train_parallel {arm}", run)
@@ -3353,10 +3657,7 @@ def train_parallel(dev, smi: str, bf16: dict) -> dict:
              / bf16["step_ms_median"],
              bf16_step_ms_median=bf16["step_ms_median"], **run)
         out[f"train_parallel_{arm}"] = run["launches"]
-    arms_s = time.perf_counter() - t0
-    out["train_parallel_cli"] = parallel_cli(dev, smi)
-    emit("train_parallel_done", arms_s=arms_s,
-         seconds=time.perf_counter() - t0)
+    emit("train_parallel_done", arms_s=time.perf_counter() - t0)
     return out
 
 
@@ -3434,6 +3735,416 @@ def parallel_cli(dev, smi: str) -> dict:
         return nums["launches"]
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
+
+
+def pipeline_launches(L: int, micro: int, n_chunks: int,
+                      schedule: str) -> dict:
+    """One step's launches of the pipelined train step: every micro-batch
+    through every layer forward (K1, two K3) and backward (K2a, K2b).
+    GPipe (no remat) runs the head once on the whole batch (one K3);
+    1F1B and interleaved recompute each chunk's forward in its backward
+    slot, skip the last chunk's forward slot (its output is recomputed
+    there) and run the head a micro-batch (one K3 each)."""
+    if schedule == "gpipe":
+        fwd, head = L * micro, 1
+    else:
+        per = L // n_chunks
+        fwd, head = micro * (2 * L - per), micro
+    return {"flash_attention_fwd": fwd,
+            "flash_attention_bwd_dq": L * micro,
+            "flash_attention_bwd_dkv": L * micro,
+            "layer_norm_fwd": 2 * fwd + head}
+
+
+def train_pipeline(dev, smi: str, bf16: dict) -> dict:
+    """Phase ``train_pipeline``: the flagship step at GPT-406M width with
+    its decoder blocks as pipeline stages on the one card
+    (``models/registry.build_gpt_pipeline``: GPipe through autograd, 1F1B
+    and interleaved through the hand-rolled schedules), the weights of
+    the ``train`` phase's seed.  Each arm: its first step against the
+    unpipelined pallas step (TRAIN_*), then ``PIPELINE["steps"]`` Adam
+    steps with the launch counters set to 0 just before and read just
+    after (gate: the schedule's count, :func:`pipeline_launches`), a
+    falling loss, peak memory, and one profiled step.  Then the trainer
+    CLI (:func:`pipeline_cli`).  Returns each path's launches."""
+    import torch
+    from distributed_tensorflow_tpu_torch.data.lm import make_lm_datasets
+    from distributed_tensorflow_tpu_torch.models import gpt
+    from distributed_tensorflow_tpu_torch.models.registry import (
+        build_gpt_pipeline)
+    from distributed_tensorflow_tpu_torch.parallel.mesh import create_mesh
+    from distributed_tensorflow_tpu_torch.parallel.sync import (
+        build_sync_train_step)
+    from distributed_tensorflow_tpu_torch.training.optimizers import (
+        make_optimizer)
+    from distributed_tensorflow_tpu_torch.training.state import TrainState
+    t0 = time.perf_counter()
+    T, B, S = PIPELINE, TRAIN["batch"], TRAIN["seq_len"]
+    cfg = gpt.GptConfig(**WIDTH)
+    data = make_lm_datasets(cfg, seq_len=S).train
+    batches = [data.next_batch(B) for _ in range(T["steps"] + 1)]
+
+    def loss_fn(m, batch):
+        tokens = torch.as_tensor(batch["tokens"], device=dev).long()
+        loss, acc = gpt.lm_loss(m(tokens), tokens)
+        return loss, {"accuracy": acc}
+    plain = gpt.GptLM(cfg, device=dev, seed=SEED, param_dtype=torch.float32)
+    # The unpipelined step's gradients, held off the card so that no arm's
+    # peak memory counts them.
+    loss0, grads0 = step_grads(plain, loss_fn, batches[0])
+    pallas = (loss0, grads0.cpu())
+    del plain, grads0
+    torch.cuda.empty_cache()
+    width = {k: v for k, v in WIDTH.items()
+             if k not in ("dtype", "attention_backend", "fused_ln")}
+    tols = (TRAIN_LOSS_TOL, TRAIN_GRAD_NORM_RTOL, TRAIN_GRAD_MIN_COS)
+    out = {}
+    for arm, n_pipe, v in T["arms"]:
+        mesh = create_mesh(data=1, pipe=n_pipe, devices=[dev] * n_pipe)
+
+        b = build_gpt_pipeline(
+            TRAIN["lr"], mesh, seed=SEED, seq_len=S, n_micro=T["micro"],
+            attention_backend="pallas", dtype=WIDTH["dtype"],
+            tx=make_optimizer("adam", TRAIN["lr"]), fused_ln=True,
+            schedule=arm, virtual_stages=v, width=width)
+        state = b.place_state(mesh, b.state)
+        step = (b.train_step_builder(mesh, log_grad_norm=True)
+                if b.train_step_builder else
+                build_sync_train_step(b.loss_fn, log_grad_norm=True))
+        model = state.model
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launch_counts()
+        losses, step_ms, vs_pallas = [], [], None
+        for batch in batches[:T["steps"]]:
+            t = time.perf_counter()
+            state, m = step(state, batch)
+            losses.append(float(m["loss"]))
+            step_ms.append((time.perf_counter() - t) * 1e3)
+            if vs_pallas is None:
+                # The first step's gradients (left in .grad by the step),
+                # by the plain model's names in its order, against the
+                # unpipelined pallas step's on the same batch.
+                flat = torch.cat([g.float().flatten().cpu() for _, g in
+                                  sorted((plain_name(model, n), p.grad)
+                                         for n, p in
+                                         model.named_parameters())])
+                vs_pallas = compare_steps((losses[0], flat), pallas, tols,
+                                          ("pipeline", "pallas"))
+                del flat
+        launches = launch_counts()
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        profiled = profile_train_step(step, state, batches[-1])
+        per_step = pipeline_launches(cfg.num_layers, T["micro"], n_pipe * v,
+                                     arm)
+        expect_launches(f"train_pipeline {arm}", launches, per_step,
+                        T["steps"])
+        run = dict(loss_first=losses[0],
+                   loss_last5_mean=statistics.mean(losses[-5:]))
+        if not all(map(math.isfinite, losses)) or not (
+                losses[-1] < losses[0]):
+            raise AssertionError(f"train_pipeline {arm}: losses {losses}")
+        med = statistics.median(step_ms[1:])
+        emit("train_pipeline_profile", arm=arm, **profiled)
+        emit("train_pipeline", arm=arm, model="gpt_406m_width", card=smi,
+             schedule=arm, pipe=n_pipe, virtual_stages=v,
+             micro_batches=T["micro"], batch=B, seq_len=S,
+             mesh=dict(data=1, pipe=n_pipe, devices=str(dev)),
+             vs_pallas=vs_pallas, loss_tol=tols[0], grad_norm_rtol=tols[1],
+             grad_min_cos=tols[2], losses=losses, step_ms=step_ms,
+             step_ms_median=med,
+             step_ms_ratio_to_bf16=med / bf16["step_ms_median"],
+             bf16_step_ms_median=bf16["step_ms_median"],
+             tokens_per_s=B * S / (med / 1e3), peak_mem_gb=peak_gb,
+             bf16_peak_mem_gb=bf16["peak_mem_gb"],
+             busy_share=profiled["busy_share"],
+             peak_stash=getattr(step, "peak_stash", None),
+             launches=launches, launches_per_step=per_step, **run)
+        out[f"train_pipeline_{arm}"] = launches
+        del state, model, b, step
+        torch.cuda.empty_cache()
+    emit("train_pipeline_done", arms_s=time.perf_counter() - t0)
+    return out
+
+
+def plain_name(model, name: str) -> str:
+    """The plain ``GptLM``'s name of a ``PipelinedGptLM`` parameter:
+    ``stages.c.layers.l.x`` is ``layers.i.x`` (``i`` the global layer),
+    ``embed.x`` and ``head.x`` are ``x``."""
+    part, _, rest = name.partition(".")
+    if part != "stages":
+        return rest
+    c, _, l, leaf = rest.split(".", 3)
+    return f"layers.{model._layer(int(c), int(l))}.{leaf}"
+
+
+def pipeline_cli(dev, smi: str) -> dict:
+    """``train.py --model=gpt_mini --pipeline_parallel=2
+    --pipeline_schedule=1f1b --attention_backend=pallas --fused_layer_norm``
+    on the card (both stages on the one card), then ``--mode=eval`` and
+    ``--mode=generate`` from the pipelined checkpoint (namespace
+    ``gpt_mini_pp2``, the stage-stacked tree; gate: its tokens are an
+    in-process decode of the merged tree).  Gate: its launches exactly
+    as the schedule's steps and the GPipe eval forwards predict."""
+    from distributed_tensorflow_tpu_torch.models import gpt
+    T = PIPELINE
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_pipeline_")
+    try:
+        logdir = os.path.join(tmp, "run")
+        pipe = ["--pipeline_parallel=2", "--pipeline_schedule=1f1b",
+                f"--pipeline_microbatches={T['cli_micro']}"]
+        common = ["--model=gpt_mini", *pipe, "--attention_backend=pallas",
+                  "--fused_layer_norm", f"--bert_seq_len={T['cli_seq']}",
+                  f"--batch_size={T['cli_batch']}", f"--logdir={logdir}",
+                  f"--device={dev.type}", "--job_name=worker",
+                  "--task_index=0",
+                  f"--worker_hosts=localhost:{free_port()}", "--ps_hosts=",
+                  "--sync_replicas=true"]
+        t0 = time.perf_counter()
+        with CliProcess("train", *common, f"--train_steps={T['cli_steps']}",
+                        f"--save_interval_steps={T['cli_steps']}",
+                        "--log_every=1", "--log_sharding",
+                        f"--metrics_file={os.path.join(tmp, 'm.jsonl')}"
+                        ) as proc:
+            lines = finish(proc, 300)
+        train_s = time.perf_counter() - t0
+        layout = line_value(lines, "Worker 0: mesh")
+        if "(pipe=2, seq=1, model=1): 2 positions on 1 distinct" not in \
+                layout:
+            raise AssertionError(f"pipeline CLI layout: {layout}")
+        placed = [x for x in lines if x.startswith("Worker 0: param ")]
+        if not any("stages/qkv/kernel (2, 2, 128, 3, 4, 32) -> "
+                   "PartitionSpec('pipe',)" in x for x in placed):
+            raise AssertionError(f"pipeline CLI placement: {placed[:8]}")
+        nums = trainer_numbers(lines, os.path.join(tmp, "m.jsonl"), 0)
+        losses = [float(x.split(" loss ")[1].split()[0]) for x in lines
+                  if x.startswith("Worker 0: traing step")]
+        steps = nums["steps"]
+        if steps != T["cli_steps"] - 1 or len(losses) != steps:
+            raise AssertionError(f"{steps} steps, {len(losses)} loss lines")
+        if not (all(map(math.isfinite, losses)) and losses[-1] < losses[0]):
+            raise AssertionError(f"pipeline CLI loss did not fall: {losses}")
+        L, M = gpt.mini().num_layers, T["cli_micro"]
+        # Each 1F1B step (:func:`pipeline_launches`, 2 chunks); each eval
+        # forward (the validation at step 0 and the final test,
+        # make_lm_eval_fn's 4 batches each) is the GPipe apply: every
+        # micro-batch through every layer, the head once.
+        per = pipeline_launches(L, M, 2, "1f1b")
+        forwards = 2 * 4
+        want = {"flash_attention_fwd": per["flash_attention_fwd"] * steps
+                + L * M * forwards,
+                "flash_attention_bwd_dq": per["flash_attention_bwd_dq"]
+                * steps,
+                "flash_attention_bwd_dkv": per["flash_attention_bwd_dkv"]
+                * steps,
+                "layer_norm_fwd": per["layer_norm_fwd"] * steps
+                + (2 * L * M + 1) * forwards,
+                "quant_matmul": 0, "quant_matmul_nt": 0}
+        if nums["launches"] != want:
+            raise AssertionError(f"pipeline CLI launches {nums['launches']}"
+                                 f", expected {want}")
+        after = eval_and_generate(dev, common, logdir, nums, T["cli_steps"],
+                                  T["gen_tokens"], gen_flags=pipe,
+                                  name="gpt_mini_pp2")
+        emit("train_pipeline_cli", card=smi, layout_line=layout,
+             train_wall_s=train_s, batch=T["cli_batch"],
+             seq_len=T["cli_seq"], micro_batches=M, loss_first=losses[0],
+             loss_last=losses[-1],
+             tokens_per_s=T["cli_batch"] * T["cli_seq"]
+             / (nums["step_ms_median"] / 1e3),
+             launches_expected=want, **after, **nums)
+        return nums["launches"]
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+_FSDP_RANK = r"""
+import json, statistics, sys, time
+import torch, torch.distributed as dist
+rank, port, out, conf = (int(sys.argv[1]), sys.argv[2], sys.argv[3],
+                         json.loads(sys.argv[4]))
+torch.backends.cuda.matmul.allow_tf32 = False
+torch.backends.cudnn.allow_tf32 = False
+dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}",
+                        world_size=2, rank=rank)
+from distributed_tensorflow_tpu_torch.data.lm import make_lm_datasets
+from distributed_tensorflow_tpu_torch.models import gpt
+from distributed_tensorflow_tpu_torch.ops import kernels
+from distributed_tensorflow_tpu_torch.parallel import sync
+from distributed_tensorflow_tpu_torch.parallel.mesh import create_mesh
+from distributed_tensorflow_tpu_torch.parallel.sharding import (
+    FsdpExchange, fsdp_state)
+from distributed_tensorflow_tpu_torch.training.optimizers import (
+    make_optimizer)
+from distributed_tensorflow_tpu_torch.training.state import TrainState
+dev = torch.device(conf["device"])
+cuda = dev.type == "cuda"
+if cuda:
+    kernels.load()
+cfg = gpt.GptConfig(**conf["width"])
+B, steps = conf["batch"], conf["steps"]
+data = make_lm_datasets(cfg, seq_len=conf["seq_len"]).train
+# The global batch is both ranks' B rows; each rank feeds its half.
+batches = [data.next_batch(2 * B) for _ in range(steps)]
+def mine(b):
+    return {"tokens": b["tokens"][rank * B:(rank + 1) * B]}
+def loss_fn(m, batch):
+    tokens = torch.as_tensor(batch["tokens"], device=dev).long()
+    loss, acc = gpt.lm_loss(m(tokens), tokens)
+    return loss, {"accuracy": acc}
+def counters():
+    return dict(kernels.launch_counts())
+def reset():
+    from distributed_tensorflow_tpu_torch.ops import flash_attention as fa
+    from distributed_tensorflow_tpu_torch.ops import layer_norm as ln
+    fa.launches = fa.dq_launches = fa.dkv_launches = ln.launches = 0
+ar = sync.GradientAllReduce()
+res, first = {}, {}
+for arm in ("replicated", "fsdp"):
+    model = gpt.GptLM(cfg, device=dev, seed=conf["seed"],
+                      param_dtype=torch.float32)
+    state = TrainState.create(model, make_optimizer("adam", conf["lr"]),
+                              params_to_tree=gpt.params_to_jax,
+                              params_from_tree=gpt.params_from_jax)
+    if arm == "fsdp":
+        state = fsdp_state(create_mesh(data=1, devices=[dev]), state,
+                           min_size=conf["min_size"])
+    if cuda:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+    step = sync.build_sync_train_step(loss_fn, all_reduce=ar)
+    reset()
+    losses, step_ms = [], []
+    for b in batches:
+        t = time.perf_counter()
+        state, m = step(state, mine(b))
+        losses.append(float(m["loss"]))
+        if cuda:
+            torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t) * 1e3)
+        if len(losses) == 1:
+            # The first step's loss and mean gradients over the ranks
+            # (left in .grad by the step), whole.
+            grads = {n: p.grad for n, p in model.named_parameters()}
+            if arm == "fsdp":
+                grads = FsdpExchange(model).gather_named(grads)
+            first[arm] = (losses[0], torch.cat(
+                [g.float().flatten() for _, g in sorted(grads.items())]))
+            del grads
+    launches = counters()
+    slots = [v for p in state.optimizer.params
+             for v in state.optimizer.base.state.get(p, {}).values()
+             if torch.is_tensor(v) and v.dim()]
+    r = dict(losses=losses, step_ms=step_ms,
+             step_ms_median=statistics.median(step_ms),
+             peak_mem_gb=(torch.cuda.max_memory_allocated(dev) / 1e9
+                          if cuda else None),
+             param_bytes=sum(p.numel() * p.element_size()
+                             for p in model.parameters()),
+             slot_bytes=sum(v.numel() * v.element_size() for v in slots),
+             launches=launches)
+    fs = step.cache.get("fsdp")
+    if fs is not None:
+        e = fs.exchange
+        r.update(split_parameters=len(e.entries),
+                 gather_ms=e.gather_s * 1e3 / e.calls,
+                 reduce_scatter_ms=e.scatter_s * 1e3 / e.calls)
+    res[arm] = r
+    del state, model, step
+    if cuda:
+        torch.cuda.empty_cache()
+(lr_, gr), (lf, gf) = first["replicated"], first["fsdp"]
+nr, nf = gr.double().norm().item(), gf.double().norm().item()
+res["first_step"] = dict(
+    loss_replicated=lr_, loss_fsdp=lf, loss_diff=abs(lr_ - lf),
+    grad_norm_replicated=nr, grad_norm_fsdp=nf,
+    grad_norm_rel_diff=abs(nr - nf) / nr,
+    grad_cos=(gr.double() @ gf.double()).item() / (
+        gr.double().norm() * gf.double().norm()).item(),
+    bit_equal=bool(torch.equal(gr, gf)) and lr_ == lf)
+json.dump(res, open(out, "w"))
+dist.destroy_process_group()
+"""
+
+
+def train_fsdp(dev, smi: str, bf16: dict) -> dict:
+    """Phase ``train_fsdp``: ZeRO-3 over two sync workers sharing the one
+    card (two gloo ranks as processes, ``_FSDP_RANK``) at GPT-406M width,
+    B=8 a rank, ``FSDP["steps"]`` Adam steps of the FSDP state
+    (parameters, Adam slots split over the ranks by
+    ``parallel/sharding.fsdp_state``, gathered whole for the step,
+    reduce-scattered after it) and as many of the replicated two-rank
+    sync step on the same batches: the first step's loss and mean
+    gradients (whole, gathered) of the one against the other's (TRAIN_*;
+    bit-equality stated either way), the persistent parameter and slot
+    bytes a rank, peak memory, step ms, and the all-gather and
+    reduce-scatter ms a step.  Returns rank 0's FSDP launches."""
+    T = FSDP
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_fsdp_")
+    conf = dict(width={k: v for k, v in WIDTH.items()},
+                batch=TRAIN["batch"], seq_len=TRAIN["seq_len"],
+                steps=T["steps"], lr=TRAIN["lr"], seed=SEED,
+                device=str(dev), min_size=T["min_size"])
+    root = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, PYTHONPATH=root)
+    port = free_port()
+    t0 = time.perf_counter()
+    try:
+        procs = [subprocess.Popen(
+            [sys.executable, "-c", _FSDP_RANK, str(r), str(port),
+             os.path.join(tmp, f"rank{r}.json"), json.dumps(conf)],
+            cwd=root, env=env, stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True) for r in range(T["ranks"])]
+        outs = []
+        try:
+            for p in procs:
+                outs.append(p.communicate(timeout=T["timeout_s"])[0])
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+        for p, text in zip(procs, outs):
+            if p.returncode != 0:
+                raise AssertionError(f"train_fsdp rank exited "
+                                     f"{p.returncode}: {text[-4000:]}")
+        ranks = [json.load(open(os.path.join(tmp, f"rank{r}.json")))
+                 for r in range(T["ranks"])]
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    wall_s = time.perf_counter() - t0
+    first = ranks[0]["first_step"]
+    tols = (TRAIN_LOSS_TOL, TRAIN_GRAD_NORM_RTOL, TRAIN_GRAD_MIN_COS)
+    if not (math.isfinite(first["loss_fsdp"])
+            and first["loss_diff"] <= tols[0]
+            and first["grad_norm_rel_diff"] <= tols[1]
+            and first["grad_cos"] >= tols[2]):
+        raise AssertionError(f"train_fsdp first step vs replicated: {first}")
+    L = WIDTH["num_layers"]
+    per_step = {"flash_attention_fwd": L, "flash_attention_bwd_dq": L,
+                "flash_attention_bwd_dkv": L, "layer_norm_fwd": 2 * L + 1}
+    for r, rank in enumerate(ranks):
+        for arm in ("replicated", "fsdp"):
+            got = {k: rank[arm]["launches"][k] for k in per_step}
+            expect_launches(f"train_fsdp rank {r} {arm}", got, per_step,
+                            T["steps"])
+            if not all(map(math.isfinite, rank[arm]["losses"])):
+                raise AssertionError(f"train_fsdp rank {r} {arm}: "
+                                     f"{rank[arm]['losses']}")
+        f, rep = rank["fsdp"], rank["replicated"]
+        share = (f["param_bytes"] + f["slot_bytes"]) / (
+            rep["param_bytes"] + rep["slot_bytes"])
+        if not share < 0.55:
+            raise AssertionError(f"train_fsdp rank {r}: persistent bytes "
+                                 f"{share:.3f} of replicated")
+        rank["persistent_share"] = share
+    emit("train_fsdp", card=smi, model="gpt_406m_width", wall_s=wall_s,
+         ranks_n=T["ranks"], devices=str(dev), batch_per_rank=TRAIN["batch"],
+         seq_len=TRAIN["seq_len"], steps=T["steps"], first_step=first,
+         loss_tol=tols[0], grad_norm_rtol=tols[1], grad_min_cos=tols[2],
+         bf16_step_ms_median=bf16["step_ms_median"],
+         launches_per_step=per_step, ranks=ranks)
+    return {k: ranks[0]["fsdp"]["launches"][k] for k in per_step}
 
 
 # ------------------------------------------------------------- trainer
@@ -3514,16 +4225,21 @@ def trainer_numbers(lines, metrics: str, task: int,
 
 
 def reference_job(device: str, tmp: str, smi: str, workers: int = 2,
-                  backend: str = "gloo") -> dict:
+                  backend: str = "gloo", *extra, label: str = "reference",
+                  profile: bool = True) -> dict:
     """The reference job, ``examples/launch_local_cluster.sh``'s flags:
     one PS and ``workers`` sync workers, MNIST MLP at the reference's
     width, one all-reduce a step over ``backend`` (the one the workers
     must print).  ``device``: ``cuda:0`` puts every worker on the one card
-    (gloo), ``cuda`` gives worker i card i (NCCL with a card each)."""
+    (gloo), ``cuda`` gives worker i card i (NCCL with a card each).
+    ``extra``: more flags (``--fsdp=true``); ``label`` names its logdir,
+    files and output line (``trainer_<label>``); ``profile``: the
+    workers' ``--profile_dir``."""
     ps_port = free_port()
     ports = [free_port() for _ in range(workers)]
     T = TRAINER
-    logdir = os.path.join(tmp, "reference")
+    logdir = os.path.join(tmp, label)
+    prof_dir = os.path.join(tmp, f"{label}_profile")
     common = [f"--ps_hosts=localhost:{ps_port}",
               "--worker_hosts=" + ",".join(f"localhost:{p}" for p in ports),
               f"--data_dir={os.path.join(tmp, 'no-mnist')}",
@@ -3531,8 +4247,8 @@ def reference_job(device: str, tmp: str, smi: str, workers: int = 2,
               f"--hidden_units={T['hidden']}",
               f"--learning_rate={T['lr']}", "--sync_replicas=true",
               "--log_every=1", f"--logdir={logdir}", f"--device={device}",
-              f"--metrics_file={os.path.join(tmp, 'ref.jsonl')}",
-              f"--profile_dir={os.path.join(tmp, 'ref_profile')}"]
+              f"--metrics_file={os.path.join(tmp, label + '.jsonl')}",
+              *([f"--profile_dir={prof_dir}"] if profile else []), *extra]
     t0 = time.perf_counter()
     with contextlib.ExitStack() as stack:
         ps = stack.enter_context(CliProcess(
@@ -3555,9 +4271,9 @@ def reference_job(device: str, tmp: str, smi: str, workers: int = 2,
             if needle not in text:
                 raise AssertionError(f"worker {task}: no {needle!r}: "
                                      + text[-3000:])
-    nums = [trainer_numbers(outs[t], os.path.join(tmp, f"ref.jsonl.task{t}"),
-                            t, os.path.join(tmp, "ref_profile", f"task{t}"))
-            for t in range(workers)]
+    nums = [trainer_numbers(outs[t], os.path.join(
+        tmp, f"{label}.jsonl.task{t}"), t, os.path.join(prof_dir, f"task{t}")
+        if profile else None) for t in range(workers)]
     digests = {n["digest"] for n in nums}
     if len(digests) != 1:
         raise AssertionError(f"worker parameters differ: digests {digests}")
@@ -3568,7 +4284,8 @@ def reference_job(device: str, tmp: str, smi: str, workers: int = 2,
             f" (tol {T['accuracy_tol']})")
     allreduce = line_value(outs[0], "Worker 0: all-reduce")
     ar_ms = float(allreduce.split(" ms")[0])
-    emit("trainer_reference", card=smi, wall_s=wall_s, workers_n=workers,
+    emit(f"trainer_{label}", card=smi, wall_s=wall_s, workers_n=workers,
+         flags=list(extra),
          jax_cpu_test_accuracy=T["jax_cpu_test_accuracy"],
          accuracy_tol=T["accuracy_tol"],
          bring_up=line_value(outs[0], "Worker 0: process group"),
@@ -3579,26 +4296,29 @@ def reference_job(device: str, tmp: str, smi: str, workers: int = 2,
 
 
 def eval_and_generate(dev, common: list, logdir: str, nums: dict,
-                      steps: int, gen_tokens: int) -> dict:
+                      steps: int, gen_tokens: int, gen_flags=(),
+                      name: str = "gpt_mini", n_virtual: int = 1) -> dict:
     """``--mode=eval`` and ``--mode=generate`` on a trainer CLI's logdir
     (``common``: its flags).  They read the same checkpoint, so they run
     side by side, each wall time from their common start to its own end.
     Gates: eval restores step ``steps`` and reports the trained process's
     test accuracy; generate's tokens are an in-process decode of the
-    restored tree (its EMA parameters where it has them) through the
-    kernels."""
+    restored tree (its EMA parameters where it has them; a pipelined
+    run's stage-stacked tree, namespace ``name``, merged) through the
+    kernels.  ``gen_flags``: the run's pipeline flags, which name its
+    checkpoint namespace and layout."""
     import torch
     from distributed_tensorflow_tpu_torch.models import gpt
     from distributed_tensorflow_tpu_torch.tools.checkpoint_io import (
         restore_raw)
     from distributed_tensorflow_tpu_torch.tools.export_model import (
-        kernel_config)
+        kernel_config, merge_if_pipelined)
     device = next(a for a in common if a.startswith("--device="))
     prompt = list(range(1, 17))
     t0 = time.perf_counter()
     with CliProcess("train", *common, "--mode=eval") as proc, \
             CliProcess("train", "--mode=generate", "--model=gpt_mini",
-                       f"--logdir={logdir}", device,
+                       f"--logdir={logdir}", device, *gen_flags,
                        f"--gen_tokens={gen_tokens}",
                        "--gen_prompt=" + ",".join(map(str, prompt))) as gen:
         eval_lines = finish(proc, 300)
@@ -3614,14 +4334,16 @@ def eval_and_generate(dev, common: list, logdir: str, nums: dict,
                              f"expected {steps}")
     got = [int(t) for t in line_value(gen_lines,
                                       "Generated tokens:").split()]
-    tree = restore_raw(os.path.join(logdir, "gpt_mini"))[0]
-    params = tree.get("ema_params") or tree["params"]
+    tree = restore_raw(os.path.join(logdir, name))[0]
+    params = merge_if_pipelined(tree.get("ema_params") or tree["params"],
+                                n_virtual)
     cfg = dataclasses.replace(gpt.mini(), **gpt.infer_widths(params))
-    model = gpt.GptLM(kernel_config(cfg), device=dev)
-    model.load_state_dict(gpt.params_from_jax(params))
-    want = gpt.generate_cached(
-        model, None, torch.tensor([prompt], dtype=torch.int32),
-        gen_tokens)[0, len(prompt):].tolist()
+    with _BUSY_LOCK:            # outside any part's in-process profile
+        model = gpt.GptLM(kernel_config(cfg), device=dev)
+        model.load_state_dict(gpt.params_from_jax(params))
+        want = gpt.generate_cached(
+            model, None, torch.tensor([prompt], dtype=torch.int32),
+            gen_tokens)[0, len(prompt):].tolist()
     if got != want:
         raise AssertionError(f"--mode=generate tokens {got}, in process "
                              f"{want}")
@@ -3635,6 +4357,11 @@ def eval_and_generate(dev, common: list, logdir: str, nums: dict,
 
 
 def gpt_trainer_busy(dev) -> dict:
+    with _BUSY_LOCK:
+        return _gpt_trainer_busy(dev)
+
+
+def _gpt_trainer_busy(dev) -> dict:
     """The busy share of the trainer's gpt_mini step: the bundle the CLI
     builds from its flags (``models/registry.build``) and its sync step,
     one step profiled in this process after three (the CLI's own
@@ -3729,14 +4456,35 @@ def gpt_trainer(dev, tmp: str, smi: str) -> dict:
     return nums["launches"]
 
 
-def trainer(dev, smi: str) -> dict:
+def trainer(dev, smi: str) -> tuple:
     """Phase ``trainer``: the port's CLI trainer as processes (the
-    reference job, then gpt_mini with eval and generate).  Returns the
-    gpt_mini run's kernel launches."""
+    reference job, the same with ``--fsdp``, gpt_mini with eval and
+    generate) and, beside them, ``async_trainer``'s ``async_gpt`` (two
+    workers started together: no start-up race to lose).  Returns the
+    gpt_mini run's and ``async_gpt``'s kernel launches."""
     tmp = tempfile.mkdtemp(prefix="chip_smoke_trainer_")
     try:
-        reference_job(str(dev), tmp, smi)
-        return gpt_trainer(dev, tmp, smi)
+        # The reference job and the same job with --fsdp (hid/kernel [784,
+        # 100] sharded over the two workers) side by side; the FSDP job's
+        # accuracy within TRAINER's tolerance of the replicated job's.
+        # gpt_mini's trainer CLI and the async gpt_mini pair beside them.
+        t0 = time.perf_counter()
+        plain, fsdp, launches, async_launches = side_by_side(
+            (reference_job, str(dev), tmp, smi),
+            (lambda: reference_job(str(dev), tmp, smi, 2, "gloo",
+                                   "--fsdp=true", label="reference_fsdp",
+                                   profile=False),),
+            (gpt_trainer, dev, tmp, smi), (async_gpt, dev, tmp, smi))
+        emit("trainer_group", seconds=time.perf_counter() - t0,
+             side_by_side=["trainer_reference", "trainer_reference_fsdp",
+                           "trainer_gpt", "async_gpt"])
+        gap = abs(fsdp["test_accuracy"] - plain["test_accuracy"])
+        if gap > TRAINER["accuracy_tol"]:
+            raise AssertionError(
+                f"--fsdp reference job: test accuracy "
+                f"{fsdp['test_accuracy']}, the replicated job's "
+                f"{plain['test_accuracy']} (tol {TRAINER['accuracy_tol']})")
+        return launches, async_launches
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
@@ -3766,18 +4514,20 @@ def trainer_nccl(smi: str) -> None:
 # the same flags on a CPU (a PS and two workers, one device each) reaches
 # a test accuracy of 1 on both workers, the tolerance is the sync job's.
 # gpt_mini: the trainer phase's width, S=512, B=32, 40 global steps of one
-# replica (39 local steps), a merge every 10, paced as well.
+# replica (39 local steps), a merge every 10, paced as well (100 ms, cut
+# from 150).
 ASYNC = dict(period=4, pace_s=0.1, overlap_pace_s=0.06, gpt_period=10,
              gpt_steps=40,
-             gpt_pace_s=0.15, jax_cpu_test_accuracy=1.0,
+             gpt_pace_s=0.1, jax_cpu_test_accuracy=1.0,
              # Full-state bytes over the int8 round's: the JAX package's
              # acceptance bar (tests/test_param_exchange.py:177).
              min_wire_ratio=4.0, drift_share=0.1, drift_scale=0.01,
              # The int8 leg's part of the tree: the embeddings and the
-             # first two of the eight blocks (widths unchanged; ~103M of
-             # the 406M parameters).  The codec is host numpy and zlib,
-             # 12-40 s an exchange over the whole tree.
-             int8_leaves=("word_emb", "pos_emb", "layer0", "layer1"))
+             # first of the eight blocks (widths unchanged; ~53M of the
+             # 406M parameters; the first two before a cut).  The codec is
+             # host numpy and zlib, 12-40 s an exchange over the whole
+             # tree.
+             int8_leaves=("word_emb", "pos_emb", "layer0"))
 
 
 def exchange_records(path: str) -> list:
@@ -3882,6 +4632,11 @@ def async_job(device: str, tmp: str, smi: str, label: str, *extra,
 
 
 def async_mlp_busy(dev, tmp: str) -> dict:
+    with _BUSY_LOCK:
+        return _async_mlp_busy(dev, tmp)
+
+
+def _async_mlp_busy(dev, tmp: str) -> dict:
     """The busy share of the reference job's async local step (the
     trainer's MNIST bundle, one replica) in this process: one step
     profiled after three (the CLI's profiler takes ~17 s to start, longer
@@ -3958,6 +4713,11 @@ def async_overlap(dev, tmp: str, smi: str) -> None:
 
 
 def async_gpt_busy(dev) -> dict:
+    with _BUSY_LOCK:
+        return _async_gpt_busy(dev)
+
+
+def _async_gpt_busy(dev) -> dict:
     """The async local step of the trainer's gpt_mini bundle (one replica,
     as the trainer builds it) in this process, not in the CLI: its ms a
     step over 10 (no exchange, no telemetry, no pace) and one step
@@ -4090,9 +4850,9 @@ def async_exchange(dev, tmp: str, smi: str) -> None:
     consensus tree off the card (``host_tree``), two ``ParamAverager``s
     over the logdir side-channel (publish, fetch, average), the consensus
     back onto the card (``adopt_consensus``); then two int8
-    ``CompressedShardedAverager``s to their first assembled round, on a
-    quarter of the tree cut by depth (``ASYNC["int8_leaves"]``: the
-    embeddings and the first two of the eight blocks, widths unchanged),
+    ``CompressedShardedAverager``s to their first assembled round, on an
+    eighth of the tree cut by depth (``ASYNC["int8_leaves"]``: the
+    embeddings and the first of the eight blocks, widths unchanged),
     with the same gates: the wire cut and the codec's error bound."""
     import numpy as np
     import torch
@@ -4175,7 +4935,7 @@ def async_exchange(dev, tmp: str, smi: str) -> None:
                                      "the fp32 mean cast to bf16 on the card")
 
         # The int8 compressed exchange of the same two trees' first
-        # quarter by depth, to the first assembled round (worker 1's:
+        # eighth by depth, to the first assembled round (worker 1's:
         # worker 0 anchors, both publish deltas, each freezes its shard,
         # worker 1 assembles).
         part_a, part_b = ({k: t[k] for k in A["int8_leaves"]}
@@ -4255,11 +5015,13 @@ def async_exchange(dev, tmp: str, smi: str) -> None:
          int8_err_bound=bound_abs)
 
 
-def async_trainer(dev, smi: str) -> dict:
-    """Phase ``async_trainer``.  Returns the gpt_mini workers' summed
-    kernel launches."""
+def async_trainer(dev, smi: str) -> None:
+    """Phase ``async_trainer``: ``async_reference`` and ``async_overlap``
+    side by side, then ``async_exchange`` (``async_gpt`` runs in the
+    ``trainer`` phase's group)."""
     tmp = tempfile.mkdtemp(prefix="chip_smoke_async_")
     seconds = {}
+    start = time.perf_counter()
 
     def timed(name, fn):
         t0 = time.perf_counter()
@@ -4267,15 +5029,18 @@ def async_trainer(dev, smi: str) -> dict:
         seconds[name] = time.perf_counter() - t0
         return out
     try:
-        timed("async_reference", async_reference)
-        timed("async_overlap", async_overlap)
-        launches = timed("async_gpt", async_gpt)
+        # The two MNIST jobs (a PS and two paced workers each) side by
+        # side; the in-process exchange after.  (``async_gpt`` runs beside
+        # the trainer phase: its start-up load beside async_reference's
+        # staggered worker 1 cost that job its overlap once.)
+        side_by_side((timed, "async_reference", async_reference),
+                     (timed, "async_overlap", async_overlap))
         timed("async_exchange", async_exchange)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
-    emit("async_trainer", card=smi, seconds=sum(seconds.values()),
-         seconds_by_part=seconds)
-    return launches
+    emit("async_trainer", card=smi, seconds=time.perf_counter() - start,
+         seconds_by_part=seconds,
+         side_by_side=["async_reference", "async_overlap"])
 
 
 def main() -> int:
@@ -4333,8 +5098,19 @@ def main() -> int:
     torch.cuda.empty_cache()
     by_path.update(train_parallel(dev, smi, bf16_step))
     torch.cuda.empty_cache()
-    by_path["trainer"] = trainer(dev, smi)
-    by_path["async_trainer"] = async_trainer(dev, smi)
+    by_path.update(train_pipeline(dev, smi, bf16_step))
+    torch.cuda.empty_cache()
+    # The two FSDP ranks, and the two gpt_mini trainer CLIs (tp2 x
+    # ulysses2; the 1f1b pipeline) each with its eval and generate, side
+    # by side: all of them processes of their own.
+    t0 = time.perf_counter()
+    (by_path["train_fsdp"], by_path["train_parallel_cli"],
+     by_path["train_pipeline_cli"]) = side_by_side(
+        (train_fsdp, dev, smi, bf16_step), (parallel_cli, dev, smi),
+        (pipeline_cli, dev, smi))
+    emit("fsdp_and_cli_pair", seconds=time.perf_counter() - t0)
+    by_path["trainer"], by_path["async_trainer"] = trainer(dev, smi)
+    async_trainer(dev, smi)
     for row in rows:
         row["launches"] = by_path[row["main"]][row["name"]]
         if row["name"] in by_path["async_trainer"]:

@@ -738,16 +738,39 @@ class ParamAverager:
         avg = tree_map(_mean_leaves, *contributions)
         return avg, n - 1
 
+    #: A rejoining worker reads a live peer's publication once; a read
+    #: torn by the peer's republish (its meta, then chunks of the next
+    #: publication) is read again, up to PULL_ATTEMPTS times PULL_RETRY_S
+    #: apart (one publish period, at the trainer's pace, is well inside).
+    PULL_ATTEMPTS = 50
+    PULL_RETRY_S = 0.02
+
+    def _fetch_settled(self, task: int, template: Any, my_fp: str):
+        """:meth:`_fetch_peer`, read again while the peer has published
+        but its payload reads torn (not when it has not published, nor on
+        a fingerprint mismatch)."""
+        for _ in range(self.PULL_ATTEMPTS - 1):
+            peer = self._fetch_peer(task, template, my_fp=my_fp)
+            if (peer is not None or task in self._fp_mismatch_reported
+                    or self._coord.kv_get(self._key(task)) is None):
+                return peer
+            time.sleep(self.PULL_RETRY_S)
+        return self._fetch_peer(task, template, my_fp=my_fp)
+
     def pull_latest(self, template: Any) -> Any | None:
         """Average of everything published in this run's namespace
         (restart-and-rejoin: a rejoining worker adopts the collective's
         state instead of step 1 — stale entries are exactly the durability
-        this provides, so liveness is deliberately NOT checked here)."""
+        this provides, so liveness is deliberately NOT checked here).  A
+        peer that republishes while it is read (a live worker, every
+        period) is read again until the read is whole
+        (:meth:`_fetch_settled`): one torn read must not start this worker
+        from its own initialisation."""
         template = tree_map(_host, template)
         my_fp = tree_fingerprint(template)
         contributions = []
         for task in range(self._num_workers):
-            peer = self._fetch_peer(task, template, my_fp=my_fp)
+            peer = self._fetch_settled(task, template, my_fp)
             if peer is not None:
                 contributions.append(peer)
         if not contributions:

@@ -6,9 +6,9 @@ The reference declares 11 flags via ``tf.app.flags`` (reference
 (``distributed.py:40-47``).  This module provides the same surface —
 ``flags.DEFINE_*`` + a module-level ``FLAGS`` object + ``app.run(main)`` —
 without TensorFlow.  The help texts are the JAX package's, its TPU-VM
-wording included, until the port's trainer (ROADMAP.md, section 1, slice
-7) gives these flags their meaning here; ``train.py --mode=generate``
-reads none of them.
+wording included; the port's ``train.py`` gives the flags of its ported
+paths their meaning, and a flag of a path not ported yet raises naming
+its entry in ROADMAP.md, section 1.
 
 Unlike ``tf.app.flags`` this registry is instantiable, so tests can build
 isolated flag sets.

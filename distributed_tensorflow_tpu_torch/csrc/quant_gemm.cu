@@ -17,6 +17,9 @@
 //                                  K8: da[m, kb] * gelu'(pre) (g with
 //                                      want_g), no fold
 //     sx[kb, m] = max(amax_k |v[m, k]|, 1e-8) / 127   (IEEE division)
+//                 or, given sx_in (a K split over tensor-parallel shards
+//                 whose K-block spans them: the block's scale is the max
+//                 over the shards' parts), sx_in[kb, m]
 //     q[m, k]   = clamp(rint(v / sx), -127, 127)      (half to even)
 //   B, per output element:
 //     acc  = sum over kb, in order, of float(part) * sx[kb, m], where
@@ -110,6 +113,7 @@ struct QuantParams {
   int8_t* q;            // codes [M, K], row-major
   float* sx;            // scales [K / bk, M]
   void* g;              // v before the fold, [M, K], or null
+  const float* sx_in;   // given scales [K / bk, M], or null (computed)
   int M, K;
   long long lda, ldpre;
 };
@@ -162,7 +166,9 @@ __global__ void __launch_bounds__(kQuantWarps * 32)
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1)
     amax = fmaxf(amax, __shfl_xor_sync(0xffffffffu, amax, o));
-  const float s = __fdiv_rn(fmaxf(amax, 1e-8f), 127.0f);
+  const float s = p.sx_in != nullptr
+                      ? p.sx_in[(long long)blockIdx.y * p.M + m]
+                      : __fdiv_rn(fmaxf(amax, 1e-8f), 127.0f);
   const float rs = __frcp_rn(s);
   int8_t* q = p.q + m * p.K + k0;
 #pragma unroll
@@ -489,13 +495,16 @@ extern "C" int dtt_transpose_s8(const void* in, void* out, int R, int C,
 // A.  a [M, K] (row stride lda), pre [M, K] (row stride ldpre) or null
 // (given: v = a * gelu'(pre)), sf [K] fp32 or null (given: v *= sf after g
 // is written), q [M, K] int8 and sx [K / bk, M] fp32 out, g [M, K] or null
-// (v before the fold).  bk a power of two, 128..1024, dividing K; rows,
+// (v before the fold), sx_in [K / bk, M] fp32 or null (given: the codes
+// take these scales, which sx repeats).  bk a power of two, 128..1024,
+// dividing K; rows,
 // sf, q and g 16-byte aligned.  dtype: 0 = fp32, 1 = bf16.  Returns
 // cudaGetLastError().
 extern "C" int dtt_quant_blocks(const void* a, const void* pre,
                                 const void* sf, void* q, void* sx, void* g,
-                                int M, int K, int bk, long long lda,
-                                long long ldpre, int dtype, void* stream) {
+                                const void* sx_in, int M, int K, int bk,
+                                long long lda, long long ldpre, int dtype,
+                                void* stream) {
   if (M <= 0 || !bk_ok(K, bk)) return (int)cudaErrorInvalidValue;
   QuantParams p{};
   p.a = a;
@@ -504,6 +513,7 @@ extern "C" int dtt_quant_blocks(const void* a, const void* pre,
   p.q = static_cast<int8_t*>(q);
   p.sx = static_cast<float*>(sx);
   p.g = g;
+  p.sx_in = static_cast<const float*>(sx_in);
   p.M = M;
   p.K = K;
   p.lda = lda;

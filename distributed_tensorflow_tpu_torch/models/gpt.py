@@ -267,17 +267,21 @@ class Dense(nn.Module):
             y = y + bias.reshape(n_out).to(dt)
         return y.reshape(*lead, *self.out_shape)
 
-    def _check_tp(self) -> None:
-        if self.int8:
-            raise NotImplementedError(
-                "int8 matmuls with tensor parallelism are not ported yet; "
-                "see ROADMAP.md, section 1, item 6, slice 8b")
+    #: Int8 matmuls beside tensor parallelism (``Int8Dense`` always;
+    #: a ``Dense`` with ``int8``, the ``attn_int8`` projections).
+    int8_tp = False
+
+    def int8_weight(self, kernel: torch.Tensor, dtype) -> torch.Tensor:
+        """The weight as the unsharded int8 path quantizes it: cast to
+        the compute dtype first (``Int8Dense``: as stored)."""
+        return kernel.to(dtype)
 
     def column(self, x: torch.Tensor) -> list:
         """Column parallel (the kernel split along an output dim): each
         shard's output [*lead, *out shard] on its shard's device, from the
-        replicated ``x``; the bias is split the same way."""
-        self._check_tp()
+        replicated ``x``; the bias is split the same way.  Int8: the
+        unsharded int8 function's columns
+        (``ops/quant_train.int8_matmul_column``)."""
         kernels = shards(self, "kernel")
         dim = shard_dim(self, "kernel") - len(self.in_shape)
         biases = shards(self, "bias")
@@ -285,6 +289,21 @@ class Dense(nn.Module):
             biases = ([None] * len(kernels) if self.bias is None
                       else list(self.bias.chunk(len(kernels), dim=dim)))
         lead = x.shape[:x.dim() - len(self.in_shape)]
+        if self.int8 or self.int8_tp:
+            from ..ops.quant_train import int8_matmul_column
+            dt = self.dtype or torch.promote_types(x.dtype,
+                                                   kernels[0].dtype)
+            ys = int8_matmul_column(
+                x.reshape(-1, self.fan_in).to(dt),
+                [self.int8_weight(k, dt).reshape(self.fan_in, -1)
+                 for k in kernels])
+            outs = []
+            for y, kernel, b in zip(ys, kernels, biases):
+                if b is not None:
+                    y = y + b.to(kernel.device).reshape(-1).to(y.dtype)
+                outs.append(y.reshape(*lead, *kernel.shape[len(
+                    self.in_shape):]))
+            return outs
         outs = []
         for kernel, b in zip(kernels, biases):
             dt = self.dtype or torch.promote_types(x.dtype, kernel.dtype)
@@ -300,12 +319,28 @@ class Dense(nn.Module):
     def row(self, parts: list) -> torch.Tensor:
         """Row parallel (the kernel split along an input dim): each
         shard's partial product of its input part, summed in fp32 on
-        shard 0's device (the all-reduce), then the bias, once."""
-        self._check_tp()
+        shard 0's device (the all-reduce), then the bias, once.  Int8: the
+        shards' int32 products summed and rescaled once with the whole
+        K's scales (``ops/quant_train.int8_matmul_row``)."""
         kernels = shards(self, "kernel")
         home = kernels[0].device
         n_out = math.prod(self.out_shape)
         lead = parts[0].shape[:parts[0].dim() - len(self.in_shape)]
+        if self.int8 or self.int8_tp:
+            from ..ops.quant_train import int8_matmul_row
+            dt = self.dtype or torch.promote_types(parts[0].dtype,
+                                                   kernels[0].dtype)
+            xs, ws = [], []
+            for x, kernel in zip(parts, kernels):
+                fan_in = math.prod(kernel.shape[:len(self.in_shape)])
+                xs.append(x.to(kernel.device).reshape(-1, fan_in).to(dt))
+                ws.append(self.int8_weight(kernel, dt).reshape(fan_in,
+                                                               n_out))
+            y = int8_matmul_row(xs, ws)
+            bias = full(self, "bias")
+            if bias is not None:
+                y = y + bias.to(home).reshape(n_out).to(dt)
+            return y.reshape(*lead, *self.out_shape)
         total, dt = None, None
         for x, kernel in zip(parts, kernels):
             dt = self.dtype or torch.promote_types(x.dtype, kernel.dtype)
@@ -628,13 +663,31 @@ class GptBlock(nn.Module):
     def _mlp_tp(self, x: torch.Tensor, g) -> torch.Tensor:
         """Megatron's MLP: ``mlp_in`` (and ``mlp_gate``) column parallel,
         the activation per shard, ``mlp_out`` row parallel (the rules
-        split all three over the MLP width, so they are split together)."""
+        split all three over the MLP width, so they are split together).
+        ``matmul_int8``: the fused int8 MLP per shard where its gate admits
+        the global shapes (K4/K5 a shard), else ``Int8Dense``'s column and
+        row forms."""
         cfg = self.cfg
-        if cfg.matmul_int8:
-            raise NotImplementedError(
-                "int8 matmuls with tensor parallelism are not ported yet; "
-                "see ROADMAP.md, section 1, item 6, slice 8b")
         h = self.ln_mlp(x).to(cfg.torch_dtype)
+        if cfg.matmul_int8 and cfg.activation == "gelu":
+            from ..ops import quant_train
+            H = cfg.hidden_size
+            M = h.numel() // H
+            # The gate on the global (M, H, I), as the unsharded program
+            # that JAX's GSPMD partitions sees them.
+            if quant_train.use_fused_mlp(M, H, cfg.intermediate_size):
+                n = len(shards(self.mlp_in, "kernel"))
+                b_in = shards(self.mlp_in, "bias") or list(
+                    self.mlp_in.bias.chunk(n))
+                res = (x.reshape(M, H) if quant_train.FUSED_MLP_RESIDUAL
+                       and g is None else None)
+                y = quant_train.int8_gelu_mlp_tp(
+                    h.reshape(M, H), shards(self.mlp_in, "kernel"), b_in,
+                    shards(self.mlp_out, "kernel"),
+                    full(self.mlp_out, "bias"), res)
+                if res is not None:
+                    return y.reshape(x.shape)
+                return x + self._drop(y.reshape(x.shape), g)
         hidden = self.mlp_in.column(h)
         if cfg.activation == "swiglu":
             hidden = [F.silu(gt) * a for gt, a in zip(
@@ -2015,6 +2068,251 @@ def generate_cached_speculative_device(model: GptLM, params: dict | None,
              "mean_accepted_per_round": round(generated / max(rounds, 1),
                                               2)}
     return toks, stats
+
+
+# ------------------------------------------------------------ the pipeline
+
+
+def split_params_for_pipeline(params: dict, n_stages: int,
+                              num_layers: int) -> dict:
+    """A plain GPT tree (``word_emb``/``pos_emb``/``layer{i}``/
+    ``ln_final``/``lm_head``, numpy or tensor leaves) as the pipeline's
+    ``{"embed", "stages", "head"}`` tree, every ``stages`` leaf stacked
+    [n_stages, layers_per_stage, ...] (stage-major), the JAX package's
+    ``split_params_for_pipeline``; numpy leaves out.  The inverse is
+    :func:`merge_pipeline_params`."""
+    if num_layers % n_stages:
+        raise ValueError(f"num_layers={num_layers} not divisible by "
+                         f"pipeline stages={n_stages}")
+    per = num_layers // n_stages
+
+    def stack(*xs):
+        if isinstance(xs[0], dict):
+            return {k: stack(*(x[k] for x in xs)) for k in xs[0]}
+        arr = np.stack([x.detach().cpu().numpy() if torch.is_tensor(x)
+                        else np.asarray(x) for x in xs])
+        return arr.reshape(n_stages, per, *arr.shape[1:])
+
+    embed = {"word_emb": params["word_emb"]}
+    if "pos_emb" in params:            # absent under pos_encoding="rope"
+        embed["pos_emb"] = params["pos_emb"]
+    return {"embed": embed,
+            "stages": stack(*(params[f"layer{i}"]
+                              for i in range(num_layers))),
+            "head": {"ln_final": params["ln_final"],
+                     "lm_head": params["lm_head"]}}
+
+
+class GptStage(nn.Module):
+    """One pipeline chunk: ``layers_per_stage`` consecutive decoder
+    blocks, run in order."""
+
+    def __init__(self, blocks):
+        super().__init__()
+        self.layers = nn.ModuleList(blocks)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        for layer in self.layers:
+            x = layer(x)
+        return x
+
+
+class GptEmbed(nn.Module):
+    """The token (and learned position) embedding, outside the stages."""
+
+    def __init__(self, cfg: GptConfig, word_emb, pos_emb):
+        super().__init__()
+        self.cfg = cfg
+        self.word_emb = word_emb
+        if pos_emb is not None:
+            self.pos_emb = pos_emb
+
+    def forward(self, tokens: torch.Tensor) -> torch.Tensor:
+        x = self.word_emb(tokens)
+        if self.cfg.pos_encoding != "rope":
+            x = x + self.pos_emb(torch.arange(tokens.shape[1],
+                                              device=tokens.device)[None])
+        return x.to(self.cfg.torch_dtype)
+
+
+class GptHead(nn.Module):
+    """The final norm and the LM head, after the stages."""
+
+    def __init__(self, ln_final, lm_head):
+        super().__init__()
+        self.ln_final = ln_final
+        self.lm_head = lm_head
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.lm_head(self.ln_final(x))
+
+
+class PipelinedGptLM(nn.Module):
+    """A :class:`GptLM`'s modules laid out for the pipeline: ``embed``,
+    ``stages`` (``n_pipe * n_virtual`` chunks of consecutive blocks in
+    natural order, chunk ``c`` on pipe device ``c % n_pipe``) and
+    ``head`` (on the last pipe device).  :meth:`from_gpt` takes a model's
+    own modules (no copy), so a seed gives the unpipelined model's
+    weights.  ``forward`` runs the layers in order, the schedule-agnostic
+    apply; the train steps run the schedules
+    (:func:`make_pipelined_gpt_apply`,
+    :func:`make_1f1b_gpt_train_step_builder`).  The checkpoint tree is
+    the JAX package's stage-stacked one (:meth:`params_to_tree`)."""
+
+    def __init__(self, cfg: GptConfig, embed: GptEmbed, stages, head,
+                 n_pipe: int, n_virtual: int = 1):
+        super().__init__()
+        self.cfg = cfg
+        self.n_pipe, self.n_virtual = n_pipe, n_virtual
+        self.embed = embed
+        self.stages = nn.ModuleList(stages)
+        self.head = head
+
+    @classmethod
+    def from_gpt(cls, model: GptLM, devices, n_virtual: int = 1
+                 ) -> "PipelinedGptLM":
+        """``model``'s modules as ``len(devices)`` pipe positions of
+        ``n_virtual`` chunks each, every module moved to its position's
+        device."""
+        cfg = model.cfg
+        n_pipe = len(devices)
+        V = n_pipe * n_virtual
+        if cfg.num_layers % V:
+            raise ValueError(f"num_layers={cfg.num_layers} not divisible by "
+                             f"pipeline stages={V}")
+        per = cfg.num_layers // V
+        stages = [GptStage(list(model.layers[c * per:(c + 1) * per])).to(
+            devices[c % n_pipe]) for c in range(V)]
+        embed = GptEmbed(cfg, model.word_emb,
+                         getattr(model, "pos_emb", None)).to(devices[0])
+        head = GptHead(model.ln_final, model.lm_head).to(devices[-1])
+        return cls(cfg, embed, stages, head, n_pipe, n_virtual)
+
+    @property
+    def device(self) -> torch.device:
+        return self.embed.word_emb.embedding.device
+
+    def forward(self, tokens: torch.Tensor) -> torch.Tensor:
+        x = self.embed(tokens)
+        for stage in self.stages:
+            x = stage(x.to(stage.layers[0].ln_attn.scale.device))
+        return self.head(x.to(self.head.lm_head.kernel.device))
+
+    def _layer(self, c: int, l: int) -> int:
+        return c * (self.cfg.num_layers // len(self.stages)) + l
+
+    def params_to_tree(self, named: dict) -> dict:
+        """``{state_dict name: tensor}`` -> the JAX package's pipeline
+        tree (``stages`` [n_pipe, per, ...], or [n_virtual, n_pipe, per,
+        ...] interleaved; numpy leaves)."""
+        plain = {}
+        for name, t in named.items():
+            part, _, rest = name.partition(".")
+            if part == "stages":
+                c, _, l, leaf = rest.split(".", 3)
+                plain[f"layers.{self._layer(int(c), int(l))}.{leaf}"] = t
+            else:
+                plain[rest] = t
+        L, V = self.cfg.num_layers, len(self.stages)
+        tree = split_params_for_pipeline(params_to_jax(plain), V, L)
+        if self.n_virtual > 1:
+            tree["stages"] = _tree_map(
+                lambda a: a.reshape(self.n_virtual, self.n_pipe,
+                                    *a.shape[1:]), tree["stages"])
+        return tree
+
+    def params_from_tree(self, tree: dict) -> dict:
+        """Inverse of :meth:`params_to_tree` (a checkpoint of either
+        package): fp32 CPU tensors by ``state_dict`` name."""
+        per = self.cfg.num_layers // len(self.stages)
+        plain = params_from_jax(merge_pipeline_params(
+            tree, self.cfg.num_layers, self.n_virtual))
+        out = {}
+        for name, t in plain.items():
+            part, _, rest = name.partition(".")
+            if part == "layers":
+                i, _, leaf = rest.partition(".")
+                out[f"stages.{int(i) // per}.layers.{int(i) % per}."
+                    f"{leaf}"] = t
+            elif part in ("word_emb", "pos_emb"):
+                out[f"embed.{name}"] = t
+            else:
+                out[f"head.{name}"] = t
+        return out
+
+
+def _tree_map(fn, tree):
+    if isinstance(tree, dict):
+        return {k: _tree_map(fn, v) for k, v in tree.items()}
+    return fn(tree)
+
+
+def _stage_fn(stage: GptStage, x: torch.Tensor) -> torch.Tensor:
+    return stage(x)
+
+
+def make_pipelined_gpt_apply(cfg: GptConfig, mesh, *, n_micro: int,
+                             remat: bool = True):
+    """``apply(model, tokens) -> logits`` of a :class:`PipelinedGptLM`
+    with the decoder blocks run as a GPipe schedule over the mesh's
+    ``pipe`` axis (:func:`..parallel.pipeline.make_pipeline_fn`); the
+    embedding and the head run outside it on the whole batch.  Same math
+    as ``GptLM.forward``."""
+    from ..parallel.pipeline import make_pipeline_fn
+    pipe_fwd = make_pipeline_fn(mesh, _stage_fn, n_micro=n_micro,
+                                remat=remat)
+
+    def apply(model, tokens):
+        x = pipe_fwd(model.stages, model.embed(tokens))
+        return model.head(x.to(model.head.lm_head.kernel.device))
+
+    return apply
+
+
+def make_interleaved_gpt_apply(cfg: GptConfig):
+    """``apply(model, tokens) -> logits`` for the interleaved layout: the
+    chunks in natural layer order (``PipelinedGptLM.forward``), for eval
+    and the loss where the schedule does not matter."""
+    def apply(model, tokens):
+        return model(tokens)
+
+    return apply
+
+
+def make_1f1b_gpt_train_step_builder(cfg: GptConfig, *, n_micro: int,
+                                     label_smoothing: float = 0.0,
+                                     n_virtual: int = 1):
+    """``builder(mesh, all_reduce=None, log_grad_norm=False) -> step``:
+    the 1F1B-scheduled train step of a :class:`PipelinedGptLM`
+    (:func:`..parallel.pipeline.build_1f1b_pipeline_train_step`), or the
+    interleaved one with ``n_virtual > 1``.  Same math and parameter
+    layout as the GPipe path; the stash of stage inputs is bounded by the
+    pipe depth, not the micro-batch count."""
+    from ..parallel.pipeline import (build_1f1b_pipeline_train_step,
+                                     build_interleaved_1f1b_train_step)
+
+    def embed_fn(embed, batch):
+        return embed(torch.as_tensor(batch["tokens"],
+                                     device=embed.word_emb.embedding.device
+                                     ).long())
+
+    def loss_head_fn(head, y, micro_batch):
+        tokens = torch.as_tensor(micro_batch["tokens"],
+                                 device=y.device).long()
+        loss, acc = lm_loss(head(y), tokens,
+                            label_smoothing=label_smoothing)
+        return loss, {"accuracy": acc}
+
+    def builder(mesh, all_reduce=None, log_grad_norm: bool = False):
+        kw = dict(n_micro=n_micro, embed_fn=embed_fn, all_reduce=all_reduce,
+                  log_grad_norm=log_grad_norm)
+        if n_virtual > 1:
+            return build_interleaved_1f1b_train_step(
+                mesh, _stage_fn, loss_head_fn, n_virtual=n_virtual, **kw)
+        return build_1f1b_pipeline_train_step(mesh, _stage_fn,
+                                              loss_head_fn, **kw)
+
+    return builder
 
 
 def gpt_sharding_rules() -> ShardingRules:

@@ -27,6 +27,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from ..parallel.sharding import full
 from .image_input import to_unit_float
 
 IMAGE_PIXELS = 28
@@ -48,7 +49,10 @@ class Dense(nn.Module):
                                              device=device))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return torch.addmm(self.bias, x, self.kernel)
+        # A kernel or bias split over a mesh's model axis
+        # (``parallel/sharding.shard_state``) is taken whole: the JAX
+        # model's GSPMD program gathers it the same way.
+        return torch.addmm(full(self, "bias"), x, full(self, "kernel"))
 
 
 class MnistMLP(nn.Module):

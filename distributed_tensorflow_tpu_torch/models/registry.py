@@ -2,9 +2,9 @@
 
 Counterpart of ``distributed_tensorflow_tpu/models/registry.py``, so far
 for the reference MNIST MLP (:func:`build_mnist_mlp`), the GPT-mini
-decoder (:func:`build_gpt_mini`), :func:`build` (the trainer's
-``--model`` lookup for those two) and the pipelined GPT's checkpoint
-namespace (:func:`pipeline_bundle_name`).  The other JAX models
+decoder (:func:`build_gpt_mini`), the pipelined GPT-mini
+(:func:`build_gpt_pipeline`, ``--pipeline_parallel``) and :func:`build`
+(the trainer's ``--model`` lookup).  The other JAX models
 (``lenet5``, ``resnet20``, ``vit_tiny``, ``bert_tiny``, ``bert_moe``) raise
 ``NotImplementedError`` (ROADMAP.md, section 1, item 7).
 """
@@ -34,6 +34,14 @@ class ModelBundle:
     # Tensor-parallel placement rules over the mesh's ``model`` axis
     # (parallel/sharding.py); None: the model trains replicated.
     sharding_rules: object = None
+    # ``(mesh, state) -> state``: a model that places its own state (the
+    # pipeline's stages over the ``pipe`` axis); None: the layout's
+    # ``ParallelConfig.place_state``.
+    place_state: Callable | None = None
+    # ``(mesh, all_reduce=None, log_grad_norm=False) -> step``: a model
+    # whose step cannot be built from ``loss_fn`` alone (the 1F1B and
+    # interleaved pipelines' hand-rolled backward).
+    train_step_builder: Callable | None = None
 
 
 def _default_transformer_tx(learning_rate: float, name: str) -> OptimizerSpec:
@@ -84,7 +92,7 @@ def build_gpt_mini(learning_rate: float, seed: int = 0, seq_len: int = 128,
         matmul_int8=matmul_int8, attn_int8=attn_int8)
     if tokenizer == "bpe":
         raise NotImplementedError("the BPE tokenizer is not ported yet; see "
-                                  "ROADMAP.md, PyTorch port")
+                                  "ROADMAP.md, section 1, item 7")
     device = resolve_device(device)
     model = gpt_lib.GptLM(cfg, device=device, seed=seed,
                           param_dtype=torch.float32, mesh=mesh)
@@ -124,6 +132,125 @@ def build_gpt_mini(learning_rate: float, seed: int = 0, seq_len: int = 128,
                        lambda: make_lm_eval_fn(lambda m, t: m(t)),
                        "gpt_mini", needs_rng=needs_rng,
                        sharding_rules=gpt_lib.gpt_sharding_rules())
+
+
+def build_gpt_pipeline(learning_rate: float, mesh, seed: int = 0,
+                       seq_len: int = 128, n_micro: int = 4,
+                       attention_backend: str = "xla",
+                       dtype: str = "bfloat16", remat: bool = False,
+                       tx: OptimizerSpec | None = None,
+                       fused_ln: bool = False,
+                       label_smoothing: float = 0.0,
+                       pos_encoding: str = "learned",
+                       schedule: str = "gpipe",
+                       virtual_stages: int = 2,
+                       kv_heads: int = 0,
+                       attention_window: int = 0,
+                       activation: str = "gelu",
+                       norm: str = "layernorm",
+                       tokenizer: str = "byte",
+                       stream_threshold_mb: int = 256, *,
+                       width: dict | None = None) -> ModelBundle:
+    """GPT-mini with its decoder blocks run as a pipeline schedule over
+    ``mesh``'s ``pipe`` axis (``--pipeline_parallel``): chunk ``c`` of
+    the blocks on pipe device ``c % n_pipe``
+    (:class:`.gpt.PipelinedGptLM`, the weights of ``build_gpt_mini``'s
+    model from the same seed).  ``schedule`` picks GPipe (autograd
+    through the ticks; ``remat`` recomputes each stage), ``1f1b``
+    (hand-rolled backward, the stash bounded by the pipe depth) or
+    ``interleaved`` (1F1B over ``virtual_stages`` round-robin chunks a
+    position).  ``width``: GptConfig fields over ``mini()``'s (a
+    caller's full-width model).  The checkpoint namespace and tree are
+    the JAX package's (:func:`pipeline_bundle_name`, ``{"embed",
+    "stages", "head"}``)."""
+    from . import gpt as gpt_lib
+    from ..data.lm import make_lm_datasets, make_lm_eval_fn
+    from ..parallel.mesh import PIPE_AXIS
+
+    if schedule not in ("gpipe", "1f1b", "interleaved"):
+        raise ValueError(
+            f"--pipeline_schedule must be gpipe, 1f1b, or interleaved, "
+            f"got {schedule!r}")
+    n_pipe = mesh.shape[PIPE_AXIS]
+    interleaved = schedule == "interleaved"
+    v = virtual_stages if interleaved else 1
+    if interleaved and v < 2:
+        raise ValueError(
+            f"--pipeline_schedule=interleaved needs "
+            f"--pipeline_virtual_stages >= 2, got {v}")
+    cfg = dataclasses.replace(
+        gpt_lib.mini(), attention_backend=attention_backend, dtype=dtype,
+        fused_ln=fused_ln, pos_encoding=pos_encoding, kv_heads=kv_heads,
+        attention_window=attention_window, activation=activation,
+        norm=norm, **(width or {}))
+    if tokenizer == "bpe":
+        raise NotImplementedError("the BPE tokenizer is not ported yet; see "
+                                  "ROADMAP.md, section 1, item 7")
+    devices = mesh.pipe_devices()
+    plain = gpt_lib.GptLM(cfg, device=devices[0], seed=seed,
+                          param_dtype=torch.float32)
+    model = gpt_lib.PipelinedGptLM.from_gpt(plain, devices, v)
+    del plain
+    if tx is None:
+        tx = _default_transformer_tx(learning_rate, "gpt_mini(pipelined)")
+    state = TrainState.create(model, tx,
+                              params_to_tree=model.params_to_tree,
+                              params_from_tree=model.params_from_tree)
+    if interleaved:
+        apply_fn = gpt_lib.make_interleaved_gpt_apply(cfg)
+    else:
+        apply_fn = gpt_lib.make_pipelined_gpt_apply(cfg, mesh,
+                                                    n_micro=n_micro,
+                                                    remat=remat)
+
+    def loss_fn(model, batch):
+        tokens = torch.as_tensor(batch["tokens"], device=model.device).long()
+        logits = apply_fn(model, tokens)
+        loss, acc = gpt_lib.lm_loss(logits, tokens.to(logits.device),
+                                    label_smoothing=label_smoothing)
+        return loss, {"accuracy": acc}
+
+    def place_state(mesh_, state_):
+        """Each chunk on its pipe device (the embedding on the first,
+        the head on the last); the optimizer's slots follow in place."""
+        devs = mesh_.pipe_devices()
+        m = state_.model
+        for c, stage in enumerate(m.stages):
+            _move_module(state_, stage, devs[c % len(devs)])
+        _move_module(state_, m.embed, devs[0])
+        _move_module(state_, m.head, devs[-1])
+        return state_
+
+    def load_datasets(data_dir):
+        return make_lm_datasets(cfg, seq_len=seq_len, data_dir=data_dir,
+                                tokenizer=tokenizer,
+                                stream_threshold_bytes=(
+                                    stream_threshold_mb << 20))
+
+    step_builder = None
+    if schedule in ("1f1b", "interleaved"):
+        # Training runs the hand-rolled schedules; the loss, eval and
+        # generate keep a schedule-agnostic apply.
+        step_builder = gpt_lib.make_1f1b_gpt_train_step_builder(
+            cfg, n_micro=n_micro, label_smoothing=label_smoothing,
+            n_virtual=v)
+    return ModelBundle(state, loss_fn, load_datasets,
+                       lambda: make_lm_eval_fn(apply_fn),
+                       pipeline_bundle_name(n_pipe, schedule, v),
+                       place_state=place_state,
+                       train_step_builder=step_builder)
+
+
+def _move_module(state, module, device) -> None:
+    """``module``'s parameters (and their optimizer slots) onto
+    ``device``, in place."""
+    with torch.no_grad():
+        for p in module.parameters():
+            if p.device != device:
+                p.data = p.data.to(device)
+                for key, v in state.optimizer.base.state.get(p, {}).items():
+                    if torch.is_tensor(v) and v.dim():
+                        state.optimizer.base.state[p][key] = v.to(device)
 
 
 def pipeline_bundle_name(n_pipe: int, schedule: str,
@@ -179,7 +306,25 @@ BUILDERS = {
         FLAGS.hidden_units, FLAGS.learning_rate, seed=_seed(FLAGS), tx=tx,
         label_smoothing=getattr(FLAGS, "label_smoothing", 0.0),
         device=device),
-    "gpt_mini": lambda FLAGS, tx, device, mesh: build_gpt_mini(
+    "gpt_mini": lambda FLAGS, tx, device, mesh: (build_gpt_pipeline(
+        FLAGS.learning_rate, mesh, seed=_seed(FLAGS),
+        seq_len=getattr(FLAGS, "bert_seq_len", 128),
+        n_micro=getattr(FLAGS, "pipeline_microbatches", 4),
+        attention_backend=getattr(FLAGS, "attention_backend", "xla"),
+        dtype=getattr(FLAGS, "bert_dtype", "bfloat16"),
+        remat=getattr(FLAGS, "remat", False), tx=tx,
+        fused_ln=getattr(FLAGS, "fused_layer_norm", False),
+        label_smoothing=getattr(FLAGS, "label_smoothing", 0.0),
+        pos_encoding=getattr(FLAGS, "gpt_positions", "learned"),
+        schedule=getattr(FLAGS, "pipeline_schedule", "gpipe"),
+        virtual_stages=getattr(FLAGS, "pipeline_virtual_stages", 2),
+        kv_heads=getattr(FLAGS, "gpt_kv_heads", 0),
+        attention_window=getattr(FLAGS, "attention_window", 0),
+        activation=getattr(FLAGS, "gpt_activation", "gelu"),
+        norm=getattr(FLAGS, "gpt_norm", "layernorm"),
+        tokenizer=getattr(FLAGS, "gpt_tokenizer", "byte"),
+        stream_threshold_mb=getattr(FLAGS, "gpt_stream_corpus_mb", 256))
+        if getattr(FLAGS, "pipeline_parallel", 1) > 1 else build_gpt_mini(
         FLAGS.learning_rate, seed=_seed(FLAGS),
         seq_len=getattr(FLAGS, "bert_seq_len", 128),
         attention_backend=getattr(FLAGS, "attention_backend", "xla"),
@@ -197,7 +342,7 @@ BUILDERS = {
         attn_int8=getattr(FLAGS, "gpt_attn_int8", False),
         tokenizer=getattr(FLAGS, "gpt_tokenizer", "byte"),
         stream_threshold_mb=getattr(FLAGS, "gpt_stream_corpus_mb", 256),
-        device=device, mesh=mesh),
+        device=device, mesh=mesh)),
 }
 
 #: The JAX package's other ``--model`` names.

@@ -80,9 +80,10 @@ SIGNATURES = {
     "dtt_flash_attention_chunk_bwd": [_P] * 9 + [_I] * 5 + [_L] * 12
                                      + [_I] * 4 + [_F, _I, _I, _I, _P],
     # K4/K5/K8 kernel A, the quantize pass: a, pre (null: no gelu'), sf
-    # (null: no fold), q, sx, g (null unless want_g), M, K, bk, a's and
-    # pre's row strides, dtype (0 = fp32, 1 = bf16), stream.
-    "dtt_quant_blocks": [_P] * 6 + [_I] * 3 + [_L, _L, _I, _P],
+    # (null: no fold), q, sx, g (null unless want_g), sx_in (null: the
+    # scales computed; else given), M, K, bk, a's and pre's row strides,
+    # dtype (0 = fp32, 1 = bf16), stream.
+    "dtt_quant_blocks": [_P] * 7 + [_I] * 3 + [_L, _L, _I, _P],
     # K4/K5/K8 kernel B, the block-scaled GEMM: q, sx, w (K-major), sw (null:
     # K5's bare cast), bias, residual, out, pre (null where unused), M, N,
     # K, bk, gelu, dtype, stream.

@@ -81,14 +81,29 @@ def _scale(amax: torch.Tensor) -> torch.Tensor:
     return amax.clamp_min(1e-8) / torch.full_like(amax, 127.0)
 
 
-def quantize_cols(w: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+def quantize_cols(w: torch.Tensor, s: torch.Tensor | None = None
+                  ) -> tuple[torch.Tensor, torch.Tensor]:
     """Symmetric int8 per COLUMN (axis 0 reduced): ``w ~ q * s``, ``q``
     int8 [K, N], ``s`` fp32 [1, N].  Rounds half to even, as
-    ``jnp.round``."""
+    ``jnp.round``.  A given ``s`` (the whole K's scales of a weight whose
+    rows are split over tensor-parallel shards, :func:`col_scales`) is
+    used as it is."""
     w32 = w.to(torch.float32)
-    s = _scale(w32.abs().amax(dim=0, keepdim=True))
-    q = torch.clamp(torch.round(w32 / s), -127, 127).to(torch.int8)
+    if s is None:
+        s = _scale(w32.abs().amax(dim=0, keepdim=True))
+    q = torch.clamp(torch.round(w32 / s.to(w32.device)),
+                    -127, 127).to(torch.int8)
     return q, s
+
+
+def col_scales(parts) -> torch.Tensor:
+    """:func:`quantize_cols`'s scales [1, N] of the weight whose rows are
+    ``parts`` (tensor-parallel shards, in order): each column's max over
+    every shard, on the first shard's device."""
+    home = parts[0].device
+    amax = torch.stack([p.to(home, torch.float32).abs().amax(dim=0)
+                        for p in parts]).amax(dim=0, keepdim=True)
+    return _scale(amax)
 
 
 def _quant_block(xb: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
@@ -270,13 +285,14 @@ def quantized_matmul_dgelu_reference(da, pre, qwt, swt, *,
 
 
 def quantize_blocks_reference(a, bk: int, pre=None, sf=None, *,
-                              want_g: bool = False):
+                              want_g: bool = False, sx=None):
     """Plain version of :func:`quantize_blocks`, the quantize stage of K4,
     K5 and K8: ``v = a`` (fp32), times ``gelu'(pre)`` when ``pre`` is given
     (``g = v`` in a.dtype with ``want_g``), times ``sf [K]`` (the fold)
     when given; then per (row, K-block of ``bk``) ``sx = max(amax |v|,
-    1e-8) / 127`` and ``q = clamp(round(v / sx), -127, 127)``.  Returns
-    ``(q [M, K] int8, sx [K / bk, M] fp32, g or None)``."""
+    1e-8) / 127`` (or the given ``sx [K / bk, M]``) and ``q =
+    clamp(round(v / sx), -127, 127)``.  Returns ``(q [M, K] int8, sx [K /
+    bk, M] fp32, g or None)``."""
     M, K = a.shape
     if want_g and pre is None:
         raise ValueError("want_g needs pre: g is v before the fold")
@@ -286,9 +302,14 @@ def quantize_blocks_reference(a, bk: int, pre=None, sf=None, *,
     g = v.to(a.dtype) if want_g else None
     if sf is not None:
         v = v * sf.reshape(1, K).to(torch.float32)
-    q, sx = _quant_block(v.reshape(M, K // bk, bk))
+    v = v.reshape(M, K // bk, bk)
+    if sx is None:
+        q, s = _quant_block(v)
+    else:
+        s = sx.to(torch.float32).t().reshape(M, K // bk, 1)
+        q = torch.clamp(torch.round(v / s), -127, 127)
     return (q.reshape(M, K).to(torch.int8),
-            sx.reshape(M, K // bk).t().contiguous(), g)
+            s.reshape(M, K // bk).t().contiguous(), g)
 
 
 def blocked_gemm_reference(q, sx, w, bk: int, sw=None, bias=None,
@@ -380,14 +401,19 @@ def _aligned(t: torch.Tensor) -> torch.Tensor:
     return t if t.data_ptr() % 16 == 0 else t.clone()
 
 
-def quantize_blocks(a, bk: int, pre=None, sf=None, *, want_g: bool = False):
+def quantize_blocks(a, bk: int, pre=None, sf=None, *, want_g: bool = False,
+                    sx=None):
     """Kernel A of K4/K5/K8: per-(row, K-block) int8 codes and scales of ``v =
     a [* gelu'(pre)] [* sf]`` (and ``g``, ``v`` before the fold, with
-    ``want_g``).  See :func:`quantize_blocks_reference`; on a CPU tensor it
-    is that plain version.  Returns ``(q [M, K] int8, sx [K / bk, M] fp32,
-    g or None)``."""
+    ``want_g``); with ``sx [K / bk, M]`` the codes take those scales (a
+    K-block split over tensor-parallel shards: the block's scale is the
+    max over the shards, :func:`split_k_codes`).  See
+    :func:`quantize_blocks_reference`; on a CPU tensor it is that plain
+    version.  Returns ``(q [M, K] int8, sx [K / bk, M] fp32, g or
+    None)``."""
     if a.device.type == "cpu":
-        return quantize_blocks_reference(a, bk, pre, sf, want_g=want_g)
+        return quantize_blocks_reference(a, bk, pre, sf, want_g=want_g,
+                                         sx=sx)
     M, K = a.shape
     _kernel_input(a, K, bk)
     if want_g and pre is None:
@@ -404,6 +430,13 @@ def quantize_blocks(a, bk: int, pre=None, sf=None, *, want_g: bool = False):
         if sf.numel() != K:
             raise ValueError(f"sf has {sf.numel()} values, K is {K}")
         sf = _aligned(sf)          # read 16 bytes a lane
+    sx_in = sx
+    if sx_in is not None:
+        _check_cuda("sx", sx_in, a, torch.float32)
+        if tuple(sx_in.shape) != (K // bk, M):
+            raise ValueError(f"given sx of shape {tuple(sx_in.shape)}, "
+                             f"expected ({K // bk}, {M})")
+        sx_in = sx_in.contiguous()
     q = torch.empty(M, K, dtype=torch.int8, device=a.device)
     sx = torch.empty(K // bk, M, dtype=torch.float32, device=a.device)
     g = torch.empty(M, K, dtype=a.dtype, device=a.device) if want_g \
@@ -413,7 +446,8 @@ def quantize_blocks(a, bk: int, pre=None, sf=None, *, want_g: bool = False):
             "quant_blocks", a.device, a.data_ptr(),
             None if pre is None else pre.data_ptr(),
             None if sf is None else sf.data_ptr(), q.data_ptr(),
-            sx.data_ptr(), None if g is None else g.data_ptr(), M, K, bk,
+            sx.data_ptr(), None if g is None else g.data_ptr(),
+            None if sx_in is None else sx_in.data_ptr(), M, K, bk,
             a.stride(0), 0 if pre is None else pre.stride(0),
             _DTYPE_CODE[a.dtype])
         global quantize_launches
@@ -473,6 +507,82 @@ def blocked_gemm(q, sx, w, bk: int, sw=None, bias=None, residual=None, *,
         global gemm_launches
         gemm_launches += 1
     return (out, pre) if want_preact else out
+
+
+def split_k_codes(parts, block_k: int, pres=None, sfs=None, *,
+                  want_g: bool = False):
+    """The codes of an activation whose K is split over tensor-parallel
+    shards (``parts[j]`` [M, K / n] in order, with ``pres[j]`` /
+    ``sfs[j]`` for K5's prologue), quantized as the unsharded quantize
+    pass quantizes the whole: per (row, K-block of ``_block_k(K,
+    block_k)`` over the WHOLE K).  Each shard runs kernel A on its part at
+    ``bk = gcd(K-block, K / n)``; where a K-block spans shards
+    (``bk`` below the K-block) the block's scale is the max of its parts'
+    scales (``_scale`` is monotonic, so that is the scale of the block's
+    amax), and each shard runs kernel A again with those scales given.
+    Returns ``([(q_j, sx_j, g_j)], bk)``: each shard's codes, scales [K /
+    n / bk, M] and g, at GEMM block width ``bk``."""
+    import math
+    n = len(parts)
+    Kj = parts[0].shape[1]
+    block = _block_k(Kj * n, block_k)
+    bk = math.gcd(block, Kj)
+    pres = pres or [None] * n
+    sfs = sfs or [None] * n
+    out = [quantize_blocks(a, bk, p, f, want_g=want_g)
+           for a, p, f in zip(parts, pres, sfs)]
+    if bk == block:
+        return out, bk
+    home = parts[0].device
+    r = block // bk
+    scales = torch.cat([sx.to(home) for _, sx, _ in out])
+    given = scales.reshape(-1, r, scales.shape[1]).amax(dim=1)
+    given = given.repeat_interleave(r, dim=0).chunk(n)
+    return [quantize_blocks(a, bk, p, f, want_g=want_g, sx=sx.to(a.device))
+            for a, p, f, sx in zip(parts, pres, sfs, given)], bk
+
+
+def quantized_matmul_split_k(parts, qws, sw, *, block_k: int = 512) -> list:
+    """K4 over a K split across tensor-parallel shards (row parallel):
+    ``parts[j]`` [M, K / n] and ``qws[j]`` [K / n, N], shard ``j``'s rows
+    of the weight quantized with the whole K's column scales ``sw`` [1, N]
+    (:func:`col_scales`).  Returns each shard's fp32 partial ``acc_j *
+    sw`` [M, N] on its device, no bias: their fp32 sum, plus the bias
+    once and rounded once, is the unsharded K4's output up to fp32
+    re-association.  One K4 call a shard on CUDA tensors (its kernel A
+    twice where a K-block spans shards, :func:`split_k_codes`)."""
+    global launches
+    codes, bk = split_k_codes(parts, block_k)
+    out = []
+    for (q, sx, _), qw in zip(codes, qws):
+        out.append(blocked_gemm(q, sx, transpose_s8(qw), bk,
+                                sw.to(q.device), out_dtype=torch.float32))
+        if q.device.type != "cpu":
+            launches += 1
+    return out
+
+
+def quantized_matmul_nt_split_k(das, qws, sws, pres=None, *,
+                                prologue: str = "fold",
+                                want_g: bool = False,
+                                block_k: int = 512):
+    """K5 over a K split across tensor-parallel shards (the column
+    parallel layer's dgrad): ``das[j]`` [M, K / n] (and ``pres[j]`` for
+    ``dgelu_fold``), ``qws[j]`` [N, K / n] / ``sws[j]`` [1, K / n] the
+    forward's quantized weight of shard ``j``.  Returns ``(partials,
+    gs)``: each shard's fp32 ``acc_j`` [M, N] (their sum rounded once is
+    the unsharded K5's dx) and, with ``want_g``, its g in da.dtype.  One
+    K5 call a shard on CUDA tensors."""
+    global nt_launches
+    codes, bk = split_k_codes(
+        das, block_k, pres if prologue == "dgelu_fold" else None, sws,
+        want_g=want_g)
+    out = []
+    for (q, sx, _), qw in zip(codes, qws):
+        out.append(blocked_gemm(q, sx, qw, bk, out_dtype=torch.float32))
+        if q.device.type != "cpu":
+            nt_launches += 1
+    return out, [g for _, _, g in codes]
 
 
 def transpose_s8(w):

@@ -16,7 +16,10 @@ Counterpart of ``distributed_tensorflow_tpu/ops/quant_train.py``:
   dgrad, the forward's quantized weights reused by the backward as they
   are.  Taken when :func:`use_fused_mlp` admits the shapes;
 - :class:`Int8Dense`: the port's ``Dense`` with its matmul routed through
-  :func:`int8_matmul`; same parameters, so checkpoints are shared.
+  :func:`int8_matmul`; same parameters, so checkpoints are shared;
+- beside tensor parallelism: :func:`int8_matmul_column`,
+  :func:`int8_matmul_row` and :func:`int8_gelu_mlp_tp`, the shards of
+  the unsharded functions (the scales that span a split taken whole).
 
 Around the kernels everything is plain PyTorch, as it is XLA in the JAX
 package: the weight quantization, the per-row quantization and int8
@@ -28,6 +31,7 @@ from __future__ import annotations
 import torch
 
 from ..models.gpt import Dense
+from ..parallel.sharding import shard_dim
 from . import quant_matmul as qmm
 from .quant_matmul import (quantize_cols, quantized_matmul,
                            quantized_matmul_nt, supported)
@@ -206,6 +210,222 @@ def int8_gelu_mlp_res(x: torch.Tensor, w_in: torch.Tensor,
     return _fused(x, w_in, b_in, w_out, b_out, res)
 
 
+# ------------------------------------------------- beside tensor parallelism
+#
+# Under tensor parallelism the JAX package's GSPMD partitions the unsharded
+# program, so the shards compute its global function.  The port's shards
+# therefore take every scale that spans the split from the whole: a row's
+# amax over a K split across shards, a column's amax over a weight's rows
+# split across shards, a K-block's over the shards it spans
+# (``quant_matmul.split_k_codes``).  Products over a split K are summed
+# before their one rescale (int32, exact, in the per-row formulation) or
+# as fp32 partials before the one bias and rounding (the fused MLP's
+# K-blocks); the fused MLP's gate is taken on the global shapes.
+
+
+def _rows_scale(parts) -> torch.Tensor:
+    """:func:`_quant_rows`'s scales [M, 1] of the matrix whose columns
+    are ``parts`` (shards, in order): each row's amax over all of them."""
+    home = parts[0].device
+    amax = torch.stack([p.to(home, torch.float32).abs().amax(dim=-1)
+                        for p in parts]).amax(dim=0)
+    return qmm._scale(amax[:, None])
+
+
+def _quant_with(x: torch.Tensor, s: torch.Tensor) -> torch.Tensor:
+    return torch.clamp(torch.round(x.to(torch.float32) / s.to(x.device)),
+                       -127, 127).to(torch.int8)
+
+
+def _no_fused_kernel() -> None:
+    if FUSED_KERNEL_IN_STEP:
+        raise NotImplementedError(
+            "FUSED_KERNEL_IN_STEP beside tensor parallelism: the per-row "
+            "int8 matmuls' fused kernel takes no given scales")
+
+
+class _Int8Column(torch.autograd.Function):
+    """:func:`int8_matmul` of a replicated ``x`` [M, K] against a weight
+    split on its output columns (``ws[j]`` [K, N / n]): each shard's
+    forward is the unsharded one's columns; the dgrad quantizes the
+    incoming gradient's rows and the weight's columns over the WHOLE N
+    and sums the shards' int32 products exactly, so dx is the unsharded
+    dx bit for bit."""
+
+    @staticmethod
+    def forward(ctx, x, *ws):
+        ctx.save_for_backward(x, *ws)
+        return tuple(_int8_fwd(x.to(w.device), w) for w in ws)
+
+    @staticmethod
+    def backward(ctx, *gs):
+        x, *ws = ctx.saved_tensors
+        home = x.device
+        gs = [torch.zeros(x.shape[0], w.shape[1], dtype=x.dtype,
+                          device=w.device) if g is None else g
+              for g, w in zip(gs, ws)]
+        sg = _rows_scale(gs)
+        swt = qmm.col_scales([w.t() for w in ws])
+        acc = None
+        for g, w in zip(gs, ws):
+            part = _i8_dot(_quant_with(g, sg), _quant_with(w.t(), swt)
+                           ).to(home)
+            acc = part if acc is None else acc + part
+        dx = (acc.to(torch.float32) * sg * swt.to(home)).to(x.dtype)
+        return (dx, *(_wgrad(x.to(g.device), g).to(w.dtype)
+                      for g, w in zip(gs, ws)))
+
+
+class _Int8Row(torch.autograd.Function):
+    """:func:`int8_matmul` of ``x`` split on its K (``xs[j]`` [M, K / n])
+    against the weight's matching rows (``ws[j]`` [K / n, N]): rows and
+    columns quantized with the whole K's scales, the shards' int32
+    products summed exactly and rescaled once, so the output is the
+    unsharded one bit for bit (no bias: the caller adds it once).  The
+    dgrad and wgrad are each shard's own (N is whole)."""
+
+    @staticmethod
+    def forward(ctx, n: int, *args):
+        xs, ws = args[:n], args[n:]
+        ctx.save_for_backward(*xs, *ws)
+        ctx.n = n
+        home = xs[0].device
+        sx = _rows_scale(xs)
+        sw = qmm.col_scales(ws)
+        acc = None
+        for x, w in zip(xs, ws):
+            part = _i8_dot(_quant_with(x, sx.to(x.device)),
+                           _quant_with(w, sw)).to(home)
+            acc = part if acc is None else acc + part
+        return (acc.to(torch.float32) * sx * sw.to(home)).to(xs[0].dtype)
+
+    @staticmethod
+    def backward(ctx, g):
+        saved = ctx.saved_tensors
+        xs, ws = saved[:ctx.n], saved[ctx.n:]
+        dxs, dws = [], []
+        for x, w in zip(xs, ws):
+            gj = g.to(w.device)
+            qg, sg = _quant_rows(gj)
+            qwt, swt = quantize_cols(w.t())
+            dxs.append((_i8_dot(qg, qwt).to(torch.float32) * sg * swt
+                        ).to(x.dtype))
+            dws.append(_wgrad(x, gj).to(w.dtype))
+        return (None, *dxs, *dws)
+
+
+def int8_matmul_column(x: torch.Tensor, ws: list) -> tuple:
+    """:func:`int8_matmul` of ``x`` [M, K] against the column shards
+    ``ws`` of a weight: each shard's output, on its device (the unsharded
+    function's columns; its dgrad the unsharded one's)."""
+    _no_fused_kernel()
+    if torch.is_grad_enabled() and (x.requires_grad
+                                    or any(w.requires_grad for w in ws)):
+        return _Int8Column.apply(x, *ws)
+    return tuple(_int8_fwd(x.to(w.device), w) for w in ws)
+
+
+def int8_matmul_row(xs: list, ws: list) -> torch.Tensor:
+    """:func:`int8_matmul` of the K shards ``xs`` against the weight's row
+    shards ``ws``: the whole product on the first shard's device (no
+    bias)."""
+    _no_fused_kernel()
+    return _Int8Row.apply(len(xs), *xs, *ws)
+
+
+def _mlp_tp_fwd(x, w_in, b_in, w_out, b_out, res=None):
+    """The fused MLP's forward over ``n`` shards of its width (``w_in[j]``
+    [H, I / n] with ``b_in[j]``, ``w_out[j]`` [I / n, H]; ``b_out`` [H]
+    whole): ``mlp_in`` through K4 a shard (x replicated, the scales local),
+    ``mlp_out`` through K4 a shard on its K part with the whole I's column
+    scales and K-blocks, fp32 partials summed, the bias (and ``res``, the
+    fused residual) added once.  Returns (y, saved)."""
+    home = x.device
+    qwi, swi, a, pre = [], [], [], []
+    for wi, bi in zip(w_in, b_in):
+        q, sw = quantize_cols(wi)
+        aj, pj = quantized_matmul(x.to(wi.device), q, sw, bi,
+                                  activation="gelu", want_preact=True)
+        qwi.append(q)
+        swi.append(sw)
+        a.append(aj)
+        pre.append(pj)
+    swo = qmm.col_scales(w_out)
+    qwo = [quantize_cols(w, swo)[0] for w in w_out]
+    parts = qmm.quantized_matmul_split_k(a, qwo, swo, block_k=1024)
+    acc = None
+    for p in parts:
+        acc = p.to(home) if acc is None else acc + p.to(home)
+    y = acc + b_out.reshape(1, -1).to(home, torch.float32)
+    if res is not None:
+        y = y + res.to(home, torch.float32)
+    return y.to(x.dtype), (x, qwi, swi, a, pre, qwo, swo)
+
+
+def _mlp_tp_bwd(saved, gy):
+    """The fused MLP's backward over the shards: (dx, dw_in, db_in,
+    dw_out, db_out), the weight gradients per shard."""
+    x, qwi, swi, a, pre, qwo, swo = saved
+    home = x.device
+    da, dw_out = [], []
+    for aj, qw in zip(a, qwo):
+        gj = gy.to(aj.device)
+        da.append(quantized_matmul_nt(gj, qw, swo.to(aj.device),
+                                      block_k=1024))
+        dw_out.append(_wgrad(aj, gj))
+    db_out = gy.to(torch.float32).sum(dim=0)
+    parts, gs = qmm.quantized_matmul_nt_split_k(
+        da, qwi, swi, pre, prologue="dgelu_fold", want_g=True)
+    acc = None
+    for p in parts:
+        acc = p.to(home) if acc is None else acc + p.to(home)
+    dx = acc.to(gy.dtype)
+    dw_in = [_wgrad(x.to(g.device), g) for g in gs]
+    db_in = [g.to(torch.float32).sum(dim=0) for g in gs]
+    return dx, dw_in, db_in, dw_out, db_out
+
+
+class _Int8GeluMlpTp(torch.autograd.Function):
+    """:class:`_Int8GeluMlp` over tensor-parallel shards of the width."""
+
+    @staticmethod
+    def forward(ctx, n: int, x, b_out, res, *shards):
+        w_in, b_in, w_out = shards[:n], shards[n:2 * n], shards[2 * n:]
+        y, saved = _mlp_tp_fwd(x, w_in, b_in, w_out, b_out, res)
+        ctx.has_res = res is not None
+        ctx.saved = saved
+        ctx.dtypes = ([w.dtype for w in w_in], [b.dtype for b in b_in],
+                      [w.dtype for w in w_out], b_out.dtype)
+        return y
+
+    @staticmethod
+    def backward(ctx, gy):
+        dx, dw_in, db_in, dw_out, db_out = _mlp_tp_bwd(ctx.saved, gy)
+        ctx.saved = None
+        wi_t, bi_t, wo_t, bo_t = ctx.dtypes
+        return (None, dx, db_out.to(bo_t), gy if ctx.has_res else None,
+                *(d.to(t) for d, t in zip(dw_in, wi_t)),
+                *(d.to(t) for d, t in zip(db_in, bi_t)),
+                *(d.to(t) for d, t in zip(dw_out, wo_t)))
+
+
+def int8_gelu_mlp_tp(x: torch.Tensor, w_in: list, b_in: list, w_out: list,
+                     b_out: torch.Tensor, res: torch.Tensor | None = None
+                     ) -> torch.Tensor:
+    """:func:`int8_gelu_mlp` with its width split over tensor-parallel
+    shards (``w_in`` column shards [H, I / n] with their ``b_in``,
+    ``w_out`` row shards [I / n, H], ``b_out`` whole): the unsharded
+    function up to fp32 re-association, K4 and K5 per shard.  The caller
+    gates on :func:`use_fused_mlp` of the GLOBAL (M, H, I); ``res``: the
+    residual fused in, as :func:`int8_gelu_mlp_res`."""
+    n = len(w_in)
+    args = (x, b_out, res, *w_in, *b_in, *w_out)
+    if torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad for t in args):
+        return _Int8GeluMlpTp.apply(n, *args)
+    return _mlp_tp_fwd(x, w_in, b_in, w_out, b_out, res)[0]
+
+
 class Int8Dense(Dense):
     """:class:`..models.gpt.Dense` with the matmul routed through
     :func:`int8_matmul`: the same parameters (``kernel`` [in, features],
@@ -214,7 +434,14 @@ class Int8Dense(Dense):
     stored dtype (fp32 masters when training), re-quantized at every call;
     the input is cast to the compute dtype."""
 
+    int8_tp = True
+
+    def int8_weight(self, kernel: torch.Tensor, dtype) -> torch.Tensor:
+        return kernel                  # quantized from its stored dtype
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if shard_dim(self, "kernel") is not None:
+            return super().forward(x)
         lead = x.shape[:x.dim() - len(self.in_shape)]
         y = int8_matmul(x.reshape(-1, self.fan_in).to(self.dtype),
                         self.kernel.reshape(self.fan_in, -1))

@@ -26,7 +26,7 @@ axis shards it.
 
 **One replica a task.**  The trainer builds R = 1 per worker process (the
 port's rule since the sync slice: one data replica a task, ROADMAP.md,
-"PyTorch port"); the workers average across processes through
+ground rules, Devices); the workers average across processes through
 :mod:`..cluster.param_sync`.  At R = 1 the merge is skipped (a copy's mean
 is itself), so the loop costs nothing on the device.  The functions take
 ``num_replicas`` explicitly; the CPU tests use R = 8, JAX's 8-device CPU

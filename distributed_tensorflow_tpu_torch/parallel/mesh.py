@@ -8,7 +8,7 @@ every position of it (single controller, as a JAX program over a mesh):
 
 - ``data``  — data parallelism (batch axis)
 - ``seq``   — sequence/context parallelism (ring and ulysses attention)
-- ``pipe``  — pipeline parallelism (kept at size 1: ROADMAP.md, slice 8c)
+- ``pipe``  — pipeline parallelism (layer stages: :mod:`.pipeline`)
 - ``expert``— expert parallelism (kept at size 1: ROADMAP.md, item 7)
 - ``model`` — tensor parallelism (heads and hidden columns, Megatron's
   layout: :mod:`.sharding`, ``models/gpt.py``)
@@ -23,10 +23,11 @@ path is the same.
 replicas are the sync trainer's worker processes (one replica a worker,
 the reference's ``num_workers``), so a worker's mesh is ``data=1 x seq x
 model``: the trainer lays those positions over the worker's cards round
-robin (:func:`worker_positions`).  FSDP (slice 8b), the pipeline (8c),
-the DCN factor and data shards inside one process beside tensor
-parallelism (8d) and experts (item 7) raise ``NotImplementedError``
-naming ROADMAP.md's entry.  :func:`save_run_profile` /
+robin (:func:`worker_positions`).  FSDP shards over those worker
+processes (:func:`.sharding.fsdp_state`), not over in-process
+positions.  The DCN factor and data shards inside one process beside
+tensor parallelism (slice 8d) and experts (item 7) raise
+``NotImplementedError`` naming ROADMAP.md's entry.  :func:`save_run_profile` /
 :func:`load_run_profile` write and read the JAX package's run-profile
 JSON.
 """
@@ -82,6 +83,16 @@ class Mesh:
         index[self.axis_names.index(MODEL_AXIS)] = model
         return self.devices[tuple(index)]
 
+    def pipe_devices(self) -> list:
+        """The device of each pipe coordinate (every other axis at 0):
+        where stage ``s`` of a pipeline lives (:mod:`.pipeline`)."""
+        index = [0] * self.devices.ndim
+        out = []
+        for s in range(self.shape[PIPE_AXIS]):
+            index[self.axis_names.index(PIPE_AXIS)] = s
+            out.append(self.devices[tuple(index)])
+        return out
+
     def model_devices(self) -> list:
         """The device of each model coordinate (data, seq, pipe and
         expert at 0): where a parameter's shard ``j`` lives."""
@@ -107,10 +118,8 @@ def create_mesh(data: int = -1, model: int = 1, seq: int = 1,
     list may name one device more than once: ``create_mesh(seq=4,
     devices=[cuda0] * 4)`` runs four sequence shards on one card, and the
     CPU tests build ``devices=[cpu] * 8``.  JAX's ``create_mesh``
-    requires distinct devices.  ``pipe``/``expert`` > 1 and ``dcn_data``
-    > 1 raise (not ported)."""
-    if pipe > 1:
-        raise _roadmap(f"the pipe axis (pipe={pipe})", "item 6, slice 8c")
+    requires distinct devices.  ``expert`` > 1 and ``dcn_data`` > 1
+    raise (not ported)."""
     if expert > 1:
         raise _roadmap(f"the expert axis (expert={expert})", "item 7")
     if dcn_data > 1:

@@ -21,8 +21,15 @@ as the JAX package's slots follow their parameter's path;
 dicts between the shard names and the whole names, so a checkpoint holds
 whole arrays in the JAX layout.
 
-FSDP (``fsdp_state``, sharding over ``data``) is slice 8b: the spec
-functions are here, the placement raises.
+FSDP (:func:`fsdp_state`, ZeRO-3 over ``data``): the data axis is the
+sync trainer's worker processes, so each worker keeps its own slice of
+every large parameter (and of its optimizer slots and moving average)
+along the dimension JAX's :func:`fsdp_spec` picks, under the parameter's
+own name; :class:`FsdpExchange` all-gathers them whole for a step and
+reduce-scatters the gradients back (``parallel/sync.py``), and
+:func:`gather_fsdp_named` / :func:`split_fsdp_named` turn checkpoint
+trees between slices and whole arrays (the gather a collective: every
+worker calls it).
 """
 
 from __future__ import annotations
@@ -204,21 +211,32 @@ def split_named(model: nn.Module, named: dict) -> dict:
 
 def _model_dim(mesh: Mesh, spec: P) -> int | None:
     """The dimension ``spec`` puts on a non-trivial ``model`` axis (None:
-    the leaf is replicated); any other axis it names must have size 1."""
+    the leaf is replicated over the mesh).  ``data`` is the worker
+    processes (:func:`fsdp_state` splits over it, not this mesh); any
+    other axis it names must have size 1."""
     dim = None
     for i, entry in enumerate(spec):
         if entry is None:
             continue
         for axis in entry if isinstance(entry, tuple) else (entry,):
-            if mesh.shape[axis] == 1:
+            if mesh.shape[axis] == 1 or axis == DATA_AXIS:
                 continue
             if axis != MODEL_AXIS:
                 raise NotImplementedError(
-                    f"sharding a parameter over the {axis!r} axis is not "
-                    "ported yet; see ROADMAP.md, section 1, item 6, slice "
-                    "8b")
+                    f"sharding a parameter over the {axis!r} axis in one "
+                    "process is not ported yet; see ROADMAP.md, section 1, "
+                    "item 7")
             dim = i
     return dim
+
+
+def _data_dim(spec: P) -> int | None:
+    """The dimension ``spec`` puts on ``data`` (None: not sharded)."""
+    for i, entry in enumerate(spec):
+        if entry is not None and DATA_AXIS in (
+                entry if isinstance(entry, tuple) else (entry,)):
+            return i
+    return None
 
 
 def _owner(model: nn.Module, name: str):
@@ -414,9 +432,258 @@ class FsdpRules(ShardingRules):
                          min_size=self._min_size)
 
 
+@dataclasses.dataclass(frozen=True)
+class FsdpInfo:
+    """One parameter's FSDP split: this worker holds piece ``rank`` of
+    ``world`` along ``dim`` of the ``shape`` (the parameter whole, or its
+    tensor-parallel shard whole), by the composed ``spec``."""
+
+    dim: int
+    world: int
+    rank: int
+    shape: tuple
+    spec: P
+
+
+def _fsdp_infos(module: nn.Module) -> dict:
+    return module.__dict__.get("fsdp_shards", {})
+
+
+def fsdp_entries(model: nn.Module) -> list:
+    """``(state_dict name, module, attribute, FsdpInfo)`` of every
+    parameter of ``model`` split over the workers, in ``named_modules``
+    order (the same on every worker)."""
+    out = []
+    for prefix, module in model.named_modules():
+        for attr, info in _fsdp_infos(module).items():
+            out.append(((f"{prefix}." if prefix else "") + attr, module,
+                        attr, info))
+    return out
+
+
+def is_fsdp(model: nn.Module) -> bool:
+    return any(_fsdp_infos(m) for m in model.modules())
+
+
+def _whole_shapes(model: nn.Module) -> dict:
+    """``{parameter name: (whole name, whole shape)}``: a tensor-parallel
+    shard maps to the parameter it splits."""
+    out = {n: (n, tuple(p.shape)) for n, p in model.named_parameters()}
+    for whole, info, names in _sharded_entries(model):
+        shape = list(out[names[0]][1])
+        shape[info.dim] *= len(names)
+        for n in names:
+            out[n] = (whole, tuple(shape))
+    return out
+
+
 def fsdp_state(mesh: Mesh, state: Any, rules: ShardingRules | None = None,
-               *, min_size: int = 2 ** 16) -> Any:
-    """ZeRO-3/FSDP placement over the ``data`` axis: not ported yet."""
-    raise NotImplementedError(
-        "FSDP placement (--fsdp) is not ported yet; see ROADMAP.md, "
-        "section 1, item 6, slice 8b")
+               *, min_size: int = 2 ** 16, group=None) -> Any:
+    """ZeRO-3/FSDP placement, IN PLACE: each parameter that
+    :class:`FsdpRules` (the tensor-parallel ``rules`` first, then the
+    largest free dim divisible by the workers, at least ``min_size``
+    elements) shards over ``data`` keeps only this worker's slice, under
+    its own name (recorded in its module's ``fsdp_shards``), and so do its
+    optimizer slots (the optimizer is rebuilt over the slices) and its
+    moving average.  ``global_step`` and the rng stay replicated.
+
+    ``data`` is the sync trainer's process ``group`` (default: the world
+    group): its size is the JAX run's global data axis, so each worker's
+    slice has the shape of JAX's ``addressable_shards[0]`` on a
+    ``data=N`` mesh.  Without a group of two or more the state stays
+    replicated, as a JAX mesh with ``data=1``.  ``rules`` with a
+    non-trivial ``model`` axis first split the state over the mesh's
+    positions (:func:`shard_state`); a tensor-parallel shard is then
+    split over the workers along the dim the composed spec gives
+    ``data`` (JAX's ``P("data", "model")``)."""
+    import torch.distributed as dist
+    if mesh.shape[DATA_AXIS] > 1:
+        raise NotImplementedError(
+            f"data={mesh.shape[DATA_AXIS]} in one process is not ported "
+            "yet (the data axis is the worker processes); see ROADMAP.md, "
+            "section 1, item 6, slice 8d")
+    if rules is not None and mesh.shape[MODEL_AXIS] > 1:
+        shard_state(mesh, state, rules)
+    else:
+        replicate_state(mesh, state)
+    world = (dist.get_world_size(group)
+             if dist.is_available() and dist.is_initialized() else 1)
+    if world < 2:
+        return state
+    if is_fsdp(state.model):
+        raise ValueError("the state's parameters are FSDP-sharded already")
+    from ..training.state import param_paths
+    rank = dist.get_rank(group)
+    model = state.model
+    fsdp = FsdpRules(rules, world, min_size=min_size)
+    named = dict(model.named_parameters())
+    wholes = _whole_shapes(model)
+    paths = param_paths({w for w, _ in wholes.values()},
+                        state.params_to_tree)
+    slots = _named_slots(state)
+    with torch.no_grad():
+        for name, p in named.items():
+            whole, shape = wholes[name]
+            spec = fsdp._fitted(mesh, paths[whole],
+                                torch.empty(shape, device="meta"), None)
+            dim = _data_dim(spec)
+            if dim is None:
+                continue
+            module, attr = _owner(model, name)
+            module._parameters[attr] = nn.Parameter(
+                p.chunk(world, dim=dim)[rank].clone(),
+                requires_grad=p.requires_grad)
+            module.__dict__.setdefault("fsdp_shards", {})[attr] = FsdpInfo(
+                dim, world, rank, tuple(p.shape), spec)
+            if name in slots:
+                slots[name] = {k: _slot_piece(v, p.shape, world, dim, rank,
+                                              p.device)
+                               for k, v in slots[name].items()}
+            if state.ema_params is not None:
+                state.ema_params[name] = state.ema_params[name].chunk(
+                    world, dim=dim)[rank].clone()
+    _rebuild_optimizer(state, slots)
+    return state
+
+
+class FsdpExchange:
+    """The FSDP step's collectives over the workers' process group, one
+    flat fp32 buffer each: :meth:`gather` all-gathers every split
+    parameter whole and swaps it in (as a leaf parameter the step's
+    backward fills), :meth:`scatter` reduce-scatters the whole gradients
+    back, as the mean over the workers, into each slice's ``.grad`` and
+    swaps the slices back, releasing the whole tensors.  ``gather_s`` /
+    ``scatter_s`` and ``calls`` accumulate each collective's time (the
+    buffer's device work waited for first), as
+    ``parallel/sync.GradientAllReduce`` times its own."""
+
+    def __init__(self, model: nn.Module, group=None):
+        import torch.distributed as dist
+        self._dist = dist
+        self.group = group
+        self.entries = fsdp_entries(model)
+        self.world = self.entries[0][3].world if self.entries else 1
+        self.gather_s = self.scatter_s = 0.0
+        self.calls = 0
+        self._held = None
+
+    def _sync(self, t: torch.Tensor) -> None:
+        if t.is_cuda:
+            torch.cuda.synchronize(t.device)
+
+    def _all_gather(self, slices: list) -> list:
+        """The whole tensors of ``slices`` (one per entry, this worker's)."""
+        import time
+        if not slices:
+            return []
+        home = slices[0].device
+        flat = torch.cat([s.detach().reshape(-1).to(home, torch.float32)
+                          for s in slices])
+        out = torch.empty(self.world * flat.numel(), dtype=flat.dtype,
+                          device=home)
+        self._sync(flat)
+        t0 = time.perf_counter()
+        self._dist.all_gather_into_tensor(out, flat, group=self.group)
+        self._sync(out)
+        self.gather_s += time.perf_counter() - t0
+        out = out.view(self.world, -1)
+        wholes, offset = [], 0
+        for s, (_, _, _, info) in zip(slices, self.entries):
+            n = s.numel()
+            wholes.append(torch.cat(
+                [out[r, offset:offset + n].view(s.shape)
+                 for r in range(self.world)], dim=info.dim).to(s.device,
+                                                                 s.dtype))
+            offset += n
+        return wholes
+
+    def gather(self) -> None:
+        slices = [m._parameters[a] for _, m, a, _ in self.entries]
+        wholes = self._all_gather(slices)
+        for (_, module, attr, _), s, w in zip(self.entries, slices, wholes):
+            module._parameters[attr] = nn.Parameter(
+                w, requires_grad=s.requires_grad)
+        self._held = slices
+
+    def scatter(self, scale: float = 1.0) -> None:
+        """Each slice's ``.grad``: its piece of the whole gradient, summed
+        over the workers, times ``scale``; the slices swapped back."""
+        import time
+        slices, self._held = self._held, None
+        if not slices:
+            return
+        wholes = [m._parameters[a] for _, m, a, _ in self.entries]
+        try:
+            home = slices[0].device
+            pieces = [[] for _ in range(self.world)]
+            for w, (_, _, _, info) in zip(wholes, self.entries):
+                g = (w.grad if w.grad is not None
+                     else torch.zeros_like(w)).to(home, torch.float32)
+                for r, part in enumerate(g.chunk(self.world, dim=info.dim)):
+                    pieces[r].append(part.reshape(-1))
+            flat = torch.cat([torch.cat(p) for p in pieces])
+            out = torch.empty(flat.numel() // self.world, dtype=flat.dtype,
+                              device=home)
+            self._sync(flat)
+            t0 = time.perf_counter()
+            self._dist.reduce_scatter_tensor(out, flat, group=self.group)
+            self._sync(out)
+            self.scatter_s += time.perf_counter() - t0
+            self.calls += 1
+            if scale != 1.0:
+                out.mul_(scale)
+            offset = 0
+            for s in slices:
+                n = s.numel()
+                s.grad = out[offset:offset + n].view(s.shape).to(s.device,
+                                                                 s.dtype)
+                offset += n
+        finally:
+            for (_, module, attr, _), s in zip(self.entries, slices):
+                module._parameters[attr] = s
+
+    def gather_named(self, named: dict) -> dict:
+        """``{name: tensor}`` (parameters, slots or a moving average by
+        parameter name) with every split entry's slice replaced by the
+        whole tensor: a collective, every worker calls it."""
+        out = dict(named)
+        present = [e for e in self.entries if e[0] in out]
+        if len(present) != len(self.entries):
+            raise ValueError("gather_named needs every split parameter")
+        for (name, *_), whole in zip(self.entries, self._all_gather(
+                [out[e[0]] for e in self.entries])):
+            out[name] = whole
+        return out
+
+
+def split_fsdp_named(model: nn.Module, named: dict) -> dict:
+    """Inverse of :meth:`FsdpExchange.gather_named`: each split entry's
+    whole tensor cut to this worker's slice (no collective)."""
+    out = dict(named)
+    for name, _, _, info in fsdp_entries(model):
+        if name in out:
+            out[name] = out[name].chunk(info.world, dim=info.dim)[info.rank]
+    return out
+
+
+class fsdp_gathered:
+    """``with fsdp_gathered(model):`` the split parameters whole for the
+    block (evaluation, a digest), the slices back after it; a collective
+    on entry, every worker enters it.  A no-op for a model without
+    FSDP splits."""
+
+    def __init__(self, model: nn.Module, group=None):
+        self.exchange = FsdpExchange(model, group) if is_fsdp(model) else None
+
+    def __enter__(self):
+        if self.exchange is not None:
+            self.exchange.gather()
+        return self
+
+    def __exit__(self, *exc):
+        if self.exchange is not None:
+            slices, self.exchange._held = self.exchange._held, None
+            for (_, module, attr, _), s in zip(self.exchange.entries,
+                                               slices):
+                module._parameters[attr] = s
+        return False

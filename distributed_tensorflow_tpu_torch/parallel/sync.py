@@ -104,16 +104,19 @@ class GradientAllReduce:
 
 
 def _reduce_step(state: TrainState, loss: torch.Tensor, aux: dict,
-                 reduce: GradientAllReduce | None, scale: float
-                 ) -> tuple[torch.Tensor, dict]:
+                 reduce: GradientAllReduce | None, scale: float,
+                 skip=frozenset()) -> tuple[torch.Tensor, dict]:
     """Sum the gradients, the loss and the tensor aux metrics across the
-    ranks and multiply them by ``scale`` (1 / the number of terms)."""
-    for p in state.optimizer.params:
+    ranks and multiply them by ``scale`` (1 / the number of terms).
+    ``skip``: parameters whose gradients are reduced already (FSDP's
+    slices, reduce-scattered)."""
+    params = [p for p in state.optimizer.params if p not in skip]
+    for p in params:
         # Every rank reduces the same buffer layout: a parameter this
         # batch did not reach has a zero gradient (optax's semantics too).
         if p.grad is None:
             p.grad = torch.zeros_like(p)
-    grads = [p.grad for p in state.optimizer.params]
+    grads = [p.grad for p in params]
     keys = [k for k, v in aux.items() if torch.is_tensor(v)]
     scalars = torch.stack([loss.detach().float()]
                           + [aux[k].detach().float() for k in keys])
@@ -127,13 +130,14 @@ def _reduce_step(state: TrainState, loss: torch.Tensor, aux: dict,
 
 
 def _finish(state: TrainState, loss, aux, ema_decay: float,
-            log_grad_norm: bool) -> dict:
+            log_grad_norm: bool, fsdp: "FsdpStep | None" = None) -> dict:
     metrics = {"loss": loss.detach(),
                **{k: v.detach() if torch.is_tensor(v) else v
                   for k, v in aux.items()}}
     if log_grad_norm:
-        metrics["grad_norm"] = global_norm(
-            p.grad for p in state.optimizer.params if p.grad is not None)
+        metrics["grad_norm"] = (fsdp.grad_norm(state) if fsdp is not None
+                                else global_norm(
+            p.grad for p in state.optimizer.params if p.grad is not None))
     state.apply_gradients()
     if ema_decay > 0.0:
         _ema_update(ema_decay, state)
@@ -141,25 +145,84 @@ def _finish(state: TrainState, loss, aux, ema_decay: float,
     return metrics
 
 
+class FsdpStep:
+    """An FSDP state's collectives around a step
+    (``parallel/sharding.FsdpExchange``): the split parameters gathered
+    whole before the forward; after the backward their gradients
+    reduce-scattered to each worker's slice as the mean over the workers
+    (the sync step's all-reduce gives the same mean), the whole tensors
+    released, and the rest of the gradients all-reduced as usual.  Built
+    once per model (``for_state``)."""
+
+    def __init__(self, model):
+        from .sharding import FsdpExchange
+        self.model = model
+        self.exchange = FsdpExchange(model)
+        self.slices = frozenset(m._parameters[a]
+                                for _, m, a, _ in self.exchange.entries)
+
+    @classmethod
+    def for_state(cls, state, cache: dict, reduce):
+        from .sharding import is_fsdp
+        if not isinstance(state, TrainState) or not is_fsdp(state.model):
+            return None
+        if reduce is None:
+            raise ValueError("an FSDP state's step needs all_reduce (a "
+                             "GradientAllReduce over the workers' group)")
+        held = cache.get("fsdp")
+        if held is None or held.model is not state.model:
+            held = cache["fsdp"] = cls(state.model)
+        return held
+
+    def grad_norm(self, state) -> torch.Tensor:
+        """The global L2 norm of the (reduced) gradients: the slices'
+        squares summed over the workers, the replicated ones' once."""
+        import torch.distributed as dist
+        sq = [p.grad.float().pow(2).sum() for p in self.slices
+              if p.grad is not None]
+        own = torch.stack(sq).sum() if sq else torch.zeros(())
+        dist.all_reduce(own)
+        rest = [p.grad.float().pow(2).sum() for p in state.optimizer.params
+                if p not in self.slices and p.grad is not None]
+        total = own + (torch.stack(rest).sum().to(own.device) if rest
+                       else 0.0)
+        return total.sqrt()
+
+
 def _one_update(loss_fn: LossFn, needs_rng: bool, ema_decay: float,
                 log_grad_norm: bool, reduce: GradientAllReduce | None):
     """Per-batch gradient (mean across ranks) and optimizer update, shared
-    by the plain and scanned builders."""
+    by the plain and scanned builders.  An FSDP state (its parameters
+    split over the workers) runs its gather and reduce-scatter around the
+    forward and backward (:class:`FsdpStep`)."""
     scale = 1.0 / reduce.world_size if reduce is not None else 1.0
+    cache: dict = {}
 
     def update(state: TrainState, batch: Any):
         model = state.model
         model.train()
         state.optimizer.zero_grad()
-        if needs_rng:
-            loss, aux = loss_fn(model, batch, state.rng)
-        else:
-            loss, aux = loss_fn(model, batch)
-        loss.backward()
+        fsdp = FsdpStep.for_state(state, cache, reduce)
+        if fsdp is not None:
+            fsdp.exchange.gather()
+        try:
+            if needs_rng:
+                loss, aux = loss_fn(model, batch, state.rng)
+            else:
+                loss, aux = loss_fn(model, batch)
+            loss.backward()
+        finally:
+            if fsdp is not None:
+                fsdp.exchange.scatter(scale)
         if reduce is not None:
-            loss, aux = _reduce_step(state, loss, aux, reduce, scale)
-        return state, _finish(state, loss, aux, ema_decay, log_grad_norm)
+            loss, aux = _reduce_step(state, loss, aux, reduce, scale,
+                                     fsdp.slices if fsdp else frozenset())
+        return state, _finish(state, loss, aux, ema_decay, log_grad_norm,
+                              fsdp)
 
+    # ``update.cache["fsdp"]``: an FSDP state's FsdpStep (its exchange's
+    # gather and reduce-scatter times), once the first step built it.
+    update.cache = cache
     return update
 
 
@@ -225,6 +288,7 @@ def build_accumulating_sync_train_step(
         raise ValueError(f"accum_steps must be >= 1, got {accum_steps}")
     world = all_reduce.world_size if all_reduce is not None else 1
     scale = 1.0 / (accum_steps * world)
+    cache: dict = {}
 
     def step(state: TrainState, batches: Any):
         model = state.model
@@ -232,6 +296,9 @@ def build_accumulating_sync_train_step(
         state.optimizer.zero_grad()
         loss_sum = None
         aux_sum: dict = {}
+        fsdp = FsdpStep.for_state(state, cache, all_reduce)
+        if fsdp is not None:
+            fsdp.exchange.gather()
         for i in range(accum_steps):
             batch = _index(batches, i)
             if needs_rng:
@@ -244,9 +311,12 @@ def build_accumulating_sync_train_step(
             for k, v in aux.items():
                 v = v.detach() if torch.is_tensor(v) else v
                 aux_sum[k] = v if k not in aux_sum else aux_sum[k] + v
+        if fsdp is not None:
+            fsdp.exchange.scatter(scale)
         loss, aux = _reduce_step(state, loss_sum, aux_sum, all_reduce,
-                                 scale)
-        return state, _finish(state, loss, aux, ema_decay, log_grad_norm)
+                                 scale, fsdp.slices if fsdp else frozenset())
+        return state, _finish(state, loss, aux, ema_decay, log_grad_norm,
+                              fsdp)
 
     return step
 

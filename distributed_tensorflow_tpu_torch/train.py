@@ -129,13 +129,24 @@ flags.DEFINE_integer("bert_seq_len", 128,
 flags.DEFINE_string("bert_dtype", "bfloat16",
                     "Activation dtype: bfloat16 | float32")
 flags.DEFINE_integer("pipeline_parallel", 1,
-                     "A pipelined run's pipe size (its checkpoint "
+                     "Size of the 'pipe' mesh axis (gpt_mini's decoder "
+                     "blocks as pipeline stages over the worker's "
+                     "positions; also a pipelined run's checkpoint "
                      "namespace)")
 flags.DEFINE_integer("pipeline_virtual_stages", 2,
-                     "An interleaved run's virtual stages (its namespace "
-                     "and tree layout)")
+                     "Model chunks per pipe position with "
+                     "--pipeline_schedule=interleaved (Megatron virtual "
+                     "pipeline stages; needs --pipeline_microbatches "
+                     "divisible by --pipeline_parallel)")
+flags.DEFINE_integer("pipeline_microbatches", 4,
+                     "Microbatches per pipeline step (the batch must "
+                     "divide into them)")
 flags.DEFINE_string("pipeline_schedule", "gpipe",
-                    "A pipelined run's schedule: gpipe | 1f1b | interleaved")
+                    "Pipeline schedule: gpipe (autograd through the "
+                    "ticks) | 1f1b (hand-rolled backward, activation "
+                    "stash bounded by the pipe depth) | interleaved "
+                    "(1F1B over --pipeline_virtual_stages chunks a "
+                    "position)")
 flags.DEFINE_string("gpt_positions", "learned",
                     "Position encoding: learned | rope")
 flags.DEFINE_string("gpt_activation", "gelu",
@@ -236,6 +247,13 @@ flags.DEFINE_float("ema_decay", 0.0,
                    "evaluation and the final test use it (sync only)")
 flags.DEFINE_boolean("log_sharding", False,
                      "Print each parameter's placement at startup")
+flags.DEFINE_boolean("fsdp", False,
+                     "ZeRO-3/FSDP: shard each large parameter, its "
+                     "optimizer slots and moving average over the sync "
+                     "workers (the data axis), gathered for each step")
+flags.DEFINE_integer("fsdp_min_size", 65536,
+                     "FSDP: leaves smaller than this many elements stay "
+                     "replicated")
 flags.DEFINE_boolean("graceful_shutdown", True,
                      "On SIGTERM/SIGINT: finish the step, checkpoint, exit")
 flags.DEFINE_integer("prefetch", 2,
@@ -320,10 +338,7 @@ flags.DEFINE_integer("sequence_parallel", 1,
                      "parallelism; pairs with --attention_backend=ring "
                      "or ulysses)")
 _UNPORTED_FLAGS = (
-    ("integer", "pipeline_microbatches", 4, "item 6, slice 8c"),
     ("boolean", "sharded_feed", True, "item 6, slice 8d"),
-    ("boolean", "fsdp", False, "item 6, slice 8b"),
-    ("integer", "fsdp_min_size", 65536, "item 6, slice 8b"),
     ("integer", "dcn_data_parallel", 1, "item 6, slice 8d"),
     ("integer", "expert_parallel", 1, "item 7"),
     ("integer", "num_experts", 4, "item 7"),
@@ -531,19 +546,47 @@ def _kernel_launches() -> dict:
 
 
 def _validate_parallel_flags() -> None:
-    """The JAX CLI's checks of the pipeline and expert flags, ahead of
-    those paths' ``NotImplementedError``s."""
+    """The JAX CLI's checks of the pipeline and expert flags (JAX
+    ``train.py:834-871``), with its messages, ahead of the expert axis's
+    ``NotImplementedError``."""
     if FLAGS.pipeline_parallel > 1:
+        if FLAGS.model != "gpt_mini":
+            raise ValueError(
+                f"--pipeline_parallel needs a homogeneous-block model "
+                f"(--model=gpt_mini), got --model={FLAGS.model}")
+        if FLAGS.pipeline_schedule == "interleaved":
+            if FLAGS.pipeline_virtual_stages < 2:
+                raise ValueError(
+                    f"--pipeline_schedule=interleaved needs "
+                    f"--pipeline_virtual_stages >= 2, got "
+                    f"{FLAGS.pipeline_virtual_stages}")
+            if FLAGS.pipeline_microbatches % FLAGS.pipeline_parallel:
+                raise ValueError(
+                    f"--pipeline_schedule=interleaved needs "
+                    f"--pipeline_microbatches "
+                    f"({FLAGS.pipeline_microbatches}) divisible by "
+                    f"--pipeline_parallel ({FLAGS.pipeline_parallel})")
         if FLAGS.tensor_parallel > 1:
             raise ValueError(
                 "--pipeline_parallel with --tensor_parallel is not supported")
+        if FLAGS.steps_per_call > 1 or FLAGS.grad_accum_steps > 1:
+            raise ValueError(
+                "--pipeline_parallel already microbatches internally; it is "
+                "exclusive with --steps_per_call/--grad_accum_steps")
+        if FLAGS.bert_dropout > 0:
+            raise ValueError(
+                "--bert_dropout with --pipeline_parallel is unsupported "
+                "(the pipelined stage schedule is rng-free)")
         if FLAGS.sequence_parallel > 1 or FLAGS.attention_backend in (
                 "ring", "ulysses"):
             raise ValueError(
                 "--pipeline_parallel cannot nest sequence-parallel attention "
                 "(--sequence_parallel/--attention_backend=ring|ulysses): "
                 "shard_map inside shard_map is unsupported")
-        raise _not_ported("--pipeline_parallel", "item 6, slice 8c")
+        if FLAGS.gpt_matmul_int8:
+            raise ValueError(
+                "--gpt_matmul_int8 with --pipeline_parallel is not wired "
+                "up; drop one of the two flags")
     if FLAGS.expert_parallel > 1:
         if FLAGS.model != "bert_moe":
             raise ValueError(
@@ -553,10 +596,6 @@ def _validate_parallel_flags() -> None:
             raise ValueError(
                 f"--num_experts={FLAGS.num_experts} must be divisible by "
                 f"--expert_parallel={FLAGS.expert_parallel}")
-    if FLAGS.tensor_parallel > 1 and FLAGS.model == "gpt_mini" and (
-            FLAGS.gpt_matmul_int8 or FLAGS.gpt_attn_int8):
-        raise _not_ported("--gpt_matmul_int8/--gpt_attn_int8 with "
-                          "--tensor_parallel", "item 6, slice 8b")
 
 
 def _check_unported_flags() -> None:
@@ -568,16 +607,43 @@ def _check_unported_flags() -> None:
 def _log_placement(task: int, state) -> None:
     """``--log_sharding``: each parameter's placement, in the JAX CLI's
     format (its flax path, whole shape and spec), with its devices."""
-    from .parallel.sharding import P, _sharded_entries, gather_named
+    from .parallel.sharding import P, _sharded_entries, fsdp_entries
     from .training.state import param_paths
+    from .utils.pytree import tree_paths
     model = state.model
-    whole = gather_named(model, dict(model.named_parameters()))
-    split = {name: (info.spec, [p.device for p in (
-        model.get_parameter(n) for n in names)])
-        for name, info, names in _sharded_entries(model)}
-    for name, path in param_paths(whole, state.params_to_tree).items():
-        spec, devices = split.get(name, (P(), [whole[name].device]))
-        print(f"Worker {task}: param {path} {tuple(whole[name].shape)} -> "
+    if hasattr(model, "stages"):
+        # A pipeline: the stage-stacked tree, its stages over ``pipe``.
+        spec = P(None, "pipe") if model.n_virtual > 1 else P("pipe")
+        devices = ", ".join(str(s.layers[0].ln_attn.scale.device)
+                            for s in model.stages[:model.n_pipe])
+        tree = model.params_to_tree(dict(model.named_parameters()))
+        for path, leaf in tree_paths(tree):
+            staged = path.startswith("stages/")
+            print(f"Worker {task}: param {path} {tuple(leaf.shape)} -> "
+                  f"{spec if staged else P()} on "
+                  f"{devices if staged else model.device}")
+        return
+    # An FSDP slice prints its whole shape and the composed spec (JAX's
+    # P('data', ...)); a tensor-parallel split its whole parameter.
+    fsdp = {name: info for name, _, _, info in fsdp_entries(model)}
+    shapes = {n: fsdp[n].shape if n in fsdp else tuple(p.shape)
+              for n, p in model.named_parameters()}
+    split = {n: (info.spec, [model.get_parameter(n).device])
+             for n, info in fsdp.items()}
+    for name, info, names in _sharded_entries(model):
+        shape = list(shapes.pop(names[0]))
+        shape[info.dim] *= len(names)
+        shapes[name] = tuple(shape)
+        for n in names:
+            shapes.pop(n, None)
+            split.pop(n, None)
+        split[name] = (fsdp[names[0]].spec if names[0] in fsdp else
+                       info.spec, [model.get_parameter(n).device
+                                   for n in names])
+    for name, path in param_paths(shapes, state.params_to_tree).items():
+        spec, devices = split[name] if name in split else (
+            P(), [model.get_parameter(name).device])
+        print(f"Worker {task}: param {path} {shapes[name]} -> "
               f"{spec} on {', '.join(map(str, devices))}")
 
 
@@ -792,6 +858,7 @@ def main(unused_argv):
     from .parallel import sync as sync_lib
     from .parallel import mesh as mesh_lib
     from .parallel.mesh import ParallelConfig, worker_positions
+    from .parallel.sharding import fsdp_gathered, is_fsdp
     from .training.loop import parameters_swapped, run_training_loop
     from .training.optimizers import schedule_from_flags
     from .training.preemption import ShutdownSignal
@@ -840,7 +907,7 @@ def main(unused_argv):
     device = positions = None
     if FLAGS.job_name == "worker":
         positions = worker_positions(FLAGS.device, FLAGS.task_index,
-                                     pcfg.seq * pcfg.model)
+                                     pcfg.pipe * pcfg.seq * pcfg.model)
         device = positions[0]
     # Async workers meet only at the coordination service, never in a
     # collective (reference distributed.py:102,145): a process group would
@@ -870,8 +937,10 @@ def main(unused_argv):
 
     mesh = pcfg.build_mesh(positions)
     if len(positions) > 1:
-        print(f"Worker {task}: mesh {pcfg.describe()} (seq={pcfg.seq}, "
-              f"model={pcfg.model}): {len(positions)} positions on "
+        pipe = f"pipe={pcfg.pipe}, " if pcfg.pipe > 1 else ""
+        print(f"Worker {task}: mesh {pcfg.describe()} ({pipe}"
+              f"seq={pcfg.seq}, model={pcfg.model}): {len(positions)} "
+              f"positions on "
               f"{len(set(positions))} distinct device(s) "
               f"{', '.join(map(str, positions))}")
     bundle = registry.build(FLAGS.model, FLAGS, device, mesh=mesh)
@@ -892,13 +961,33 @@ def main(unused_argv):
         print(f"Worker {task}: --trainable_params="
               f"{FLAGS.trainable_params!r} trains {n_train:,} of "
               f"{n_total:,} parameters")
+    use_pipe = FLAGS.pipeline_parallel > 1
     if FLAGS.ema_decay > 0:
+        if use_pipe:
+            raise ValueError(
+                "--ema_decay supports the plain/scanned/accumulating sync "
+                "steps only (not stateful models or pipeline mode)")
         # Seed the average at a copy of the initial weights.
         state.ema_params = {n: p.detach().clone()
                             for n, p in state.model.named_parameters()}
-    # The layout's placement: the bundle's rules over the model axis, else
-    # replicated (one set of tensors on the first position).
-    state = pcfg.place_state(mesh, state, bundle.sharding_rules)
+    if FLAGS.fsdp:
+        if bundle.place_state is not None or use_pipe:
+            raise ValueError(
+                "--fsdp is incompatible with models that own their placement "
+                "(--pipeline_parallel stages shard over the 'pipe' axis)")
+        # Only a genuinely async TRAINING run is rejected (eval mode only
+        # restores the placed state; TP forces the sync path).
+        if FLAGS.mode == "train" and not FLAGS.sync_replicas and not use_tp:
+            raise ValueError(
+                "--fsdp requires sync mode: async replicas hold independent "
+                "full parameter copies by design")
+    if bundle.place_state is not None:
+        state = bundle.place_state(mesh, state)
+    else:
+        # The layout's placement: FSDP over the workers' process group,
+        # else the bundle's rules over the model axis, else replicated
+        # (one set of tensors on the first position).
+        state = pcfg.place_state(mesh, state, bundle.sharding_rules)
     if FLAGS.log_sharding:
         _log_placement(task, state)
 
@@ -915,6 +1004,14 @@ def main(unused_argv):
         from .data.datasets import uint8_feed
         datasets = uint8_feed(datasets)
     eval_fn = bundle.make_eval_fn()
+    if is_fsdp(state.model):
+        # The split parameters gathered whole for an evaluation (every
+        # worker evaluates at the same steps: a collective).
+        sharded_eval = eval_fn
+
+        def eval_fn(st, split, _base=sharded_eval):
+            with fsdp_gathered(st.model):
+                return _base(st, split)
     if FLAGS.ema_decay > 0:
         # Evaluate the averaged weights (validation AND the final test).
         raw_eval = eval_fn
@@ -973,14 +1070,22 @@ def main(unused_argv):
     elastic_ctx: dict = {"watcher": None}
     replicas_to_aggregate = sync_lib.resolve_replicas_to_aggregate(
         FLAGS.replicas_to_aggregate, num_workers)
+    if use_pipe and not FLAGS.sync_replicas:
+        print(f"Worker {task}: pipeline parallelism requires lockstep "
+              "replicas; async mode unsupported — using sync.")
     if use_tp and not FLAGS.sync_replicas:
         print(f"Worker {task}: tensor parallelism requires lockstep "
               "replicas; async mode unsupported — using sync.")
-    sync_mode = FLAGS.sync_replicas or use_tp
-    use_masked = (sync_mode and not use_tp
+    sync_mode = FLAGS.sync_replicas or use_tp or use_pipe
+    use_masked = (sync_mode and not use_tp and not use_pipe
                   and replicas_to_aggregate < num_workers and coord is not None)
     if use_masked and FLAGS.ema_decay > 0:
         raise ValueError("--ema_decay with R<N masked sync is unsupported")
+    if use_masked and FLAGS.fsdp:
+        raise ValueError(
+            "--fsdp with R<N masked sync is unsupported (the masked "
+            "step's shard_map expects replicated parameters); use "
+            "--replicas_to_aggregate equal to the worker count")
     if use_masked and FLAGS.steps_per_call > 1:
         raise ValueError(
             "--steps_per_call > 1 is incompatible with R<N masked sync "
@@ -1074,6 +1179,11 @@ def main(unused_argv):
             bundle.loss_fn, accum_steps=FLAGS.grad_accum_steps,
             needs_rng=bundle.needs_rng, ema_decay=FLAGS.ema_decay,
             log_grad_norm=FLAGS.log_grad_norm, all_reduce=all_reduce)
+    elif bundle.train_step_builder is not None:
+        # The model supplies its own step (the 1F1B and interleaved
+        # pipelines' hand-rolled backward).
+        train_step = bundle.train_step_builder(
+            mesh, all_reduce=all_reduce, log_grad_norm=FLAGS.log_grad_norm)
     else:
         train_step = sync_lib.build_sync_train_step(
             bundle.loss_fn, needs_rng=bundle.needs_rng,
@@ -1131,6 +1241,7 @@ def main(unused_argv):
         train_step, averager, finalize_async = _async_exchange(
             state, train_step, coord, num_workers)
 
+    step_cache = getattr(train_step, "cache", {})   # an FSDP step's
     if FLAGS.inject_step_delay:
         train_step = _step_delay(FLAGS.inject_step_delay, train_step)
 
@@ -1302,6 +1413,13 @@ def main(unused_argv):
               f"({all_reduce.first_seconds * 1e3:.1f} ms), "
               f"{all_reduce.seconds / max(result.train_time, 1e-9):.4f} of "
               "the training time")
+    fsdp_step = step_cache.get("fsdp")
+    if fsdp_step is not None and fsdp_step.exchange.calls:
+        ex = fsdp_step.exchange
+        print(f"Worker {task}: fsdp all-gather "
+              f"{ex.gather_s * 1e3 / ex.calls:.4f} ms, reduce-scatter "
+              f"{ex.scatter_s * 1e3 / ex.calls:.4f} ms a step over "
+              f"{server.backend} ({len(ex.entries)} split parameters)")
     if device.type == "cuda":
         print(f"Worker {task}: peak device memory "
               f"{torch.cuda.max_memory_allocated(device) / 2 ** 30:.3f} GiB")
@@ -1310,7 +1428,8 @@ def main(unused_argv):
         with consensus_model(state) as model:
             digest = _parameter_digest(model)
     else:
-        digest = _parameter_digest(state.model)
+        with fsdp_gathered(state.model):
+            digest = _parameter_digest(state.model)
     print(f"Worker {task}: parameter digest {digest}")
     sv.close()
     server.shutdown()

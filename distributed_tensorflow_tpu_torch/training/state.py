@@ -11,8 +11,11 @@ and from the tree the JAX supervisor checkpoints (``{params, opt_state,
 global_step[, ema_params]}`` with flax's names and optax's slot layout),
 so each package restores the other's checkpoints.  A tensor-parallel
 state (``parallel/sharding.shard_state``) holds its split parameters as
-shards; its checkpoint tree gathers them into whole arrays and loading
-splits them again, so its checkpoint is an unsharded run's.
+shards, an FSDP state (``parallel/sharding.fsdp_state``) its worker's
+slices; its checkpoint tree gathers them into whole arrays (for FSDP a
+collective: every worker builds the tree at the same step,
+:func:`tree_is_collective`) and loading splits them again, so its
+checkpoint is an unsharded run's.
 """
 
 from __future__ import annotations
@@ -109,12 +112,32 @@ def _tree_fns(state: TrainState):
     split over the model axis (``parallel/sharding.py``) is gathered into
     one whole array on the way out and split again on the way in, so a
     sharded run's checkpoint is an unsharded run's."""
-    from ..parallel.sharding import gather_named, is_sharded, split_named
-    if not is_sharded(state.model):
-        return state.params_to_tree, state.params_from_tree
+    from ..parallel.sharding import (FsdpExchange, gather_named, is_fsdp,
+                                     is_sharded, split_fsdp_named,
+                                     split_named)
     model = state.model
-    return (lambda named: state.params_to_tree(gather_named(model, named)),
-            lambda tree: split_named(model, state.params_from_tree(tree)))
+    fsdp = is_fsdp(model)
+    if not (fsdp or is_sharded(model)):
+        return state.params_to_tree, state.params_from_tree
+    exchange = FsdpExchange(model) if fsdp else None
+
+    def to_tree(named):
+        if exchange is not None:
+            named = exchange.gather_named(named)
+        return state.params_to_tree(gather_named(model, named))
+
+    def from_tree(tree):
+        return split_fsdp_named(model, split_named(
+            model, state.params_from_tree(tree)))
+    return to_tree, from_tree
+
+
+def tree_is_collective(state) -> bool:
+    """True when building ``state``'s checkpoint tree is a collective (its
+    parameters split over the workers by FSDP): every worker then builds
+    it at the same save step, and the chief writes it."""
+    from ..parallel.sharding import is_fsdp
+    return isinstance(state, TrainState) and is_fsdp(state.model)
 
 
 def param_paths(names, to_tree: Callable[[dict], dict]) -> dict:

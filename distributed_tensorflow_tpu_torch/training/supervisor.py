@@ -48,7 +48,8 @@ import torch
 
 from ..tools import checkpoint_io
 from ..tools._zarr_layout import read_item
-from .state import checkpoint_tree, load_checkpoint_tree
+from .state import (checkpoint_tree, load_checkpoint_tree,
+                    tree_is_collective)
 
 INIT_DONE_KEY = "dtf/initialized"
 
@@ -283,19 +284,27 @@ class Supervisor:
         (the JAX supervisor's step arithmetic).  Non-chiefs never save.
 
         A step at or below the newest one on disk is not written again
-        (orbax's rule), but counts as saved."""
-        if not self.is_chief:
+        (orbax's rule), but counts as saved.  An FSDP state's tree is a
+        collective (``state.tree_is_collective``): every worker builds it
+        at the same step (the same arithmetic), and the chief writes it."""
+        collective = tree_is_collective(state)
+        if not self.is_chief and not collective:
             return False
         step = int(state.global_step)
         if not force and (step - self._last_saved_step
                           < self.save_interval_steps):
             return False
+        if not self.is_chief:
+            checkpoint_tree(state)      # this worker's part of the gather
+            self._last_saved_step = step
+            return False
         # Finalize the PREVIOUS save (signal + retention) before issuing the
         # next one; at most one write is in flight.
         self._finalize_last_save()
         latest = self.latest_step()
+        tree = _host_copy(checkpoint_tree(state)) if collective else None
         if latest is None or step > latest:
-            tree = _host_copy(checkpoint_tree(state))
+            tree = tree or _host_copy(checkpoint_tree(state))
             self._save_thread = threading.Thread(
                 target=self._write, args=(step, tree), daemon=True)
             self._save_thread.start()

@@ -23,6 +23,7 @@ import subprocess
 import sys
 import threading
 
+import numpy as np
 import pytest
 import torch
 
@@ -254,6 +255,43 @@ def read_until(proc, pattern):
 # Paced steps, as the JAX tests pace theirs: a fast machine must not run
 # one worker's whole horizon before the other steps.
 PACE = "--inject_step_delay=0.03:1:1000000000"
+
+
+class _TornOnce:
+    """A coordination KV whose first read of a payload chunk returns
+    another publication's chunk: the peer republished between the
+    reader's meta and its chunks, as a live worker does every period."""
+
+    def __init__(self):
+        self.kv, self.torn = {}, True
+
+    def kv_set(self, key, value, *args, **kw):
+        self.kv[key] = value
+
+    def kv_get(self, key, *args, **kw):
+        value = self.kv.get(key)
+        if self.torn and key.endswith(".c0") and value:
+            self.torn = False
+            return value[::-1]
+        return value
+
+
+def test_rejoin_pull_reads_a_republishing_peer_again():
+    """The startup adoption (``ParamAverager.pull_latest``, train.py's
+    ``_async_exchange``) of a peer that republishes while it is read: a
+    torn read is read again, so the late worker adopts the publication.
+    Read once, the torn read started worker 1 from its own init under a
+    loaded machine (test_async_cross_process_parameter_averaging)."""
+    from distributed_tensorflow_tpu_torch.cluster.param_sync import (
+        ParamAverager)
+    kv = _TornOnce()
+    tree = {"hid": {"kernel": np.arange(12, dtype=np.float32).reshape(3, 4),
+                    "bias": np.ones(4, np.float32)}}
+    ParamAverager(kv, 0, 2, namespace="run")._publish(tree)
+    got = ParamAverager(kv, 1, 2, namespace="run").pull_latest(tree)
+    assert not kv.torn                 # the first read was torn
+    assert got is not None
+    np.testing.assert_array_equal(got["hid"]["kernel"], tree["hid"]["kernel"])
 
 
 def test_async_cross_process_parameter_averaging(tmp_path):

@@ -1449,3 +1449,141 @@ def test_serve_cli_prints_its_kernel_launches_on_exit_on_card(
     assert counts.pop("flash_attention_fwd") == L * 2
     assert counts.pop("layer_norm_fwd") == (2 * L + 1) * (2 + steps)
     assert not any(counts.values()), counts
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("schedule,pipe,virtual", [("gpipe", 2, 1),
+                                                   ("1f1b", 2, 1),
+                                                   ("interleaved", 2, 2)])
+def test_pipelined_step_on_card_matches_the_pallas_step(cuda_device,
+                                                        schedule, pipe,
+                                                        virtual):
+    """One step of a small GPT as pipeline stages on the one card
+    (``models/registry.build_gpt_pipeline``, 4 micro-batches) against the
+    unpipelined pallas step from the same seed: the loss and gradients
+    within chip_smoke.py's TRAIN_* tolerances, and the kernels launched
+    as the schedule counts (each micro-batch through each layer; 1F1B
+    and interleaved recompute each chunk's forward but the last's)."""
+    from distributed_tensorflow_tpu_torch.models import gpt
+    from distributed_tensorflow_tpu_torch.models.registry import (
+        build_gpt_pipeline)
+    from distributed_tensorflow_tpu_torch.parallel.mesh import create_mesh
+    from distributed_tensorflow_tpu_torch.parallel.sync import (
+        build_sync_train_step)
+    from distributed_tensorflow_tpu_torch.training.optimizers import (
+        make_optimizer)
+
+    width = dict(hidden_size=512, num_layers=4, num_heads=8,
+                 intermediate_size=1024, max_position=256)
+    cfg = gpt.GptConfig(**width, attention_backend="pallas", fused_ln=True)
+    mesh = create_mesh(data=1, pipe=pipe, devices=[cuda_device] * pipe)
+    M = 4
+    b = build_gpt_pipeline(0.0, mesh, seq_len=256, n_micro=M,
+                           attention_backend="pallas", fused_ln=True,
+                           tx=make_optimizer("sgd", 0.0), schedule=schedule,
+                           virtual_stages=virtual, width=width)
+    state = b.place_state(mesh, b.state)
+    step = (b.train_step_builder(mesh) if b.train_step_builder
+            else build_sync_train_step(b.loss_fn))
+    batch = gpt.synthetic_lm_batch(0, 8, 256, cfg)
+    before = [tfa.launches, tfa.dq_launches, tfa.dkv_launches, ln.launches]
+    state, m = step(state, batch)
+    got = [a - b_ for a, b_ in zip([tfa.launches, tfa.dq_launches,
+                                    tfa.dkv_launches, ln.launches], before)]
+    L = cfg.num_layers
+    if schedule == "gpipe":
+        fwd, head = L * M, 1
+    else:
+        fwd, head = M * (2 * L - L // (pipe * virtual)), M
+    assert got == [fwd, L * M, L * M, 2 * fwd + head]
+    model = state.model
+    per = L // len(model.stages)
+    grads = {}
+    for n, p in model.named_parameters():
+        part, _, rest = n.partition(".")
+        if part == "stages":
+            c, _, l, leaf = rest.split(".", 3)
+            rest = f"layers.{int(c) * per + int(l)}.{leaf}"
+        grads[rest] = p.grad
+    plain = gpt.GptLM(cfg, device=cuda_device, param_dtype=torch.float32)
+    tokens = torch.as_tensor(batch["tokens"], device=cuda_device).long()
+    loss, _ = gpt.lm_loss(plain(tokens), tokens)
+    loss.backward()
+    ga = torch.cat([grads[n].flatten() for n, _ in plain.named_parameters()])
+    gb = torch.cat([p.grad.flatten() for p in plain.parameters()])
+    assert abs(float(m["loss"]) - loss.item()) <= 1e-3
+    assert abs(ga.norm() - gb.norm()) / gb.norm() <= 2e-3
+    assert torch.nn.functional.cosine_similarity(ga, gb, dim=0) >= 0.999
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("H,I,rows", [(128, 512, 4096), (2048, 8192, 1024)])
+def test_tp_int8_mlp_per_shard_matches_the_unsharded_mlp_on_card(
+        cuda_device, H, I, rows):
+    """``int8_gelu_mlp_tp`` over two shards (K4/K5 a shard, fp32
+    partials, the whole K's scales; at gpt_mini's width the 512-wide
+    K-blocks span both shards: kernel A with given scales) against
+    ``int8_gelu_mlp`` on the same bf16 inputs: the output and every
+    gradient within the int8 step's tolerance (a flipped code moves a
+    value by ~1/127 of its row's range: 2e-2 of the peak), and the
+    launches K4 2 + 2, K5 2 + 2 a call pair."""
+    from distributed_tensorflow_tpu_torch.ops import quant_matmul as qmm
+    from distributed_tensorflow_tpu_torch.ops import quant_train as qt
+    g = torch.Generator(device=cuda_device).manual_seed(H)
+    bf = torch.bfloat16
+
+    def rand(*shape, scale=1.0):
+        return torch.randn(*shape, generator=g, device=cuda_device) * scale
+    x = rand(rows, H).to(bf).requires_grad_()
+    w_in = rand(H, I, scale=H ** -0.5).requires_grad_()
+    b_in = rand(I, scale=0.1).requires_grad_()
+    w_out = rand(I, H, scale=I ** -0.5).requires_grad_()
+    b_out = rand(H, scale=0.1).requires_grad_()
+    gy = rand(rows, H).to(bf)
+    y = qt.int8_gelu_mlp(x, w_in, b_in, w_out, b_out)
+    want = torch.autograd.grad(y, (x, w_in, b_in, w_out, b_out), gy)
+    wi = [t.detach().clone().requires_grad_() for t in w_in.chunk(2, 1)]
+    bi = [t.detach().clone().requires_grad_() for t in b_in.chunk(2)]
+    wo = [t.detach().clone().requires_grad_() for t in w_out.chunk(2, 0)]
+    xs = x.detach().clone().requires_grad_()
+    bo = b_out.detach().clone().requires_grad_()
+    before = (qmm.launches, qmm.nt_launches)
+    y_tp = qt.int8_gelu_mlp_tp(xs, wi, bi, wo, bo)
+    got = torch.autograd.grad(y_tp, (xs, *wi, *bi, *wo, bo), gy)
+    assert (qmm.launches - before[0], qmm.nt_launches - before[1]) == (4, 4)
+
+    def close(a, b):
+        err = (a.float() - b.float()).abs().max().item()
+        assert err <= 2e-2 * b.float().abs().max().item(), err
+    close(y_tp, y)
+    close(got[0], want[0])
+    close(torch.cat(got[1:3], 1), want[1])
+    close(torch.cat(got[3:5]), want[2])
+    close(torch.cat(got[5:7]), want[3])
+    close(got[7], want[4])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("prologue", [None, "dgelu_fold"])
+def test_quantize_blocks_with_given_scales_matches_plain_on_card(
+        cuda_device, dtype, prologue):
+    """Kernel A with given scales (a K-block split over tensor-parallel
+    shards) bit for bit against its plain version, codes, scales and g."""
+    from distributed_tensorflow_tpu_torch.ops import quant_matmul as qmm
+    g = torch.Generator(device=cuda_device).manual_seed(1)
+    M, K, bk = 300, 512, 256
+    a = torch.randn(M, K, generator=g, device=cuda_device).to(dtype)
+    sx = torch.rand(K // bk, M, generator=g, device=cuda_device) * 0.05 \
+        + 1e-3
+    kw = {}
+    if prologue:
+        kw = dict(pre=torch.randn(M, K, generator=g,
+                                  device=cuda_device).to(dtype),
+                  sf=torch.rand(K, generator=g, device=cuda_device) + 0.5,
+                  want_g=True)
+    got = qmm.quantize_blocks(a, bk, sx=sx, **kw)
+    want = qmm.quantize_blocks_reference(a, bk, sx=sx, **kw)
+    for x, y in zip(got, want):
+        if y is not None:
+            assert torch.equal(x, y)

@@ -112,10 +112,15 @@ def test_mesh_views_and_the_axes_not_ported():
                          "model": 1}
     assert list(col.grid(0).flatten()) == list(mesh.grid(1).flatten())
     assert tmesh.data_parallel_mesh(4, devices=devs).shape["data"] == 4
-    for kw, where in ((dict(pipe=2), "slice 8c"), (dict(expert=2), "item 7"),
+    for kw, where in ((dict(expert=2), "item 7"),
                       (dict(dcn_data=2), "slice 8d")):
         with pytest.raises(NotImplementedError, match=f"ROADMAP.*{where}"):
             tmesh.create_mesh(devices=devs, **kw)
+    # The pipe axis is ported (slice 8c): stage s on pipe device s.
+    piped = tmesh.create_mesh(data=2, pipe=4, devices=devs)
+    assert piped.shape["pipe"] == 4
+    assert [str(d) for d in piped.pipe_devices()] == [
+        "cpu:0", "cpu:1", "cpu:2", "cpu:3"]
     with pytest.raises(ValueError, match="needs 16 devices"):
         tmesh.ParallelConfig(data=8, model=2).build_mesh(devs)
 
@@ -158,9 +163,11 @@ def test_place_state_dispatch():
                                                "kernel")] == [(784, 4)] * 2
     assert tsh.shard_dim(state.model.sm, "kernel") == 0
     assert tsh.shards(state.model.hid, "bias") is None     # no rule
+    # FSDP (slice 8b) shards over the workers' process group; one process
+    # without a group keeps the state replicated, as JAX's data=1 mesh.
     fsdp = tmesh.ParallelConfig(fsdp=True)
-    with pytest.raises(NotImplementedError, match="ROADMAP.*slice 8b"):
-        fsdp.place_state(fsdp.build_mesh([CPU]), _mlp_state(), None)
+    state = fsdp.place_state(fsdp.build_mesh([CPU]), _mlp_state(), None)
+    assert not tsh.is_fsdp(state.model) and not tsh.is_sharded(state.model)
     with pytest.raises(NotImplementedError, match="ROADMAP.*slice 8d"):
         tsh.shard_state(tmesh.create_mesh(data=2, model=2, devices=[CPU] * 4),
                         _mlp_state(), rules)

@@ -76,7 +76,10 @@ def test_every_port_module_imports_without_jax():
         "serving.router", "serving.cells", "tools.serve_fleet",
         "tools.serve_cell", "tools.coord_shard", "tools.loadgen",
         "tools.watch_serve", "tools.summarize_run",
-        "tools.export_trace")} <= set(_port_modules())
+        "tools.export_trace",
+        # FSDP, int8 beside tensor parallelism, the pipeline.
+        "parallel.pipeline", "ops.quant_train", "ops.quant_matmul")} <= set(
+        _port_modules())
 
 
 def test_the_native_coordination_library_is_built_from_the_port():

@@ -236,7 +236,9 @@ def test_fsdp_rules_compose_with_tp_base():
 
 
 def test_fsdp_placement_is_not_ported_yet():
-    with pytest.raises(NotImplementedError, match="ROADMAP.*slice 8b"):
+    # FSDP over the workers is ported (slice 8b); over in-process data
+    # positions it is not (the data axis is the worker processes).
+    with pytest.raises(NotImplementedError, match="ROADMAP.*slice 8d"):
         tsh.fsdp_state(tmesh.create_mesh(data=2, devices=CPU2),
                        _port_state("mha_gelu_learned"))
 

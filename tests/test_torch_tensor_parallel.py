@@ -460,10 +460,11 @@ def test_cli_async_flag_with_tp_trains_in_sync_and_mlp_stays_replicated(
      "must be divisible by --expert_parallel=3"),
     (("--sequence_parallel=2",), ValueError,
      "needs a sequence-parallel attention backend"),
-    (("--tensor_parallel=2", "--gpt_matmul_int8"), NotImplementedError,
-     "ROADMAP.*slice 8b"),
-    (("--pipeline_parallel=2",), NotImplementedError, "ROADMAP.*slice 8c"),
-    (("--fsdp",), NotImplementedError, "ROADMAP.*slice 8b"),
+    (("--sharded_feed=false",), NotImplementedError, "ROADMAP.*slice 8d"),
+    (("--pipeline_parallel=2", "--gpt_matmul_int8"), ValueError,
+     "--gpt_matmul_int8 with --pipeline_parallel is not wired up"),
+    (("--pipeline_parallel=2", "--fsdp"), ValueError,
+     "--fsdp is incompatible with models that own their placement"),
     (("--dcn_data_parallel=2",), NotImplementedError, "ROADMAP.*slice 8d"),
     (("--model=bert_moe", "--expert_parallel=2"), NotImplementedError,
      "ROADMAP.*item 7"),
@@ -474,8 +475,12 @@ def test_cli_flag_errors_match_jax(tmp_path, standalone, flags, error, match):
 
 
 def test_tp_with_int8_matmuls_raises():
+    # Int8 beside tensor parallelism is ported (slice 8b:
+    # tests/test_torch_int8_tp.py); beside an in-process data axis it is
+    # not (slice 8d).
     params = _jax_params()
     state = _port_state(params, matmul_int8=True)
-    _tp(state)
-    with pytest.raises(NotImplementedError, match="slice 8b"):
-        state.model(torch.zeros(2, 8, dtype=torch.long))
+    with pytest.raises(NotImplementedError, match="ROADMAP.*slice 8d"):
+        tsh.shard_state(tmesh.create_mesh(data=2, model=2,
+                                          devices=[CPU] * 4),
+                        state, tgpt.gpt_sharding_rules())

@@ -176,11 +176,13 @@ def test_metrics_file_summaries_and_profile(tmp_path, standalone):
 
 
 @pytest.mark.parametrize("flags,match", [
-    (("--sync_replicas=true", "--fsdp=true"), "item 6"),
+    (("--sync_replicas=true", "--fsdp=true", "--sharded_feed=false"),
+     "item 6"),
     (("--sync_replicas=true", "--dcn_data_parallel=2"), "item 6"),
     (("--sync_replicas=true", "--data_augmentation=true"), "item 7"),
     (("--sync_replicas=true", "--sharded_feed=false"), "item 6"),
-    (("--sync_replicas=true", "--pipeline_parallel=2"), "item 6"),
+    (("--sync_replicas=true", "--model=gpt_mini", "--pipeline_parallel=2",
+      "--dcn_data_parallel=2"), "item 6"),
     (("--sync_replicas=true", "--model=resnet20"), "item 7"),
     (("--sync_replicas=true", "--profile=p.json"), "item 8"),
 ])

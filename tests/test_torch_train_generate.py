@@ -179,7 +179,7 @@ def test_no_checkpoint_warns_and_decodes_a_seeded_init(tmp_path, capsys):
     # The trainer's paths not ported yet (its async mode is, since slice
     # 7b): the parallelism axes and run profiles.
     (["--mode=train", "--job_name=worker", "--task_index=0",
-      "--pipeline_parallel=2"], NotImplementedError, "ROADMAP.*item 6"),
+      "--sharded_feed=false"], NotImplementedError, "ROADMAP.*item 6"),
     (["--mode=eval", "--job_name=worker", "--task_index=0",
       "--profile=p.json"], NotImplementedError, "ROADMAP.*item 8"),
     (["--model=mnist_mlp"], ValueError, "gpt_mini"),
