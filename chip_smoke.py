@@ -4,6 +4,7 @@ NVIDIA GPU.
 
     python3 chip_smoke.py            # one card
     python3 chip_smoke.py --nccl     # 2+ cards: the reference job over NCCL
+    python3 chip_smoke.py --fsdp     # one card: train_fsdp alone
 
 Phases, one JSON line each on stdout:
 
@@ -196,7 +197,9 @@ Phases, one JSON line each on stdout:
     it) and of the replicated two-rank step; the first step's loss and
     gradients under TRAIN_* (bit-equality stated); it prints each rank's
     persistent parameter and slot bytes (gate: under 0.55 of replicated),
-    peak memory, step ms and the all-gather and reduce-scatter ms a step.
+    peak memory (gate: under replicated's), step ms and the all-gather
+    and reduce-scatter ms a step, contended by the CLIs beside it
+    (``--fsdp`` times it alone).
 16. Two gpt_mini trainer CLIs beside ``train_fsdp`` (B=32, S=512,
     each with ``--mode=eval`` (its test accuracy) and ``--mode=generate``
     (an in-process decode's tokens) on its logdir, its launches exact):
@@ -273,7 +276,10 @@ Phases, one JSON line each on stdout:
 
 With ``--nccl`` the script runs ``env`` and the reference job alone,
 with one worker on each visible card (the backend rule of
-``cluster/server.py`` then picks NCCL), under the same gates.
+``cluster/server.py`` then picks NCCL), under the same gates.  With
+``--fsdp`` it runs ``env``, ``build`` and ``train_fsdp`` alone, under the
+same gates: its step, gather and reduce-scatter ms without the CLIs
+beside it.
 
 Then the card's name and power limit, the kernels' summary object, and
 last ``{"ok": true, "device": {...}}``.  A summary row's numbers and
@@ -4024,24 +4030,28 @@ for arm in ("replicated", "fsdp"):
         step_ms.append((time.perf_counter() - t) * 1e3)
         if len(losses) == 1:
             # The first step's loss and mean gradients over the ranks
-            # (left in .grad by the step), whole.
+            # (left in .grad by the step), whole, kept on the host: the
+            # other arm's peak memory is its own.
             grads = {n: p.grad for n, p in model.named_parameters()}
             if arm == "fsdp":
                 grads = FsdpExchange(model).gather_named(grads)
             first[arm] = (losses[0], torch.cat(
-                [g.float().flatten() for _, g in sorted(grads.items())]))
+                [g.float().flatten().cpu() for _, g in sorted(grads.items())]))
             del grads
     launches = counters()
-    slots = [v for p in state.optimizer.params
-             for v in state.optimizer.base.state.get(p, {}).values()
-             if torch.is_tensor(v) and v.dim()]
+    # (A generator: a list of the slots here would keep this arm's
+    # slots alive into the next arm's peak.)
     r = dict(losses=losses, step_ms=step_ms,
              step_ms_median=statistics.median(step_ms),
              peak_mem_gb=(torch.cuda.max_memory_allocated(dev) / 1e9
                           if cuda else None),
              param_bytes=sum(p.numel() * p.element_size()
                              for p in model.parameters()),
-             slot_bytes=sum(v.numel() * v.element_size() for v in slots),
+             slot_bytes=sum(v.numel() * v.element_size()
+                            for p in state.optimizer.params
+                            for v in state.optimizer.base.state.get(
+                                p, {}).values()
+                            if torch.is_tensor(v) and v.dim()),
              launches=launches)
     fs = step.cache.get("fsdp")
     if fs is not None:
@@ -4067,7 +4077,7 @@ dist.destroy_process_group()
 """
 
 
-def train_fsdp(dev, smi: str, bf16: dict) -> dict:
+def train_fsdp(dev, smi: str, bf16: dict, alone: bool = False) -> dict:
     """Phase ``train_fsdp``: ZeRO-3 over two sync workers sharing the one
     card (two gloo ranks as processes, ``_FSDP_RANK``) at GPT-406M width,
     B=8 a rank, ``FSDP["steps"]`` Adam steps of the FSDP state
@@ -4078,7 +4088,9 @@ def train_fsdp(dev, smi: str, bf16: dict) -> dict:
     gradients (whole, gathered) of the one against the other's (TRAIN_*;
     bit-equality stated either way), the persistent parameter and slot
     bytes a rank, peak memory, step ms, and the all-gather and
-    reduce-scatter ms a step.  Returns rank 0's FSDP launches."""
+    reduce-scatter ms a step (gate: FSDP's peak under replicated's).
+    ``alone``: no other phase runs beside it (``--fsdp``).  Returns rank
+    0's FSDP launches."""
     T = FSDP
     tmp = tempfile.mkdtemp(prefix="chip_smoke_fsdp_")
     conf = dict(width={k: v for k, v in WIDTH.items()},
@@ -4137,8 +4149,18 @@ def train_fsdp(dev, smi: str, bf16: dict) -> dict:
         if not share < 0.55:
             raise AssertionError(f"train_fsdp rank {r}: persistent bytes "
                                  f"{share:.3f} of replicated")
+        if f["peak_mem_gb"] is not None and not (
+                f["peak_mem_gb"] < rep["peak_mem_gb"]):
+            raise AssertionError(f"train_fsdp rank {r}: peak "
+                                 f"{f['peak_mem_gb']} GB, replicated "
+                                 f"{rep['peak_mem_gb']}")
         rank["persistent_share"] = share
+    # In the whole run its processes run beside the two gpt_mini CLIs on
+    # the one card and host: step, gather and reduce-scatter ms are then
+    # contended times (``alone``: ``--fsdp``).
     emit("train_fsdp", card=smi, model="gpt_406m_width", wall_s=wall_s,
+         timed_beside=([] if alone else ["train_parallel_cli",
+                                         "train_pipeline_cli"]),
          ranks_n=T["ranks"], devices=str(dev), batch_per_rank=TRAIN["batch"],
          seq_len=TRAIN["seq_len"], steps=T["steps"], first_step=first,
          loss_tol=tols[0], grad_norm_rtol=tols[1], grad_min_cos=tols[2],
@@ -5046,8 +5068,8 @@ def async_trainer(dev, smi: str) -> None:
 def main() -> int:
     import torch
     args = sys.argv[1:]
-    if args not in ([], ["--nccl"]):
-        print("usage: chip_smoke.py [--nccl]", file=sys.stderr)
+    if args not in ([], ["--nccl"], ["--fsdp"]):
+        print("usage: chip_smoke.py [--nccl | --fsdp]", file=sys.stderr)
         return 2
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the GPU",
@@ -5063,8 +5085,14 @@ def main() -> int:
     emit("env", card=smi, torch=torch.__version__, cuda=torch.version.cuda,
          device=torch.cuda.get_device_name(0),
          count=torch.cuda.device_count())
-    if args == ["--nccl"]:
-        trainer_nccl(smi)
+    if args:
+        if args == ["--nccl"]:
+            trainer_nccl(smi)
+        else:
+            t0 = time.perf_counter()
+            kernels.load()
+            emit("build", seconds=time.perf_counter() - t0)
+            train_fsdp(dev, smi, {"step_ms_median": None}, alone=True)
         print(smi, flush=True)
         print(json.dumps({"ok": True, "device": {
             "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -9,11 +9,12 @@ device ``s`` (:meth:`.mesh.Mesh.pipe_devices`; on one card they share
 it) and a hop is a ``.to(device)`` of the activation.  The schedules
 are the JAX package's, as static Python tables:
 
-- **GPipe** (:func:`make_pipeline_fn`, :func:`build_pipeline_train_step`):
-  the batch cut into ``n_micro`` micro-batches, stage ``s`` runs
-  micro-batch ``m`` at tick ``s + m``; the backward is autograd through
-  the tick loop, ``remat`` recomputes each stage in it
-  (``torch.utils.checkpoint``, as ``jax.checkpoint`` in JAX).
+- **GPipe** (:func:`make_pipeline_fn`): the batch cut into ``n_micro``
+  micro-batches, stage ``s`` runs micro-batch ``m`` at tick ``s + m``;
+  the backward is autograd through the tick loop, ``remat`` recomputes
+  each stage in it (``torch.utils.checkpoint``, as ``jax.checkpoint`` in
+  JAX).  Its train step is the plain sync step over a loss that runs
+  the schedule (``models/gpt.make_pipelined_gpt_apply``).
 - **1F1B** (:func:`schedule_1f1b`, :func:`build_1f1b_pipeline_train_step`)
   and **interleaved 1F1B** (:func:`schedule_interleaved`,
   :func:`build_interleaved_1f1b_train_step`): each tick a stage may run
@@ -35,9 +36,11 @@ backward slot recomputes it.
 
 The step builders take the port's state (``state.model`` with ``embed``,
 ``stages`` and ``head``: ``stages[c]`` is global chunk ``c``, on pipe
-device ``c % n_pipe``) where JAX's take the ``{"embed", "stages",
-"head"}`` parameter tree; ``stage_fn(stage, x)``, ``loss_head_fn(head,
-y, micro_batch)`` and ``embed_fn(embed, batch)`` keep JAX's meaning.
+device ``c % n_pipe``, as ``models/gpt.PipelinedGptLM`` lays them out)
+where JAX's take the ``{"embed", "stages", "head"}`` parameter tree
+placed by ``shard_stacked_params``/``shard_interleaved_params``;
+``stage_fn(stage, x)``, ``loss_head_fn(head, y, micro_batch)`` and
+``embed_fn(embed, batch)`` keep JAX's meaning.
 The data axis is the sync trainer's worker processes: with
 ``all_reduce`` (``parallel/sync.GradientAllReduce``) the step takes the
 mean over them, as the plain sync step does.
@@ -47,72 +50,11 @@ from __future__ import annotations
 
 from typing import Any, Callable
 
-import numpy as np
 import torch
 from torch.utils.checkpoint import checkpoint
 
 from ..utils.pytree import tree_leaves, tree_map
 from .mesh import PIPE_AXIS, Mesh
-from .sharding import P
-
-
-def stacked_stage_sharding(mesh: Mesh) -> P:
-    """The spec of parameters stacked along a leading stage dim: dim 0
-    over ``pipe`` (each pipe position holds its own stage's slice)."""
-    return P(PIPE_AXIS)
-
-
-def shard_stacked_params(mesh: Mesh, stacked_params: Any) -> list:
-    """Stage-stacked parameters (a tree of tensors or arrays, leading dim
-    ``n_pipe``) as one tree a pipe position: stage ``s``'s slice on pipe
-    device ``s``, a leaf tensor of its own (requiring grad where the
-    stacked leaf does)."""
-    n_pipe = mesh.shape[PIPE_AXIS]
-    devices = mesh.pipe_devices()
-
-    def check(x):
-        if x.shape[0] != n_pipe:
-            raise ValueError(
-                f"stacked param leading dim {x.shape[0]} != pipe axis "
-                f"{n_pipe}")
-    tree_map(check, stacked_params)
-
-    def piece(x, s):
-        t = torch.as_tensor(np.asarray(x) if not torch.is_tensor(x) else x)
-        return t[s].detach().to(devices[s]).clone().requires_grad_(
-            bool(getattr(x, "requires_grad", False)))
-    return [tree_map(lambda x: piece(x, s), stacked_params)
-            for s in range(n_pipe)]
-
-
-def interleaved_stage_sharding(mesh: Mesh) -> P:
-    """The spec of interleaved chunk-stacked parameters [v, n_pipe, ...]:
-    dim 1 over ``pipe`` (position ``s`` holds global chunks ``i * n_pipe
-    + s``, Megatron's round-robin assignment)."""
-    return P(None, PIPE_AXIS)
-
-
-def shard_interleaved_params(mesh: Mesh, chunked_params: Any) -> list:
-    """Chunk-stacked parameters [n_virtual, n_pipe, ...] as one tree a
-    global chunk in natural order: chunk ``i * n_pipe + s`` (at [i, s])
-    on pipe device ``s``."""
-    n_pipe = mesh.shape[PIPE_AXIS]
-    devices = mesh.pipe_devices()
-
-    def check(x):
-        if len(x.shape) < 2 or x.shape[1] != n_pipe:
-            raise ValueError(
-                f"interleaved param dims {tuple(x.shape[:2])} != (v, "
-                f"{n_pipe})")
-    tree_map(check, chunked_params)
-    v = tree_leaves(chunked_params)[0].shape[0]
-
-    def piece(x, i, s):
-        t = torch.as_tensor(np.asarray(x) if not torch.is_tensor(x) else x)
-        return t[i, s].detach().to(devices[s]).clone().requires_grad_(
-            bool(getattr(x, "requires_grad", False)))
-    return [tree_map(lambda x: piece(x, c // n_pipe, c % n_pipe),
-                     chunked_params) for c in range(v * n_pipe)]
 
 
 def _stage(stage_params: Any, c: int):
@@ -284,25 +226,6 @@ def schedule_interleaved(n_pipe: int, n_micro: int, n_virtual: int):
     return F, B
 
 
-def _min_buffer_slots(intervals, n_micro: int) -> int:
-    """Smallest modulus n such that keying a buffer by ``m % n`` never
-    collides: no two (m, lo, hi) live intervals with equal ``m % n``
-    overlap.  The schedule is static, so this is exact, not a bound."""
-    for n in range(1, n_micro + 1):
-        by_slot: dict = {}
-        for m, lo, hi in intervals:
-            by_slot.setdefault(m % n, []).append((lo, hi))
-        ok = True
-        for ivs in by_slot.values():
-            ivs.sort()
-            for (_, b1), (a2, _) in zip(ivs, ivs[1:]):
-                if a2 <= b1:
-                    ok = False
-        if ok:
-            return n
-    return n_micro
-
-
 def _slots(rows) -> list:
     """1F1B rows (micro-batch or -1 per stage) as ``(chunk, micro)``
     slots, the interleaved schedule's form (chunk = stage)."""
@@ -433,30 +356,11 @@ def build_interleaved_1f1b_train_step(
     device ``c % n_pipe``; the checkpoint tree stacks them [v, n_pipe,
     ...], chunk ``i * n_pipe + s`` at [i, s]) on
     :func:`schedule_interleaved`; stash and buffers are keyed by
-    ``(chunk, micro)``, so JAX's exact buffer depths
-    (:func:`_min_buffer_slots`) need not be sized ahead."""
+    ``(chunk, micro)``, so JAX's fixed-depth buffers (its
+    ``_min_buffer_slots``) have no counterpart here."""
     n_pipe = mesh.shape[PIPE_AXIS]
     F, B = schedule_interleaved(n_pipe, n_micro, n_virtual)
     step = _scheduled_step(mesh, F, B, stage_fn, loss_head_fn, n_micro,
                            embed_fn, all_reduce, log_grad_norm)
     step.schedule = (F, B)
     return step
-
-
-def build_pipeline_train_step(mesh: Mesh, stage_fn: Callable,
-                              loss_from_output: Callable, *, n_micro: int,
-                              remat: bool = True, all_reduce=None,
-                              log_grad_norm: bool = False):
-    """Sync train step whose forward runs the GPipe schedule over
-    ``state.model.stages``: ``loss_from_output(y, batch) -> (loss, aux)``
-    from the pipeline output of ``batch[0]``; the gradients flow back
-    through the ticks (autograd), then the mean over the workers with
-    ``all_reduce``, as :func:`.sync.build_sync_train_step`."""
-    from .sync import build_sync_train_step
-    fwd = make_pipeline_fn(mesh, stage_fn, n_micro=n_micro, remat=remat)
-
-    def loss_fn(model, batch):
-        return loss_from_output(fwd(model.stages, batch[0]), batch)
-
-    return build_sync_train_step(loss_fn, log_grad_norm=log_grad_norm,
-                                 all_reduce=all_reduce)

@@ -478,17 +478,19 @@ def _whole_shapes(model: nn.Module) -> dict:
 
 
 def fsdp_state(mesh: Mesh, state: Any, rules: ShardingRules | None = None,
-               *, min_size: int = 2 ** 16, group=None) -> Any:
+               *, min_size: int = 2 ** 16) -> Any:
     """ZeRO-3/FSDP placement, IN PLACE: each parameter that
     :class:`FsdpRules` (the tensor-parallel ``rules`` first, then the
     largest free dim divisible by the workers, at least ``min_size``
     elements) shards over ``data`` keeps only this worker's slice, under
-    its own name (recorded in its module's ``fsdp_shards``), and so do its
-    optimizer slots (the optimizer is rebuilt over the slices) and its
-    moving average.  ``global_step`` and the rng stay replicated.
+    its own name (recorded in its module's ``fsdp_shards``; the slice is
+    marked ``fsdp_split`` for the global norm,
+    ``training/optimizers.global_norm``), and so do its optimizer slots
+    (the optimizer is rebuilt over the slices) and its moving average.
+    ``global_step`` and the rng stay replicated.
 
-    ``data`` is the sync trainer's process ``group`` (default: the world
-    group): its size is the JAX run's global data axis, so each worker's
+    ``data`` is the sync trainer's process group (the default group):
+    its size is the JAX run's global data axis, so each worker's
     slice has the shape of JAX's ``addressable_shards[0]`` on a
     ``data=N`` mesh.  Without a group of two or more the state stays
     replicated, as a JAX mesh with ``data=1``.  ``rules`` with a
@@ -506,14 +508,14 @@ def fsdp_state(mesh: Mesh, state: Any, rules: ShardingRules | None = None,
         shard_state(mesh, state, rules)
     else:
         replicate_state(mesh, state)
-    world = (dist.get_world_size(group)
+    world = (dist.get_world_size()
              if dist.is_available() and dist.is_initialized() else 1)
     if world < 2:
         return state
     if is_fsdp(state.model):
         raise ValueError("the state's parameters are FSDP-sharded already")
     from ..training.state import param_paths
-    rank = dist.get_rank(group)
+    rank = dist.get_rank()
     model = state.model
     fsdp = FsdpRules(rules, world, min_size=min_size)
     named = dict(model.named_parameters())
@@ -530,9 +532,10 @@ def fsdp_state(mesh: Mesh, state: Any, rules: ShardingRules | None = None,
             if dim is None:
                 continue
             module, attr = _owner(model, name)
-            module._parameters[attr] = nn.Parameter(
-                p.chunk(world, dim=dim)[rank].clone(),
-                requires_grad=p.requires_grad)
+            piece = nn.Parameter(p.chunk(world, dim=dim)[rank].clone(),
+                                 requires_grad=p.requires_grad)
+            piece.fsdp_split = True
+            module._parameters[attr] = piece
             module.__dict__.setdefault("fsdp_shards", {})[attr] = FsdpInfo(
                 dim, world, rank, tuple(p.shape), spec)
             if name in slots:
@@ -547,20 +550,23 @@ def fsdp_state(mesh: Mesh, state: Any, rules: ShardingRules | None = None,
 
 
 class FsdpExchange:
-    """The FSDP step's collectives over the workers' process group, one
-    flat fp32 buffer each: :meth:`gather` all-gathers every split
-    parameter whole and swaps it in (as a leaf parameter the step's
-    backward fills), :meth:`scatter` reduce-scatters the whole gradients
-    back, as the mean over the workers, into each slice's ``.grad`` and
-    swaps the slices back, releasing the whole tensors.  ``gather_s`` /
-    ``scatter_s`` and ``calls`` accumulate each collective's time (the
-    buffer's device work waited for first), as
-    ``parallel/sync.GradientAllReduce`` times its own."""
+    """The FSDP step's collectives over the workers (the default process
+    group), one a split parameter: :meth:`gather` all-gathers each slice
+    into a whole tensor of its own and swaps it in (as a leaf parameter
+    the step's backward fills); :meth:`scatter` swaps the slices back and
+    reduce-scatters each whole gradient, as the mean over the workers,
+    into its slice's ``.grad``, releasing each whole gradient as it goes.
+    A leaf split along dim 0 is gathered straight into its whole tensor
+    and reduce-scattered straight from its gradient; along another dim it
+    passes through a staging buffer of its own size (the pieces
+    rank-major).  ``gather_s`` / ``scatter_s`` and ``calls`` accumulate
+    each pass's time (the device work waited for before and after it,
+    the staging copies included), as ``parallel/sync.GradientAllReduce``
+    times its own."""
 
-    def __init__(self, model: nn.Module, group=None):
+    def __init__(self, model: nn.Module):
         import torch.distributed as dist
         self._dist = dist
-        self.group = group
         self.entries = fsdp_entries(model)
         self.world = self.entries[0][3].world if self.entries else 1
         self.gather_s = self.scatter_s = 0.0
@@ -571,86 +577,94 @@ class FsdpExchange:
         if t.is_cuda:
             torch.cuda.synchronize(t.device)
 
-    def _all_gather(self, slices: list) -> list:
-        """The whole tensors of ``slices`` (one per entry, this worker's)."""
+    def _whole(self, piece: torch.Tensor, info: FsdpInfo) -> torch.Tensor:
+        """The whole tensor of this worker's ``piece`` (a collective).
+        The pieces travel in fp32 (gloo's collectives and the sums are
+        fp32) and the whole comes back in ``piece``'s dtype."""
+        src = piece.detach().to(torch.float32).contiguous()
+        if info.dim == 0:
+            whole = torch.empty((self.world * src.shape[0], *src.shape[1:]),
+                                dtype=src.dtype, device=src.device)
+            self._dist.all_gather_into_tensor(whole, src)
+        else:
+            # gloo takes the output as the pieces stacked along dim 0.
+            stage = torch.empty((self.world * src.shape[0], *src.shape[1:]),
+                                dtype=src.dtype, device=src.device)
+            self._dist.all_gather_into_tensor(stage, src)
+            whole = torch.cat(stage.chunk(self.world), dim=info.dim)
+            del stage
+        return whole.to(piece.dtype)
+
+    def _gather_all(self, pieces: list) -> list:
         import time
-        if not slices:
+        if not pieces:
             return []
-        home = slices[0].device
-        flat = torch.cat([s.detach().reshape(-1).to(home, torch.float32)
-                          for s in slices])
-        out = torch.empty(self.world * flat.numel(), dtype=flat.dtype,
-                          device=home)
-        self._sync(flat)
+        self._sync(pieces[0])
         t0 = time.perf_counter()
-        self._dist.all_gather_into_tensor(out, flat, group=self.group)
-        self._sync(out)
+        wholes = [self._whole(p, info)
+                  for p, (_, _, _, info) in zip(pieces, self.entries)]
+        self._sync(pieces[0])
         self.gather_s += time.perf_counter() - t0
-        out = out.view(self.world, -1)
-        wholes, offset = [], 0
-        for s, (_, _, _, info) in zip(slices, self.entries):
-            n = s.numel()
-            wholes.append(torch.cat(
-                [out[r, offset:offset + n].view(s.shape)
-                 for r in range(self.world)], dim=info.dim).to(s.device,
-                                                                 s.dtype))
-            offset += n
         return wholes
 
     def gather(self) -> None:
         slices = [m._parameters[a] for _, m, a, _ in self.entries]
-        wholes = self._all_gather(slices)
+        wholes = self._gather_all(slices)
         for (_, module, attr, _), s, w in zip(self.entries, slices, wholes):
             module._parameters[attr] = nn.Parameter(
                 w, requires_grad=s.requires_grad)
         self._held = slices
 
+    def _release(self) -> list:
+        """The slices swapped back into their modules; returns the whole
+        parameters the step ran with (their only reference)."""
+        slices, self._held = self._held, None
+        if slices is None:
+            return []
+        wholes = []
+        for (_, module, attr, _), s in zip(self.entries, slices):
+            wholes.append(module._parameters[attr])
+            module._parameters[attr] = s
+        return wholes
+
     def scatter(self, scale: float = 1.0) -> None:
         """Each slice's ``.grad``: its piece of the whole gradient, summed
         over the workers, times ``scale``; the slices swapped back."""
         import time
-        slices, self._held = self._held, None
-        if not slices:
+        slices = self._held
+        wholes = self._release()
+        if not wholes:
             return
-        wholes = [m._parameters[a] for _, m, a, _ in self.entries]
-        try:
-            home = slices[0].device
-            pieces = [[] for _ in range(self.world)]
-            for w, (_, _, _, info) in zip(wholes, self.entries):
-                g = (w.grad if w.grad is not None
-                     else torch.zeros_like(w)).to(home, torch.float32)
-                for r, part in enumerate(g.chunk(self.world, dim=info.dim)):
-                    pieces[r].append(part.reshape(-1))
-            flat = torch.cat([torch.cat(p) for p in pieces])
-            out = torch.empty(flat.numel() // self.world, dtype=flat.dtype,
-                              device=home)
-            self._sync(flat)
-            t0 = time.perf_counter()
-            self._dist.reduce_scatter_tensor(out, flat, group=self.group)
-            self._sync(out)
-            self.scatter_s += time.perf_counter() - t0
-            self.calls += 1
+        self._sync(slices[0])
+        t0 = time.perf_counter()
+        for i, (s, (_, _, _, info)) in enumerate(zip(slices, self.entries)):
+            w, wholes[i] = wholes[i], None
+            g = w.grad if w.grad is not None else torch.zeros_like(w)
+            w.grad = None
+            del w
+            g = g.detach().to(torch.float32)
+            if info.dim == 0:
+                g = g.contiguous()
+            else:
+                g = torch.cat(g.chunk(self.world, dim=info.dim))
+            out = torch.empty(s.shape, dtype=torch.float32, device=g.device)
+            self._dist.reduce_scatter_tensor(out, g)
+            del g
             if scale != 1.0:
                 out.mul_(scale)
-            offset = 0
-            for s in slices:
-                n = s.numel()
-                s.grad = out[offset:offset + n].view(s.shape).to(s.device,
-                                                                 s.dtype)
-                offset += n
-        finally:
-            for (_, module, attr, _), s in zip(self.entries, slices):
-                module._parameters[attr] = s
+            s.grad = out.to(s.device, s.dtype)
+        self._sync(slices[0])
+        self.scatter_s += time.perf_counter() - t0
+        self.calls += 1
 
     def gather_named(self, named: dict) -> dict:
         """``{name: tensor}`` (parameters, slots or a moving average by
         parameter name) with every split entry's slice replaced by the
         whole tensor: a collective, every worker calls it."""
         out = dict(named)
-        present = [e for e in self.entries if e[0] in out]
-        if len(present) != len(self.entries):
+        if any(e[0] not in out for e in self.entries):
             raise ValueError("gather_named needs every split parameter")
-        for (name, *_), whole in zip(self.entries, self._all_gather(
+        for (name, *_), whole in zip(self.entries, self._gather_all(
                 [out[e[0]] for e in self.entries])):
             out[name] = whole
         return out
@@ -672,8 +686,8 @@ class fsdp_gathered:
     on entry, every worker enters it.  A no-op for a model without
     FSDP splits."""
 
-    def __init__(self, model: nn.Module, group=None):
-        self.exchange = FsdpExchange(model, group) if is_fsdp(model) else None
+    def __init__(self, model: nn.Module):
+        self.exchange = FsdpExchange(model) if is_fsdp(model) else None
 
     def __enter__(self):
         if self.exchange is not None:
@@ -682,8 +696,5 @@ class fsdp_gathered:
 
     def __exit__(self, *exc):
         if self.exchange is not None:
-            slices, self.exchange._held = self.exchange._held, None
-            for (_, module, attr, _), s in zip(self.exchange.entries,
-                                               slices):
-                module._parameters[attr] = s
+            self.exchange._release()
         return False

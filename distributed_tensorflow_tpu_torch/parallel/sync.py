@@ -130,14 +130,14 @@ def _reduce_step(state: TrainState, loss: torch.Tensor, aux: dict,
 
 
 def _finish(state: TrainState, loss, aux, ema_decay: float,
-            log_grad_norm: bool, fsdp: "FsdpStep | None" = None) -> dict:
+            log_grad_norm: bool) -> dict:
     metrics = {"loss": loss.detach(),
                **{k: v.detach() if torch.is_tensor(v) else v
                   for k, v in aux.items()}}
     if log_grad_norm:
-        metrics["grad_norm"] = (fsdp.grad_norm(state) if fsdp is not None
-                                else global_norm(
-            p.grad for p in state.optimizer.params if p.grad is not None))
+        # The norm the optimizer clips by (an FSDP slice's squares summed
+        # over the workers there).
+        metrics["grad_norm"] = global_norm(state.optimizer.params)
     state.apply_gradients()
     if ema_decay > 0.0:
         _ema_update(ema_decay, state)
@@ -151,8 +151,10 @@ class FsdpStep:
     whole before the forward; after the backward their gradients
     reduce-scattered to each worker's slice as the mean over the workers
     (the sync step's all-reduce gives the same mean), the whole tensors
-    released, and the rest of the gradients all-reduced as usual.  Built
-    once per model (``for_state``)."""
+    released, and the rest of the gradients all-reduced as usual.  The
+    global norm sums the slices' squares over the workers
+    (``training/optimizers.global_norm``).  Built once per model
+    (``for_state``)."""
 
     def __init__(self, model):
         from .sharding import FsdpExchange
@@ -173,20 +175,6 @@ class FsdpStep:
         if held is None or held.model is not state.model:
             held = cache["fsdp"] = cls(state.model)
         return held
-
-    def grad_norm(self, state) -> torch.Tensor:
-        """The global L2 norm of the (reduced) gradients: the slices'
-        squares summed over the workers, the replicated ones' once."""
-        import torch.distributed as dist
-        sq = [p.grad.float().pow(2).sum() for p in self.slices
-              if p.grad is not None]
-        own = torch.stack(sq).sum() if sq else torch.zeros(())
-        dist.all_reduce(own)
-        rest = [p.grad.float().pow(2).sum() for p in state.optimizer.params
-                if p not in self.slices and p.grad is not None]
-        total = own + (torch.stack(rest).sum().to(own.device) if rest
-                       else 0.0)
-        return total.sqrt()
 
 
 def _one_update(loss_fn: LossFn, needs_rng: bool, ema_decay: float,
@@ -211,14 +199,16 @@ def _one_update(loss_fn: LossFn, needs_rng: bool, ema_decay: float,
             else:
                 loss, aux = loss_fn(model, batch)
             loss.backward()
+            # The graph goes (and with it the hold on FSDP's whole
+            # parameters) before the gradients are reduce-scattered.
+            loss = loss.detach()
         finally:
             if fsdp is not None:
                 fsdp.exchange.scatter(scale)
         if reduce is not None:
             loss, aux = _reduce_step(state, loss, aux, reduce, scale,
                                      fsdp.slices if fsdp else frozenset())
-        return state, _finish(state, loss, aux, ema_decay, log_grad_norm,
-                              fsdp)
+        return state, _finish(state, loss, aux, ema_decay, log_grad_norm)
 
     # ``update.cache["fsdp"]``: an FSDP state's FsdpStep (its exchange's
     # gather and reduce-scatter times), once the first step built it.
@@ -315,8 +305,7 @@ def build_accumulating_sync_train_step(
             fsdp.exchange.scatter(scale)
         loss, aux = _reduce_step(state, loss_sum, aux_sum, all_reduce,
                                  scale, fsdp.slices if fsdp else frozenset())
-        return state, _finish(state, loss, aux, ema_decay, log_grad_norm,
-                              fsdp)
+        return state, _finish(state, loss, aux, ema_decay, log_grad_norm)
 
     return step
 

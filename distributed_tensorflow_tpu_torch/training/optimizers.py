@@ -116,12 +116,32 @@ def make_schedule(name: str, learning_rate: float, *,
     return _join(ramp, rsqrt, warmup_steps) if warmup_steps else rsqrt
 
 
-def global_norm(tensors: Iterable[torch.Tensor]) -> torch.Tensor:
-    """L2 norm over all tensors, in fp32 (a 0-dim tensor on the first
-    tensor's device).  A parameter split over the model axis is its
-    shards, each counted once."""
-    sq = [t.detach().float().pow(2).sum() for t in tensors]
-    return torch.stack([x.to(sq[0].device) for x in sq]).sum().sqrt()
+def global_norm(params: Iterable[torch.Tensor]) -> torch.Tensor:
+    """L2 norm of the parameters' gradients (``.grad``; a parameter
+    without one counts zero), in fp32 (a 0-dim tensor on the first
+    gradient's device).  A parameter split over the model axis is its
+    shards, each counted once.  A worker's FSDP slice (marked
+    ``fsdp_split`` by ``parallel/sharding.fsdp_state``) is one piece of a
+    gradient whose other pieces the other workers hold: the slices'
+    squares are summed over the process group, the replicated
+    gradients' added once, so every worker clips and logs the one global
+    norm.  That sum is a collective, which every worker reaches at the
+    same point of its step."""
+    own, split = [], []
+    for p in params:
+        if p.grad is not None:
+            sq = p.grad.detach().float().pow(2).sum()
+            (split if getattr(p, "fsdp_split", False) else own).append(sq)
+    home = (own or split)[0].device
+    total = torch.zeros((), dtype=torch.float32, device=home)
+    if split:
+        import torch.distributed as dist
+        pieces = torch.stack([x.to(split[0].device) for x in split]).sum()
+        dist.all_reduce(pieces)
+        total = total + pieces.to(home)
+    if own:
+        total = total + torch.stack([x.to(home) for x in own]).sum()
+    return total.sqrt()
 
 
 class Optimizer:
@@ -165,7 +185,7 @@ class Optimizer:
                 p.grad = torch.zeros_like(p)
         clip = self.spec.grad_clip_norm
         if clip > 0.0:
-            norm = global_norm(p.grad for p in self.params)
+            norm = global_norm(self.params)
             # optax clip_by_global_norm: g / norm * max_norm when the norm
             # reaches the limit, untouched below it.
             below = norm < clip

@@ -179,6 +179,43 @@ for n, p in whole.items():
 for n, p in repl.model.named_parameters():
     arrays["repl:" + n] = p.detach().numpy()
 
+# Clipping by the global norm: a small GPT (slices along dim 0 and along
+# other dims), plain SGD so that the clip factor is the update's scale,
+# a limit the first step's norm is over.
+from distributed_tensorflow_tpu_torch.models import gpt
+CLIP = 0.05
+gcfg = gpt.GptConfig(vocab_size=64, hidden_size=32, num_layers=2,
+                     num_heads=2, intermediate_size=64, max_position=64,
+                     dtype="float32")
+def gpt_state():
+    return TrainState.create(
+        gpt.GptLM(gcfg, device="cpu", seed=0, param_dtype=torch.float32),
+        make_optimizer("sgd", 0.5, grad_clip_norm=CLIP),
+        params_to_tree=gpt.params_to_jax, params_from_tree=gpt.params_from_jax)
+def gpt_loss(m, batch):
+    tokens = torch.as_tensor(batch["tokens"]).long()
+    loss, acc = gpt.lm_loss(m(tokens), tokens)
+    return loss, {"accuracy": acc}
+cr = gpt_state()
+cf = sh.fsdp_state(mesh, gpt_state(), min_size=512)
+res["clip"] = CLIP
+res["clip_split"] = {n: i.dim for n, _, _, i in sh.fsdp_entries(cf.model)}
+step_r = sync.build_sync_train_step(gpt_loss, all_reduce=ar,
+                                    log_grad_norm=True)
+step_f = sync.build_sync_train_step(gpt_loss, all_reduce=ar,
+                                    log_grad_norm=True)
+res["clip_norm_repl"], res["clip_norm_fsdp"] = [], []
+for _ in range(3):
+    cr, m = step_r(cr, {"tokens": half(d["tokens"])})
+    res["clip_norm_repl"].append(float(m["grad_norm"]))
+    cf, m = step_f(cf, {"tokens": half(d["tokens"])})
+    res["clip_norm_fsdp"].append(float(m["grad_norm"]))
+whole = sh.FsdpExchange(cf.model).gather_named(dict(cf.model.named_parameters()))
+for n, p in whole.items():
+    arrays["clipf:" + n] = p.detach().numpy()
+for n, p in cr.model.named_parameters():
+    arrays["clipr:" + n] = p.detach().numpy()
+
 # Composed with tensor parallelism over an in-process model axis.
 tp_mesh = mesh_lib.create_mesh(data=1, model=2, devices=[CPU] * 2)
 rules = sh.ShardingRules([(r"hid/kernel", sh.P(None, "model"))])
@@ -308,6 +345,29 @@ def test_fsdp_step_matches_replicated_step(ranks):
             np.testing.assert_allclose(a0[key], a0["repl:" + name],
                                        atol=1e-5, err_msg=name)
             np.testing.assert_array_equal(a0[key], a1[key])
+
+
+def test_fsdp_clips_by_the_global_norm(ranks):
+    """JAX's FSDP step clips by the norm of the whole gradient (optax's
+    clip_by_global_norm over the global arrays).  A small GPT under FSDP,
+    its slices along dim 0 and along other dims, with a clip the norm is
+    over: the FSDP steps equal the replicated ones within atol 1e-5, every
+    worker logs the one norm, and the leaves FSDP leaves whole (biases,
+    LayerNorm scales) stay equal on every worker."""
+    (r0, a0), (r1, a1) = ranks[1]
+    assert r0["clip_norm_repl"][0] > r0["clip"]
+    dims = set(r0["clip_split"].values())
+    assert 0 in dims and dims - {0}, dims
+    np.testing.assert_allclose(r0["clip_norm_fsdp"], r0["clip_norm_repl"],
+                               rtol=1e-5)
+    assert r0["clip_norm_fsdp"] == r1["clip_norm_fsdp"]
+    names = [k[len("clipf:"):] for k in a0.files if k.startswith("clipf:")]
+    assert set(names) - set(r0["clip_split"])        # replicated leaves
+    for name in names:
+        np.testing.assert_allclose(a0["clipf:" + name], a0["clipr:" + name],
+                                   atol=1e-5, err_msg=name)
+        np.testing.assert_array_equal(a0["clipf:" + name],
+                                      a1["clipf:" + name], err_msg=name)
 
 
 def test_fsdp_sharding_survives_the_step(ranks):

@@ -129,7 +129,7 @@ def test_pipeline_forward_matches_jax(rows, n_micro):
     x, _ = _data(4, rows)
     fn = tpp.make_pipeline_fn(_mesh(), tstage, n_micro=n_micro)
     with torch.no_grad():
-        out = fn(tpp.shard_stacked_params(_mesh(), w), torch.tensor(x))
+        out = fn([torch.tensor(ws) for ws in w], torch.tensor(x))
     np.testing.assert_allclose(out.numpy(), _jax_pipe_out(w, x, n_micro),
                                rtol=1e-5, atol=1e-5)
     np.testing.assert_allclose(out.numpy(), np.asarray(sequential(w, x)),
@@ -147,6 +147,18 @@ def test_pipeline_gradients_match_sequential():
                                rtol=1e-4, atol=1e-5)
 
 
+def _gpipe_step(mesh, stage_fn, loss_from_output, *, n_micro):
+    """JAX's ``build_pipeline_train_step`` as the port composes it: the
+    plain sync step over a loss whose forward runs the GPipe schedule
+    (``registry.build_gpt_pipeline``'s GPipe path)."""
+    fwd = tpp.make_pipeline_fn(mesh, stage_fn, n_micro=n_micro)
+
+    def loss_fn(model, batch):
+        return loss_from_output(fwd(model.stages, batch[0]), batch)
+
+    return build_sync_train_step(loss_fn)
+
+
 def test_pipeline_train_step():
     w = stacked(seed=7)
     x, y = _data(8, 8)
@@ -156,8 +168,7 @@ def test_pipeline_train_step():
         return loss, {"accuracy": -loss}
 
     state = _toy_state(_mesh(), w)
-    step = tpp.build_pipeline_train_step(_mesh(), tstage, loss_from_output,
-                                         n_micro=4)
+    step = _gpipe_step(_mesh(), tstage, loss_from_output, n_micro=4)
     batch = (torch.tensor(x), torch.tensor(y))
     losses = []
     for _ in range(5):
@@ -257,8 +268,8 @@ def test_1f1b_matches_gpipe_step():
         return _mse_head(None, out, b)
 
     gp = _toy_state(_mesh(), w)
-    gp, gp_m = tpp.build_pipeline_train_step(
-        _mesh(), tstage, loss_from_output, n_micro=2)(gp, batch)
+    gp, gp_m = _gpipe_step(_mesh(), tstage, loss_from_output,
+                           n_micro=2)(gp, batch)
     f = _toy_state(_mesh(), w)
     f, f_m = tpp.build_1f1b_pipeline_train_step(
         _mesh(), tstage, _mse_head, n_micro=2)(f, batch)
@@ -349,12 +360,6 @@ def test_interleaved_schedule_models_smaller_bubble_than_1f1b():
             < len(tpp.schedule_1f1b(P, M)[0]))
 
 
-def test_min_buffer_slots_exact():
-    iv = [(0, 0, 4), (2, 2, 6)]
-    assert tpp._min_buffer_slots(iv, 8) == 3
-    assert tpp._min_buffer_slots([(0, 0, 2), (2, 3, 5)], 8) == 1
-
-
 def test_interleaved_step_matches_autodiff_ground_truth():
     P_pipe, v, M = 2, 2, 4
     V = P_pipe * v
@@ -376,18 +381,6 @@ def test_interleaved_step_matches_autodiff_ground_truth():
     moved = np.stack([p.detach().numpy() for p in state.model.stages])
     np.testing.assert_allclose(moved, w - 0.05 * np.asarray(gt_grad),
                                rtol=1e-4, atol=1e-5)
-
-
-def test_shard_params_reject_bad_layouts():
-    mesh = _mesh(2)
-    with pytest.raises(ValueError, match="interleaved param dims"):
-        tpp.shard_interleaved_params(mesh, np.zeros((2, 3, 4)))
-    with pytest.raises(ValueError, match="leading dim"):
-        tpp.shard_stacked_params(mesh, np.zeros((3, 4)))
-    # Chunk i * n_pipe + s sits at [i, s].
-    chunks = tpp.shard_interleaved_params(
-        mesh, np.arange(8, dtype=np.float32).reshape(2, 2, 2))
-    assert [c.tolist() for c in chunks] == [[0, 1], [2, 3], [4, 5], [6, 7]]
 
 
 # ------------------------------------------------------- the pipelined GPT
@@ -471,6 +464,41 @@ def test_split_is_jax_and_merge_is_its_inverse():
     merged = tgpt.merge_pipeline_params(port, SMALL["num_layers"])
     jax.tree.map(lambda a, b: np.testing.assert_array_equal(
         np.asarray(a), np.asarray(b)), params, merged)
+
+
+def test_pipelined_gpt_rejects_indivisible_layers():
+    """Every chunk holds the same number of blocks: 4 layers fit neither
+    3 positions nor 2 positions of 3 virtual stages."""
+    cfg = tgpt.GptConfig(**SMALL)
+    plain = tgpt.GptLM(cfg, device=CPU, seed=0)
+    with pytest.raises(ValueError, match="divisible"):
+        tgpt.PipelinedGptLM.from_gpt(plain, [CPU] * 3)
+    with pytest.raises(ValueError, match="divisible"):
+        tgpt.PipelinedGptLM.from_gpt(plain, [CPU] * 2, n_virtual=3)
+
+
+def test_interleaved_tree_keeps_chunk_i_p_plus_s_at_i_s():
+    """Megatron's round robin (JAX gpt.py's interleaved layout): global
+    chunk ``i * n_pipe + s`` is position ``s``'s ``i``-th chunk and sits
+    at ``[i, s]`` of the checkpoint's stages; the tree goes back to the
+    same modules."""
+    P_, v = 2, 2
+    cfg = tgpt.GptConfig(**SMALL)
+    plain = tgpt.GptLM(cfg, device=CPU, seed=3)
+    want = tgpt.params_to_jax(
+        {n: p.detach().clone() for n, p in plain.named_parameters()})
+    model = tgpt.PipelinedGptLM.from_gpt(plain, [CPU] * P_, v)
+    named = dict(model.named_parameters())
+    tree = model.params_to_tree(named)
+    for i in range(v):
+        for s_ in range(P_):
+            jax.tree.map(lambda a, b: np.testing.assert_array_equal(
+                np.asarray(a)[i, s_, 0], np.asarray(b)),
+                tree["stages"], want[f"layer{i * P_ + s_}"])
+    back = model.params_from_tree(tree)
+    assert set(back) == set(named)
+    for n, p in named.items():
+        np.testing.assert_array_equal(back[n].numpy(), p.detach().numpy())
 
 
 @pytest.mark.parametrize("schedule", ["gpipe", "1f1b", "interleaved"])
