@@ -39,7 +39,10 @@ Phases, one JSON line each on stdout:
    the train_parallel arms' per-shard shapes (8 and 4 heads of the train
    step; the parallel CLI's gpt_mini, 1 head a seq device) and at a
    pipeline stage's micro-batch (the train step's [1, 1024, 16, 128],
-   the pipeline CLI's [8, 512, 4, 32]; K3 at their rows), K6, K7a and
+   the pipeline CLI's [8, 512, 4, 32]; K3 at their rows) and at the
+   config ladder's (BERT-tiny's [100, 128, 2, 64] non-causal under a
+   ragged key-padding mask, ViT-tiny's [100, 64, 4, 32]; K3 on 128-wide
+   fp32 and bf16 rows), K6, K7a and
    K7b at the tp2 x ring2 step's hops ([8, 512, 8, 128]: visible,
    diagonal, future); K8, on no path, at the
    int8 MLP's mlp_in dgrad shape, with and without g, also as its three
@@ -273,6 +276,32 @@ Phases, one JSON line each on stdout:
     state, the consensus within the codec's error bound of the exact
     mean); it prints each leg's ms and GB/s.  The K1/K2a/K2b/K3 rows carry ``async_trainer_launches``
     (both workers of ``async_gpt``).
+19. The config ladder (slice 7b), its parts beside earlier ones:
+    ``train_models`` beside 15-16 (its counted steps under the busy
+    lock), the ResNet-20 rung beside 9 (``fleet``), the other rungs
+    beside ``async_exchange``.  ``train_models``, in this process at the
+    published widths and the
+    CLI's batch of 100: BERT-tiny (S=128, 2 heads of 64) and ViT-tiny (64
+    patches, 4 heads of 32) through ``registry.build`` with
+    ``attention_backend="pallas"`` and ``fused_ln=True``: one step's loss
+    and gradients through the kernels against the plain versions' step
+    (TRAIN_*), then ``MODELS["steps"]`` Adam steps with launches exactly
+    K1/K2a/K2b once a layer and K3 6 (BERT: ln_emb, two a layer, mlm_ln)
+    or 9 (ViT: two a layer, ln_final) a step, the loss finite and
+    falling; ResNet-20 (its stateful step; gate: the running statistics
+    move) and LeNet-5, SGD on the card, no kernel launched.  ``ladder``:
+    the same four through the trainer CLI, processes side by side:
+    LeNet-5 async with two workers (gate: they average), ResNet-20 sync
+    with two gloo workers on the one card (gates: equal parameter and
+    model-state digests, then ``--mode=eval`` restoring the step and the
+    trained test accuracy), BERT-tiny and ViT-tiny
+    (``--data_augmentation=true``) with ``--attention_backend=pallas
+    --fused_layer_norm`` (gates: launches exactly as their steps and eval
+    forwards predict, a finite loss).  The K1/K2a/K2b/K3 rows'
+    ``train_models_<bert|vit>`` and ``ladder_<bert|vit>`` paths hold the
+    ``kernels`` phase's ladder cases (BERT's ragged ``kv_mask`` at
+    [100, 128, 2, 64] non-causal, ViT's [100, 64, 4, 32]; K3 on BERT's
+    12800 fp32 rows and ViT's 6400 bf16 rows of 128) with those launches.
 
 With ``--nccl`` the script runs ``env`` and the reference job alone,
 with one worker on each visible card (the backend rule of
@@ -315,6 +344,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import functools
 import json
 import math
 import os
@@ -468,6 +498,19 @@ TRAINER = dict(steps=200, batch=100, hidden=100, lr=0.01,
                # (every 20) to make room for the pipeline and FSDP phases.
                gpt_batch=32, gpt_seq=512, gpt_steps=30, gpt_save=10,
                gen_tokens=32)
+
+
+# The config ladder (slice 7b).  train_models: BERT-tiny at
+# --bert_seq_len=128 and ViT-tiny (64 patches) with attention_backend=
+# "pallas" and fused_ln=True, ResNet-20 and LeNet-5, each at the CLI's
+# default --batch_size=100 and its published widths, `steps` steps in
+# this process (the transformers' Adam at 1e-3, the CNNs' SGD at
+# `cnn_lr`); then the same four through the trainer CLI, `cli_steps`
+# global steps each: LeNet-5 async with two workers, ResNet-20 sync with
+# two gloo workers on the one card (and --mode=eval), BERT-tiny and
+# ViT-tiny (--data_augmentation=true) on the kernels.
+MODELS = dict(batch=100, bert_seq=128, vit_patches=64, steps=40,
+              cnn_lr=0.1, lenet_lr=0.2, cli_steps=12, async_period=4)
 
 
 _EMIT_LOCK = threading.Lock()
@@ -649,9 +692,10 @@ def k1_timings(q, k, v, mask, valid, *, causal, window) -> dict:
         0 if mask is None else B * S * 4)
     b_ms, b_by = bound(bytes_moved, 4 * D * pairs)
     qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
-    if mask is None and causal and not window:
+    if mask is None and not window:
         def lib():
-            return F.scaled_dot_product_attention(qt, kt, vt, is_causal=True)
+            return F.scaled_dot_product_attention(qt, kt, vt,
+                                                  is_causal=causal)
     else:
         def lib():
             return F.scaled_dot_product_attention(qt, kt, vt,
@@ -683,7 +727,10 @@ def check_k3(name, x, scale, bias) -> dict:
     if not (out.dtype == torch.float32 and err <= K3_TOL):
         raise AssertionError(f"K3 {name}: max_abs_err {err} (tol "
                              f"{K3_TOL}), dtype {out.dtype}")
-    s16, b16 = scale.to(torch.bfloat16), bias.to(torch.bfloat16)
+    # Weights in x's dtype: F.layer_norm's one-call form writes x's dtype
+    # (for bf16 rows 2 bytes an element where K3 writes 4: the yardstick
+    # moves fewer bytes).
+    s16, b16 = scale.to(x.dtype), bias.to(x.dtype)
     b_ms, b_by = bound(rows * Hd * (x.element_size() + 4) + 2 * Hd * 4,
                        8 * rows * Hd)
 
@@ -691,15 +738,14 @@ def check_k3(name, x, scale, bias) -> dict:
         return ln.layer_norm(x, scale, bias)
 
     def lib():
-        # bf16 weights: F.layer_norm's one-call form writes bf16 (2 bytes
-        # an element where K3 writes 4: the yardstick moves fewer bytes).
         return F.layer_norm(x, (Hd,), s16, b16, 1e-6)
     ms, library_ms = cuda_ms(kernel), cuda_ms(lib)
     return dict(
         case=name, rows=rows, H=Hd, max_abs_err=err, tol=K3_TOL, ms=ms,
         plain_ms=cuda_ms(lambda: ln.layer_norm_reference(x, scale, bias)),
         library_ms=library_ms, ratio_to_library=ms / library_ms,
-        library="F.layer_norm, bf16 weights, bf16 out", bound_ms=b_ms,
+        library=f"F.layer_norm, {str(x.dtype)[6:]} weights and out",
+        dtype=str(x.dtype)[6:], bound_ms=b_ms,
         bound_by=b_by, host_ms=host_ms(kernel), library_host_ms=host_ms(lib),
         device_ms=graph_ms(kernel), library_device_ms=graph_ms(lib))
 
@@ -802,15 +848,43 @@ def check_kernels(dev):
         dev, g, mini["heads"], mini["head_dim"], S=PIPELINE["cli_seq"],
         cases=[("train_pipeline_cli", PIPELINE["cli_batch"]
                 // PIPELINE["cli_micro"], None, True, 0, mini["head_dim"])])
+    # The config ladder (slice 7b): BERT-tiny's attention (B=100, S=128,
+    # 2 heads of 64, non-causal) under a ragged key-padding mask (per-row
+    # valid lengths from the seed, the first row half padded: the
+    # synthetic batches' all-ones mask would hide a mask fault) and
+    # ViT-tiny's (B=100, 64 patches, 4 heads of 32, no mask: the sequence
+    # is shorter than one 128-row tile); K3 on BERT's fp32 rows (ln_emb,
+    # mlm_ln and the fp32 residual sums) and bf16 rows (layer 0's
+    # ln_attn) and on ViT's bf16 rows, all 128 wide.
+    M = MODELS
+    Bm, Sb, Sv = M["batch"], M["bert_seq"], M["vit_patches"]
+    lengths = torch.randint(Sb // 4, Sb + 1, (Bm,), generator=g, device=dev)
+    lengths[0] = Sb // 2
+    ragged = (torch.arange(Sb, device=dev)[None, :]
+              < lengths[:, None]).to(torch.int32)
+    k2bert = check_backward_kernels(dev, g, 2, 64, S=Sb, cases=[
+        ("bert_ragged_kv_mask", Bm, ragged, False, 0, 64)])
+    k2vit = check_backward_kernels(dev, g, 4, 32, S=Sv, cases=[
+        ("vit", Bm, None, False, 0, 32)])
+    for name, rows, dtype in (("bert_fp32", Bm * Sb, torch.float32),
+                              ("bert_bf16", Bm * Sb, torch.bfloat16),
+                              ("vit_bf16", Bm * Sv, torch.bfloat16)):
+        x = torch.randn(rows, 128, generator=g, device=dev).to(dtype)
+        scale = 1 + 0.1 * torch.randn(128, generator=g, device=dev)
+        bias = 0.1 * torch.randn(128, generator=g, device=dev)
+        k3_cases.append(check_k3(name, x, scale, bias))
     k45 = check_int8_kernels(dev, g)
     k67 = check_ring_kernels(dev, g)
     k67p = check_parallel_ring_kernels(dev, g)
     k1_all = k1_cases + [k2["fwd"], k2t["fwd"], k2pp["fwd"],
-                         k2pc["fwd"]] + [r["fwd"] for r in k2p.values()]
+                         k2pc["fwd"]] + [r["fwd"] for r in k2p.values()] + [
+        k2bert["fwd"], k2vit["fwd"]]
     k2_dq = (k2["dq"] + k2t["dq"] + k2pp["dq"] + k2pc["dq"]
-             + [r["dq"][0] for r in k2p.values()])
+             + [r["dq"][0] for r in k2p.values()] + k2bert["dq"]
+             + k2vit["dq"])
     k2_dkv = (k2["dkv"] + k2t["dkv"] + k2pp["dkv"] + k2pc["dkv"]
-              + [r["dkv"][0] for r in k2p.values()])
+              + [r["dkv"][0] for r in k2p.values()] + k2bert["dkv"]
+              + k2vit["dkv"])
     emit("kernels", flash_attention_fwd=k1_all,
          layer_norm_fwd=k3_cases, flash_attention_bwd_dq=k2_dq,
          flash_attention_bwd_dkv=k2_dkv,
@@ -927,7 +1001,19 @@ def check_kernels(dev):
     def parallel_more(kind):
         row = k2p["tp2"][kind] if kind == "fwd" else k2p["tp2"][kind][0]
         train_row = k2[kind] if kind == "fwd" else k2[kind][0]
-        return {"train_parallel_tp2_int8": row, "train_fsdp": train_row}
+        return {"train_parallel_tp2_int8": row, "train_fsdp": train_row,
+                **ladder(kind)}
+
+    # The config ladder: BERT-tiny's and ViT-tiny's shapes, in process
+    # (train_models) and through the trainer CLI (ladder).
+    def ladder(kind):
+        out = {}
+        for model, rows in (("bert", k2bert), ("vit", k2vit)):
+            row = rows[kind] if kind == "fwd" else rows[kind][0]
+            out[f"train_models_{model}"] = out[f"ladder_{model}"] = row
+        return out
+    for model, case in (("bert", k3_cases[9]), ("vit", k3_cases[11])):
+        k3_arms[f"train_models_{model}"] = k3_arms[f"ladder_{model}"] = case
     return [
         summary("flash_attention_fwd", "flash_attention.cu",
                 "flash_attention.py:119", "train",
@@ -1073,9 +1159,9 @@ def check_backward_kernels(dev, g, H, D, S=None, cases=None):
         extra = 0 if mask is None else B * S * 4
         qt, kt, vt = (x.detach().transpose(1, 2).requires_grad_()
                       for x in (q, k, v))
-        if mask is None and causal and not window:
+        if mask is None and not window:
             lib_out = F.scaled_dot_product_attention(qt, kt, vt,
-                                                     is_causal=True)
+                                                     is_causal=causal)
         else:
             lib_out = F.scaled_dot_product_attention(qt, kt, vt,
                                                      attn_mask=valid)
@@ -3125,13 +3211,16 @@ def cells_drill(dev, run_dir: str, tmp: str) -> dict:
         launches=replica_launches(os.path.join(tmp, "cell_b")))
 
 
-def fleet_phase(dev, smi: str, model, whole: dict) -> dict:
+def fleet_phase(dev, smi: str, model, whole: dict,
+                timed_beside=()) -> dict:
     """Phase ``fleet``: the serving fleet tier at the serve phase's width.
     ``save_raw`` writes the model as the ``checkpoint`` phase does; the
     fleet's two replicas give the in-process engine's greedy tokens,
     survive a replica's SIGKILL with no failed request (respawn), and
     scale up on a burning objective; two cells survive a cell's SIGKILL
-    behind the global router.  Returns the replicas' summed launches."""
+    behind the global router.  ``timed_beside``: the lines of the phases
+    that run beside it (its times are then contended).  Returns the
+    replicas' summed launches."""
     import numpy as np
     from distributed_tensorflow_tpu_torch.models import gpt
     from distributed_tensorflow_tpu_torch.tools import checkpoint_io
@@ -3163,6 +3252,7 @@ def fleet_phase(dev, smi: str, model, whole: dict) -> dict:
         for k, v in counts.items():
             total[k] = total.get(k, 0) + v
     emit("fleet", card=smi, model="gpt_406m_width",
+         timed_beside=list(timed_beside),
          seconds=time.perf_counter() - t_phase,
          seconds_by_part=dict(setup=setup_s, **fleet.pop("seconds"),
                               cells_drill=cells_s),
@@ -4172,11 +4262,32 @@ def train_fsdp(dev, smi: str, bf16: dict, alone: bool = False) -> dict:
 # ------------------------------------------------------------- trainer
 
 
+_PORTS_LOCK = threading.Lock()
+_PORTS_HANDED: set = set()
+
+
 def free_port() -> int:
+    """A free port on localhost whose port + 1000 is free too (a worker
+    without a PS, ``--ps_hosts=``, whose chief listens at this port hosts
+    the coordination service at port + 1000), neither of them handed out
+    before by this process (parts side by side start their CLIs at
+    once)."""
     import socket
-    with socket.socket() as s:
-        s.bind(("127.0.0.1", 0))
-        return s.getsockname()[1]
+    with _PORTS_LOCK:
+        while True:
+            with socket.socket() as s:
+                s.bind(("127.0.0.1", 0))
+                port = s.getsockname()[1]
+            pair = {port, port + 1000}
+            if port + 1000 > 65535 or pair & _PORTS_HANDED:
+                continue
+            with socket.socket() as s:
+                try:
+                    s.bind(("127.0.0.1", port + 1000))
+                except OSError:
+                    continue
+            _PORTS_HANDED.update(pair)
+            return port
 
 
 def finish(proc: CliProcess, timeout_s: float) -> list:
@@ -4509,6 +4620,319 @@ def trainer(dev, smi: str) -> tuple:
         return launches, async_launches
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
+
+
+# ------------------------------------------------- the config ladder (7b)
+
+
+def model_flags(**kw):
+    """The trainer's flags for ``registry.build`` of a ladder model (its
+    transformers on the kernels: ``--attention_backend=pallas
+    --fused_layer_norm``)."""
+    import types
+    base = dict(learning_rate=1e-3, seed=SEED, optimizer="",
+                hidden_units=TRAINER["hidden"],
+                bert_seq_len=MODELS["bert_seq"], attention_backend="pallas",
+                fused_layer_norm=True, bert_dtype="bfloat16")
+    base.update(kw)
+    return types.SimpleNamespace(**base)
+
+
+def no_data_dir() -> str:
+    """A data directory that holds nothing: the MNIST and CIFAR readers
+    fall back to their deterministic synthetic stand-ins."""
+    return os.path.join(tempfile.gettempdir(), "chip_smoke_no_data")
+
+
+def check_model_step(dev, bundle, batch) -> dict:
+    """One step's loss and gradients of a ladder transformer through the
+    kernels (K1, K2a/K2b, K3) against the same step on their plain
+    versions (dense attention, plain LayerNorm) from the same weights and
+    batch, within the TRAIN_* tolerances."""
+    import torch
+    model = bundle.state.model
+    plain = type(model)(dataclasses.replace(
+        model.cfg, attention_backend="xla", fused_ln=False), device=dev)
+    plain.load_state_dict(model.state_dict())
+    tols = (TRAIN_LOSS_TOL, TRAIN_GRAD_NORM_RTOL, TRAIN_GRAD_MIN_COS)
+    out = compare_steps(step_grads(model, bundle.loss_fn, batch),
+                        step_grads(plain, bundle.loss_fn, batch), tols)
+    del plain
+    torch.cuda.empty_cache()
+    return dict(out, loss_tol=tols[0], grad_norm_rtol=tols[1],
+                grad_min_cos=tols[2])
+
+
+def model_steps(name, step, state, batches) -> dict:
+    """``step`` over the batches (on the card already) with the launch
+    counters set to 0 just before and read just after; the loss finite
+    and falling (the mean of the last five below the first: Adam's first
+    steps overshoot on ViT's synthetic CIFAR)."""
+    import torch
+    # Under the busy lock: the parts beside this phase launch kernels in
+    # this process only under it (their in-process decodes).
+    with _BUSY_LOCK:
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        losses, step_ms = [], []
+        for batch in batches:
+            t = time.perf_counter()
+            state, metrics = step(state, batch)
+            losses.append(float(metrics["loss"]))      # waits for the step
+            step_ms.append((time.perf_counter() - t) * 1e3)
+        launches = launch_counts()
+    if not all(map(math.isfinite, losses)):
+        raise AssertionError(f"{name}: non-finite loss {losses}")
+    last5 = statistics.mean(losses[-5:])
+    if not last5 < losses[0]:
+        raise AssertionError(f"{name}: loss did not fall: {losses}")
+    return dict(state=state, launches=launches, losses=losses,
+                loss_first=losses[0], loss_last5_mean=last5,
+                step_ms=step_ms, step_ms_median=statistics.median(
+                    step_ms[2:]))
+
+
+def train_transformer(dev, smi: str, name: str) -> dict:
+    """BERT-tiny or ViT-tiny through ``registry.build`` on the kernels:
+    the kernel-vs-plain step, then ``MODELS["steps"]`` sync steps with
+    launches exactly K1, K2a and K2b once a layer and K3 at every
+    LayerNorm of a forward (BERT: ln_emb, two a layer, mlm_ln; ViT: two a
+    layer, ln_final)."""
+    import torch
+    from distributed_tensorflow_tpu_torch.models import registry
+    from distributed_tensorflow_tpu_torch.parallel.sync import (
+        build_sync_train_step)
+    from distributed_tensorflow_tpu_torch.training.loop import to_device
+    M = MODELS
+    t0 = time.perf_counter()
+    bundle = registry.build(name, model_flags(), dev)
+    data = bundle.load_datasets(no_data_dir()).train
+    checked = check_model_step(dev, bundle,
+                               to_device(data.next_batch(M["batch"]), dev))
+    batches = [to_device(data.next_batch(M["batch"]), dev)
+               for _ in range(M["steps"])]
+    step = build_sync_train_step(bundle.loss_fn)
+    setup_s = time.perf_counter() - t0
+    run = model_steps(name, step, bundle.state, batches)
+    cfg = bundle.state.model.cfg
+    L = cfg.num_layers
+    per_step = {"flash_attention_fwd": L, "flash_attention_bwd_dq": L,
+                "flash_attention_bwd_dkv": L,
+                "layer_norm_fwd": 2 * L + (2 if name == "bert_tiny" else 1)}
+    expect_launches(name, run["launches"], per_step, M["steps"])
+    seq = M["bert_seq"] if name == "bert_tiny" else M["vit_patches"]
+    state = run.pop("state")
+    del bundle, state, batches
+    torch.cuda.empty_cache()
+    short = name.split("_")[0]
+    emit(f"train_models_{short}", card=smi, model=name, batch=M["batch"],
+         seq_len=seq, heads=cfg.num_heads, head_dim=cfg.head_dim,
+         layers=L, optimizer="adam", lr=1e-3, launches_per_step=per_step,
+         kernel_vs_plain=checked, setup_s=setup_s,
+         tokens_per_s=M["batch"] * seq / (run["step_ms_median"] / 1e3),
+         **run)
+    return run["launches"]
+
+
+def train_cnn(dev, smi: str, name: str) -> None:
+    """ResNet-20 (its stateful sync step: BatchNorm's running statistics
+    must move) or LeNet-5 on the card, ``MODELS["steps"]`` steps of SGD
+    at the CLI's batch; neither reaches a kernel (their convolutions and
+    products are cuDNN and cuBLAS calls, XLA ops in JAX), so every launch
+    counter stays at 0."""
+    import torch
+    from distributed_tensorflow_tpu_torch.models import registry
+    from distributed_tensorflow_tpu_torch.parallel import sync
+    from distributed_tensorflow_tpu_torch.training.loop import to_device
+    M = MODELS
+    lr = M["lenet_lr"] if name == "lenet5" else M["cnn_lr"]
+    bundle = registry.build(name, model_flags(learning_rate=lr), dev)
+    data = bundle.load_datasets(no_data_dir()).train
+    batches = [to_device(data.next_batch(M["batch"]), dev)
+               for _ in range(M["steps"])]
+    if bundle.stateful_loss_fn is not None:
+        step = sync.build_stateful_sync_train_step(bundle.stateful_loss_fn)
+    else:
+        step = sync.build_sync_train_step(bundle.loss_fn)
+    stats = bundle.state.model_state or {}
+    before = {k: v.clone() for k, v in stats.items()}
+    run = model_steps(name, step, bundle.state, batches)
+    run.pop("state")
+    if any(run["launches"].values()):
+        raise AssertionError(f"{name} launched kernels: {run['launches']}")
+    moved = {k: (stats[k] - v).abs().max().item() for k, v in before.items()}
+    if stats and not max(moved.values()) > 0:
+        raise AssertionError(f"{name}: the running statistics did not move")
+    del bundle, batches
+    torch.cuda.empty_cache()
+    emit(f"train_models_{name}", card=smi, model=name, batch=M["batch"],
+         optimizer="sgd", lr=lr,
+         images_per_s=M["batch"] / (run["step_ms_median"] / 1e3),
+         running_stats_max_move=max(moved.values()) if moved else None,
+         **run)
+
+
+def train_models(dev, smi: str) -> dict:
+    """Phase ``train_models``: the ladder's models in this process at
+    their published widths.  Returns BERT's and ViT's launches, by path."""
+    t0 = time.perf_counter()
+    out = {"train_models_bert": train_transformer(dev, smi, "bert_tiny"),
+           "train_models_vit": train_transformer(dev, smi, "vit_tiny")}
+    train_cnn(dev, smi, "resnet20")
+    train_cnn(dev, smi, "lenet5")
+    emit("train_models_done", seconds=time.perf_counter() - t0)
+    return out
+
+
+def ladder_job(dev, tmp: str, label: str, model: str, workers: int,
+               *extra, steps: int | None = None) -> dict:
+    """One rung through the trainer CLI: ``workers`` workers (no PS: the
+    chief hosts the coordination service) started together on the card,
+    the CLI's default batch; each worker's lines and numbers."""
+    M = MODELS
+    ports = [free_port() for _ in range(workers)]
+    metrics = os.path.join(tmp, label + ".jsonl")
+    common = ["--ps_hosts=", "--worker_hosts=" + ",".join(
+        f"localhost:{p}" for p in ports), f"--data_dir={no_data_dir()}",
+        f"--model={model}", f"--train_steps={steps or M['cli_steps']}",
+        f"--batch_size={M['batch']}", "--log_every=1",
+        f"--logdir={os.path.join(tmp, label)}", f"--device={dev}",
+        f"--metrics_file={metrics}", *extra]
+    t0 = time.perf_counter()
+    with contextlib.ExitStack() as stack:
+        procs = {t: stack.enter_context(CliProcess(
+            "train", "--job_name=worker", f"--task_index={t}", *common))
+            for t in [*range(1, workers), 0]}
+        outs = {t: finish(procs[t], 300) for t in range(workers)}
+    wall_s = time.perf_counter() - t0
+    nums = []
+    for t in range(workers):
+        path = metrics + (f".task{t}" if workers > 1 else "")
+        n = trainer_numbers(outs[t], path, t)
+        n["losses"] = [float(x.split(" loss ")[1].split()[0])
+                       for x in outs[t]
+                       if x.startswith(f"Worker {t}: traing step")]
+        if not (n["losses"] and all(map(math.isfinite, n["losses"]))):
+            raise AssertionError(f"{label} worker {t}: losses {n['losses']}"
+                                 + "".join(outs[t][-30:]))
+        nums.append(n)
+    return dict(common=common, wall_s=wall_s, text={
+        t: "".join(lines) for t, lines in outs.items()}, workers=nums)
+
+
+def ladder_lenet(dev, tmp: str, smi: str) -> None:
+    """LeNet-5, async (``--sync_replicas=false``): two workers, each a
+    replica, averaging every ``async_period`` local steps through the
+    coordination service; paced as the async MNIST jobs are, so that
+    their windows overlap."""
+    M = MODELS
+    out = ladder_job(dev, tmp, "ladder_lenet", "lenet5", 2,
+                     "--sync_replicas=false",
+                     f"--async_sync_period={M['async_period']}",
+                     f"--learning_rate={M['lenet_lr']}",
+                     f"--inject_step_delay={ASYNC['overlap_pace_s']}:0:"
+                     "1000000000", steps=4 * M["cli_steps"])
+    both = out["text"][0] + out["text"][1]
+    if "averaged parameters with 1 peer(s)" not in both:
+        raise AssertionError("ladder lenet5: no averaging: " + both[-3000:])
+    for n in out["workers"]:
+        if any(n["launches"].values()):
+            raise AssertionError(f"ladder lenet5 launched {n['launches']}")
+    emit("ladder_lenet5", card=smi, wall_s=out["wall_s"],
+         averaged_lines=both.count("averaged parameters with 1 peer(s)"),
+         workers=out["workers"])
+    return {}
+
+
+def ladder_resnet(dev, tmp: str, smi: str) -> None:
+    """ResNet-20, sync over two gloo workers on the one card: BatchNorm's
+    statistics over both workers' rows, so the parameters AND the
+    running statistics stay bit-equal (equal digests); then
+    ``--mode=eval`` restores the checkpoint, its running statistics
+    included, and reports the trained run's test accuracy."""
+    M = MODELS
+    out = ladder_job(dev, tmp, "ladder_resnet", "resnet20", 2,
+                     "--sync_replicas=true",
+                     f"--learning_rate={M['cnn_lr']}")
+    for key in ("parameter digest", "model state digest"):
+        digests = {line_value(out["text"][t].splitlines(keepends=True),
+                              f"Worker {t}: {key}") for t in (0, 1)}
+        if len(digests) != 1:
+            raise AssertionError(f"ladder resnet20: {key}s differ: "
+                                 f"{digests}")
+    if " over gloo " not in out["text"][0]:
+        raise AssertionError("ladder resnet20: no gloo group: "
+                             + out["text"][0][-3000:])
+    # Worker 0's flags alone, the cluster of one.
+    worker0 = [f"--worker_hosts=localhost:{free_port()}" if a.startswith(
+        "--worker_hosts") else a for a in out["common"]
+        if not a.startswith("--metrics_file")]
+    t0 = time.perf_counter()
+    with CliProcess("train", "--job_name=worker", "--task_index=0",
+                    *worker0, "--mode=eval") as proc:
+        lines = finish(proc, 300)
+    eval_s = time.perf_counter() - t0
+    restored = int(line_value(lines, "Worker 0: restored global step"))
+    acc = float(line_value(lines, "Worker 0: test accuracy"))
+    want = out["workers"][0]["test_accuracy"]
+    if restored != M["cli_steps"] or acc != want:
+        raise AssertionError(f"ladder resnet20 --mode=eval: step "
+                             f"{restored}, test accuracy {acc}; trained "
+                             f"{want} at step {M['cli_steps']}")
+    emit("ladder_resnet20", card=smi, wall_s=out["wall_s"],
+         eval_wall_s=eval_s, eval_test_accuracy=acc,
+         digest=out["workers"][0]["digest"],
+         model_state_digest=line_value(
+             out["text"][0].splitlines(keepends=True),
+             "Worker 0: model state digest"),
+         workers=out["workers"])
+    return {}
+
+
+def ladder_transformer(dev, tmp: str, smi: str, name: str, *extra) -> dict:
+    """BERT-tiny or ViT-tiny through the CLI on the kernels (one worker):
+    launches exactly a step's and an eval forward's (the validation at
+    step 0 and the final test: BERT's 4 fixed batches each, ViT's whole
+    split in one forward), the loss finite (its fall is ``train_models``'
+    gate, over more steps)."""
+    M = MODELS
+    out = ladder_job(dev, tmp, f"ladder_{name}", name, 1,
+                     "--sync_replicas=true", "--attention_backend=pallas",
+                     "--fused_layer_norm", f"--bert_seq_len={M['bert_seq']}",
+                     *extra)
+    n = out["workers"][0]
+    steps = n["steps"]
+    L = 2 if name == "bert_tiny" else 4
+    ln = 2 * L + (2 if name == "bert_tiny" else 1)
+    forwards = steps + 2 * (4 if name == "bert_tiny" else 1)
+    want = {"flash_attention_fwd": L * forwards,
+            "flash_attention_bwd_dq": L * steps,
+            "flash_attention_bwd_dkv": L * steps,
+            "layer_norm_fwd": ln * forwards,
+            "quant_matmul": 0, "quant_matmul_nt": 0}
+    if steps != M["cli_steps"] - 1 or n["launches"] != want:
+        raise AssertionError(f"ladder {name}: {steps} steps, launches "
+                             f"{n['launches']}, expected {want}")
+    emit(f"ladder_{name}", card=smi, wall_s=out["wall_s"], flags=list(extra),
+         launches_expected=want, **n)
+    return {f"ladder_{name.split('_')[0]}": n["launches"]}
+
+
+def ladder(dev, smi: str, *rungs) -> dict:
+    """Phase ``ladder``: rungs of the config ladder through the trainer
+    CLI (``(fn, *args)`` each), every rung its own processes, side by
+    side.  Returns the transformers' launches, by path."""
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_ladder_")
+    t0 = time.perf_counter()
+    try:
+        done = side_by_side(*((fn, dev, tmp, smi, *args)
+                              for fn, *args in rungs))
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    emit("ladder_done", seconds=time.perf_counter() - t0,
+         rungs=[fn.__name__ for fn, *_ in rungs])
+    return {k: v for launches in done for k, v in launches.items()}
+
 
 
 def trainer_nccl(smi: str) -> None:
@@ -4864,7 +5288,7 @@ def async_gpt(dev, tmp: str, smi: str) -> dict:
     return total
 
 
-def async_exchange(dev, tmp: str, smi: str) -> None:
+def async_exchange(dev, tmp: str, smi: str, timed_beside=()) -> None:
     """``async_exchange``: the exchange at transformer scale, in this
     process, through the trainer's own functions.  A GPT-406M-width bf16
     model (seeded weights) as one async replica, and a drifted copy of its
@@ -4875,7 +5299,8 @@ def async_exchange(dev, tmp: str, smi: str) -> None:
     ``CompressedShardedAverager``s to their first assembled round, on an
     eighth of the tree cut by depth (``ASYNC["int8_leaves"]``: the
     embeddings and the first of the eight blocks, widths unchanged),
-    with the same gates: the wire cut and the codec's error bound."""
+    with the same gates: the wire cut and the codec's error bound.
+    ``timed_beside``: the lines of the phases that run beside it."""
     import numpy as np
     import torch
     from distributed_tensorflow_tpu_torch.cluster import param_sync as ps
@@ -5021,7 +5446,8 @@ def async_exchange(dev, tmp: str, smi: str) -> None:
 
     def gbs(seconds):
         return nbytes / seconds / 1e9
-    emit("async_exchange", card=smi, tree_bytes=nbytes, leaves=leaves,
+    emit("async_exchange", card=smi, timed_beside=list(timed_beside),
+         tree_bytes=nbytes, leaves=leaves,
          d2h_ms=d2h_s * 1e3, d2h_gb_per_s=gbs(d2h_s),
          publish_ms=publish_s * 1e3, publish_gb_per_s=gbs(publish_s),
          fetch_ms=fetch_s * 1e3, fetch_gb_per_s=gbs(fetch_s),
@@ -5037,10 +5463,12 @@ def async_exchange(dev, tmp: str, smi: str) -> None:
          int8_err_bound=bound_abs)
 
 
-def async_trainer(dev, smi: str) -> None:
+def async_trainer(dev, smi: str, beside=(), beside_lines=()) -> list:
     """Phase ``async_trainer``: ``async_reference`` and ``async_overlap``
     side by side, then ``async_exchange`` (``async_gpt`` runs in the
-    ``trainer`` phase's group)."""
+    ``trainer`` phase's group) with the parts ``beside`` (``(fn,
+    *args)``; the ladder's, whose lines are ``beside_lines``) beside it;
+    their results."""
     tmp = tempfile.mkdtemp(prefix="chip_smoke_async_")
     seconds = {}
     start = time.perf_counter()
@@ -5057,12 +5485,22 @@ def async_trainer(dev, smi: str) -> None:
         # staggered worker 1 cost that job its overlap once.)
         side_by_side((timed, "async_reference", async_reference),
                      (timed, "async_overlap", async_overlap))
-        timed("async_exchange", async_exchange)
+        # The exchange is host numpy and zlib in this process, launching
+        # no kernel: the ladder's in-process steps (their launch counters)
+        # and its CLI processes run beside it.
+        t0 = time.perf_counter()
+        results = side_by_side(
+            (timed, "async_exchange", functools.partial(
+                async_exchange, timed_beside=beside_lines)), *beside)[1:]
+        seconds["async_exchange_group"] = time.perf_counter() - t0
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     emit("async_trainer", card=smi, seconds=time.perf_counter() - start,
          seconds_by_part=seconds,
-         side_by_side=["async_reference", "async_overlap"])
+         side_by_side=[["async_reference", "async_overlap"],
+                       ["async_exchange",
+                        *(fn.__name__ for fn, *_ in beside)]])
+    return results
 
 
 def main() -> int:
@@ -5116,7 +5554,11 @@ def main() -> int:
     by_path["serve_spec"] = serve_spec(dev, model)
     by_path["generate"] = generate_phase(dev, model)
     by_path["checkpoint"] = checkpoint_phase(dev, smi, model, whole)
-    by_path["fleet"] = fleet_phase(dev, smi, model, whole)
+    # The config ladder's ResNet-20 rung (its processes: two gloo workers,
+    # then --mode=eval) beside the fleet's processes.
+    by_path["fleet"], _ = side_by_side(
+        (fleet_phase, dev, smi, model, whole, ["ladder_resnet20"]),
+        (ladder, dev, smi, (ladder_resnet,)))
     del model, whole
     torch.cuda.empty_cache()
     by_path["train"], bf16_step = train(dev, smi)
@@ -5131,14 +5573,25 @@ def main() -> int:
     # The two FSDP ranks, and the two gpt_mini trainer CLIs (tp2 x
     # ulysses2; the 1f1b pipeline) each with its eval and generate, side
     # by side: all of them processes of their own.
+    # The config ladder's in-process phase (train_models) beside them:
+    # its counted steps under the busy lock.
     t0 = time.perf_counter()
     (by_path["train_fsdp"], by_path["train_parallel_cli"],
-     by_path["train_pipeline_cli"]) = side_by_side(
+     by_path["train_pipeline_cli"], models) = side_by_side(
         (train_fsdp, dev, smi, bf16_step), (parallel_cli, dev, smi),
-        (pipeline_cli, dev, smi))
-    emit("fsdp_and_cli_pair", seconds=time.perf_counter() - t0)
+        (pipeline_cli, dev, smi), (train_models, dev, smi))
+    by_path.update(models)
+    emit("fsdp_and_cli_pair", seconds=time.perf_counter() - t0,
+         beside=["train_models"])
+    # The config ladder's other three CLIs beside the async exchange.
     by_path["trainer"], by_path["async_trainer"] = trainer(dev, smi)
-    async_trainer(dev, smi)
+    for launches in async_trainer(dev, smi, beside=((
+            ladder, dev, smi, (ladder_lenet,),
+            (ladder_transformer, "bert_tiny"),
+            (ladder_transformer, "vit_tiny", "--data_augmentation=true")),),
+            beside_lines=["ladder_lenet5", "ladder_bert_tiny",
+                          "ladder_vit_tiny"]):
+        by_path.update(launches)
     for row in rows:
         row["launches"] = by_path[row["main"]][row["name"]]
         if row["name"] in by_path["async_trainer"]:

@@ -8,7 +8,7 @@ into contiguous train/validation/test regions; otherwise the streams are
 the deterministic position-dependent-bigram sequences of
 :func:`..models.gpt.synthetic_lm_batch`, behind the reference's
 ``next_batch`` API.  The BPE tokenizer and the streaming (larger than RAM)
-corpus are not ported yet and raise (ROADMAP.md, section 1, item 7).
+corpus are not ported yet and raise (ROADMAP.md, section 1, item 7a).
 
 :func:`make_lm_eval_fn` is the torch counterpart of the JAX eval
 function: next-token accuracy over fixed batches.
@@ -128,7 +128,7 @@ STREAM_THRESHOLD_BYTES = 256 << 20
 
 def _todo(what: str) -> NotImplementedError:
     return NotImplementedError(f"{what} is not ported yet; see ROADMAP.md, "
-                               "section 1, item 7")
+                               "section 1, item 7a")
 
 
 def make_lm_datasets(cfg, seq_len: int = 128,

@@ -554,6 +554,41 @@ def paged_write_index(page_table: torch.Tensor, positions: torch.Tensor,
     return rows, phys[rows].long(), (positions[rows] % page).long()
 
 
+def fused_head_attention(qkv: Dense, out: Dense, h: torch.Tensor, *,
+                         mesh=None, kv_mask: torch.Tensor | None = None,
+                         **attend) -> torch.Tensor:
+    """Attention through a fused ``qkv`` projection ([in, 3, heads, D])
+    and its ``out`` projection ([heads, D, out]), the encoders' (BERT's,
+    ViT's) MHA.  Where ``parallel/sharding.py`` split ``qkv`` over its
+    heads (Megatron), each heads shard's q/k/v (:meth:`Dense.column`)
+    attends on its own, over its own column of ``mesh`` with a
+    sequence-parallel backend, and :meth:`Dense.row` sums the shards'
+    ``out`` products, as :meth:`GptBlock.forward` does; otherwise one
+    attention over every head.  ``attend``: ``dot_product_attention``'s
+    ``causal``/``window``/``backend``."""
+    if shard_dim(qkv, "kernel") == len(qkv.in_shape) + 1:
+        ctxs = []
+        for j, t in enumerate(qkv.column(h)):
+            mask = None if kv_mask is None else kv_mask.to(t.device)
+            ctxs.append(dot_product_attention(
+                t[:, :, 0], t[:, :, 1], t[:, :, 2], kv_mask=mask,
+                mesh=None if mesh is None else mesh.column(j), **attend))
+        return out.row(ctxs)
+    t = qkv(h)
+    return out(dot_product_attention(t[:, :, 0], t[:, :, 1], t[:, :, 2],
+                                     kv_mask=kv_mask, mesh=mesh, **attend))
+
+
+def gelu_mlp(mlp_in: Dense, mlp_out: Dense, h: torch.Tensor) -> torch.Tensor:
+    """``mlp_out(gelu(mlp_in(h)))`` with flax's tanh gelu; Megatron's
+    column-then-row form where the rules split ``mlp_in`` over its
+    output (and ``mlp_out`` over its input)."""
+    if shard_dim(mlp_in, "kernel") == 1:
+        return mlp_out.row([F.gelu(a, approximate="tanh")
+                            for a in mlp_in.column(h)])
+    return mlp_out(F.gelu(mlp_in(h), approximate="tanh"))
+
+
 class GptBlock(nn.Module):
     """One pre-LN decoder block."""
 

@@ -1,12 +1,15 @@
 """Model bundles: a model with its train state, loss, data and eval.
 
-Counterpart of ``distributed_tensorflow_tpu/models/registry.py``, so far
-for the reference MNIST MLP (:func:`build_mnist_mlp`), the GPT-mini
-decoder (:func:`build_gpt_mini`), the pipelined GPT-mini
-(:func:`build_gpt_pipeline`, ``--pipeline_parallel``) and :func:`build`
-(the trainer's ``--model`` lookup).  The other JAX models
-(``lenet5``, ``resnet20``, ``vit_tiny``, ``bert_tiny``, ``bert_moe``) raise
-``NotImplementedError`` (ROADMAP.md, section 1, item 7).
+Counterpart of ``distributed_tensorflow_tpu/models/registry.py``: the
+``BASELINE.json`` config ladder, the reference MNIST MLP
+(:func:`build_mnist_mlp`, configs #1/#2), LeNet-5 (:func:`build_lenet5`,
+#3), ResNet-20 with its BatchNorm state (:func:`build_resnet20`, #4) and
+BERT-tiny MLM (:func:`build_bert_tiny`, #5), with ViT-tiny
+(:func:`build_vit_tiny`), the GPT-mini decoder (:func:`build_gpt_mini`),
+the pipelined GPT-mini (:func:`build_gpt_pipeline`,
+``--pipeline_parallel``) and :func:`build` (the trainer's ``--model``
+lookup).  ``bert_moe`` raises ``NotImplementedError`` (ROADMAP.md,
+section 1, item 7c).
 """
 
 from __future__ import annotations
@@ -28,6 +31,11 @@ class ModelBundle:
     load_datasets: Callable             # (data_dir) -> Datasets-like splits
     make_eval_fn: Callable              # () -> eval_fn(state, split) -> float
     name: str
+    # ``(model, batch, all_reduce) -> (loss, aux)`` for models with
+    # non-trainable state (ResNet-20's BatchNorm, its statistics over the
+    # workers of ``all_reduce``); ``loss_fn`` is then None and the trainer
+    # takes the stateful sync steps.
+    stateful_loss_fn: Callable | None = None
     # True when loss_fn takes (model, batch, rng): dropout-style stochastic
     # training; the state then carries the generator.
     needs_rng: bool = False
@@ -92,7 +100,7 @@ def build_gpt_mini(learning_rate: float, seed: int = 0, seq_len: int = 128,
         matmul_int8=matmul_int8, attn_int8=attn_int8)
     if tokenizer == "bpe":
         raise NotImplementedError("the BPE tokenizer is not ported yet; see "
-                                  "ROADMAP.md, section 1, item 7")
+                                  "ROADMAP.md, section 1, item 7a")
     device = resolve_device(device)
     model = gpt_lib.GptLM(cfg, device=device, seed=seed,
                           param_dtype=torch.float32, mesh=mesh)
@@ -185,7 +193,7 @@ def build_gpt_pipeline(learning_rate: float, mesh, seed: int = 0,
         norm=norm, **(width or {}))
     if tokenizer == "bpe":
         raise NotImplementedError("the BPE tokenizer is not ported yet; see "
-                                  "ROADMAP.md, section 1, item 7")
+                                  "ROADMAP.md, section 1, item 7a")
     devices = mesh.pipe_devices()
     plain = gpt_lib.GptLM(cfg, device=devices[0], seed=seed,
                           param_dtype=torch.float32)
@@ -262,6 +270,34 @@ def pipeline_bundle_name(n_pipe: int, schedule: str,
     return f"gpt_mini_pp{n_pipe}"
 
 
+def _image_classifier_bundle(model, tx: OptimizerSpec, name: str,
+                             load_datasets, *, params_to_tree,
+                             params_from_tree, label_smoothing: float = 0.0,
+                             sharding_rules=None) -> ModelBundle:
+    """Shared recipe for the stateless image classifiers (MLP, LeNet,
+    ViT): ``(images, one-hot labels)`` batches, mean softmax
+    cross-entropy, the full-split accuracy."""
+    from .mlp import accuracy, cross_entropy_loss
+    from ..training.loop import make_eval_fn
+
+    device = next(model.parameters()).device
+    state = TrainState.create(model, tx, params_to_tree=params_to_tree,
+                              params_from_tree=params_from_tree)
+
+    def loss_fn(model, batch):
+        images, labels = batch
+        images = torch.as_tensor(images, device=device)
+        labels = torch.as_tensor(labels, device=device)
+        logits = model(images)
+        return cross_entropy_loss(logits, labels,
+                                  label_smoothing=label_smoothing), {
+            "accuracy": accuracy(logits, labels)}
+
+    return ModelBundle(state, loss_fn, load_datasets,
+                       lambda: make_eval_fn(lambda m, x: m(x)), name,
+                       sharding_rules=sharding_rules)
+
+
 def build_mnist_mlp(hidden_units: int, learning_rate: float, seed: int = 0,
                     tx: OptimizerSpec | None = None,
                     label_smoothing: float = 0.0, *,
@@ -273,26 +309,165 @@ def build_mnist_mlp(hidden_units: int, learning_rate: float, seed: int = 0,
     full-split accuracy.  ``device`` defaults to ``cuda``."""
     from . import mlp
     from ..data.datasets import read_data_sets
-    from ..training.loop import make_eval_fn
+    model = mlp.MnistMLP(hidden_units, seed=seed,
+                         device=resolve_device(device))
+    return _image_classifier_bundle(
+        model, tx or make_optimizer("sgd", learning_rate), "mnist_mlp",
+        read_data_sets, params_to_tree=mlp.params_to_jax,
+        params_from_tree=mlp.params_from_jax,
+        label_smoothing=label_smoothing)
+
+
+def build_lenet5(learning_rate: float, seed: int = 0,
+                 tx: OptimizerSpec | None = None,
+                 label_smoothing: float = 0.0, *,
+                 device=None) -> ModelBundle:
+    """LeNet-5 on MNIST (``BASELINE.json`` config #3), SGD unless ``tx``
+    is given."""
+    from . import lenet
+    from ..data.datasets import read_data_sets
+    model = lenet.LeNet5(seed=seed, device=resolve_device(device))
+    return _image_classifier_bundle(
+        model, tx or make_optimizer("sgd", learning_rate), "lenet5",
+        read_data_sets, params_to_tree=lenet.params_to_jax,
+        params_from_tree=lenet.params_from_jax,
+        label_smoothing=label_smoothing)
+
+
+def build_vit_tiny(learning_rate: float, seed: int = 0,
+                   tx: OptimizerSpec | None = None, augment: bool = False,
+                   label_smoothing: float = 0.0,
+                   attention_backend: str = "xla", dtype: str = "bfloat16",
+                   fused_ln: bool = False, *, device=None,
+                   mesh=None) -> ModelBundle:
+    """ViT-tiny on CIFAR-10 (``models/vit.py``), Adam by default like the
+    other transformers; with ``attention_backend="pallas"`` and
+    ``fused_ln`` on the K1/K2/K3 kernels."""
+    import functools
+
+    from . import vit
+    from ..data.datasets import read_cifar10
+    cfg = dataclasses.replace(vit.tiny(), attention_backend=attention_backend,
+                              dtype=dtype, fused_ln=fused_ln)
+    model = vit.VitClassifier(cfg, seed=seed, device=resolve_device(device),
+                              mesh=mesh)
+    if tx is None:
+        tx = _default_transformer_tx(learning_rate, "vit_tiny")
+    return _image_classifier_bundle(
+        model, tx, "vit_tiny", functools.partial(read_cifar10,
+                                                 augment=augment),
+        params_to_tree=vit.params_to_jax, params_from_tree=vit.params_from_jax,
+        label_smoothing=label_smoothing,
+        sharding_rules=vit.vit_sharding_rules())
+
+
+def build_resnet20(learning_rate: float, seed: int = 0,
+                   tx: OptimizerSpec | None = None, augment: bool = False,
+                   label_smoothing: float = 0.0, *,
+                   device=None) -> ModelBundle:
+    """ResNet-20 on CIFAR-10 (``BASELINE.json`` config #4), SGD unless
+    ``tx`` is given.  Its state carries the BatchNorm running statistics
+    (``model_state``); the bundle has a ``stateful_loss_fn`` (statistics
+    over the workers of the step's all-reduce) and no ``loss_fn``, and its
+    eval normalises with the running statistics."""
+    import functools
+
+    from . import resnet
+    from .mlp import accuracy, cross_entropy_loss
+    from ..data.datasets import read_cifar10
+    from ..training.loop import make_stateful_eval_fn
 
     device = resolve_device(device)
-    model = mlp.MnistMLP(hidden_units, seed=seed, device=device)
-    state = TrainState.create(model, tx or make_optimizer("sgd",
-                                                          learning_rate),
-                              params_to_tree=mlp.params_to_jax,
-                              params_from_tree=mlp.params_from_jax)
+    model = resnet.ResNet20(seed=seed, device=device)
+    state = TrainState.create(
+        model, tx or make_optimizer("sgd", learning_rate),
+        model_state=resnet.batch_stats(model),
+        params_to_tree=resnet.params_to_jax,
+        params_from_tree=resnet.params_from_jax)
 
-    def loss_fn(model, batch):
+    def stateful_loss_fn(model, batch, all_reduce=None):
         images, labels = batch
         images = torch.as_tensor(images, device=device)
         labels = torch.as_tensor(labels, device=device)
-        logits = model(images)
-        return mlp.cross_entropy_loss(logits, labels,
-                                      label_smoothing=label_smoothing), {
-            "accuracy": mlp.accuracy(logits, labels)}
+        logits = model(images, all_reduce)
+        return cross_entropy_loss(logits, labels,
+                                  label_smoothing=label_smoothing), {
+            "accuracy": accuracy(logits, labels)}
 
-    return ModelBundle(state, loss_fn, read_data_sets,
-                       lambda: make_eval_fn(lambda m, x: m(x)), "mnist_mlp")
+    return ModelBundle(
+        state, None, functools.partial(read_cifar10, augment=augment),
+        lambda: make_stateful_eval_fn(lambda m, ms, x: m(x)), "resnet20",
+        stateful_loss_fn=stateful_loss_fn)
+
+
+def _build_bert(learning_rate: float, seed: int, seq_len: int,
+                attention_backend: str, num_experts: int, name: str,
+                dtype: str = "bfloat16", remat: bool = False,
+                tx: OptimizerSpec | None = None, dropout_rate: float = 0.0,
+                fused_ln: bool = False, label_smoothing: float = 0.0, *,
+                device=None, mesh=None) -> ModelBundle:
+    """The BERT bundle: dict batches of the synthetic MLM streams
+    (``data/mlm.py``), the masked-position loss and accuracy, Adam by
+    default.  ``num_experts > 0`` (the MoE FFN) raises: ROADMAP.md,
+    section 1, item 7c.  The dropout generator comes from ``seed + 1``."""
+    from . import bert
+    from ..data.mlm import make_mlm_datasets, make_mlm_eval_fn
+
+    cfg = dataclasses.replace(bert.tiny(), attention_backend=attention_backend,
+                              num_experts=num_experts, dtype=dtype,
+                              remat=remat, fused_ln=fused_ln,
+                              dropout_rate=dropout_rate)
+    device = resolve_device(device)
+    model = bert.BertForMLM(cfg, seed=seed, device=device, mesh=mesh)
+    if tx is None:
+        tx = _default_transformer_tx(learning_rate, name)
+    needs_rng = dropout_rate > 0.0
+    rng = None
+    if needs_rng:
+        rng = torch.Generator()
+        rng.manual_seed(seed + 1)
+    state = TrainState.create(model, tx, rng=rng,
+                              params_to_tree=bert.params_to_jax,
+                              params_from_tree=bert.params_from_jax)
+
+    def _loss(model, batch, rng=None):
+        t = {k: torch.as_tensor(v, device=device) for k, v in batch.items()}
+        logits = model(t["input_ids"].long(), t["attention_mask"], rng)
+        loss, acc = bert.mlm_loss(logits, t["labels"], t["label_weights"],
+                                  label_smoothing=label_smoothing)
+        return loss, {"accuracy": acc}
+
+    if needs_rng:
+        loss_fn = _loss
+    else:
+        def loss_fn(model, batch):
+            return _loss(model, batch)
+
+    def load_datasets(data_dir):
+        # No tokenizer or corpus ships with the repo: the MLM splits are
+        # synthetic streams whatever data_dir holds.
+        return make_mlm_datasets(cfg, seq_len=seq_len)
+
+    return ModelBundle(state, loss_fn, load_datasets,
+                       lambda: make_mlm_eval_fn(
+                           lambda m, ids, mask: m(ids.long(), mask)),
+                       name, needs_rng=needs_rng,
+                       sharding_rules=bert.bert_sharding_rules())
+
+
+def build_bert_tiny(learning_rate: float, seed: int = 0, seq_len: int = 128,
+                    attention_backend: str = "xla", dtype: str = "bfloat16",
+                    remat: bool = False, tx: OptimizerSpec | None = None,
+                    dropout_rate: float = 0.0, fused_ln: bool = False,
+                    label_smoothing: float = 0.0, *, device=None,
+                    mesh=None) -> ModelBundle:
+    """BERT-tiny MLM on synthetic sequences (dict batches instead of
+    ``(x, y)``)."""
+    return _build_bert(learning_rate, seed, seq_len, attention_backend,
+                       num_experts=0, name="bert_tiny", dtype=dtype,
+                       remat=remat, tx=tx, dropout_rate=dropout_rate,
+                       fused_ln=fused_ln, label_smoothing=label_smoothing,
+                       device=device, mesh=mesh)
 
 
 def _seed(FLAGS) -> int:
@@ -306,6 +481,33 @@ BUILDERS = {
         FLAGS.hidden_units, FLAGS.learning_rate, seed=_seed(FLAGS), tx=tx,
         label_smoothing=getattr(FLAGS, "label_smoothing", 0.0),
         device=device),
+    "lenet5": lambda FLAGS, tx, device, mesh: build_lenet5(
+        FLAGS.learning_rate, seed=_seed(FLAGS), tx=tx,
+        label_smoothing=getattr(FLAGS, "label_smoothing", 0.0),
+        device=device),
+    "resnet20": lambda FLAGS, tx, device, mesh: build_resnet20(
+        FLAGS.learning_rate, seed=_seed(FLAGS), tx=tx,
+        augment=getattr(FLAGS, "data_augmentation", False),
+        label_smoothing=getattr(FLAGS, "label_smoothing", 0.0),
+        device=device),
+    "vit_tiny": lambda FLAGS, tx, device, mesh: build_vit_tiny(
+        FLAGS.learning_rate, seed=_seed(FLAGS), tx=tx,
+        augment=getattr(FLAGS, "data_augmentation", False),
+        label_smoothing=getattr(FLAGS, "label_smoothing", 0.0),
+        attention_backend=getattr(FLAGS, "attention_backend", "xla"),
+        dtype=getattr(FLAGS, "bert_dtype", "bfloat16"),
+        fused_ln=getattr(FLAGS, "fused_layer_norm", False),
+        device=device, mesh=mesh),
+    "bert_tiny": lambda FLAGS, tx, device, mesh: build_bert_tiny(
+        FLAGS.learning_rate, seed=_seed(FLAGS),
+        seq_len=getattr(FLAGS, "bert_seq_len", 128),
+        attention_backend=getattr(FLAGS, "attention_backend", "xla"),
+        dtype=getattr(FLAGS, "bert_dtype", "bfloat16"),
+        remat=getattr(FLAGS, "remat", False), tx=tx,
+        dropout_rate=getattr(FLAGS, "bert_dropout", 0.0),
+        fused_ln=getattr(FLAGS, "fused_layer_norm", False),
+        label_smoothing=getattr(FLAGS, "label_smoothing", 0.0),
+        device=device, mesh=mesh),
     "gpt_mini": lambda FLAGS, tx, device, mesh: (build_gpt_pipeline(
         FLAGS.learning_rate, mesh, seed=_seed(FLAGS),
         seq_len=getattr(FLAGS, "bert_seq_len", 128),
@@ -346,7 +548,7 @@ BUILDERS = {
 }
 
 #: The JAX package's other ``--model`` names.
-NOT_PORTED = ("lenet5", "resnet20", "vit_tiny", "bert_tiny", "bert_moe")
+NOT_PORTED = ("bert_moe",)
 
 
 def build(name: str, FLAGS, device=None, mesh=None) -> ModelBundle:
@@ -359,7 +561,7 @@ def build(name: str, FLAGS, device=None, mesh=None) -> ModelBundle:
     if name in NOT_PORTED:
         raise NotImplementedError(
             f"--model={name} is not ported yet; see ROADMAP.md, section 1, "
-            "item 7")
+            "item 7c")
     if name not in BUILDERS:
         raise ValueError(f"Unknown model {name!r}; available: "
                          f"{sorted([*BUILDERS, *NOT_PORTED])}")

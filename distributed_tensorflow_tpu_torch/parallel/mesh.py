@@ -9,7 +9,7 @@ every position of it (single controller, as a JAX program over a mesh):
 - ``data``  — data parallelism (batch axis)
 - ``seq``   — sequence/context parallelism (ring and ulysses attention)
 - ``pipe``  — pipeline parallelism (layer stages: :mod:`.pipeline`)
-- ``expert``— expert parallelism (kept at size 1: ROADMAP.md, item 7)
+- ``expert``— expert parallelism (kept at size 1: ROADMAP.md, item 7c)
 - ``model`` — tensor parallelism (heads and hidden columns, Megatron's
   layout: :mod:`.sharding`, ``models/gpt.py``)
 
@@ -26,7 +26,7 @@ model``: the trainer lays those positions over the worker's cards round
 robin (:func:`worker_positions`).  FSDP shards over those worker
 processes (:func:`.sharding.fsdp_state`), not over in-process
 positions.  The DCN factor and data shards inside one process beside
-tensor parallelism (slice 8d) and experts (item 7) raise
+tensor parallelism (slice 8d) and experts (item 7c) raise
 ``NotImplementedError`` naming ROADMAP.md's entry.  :func:`save_run_profile` /
 :func:`load_run_profile` write and read the JAX package's run-profile
 JSON.
@@ -121,7 +121,7 @@ def create_mesh(data: int = -1, model: int = 1, seq: int = 1,
     requires distinct devices.  ``expert`` > 1 and ``dcn_data`` > 1
     raise (not ported)."""
     if expert > 1:
-        raise _roadmap(f"the expert axis (expert={expert})", "item 7")
+        raise _roadmap(f"the expert axis (expert={expert})", "item 7c")
     if dcn_data > 1:
         raise _roadmap(f"the DCN data factor (dcn_data={dcn_data})",
                        "item 6, slice 8d")

@@ -291,7 +291,8 @@ def _run_schedule(model, batch, F, B, n_micro: int, stage_fn, loss_head_fn,
     inv_m = 1.0 / n_micro
     head = list(model.head.parameters()) if model.head is not None else []
     _grads_mul_(list(stages.parameters()) + head, inv_m)
-    if embed_fn is not None:
+    if embed_fn is not None and x.requires_grad:
+        # (A frozen embedding, ``--trainable_params``, takes none.)
         dx = torch.cat([d.to(x.device) for d in dx0]) * inv_m
         x.backward(dx.to(x.dtype))
     loss = torch.stack(losses).sum() * inv_m

@@ -225,7 +225,7 @@ def _model_dim(mesh: Mesh, spec: P) -> int | None:
                 raise NotImplementedError(
                     f"sharding a parameter over the {axis!r} axis in one "
                     "process is not ported yet; see ROADMAP.md, section 1, "
-                    "item 7")
+                    "item 7c")
             dim = i
     return dim
 
@@ -275,8 +275,13 @@ def _rebuild_optimizer(state, slots: dict) -> None:
 
 def _move(state, home: torch.device) -> None:
     """Every parameter that is not sharded (and its slots and moving
-    average) onto ``home``, the mesh's first device."""
+    average) onto ``home``, the mesh's first device, and the model's
+    buffers (its non-trainable state, ``TrainState.model_state``: the
+    same tensors, moved in place, stay replicated)."""
     with torch.no_grad():
+        for buf in state.model.buffers():
+            if buf.device != home:
+                buf.data = buf.data.to(home)
         for name, p in state.model.named_parameters():
             if p.device != home:
                 p.data = p.data.to(home)

@@ -35,7 +35,16 @@ weight is its shards, one parameter each.  So the global norm (clipping,
 ``log_grad_norm``) counts each shard once, the moving average runs per
 shard, and :class:`GradientAllReduce` flattens every shard.
 
-The stateful steps (BatchNorm models) wait for those models.  The async
+**The stateful steps** (:func:`build_stateful_sync_train_step`,
+:func:`build_scanned_stateful_sync_train_step`: ResNet-20's BatchNorm)
+take their statistics over the GLOBAL batch, as the JAX step does under
+GSPMD: the step hands its ``GradientAllReduce`` to the model, whose
+BatchNorms all-reduce their per-channel sums over the workers' group in
+the forward (and their gradients in the backward,
+``models/resnet._moments``), so a two-rank step equals the
+one-process step on the concatenated batch and the running statistics
+(``TrainState.model_state``, updated in place) stay bit-equal across
+the workers.  The async
 half's helpers live here too, as in JAX: the hierarchical exchange's
 topology map (:func:`slice_topology` and its exporter election) and the
 intra-slice reduction (:func:`build_intra_slice_reduce`), used by
@@ -78,11 +87,14 @@ class GradientAllReduce:
         self.calls = 0
 
     def sum_(self, tensors: Sequence[torch.Tensor]) -> None:
-        """In place: every tensor becomes its sum over the ranks."""
+        """In place: every tensor becomes its sum over the ranks (in fp32,
+        or in float64 where one of them is)."""
         # Every shard of a tensor-parallel state too, each from its own
         # device.
         home = tensors[0].device
-        flat = torch.cat([t.detach().reshape(-1).to(home, torch.float32)
+        dtype = (torch.float64 if any(t.dtype == torch.float64
+                                      for t in tensors) else torch.float32)
+        flat = torch.cat([t.detach().reshape(-1).to(home, dtype)
                           for t in tensors])
         if flat.is_cuda:
             torch.cuda.synchronize(flat.device)
@@ -251,6 +263,44 @@ def build_scanned_sync_train_step(loss_fn: LossFn, *, num_steps: int,
         raise ValueError(f"num_steps must be >= 1, got {num_steps}")
     one = _one_update(loss_fn, needs_rng, ema_decay, log_grad_norm,
                       all_reduce)
+
+    def step(state: TrainState, batches: Any):
+        metrics = None
+        for i in range(num_steps):
+            state, metrics = one(state, _index(batches, i))
+        return state, metrics
+
+    return step
+
+
+def build_stateful_sync_train_step(stateful_loss_fn: Callable, *,
+                                   all_reduce: GradientAllReduce | None
+                                   = None):
+    """Sync step for models with non-trainable state (BatchNorm).
+
+    ``stateful_loss_fn(model, batch, all_reduce) -> (loss, aux)`` runs the
+    model in ``train()`` mode: its BatchNorms normalise with the
+    statistics of the global batch (every worker's rows, summed over
+    ``all_reduce``'s group; this process's rows without one) and move
+    their running statistics (``state.model_state``) in place.  The rest
+    is :func:`build_sync_train_step`'s: the gradient mean across the
+    ranks, one optimizer step; no rng, moving average or gradient norm
+    (the JAX stateful step has none)."""
+    return _one_update(lambda model, batch: stateful_loss_fn(
+        model, batch, all_reduce), False, 0.0, False, all_reduce)
+
+
+def build_scanned_stateful_sync_train_step(stateful_loss_fn: Callable, *,
+                                           num_steps: int,
+                                           all_reduce: GradientAllReduce
+                                           | None = None):
+    """``num_steps`` stateful steps per call (``--steps_per_call``), K
+    calls of :func:`build_stateful_sync_train_step` over a
+    ``[num_steps]``-stacked batch; the metrics are the last step's."""
+    if num_steps < 1:
+        raise ValueError(f"num_steps must be >= 1, got {num_steps}")
+    one = build_stateful_sync_train_step(stateful_loss_fn,
+                                         all_reduce=all_reduce)
 
     def step(state: TrainState, batches: Any):
         metrics = None

@@ -29,27 +29,32 @@ Modes: ``train`` (default), ``eval`` (restore the newest checkpoint, print
 validation and test accuracy) and ``generate`` (gpt_mini decode from a
 checkpoint: the newest one under ``<logdir>/<namespace>/checkpoints``, on
 the hand-written kernels, printing the JAX CLI's lines).  ``--model`` is
-``mnist_mlp`` (the reference model) or ``gpt_mini``; with
-``--attention_backend=pallas --fused_layer_norm`` the gpt_mini trainer
-runs the flash-attention (K1, K2a/K2b) and LayerNorm (K3) kernels.
+the JAX CLI's config ladder: ``mnist_mlp`` (the reference model),
+``lenet5``, ``resnet20`` (BatchNorm: non-trainable state, so sync mode
+whatever ``--sync_replicas`` says, its statistics over every worker's
+rows; eval with the running statistics), ``vit_tiny``, ``bert_tiny`` and
+``gpt_mini``; with ``--attention_backend=pallas --fused_layer_norm`` the
+transformers' trainers run the flash-attention (K1, K2a/K2b) and
+LayerNorm (K3) kernels.
 
 Parallelism: the data axis is the worker processes.  Each worker's mesh
 is ``data=1 x seq x model`` (``--sequence_parallel``,
 ``--tensor_parallel``), its positions laid round robin over the worker's
 cards (all on one card where there is one; the CLI prints the layout),
 one process driving them all.  ``--tensor_parallel`` places gpt_mini by
-its Megatron rules (``--log_sharding`` prints each parameter's spec);
+its Megatron rules, ``bert_tiny`` and ``vit_tiny`` theirs
+(``--log_sharding`` prints each parameter's spec);
 ``--attention_backend=ring|ulysses`` runs sequence-parallel attention
-over the seq axis.  A model without rules (``mnist_mlp``) trains
-replicated.
+over the seq axis.  A model without rules (``mnist_mlp``, ``lenet5``,
+``resnet20``) trains replicated.
 
 Every flag of the JAX ``train.py`` is declared, so a JAX command line
 parses; the port adds ``--device`` (default ``cuda``, which raises without
 a card) in place of ``--platform``.  Not ported yet (each raises
 ``NotImplementedError`` naming ROADMAP.md's entry): FSDP (item 6, slice
 8b), the pipeline (8c), the DCN factor and the multi-controller sharded
-feed (8d); the experts, the other models, the BPE tokenizer,
-``--gen_prompt_text`` and ``--gen_stop_text`` (item 7); ``--profile`` run
+feed (8d); the experts and ``bert_moe`` (item 7c), the BPE tokenizer,
+``--gen_prompt_text`` and ``--gen_stop_text`` (item 7a); ``--profile`` run
 profiles (item 8).
 """
 
@@ -337,13 +342,16 @@ flags.DEFINE_integer("sequence_parallel", 1,
                      "Size of the 'seq' mesh axis (sequence/context "
                      "parallelism; pairs with --attention_backend=ring "
                      "or ulysses)")
+flags.DEFINE_boolean("data_augmentation", False,
+                     "Train-time data augmentation where the pipeline "
+                     "defines one (resnet20/vit_tiny on CIFAR: "
+                     "reflect-pad-4 random crop + horizontal flip)")
 _UNPORTED_FLAGS = (
     ("boolean", "sharded_feed", True, "item 6, slice 8d"),
     ("integer", "dcn_data_parallel", 1, "item 6, slice 8d"),
-    ("integer", "expert_parallel", 1, "item 7"),
-    ("integer", "num_experts", 4, "item 7"),
-    ("boolean", "data_augmentation", False, "item 7"),
-    ("integer", "gpt_bpe_vocab", 512, "item 7"),
+    ("integer", "expert_parallel", 1, "item 7c"),
+    ("integer", "num_experts", 4, "item 7c"),
+    ("integer", "gpt_bpe_vocab", 512, "item 7a"),
     ("string", "platform", None, "item 8; --device is the port's switch"),
     ("string", "profile", "", "item 8"),
 )
@@ -382,7 +390,7 @@ def run_generate():
     for flag in ("gen_prompt_text", "gen_stop_text"):
         if getattr(FLAGS, flag):
             raise _not_ported(f"--{flag} (the run's BPE tokenizer, "
-                              "data/tokenizer.py)", "item 7")
+                              "data/tokenizer.py)", "item 7a")
     device = cli_device(FLAGS.device)
 
     # Mirror the training run's checkpoint namespace (registry bundles).
@@ -522,9 +530,13 @@ def _parameter_digest(model: torch.nn.Module) -> str:
     split over the model axis taken whole: equal digests mean bit-equal
     parameters."""
     from .parallel.sharding import gather_named
+    return _digest(gather_named(model, dict(model.named_parameters())))
+
+
+def _digest(named: dict) -> str:
+    """sha256 over the bytes of ``{name: tensor}`` in name order."""
     h = hashlib.sha256()
-    for name, p in sorted(gather_named(
-            model, dict(model.named_parameters())).items()):
+    for name, p in sorted(named.items()):
         h.update(name.encode())
         h.update(p.detach().to("cpu").contiguous().view(torch.uint8)
                  .numpy().tobytes())
@@ -904,17 +916,22 @@ def main(unused_argv):
 
     cluster = ClusterSpec({"ps": FLAGS.ps_hosts, "worker": FLAGS.worker_hosts})
     num_workers = cluster.num_workers
-    device = positions = None
+    device = positions = bundle = None
     if FLAGS.job_name == "worker":
         positions = worker_positions(FLAGS.device, FLAGS.task_index,
                                      pcfg.pipe * pcfg.seq * pcfg.model)
         device = positions[0]
+        mesh = pcfg.build_mesh(positions)
+        bundle = registry.build(FLAGS.model, FLAGS, device, mesh=mesh)
+    stateful = bundle is not None and bundle.stateful_loss_fn is not None
     # Async workers meet only at the coordination service, never in a
     # collective (reference distributed.py:102,145): a process group would
-    # tie their independent cadences together.
+    # tie their independent cadences together.  A stateful model trains
+    # sync whatever --sync_replicas says.
     server = Server(cluster, FLAGS.job_name, FLAGS.task_index, device=device,
                     initialize_distributed=(
-                        None if FLAGS.mode == "train" and FLAGS.sync_replicas
+                        None if FLAGS.mode == "train" and (
+                            FLAGS.sync_replicas or stateful)
                         else False),
                     heartbeat_timeout=FLAGS.heartbeat_timeout,
                     kv_persist_path=os.path.join(
@@ -935,7 +952,6 @@ def main(unused_argv):
     else:
         print(f"Worker {task}: no process group; training alone on {device}")
 
-    mesh = pcfg.build_mesh(positions)
     if len(positions) > 1:
         pipe = f"pipe={pcfg.pipe}, " if pcfg.pipe > 1 else ""
         print(f"Worker {task}: mesh {pcfg.describe()} ({pipe}"
@@ -943,7 +959,6 @@ def main(unused_argv):
               f"positions on "
               f"{len(set(positions))} distinct device(s) "
               f"{', '.join(map(str, positions))}")
-    bundle = registry.build(FLAGS.model, FLAGS, device, mesh=mesh)
     state = bundle.state
     # Rules engage only when the mesh has a model axis (JAX's use_tp), so
     # mnist_mlp with --tensor_parallel trains replicated.
@@ -963,7 +978,7 @@ def main(unused_argv):
               f"{n_total:,} parameters")
     use_pipe = FLAGS.pipeline_parallel > 1
     if FLAGS.ema_decay > 0:
-        if use_pipe:
+        if stateful or use_pipe:
             raise ValueError(
                 "--ema_decay supports the plain/scanned/accumulating sync "
                 "steps only (not stateful models or pipeline mode)")
@@ -977,7 +992,8 @@ def main(unused_argv):
                 "(--pipeline_parallel stages shard over the 'pipe' axis)")
         # Only a genuinely async TRAINING run is rejected (eval mode only
         # restores the placed state; TP forces the sync path).
-        if FLAGS.mode == "train" and not FLAGS.sync_replicas and not use_tp:
+        if (FLAGS.mode == "train" and not FLAGS.sync_replicas and not use_tp
+                and not stateful):
             raise ValueError(
                 "--fsdp requires sync mode: async replicas hold independent "
                 "full parameter copies by design")
@@ -1076,8 +1092,9 @@ def main(unused_argv):
     if use_tp and not FLAGS.sync_replicas:
         print(f"Worker {task}: tensor parallelism requires lockstep "
               "replicas; async mode unsupported — using sync.")
-    sync_mode = FLAGS.sync_replicas or use_tp or use_pipe
-    use_masked = (sync_mode and not use_tp and not use_pipe
+    # Models with non-trainable state (BatchNorm) train sync, as in JAX.
+    sync_mode = FLAGS.sync_replicas or use_tp or use_pipe or stateful
+    use_masked = (sync_mode and not use_tp and not use_pipe and not stateful
                   and replicas_to_aggregate < num_workers and coord is not None)
     if use_masked and FLAGS.ema_decay > 0:
         raise ValueError("--ema_decay with R<N masked sync is unsupported")
@@ -1097,9 +1114,10 @@ def main(unused_argv):
     if FLAGS.steps_per_call > 1 and FLAGS.grad_accum_steps > 1:
         raise ValueError("--steps_per_call and --grad_accum_steps are "
                          "exclusive")
-    if FLAGS.log_grad_norm and use_masked:
+    if FLAGS.log_grad_norm and (use_masked or stateful):
         print(f"Worker {task}: --log_grad_norm is not available on the "
-              "masked (R<N) sync path — ignoring")
+              + ("masked (R<N)" if use_masked else "stateful (BatchNorm)")
+              + " sync path — ignoring")
     replica_mask_fn = None
     async_mode_active = False
     if not sync_mode:
@@ -1169,6 +1187,17 @@ def main(unused_argv):
                       f"{mask.astype(int).tolist()}")
                 last_mask[0] = mask.copy()
             return mask
+    elif stateful:
+        if not FLAGS.sync_replicas:
+            print(f"Worker {task}: model {FLAGS.model} has non-trainable "
+                  "state; async mode unsupported — using sync.")
+        if FLAGS.steps_per_call > 1:
+            train_step = sync_lib.build_scanned_stateful_sync_train_step(
+                bundle.stateful_loss_fn, num_steps=FLAGS.steps_per_call,
+                all_reduce=all_reduce)
+        else:
+            train_step = sync_lib.build_stateful_sync_train_step(
+                bundle.stateful_loss_fn, all_reduce=all_reduce)
     elif FLAGS.steps_per_call > 1:
         train_step = sync_lib.build_scanned_sync_train_step(
             bundle.loss_fn, num_steps=FLAGS.steps_per_call,
@@ -1431,6 +1460,10 @@ def main(unused_argv):
         with fsdp_gathered(state.model):
             digest = _parameter_digest(state.model)
     print(f"Worker {task}: parameter digest {digest}")
+    if getattr(state, "model_state", None) is not None:
+        # BatchNorm's running statistics: bit-equal across sync workers.
+        print(f"Worker {task}: model state digest "
+              f"{_digest(state.model_state)}")
     sv.close()
     server.shutdown()
     return result

@@ -63,11 +63,24 @@ def make_eval_fn(logits_fn: Callable, batch_limit: int = 16384):
     ``logits_fn(model, images) -> logits``.  Returns ``evaluate(state,
     split) -> float`` where ``split`` has ``.images`` / ``.labels``
     (one-hot); the model runs in ``eval()`` mode without gradients, in
-    batches of at most ``batch_limit`` rows on the model's device."""
+    batches of at most ``batch_limit`` rows on the model's device.  For
+    models with non-trainable state use :func:`make_stateful_eval_fn`."""
+    return make_stateful_eval_fn(lambda m, ms, x: logits_fn(m, x),
+                                 batch_limit=batch_limit)
+
+
+def make_stateful_eval_fn(eval_logits_fn: Callable,
+                          batch_limit: int = 16384):
+    """:func:`make_eval_fn` for models with non-trainable state:
+    ``eval_logits_fn(model, model_state, images) -> logits`` with
+    ``state.model_state`` (ResNet-20 in ``eval()`` mode normalises with
+    its running statistics, the model state's tensors)."""
 
     @torch.no_grad()
     def evaluate(state, split) -> float:
         model = state.model
+        # An async state carries none (stateful models train sync).
+        model_state = getattr(state, "model_state", None)
         device = next(model.parameters()).device
         was_training = model.training
         model.eval()
@@ -79,7 +92,7 @@ def make_eval_fn(logits_fn: Callable, batch_limit: int = 16384):
                 hi = min(lo + batch_limit, n)
                 x = torch.from_numpy(np.asarray(images[lo:hi])).to(device)
                 y = torch.from_numpy(np.asarray(labels[lo:hi])).to(device)
-                logits = logits_fn(model, x)
+                logits = eval_logits_fn(model, model_state, x)
                 correct += int((logits.argmax(-1) == y.argmax(-1)).sum())
         finally:
             model.train(was_training)

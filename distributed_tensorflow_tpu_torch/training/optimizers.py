@@ -19,7 +19,7 @@ slots, and the checkpoint layout is optax's ``multi_transform`` state.
 
 ``lamb``, ``adagrad``, ``rmsprop`` and ``adafactor`` raise: their optax
 constants differ from ``torch.optim``'s and need their own parity work
-(ROADMAP.md, section 1, item 7).
+(ROADMAP.md, section 1, item 7a).
 """
 
 from __future__ import annotations
@@ -382,7 +382,7 @@ def make_optimizer(name: str, learning_rate, *, momentum: float = 0.9,
     if name not in PORTED:
         raise NotImplementedError(
             f"optimizer {name!r} is not ported yet (its optax constants "
-            "differ from torch.optim's); see ROADMAP.md, section 1, item 7")
+            "differ from torch.optim's); see ROADMAP.md, section 1, item 7a")
     schedule = (learning_rate if callable(learning_rate)
                 else constant_schedule(float(learning_rate)))
     return OptimizerSpec(name=name, schedule=schedule, momentum=momentum,

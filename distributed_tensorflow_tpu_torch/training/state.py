@@ -8,8 +8,11 @@ model and the optimizer's slots are updated IN PLACE and
 
 :func:`checkpoint_tree` and :func:`load_checkpoint_tree` convert a state to
 and from the tree the JAX supervisor checkpoints (``{params, opt_state,
-global_step[, ema_params]}`` with flax's names and optax's slot layout),
-so each package restores the other's checkpoints.  A tensor-parallel
+global_step[, ema_params][, model_state]}`` with flax's names and optax's
+slot layout), so each package restores the other's checkpoints.
+``model_state`` is a model's non-trainable state: ResNet-20's BatchNorm
+running statistics (its buffers), flax's ``batch_stats`` tree in the
+checkpoint (the JAX supervisor's ``model_state`` entry).  A tensor-parallel
 state (``parallel/sharding.shard_state``) holds its split parameters as
 shards, an FSDP state (``parallel/sharding.fsdp_state``) its worker's
 slices; its checkpoint tree gathers them into whole arrays (for FSDP a
@@ -42,6 +45,10 @@ class TrainState:
     # Exponential moving average of the parameters (None = disabled),
     # updated by ema-aware train steps after each optimizer step.
     ema_params: dict[str, torch.Tensor] | None = None
+    # Non-trainable model state, ``{buffer name: tensor}`` (the tensors
+    # themselves: BatchNorm's running statistics, updated in place by a
+    # training-mode forward); None for stateless models.
+    model_state: dict[str, torch.Tensor] | None = None
     # ``state_dict`` <-> the JAX package's parameter tree (the model's
     # ``params_to_jax`` / ``params_from_jax``); the default splits and
     # joins the names at their dots.
@@ -58,13 +65,16 @@ class TrainState:
     def create(cls, model: nn.Module, tx: OptimizerSpec, *,
                rng: torch.Generator | None = None,
                ema: bool = False, params_to_tree=None,
-               params_from_tree=None) -> "TrainState":
+               params_from_tree=None,
+               model_state: dict | None = None) -> "TrainState":
         """``ema=True`` starts the moving average at a copy of the
-        parameters, as the trainer does in JAX."""
+        parameters, as the trainer does in JAX.  ``model_state``: the
+        model's non-trainable tensors (``{buffer name: tensor}``)."""
         ema_params = ({n: p.detach().clone()
                        for n, p in model.named_parameters()} if ema else None)
         return cls(model=model, optimizer=tx.init(model.parameters()),
                    rng=rng, ema_params=ema_params,
+                   model_state=model_state,
                    params_to_tree=params_to_tree,
                    params_from_tree=params_from_tree)
 
@@ -143,12 +153,14 @@ def tree_is_collective(state) -> bool:
 def param_paths(names, to_tree: Callable[[dict], dict]) -> dict:
     """``{state_dict name: flax path}`` (``a/b``, the JAX package's
     ``path_str``) for the parameter ``names`` under a model's ``to_tree``,
-    found by converting one marker value a name."""
+    found by converting one marker value a name.  A tree that stacks
+    several parameters into one leaf (the pipelined GPT's ``stages``,
+    a chunk's layers) maps each of them to that leaf's path."""
     from ..utils.pytree import tree_paths
     names = list(names)
     marked = to_tree({n: torch.tensor(float(i)) for i, n in enumerate(names)})
-    return {names[int(np.asarray(leaf))]: path
-            for path, leaf in tree_paths(marked)}
+    return {names[int(i)]: path for path, leaf in tree_paths(marked)
+            for i in np.asarray(leaf).reshape(-1)}
 
 
 def apply_freeze(state: TrainState, spec: OptimizerSpec) -> TrainState:
@@ -167,7 +179,8 @@ def apply_freeze(state: TrainState, spec: OptimizerSpec) -> TrainState:
 def checkpoint_tree(state: TrainState) -> dict:
     """The tree the JAX supervisor saves for this state (``_pure_tree``):
     parameters, optimizer slots in optax's layout, the global step as an
-    int32 scalar, and the moving average when there is one.  An async
+    int32 scalar, the moving average when there is one and the model
+    state (flax's ``batch_stats``) when there is one.  An async
     state (:class:`..parallel.async_replicas.AsyncTrainState`) gives its
     own, with per-replica stacks."""
     if not isinstance(state, TrainState):
@@ -180,6 +193,8 @@ def checkpoint_tree(state: TrainState) -> dict:
             "global_step": np.asarray(state.global_step, np.int32)}
     if state.ema_params is not None:
         tree["ema_params"] = to_tree(state.ema_params)
+    if state.model_state is not None:
+        tree["model_state"] = nested_tree(state.model_state)
     return tree
 
 
@@ -191,7 +206,9 @@ def load_checkpoint_tree(state: TrainState, tree: dict) -> TrainState:
     problem, which eval mode turns into flag advice.  The moving average
     follows the JAX supervisor: a checkpoint without one re-seeds an
     EMA-enabled state from the restored weights, and one with it restores
-    into an EMA-disabled state by dropping it."""
+    into an EMA-disabled state by dropping it.  The model state is
+    restored where the tree has it (the JAX supervisor's rule); one that
+    does not fit raises ``ValueError``."""
     if not isinstance(state, TrainState):
         return state.load_checkpoint_tree(tree)
     _, from_tree = _tree_fns(state)
@@ -221,4 +238,17 @@ def load_checkpoint_tree(state: TrainState, tree: dict) -> TrainState:
                else {n: p.detach() for n, p in own.items()})
         for name, e in state.ema_params.items():
             e.copy_(ema[name].to(e.device))
+    if state.model_state is not None and "model_state" in tree:
+        saved = flat_names(tree["model_state"])
+        if set(saved) != set(state.model_state):
+            raise ValueError(f"model state "
+                             f"{sorted(set(saved) ^ set(state.model_state))}"
+                             " differs")
+        with torch.no_grad():
+            for name, t in state.model_state.items():
+                if tuple(saved[name].shape) != tuple(t.shape):
+                    raise ValueError(f"model state {name} of shape "
+                                     f"{tuple(saved[name].shape)}, expected "
+                                     f"{tuple(t.shape)}")
+                t.copy_(saved[name].to(t.device))
     return state

@@ -232,6 +232,28 @@ g = r0.rng
 r1 = sh.fsdp_state(mesh, r0, min_size=1024)
 res["rng_kept"] = r1.rng is g and r1.global_step == 1
 
+# Non-trainable state: ResNet-20's BatchNorm statistics stay whole, the
+# model's buffers, through the placement and a stateful step.
+import hashlib
+rn = registry.build_resnet20(0.01, device="cpu",
+                             tx=make_optimizer("sgd", 0.01))
+whole = {n: t.clone() for n, t in rn.state.model_state.items()}
+rs = sh.fsdp_state(mesh, rn.state, min_size=1024)
+res["bn_split"] = sorted(n for n, _, _, _ in sh.fsdp_entries(rs.model))
+res["bn_stats_whole"] = all(torch.equal(rs.model_state[n], t)
+                            for n, t in whole.items())
+res["bn_stats_are_buffers"] = all(
+    rs.model_state[n] is b for n, b in rs.model.named_buffers())
+rng_x = np.random.default_rng(rank)
+rs, _ = sync.build_stateful_sync_train_step(rn.stateful_loss_fn,
+                                            all_reduce=ar)(
+    rs, (rng_x.random((4, 3072), np.float32),
+         np.eye(10, dtype=np.float32)[rng_x.integers(0, 10, 4)]))
+h = hashlib.sha256()
+for n in sorted(rs.model_state):
+    h.update(rs.model_state[n].numpy().tobytes())
+res["bn_stats_digest"] = h.hexdigest()
+
 # Checkpoints: a replicated save restores into FSDP; an FSDP save (a
 # collective, the chief writes) is the unsharded tree.
 ckdir = store + ".ckpt"
@@ -424,12 +446,19 @@ def test_misconfigured_param_rule_warns(capsys):
 
 
 def test_fsdp_leaves_model_state_replicated(ranks):
-    """JAX's case: non-trainable state keeps its placement.  The port's
-    states carry no BatchNorm statistics yet (item 7); their other
-    non-parameter members, the rng and ``global_step``, stay as they
-    were."""
+    """JAX's case: non-trainable state keeps its placement.  A ResNet-20
+    state under ``fsdp_state`` (``min_size`` 1024, so its large conv
+    kernels split over the two workers) keeps every BatchNorm statistic
+    whole on every rank, the model's own buffers; a stateful step
+    leaves them bit-equal across the ranks.  The rng stays as it was."""
     for res, _ in ranks[1]:
         assert res["rng_kept"]
+        assert res["bn_split"], res["bn_split"]      # FSDP did split
+        assert res["bn_stats_whole"] and res["bn_stats_are_buffers"]
+        assert not any(n.endswith((".mean", ".var"))
+                       for n in res["bn_split"])
+    (r0, a0), (r1, a1) = ranks[1]
+    assert r0["bn_stats_digest"] == r1["bn_stats_digest"]
 
 
 def test_replicated_checkpoint_restores_into_fsdp(ranks):

@@ -1587,3 +1587,102 @@ def test_quantize_blocks_with_given_scales_matches_plain_on_card(
     for x, y in zip(got, want):
         if y is not None:
             assert torch.equal(x, y)
+
+
+# The config ladder's attention (slice 7b): BERT-tiny's 2 heads of 64 at
+# S=128, non-causal, under a ragged key-padding mask (the first row half
+# padded), and ViT-tiny's 4 heads of 32 over 64 patches (shorter than
+# one 128-row tile), no mask; B=100, the CLI's default batch.
+@pytest.mark.cuda
+@pytest.mark.parametrize("model", ["bert", "vit"])
+def test_flash_kernels_at_the_ladders_shapes_on_card(cuda_device, model):
+    g = torch.Generator(device=cuda_device).manual_seed(7)
+    B = 100
+    S, H, D = (128, 2, 64) if model == "bert" else (64, 4, 32)
+    q, k, v = _fused_qkv(g, cuda_device, B, S, H, D)
+    mask = None
+    if model == "bert":
+        lengths = torch.randint(S // 4, S + 1, (B,), generator=g,
+                                device=cuda_device)
+        lengths[0] = S // 2
+        mask = (torch.arange(S, device=cuda_device)[None, :]
+                < lengths[:, None]).to(torch.int32)
+    counts = (tfa.launches, tfa.dq_launches, tfa.dkv_launches)
+    out, lse = _check_forward(q, k, v, mask, False, 0)
+    dout = torch.randn(B, S, H, D, generator=g, device=cuda_device
+                       ).to(torch.bfloat16)
+    _check_backward(q, k, v, mask, out, lse, dout, False, 0)
+    assert (tfa.launches - counts[0], tfa.dq_launches - counts[1],
+            tfa.dkv_launches - counts[2]) == (1, 1, 1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("model", ["bert_tiny", "vit_tiny"])
+def test_ladder_train_step_on_card_launches_every_kernel(cuda_device,
+                                                         model):
+    """registry.build_bert_tiny / build_vit_tiny on the kernels: one sync
+    step launches K1, K2a and K2b once a layer and K3 at each LayerNorm
+    of the forward (BERT: ln_emb, two a layer, mlm_ln; ViT: two a layer,
+    ln_final); the step's loss and gradients within chip_smoke's TRAIN_*
+    of the plain versions' step."""
+    from distributed_tensorflow_tpu_torch.models import registry
+    from distributed_tensorflow_tpu_torch.parallel.sync import (
+        build_sync_train_step)
+    kw = dict(attention_backend="pallas", fused_ln=True, device=cuda_device)
+    if model == "bert_tiny":
+        bundle = registry.build_bert_tiny(1e-3, seq_len=128, **kw)
+    else:
+        bundle = registry.build_vit_tiny(1e-3, **kw)
+    m = bundle.state.model
+    plain = type(m)(dataclasses.replace(m.cfg, attention_backend="xla",
+                                        fused_ln=False), device=cuda_device)
+    plain.load_state_dict(m.state_dict())
+    batch = bundle.load_datasets("/nonexistent").train.next_batch(16)
+
+    def loss_and_grads(model):
+        model.zero_grad(set_to_none=True)
+        loss, _ = bundle.loss_fn(model, batch)
+        loss.backward()
+        return float(loss), torch.cat([p.grad.float().flatten() for _, p in
+                                       sorted(model.named_parameters())])
+    (la, ga), (lb, gb) = loss_and_grads(m), loss_and_grads(plain)
+    assert abs(la - lb) <= 1e-3
+    assert float((ga.norm() - gb.norm()).abs() / gb.norm()) <= 2e-3
+    assert float(torch.nn.functional.cosine_similarity(ga, gb, dim=0)) \
+        >= 0.999
+    L = m.cfg.num_layers
+    counts = (tfa.launches, tfa.dq_launches, tfa.dkv_launches, ln.launches)
+    state, metrics = build_sync_train_step(bundle.loss_fn)(bundle.state,
+                                                           batch)
+    assert torch.isfinite(metrics["loss"])
+    assert (tfa.launches - counts[0], tfa.dq_launches - counts[1],
+            tfa.dkv_launches - counts[2], ln.launches - counts[3]) == (
+                L, L, L, 2 * L + (2 if model == "bert_tiny" else 1))
+
+
+@pytest.mark.cuda
+def test_resnet_sync_batch_norm_on_card(cuda_device, monkeypatch):
+    """ResNet-20's stateful step on the card: the running statistics
+    move, and the step's loss is the CPU step's from the same weights
+    (cuDNN's convolutions without TF32 for this test only)."""
+    from distributed_tensorflow_tpu_torch.models import registry
+    from distributed_tensorflow_tpu_torch.parallel.sync import (
+        build_stateful_sync_train_step)
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", False)
+    card = registry.build_resnet20(0.1, device=cuda_device)
+    host = registry.build_resnet20(0.1, device="cpu")
+    host.state.model.load_state_dict({k: v.cpu() for k, v in
+                                      card.state.model.state_dict().items()})
+    batch = card.load_datasets("/nonexistent").train.next_batch(32)
+    before = {k: v.clone() for k, v in card.state.model_state.items()}
+    s, m = build_stateful_sync_train_step(card.stateful_loss_fn)(card.state,
+                                                                 batch)
+    _, mh = build_stateful_sync_train_step(host.stateful_loss_fn)(
+        host.state, batch)
+    assert abs(float(m["loss"]) - float(mh["loss"])) <= 1e-4
+    assert any(not torch.equal(s.model_state[k], v)
+               for k, v in before.items())
+    for k, v in s.model_state.items():
+        assert v.is_cuda
+        torch.testing.assert_close(v.cpu(), host.state.model_state[k],
+                                   atol=1e-4, rtol=1e-4)
