@@ -231,7 +231,7 @@ Phases, one JSON line each on stdout:
     and ``trainer_gpt`` and ``async_gpt`` (of 18; the four run side by
     side): gpt_mini
     at ``mini()``'s width through ``--attention_backend=pallas
-    --fused_layer_norm`` (B=32, S=512, 29 steps, a checkpoint every 10),
+    --fused_layer_norm`` (B=32, S=512, 19 steps, a checkpoint every 10),
     one worker and no PS; gates: its K1, K2a, K2b and K3 launches exactly
     as its steps and eval forwards predict, a falling loss, ``--mode=eval``
     on its logdir reproducing its test accuracy, ``--mode=generate``'s
@@ -246,7 +246,8 @@ Phases, one JSON line each on stdout:
     false``, one replica a worker, the workers averaging through the
     coordination service), processes on the one card.
     ``async_reference``: the reference job with ``--async_sync_period=4``,
-    steps paced and worker 1 started once worker 0 has published (as
+    steps paced and worker 1 started once worker 0 has published, worker
+    0 leading by ``ASYNC["lead_steps"]`` steps (as
     ``tests/test_multiprocess.py:240`` does); gates: both exit 0 with a
     test accuracy within ``TRAINER["accuracy_tol"]`` of the JAX CLI's with
     the same flags on a CPU, ``averaged parameters with 1 peer(s)`` and
@@ -257,9 +258,10 @@ Phases, one JSON line each on stdout:
     the accuracy gate; it prints the wire bytes of a round beside the
     full state's.  Both print step ms (paced), the exchange's ms a period
     and its share of the training time, and publish MB/s.  These two jobs
-    run side by side, ``async_exchange`` after them; ``async_gpt`` runs
-    beside the ``trainer`` phase's jobs (one in-process busy profile at
-    a time).
+    run side by side, alone; ``async_gpt`` runs beside the ``trainer``
+    phase's jobs (one in-process busy profile at a time) and
+    ``async_exchange``, with the config ladder's CLIs, beside 8
+    (``checkpoint``).
     ``async_gpt``: gpt_mini at ``mini()``'s width through the kernels, two
     workers and no PS, a merge every 10 local steps; gates: each worker's
     K1, K2a, K2b and K3 launches exactly as its local steps and eval
@@ -279,7 +281,7 @@ Phases, one JSON line each on stdout:
 19. The config ladder (slice 7b), its parts beside earlier ones:
     ``train_models`` beside 15-16 (its counted steps under the busy
     lock), the ResNet-20 rung beside 9 (``fleet``), the other rungs
-    beside ``async_exchange``.  ``train_models``, in this process at the
+    beside ``async_exchange`` (beside 8).  ``train_models``, in this process at the
     published widths and the
     CLI's batch of 100: BERT-tiny (S=128, 2 heads of 64) and ViT-tiny (64
     patches, 4 heads of 32) through ``registry.build`` with
@@ -302,6 +304,33 @@ Phases, one JSON line each on stdout:
     ``kernels`` phase's ladder cases (BERT's ragged ``kv_mask`` at
     [100, 128, 2, 64] non-causal, ViT's [100, 64, 4, 32]; K3 on BERT's
     12800 fp32 rows and ViT's 6400 bf16 rows of 128) with those launches.
+20. Items 7a and 7c, their parts beside earlier ones.
+    ``train_models_bert_moe`` (in ``train_models``): BERT-tiny with 4
+    experts (top-2, capacity factor 2) at BERT's shapes on the kernels:
+    the kernel-vs-plain step (TRAIN_*), ``MODELS["steps"]`` steps with
+    launches exactly K1/K2a/K2b once a layer and K3 6 a step, the loss
+    falling, the aux loss printed; then the same model over ``expert=2``
+    and ``expert=4`` positions on the one card, each arm's first step
+    within TRAIN_* of the unsharded one and its step ms beside the
+    unsharded one's.  ``ladder_bert_moe`` (beside ``async_exchange``):
+    the CLI with ``--model=bert_moe --expert_parallel=2 --optimizer=lamb``
+    on the kernels (exact launches), then ``--mode=eval`` restoring the
+    trained accuracy.  ``lm_bpe`` (beside ``fleet``): gpt_mini through
+    the CLI on a corpus made of this checkout's ``*.md`` and ``*.py``
+    files, streamed (``--gpt_stream_corpus_mb=1``), BPE-encoded
+    (``--gpt_tokenizer=bpe --gpt_bpe_vocab=512``, the native core's train
+    and encode MB/s on this host and its bytes a token) and trained with
+    ``--optimizer=adafactor`` on the kernels (exact launches); a second
+    run resumes from the checkpoint and the saved cursor; then
+    ``--mode=generate --gen_prompt_text --gen_stop_text`` decodes text
+    through K1 and K3, the text the saved tokenizer's decode of the
+    tokens.  ``train_optimizers`` (after 14): the train phase's
+    GPT-406M-width step with adam, lamb, adagrad, rmsprop and adafactor,
+    each step's ms and the optimizer update's alone, the slot bytes and
+    the peak; gate: adafactor's slots under 1% of adam's on the factored
+    matrices.  K1-K3's ``train_models_bert_moe[_ep2|_ep4]`` and
+    ``ladder_bert_moe`` paths hold BERT's cases, ``lm_bpe`` the trainer
+    CLI's and ``train_optimizers`` the train step's, with their launches.
 
 With ``--nccl`` the script runs ``env`` and the reference job alone,
 with one worker on each visible card (the backend rule of
@@ -345,6 +374,7 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import functools
+import glob
 import json
 import math
 import os
@@ -494,9 +524,10 @@ FSDP = dict(ranks=2, steps=3, timeout_s=300, min_size=65536)
 # layers, 4 heads, head_dim 32) at S=512, B=32; generate 32 tokens.
 TRAINER = dict(steps=200, batch=100, hidden=100, lr=0.01,
                jax_cpu_test_accuracy=1.0, accuracy_tol=0.02,
-               # gpt_mini's 30 steps (a checkpoint every 10) cut from 60
-               # (every 20) to make room for the pipeline and FSDP phases.
-               gpt_batch=32, gpt_seq=512, gpt_steps=30, gpt_save=10,
+               # gpt_mini's 20 steps (a checkpoint every 10) cut from 60
+               # (every 20) to make room for the pipeline and FSDP phases,
+               # then from 30 for items 7a and 7c's.
+               gpt_batch=32, gpt_seq=512, gpt_steps=20, gpt_save=10,
                gen_tokens=32)
 
 
@@ -510,7 +541,20 @@ TRAINER = dict(steps=200, batch=100, hidden=100, lr=0.01,
 # two gloo workers on the one card (and --mode=eval), BERT-tiny and
 # ViT-tiny (--data_augmentation=true) on the kernels.
 MODELS = dict(batch=100, bert_seq=128, vit_patches=64, steps=40,
-              cnn_lr=0.1, lenet_lr=0.2, cli_steps=12, async_period=4)
+              cnn_lr=0.1, lenet_lr=0.2, cli_steps=12, async_period=4,
+              experts=4, expert_arms=(2, 4), arm_steps=10)
+# Items 7a and 7c.  lm_bpe: gpt_mini at the trainer CLI's shape (B=32,
+# S=512) on `corpus_mb` MB of this checkout's text files (repeated if
+# shorter), streamed past `stream_mb`, BPE to `vocab`,
+# adafactor; `steps` global steps, a checkpoint (and cursor) every
+# `save`, then as many again from the restored cursor.
+# train_optimizers: the train phase's model and batch, `steps` steps an
+# optimizer.
+LM_BPE = dict(corpus_mb=2, stream_mb=1, vocab=512, batch=32, seq=512,
+              steps=8, save=4, lr=0.01, gen_tokens=32,
+              prompt="def train", stop="\n\n")
+OPTIMIZERS = dict(names=("adam", "lamb", "adagrad", "rmsprop",
+                         "adafactor"), steps=3, lr=3e-4)
 
 
 _EMIT_LOCK = threading.Lock()
@@ -1006,14 +1050,26 @@ def check_kernels(dev):
 
     # The config ladder: BERT-tiny's and ViT-tiny's shapes, in process
     # (train_models) and through the trainer CLI (ladder).
+    # BERT-MoE (items 7a, 7c) runs BERT's attention and LayerNorms, in
+    # process unsharded and over its expert arms, and through the CLI;
+    # lm_bpe the trainer CLI's shapes, train_optimizers the train step's.
+    moe_paths = ("train_models_bert_moe", "ladder_bert_moe", *(
+        f"train_models_bert_moe_ep{ep}" for ep in MODELS["expert_arms"]))
+
     def ladder(kind):
         out = {}
         for model, rows in (("bert", k2bert), ("vit", k2vit)):
             row = rows[kind] if kind == "fwd" else rows[kind][0]
             out[f"train_models_{model}"] = out[f"ladder_{model}"] = row
+        out.update({p: out["train_models_bert"] for p in moe_paths})
+        out["lm_bpe"] = k2t[kind] if kind == "fwd" else k2t[kind][0]
+        out["train_optimizers"] = k2[kind] if kind == "fwd" else k2[kind][0]
         return out
     for model, case in (("bert", k3_cases[9]), ("vit", k3_cases[11])):
         k3_arms[f"train_models_{model}"] = k3_arms[f"ladder_{model}"] = case
+    k3_arms.update({p: k3_cases[9] for p in moe_paths})
+    k3_arms["lm_bpe"] = k3_cases[6]
+    k3_arms["train_optimizers"] = k3_cases[2]
     return [
         summary("flash_attention_fwd", "flash_attention.cu",
                 "flash_attention.py:119", "train",
@@ -4674,12 +4730,14 @@ def model_steps(name, step, state, batches) -> dict:
     with _BUSY_LOCK:
         torch.cuda.synchronize()
         reset_launch_counts()
-        losses, step_ms = [], []
+        losses, step_ms, aux = [], [], []
         for batch in batches:
             t = time.perf_counter()
             state, metrics = step(state, batch)
             losses.append(float(metrics["loss"]))      # waits for the step
             step_ms.append((time.perf_counter() - t) * 1e3)
+            if "moe_aux" in metrics:
+                aux.append(float(metrics["moe_aux"]))
         launches = launch_counts()
     if not all(map(math.isfinite, losses)):
         raise AssertionError(f"{name}: non-finite loss {losses}")
@@ -4689,7 +4747,7 @@ def model_steps(name, step, state, batches) -> dict:
     return dict(state=state, launches=launches, losses=losses,
                 loss_first=losses[0], loss_last5_mean=last5,
                 step_ms=step_ms, step_ms_median=statistics.median(
-                    step_ms[2:]))
+                    step_ms[2:]), **({"moe_aux": aux} if aux else {}))
 
 
 def train_transformer(dev, smi: str, name: str) -> dict:
@@ -4778,9 +4836,90 @@ def train_models(dev, smi: str) -> dict:
     t0 = time.perf_counter()
     out = {"train_models_bert": train_transformer(dev, smi, "bert_tiny"),
            "train_models_vit": train_transformer(dev, smi, "vit_tiny")}
+    out.update(train_bert_moe(dev, smi))
     train_cnn(dev, smi, "resnet20")
     train_cnn(dev, smi, "lenet5")
     emit("train_models_done", seconds=time.perf_counter() - t0)
+    return out
+
+
+def train_bert_moe(dev, smi: str) -> dict:
+    """``train_models_bert_moe``: BERT-tiny with ``MODELS["experts"]``
+    experts (top-2, capacity factor 2) through ``registry.build`` on the
+    kernels, as :func:`train_transformer` drives BERT-tiny (the
+    kernel-vs-plain step, ``MODELS["steps"]`` steps, launches exactly
+    K1/K2a/K2b once a layer and K3 6 a step, the loss falling), the aux
+    loss a step; then each arm of ``MODELS["expert_arms"]``: the same
+    weights with the stacked experts split over that many expert
+    positions on this card, its first step within TRAIN_* of the
+    unsharded step, then ``MODELS["arm_steps"]`` steps with exact
+    launches.  Returns each run's launches, by path."""
+    import torch
+    from distributed_tensorflow_tpu_torch.models import registry
+    from distributed_tensorflow_tpu_torch.parallel import mesh as mesh_lib
+    from distributed_tensorflow_tpu_torch.parallel.sync import (
+        build_sync_train_step)
+    from distributed_tensorflow_tpu_torch.training.loop import to_device
+    M = MODELS
+    t0 = time.perf_counter()
+    flags = model_flags(num_experts=M["experts"])
+    bundle = registry.build("bert_moe", flags, dev)
+    data = bundle.load_datasets(no_data_dir()).train
+    batches = [to_device(data.next_batch(M["batch"]), dev)
+               for _ in range(M["steps"])]
+    checked = check_model_step(dev, bundle, batches[0])
+    tols = (TRAIN_LOSS_TOL, TRAIN_GRAD_NORM_RTOL, TRAIN_GRAD_MIN_COS)
+    # The arms start from the unsharded model's weights before it trains.
+    weights = {k: v.clone() for k, v in
+               bundle.state.model.state_dict().items()}
+    first = step_grads(bundle.state.model, bundle.loss_fn, batches[0])
+    setup_s = time.perf_counter() - t0
+    run = model_steps("bert_moe", build_sync_train_step(bundle.loss_fn),
+                      bundle.state, batches)
+    cfg = bundle.state.model.cfg
+    L = cfg.num_layers
+    per_step = {"flash_attention_fwd": L, "flash_attention_bwd_dq": L,
+                "flash_attention_bwd_dkv": L, "layer_norm_fwd": 2 * L + 2}
+    expect_launches("bert_moe", run["launches"], per_step, M["steps"])
+    run.pop("state")
+    del bundle
+    out = {"train_models_bert_moe": run["launches"]}
+    arms = {}
+    for ep in M["expert_arms"]:
+        arm = registry.build("bert_moe", flags, dev)
+        arm.state.model.load_state_dict(weights)
+        mesh = mesh_lib.create_mesh(data=1, expert=ep, devices=[dev] * ep)
+        state = mesh_lib.ParallelConfig(data=1, expert=ep).place_state(
+            mesh, arm.state, arm.sharding_rules)
+        cmp = compare_steps(step_grads(state.model, arm.loss_fn,
+                                       batches[0]), first, tols,
+                            names=(f"ep{ep}", "ep1"))
+        r = model_steps(f"bert_moe_ep{ep}",
+                        build_sync_train_step(arm.loss_fn), state,
+                        batches[:M["arm_steps"]])
+        expect_launches(f"bert_moe_ep{ep}", r["launches"], per_step,
+                        M["arm_steps"])
+        r.pop("state")
+        del arm, state
+        arms[f"ep{ep}"] = dict(
+            first_step=cmp, step_ms_median=r["step_ms_median"],
+            ratio_to_unsharded=r["step_ms_median"] / run["step_ms_median"],
+            # Each MoE layer's forward sends the dispatched rows to the
+            # ep positions and brings ep outputs back; the backward
+            # returns each: copies a step, by the module's structure.
+            dispatch_copies_per_step=4 * ep * L,
+            loss_first=r["loss_first"], loss_last5_mean=r["loss_last5_mean"],
+            moe_aux=r["moe_aux"], launches=r["launches"])
+        out[f"train_models_bert_moe_ep{ep}"] = r["launches"]
+    torch.cuda.empty_cache()
+    emit("train_models_bert_moe", card=smi, model="bert_moe",
+         experts=M["experts"], top_k=cfg.moe_top_k,
+         capacity_factor=cfg.moe_capacity_factor, batch=M["batch"],
+         seq_len=M["bert_seq"], heads=cfg.num_heads, head_dim=cfg.head_dim,
+         layers=L, optimizer="adam", lr=1e-3, launches_per_step=per_step,
+         kernel_vs_plain=checked, setup_s=setup_s,
+         tokens_per_s=M["batch"] * M["bert_seq"]
+         / (run["step_ms_median"] / 1e3), expert_arms=arms, **run)
     return out
 
 
@@ -4863,22 +5002,7 @@ def ladder_resnet(dev, tmp: str, smi: str) -> None:
     if " over gloo " not in out["text"][0]:
         raise AssertionError("ladder resnet20: no gloo group: "
                              + out["text"][0][-3000:])
-    # Worker 0's flags alone, the cluster of one.
-    worker0 = [f"--worker_hosts=localhost:{free_port()}" if a.startswith(
-        "--worker_hosts") else a for a in out["common"]
-        if not a.startswith("--metrics_file")]
-    t0 = time.perf_counter()
-    with CliProcess("train", "--job_name=worker", "--task_index=0",
-                    *worker0, "--mode=eval") as proc:
-        lines = finish(proc, 300)
-    eval_s = time.perf_counter() - t0
-    restored = int(line_value(lines, "Worker 0: restored global step"))
-    acc = float(line_value(lines, "Worker 0: test accuracy"))
-    want = out["workers"][0]["test_accuracy"]
-    if restored != M["cli_steps"] or acc != want:
-        raise AssertionError(f"ladder resnet20 --mode=eval: step "
-                             f"{restored}, test accuracy {acc}; trained "
-                             f"{want} at step {M['cli_steps']}")
+    eval_s, acc = eval_restores("ladder resnet20", out)
     emit("ladder_resnet20", card=smi, wall_s=out["wall_s"],
          eval_wall_s=eval_s, eval_test_accuracy=acc,
          digest=out["workers"][0]["digest"],
@@ -4889,12 +5013,35 @@ def ladder_resnet(dev, tmp: str, smi: str) -> None:
     return {}
 
 
+def eval_restores(label: str, out: dict, *extra) -> tuple:
+    """``--mode=eval`` with a ladder job's worker-0 flags (a cluster of
+    one; ``extra`` added): it must restore the trained step and report
+    the trained process's test accuracy.  Returns (wall s, accuracy)."""
+    worker0 = [f"--worker_hosts=localhost:{free_port()}" if a.startswith(
+        "--worker_hosts") else a for a in out["common"]
+        if not a.startswith("--metrics_file")]
+    t0 = time.perf_counter()
+    with CliProcess("train", "--job_name=worker", "--task_index=0",
+                    *worker0, *extra, "--mode=eval") as proc:
+        lines = finish(proc, 300)
+    eval_s = time.perf_counter() - t0
+    restored = int(line_value(lines, "Worker 0: restored global step"))
+    acc = float(line_value(lines, "Worker 0: test accuracy"))
+    want = out["workers"][0]["test_accuracy"]
+    if restored != MODELS["cli_steps"] or acc != want:
+        raise AssertionError(f"{label} --mode=eval: step {restored}, test "
+                             f"accuracy {acc}; trained {want} at step "
+                             f"{MODELS['cli_steps']}")
+    return eval_s, acc
+
+
 def ladder_transformer(dev, tmp: str, smi: str, name: str, *extra) -> dict:
-    """BERT-tiny or ViT-tiny through the CLI on the kernels (one worker):
-    launches exactly a step's and an eval forward's (the validation at
-    step 0 and the final test: BERT's 4 fixed batches each, ViT's whole
-    split in one forward), the loss finite (its fall is ``train_models``'
-    gate, over more steps)."""
+    """BERT-tiny, BERT-MoE or ViT-tiny through the CLI on the kernels (one
+    worker): launches exactly a step's and an eval forward's (the
+    validation at step 0 and the final test: BERT's 4 fixed batches
+    each, ViT's whole split in one forward), the loss finite (its fall is
+    ``train_models``' gate, over more steps).  BERT-MoE then restores its
+    checkpoint through ``--mode=eval`` with the same flags."""
     M = MODELS
     out = ladder_job(dev, tmp, f"ladder_{name}", name, 1,
                      "--sync_replicas=true", "--attention_backend=pallas",
@@ -4902,9 +5049,10 @@ def ladder_transformer(dev, tmp: str, smi: str, name: str, *extra) -> dict:
                      *extra)
     n = out["workers"][0]
     steps = n["steps"]
-    L = 2 if name == "bert_tiny" else 4
-    ln = 2 * L + (2 if name == "bert_tiny" else 1)
-    forwards = steps + 2 * (4 if name == "bert_tiny" else 1)
+    bert = name.startswith("bert")
+    L = 2 if bert else 4
+    ln = 2 * L + (2 if bert else 1)
+    forwards = steps + 2 * (4 if bert else 1)
     want = {"flash_attention_fwd": L * forwards,
             "flash_attention_bwd_dq": L * steps,
             "flash_attention_bwd_dkv": L * steps,
@@ -4913,9 +5061,22 @@ def ladder_transformer(dev, tmp: str, smi: str, name: str, *extra) -> dict:
     if steps != M["cli_steps"] - 1 or n["launches"] != want:
         raise AssertionError(f"ladder {name}: {steps} steps, launches "
                              f"{n['launches']}, expected {want}")
+    restored = {}
+    if name == "bert_moe":
+        if "Worker 0: mesh dp-1-ep2-mb1 (expert=2," not in out["text"][0]:
+            raise AssertionError("ladder bert_moe: no expert mesh: "
+                                 + out["text"][0][-3000:])
+        # A trained accuracy above 0, so that the restore's equal
+        # accuracy is not 0 == 0.
+        if not n["test_accuracy"] > 0.0:
+            raise AssertionError(f"ladder bert_moe: test accuracy "
+                                 f"{n['test_accuracy']}")
+        eval_s, acc = eval_restores("ladder bert_moe", out)
+        restored = dict(eval_wall_s=eval_s, eval_test_accuracy=acc)
     emit(f"ladder_{name}", card=smi, wall_s=out["wall_s"], flags=list(extra),
-         launches_expected=want, **n)
-    return {f"ladder_{name.split('_')[0]}": n["launches"]}
+         launches_expected=want, **restored, **n)
+    key = "bert_moe" if name == "bert_moe" else name.split("_")[0]
+    return {f"ladder_{key}": n["launches"]}
 
 
 def ladder(dev, smi: str, *rungs) -> dict:
@@ -4933,6 +5094,260 @@ def ladder(dev, smi: str, *rungs) -> dict:
          rungs=[fn.__name__ for fn, *_ in rungs])
     return {k: v for launches in done for k, v in launches.items()}
 
+
+
+# ------------------------------------------ items 7a and 7c (7c: above)
+
+
+def repo_text() -> bytes:
+    """This checkout's text: its top-level ``*.md`` and ``*.py`` files and
+    the packages' and tests' ``*.py``, sorted, concatenated."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    paths = [p for pattern in ("*.md", "*.py",
+                               "distributed_tensorflow_tpu*/**/*.py",
+                               "tests/*.py")
+             for p in sorted(glob.glob(os.path.join(root, pattern),
+                                       recursive=True))]
+    out = []
+    for p in paths:
+        with open(p, "rb") as fh:
+            out.append(fh.read())
+    return b"".join(out)
+
+
+def lm_bpe(dev, smi: str) -> dict:
+    """Phase ``lm_bpe``: gpt_mini through the trainer CLI on a corpus
+    that streams, BPE-encoded, with adafactor, on the kernels; then the
+    run resumed from its checkpoint and cursor; then ``--mode=generate``
+    from text.  Gates: the CLI's BPE table is the one the native core
+    trains here from the same sample (training is a pure function of the
+    bytes; the core raises rather than fall back), the launches exact in
+    both runs, the cursor restored and moved on, and the generated text
+    the saved tokenizer's decode of the generated tokens (cut at the stop
+    text), the prompt its encoding, through K1 and K3.  Returns the two
+    training runs' launches."""
+    from distributed_tensorflow_tpu_torch.data.lm import (BPE_SAMPLE_BYTES,
+                                                          CorpusFiles)
+    from distributed_tensorflow_tpu_torch.data.tokenizer import (
+        BpeTokenizer, native_library)
+    from distributed_tensorflow_tpu_torch.models import gpt
+    B = LM_BPE
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_lm_bpe_")
+    try:
+        want = B["corpus_mb"] << 20
+        text = repo_text()
+        text = (text * -(-want // len(text)))[:want]
+        data_dir = os.path.join(tmp, "corpus")
+        os.makedirs(data_dir)
+        path = os.path.join(data_dir, "corpus.txt")
+        with open(path, "wb") as fh:
+            fh.write(text)
+        # The native core on this host, on the CLI's own sample and train
+        # region.
+        files = CorpusFiles([path])
+        train_end = int(files.total * 0.9)
+        sample = files.read(0, min(train_end, BPE_SAMPLE_BYTES))
+        t0 = time.perf_counter()
+        tok = BpeTokenizer.train(sample, B["vocab"])
+        train_s = time.perf_counter() - t0
+        region = files.read(0, train_end)
+        t0 = time.perf_counter()
+        ids = tok.encode(region)
+        encode_s = time.perf_counter() - t0
+
+        logdir = os.path.join(tmp, "run")
+        common = ["--model=gpt_mini", "--attention_backend=pallas",
+                  "--fused_layer_norm", "--gpt_tokenizer=bpe",
+                  f"--gpt_bpe_vocab={B['vocab']}",
+                  f"--gpt_stream_corpus_mb={B['stream_mb']}",
+                  "--optimizer=adafactor", f"--learning_rate={B['lr']}",
+                  f"--bert_seq_len={B['seq']}", f"--batch_size={B['batch']}",
+                  f"--data_dir={data_dir}", f"--logdir={logdir}",
+                  f"--device={dev}", "--job_name=worker", "--task_index=0",
+                  f"--worker_hosts=localhost:{free_port()}", "--ps_hosts=",
+                  "--sync_replicas=true",
+                  f"--save_interval_steps={B['save']}", "--log_every=1"]
+        L = gpt.mini().num_layers
+        runs, launches = [], {}
+        t_phase = time.perf_counter()
+        for i, steps in enumerate((B["steps"], 2 * B["steps"])):
+            metrics = os.path.join(tmp, f"run{i}.jsonl")
+            t0 = time.perf_counter()
+            with CliProcess("train", *common, f"--train_steps={steps}",
+                            f"--metrics_file={metrics}") as proc:
+                lines = finish(proc, 400)
+            n = trainer_numbers(lines, metrics, 0)
+            n["wall_s"] = time.perf_counter() - t0
+            text_out = "".join(lines)
+            if "gpt bpe streaming corpus" not in text_out:
+                raise AssertionError("lm_bpe: the corpus did not stream: "
+                                     + text_out[-3000:])
+            restored = "restored streaming-corpus cursor" in text_out
+            if restored != (i == 1):
+                raise AssertionError(f"lm_bpe run {i}: cursor restored "
+                                     f"{restored}: " + text_out[-3000:])
+            # Each step K1/K2a/K2b once a layer and K3 2L+1; the eval
+            # forwards (validation at the run's first step, the final
+            # test: 4 batches each) K1 and K3 as a step's forward.
+            forwards = n["steps"] + 2 * 4
+            want = {"flash_attention_fwd": L * forwards,
+                    "flash_attention_bwd_dq": L * n["steps"],
+                    "flash_attention_bwd_dkv": L * n["steps"],
+                    "layer_norm_fwd": (2 * L + 1) * forwards,
+                    "quant_matmul": 0, "quant_matmul_nt": 0}
+            if n["launches"] != want:
+                raise AssertionError(f"lm_bpe run {i} launches "
+                                     f"{n['launches']}, expected {want}")
+            for k, v in n["launches"].items():
+                launches[k] = launches.get(k, 0) + v
+            with open(os.path.join(logdir, "gpt_mini",
+                                   "data_cursor_p0.json")) as fh:
+                n["cursor"] = json.load(fh)
+            n["losses"] = [float(x.split(" loss ")[1].split()[0])
+                           for x in lines
+                           if x.startswith("Worker 0: traing step")]
+            runs.append(n)
+        if runs[1]["cursor"] == runs[0]["cursor"]:
+            raise AssertionError("lm_bpe: the resumed run's cursor did not "
+                                 f"move: {runs[1]['cursor']}")
+        saved = BpeTokenizer.load(os.path.join(logdir, "gpt_mini",
+                                               "tokenizer.json"))
+        if saved.merges != tok.merges:
+            raise AssertionError("lm_bpe: the CLI's BPE table is not the "
+                                 "native core's on the same sample")
+
+        t0 = time.perf_counter()
+        with CliProcess("train", *common, "--mode=generate",
+                        f"--gen_tokens={B['gen_tokens']}",
+                        f"--gen_prompt_text={B['prompt']}",
+                        f"--gen_stop_text={B['stop']}") as gen:
+            gen_lines = finish(gen, 300)
+        gen_s = time.perf_counter() - t0
+        prompt = [int(t) for t in line_value(gen_lines,
+                                             "Prompt tokens:").split()]
+        got = [int(t) for t in line_value(gen_lines,
+                                          "Generated tokens:").split()]
+        printed = line_value(gen_lines, "Generated text:")
+        decoded = saved.decode(got).decode("utf-8", errors="replace")
+        decoded = decoded.split(B["stop"], 1)[0]
+        gen_launches = json.loads(line_value(gen_lines, "Kernel launches:"))
+        if prompt != saved.encode(B["prompt"].encode()).tolist():
+            raise AssertionError(f"lm_bpe generate: prompt ids {prompt}")
+        if printed != repr(decoded):
+            raise AssertionError(f"lm_bpe generate: text {printed}, the "
+                                 f"tokenizer decodes {decoded!r}")
+        if not (gen_launches["flash_attention_fwd"]
+                and gen_launches["layer_norm_fwd"]):
+            raise AssertionError(f"lm_bpe generate launches {gen_launches}")
+        emit("lm_bpe", card=smi, corpus_bytes=len(text),
+             native_tokenizer=native_library(), vocab=tok.vocab_size,
+             bpe_train_mb_per_s=len(sample) / 2 ** 20 / train_s,
+             bpe_encode_mb_per_s=len(region) / 2 ** 20 / encode_s,
+             bpe_train_s=train_s, bpe_encode_s=encode_s,
+             bytes_per_token=len(region) / len(ids), batch=B["batch"],
+             seq_len=B["seq"], optimizer="adafactor",
+             wall_s=time.perf_counter() - t_phase, runs=runs,
+             generate_wall_s=gen_s, generated_text=printed,
+             generate_launches=gen_launches)
+        return launches
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def train_optimizers(dev, smi: str) -> dict:
+    """Phase ``train_optimizers``: the train phase's step (GPT-406M
+    width, B=8, S=1024, fp32 masters) under each optimizer of
+    ``OPTIMIZERS``, ``OPTIMIZERS["steps"]`` steps each: step ms, the
+    optimizer update's ms alone (after a backward, between two
+    synchronisations), the slot bytes, the peak.  Gate: adafactor's
+    slots on the matrices it factors under 1% of adam's.  Returns the
+    steps' launches."""
+    import torch
+    from distributed_tensorflow_tpu_torch.data.lm import make_lm_datasets
+    from distributed_tensorflow_tpu_torch.models import gpt
+    from distributed_tensorflow_tpu_torch.parallel.sync import (
+        build_sync_train_step)
+    from distributed_tensorflow_tpu_torch.training.optimizers import (
+        _factored_dims, make_optimizer)
+    from distributed_tensorflow_tpu_torch.training.state import TrainState
+    O = OPTIMIZERS
+    t0 = time.perf_counter()
+    B, S = TRAIN["batch"], TRAIN["seq_len"]
+    cfg = gpt.GptConfig(**WIDTH)
+    model = gpt.GptLM(cfg, device=dev, seed=SEED, param_dtype=torch.float32)
+    data = make_lm_datasets(cfg, seq_len=S).train
+
+    def loss_fn(m, batch):
+        tokens = torch.as_tensor(batch["tokens"], device=dev).long()
+        loss, acc = gpt.lm_loss(m(tokens), tokens)
+        return loss, {"accuracy": acc}
+
+    batches = [data.next_batch(B) for _ in range(O["steps"] + 1)]
+    # Every optimizer starts from the same weights.
+    weights = {k: v.clone() for k, v in model.state_dict().items()}
+    out, slots, launches = {}, {}, {}
+    for name in O["names"]:
+        model.load_state_dict(weights)
+        state = TrainState.create(model, make_optimizer(name, O["lr"]))
+        step = build_sync_train_step(loss_fn)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launch_counts()
+        step_ms, losses = [], []
+        for batch in batches[:O["steps"]]:
+            t = time.perf_counter()
+            state, metrics = step(state, batch)
+            losses.append(float(metrics["loss"]))
+            step_ms.append((time.perf_counter() - t) * 1e3)
+        for k, v in launch_counts().items():
+            launches[k] = launches.get(k, 0) + v
+        # The update alone: a backward, then the optimizer between two
+        # synchronisations.
+        model.zero_grad(set_to_none=True)
+        loss, _ = loss_fn(model, batches[-1])
+        loss.backward()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        state.optimizer.step()
+        torch.cuda.synchronize()
+        update_ms = (time.perf_counter() - t) * 1e3
+        model.zero_grad(set_to_none=True)
+        peak = torch.cuda.max_memory_allocated()
+        st = state.optimizer.base.state
+        per = {}
+        for p in model.parameters():
+            per[p] = sum(v.numel() * v.element_size()
+                         for v in st.get(p, {}).values()
+                         if torch.is_tensor(v) and v.dim())
+        slots[name] = per
+        if not all(map(math.isfinite, losses)):
+            raise AssertionError(f"train_optimizers {name}: losses {losses}")
+        out[name] = dict(step_ms=step_ms, update_ms=update_ms,
+                         slot_bytes=sum(per.values()), peak_mem_gb=peak / 1e9,
+                         losses=losses)
+        del state, step
+        torch.cuda.empty_cache()
+    factored = [p for p in model.parameters()
+                if _factored_dims(tuple(p.shape)) is not None]
+    ratio = (sum(slots["adafactor"][p] for p in factored)
+             / sum(slots["adam"][p] for p in factored))
+    if not ratio < 0.01:
+        raise AssertionError(f"adafactor's factored slots {ratio:.4f} of "
+                             "adam's")
+    per_step = {"flash_attention_fwd": cfg.num_layers,
+                "flash_attention_bwd_dq": cfg.num_layers,
+                "flash_attention_bwd_dkv": cfg.num_layers,
+                "layer_norm_fwd": 2 * cfg.num_layers + 1}
+    expect_launches("train_optimizers", launches, per_step,
+                    O["steps"] * len(O["names"]))
+    n_params = sum(p.numel() for p in model.parameters())
+    del model, weights
+    torch.cuda.empty_cache()
+    emit("train_optimizers", card=smi, seconds=time.perf_counter() - t0,
+         params=n_params, batch=B, seq_len=S, lr=O["lr"], factored_params=sum(p.numel() for p in factored),
+         adafactor_over_adam_factored_slots=ratio, optimizers=out,
+         launches=launches)
+    return launches
 
 
 def trainer_nccl(smi: str) -> None:
@@ -4962,7 +5377,8 @@ def trainer_nccl(smi: str) -> None:
 # gpt_mini: the trainer phase's width, S=512, B=32, 40 global steps of one
 # replica (39 local steps), a merge every 10, paced as well (100 ms, cut
 # from 150).
-ASYNC = dict(period=4, pace_s=0.1, overlap_pace_s=0.06, gpt_period=10,
+ASYNC = dict(period=4, pace_s=0.1, overlap_pace_s=0.06, lead_steps=100,
+             gpt_period=10,
              gpt_steps=40,
              gpt_pace_s=0.1, jax_cpu_test_accuracy=1.0,
              # Full-state bytes over the int8 round's: the JAX package's
@@ -5019,7 +5435,10 @@ def async_job(device: str, tmp: str, smi: str, label: str, *extra,
     """The reference job in async mode: a PS and two workers on
     ``device``, each step paced by ``pace_s``; with ``stagger``, worker 1
     starts once worker 0 has published (its first exchange runs at local
-    step 4, before the step-5 line)."""
+    step 4, before the step-5 line), and worker 0 trains
+    ``ASYNC["lead_steps"]`` steps more, so that it is still publishing
+    when a slow start-up brings worker 1 in (a worker 1 that met only
+    worker 0's last publication adopted it and averaged with no one)."""
     ps_port = free_port()
     ports = [free_port(), free_port()]
     T, A = TRAINER, ASYNC
@@ -5037,8 +5456,10 @@ def async_job(device: str, tmp: str, smi: str, label: str, *extra,
               *extra]
 
     def worker(t):
+        lead = ([f"--train_steps={T['steps'] + A['lead_steps']}"]
+                if stagger and t == 0 else [])
         return CliProcess("train", "--job_name=worker", f"--task_index={t}",
-                          *common)
+                          *common, *lead)
 
     t0 = time.perf_counter()
     with contextlib.ExitStack() as stack:
@@ -5117,8 +5538,12 @@ def async_reference(dev, tmp: str, smi: str) -> None:
     both = out["text"][0] + out["text"][1]
     for needle in ("averaged parameters with 1 peer(s)", "(kv publish"):
         if needle not in both:
+            # Each worker's exchange lines, its first skips included.
+            seen = {t: [x for x in out["text"][t].splitlines()
+                        if "peer" in x or "publish" in x][:8]
+                    for t in (0, 1)}
             raise AssertionError(f"async_reference: no {needle!r}: "
-                                 + both[-3000:])
+                                 f"{seen} " + both[-2000:])
     if "adopted published collective parameters" not in out["text"][1]:
         raise AssertionError("async_reference: worker 1 did not adopt the "
                              "published parameters: "
@@ -5463,44 +5888,57 @@ def async_exchange(dev, tmp: str, smi: str, timed_beside=()) -> None:
          int8_err_bound=bound_abs)
 
 
-def async_trainer(dev, smi: str, beside=(), beside_lines=()) -> list:
+def async_trainer(dev, smi: str) -> None:
     """Phase ``async_trainer``: ``async_reference`` and ``async_overlap``
-    side by side, then ``async_exchange`` (``async_gpt`` runs in the
-    ``trainer`` phase's group) with the parts ``beside`` (``(fn,
-    *args)``; the ladder's, whose lines are ``beside_lines``) beside it;
-    their results."""
+    side by side (``async_gpt`` runs in the ``trainer`` phase's group,
+    ``async_exchange`` in :func:`exchange_and_ladder`)."""
     tmp = tempfile.mkdtemp(prefix="chip_smoke_async_")
     seconds = {}
     start = time.perf_counter()
 
     def timed(name, fn):
         t0 = time.perf_counter()
-        out = fn(dev, tmp, smi)
+        fn(dev, tmp, smi)
         seconds[name] = time.perf_counter() - t0
-        return out
     try:
         # The two MNIST jobs (a PS and two paced workers each) side by
-        # side; the in-process exchange after.  (``async_gpt`` runs beside
-        # the trainer phase: its start-up load beside async_reference's
-        # staggered worker 1 cost that job its overlap once.)
+        # side, nothing else beside them: start-up load beside
+        # async_reference's staggered worker 1 cost that job its overlap
+        # once (async_gpt's).
         side_by_side((timed, "async_reference", async_reference),
                      (timed, "async_overlap", async_overlap))
-        # The exchange is host numpy and zlib in this process, launching
-        # no kernel: the ladder's in-process steps (their launch counters)
-        # and its CLI processes run beside it.
-        t0 = time.perf_counter()
-        results = side_by_side(
-            (timed, "async_exchange", functools.partial(
-                async_exchange, timed_beside=beside_lines)), *beside)[1:]
-        seconds["async_exchange_group"] = time.perf_counter() - t0
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     emit("async_trainer", card=smi, seconds=time.perf_counter() - start,
          seconds_by_part=seconds,
-         side_by_side=[["async_reference", "async_overlap"],
-                       ["async_exchange",
-                        *(fn.__name__ for fn, *_ in beside)]])
-    return results
+         side_by_side=[["async_reference", "async_overlap"]])
+
+
+def exchange_and_ladder(dev, smi: str, beside_lines=()) -> dict:
+    """``async_exchange`` (host numpy and zlib in this process, no kernel
+    launched) with the config ladder's CLIs beside it (LeNet-5 async,
+    BERT-tiny, ViT-tiny, BERT-MoE over two expert positions), and beside
+    both the parts ``beside_lines`` names.  Returns the ladder's
+    launches, by path."""
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_exchange_")
+    rungs = ["ladder_lenet5", "ladder_bert_tiny", "ladder_vit_tiny",
+             "ladder_bert_moe"]
+    t0 = time.perf_counter()
+    try:
+        _, launches = side_by_side(
+            (functools.partial(async_exchange,
+                               timed_beside=[*rungs, *beside_lines]),
+             dev, tmp, smi),
+            (ladder, dev, smi, (ladder_lenet,),
+             (ladder_transformer, "bert_tiny"),
+             (ladder_transformer, "vit_tiny", "--data_augmentation=true"),
+             (ladder_transformer, "bert_moe", "--expert_parallel=2",
+              "--optimizer=lamb", "--learning_rate=0.03")))
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    emit("exchange_group", seconds=time.perf_counter() - t0,
+         side_by_side=["async_exchange", "ladder", *beside_lines])
+    return launches
 
 
 def main() -> int:
@@ -5553,12 +5991,21 @@ def main() -> int:
     by_path["serve_chunked"] = serve_chunked(dev, model, whole)
     by_path["serve_spec"] = serve_spec(dev, model)
     by_path["generate"] = generate_phase(dev, model)
-    by_path["checkpoint"] = checkpoint_phase(dev, smi, model, whole)
+    # The async exchange (host work in this process) and the config
+    # ladder's CLIs beside the checkpoint phase's processes.
+    t0 = time.perf_counter()
+    by_path["checkpoint"], ladder_launches = side_by_side(
+        (checkpoint_phase, dev, smi, model, whole),
+        (exchange_and_ladder, dev, smi, ["checkpoint"]))
+    by_path.update(ladder_launches)
+    emit("checkpoint_group", seconds=time.perf_counter() - t0,
+         side_by_side=["checkpoint", "async_exchange", "ladder"])
     # The config ladder's ResNet-20 rung (its processes: two gloo workers,
-    # then --mode=eval) beside the fleet's processes.
-    by_path["fleet"], _ = side_by_side(
-        (fleet_phase, dev, smi, model, whole, ["ladder_resnet20"]),
-        (ladder, dev, smi, (ladder_resnet,)))
+    # then --mode=eval) and lm_bpe's gpt_mini CLIs beside the fleet's
+    # processes.
+    by_path["fleet"], _, by_path["lm_bpe"] = side_by_side(
+        (fleet_phase, dev, smi, model, whole, ["ladder_resnet20", "lm_bpe"]),
+        (ladder, dev, smi, (ladder_resnet,)), (lm_bpe, dev, smi))
     del model, whole
     torch.cuda.empty_cache()
     by_path["train"], bf16_step = train(dev, smi)
@@ -5569,6 +6016,8 @@ def main() -> int:
     by_path.update(train_parallel(dev, smi, bf16_step))
     torch.cuda.empty_cache()
     by_path.update(train_pipeline(dev, smi, bf16_step))
+    torch.cuda.empty_cache()
+    by_path["train_optimizers"] = train_optimizers(dev, smi)
     torch.cuda.empty_cache()
     # The two FSDP ranks, and the two gpt_mini trainer CLIs (tp2 x
     # ulysses2; the 1f1b pipeline) each with its eval and generate, side
@@ -5583,15 +6032,8 @@ def main() -> int:
     by_path.update(models)
     emit("fsdp_and_cli_pair", seconds=time.perf_counter() - t0,
          beside=["train_models"])
-    # The config ladder's other three CLIs beside the async exchange.
     by_path["trainer"], by_path["async_trainer"] = trainer(dev, smi)
-    for launches in async_trainer(dev, smi, beside=((
-            ladder, dev, smi, (ladder_lenet,),
-            (ladder_transformer, "bert_tiny"),
-            (ladder_transformer, "vit_tiny", "--data_augmentation=true")),),
-            beside_lines=["ladder_lenet5", "ladder_bert_tiny",
-                          "ladder_vit_tiny"]):
-        by_path.update(launches)
+    async_trainer(dev, smi)
     for row in rows:
         row["launches"] = by_path[row["main"]][row["name"]]
         if row["name"] in by_path["async_trainer"]:

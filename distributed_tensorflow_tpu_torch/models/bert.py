@@ -25,8 +25,12 @@
 Parameters keep flax's names and layouts (``bert/layer0/attention/qkv/
 kernel`` [128, 3, heads, D], ``bert/word_emb/embedding`` [vocab, 128],
 ...): the modules' attribute names are flax's, so :func:`params_from_jax`
-only joins the names.  The mixture-of-experts FFN (``num_experts > 0``)
-is not ported: ROADMAP.md, section 1, item 7c.
+only joins the names.  With ``num_experts > 0`` each layer's FFN is the
+top-k mixture of experts of ``ops/moe.py`` (``layer{i}/moe/router/
+kernel``, ``layer{i}/moe/experts/{wi,wo}/...``), its objective
+:func:`make_moe_mlm_loss_fn` and its placement
+:func:`bert_moe_sharding_rules` (the experts over ``expert``, the rest
+as :func:`bert_sharding_rules`).
 """
 
 from __future__ import annotations
@@ -42,6 +46,7 @@ from torch.utils.checkpoint import checkpoint
 
 from ..ops.attention import default_mesh
 from ..ops.layer_norm import LayerNorm
+from ..ops.moe import MoeMlp, StackedDense
 from ..parallel.sharding import P, ShardingRules
 from ..training.state import flat_names, nested_tree
 from ..utils.device import resolve_device
@@ -76,12 +81,6 @@ class BertConfig:
     def torch_dtype(self) -> torch.dtype:
         return getattr(torch, self.dtype)
 
-    def __post_init__(self):
-        if self.num_experts > 0:
-            raise NotImplementedError(
-                "the mixture-of-experts FFN (num_experts > 0) is not ported "
-                "yet; see ROADMAP.md, section 1, item 7c")
-
 
 def tiny() -> BertConfig:
     return BertConfig()
@@ -110,8 +109,13 @@ class TransformerLayer(nn.Module):
                   device=device)
         self.attention = SelfAttention(cfg, device)
         self.ln_attn = LayerNorm(H, fused=cfg.fused_ln, device=device)
-        self.mlp_in = Dense((H,), (I,), **kw)
-        self.mlp_out = Dense((I,), (H,), **kw)
+        if cfg.num_experts > 0:
+            self.moe = MoeMlp(H, cfg.num_experts, I, top_k=cfg.moe_top_k,
+                              capacity_factor=cfg.moe_capacity_factor,
+                              dtype=cfg.torch_dtype, device=device)
+        else:
+            self.mlp_in = Dense((H,), (I,), **kw)
+            self.mlp_out = Dense((I,), (H,), **kw)
         self.ln_mlp = LayerNorm(H, fused=cfg.fused_ln, device=device)
 
     def forward(self, x: torch.Tensor, attention_mask: torch.Tensor,
@@ -129,7 +133,10 @@ class TransformerLayer(nn.Module):
         if g is not None:
             attn = dropout(attn, cfg.dropout_rate, g)
         x = self.ln_attn(x + attn)
-        h = gelu_mlp(self.mlp_in, self.mlp_out, x)
+        if cfg.num_experts > 0:
+            h = self.moe(x)
+        else:
+            h = gelu_mlp(self.mlp_in, self.mlp_out, x)
         if g is not None:
             h = dropout(h, cfg.dropout_rate, g)
         return self.ln_mlp(x + h)
@@ -203,6 +210,10 @@ class BertForMLM(nn.Module):
         for module in self.modules():
             if isinstance(module, Dense):
                 lecun_normal_(module.kernel, module.fan_in, g)
+                if module.bias is not None:
+                    module.bias.zero_()
+            elif isinstance(module, StackedDense):
+                lecun_normal_(module.kernel, module.kernel.shape[1], g)
                 module.bias.zero_()
             elif isinstance(module, Embed):
                 module.embedding.normal_(
@@ -245,22 +256,56 @@ def mlm_loss(logits: torch.Tensor, labels: torch.Tensor,
     return loss, (correct * w).sum() / denom
 
 
+def make_moe_mlm_loss_fn(aux_weight: float | None = None,
+                         label_smoothing: float = 0.0):
+    """The MoE MLM objective (the JAX ``make_moe_mlm_loss_fn``): the
+    masked-LM loss plus ``aux_weight`` (default ``DEFAULT_AUX_WEIGHT``)
+    times the load-balance loss averaged over the layers.
+    ``loss_fn(model, batch, rng=None) -> (loss, {"accuracy",
+    "moe_aux"})``; ``batch`` holds numpy arrays or tensors."""
+    from ..ops.moe import DEFAULT_AUX_WEIGHT, collect_aux_loss
+    if aux_weight is None:
+        aux_weight = DEFAULT_AUX_WEIGHT
+
+    def loss_fn(model, batch, rng=None):
+        device = next(model.parameters()).device
+        t = {k: torch.as_tensor(v, device=device) for k, v in batch.items()}
+        logits = model(t["input_ids"].long(), t["attention_mask"], rng)
+        loss, acc = mlm_loss(logits, t["labels"], t["label_weights"],
+                             label_smoothing=label_smoothing)
+        aux = collect_aux_loss(model).to(loss.device)
+        return loss + aux_weight * aux, {"accuracy": acc, "moe_aux": aux}
+
+    return loss_fn
+
+
+_TP_RULES = [
+    (r"qkv/kernel", P(None, None, "model", None)),
+    (r"qkv/bias", P(None, "model", None)),
+    (r"attention/out/kernel", P("model", None, None)),
+    (r"mlp_in/kernel", P(None, "model")),
+    (r"mlp_in/bias", P("model")),
+    (r"mlp_out/kernel", P("model", None)),
+    (r"(word_emb|pos_emb|type_emb)/embedding", P("model", None)),
+    (r"mlm_out/kernel", P(None, "model")),
+    (r"mlm_out/bias", P("model")),
+]
+
+
 def bert_sharding_rules() -> ShardingRules:
     """Tensor-parallel placement over the ``model`` axis (the JAX
     package's rules): ``qkv``/``mlp_in`` split by their output,
     ``attention/out``/``mlp_out`` by their input, the embeddings by their
     rows (vocab parallel) and ``mlm_out`` by the vocabulary."""
-    return ShardingRules([
-        (r"qkv/kernel", P(None, None, "model", None)),
-        (r"qkv/bias", P(None, "model", None)),
-        (r"attention/out/kernel", P("model", None, None)),
-        (r"mlp_in/kernel", P(None, "model")),
-        (r"mlp_in/bias", P("model")),
-        (r"mlp_out/kernel", P("model", None)),
-        (r"(word_emb|pos_emb|type_emb)/embedding", P("model", None)),
-        (r"mlm_out/kernel", P(None, "model")),
-        (r"mlm_out/bias", P("model")),
-    ])
+    return ShardingRules(_TP_RULES)
+
+
+def bert_moe_sharding_rules() -> ShardingRules:
+    """The MoE's rules ahead of the tensor-parallel ones: the stacked
+    experts over ``expert``, everything else as
+    :func:`bert_sharding_rules` (the two axes compose on one mesh)."""
+    from ..ops.moe import moe_sharding_rules
+    return ShardingRules(moe_sharding_rules() + _TP_RULES)
 
 
 def synthetic_mlm_batch(rng, batch_size: int, seq_len: int,

@@ -7,9 +7,12 @@ Counterpart of ``distributed_tensorflow_tpu/models/registry.py``: the
 BERT-tiny MLM (:func:`build_bert_tiny`, #5), with ViT-tiny
 (:func:`build_vit_tiny`), the GPT-mini decoder (:func:`build_gpt_mini`),
 the pipelined GPT-mini (:func:`build_gpt_pipeline`,
-``--pipeline_parallel``) and :func:`build` (the trainer's ``--model``
-lookup).  ``bert_moe`` raises ``NotImplementedError`` (ROADMAP.md,
-section 1, item 7c).
+``--pipeline_parallel``), BERT-tiny with a mixture-of-experts FFN
+(:func:`build_bert_moe`, its experts over the ``expert`` axis) and
+:func:`build` (the trainer's ``--model`` lookup).  GPT-mini trains on a
+byte or BPE corpus (``--gpt_tokenizer=bpe``: the model's vocabulary is
+``--gpt_bpe_vocab``, the run's ``tokenizer.json`` goes beside its
+checkpoints).
 """
 
 from __future__ import annotations
@@ -20,7 +23,7 @@ from typing import Callable
 import torch
 
 from ..training.optimizers import OptimizerSpec, make_optimizer
-from ..training.state import TrainState
+from ..training.state import TrainState, mark_stacked_leaves
 from ..utils.device import resolve_device
 
 
@@ -76,7 +79,9 @@ def build_gpt_mini(learning_rate: float, seed: int = 0, seq_len: int = 128,
                    matmul_int8: bool = False,
                    attn_int8: bool = False,
                    tokenizer: str = "byte",
-                   stream_threshold_mb: int = 256, *,
+                   bpe_vocab: int = 512,
+                   stream_threshold_mb: int = 256,
+                   tokenizer_path: str | None = None, *,
                    device=None, mesh=None) -> ModelBundle:
     """GPT-mini decoder-only causal LM with fp32 master weights, its
     optimizer (Adam by default) and the LM data streams.  ``matmul_int8``
@@ -86,7 +91,9 @@ def build_gpt_mini(learning_rate: float, seed: int = 0, seq_len: int = 128,
     ``mesh``'s ``seq`` axis (a ``parallel.mesh.Mesh``; or the one of
     ``ops.attention.attention_mesh`` around the first step).  The bundle's
     ``sharding_rules`` are :func:`.gpt.gpt_sharding_rules`, which
-    ``ParallelConfig.place_state`` applies over a ``model`` axis.  ``device``
+    ``ParallelConfig.place_state`` applies over a ``model`` axis.
+    ``tokenizer="bpe"`` sizes the vocabulary to ``bpe_vocab`` and trains
+    the corpus's BPE table, saved at ``tokenizer_path``.  ``device``
     defaults to ``cuda`` (pass ``"cpu"`` for the CPU); the model's
     weights come from ``seed``, the dropout generator from ``seed + 1``."""
     from . import gpt as gpt_lib
@@ -99,8 +106,10 @@ def build_gpt_mini(learning_rate: float, seed: int = 0, seq_len: int = 128,
         attention_window=attention_window, activation=activation, norm=norm,
         matmul_int8=matmul_int8, attn_int8=attn_int8)
     if tokenizer == "bpe":
-        raise NotImplementedError("the BPE tokenizer is not ported yet; see "
-                                  "ROADMAP.md, section 1, item 7a")
+        # The embedding and head cover the tokenizer's ids (the table is
+        # trained up to bpe_vocab ids, fewer on a small corpus).
+        _validate_bpe_vocab(bpe_vocab)
+        cfg = dataclasses.replace(cfg, vocab_size=bpe_vocab)
     device = resolve_device(device)
     model = gpt_lib.GptLM(cfg, device=device, seed=seed,
                           param_dtype=torch.float32, mesh=mesh)
@@ -132,7 +141,8 @@ def build_gpt_mini(learning_rate: float, seed: int = 0, seq_len: int = 128,
         # Byte corpus when data_dir holds *.txt; the synthetic stream
         # otherwise.
         return make_lm_datasets(cfg, seq_len=seq_len, data_dir=data_dir,
-                                tokenizer=tokenizer,
+                                tokenizer=tokenizer, bpe_vocab=bpe_vocab,
+                                tokenizer_path=tokenizer_path,
                                 stream_threshold_bytes=(
                                     stream_threshold_mb << 20))
 
@@ -157,7 +167,9 @@ def build_gpt_pipeline(learning_rate: float, mesh, seed: int = 0,
                        activation: str = "gelu",
                        norm: str = "layernorm",
                        tokenizer: str = "byte",
-                       stream_threshold_mb: int = 256, *,
+                       bpe_vocab: int = 512,
+                       stream_threshold_mb: int = 256,
+                       tokenizer_path: str | None = None, *,
                        width: dict | None = None) -> ModelBundle:
     """GPT-mini with its decoder blocks run as a pipeline schedule over
     ``mesh``'s ``pipe`` axis (``--pipeline_parallel``): chunk ``c`` of
@@ -192,13 +204,14 @@ def build_gpt_pipeline(learning_rate: float, mesh, seed: int = 0,
         attention_window=attention_window, activation=activation,
         norm=norm, **(width or {}))
     if tokenizer == "bpe":
-        raise NotImplementedError("the BPE tokenizer is not ported yet; see "
-                                  "ROADMAP.md, section 1, item 7a")
+        _validate_bpe_vocab(bpe_vocab)
+        cfg = dataclasses.replace(cfg, vocab_size=bpe_vocab)
     devices = mesh.pipe_devices()
     plain = gpt_lib.GptLM(cfg, device=devices[0], seed=seed,
                           param_dtype=torch.float32)
     model = gpt_lib.PipelinedGptLM.from_gpt(plain, devices, v)
     del plain
+    mark_stacked_leaves(model, model.params_to_tree)
     if tx is None:
         tx = _default_transformer_tx(learning_rate, "gpt_mini(pipelined)")
     state = TrainState.create(model, tx,
@@ -231,7 +244,8 @@ def build_gpt_pipeline(learning_rate: float, mesh, seed: int = 0,
 
     def load_datasets(data_dir):
         return make_lm_datasets(cfg, seq_len=seq_len, data_dir=data_dir,
-                                tokenizer=tokenizer,
+                                tokenizer=tokenizer, bpe_vocab=bpe_vocab,
+                                tokenizer_path=tokenizer_path,
                                 stream_threshold_bytes=(
                                     stream_threshold_mb << 20))
 
@@ -247,6 +261,16 @@ def build_gpt_pipeline(learning_rate: float, mesh, seed: int = 0,
                        pipeline_bundle_name(n_pipe, schedule, v),
                        place_state=place_state,
                        train_step_builder=step_builder)
+
+
+def _validate_bpe_vocab(bpe_vocab: int) -> None:
+    """257 = 256 byte ids + 1 merge at least: the BPE stream falls back
+    to raw bytes (ids 0..255), so a smaller table would put ids past the
+    embedding (the CLI's ``--gpt_bpe_vocab`` check)."""
+    if bpe_vocab < 257:
+        raise ValueError(
+            f"bpe_vocab must be >= 257 (256 byte ids + at least one merge), "
+            f"got {bpe_vocab}")
 
 
 def _move_module(state, module, device) -> None:
@@ -408,8 +432,11 @@ def _build_bert(learning_rate: float, seed: int, seq_len: int,
                 device=None, mesh=None) -> ModelBundle:
     """The BERT bundle: dict batches of the synthetic MLM streams
     (``data/mlm.py``), the masked-position loss and accuracy, Adam by
-    default.  ``num_experts > 0`` (the MoE FFN) raises: ROADMAP.md,
-    section 1, item 7c.  The dropout generator comes from ``seed + 1``."""
+    default.  ``num_experts > 0`` swaps each layer's FFN for the top-k
+    MoE (``ops/moe.py``): the objective adds the weighted load-balance
+    loss (``moe_aux`` in the metrics) and the rules put the stacked
+    experts on the ``expert`` axis.  The dropout generator comes from
+    ``seed + 1``."""
     from . import bert
     from ..data.mlm import make_mlm_datasets, make_mlm_eval_fn
 
@@ -430,12 +457,17 @@ def _build_bert(learning_rate: float, seed: int, seq_len: int,
                               params_to_tree=bert.params_to_jax,
                               params_from_tree=bert.params_from_jax)
 
-    def _loss(model, batch, rng=None):
-        t = {k: torch.as_tensor(v, device=device) for k, v in batch.items()}
-        logits = model(t["input_ids"].long(), t["attention_mask"], rng)
-        loss, acc = bert.mlm_loss(logits, t["labels"], t["label_weights"],
-                                  label_smoothing=label_smoothing)
-        return loss, {"accuracy": acc}
+    if num_experts > 0:
+        _loss = bert.make_moe_mlm_loss_fn(label_smoothing=label_smoothing)
+    else:
+        def _loss(model, batch, rng=None):
+            t = {k: torch.as_tensor(v, device=device)
+                 for k, v in batch.items()}
+            logits = model(t["input_ids"].long(), t["attention_mask"], rng)
+            loss, acc = bert.mlm_loss(logits, t["labels"],
+                                      t["label_weights"],
+                                      label_smoothing=label_smoothing)
+            return loss, {"accuracy": acc}
 
     if needs_rng:
         loss_fn = _loss
@@ -452,7 +484,9 @@ def _build_bert(learning_rate: float, seed: int, seq_len: int,
                        lambda: make_mlm_eval_fn(
                            lambda m, ids, mask: m(ids.long(), mask)),
                        name, needs_rng=needs_rng,
-                       sharding_rules=bert.bert_sharding_rules())
+                       sharding_rules=(bert.bert_moe_sharding_rules()
+                                       if num_experts > 0
+                                       else bert.bert_sharding_rules()))
 
 
 def build_bert_tiny(learning_rate: float, seed: int = 0, seq_len: int = 128,
@@ -470,8 +504,33 @@ def build_bert_tiny(learning_rate: float, seed: int = 0, seq_len: int = 128,
                        device=device, mesh=mesh)
 
 
+def build_bert_moe(learning_rate: float, seed: int = 0, seq_len: int = 128,
+                   attention_backend: str = "xla", num_experts: int = 4,
+                   dtype: str = "bfloat16", remat: bool = False,
+                   tx: OptimizerSpec | None = None,
+                   dropout_rate: float = 0.0, fused_ln: bool = False,
+                   label_smoothing: float = 0.0, *, device=None,
+                   mesh=None) -> ModelBundle:
+    """BERT-tiny with a mixture-of-experts FFN (top-2, capacity factor
+    2), the expert-parallel workload."""
+    return _build_bert(learning_rate, seed, seq_len, attention_backend,
+                       num_experts=num_experts, name="bert_moe", dtype=dtype,
+                       remat=remat, tx=tx, dropout_rate=dropout_rate,
+                       fused_ln=fused_ln, label_smoothing=label_smoothing,
+                       device=device, mesh=mesh)
+
+
 def _seed(FLAGS) -> int:
     return getattr(FLAGS, "seed", 0)
+
+
+def _tokenizer_path(FLAGS, bundle_name: str) -> str | None:
+    """The run's corpus tokenizer beside its checkpoints (the
+    supervisor's namespace), so eval and generate decode its ids."""
+    import os
+    logdir = getattr(FLAGS, "logdir", "")
+    return os.path.join(logdir, bundle_name, "tokenizer.json") if logdir \
+        else None
 
 
 #: ``--model`` name -> ``(FLAGS, tx, device, mesh) -> ModelBundle``; the
@@ -508,6 +567,17 @@ BUILDERS = {
         fused_ln=getattr(FLAGS, "fused_layer_norm", False),
         label_smoothing=getattr(FLAGS, "label_smoothing", 0.0),
         device=device, mesh=mesh),
+    "bert_moe": lambda FLAGS, tx, device, mesh: build_bert_moe(
+        FLAGS.learning_rate, seed=_seed(FLAGS),
+        seq_len=getattr(FLAGS, "bert_seq_len", 128),
+        attention_backend=getattr(FLAGS, "attention_backend", "xla"),
+        num_experts=getattr(FLAGS, "num_experts", 4),
+        dtype=getattr(FLAGS, "bert_dtype", "bfloat16"),
+        remat=getattr(FLAGS, "remat", False), tx=tx,
+        dropout_rate=getattr(FLAGS, "bert_dropout", 0.0),
+        fused_ln=getattr(FLAGS, "fused_layer_norm", False),
+        label_smoothing=getattr(FLAGS, "label_smoothing", 0.0),
+        device=device, mesh=mesh),
     "gpt_mini": lambda FLAGS, tx, device, mesh: (build_gpt_pipeline(
         FLAGS.learning_rate, mesh, seed=_seed(FLAGS),
         seq_len=getattr(FLAGS, "bert_seq_len", 128),
@@ -525,7 +595,12 @@ BUILDERS = {
         activation=getattr(FLAGS, "gpt_activation", "gelu"),
         norm=getattr(FLAGS, "gpt_norm", "layernorm"),
         tokenizer=getattr(FLAGS, "gpt_tokenizer", "byte"),
-        stream_threshold_mb=getattr(FLAGS, "gpt_stream_corpus_mb", 256))
+        bpe_vocab=getattr(FLAGS, "gpt_bpe_vocab", 512),
+        stream_threshold_mb=getattr(FLAGS, "gpt_stream_corpus_mb", 256),
+        tokenizer_path=_tokenizer_path(FLAGS, pipeline_bundle_name(
+            FLAGS.pipeline_parallel,
+            getattr(FLAGS, "pipeline_schedule", "gpipe"),
+            getattr(FLAGS, "pipeline_virtual_stages", 2))))
         if getattr(FLAGS, "pipeline_parallel", 1) > 1 else build_gpt_mini(
         FLAGS.learning_rate, seed=_seed(FLAGS),
         seq_len=getattr(FLAGS, "bert_seq_len", 128),
@@ -543,12 +618,11 @@ BUILDERS = {
         matmul_int8=getattr(FLAGS, "gpt_matmul_int8", False),
         attn_int8=getattr(FLAGS, "gpt_attn_int8", False),
         tokenizer=getattr(FLAGS, "gpt_tokenizer", "byte"),
+        bpe_vocab=getattr(FLAGS, "gpt_bpe_vocab", 512),
         stream_threshold_mb=getattr(FLAGS, "gpt_stream_corpus_mb", 256),
+        tokenizer_path=_tokenizer_path(FLAGS, "gpt_mini"),
         device=device, mesh=mesh)),
 }
-
-#: The JAX package's other ``--model`` names.
-NOT_PORTED = ("bert_moe",)
 
 
 def build(name: str, FLAGS, device=None, mesh=None) -> ModelBundle:
@@ -558,11 +632,7 @@ def build(name: str, FLAGS, device=None, mesh=None) -> ModelBundle:
     ``ParallelConfig.build_mesh``) goes to the model's blocks: the
     sequence-parallel backends' and the tensor-parallel heads' mesh."""
     from ..training.optimizers import from_flags
-    if name in NOT_PORTED:
-        raise NotImplementedError(
-            f"--model={name} is not ported yet; see ROADMAP.md, section 1, "
-            "item 7c")
     if name not in BUILDERS:
         raise ValueError(f"Unknown model {name!r}; available: "
-                         f"{sorted([*BUILDERS, *NOT_PORTED])}")
+                         f"{sorted(BUILDERS)}")
     return BUILDERS[name](FLAGS, from_flags(FLAGS), device, mesh)

@@ -9,7 +9,8 @@ every position of it (single controller, as a JAX program over a mesh):
 - ``data``  — data parallelism (batch axis)
 - ``seq``   — sequence/context parallelism (ring and ulysses attention)
 - ``pipe``  — pipeline parallelism (layer stages: :mod:`.pipeline`)
-- ``expert``— expert parallelism (kept at size 1: ROADMAP.md, item 7c)
+- ``expert``— expert parallelism (the MoE's stacked expert weights,
+  ``ops/moe.py``, split over it)
 - ``model`` — tensor parallelism (heads and hidden columns, Megatron's
   layout: :mod:`.sharding`, ``models/gpt.py``)
 
@@ -22,12 +23,12 @@ path is the same.
 :class:`ParallelConfig` is the trainer's declarative layout.  Its data
 replicas are the sync trainer's worker processes (one replica a worker,
 the reference's ``num_workers``), so a worker's mesh is ``data=1 x seq x
-model``: the trainer lays those positions over the worker's cards round
-robin (:func:`worker_positions`).  FSDP shards over those worker
+pipe x expert x model``: the trainer lays those positions over the
+worker's cards round robin (:func:`worker_positions`).  FSDP shards over those worker
 processes (:func:`.sharding.fsdp_state`), not over in-process
 positions.  The DCN factor and data shards inside one process beside
-tensor parallelism (slice 8d) and experts (item 7c) raise
-``NotImplementedError`` naming ROADMAP.md's entry.  :func:`save_run_profile` /
+tensor or expert parallelism (slice 8d) raise ``NotImplementedError``
+naming ROADMAP.md's entry.  :func:`save_run_profile` /
 :func:`load_run_profile` write and read the JAX package's run-profile
 JSON.
 """
@@ -86,17 +87,22 @@ class Mesh:
     def pipe_devices(self) -> list:
         """The device of each pipe coordinate (every other axis at 0):
         where stage ``s`` of a pipeline lives (:mod:`.pipeline`)."""
+        return self.axis_devices(PIPE_AXIS)
+
+    def axis_devices(self, axis: str) -> list:
+        """The device of each coordinate of ``axis`` (every other axis at
+        0): where a parameter split over ``axis`` keeps its shard ``j``."""
         index = [0] * self.devices.ndim
         out = []
-        for s in range(self.shape[PIPE_AXIS]):
-            index[self.axis_names.index(PIPE_AXIS)] = s
+        for j in range(self.shape[axis]):
+            index[self.axis_names.index(axis)] = j
             out.append(self.devices[tuple(index)])
         return out
 
     def model_devices(self) -> list:
         """The device of each model coordinate (data, seq, pipe and
         expert at 0): where a parameter's shard ``j`` lives."""
-        return [self.grid(j)[0, 0] for j in range(self.shape[MODEL_AXIS])]
+        return self.axis_devices(MODEL_AXIS)
 
     def column(self, j: int) -> "Mesh":
         """Model column ``j`` as a mesh of its own (model axis of size 1):
@@ -118,10 +124,8 @@ def create_mesh(data: int = -1, model: int = 1, seq: int = 1,
     list may name one device more than once: ``create_mesh(seq=4,
     devices=[cuda0] * 4)`` runs four sequence shards on one card, and the
     CPU tests build ``devices=[cpu] * 8``.  JAX's ``create_mesh``
-    requires distinct devices.  ``expert`` > 1 and ``dcn_data`` > 1
-    raise (not ported)."""
-    if expert > 1:
-        raise _roadmap(f"the expert axis (expert={expert})", "item 7c")
+    requires distinct devices.  ``dcn_data`` > 1 raises (not
+    ported)."""
     if dcn_data > 1:
         raise _roadmap(f"the DCN data factor (dcn_data={dcn_data})",
                        "item 6, slice 8d")
@@ -193,7 +197,7 @@ def num_replicas(mesh: Mesh) -> int:
 
 def worker_positions(name: str, task_index: int, positions: int) -> list:
     """The devices of a worker's ``positions`` mesh positions (its ``seq x
-    model``) for the ``--device`` value ``name``: ``cuda`` lays them round
+    pipe x expert x model``) for the ``--device`` value ``name``: ``cuda`` lays them round
     robin over the visible cards from card ``task_index x positions``, as
     worker ``i`` with one position takes card ``i`` mod the count; an
     explicit ``cuda:N`` or ``cpu`` holds every position."""

@@ -1,4 +1,4 @@
-"""Parameter-placement rules over a mesh's ``model`` axis.
+"""Parameter-placement rules over a mesh's ``model`` and ``expert`` axes.
 
 Counterpart of ``distributed_tensorflow_tpu/parallel/sharding.py``: an
 ordered list of (regex, spec) rules matched against flax parameter paths
@@ -8,9 +8,10 @@ package: one entry per dimension, an axis name, a tuple of them or None.
 
 Placement is single-controller, as :mod:`.mesh` is.  A parameter whose
 spec fits splits into its shards along the dimension the ``model`` axis
-names: shard ``j`` is an ``nn.Parameter`` of its own, registered on the
-owning module as ``<name>_shard<j>`` and living on the mesh device of
-model coordinate ``j`` (:meth:`.mesh.Mesh.model_devices`).  The module
+(or the ``expert`` axis: the MoE's stacked expert weights) names: shard
+``j`` is an ``nn.Parameter`` of its own, registered on the owning module
+as ``<name>_shard<j>`` and living on the mesh device of that axis's
+coordinate ``j`` (:meth:`.mesh.Mesh.axis_devices`).  The module
 records the split in ``tp_shards`` (name -> :class:`ShardInfo`), and
 :func:`full` gathers the whole tensor where a computation needs it.
 Every other parameter stays one replicated tensor on the first device; a
@@ -42,7 +43,7 @@ from typing import Any, Sequence
 import torch
 from torch import nn
 
-from .mesh import DATA_AXIS, MODEL_AXIS, Mesh
+from .mesh import DATA_AXIS, EXPERT_AXIS, MODEL_AXIS, Mesh
 
 
 class P(tuple):
@@ -133,7 +134,8 @@ REPLICATED_RULES = ShardingRules(())
 @dataclasses.dataclass(frozen=True)
 class ShardInfo:
     """How one parameter is split: along ``dim`` into the parameters
-    ``names`` (in model-coordinate order), by ``spec``."""
+    ``names`` (in the coordinate order of the axis ``spec`` names), by
+    ``spec``."""
 
     dim: int
     names: tuple
@@ -186,48 +188,71 @@ def _sharded_entries(model: nn.Module):
 def gather_named(model: nn.Module, named: dict) -> dict:
     """``{state_dict name: tensor}`` with every sharded parameter's shards
     (by their names) replaced by the whole tensor under its own name
-    (shards absent from ``named`` are left out)."""
+    (shards absent from ``named`` are left out).  A tensor of another
+    shape than its shard (an optimizer slot that the parameter's spec
+    cannot partition, as adafactor's factored ``v_row``) is held whole
+    by every shard: shard 0's is the whole."""
     out = dict(named)
     for whole, info, names in _sharded_entries(model):
         if not all(n in out for n in names):
             continue
         parts = [out.pop(n) for n in names]
+        if tuple(parts[0].shape) != _shard_shape(model, names[0]):
+            out[whole] = parts[0]
+            continue
         home = parts[0].device
         out[whole] = torch.cat([p.to(home) for p in parts], dim=info.dim)
     return out
 
 
+def _shard_shape(model: nn.Module, name: str) -> tuple:
+    """The shape of shard ``name`` whole: its FSDP slices gathered."""
+    p = model.get_parameter(name)
+    info = getattr(p, "fsdp_info", None)
+    return tuple(info.shape) if info is not None else tuple(p.shape)
+
+
 def split_named(model: nn.Module, named: dict) -> dict:
     """Inverse of :func:`gather_named`: whole tensors split into the
-    shards' names (each piece on the whole tensor's device)."""
+    shards' names (each piece on the whole tensor's device); a tensor of
+    another shape than the whole parameter goes whole to every shard."""
     out = dict(named)
     for whole, info, names in _sharded_entries(model):
         if whole in out:
-            for n, piece in zip(names, out.pop(whole).chunk(len(names),
-                                                            dim=info.dim)):
+            t = out.pop(whole)
+            shape = list(_shard_shape(model, names[0]))
+            shape[info.dim] *= len(names)
+            pieces = (t.chunk(len(names), dim=info.dim)
+                      if tuple(t.shape) == tuple(shape)
+                      else [t] * len(names))
+            for n, piece in zip(names, pieces):
                 out[n] = piece
     return out
 
 
-def _model_dim(mesh: Mesh, spec: P) -> int | None:
-    """The dimension ``spec`` puts on a non-trivial ``model`` axis (None:
-    the leaf is replicated over the mesh).  ``data`` is the worker
-    processes (:func:`fsdp_state` splits over it, not this mesh); any
-    other axis it names must have size 1."""
-    dim = None
+def _split_axis(mesh: Mesh, spec: P) -> tuple:
+    """``(dim, axis)``: the dimension ``spec`` puts on a non-trivial
+    ``model`` or ``expert`` axis, and that axis (``(None, None)``: the
+    leaf is replicated over the mesh).  ``data`` is the worker processes
+    (:func:`fsdp_state` splits over it, not this mesh); any other axis it
+    names must have size 1, and one leaf splits over one axis."""
+    dim = found = None
     for i, entry in enumerate(spec):
         if entry is None:
             continue
         for axis in entry if isinstance(entry, tuple) else (entry,):
             if mesh.shape[axis] == 1 or axis == DATA_AXIS:
                 continue
-            if axis != MODEL_AXIS:
-                raise NotImplementedError(
-                    f"sharding a parameter over the {axis!r} axis in one "
-                    "process is not ported yet; see ROADMAP.md, section 1, "
-                    "item 7c")
-            dim = i
-    return dim
+            if axis not in (MODEL_AXIS, EXPERT_AXIS):
+                raise ValueError(
+                    f"a parameter's spec {spec} names the {axis!r} axis, "
+                    "which holds no parameter shard")
+            if found is not None:
+                raise ValueError(
+                    f"spec {spec} splits one parameter over two "
+                    "in-process axes")
+            dim, found = i, axis
+    return dim, found
 
 
 def _data_dim(spec: P) -> int | None:
@@ -314,16 +339,17 @@ def shard_state(mesh: Mesh, state: Any, rules: ShardingRules) -> Any:
     here: a mesh with ``data > 1`` beside ``model > 1`` raises."""
     from ..training.state import param_paths
     n_model = mesh.shape[MODEL_AXIS]
-    if mesh.shape[DATA_AXIS] > 1 and n_model > 1:
+    if mesh.shape[DATA_AXIS] > 1 and n_model * mesh.shape[EXPERT_AXIS] > 1:
         raise NotImplementedError(
-            f"data={mesh.shape[DATA_AXIS]} with model={n_model} in one "
-            "process is not ported yet (the data axis is the worker "
-            "processes); see ROADMAP.md, section 1, item 6, slice 8d")
+            f"data={mesh.shape[DATA_AXIS]} with model={n_model} or expert="
+            f"{mesh.shape[EXPERT_AXIS]} in one process is not ported yet "
+            "(the data axis is the worker processes); see ROADMAP.md, "
+            "section 1, item 6, slice 8d")
     model = state.model
     if is_sharded(model):
         raise ValueError("the state's parameters are sharded already")
-    devices = mesh.model_devices()
-    _move(state, devices[0])
+    home = mesh.model_devices()[0]
+    _move(state, home)
     named = dict(model.named_parameters())
     paths = param_paths(named, state.params_to_tree)
     slots = _named_slots(state)
@@ -333,32 +359,36 @@ def shard_state(mesh: Mesh, state: Any, rules: ShardingRules) -> Any:
         for name in sorted(named, key=lambda n: paths[n].split("/")):
             p = named[name]
             spec = rules._fitted(mesh, paths[name], p, "param")
-            dim = _model_dim(mesh, spec)
+            dim, axis = _split_axis(mesh, spec)
             if dim is None:
                 continue
+            devices = mesh.axis_devices(axis)
+            n = len(devices)
             module, attr = _owner(model, name)
             del module._parameters[attr]
-            names = tuple(f"{attr}_shard{j}" for j in range(n_model))
+            names = tuple(f"{attr}_shard{j}" for j in range(n))
             pre = name[:len(name) - len(attr)]
-            for j, (n, piece) in enumerate(zip(names, p.chunk(n_model,
-                                                              dim=dim))):
-                module.register_parameter(n, nn.Parameter(
-                    piece.to(devices[j]).clone(),
-                    requires_grad=p.requires_grad))
+            # One key per split parameter: the optimizer's rules that read
+            # a whole leaf group its shards by it.
+            key = object()
+            for j, (sn, piece) in enumerate(zip(names, p.chunk(n, dim=dim))):
+                shard = nn.Parameter(piece.to(devices[j]).clone(),
+                                     requires_grad=p.requires_grad)
+                shard.tp_split = (key, j, n, dim)
+                module.register_parameter(sn, shard)
             module.__dict__.setdefault("tp_shards", {})[attr] = ShardInfo(
                 dim, names, spec)
             whole_slots = slots.pop(name, None)
             if whole_slots is not None:
-                for j, n in enumerate(names):
-                    slots[pre + n] = {
-                        k: _slot_piece(v, p.shape, n_model, dim, j,
-                                       devices[j])
+                for j, sn in enumerate(names):
+                    slots[pre + sn] = {
+                        k: _slot_piece(v, p.shape, n, dim, j, devices[j])
                         for k, v in whole_slots.items()}
             if state.ema_params is not None:
                 ema = state.ema_params.pop(name)
-                for j, (n, piece) in enumerate(zip(names, ema.chunk(
-                        n_model, dim=dim))):
-                    state.ema_params[pre + n] = piece.to(devices[j]).clone()
+                for j, (sn, piece) in enumerate(zip(names, ema.chunk(
+                        n, dim=dim))):
+                    state.ema_params[pre + sn] = piece.to(devices[j]).clone()
     _rebuild_optimizer(state, slots)
     for module in model.modules():
         if hasattr(module, "mesh"):
@@ -369,17 +399,18 @@ def shard_state(mesh: Mesh, state: Any, rules: ShardingRules) -> Any:
 def apply_rules(mesh: Mesh, tree: Any, rules: ShardingRules,
                 warn_label: str | None = None) -> Any:
     """A tree of arrays or tensors as its per-leaf shard lists: each
-    leaf whose fitted spec splits it over ``model`` becomes the list of
-    its pieces (piece ``j`` on model device ``j``), every other leaf a
-    one-element list on the first device."""
-    devices = mesh.model_devices()
+    leaf whose fitted spec splits it over ``model`` (or ``expert``)
+    becomes the list of its pieces (piece ``j`` on that axis's device
+    ``j``), every other leaf a one-element list on the first device."""
+    home = mesh.model_devices()[0]
     specs = rules.tree_shardings(mesh, tree, warn_label)
 
     def place(leaf, spec):
         t = torch.as_tensor(leaf)
-        dim = _model_dim(mesh, spec)
+        dim, axis = _split_axis(mesh, spec)
         if dim is None:
-            return [t.to(devices[0])]
+            return [t.to(home)]
+        devices = mesh.axis_devices(axis)
         return [x.to(d) for x, d in zip(t.chunk(len(devices), dim=dim),
                                         devices)]
 
@@ -488,9 +519,10 @@ def fsdp_state(mesh: Mesh, state: Any, rules: ShardingRules | None = None,
     :class:`FsdpRules` (the tensor-parallel ``rules`` first, then the
     largest free dim divisible by the workers, at least ``min_size``
     elements) shards over ``data`` keeps only this worker's slice, under
-    its own name (recorded in its module's ``fsdp_shards``; the slice is
-    marked ``fsdp_split`` for the global norm,
-    ``training/optimizers.global_norm``), and so do its optimizer slots
+    its own name (recorded in its module's ``fsdp_shards``; the slice
+    carries it as ``fsdp_info`` for the global norm,
+    ``training/optimizers.global_norm``, and the optimizer's whole-leaf
+    rules), and so do its optimizer slots
     (the optimizer is rebuilt over the slices) and its moving average.
     ``global_step`` and the rng stay replicated.
 
@@ -539,10 +571,12 @@ def fsdp_state(mesh: Mesh, state: Any, rules: ShardingRules | None = None,
             module, attr = _owner(model, name)
             piece = nn.Parameter(p.chunk(world, dim=dim)[rank].clone(),
                                  requires_grad=p.requires_grad)
-            piece.fsdp_split = True
+            info = FsdpInfo(dim, world, rank, tuple(p.shape), spec)
+            piece.fsdp_info = info
+            if hasattr(p, "tp_split"):
+                piece.tp_split = p.tp_split
             module._parameters[attr] = piece
-            module.__dict__.setdefault("fsdp_shards", {})[attr] = FsdpInfo(
-                dim, world, rank, tuple(p.shape), spec)
+            module.__dict__.setdefault("fsdp_shards", {})[attr] = info
             if name in slots:
                 slots[name] = {k: _slot_piece(v, p.shape, world, dim, rank,
                                               p.device)
@@ -552,6 +586,25 @@ def fsdp_state(mesh: Mesh, state: Any, rules: ShardingRules | None = None,
                     world, dim=dim)[rank].clone()
     _rebuild_optimizer(state, slots)
     return state
+
+
+def fsdp_whole(piece: torch.Tensor, info: FsdpInfo) -> torch.Tensor:
+    """The whole tensor of this worker's ``piece`` of a leaf split by
+    ``info`` (an all-gather over the default process group: every worker
+    calls it).  The pieces travel in fp32 (gloo's collectives and the
+    sums are fp32) and the whole comes back in ``piece``'s dtype."""
+    import torch.distributed as dist
+    src = piece.detach().to(torch.float32).contiguous()
+    stage = torch.empty((info.world * src.shape[0], *src.shape[1:]),
+                        dtype=src.dtype, device=src.device)
+    dist.all_gather_into_tensor(stage, src)
+    if info.dim == 0:
+        whole = stage
+    else:
+        # gloo takes the output as the pieces stacked along dim 0.
+        whole = torch.cat(stage.chunk(info.world), dim=info.dim)
+        del stage
+    return whole.to(piece.dtype)
 
 
 class FsdpExchange:
@@ -582,32 +635,14 @@ class FsdpExchange:
         if t.is_cuda:
             torch.cuda.synchronize(t.device)
 
-    def _whole(self, piece: torch.Tensor, info: FsdpInfo) -> torch.Tensor:
-        """The whole tensor of this worker's ``piece`` (a collective).
-        The pieces travel in fp32 (gloo's collectives and the sums are
-        fp32) and the whole comes back in ``piece``'s dtype."""
-        src = piece.detach().to(torch.float32).contiguous()
-        if info.dim == 0:
-            whole = torch.empty((self.world * src.shape[0], *src.shape[1:]),
-                                dtype=src.dtype, device=src.device)
-            self._dist.all_gather_into_tensor(whole, src)
-        else:
-            # gloo takes the output as the pieces stacked along dim 0.
-            stage = torch.empty((self.world * src.shape[0], *src.shape[1:]),
-                                dtype=src.dtype, device=src.device)
-            self._dist.all_gather_into_tensor(stage, src)
-            whole = torch.cat(stage.chunk(self.world), dim=info.dim)
-            del stage
-        return whole.to(piece.dtype)
-
-    def _gather_all(self, pieces: list) -> list:
+    def _gather_all(self, pieces: list, entries=None) -> list:
         import time
         if not pieces:
             return []
         self._sync(pieces[0])
         t0 = time.perf_counter()
-        wholes = [self._whole(p, info)
-                  for p, (_, _, _, info) in zip(pieces, self.entries)]
+        wholes = [fsdp_whole(p, info) for p, (_, _, _, info) in zip(
+            pieces, self.entries if entries is None else entries)]
         self._sync(pieces[0])
         self.gather_s += time.perf_counter() - t0
         return wholes
@@ -665,22 +700,28 @@ class FsdpExchange:
     def gather_named(self, named: dict) -> dict:
         """``{name: tensor}`` (parameters, slots or a moving average by
         parameter name) with every split entry's slice replaced by the
-        whole tensor: a collective, every worker calls it."""
+        whole tensor: a collective, every worker calls it.  A tensor of
+        another shape than its slice (a slot its parameter's spec cannot
+        partition, as adafactor's factored ``v_row``) is held whole by
+        every worker and stays as it is."""
         out = dict(named)
         if any(e[0] not in out for e in self.entries):
             raise ValueError("gather_named needs every split parameter")
-        for (name, *_), whole in zip(self.entries, self._gather_all(
-                [out[e[0]] for e in self.entries])):
+        split = [e for e in self.entries
+                 if out[e[0]].shape == e[1]._parameters[e[2]].shape]
+        for (name, *_), whole in zip(split, self._gather_all(
+                [out[e[0]] for e in split], split)):
             out[name] = whole
         return out
 
 
 def split_fsdp_named(model: nn.Module, named: dict) -> dict:
     """Inverse of :meth:`FsdpExchange.gather_named`: each split entry's
-    whole tensor cut to this worker's slice (no collective)."""
+    whole tensor cut to this worker's slice (no collective); a tensor of
+    another shape than the whole stays as it is."""
     out = dict(named)
     for name, _, _, info in fsdp_entries(model):
-        if name in out:
+        if name in out and tuple(out[name].shape) == tuple(info.shape):
             out[name] = out[name].chunk(info.world, dim=info.dim)[info.rank]
     return out
 

@@ -32,18 +32,30 @@ the hand-written kernels, printing the JAX CLI's lines).  ``--model`` is
 the JAX CLI's config ladder: ``mnist_mlp`` (the reference model),
 ``lenet5``, ``resnet20`` (BatchNorm: non-trainable state, so sync mode
 whatever ``--sync_replicas`` says, its statistics over every worker's
-rows; eval with the running statistics), ``vit_tiny``, ``bert_tiny`` and
-``gpt_mini``; with ``--attention_backend=pallas --fused_layer_norm`` the
-transformers' trainers run the flash-attention (K1, K2a/K2b) and
-LayerNorm (K3) kernels.
+rows; eval with the running statistics), ``vit_tiny``, ``bert_tiny``,
+``bert_moe`` (BERT-tiny with a top-2 mixture-of-experts FFN, its
+load-balance loss in the objective) and ``gpt_mini`` (on the synthetic
+stream, or a ``*.txt`` corpus under ``--data_dir``: bytes, or BPE with
+``--gpt_tokenizer=bpe --gpt_bpe_vocab``, streamed a chunk at a time past
+``--gpt_stream_corpus_mb`` with its cursor saved beside the checkpoints
+and restored on resume; ``--mode=generate --gen_prompt_text
+--gen_stop_text`` go through the run's ``tokenizer.json``).  Every
+``--optimizer`` of the JAX CLI runs, with optax's constants.  With
+``--attention_backend=pallas --fused_layer_norm`` the transformers'
+trainers run the flash-attention (K1, K2a/K2b) and LayerNorm (K3)
+kernels.
 
 Parallelism: the data axis is the worker processes.  Each worker's mesh
-is ``data=1 x seq x model`` (``--sequence_parallel``,
-``--tensor_parallel``), its positions laid round robin over the worker's
-cards (all on one card where there is one; the CLI prints the layout),
-one process driving them all.  ``--tensor_parallel`` places gpt_mini by
-its Megatron rules, ``bert_tiny`` and ``vit_tiny`` theirs
-(``--log_sharding`` prints each parameter's spec);
+is ``data=1 x seq x pipe x expert x model`` (``--sequence_parallel``,
+``--pipeline_parallel``, ``--expert_parallel``, ``--tensor_parallel``),
+its positions laid round robin over the worker's cards (all on one card
+where there is one; the CLI prints the layout), one process driving them
+all.  ``--tensor_parallel`` places gpt_mini by its Megatron rules,
+``bert_tiny`` and ``vit_tiny`` theirs, ``--expert_parallel`` splits
+``bert_moe``'s stacked experts (``--log_sharding`` prints each
+parameter's spec); ``--fsdp`` shards the state over the sync workers and
+``--pipeline_parallel`` runs gpt_mini's blocks as GPipe, 1F1B or
+interleaved stages;
 ``--attention_backend=ring|ulysses`` runs sequence-parallel attention
 over the seq axis.  A model without rules (``mnist_mlp``, ``lenet5``,
 ``resnet20``) trains replicated.
@@ -51,11 +63,9 @@ over the seq axis.  A model without rules (``mnist_mlp``, ``lenet5``,
 Every flag of the JAX ``train.py`` is declared, so a JAX command line
 parses; the port adds ``--device`` (default ``cuda``, which raises without
 a card) in place of ``--platform``.  Not ported yet (each raises
-``NotImplementedError`` naming ROADMAP.md's entry): FSDP (item 6, slice
-8b), the pipeline (8c), the DCN factor and the multi-controller sharded
-feed (8d); the experts and ``bert_moe`` (item 7c), the BPE tokenizer,
-``--gen_prompt_text`` and ``--gen_stop_text`` (item 7a); ``--profile`` run
-profiles (item 8).
+``NotImplementedError`` naming ROADMAP.md's entry): the DCN factor and
+the multi-controller sharded feed (item 6, slice 8d) and ``--profile``
+run profiles (item 8).
 """
 
 from __future__ import annotations
@@ -83,7 +93,9 @@ flags.DEFINE_string("gen_prompt", "",
                     "(default: a stream-sampled prompt)")
 flags.DEFINE_string("gen_prompt_text", "",
                     "Text prompt for --mode=generate, encoded with the "
-                    "run's saved tokenizer (not ported yet)")
+                    "run's saved tokenizer (<logdir>/<namespace>/"
+                    "tokenizer.json, written by corpus-trained runs); the "
+                    "output is decoded to text too")
 flags.DEFINE_float("gen_temperature", 0.0,
                    "Sampling temperature in --mode=generate (0 = greedy)")
 flags.DEFINE_integer("gen_beams", 1,
@@ -101,8 +113,9 @@ flags.DEFINE_float("gen_length_penalty", 1.0,
                    "--gen_eos_id; 1.0 = GNMT default, larger favors "
                    "longer continuations)")
 flags.DEFINE_string("gen_stop_text", "",
-                    "Stop STRING for --mode=generate text output (needs "
-                    "the run's tokenizer; not ported yet)")
+                    "Stop STRING for --mode=generate text output: the "
+                    "decoded text is cut at its first occurrence (needs "
+                    "the run's tokenizer like --gen_prompt_text)")
 flags.DEFINE_integer("gen_speculative", 0,
                      "Speculative greedy decoding in --mode=generate: "
                      "chunk size for prompt-lookup drafting + one-pass "
@@ -121,9 +134,9 @@ flags.DEFINE_boolean("gen_speculative_device", True,
                      "acceptance on the device, reading the host once a "
                      "round (default); false runs the host loop")
 flags.DEFINE_string("model", "mnist_mlp",
-                    "Model/workload: mnist_mlp | gpt_mini (lenet5, "
-                    "resnet20, vit_tiny, bert_tiny and bert_moe are not "
-                    "ported yet); --mode=generate needs gpt_mini")
+                    "Model/workload: mnist_mlp | lenet5 | resnet20 | "
+                    "vit_tiny | bert_tiny | bert_moe | gpt_mini; "
+                    "--mode=generate needs gpt_mini")
 flags.DEFINE_string("logdir", "/tmp/dtf_tpu_train",
                     "Checkpoint/recovery directory: checkpoints under "
                     "<logdir>/<model namespace>/checkpoints")
@@ -205,10 +218,20 @@ flags.DEFINE_boolean("fused_layer_norm", False,
                      "Route transformer LayerNorms through the LayerNorm "
                      "kernel")
 flags.DEFINE_string("gpt_tokenizer", "byte",
-                    "gpt_mini corpus tokenizer: byte | bpe (not ported yet)")
+                    "Text tokenizer for the gpt_mini *.txt corpus: byte "
+                    "(ids = raw bytes, vocab 256) | bpe (byte-level BPE "
+                    "trained on the corpus train split by the C++ core in "
+                    "csrc/tokenizer/bpe.cc; model vocab = --gpt_bpe_vocab)")
+flags.DEFINE_integer("gpt_bpe_vocab", 512,
+                     "Model vocab size with --gpt_tokenizer=bpe (includes "
+                     "the 256 base bytes; the merge table is trained up to "
+                     "this many tokens)")
 flags.DEFINE_integer("gpt_stream_corpus_mb", 256,
-                     "Corpus size (MB) above which the LM corpus streams "
-                     "(not ported yet)")
+                     "Corpus size (MB of *.txt under --data_dir) above "
+                     "which the LM corpus streams in chunks instead of "
+                     "loading into RAM: per-process disjoint chunk sets, "
+                     "deterministic cursor resume (saved at checkpoints); "
+                     "BPE then trains on a bounded train-region sample")
 flags.DEFINE_float("label_smoothing", 0.0,
                    "Mix one-hot targets with the uniform distribution")
 flags.DEFINE_boolean("log_grad_norm", False,
@@ -338,6 +361,12 @@ flags.DEFINE_integer("tensor_parallel", 1,
                      "Size of the 'model' mesh axis (tensor parallelism: "
                      "Megatron's split of gpt_mini over the worker's "
                      "positions)")
+flags.DEFINE_integer("expert_parallel", 1,
+                     "Size of the 'expert' mesh axis (expert parallelism: "
+                     "--model=bert_moe's stacked experts split over the "
+                     "worker's positions)")
+flags.DEFINE_integer("num_experts", 4,
+                     "Number of MoE experts for --model=bert_moe")
 flags.DEFINE_integer("sequence_parallel", 1,
                      "Size of the 'seq' mesh axis (sequence/context "
                      "parallelism; pairs with --attention_backend=ring "
@@ -349,9 +378,6 @@ flags.DEFINE_boolean("data_augmentation", False,
 _UNPORTED_FLAGS = (
     ("boolean", "sharded_feed", True, "item 6, slice 8d"),
     ("integer", "dcn_data_parallel", 1, "item 6, slice 8d"),
-    ("integer", "expert_parallel", 1, "item 7c"),
-    ("integer", "num_experts", 4, "item 7c"),
-    ("integer", "gpt_bpe_vocab", 512, "item 7a"),
     ("string", "platform", None, "item 8; --device is the port's switch"),
     ("string", "profile", "", "item 8"),
 )
@@ -387,10 +413,6 @@ def run_generate():
         raise ValueError(
             f"--mode=generate needs an autoregressive model "
             f"(--model=gpt_mini), got --model={FLAGS.model}")
-    for flag in ("gen_prompt_text", "gen_stop_text"):
-        if getattr(FLAGS, flag):
-            raise _not_ported(f"--{flag} (the run's BPE tokenizer, "
-                              "data/tokenizer.py)", "item 7a")
     device = cli_device(FLAGS.device)
 
     # Mirror the training run's checkpoint namespace (registry bundles).
@@ -445,7 +467,30 @@ def run_generate():
         model.load_state_dict(gpt_lib.params_from_jax(tree))
         del tree
 
-    if FLAGS.gen_prompt:
+    # A corpus-trained run keeps its tokenizer beside its checkpoints;
+    # --gen_prompt_text encodes through it, and the output is decoded to
+    # text too.
+    tok = None
+    tok_path = os.path.join(run_dir, "tokenizer.json")
+    if os.path.exists(tok_path):
+        from .data.tokenizer import BpeTokenizer
+        tok = BpeTokenizer.load(tok_path)
+    if FLAGS.gen_prompt_text:
+        if tok is None:
+            raise ValueError(
+                f"--gen_prompt_text needs the run's tokenizer at {tok_path} "
+                "(saved by corpus-trained runs); use --gen_prompt ids instead")
+        ids = tok.encode(FLAGS.gen_prompt_text.encode("utf-8")).tolist()
+        if not ids:
+            raise ValueError("--gen_prompt_text encoded to zero tokens")
+        bad = [t for t in ids if not 0 <= t < cfg.vocab_size]
+        if bad:
+            raise ValueError(
+                f"--gen_prompt_text encoded to ids {bad} outside the "
+                f"model's vocab [0, {cfg.vocab_size}); the saved tokenizer "
+                "does not match this checkpoint")
+        prompt = torch.tensor([ids], dtype=torch.int32)
+    elif FLAGS.gen_prompt:
         ids = [int(t) for t in FLAGS.gen_prompt.split(",")]
         bad = [t for t in ids if not 0 <= t < cfg.vocab_size]
         if bad:
@@ -460,6 +505,10 @@ def run_generate():
     if eos_id is not None and eos_id >= cfg.vocab_size:
         raise ValueError(f"--gen_eos_id {eos_id} outside vocab "
                          f"[0, {cfg.vocab_size})")
+    if FLAGS.gen_stop_text and tok is None:
+        raise ValueError(
+            f"--gen_stop_text needs the run's tokenizer at {tok_path} "
+            "(saved by corpus-trained runs) to decode the output")
     if FLAGS.gen_speculative and FLAGS.gen_beams > 1:
         raise ValueError("--gen_speculative is exclusive with --gen_beams")
     if FLAGS.gen_speculative == 1 or FLAGS.gen_speculative < 0:
@@ -519,9 +568,20 @@ def run_generate():
         if hits.size:
             gen = gen[:hits[0] + 1]
             print(f"Stopped at eos id {eos_id} after {hits[0] + 1} tokens")
+    # The decode's kernel launches, ahead of the JAX CLI's closing lines.
+    print(f"Kernel launches: {json.dumps(_kernel_launches())}")
     print(f"Restored global step: {restored_step}")
     print(f"Prompt tokens:    {' '.join(map(str, toks[:split]))}")
     print(f"Generated tokens: {' '.join(map(str, gen))}")
+    if tok is not None:
+        drop = 1 if (eos_id is not None and gen.size and
+                     gen[-1] == eos_id) else 0
+        text = tok.decode(gen[:gen.size - drop]).decode("utf-8",
+                                                        errors="replace")
+        if FLAGS.gen_stop_text and FLAGS.gen_stop_text in text:
+            text = text.split(FLAGS.gen_stop_text, 1)[0]
+            print(f"Stopped at stop text {FLAGS.gen_stop_text!r}")
+        print(f"Generated text:   {text!r}")
     return toks
 
 
@@ -559,8 +619,7 @@ def _kernel_launches() -> dict:
 
 def _validate_parallel_flags() -> None:
     """The JAX CLI's checks of the pipeline and expert flags (JAX
-    ``train.py:834-871``), with its messages, ahead of the expert axis's
-    ``NotImplementedError``."""
+    ``train.py:834-882``), with its messages."""
     if FLAGS.pipeline_parallel > 1:
         if FLAGS.model != "gpt_mini":
             raise ValueError(
@@ -906,6 +965,12 @@ def main(unused_argv):
     if FLAGS.gpt_tokenizer not in ("byte", "bpe"):
         raise ValueError(f"--gpt_tokenizer must be byte or bpe, got "
                          f"{FLAGS.gpt_tokenizer!r}")
+    if FLAGS.gpt_tokenizer == "bpe":
+        from .models.registry import _validate_bpe_vocab
+        try:
+            _validate_bpe_vocab(FLAGS.gpt_bpe_vocab)
+        except ValueError as e:
+            raise ValueError(f"--gpt_bpe_vocab: {e}") from None
     if FLAGS.async_mode != "local_sgd":
         raise ValueError(f"--async_mode must be local_sgd, got "
                          f"{FLAGS.async_mode!r}")
@@ -919,7 +984,8 @@ def main(unused_argv):
     device = positions = bundle = None
     if FLAGS.job_name == "worker":
         positions = worker_positions(FLAGS.device, FLAGS.task_index,
-                                     pcfg.pipe * pcfg.seq * pcfg.model)
+                                     pcfg.pipe * pcfg.seq * pcfg.expert
+                                     * pcfg.model)
         device = positions[0]
         mesh = pcfg.build_mesh(positions)
         bundle = registry.build(FLAGS.model, FLAGS, device, mesh=mesh)
@@ -954,16 +1020,18 @@ def main(unused_argv):
 
     if len(positions) > 1:
         pipe = f"pipe={pcfg.pipe}, " if pcfg.pipe > 1 else ""
-        print(f"Worker {task}: mesh {pcfg.describe()} ({pipe}"
+        expert = f"expert={pcfg.expert}, " if pcfg.expert > 1 else ""
+        print(f"Worker {task}: mesh {pcfg.describe()} ({pipe}{expert}"
               f"seq={pcfg.seq}, model={pcfg.model}): {len(positions)} "
               f"positions on "
               f"{len(set(positions))} distinct device(s) "
               f"{', '.join(map(str, positions))}")
     state = bundle.state
-    # Rules engage only when the mesh has a model axis (JAX's use_tp), so
-    # mnist_mlp with --tensor_parallel trains replicated.
+    # Rules engage only when the mesh has a model or expert axis (JAX's
+    # use_tp), so mnist_mlp with --tensor_parallel trains replicated.
     use_tp = (bundle.sharding_rules is not None
-              and mesh.shape[mesh_lib.MODEL_AXIS] > 1)
+              and (mesh.shape[mesh_lib.MODEL_AXIS] > 1
+                   or mesh.shape[mesh_lib.EXPERT_AXIS] > 1))
     if FLAGS.trainable_params:
         # Selective fine-tuning: only matching parameters train, and the
         # optimizer is re-initialized so frozen ones carry no slots.

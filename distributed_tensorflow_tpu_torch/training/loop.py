@@ -21,7 +21,9 @@ train split and feeds ``batch_size // world_size`` rows.
 from __future__ import annotations
 
 import contextlib
+import json
 import math
+import os
 import time
 from typing import Any, Callable
 
@@ -215,6 +217,9 @@ def run_training_loop(
     if feed_batch_size is None:
         feed_batch_size = batch_size
 
+    save_cursor_fn = _corpus_cursor(supervisor, feed_split, task_index,
+                                    print_fn)
+
     def put(batch):
         return to_device(batch, device)
 
@@ -251,7 +256,7 @@ def run_training_loop(
                 result=result, rate_meter=rate_meter,
                 host_batch_fn=host_batch_fn, steps_per_call=steps_per_call,
                 shutdown=shutdown, stat_publish_fn=stat_publish_fn,
-                elastic=elastic)
+                elastic=elastic, save_cursor_fn=save_cursor_fn)
     finally:
         if prefetcher is not None:
             prefetcher.close()
@@ -291,9 +296,49 @@ def run_training_loop(
                if prefetcher is not None else {}))
 
     if supervisor is not None:
-        supervisor.maybe_save(state, force=True)
+        if supervisor.maybe_save(state, force=True) and save_cursor_fn:
+            save_cursor_fn()
         supervisor.wait_until_finished()
     return state, result
+
+
+def _corpus_cursor(supervisor, feed_split, task_index: int,
+                   print_fn) -> Callable[[], None] | None:
+    """The streaming-corpus resume (JAX ``training/loop.py``): restore the
+    cursor a previous run saved beside its checkpoints
+    (``data_cursor_p{rank}.json``, ``rank`` this process's in the
+    process group, else 0) into ``feed_split``, and return the function
+    that writes it when a checkpoint lands (None for a stream without a
+    cursor, or without a supervisor).  The prefetcher advances the live
+    stream past the checkpointed step, so the saved cursor leads the
+    weights by up to the prefetch depth: a resumed run skips that many
+    batches and repeats none."""
+    if supervisor is None or not hasattr(feed_split, "cursor"):
+        return None
+    import torch.distributed as dist
+    rank = dist.get_rank() if dist.is_available() and \
+        dist.is_initialized() else 0
+    path = os.path.join(supervisor.logdir, f"data_cursor_p{rank}.json")
+    if os.path.exists(path):
+        try:
+            with open(path) as fh:
+                ok = feed_split.restore_cursor(json.load(fh))
+            print_fn(
+                f"Worker {task_index}: restored streaming-corpus cursor "
+                f"from {path}" if ok else
+                f"Worker {task_index}: corpus cursor at {path} is from a "
+                "different stream geometry (fleet size/chunking); "
+                "streaming from the start")
+        except (OSError, ValueError, KeyError):
+            print_fn(f"Worker {task_index}: unreadable corpus cursor at "
+                     f"{path}; streaming from the start")
+
+    def save_cursor():
+        tmp = path + ".tmp"
+        with open(tmp, "w") as fh:
+            json.dump(feed_split.cursor(), fh)
+        os.replace(tmp, path)
+    return save_cursor
 
 
 def _hbm_watermark(hbm_peak: dict, device: torch.device
@@ -317,7 +362,8 @@ def _step_loop(*, state, train_step, datasets, batch_size, train_steps,
                replica_mask_fn, print_fn, metrics_logger, telemetry,
                summary_writer, summary_histograms, lr_fn, prefetcher, put,
                device, result, rate_meter, host_batch_fn, steps_per_call,
-               shutdown, stat_publish_fn=None, elastic=None):
+               shutdown, stat_publish_fn=None, elastic=None,
+               save_cursor_fn=None):
     local_step = 0
     metrics = None
     data_wait_acc = compute_acc = 0.0
@@ -402,7 +448,10 @@ def _step_loop(*, state, train_step, datasets, batch_size, train_steps,
         if supervisor is not None:
             save_t0_unix = time.time()
             t0 = time.perf_counter()
-            if supervisor.maybe_save(state) and telemetry is not None:
+            saved = supervisor.maybe_save(state)
+            if saved and save_cursor_fn is not None:
+                save_cursor_fn()
+            if saved and telemetry is not None:
                 save_ms = (time.perf_counter() - t0) * 1000.0
                 telemetry.counter("checkpoints").inc()
                 telemetry.histogram("checkpoint_ms").record(save_ms)

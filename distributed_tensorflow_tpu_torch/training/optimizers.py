@@ -7,19 +7,34 @@ Counterpart of ``distributed_tensorflow_tpu/training/optimizers.py``.
 builds an optax state.  The update is composed in the JAX order
 (outermost first): global-norm gradient clip, then coupled weight decay
 (L2: ``g + wd * p``, for every optimizer without built-in decay), then
-the base rule at the scheduled rate.  The base rules are ``torch.optim``'s
-with optax's constants (Adam b1 0.9, b2 0.999, eps 1e-8); ``adamw``'s
+the base rule at the scheduled rate.  ``sgd``, ``momentum``,
+``nesterov``, ``adam`` and ``adamw`` are ``torch.optim``'s rules with
+optax's constants (Adam b1 0.9, b2 0.999, eps 1e-8); ``adamw``'s
 decoupled decay is ``p - lr (u + wd p)``, which ``torch.optim.AdamW``'s
-``p (1 - lr wd) - lr u`` equals.  Schedules count optimizer steps from 0,
-as optax's state does.
+``p (1 - lr wd) - lr u`` equals.  ``lamb``, ``adagrad``, ``rmsprop`` and
+``adafactor`` are optax's rules written out (:class:`_OptaxRule`), with
+optax's constants: lamb b1 0.9, b2 0.999, eps 1e-6 and the trust ratio
+over the decayed update; adagrad's accumulator from 0.1, eps 1e-7;
+rmsprop's decay 0.9 and eps 1e-8 inside the root, then the momentum
+trace; adafactor's factored second moments (``v_row``/``v_col`` for a
+leaf whose two largest dims reach 128, else a full ``v``), decay rate
+0.8, update clipped to an RMS of 1, scaled by the parameter's RMS (at
+least 1e-3), eps 1e-30.  Schedules count optimizer steps from 0, as
+optax's state does.
+
+A rule whose update reads a whole leaf (lamb's trust ratio, adafactor's
+row and column means and RMS scalings) takes a split parameter whole:
+the tensor-parallel shards of one parameter (``parallel/sharding.py``
+marks them ``tp_split``) and a worker's FSDP slice (``fsdp_info``) are
+pieces of one leaf, and the rule sees the sums over every piece (for
+FSDP, over the workers too).  Slots shaped like their parameter are
+split as it is; adafactor's factored slots are held whole by every
+piece (replicated, as JAX places a slot that its parameter's spec cannot
+partition).
 
 :func:`freeze_except` (``--trainable_params``) trains only the parameters
 whose flax path matches a pattern: the frozen ones get no update and no
 slots, and the checkpoint layout is optax's ``multi_transform`` state.
-
-``lamb``, ``adagrad``, ``rmsprop`` and ``adafactor`` raise: their optax
-constants differ from ``torch.optim``'s and need their own parity work
-(ROADMAP.md, section 1, item 7a).
 """
 
 from __future__ import annotations
@@ -34,10 +49,15 @@ import torch
 
 OPTIMIZERS = ("sgd", "momentum", "nesterov", "adam", "adamw", "lamb",
               "adagrad", "rmsprop", "adafactor")
-PORTED = ("sgd", "momentum", "nesterov", "adam", "adamw")
 SCHEDULES = ("constant", "cosine", "linear", "rsqrt")
 
 Schedule = Callable[[int], float]
+
+# Optimizers whose update rule includes decoupled weight decay; for the
+# rest, a nonzero weight_decay is L2 regularization chained in front.
+_BUILTIN_DECAY = ("adamw", "lamb", "adafactor")
+# The rules written out here (optax's), beside torch.optim's.
+_OPTAX_RULES = ("lamb", "adagrad", "rmsprop", "adafactor")
 
 
 def _linear(init: float, end: float, steps: int) -> Schedule:
@@ -121,7 +141,7 @@ def global_norm(params: Iterable[torch.Tensor]) -> torch.Tensor:
     without one counts zero), in fp32 (a 0-dim tensor on the first
     gradient's device).  A parameter split over the model axis is its
     shards, each counted once.  A worker's FSDP slice (marked
-    ``fsdp_split`` by ``parallel/sharding.fsdp_state``) is one piece of a
+    ``fsdp_info`` by ``parallel/sharding.fsdp_state``) is one piece of a
     gradient whose other pieces the other workers hold: the slices'
     squares are summed over the process group, the replicated
     gradients' added once, so every worker clips and logs the one global
@@ -131,7 +151,8 @@ def global_norm(params: Iterable[torch.Tensor]) -> torch.Tensor:
     for p in params:
         if p.grad is not None:
             sq = p.grad.detach().float().pow(2).sum()
-            (split if getattr(p, "fsdp_split", False) else own).append(sq)
+            (split if getattr(p, "fsdp_info", None) is not None
+             else own).append(sq)
     home = (own or split)[0].device
     total = torch.zeros((), dtype=torch.float32, device=home)
     if split:
@@ -145,7 +166,8 @@ def global_norm(params: Iterable[torch.Tensor]) -> torch.Tensor:
 
 
 class Optimizer:
-    """A ``torch.optim`` optimizer over ``params`` behind optax's chain:
+    """A base rule over ``params`` (``base``: a ``torch.optim`` optimizer,
+    or :class:`_OptaxRule` for optax's own rules) behind optax's chain:
     :meth:`step` reads each parameter's ``.grad``, clips by global norm,
     sets the scheduled rate and applies the base rule (which adds coupled
     decay to the gradient where it applies).  Updates the parameters IN
@@ -167,10 +189,12 @@ class Optimizer:
             self.base = torch.optim.Adam(self.params, lr=lr0,
                                          betas=(0.9, 0.999), eps=1e-8,
                                          weight_decay=wd)
-        else:
+        elif spec.name == "adamw":
             self.base = torch.optim.AdamW(self.params, lr=lr0,
                                           betas=(0.9, 0.999), eps=1e-8,
                                           weight_decay=wd)
+        else:
+            self.base = _OptaxRule(spec, self.params, lr0)
 
     def zero_grad(self) -> None:
         for p in self.params:
@@ -196,6 +220,8 @@ class Optimizer:
         lr = self.spec.schedule(self.count)
         for group in self.base.param_groups:
             group["lr"] = lr
+        if isinstance(self.base, _OptaxRule):
+            self.base.count = self.count
         self.base.step()
         self.count += 1
 
@@ -208,8 +234,12 @@ class Optimizer:
         name, ``to_tree`` turns a ``{name: tensor}`` dict into the model's
         flax tree.  ``sgd`` is ``[identity, lr]``, ``momentum`` /
         ``nesterov`` ``[{trace}, lr]``, ``adam`` ``[{count, mu, nu}, lr]``,
-        ``adamw`` ``[{count, mu, nu}, decay, lr]``, where ``lr`` is None
-        for a fixed rate and ``{count}`` for a schedule; a clip and a
+        ``adamw`` ``[{count, mu, nu}, decay, lr]``, ``lamb`` ``[{count,
+        mu, nu}, decay, trust, lr]``, ``adagrad`` ``[{sum_of_squares},
+        lr]``, ``rmsprop`` ``[{nu}, lr, {trace}]``, ``adafactor``
+        ``[{count, v_row, v_col, v}, clip, lr, rms, (decay,) sign]``, where
+        ``lr`` is None for a fixed rate and ``{count}`` for a schedule (the
+        other entries are stateless: None); a clip and a
         coupled decay chain in front as Nones (their optax states are
         empty).  A frozen spec (:func:`freeze_except`) wraps that in
         ``multi_transform``'s ``{inner_states: {freeze: {inner_state:
@@ -236,6 +266,10 @@ class Optimizer:
             base = [None, lr]
         elif spec.name in ("momentum", "nesterov"):
             base = [{"trace": slot("momentum_buffer")}, lr]
+        elif spec.name in _OPTAX_RULES:
+            base = _rule_layout(spec, lr, {k: count if k == "count"
+                                           else slot(k)
+                                           for k in _RULE_SLOTS[spec.name]})
         else:
             adam = {"count": count, "mu": slot("exp_avg"),
                     "nu": slot("exp_avg_sq")}
@@ -273,23 +307,29 @@ class Optimizer:
                         x is not None for x in opt_state[:-1]):
                     raise ValueError("chain")
                 opt_state = opt_state[-1]
-            want = 3 if spec.name == "adamw" else 2
-            if len(opt_state) != want:
-                raise ValueError("length")
-            lr = opt_state[-1]
+            count = None
+            if spec.name in _OPTAX_RULES:
+                lr, state = _read_rule_layout(spec, opt_state)
+                slots = {k: from_tree(state[k])
+                         for k in _RULE_SLOTS[spec.name] if k != "count"}
+                if "count" in state:
+                    count = int(state["count"])
+            else:
+                if len(opt_state) != (3 if spec.name == "adamw" else 2):
+                    raise ValueError("length")
+                lr, state = opt_state[-1], opt_state[0]
+                if spec.name == "sgd":
+                    if state is not None:
+                        raise ValueError("sgd")
+                    slots = {}
+                elif spec.name in ("momentum", "nesterov"):
+                    slots = {"momentum_buffer": from_tree(state["trace"])}
+                else:
+                    slots = {"exp_avg": from_tree(state["mu"]),
+                             "exp_avg_sq": from_tree(state["nu"])}
+                    count = int(state["count"])
             if (lr is None) != getattr(spec.schedule, "constant", False):
                 raise ValueError("schedule")
-            state = opt_state[0]
-            if spec.name == "sgd":
-                if state is not None:
-                    raise ValueError("sgd")
-                slots = {}
-            elif spec.name in ("momentum", "nesterov"):
-                slots = {"momentum_buffer": from_tree(state["trace"])}
-            else:
-                slots = {"exp_avg": from_tree(state["mu"]),
-                         "exp_avg_sq": from_tree(state["nu"])}
-                adam_count = int(state["count"])
         except (KeyError, TypeError, ValueError) as e:
             raise ValueError(f"checkpoint opt_state is not the layout of "
                              f"optimizer {spec.name!r} ({e})") from None
@@ -302,13 +342,308 @@ class Optimizer:
             for key, tree in slots.items():
                 st[key] = tree[names[p]].to(p.device, p.dtype).clone()
             if "exp_avg" in slots:
-                st["step"] = torch.tensor(float(adam_count),
-                                          dtype=torch.float32)
+                st["step"] = torch.tensor(float(count), dtype=torch.float32)
             self.base.state[p] = st
         if lr is not None:
             self.count = int(lr["count"])
-        elif "exp_avg" in slots:
-            self.count = adam_count
+        elif count is not None:
+            self.count = count
+
+
+# ------------------------------------------------------ optax's own rules
+
+#: Each written-out rule's slots under optax's names (``count``: the
+#: rule's update count, a scalar of its state).
+_RULE_SLOTS = {"lamb": ("count", "mu", "nu"),
+               "adagrad": ("sum_of_squares",),
+               "rmsprop": ("nu", "trace"),
+               "adafactor": ("count", "v_row", "v_col", "v")}
+
+
+def _rule_layout(spec: "OptimizerSpec", lr, state: dict) -> list:
+    """The optax chain state of a written-out rule (``state``: its slot
+    trees and count by :data:`_RULE_SLOTS` name; ``lr``: None or
+    ``{count}``)."""
+    if spec.name == "lamb":
+        return [state, None, None, lr]
+    if spec.name == "adagrad":
+        return [state, lr]
+    if spec.name == "rmsprop":
+        return [{"nu": state["nu"]}, lr, {"trace": state["trace"]}]
+    decay = [None] if spec.weight_decay > 0.0 else []
+    return [state, None, lr, None, *decay, None]
+
+
+def _read_rule_layout(spec: "OptimizerSpec", opt_state) -> tuple:
+    """Inverse of :func:`_rule_layout`: ``(lr, {name: slot tree or
+    count})``; raises ``ValueError`` on another layout."""
+    if spec.name == "rmsprop":
+        if len(opt_state) != 3 or set(opt_state[0]) != {"nu"}:
+            raise ValueError("length")
+        return opt_state[1], {"nu": opt_state[0]["nu"],
+                              "trace": opt_state[2]["trace"]}
+    want = len(_rule_layout(spec, None, {}))
+    lr_at = {"lamb": 3, "adagrad": 1, "adafactor": 2}[spec.name]
+    if len(opt_state) != want or any(
+            x is not None for i, x in enumerate(opt_state)
+            if i not in (0, lr_at)):
+        raise ValueError("length")
+    state = opt_state[0]
+    if set(state) != set(_RULE_SLOTS[spec.name]):
+        raise ValueError(f"slots {sorted(state)}")
+    return opt_state[lr_at], state
+
+
+def _factored_dims(shape: tuple) -> tuple | None:
+    """optax ``_factored_dims`` at ``min_dim_size_to_factor=128``: the
+    two largest dims ``(d1, d0)`` (``np.argsort``'s order, ties
+    included) when the second largest reaches 128, else None."""
+    if len(shape) < 2:
+        return None
+    order = np.argsort(shape)
+    if shape[order[-2]] < 128:
+        return None
+    return int(order[-2]), int(order[-1])
+
+
+def _f32(x: float) -> float:
+    """``x`` rounded to fp32 (optax's constants are fp32 scalars)."""
+    return float(np.float32(x))
+
+
+class _Leaf:
+    """One parameter as the JAX tree holds it: its tensor-parallel shards
+    (``pieces``, in model-coordinate order, split along ``dim``; one
+    piece when it is not split), each of them this worker's FSDP slice
+    when ``fsdp`` (the slices' ``FsdpInfo``) is set."""
+
+    def __init__(self, pieces: list, dim: int | None, fsdp):
+        self.pieces = pieces
+        self.dim = dim
+        self.fsdp = fsdp
+
+    @property
+    def shape(self) -> tuple:
+        shape = list(self.fsdp.shape if self.fsdp is not None
+                     else self.pieces[0].shape)
+        if len(self.pieces) > 1:
+            shape[self.dim] *= len(self.pieces)
+        return tuple(shape)
+
+    def whole(self, ts: list) -> torch.Tensor:
+        """The whole tensor of per-piece tensors ``ts`` (with FSDP a
+        collective over the workers)."""
+        if self.fsdp is not None:
+            from ..parallel.sharding import fsdp_whole
+            ts = [fsdp_whole(t, self.fsdp) for t in ts]
+        if len(ts) == 1:
+            return ts[0]
+        home = ts[0].device
+        return torch.cat([t.to(home) for t in ts], dim=self.dim)
+
+    def part(self, whole: torch.Tensor, i: int) -> torch.Tensor:
+        """Piece ``i``'s part of ``whole`` (inverse of :meth:`whole`)."""
+        x = (whole.chunk(len(self.pieces), dim=self.dim)[i]
+             if len(self.pieces) > 1 else whole)
+        if self.fsdp is not None:
+            x = x.chunk(self.fsdp.world, dim=self.fsdp.dim)[self.fsdp.rank]
+        return x.to(self.pieces[i].device)
+
+    def sum(self, values: list) -> torch.Tensor:
+        """The sum of per-piece 0-dim ``values`` over the whole leaf (with
+        FSDP an all-reduce over the workers)."""
+        total = _total(values)
+        if self.fsdp is not None:
+            import torch.distributed as dist
+            dist.all_reduce(total)
+        return total
+
+
+def _leaves(params: list) -> list:
+    """``params`` grouped into :class:`_Leaf` s: the shards of one split
+    parameter (``tp_split``: ``(key, index, count, dim)``) form one
+    leaf."""
+    out, groups = [], {}
+    for p in params:
+        fsdp = getattr(p, "fsdp_info", None)
+        split = getattr(p, "tp_split", None)
+        if split is None:
+            out.append(_Leaf([p], None, fsdp))
+            continue
+        key, j, n, dim = split
+        if key not in groups:
+            groups[key] = _Leaf([None] * n, dim, fsdp)
+            out.append(groups[key])
+        groups[key].pieces[j] = p
+    return out
+
+
+class _OptaxRule:
+    """optax's ``lamb``, ``adagrad``, ``rmsprop(momentum=...)`` or
+    ``adafactor(min_dim_size_to_factor=128)`` over ``params``, in
+    ``torch.optim``'s shape: ``state[p]`` holds ``p``'s slots under
+    optax's names (initialised as optax's ``init`` does), ``param_groups``
+    the rate, ``step()`` updates in place from ``.grad`` (clipped by
+    :class:`Optimizer`).  ``count`` is the number of updates before this
+    one (optax's state count), set by :class:`Optimizer`."""
+
+    def __init__(self, spec: "OptimizerSpec", params: list, lr: float):
+        self.spec = spec
+        self.param_groups = [{"lr": lr, "params": params}]
+        self.leaves = _leaves(params)
+        # The leaves one JAX leaf stacks (``stack_group``: the pipelined
+        # GPT's layers) share the whole-leaf statistics.
+        stacks = {}
+        for leaf in self.leaves:
+            key = getattr(leaf.pieces[0], "stack_group", None)
+            stacks.setdefault(id(leaf) if key is None else key,
+                              []).append(leaf)
+        self.groups = list(stacks.values())
+        self.count = 0
+        self.state = {}
+        for leaf in self.leaves:
+            for p in leaf.pieces:
+                self.state[p] = self._init_slots(leaf, p)
+
+    def _init_slots(self, leaf: _Leaf, p: torch.Tensor) -> dict:
+        name = self.spec.name
+        if name == "lamb":
+            return {"mu": torch.zeros_like(p), "nu": torch.zeros_like(p)}
+        if name == "adagrad":
+            return {"sum_of_squares": torch.full_like(p, 0.1)}
+        if name == "rmsprop":
+            return {"nu": torch.zeros_like(p), "trace": torch.zeros_like(p)}
+        one = p.new_zeros((1,))
+        dims = _factored_dims(leaf.shape)
+        if dims is None:
+            return {"v_row": one, "v_col": one.clone(),
+                    "v": torch.zeros_like(p)}
+        shape = list(leaf.shape)
+        d1, d0 = dims
+        return {"v_row": p.new_zeros(shape[:d0] + shape[d0 + 1:]),
+                "v_col": p.new_zeros(shape[:d1] + shape[d1 + 1:]),
+                "v": one}
+
+    @torch.no_grad()
+    def step(self) -> None:
+        lr = self.param_groups[0]["lr"]
+        wd = self.spec.weight_decay
+        update = getattr(self, "_" + self.spec.name)
+        for group in self.groups:
+            grads = []
+            for leaf in group:
+                g = [p.grad for p in leaf.pieces]
+                if wd > 0.0 and self.spec.name not in _BUILTIN_DECAY:
+                    # optax add_decayed_weights ahead of the rule (coupled).
+                    g = [x + wd * p for x, p in zip(g, leaf.pieces)]
+                grads.append(g)
+            update(group, grads, lr)
+
+    def _lamb(self, group: list, grads: list, lr: float) -> None:
+        # scale_by_adam(b1, b2, eps=1e-6) -> add_decayed_weights(wd) ->
+        # scale_by_trust_ratio() -> scale_by_learning_rate(lr).
+        b1, b2, eps = 0.9, 0.999, 1e-6
+        t = self.count + 1
+        c1 = _f32(1.0 - np.float32(b1) ** np.float32(t))
+        c2 = _f32(1.0 - np.float32(b2) ** np.float32(t))
+        updates, p_sq, u_sq = [], [], []
+        for leaf, leaf_grads in zip(group, grads):
+            us = []
+            for p, g in zip(leaf.pieces, leaf_grads):
+                st = self.state[p]
+                st["mu"] = (1 - b1) * g + b1 * st["mu"]
+                st["nu"] = (1 - b2) * (g * g) + b2 * st["nu"]
+                u = (st["mu"] / c1) / (torch.sqrt(st["nu"] / c2) + eps)
+                us.append(u + self.spec.weight_decay * p)
+            updates.append(us)
+            p_sq.append(leaf.sum([p.pow(2).sum() for p in leaf.pieces]))
+            u_sq.append(leaf.sum([u.pow(2).sum() for u in us]))
+        p_norm, u_norm = _total(p_sq).sqrt(), _total(u_sq).sqrt()
+        trust = torch.where((p_norm == 0) | (u_norm == 0),
+                            torch.ones_like(p_norm), p_norm / u_norm)
+        for leaf, us in zip(group, updates):
+            for p, u in zip(leaf.pieces, us):
+                p.add_(u * trust.to(u.device) * -lr)
+
+    def _adagrad(self, group: list, grads: list, lr: float) -> None:
+        # scale_by_rss(initial_accumulator_value=0.1, eps=1e-7) ->
+        # scale_by_learning_rate(lr).
+        for leaf, leaf_grads in zip(group, grads):
+            for p, g in zip(leaf.pieces, leaf_grads):
+                st = self.state[p]
+                s = g * g + st["sum_of_squares"]
+                st["sum_of_squares"] = s
+                inv = torch.where(s > 0, torch.rsqrt(s + 1e-7),
+                                  torch.zeros_like(s))
+                p.add_(inv * g * -lr)
+
+    def _rmsprop(self, group: list, grads: list, lr: float) -> None:
+        # scale_by_rms(decay=0.9, eps=1e-8, eps_in_sqrt) ->
+        # scale_by_learning_rate(lr) -> trace(momentum).
+        decay, m = 0.9, self.spec.momentum
+        for leaf, leaf_grads in zip(group, grads):
+            for p, g in zip(leaf.pieces, leaf_grads):
+                st = self.state[p]
+                st["nu"] = (1 - decay) * (g * g) + decay * st["nu"]
+                u = torch.rsqrt(st["nu"] + 1e-8) * g * -lr
+                st["trace"] = u + m * st["trace"]
+                p.add_(st["trace"])
+
+    def _adafactor(self, group: list, grads: list, lr: float) -> None:
+        # scale_by_factored_rms(decay_rate=0.8, eps=1e-30) ->
+        # clip_by_block_rms(1.0) -> scale_by_learning_rate(lr, flip_sign=
+        # False) -> scale_by_param_block_rms(1e-3) ->
+        # [add_decayed_weights(wd)] -> scale(-1), the block RMS over the
+        # whole leaf (a stack's every layer).  optax's decay_rate_t =
+        # 1 - t ** -0.8 and 1 - decay_rate_t, each rounded to fp32.
+        t = torch.tensor(self.count + 1, dtype=torch.float32)
+        keep = _f32(1.0 - float(t ** -0.8))
+        new = _f32(1.0 - keep)
+        scaled, u_sq, p_sq, n = [], [], [], 0
+        for leaf, leaf_grads in zip(group, grads):
+            pieces = leaf.pieces
+            states = [self.state[p] for p in pieces]
+            g = leaf.whole(leaf_grads)
+            p = leaf.whole([x.detach() for x in pieces])
+            g2 = g * g + 1e-30
+            dims = _factored_dims(leaf.shape)
+            if dims is not None:
+                d1, d0 = dims
+                v_row = keep * states[0]["v_row"] + new * g2.mean(dim=d0)
+                v_col = keep * states[0]["v_col"] + new * g2.mean(dim=d1)
+                mean = v_row.mean(dim=d1 - 1 if d1 > d0 else d1,
+                                  keepdim=True)
+                u = (g * ((v_row / mean) ** -0.5).unsqueeze(d0)
+                     * (v_col ** -0.5).unsqueeze(d1))
+                for x, st in zip(pieces, states):
+                    st["v_row"] = v_row.to(x.device)
+                    st["v_col"] = v_col.to(x.device)
+            else:
+                v = keep * leaf.whole([st["v"] for st in states]) + new * g2
+                u = g * v ** -0.5
+                for i, st in enumerate(states):
+                    st["v"] = leaf.part(v, i)
+            scaled.append((leaf, u, p))
+            u_sq.append((u * u).sum())
+            p_sq.append((p * p).sum())
+            n += u.numel()
+        clip = torch.clamp(torch.sqrt(_total(u_sq) / n), min=1.0)
+        rms = torch.sqrt(_total(p_sq) / n)
+        rms = torch.where(rms <= 1e-3, torch.full_like(rms, 1e-3), rms)
+        for leaf, u, p in scaled:
+            u = u / clip.to(u.device)
+            u = u * lr
+            u = u * rms.to(u.device)
+            if self.spec.weight_decay > 0.0:
+                u = u + self.spec.weight_decay * p
+            u = -u
+            for i, x in enumerate(leaf.pieces):
+                x.add_(leaf.part(u, i))
+
+
+def _total(values: list) -> torch.Tensor:
+    """The sum of 0-dim tensors (on the first one's device)."""
+    return torch.stack([v.to(values[0].device) for v in values]).sum()
 
 
 @dataclasses.dataclass(frozen=True)
@@ -379,10 +714,6 @@ def make_optimizer(name: str, learning_rate, *, momentum: float = 0.9,
     from :func:`make_schedule`."""
     if name not in OPTIMIZERS:
         raise ValueError(f"Unknown optimizer {name!r}; one of {OPTIMIZERS}")
-    if name not in PORTED:
-        raise NotImplementedError(
-            f"optimizer {name!r} is not ported yet (its optax constants "
-            "differ from torch.optim's); see ROADMAP.md, section 1, item 7a")
     schedule = (learning_rate if callable(learning_rate)
                 else constant_schedule(float(learning_rate)))
     return OptimizerSpec(name=name, schedule=schedule, momentum=momentum,
@@ -396,7 +727,7 @@ def _chain_prefix(spec: OptimizerSpec) -> list:
     chain = []
     if spec.grad_clip_norm > 0.0:
         chain.append(None)
-    if spec.weight_decay > 0.0 and spec.name != "adamw":
+    if spec.weight_decay > 0.0 and spec.name not in _BUILTIN_DECAY:
         chain.append(None)
     return chain
 

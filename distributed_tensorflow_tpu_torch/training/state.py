@@ -163,6 +163,24 @@ def param_paths(names, to_tree: Callable[[dict], dict]) -> dict:
             for i in np.asarray(leaf).reshape(-1)}
 
 
+def mark_stacked_leaves(model: nn.Module, to_tree: Callable[[dict], dict]
+                        ) -> None:
+    """Mark the parameters that one leaf of ``model``'s JAX tree stacks
+    (the pipelined GPT's layers: ``stages`` [n_pipe, per, ...]) with a
+    shared ``stack_group``, so the optimizer rules that read a whole leaf
+    (lamb's trust ratio, adafactor's block RMS) take it over the stack,
+    as optax does over the stacked array."""
+    named = dict(model.named_parameters())
+    by_path: dict = {}
+    for name, path in param_paths(named, to_tree).items():
+        by_path.setdefault(path, []).append(named[name])
+    for params in by_path.values():
+        if len(params) > 1:
+            key = object()
+            for p in params:
+                p.stack_group = key
+
+
 def apply_freeze(state: TrainState, spec: OptimizerSpec) -> TrainState:
     """Freeze the parameters a :func:`..training.optimizers.freeze_except`
     spec does not train (``requires_grad`` off) and re-init the optimizer

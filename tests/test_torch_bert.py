@@ -240,5 +240,11 @@ def test_bert_parameter_tree_is_flax_s():
 
 
 def test_mixture_of_experts_waits_for_item_7c():
-    with pytest.raises(NotImplementedError, match="ROADMAP.*item 7c"):
-        tbert.BertConfig(num_experts=4)
+    """Item 7c ported the MoE FFN (tests/test_torch_moe.py holds it to
+    the JAX package's): ``num_experts > 0`` swaps each layer's MLP for
+    it."""
+    model = tbert.BertForMLM(tbert.BertConfig(num_experts=4), device="cpu")
+    names = dict(model.named_parameters())
+    assert tuple(names["bert.layer0.moe.experts.wi.kernel"].shape) == (
+        4, 128, 512)
+    assert "bert.layer0.mlp_in.kernel" not in names

@@ -12,8 +12,8 @@ two workers: each worker's slice shape is JAX's
 ``addressable_shards[0]``.  The step is held to the replicated two-worker
 sync step within JAX's atol 1e-5 (rtol 1e-5 on the loss); checkpoints
 go both ways through ``save_raw`` and the JAX Supervisor.  JAX's
-adafactor case waits for the port's optimizers (ROADMAP.md, section 1,
-item 7): its test asserts that the optimizer raises there."""
+adafactor case (factored slots under FSDP x TP) is held to optax's
+unsplit run within 1e-6."""
 
 import json
 import os
@@ -23,6 +23,7 @@ import sys
 import jax
 import jax.numpy as jnp
 import numpy as np
+import optax
 import pytest
 import torch
 from jax.sharding import PartitionSpec as JP
@@ -30,6 +31,7 @@ from jax.sharding import PartitionSpec as JP
 from distributed_tensorflow_tpu.models import mlp as jmlp
 from distributed_tensorflow_tpu.parallel import mesh as jmesh
 from distributed_tensorflow_tpu.parallel import sharding as jsh
+from distributed_tensorflow_tpu.training import optimizers as jopt
 from distributed_tensorflow_tpu.training.supervisor import (
     Supervisor as JSupervisor)
 from distributed_tensorflow_tpu_torch import train as ttrain
@@ -226,6 +228,33 @@ t, m = sync.build_sync_train_step(loss_fn, all_reduce=ar)(
     t, (half(d["x"][0]), half(d["y"][0])))
 res["tp_loss"] = float(m["loss"])
 
+# Adafactor under FSDP x TP (JAX tests/test_fsdp.py:158): w [512, 256]
+# split over the model axis and each shard over the workers; the
+# factored v_row/v_col stay whole (replicated), and the step reads the
+# whole leaf (its row/column means and RMS over every piece).
+class W(torch.nn.Module):
+    def __init__(self):
+        super().__init__()
+        self.w = torch.nn.Parameter(torch.full((512, 256), 0.01))
+def w_loss(m, batch):
+    x = torch.as_tensor(batch[0])
+    return ((x @ sh.full(m, "w") - 1.0) ** 2).mean(), {}
+a = sh.fsdp_state(tp_mesh, TrainState.create(
+    W(), make_optimizer("adafactor", 0.01)),
+    sh.ShardingRules([(r"w", sh.P(None, "model"))]), min_size=1024)
+res["ada_specs"] = specs(a)
+res["ada_slots"] = {k: list(v.shape) for k, v in a.optimizer.base.state[
+    a.model.w_shard0].items()}
+ada_step = sync.build_sync_train_step(w_loss, all_reduce=ar)
+res["ada_loss"] = []
+for _ in range(2):
+    a, m = ada_step(a, (half(d["x"][0][:8, :512]),))
+    res["ada_loss"].append(float(m["loss"]))
+tree = checkpoint_tree(a)
+arrays["ada_w"] = np.asarray(tree["params"]["w"])
+for k in ("v_row", "v_col"):
+    arrays["ada_" + k] = np.asarray(tree["opt_state"][0][k]["w"])
+
 # The rng and global_step stay replicated.
 r0 = state(rng=True)
 g = r0.rng
@@ -412,12 +441,32 @@ def test_fsdp_composes_with_tensor_parallel(ranks):
         assert np.isfinite(res["tp_loss"])
 
 
-def test_fsdp_tp_with_adafactor_factored_slots():
-    """JAX's case trains adafactor's factored slots under FSDP x TP; the
-    port's adafactor is not ported yet (ROADMAP.md, section 1, item 7),
-    and asking for it raises there, before any placement."""
-    with pytest.raises(NotImplementedError, match="ROADMAP.*item 7"):
-        topt.make_optimizer("adafactor", 0.01)
+def test_fsdp_tp_with_adafactor_factored_slots(ranks):
+    """JAX's case: adafactor's factored slots are lower-rank than their
+    parameter, so the parameter's P("data", "model") cannot place them:
+    they stay whole on every piece.  Each worker's shard is JAX's
+    addressable shard, the loss finite, and two steps land on optax's
+    unsplit run within 1e-6 (the parameter and both slots)."""
+    params = {"w": jnp.ones((512, 256), jnp.float32) * 0.01}
+    tx = jopt.make_optimizer("adafactor", 0.01)
+    st = tx.init(params)
+    x = _batches()[0][0][:8, :512]
+    grad = jax.jit(jax.grad(lambda p: jnp.mean((x @ p["w"] - 1.0) ** 2)))
+    for _ in range(2):
+        u, st = tx.update(grad(params), st, params)
+        params = optax.apply_updates(params, u)
+    for res, arrays in ranks[1]:
+        for j in range(2):
+            assert res["ada_specs"][f"w_shard{j}"] == ["data", "model"]
+        assert res["ada_slots"] == {"v_row": [256], "v_col": [512],
+                                    "v": [1]}
+        assert all(np.isfinite(res["ada_loss"]))
+        np.testing.assert_allclose(arrays["ada_w"], params["w"],
+                                   rtol=1e-6, atol=1e-6)
+        np.testing.assert_allclose(arrays["ada_v_row"], st[0].v_row["w"],
+                                   rtol=1e-6, atol=1e-6)
+        np.testing.assert_allclose(arrays["ada_v_col"], st[0].v_col["w"],
+                                   rtol=1e-6, atol=1e-6)
 
 
 def test_indivisible_slot_dims_fall_back_to_replicated():

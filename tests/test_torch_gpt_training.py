@@ -174,7 +174,7 @@ def _opt_inputs(seed=0, steps=5):
 
 
 @pytest.mark.parametrize("variant", ["plain", "clip_decay_schedule"])
-@pytest.mark.parametrize("name", topt.PORTED)
+@pytest.mark.parametrize("name", topt.OPTIMIZERS)
 def test_optimizer_updates_match_optax(name, variant):
     params, grads = _opt_inputs()
     kw, lr = {}, 0.05
@@ -221,8 +221,14 @@ def test_schedules_match_optax(name, warmup):
 
 @pytest.mark.parametrize("name", ["lamb", "adagrad", "rmsprop", "adafactor"])
 def test_unported_optimizers_raise_naming_roadmap(name):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        topt.make_optimizer(name, 0.1)
+    """Item 7a ported these four (tests/test_torch_optimizers.py holds
+    them to optax): each builds and steps; an unknown name still
+    raises."""
+    p = torch.nn.Parameter(torch.ones(4))
+    opt = topt.make_optimizer(name, 0.1).init([p])
+    p.grad = torch.ones(4)
+    opt.step()
+    assert torch.all(p < 1.0)
     with pytest.raises(ValueError, match="Unknown"):
         topt.make_optimizer("nope", 0.1)
 
@@ -257,15 +263,23 @@ def test_lm_streams_equal_jax_bit_for_bit(tmp_path):
 
 
 def test_unported_data_sources_raise_naming_roadmap(tmp_path):
+    """Item 7a ported the BPE tokenizer and the streaming corpus
+    (tests/test_torch_tokenizer.py, test_torch_lm_corpus.py hold them to
+    the JAX package): without a corpus BPE keeps the synthetic stream, a
+    corpus past the threshold streams, and the BPE model's vocabulary is
+    ``bpe_vocab``."""
     cfg = tgpt.mini()
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tlm.make_lm_datasets(cfg, tokenizer="bpe")
+    assert tlm.make_lm_datasets(cfg, tokenizer="bpe").synthetic
     (tmp_path / "a.txt").write_bytes(b"x" * 5000)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tlm.make_lm_datasets(cfg, data_dir=str(tmp_path),
-                             stream_threshold_bytes=1000)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        treg.build_gpt_mini(1e-3, tokenizer="bpe", device="cpu")
+    ds = tlm.make_lm_datasets(cfg, data_dir=str(tmp_path),
+                              stream_threshold_bytes=1000)
+    assert isinstance(ds.train, tlm.StreamingByteLmStream)
+    bundle = treg.build_gpt_mini(1e-3, tokenizer="bpe", bpe_vocab=320,
+                                 device="cpu")
+    assert bundle.state.model.cfg.vocab_size == 320
+    with pytest.raises(ValueError, match="bpe_vocab"):
+        treg.build_gpt_mini(1e-3, tokenizer="bpe", bpe_vocab=256,
+                            device="cpu")
 
 
 @pytest.mark.parametrize("smoothing", [0.0, 0.1])

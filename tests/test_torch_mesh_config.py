@@ -112,10 +112,12 @@ def test_mesh_views_and_the_axes_not_ported():
                          "model": 1}
     assert list(col.grid(0).flatten()) == list(mesh.grid(1).flatten())
     assert tmesh.data_parallel_mesh(4, devices=devs).shape["data"] == 4
-    for kw, where in ((dict(expert=2), "item 7"),
-                      (dict(dcn_data=2), "slice 8d")):
-        with pytest.raises(NotImplementedError, match=f"ROADMAP.*{where}"):
-            tmesh.create_mesh(devices=devs, **kw)
+    # The expert axis is ported (item 7c): expert e on expert device e.
+    experts = tmesh.create_mesh(data=1, expert=4, model=2, devices=devs)
+    assert [str(d) for d in experts.axis_devices("expert")] == [
+        "cpu:0", "cpu:2", "cpu:4", "cpu:6"]
+    with pytest.raises(NotImplementedError, match="ROADMAP.*slice 8d"):
+        tmesh.create_mesh(devices=devs, dcn_data=2)
     # The pipe axis is ported (slice 8c): stage s on pipe device s.
     piped = tmesh.create_mesh(data=2, pipe=4, devices=devs)
     assert piped.shape["pipe"] == 4

@@ -466,8 +466,8 @@ def test_cli_async_flag_with_tp_trains_in_sync_and_mlp_stays_replicated(
     (("--pipeline_parallel=2", "--fsdp"), ValueError,
      "--fsdp is incompatible with models that own their placement"),
     (("--dcn_data_parallel=2",), NotImplementedError, "ROADMAP.*slice 8d"),
-    (("--model=bert_moe", "--expert_parallel=2"), NotImplementedError,
-     "ROADMAP.*item 7"),
+    (("--model=bert_moe", "--expert_parallel=4", "--num_experts=6"),
+     ValueError, "must be divisible by --expert_parallel=4"),
 ])
 def test_cli_flag_errors_match_jax(tmp_path, standalone, flags, error, match):
     with pytest.raises(error, match=match):

@@ -179,11 +179,12 @@ def test_metrics_file_summaries_and_profile(tmp_path, standalone):
     (("--sync_replicas=true", "--fsdp=true", "--sharded_feed=false"),
      "item 6"),
     (("--sync_replicas=true", "--dcn_data_parallel=2"), "item 6"),
-    (("--sync_replicas=true", "--gpt_bpe_vocab=1024"), "item 7a"),
+    (("--sync_replicas=true", "--platform=cpu"), "item 8"),
     (("--sync_replicas=true", "--sharded_feed=false"), "item 6"),
     (("--sync_replicas=true", "--model=gpt_mini", "--pipeline_parallel=2",
       "--dcn_data_parallel=2"), "item 6"),
-    (("--sync_replicas=true", "--model=bert_moe"), "item 7c"),
+    (("--sync_replicas=true", "--model=bert_moe", "--profile=p.json"),
+     "item 8"),
     (("--sync_replicas=true", "--profile=p.json"), "item 8"),
 ])
 def test_paths_not_ported_raise(tmp_path, standalone, flags, match):
