@@ -168,7 +168,8 @@ Phases, one JSON line each on stdout:
     steps with exact launch counts (K6, K7a, K7b each 4 shards x 4 hops x
     8 layers = 128 per step, K3 17, K1/K2 none), a falling loss, and the
     ``train_ring_profile`` line.
-13. ``train_parallel``: the same step with its mesh positions on the
+13. ``train_parallel`` (beside 15-16's processes, holding the busy
+    lock): the same step with its mesh positions on the
     card (``ParallelConfig.place_state``: ``gpt_sharding_rules`` over the
     model axis, Megatron's split), five arms: ``tp2`` (pallas, seq=1 x
     model=2), ``ulysses4`` (seq=4), ``tp2_ring2`` (each model column its
@@ -182,7 +183,8 @@ Phases, one JSON line each on stdout:
     replicated; K4/K5 twice a layer per shard) and a falling loss; it
     prints step ms, its ratio to the ``train`` phase's, MFU and peak
     memory, and a ``train_parallel_profile`` line (one profiled step).
-14. ``train_pipeline``: the same step (Adam, seed-0 weights) with its
+14. ``train_pipeline`` (run beside 18's MNIST jobs, holding the busy
+    lock): the same step (Adam, seed-0 weights) with its
     decoder blocks as pipeline stages on the card
     (``models/registry.build_gpt_pipeline``), three arms of 8
     micro-batches: ``gpipe`` and ``1f1b`` over pipe=4, ``interleaved``
@@ -243,7 +245,7 @@ Phases, one JSON line each on stdout:
     kernels at this run's shapes (the ``kernels`` phase's ``trainer``
     cases) with its launches.
 18. ``async_trainer``: the trainer in async mode (``--sync_replicas=
-    false``, one replica a worker, the workers averaging through the
+    false``, one replica a worker on one card, the workers averaging through the
     coordination service), processes on the one card.
     ``async_reference``: the reference job with ``--async_sync_period=4``,
     steps paced and worker 1 started once worker 0 has published, worker
@@ -324,17 +326,41 @@ Phases, one JSON line each on stdout:
     run resumes from the checkpoint and the saved cursor; then
     ``--mode=generate --gen_prompt_text --gen_stop_text`` decodes text
     through K1 and K3, the text the saved tokenizer's decode of the
-    tokens.  ``train_optimizers`` (after 14): the train phase's
+    tokens.  ``train_optimizers`` (after 12): the train phase's
     GPT-406M-width step with adam, lamb, adagrad, rmsprop and adafactor,
     each step's ms and the optimizer update's alone, the slot bytes and
     the peak; gate: adafactor's slots under 1% of adam's on the factored
     matrices.  K1-K3's ``train_models_bert_moe[_ep2|_ep4]`` and
     ``ladder_bert_moe`` paths hold BERT's cases, ``lm_bpe`` the trainer
     CLI's and ``train_optimizers`` the train step's, with their launches.
+21. Slice 8d, the data axis inside a worker.  ``train_data`` (beside
+    17's processes, holding the busy lock): the train step's global
+    batch (B=8, S=1024) at GPT-406M width over local data rows on the
+    one card, a copy of the model a row, each arm of ``DATA["arms"]``
+    (dp2, dp2 x tp2, dp2 x ring2, dp4 replicated, FSDP over dp4) placed
+    by ``ParallelConfig.place_state``: the rows' mean first step within
+    TRAIN_* of the unsharded pallas step, ``DATA["steps"]`` steps with
+    launches exactly the rows times a row's, the rows bit-equal after
+    them (FSDP's replicated leaves), the step ms over 10's, the busy
+    share and peak memory; gates: FSDP's gathered parameters within 1e-5
+    of dp4's and its peak under dp4's.  Then the async arm: two replicas
+    (one a local position) merged every ``DATA["async_period"]`` local
+    steps, each replica's first gradient against the pallas step, exact
+    launches, the replicas bit-equal after the last merge.
+    ``train_data_cli`` (beside 15-16): two gpt_mini workers (gloo, the
+    one card) with ``--dcn_data_parallel=2``, ``--sharded_feed=false``
+    and ``=true`` side by side; gates: each pair's losses and digests
+    bit-equal, the sharded feed's line where it is on and nowhere else,
+    the loss falls, exact launches.  The K1/K2/K3 and K6/K7 rows'
+    ``train_data_*`` paths hold the ``kernels`` phase's data-row cases.
 
 With ``--nccl`` the script runs ``env`` and the reference job alone,
 with one worker on each visible card (the backend rule of
-``cluster/server.py`` then picks NCCL), under the same gates.  With
+``cluster/server.py`` then picks NCCL), under the same gates; then
+``train_data_nccl`` on four cards: gpt_mini through the CLI with one
+worker whose data axis spans the four cards, and with two workers of
+two cards each under ``--dcn_data_parallel=2`` over NCCL (gates: the
+layout and backend lines, equal losses and digests, exact launches).  With
 ``--fsdp`` it runs ``env``, ``build`` and ``train_fsdp`` alone, under the
 same gates: its step, gather and reduce-scatter ms without the CLIs
 beside it.
@@ -524,10 +550,11 @@ FSDP = dict(ranks=2, steps=3, timeout_s=300, min_size=65536)
 # layers, 4 heads, head_dim 32) at S=512, B=32; generate 32 tokens.
 TRAINER = dict(steps=200, batch=100, hidden=100, lr=0.01,
                jax_cpu_test_accuracy=1.0, accuracy_tol=0.02,
-               # gpt_mini's 20 steps (a checkpoint every 10) cut from 60
+               # gpt_mini's 12 steps (a checkpoint every 6) cut from 60
                # (every 20) to make room for the pipeline and FSDP phases,
-               # then from 30 for items 7a and 7c's.
-               gpt_batch=32, gpt_seq=512, gpt_steps=20, gpt_save=10,
+               # then from 30 for items 7a and 7c's, then from 20 for
+               # slice 8d's train_data.
+               gpt_batch=32, gpt_seq=512, gpt_steps=12, gpt_save=6,
                gen_tokens=32)
 
 
@@ -553,6 +580,26 @@ MODELS = dict(batch=100, bert_seq=128, vit_patches=64, steps=40,
 LM_BPE = dict(corpus_mb=2, stream_mb=1, vocab=512, batch=32, seq=512,
               steps=8, save=4, lr=0.01, gen_tokens=32,
               prompt="def train", stop="\n\n")
+# Each train_data path's K1/K2 case (``check_kernels``): the shape of a
+# data row's part of the batch (the ring arm runs K6/K7 instead).
+DATA_PATHS = {"dp2": "dp2", "dp2_tp2": "dp2_tp2", "dp4": "dp4",
+              "fsdp_dp4": "dp4", "async_r2": "dp2", "cli": "cli"}
+# The train_data phase (slice 8d): the train step's global batch (B=8,
+# S=1024) over local data rows on the one card at GPT-406M width, each
+# arm (name, data, seq, model, attention, fsdp) `steps` steps: data=2;
+# data=2 beside tp2 and beside ring2 (seq); data=4 replicated (the
+# memory FSDP is held under) and FSDP over the four positions; then the
+# async arm, `async_replicas` replicas merged every `async_period` local
+# steps.  The CLI: two gpt_mini workers (gloo on the one card) with
+# --dcn_data_parallel=2 at B=`cli_batch`, S=`cli_seq`, with
+# --sharded_feed=false and =true.
+DATA = dict(steps=4, arms=(("dp2", 2, 1, 1, "pallas", False),
+                           ("dp2_tp2", 2, 1, 2, "pallas", False),
+                           ("dp2_ring2", 2, 2, 1, "ring", False),
+                           ("dp4", 4, 1, 1, "pallas", False),
+                           ("fsdp_dp4", 4, 1, 1, "pallas", True)),
+            fsdp_min_size=65536, async_replicas=2, async_period=2,
+            cli_batch=16, cli_seq=512, cli_steps=12)
 OPTIMIZERS = dict(names=("adam", "lamb", "adagrad", "rmsprop",
                          "adafactor"), steps=3, lr=3e-4)
 
@@ -560,10 +607,15 @@ OPTIMIZERS = dict(names=("adam", "lamb", "adagrad", "rmsprop",
 _EMIT_LOCK = threading.Lock()
 
 
+_T0 = time.perf_counter()
+
+
 def emit(phase: str, **fields) -> None:
     """One JSON line on stdout, whole (parts run side by side, each
-    emitting its own lines: :func:`side_by_side`)."""
-    line = json.dumps({"phase": phase, **fields}) + "\n"
+    emitting its own lines: :func:`side_by_side`), with ``t``, the
+    script's seconds when it was written."""
+    line = json.dumps({"phase": phase, **fields,
+                       "t": round(time.perf_counter() - _T0, 1)}) + "\n"
     with _EMIT_LOCK:
         sys.stdout.write(line)
         sys.stdout.flush()
@@ -917,26 +969,52 @@ def check_kernels(dev):
         scale = 1 + 0.1 * torch.randn(128, generator=g, device=dev)
         bias = 0.1 * torch.randn(128, generator=g, device=dev)
         k3_cases.append(check_k3(name, x, scale, bias))
+    # The train_data arms (slice 8d): a data row's part of the train
+    # step's batch, 4 rows at data=2 (dp2, beside tp2 its 8 heads a
+    # model column; beside ring2 a 2-shard ring over [4, 512, 16, 128]
+    # hops) and 2 at data=4; the data CLI's gpt_mini, a worker's half of
+    # its batch.  K3 at a row's residual rows.
+    Bt, St = TRAIN["batch"], TRAIN["seq_len"]
+    k2d = {arm: check_backward_kernels(
+        dev, g, h, D, cases=[(f"train_data_{arm}", b, None, True, 0, D)])
+        for arm, h, b in (("dp2", H, Bt // 2), ("dp2_tp2", H // 2, Bt // 2),
+                          ("dp4", H, Bt // 4))}
+    k2d["cli"] = check_backward_kernels(
+        dev, g, mini["heads"], mini["head_dim"], S=DATA["cli_seq"],
+        cases=[("train_data_cli", DATA["cli_batch"] // 2, None, True, 0,
+                mini["head_dim"])])
+    k3d = {}
+    for name, rows, h in (("data_row_dp2", Bt // 2 * St, Hd),
+                          ("data_row_dp4", Bt // 4 * St, Hd),
+                          ("data_cli", DATA["cli_batch"] // 2
+                           * DATA["cli_seq"], mini["hidden"])):
+        x = torch.randn(rows, h, generator=g, device=dev).to(torch.bfloat16)
+        scale = 1 + 0.1 * torch.randn(h, generator=g, device=dev)
+        bias = 0.1 * torch.randn(h, generator=g, device=dev)
+        k3d[name] = check_k3(name, x, scale, bias)
+        k3_cases.append(k3d[name])
     k45 = check_int8_kernels(dev, g)
     k67 = check_ring_kernels(dev, g)
     k67p = check_parallel_ring_kernels(dev, g)
+    k67d = check_parallel_ring_kernels(dev, g, B=Bt // 2, H=H,
+                                       label="train_data_dp2_ring2")
     k1_all = k1_cases + [k2["fwd"], k2t["fwd"], k2pp["fwd"],
                          k2pc["fwd"]] + [r["fwd"] for r in k2p.values()] + [
-        k2bert["fwd"], k2vit["fwd"]]
+        k2bert["fwd"], k2vit["fwd"]] + [r["fwd"] for r in k2d.values()]
     k2_dq = (k2["dq"] + k2t["dq"] + k2pp["dq"] + k2pc["dq"]
              + [r["dq"][0] for r in k2p.values()] + k2bert["dq"]
-             + k2vit["dq"])
+             + k2vit["dq"] + [r["dq"][0] for r in k2d.values()])
     k2_dkv = (k2["dkv"] + k2t["dkv"] + k2pp["dkv"] + k2pc["dkv"]
               + [r["dkv"][0] for r in k2p.values()] + k2bert["dkv"]
-              + k2vit["dkv"])
+              + k2vit["dkv"] + [r["dkv"][0] for r in k2d.values()])
     emit("kernels", flash_attention_fwd=k1_all,
          layer_norm_fwd=k3_cases, flash_attention_bwd_dq=k2_dq,
          flash_attention_bwd_dkv=k2_dkv,
          quant_matmul=k45["k4"] + k45["tp"]["k4"],
          quant_matmul_nt=k45["k5"] + k45["tp"]["k5"],
-         flash_attention_chunk=k67["k6"] + k67p["k6"],
-         flash_attention_chunk_dq=k67["k7a"] + k67p["k7a"],
-         flash_attention_chunk_dkv=k67["k7b"] + k67p["k7b"],
+         flash_attention_chunk=k67["k6"] + k67p["k6"] + k67d["k6"],
+         flash_attention_chunk_dq=k67["k7a"] + k67p["k7a"] + k67d["k7a"],
+         flash_attention_chunk_dkv=k67["k7b"] + k67p["k7b"] + k67d["k7b"],
          ring_vs_flash=k67["ring_vs_flash"],
          quant_matmul_dgelu=k45["k8"])
 
@@ -992,8 +1070,9 @@ def check_kernels(dev):
     k6 = summary("flash_attention_chunk", "flash_attention_chunk.cu",
                  "flash_attention.py:624", "train_ring",
                  {"train_ring": k67["k6"][0],
-                  "train_parallel_tp2_ring2": k67p["k6"][0]},
-                 k67["k6"] + k67p["k6"])
+                  "train_parallel_tp2_ring2": k67p["k6"][0],
+                  "train_data_dp2_ring2": k67d["k6"][0]},
+                 k67["k6"] + k67p["k6"] + k67d["k6"])
     k6["hop_kinds"] = {c["case"]: {k: c[k] for k in (
         "ms", "device_ms", "library_ms", "ratio_to_library")}
         for c in k67["k6"] if c["case"] in ("visible", "diagonal")}
@@ -1005,8 +1084,9 @@ def check_kernels(dev):
         k7[key] = summary(name, "flash_attention_chunk.cu",
                           f"flash_attention.py:{line}", "train_ring",
                           {"train_ring": k67[key][0],
-                           "train_parallel_tp2_ring2": k67p[key][0]},
-                          k67[key] + k67p[key])
+                           "train_parallel_tp2_ring2": k67p[key][0],
+                           "train_data_dp2_ring2": k67d[key][0]},
+                          k67[key] + k67p[key] + k67d[key])
         k7[key]["hop_kinds"] = {c["case"]: {k: c[k] for k in (
             "ms", "device_ms", "out_of_place_ms", "library_ms",
             "pair_ratio_to_library")}
@@ -1041,12 +1121,16 @@ def check_kernels(dev):
         return out
 
     # tp2_int8 runs the tp2 arm's attention shapes; the FSDP ranks the
-    # train step's.
+    # train step's; the train_data arms a data row's (the async replicas
+    # a dp2 row's).
     def parallel_more(kind):
         row = k2p["tp2"][kind] if kind == "fwd" else k2p["tp2"][kind][0]
         train_row = k2[kind] if kind == "fwd" else k2[kind][0]
+        data = {f"train_data_{arm}": (
+            k2d[case][kind] if kind == "fwd" else k2d[case][kind][0])
+            for arm, case in DATA_PATHS.items()}
         return {"train_parallel_tp2_int8": row, "train_fsdp": train_row,
-                **ladder(kind)}
+                **ladder(kind), **data}
 
     # The config ladder: BERT-tiny's and ViT-tiny's shapes, in process
     # (train_models) and through the trainer CLI (ladder).
@@ -1070,6 +1154,11 @@ def check_kernels(dev):
     k3_arms.update({p: k3_cases[9] for p in moe_paths})
     k3_arms["lm_bpe"] = k3_cases[6]
     k3_arms["train_optimizers"] = k3_cases[2]
+    k3_arms.update({f"train_data_{arm}": k3d[{
+        "dp2": "data_row_dp2", "dp2_tp2": "data_row_dp2",
+        "dp4": "data_row_dp4", "cli": "data_cli"}[case]]
+        for arm, case in DATA_PATHS.items()})
+    k3_arms["train_data_dp2_ring2"] = k3d["data_row_dp2"]
     return [
         summary("flash_attention_fwd", "flash_attention.cu",
                 "flash_attention.py:119", "train",
@@ -1553,15 +1642,19 @@ def hop_mean(rows: dict, weights: dict, label: str) -> None:
         rows[key].insert(0, row)
 
 
-def check_parallel_ring_kernels(dev, g) -> dict:
-    """K6, K7a and K7b at the tp2 x ring2 step's per-hop shape: each model
-    column's ring over its 8 heads, q/k/v shards [8, 512, 8, 128] of the
-    fused projection.  Of a 2-shard causal ring's 4 (shard, chunk) pairs 1
-    is visible, 2 diagonal, 1 in the future: the row is their per-launch
+def check_parallel_ring_kernels(dev, g, B=None, H=None,
+                                label="train_parallel_tp2_ring2") -> dict:
+    """K6, K7a and K7b at a 2-shard ring step's per-hop shape: by default
+    the tp2 x ring2 step's, each model column's ring over its 8 heads,
+    q/k/v shards [8, 512, 8, 128] of the fused projection (``B`` rows and
+    ``H`` heads another step's: a data row's of dp2 x ring2, [4, 512, 16,
+    128]).  Of a 2-shard causal ring's 4 (shard, chunk) pairs 1 is
+    visible, 2 diagonal, 1 in the future: the row is their per-launch
     mean."""
     import torch
-    B, S = TRAIN["batch"], TRAIN["seq_len"]
-    H = WIDTH["num_heads"] // 2
+    S = TRAIN["seq_len"]
+    B = B or TRAIN["batch"]
+    H = H or WIDTH["num_heads"] // 2
     D = WIDTH["hidden_size"] // WIDTH["num_heads"]
     n = S // 2
     fused = torch.randn(B, S, 3, H, D, generator=g, device=dev,
@@ -1573,7 +1666,7 @@ def check_parallel_ring_kernels(dev, g) -> dict:
                                         shards=2).items():
             rows[key].append(row)
     hop_mean(rows, {"visible": 1, "diagonal": 2, "future": 1},
-             "train_parallel_tp2_ring2_hop_mean")
+             f"{label}_hop_mean")
     del fused
     torch.cuda.empty_cache()
     return rows
@@ -3484,14 +3577,15 @@ def reset_launch_counts() -> None:
 
 
 def train_run(dev, cfg, steps: int, check=None, profile=True,
-              mesh=None, named=None, place=None) -> dict:
+              mesh=None, named=None, place=None, after=None) -> dict:
     """The flagship step of ``cfg`` (fp32 masters, Adam, B=8, S=1024, the
     synthetic stream from its seed; ``mesh``: the sequence-parallel
     backends' and the tensor-parallel heads'; ``place(state)``: the
     layout's placement, ``ParallelConfig.place_state``): the
     kernel-vs-plain ``check(model, loss_fn, batch)`` when given, on the
     placed model, then ``steps`` steps with the launch counters set to 0
-    just before and read just after, then one profiled step."""
+    just before and read just after, then one profiled step;
+    ``after(state)``'s dict joins the numbers."""
     import torch
     from distributed_tensorflow_tpu_torch.data.lm import make_lm_datasets
     from distributed_tensorflow_tpu_torch.models import gpt
@@ -3543,6 +3637,7 @@ def train_run(dev, cfg, steps: int, check=None, profile=True,
         raise AssertionError(f"non-finite train loss: {losses}")
     if state.global_step != steps + 1 + int(profile):
         raise AssertionError(f"global_step {state.global_step}")
+    extra = after(state) if after is not None else {}
     del state, model
     torch.cuda.empty_cache()
     med_ms = statistics.median(step_ms[2:]) if steps > 2 else None
@@ -3556,7 +3651,7 @@ def train_run(dev, cfg, steps: int, check=None, profile=True,
         model_tflops_per_step=flops / 1e12,
         mfu=flops / (med_ms / 1e3) / PEAK_BF16_FLOPS if med_ms else None,
         peak_mem_gb=peak_gb, launches=launches, kernel_vs_plain=checked,
-        setup_s=setup_s, profiled=profiled)
+        setup_s=setup_s, profiled=profiled, **extra)
 
 
 def expect_launches(name, launches, per_step, steps) -> None:
@@ -4306,7 +4401,8 @@ def train_fsdp(dev, smi: str, bf16: dict, alone: bool = False) -> dict:
     # contended times (``alone``: ``--fsdp``).
     emit("train_fsdp", card=smi, model="gpt_406m_width", wall_s=wall_s,
          timed_beside=([] if alone else ["train_parallel_cli",
-                                         "train_pipeline_cli"]),
+                                         "train_pipeline_cli",
+                                         "train_models", "train_data_cli"]),
          ranks_n=T["ranks"], devices=str(dev), batch_per_rank=TRAIN["batch"],
          seq_len=TRAIN["seq_len"], steps=T["steps"], first_step=first,
          loss_tol=tols[0], grad_norm_rtol=tols[1], grad_min_cos=tols[2],
@@ -4648,9 +4744,10 @@ def gpt_trainer(dev, tmp: str, smi: str) -> dict:
 def trainer(dev, smi: str) -> tuple:
     """Phase ``trainer``: the port's CLI trainer as processes (the
     reference job, the same with ``--fsdp``, gpt_mini with eval and
-    generate) and, beside them, ``async_trainer``'s ``async_gpt`` (two
-    workers started together: no start-up race to lose).  Returns the
-    gpt_mini run's and ``async_gpt``'s kernel launches."""
+    generate) and, beside them, the ``async_trainer`` phase's jobs
+    (``async_gpt``, and the two MNIST jobs of :func:`async_trainer`; each
+    job's worker 0 paced past its peer's start).  Returns the gpt_mini
+    run's and ``async_gpt``'s kernel launches."""
     tmp = tempfile.mkdtemp(prefix="chip_smoke_trainer_")
     try:
         # The reference job and the same job with --fsdp (hid/kernel [784,
@@ -4658,15 +4755,17 @@ def trainer(dev, smi: str) -> tuple:
         # accuracy within TRAINER's tolerance of the replicated job's.
         # gpt_mini's trainer CLI and the async gpt_mini pair beside them.
         t0 = time.perf_counter()
-        plain, fsdp, launches, async_launches = side_by_side(
+        plain, fsdp, launches, async_launches, _ = side_by_side(
             (reference_job, str(dev), tmp, smi),
             (lambda: reference_job(str(dev), tmp, smi, 2, "gloo",
                                    "--fsdp=true", label="reference_fsdp",
                                    profile=False),),
-            (gpt_trainer, dev, tmp, smi), (async_gpt, dev, tmp, smi))
+            (gpt_trainer, dev, tmp, smi), (async_gpt, dev, tmp, smi),
+            (async_trainer, dev, smi))
         emit("trainer_group", seconds=time.perf_counter() - t0,
              side_by_side=["trainer_reference", "trainer_reference_fsdp",
-                           "trainer_gpt", "async_gpt"])
+                           "trainer_gpt", "async_gpt", "async_reference",
+                           "async_overlap"])
         gap = abs(fsdp["test_accuracy"] - plain["test_accuracy"])
         if gap > TRAINER["accuracy_tol"]:
             raise AssertionError(
@@ -4704,15 +4803,17 @@ def check_model_step(dev, bundle, batch) -> dict:
     """One step's loss and gradients of a ladder transformer through the
     kernels (K1, K2a/K2b, K3) against the same step on their plain
     versions (dense attention, plain LayerNorm) from the same weights and
-    batch, within the TRAIN_* tolerances."""
+    batch, within the TRAIN_* tolerances (under the busy lock, as every
+    launch of this phase: :func:`model_steps`)."""
     import torch
     model = bundle.state.model
     plain = type(model)(dataclasses.replace(
         model.cfg, attention_backend="xla", fused_ln=False), device=dev)
     plain.load_state_dict(model.state_dict())
     tols = (TRAIN_LOSS_TOL, TRAIN_GRAD_NORM_RTOL, TRAIN_GRAD_MIN_COS)
-    out = compare_steps(step_grads(model, bundle.loss_fn, batch),
-                        step_grads(plain, bundle.loss_fn, batch), tols)
+    with _BUSY_LOCK:
+        out = compare_steps(step_grads(model, bundle.loss_fn, batch),
+                            step_grads(plain, bundle.loss_fn, batch), tols)
     del plain
     torch.cuda.empty_cache()
     return dict(out, loss_tol=tols[0], grad_norm_rtol=tols[1],
@@ -4725,8 +4826,9 @@ def model_steps(name, step, state, batches) -> dict:
     and falling (the mean of the last five below the first: Adam's first
     steps overshoot on ViT's synthetic CIFAR)."""
     import torch
-    # Under the busy lock: the parts beside this phase launch kernels in
-    # this process only under it (their in-process decodes).
+    # Under the busy lock, as every launch of the phase: the parts beside
+    # it launch kernels in this process only under it (their in-process
+    # decodes and busy profiles).
     with _BUSY_LOCK:
         torch.cuda.synchronize()
         reset_launch_counts()
@@ -4872,7 +4974,8 @@ def train_bert_moe(dev, smi: str) -> dict:
     # The arms start from the unsharded model's weights before it trains.
     weights = {k: v.clone() for k, v in
                bundle.state.model.state_dict().items()}
-    first = step_grads(bundle.state.model, bundle.loss_fn, batches[0])
+    with _BUSY_LOCK:
+        first = step_grads(bundle.state.model, bundle.loss_fn, batches[0])
     setup_s = time.perf_counter() - t0
     run = model_steps("bert_moe", build_sync_train_step(bundle.loss_fn),
                       bundle.state, batches)
@@ -4891,9 +4994,10 @@ def train_bert_moe(dev, smi: str) -> dict:
         mesh = mesh_lib.create_mesh(data=1, expert=ep, devices=[dev] * ep)
         state = mesh_lib.ParallelConfig(data=1, expert=ep).place_state(
             mesh, arm.state, arm.sharding_rules)
-        cmp = compare_steps(step_grads(state.model, arm.loss_fn,
-                                       batches[0]), first, tols,
-                            names=(f"ep{ep}", "ep1"))
+        with _BUSY_LOCK:
+            cmp = compare_steps(step_grads(state.model, arm.loss_fn,
+                                           batches[0]), first, tols,
+                                names=(f"ep{ep}", "ep1"))
         r = model_steps(f"bert_moe_ep{ep}",
                         build_sync_train_step(arm.loss_fn), state,
                         batches[:M["arm_steps"]])
@@ -5348,6 +5452,428 @@ def train_optimizers(dev, smi: str) -> dict:
          adafactor_over_adam_factored_slots=ratio, optimizers=out,
          launches=launches)
     return launches
+
+
+def check_data_step(dev, state, loss_fn, batch) -> dict:
+    """One step of every data row of ``state`` on its part of ``batch``
+    (``parallel/sync.row_parts``; a split parameter's shards gathered,
+    FSDP's slices gathered whole for it), the rows' mean loss and
+    gradient against the unsharded pallas step on the whole batch with
+    the same weights, within TRAIN_*."""
+    import torch
+    from distributed_tensorflow_tpu_torch.models import gpt
+    from distributed_tensorflow_tpu_torch.parallel.sharding import (
+        fsdp_gathered, gather_named)
+    from distributed_tensorflow_tpu_torch.parallel.sync import row_parts
+    tols = (TRAIN_LOSS_TOL, TRAIN_GRAD_NORM_RTOL, TRAIN_GRAD_MIN_COS)
+    with fsdp_gathered(state):
+        model = state.model
+        pallas = gpt.GptLM(dataclasses.replace(
+            model.cfg, attention_backend="pallas"), device=dev,
+            param_dtype=torch.float32)
+        pallas.load_state_dict(gather_named(model, model.state_dict()))
+        parts = row_parts(state, batch)
+        loss = grads = None
+        for row, part in parts:
+            l, g = step_grads(row, loss_fn, part)
+            loss = l if loss is None else loss + l
+            grads = g if grads is None else grads.add_(g)
+            del g
+    rows = (loss / len(parts), grads.div_(len(parts)))
+    out = dict(batch=len(batch["tokens"]), rows=len(parts),
+               vs_pallas=compare_steps(rows, step_grads(pallas, loss_fn,
+                                                        batch),
+                                       tols, ("data_rows", "pallas")),
+               loss_tol=tols[0], grad_norm_rtol=tols[1],
+               grad_min_cos=tols[2])
+    del pallas, rows, grads
+    torch.cuda.empty_cache()
+    return out
+
+
+def rows_bit_equal(state) -> bool:
+    """Every data row holds the lead's parameters bit for bit (each its
+    own FSDP slices)."""
+    import torch
+    lead = dict(state.model.named_parameters())
+    return all(torch.equal(p, lead[n]) for m in state.rows
+               for n, p in m.named_parameters()
+               if getattr(p, "fsdp_info", None) is None)
+
+
+def train_data(dev, smi: str, bf16: dict) -> dict:
+    """Phase ``train_data`` (slice 8d): the train step's global batch at
+    GPT-406M width over local data rows on the one card, each row its
+    own copy of the model (its positions sharing the card, as
+    ``train_parallel``'s), placed by ``ParallelConfig.place_state``:
+    each arm's first step (the rows' mean) against the unsharded pallas
+    step, ``DATA["steps"]`` steps with exact launches (each row's
+    kernels), the rows bit-equal after them, its step ms over the bf16
+    step's, the card's busy share and peak memory; FSDP over four
+    positions gathered equal to the replicated dp4 arm and under its
+    peak; then the async arm (:func:`data_async`).  Returns each arm's
+    launches by path name."""
+    import torch
+    from distributed_tensorflow_tpu_torch.models import gpt
+    from distributed_tensorflow_tpu_torch.parallel.mesh import ParallelConfig
+    from distributed_tensorflow_tpu_torch.parallel.sharding import (
+        fsdp_gathered)
+    t0 = time.perf_counter()
+    out, kept = {}, {}
+    for arm, d, seq, model_axis, backend, fsdp in DATA["arms"]:
+        pc = ParallelConfig(data=d, model=model_axis, seq=seq,
+                            attention=backend, fsdp=fsdp,
+                            fsdp_min_size=DATA["fsdp_min_size"])
+        mesh = pc.build_mesh([dev] * (d * seq * model_axis))
+        cfg = gpt.GptConfig(**{**WIDTH, "attention_backend": backend})
+        holder = {}
+
+        def place(st, pc=pc, mesh=mesh, holder=holder):
+            holder["state"] = pc.place_state(mesh, st,
+                                             gpt.gpt_sharding_rules())
+            return holder["state"]
+
+        def after(st, arm=arm):
+            res = dict(rows_bit_equal=rows_bit_equal(st))
+            with fsdp_gathered(st):
+                named = {n: p.detach() for n, p in
+                         st.model.named_parameters()}
+                if arm == "dp4":
+                    kept["dp4"] = {n: p.cpu() for n, p in named.items()}
+                elif arm == "fsdp_dp4":
+                    res["vs_dp4_max_abs_diff"] = max(
+                        (p.cpu() - kept["dp4"][n]).abs().max().item()
+                        for n, p in named.items())
+            del named
+            return res
+        run = train_run(
+            dev, cfg, DATA["steps"], mesh=mesh, place=place, after=after,
+            check=lambda m, f, b, holder=holder: check_data_step(
+                dev, holder["state"], f, b))
+        holder.clear()
+        per_row = parallel_launches(cfg.num_layers, seq, model_axis, backend)
+        per_step = {k: d * v for k, v in per_row.items()}
+        expect_launches(f"train_data {arm}", run["launches"], per_step,
+                        DATA["steps"])
+        if not run["rows_bit_equal"]:
+            raise AssertionError(f"train_data {arm}: the data rows differ")
+        emit("train_data_profile", arm=arm, **run.pop("profiled"))
+        run.update(layout=pc.describe(), card=smi,
+                   mesh=dict(data=d, seq=seq, model=model_axis,
+                             devices=str(dev)),
+                   attention=backend, launches_per_step=per_step,
+                   step_ms_ratio_to_bf16=run["step_ms_median"]
+                   / bf16["step_ms_median"],
+                   bf16_step_ms_median=bf16["step_ms_median"])
+        out[f"train_data_{arm}"] = run["launches"]
+        kept[f"{arm}_peak"] = run["peak_mem_gb"]
+        emit("train_data", arm=arm, model="gpt_406m_width", **run)
+    diff = run["vs_dp4_max_abs_diff"]
+    if not (kept["fsdp_dp4_peak"] < kept["dp4_peak"] and diff <= 1e-5):
+        raise AssertionError(
+            f"train_data fsdp_dp4: peak {kept['fsdp_dp4_peak']} GB against "
+            f"dp4's {kept['dp4_peak']}, gathered parameters {diff} from "
+            "dp4's")
+    del kept
+    torch.cuda.empty_cache()
+    out["train_data_async_r2"] = data_async(dev, smi, bf16)
+    emit("train_data_done", seconds=time.perf_counter() - t0,
+         fsdp_peak_gb=run["peak_mem_gb"])
+    return out
+
+
+def data_async(dev, smi: str, bf16: dict) -> dict:
+    """The async arm of ``train_data``: ``DATA["async_replicas"]``
+    replicas of the train step (``parallel/async_replicas``, one a local
+    data position, here sharing the card), a merge every
+    ``async_period`` local steps.  The first local step of the timed run
+    is held to the unsharded pallas step on the whole batch: its
+    replicas' losses (the step's own ``[R]`` metric) and the gradients
+    their optimizers apply (read as each optimizer steps), averaged,
+    within TRAIN_*.  Then the local steps' exact launches (each
+    replica's kernels), the replicas apart before the first merge and
+    bit-equal after the last, step ms, busy share and peak memory.
+    Returns its launches."""
+    import torch
+    from distributed_tensorflow_tpu_torch.data.lm import make_lm_datasets
+    from distributed_tensorflow_tpu_torch.models import gpt
+    from distributed_tensorflow_tpu_torch.parallel.async_replicas import (
+        build_async_train_step)
+    from distributed_tensorflow_tpu_torch.training.optimizers import (
+        make_optimizer)
+    from distributed_tensorflow_tpu_torch.training.state import TrainState
+    R, steps, period = (DATA["async_replicas"], DATA["steps"],
+                        DATA["async_period"])
+    if period < 2:
+        raise ValueError("the replicas must step apart before a merge")
+    B, S = TRAIN["batch"], TRAIN["seq_len"]
+    cfg = gpt.GptConfig(**WIDTH)
+    model = gpt.GptLM(cfg, device=dev, seed=SEED, param_dtype=torch.float32)
+    data = make_lm_datasets(cfg, seq_len=S).train
+
+    def loss_fn(m, batch):
+        tokens = torch.as_tensor(batch["tokens"], device=dev).long()
+        loss, acc = gpt.lm_loss(m(tokens), tokens)
+        return loss, {"accuracy": acc}
+
+    batches = [data.next_batch(B) for _ in range(steps + 1)]
+    pallas = gpt.GptLM(cfg, device=dev, param_dtype=torch.float32)
+    pallas.load_state_dict(model.state_dict())
+    want = step_grads(pallas, loss_fn, batches[0])
+    want = (want[0], want[1].cpu())      # off the card: the peak is the run's
+    del pallas
+    torch.cuda.empty_cache()
+    state = TrainState.create(model, make_optimizer("adam", TRAIN["lr"]),
+                              params_to_tree=gpt.params_to_jax,
+                              params_from_tree=gpt.params_from_jax)
+    step, astate = build_async_train_step(loss_fn, state, num_replicas=R,
+                                          sync_period=period,
+                                          devices=[dev] * R)
+    # Each replica's gradients as its optimizer applies them, in the first
+    # local step only (to the host, by name).
+    applied = [{} for _ in range(R)]
+    for r, opt in enumerate(astate.optimizers):
+        names = {id(v): n for n, v in astate.views(r).items()}
+
+        def read_then_step(opt=opt, names=names, got=applied[r]):
+            for p in opt.params:
+                got[names[id(p)]] = p.grad.detach().float().cpu()
+            del opt.step                     # the class's step from now on
+            return opt.step()
+        opt.step = read_then_step
+    lead = next(iter(astate.params))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    losses, step_ms, apart = [], [], None
+    for batch in batches[:steps]:
+        t = time.perf_counter()
+        astate, metrics = step(astate, batch)
+        losses.append(float(metrics["loss"]))
+        step_ms.append((time.perf_counter() - t) * 1e3)
+        if apart is None:
+            first = metrics["loss"].stacked.float().cpu()
+            apart = not all(torch.equal(astate.views(0)[lead],
+                                        astate.views(r)[lead])
+                            for r in range(1, R))
+    launches = launch_counts()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    equal = all(torch.equal(astate.views(0)[n], astate.views(r)[n])
+                for r in range(1, R) for n in astate.params)
+    profiled = profile_train_step(step, astate, batches[steps])
+    grads = torch.cat([sum(got[n] for got in applied).flatten()
+                       for n in sorted(applied[0])]).div_(R)
+    tols = (TRAIN_LOSS_TOL, TRAIN_GRAD_NORM_RTOL, TRAIN_GRAD_MIN_COS)
+    checked = dict(batch=B, replicas=R, replica_losses=first.tolist(),
+                   vs_pallas=compare_steps(
+                       (first.mean().item(), grads), want, tols,
+                       ("replicas", "pallas")),
+                   loss_tol=tols[0], grad_norm_rtol=tols[1],
+                   grad_min_cos=tols[2])
+    del applied, grads, want
+    L = cfg.num_layers
+    per_step = {k: R * v for k, v in
+                parallel_launches(L, 1, 1, "pallas").items()}
+    expect_launches("train_data async_r2", launches, per_step, steps)
+    if not (apart and equal and all(map(math.isfinite, losses))
+            and astate.global_step == 1 + R * (steps + 1)):
+        raise AssertionError(f"train_data async: replicas apart after the "
+                             f"first step {apart}, equal after the last "
+                             f"merge {equal}, losses {losses}, global step "
+                             f"{astate.global_step}")
+    del astate, state, model, step
+    torch.cuda.empty_cache()
+    med = statistics.median(step_ms[2:])
+    emit("train_data_profile", arm="async_r2", **profiled)
+    emit("train_data", arm="async_r2", model="gpt_406m_width", card=smi,
+         replicas=R, sync_period=period, steps=steps, losses=losses,
+         step_ms=step_ms, step_ms_median=med,
+         step_ms_ratio_to_bf16=med / bf16["step_ms_median"],
+         bf16_step_ms_median=bf16["step_ms_median"],
+         tokens_per_s=B * S / (med / 1e3), peak_mem_gb=peak_gb,
+         replicas_apart_before_merge=apart, replicas_bit_equal=equal,
+         launches=launches, launches_per_step=per_step,
+         kernel_vs_plain=checked)
+    return launches
+
+
+def data_cli(dev, smi: str) -> dict:
+    """``train.py --model=gpt_mini --sync_replicas=true
+    --dcn_data_parallel=2`` with two workers (gloo: they share the one
+    card, one data row each, each a DCN slice) on K1/K2/K3, with
+    ``--sharded_feed=false`` and ``=true``, the four processes started
+    together.  Gates: a pair's losses and parameter digests bit-equal
+    across its workers, the sharded feed's line where it is on and
+    nowhere else, the loss falls, each worker's launches exactly as its
+    steps and eval forwards predict.  Returns the ``false`` run's worker
+    0's launches."""
+    from distributed_tensorflow_tpu_torch.models import gpt
+    T = DATA
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_data_cli_")
+    L = gpt.mini().num_layers
+    try:
+        procs = {}
+        t0 = time.perf_counter()
+        for feed in ("false", "true"):
+            ports = [free_port(), free_port()]
+            common = ["--model=gpt_mini", "--attention_backend=pallas",
+                      "--fused_layer_norm", f"--bert_seq_len={T['cli_seq']}",
+                      f"--batch_size={T['cli_batch']}",
+                      f"--train_steps={T['cli_steps']}", "--log_every=1",
+                      f"--device={dev.type}", "--job_name=worker",
+                      "--worker_hosts=" + ",".join(
+                          f"localhost:{p}" for p in ports),
+                      "--ps_hosts=", "--sync_replicas=true",
+                      "--dcn_data_parallel=2", f"--sharded_feed={feed}",
+                      "--save_interval_steps=1000",
+                      f"--logdir={os.path.join(tmp, feed)}",
+                      "--metrics_file=" + os.path.join(tmp, f"{feed}.jsonl")]
+            procs[feed] = [CliProcess("train", *common, f"--task_index={t}")
+                           for t in (1, 0)]
+        res = {}
+        for feed, pair in procs.items():
+            with pair[0], pair[1]:
+                lines = {1: finish(pair[0], 300), 0: finish(pair[1], 300)}
+            nums, losses = {}, {}
+            for task, ls in lines.items():
+                nums[task] = trainer_numbers(
+                    ls, os.path.join(tmp, f"{feed}.jsonl.task{task}"), task)
+                losses[task] = [x.split(" loss ")[1].split()[0] for x in ls
+                                if x.startswith(f"Worker {task}: traing")]
+                said = any("sharded feed — this process loads "
+                           f"{T['cli_batch'] // 2}/{T['cli_batch']}" in x
+                           for x in ls)
+                if said != (feed == "true"):
+                    raise AssertionError(f"data CLI {feed}: sharded feed "
+                                         f"line {said}")
+                if not any("over gloo" in x for x in ls):
+                    raise AssertionError("data CLI: not over gloo")
+            steps = nums[0]["steps"]
+            values = [float(x) for x in losses[0]]
+            if not (losses[0] == losses[1] and nums[0]["digest"]
+                    == nums[1]["digest"] and steps == T["cli_steps"] - 1
+                    and len(values) == steps
+                    and all(map(math.isfinite, values))
+                    and statistics.mean(values[-3:]) < values[0]):
+                raise AssertionError(f"data CLI {feed}: losses {losses}, "
+                                     f"digests {nums[0]['digest']} "
+                                     f"{nums[1]['digest']}")
+            forwards = steps + 2 * 4
+            want = {"flash_attention_fwd": L * forwards,
+                    "flash_attention_bwd_dq": L * steps,
+                    "flash_attention_bwd_dkv": L * steps,
+                    "layer_norm_fwd": (2 * L + 1) * forwards,
+                    "quant_matmul": 0, "quant_matmul_nt": 0}
+            for task in (0, 1):
+                if nums[task]["launches"] != want:
+                    raise AssertionError(
+                        f"data CLI {feed} worker {task} launches "
+                        f"{nums[task]['launches']}, expected {want}")
+            res[feed] = dict(losses=values, **nums[0])
+        emit("train_data_cli", card=smi, wall_s=time.perf_counter() - t0,
+             batch=T["cli_batch"], seq_len=T["cli_seq"],
+             sharded_feed_false=res["false"], sharded_feed_true=res["true"],
+             loss_first_diff=abs(res["false"]["losses"][0]
+                                 - res["true"]["losses"][0]))
+        return res["false"]["launches"]
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def data_nccl(smi: str) -> None:
+    """``--nccl`` on four cards: gpt_mini through the trainer CLI on
+    K1/K2/K3 with one worker whose data axis spans the cards (``data=-1``:
+    four rows, a card each), with two workers of two cards each,
+    ``--dcn_data_parallel=2`` over NCCL (each worker a DCN slice), and
+    with one worker on one card (``--device=cuda:0``: one row, the
+    layout before the data axis had local rows), at the same global
+    batch (:func:`data_cli_arm`)."""
+    import torch
+    n = torch.cuda.device_count()
+    if n != 4:
+        raise AssertionError(f"the data axis over cards needs 4, found {n}")
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_data_nccl_")
+    try:
+        data_cli_arm(smi, tmp, "one_worker_data4", 1, "cuda")
+        data_cli_arm(smi, tmp, "two_workers_dcn2", 2, "cuda")
+        data_cli_arm(smi, tmp, "one_worker_one_card", 1, "cuda:0")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def data_cli_arm(smi: str, tmp: str, label: str, workers: int,
+                 device: str) -> None:
+    """One ``train_data_nccl`` arm: ``workers`` gpt_mini workers with
+    ``--device=device`` at B=2 x ``DATA["cli_batch"]``, S=``cli_seq``
+    (``--dcn_data_parallel=2`` with two).  Gates: the layout (the rows:
+    a card each of the worker's share, one on ``cuda:N``) and backend
+    lines, the workers' losses and digests bit-equal, the loss falls,
+    launches exactly a row's times the rows."""
+    import torch
+    from distributed_tensorflow_tpu_torch.models import gpt
+    T, L = DATA, gpt.mini().num_layers
+    rows = (1 if torch.device(device).index is not None
+            else torch.cuda.device_count() // workers)
+    ports = [free_port() for _ in range(workers)]
+    batch = T["cli_batch"] * 2
+    common = ["--model=gpt_mini", "--attention_backend=pallas",
+              "--fused_layer_norm", f"--bert_seq_len={T['cli_seq']}",
+              f"--batch_size={batch}", f"--train_steps={T['cli_steps']}",
+              "--log_every=1", f"--device={device}", "--job_name=worker",
+              "--worker_hosts=" + ",".join(f"localhost:{p}" for p in ports),
+              "--ps_hosts=", "--sync_replicas=true",
+              "--save_interval_steps=1000",
+              f"--logdir={os.path.join(tmp, label)}",
+              "--metrics_file=" + os.path.join(tmp, label + ".jsonl")]
+    if workers == 2:
+        common.append("--dcn_data_parallel=2")
+    t0 = time.perf_counter()
+    procs = [CliProcess("train", *common, f"--task_index={t}")
+             for t in reversed(range(workers))][::-1]
+    lines = []
+    try:
+        for p in procs:
+            lines.append(finish(p, 300))
+    finally:
+        for p in procs:
+            p.__exit__()
+    metrics = os.path.join(tmp, label + ".jsonl")
+    nums = [trainer_numbers(ls, metrics + (f".task{t}" if workers > 1
+                                           else ""), t)
+            for t, ls in enumerate(lines)]
+    if rows > 1:
+        layout = line_value(lines[0], "Worker 0: mesh")
+        if f"{rows} positions on {rows} distinct device(s)" not in layout:
+            raise AssertionError(f"data nccl {label}: {layout}")
+    elif any(x.startswith("Worker 0: mesh") for x in lines[0]):
+        raise AssertionError(f"data nccl {label}: a mesh of several "
+                             f"positions on {device}")
+    else:
+        layout = f"one position on {device}"
+    if workers == 2 and not all(any("over nccl" in x for x in ls)
+                                for ls in lines):
+        raise AssertionError(f"data nccl {label}: not over nccl")
+    losses = [[float(x.split(" loss ")[1].split()[0]) for x in ls
+               if x.startswith(f"Worker {t}: traing")]
+              for t, ls in enumerate(lines)]
+    steps = nums[0]["steps"]
+    want = {"flash_attention_fwd": L * (rows * steps + 2 * 4),
+            "flash_attention_bwd_dq": rows * L * steps,
+            "flash_attention_bwd_dkv": rows * L * steps,
+            "layer_norm_fwd": (2 * L + 1) * (rows * steps + 2 * 4),
+            "quant_matmul": 0, "quant_matmul_nt": 0}
+    if not (all(x == losses[0] for x in losses)
+            and len({x["digest"] for x in nums}) == 1
+            and all(x["launches"] == want for x in nums)
+            and statistics.mean(losses[0][-3:]) < losses[0][0]):
+        raise AssertionError(
+            f"data nccl {label}: losses {losses}, digests "
+            f"{[x['digest'] for x in nums]}, launches "
+            f"{[x['launches'] for x in nums]} (want {want})")
+    emit("train_data_nccl", arm=label, card=smi, layout_line=layout,
+         wall_s=time.perf_counter() - t0, batch=batch, seq_len=T["cli_seq"],
+         workers=workers, rows=rows, cards=torch.cuda.device_count(),
+         losses=losses[0], **nums[0])
 
 
 def trainer_nccl(smi: str) -> None:
@@ -5890,8 +6416,8 @@ def async_exchange(dev, tmp: str, smi: str, timed_beside=()) -> None:
 
 def async_trainer(dev, smi: str) -> None:
     """Phase ``async_trainer``: ``async_reference`` and ``async_overlap``
-    side by side (``async_gpt`` runs in the ``trainer`` phase's group,
-    ``async_exchange`` in :func:`exchange_and_ladder`)."""
+    side by side, in the ``trainer`` phase's group beside ``async_gpt``
+    (``async_exchange`` runs in :func:`exchange_and_ladder`)."""
     tmp = tempfile.mkdtemp(prefix="chip_smoke_async_")
     seconds = {}
     start = time.perf_counter()
@@ -5902,9 +6428,9 @@ def async_trainer(dev, smi: str) -> None:
         seconds[name] = time.perf_counter() - t0
     try:
         # The two MNIST jobs (a PS and two paced workers each) side by
-        # side, nothing else beside them: start-up load beside
-        # async_reference's staggered worker 1 cost that job its overlap
-        # once (async_gpt's).
+        # side.  Start-up load beside async_reference's staggered worker 1
+        # cost that job its overlap once (async_gpt's, before worker 0's
+        # lead of ASYNC["lead_steps"]).
         side_by_side((timed, "async_reference", async_reference),
                      (timed, "async_overlap", async_overlap))
     finally:
@@ -5963,7 +6489,9 @@ def main() -> int:
          count=torch.cuda.device_count())
     if args:
         if args == ["--nccl"]:
+            kernels.load()
             trainer_nccl(smi)
+            data_nccl(smi)
         else:
             t0 = time.perf_counter()
             kernels.load()
@@ -6013,27 +6541,33 @@ def main() -> int:
     torch.cuda.empty_cache()
     by_path["train_ring"] = train_ring(dev, smi, bf16_step)
     torch.cuda.empty_cache()
+    # The in-process arms one phase after another, nothing beside them:
+    # their step times and busy shares are the card's and this process's
+    # alone.
     by_path.update(train_parallel(dev, smi, bf16_step))
     torch.cuda.empty_cache()
     by_path.update(train_pipeline(dev, smi, bf16_step))
     torch.cuda.empty_cache()
     by_path["train_optimizers"] = train_optimizers(dev, smi)
     torch.cuda.empty_cache()
-    # The two FSDP ranks, and the two gpt_mini trainer CLIs (tp2 x
-    # ulysses2; the 1f1b pipeline) each with its eval and generate, side
-    # by side: all of them processes of their own.
-    # The config ladder's in-process phase (train_models) beside them:
-    # its counted steps under the busy lock.
+    by_path.update(train_data(dev, smi, bf16_step))
+    torch.cuda.empty_cache()
+    # The two FSDP ranks, the gpt_mini trainer CLIs (tp2 x ulysses2; the
+    # 1f1b pipeline) each with its eval and generate, and the data CLI's
+    # two pairs, side by side: all of them processes of their own.  The
+    # config ladder's in-process phase (train_models) beside them, every
+    # launch of it under the busy lock.
     t0 = time.perf_counter()
     (by_path["train_fsdp"], by_path["train_parallel_cli"],
-     by_path["train_pipeline_cli"], models) = side_by_side(
+     by_path["train_pipeline_cli"], models,
+     by_path["train_data_cli"]) = side_by_side(
         (train_fsdp, dev, smi, bf16_step), (parallel_cli, dev, smi),
-        (pipeline_cli, dev, smi), (train_models, dev, smi))
+        (pipeline_cli, dev, smi), (train_models, dev, smi),
+        (data_cli, dev, smi))
     by_path.update(models)
     emit("fsdp_and_cli_pair", seconds=time.perf_counter() - t0,
-         beside=["train_models"])
+         beside=["train_models", "train_data_cli"])
     by_path["trainer"], by_path["async_trainer"] = trainer(dev, smi)
-    async_trainer(dev, smi)
     for row in rows:
         row["launches"] = by_path[row["main"]][row["name"]]
         if row["name"] in by_path["async_trainer"]:

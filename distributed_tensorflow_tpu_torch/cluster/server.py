@@ -22,11 +22,18 @@ alone, as the JAX multi-process tests run them).
 printed on its bring-up line, never a fallback taken after a failure:
 
 - ``gloo`` for a CPU device;
-- ``nccl`` for CUDA when every worker process has a card of its own
-  (``num_workers <= torch.cuda.device_count()``: worker ``i`` of a cluster
-  on one host takes card ``i``);
-- ``gloo`` on CUDA tensors when the workers share a card: NCCL refuses two
-  ranks on one device ("Duplicate GPU detected").
+- ``nccl`` for CUDA when each worker's first position has a card of its
+  own (worker ``i`` of ``positions`` positions starts at card ``i x
+  positions`` mod the count, ``parallel/mesh.worker_positions``: two
+  workers of two cards each on four cards take cards 0 and 2);
+- ``gloo`` on CUDA tensors when the workers' first positions share a
+  card: NCCL refuses two ranks on one device ("Duplicate GPU detected").
+
+With ``--dcn_data_parallel`` over several workers a slice a group of
+workers, the server also forms the DCN slices' groups
+(:attr:`Server.slice_groups`): ``(within, across)``, the workers of this
+worker's slice and the workers at its place in every slice, so the
+gradient sum runs within the slice first, then across the slices.
 """
 
 from __future__ import annotations
@@ -55,15 +62,33 @@ def worker_device(name: str, task_index: int) -> torch.device:
     return worker_positions(name, task_index, 1)[0]
 
 
-def choose_backend(device: torch.device, num_workers: int) -> tuple[str, str]:
-    """``(backend, reason)`` by the module's rule."""
+def choose_backend(device: torch.device, num_workers: int,
+                   positions: int = 1) -> tuple[str, str]:
+    """``(backend, reason)`` by the module's rule (``positions``: each
+    worker's mesh positions)."""
     if device.type != "cuda":
         return "gloo", f"{device.type} tensors"
     cards = torch.cuda.device_count()
-    if num_workers <= cards:
+    firsts = {(i * positions) % cards for i in range(num_workers)}
+    if len(firsts) == num_workers:
         return "nccl", f"a card for each of {num_workers} workers"
     return "gloo", (f"{num_workers} workers share {cards} card(s); NCCL "
                     "refuses two ranks on one device")
+
+
+def slice_group_ranks(num_workers: int, dcn_data: int) -> tuple | None:
+    """``(slices, places)``: the worker ranks of each DCN slice and of
+    each place across the slices, where a slice holds several workers
+    (None where every worker is a slice of its own or there is one
+    slice: one all-reduce is then the whole order)."""
+    if dcn_data <= 1 or num_workers % dcn_data:
+        return None
+    per = num_workers // dcn_data
+    if per == 1:
+        return None
+    slices = [list(range(g * per, (g + 1) * per)) for g in range(dcn_data)]
+    places = [list(range(j, num_workers, per)) for j in range(per)]
+    return slices, places
 
 
 class Server:
@@ -81,6 +106,7 @@ class Server:
 
     def __init__(self, cluster: ClusterSpec, job_name: str, task_index: int,
                  *, device: torch.device | None = None,
+                 positions: int = 1, dcn_data: int = 1,
                  initialize_distributed: bool | None = None,
                  coord_service: bool = True,
                  heartbeat_timeout: float = 10.0,
@@ -100,6 +126,7 @@ class Server:
         self.backend: str | None = None
         self.backend_reason = ""
         self.process_group = False
+        self.slice_groups = None
 
         num_workers = cluster.num_workers
         if initialize_distributed is None:
@@ -110,8 +137,8 @@ class Server:
             import torch.distributed as dist
             if device is None:
                 raise ValueError("a process group needs the worker's device")
-            self.backend, self.backend_reason = choose_backend(device,
-                                                               num_workers)
+            self.backend, self.backend_reason = choose_backend(
+                device, num_workers, positions)
             if self.backend == "nccl":
                 torch.cuda.set_device(device)
             dist.init_process_group(
@@ -120,6 +147,15 @@ class Server:
                 world_size=num_workers, rank=task_index,
                 timeout=datetime.timedelta(seconds=COLLECTIVE_TIMEOUT_S))
             self.process_group = True
+            layout = slice_group_ranks(num_workers, dcn_data)
+            if layout is not None:
+                # Every rank forms every group, in the same order.
+                mine = []
+                for ranks in layout[0] + layout[1]:
+                    group = dist.new_group(ranks)
+                    if task_index in ranks:
+                        mine.append(group)
+                self.slice_groups = tuple(mine)
 
         if coord_service:
             from . import coordination

@@ -5,7 +5,8 @@ the ``put_fn`` the training loop passes is
 :func:`..training.loop.to_device`: a pinned-memory staging copy and a
 ``non_blocking=True`` transfer to the explicit device, issued from the
 producer thread on the device's current stream (so ordered before the
-step that reads it).  The JAX text below speaks of ``device_put``.
+step that reads it); for a worker with several data rows, each row's
+part of the batch to its own row's device.  The JAX text below speaks of ``device_put``.
 
 The reference feeds each step from host Python (``feed_dict``, reference
 ``distributed.py:137-138,145``): the accelerator idles while the host slices

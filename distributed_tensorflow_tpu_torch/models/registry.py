@@ -55,6 +55,15 @@ class ModelBundle:
     train_step_builder: Callable | None = None
 
 
+
+def input_device(model) -> torch.device:
+    """Where ``model``'s inputs go: its own device (a data row's, which
+    ``parallel/sharding.py`` places on the row's first position)."""
+    device = getattr(model, "device", None)
+    if device is not None:
+        return torch.device(device)
+    return next(model.parameters()).device
+
 def _default_transformer_tx(learning_rate: float, name: str) -> OptimizerSpec:
     """Transformer default optimizer: Adam with the generic learning rate
     (0.01, tuned for SGD) capped to an Adam-appropriate scale."""
@@ -125,7 +134,8 @@ def build_gpt_mini(learning_rate: float, seed: int = 0, seq_len: int = 128,
                               params_from_tree=gpt_lib.params_from_jax)
 
     def _loss(model, batch, rng=None):
-        tokens = torch.as_tensor(batch["tokens"], device=device).long()
+        tokens = torch.as_tensor(batch["tokens"],
+                                 device=input_device(model)).long()
         logits = model(tokens, rng)
         loss, acc = gpt_lib.lm_loss(logits, tokens,
                                     label_smoothing=label_smoothing)
@@ -233,7 +243,11 @@ def build_gpt_pipeline(learning_rate: float, mesh, seed: int = 0,
 
     def place_state(mesh_, state_):
         """Each chunk on its pipe device (the embedding on the first,
-        the head on the last); the optimizer's slots follow in place."""
+        the head on the last); the optimizer's slots follow in place.
+        One data row: local data rows beside the pipe axis raise."""
+        from ..parallel.sharding import pipeline_rows_error
+        if mesh_.shape["data"] > 1:
+            raise pipeline_rows_error(mesh_.shape["data"])
         devs = mesh_.pipe_devices()
         m = state_.model
         for c, stage in enumerate(m.stages):
@@ -310,8 +324,8 @@ def _image_classifier_bundle(model, tx: OptimizerSpec, name: str,
 
     def loss_fn(model, batch):
         images, labels = batch
-        images = torch.as_tensor(images, device=device)
-        labels = torch.as_tensor(labels, device=device)
+        images = torch.as_tensor(images, device=input_device(model))
+        labels = torch.as_tensor(labels, device=input_device(model))
         logits = model(images)
         return cross_entropy_loss(logits, labels,
                                   label_smoothing=label_smoothing), {
@@ -411,8 +425,8 @@ def build_resnet20(learning_rate: float, seed: int = 0,
 
     def stateful_loss_fn(model, batch, all_reduce=None):
         images, labels = batch
-        images = torch.as_tensor(images, device=device)
-        labels = torch.as_tensor(labels, device=device)
+        images = torch.as_tensor(images, device=input_device(model))
+        labels = torch.as_tensor(labels, device=input_device(model))
         logits = model(images, all_reduce)
         return cross_entropy_loss(logits, labels,
                                   label_smoothing=label_smoothing), {
@@ -461,7 +475,7 @@ def _build_bert(learning_rate: float, seed: int, seq_len: int,
         _loss = bert.make_moe_mlm_loss_fn(label_smoothing=label_smoothing)
     else:
         def _loss(model, batch, rng=None):
-            t = {k: torch.as_tensor(v, device=device)
+            t = {k: torch.as_tensor(v, device=input_device(model))
                  for k, v in batch.items()}
             logits = model(t["input_ids"].long(), t["attention_mask"], rng)
             loss, acc = bert.mlm_loss(logits, t["labels"],

@@ -5,9 +5,9 @@ the re-design of the reference's Hogwild PS updates (``opt.minimize``
 without the sync wrapper, reference ``distributed.py:102``; SURVEY N4):
 
 - each of the R local replicas holds its **own parameter copy**: the
-  parameters are stacked ``[R, ...]`` on one device
-  (:attr:`AsyncTrainState.params`), and replica ``r`` owns the views
-  ``stacked[r]``;
+  parameters are stacked ``[k, ...]`` on each device that holds k of
+  them (:attr:`AsyncTrainState.stacks`), and a replica owns its views
+  into its device's stack;
 - each replica's optimizer (its own slots, updated in place, so memory is
   R times one copy) applies that replica's gradient to its views only.
   The local step calls **no collective** and reduces nothing across
@@ -24,12 +24,17 @@ replicas here are a Python loop: the hand-written kernels are
 ``r`` takes rows ``[r B/R, (r+1) B/R)`` of the batch, as the ``data``
 axis shards it.
 
-**One replica a task.**  The trainer builds R = 1 per worker process (the
-port's rule since the sync slice: one data replica a task, ROADMAP.md,
-ground rules, Devices); the workers average across processes through
-:mod:`..cluster.param_sync`.  At R = 1 the merge is skipped (a copy's mean
-is itself), so the loop costs nothing on the device.  The functions take
-``num_replicas`` explicitly; the CPU tests use R = 8, JAX's 8-device CPU
+**R = the worker's local data positions.**  The trainer builds one
+replica a local data position (``--device=cuda`` with several cards;
+the CPU as ``DTF_TORCH_CPU_DEVICES`` positions), each on its position's
+device
+(``make_async_state(..., devices=)``): the replicas on one device are
+stacked there, and a device holds a template copy of the model of its
+own.  The workers average across processes through
+:mod:`..cluster.param_sync`, as in JAX (its async workers never join a
+global mesh: ``tests/test_multihost_jax.py::test_two_process_async_mode``).
+At R = 1 the merge is skipped (a copy's mean is itself), so the loop
+costs nothing on the device.  The CPU tests use R = 4 and 8, JAX's CPU
 mesh.
 
 Per-replica metrics stay stacked ``[R]`` on the device inside
@@ -40,6 +45,7 @@ the steps that log read the device.
 from __future__ import annotations
 
 import contextlib
+import copy
 import dataclasses
 from typing import Any, Callable
 
@@ -49,7 +55,7 @@ from torch import nn
 
 from ..training.optimizers import Optimizer
 from ..training.state import TrainState, param_paths
-from .sync import _index, _split
+from .sync import RowBatches, _index, _place, _split
 
 LossFn = Callable[..., tuple[torch.Tensor, dict]]
 
@@ -92,18 +98,23 @@ class _LossCall(nn.Module):
 
 @dataclasses.dataclass
 class AsyncTrainState:
-    """R replicas' parameters stacked ``[R, ...]`` on one device, one
-    optimizer a replica over its views.  ``model`` is the template the
-    replicas run (:func:`torch.func.functional_call`); its own parameters
-    are replica 0's views (no copy of their own), and an evaluation runs
-    it on the consensus through :func:`consensus_model`."""
+    """R replicas' parameters, one stack ``[k, ...]`` a device holding
+    that device's k replicas (``stacks``, in replica order; ``params`` is
+    the first), one optimizer a replica over its views.  ``models`` are
+    the templates the replicas run (:func:`torch.func.functional_call`),
+    one a device (``model`` is the first); a template's own parameters
+    are its device's first replica's views (no copy of their own), and
+    an evaluation runs ``model`` on the consensus through
+    :func:`consensus_model`."""
 
     model: nn.Module
-    params: dict            # state_dict name -> [R, ...] stacked tensor
-    optimizers: list        # replica r's Optimizer over params[n][r]
+    params: dict            # state_dict name -> [k, ...] stacked tensor
+    optimizers: list        # replica r's Optimizer over its views
     global_step: int        # total updates applied (R a local step)
     params_to_tree: Callable[[dict], dict] = None
     params_from_tree: Callable[[dict], dict] = None
+    stacks: list = None     # one stack a device (default [params])
+    models: list = None     # one template a device (default [model])
 
     @property
     def num_replicas(self) -> int:
@@ -114,10 +125,19 @@ class AsyncTrainState:
         tensors its optimizer updates)."""
         return self._views[r]
 
+    def replica_model(self, r: int) -> nn.Module:
+        """The template replica ``r`` runs (the one of its device)."""
+        return self._models[r]
+
     def __post_init__(self):
-        R = next(iter(self.params.values())).shape[0]
-        self._views = [{n: t[r] for n, t in self.params.items()}
-                       for r in range(R)]
+        self.stacks = self.stacks or [self.params]
+        self.models = self.models or [self.model]
+        self._views, self._models = [], []
+        for stack, model in zip(self.stacks, self.models):
+            k = next(iter(stack.values())).shape[0]
+            self._views += [{n: t[r] for n, t in stack.items()}
+                            for r in range(k)]
+            self._models += [model] * k
         self._paths: dict | None = None
         self._host_bufs: dict = {}  # name -> the consensus's host buffer
 
@@ -179,7 +199,8 @@ class AsyncTrainState:
             opt.count = global_step - 1
             opt.load_optax_state(
                 tree_map(pick, opt_tree) if opt_tree is not None else None,
-                {v: n for n, v in views.items()}, self.params_from_tree)
+                {v: n for n, v in views.items()}, self.params_from_tree,
+                self.params_to_tree)
         self.global_step = global_step
         return self
 
@@ -191,27 +212,43 @@ def _replica(x, r: int, R: int):
     return x[r]
 
 
-def make_async_state(state: TrainState, num_replicas: int
-                     ) -> AsyncTrainState:
+def make_async_state(state: TrainState, num_replicas: int,
+                     devices=None) -> AsyncTrainState:
     """Convert a :class:`TrainState` into R stacked replicas of it: every
     replica starts at the state's parameters and optimizer slots (JAX's
-    ``_make_async_state``).  The stacked tensors live on the parameters'
-    device, in their dtype; frozen parameters (``requires_grad`` off) get
-    no optimizer slots.  The template's parameters become replica 0's
-    views, so the device holds R copies of the parameters and no more."""
+    ``_make_async_state``).  ``devices`` (one a replica; default the
+    parameters' device): the replicas on one device are stacked there,
+    in the parameters' dtype, and every further device gets a copy of the
+    model as its template.  Frozen parameters (``requires_grad`` off) get
+    no optimizer slots.  A template's parameters become its first
+    replica's views, so a device holds its replicas' copies of the
+    parameters and no more."""
     if num_replicas < 1:
         raise ValueError(f"num_replicas must be >= 1, got {num_replicas}")
     model = state.model
     named = dict(model.named_parameters())
+    home = next(iter(named.values())).device
+    devices = [torch.device(d) for d in (devices or [home] * num_replicas)]
+    if len(devices) != num_replicas:
+        raise ValueError(f"{len(devices)} devices for {num_replicas} "
+                         "replicas")
+    order = list(dict.fromkeys(devices))
+    if [d for d in order for _ in range(devices.count(d))] != devices:
+        raise ValueError("the replicas of one device must be consecutive")
+    models = [model] + [_template_on(model, d) for d in order[1:]]
+    stacks = []
     with torch.no_grad():
-        stacked = {n: p.detach().unsqueeze(0).repeat(
-            (num_replicas,) + (1,) * p.dim()) for n, p in named.items()}
+        for d in order:
+            k = devices.count(d)
+            stacks.append({n: p.detach().to(d).unsqueeze(0).repeat(
+                (k,) + (1,) * p.dim()) for n, p in named.items()})
     trainable = [n for n, p in named.items() if p.requires_grad]
     src = state.optimizer
     astate = AsyncTrainState(
-        model=model, params=stacked, optimizers=[],
+        model=model, params=stacks[0], optimizers=[],
         global_step=state.global_step, params_to_tree=state.params_to_tree,
-        params_from_tree=state.params_from_tree)
+        params_from_tree=state.params_from_tree, stacks=stacks,
+        models=models)
     for r in range(num_replicas):
         views = [astate.views(r)[n] for n in trainable]
         opt = Optimizer(src.spec, views)
@@ -219,12 +256,23 @@ def make_async_state(state: TrainState, num_replicas: int
         for n, v in zip(trainable, views):
             slots = src.base.state.get(named[n])
             if slots:
-                opt.base.state[v] = {k: (t.clone() if torch.is_tensor(t)
+                opt.base.state[v] = {k: (t.to(v.device).clone()
+                                         if torch.is_tensor(t) and t.dim()
+                                         else t.clone() if torch.is_tensor(t)
                                          else t) for k, t in slots.items()}
         astate.optimizers.append(opt)
-    for n, p in named.items():
-        p.data = stacked[n][0]
+    for template, stack in zip(models, stacks):
+        for n, p in template.named_parameters():
+            p.data = stack[n][0]
     return astate
+
+
+def _template_on(model: nn.Module, device: torch.device) -> nn.Module:
+    """A copy of ``model`` on ``device`` (its inputs' device too)."""
+    copied = copy.deepcopy(model).to(device)
+    if isinstance(getattr(copied, "device", None), torch.device):
+        copied.device = device
+    return copied
 
 
 def _local_update(loss_fn: LossFn):
@@ -233,10 +281,14 @@ def _local_update(loss_fn: LossFn):
 
     def update(astate: AsyncTrainState, batch: Any):
         R = astate.num_replicas
-        call = _LossCall(astate.model, loss_fn)
-        astate.model.train()
+        calls = {}
         losses, auxes = [], []
         for r in range(R):
+            model = astate.replica_model(r)
+            if id(model) not in calls:
+                model.train()
+                calls[id(model)] = _LossCall(model, loss_fn)
+            call = calls[id(model)]
             views = astate.views(r)
             opt = astate.optimizers[r]
             train = {id(v) for v in opt.params}
@@ -252,8 +304,10 @@ def _local_update(loss_fn: LossFn):
                 else:
                     a = v
                 inputs[f"model.{n}"] = a
-            loss, aux = torch.func.functional_call(
-                call, inputs, (_split(batch, R, r),))
+            part = (batch[r] if isinstance(batch, RowBatches) else
+                    _place(_split(batch, R, r), views[next(iter(views))]
+                           .device))
+            loss, aux = torch.func.functional_call(call, inputs, (part,))
             grads = torch.autograd.grad(loss, [a for _, a in leaves],
                                         allow_unused=True)
             for (v, a), g in zip(leaves, grads):
@@ -265,27 +319,30 @@ def _local_update(loss_fn: LossFn):
             auxes.append({k: (x.detach() if torch.is_tensor(x) else x)
                           for k, x in aux.items()})
         astate.global_step += R
-        metrics = {"loss": torch.stack(losses)}
+        home = losses[0].device
+        metrics = {"loss": torch.stack([x.to(home) for x in losses])}
         for k in auxes[0]:
             if torch.is_tensor(auxes[0][k]):
-                metrics[k] = torch.stack([a[k] for a in auxes])
+                metrics[k] = torch.stack([a[k].to(home) for a in auxes])
         return astate, metrics
 
     return update
 
 
-def merge_params_tree(stacked_params: dict) -> dict:
-    """Consensus parameters (the mean over the replica axis, computed in
-    float32 and returned in each leaf's dtype) from stacked tensors; one
-    replica's copy is its own mean (a view, no device work)."""
-    return {n: (t[0] if t.shape[0] == 1 else
-                t.float().mean(dim=0).to(t.dtype))
-            for n, t in stacked_params.items()}
-
-
 def merge_params(astate: AsyncTrainState) -> dict:
-    """Consensus parameters: for eval and checkpointing."""
-    return merge_params_tree(astate.params)
+    """Consensus parameters (the mean over every replica, summed in
+    float32 a stack at a time on the first replica's device, returned in
+    each leaf's dtype): for eval and checkpointing.  One replica's copy
+    is its own mean (a view, no device work)."""
+    if astate.num_replicas == 1:
+        return {n: t[0] for n, t in astate.params.items()}
+    out = {}
+    for n, t in astate.params.items():
+        total = t.float().sum(dim=0)
+        for stack in astate.stacks[1:]:
+            total.add_(stack[n].float().sum(dim=0).to(t.device))
+        out[n] = total.div_(astate.num_replicas).to(t.dtype)
+    return out
 
 
 @contextlib.contextmanager
@@ -317,9 +374,10 @@ def build_merge_step():
     def merge(astate: AsyncTrainState) -> AsyncTrainState:
         if astate.num_replicas == 1:
             return astate
-        for t in astate.params.values():
-            t.copy_(t.float().mean(dim=0, keepdim=True).to(t.dtype)
-                    .expand_as(t))
+        for n, mean in merge_params(astate).items():
+            for stack in astate.stacks:
+                t = stack[n]
+                t.copy_(mean.to(t.device).unsqueeze(0).expand_as(t))
         return astate
 
     return merge
@@ -390,8 +448,9 @@ def adopt_consensus(astate: AsyncTrainState, avg_tree: dict
     stacked axis in the stacked dtype, IN PLACE (a ``copy_`` into the
     stacked tensors: no second stacked tree is allocated)."""
     for n, a in _named(astate, avg_tree).items():
-        t = astate.params[n]
-        t.copy_(a.to(t.device, t.dtype).unsqueeze(0).expand_as(t))
+        for stack in astate.stacks:
+            t = stack[n]
+            t.copy_(a.to(t.device, t.dtype).unsqueeze(0).expand_as(t))
     return astate
 
 
@@ -405,9 +464,11 @@ def adopt_consensus_delta(astate: AsyncTrainState, avg_tree: dict,
     size and added in the stacked dtype, in place: no float32 copy of the
     stacked tree on the device."""
     avg, snap = _named(astate, avg_tree), _named(astate, snap_tree)
-    for n, t in astate.params.items():
-        d = (avg[n].float() - snap[n].float()).to(t.dtype).to(t.device)
-        t.add_(d.unsqueeze(0))
+    for n in astate.params:
+        d = avg[n].float() - snap[n].float()
+        for stack in astate.stacks:
+            t = stack[n]
+            t.add_(d.to(t.dtype).to(t.device).unsqueeze(0))
     return astate
 
 
@@ -424,7 +485,8 @@ def _wrap_metrics(astate: AsyncTrainState, raw: dict) -> dict:
 
 
 def build_async_train_step(loss_fn: LossFn, state: TrainState, *,
-                           num_replicas: int, sync_period: int = 16):
+                           num_replicas: int, sync_period: int = 16,
+                           devices=None):
     """Convert a TrainState into R async replicas and build their step.
 
     Returns ``(step_fn, async_state)`` with ``step_fn(astate, batch) ->
@@ -432,10 +494,11 @@ def build_async_train_step(loss_fn: LossFn, state: TrainState, *,
     merge only on every ``sync_period``-th call (a host counter:
     restarting the loop restarts the merge phase).  ``metrics["loss"]``
     and the aux metrics are :class:`HostMeanScalar`;
-    ``metrics["global_step"]`` is the state's int."""
+    ``metrics["global_step"]`` is the state's int.  ``devices``: each
+    replica's (:func:`make_async_state`)."""
     if sync_period < 1:
         raise ValueError(f"sync_period must be >= 1, got {sync_period}")
-    astate = make_async_state(state, num_replicas)
+    astate = make_async_state(state, num_replicas, devices)
     local_step = build_async_local_step(loss_fn)
     merge = build_merge_step()
     calls = {"n": 0}
@@ -452,16 +515,17 @@ def build_async_train_step(loss_fn: LossFn, state: TrainState, *,
 
 def build_scanned_async_train_step(loss_fn: LossFn, state: TrainState, *,
                                    num_replicas: int, sync_period: int = 16,
-                                   merge: bool = True):
+                                   merge: bool = True, devices=None):
     """One call = ``sync_period`` local steps + one merge (JAX runs them
     as one ``lax.scan`` dispatch; here a loop).  ``step_fn(astate,
     batches)`` consumes a ``[sync_period, ...]``-stacked batch
     (:func:`.sync.stack_microbatches`); the metrics are the last
     microstep's.  ``merge=False`` drops the merge too: the replicas
-    diverge until the caller merges (:func:`build_merge_step`)."""
+    diverge until the caller merges (:func:`build_merge_step`).
+    ``devices``: each replica's (:func:`make_async_state`)."""
     if sync_period < 1:
         raise ValueError(f"sync_period must be >= 1, got {sync_period}")
-    astate = make_async_state(state, num_replicas)
+    astate = make_async_state(state, num_replicas, devices)
     local_step = build_async_local_step(loss_fn)
     merge_step = build_merge_step()
 

@@ -20,15 +20,17 @@ tensors; where two positions share a device (the tests' ``[cpu] * 8``,
 one card driving several positions), the copy is a no-op and the code
 path is the same.
 
-:class:`ParallelConfig` is the trainer's declarative layout.  Its data
-replicas are the sync trainer's worker processes (one replica a worker,
-the reference's ``num_workers``), so a worker's mesh is ``data=1 x seq x
-pipe x expert x model``: the trainer lays those positions over the
-worker's cards round robin (:func:`worker_positions`).  FSDP shards over those worker
-processes (:func:`.sharding.fsdp_state`), not over in-process
-positions.  The DCN factor and data shards inside one process beside
-tensor or expert parallelism (slice 8d) raise ``NotImplementedError``
-naming ROADMAP.md's entry.  :func:`save_run_profile` /
+:class:`ParallelConfig` is the trainer's declarative layout.  The data
+axis is ``worker processes x local positions``: a worker's mesh is
+``data x seq x pipe x expert x model`` over the devices it drives, its
+``data`` rows the local data positions (``data=-1``: the worker's share
+of the visible cards over the other axes, :func:`local_data_size`), each
+row holding its own copy of the model (``parallel/sharding.py``), laid
+over the worker's cards by :func:`worker_positions`.  FSDP shards over
+the whole data axis (:func:`.sharding.fsdp_state`).  ``dcn_data`` is the
+data axis's outer factor: the positions are ordered slice-major
+(:func:`_slice_major`) and a gradient's mean is taken within a slice,
+then across the slices (:mod:`.sync`).  :func:`save_run_profile` /
 :func:`load_run_profile` write and read the JAX package's run-profile
 JSON.
 """
@@ -53,9 +55,31 @@ EXPERT_AXIS = "expert"
 AXIS_ORDER = (DATA_AXIS, SEQ_AXIS, PIPE_AXIS, EXPERT_AXIS, MODEL_AXIS)
 
 
-def _roadmap(what: str, where: str) -> NotImplementedError:
-    return NotImplementedError(f"{what} is not ported yet; see ROADMAP.md, "
-                               f"section 1, {where}")
+def _slice_major(devices, n_groups: int):
+    """Order devices so consecutive blocks share a pod slice (JAX's
+    ``_slice_major``).  Grouping key: a device's ``slice_index`` when it
+    has one, else its ``process_index`` (a :class:`torch.device` has
+    neither: one group).  On a real topology (more than one key) the
+    group count must equal the DCN factor, or it raises; a single key
+    falls back to even positional chunking."""
+    keyed: dict = {}
+    for d in devices:
+        key = getattr(d, "slice_index", None)
+        if key is None:
+            key = getattr(d, "process_index", 0)
+        keyed.setdefault(key, []).append(d)
+    groups = [keyed[k] for k in sorted(keyed)]
+    if len(groups) == 1:
+        per = len(devices) // n_groups
+        groups = [list(devices[i * per:(i + 1) * per])
+                  for i in range(n_groups)]
+    elif len(groups) != n_groups or len({len(g) for g in groups}) != 1:
+        raise ValueError(
+            f"dcn_data={n_groups} does not match the device topology: "
+            f"{len(groups)} slice/process groups of sizes "
+            f"{[len(g) for g in groups]}; set dcn_data to the slice count "
+            "so the inner mesh axes stay on intra-slice ICI")
+    return [d for group in groups for d in group]
 
 
 class Mesh:
@@ -63,13 +87,16 @@ class Mesh:
     name in ``axis_names``.  ``shape`` maps each axis name to its size, as
     ``jax.sharding.Mesh.shape`` does."""
 
-    def __init__(self, devices: np.ndarray, axis_names: Sequence[str]):
+    def __init__(self, devices: np.ndarray, axis_names: Sequence[str],
+                 dcn_data: int = 1):
         devices = np.asarray(devices, dtype=object)
         if devices.ndim != len(axis_names):
             raise ValueError(f"devices of rank {devices.ndim} for "
                              f"{len(axis_names)} axis names")
         self.devices = devices
         self.axis_names = tuple(axis_names)
+        #: The DCN slices the ``data`` axis spans (its outer factor).
+        self.dcn_data = dcn_data
 
     @property
     def shape(self) -> dict:
@@ -108,7 +135,24 @@ class Mesh:
         """Model column ``j`` as a mesh of its own (model axis of size 1):
         the ring or ulysses attention of the heads shard ``j`` holds."""
         axis = self.axis_names.index(MODEL_AXIS)
-        return Mesh(self.devices.take([j], axis=axis), self.axis_names)
+        return Mesh(self.devices.take([j], axis=axis), self.axis_names,
+                    self.dcn_data)
+
+    def row(self, r: int) -> "Mesh":
+        """Data row ``r`` as a mesh of its own (data axis of size 1): the
+        positions that hold one copy of the model."""
+        axis = self.axis_names.index(DATA_AXIS)
+        return Mesh(self.devices.take([r], axis=axis), self.axis_names)
+
+    def row_slices(self) -> list:
+        """The data rows grouped by DCN slice (``[[0, 1], [2, 3]]`` for
+        ``data=4, dcn_data=2``; one group of every row when the axis
+        spans one slice or less)."""
+        n = self.shape[DATA_AXIS]
+        k = self.dcn_data if self.dcn_data > 1 and n % self.dcn_data == 0 \
+            else 1
+        per = n // k
+        return [list(range(i * per, (i + 1) * per)) for i in range(k)]
 
 
 def create_mesh(data: int = -1, model: int = 1, seq: int = 1,
@@ -124,11 +168,10 @@ def create_mesh(data: int = -1, model: int = 1, seq: int = 1,
     list may name one device more than once: ``create_mesh(seq=4,
     devices=[cuda0] * 4)`` runs four sequence shards on one card, and the
     CPU tests build ``devices=[cpu] * 8``.  JAX's ``create_mesh``
-    requires distinct devices.  ``dcn_data`` > 1 raises (not
-    ported)."""
-    if dcn_data > 1:
-        raise _roadmap(f"the DCN data factor (dcn_data={dcn_data})",
-                       "item 6, slice 8d")
+    requires distinct devices.  ``dcn_data > 1`` orders the devices
+    slice-major (:func:`_slice_major`), so the ``data`` axis's outer
+    factor of ``dcn_data`` crosses the slices and every other axis, and
+    the inner data factor, stays inside one."""
     if devices is None:
         if not torch.cuda.is_available():
             raise RuntimeError("CUDA is not available; pass devices= (for "
@@ -151,10 +194,17 @@ def create_mesh(data: int = -1, model: int = 1, seq: int = 1,
     total = math.prod(sizes.values())
     if total != n:
         raise ValueError(f"Mesh of {total} devices but {n} available")
+    if dcn_data > 1:
+        if sizes[DATA_AXIS] % dcn_data:
+            raise ValueError(
+                f"data axis {sizes[DATA_AXIS]} not divisible by "
+                f"dcn_data={dcn_data} (the DCN factor is the data axis's "
+                "outer segment)")
+        devices = _slice_major(devices, dcn_data)
     array = np.empty(n, dtype=object)
     array[:] = devices
     return Mesh(array.reshape(tuple(sizes[a] for a in AXIS_ORDER)),
-                AXIS_ORDER)
+                AXIS_ORDER, dcn_data=dcn_data)
 
 
 def data_parallel_mesh(num_devices: int | None = None,
@@ -169,6 +219,13 @@ def data_parallel_mesh(num_devices: int | None = None,
     if num_devices is not None:
         devices = devices[:num_devices]
     return create_mesh(data=len(devices), devices=devices)
+
+
+def data_sharded(mesh: Mesh, *, extra_dims: int = 0) -> tuple:
+    """The spec of batch-major tensors split along ``data`` (a
+    :class:`.sharding.P` value)."""
+    from .sharding import P
+    return P(DATA_AXIS, *([None] * extra_dims))
 
 
 def batch_sharding(mesh: Mesh) -> tuple:
@@ -195,12 +252,38 @@ def num_replicas(mesh: Mesh) -> int:
     return mesh.shape[DATA_AXIS]
 
 
+# The CPU counts as this many devices for ``data=-1`` (default one): a
+# worker run with ``--device=cpu`` lays that many data positions on it, as
+# JAX's CPU backend does with ``--xla_force_host_platform_device_count``.
+CPU_DEVICES_ENV = "DTF_TORCH_CPU_DEVICES"
+
+
+def local_data_size(name: str, fixed: int, num_workers: int = 1) -> int:
+    """A worker's local data positions for ``data=-1``: the devices it
+    drives over the other axes' product ``fixed`` (at least one row).
+    ``cuda`` (no index) drives the worker's share of the visible cards
+    (``device_count // num_workers``, at least one), ``cuda:N`` one card,
+    and ``cpu`` ``$DTF_TORCH_CPU_DEVICES`` devices (default one)."""
+    device = torch.device(name)
+    if device.type == "cpu":
+        count = int(os.environ.get(CPU_DEVICES_ENV) or 1)
+    elif device.index is not None:
+        count = 1
+    elif not torch.cuda.is_available():
+        raise RuntimeError(
+            "CUDA is not available; pass --device=cpu to run on the CPU")
+    else:
+        count = max(1, torch.cuda.device_count() // num_workers)
+    return max(1, count // fixed)
+
+
 def worker_positions(name: str, task_index: int, positions: int) -> list:
-    """The devices of a worker's ``positions`` mesh positions (its ``seq x
-    pipe x expert x model``) for the ``--device`` value ``name``: ``cuda`` lays them round
-    robin over the visible cards from card ``task_index x positions``, as
-    worker ``i`` with one position takes card ``i`` mod the count; an
-    explicit ``cuda:N`` or ``cpu`` holds every position."""
+    """The devices of a worker's ``positions`` mesh positions (its ``data
+    x seq x pipe x expert x model``, data outermost) for the ``--device``
+    value ``name``: ``cuda`` lays them round robin over the visible cards
+    from card ``task_index x positions``, as worker ``i`` with one
+    position takes card ``i`` mod the count; an explicit ``cuda:N`` or
+    ``cpu`` holds every position."""
     device = torch.device(name)
     if device.type != "cuda" or device.index is not None:
         return [device] * positions
@@ -223,8 +306,7 @@ class ParallelConfig:
     ``pipe``, ``expert``, ``dcn_data``, ``microbatch`` (gradient
     accumulation), ``quantize``, ``attention`` (``auto``: ring when
     ``seq > 1``), ``fsdp`` and ``fsdp_min_size``.  Every layout parses
-    and describes itself; :meth:`build_mesh` and :meth:`place_state`
-    raise for the axes not ported yet."""
+    and describes itself."""
 
     data: int = -1
     model: int = 1
@@ -342,7 +424,8 @@ class ParallelConfig:
         """Place a TrainState on ``mesh`` under this layout: FSDP, else
         the bundle's tensor-parallel ``rules`` (they engage only when the
         mesh has a non-trivial ``model``/``expert`` axis), else
-        replicated."""
+        replicated; a mesh with ``data > 1`` gives every data row its own
+        copy (:mod:`.sharding`)."""
         from .sharding import fsdp_state, replicate_state, shard_state
         use_rules = rules is not None and (
             mesh.shape[MODEL_AXIS] > 1 or mesh.shape[EXPERT_AXIS] > 1)

@@ -33,7 +33,7 @@ With ``heads_sharded`` (tensor parallelism) each model column runs its
 own ring over its heads, as JAX's ``shard_map`` with ``P(data, seq,
 model, None)`` does.  The multi-process transport (one rank per card over
 ``torch.distributed``, the hops as point-to-point sends) is later work
-(ROADMAP.md, section 1, item 6, slice 8d).
+(ROADMAP.md, section 1, item 6, 8e).
 """
 
 from __future__ import annotations

@@ -22,19 +22,31 @@ as the JAX package's slots follow their parameter's path;
 dicts between the shard names and the whole names, so a checkpoint holds
 whole arrays in the JAX layout.
 
-FSDP (:func:`fsdp_state`, ZeRO-3 over ``data``): the data axis is the
-sync trainer's worker processes, so each worker keeps its own slice of
-every large parameter (and of its optimizer slots and moving average)
-along the dimension JAX's :func:`fsdp_spec` picks, under the parameter's
-own name; :class:`FsdpExchange` all-gathers them whole for a step and
-reduce-scatters the gradients back (``parallel/sync.py``), and
-:func:`gather_fsdp_named` / :func:`split_fsdp_named` turn checkpoint
-trees between slices and whole arrays (the gather a collective: every
-worker calls it).
+**Data rows.**  A mesh with ``data > 1`` (the worker's local data
+positions) gives every data row its own copy of the model, placed on
+the row's positions as a one-row mesh would place it (``TrainState.rows``
+holds rows 1..n-1; ``state.model`` is row 0, the lead).  The sync step
+(``parallel/sync.py``) runs each row on its rows of the batch, takes the
+gradients' mean over the rows and then over the workers, applies the
+update once with the lead's optimizer and copies it into every other
+row (:func:`copy_rows`), so every row holds the same bits.
+
+FSDP (:func:`fsdp_state`, ZeRO-3 over ``data``): the data axis is
+``worker processes x local positions``; each position keeps its own
+slice of every large parameter (and of its optimizer slots and moving
+average) along the dimension JAX's :func:`fsdp_spec` picks, under the
+parameter's own name in its row's model; :class:`FsdpExchange` gathers
+them whole for a step (the local slices joined, then an all-gather over
+the workers) and reduce-scatters the gradients back (``parallel/
+sync.py``), and :func:`split_fsdp_named` / :meth:`FsdpExchange.
+gather_named` turn checkpoint trees between slices and whole arrays (the
+gather a collective: every worker calls it).  Checkpoints hold the
+unsharded tree: every data row is equal, so row 0's is written.
 """
 
 from __future__ import annotations
 
+import copy
 import dataclasses
 import math
 import re
@@ -288,13 +300,16 @@ def _slot_piece(v, shape, n: int, dim: int, j: int, device):
 
 
 def _rebuild_optimizer(state, slots: dict) -> None:
-    """A fresh optimizer over the model's (new) parameters, carrying the
-    old one's step count and its slots (``slots``: by the new names)."""
+    """A fresh optimizer over the state's (new) parameters
+    (:func:`state_params`), carrying the old one's step count and its
+    slots (``slots``: by the new names)."""
     old = state.optimizer
-    state.optimizer = old.spec.init(state.model.parameters())
+    named = state_params(state)
+    state.optimizer = old.spec.init(named.values())
     state.optimizer.count = old.count
-    for name, p in state.model.named_parameters():
-        if name in slots and p in set(state.optimizer.params):
+    held = set(state.optimizer.params)
+    for name, p in named.items():
+        if name in slots and p in held:
             state.optimizer.base.state[p] = slots[name]
 
 
@@ -317,14 +332,113 @@ def _move(state, home: torch.device) -> None:
                     state.ema_params[name] = state.ema_params[name].to(home)
 
 
+# ------------------------------------------------------------- data rows
+
+
+def row_models(state) -> list:
+    """Every local data row's model: the lead (``state.model``), then
+    ``state.rows``."""
+    return [state.model, *(getattr(state, "rows", None) or ())]
+
+
+def state_params(state) -> dict:
+    """``{name: parameter}`` that ``state``'s optimizer updates and its
+    checkpoint holds: the lead row's parameters and, under FSDP over
+    local positions, every other row's slices as ``<name>@<row>``."""
+    named = dict(state.model.named_parameters())
+    for r, model in enumerate(getattr(state, "rows", None) or (), start=1):
+        for name, p in model.named_parameters():
+            if getattr(p, "fsdp_info", None) is not None:
+                named[f"{name}@{r}"] = p
+    return named
+
+
+def pipeline_rows_error(n: int) -> NotImplementedError:
+    return NotImplementedError(
+        f"data={n} beside the pipeline in one process is not ported yet; "
+        "see ROADMAP.md, section 1, item 6, 8e")
+
+
+def _set_mesh(model: nn.Module, mesh: Mesh) -> None:
+    """The model's modules that hold a mesh (the GPT blocks' ``mesh``)
+    take ``mesh``."""
+    for module in model.modules():
+        if hasattr(module, "mesh"):
+            module.mesh = mesh
+
+
+def _place_rows(mesh: Mesh, state: Any, place) -> Any:
+    """``place(row_mesh, state)`` for every data row of ``mesh``.  Row 0
+    is ``state`` itself (the lead); every other row places a deep copy of
+    the model as it was before (a throwaway state carries it through
+    ``place``), and ``state.rows`` keeps those models,
+    ``state.row_devices`` each row's first device (where its rows of the
+    batch go) and ``state.row_slices`` the rows by DCN slice."""
+    n = mesh.shape[DATA_AXIS]
+    if n == 1:
+        return place(mesh, state)
+    if getattr(state, "rows", None):
+        raise ValueError("the state's data rows are placed already")
+    if hasattr(state.model, "stages"):
+        raise pipeline_rows_error(n)
+    from ..training.state import TrainState
+    template = copy.deepcopy(state.model)
+    place(mesh.row(0), state)
+    rows = []
+    for r in range(1, n):
+        model = template if r == n - 1 else copy.deepcopy(template)
+        row = TrainState(model=model,
+                         optimizer=state.optimizer.spec.init(
+                             model.parameters()),
+                         params_to_tree=state.params_to_tree,
+                         params_from_tree=state.params_from_tree)
+        place(mesh.row(r), row)
+        if isinstance(getattr(model, "device", None), torch.device):
+            # The model's own device: where its inputs go.
+            model.device = mesh.row(r).model_devices()[0]
+        rows.append(row.model)
+    state.rows = rows
+    state.row_devices = [mesh.row(r).model_devices()[0] for r in range(n)]
+    state.row_slices = mesh.row_slices()
+    return state
+
+
+@torch.no_grad()
+def copy_rows(state: Any) -> None:
+    """Every other data row takes the lead's parameters (each row keeps
+    its own FSDP slices) and buffers (BatchNorm's running statistics):
+    the update applied once, given to every row."""
+    rows = getattr(state, "rows", None)
+    if not rows:
+        return
+    lead = dict(state.model.named_parameters())
+    bufs = dict(state.model.named_buffers())
+    for model in rows:
+        dst, src = [], []
+        for name, p in model.named_parameters():
+            if getattr(p, "fsdp_info", None) is None:
+                dst.append(p)
+                src.append(lead[name].to(p.device))
+        for name, b in model.named_buffers():
+            dst.append(b)
+            src.append(bufs[name].to(b.device))
+        if dst:
+            torch._foreach_copy_(dst, src)
+
+
 def replicate_state(mesh: Mesh, state: Any) -> Any:
     """Every parameter one tensor on the mesh's first device, used by
-    every position: the data-parallel layout (the gradient sums over the
-    positions that read it, through autograd; over workers, the
-    all-reduce of :mod:`.sync`).  ``global_step`` and the rng stay as
-    they are."""
-    _move(state, mesh.model_devices()[0])
-    return state
+    every position of a data row: the data-parallel layout (the gradient
+    sums over the positions that read it, through autograd; over the data
+    rows and workers, the reductions of :mod:`.sync`).  With ``data >
+    1`` each row holds a copy on its own first device.  ``global_step``
+    and the rng stay as they are."""
+    def place(row_mesh, st):
+        _move(st, row_mesh.model_devices()[0])
+        if mesh.shape[DATA_AXIS] > 1:
+            _set_mesh(st.model, row_mesh)
+        return st
+    return _place_rows(mesh, state, place)
 
 
 def shard_state(mesh: Mesh, state: Any, rules: ShardingRules) -> Any:
@@ -335,16 +449,14 @@ def shard_state(mesh: Mesh, state: Any, rules: ShardingRules) -> Any:
     too).  A rule that cannot partition its parameter prints the JAX
     package's warning and leaves it replicated.  ``global_step`` and the
     rng stay replicated.  The model's modules that hold a mesh (the GPT
-    blocks' ``mesh``) take this one.  One process holds one data replica
-    here: a mesh with ``data > 1`` beside ``model > 1`` raises."""
+    blocks' ``mesh``) take this one.  With ``data > 1`` every data row
+    holds its own copy of its shards, on the row's positions."""
+    return _place_rows(mesh, state,
+                       lambda row_mesh, st: _shard_row(row_mesh, st, rules))
+
+
+def _shard_row(mesh: Mesh, state: Any, rules: ShardingRules) -> Any:
     from ..training.state import param_paths
-    n_model = mesh.shape[MODEL_AXIS]
-    if mesh.shape[DATA_AXIS] > 1 and n_model * mesh.shape[EXPERT_AXIS] > 1:
-        raise NotImplementedError(
-            f"data={mesh.shape[DATA_AXIS]} with model={n_model} or expert="
-            f"{mesh.shape[EXPERT_AXIS]} in one process is not ported yet "
-            "(the data axis is the worker processes); see ROADMAP.md, "
-            "section 1, item 6, slice 8d")
     model = state.model
     if is_sharded(model):
         raise ValueError("the state's parameters are sharded already")
@@ -390,9 +502,7 @@ def shard_state(mesh: Mesh, state: Any, rules: ShardingRules) -> Any:
                         n, dim=dim))):
                     state.ema_params[pre + sn] = piece.to(devices[j]).clone()
     _rebuild_optimizer(state, slots)
-    for module in model.modules():
-        if hasattr(module, "mesh"):
-            module.mesh = mesh
+    _set_mesh(model, mesh)
     return state
 
 
@@ -470,15 +580,23 @@ class FsdpRules(ShardingRules):
 
 @dataclasses.dataclass(frozen=True)
 class FsdpInfo:
-    """One parameter's FSDP split: this worker holds piece ``rank`` of
+    """One parameter's FSDP split: this position holds piece ``rank`` of
     ``world`` along ``dim`` of the ``shape`` (the parameter whole, or its
-    tensor-parallel shard whole), by the composed ``spec``."""
+    tensor-parallel shard whole), by the composed ``spec``.  ``world`` is
+    the whole data axis, ``workers x local``, and ``rank`` the position's
+    index on it (worker-major: a worker's ``local`` positions hold
+    consecutive pieces)."""
 
     dim: int
     world: int
     rank: int
     shape: tuple
     spec: P
+    local: int = 1
+
+    @property
+    def workers(self) -> int:
+        return self.world // self.local
 
 
 def _fsdp_infos(module: nn.Module) -> dict:
@@ -517,46 +635,49 @@ def fsdp_state(mesh: Mesh, state: Any, rules: ShardingRules | None = None,
                *, min_size: int = 2 ** 16) -> Any:
     """ZeRO-3/FSDP placement, IN PLACE: each parameter that
     :class:`FsdpRules` (the tensor-parallel ``rules`` first, then the
-    largest free dim divisible by the workers, at least ``min_size``
-    elements) shards over ``data`` keeps only this worker's slice, under
-    its own name (recorded in its module's ``fsdp_shards``; the slice
-    carries it as ``fsdp_info`` for the global norm,
-    ``training/optimizers.global_norm``, and the optimizer's whole-leaf
-    rules), and so do its optimizer slots
-    (the optimizer is rebuilt over the slices) and its moving average.
-    ``global_step`` and the rng stay replicated.
+    largest free dim divisible by the data axis, at least ``min_size``
+    elements) shards over ``data`` keeps only each position's slice, under
+    its own name in the position's row model (recorded in its module's
+    ``fsdp_shards``; the slice carries it as ``fsdp_info`` for the global
+    norm, ``training/optimizers.global_norm``, and the optimizer's
+    whole-leaf rules), and so do its optimizer slots (the lead's
+    optimizer is rebuilt over every row's slices, :func:`state_params`)
+    and its moving average.  ``global_step`` and the rng stay replicated.
 
-    ``data`` is the sync trainer's process group (the default group):
-    its size is the JAX run's global data axis, so each worker's
-    slice has the shape of JAX's ``addressable_shards[0]`` on a
-    ``data=N`` mesh.  Without a group of two or more the state stays
-    replicated, as a JAX mesh with ``data=1``.  ``rules`` with a
+    The data axis is ``workers x local positions``: the sync trainer's
+    process group (the default group) times ``mesh``'s ``data`` rows, so
+    each position's slice has the shape of JAX's ``addressable_shards``
+    on a mesh with that data axis.  With a data axis of one the state
+    stays replicated, as a JAX mesh with ``data=1``.  ``rules`` with a
     non-trivial ``model`` axis first split the state over the mesh's
     positions (:func:`shard_state`); a tensor-parallel shard is then
     split over the workers along the dim the composed spec gives
-    ``data`` (JAX's ``P("data", "model")``)."""
+    ``data`` (JAX's ``P("data", "model")``), one local data row a worker
+    there."""
     import torch.distributed as dist
-    if mesh.shape[DATA_AXIS] > 1:
+    n = mesh.shape[DATA_AXIS]
+    tp = rules is not None and mesh.shape[MODEL_AXIS] > 1
+    if tp and n > 1:
         raise NotImplementedError(
-            f"data={mesh.shape[DATA_AXIS]} in one process is not ported "
-            "yet (the data axis is the worker processes); see ROADMAP.md, "
-            "section 1, item 6, slice 8d")
-    if rules is not None and mesh.shape[MODEL_AXIS] > 1:
+            f"FSDP over {n} local data positions beside tensor parallelism "
+            "is not ported yet; see ROADMAP.md, section 1, item 6, 8e")
+    if tp:
         shard_state(mesh, state, rules)
     else:
         replicate_state(mesh, state)
-    world = (dist.get_world_size()
-             if dist.is_available() and dist.is_initialized() else 1)
+    workers = (dist.get_world_size()
+               if dist.is_available() and dist.is_initialized() else 1)
+    world = workers * n
     if world < 2:
         return state
     if is_fsdp(state.model):
         raise ValueError("the state's parameters are FSDP-sharded already")
     from ..training.state import param_paths
-    rank = dist.get_rank()
-    model = state.model
+    rank = dist.get_rank() * n if workers > 1 else 0
+    models = row_models(state)
     fsdp = FsdpRules(rules, world, min_size=min_size)
-    named = dict(model.named_parameters())
-    wholes = _whole_shapes(model)
+    named = dict(state.model.named_parameters())
+    wholes = _whole_shapes(state.model)
     paths = param_paths({w for w, _ in wholes.values()},
                         state.params_to_tree)
     slots = _named_slots(state)
@@ -568,65 +689,98 @@ def fsdp_state(mesh: Mesh, state: Any, rules: ShardingRules | None = None,
             dim = _data_dim(spec)
             if dim is None:
                 continue
-            module, attr = _owner(model, name)
-            piece = nn.Parameter(p.chunk(world, dim=dim)[rank].clone(),
-                                 requires_grad=p.requires_grad)
-            info = FsdpInfo(dim, world, rank, tuple(p.shape), spec)
-            piece.fsdp_info = info
-            if hasattr(p, "tp_split"):
-                piece.tp_split = p.tp_split
-            module._parameters[attr] = piece
-            module.__dict__.setdefault("fsdp_shards", {})[attr] = info
-            if name in slots:
-                slots[name] = {k: _slot_piece(v, p.shape, world, dim, rank,
-                                              p.device)
-                               for k, v in slots[name].items()}
-            if state.ema_params is not None:
-                state.ema_params[name] = state.ema_params[name].chunk(
-                    world, dim=dim)[rank].clone()
+            whole_slots = slots.pop(name, None)
+            ema = (state.ema_params.pop(name)
+                   if state.ema_params is not None else None)
+            # The local slices of one leaf: one leaf to the optimizer.
+            key = object()
+            for r, model in enumerate(models):
+                q = model.get_parameter(name)
+                module, attr = _owner(model, name)
+                pos = rank + r
+                piece = nn.Parameter(q.chunk(world, dim=dim)[pos].clone(),
+                                     requires_grad=q.requires_grad)
+                info = FsdpInfo(dim, world, pos, tuple(q.shape), spec, n)
+                piece.fsdp_info = info
+                if n > 1:
+                    piece.fsdp_local = (key, r)
+                if hasattr(q, "tp_split"):
+                    piece.tp_split = q.tp_split
+                module._parameters[attr] = piece
+                module.__dict__.setdefault("fsdp_shards", {})[attr] = info
+                label = row_name(name, r)
+                if whole_slots is not None:
+                    slots[label] = {k: _slot_piece(v, p.shape, world, dim,
+                                                   pos, q.device)
+                                    for k, v in whole_slots.items()}
+                if ema is not None:
+                    state.ema_params[label] = ema.chunk(
+                        world, dim=dim)[pos].to(q.device).clone()
     _rebuild_optimizer(state, slots)
     return state
 
 
-def fsdp_whole(piece: torch.Tensor, info: FsdpInfo) -> torch.Tensor:
-    """The whole tensor of this worker's ``piece`` of a leaf split by
-    ``info`` (an all-gather over the default process group: every worker
-    calls it).  The pieces travel in fp32 (gloo's collectives and the
-    sums are fp32) and the whole comes back in ``piece``'s dtype."""
+def row_name(name: str, r: int) -> str:
+    """The :func:`state_params` name of row ``r``'s slice of ``name``."""
+    return name if r == 0 else f"{name}@{r}"
+
+
+def fsdp_whole(pieces: Sequence[torch.Tensor],
+               info: FsdpInfo) -> torch.Tensor:
+    """The whole tensor of one worker's local ``pieces`` (its positions'
+    slices in row order) of a leaf split by ``info``: the pieces joined
+    on the first one's device, then, with several workers, an all-gather
+    over the default process group (every worker calls it).  The
+    pieces travel in fp32 (gloo's collectives and the sums are fp32)
+    and the whole comes back in the pieces' dtype."""
     import torch.distributed as dist
-    src = piece.detach().to(torch.float32).contiguous()
-    stage = torch.empty((info.world * src.shape[0], *src.shape[1:]),
+    if torch.is_tensor(pieces):
+        pieces = [pieces]
+    home = pieces[0].device
+    chunk = (pieces[0] if len(pieces) == 1 else torch.cat(
+        [t.detach().to(home) for t in pieces], dim=info.dim))
+    if info.workers == 1:
+        return chunk.detach().clone() if len(pieces) == 1 else chunk
+    src = chunk.detach().to(torch.float32)
+    if info.dim != 0 or not src.is_contiguous():
+        # gloo takes the input and output as pieces stacked along dim 0.
+        src = src.contiguous()
+    stage = torch.empty((info.workers * src.shape[0], *src.shape[1:]),
                         dtype=src.dtype, device=src.device)
     dist.all_gather_into_tensor(stage, src)
     if info.dim == 0:
         whole = stage
     else:
-        # gloo takes the output as the pieces stacked along dim 0.
-        whole = torch.cat(stage.chunk(info.world), dim=info.dim)
+        whole = torch.cat(stage.chunk(info.workers), dim=info.dim)
         del stage
-    return whole.to(piece.dtype)
+    return whole.to(pieces[0].dtype)
 
 
 class FsdpExchange:
-    """The FSDP step's collectives over the workers (the default process
-    group), one a split parameter: :meth:`gather` all-gathers each slice
-    into a whole tensor of its own and swaps it in (as a leaf parameter
-    the step's backward fills); :meth:`scatter` swaps the slices back and
-    reduce-scatters each whole gradient, as the mean over the workers,
-    into its slice's ``.grad``, releasing each whole gradient as it goes.
-    A leaf split along dim 0 is gathered straight into its whole tensor
-    and reduce-scattered straight from its gradient; along another dim it
-    passes through a staging buffer of its own size (the pieces
-    rank-major).  ``gather_s`` / ``scatter_s`` and ``calls`` accumulate
-    each pass's time (the device work waited for before and after it,
-    the staging copies included), as ``parallel/sync.GradientAllReduce``
-    times its own."""
+    """The FSDP step's collectives over the data axis, one a split
+    parameter, for the row models ``models`` (a state's
+    :func:`row_models`, or one model): :meth:`gather` joins each
+    parameter's local slices and all-gathers them over the workers into a
+    whole tensor, and swaps it in (as a leaf parameter the step's
+    backward fills; the rows on one device share it, so their gradients
+    add up in one tensor); :meth:`scatter` swaps the slices back, sums
+    each whole gradient over the devices that hold one, reduce-scatters
+    it over the workers and gives each row's slice its piece, as the mean
+    over the data axis, releasing each whole gradient as it goes.  A
+    leaf split along dim 0 is gathered straight into its whole tensor
+    and reduce-scattered straight from its gradient; along another dim
+    it passes through a staging buffer of its own size (the pieces
+    worker-major).  ``gather_s`` / ``scatter_s`` and ``calls``
+    accumulate each pass's time (the device work waited for before and
+    after it, the staging copies included), as ``parallel/sync.
+    GradientAllReduce`` times its own."""
 
-    def __init__(self, model: nn.Module):
+    def __init__(self, models):
         import torch.distributed as dist
         self._dist = dist
-        self.entries = fsdp_entries(model)
-        self.world = self.entries[0][3].world if self.entries else 1
+        models = [models] if isinstance(models, nn.Module) else list(models)
+        self.rows = [fsdp_entries(m) for m in models]
+        self.entries = self.rows[0]
         self.gather_s = self.scatter_s = 0.0
         self.calls = 0
         self._held = None
@@ -635,105 +789,149 @@ class FsdpExchange:
         if t.is_cuda:
             torch.cuda.synchronize(t.device)
 
+    def _slices(self, i: int) -> list:
+        """Entry ``i``'s slice in every row (row order)."""
+        return [row[i][1]._parameters[row[i][2]] for row in self.rows]
+
     def _gather_all(self, pieces: list, entries=None) -> list:
         import time
         if not pieces:
             return []
-        self._sync(pieces[0])
+        self._sync(pieces[0][0])
         t0 = time.perf_counter()
         wholes = [fsdp_whole(p, info) for p, (_, _, _, info) in zip(
             pieces, self.entries if entries is None else entries)]
-        self._sync(pieces[0])
+        self._sync(pieces[0][0])
         self.gather_s += time.perf_counter() - t0
         return wholes
 
     def gather(self) -> None:
-        slices = [m._parameters[a] for _, m, a, _ in self.entries]
-        wholes = self._gather_all(slices)
-        for (_, module, attr, _), s, w in zip(self.entries, slices, wholes):
-            module._parameters[attr] = nn.Parameter(
-                w, requires_grad=s.requires_grad)
-        self._held = slices
+        held = [self._slices(i) for i in range(len(self.entries))]
+        wholes = self._gather_all(held)
+        for i, (w, slices) in enumerate(zip(wholes, held)):
+            by_device: dict = {}
+            for row, s in zip(self.rows, slices):
+                _, module, attr, _ = row[i]
+                if s.device not in by_device:
+                    by_device[s.device] = nn.Parameter(
+                        w.to(s.device), requires_grad=s.requires_grad)
+                module._parameters[attr] = by_device[s.device]
+        self._held = held
 
     def _release(self) -> list:
-        """The slices swapped back into their modules; returns the whole
-        parameters the step ran with (their only reference)."""
-        slices, self._held = self._held, None
-        if slices is None:
+        """The slices swapped back into their modules; returns, a split
+        parameter, the whole parameters the step ran with (one a device
+        that held one, their only references)."""
+        held, self._held = self._held, None
+        if held is None:
             return []
         wholes = []
-        for (_, module, attr, _), s in zip(self.entries, slices):
-            wholes.append(module._parameters[attr])
-            module._parameters[attr] = s
+        for i, slices in enumerate(held):
+            seen = []
+            for row, s in zip(self.rows, slices):
+                _, module, attr, _ = row[i]
+                w = module._parameters[attr]
+                if not any(w is x for x in seen):
+                    seen.append(w)
+                module._parameters[attr] = s
+            wholes.append(seen)
         return wholes
 
     def scatter(self, scale: float = 1.0) -> None:
         """Each slice's ``.grad``: its piece of the whole gradient, summed
-        over the workers, times ``scale``; the slices swapped back."""
+        over the data axis, times ``scale``; the slices swapped back."""
         import time
-        slices = self._held
+        held = self._held
         wholes = self._release()
         if not wholes:
             return
-        self._sync(slices[0])
+        self._sync(held[0][0])
         t0 = time.perf_counter()
-        for i, (s, (_, _, _, info)) in enumerate(zip(slices, self.entries)):
-            w, wholes[i] = wholes[i], None
-            g = w.grad if w.grad is not None else torch.zeros_like(w)
-            w.grad = None
-            del w
-            g = g.detach().to(torch.float32)
-            if info.dim == 0:
+        for i, (slices, (_, _, _, info)) in enumerate(zip(held,
+                                                          self.entries)):
+            ws, wholes[i] = wholes[i], None
+            home = slices[0].device
+            g = None
+            for w in ws:
+                x = (w.grad if w.grad is not None
+                     else torch.zeros_like(w)).detach().to(home,
+                                                           torch.float32)
+                g = x if g is None else g.add_(x)
+                w.grad = None
+            del ws
+            if info.workers > 1:
+                if info.dim != 0:
+                    g = torch.cat(g.chunk(info.workers, dim=info.dim))
                 g = g.contiguous()
-            else:
-                g = torch.cat(g.chunk(self.world, dim=info.dim))
-            out = torch.empty(s.shape, dtype=torch.float32, device=g.device)
-            self._dist.reduce_scatter_tensor(out, g)
-            del g
+                shape = list(slices[0].shape)
+                shape[info.dim] *= info.local
+                out = torch.empty(shape, dtype=torch.float32, device=home)
+                self._dist.reduce_scatter_tensor(out, g)
+                g = out
             if scale != 1.0:
-                out.mul_(scale)
-            s.grad = out.to(s.device, s.dtype)
-        self._sync(slices[0])
+                g = g.mul_(scale)
+            for s, part in zip(slices, g.chunk(info.local, dim=info.dim)):
+                s.grad = torch.empty_like(s).copy_(part)
+            del g
+        self._sync(held[0][0])
         self.scatter_s += time.perf_counter() - t0
         self.calls += 1
 
     def gather_named(self, named: dict) -> dict:
         """``{name: tensor}`` (parameters, slots or a moving average by
-        parameter name) with every split entry's slice replaced by the
-        whole tensor: a collective, every worker calls it.  A tensor of
-        another shape than its slice (a slot its parameter's spec cannot
-        partition, as adafactor's factored ``v_row``) is held whole by
-        every worker and stays as it is."""
+        :func:`state_params` name) with every split entry's slices (the
+        lead's under its name, row ``r``'s as ``<name>@<r>``) replaced by
+        the whole tensor under its name: a collective, every worker calls
+        it.  A tensor of another shape than its slice (a slot its
+        parameter's spec cannot partition, as adafactor's factored
+        ``v_row``) is held whole by every position and stays as it is."""
         out = dict(named)
-        if any(e[0] not in out for e in self.entries):
-            raise ValueError("gather_named needs every split parameter")
-        split = [e for e in self.entries
-                 if out[e[0]].shape == e[1]._parameters[e[2]].shape]
-        for (name, *_), whole in zip(split, self._gather_all(
-                [out[e[0]] for e in split], split)):
+        split, pieces = [], []
+        for name, module, attr, info in self.entries:
+            labels = [row_name(name, r) for r in range(len(self.rows))]
+            if any(label not in out for label in labels):
+                raise ValueError("gather_named needs every split parameter")
+            got = [out.pop(label) for label in labels]
+            out[name] = got[0]
+            if got[0].shape == module._parameters[attr].shape:
+                split.append((name, module, attr, info))
+                pieces.append(got)
+        for (name, *_), whole in zip(split, self._gather_all(pieces, split)):
             out[name] = whole
         return out
 
 
 def split_fsdp_named(model: nn.Module, named: dict) -> dict:
-    """Inverse of :meth:`FsdpExchange.gather_named`: each split entry's
-    whole tensor cut to this worker's slice (no collective); a tensor of
-    another shape than the whole stays as it is."""
+    """Inverse of :meth:`FsdpExchange.gather_named` for the lead row
+    ``model``: each split entry's whole tensor cut to this worker's
+    positions' slices (the lead's under its name, row ``r``'s as
+    ``<name>@<r>``; no collective); a tensor of another shape than the
+    whole goes to every row as it is."""
     out = dict(named)
     for name, _, _, info in fsdp_entries(model):
-        if name in out and tuple(out[name].shape) == tuple(info.shape):
-            out[name] = out[name].chunk(info.world, dim=info.dim)[info.rank]
+        if name not in out:
+            continue
+        t = out[name]
+        whole = tuple(t.shape) == tuple(info.shape)
+        pieces = t.chunk(info.world, dim=info.dim) if whole else None
+        for r in range(info.local):
+            out[row_name(name, r)] = (pieces[info.rank + r] if whole
+                                      else t)
     return out
 
 
 class fsdp_gathered:
-    """``with fsdp_gathered(model):`` the split parameters whole for the
-    block (evaluation, a digest), the slices back after it; a collective
-    on entry, every worker enters it.  A no-op for a model without
-    FSDP splits."""
+    """``with fsdp_gathered(state):`` the split parameters whole for the
+    block (evaluation, a digest; ``state`` a TrainState, its data rows
+    with it, or one model), the slices back after it; a collective on
+    entry, every worker enters it.  A no-op for a model without FSDP
+    splits."""
 
-    def __init__(self, model: nn.Module):
-        self.exchange = FsdpExchange(model) if is_fsdp(model) else None
+    def __init__(self, state):
+        models = (row_models(state) if hasattr(state, "optimizer")
+                  else [state])
+        self.exchange = (FsdpExchange(models) if is_fsdp(models[0])
+                         else None)
 
     def __enter__(self):
         if self.exchange is not None:

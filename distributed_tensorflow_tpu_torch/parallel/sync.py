@@ -27,6 +27,21 @@ the order of the sums.  Without a process group a worker trains on the
 whole batch alone (the JAX multi-process tests' single-controller
 workers).
 
+**Local data rows.**  A worker whose mesh has ``data > 1`` holds one
+copy of the model a row (``TrainState.rows``, ``parallel/sharding.py``)
+and splits its batch over them as JAX's ``P("data")`` splits it (row
+``r`` takes the ``r``-th of ``n`` equal parts, on its own device; the
+feed may hand the parts over already placed, :class:`RowBatches`).
+Each row runs forward and backward on its part; the gradients' mean is
+taken first over the rows (in process, within each DCN slice and then
+across the slices, :meth:`..parallel.mesh.Mesh.row_slices`), then over
+the workers (:class:`GradientAllReduce`, hierarchical with DCN slice
+groups); the lead row's optimizer applies it once and every other row
+takes the update (``sharding.copy_rows``), so the rows stay bit-equal.
+A stateful step (BatchNorm) runs the worker's rows through the lead in
+one forward, so each BatchNorm's statistics span every position's rows
+(and, through the all-reduce, every worker's).
+
 A model sharded over a single-process mesh (``attention_backend="ring"``
 or ``"ulysses"``, tensor parallelism by ``parallel/sharding.shard_state``)
 needs no all-reduce of its own: a replicated weight is one tensor, and
@@ -61,6 +76,7 @@ import torch
 
 from ..training.optimizers import global_norm
 from ..training.state import TrainState
+from .sharding import copy_rows, row_models
 
 # loss_fn signature: (model, batch) -> (scalar_loss, aux_metrics_dict);
 # rng-aware variants (needs_rng=True) take (model, batch, rng) instead.
@@ -77,10 +93,14 @@ class GradientAllReduce:
     starts, so each time is the collective's own, the wait for the
     slowest rank included."""
 
-    def __init__(self, group=None):
+    def __init__(self, group=None, slice_groups: tuple | None = None):
         import torch.distributed as dist
         self._dist = dist
         self.group = group
+        # ``(within, across)``: with ``--dcn_data_parallel`` the sum runs
+        # within this worker's DCN slice first, then across the slices
+        # (``cluster/server.py`` forms the groups).
+        self.slice_groups = slice_groups
         self.world_size = dist.get_world_size(group)
         self.first_seconds: float | None = None
         self.seconds = 0.0
@@ -99,7 +119,11 @@ class GradientAllReduce:
         if flat.is_cuda:
             torch.cuda.synchronize(flat.device)
         t0 = time.perf_counter()
-        self._dist.all_reduce(flat, group=self.group)
+        if self.slice_groups is None:
+            self._dist.all_reduce(flat, group=self.group)
+        else:
+            for group in self.slice_groups:
+                self._dist.all_reduce(flat, group=group)
         if flat.is_cuda:
             torch.cuda.synchronize(flat.device)
         if self.first_seconds is None:
@@ -115,13 +139,123 @@ class GradientAllReduce:
                 offset += n
 
 
+class RowBatches(list):
+    """A batch already split into a worker's data rows' parts, part ``r``
+    on row ``r``'s device (the feed's form: ``training/loop.to_device``
+    with several devices)."""
+
+
+def _place(batch: Any, device) -> Any:
+    def put(t):
+        return (t.to(device, non_blocking=True) if torch.is_tensor(t)
+                else t)
+    if isinstance(batch, dict):
+        return {k: put(v) for k, v in batch.items()}
+    if isinstance(batch, (tuple, list)):
+        return type(batch)(put(v) for v in batch)
+    return put(batch)
+
+
+def row_parts(state: TrainState, batch: Any) -> list:
+    """``[(model, part)]`` a data row: the batch split over the rows (its
+    first dim, as ``P("data")``), each part on its row's device."""
+    models = row_models(state)
+    if len(models) == 1:
+        return [(state.model, batch)]
+    if isinstance(batch, RowBatches):
+        parts = list(batch)
+    else:
+        n = len(models)
+        parts = [_place(_split(batch, n, r), state.row_devices[r])
+                 for r in range(n)]
+    return list(zip(models, parts))
+
+
+def _whole_batch(state: TrainState, batch: Any) -> Any:
+    """The worker's rows as one batch on the lead's device."""
+    if not isinstance(batch, RowBatches):
+        return batch
+    home = state.row_devices[0]
+    parts = [_place(b, home) for b in batch]
+    first = parts[0]
+    if isinstance(first, dict):
+        return {k: torch.cat([b[k] for b in parts]) for k in first}
+    if isinstance(first, (tuple, list)):
+        return type(first)(torch.cat(xs) for xs in zip(*parts))
+    return torch.cat(parts)
+
+
+def _row_slices(state: TrainState) -> list:
+    return getattr(state, "row_slices", None) or [
+        list(range(1 + len(state.rows or ())))]
+
+
+def _sum_rows_(values: list, slices: list) -> None:
+    """In place: ``values[0]`` (a list of tensors, the lead row's) becomes
+    the sum of every row's list, within each DCN slice first (rows in
+    order), then across the slices."""
+    def add_(dst, src):
+        torch._foreach_add_(dst, [t.to(d.device) for t, d in zip(src, dst)])
+    heads = []
+    for group in slices:
+        head = values[group[0]]
+        for r in group[1:]:
+            add_(head, values[r])
+        heads.append(head)
+    for head in heads[1:]:
+        add_(heads[0], head)
+
+
+def _reduce_rows(state: TrainState, skip=frozenset()) -> None:
+    """The lead's gradients become the sum of every data row's (the rows'
+    own released); ``skip``: parameters reduced already (FSDP's slices)."""
+    if not state.rows:
+        return
+    rows = [dict(m.named_parameters()) for m in state.rows]
+    names, grads = [], [[] for _ in range(1 + len(rows))]
+    for name, p in state.model.named_parameters():
+        if p in skip or not p.requires_grad:
+            continue
+        names.append(name)
+        for r, q in enumerate([p] + [row[name] for row in rows]):
+            if q.grad is None:
+                q.grad = torch.zeros_like(q)
+            grads[r].append(q.grad)
+    if names:
+        _sum_rows_(grads, _row_slices(state))
+    for row in rows:
+        for name in names:
+            row[name].grad = None
+
+
+def _mean_over_rows(state: TrainState, losses: list, auxes: list
+                    ) -> tuple[torch.Tensor, dict]:
+    """The rows' losses and tensor aux metrics summed (the slice order of
+    the gradients; the caller scales), the other aux values row 0's."""
+    keys = [k for k, v in auxes[0].items() if torch.is_tensor(v)]
+    # fp32, or float64 where the loss is (a float64 model's).
+    dtype = torch.promote_types(losses[0].dtype, torch.float32)
+    values = [[l.to(dtype).reshape(1)] + [a[k].detach().to(dtype).reshape(1)
+                                          for k in keys]
+              for l, a in zip(losses, auxes)]
+    if len(values) > 1:
+        _sum_rows_(values, _row_slices(state))
+    loss = values[0][0].reshape(())
+    aux = dict(auxes[0])
+    aux.update({k: v.reshape(()) for k, v in zip(keys, values[0][1:])})
+    return loss, aux
+
+
 def _reduce_step(state: TrainState, loss: torch.Tensor, aux: dict,
                  reduce: GradientAllReduce | None, scale: float,
-                 skip=frozenset()) -> tuple[torch.Tensor, dict]:
-    """Sum the gradients, the loss and the tensor aux metrics across the
-    ranks and multiply them by ``scale`` (1 / the number of terms).
-    ``skip``: parameters whose gradients are reduced already (FSDP's
-    slices, reduce-scattered)."""
+                 skip=frozenset(), rows: bool = True
+                 ) -> tuple[torch.Tensor, dict]:
+    """Sum the gradients (over the data rows, with ``rows``, then), the
+    loss and the tensor aux metrics across the ranks and multiply them by
+    ``scale`` (1 / the number of terms).  ``skip``: parameters whose
+    gradients are reduced already (FSDP's slices, reduce-scattered)."""
+    if rows:
+        _reduce_rows(state, skip)
     params = [p for p in state.optimizer.params if p not in skip]
     for p in params:
         # Every rank reduces the same buffer layout: a parameter this
@@ -151,6 +285,7 @@ def _finish(state: TrainState, loss, aux, ema_decay: float,
         # over the workers there).
         metrics["grad_norm"] = global_norm(state.optimizer.params)
     state.apply_gradients()
+    copy_rows(state)
     if ema_decay > 0.0:
         _ema_update(ema_decay, state)
     metrics["global_step"] = state.global_step
@@ -168,58 +303,87 @@ class FsdpStep:
     (``training/optimizers.global_norm``).  Built once per model
     (``for_state``)."""
 
-    def __init__(self, model):
-        from .sharding import FsdpExchange
-        self.model = model
-        self.exchange = FsdpExchange(model)
-        self.slices = frozenset(m._parameters[a]
-                                for _, m, a, _ in self.exchange.entries)
+    def __init__(self, state):
+        from .sharding import FsdpExchange, row_models
+        self.model = state.model
+        self.exchange = FsdpExchange(row_models(state))
+        self.slices = frozenset(m._parameters[a] for row in
+                                self.exchange.rows for _, m, a, _ in row)
 
     @classmethod
     def for_state(cls, state, cache: dict, reduce):
-        from .sharding import is_fsdp
+        from .sharding import fsdp_entries, is_fsdp
         if not isinstance(state, TrainState) or not is_fsdp(state.model):
             return None
-        if reduce is None:
+        if reduce is None and fsdp_entries(state.model)[0][3].workers > 1:
             raise ValueError("an FSDP state's step needs all_reduce (a "
                              "GradientAllReduce over the workers' group)")
         held = cache.get("fsdp")
         if held is None or held.model is not state.model:
-            held = cache["fsdp"] = cls(state.model)
+            held = cache["fsdp"] = cls(state)
         return held
 
 
+def _terms(state: TrainState, reduce: GradientAllReduce | None) -> int:
+    """The data axis's positions: the worker's rows times the workers."""
+    return ((1 + len(state.rows or ()))
+            * (reduce.world_size if reduce is not None else 1))
+
+
+def _zero_rows(state: TrainState) -> None:
+    state.optimizer.zero_grad()
+    for model in state.rows or ():
+        model.zero_grad(set_to_none=True)
+
+
+def _train(state: TrainState) -> None:
+    for model in row_models(state):
+        model.train()
+
+
 def _one_update(loss_fn: LossFn, needs_rng: bool, ema_decay: float,
-                log_grad_norm: bool, reduce: GradientAllReduce | None):
+                log_grad_norm: bool, reduce: GradientAllReduce | None,
+                whole_batch: bool = False):
     """Per-batch gradient (mean across ranks) and optimizer update, shared
     by the plain and scanned builders.  An FSDP state (its parameters
-    split over the workers) runs its gather and reduce-scatter around the
-    forward and backward (:class:`FsdpStep`)."""
-    scale = 1.0 / reduce.world_size if reduce is not None else 1.0
+    split over the data axis) runs its gather and reduce-scatter around
+    the forward and backward (:class:`FsdpStep`).  ``whole_batch``: the
+    worker's data rows run through the lead in one forward (the stateful
+    steps)."""
     cache: dict = {}
 
     def update(state: TrainState, batch: Any):
-        model = state.model
-        model.train()
-        state.optimizer.zero_grad()
+        if whole_batch:
+            scale = 1.0 / (reduce.world_size if reduce is not None else 1)
+            parts = [(state.model, _whole_batch(state, batch))]
+        else:
+            scale = 1.0 / _terms(state, reduce)
+            parts = row_parts(state, batch)
+        _train(state)
+        _zero_rows(state)
         fsdp = FsdpStep.for_state(state, cache, reduce)
         if fsdp is not None:
             fsdp.exchange.gather()
+        losses, auxes = [], []
         try:
-            if needs_rng:
-                loss, aux = loss_fn(model, batch, state.rng)
-            else:
-                loss, aux = loss_fn(model, batch)
-            loss.backward()
-            # The graph goes (and with it the hold on FSDP's whole
-            # parameters) before the gradients are reduce-scattered.
-            loss = loss.detach()
+            for model, part in parts:
+                if needs_rng:
+                    loss, aux = loss_fn(model, part, state.rng)
+                else:
+                    loss, aux = loss_fn(model, part)
+                loss.backward()
+                # The graph goes (and with it the hold on FSDP's whole
+                # parameters) before the gradients are reduce-scattered.
+                losses.append(loss.detach())
+                auxes.append(aux)
         finally:
             if fsdp is not None:
                 fsdp.exchange.scatter(scale)
-        if reduce is not None:
+        loss, aux = _mean_over_rows(state, losses, auxes)
+        if reduce is not None or state.rows:
             loss, aux = _reduce_step(state, loss, aux, reduce, scale,
-                                     fsdp.slices if fsdp else frozenset())
+                                     fsdp.slices if fsdp else frozenset(),
+                                     rows=not whole_batch)
         return state, _finish(state, loss, aux, ema_decay, log_grad_norm)
 
     # ``update.cache["fsdp"]``: an FSDP state's FsdpStep (its exchange's
@@ -287,7 +451,8 @@ def build_stateful_sync_train_step(stateful_loss_fn: Callable, *,
     ranks, one optimizer step; no rng, moving average or gradient norm
     (the JAX stateful step has none)."""
     return _one_update(lambda model, batch: stateful_loss_fn(
-        model, batch, all_reduce), False, 0.0, False, all_reduce)
+        model, batch, all_reduce), False, 0.0, False, all_reduce,
+        whole_batch=True)
 
 
 def build_scanned_stateful_sync_train_step(stateful_loss_fn: Callable, *,
@@ -326,34 +491,38 @@ def build_accumulating_sync_train_step(
     are microbatch means."""
     if accum_steps < 1:
         raise ValueError(f"accum_steps must be >= 1, got {accum_steps}")
-    world = all_reduce.world_size if all_reduce is not None else 1
-    scale = 1.0 / (accum_steps * world)
     cache: dict = {}
 
     def step(state: TrainState, batches: Any):
-        model = state.model
-        model.train()
-        state.optimizer.zero_grad()
-        loss_sum = None
-        aux_sum: dict = {}
+        scale = 1.0 / (accum_steps * _terms(state, all_reduce))
+        _train(state)
+        _zero_rows(state)
+        losses, auxes = [], []
         fsdp = FsdpStep.for_state(state, cache, all_reduce)
         if fsdp is not None:
             fsdp.exchange.gather()
         for i in range(accum_steps):
-            batch = _index(batches, i)
-            if needs_rng:
-                loss, aux = loss_fn(model, batch, state.rng)
-            else:
-                loss, aux = loss_fn(model, batch)
-            loss.backward()
-            loss = loss.detach()
-            loss_sum = loss if loss_sum is None else loss_sum + loss
-            for k, v in aux.items():
-                v = v.detach() if torch.is_tensor(v) else v
-                aux_sum[k] = v if k not in aux_sum else aux_sum[k] + v
+            for r, (model, batch) in enumerate(
+                    row_parts(state, _index(batches, i))):
+                if needs_rng:
+                    loss, aux = loss_fn(model, batch, state.rng)
+                else:
+                    loss, aux = loss_fn(model, batch)
+                loss.backward()
+                loss = loss.detach()
+                aux = {k: v.detach() if torch.is_tensor(v) else v
+                       for k, v in aux.items()}
+                if i == 0:
+                    losses.append(loss)
+                    auxes.append(aux)
+                    continue
+                losses[r] = losses[r] + loss
+                auxes[r] = {k: v + aux[k] if torch.is_tensor(v) else v
+                            for k, v in auxes[r].items()}
         if fsdp is not None:
             fsdp.exchange.scatter(scale)
-        loss, aux = _reduce_step(state, loss_sum, aux_sum, all_reduce,
+        loss, aux = _mean_over_rows(state, losses, auxes)
+        loss, aux = _reduce_step(state, loss, aux, all_reduce,
                                  scale, fsdp.slices if fsdp else frozenset())
         return state, _finish(state, loss, aux, ema_decay, log_grad_norm)
 
@@ -373,6 +542,8 @@ def stack_microbatches(batches: Sequence[Any]) -> Any:
 
 def _index(batch: Any, i: int) -> Any:
     """Microbatch ``i`` of a stacked batch."""
+    if isinstance(batch, RowBatches):
+        return RowBatches(_index(b, i) for b in batch)
     if isinstance(batch, dict):
         return {k: v[i] for k, v in batch.items()}
     if isinstance(batch, (tuple, list)):
@@ -380,15 +551,17 @@ def _index(batch: Any, i: int) -> Any:
     return batch[i]
 
 
-def _split(batch: Any, n: int, i: int) -> Any:
-    """Shard ``i`` of ``n`` equal shards along the batch dim."""
+def _split(batch: Any, n: int, i: int, dim: int = 0) -> Any:
+    """Shard ``i`` of ``n`` equal shards along the batch dim (``dim``: 1
+    for a stacked batch)."""
     def take(a):
-        rows = a.shape[0]
+        rows = a.shape[dim]
         if rows % n:
             raise ValueError(f"batch of {rows} rows does not split into "
                              f"{n} replicas")
         k = rows // n
-        return a[i * k:(i + 1) * k]
+        index = [slice(None)] * dim + [slice(i * k, (i + 1) * k)]
+        return a[tuple(index)]
     if isinstance(batch, dict):
         return {k: take(v) for k, v in batch.items()}
     if isinstance(batch, (tuple, list)):
@@ -429,23 +602,32 @@ def build_masked_sync_train_step(loss_fn: LossFn, num_replicas: int, *,
         if mask.shape != (num_replicas,):
             raise ValueError(f"replica_mask of shape {mask.shape}, expected "
                              f"({num_replicas},)")
-        model = state.model
-        model.train()
-        state.optimizer.zero_grad()
-        loss_sum = None
-        aux_sum: dict = {}
+        _train(state)
+        _zero_rows(state)
+        models = row_models(state)
+        if local % len(models):
+            raise ValueError(f"{local} replicas a worker over "
+                             f"{len(models)} data rows")
+        whole = _whole_batch(state, batch)
+        loss = aux = None
         for j in range(local):
+            # The worker's replicas in order over its data rows' copies.
+            r = j * len(models) // local
+            part = _split(whole, local, j)
+            if state.rows:
+                part = _place(part, state.row_devices[r])
             w = float(mask[rank * local + j])
-            loss, aux = loss_fn(model, _split(batch, local, j))
-            (loss * w).backward()
-            loss = loss.detach() * w
-            loss_sum = loss if loss_sum is None else loss_sum + loss
-            for k, v in aux.items():
-                v = v.detach() * w if torch.is_tensor(v) else v
-                aux_sum[k] = v if k not in aux_sum else aux_sum[k] + v
+            l, a = loss_fn(models[r], part)
+            (l * w).backward()
+            l = l.detach() * w
+            a = {k: v.detach() * w if torch.is_tensor(v) else v
+                 for k, v in a.items()}
+            loss = l if loss is None else loss + l
+            aux = a if aux is None else {
+                k: v + a[k] if torch.is_tensor(v) else v
+                for k, v in aux.items()}
         live = max(float(mask.sum()), 1.0)
-        loss, aux = _reduce_step(state, loss_sum, aux_sum, all_reduce,
-                                 1.0 / live)
+        loss, aux = _reduce_step(state, loss, aux, all_reduce, 1.0 / live)
         return state, _finish(state, loss, aux, 0.0, False)
 
     return step
@@ -490,7 +672,8 @@ def _ema_update(decay: float, state: TrainState) -> None:
     if state.ema_params is None:
         raise ValueError("ema_decay > 0 needs TrainState.create(..., "
                          "ema=True)")
-    for name, p in state.model.named_parameters():
+    from .sharding import state_params
+    for name, p in state_params(state).items():
         e = state.ema_params[name]
         e.mul_(decay).add_(p.detach().to(e.dtype), alpha=1.0 - decay)
 

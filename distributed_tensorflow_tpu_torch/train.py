@@ -45,15 +45,19 @@ and restored on resume; ``--mode=generate --gen_prompt_text
 trainers run the flash-attention (K1, K2a/K2b) and LayerNorm (K3)
 kernels.
 
-Parallelism: the data axis is the worker processes.  Each worker's mesh
-is ``data=1 x seq x pipe x expert x model`` (``--sequence_parallel``,
-``--pipeline_parallel``, ``--expert_parallel``, ``--tensor_parallel``),
-its positions laid round robin over the worker's cards (all on one card
-where there is one; the CLI prints the layout), one process driving them
-all.  ``--tensor_parallel`` places gpt_mini by its Megatron rules,
+Parallelism: the data axis is ``worker processes x local positions``.
+Each worker's mesh is ``data x seq x pipe x expert x model``
+(``--sequence_parallel``, ``--pipeline_parallel``, ``--expert_parallel``,
+``--tensor_parallel``; ``data`` the rest of the devices the worker
+drives: its share of the visible cards, or ``$DTF_TORCH_CPU_DEVICES``
+with ``--device=cpu``), its positions laid round robin over the
+worker's cards (all on one card where there is one; the CLI prints the
+layout), one process driving them all, one copy of the model a local
+data row; ``--dcn_data_parallel`` orders the data axis slice-major and
+``--sharded_feed`` has each worker load its share of the batch.  ``--tensor_parallel`` places gpt_mini by its Megatron rules,
 ``bert_tiny`` and ``vit_tiny`` theirs, ``--expert_parallel`` splits
 ``bert_moe``'s stacked experts (``--log_sharding`` prints each
-parameter's spec); ``--fsdp`` shards the state over the sync workers and
+parameter's spec); ``--fsdp`` shards the state over the whole data axis and
 ``--pipeline_parallel`` runs gpt_mini's blocks as GPipe, 1F1B or
 interleaved stages;
 ``--attention_backend=ring|ulysses`` runs sequence-parallel attention
@@ -63,9 +67,9 @@ over the seq axis.  A model without rules (``mnist_mlp``, ``lenet5``,
 Every flag of the JAX ``train.py`` is declared, so a JAX command line
 parses; the port adds ``--device`` (default ``cuda``, which raises without
 a card) in place of ``--platform``.  Not ported yet (each raises
-``NotImplementedError`` naming ROADMAP.md's entry): the DCN factor and
-the multi-controller sharded feed (item 6, slice 8d) and ``--profile``
-run profiles (item 8).
+``NotImplementedError`` naming ROADMAP.md's entry): local data rows
+beside the pipeline, FSDP over local rows beside tensor parallelism
+(item 6, 8e) and ``--profile`` run profiles (item 8).
 """
 
 from __future__ import annotations
@@ -183,9 +187,10 @@ flags.DEFINE_integer("seed", 0,
                      "identical initial state everywhere); also the "
                      "default prompt's and sampling's in --mode=generate")
 flags.DEFINE_string("device", "cuda",
-                    "torch device: cuda (worker i takes card i modulo the "
-                    "card count; raises without a card), cuda:N, or cpu "
-                    "for a CPU run; the port's --platform")
+                    "torch device: cuda (a worker drives its share of the "
+                    "visible cards, card count // workers, at least one; "
+                    "raises without a card), cuda:N, or cpu for a CPU run; "
+                    "the port's --platform")
 
 
 # The trainer's flags (the JAX train.py's, with shorter help).
@@ -375,9 +380,19 @@ flags.DEFINE_boolean("data_augmentation", False,
                      "Train-time data augmentation where the pipeline "
                      "defines one (resnet20/vit_tiny on CIFAR: "
                      "reflect-pad-4 random crop + horizontal flip)")
+flags.DEFINE_boolean("sharded_feed", True,
+                     "Multi-process runs: each process loads only its "
+                     "slice of the global batch (disjoint per-process data "
+                     "streams) instead of every host materializing the "
+                     "full batch. Auto-falls back (with a log line) for "
+                     "seq-sharded layouts, indivisible batch sizes, or "
+                     "splits without shard()")
+flags.DEFINE_integer("dcn_data_parallel", 1,
+                     "Multi-slice pods: outer factor of the 'data' axis that "
+                     "crosses slice boundaries over DCN (positions ordered "
+                     "slice-major; the gradient mean runs within a slice, "
+                     "then across the slices). 1 = single slice")
 _UNPORTED_FLAGS = (
-    ("boolean", "sharded_feed", True, "item 6, slice 8d"),
-    ("integer", "dcn_data_parallel", 1, "item 6, slice 8d"),
     ("string", "platform", None, "item 8; --device is the port's switch"),
     ("string", "profile", "", "item 8"),
 )
@@ -669,6 +684,28 @@ def _validate_parallel_flags() -> None:
                 f"--expert_parallel={FLAGS.expert_parallel}")
 
 
+def _worker_mesh(pcfg, positions: list, local_data: int, num_workers: int):
+    """The worker's mesh: ``local_data`` data rows over ``positions``.
+    The DCN factor splits the whole data axis (``num_workers x
+    local_data``, JAX's message where it does not divide); the slices
+    that lie inside this worker order its rows (``Mesh.row_slices``),
+    the rest are worker groups (:mod:`.cluster.server`)."""
+    from .parallel.mesh import create_mesh
+    dcn, total = pcfg.dcn_data, num_workers * local_data
+    if total % dcn:
+        raise ValueError(
+            f"data axis {total} not divisible by dcn_data={dcn} (the DCN "
+            "factor is the data axis's outer segment)")
+    per_slice = total // dcn
+    if per_slice % local_data and local_data % per_slice:
+        raise ValueError(
+            f"--dcn_data_parallel={dcn} puts {per_slice} data position(s) in "
+            f"a slice, which splits a worker's {local_data} local rows")
+    return create_mesh(data=local_data, model=pcfg.model, seq=pcfg.seq,
+                       pipe=pcfg.pipe, expert=pcfg.expert, devices=positions,
+                       dcn_data=max(1, local_data // per_slice))
+
+
 def _check_unported_flags() -> None:
     for _, name, default, where in _UNPORTED_FLAGS:
         if getattr(FLAGS, name) != default:
@@ -678,7 +715,8 @@ def _check_unported_flags() -> None:
 def _log_placement(task: int, state) -> None:
     """``--log_sharding``: each parameter's placement, in the JAX CLI's
     format (its flax path, whole shape and spec), with its devices."""
-    from .parallel.sharding import P, _sharded_entries, fsdp_entries
+    from .parallel.sharding import (P, _sharded_entries, fsdp_entries,
+                                    row_models)
     from .training.state import param_paths
     from .utils.pytree import tree_paths
     model = state.model
@@ -695,12 +733,16 @@ def _log_placement(task: int, state) -> None:
                   f"{devices if staged else model.device}")
         return
     # An FSDP slice prints its whole shape and the composed spec (JAX's
-    # P('data', ...)); a tensor-parallel split its whole parameter.
+    # P('data', ...)); a tensor-parallel split its whole parameter; each
+    # with the devices of every local data row's copy.
+    rows = row_models(state)
+
+    def devices_of(names):
+        return [m.get_parameter(n).device for m in rows for n in names]
     fsdp = {name: info for name, _, _, info in fsdp_entries(model)}
     shapes = {n: fsdp[n].shape if n in fsdp else tuple(p.shape)
               for n, p in model.named_parameters()}
-    split = {n: (info.spec, [model.get_parameter(n).device])
-             for n, info in fsdp.items()}
+    split = {n: (info.spec, devices_of([n])) for n, info in fsdp.items()}
     for name, info, names in _sharded_entries(model):
         shape = list(shapes.pop(names[0]))
         shape[info.dim] *= len(names)
@@ -709,11 +751,10 @@ def _log_placement(task: int, state) -> None:
             shapes.pop(n, None)
             split.pop(n, None)
         split[name] = (fsdp[names[0]].spec if names[0] in fsdp else
-                       info.spec, [model.get_parameter(n).device
-                                   for n in names])
+                       info.spec, devices_of(names))
     for name, path in param_paths(shapes, state.params_to_tree).items():
         spec, devices = split[name] if name in split else (
-            P(), [model.get_parameter(name).device])
+            P(), devices_of([name]))
         print(f"Worker {task}: param {path} {shapes[name]} -> "
               f"{spec} on {', '.join(map(str, devices))}")
 
@@ -815,10 +856,11 @@ def _async_exchange(state, train_step, coord, num_workers: int):
                          f"got {FLAGS.async_compress!r}")
     if FLAGS.async_compress != "off":
         # Shard ownership is keyed on the membership epoch, so every worker
-        # derives the same owner map.  --dcn_data_parallel is not ported,
-        # so the auto slice size sees one DCN slice.
+        # derives the same owner map; the auto slice size follows the
+        # --dcn_data_parallel slices.
         slice_size = (FLAGS.slice_size if FLAGS.slice_size > 0
-                      else auto_slice_size(num_workers, 1))
+                      else auto_slice_size(num_workers,
+                                           FLAGS.dcn_data_parallel))
         common = dict(quant=FLAGS.async_compress,
                       block=FLAGS.async_quant_block,
                       anchor_every=FLAGS.async_anchor_every,
@@ -974,20 +1016,23 @@ def main(unused_argv):
     if FLAGS.async_mode != "local_sgd":
         raise ValueError(f"--async_mode must be local_sgd, got "
                          f"{FLAGS.async_mode!r}")
-    # One declarative layout.  Its data axis is the worker processes; each
-    # worker's mesh is data=1 x seq x model, its positions laid over the
-    # worker's cards round robin.
+    # One declarative layout.  Its data axis is the worker processes times
+    # each worker's local rows: a worker's mesh is data x seq x pipe x
+    # expert x model over the devices it drives, laid round robin.
     pcfg = ParallelConfig.from_flags(FLAGS)
 
     cluster = ClusterSpec({"ps": FLAGS.ps_hosts, "worker": FLAGS.worker_hosts})
     num_workers = cluster.num_workers
     device = positions = bundle = None
+    local_data = 1
     if FLAGS.job_name == "worker":
+        fixed = pcfg.pipe * pcfg.seq * pcfg.expert * pcfg.model
+        local_data = mesh_lib.local_data_size(
+            FLAGS.device, fixed, num_workers)
         positions = worker_positions(FLAGS.device, FLAGS.task_index,
-                                     pcfg.pipe * pcfg.seq * pcfg.expert
-                                     * pcfg.model)
+                                     local_data * fixed)
         device = positions[0]
-        mesh = pcfg.build_mesh(positions)
+        mesh = _worker_mesh(pcfg, positions, local_data, num_workers)
         bundle = registry.build(FLAGS.model, FLAGS, device, mesh=mesh)
     stateful = bundle is not None and bundle.stateful_loss_fn is not None
     # Async workers meet only at the coordination service, never in a
@@ -995,6 +1040,8 @@ def main(unused_argv):
     # tie their independent cadences together.  A stateful model trains
     # sync whatever --sync_replicas says.
     server = Server(cluster, FLAGS.job_name, FLAGS.task_index, device=device,
+                    positions=len(positions or [device]),
+                    dcn_data=FLAGS.dcn_data_parallel,
                     initialize_distributed=(
                         None if FLAGS.mode == "train" and (
                             FLAGS.sync_replicas or stateful)
@@ -1021,9 +1068,10 @@ def main(unused_argv):
     if len(positions) > 1:
         pipe = f"pipe={pcfg.pipe}, " if pcfg.pipe > 1 else ""
         expert = f"expert={pcfg.expert}, " if pcfg.expert > 1 else ""
-        print(f"Worker {task}: mesh {pcfg.describe()} ({pipe}{expert}"
-              f"seq={pcfg.seq}, model={pcfg.model}): {len(positions)} "
-              f"positions on "
+        data = f"data={local_data}, " if local_data > 1 else ""
+        print(f"Worker {task}: mesh {pcfg.describe()} ({data}{pipe}{expert}"
+              f"seq={pcfg.seq}, model={pcfg.model}): "
+              f"{len(positions)} positions on "
               f"{len(set(positions))} distinct device(s) "
               f"{', '.join(map(str, positions))}")
     state = bundle.state
@@ -1065,13 +1113,20 @@ def main(unused_argv):
             raise ValueError(
                 "--fsdp requires sync mode: async replicas hold independent "
                 "full parameter copies by design")
+    # Async replicas are the local data rows themselves (R of them, each
+    # on its row's device): the state is placed on row 0 and converted.
+    async_training = FLAGS.mode == "train" and not (
+        FLAGS.sync_replicas or use_tp or use_pipe or stateful)
+    row_devices = [mesh.row(r).model_devices()[0] for r in range(local_data)]
+    place_mesh = mesh.row(0) if async_training else mesh
     if bundle.place_state is not None:
-        state = bundle.place_state(mesh, state)
+        state = bundle.place_state(place_mesh, state)
     else:
-        # The layout's placement: FSDP over the workers' process group,
-        # else the bundle's rules over the model axis, else replicated
-        # (one set of tensors on the first position).
-        state = pcfg.place_state(mesh, state, bundle.sharding_rules)
+        # The layout's placement: FSDP over the data axis (the workers'
+        # process group times the local rows), else the bundle's rules
+        # over the model axis, else replicated (one set of tensors a data
+        # row, on its first position).
+        state = pcfg.place_state(place_mesh, state, bundle.sharding_rules)
     if FLAGS.log_sharding:
         _log_placement(task, state)
 
@@ -1094,7 +1149,7 @@ def main(unused_argv):
         sharded_eval = eval_fn
 
         def eval_fn(st, split, _base=sharded_eval):
-            with fsdp_gathered(st.model):
+            with fsdp_gathered(st):
                 return _base(st, split)
     if FLAGS.ema_decay > 0:
         # Evaluate the averaged weights (validation AND the final test).
@@ -1140,13 +1195,13 @@ def main(unused_argv):
                 "validation_accuracy": validation_accuracy,
                 "test_accuracy": test_accuracy}
 
-    # R is counted in worker tasks (reference distributed.py:92-99): one
-    # data replica a worker, held by its process under a process group, or
-    # all of them by a worker that trains alone (its batch split into one
-    # shard a task, as the JAX single-controller worker shards its batch
-    # over its devices).
-    all_reduce = (sync_lib.GradientAllReduce() if server.process_group
-                  else None)
+    # R is counted in worker tasks (reference distributed.py:92-99): a
+    # worker's local data rows are its replicas, held by its process under
+    # a process group, or every task's by a worker that trains alone (its
+    # batch split into one shard a replica, as the JAX single-controller
+    # worker shards its batch over its devices).
+    all_reduce = (sync_lib.GradientAllReduce(
+        slice_groups=server.slice_groups) if server.process_group else None)
     coord = server.coordination_client
     # Late-bound elastic-membership context: the masked-sync replica mask
     # reads the watcher from here once it exists (built after the
@@ -1211,16 +1266,17 @@ def main(unused_argv):
             build_async_train_step, build_scanned_async_train_step,
             consensus_model)
         async_mode_active = True
-        # One replica a task (the port's rule): the workers average across
-        # processes through the coordination service below.
+        # One replica a local data row, on the row's device: the workers
+        # average across processes through the coordination service
+        # below.
         if FLAGS.steps_per_call > 1:
             train_step, state = build_scanned_async_train_step(
-                bundle.loss_fn, state, num_replicas=1,
-                sync_period=FLAGS.async_sync_period)
+                bundle.loss_fn, state, num_replicas=local_data,
+                sync_period=FLAGS.async_sync_period, devices=row_devices)
         else:
             train_step, state = build_async_train_step(
-                bundle.loss_fn, state, num_replicas=1,
-                sync_period=FLAGS.async_sync_period)
+                bundle.loss_fn, state, num_replicas=local_data,
+                sync_period=FLAGS.async_sync_period, devices=row_devices)
         # Evaluate the consensus mean of the replicas.
         base_eval = eval_fn
 
@@ -1229,7 +1285,8 @@ def main(unused_argv):
                 return _base(astate, split)
     elif use_masked:
         # Per-task health bits (cached by a background poller: no TCP on
-        # the hot path), one replica a task.  Health drops dead workers
+        # the hot path), each task's bit for its local data rows' replicas.
+        # Health drops dead workers
         # and, with --straggler_lag, slow-but-alive ones behind the
         # front-runner; with elastic membership the mask is ANDed with the
         # membership watcher's active set.
@@ -1237,7 +1294,7 @@ def main(unused_argv):
         coord.start_health_polling(interval=1.0, num_tasks=num_workers,
                                    straggler_lag=FLAGS.straggler_lag)
         train_step = sync_lib.build_masked_sync_train_step(
-            bundle.loss_fn, num_workers, all_reduce=all_reduce,
+            bundle.loss_fn, num_workers * local_data, all_reduce=all_reduce,
             rank=task if server.process_group else 0)
         last_mask = [None]
         mask_progress = {"base": 0, "n": 0}
@@ -1247,7 +1304,7 @@ def main(unused_argv):
             coord.set_progress(mask_progress["base"] + mask_progress["n"])
             watcher = elastic_ctx.get("watcher")
             mask = sync_lib.replica_mask_from_tasks(
-                coord.cached_health(), num_workers, 1,
+                coord.cached_health(), num_workers, local_data,
                 members=(watcher.active_mask(num_workers)
                          if watcher is not None else None))
             if last_mask[0] is None or not np.array_equal(mask, last_mask[0]):
@@ -1354,17 +1411,10 @@ def main(unused_argv):
                   f"{rounded[1]} to --steps_per_call={k} chunk boundaries")
             log_every, validation_every = rounded
 
-    feed_split, feed_batch_size = datasets.train, FLAGS.batch_size
-    if server.process_group:
-        # --batch_size is global: each rank feeds its share from its own
-        # strided shard of the train split.
-        if FLAGS.batch_size % world:
-            raise ValueError(f"--batch_size={FLAGS.batch_size} must divide "
-                             f"over the {world} workers of the process group")
-        feed_split = feed_split.shard(task, world)
-        feed_batch_size = FLAGS.batch_size // world
-        print(f"Worker {task}: sharded feed — this process loads "
-              f"{feed_batch_size}/{FLAGS.batch_size} examples per step")
+    if server.process_group and FLAGS.batch_size % world:
+        # --batch_size is global: each rank trains on its share.
+        raise ValueError(f"--batch_size={FLAGS.batch_size} must divide "
+                         f"over the {world} workers of the process group")
 
     metrics_path = FLAGS.metrics_file
     if metrics_path and num_workers > 1:
@@ -1392,7 +1442,8 @@ def main(unused_argv):
             flops_per_step *= FLAGS.grad_accum_steps
         per_device = (FLAGS.peak_tflops * 1e12 if FLAGS.peak_tflops > 0
                       else profiling.peak_flops_per_device(device))
-        peak = None if per_device is None else per_device * world
+        peak = (None if per_device is None
+                else per_device * world * len(set(positions)))
         telemetry = Telemetry(metrics_logger, flops_per_step=flops_per_step,
                               peak_flops_per_sec=peak)
         telemetry.enable_flight_recorder(metrics_path + ".flight")
@@ -1475,7 +1526,10 @@ def main(unused_argv):
                 state=state, train_step=train_step, datasets=datasets,
                 batch_size=FLAGS.batch_size, train_steps=FLAGS.train_steps,
                 eval_fn=eval_fn, device=device, task_index=task,
-                feed_split=feed_split, feed_batch_size=feed_batch_size,
+                sharded_feed=FLAGS.sharded_feed, mesh=mesh,
+                process_count=world if server.process_group else 1,
+                process_index=task if server.process_group else 0,
+                devices=row_devices,
                 validation_every=validation_every, log_every=log_every,
                 supervisor=sv, replica_mask_fn=replica_mask_fn,
                 metrics_logger=metrics_logger, telemetry=telemetry,
@@ -1516,7 +1570,8 @@ def main(unused_argv):
         print(f"Worker {task}: fsdp all-gather "
               f"{ex.gather_s * 1e3 / ex.calls:.4f} ms, reduce-scatter "
               f"{ex.scatter_s * 1e3 / ex.calls:.4f} ms a step over "
-              f"{server.backend} ({len(ex.entries)} split parameters)")
+              f"{server.backend or 'this process'} ({len(ex.entries)} "
+              "split parameters)")
     if device.type == "cuda":
         print(f"Worker {task}: peak device memory "
               f"{torch.cuda.max_memory_allocated(device) / 2 ** 30:.3f} GiB")
@@ -1525,7 +1580,7 @@ def main(unused_argv):
         with consensus_model(state) as model:
             digest = _parameter_digest(model)
     else:
-        with fsdp_gathered(state.model):
+        with fsdp_gathered(state):
             digest = _parameter_digest(state.model)
     print(f"Worker {task}: parameter digest {digest}")
     if getattr(state, "model_state", None) is not None:

@@ -13,9 +13,19 @@ accuracy (``:148-149``) is the train step's aux metric, and the host feed
 overlaps the step: a background thread (:class:`..data.prefetch.
 DevicePrefetcher`) prepares the next batch and copies it to the device
 from pinned memory with ``non_blocking=True`` while the current step
-runs.  The multi-controller sharded feed of the JAX loop is the trainer's
-job here: with a process group each rank is handed its own shard of the
-train split and feeds ``batch_size // world_size`` rows.
+runs.  With several data rows in the worker (``devices``) each row's
+part of the batch goes to its own device from pinned memory
+(:class:`..parallel.sync.RowBatches`).
+
+Multi-process sharded feed (JAX ``loop.py``'s ``sharded_feed``): with
+``process_count > 1`` each process loads only its slice of the global
+batch (``feed_split.shard(process_index, process_count)``, ``batch_size
+// process_count`` rows a step), its disjoint stream.  Where that cannot
+be (a seq-sharded batch layout, a batch the processes do not divide, a
+split without ``shard()``) the loop prints JAX's fallback line and, as
+with ``sharded_feed=False``, every process loads the whole global batch
+and trains on its rows of it (process ``p``'s ``p``-th share, as the
+JAX global array's process-local rows).
 """
 
 from __future__ import annotations
@@ -103,11 +113,22 @@ def make_stateful_eval_fn(eval_logits_fn: Callable,
     return evaluate
 
 
-def to_device(batch: Any, device: torch.device) -> Any:
+def to_device(batch: Any, device, dim: int = 0) -> Any:
     """A host batch (tuples or dicts of numpy arrays) as tensors on
     ``device``: on a card, a pinned staging copy and a ``non_blocking``
     transfer on the current stream, ordered before the step that reads
-    it."""
+    it.  ``device`` a list of several (a worker's data rows): the batch
+    split into that many equal parts along ``dim`` (1 for a stacked
+    batch), part ``r`` on device ``r``, as a
+    :class:`..parallel.sync.RowBatches`."""
+    if isinstance(device, (list, tuple)):
+        if len(device) == 1:
+            return to_device(batch, device[0])
+        from ..parallel.sync import RowBatches, _split
+        n = len(device)
+        return RowBatches(to_device(_split(batch, n, r, dim), d)
+                          for r, d in enumerate(device))
+
     def leaf(a):
         t = torch.from_numpy(np.ascontiguousarray(a))
         if device.type == "cuda":
@@ -118,6 +139,40 @@ def to_device(batch: Any, device: torch.device) -> Any:
     if isinstance(batch, (tuple, list)):
         return type(batch)(leaf(v) for v in batch)
     return leaf(batch)
+
+
+def process_feed(split, batch_size: int, *, sharded_feed: bool, mesh,
+                 process_count: int, process_index: int, task_index: int,
+                 print_fn: Callable[[str], None] = print) -> tuple:
+    """``(split, rows to load a step, (lo, hi) rows of them this process
+    trains on or None)`` for a process of a multi-process run: its own
+    shard of the split under the sharded feed, else the whole batch and
+    its share of it, with JAX's fallback lines."""
+    if process_count <= 1:
+        return split, batch_size, None
+    pc, pi = process_count, process_index
+    if sharded_feed:
+        from ..parallel.mesh import SEQ_AXIS
+        if mesh is not None and mesh.shape[SEQ_AXIS] > 1:
+            print_fn(f"Worker {task_index}: sharded feed unavailable with a "
+                     "seq-sharded batch layout — feeding full batches")
+        elif batch_size % pc:
+            print_fn(f"Worker {task_index}: sharded feed needs batch_size "
+                     f"({batch_size}) divisible by process count ({pc}) — "
+                     "feeding full batches")
+        elif not hasattr(split, "shard"):
+            print_fn(f"Worker {task_index}: train split "
+                     f"{type(split).__name__} has no shard() — feeding "
+                     "full batches")
+        else:
+            rows = batch_size // pc
+            print_fn(f"Worker {task_index}: sharded feed — this process "
+                     f"loads {rows}/{batch_size} examples per step")
+            return split.shard(pi, pc), rows, None
+    if batch_size % pc:
+        return split, batch_size, None
+    rows = batch_size // pc
+    return split, batch_size, (pi * rows, (pi + 1) * rows)
 
 
 class TrainLoopResult:
@@ -161,16 +216,23 @@ def run_training_loop(
     shutdown=None,
     stat_publish_fn: Callable[[dict], None] | None = None,
     elastic=None,
+    sharded_feed: bool = False,
+    mesh=None,
+    process_count: int = 1,
+    process_index: int = 0,
+    devices: list | None = None,
 ) -> tuple[Any, TrainLoopResult]:
     """Run the reference's training loop shape against a train step.
 
     As the JAX ``run_training_loop``; the differences are the device and
-    the feed.  ``device`` is where batches go.  ``feed_split`` (default
-    ``datasets.train``) and ``feed_batch_size`` (default ``batch_size``)
-    are this process's train stream and rows a step: the trainer passes
-    ``datasets.train.shard(rank, world)`` and ``batch_size // world``
-    under a process group.  ``batch_size`` stays the global batch (the
-    examples/s of the metric records).
+    the feed.  ``device`` is where batches go; ``devices`` (a worker's
+    data rows' first devices) splits each batch over them
+    (:func:`to_device`).  ``feed_split`` (default ``datasets.train``)
+    and ``feed_batch_size`` (default ``batch_size``) are this process's
+    train stream and rows a step; without them, a process of a
+    ``process_count > 1`` run takes its share by :func:`process_feed`
+    (``sharded_feed``, ``mesh``: the worker's).  ``batch_size`` stays the
+    global batch (the examples/s of the metric records).
 
     ``replica_mask_fn`` supplies the R<N per-replica mask each step
     (masked sync).  ``supervisor`` receives ``maybe_save(state)`` after
@@ -212,27 +274,41 @@ def run_training_loop(
     result = TrainLoopResult()
     rate_meter = StepRateMeter()
     stack_n = steps_per_call if steps_per_call > 1 else accum_steps
+    take = None
     if feed_split is None:
-        feed_split = datasets.train
+        feed_split, feed_batch_size, take = process_feed(
+            datasets.train, batch_size, sharded_feed=sharded_feed,
+            mesh=mesh, process_count=process_count,
+            process_index=process_index, task_index=task_index,
+            print_fn=print_fn)
     if feed_batch_size is None:
         feed_batch_size = batch_size
 
     save_cursor_fn = _corpus_cursor(supervisor, feed_split, task_index,
                                     print_fn)
+    target = devices if devices is not None and len(devices) > 1 else device
 
     def put(batch):
-        return to_device(batch, device)
+        return to_device(batch, target, 1 if stack_n > 1 else 0)
+
+    def next_rows():
+        batch = feed_split.next_batch(feed_batch_size)
+        if take is None:
+            return batch
+        lo, hi = take
+        if isinstance(batch, dict):
+            return {k: v[lo:hi] for k, v in batch.items()}
+        if isinstance(batch, (tuple, list)):
+            return type(batch)(v[lo:hi] for v in batch)
+        return batch[lo:hi]
 
     if stack_n > 1:
         from ..parallel.sync import stack_microbatches
 
         def host_batch_fn():
-            return stack_microbatches(
-                [feed_split.next_batch(feed_batch_size)
-                 for _ in range(stack_n)])
+            return stack_microbatches([next_rows() for _ in range(stack_n)])
     else:
-        def host_batch_fn():
-            return feed_split.next_batch(feed_batch_size)
+        host_batch_fn = next_rows
 
     prefetcher = None
     observe_produce = (telemetry.histogram("prefetch_produce_ms").record

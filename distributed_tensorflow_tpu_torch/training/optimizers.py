@@ -142,23 +142,27 @@ def global_norm(params: Iterable[torch.Tensor]) -> torch.Tensor:
     gradient's device).  A parameter split over the model axis is its
     shards, each counted once.  A worker's FSDP slice (marked
     ``fsdp_info`` by ``parallel/sharding.fsdp_state``) is one piece of a
-    gradient whose other pieces the other workers hold: the slices'
-    squares are summed over the process group, the replicated
+    gradient whose other pieces the other positions hold (this worker's
+    other data rows' slices are among ``params``): the slices' squares
+    are summed over the process group, the replicated
     gradients' added once, so every worker clips and logs the one global
     norm.  That sum is a collective, which every worker reaches at the
     same point of its step."""
-    own, split = [], []
+    own, split, workers = [], [], 1
     for p in params:
         if p.grad is not None:
             sq = p.grad.detach().float().pow(2).sum()
-            (split if getattr(p, "fsdp_info", None) is not None
-             else own).append(sq)
+            info = getattr(p, "fsdp_info", None)
+            (split if info is not None else own).append(sq)
+            if info is not None:
+                workers = info.workers
     home = (own or split)[0].device
     total = torch.zeros((), dtype=torch.float32, device=home)
     if split:
         import torch.distributed as dist
         pieces = torch.stack([x.to(split[0].device) for x in split]).sum()
-        dist.all_reduce(pieces)
+        if workers > 1:
+            dist.all_reduce(pieces)
         total = total + pieces.to(home)
     if own:
         total = total + torch.stack([x.to(home) for x in own]).sum()
@@ -255,6 +259,9 @@ class Optimizer:
                 v = self.base.state.get(p, {}).get(key)
                 out[names[p]] = torch.zeros_like(p) if v is None else v
             tree = to_tree(out)
+            for path in self._placeholders(key, names, to_tree):
+                # A stacked leaf's placeholder is optax's one [1].
+                _set_leaf(tree, path, np.zeros((1,), np.float32))
             if spec.trainable is not None:
                 tree = _mask_tree(tree, spec.trainable)
             return tree
@@ -281,12 +288,50 @@ class Optimizer:
                                       "train": {"inner_state": state}}}
         return state
 
+    def _placeholders(self, key: str, names: dict, to_tree) -> dict:
+        """``{flax path: the leaf's shape in the tree}`` of adafactor's
+        ``[1]`` placeholders for slot ``key`` (``v_row`` and ``v_col`` of
+        an unfactored leaf, ``v`` of a factored one).  optax keeps one
+        ``[1]`` a leaf; where the tree stacks several parameters into a
+        leaf (the pipelined GPT's layers) ``to_tree`` stacks their
+        placeholders, to ``[n_pipe, per, 1]``."""
+        if self.spec.name != "adafactor" or key == "count":
+            return {}
+        from ..utils.pytree import tree_paths
+        from .state import param_paths
+        held = {names[p] for leaf in self.base.leaves for p in leaf.pieces
+                if (_factored_dims(leaf.shape) is None) == (key != "v")}
+        if not held:
+            return {}
+        paths = param_paths(names.values(), to_tree)
+        shapes = {path: np.shape(leaf) for path, leaf in tree_paths(to_tree(
+            {n: torch.zeros(1) for n in names.values()}))}
+        return {paths[n]: shapes[paths[n]] for n in held
+                if n in paths and shapes[paths[n]] != (1,)}
+
+    def _unstack_placeholders(self, key: str, tree, names: dict, to_tree):
+        """``tree`` (a checkpoint's slot tree) with each of optax's ``[1]``
+        placeholders broadcast to the shape ``to_tree`` stacks it to
+        (inverse of :meth:`optax_state`'s collapse)."""
+        if to_tree is None:
+            return tree
+        for path, shape in self._placeholders(key, names, to_tree).items():
+            leaf = _get_leaf(tree, path)
+            if leaf is not None and tuple(np.shape(leaf)) != tuple(shape):
+                _set_leaf(tree, path, np.broadcast_to(
+                    np.asarray(leaf, np.float32).reshape(-1)[:1]
+                    .reshape((1,) * len(shape)), shape).copy())
+        return tree
+
     def load_optax_state(self, opt_state, names: dict,
-                         from_tree: Callable[[dict], dict]) -> None:
-        """Inverse of :meth:`optax_state` (a checkpoint of either package).
-        Raises ``ValueError`` when ``opt_state`` is not this optimizer's
-        layout (another ``--optimizer``, schedule, clip, decay or
-        ``--trainable_params``)."""
+                         from_tree: Callable[[dict], dict],
+                         to_tree: Callable[[dict], dict] | None = None
+                         ) -> None:
+        """Inverse of :meth:`optax_state` (a checkpoint of either package;
+        ``to_tree``, the model's, places adafactor's placeholders in a
+        stacked tree).  Raises ``ValueError`` when ``opt_state`` is not
+        this optimizer's layout (another ``--optimizer``, schedule, clip,
+        decay or ``--trainable_params``)."""
         spec = self.spec
         if spec.trainable is not None:
             # The frozen leaves' Nones are dropped before the slot trees
@@ -310,7 +355,8 @@ class Optimizer:
             count = None
             if spec.name in _OPTAX_RULES:
                 lr, state = _read_rule_layout(spec, opt_state)
-                slots = {k: from_tree(state[k])
+                slots = {k: from_tree(self._unstack_placeholders(
+                    k, state[k], names, to_tree))
                          for k in _RULE_SLOTS[spec.name] if k != "count"}
                 if "count" in state:
                     count = int(state["count"])
@@ -415,26 +461,32 @@ class _Leaf:
     """One parameter as the JAX tree holds it: its tensor-parallel shards
     (``pieces``, in model-coordinate order, split along ``dim``; one
     piece when it is not split), each of them this worker's FSDP slice
-    when ``fsdp`` (the slices' ``FsdpInfo``) is set."""
+    when ``fsdp`` (the slices' ``FsdpInfo``) is set; or, under FSDP over
+    several local data positions (``dim`` None, ``local``), the
+    positions' slices in row order (``fsdp`` row 0's)."""
 
-    def __init__(self, pieces: list, dim: int | None, fsdp):
+    def __init__(self, pieces: list, dim: int | None, fsdp,
+                 local: bool = False):
         self.pieces = pieces
         self.dim = dim
         self.fsdp = fsdp
+        self.local = local
 
     @property
     def shape(self) -> tuple:
         shape = list(self.fsdp.shape if self.fsdp is not None
                      else self.pieces[0].shape)
-        if len(self.pieces) > 1:
+        if len(self.pieces) > 1 and not self.local:
             shape[self.dim] *= len(self.pieces)
         return tuple(shape)
 
     def whole(self, ts: list) -> torch.Tensor:
-        """The whole tensor of per-piece tensors ``ts`` (with FSDP a
-        collective over the workers)."""
+        """The whole tensor of per-piece tensors ``ts`` (with FSDP over
+        several workers a collective)."""
+        from ..parallel.sharding import fsdp_whole
+        if self.local:
+            return fsdp_whole(ts, self.fsdp)
         if self.fsdp is not None:
-            from ..parallel.sharding import fsdp_whole
             ts = [fsdp_whole(t, self.fsdp) for t in ts]
         if len(ts) == 1:
             return ts[0]
@@ -443,6 +495,10 @@ class _Leaf:
 
     def part(self, whole: torch.Tensor, i: int) -> torch.Tensor:
         """Piece ``i``'s part of ``whole`` (inverse of :meth:`whole`)."""
+        if self.local:
+            x = whole.chunk(self.fsdp.world,
+                            dim=self.fsdp.dim)[self.fsdp.rank + i]
+            return x.to(self.pieces[i].device)
         x = (whole.chunk(len(self.pieces), dim=self.dim)[i]
              if len(self.pieces) > 1 else whole)
         if self.fsdp is not None:
@@ -451,9 +507,9 @@ class _Leaf:
 
     def sum(self, values: list) -> torch.Tensor:
         """The sum of per-piece 0-dim ``values`` over the whole leaf (with
-        FSDP an all-reduce over the workers)."""
+        FSDP over several workers an all-reduce over them)."""
         total = _total(values)
-        if self.fsdp is not None:
+        if self.fsdp is not None and self.fsdp.workers > 1:
             import torch.distributed as dist
             dist.all_reduce(total)
         return total
@@ -462,11 +518,22 @@ class _Leaf:
 def _leaves(params: list) -> list:
     """``params`` grouped into :class:`_Leaf` s: the shards of one split
     parameter (``tp_split``: ``(key, index, count, dim)``) form one
-    leaf."""
+    leaf, and so do the local data positions' FSDP slices of one
+    parameter (``fsdp_local``: ``(key, row)``)."""
     out, groups = [], {}
     for p in params:
         fsdp = getattr(p, "fsdp_info", None)
         split = getattr(p, "tp_split", None)
+        local = getattr(p, "fsdp_local", None)
+        if local is not None:
+            key, r = local
+            if key not in groups:
+                groups[key] = _Leaf([None] * fsdp.local, None, None, True)
+                out.append(groups[key])
+            groups[key].pieces[r] = p
+            if r == 0:
+                groups[key].fsdp = fsdp
+            continue
         if split is None:
             out.append(_Leaf([p], None, fsdp))
             continue
@@ -639,6 +706,23 @@ class _OptaxRule:
             u = -u
             for i, x in enumerate(leaf.pieces):
                 x.add_(leaf.part(u, i))
+
+
+def _get_leaf(tree, path: str):
+    node = tree
+    for key in path.split("/"):
+        if node is None:
+            return None
+        node = node[int(key) if isinstance(node, list) else key]
+    return node
+
+
+def _set_leaf(tree, path: str, value) -> None:
+    *parents, last = path.split("/")
+    node = tree
+    for key in parents:
+        node = node[int(key) if isinstance(node, list) else key]
+    node[int(last) if isinstance(node, list) else last] = value
 
 
 def _total(values: list) -> torch.Tensor:

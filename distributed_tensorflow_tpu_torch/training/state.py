@@ -10,7 +10,9 @@ model and the optimizer's slots are updated IN PLACE and
 and from the tree the JAX supervisor checkpoints (``{params, opt_state,
 global_step[, ema_params][, model_state]}`` with flax's names and optax's
 slot layout), so each package restores the other's checkpoints.
-``model_state`` is a model's non-trainable state: ResNet-20's BatchNorm
+A state with several local data rows (``TrainState.rows``) checkpoints
+its lead row: every row holds the same parameters (each FSDP slice its
+own, gathered whole).  ``model_state`` is a model's non-trainable state: ResNet-20's BatchNorm
 running statistics (its buffers), flax's ``batch_stats`` tree in the
 checkpoint (the JAX supervisor's ``model_state`` entry).  A tensor-parallel
 state (``parallel/sharding.shard_state``) holds its split parameters as
@@ -54,6 +56,13 @@ class TrainState:
     # joins the names at their dots.
     params_to_tree: Callable[[dict], dict] = None
     params_from_tree: Callable[[dict], dict] = None
+    # The worker's other local data rows (``parallel/sharding.py``): each
+    # its own copy of the model on its positions, ``model`` being row 0;
+    # ``row_devices`` each row's first device, ``row_slices`` the rows by
+    # DCN slice (``parallel/mesh.Mesh.row_slices``).  None with one row.
+    rows: list | None = None
+    row_devices: list | None = None
+    row_slices: list | None = None
 
     def __post_init__(self):
         if self.params_to_tree is None:
@@ -113,7 +122,8 @@ def flat_names(tree: dict, prefix: str = "") -> dict:
 
 
 def _param_names(state: TrainState) -> dict:
-    return {p: n for n, p in state.model.named_parameters()}
+    from ..parallel.sharding import state_params
+    return {p: n for n, p in state_params(state).items()}
 
 
 def _tree_fns(state: TrainState):
@@ -123,13 +133,13 @@ def _tree_fns(state: TrainState):
     one whole array on the way out and split again on the way in, so a
     sharded run's checkpoint is an unsharded run's."""
     from ..parallel.sharding import (FsdpExchange, gather_named, is_fsdp,
-                                     is_sharded, split_fsdp_named,
-                                     split_named)
+                                     is_sharded, row_models,
+                                     split_fsdp_named, split_named)
     model = state.model
     fsdp = is_fsdp(model)
     if not (fsdp or is_sharded(model)):
         return state.params_to_tree, state.params_from_tree
-    exchange = FsdpExchange(model) if fsdp else None
+    exchange = FsdpExchange(row_models(state)) if fsdp else None
 
     def to_tree(named):
         if exchange is not None:
@@ -203,8 +213,9 @@ def checkpoint_tree(state: TrainState) -> dict:
     own, with per-replica stacks."""
     if not isinstance(state, TrainState):
         return state.checkpoint_tree()
+    from ..parallel.sharding import state_params
     to_tree, _ = _tree_fns(state)
-    params = {n: p.detach() for n, p in state.model.named_parameters()}
+    params = {n: p.detach() for n, p in state_params(state).items()}
     tree = {"params": to_tree(params),
             "opt_state": state.optimizer.optax_state(_param_names(state),
                                                      to_tree),
@@ -229,11 +240,12 @@ def load_checkpoint_tree(state: TrainState, tree: dict) -> TrainState:
     does not fit raises ``ValueError``."""
     if not isinstance(state, TrainState):
         return state.load_checkpoint_tree(tree)
-    _, from_tree = _tree_fns(state)
+    from ..parallel.sharding import copy_rows, state_params
+    to_tree, from_tree = _tree_fns(state)
     try:
         params = from_tree(tree["params"])
         with torch.no_grad():
-            own = dict(state.model.named_parameters())
+            own = state_params(state)
             if set(params) != set(own):
                 raise ValueError(
                     f"parameters {sorted(set(params) ^ set(own))} differ")
@@ -248,7 +260,7 @@ def load_checkpoint_tree(state: TrainState, tree: dict) -> TrainState:
         raise ValueError(f"checkpoint tree lacks {e}") from None
     state.optimizer.count = global_step - 1
     state.optimizer.load_optax_state(tree.get("opt_state"),
-                                     _param_names(state), from_tree)
+                                     _param_names(state), from_tree, to_tree)
     state.global_step = global_step
     if state.ema_params is not None:
         saved = tree.get("ema_params")
@@ -269,4 +281,5 @@ def load_checkpoint_tree(state: TrainState, tree: dict) -> TrainState:
                                      f"{tuple(saved[name].shape)}, expected "
                                      f"{tuple(t.shape)}")
                 t.copy_(saved[name].to(t.device))
+    copy_rows(state)
     return state

@@ -532,6 +532,72 @@ def test_parallel_train_step_on_card_matches_the_pallas_step(cuda_device,
     assert torch.nn.functional.cosine_similarity(ga, gb, dim=0) >= 0.999
 
 
+# chip_smoke.py's train_data arms: (data, seq, model, backend, fsdp).
+DATA_ARMS = {"dp2": (2, 1, 1, "pallas", False),
+             "dp2_tp2": (2, 1, 2, "pallas", False),
+             "dp2_ring2": (2, 2, 1, "ring", False),
+             "fsdp_dp2": (2, 1, 1, "pallas", True)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arm", sorted(DATA_ARMS))
+def test_data_rows_train_step_on_card(cuda_device, arm):
+    """Two steps of a small GPT over two local data rows on the one card
+    (``ParallelConfig.place_state``: a model copy a row, beside tp2 or
+    ring2, or FSDP over the rows): the first step's loss within
+    chip_smoke.py's TRAIN_* of the unsharded pallas step's, each row's
+    kernels launched on its half of the batch, the rows bit-equal after
+    the steps."""
+    from distributed_tensorflow_tpu_torch.models import gpt
+    from distributed_tensorflow_tpu_torch.parallel.mesh import ParallelConfig
+    from distributed_tensorflow_tpu_torch.parallel.sync import (
+        build_sync_train_step)
+    from distributed_tensorflow_tpu_torch.training.optimizers import (
+        make_optimizer)
+    from distributed_tensorflow_tpu_torch.training.state import TrainState
+
+    data, seq, model_axis, backend, fsdp = DATA_ARMS[arm]
+    pc = ParallelConfig(data=data, model=model_axis, seq=seq,
+                        attention=backend, fsdp=fsdp, fsdp_min_size=4096)
+    mesh = pc.build_mesh([cuda_device] * (data * seq * model_axis))
+    cfg = gpt.GptConfig(hidden_size=512, num_layers=2, num_heads=8,
+                        intermediate_size=1024, max_position=256,
+                        attention_backend=backend, fused_ln=True)
+    model = gpt.GptLM(cfg, device=cuda_device, param_dtype=torch.float32,
+                      mesh=mesh)
+    plain = gpt.GptLM(dataclasses.replace(cfg, attention_backend="pallas"),
+                      device=cuda_device, param_dtype=torch.float32)
+    plain.load_state_dict(model.state_dict())
+    state = pc.place_state(mesh, TrainState.create(
+        model, make_optimizer("adam", 1e-3), params_to_tree=gpt.params_to_jax,
+        params_from_tree=gpt.params_from_jax), gpt.gpt_sharding_rules())
+    assert len(state.rows) == data - 1
+
+    def loss_fn(m, batch):
+        t = torch.as_tensor(batch["tokens"], device=cuda_device).long()
+        return gpt.lm_loss(m(t), t)[0], {}
+    batch = gpt.synthetic_lm_batch(0, 4, 256, cfg)
+    want, _ = loss_fn(plain, batch)
+    step = build_sync_train_step(loss_fn)
+    names = ("launches", "dq_launches", "dkv_launches", "chunk_launches",
+             "chunk_dq_launches", "chunk_dkv_launches")
+    before = [getattr(tfa, n) for n in names] + [ln.launches]
+    state, metrics = step(state, batch)
+    after = [getattr(tfa, n) for n in names] + [ln.launches]
+    state, _ = step(state, gpt.synthetic_lm_batch(1, 4, 256, cfg))
+    L = cfg.num_layers
+    flash = 0 if backend == "ring" else data * L * model_axis * seq
+    chunk = data * L * model_axis * seq * seq if backend == "ring" else 0
+    assert [a - b for a, b in zip(after, before)] == (
+        [flash] * 3 + [chunk] * 3 + [data * (2 * L + 1)])
+    assert abs(float(metrics["loss"]) - want.item()) <= 1e-3
+    lead = dict(state.model.named_parameters())
+    for row in state.rows:
+        for n, p in row.named_parameters():
+            if getattr(p, "fsdp_info", None) is None:
+                assert torch.equal(p, lead[n]), n
+
+
 @pytest.mark.cuda
 def test_async_local_step_runs_each_replica_through_the_kernels_on_card(
         cuda_device):

@@ -116,8 +116,11 @@ def test_mesh_views_and_the_axes_not_ported():
     experts = tmesh.create_mesh(data=1, expert=4, model=2, devices=devs)
     assert [str(d) for d in experts.axis_devices("expert")] == [
         "cpu:0", "cpu:2", "cpu:4", "cpu:6"]
-    with pytest.raises(NotImplementedError, match="ROADMAP.*slice 8d"):
-        tmesh.create_mesh(devices=devs, dcn_data=2)
+    # The DCN factor is ported (slice 8d): slice-major order (one
+    # positional group for torch devices), its rows grouped by slice.
+    hybrid = tmesh.create_mesh(devices=devs, dcn_data=2)
+    assert list(hybrid.devices.flatten()) == devs
+    assert hybrid.row_slices() == [[0, 1, 2, 3], [4, 5, 6, 7]]
     # The pipe axis is ported (slice 8c): stage s on pipe device s.
     piped = tmesh.create_mesh(data=2, pipe=4, devices=devs)
     assert piped.shape["pipe"] == 4
@@ -170,9 +173,13 @@ def test_place_state_dispatch():
     fsdp = tmesh.ParallelConfig(fsdp=True)
     state = fsdp.place_state(fsdp.build_mesh([CPU]), _mlp_state(), None)
     assert not tsh.is_fsdp(state.model) and not tsh.is_sharded(state.model)
-    with pytest.raises(NotImplementedError, match="ROADMAP.*slice 8d"):
-        tsh.shard_state(tmesh.create_mesh(data=2, model=2, devices=[CPU] * 4),
-                        _mlp_state(), rules)
+    # Data beside the model axis (slice 8d): each data row holds its own
+    # copy of its shards.
+    rows = tsh.shard_state(tmesh.create_mesh(data=2, model=2,
+                                             devices=[CPU] * 4),
+                           _mlp_state(), rules)
+    assert len(rows.rows) == 1
+    assert tsh.shard_dim(rows.rows[0].hid, "kernel") == 1
 
 
 @pytest.mark.parametrize("writer", ["jax", "port"])

@@ -11,7 +11,8 @@ the in-process ``expert`` axis against the JAX package's.
   unsharded module within 1e-6.
 - One ``bert_moe`` SGD step (fp32) against JAX's
   ``make_moe_mlm_loss_fn`` step: loss, ``moe_aux`` and parameters within
-  1e-5, unsharded and over the expert positions.
+  1e-5, unsharded and over the expert positions, and over two data
+  rows beside two expert positions (each row its own expert shards).
 - The CLI: ``--model=bert_moe --expert_parallel=2 --optimizer=lamb``
   trains, its checkpoint is an unsharded run's (the JAX ``restore_raw``
   reads it; ``--mode=eval`` restores it without the expert axis and
@@ -320,3 +321,27 @@ def test_bert_tiny_async_exchange_across_processes(tmp_path):
         assert "(binary publish" in combined, combined
     finally:
         stop(ps)
+
+
+def test_bert_moe_over_data_rows_beside_the_expert_axis():
+    """data=2 x expert=2: each data row holds its own expert shards, the
+    dispatched rows of a row go to the positions that own their experts,
+    and the step (the rows' mean) is JAX's step on the whole batch."""
+    params, batch, loss, aux, after = _jax_bert_step()
+    cfg = dataclasses.replace(tbert.tiny(), **CFG)
+    net = tbert.BertForMLM(cfg, device="cpu")
+    net.load_state_dict(tbert.params_from_jax(params))
+    state = TrainState.create(net, topt.make_optimizer("sgd", 0.1),
+                              params_to_tree=tbert.params_to_jax,
+                              params_from_tree=tbert.params_from_jax)
+    mesh = tmesh.create_mesh(data=2, expert=2, devices=["cpu"] * 4)
+    state = tmesh.ParallelConfig(data=2, expert=2).place_state(
+        mesh, state, tbert.bert_moe_sharding_rules())
+    assert len(state.rows) == 1
+    step = tsync.build_sync_train_step(tbert.make_moe_mlm_loss_fn())
+    state, m = step(state, batch)
+    assert float(m["loss"]) == pytest.approx(loss, rel=1e-5)
+    got = tbert.params_from_jax(checkpoint_tree(state)["params"])
+    for name, want in tbert.params_from_jax(after).items():
+        np.testing.assert_allclose(got[name].numpy(), want.numpy(),
+                                   err_msg=name, **TOL)

@@ -328,3 +328,65 @@ def test_a_pipeline_stack_takes_the_stacked_leafs_statistics(name):
     got = checkpoint_tree(state)["params"]
     jax.tree.map(lambda g, w: np.testing.assert_allclose(
         g, np.asarray(w), **TOL), got, want)
+
+
+@pytest.mark.parametrize("schedule", ["gpipe", "interleaved"])
+def test_pipelined_adafactor_checkpoints_cross_the_packages(schedule,
+                                                            tmp_path):
+    """Adafactor beside the pipeline: the stage-stacked leaf holds ONE
+    ``[1]`` placeholder a slot, as optax's state does, where the port
+    keeps one a layer.  The port's ``save_raw`` reads in the JAX
+    ``restore_raw`` as optax's state after the same update; the JAX
+    Supervisor's checkpoint of that state restores into a fresh port
+    state; the next update equals optax's.  fp32, within 1e-6."""
+    from distributed_tensorflow_tpu_torch.models import gpt as tgpt
+    from distributed_tensorflow_tpu_torch.models import registry as treg
+    width = dict(vocab_size=64, hidden_size=128, num_layers=4, num_heads=2,
+                 intermediate_size=256, max_position=32)
+    mesh = tmesh.create_mesh(data=1, pipe=2, devices=["cpu"] * 2)
+
+    def build():
+        return treg.build_gpt_pipeline(
+            0.01, mesh, seq_len=16, n_micro=2, dtype="float32",
+            schedule=schedule, tx=topt.make_optimizer("adafactor", 0.01),
+            width=width)
+
+    bundle = build()
+    state, model = bundle.state, bundle.state.model
+    params = jax.tree.map(np.copy, checkpoint_tree(state)["params"])
+    tokens = tgpt.synthetic_lm_batch(1, 4, 16, tgpt.GptConfig(**width))
+    loss, _ = bundle.loss_fn(model, tokens)
+    loss.backward()
+    named_grads = {n: p.grad.clone() for n, p in model.named_parameters()}
+    grads = jax.tree.map(np.copy, model.params_to_tree(named_grads))
+    state.apply_gradients()
+    tx = jopt.make_optimizer("adafactor", 0.01)
+    u, jopt_state = jax.jit(tx.update)(grads, tx.init(params), params)
+    jparams = optax.apply_updates(params, u)
+
+    # Port -> JAX.
+    save_raw(str(tmp_path / "port" / "checkpoints"), 2,
+             checkpoint_tree(state))
+    raw, step, _ = jrestore_raw(str(tmp_path / "port"))
+    assert step == 2
+    _assert_trees_close(raw["opt_state"], _raw(jopt_state))
+
+    # JAX -> port, then one more update against optax's.
+    jstate = JState(params=jparams, opt_state=jopt_state,
+                    global_step=jnp.asarray(2, jnp.int32), apply_fn=None,
+                    tx=tx)
+    jsv = JSupervisor(is_chief=True, logdir=str(tmp_path / "jax"),
+                      init_fn=lambda: jstate)
+    jsv.prepare_or_wait_for_state()
+    jsv.maybe_save(jstate, force=True)
+    jsv.close()
+    tree, _, _ = restore_raw(str(tmp_path / "jax"))
+    fresh = build().state
+    load_checkpoint_tree(fresh, tree)
+    for n, p in fresh.model.named_parameters():
+        p.grad = named_grads[n].clone()
+    fresh.apply_gradients()
+    u, _ = jax.jit(tx.update)(grads, jopt_state, jparams)
+    want = optax.apply_updates(jparams, u)
+    jax.tree.map(lambda g, w: np.testing.assert_allclose(
+        g, np.asarray(w), **TOL), checkpoint_tree(fresh)["params"], want)

@@ -460,27 +460,38 @@ def test_cli_async_flag_with_tp_trains_in_sync_and_mlp_stays_replicated(
      "must be divisible by --expert_parallel=3"),
     (("--sequence_parallel=2",), ValueError,
      "needs a sequence-parallel attention backend"),
-    (("--sharded_feed=false",), NotImplementedError, "ROADMAP.*slice 8d"),
+    # A NAME=value item sets an environment variable: the CPU as four
+    # devices, so that the data axis has local rows.
+    (("--pipeline_parallel=2", "DTF_TORCH_CPU_DEVICES=4"), NotImplementedError,
+     "ROADMAP.*8e"),
     (("--pipeline_parallel=2", "--gpt_matmul_int8"), ValueError,
      "--gpt_matmul_int8 with --pipeline_parallel is not wired up"),
     (("--pipeline_parallel=2", "--fsdp"), ValueError,
      "--fsdp is incompatible with models that own their placement"),
-    (("--dcn_data_parallel=2",), NotImplementedError, "ROADMAP.*slice 8d"),
+    (("--dcn_data_parallel=3", "DTF_TORCH_CPU_DEVICES=4"), ValueError,
+     "not divisible by dcn_data=3"),
     (("--model=bert_moe", "--expert_parallel=4", "--num_experts=6"),
      ValueError, "must be divisible by --expert_parallel=4"),
 ])
-def test_cli_flag_errors_match_jax(tmp_path, standalone, flags, error, match):
+def test_cli_flag_errors_match_jax(tmp_path, standalone, monkeypatch, flags,
+                                  error, match):
+    for f in flags:
+        if not f.startswith("--"):
+            monkeypatch.setenv(*f.split("=", 1))
     with pytest.raises(error, match=match):
-        _cli(tmp_path, "--sync_replicas=true", *flags)
+        _cli(tmp_path, "--sync_replicas=true",
+             *(f for f in flags if f.startswith("--")))
 
 
 def test_tp_with_int8_matmuls_raises():
     # Int8 beside tensor parallelism is ported (slice 8b:
-    # tests/test_torch_int8_tp.py); beside an in-process data axis it is
-    # not (slice 8d).
+    # tests/test_torch_int8_tp.py), and beside an in-process data axis
+    # too (slice 8d): each data row holds its own int8 model's shards.
     params = _jax_params()
     state = _port_state(params, matmul_int8=True)
-    with pytest.raises(NotImplementedError, match="ROADMAP.*slice 8d"):
-        tsh.shard_state(tmesh.create_mesh(data=2, model=2,
-                                          devices=[CPU] * 4),
-                        state, tgpt.gpt_sharding_rules())
+    tsh.shard_state(tmesh.create_mesh(data=2, model=2, devices=[CPU] * 4),
+                    state, tgpt.gpt_sharding_rules())
+    assert len(state.rows) == 1
+    for (n, p), (m, q) in zip(state.model.named_parameters(),
+                              state.rows[0].named_parameters()):
+        assert n == m and torch.equal(p, q)

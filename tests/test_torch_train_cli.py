@@ -175,21 +175,33 @@ def test_metrics_file_summaries_and_profile(tmp_path, standalone):
     assert prof["busy_share"] is None and prof["window_ms"] > 0
 
 
+# The data axis inside a worker is ported (slice 8d: --sharded_feed,
+# --dcn_data_parallel, local rows beside model, seq and expert); local rows
+# beside the pipeline, and FSDP over local rows beside tensor parallelism,
+# are 8e's.
 @pytest.mark.parametrize("flags,match", [
-    (("--sync_replicas=true", "--fsdp=true", "--sharded_feed=false"),
-     "item 6"),
-    (("--sync_replicas=true", "--dcn_data_parallel=2"), "item 6"),
-    (("--sync_replicas=true", "--platform=cpu"), "item 8"),
-    (("--sync_replicas=true", "--sharded_feed=false"), "item 6"),
+    (("--sync_replicas=true", "--model=gpt_mini", "--fsdp=true",
+      "--tensor_parallel=2", "DTF_TORCH_CPU_DEVICES=4"), "item 6"),
     (("--sync_replicas=true", "--model=gpt_mini", "--pipeline_parallel=2",
-      "--dcn_data_parallel=2"), "item 6"),
+      "DTF_TORCH_CPU_DEVICES=4"), "item 6"),
+    (("--sync_replicas=true", "--platform=cpu"), "item 8"),
+    (("--sync_replicas=true", "--model=gpt_mini", "--pipeline_parallel=2",
+      "--pipeline_schedule=1f1b", "DTF_TORCH_CPU_DEVICES=4"), "item 6"),
+    (("--sync_replicas=true", "--model=gpt_mini", "--pipeline_parallel=2",
+      "--dcn_data_parallel=2", "DTF_TORCH_CPU_DEVICES=4"), "item 6"),
     (("--sync_replicas=true", "--model=bert_moe", "--profile=p.json"),
      "item 8"),
     (("--sync_replicas=true", "--profile=p.json"), "item 8"),
 ])
-def test_paths_not_ported_raise(tmp_path, standalone, flags, match):
+def test_paths_not_ported_raise(tmp_path, standalone, monkeypatch, flags,
+                                match):
+    # A NAME=value item sets an environment variable (the CPU as four
+    # devices: local data rows).
+    for f in flags:
+        if not f.startswith("--"):
+            monkeypatch.setenv(*f.split("=", 1))
     with pytest.raises(NotImplementedError, match=f"ROADMAP.*{match}"):
-        run_main(tmp_path, *flags)
+        run_main(tmp_path, *(f for f in flags if f.startswith("--")))
 
 
 def test_the_default_device_needs_cuda(tmp_path, standalone, monkeypatch):

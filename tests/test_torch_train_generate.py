@@ -181,7 +181,8 @@ def test_no_checkpoint_warns_and_decodes_a_seeded_init(tmp_path, capsys):
     # The trainer's paths not ported yet (its async mode is, since slice
     # 7b): the parallelism axes and run profiles.
     (["--mode=train", "--job_name=worker", "--task_index=0",
-      "--sharded_feed=false"], NotImplementedError, "ROADMAP.*item 6"),
+      "--pipeline_parallel=2", "DTF_TORCH_CPU_DEVICES=4"], NotImplementedError,
+     "ROADMAP.*item 6"),
     (["--mode=eval", "--job_name=worker", "--task_index=0",
       "--profile=p.json"], NotImplementedError, "ROADMAP.*item 8"),
     (["--model=mnist_mlp"], ValueError, "gpt_mini"),
@@ -189,9 +190,15 @@ def test_no_checkpoint_warns_and_decodes_a_seeded_init(tmp_path, capsys):
     (["--gen_beams=2", "--gen_temperature=0.5"], ValueError, "exclusive"),
     (["--gen_prompt=1,999"], ValueError, "outside vocab"),
 ])
-def test_paths_not_ported_and_bad_flags_raise(logdir, flags, error, match):
+def test_paths_not_ported_and_bad_flags_raise(logdir, monkeypatch, flags,
+                                              error, match):
+    # A NAME=value item sets an environment variable (the CPU as four
+    # devices: local data rows).
+    for f in flags:
+        if not f.startswith("--"):
+            monkeypatch.setenv(*f.split("=", 1))
     with pytest.raises(error, match=match):
-        _generate(logdir, *flags)
+        _generate(logdir, *(f for f in flags if f.startswith("--")))
 
 
 def test_the_default_device_needs_cuda(logdir, monkeypatch):
