@@ -353,6 +353,25 @@ Phases, one JSON line each on stdout:
     bit-equal, the sharded feed's line where it is on and nowhere else,
     the loss falls, exact launches.  The K1/K2/K3 and K6/K7 rows'
     ``train_data_*`` paths hold the ``kernels`` phase's data-row cases.
+22. Slice 8e, the mesh across worker processes.  ``train_mesh`` (after
+    21, nothing beside it): in process at GPT-406M width and the train
+    step's batch, data=2 x pipe=2 (1F1B, a pipelined copy of the model a
+    row) and FSDP over data=2 beside model=2; and, beside 15-16's
+    processes, two ranks as processes sharing the card over gloo
+    (``_MESH_RANK``, each its part of ``parallel/mesh.global_mesh``)
+    with pipe=2 across them (1F1B) and with seq=2 and the ring across
+    them.  Gates: each arm's first step
+    (a rank's part of the gradient summed over the pipe group) within
+    TRAIN_* of the unsharded pallas step, the ranks' losses and norms
+    identical, the rows bit-equal, every rank's launches exactly its
+    schedule's; each arm's step ms, busy share and peak memory.
+    ``train_mesh_cli`` (beside 15-16): gpt_mini as two workers on cuda:0
+    (gloo) with pipe=2 and then the ring's seq=2 across them; gates: the
+    layout and hop lines, bit-equal losses, the loss falls, exact
+    launches (K6/K7 from the trainer's ``kernel launches`` line).  The
+    K1/K2/K3 and K6/K7 rows' ``train_mesh_*`` paths hold the ``kernels``
+    phase's cases of a rank's shapes (K6/K7 at [8, 512, 16, 128] and
+    [32, 256, 4, 32] a hop).
 
 With ``--nccl`` the script runs ``env`` and the reference job alone,
 with one worker on each visible card (the backend rule of
@@ -360,7 +379,10 @@ with one worker on each visible card (the backend rule of
 ``train_data_nccl`` on four cards: gpt_mini through the CLI with one
 worker whose data axis spans the four cards, and with two workers of
 two cards each under ``--dcn_data_parallel=2`` over NCCL (gates: the
-layout and backend lines, equal losses and digests, exact launches).  With
+layout and backend lines, equal losses and digests, exact launches); then
+``train_mesh_nccl``: the ranks of 22, a card each over NCCL, with pipe=4,
+seq=4 and data=2 x pipe=2, and gpt_mini as four one-card workers at
+B=32, S=512 (the same gates).  With
 ``--fsdp`` it runs ``env``, ``build`` and ``train_fsdp`` alone, under the
 same gates: its step, gather and reduce-scatter ms without the CLIs
 beside it.
@@ -600,6 +622,24 @@ DATA = dict(steps=4, arms=(("dp2", 2, 1, 1, "pallas", False),
                            ("fsdp_dp4", 4, 1, 1, "pallas", True)),
             fsdp_min_size=65536, async_replicas=2, async_period=2,
             cli_batch=16, cli_seq=512, cli_steps=12)
+# The train_mesh phase (slice 8e: the mesh across worker processes).  In
+# process at GPT-406M width, the train step's B=8, S=1024, on [cuda0] * 4:
+# data=2 x pipe=2 (1F1B, `micro` micro-batches a row) and FSDP over
+# data=2 x model=2, `steps` steps each.  Two ranks sharing cuda0 over gloo
+# (`_MESH_RANK`, one process a rank), the same width and batch: pipe=2
+# across them (1F1B, `rank_micro` micro-batches) and seq=2 with the ring
+# across them, `rank_steps` timed steps each.  The trainer CLI at mini()'s
+# width (B=`cli_batch`, S=`cli_seq`): two workers on cuda:0 (gloo) with
+# pipe=2 across them (1F1B, `cli_micro` micro-batches), then seq=2 with
+# the ring across them.  `--nccl` (four cards, a rank each): pipe=4,
+# seq=4 and data=2 x pipe=2 at GPT-406M width, then gpt_mini as four
+# one-card workers at B=32, S=512.
+MESH = dict(steps=4, micro=4, rank_micro=8, rank_steps=3, rank_timeout_s=420,
+            fsdp_min_size=65536, cli_batch=32, cli_seq=512, cli_micro=4,
+            cli_steps=12,
+            rank_arms=(("pipe2", {"pipe": 2}), ("seq2", {"seq": 2})),
+            nccl_arms=(("pipe4", {"pipe": 4}), ("seq4", {"seq": 4}),
+                       ("dp2_pp2", {"pipe": 2})))
 OPTIMIZERS = dict(names=("adam", "lamb", "adagrad", "rmsprop",
                          "adafactor"), steps=3, lr=3e-4)
 
@@ -998,6 +1038,23 @@ def check_kernels(dev):
     k67p = check_parallel_ring_kernels(dev, g)
     k67d = check_parallel_ring_kernels(dev, g, B=Bt // 2, H=H,
                                        label="train_data_dp2_ring2")
+    # The train_mesh arms (slice 8e): the ring over two ranks, each rank's
+    # sequence block a hop at the train step's batch ([8, 512, 16, 128])
+    # and at the mesh CLI's gpt_mini ([32, 256, 4, 32]); K3 on that CLI
+    # rank's rows (32 x 256 of hidden 128).
+    k67m = check_parallel_ring_kernels(dev, g, B=Bt, H=H,
+                                       label="train_mesh_ranks_seq2")
+    k67mc = check_parallel_ring_kernels(
+        dev, g, B=MESH["cli_batch"], H=mini["heads"],
+        label="train_mesh_cli_seq2", S=MESH["cli_seq"], D=mini["head_dim"])
+    x = torch.randn(MESH["cli_batch"] * MESH["cli_seq"] // 2, mini["hidden"],
+                    generator=g, device=dev).to(torch.bfloat16)
+    k3d["mesh_cli_seq2"] = check_k3(
+        "mesh_cli_seq2", x, 1 + 0.1 * torch.randn(
+            mini["hidden"], generator=g, device=dev),
+        0.1 * torch.randn(mini["hidden"], generator=g, device=dev))
+    k3_cases.append(k3d["mesh_cli_seq2"])
+    del x
     k1_all = k1_cases + [k2["fwd"], k2t["fwd"], k2pp["fwd"],
                          k2pc["fwd"]] + [r["fwd"] for r in k2p.values()] + [
         k2bert["fwd"], k2vit["fwd"]] + [r["fwd"] for r in k2d.values()]
@@ -1012,9 +1069,12 @@ def check_kernels(dev):
          flash_attention_bwd_dkv=k2_dkv,
          quant_matmul=k45["k4"] + k45["tp"]["k4"],
          quant_matmul_nt=k45["k5"] + k45["tp"]["k5"],
-         flash_attention_chunk=k67["k6"] + k67p["k6"] + k67d["k6"],
-         flash_attention_chunk_dq=k67["k7a"] + k67p["k7a"] + k67d["k7a"],
-         flash_attention_chunk_dkv=k67["k7b"] + k67p["k7b"] + k67d["k7b"],
+         flash_attention_chunk=(k67["k6"] + k67p["k6"] + k67d["k6"]
+                                + k67m["k6"] + k67mc["k6"]),
+         flash_attention_chunk_dq=(k67["k7a"] + k67p["k7a"] + k67d["k7a"]
+                                   + k67m["k7a"] + k67mc["k7a"]),
+         flash_attention_chunk_dkv=(k67["k7b"] + k67p["k7b"] + k67d["k7b"]
+                                    + k67m["k7b"] + k67mc["k7b"]),
          ring_vs_flash=k67["ring_vs_flash"],
          quant_matmul_dgelu=k45["k8"])
 
@@ -1071,8 +1131,11 @@ def check_kernels(dev):
                  "flash_attention.py:624", "train_ring",
                  {"train_ring": k67["k6"][0],
                   "train_parallel_tp2_ring2": k67p["k6"][0],
-                  "train_data_dp2_ring2": k67d["k6"][0]},
-                 k67["k6"] + k67p["k6"] + k67d["k6"])
+                  "train_data_dp2_ring2": k67d["k6"][0],
+                  "train_mesh_ranks_seq2": k67m["k6"][0],
+                  "train_mesh_cli_seq2": k67mc["k6"][0]},
+                 k67["k6"] + k67p["k6"] + k67d["k6"] + k67m["k6"]
+                 + k67mc["k6"])
     k6["hop_kinds"] = {c["case"]: {k: c[k] for k in (
         "ms", "device_ms", "library_ms", "ratio_to_library")}
         for c in k67["k6"] if c["case"] in ("visible", "diagonal")}
@@ -1085,8 +1148,11 @@ def check_kernels(dev):
                           f"flash_attention.py:{line}", "train_ring",
                           {"train_ring": k67[key][0],
                            "train_parallel_tp2_ring2": k67p[key][0],
-                           "train_data_dp2_ring2": k67d[key][0]},
-                          k67[key] + k67p[key] + k67d[key])
+                           "train_data_dp2_ring2": k67d[key][0],
+                           "train_mesh_ranks_seq2": k67m[key][0],
+                           "train_mesh_cli_seq2": k67mc[key][0]},
+                          k67[key] + k67p[key] + k67d[key] + k67m[key]
+                          + k67mc[key])
         k7[key]["hop_kinds"] = {c["case"]: {k: c[k] for k in (
             "ms", "device_ms", "out_of_place_ms", "library_ms",
             "pair_ratio_to_library")}
@@ -1129,8 +1195,17 @@ def check_kernels(dev):
         data = {f"train_data_{arm}": (
             k2d[case][kind] if kind == "fwd" else k2d[case][kind][0])
             for arm, case in DATA_PATHS.items()}
+        # train_mesh: the pipelines run a 1-row micro-batch of the train
+        # step (train_pipeline's shape), FSDP beside tp2 a dp2 x tp2 row's,
+        # the mesh CLI's pipe an 8-row micro-batch of gpt_mini
+        # (train_pipeline_cli's).
+        mesh = {"train_mesh_dp2_pp2": pipeline(kind)["train_pipeline_1f1b"],
+                "train_mesh_ranks_pipe2":
+                    pipeline(kind)["train_pipeline_1f1b"],
+                "train_mesh_fsdp_dp2_tp2": data["train_data_dp2_tp2"],
+                "train_mesh_cli_pipe2": pipeline(kind)["train_pipeline_cli"]}
         return {"train_parallel_tp2_int8": row, "train_fsdp": train_row,
-                **ladder(kind), **data}
+                **ladder(kind), **data, **mesh}
 
     # The config ladder: BERT-tiny's and ViT-tiny's shapes, in process
     # (train_models) and through the trainer CLI (ladder).
@@ -1159,6 +1234,12 @@ def check_kernels(dev):
         "dp4": "data_row_dp4", "cli": "data_cli"}[case]]
         for arm, case in DATA_PATHS.items()})
     k3_arms["train_data_dp2_ring2"] = k3d["data_row_dp2"]
+    k3_arms.update({"train_mesh_dp2_pp2": k3_cases[7],
+                    "train_mesh_ranks_pipe2": k3_cases[7],
+                    "train_mesh_fsdp_dp2_tp2": k3d["data_row_dp2"],
+                    "train_mesh_ranks_seq2": k3d["data_row_dp2"],
+                    "train_mesh_cli_pipe2": k3_cases[8],
+                    "train_mesh_cli_seq2": k3d["mesh_cli_seq2"]})
     return [
         summary("flash_attention_fwd", "flash_attention.cu",
                 "flash_attention.py:119", "train",
@@ -1643,19 +1724,22 @@ def hop_mean(rows: dict, weights: dict, label: str) -> None:
 
 
 def check_parallel_ring_kernels(dev, g, B=None, H=None,
-                                label="train_parallel_tp2_ring2") -> dict:
+                                label="train_parallel_tp2_ring2", S=None,
+                                D=None) -> dict:
     """K6, K7a and K7b at a 2-shard ring step's per-hop shape: by default
     the tp2 x ring2 step's, each model column's ring over its 8 heads,
-    q/k/v shards [8, 512, 8, 128] of the fused projection (``B`` rows and
-    ``H`` heads another step's: a data row's of dp2 x ring2, [4, 512, 16,
-    128]).  Of a 2-shard causal ring's 4 (shard, chunk) pairs 1 is
-    visible, 2 diagonal, 1 in the future: the row is their per-launch
-    mean."""
+    q/k/v shards [8, 512, 8, 128] of the fused projection (``B`` rows,
+    ``H`` heads, sequence ``S`` and head dim ``D`` another step's: a data
+    row's of dp2 x ring2, [4, 512, 16, 128]; a rank's of the train step's
+    ring over two ranks, [8, 512, 16, 128]; gpt_mini's over two ranks,
+    [32, 256, 4, 32]).  Of a 2-shard causal ring's 4 (shard, chunk) pairs
+    1 is visible, 2 diagonal, 1 in the future: the row is their
+    per-launch mean."""
     import torch
-    S = TRAIN["seq_len"]
+    S = S or TRAIN["seq_len"]
     B = B or TRAIN["batch"]
     H = H or WIDTH["num_heads"] // 2
-    D = WIDTH["hidden_size"] // WIDTH["num_heads"]
+    D = D or WIDTH["hidden_size"] // WIDTH["num_heads"]
     n = S // 2
     fused = torch.randn(B, S, 3, H, D, generator=g, device=dev,
                         dtype=torch.float32).to(torch.bfloat16)
@@ -4402,7 +4486,8 @@ def train_fsdp(dev, smi: str, bf16: dict, alone: bool = False) -> dict:
     emit("train_fsdp", card=smi, model="gpt_406m_width", wall_s=wall_s,
          timed_beside=([] if alone else ["train_parallel_cli",
                                          "train_pipeline_cli",
-                                         "train_models", "train_data_cli"]),
+                                         "train_models", "train_data_cli",
+                                         "train_mesh_cli"]),
          ranks_n=T["ranks"], devices=str(dev), batch_per_rank=TRAIN["batch"],
          seq_len=TRAIN["seq_len"], steps=T["steps"], first_step=first,
          loss_tol=tols[0], grad_norm_rtol=tols[1], grad_min_cos=tols[2],
@@ -4480,6 +4565,19 @@ def run_summary(path: str) -> dict:
     return dict(summary=summary, step_ms=steps)
 
 
+CHUNK_KERNELS = ("flash_attention_chunk", "flash_attention_chunk_dq",
+                 "flash_attention_chunk_dkv")
+
+
+def printed_launches(lines, task: int) -> tuple:
+    """A trainer's ``kernel launches`` line as ``(launches, chunk
+    launches)``: the ring's per-hop kernels K6/K7a/K7b apart from the
+    rest."""
+    both = json.loads(line_value(lines, f"Worker {task}: kernel launches"))
+    return ({k: v for k, v in both.items() if k not in CHUNK_KERNELS},
+            {k: both[k] for k in CHUNK_KERNELS})
+
+
 def trainer_numbers(lines, metrics: str, task: int,
                     profile: str | None = None) -> dict:
     """A trainer process's numbers: its printed lines, its telemetry
@@ -4496,9 +4594,8 @@ def trainer_numbers(lines, metrics: str, task: int,
         step_ms_median=step_ms, step_ms_mean=statistics.mean(steady),
         steps_per_s=1e3 / step_ms,
         steps=len(tele["step_ms"]),
-        digest=line_value(lines, f"Worker {task}: parameter digest"),
-        launches=json.loads(line_value(lines,
-                                       f"Worker {task}: kernel launches")))
+        digest=line_value(lines, f"Worker {task}: parameter digest"))
+    out["launches"], out["chunk_launches"] = printed_launches(lines, task)
     if profile is not None:
         with open(os.path.join(profile, "summary.json")) as fh:
             prof = json.load(fh)
@@ -5780,6 +5877,537 @@ def data_cli(dev, smi: str) -> dict:
         shutil.rmtree(tmp, ignore_errors=True)
 
 
+# ------------------------------------------------------------ train_mesh
+
+
+def rank_pipe_launches(L: int, n_pipe: int, micro: int, p: int) -> dict:
+    """One 1F1B step's launches on pipe rank ``p`` of ``n_pipe`` (its one
+    chunk of ``L / n_pipe`` layers): each micro-batch's forward slot
+    (skipped on the last rank, whose backward slot recomputes it), the
+    recompute and the backward, and on the last rank the head's K3 a
+    micro-batch (:func:`pipeline_launches`' terms, a rank's share)."""
+    per = L // n_pipe
+    last = p == n_pipe - 1
+    fwd = micro * per * (1 if last else 2)
+    return {"flash_attention_fwd": fwd,
+            "flash_attention_bwd_dq": micro * per,
+            "flash_attention_bwd_dkv": micro * per,
+            "layer_norm_fwd": 2 * fwd + (micro if last else 0)}
+
+
+def rank_ring_launches(L: int, n_seq: int) -> dict:
+    """One step's launches on a rank of a causal ring over ``n_seq``
+    ranks: K6 a hop a layer (``n_seq`` hops), K7a and K7b as many, K3 on
+    the rank's block of the residual stream."""
+    return {"flash_attention_chunk": L * n_seq,
+            "flash_attention_chunk_dq": L * n_seq,
+            "flash_attention_chunk_dkv": L * n_seq,
+            "layer_norm_fwd": 2 * L + 1}
+
+
+def mesh_rows_pipeline(dev, smi: str, bf16: dict) -> dict:
+    """The in-process ``dp2_pp2`` arm: data=2 x pipe=2 on [cuda0] * 4
+    (``models/registry.build_gpt_pipeline``: a pipelined copy of the model
+    a data row, placed by ``parallel/sharding._place_rows``), 1F1B over
+    ``MESH["micro"]`` micro-batches of each row's 4 rows.  Its first step
+    (the rows' mean gradient in the lead's ``.grad``) against the
+    unpipelined pallas step (TRAIN_*), ``MESH["steps"]`` timed steps with
+    exact launches (two rows of :func:`pipeline_launches`), the rows
+    bit-equal, busy share and peak memory."""
+    import torch
+    from distributed_tensorflow_tpu_torch.data.lm import make_lm_datasets
+    from distributed_tensorflow_tpu_torch.models import gpt
+    from distributed_tensorflow_tpu_torch.models.registry import (
+        build_gpt_pipeline)
+    from distributed_tensorflow_tpu_torch.parallel.mesh import create_mesh
+    from distributed_tensorflow_tpu_torch.training.optimizers import (
+        make_optimizer)
+    T, B, S = MESH, TRAIN["batch"], TRAIN["seq_len"]
+    cfg = gpt.GptConfig(**WIDTH)
+    data = make_lm_datasets(cfg, seq_len=S).train
+    batches = [data.next_batch(B) for _ in range(T["steps"] + 2)]
+
+    def loss_fn(m, batch):
+        tokens = torch.as_tensor(batch["tokens"], device=dev).long()
+        loss, acc = gpt.lm_loss(m(tokens), tokens)
+        return loss, {"accuracy": acc}
+    plain = gpt.GptLM(cfg, device=dev, seed=SEED, param_dtype=torch.float32)
+    loss0, grads0 = step_grads(plain, loss_fn, batches[0])
+    pallas = (loss0, grads0.cpu())
+    del plain, grads0
+    torch.cuda.empty_cache()
+    width = {k: v for k, v in WIDTH.items()
+             if k not in ("dtype", "attention_backend", "fused_ln")}
+    tols = (TRAIN_LOSS_TOL, TRAIN_GRAD_NORM_RTOL, TRAIN_GRAD_MIN_COS)
+    mesh = create_mesh(data=2, pipe=2, devices=[dev] * 4)
+    b = build_gpt_pipeline(
+        TRAIN["lr"], mesh, seed=SEED, seq_len=S, n_micro=T["micro"],
+        attention_backend="pallas", dtype=WIDTH["dtype"],
+        tx=make_optimizer("adam", TRAIN["lr"]), fused_ln=True,
+        schedule="1f1b", width=width)
+    state = b.place_state(mesh, b.state)
+    step = b.train_step_builder(mesh, log_grad_norm=True)
+    model = state.model
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    state, m = step(state, batches[0])
+    flat = torch.cat([g.float().flatten().cpu() for _, g in sorted(
+        (plain_name(model, n), p.grad) for n, p in model.named_parameters())])
+    vs_pallas = compare_steps((float(m["loss"]), flat), pallas, tols,
+                              ("dp2_pp2", "pallas"))
+    del flat
+    reset_launch_counts()
+    losses, step_ms = [], []
+    for batch in batches[1:T["steps"] + 1]:
+        t = time.perf_counter()
+        state, m = step(state, batch)
+        losses.append(float(m["loss"]))
+        step_ms.append((time.perf_counter() - t) * 1e3)
+    launches = launch_counts()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    if not rows_bit_equal(state):
+        raise AssertionError("train_mesh dp2_pp2: the data rows differ")
+    per_row = pipeline_launches(cfg.num_layers, T["micro"], 2, "1f1b")
+    per_step = {k: 2 * v for k, v in per_row.items()}
+    expect_launches("train_mesh dp2_pp2", launches, per_step, T["steps"])
+    profiled = profile_train_step(step, state, batches[-1])
+    if not all(map(math.isfinite, losses)):
+        raise AssertionError(f"train_mesh dp2_pp2: losses {losses}")
+    med = statistics.median(step_ms)
+    emit("train_mesh_profile", arm="dp2_pp2", **profiled)
+    emit("train_mesh", arm="dp2_pp2", model="gpt_406m_width", card=smi,
+         mesh=dict(data=2, pipe=2, devices=str(dev)), schedule="1f1b",
+         micro_batches_a_row=T["micro"], batch=B, seq_len=S,
+         vs_pallas=vs_pallas, loss_tol=tols[0], grad_norm_rtol=tols[1],
+         grad_min_cos=tols[2], losses=losses, step_ms=step_ms,
+         step_ms_median=med, step_ms_ratio_to_bf16=med
+         / bf16["step_ms_median"], bf16_step_ms_median=bf16["step_ms_median"],
+         peak_mem_gb=peak_gb, busy_share=profiled["busy_share"],
+         rows_bit_equal=True, launches=launches, launches_per_step=per_step,
+         peak_stash=step.peak_stash)
+    del state, model, b, step
+    torch.cuda.empty_cache()
+    return launches
+
+
+def mesh_fsdp_tp(dev, smi: str, bf16: dict) -> dict:
+    """The in-process ``fsdp_dp2_tp2`` arm: FSDP over data=2 beside
+    model=2 on [cuda0] * 4 (``ParallelConfig.place_state``: each row's
+    Megatron shards split over the two rows along the dim the composed
+    spec gives ``data``, JAX's ``P("data", "model")``), through
+    :func:`train_run`: the first step (the rows' mean, the slices gathered
+    whole) against the unsharded pallas step, ``MESH["steps"]`` steps
+    with exact launches (two rows of a tp2 step's), busy share and peak
+    memory."""
+    from distributed_tensorflow_tpu_torch.models import gpt
+    from distributed_tensorflow_tpu_torch.parallel.mesh import ParallelConfig
+    pc = ParallelConfig(data=2, model=2, fsdp=True,
+                        fsdp_min_size=MESH["fsdp_min_size"])
+    mesh = pc.build_mesh([dev] * 4)
+    cfg = gpt.GptConfig(**WIDTH)
+    holder = {}
+
+    def place(st):
+        holder["state"] = pc.place_state(mesh, st, gpt.gpt_sharding_rules())
+        return holder["state"]
+    run = train_run(dev, cfg, MESH["steps"], mesh=mesh, place=place,
+                    check=lambda m, f, b: check_data_step(
+                        dev, holder["state"], f, b))
+    holder.clear()
+    per_step = {k: 2 * v for k, v in parallel_launches(
+        cfg.num_layers, 1, 2, "pallas").items()}
+    expect_launches("train_mesh fsdp_dp2_tp2", run["launches"], per_step,
+                    MESH["steps"])
+    profiled = run.pop("profiled")
+    emit("train_mesh_profile", arm="fsdp_dp2_tp2", **profiled)
+    run.update(layout=pc.describe(), card=smi,
+               mesh=dict(data=2, model=2, devices=str(dev)),
+               launches_per_step=per_step,
+               busy_share=profiled["busy_share"],
+               step_ms_ratio_to_bf16=run["step_ms_median"]
+               / bf16["step_ms_median"],
+               bf16_step_ms_median=bf16["step_ms_median"])
+    emit("train_mesh", arm="fsdp_dp2_tp2", model="gpt_406m_width", **run)
+    return run["launches"]
+
+
+_MESH_RANK = r"""
+import dataclasses, json, statistics, sys, time
+import torch, torch.distributed as dist
+rank, world, port, out, conf = (int(sys.argv[1]), int(sys.argv[2]),
+                                sys.argv[3], sys.argv[4],
+                                json.loads(sys.argv[5]))
+torch.backends.cuda.matmul.allow_tf32 = False
+torch.backends.cudnn.allow_tf32 = False
+dev = torch.device(conf["devices"][rank])
+cuda = dev.type == "cuda"
+if cuda:
+    torch.cuda.set_device(dev)
+dist.init_process_group(conf["backend"], init_method=f"tcp://localhost:{port}",
+                        world_size=world, rank=rank)
+import chip_smoke as cs
+from distributed_tensorflow_tpu_torch.cluster.server import form_mesh_groups
+from distributed_tensorflow_tpu_torch.data.lm import make_lm_datasets
+from distributed_tensorflow_tpu_torch.models import gpt
+from distributed_tensorflow_tpu_torch.models.registry import (
+    build_gpt_pipeline)
+from distributed_tensorflow_tpu_torch.ops import kernels
+from distributed_tensorflow_tpu_torch.parallel import sync
+from distributed_tensorflow_tpu_torch.parallel.mesh import PIPE_AXIS, global_mesh
+from distributed_tensorflow_tpu_torch.parallel.transport import link
+from distributed_tensorflow_tpu_torch.training.optimizers import (
+    make_optimizer)
+from distributed_tensorflow_tpu_torch.training.state import TrainState
+if cuda:
+    kernels.load()
+mesh = global_mesh(num_workers=world, rank=rank, positions=[dev],
+                   **conf["sizes"])
+groups = form_mesh_groups(mesh, dev)
+ranks = mesh.ranks
+cfg = gpt.GptConfig(**conf["width"])
+B, S, steps = conf["batch"], conf["seq_len"], conf["steps"]
+data = make_lm_datasets(cfg, seq_len=S).train
+batches = [data.next_batch(B) for _ in range(steps + 2)]
+rows = B // ranks.shape["data"]
+d = ranks.coords["data"]
+def mine(b):
+    return {"tokens": b["tokens"][d * rows:(d + 1) * rows]}
+def loss_fn(m, batch):
+    tokens = torch.as_tensor(batch["tokens"], device=dev).long()
+    loss, acc = gpt.lm_loss(m(tokens), tokens)
+    return loss, {"accuracy": acc}
+# The unsharded pallas step on the whole batch, on this rank: the
+# reference its part of the first step's gradient is held to.
+plain = gpt.GptLM(cfg, device=dev, seed=cs.SEED, param_dtype=torch.float32)
+plain.train()
+ref_loss, _ = loss_fn(plain, batches[0])
+ref_loss.backward()
+ref = {n: p.grad.float().cpu() for n, p in plain.named_parameters()}
+ref_loss = ref_loss.item()
+del plain
+if cuda:
+    torch.cuda.empty_cache()
+line = groups["grad"]
+ar = (sync.GradientAllReduce(group=ranks.group("grad"),
+                             partials=ranks.seq_parts)
+      if len(line) > 1 else None)
+pipe = PIPE_AXIS in ranks.cross
+if pipe:
+    width = {k: v for k, v in conf["width"].items()
+             if k not in ("dtype", "attention_backend", "fused_ln")}
+    b = build_gpt_pipeline(conf["lr"], mesh, seed=cs.SEED, seq_len=S,
+                           n_micro=min(conf["micro"], rows),
+                           attention_backend="pallas",
+                           dtype=cfg.dtype,
+                           tx=make_optimizer("adam", conf["lr"]),
+                           fused_ln=True, schedule="1f1b", width=width)
+    state = b.place_state(mesh, b.state)
+    step = b.train_step_builder(mesh, all_reduce=ar, log_grad_norm=True)
+    name_of = lambda n: cs.plain_name(state.model, n)
+else:
+    model = gpt.GptLM(dataclasses.replace(cfg, attention_backend="ring"),
+                      device=dev, seed=cs.SEED, param_dtype=torch.float32,
+                      mesh=mesh)
+    state = TrainState.create(model, make_optimizer("adam", conf["lr"]),
+                              params_to_tree=gpt.params_to_jax,
+                              params_from_tree=gpt.params_from_jax)
+    step = sync.build_sync_train_step(loss_fn, all_reduce=ar,
+                                      log_grad_norm=True)
+    name_of = lambda n: n
+if cuda:
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+t = time.perf_counter()
+state, m = step(state, mine(batches[0]))
+first_ms = (time.perf_counter() - t) * 1e3
+# The first step's gradient (this rank's parameters; their sums over the
+# pipe group where the stages are split) against the reference's.
+sums = torch.zeros(3, dtype=torch.float64)
+for n, p in state.model.named_parameters():
+    x, y = p.grad.double().flatten().cpu(), ref[name_of(n)].double().flatten()
+    sums += torch.stack([x @ y, x @ x, y @ y])
+del ref
+if pipe:
+    sums = sums.to(dev)
+    dist.all_reduce(sums, group=link(mesh, PIPE_AXIS).group)
+    sums = sums.cpu()
+dot, na2, nb2 = sums.tolist()
+na, nb = na2 ** 0.5, nb2 ** 0.5
+first = dict(loss_ranks=float(m["loss"]), loss_pallas=ref_loss,
+             loss_diff=abs(float(m["loss"]) - ref_loss),
+             grad_norm_ranks=na, grad_norm_pallas=nb,
+             grad_norm_rel_diff=abs(na - nb) / nb, grad_cos=dot / (na * nb),
+             grad_norm_logged=float(m["grad_norm"]))
+cs.reset_launch_counts()
+losses, norms, step_ms = [], [], []
+for batch in batches[1:steps + 1]:
+    t = time.perf_counter()
+    state, m = step(state, mine(batch))
+    losses.append(float(m["loss"]))
+    norms.append(float(m["grad_norm"]))
+    step_ms.append((time.perf_counter() - t) * 1e3)
+launches = cs.launch_counts()
+peak = torch.cuda.max_memory_allocated(dev) / 1e9 if cuda else None
+profiled = (cs.profile_train_step(step, state, mine(batches[-1])) if cuda
+            else dict(busy_share=None, top_kernels=[]))
+hops = {a: link(mesh, a).describe() for a in ranks.cross}
+json.dump(dict(rank=rank, coords=ranks.coords, cross=list(ranks.cross),
+               groups=groups, hops=hops, first=first, first_ms=first_ms,
+               losses=losses, grad_norms=norms, step_ms=step_ms,
+               step_ms_median=statistics.median(step_ms), peak_mem_gb=peak,
+               busy_share=profiled["busy_share"],
+               top_kernels=profiled["top_kernels"][:5],
+               launches=launches), open(out, "w"))
+dist.destroy_process_group()
+"""
+
+
+def mesh_ranks(smi: str, label: str, sizes: dict, devices: list,
+               backend: str, bf16: dict | None = None, beside=()) -> dict:
+    """One arm of ranks as processes (``_MESH_RANK``, a rank each,
+    ``devices[r]`` rank ``r``'s card, ``backend`` their group's): GPT-406M
+    width, the train step's batch, each rank its part of the global mesh
+    (``parallel/mesh.global_mesh``) and its groups
+    (``cluster/server.form_mesh_groups``).  Gates: every rank's first step
+    (its part of the gradient, summed over the pipe group where it splits
+    the stages) within TRAIN_* of the unsharded pallas step, the ranks'
+    losses and gradient norms identical, each rank's launches exactly its
+    schedule's (:func:`rank_pipe_launches`, :func:`rank_ring_launches`).
+    Returns rank 0's launches."""
+    from distributed_tensorflow_tpu_torch.parallel.mesh import (
+        PIPE_AXIS, global_mesh)
+    import torch
+    world = len(devices)
+    T = MESH
+    tmp = tempfile.mkdtemp(prefix=f"chip_smoke_mesh_{label}_")
+    conf = dict(width=dict(WIDTH), batch=TRAIN["batch"],
+                seq_len=TRAIN["seq_len"], steps=T["rank_steps"],
+                lr=TRAIN["lr"], micro=T["rank_micro"], sizes=sizes,
+                devices=[str(d) for d in devices], backend=backend)
+    root = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, PYTHONPATH=root)
+    port = free_port()
+    t0 = time.perf_counter()
+    try:
+        procs = [subprocess.Popen(
+            [sys.executable, "-c", _MESH_RANK, str(r), str(world), str(port),
+             os.path.join(tmp, f"rank{r}.json"), json.dumps(conf)],
+            cwd=root, env=env, stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True) for r in range(world)]
+        outs = []
+        try:
+            for p in procs:
+                outs.append(p.communicate(timeout=T["rank_timeout_s"])[0])
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+        for p, text in zip(procs, outs):
+            if p.returncode != 0:
+                raise AssertionError(f"train_mesh {label} rank exited "
+                                     f"{p.returncode}: {text[-4000:]}")
+        ranks = [json.load(open(os.path.join(tmp, f"rank{r}.json")))
+                 for r in range(world)]
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    wall_s = time.perf_counter() - t0
+    tols = (TRAIN_LOSS_TOL, TRAIN_GRAD_NORM_RTOL, TRAIN_GRAD_MIN_COS)
+    L = WIDTH["num_layers"]
+    for r, rank in enumerate(ranks):
+        first = rank["first"]
+        if not (math.isfinite(first["loss_ranks"])
+                and first["loss_diff"] <= tols[0]
+                and first["grad_norm_rel_diff"] <= tols[1]
+                and first["grad_cos"] >= tols[2]):
+            raise AssertionError(f"train_mesh {label} rank {r} first step "
+                                 f"vs pallas: {first}")
+        if not (rank["losses"] == ranks[0]["losses"]
+                and rank["grad_norms"] == ranks[0]["grad_norms"]
+                and all(map(math.isfinite, rank["losses"]))):
+            raise AssertionError(f"train_mesh {label}: rank {r}'s losses "
+                                 f"{rank['losses']}, rank 0's "
+                                 f"{ranks[0]['losses']}")
+        mesh = global_mesh(num_workers=world, rank=r,
+                           positions=[torch.device("cpu")], **sizes)
+        if PIPE_AXIS in mesh.ranks.cross:
+            micro = min(T["rank_micro"],
+                        TRAIN["batch"] // mesh.global_shape["data"])
+            per_step = rank_pipe_launches(
+                L, mesh.global_shape[PIPE_AXIS], micro,
+                mesh.ranks.coords[PIPE_AXIS])
+        else:
+            per_step = rank_ring_launches(L, mesh.global_shape["seq"])
+        got = {k: v for k, v in rank["launches"].items() if v}
+        want = {k: v * T["rank_steps"] for k, v in per_step.items() if v}
+        if got != want:
+            raise AssertionError(f"train_mesh {label} rank {r} launches "
+                                 f"{got}, expected {per_step} per step x "
+                                 f"{T['rank_steps']}")
+        rank["launches_per_step"] = per_step
+    emit("train_mesh", arm=f"ranks_{label}", model="gpt_406m_width",
+         card=smi, backend=backend, devices=conf["devices"], sizes=sizes,
+         wall_s=wall_s, timed_beside=list(beside), batch=TRAIN["batch"], seq_len=TRAIN["seq_len"],
+         steps=T["rank_steps"], loss_tol=tols[0], grad_norm_rtol=tols[1],
+         grad_min_cos=tols[2], step_ms_median=max(
+             r["step_ms_median"] for r in ranks),
+         step_ms_ratio_to_bf16=(max(r["step_ms_median"] for r in ranks)
+                                / bf16["step_ms_median"]) if bf16 else None,
+         peak_mem_gb=[r["peak_mem_gb"] for r in ranks],
+         busy_share=[r["busy_share"] for r in ranks], ranks=ranks)
+    return {k: ranks[0]["launches"].get(k, 0)
+            for k in ranks[0]["launches_per_step"]}
+
+
+def mesh_cli(dev, smi: str) -> dict:
+    """``train.py --model=gpt_mini --sync_replicas=true`` as two workers on
+    ``cuda:0`` (gloo: they share the card) with ``--pipeline_parallel=2``
+    across them (1F1B) and, beside it, ``--sequence_parallel=2
+    --attention_backend=ring`` across them, the four processes started
+    together.  Gates: each worker's layout line names the axis across
+    the workers and its host-staged hops, the pair's losses bit-equal,
+    the loss falls, each worker's launches exactly its schedule's steps
+    and eval forwards (the pipe's ranked forward: each rank its chunk,
+    the head on the last; the ring's every forward).  Returns each
+    arm's worker 0's launches by path."""
+    from distributed_tensorflow_tpu_torch.models import gpt
+    T = MESH
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_mesh_cli_")
+    L = gpt.mini().num_layers
+    arms = {"pipe2": ["--pipeline_parallel=2", "--pipeline_schedule=1f1b",
+                      f"--pipeline_microbatches={T['cli_micro']}",
+                      "--attention_backend=pallas"],
+            "seq2": ["--sequence_parallel=2", "--attention_backend=ring"]}
+    try:
+        procs = {}
+        t0 = time.perf_counter()
+        for arm, flags in arms.items():
+            ports = [free_port(), free_port()]
+            common = ["--model=gpt_mini", *flags, "--fused_layer_norm",
+                      f"--bert_seq_len={T['cli_seq']}",
+                      f"--batch_size={T['cli_batch']}",
+                      f"--train_steps={T['cli_steps']}", "--log_every=1",
+                      f"--device={dev}", "--job_name=worker",
+                      "--worker_hosts=" + ",".join(
+                          f"localhost:{p}" for p in ports),
+                      "--ps_hosts=", "--sync_replicas=true",
+                      "--save_interval_steps=1000",
+                      f"--logdir={os.path.join(tmp, arm)}",
+                      "--metrics_file=" + os.path.join(tmp, f"{arm}.jsonl")]
+            procs[arm] = [CliProcess("train", *common, f"--task_index={t}")
+                          for t in (1, 0)]
+        out = {}
+        for arm, pair in procs.items():
+            with pair[0], pair[1]:
+                lines = {1: finish(pair[0], 300), 0: finish(pair[1], 300)}
+            axis = "pipe" if arm == "pipe2" else "seq"
+            nums, losses = {}, {}
+            for task, ls in lines.items():
+                layout = line_value(ls, f"Worker {task}: mesh")
+                if (f"across the workers: {axis}=2 (this worker {axis} "
+                        f"{task}, ranks [0, 1]), data=1") not in layout:
+                    raise AssertionError(f"mesh CLI {arm}: {layout}")
+                hops = line_value(ls, f"Worker {task}: {axis} hops")
+                if "gloo over ranks [0, 1] (host-staged" not in hops:
+                    raise AssertionError(f"mesh CLI {arm}: hops {hops}")
+                nums[task] = trainer_numbers(
+                    ls, os.path.join(tmp, f"{arm}.jsonl.task{task}"), task)
+                losses[task] = [x.split(" loss ")[1].split()[0] for x in ls
+                                if x.startswith(f"Worker {task}: traing")]
+            steps = nums[0]["steps"]
+            values = [float(x) for x in losses[0]]
+            if not (losses[0] == losses[1] and steps == T["cli_steps"] - 1
+                    and len(values) == steps
+                    and all(map(math.isfinite, values))
+                    and statistics.mean(values[-3:]) < values[0]):
+                raise AssertionError(f"mesh CLI {arm}: losses {losses}")
+            # The validation at step 0 and the final test: 4 eval
+            # batches each (make_lm_eval_fn), a forward each.
+            forwards = 2 * 4
+            for task in (0, 1):
+                if arm == "pipe2":
+                    per = rank_pipe_launches(L, 2, T["cli_micro"], task)
+                    chunk = L // 2
+                    head = 1 if task == 1 else 0
+                    want = {k: v * steps for k, v in per.items()}
+                    want["flash_attention_fwd"] += chunk * forwards
+                    want["layer_norm_fwd"] += (2 * chunk + head) * forwards
+                else:
+                    per = rank_ring_launches(L, 2)
+                    want = {"flash_attention_chunk": per[
+                        "flash_attention_chunk"] * (steps + forwards),
+                        "flash_attention_chunk_dq": per[
+                            "flash_attention_chunk_dq"] * steps,
+                        "flash_attention_chunk_dkv": per[
+                            "flash_attention_chunk_dkv"] * steps,
+                        "layer_norm_fwd": per["layer_norm_fwd"]
+                        * (steps + forwards)}
+                got = {k: v for k, v in {**nums[task]["launches"],
+                                         **nums[task]["chunk_launches"]
+                                         }.items() if v}
+                if got != want:
+                    raise AssertionError(f"mesh CLI {arm} worker {task}: "
+                                         f"launches {got}, expected {want}")
+            out[arm] = dict(losses=values, **nums[0],
+                            worker1_step_ms_median=nums[1]["step_ms_median"])
+        emit("train_mesh_cli", card=smi, wall_s=time.perf_counter() - t0,
+             batch=T["cli_batch"], seq_len=T["cli_seq"], **out)
+        return {f"train_mesh_cli_{arm}": {**r["launches"],
+                                          **r["chunk_launches"]}
+                for arm, r in out.items()}
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def train_mesh(dev, smi: str, bf16: dict) -> dict:
+    """Phase ``train_mesh`` (slice 8e), its in-process arms
+    (:func:`mesh_rows_pipeline`, :func:`mesh_fsdp_tp`), in sequence with
+    the other in-process phases.  Returns each arm's launches by path."""
+    import torch
+    t0 = time.perf_counter()
+    out = {"train_mesh_dp2_pp2": mesh_rows_pipeline(dev, smi, bf16)}
+    torch.cuda.empty_cache()
+    out["train_mesh_fsdp_dp2_tp2"] = mesh_fsdp_tp(dev, smi, bf16)
+    torch.cuda.empty_cache()
+    emit("train_mesh_done", seconds=time.perf_counter() - t0)
+    return out
+
+
+def mesh_rank_arms(dev, smi: str, bf16: dict, beside=()) -> dict:
+    """``train_mesh``'s arms of two ranks as processes sharing the card
+    over gloo, with the pipe and then the ring's seq axis across them
+    (:func:`mesh_ranks`); ``beside``: the phases whose processes run
+    beside them (their step times are then contended ones).  Returns each
+    arm's rank 0 launches by path."""
+    t0 = time.perf_counter()
+    out = {f"train_mesh_ranks_{label}": mesh_ranks(
+        smi, label, sizes, [dev] * 2, "gloo", bf16, beside)
+        for label, sizes in MESH["rank_arms"]}
+    emit("train_mesh_ranks_done", seconds=time.perf_counter() - t0,
+         timed_beside=list(beside))
+    return out
+
+
+def mesh_nccl(smi: str) -> None:
+    """``--nccl`` on four cards (``train_mesh_nccl``): the ranks at
+    GPT-406M width, a card each over NCCL, with pipe=4 (1F1B), seq=4 (the
+    ring) and data=2 x pipe=2 (:func:`mesh_ranks`), then gpt_mini at B=32,
+    S=512 as four one-card workers (:func:`data_cli_arm`), against one
+    worker over the four cards' rows (``train_data_nccl``)."""
+    import torch
+    n = torch.cuda.device_count()
+    if n != 4:
+        raise AssertionError(f"the mesh over cards needs 4, found {n}")
+    devices = [torch.device("cuda", i) for i in range(n)]
+    for label, sizes in MESH["nccl_arms"]:
+        mesh_ranks(smi, f"nccl_{label}", sizes, devices, "nccl")
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_mesh_nccl_")
+    try:
+        data_cli_arm(smi, tmp, "four_workers_a_card_each", 4, "cuda")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
 def data_nccl(smi: str) -> None:
     """``--nccl`` on four cards: gpt_mini through the trainer CLI on
     K1/K2/K3 with one worker whose data axis spans the cards (``data=-1``:
@@ -6195,8 +6823,7 @@ def async_gpt(dev, tmp: str, smi: str) -> dict:
     workers, total = [], {}
     for t in (0, 1):
         lines = outs[t]
-        launches = json.loads(line_value(lines,
-                                         f"Worker {t}: kernel launches"))
+        launches = printed_launches(lines, t)[0]
         if launches != want:
             raise AssertionError(f"async_gpt worker {t}: launches "
                                  f"{launches}, expected {want}")
@@ -6492,6 +7119,7 @@ def main() -> int:
             kernels.load()
             trainer_nccl(smi)
             data_nccl(smi)
+            mesh_nccl(smi)
         else:
             t0 = time.perf_counter()
             kernels.load()
@@ -6552,21 +7180,30 @@ def main() -> int:
     torch.cuda.empty_cache()
     by_path.update(train_data(dev, smi, bf16_step))
     torch.cuda.empty_cache()
+    by_path.update(train_mesh(dev, smi, bf16_step))
+    torch.cuda.empty_cache()
     # The two FSDP ranks, the gpt_mini trainer CLIs (tp2 x ulysses2; the
-    # 1f1b pipeline) each with its eval and generate, and the data CLI's
-    # two pairs, side by side: all of them processes of their own.  The
-    # config ladder's in-process phase (train_models) beside them, every
-    # launch of it under the busy lock.
+    # 1f1b pipeline; the mesh's pipe2 and seq2) each with its eval and
+    # generate, the data CLI's two pairs and train_mesh's two-rank arms,
+    # side by side: all of them processes of their own.  The config
+    # ladder's in-process phase (train_models) beside them, every launch
+    # of it under the busy lock.  The trainer group after them, alone:
+    # its async jobs gate on a worker joining a peer that is still
+    # publishing, which a loaded host's start-up can miss.
     t0 = time.perf_counter()
     (by_path["train_fsdp"], by_path["train_parallel_cli"],
      by_path["train_pipeline_cli"], models,
-     by_path["train_data_cli"]) = side_by_side(
+     by_path["train_data_cli"], mesh_clis, ranks) = side_by_side(
         (train_fsdp, dev, smi, bf16_step), (parallel_cli, dev, smi),
         (pipeline_cli, dev, smi), (train_models, dev, smi),
-        (data_cli, dev, smi))
+        (data_cli, dev, smi), (mesh_cli, dev, smi),
+        (mesh_rank_arms, dev, smi, bf16_step, ["fsdp_and_cli_pair"]))
     by_path.update(models)
+    by_path.update(mesh_clis)
+    by_path.update(ranks)
     emit("fsdp_and_cli_pair", seconds=time.perf_counter() - t0,
-         beside=["train_models", "train_data_cli"])
+         beside=["train_models", "train_data_cli", "train_mesh_cli",
+                 "train_mesh_ranks"])
     by_path["trainer"], by_path["async_trainer"] = trainer(dev, smi)
     for row in rows:
         row["launches"] = by_path[row["main"]][row["name"]]

@@ -29,6 +29,18 @@ printed on its bring-up line, never a fallback taken after a failure:
 - ``gloo`` on CUDA tensors when the workers' first positions share a
   card: NCCL refuses two ranks on one device ("Duplicate GPU detected").
 
+**The global mesh's groups** (``mesh=``, ``parallel/mesh.global_mesh``):
+for every axis that crosses the workers (``seq``, ``pipe``) a group a
+line of ranks along it, and the gradient groups (the ranks that share a
+pipe coordinate: the data and seq lines, over which
+``parallel/sync.GradientAllReduce`` sums).  ``dist.new_group`` is a
+collective over the default group, so every rank forms every group, in
+one fixed order (axes in mesh order, lines in the order of their first
+positions), and each group's first call is a small all-reduce every
+member joins (NCCL wants a group's first point-to-point call to be
+one).  The groups go on the mesh's ``ranks.groups``; the transport over
+them is :mod:`..parallel.transport`.
+
 With ``--dcn_data_parallel`` over several workers a slice a group of
 workers, the server also forms the DCN slices' groups
 (:attr:`Server.slice_groups`): ``(within, across)``, the workers of this
@@ -91,6 +103,27 @@ def slice_group_ranks(num_workers: int, dcn_data: int) -> tuple | None:
     return slices, places
 
 
+def form_mesh_groups(mesh, device: torch.device) -> dict:
+    """Form the process groups of ``mesh``'s crossing axes and its
+    gradient lines (every rank calls this, in the same order), keep this
+    rank's on ``mesh.ranks.groups`` and return ``{key: ranks}`` of them."""
+    import torch.distributed as dist
+    ranks = mesh.ranks
+    keyed = [(axis, ranks.lines((axis,))) for axis in ranks.cross]
+    keyed.append(("grad", ranks.grad_lines()))
+    mine = {}
+    for key, lines in keyed:
+        for line in lines:
+            group = dist.new_group(line)
+            if ranks.rank in line:
+                ranks.groups[key] = group
+                mine[key] = line
+    for key in mine:
+        probe = torch.zeros(1, device=device)
+        dist.all_reduce(probe, group=ranks.groups[key])
+    return mine
+
+
 class Server:
     """One per process.  Forms the process group and exposes the
     control-plane handle the supervisor layer uses.
@@ -106,7 +139,7 @@ class Server:
 
     def __init__(self, cluster: ClusterSpec, job_name: str, task_index: int,
                  *, device: torch.device | None = None,
-                 positions: int = 1, dcn_data: int = 1,
+                 positions: int = 1, dcn_data: int = 1, mesh=None,
                  initialize_distributed: bool | None = None,
                  coord_service: bool = True,
                  heartbeat_timeout: float = 10.0,
@@ -127,6 +160,8 @@ class Server:
         self.backend_reason = ""
         self.process_group = False
         self.slice_groups = None
+        #: ``{axis or "grad": ranks}`` of this worker's mesh groups.
+        self.mesh_groups: dict = {}
 
         num_workers = cluster.num_workers
         if initialize_distributed is None:
@@ -156,6 +191,8 @@ class Server:
                     if task_index in ranks:
                         mine.append(group)
                 self.slice_groups = tuple(mine)
+            if mesh is not None and mesh.ranks is not None:
+                self.mesh_groups = form_mesh_groups(mesh, device)
 
         if coord_service:
             from . import coordination

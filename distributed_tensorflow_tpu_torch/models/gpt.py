@@ -589,6 +589,22 @@ def gelu_mlp(mlp_in: Dense, mlp_out: Dense, h: torch.Tensor) -> torch.Tensor:
     return mlp_out(F.gelu(mlp_in(h), approximate="tanh"))
 
 
+def _seq_link(mesh):
+    """The seq axis's link where it crosses processes, else None."""
+    from ..parallel.mesh import SEQ_AXIS
+    if mesh is None or not mesh.crosses(SEQ_AXIS):
+        return None
+    from ..parallel.transport import link
+    return link(mesh, SEQ_AXIS)
+
+
+def _seq_offset(mesh, s_local: int) -> int:
+    """This rank's first sequence position where ``seq`` crosses
+    processes (its block of ``s_local``), else 0."""
+    ring = _seq_link(mesh)
+    return 0 if ring is None else ring.coord * s_local
+
+
 class GptBlock(nn.Module):
     """One pre-LN decoder block."""
 
@@ -637,7 +653,8 @@ class GptBlock(nn.Module):
             k, v = kv[:, :, 0], kv[:, :, 1]
         if cfg.pos_encoding == "rope":
             if positions is None:
-                positions = torch.arange(x.shape[1], device=x.device)
+                positions = torch.arange(x.shape[1], device=x.device) \
+                    + _seq_offset(self.mesh, x.shape[1])
             q = apply_rope(q, positions)
             k = apply_rope(k, positions)
         return q, k, v
@@ -1159,8 +1176,29 @@ class GptLM(nn.Module):
         ``cfg.dropout_rate > 0`` and then needs ``rng``: one seed per
         block (and one for the embedding) is drawn from it, the JAX
         model's per-call dropout key split.  ``deterministic`` turns
-        dropout off in either mode (the uncached decode's forward)."""
+        dropout off in either mode (the uncached decode's forward).
+
+        With the ring's ``seq`` axis across processes
+        (``parallel/mesh.global_mesh``) every rank takes the whole
+        ``input_ids``, runs its own sequence block (its positions) through
+        the blocks, and the logits' blocks are joined on every rank
+        (``parallel/transport.gather_seq``), so the loss is the global
+        token mean on every rank and each rank's backward is its block's
+        part of the gradient (the sum over the seq ranks is the whole)."""
         cfg = self.cfg
+        mesh = self.layers[0].mesh
+        if mesh is None and cfg.attention_backend in ("ring", "ulysses"):
+            mesh = default_mesh()
+        ring = _seq_link(mesh)
+        first = 0
+        if ring is not None:
+            S = input_ids.shape[1]
+            if S % ring.size:
+                raise ValueError(f"sequence length {S} not divisible by "
+                                 f"the seq axis {ring.size}")
+            per = S // ring.size
+            first = ring.coord * per
+            input_ids = input_ids[:, first:first + per]
         S = input_ids.shape[1]
         seeds = [None] * (cfg.num_layers + 1)
         if self.training and cfg.dropout_rate > 0.0 and not deterministic:
@@ -1170,14 +1208,18 @@ class GptLM(nn.Module):
             seeds = torch.randint(0, 2 ** 62, (cfg.num_layers + 1,),
                                   generator=rng, device=rng.device).tolist()
         x = self._embed(input_ids,
-                        torch.arange(S, device=input_ids.device)[None, :],
-                        _generator(seeds[0], input_ids.device))
+                        first + torch.arange(S, device=input_ids.device)
+                        [None, :], _generator(seeds[0], input_ids.device))
         for layer, seed in zip(self.layers, seeds[1:]):
             if cfg.remat and torch.is_grad_enabled():
                 x = checkpoint(layer, x, seed, use_reentrant=False)
             else:
                 x = layer(x, seed)
-        return self._head(x)  # [B, S, vocab]
+        logits = self._head(x)  # [B, S, vocab]
+        if ring is not None:
+            from ..parallel.transport import gather_seq
+            logits = gather_seq(logits, ring, dim=1)
+        return logits
 
     @torch.no_grad()
     def prefill(self, tokens: torch.Tensor, caches,
@@ -2185,53 +2227,117 @@ class GptHead(nn.Module):
 class PipelinedGptLM(nn.Module):
     """A :class:`GptLM`'s modules laid out for the pipeline: ``embed``,
     ``stages`` (``n_pipe * n_virtual`` chunks of consecutive blocks in
-    natural order, chunk ``c`` on pipe device ``c % n_pipe``) and
-    ``head`` (on the last pipe device).  :meth:`from_gpt` takes a model's
-    own modules (no copy), so a seed gives the unpipelined model's
-    weights.  ``forward`` runs the layers in order, the schedule-agnostic
-    apply; the train steps run the schedules
+    natural order, chunk ``c`` on pipe position ``c % n_pipe``) and
+    ``head`` (on the last pipe position).  :meth:`from_gpt` takes a
+    model's own modules (no copy), so a seed gives the unpipelined
+    model's weights.  ``forward`` runs the layers in order, the
+    schedule-agnostic apply; the train steps run the schedules
     (:func:`make_pipelined_gpt_apply`,
     :func:`make_1f1b_gpt_train_step_builder`).  The checkpoint tree is
-    the JAX package's stage-stacked one (:meth:`params_to_tree`)."""
+    the JAX package's stage-stacked one (:meth:`params_to_tree`).
 
-    def __init__(self, cfg: GptConfig, embed: GptEmbed, stages, head,
-                 n_pipe: int, n_virtual: int = 1):
+    With ``pipe`` across processes (``pipe_mesh``: the worker's part of
+    the global mesh) a rank holds only its own chunks (every other chunk
+    an empty :class:`GptStage`, so the names stay global), the embedding
+    on pipe rank 0 and the head on the last (``None`` elsewhere);
+    :meth:`forward` then runs the chunks over the pipe group and gives
+    the last rank's logits to every rank (JAX's one-hot ``psum``)."""
+
+    def __init__(self, cfg: GptConfig, embed: GptEmbed | None, stages,
+                 head: GptHead | None, n_pipe: int, n_virtual: int = 1,
+                 pipe_mesh=None):
         super().__init__()
         self.cfg = cfg
         self.n_pipe, self.n_virtual = n_pipe, n_virtual
         self.embed = embed
         self.stages = nn.ModuleList(stages)
         self.head = head
+        self.pipe_mesh = pipe_mesh
+        #: Where the whole batch's tokens go (the first own position).
+        self.device = None
 
     @classmethod
-    def from_gpt(cls, model: GptLM, devices, n_virtual: int = 1
-                 ) -> "PipelinedGptLM":
+    def from_gpt(cls, model: GptLM, devices, n_virtual: int = 1, *,
+                 pipe_mesh=None) -> "PipelinedGptLM":
         """``model``'s modules as ``len(devices)`` pipe positions of
         ``n_virtual`` chunks each, every module moved to its position's
-        device."""
+        device.  With ``pipe_mesh`` (``pipe`` across processes) the
+        positions are the pipe group's ranks, ``devices`` this rank's one
+        device, and the rank keeps its own chunks only."""
+        from ..parallel.mesh import PIPE_AXIS
         cfg = model.cfg
-        n_pipe = len(devices)
+        if pipe_mesh is not None:
+            n_pipe = pipe_mesh.global_shape[PIPE_AXIS]
+            me = pipe_mesh.ranks.coords[PIPE_AXIS]
+            devices = [devices[0] if s == me else None
+                       for s in range(n_pipe)]
+        else:
+            n_pipe = len(devices)
         V = n_pipe * n_virtual
         if cfg.num_layers % V:
             raise ValueError(f"num_layers={cfg.num_layers} not divisible by "
                              f"pipeline stages={V}")
         per = cfg.num_layers // V
-        stages = [GptStage(list(model.layers[c * per:(c + 1) * per])).to(
-            devices[c % n_pipe]) for c in range(V)]
-        embed = GptEmbed(cfg, model.word_emb,
-                         getattr(model, "pos_emb", None)).to(devices[0])
-        head = GptHead(model.ln_final, model.lm_head).to(devices[-1])
-        return cls(cfg, embed, stages, head, n_pipe, n_virtual)
-
-    @property
-    def device(self) -> torch.device:
-        return self.embed.word_emb.embedding.device
+        stages = [GptStage([]) if devices[c % n_pipe] is None else
+                  GptStage(list(model.layers[c * per:(c + 1) * per])).to(
+                      devices[c % n_pipe]) for c in range(V)]
+        embed = head = None
+        if devices[0] is not None:
+            embed = GptEmbed(cfg, model.word_emb,
+                             getattr(model, "pos_emb", None)).to(devices[0])
+        if devices[-1] is not None:
+            head = GptHead(model.ln_final, model.lm_head).to(devices[-1])
+        out = cls(cfg, embed, stages, head, n_pipe, n_virtual, pipe_mesh)
+        # Every chunk's parameter shapes by name, the other ranks' too.
+        out.full_shapes = {}
+        for name, p in model.named_parameters():
+            part, _, rest = name.partition(".")
+            if part == "layers":
+                i, _, leaf = rest.partition(".")
+                name = f"stages.{int(i) // per}.layers.{int(i) % per}.{leaf}"
+            elif part in ("word_emb", "pos_emb"):
+                name = f"embed.{name}"
+            else:
+                name = f"head.{name}"
+            out.full_shapes[name] = tuple(p.shape)
+        out.device = next(d for d in devices if d is not None)
+        return out
 
     def forward(self, tokens: torch.Tensor) -> torch.Tensor:
+        if self.pipe_mesh is not None:
+            return self._forward_ranks(tokens)
         x = self.embed(tokens)
         for stage in self.stages:
             x = stage(x.to(stage.layers[0].ln_attn.scale.device))
         return self.head(x.to(self.head.lm_head.kernel.device))
+
+    def _forward_ranks(self, tokens: torch.Tensor) -> torch.Tensor:
+        """The chunks in order over the pipe group (each boundary one
+        send from the chunk's rank to the next chunk's), the last rank's
+        logits given to every rank."""
+        from ..parallel.mesh import PIPE_AXIS
+        from ..parallel.transport import exchange, link, psum_from
+        pipe = link(self.pipe_mesh, PIPE_AXIS)
+        P_, me = pipe.size, pipe.coord
+        B, S = tokens.shape
+        act = (B, S, self.cfg.hidden_size)
+        x = self.embed(tokens.to(self.device)) if me == 0 else None
+        for c, stage in enumerate(self.stages):
+            if c % P_ == me:
+                x = stage(x)
+            if c + 1 == len(self.stages):
+                break
+            src, dst = c % P_, (c + 1) % P_
+            if me == src:
+                exchange(pipe, [(dst, x)], [])
+                x = None
+            elif me == dst:
+                (x,) = exchange(pipe, [], [(src, act, self.cfg.torch_dtype,
+                                            self.device)])
+        logits = self.head(x) if me == P_ - 1 else None
+        return psum_from(pipe, logits, P_ - 1,
+                         (B, S, self.cfg.vocab_size), torch.float32,
+                         self.device)
 
     def _layer(self, c: int, l: int) -> int:
         return c * (self.cfg.num_layers // len(self.stages)) + l
@@ -2239,7 +2345,18 @@ class PipelinedGptLM(nn.Module):
     def params_to_tree(self, named: dict) -> dict:
         """``{state_dict name: tensor}`` -> the JAX package's pipeline
         tree (``stages`` [n_pipe, per, ...], or [n_virtual, n_pipe, per,
-        ...] interleaved; numpy leaves)."""
+        ...] interleaved; numpy leaves).  A rank's own names alone (pipe
+        across processes) fill the other ranks' entries with NaN: the
+        tree's layout, for its paths (``training/state.param_paths``)."""
+        missing = set(self.full_shapes) - set(named) \
+            if self.pipe_mesh is not None else ()
+        if missing:
+            # (``param_paths``' markers are scalars: so are their fills.)
+            scalar = all(t.dim() == 0 for t in named.values())
+            named = dict(named)
+            for name in missing:
+                named[name] = torch.full(
+                    () if scalar else self.full_shapes[name], math.nan)
         plain = {}
         for name, t in named.items():
             part, _, rest = name.partition(".")
@@ -2260,6 +2377,8 @@ class PipelinedGptLM(nn.Module):
         """Inverse of :meth:`params_to_tree` (a checkpoint of either
         package): fp32 CPU tensors by ``state_dict`` name."""
         per = self.cfg.num_layers // len(self.stages)
+        own = (dict(self.named_parameters()) if self.pipe_mesh is not None
+               else None)
         plain = params_from_jax(merge_pipeline_params(
             tree, self.cfg.num_layers, self.n_virtual))
         out = {}
@@ -2273,6 +2392,9 @@ class PipelinedGptLM(nn.Module):
                 out[f"embed.{name}"] = t
             else:
                 out[f"head.{name}"] = t
+        if own is not None:
+            # A rank restores its own chunks (and the embedding or head).
+            out = {n: t for n, t in out.items() if n in own}
         return out
 
 
@@ -2316,15 +2438,23 @@ def make_interleaved_gpt_apply(cfg: GptConfig):
 
 def make_1f1b_gpt_train_step_builder(cfg: GptConfig, *, n_micro: int,
                                      label_smoothing: float = 0.0,
-                                     n_virtual: int = 1):
+                                     n_virtual: int = 1,
+                                     gpipe: bool = False):
     """``builder(mesh, all_reduce=None, log_grad_norm=False) -> step``:
     the 1F1B-scheduled train step of a :class:`PipelinedGptLM`
-    (:func:`..parallel.pipeline.build_1f1b_pipeline_train_step`), or the
-    interleaved one with ``n_virtual > 1``.  Same math and parameter
+    (:func:`..parallel.pipeline.build_1f1b_pipeline_train_step`), the
+    interleaved one with ``n_virtual > 1``, or GPipe's slots with
+    ``gpipe`` (the pipe axis across processes).  Same math and parameter
     layout as the GPipe path; the stash of stage inputs is bounded by the
     pipe depth, not the micro-batch count."""
     from ..parallel.pipeline import (build_1f1b_pipeline_train_step,
+                                     build_gpipe_train_step,
                                      build_interleaved_1f1b_train_step)
+
+    def act_fn(model, batch, n_micro_):
+        B, S = batch["tokens"].shape
+        return ((B // n_micro_, S, cfg.hidden_size), cfg.torch_dtype,
+                model.device)
 
     def embed_fn(embed, batch):
         return embed(torch.as_tensor(batch["tokens"],
@@ -2340,10 +2470,13 @@ def make_1f1b_gpt_train_step_builder(cfg: GptConfig, *, n_micro: int,
 
     def builder(mesh, all_reduce=None, log_grad_norm: bool = False):
         kw = dict(n_micro=n_micro, embed_fn=embed_fn, all_reduce=all_reduce,
-                  log_grad_norm=log_grad_norm)
+                  log_grad_norm=log_grad_norm, act_fn=act_fn)
         if n_virtual > 1:
             return build_interleaved_1f1b_train_step(
                 mesh, _stage_fn, loss_head_fn, n_virtual=n_virtual, **kw)
+        if gpipe:
+            return build_gpipe_train_step(mesh, _stage_fn, loss_head_fn,
+                                          **kw)
         return build_1f1b_pipeline_train_step(mesh, _stage_fn,
                                               loss_head_fn, **kw)
 

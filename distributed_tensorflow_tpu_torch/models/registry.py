@@ -192,7 +192,15 @@ def build_gpt_pipeline(learning_rate: float, mesh, seed: int = 0,
     position).  ``width``: GptConfig fields over ``mini()``'s (a
     caller's full-width model).  The checkpoint namespace and tree are
     the JAX package's (:func:`pipeline_bundle_name`, ``{"embed",
-    "stages", "head"}``)."""
+    "stages", "head"}``).
+
+    With ``pipe`` across processes (``mesh`` a worker's part of
+    ``parallel/mesh.global_mesh``) this rank builds and keeps only its
+    chunks (the embedding on pipe rank 0, the head on the last) and every
+    schedule trains through the slot runner (GPipe as
+    ``parallel/pipeline.build_gpipe_train_step``); with local data rows
+    (``data > 1`` in the mesh) each row is a pipelined copy on its row's
+    pipe positions."""
     from . import gpt as gpt_lib
     from ..data.lm import make_lm_datasets, make_lm_eval_fn
     from ..parallel.mesh import PIPE_AXIS
@@ -216,18 +224,30 @@ def build_gpt_pipeline(learning_rate: float, mesh, seed: int = 0,
     if tokenizer == "bpe":
         _validate_bpe_vocab(bpe_vocab)
         cfg = dataclasses.replace(cfg, vocab_size=bpe_vocab)
+    ranked = mesh.crosses(PIPE_AXIS)
+    if ranked and tx is not None and tx.name in ("lamb", "adafactor"):
+        from ..parallel.mesh import cross_process_error
+        raise cross_process_error(
+            f"--optimizer={tx.name}'s whole-leaf statistics of a "
+            "stage stack split over the pipe axis")
+    n_pipe = mesh.global_shape[PIPE_AXIS]
     devices = mesh.pipe_devices()
     plain = gpt_lib.GptLM(cfg, device=devices[0], seed=seed,
                           param_dtype=torch.float32)
-    model = gpt_lib.PipelinedGptLM.from_gpt(plain, devices, v)
+    model = gpt_lib.PipelinedGptLM.from_gpt(
+        plain, devices, v, pipe_mesh=mesh if ranked else None)
     del plain
     mark_stacked_leaves(model, model.params_to_tree)
+    if ranked:
+        # The global norm sums its squares over the pipe group too.
+        for p in model.parameters():
+            p.pipe_mesh = mesh
     if tx is None:
         tx = _default_transformer_tx(learning_rate, "gpt_mini(pipelined)")
     state = TrainState.create(model, tx,
                               params_to_tree=model.params_to_tree,
                               params_from_tree=model.params_from_tree)
-    if interleaved:
+    if interleaved or ranked:
         apply_fn = gpt_lib.make_interleaved_gpt_apply(cfg)
     else:
         apply_fn = gpt_lib.make_pipelined_gpt_apply(cfg, mesh,
@@ -241,20 +261,29 @@ def build_gpt_pipeline(learning_rate: float, mesh, seed: int = 0,
                                     label_smoothing=label_smoothing)
         return loss, {"accuracy": acc}
 
-    def place_state(mesh_, state_):
-        """Each chunk on its pipe device (the embedding on the first,
-        the head on the last); the optimizer's slots follow in place.
-        One data row: local data rows beside the pipe axis raise."""
-        from ..parallel.sharding import pipeline_rows_error
-        if mesh_.shape["data"] > 1:
-            raise pipeline_rows_error(mesh_.shape["data"])
-        devs = mesh_.pipe_devices()
-        m = state_.model
+    def place_row(row_mesh, st):
+        """Each chunk this process holds on its pipe device (the
+        embedding on the first, the head on the last); the optimizer's
+        slots follow in place."""
+        devs = row_mesh.pipe_devices()
+        m = st.model
+        if ranked:
+            devs = [devs[0]] * n_pipe
         for c, stage in enumerate(m.stages):
-            _move_module(state_, stage, devs[c % len(devs)])
-        _move_module(state_, m.embed, devs[0])
-        _move_module(state_, m.head, devs[-1])
-        return state_
+            _move_module(st, stage, devs[c % len(devs)])
+        if m.embed is not None:
+            _move_module(st, m.embed, devs[0])
+        if m.head is not None:
+            _move_module(st, m.head, devs[-1])
+        m.device = devs[0] if m.embed is not None else next(
+            m.parameters()).device
+        return st
+
+    def place_state(mesh_, state_):
+        """:func:`place_row` for every local data row (a pipelined copy a
+        row, ``parallel/sharding._place_rows``)."""
+        from ..parallel.sharding import _place_rows
+        return _place_rows(mesh_, state_, place_row)
 
     def load_datasets(data_dir):
         return make_lm_datasets(cfg, seq_len=seq_len, data_dir=data_dir,
@@ -264,12 +293,12 @@ def build_gpt_pipeline(learning_rate: float, mesh, seed: int = 0,
                                     stream_threshold_mb << 20))
 
     step_builder = None
-    if schedule in ("1f1b", "interleaved"):
+    if schedule in ("1f1b", "interleaved") or ranked:
         # Training runs the hand-rolled schedules; the loss, eval and
         # generate keep a schedule-agnostic apply.
         step_builder = gpt_lib.make_1f1b_gpt_train_step_builder(
             cfg, n_micro=n_micro, label_smoothing=label_smoothing,
-            n_virtual=v)
+            n_virtual=v, gpipe=schedule == "gpipe")
     return ModelBundle(state, loss_fn, load_datasets,
                        lambda: make_lm_eval_fn(apply_fn),
                        pipeline_bundle_name(n_pipe, schedule, v),

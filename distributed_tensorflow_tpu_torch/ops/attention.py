@@ -18,6 +18,10 @@ same functional entry point and backends:
   all-to-all (:mod:`..parallel.ulysses`); needs a mesh as ``ring`` does;
   the gathered sequence runs through the flash kernels K1 and K2a/K2b.
 
+With ``seq`` across worker processes (``parallel/mesh.global_mesh``) the
+inputs are this rank's sequence block and ``ring`` runs over the seq
+group's ranks; ``ulysses``' all-to-all across them is ROADMAP.md's 8f.
+
 ``ring`` and ``ulysses`` take shapes that do not tile the mesh as the JAX
 package does, by the dense path, on the CPU only.  On the card a ragged
 batch or sequence runs the flash kernels over the whole sequence, and
@@ -34,7 +38,8 @@ import contextlib
 
 import torch
 
-from ..parallel.mesh import DATA_AXIS, MODEL_AXIS, SEQ_AXIS
+from ..parallel.mesh import (DATA_AXIS, MODEL_AXIS, SEQ_AXIS,
+                             cross_process_error)
 from ..parallel.ring import make_ring_attention
 from ..parallel.ulysses import make_ulysses_attention
 from .flash_attention import (attention_valid, dense_attention,
@@ -64,6 +69,11 @@ def attention_mesh(mesh):
 def default_mesh():
     """The mesh of the innermost :func:`attention_mesh`, or None."""
     return _DEFAULT_MESH
+
+
+def _heads_sharded(mesh, q: torch.Tensor) -> bool:
+    n_model = mesh.shape.get(MODEL_AXIS, 1)
+    return n_model > 1 and q.shape[2] % n_model == 0
 
 
 def dot_product_attention(
@@ -104,12 +114,18 @@ def dot_product_attention(
         if mesh is None:
             raise ValueError(f"{backend} backend needs mesh= (with a 'seq' "
                              "axis), passed directly or via attention_mesh(...)")
+        if mesh.crosses(SEQ_AXIS):
+            if backend == "ulysses":
+                raise cross_process_error("ulysses' all-to-all over seq")
+            return make_ring_attention(
+                mesh, causal=causal, window=window,
+                heads_sharded=_heads_sharded(mesh, q))(q, k, v, kv_mask)
         n_data = mesh.shape.get(DATA_AXIS, 1)
         n_seq = mesh.shape.get(SEQ_AXIS, 1)
         # Compose with tensor parallelism: when the heads divide the model
         # axis, each model column runs its own attention over its heads.
         n_model = mesh.shape.get(MODEL_AXIS, 1)
-        heads_sharded = n_model > 1 and q.shape[2] % n_model == 0
+        heads_sharded = _heads_sharded(mesh, q)
         local_heads = q.shape[2] // (n_model if heads_sharded else 1)
         ragged = q.shape[0] % n_data or q.shape[1] % n_seq
         if q.is_cuda and not ragged and backend == "ulysses" and (

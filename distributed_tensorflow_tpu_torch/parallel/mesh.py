@@ -20,6 +20,18 @@ tensors; where two positions share a device (the tests' ``[cpu] * 8``,
 one card driving several positions), the copy is a no-op and the code
 path is the same.
 
+**The global mesh** (:func:`global_mesh`, the sync trainer's): JAX's
+mesh reshapes the devices of every process, so any axis may cross a
+process boundary.  Here the mesh covers ``num_workers x local
+positions`` in process-major order and the same reshape applies; each
+worker process (one rank, one card) keeps a :class:`Mesh` of its own
+positions, and :class:`RankAxes` (``Mesh.ranks``) says, for every axis,
+its coordinate and the ranks along it.  Where the non-data axes fit in
+a worker every axis but ``data`` stays inside it; where they do not,
+the outer ones cross processes: ``seq`` and ``pipe`` (their hops run
+over ``torch.distributed`` process groups, :mod:`.transport`), not yet
+``expert`` or ``model`` (ROADMAP.md, 8f).
+
 :class:`ParallelConfig` is the trainer's declarative layout.  The data
 axis is ``worker processes x local positions``: a worker's mesh is
 ``data x seq x pipe x expert x model`` over the devices it drives, its
@@ -97,10 +109,32 @@ class Mesh:
         self.axis_names = tuple(axis_names)
         #: The DCN slices the ``data`` axis spans (its outer factor).
         self.dcn_data = dcn_data
+        #: This process's place in a mesh across processes
+        #: (:func:`global_mesh`), None for a mesh of one process.
+        self.ranks: RankAxes | None = None
 
     @property
     def shape(self) -> dict:
+        """This process's axis sizes (an axis that crosses processes has
+        size 1 here: :attr:`global_shape` has its size)."""
         return dict(zip(self.axis_names, self.devices.shape))
+
+    @property
+    def global_shape(self) -> dict:
+        """The axis sizes over every process (:attr:`shape` without
+        ranks)."""
+        return dict(self.ranks.shape) if self.ranks is not None \
+            else self.shape
+
+    def crosses(self, axis: str) -> bool:
+        """True where ``axis`` runs over processes (its positions are
+        ranks)."""
+        return self.ranks is not None and axis in self.ranks.cross
+
+    def _derived(self, devices: np.ndarray, dcn_data: int) -> "Mesh":
+        out = Mesh(devices, self.axis_names, dcn_data)
+        out.ranks = self.ranks
+        return out
 
     def grid(self, model: int = 0) -> np.ndarray:
         """The ``[data, seq]`` devices of model column ``model`` (pipe
@@ -135,14 +169,14 @@ class Mesh:
         """Model column ``j`` as a mesh of its own (model axis of size 1):
         the ring or ulysses attention of the heads shard ``j`` holds."""
         axis = self.axis_names.index(MODEL_AXIS)
-        return Mesh(self.devices.take([j], axis=axis), self.axis_names,
-                    self.dcn_data)
+        return self._derived(self.devices.take([j], axis=axis),
+                             self.dcn_data)
 
     def row(self, r: int) -> "Mesh":
         """Data row ``r`` as a mesh of its own (data axis of size 1): the
         positions that hold one copy of the model."""
         axis = self.axis_names.index(DATA_AXIS)
-        return Mesh(self.devices.take([r], axis=axis), self.axis_names)
+        return self._derived(self.devices.take([r], axis=axis), 1)
 
     def row_slices(self) -> list:
         """The data rows grouped by DCN slice (``[[0, 1], [2, 3]]`` for
@@ -205,6 +239,154 @@ def create_mesh(data: int = -1, model: int = 1, seq: int = 1,
     array[:] = devices
     return Mesh(array.reshape(tuple(sizes[a] for a in AXIS_ORDER)),
                 AXIS_ORDER, dcn_data=dcn_data)
+
+
+#: The axes whose positions may be ranks of their own (their hops and sums
+#: run over process groups); ``model`` and ``expert`` across processes are
+#: ROADMAP.md's 8f.
+CROSS_AXES = (SEQ_AXIS, PIPE_AXIS)
+
+
+def cross_process_error(what: str) -> NotImplementedError:
+    return NotImplementedError(
+        f"{what} across worker processes is not ported yet; see ROADMAP.md, "
+        "section 1, item 6, 8f")
+
+
+def _rank_lines(shape: dict, num_workers: int, local: int,
+                free: Sequence[str]) -> list:
+    """Every line of ranks along the ``free`` axes: the positions that
+    share their coordinates on every other axis, as the ranks that hold
+    them (in coordinate order, each once), one list a distinct line, in
+    the order of the lines' first positions (the same on every rank)."""
+    ids = np.arange(num_workers * local).reshape(
+        [shape[a] for a in AXIS_ORDER])
+    fixed = [i for i, a in enumerate(AXIS_ORDER) if a not in free]
+    lines: dict = {}
+    for index in np.ndindex(ids.shape):
+        ranks = lines.setdefault(tuple(index[i] for i in fixed), [])
+        rank = int(ids[index]) // local
+        if rank not in ranks:
+            ranks.append(rank)
+    out = []
+    for ranks in lines.values():
+        if ranks not in out:        # lines inside one process repeat
+            out.append(ranks)
+    return out
+
+
+@dataclasses.dataclass
+class RankAxes:
+    """A worker process's place in the global mesh.  ``shape``: the axis
+    sizes over every process; ``rank`` this process's rank of
+    ``num_workers``, each holding ``local`` positions; ``coords`` its
+    coordinate on each axis (its first position's); ``cross`` the axes
+    other than ``data`` whose positions are ranks; ``groups`` the process
+    groups ``cluster/server.py`` forms for them (by axis name) and for
+    ``"grad"``, the ranks a gradient's sum runs over (the data and seq
+    lines through this rank, :meth:`grad_lines`)."""
+
+    shape: dict
+    rank: int
+    num_workers: int
+    local: int
+    coords: dict
+    cross: tuple
+    groups: dict = dataclasses.field(default_factory=dict, repr=False)
+    #: ``parallel/transport.AxisLink`` a crossing axis, made at first use.
+    links: dict = dataclasses.field(default_factory=dict, repr=False)
+
+    def lines(self, free: Sequence[str]) -> list:
+        """Every line of ranks along ``free`` (:func:`_rank_lines`)."""
+        return _rank_lines(self.shape, self.num_workers, self.local, free)
+
+    def line(self, free: Sequence[str]) -> list:
+        """The line along ``free`` through this rank."""
+        return next(l for l in self.lines(free) if self.rank in l)
+
+    def axis_ranks(self, axis: str) -> list:
+        """The ranks along ``axis`` through this rank, in coordinate
+        order (``[rank]`` for an axis inside the process)."""
+        return self.line((axis,))
+
+    def grad_lines(self) -> list:
+        """The gradient groups: ranks that share the pipe, expert and
+        model coordinates (a replicated parameter's gradient is summed
+        over data and seq, as JAX's ``psum`` over both axes)."""
+        return self.lines((DATA_AXIS, SEQ_AXIS))
+
+    @property
+    def seq_parts(self) -> int:
+        """The ranks of a gradient group that hold parts of one data
+        coordinate's gradient (``seq`` across processes), whose sum is
+        that coordinate's gradient."""
+        return self.shape[SEQ_AXIS] if SEQ_AXIS in self.cross else 1
+
+    def __deepcopy__(self, memo):
+        # One layout a process, its process groups with it: a deep copy of
+        # a model that holds the mesh (a data row's) shares it.
+        return self
+
+    def group(self, key: str):
+        """The process group of ``key`` (an axis, or ``"grad"``)."""
+        group = self.groups.get(key)
+        if group is None:
+            raise RuntimeError(
+                f"no process group for {key!r}: cluster/server.Server forms "
+                "the mesh's groups")
+        return group
+
+
+def global_mesh(*, num_workers: int, rank: int, positions: Sequence,
+                data: int = -1, model: int = 1, seq: int = 1, pipe: int = 1,
+                expert: int = 1, local_dcn: int = 1) -> Mesh:
+    """Worker ``rank``'s part of the mesh over ``num_workers`` processes
+    of ``len(positions)`` positions each (``positions``: this process's
+    devices), laid process-major and reshaped as :func:`create_mesh`
+    (``data`` outermost, ``model`` innermost; ``data=-1`` resolved over
+    the global count, as JAX resolves it over ``jax.devices()``).  Where
+    the non-data axes' product divides a worker's positions, every axis
+    but ``data`` stays inside the worker; where it exceeds them the outer
+    axes cross the processes, whole: ``seq`` and ``pipe`` (``model``,
+    ``expert`` or an axis split between processes and positions raise,
+    ROADMAP.md 8f).  Returns the :class:`Mesh` of this process's
+    positions (``local_dcn``: the DCN slices among its data rows) with
+    :class:`RankAxes` as ``ranks``."""
+    local = len(positions)
+    sizes = {DATA_AXIS: data, SEQ_AXIS: seq, PIPE_AXIS: pipe,
+             EXPERT_AXIS: expert, MODEL_AXIS: model}
+    fixed = seq * pipe * expert * model
+    total = num_workers * local
+    if data == -1:
+        if total % fixed:
+            raise ValueError(f"{total} devices not divisible by fixed axes "
+                             f"product {fixed}")
+        sizes[DATA_AXIS] = total // fixed
+    if math.prod(sizes.values()) != total:
+        raise ValueError(f"Mesh of {math.prod(sizes.values())} devices but "
+                         f"{total} available")
+    ids = np.arange(total).reshape([sizes[a] for a in AXIS_ORDER])
+    own = np.argwhere((ids // local) == rank)
+    local_shape, coords, cross = {}, {}, []
+    for i, axis in enumerate(AXIS_ORDER):
+        held = sorted({int(c) for c in own[:, i]})
+        coords[axis] = held[0]
+        local_shape[axis] = len(held)
+        if axis == DATA_AXIS or len(held) == sizes[axis]:
+            continue
+        if len(held) > 1:
+            raise cross_process_error(
+                f"the {axis} axis split between processes and positions "
+                f"({sizes[axis]} over {len(held)} a process)")
+        if axis not in CROSS_AXES:
+            raise cross_process_error(f"the {axis} axis")
+        cross.append(axis)
+    ranks = RankAxes(shape=sizes, rank=rank, num_workers=num_workers,
+                     local=local, coords=coords, cross=tuple(cross))
+    mesh = create_mesh(**{a: local_shape[a] for a in AXIS_ORDER},
+                       devices=list(positions), dcn_data=local_dcn)
+    mesh.ranks = ranks
+    return mesh
 
 
 def data_parallel_mesh(num_devices: int | None = None,

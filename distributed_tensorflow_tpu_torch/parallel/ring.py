@@ -31,9 +31,17 @@ shards live on one device, as in ``create_mesh(seq=4, devices=[cuda0] *
 
 With ``heads_sharded`` (tensor parallelism) each model column runs its
 own ring over its heads, as JAX's ``shard_map`` with ``P(data, seq,
-model, None)`` does.  The multi-process transport (one rank per card over
-``torch.distributed``, the hops as point-to-point sends) is later work
-(ROADMAP.md, section 1, item 6, 8e).
+model, None)`` does.
+
+**The ring over ranks** (``seq`` across processes,
+``parallel/mesh.global_mesh``): each rank holds one shard, its own
+sequence block, and runs the same loops over that shard alone; a hop is
+one permutation over the seq group (:mod:`.transport`: every rank's send
+and receive posted together, K/V and mask issued before the hop's
+kernels and waited for after them), the dk/dv sums travel with their
+chunk and take their shift home over the same group.  The schedule is a
+function of the ring's size and shapes only, so every rank runs the same
+one.  K6/K7a/K7b run on each rank's shard as they run in one process.
 """
 
 from __future__ import annotations
@@ -143,33 +151,75 @@ def _ring_einsum(qs, ks, vs, masks, devices, *, causal: bool, window: int):
 
 
 class _RingPlan:
-    """What a ring's autograd node needs besides its tensors: the shards'
-    devices, the key masks (not differentiable), ``causal`` and
-    ``window``."""
+    """What a ring's autograd node needs besides its tensors: the ring's
+    size ``n``, the shards this process holds (``mine``: every one in one
+    process, its own over ranks), the shards' devices and key masks
+    (length-``n`` lists, None where another rank holds the shard; the
+    masks are not differentiable), ``causal``, ``window`` and, over
+    ranks, the seq axis's :class:`.transport.AxisLink`."""
 
-    def __init__(self, devices, masks, causal: bool, window: int):
-        self.devices = devices
-        self.masks = masks
+    def __init__(self, devices, masks, causal: bool, window: int,
+                 link=None):
+        self.link = link
+        self.n = link.size if link is not None else len(devices)
+        self.mine = [link.coord] if link is not None \
+            else list(range(self.n))
+        self.devices = self.full(devices)
+        self.masks = self.full(masks)
         self.causal = causal
         self.window = window
+
+    def full(self, xs) -> list:
+        """This process's shards as a length-``n`` list."""
+        if self.link is None:
+            return list(xs)
+        out = [None] * self.n
+        for i, x in zip(self.mine, xs):
+            out[i] = x
+        return out
+
+    def start(self, held: list, perm):
+        """Issue one hop of ``held`` (a length-``n`` list); returns the
+        function that waits for it and gives the held list after it."""
+        if self.link is None:
+            out = _hop(held, perm, self.devices)
+            return lambda: out
+        from .transport import start_hop
+        my = self.mine[0]
+        if held[my] is None:
+            return lambda: [None] * self.n
+        pending = start_hop(self.link, held[my], perm)
+
+        def done():
+            out = [None] * self.n
+            out[my] = pending.wait()[0]
+            return out
+        return done
+
+    def hop(self, held: list, perm) -> list:
+        return self.start(held, perm)()
+
+    def empty(self, fn) -> list:
+        """``fn(device)`` for each shard this process holds."""
+        return [fn(d) if d is not None else None for d in self.devices]
 
 
 def _ring_flash_forward(plan: _RingPlan, qs, ks, vs):
     """Each shard's output [B, Sq, H, D] in q's dtype and its logsumexp
     [B, H, Sq] fp32, folding every visiting chunk through K6."""
-    n, devices = len(qs), plan.devices
-    B, Sq, H, D = qs[0].shape
-    Sk = ks[0].shape[1]
+    n, mine = plan.n, plan.mine
+    B, Sq, H, D = qs[mine[0]].shape
+    Sk = ks[mine[0]].shape[1]
     n_hops, perm, src_fn = _ring_schedule(n, Sk, plan.causal, plan.window)
-    m = [torch.full((B, H, Sq), _MASK_VALUE, device=d) for d in devices]
-    l = [torch.zeros((B, H, Sq), device=d) for d in devices]
-    acc = [torch.zeros((B, H, Sq, D), device=d) for d in devices]
+    m = plan.empty(lambda d: torch.full((B, H, Sq), _MASK_VALUE, device=d))
+    l = plan.empty(lambda d: torch.zeros((B, H, Sq), device=d))
+    acc = plan.empty(lambda d: torch.zeros((B, H, Sq, D), device=d))
     held = (ks, vs, plan.masks)
     for t in range(n_hops):
         # Issue the next hop first, as the JAX ring does.
-        nxt = ([_hop(x, perm, devices) for x in held] if t + 1 < n_hops
+        nxt = ([plan.start(x, perm) for x in held] if t + 1 < n_hops
                else None)
-        for my in range(n):
+        for my in mine:
             # The carries are this ring's own: updated in place, so a
             # chunk in the future of every query costs a launch and no
             # memory traffic.
@@ -177,9 +227,9 @@ def _ring_flash_forward(plan: _RingPlan, qs, ks, vs):
                 qs[my], held[0][my], held[1][my], held[2][my], m[my], l[my],
                 acc[my], q_offset=my * Sq, k_offset=src_fn(my, t) * Sk,
                 causal=plan.causal, window=plan.window, in_place=True)
-        held = nxt
+        held = None if nxt is None else [wait() for wait in nxt]
     outs, lses = [], []
-    for i in range(n):
+    for i in mine:
         l_safe = l[i].clamp_min(1e-30)          # fully masked rows -> 0
         outs.append((acc[i] / l_safe[..., None]).transpose(1, 2)
                     .to(qs[i].dtype))
@@ -193,41 +243,42 @@ def _ring_flash_backward(plan: _RingPlan, qs, ks, vs, outs, lses, douts):
     JAX ring's ``dq``, ``dk0`` and ``dv0``: dq stays on its shard, the dk/dv
     sums travel with their chunk (one shift home after a truncated ring).
     A hop whose chunk no query sees then touches no memory."""
-    n, devices = len(qs), plan.devices
-    B, Sq, H, D = qs[0].shape
-    Sk = ks[0].shape[1]
+    n, mine = plan.n, plan.mine
+    B, Sq, H, D = qs[mine[0]].shape
+    Sk = ks[mine[0]].shape[1]
     n_hops, perm, src_fn = _ring_schedule(n, Sk, plan.causal, plan.window)
     # Softmax-jacobian row term, in the kernels' [B, H, Sq] layout.
-    delta = [(do.float() * o.float()).sum(-1).transpose(1, 2).contiguous()
+    delta = [None if do is None else
+             (do.float() * o.float()).sum(-1).transpose(1, 2).contiguous()
              for do, o in zip(douts, outs)]
-    dq = [torch.zeros((B, H, Sq, D), device=d) for d in devices]
-    dk = [torch.zeros((B, H, Sk, D), device=d) for d in devices]
-    dv = [torch.zeros((B, H, Sk, D), device=d) for d in devices]
+    dq = plan.empty(lambda d: torch.zeros((B, H, Sq, D), device=d))
+    dk = plan.empty(lambda d: torch.zeros((B, H, Sk, D), device=d))
+    dv = plan.empty(lambda d: torch.zeros((B, H, Sk, D), device=d))
     held = (ks, vs, plan.masks)
     kw = dict(causal=plan.causal, window=plan.window)
     for t in range(n_hops):
         # k/v/mask hops do not depend on this hop's kernels: issue them
         # first (the dk/dv partials do, and hop after).
-        nxt = ([_hop(x, perm, devices) for x in held] if t + 1 < n_hops
+        nxt = ([plan.start(x, perm) for x in held] if t + 1 < n_hops
                else None)
-        for my in range(n):
+        for my in mine:
             args = (qs[my], held[0][my], held[1][my], held[2][my],
                     douts[my], lses[my], delta[my])
             offs = dict(q_offset=my * Sq, k_offset=src_fn(my, t) * Sk)
             flash_attention_chunk_dq(*args, **offs, **kw, out=dq[my])
             flash_attention_chunk_dkv(*args, **offs, **kw,
                                       out=(dk[my], dv[my]))
-        dk, dv = _hop(dk, perm, devices), _hop(dv, perm, devices)
-        held = nxt
+        dk, dv = plan.hop(dk, perm), plan.hop(dv, perm)
+        held = None if nxt is None else [wait() for wait in nxt]
     if n_hops < n:
         # Truncated (reversed) ring: chunk c stops at shard (c + n_hops) mod
         # n with every in-window contribution summed; one shift sends it
         # home.
         home = [(s, (s - n_hops) % n) for s in range(n)]
-        dk, dv = _hop(dk, home, devices), _hop(dv, home, devices)
-    return ([g.transpose(1, 2).to(x.dtype) for g, x in zip(dq, qs)],
-            [g.transpose(1, 2).to(x.dtype) for g, x in zip(dk, ks)],
-            [g.transpose(1, 2).to(x.dtype) for g, x in zip(dv, vs)])
+        dk, dv = plan.hop(dk, home), plan.hop(dv, home)
+    return ([dq[i].transpose(1, 2).to(qs[i].dtype) for i in mine],
+            [dk[i].transpose(1, 2).to(ks[i].dtype) for i in mine],
+            [dv[i].transpose(1, 2).to(vs[i].dtype) for i in mine])
 
 
 class _RingFlash(torch.autograd.Function):
@@ -238,28 +289,30 @@ class _RingFlash(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, plan, *shards):
-        n = len(plan.devices)
+        n = len(plan.mine)
         qs, ks, vs = shards[:n], shards[n:2 * n], shards[2 * n:]
-        outs, lses = _ring_flash_forward(plan, qs, ks, vs)
+        outs, lses = _ring_flash_forward(plan, plan.full(qs), plan.full(ks),
+                                         plan.full(vs))
         ctx.plan = plan
         ctx.save_for_backward(*qs, *ks, *vs, *outs, *lses)
         return tuple(outs)
 
     @staticmethod
     def backward(ctx, *douts):
-        n = len(ctx.plan.devices)
+        plan = ctx.plan
+        n = len(plan.mine)
         saved = ctx.saved_tensors
         qs, ks, vs = saved[:n], saved[n:2 * n], saved[2 * n:3 * n]
         outs, lses = saved[3 * n:4 * n], saved[4 * n:]
-        dqs, dks, dvs = _ring_flash_backward(ctx.plan, qs, ks, vs, outs,
-                                             lses, douts)
+        dqs, dks, dvs = _ring_flash_backward(
+            plan, *(plan.full(x) for x in (qs, ks, vs, outs, lses, douts)))
         return (None, *dqs, *dks, *dvs)
 
 
 def ring_attention_local(q: list, k: list, v: list, kv_mask: list | None,
                          *, devices: list, causal: bool = False,
                          window: int = 0,
-                         use_flash: bool | None = None) -> list:
+                         use_flash: bool | None = None, link=None) -> list:
     """Exact attention over one ring of sequence shards.  ``q``, ``k``,
     ``v``: the ring's n shards [B, S_local, H, D], shard i on
     ``devices[i]`` and holding global positions [i S_local, (i + 1)
@@ -270,13 +323,19 @@ def ring_attention_local(q: list, k: list, v: list, kv_mask: list | None,
     (their plain versions for CPU tensors), with the ring backward;
     ``False`` takes the einsum formulation, differentiated by autograd.
     ``window`` > 0 (requires ``causal``) truncates the ring to the hops
-    whose chunks can meet the band."""
+    whose chunks can meet the band.  ``link`` (the seq axis across
+    processes, :mod:`.transport`): the lists hold this rank's one shard,
+    shard ``link.coord`` of a ring of ``link.size``."""
     if window and not causal:
         raise ValueError("window > 0 requires causal=True")
     masks = list(kv_mask) if kv_mask is not None else [None] * len(q)
     if use_flash is None or use_flash:
-        plan = _RingPlan(list(devices), masks, causal, window)
+        plan = _RingPlan(list(devices), masks, causal, window, link)
         return list(_RingFlash.apply(plan, *q, *k, *v))
+    if link is not None:
+        raise ValueError("the ring over ranks runs the chunk kernels "
+                         "(use_flash); the einsum formulation is one "
+                         "process's")
     return _ring_einsum(list(q), list(k), list(v), masks, list(devices),
                         causal=causal, window=window)
 
@@ -325,6 +384,36 @@ def over_mesh(mesh: Mesh, local: Callable, *, heads_sharded: bool,
     return torch.cat(rows, dim=0)
 
 
+def over_ranks(mesh: Mesh, local: Callable, *, heads_sharded: bool,
+               q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+               kv_mask: torch.Tensor | None) -> torch.Tensor:
+    """:func:`over_mesh` where ``seq`` crosses processes: ``q``, ``k``,
+    ``v`` [B, S / seq, H, D] are this rank's sequence block and each model
+    column (with ``heads_sharded``; else the first) runs its ring over the
+    seq group on its heads, ``local(qs, ks, vs, masks, devices, link)``
+    with this rank's one shard."""
+    from .transport import link
+    ring = link(mesh, SEQ_AXIS)
+    n_model = mesh.shape[MODEL_AXIS] if heads_sharded else 1
+    if q.shape[2] % n_model:
+        raise ValueError(f"heads {q.shape[2]} not divisible by model axis "
+                         f"{n_model}")
+    h_loc = q.shape[2] // n_model
+    cols = []
+    for j in range(n_model):
+        dev = mesh.grid(j)[0][0]
+
+        def part(t, heads=True):
+            if heads:
+                t = t[:, :, j * h_loc:(j + 1) * h_loc]
+            return [t.to(dev)]
+        out = local(part(q), part(k), part(v),
+                    None if kv_mask is None else part(kv_mask, False), [dev],
+                    ring)
+        cols.append(out[0].to(q.device))
+    return torch.cat(cols, dim=2)
+
+
 def make_ring_attention(
     mesh: Mesh,
     *,
@@ -340,14 +429,17 @@ def make_ring_attention(
     sequence over ``seq``, and with ``heads_sharded`` heads over
     ``model``, so that each model column runs its own ring over its heads
     (tensor parallelism; :func:`over_mesh`).  Without it the rings run on
-    the first model column."""
-    def local(qs, ks, vs, masks, devices):
+    the first model column.  With ``seq`` across processes the inputs are
+    this rank's sequence block (:func:`over_ranks`)."""
+    def local(qs, ks, vs, masks, devices, link=None):
         return ring_attention_local(qs, ks, vs, masks, devices=devices,
                                     causal=causal, window=window,
-                                    use_flash=use_flash)
+                                    use_flash=use_flash, link=link)
+
+    spread = over_ranks if mesh.crosses(SEQ_AXIS) else over_mesh
 
     def attention(q, k, v, kv_mask=None):
-        return over_mesh(mesh, local, heads_sharded=heads_sharded, q=q, k=k,
-                         v=v, kv_mask=kv_mask)
+        return spread(mesh, local, heads_sharded=heads_sharded, q=q, k=k,
+                      v=v, kv_mask=kv_mask)
 
     return attention

@@ -353,12 +353,6 @@ def state_params(state) -> dict:
     return named
 
 
-def pipeline_rows_error(n: int) -> NotImplementedError:
-    return NotImplementedError(
-        f"data={n} beside the pipeline in one process is not ported yet; "
-        "see ROADMAP.md, section 1, item 6, 8e")
-
-
 def _set_mesh(model: nn.Module, mesh: Mesh) -> None:
     """The model's modules that hold a mesh (the GPT blocks' ``mesh``)
     take ``mesh``."""
@@ -379,8 +373,6 @@ def _place_rows(mesh: Mesh, state: Any, place) -> Any:
         return place(mesh, state)
     if getattr(state, "rows", None):
         raise ValueError("the state's data rows are placed already")
-    if hasattr(state.model, "stages"):
-        raise pipeline_rows_error(n)
     from ..training.state import TrainState
     template = copy.deepcopy(state.model)
     place(mesh.row(0), state)
@@ -650,17 +642,13 @@ def fsdp_state(mesh: Mesh, state: Any, rules: ShardingRules | None = None,
     on a mesh with that data axis.  With a data axis of one the state
     stays replicated, as a JAX mesh with ``data=1``.  ``rules`` with a
     non-trivial ``model`` axis first split the state over the mesh's
-    positions (:func:`shard_state`); a tensor-parallel shard is then
-    split over the workers along the dim the composed spec gives
-    ``data`` (JAX's ``P("data", "model")``), one local data row a worker
-    there."""
+    positions (:func:`shard_state`, every data row its own shards); a
+    tensor-parallel shard is then split over ``workers x local rows``
+    along the dim the composed spec gives ``data`` (JAX's ``P("data",
+    "model")``): each position holds JAX's addressable shard."""
     import torch.distributed as dist
     n = mesh.shape[DATA_AXIS]
     tp = rules is not None and mesh.shape[MODEL_AXIS] > 1
-    if tp and n > 1:
-        raise NotImplementedError(
-            f"FSDP over {n} local data positions beside tensor parallelism "
-            "is not ported yet; see ROADMAP.md, section 1, item 6, 8e")
     if tp:
         shard_state(mesh, state, rules)
     else:

@@ -91,12 +91,19 @@ class GradientAllReduce:
     communicator there); ``seconds`` and ``calls`` accumulate the later
     calls'.  The buffer's device work is waited for before the clock
     starts, so each time is the collective's own, the wait for the
-    slowest rank included."""
+    slowest rank included.  ``group`` (default: every worker): over the
+    global mesh, the ranks that share this rank's pipe coordinate (its
+    data and seq line, ``parallel/mesh.RankAxes.grad_lines``)."""
 
-    def __init__(self, group=None, slice_groups: tuple | None = None):
+    def __init__(self, group=None, slice_groups: tuple | None = None,
+                 partials: int = 1):
         import torch.distributed as dist
         self._dist = dist
         self.group = group
+        # Ranks of the group that hold parts of one data coordinate's
+        # gradient (the seq axis across processes): their sum is that
+        # coordinate's gradient, and the mean is over the rest.
+        self.partials = partials
         # ``(within, across)``: with ``--dcn_data_parallel`` the sum runs
         # within this worker's DCN slice first, then across the slices
         # (``cluster/server.py`` forms the groups).
@@ -268,6 +275,9 @@ def _reduce_step(state: TrainState, loss: torch.Tensor, aux: dict,
                           + [aux[k].detach().float() for k in keys])
     if reduce is not None:
         reduce.sum_(grads + [scalars])
+        # Every seq rank computes the whole loss (joined logits): the
+        # scalars are counted once a data coordinate.
+        scalars = scalars / reduce.partials
     if scale != 1.0:
         for g in grads:
             g.mul_(scale)
@@ -327,7 +337,8 @@ class FsdpStep:
 def _terms(state: TrainState, reduce: GradientAllReduce | None) -> int:
     """The data axis's positions: the worker's rows times the workers."""
     return ((1 + len(state.rows or ()))
-            * (reduce.world_size if reduce is not None else 1))
+            * (reduce.world_size // reduce.partials if reduce is not None
+               else 1))
 
 
 def _zero_rows(state: TrainState) -> None:
@@ -354,7 +365,8 @@ def _one_update(loss_fn: LossFn, needs_rng: bool, ema_decay: float,
 
     def update(state: TrainState, batch: Any):
         if whole_batch:
-            scale = 1.0 / (reduce.world_size if reduce is not None else 1)
+            scale = 1.0 / (reduce.world_size // reduce.partials
+                           if reduce is not None else 1)
             parts = [(state.model, _whole_batch(state, batch))]
         else:
             scale = 1.0 / _terms(state, reduce)

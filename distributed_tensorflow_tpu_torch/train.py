@@ -62,14 +62,26 @@ parameter's spec); ``--fsdp`` shards the state over the whole data axis and
 interleaved stages;
 ``--attention_backend=ring|ulysses`` runs sequence-parallel attention
 over the seq axis.  A model without rules (``mnist_mlp``, ``lenet5``,
-``resnet20``) trains replicated.
+``resnet20``) trains replicated.  Local data rows sit beside every axis
+(a pipelined copy of the model a row beside ``--pipeline_parallel``), and
+``--fsdp`` beside ``--tensor_parallel`` shards each model shard over the
+workers and their rows (JAX's ``P("data", "model")``).
+
+The sync workers of a process group share one global mesh over every
+worker's positions (``parallel/mesh.global_mesh``): where the non-data
+axes do not fit in a worker, the outer ones cross the workers, one rank
+a card: ``--pipeline_parallel`` (each rank its own stages, activations
+and cotangents over the pipe group) and ``--sequence_parallel`` with the
+ring (each rank its own sequence block, the hops over the seq group);
+the layout line names the axes across the workers.  So two one-card
+workers with ``--pipeline_parallel=2`` are one two-stage pipeline.
 
 Every flag of the JAX ``train.py`` is declared, so a JAX command line
 parses; the port adds ``--device`` (default ``cuda``, which raises without
 a card) in place of ``--platform``.  Not ported yet (each raises
-``NotImplementedError`` naming ROADMAP.md's entry): local data rows
-beside the pipeline, FSDP over local rows beside tensor parallelism
-(item 6, 8e) and ``--profile`` run profiles (item 8).
+``NotImplementedError`` naming ROADMAP.md's entry): ``--tensor_parallel``
+or ``--expert_parallel`` across the workers and ulysses' all-to-all across
+them (item 6, 8f), and ``--profile`` run profiles (item 8).
 """
 
 from __future__ import annotations
@@ -629,7 +641,10 @@ def _kernel_launches() -> dict:
             "flash_attention_bwd_dkv": fa.dkv_launches,
             "layer_norm_fwd": ln.launches,
             "quant_matmul": qmm.launches,
-            "quant_matmul_nt": qmm.nt_launches}
+            "quant_matmul_nt": qmm.nt_launches,
+            "flash_attention_chunk": fa.chunk_launches,
+            "flash_attention_chunk_dq": fa.chunk_dq_launches,
+            "flash_attention_chunk_dkv": fa.chunk_dkv_launches}
 
 
 def _validate_parallel_flags() -> None:
@@ -684,13 +699,18 @@ def _validate_parallel_flags() -> None:
                 f"--expert_parallel={FLAGS.expert_parallel}")
 
 
-def _worker_mesh(pcfg, positions: list, local_data: int, num_workers: int):
+def _worker_mesh(pcfg, positions: list, local_data: int, num_workers: int,
+                 task: int | None = None):
     """The worker's mesh: ``local_data`` data rows over ``positions``.
     The DCN factor splits the whole data axis (``num_workers x
     local_data``, JAX's message where it does not divide); the slices
     that lie inside this worker order its rows (``Mesh.row_slices``),
-    the rest are worker groups (:mod:`.cluster.server`)."""
-    from .parallel.mesh import create_mesh
+    the rest are worker groups (:mod:`.cluster.server`).  ``task`` (a
+    worker of a process group): its part of the global mesh over every
+    worker's positions (``parallel/mesh.global_mesh``), whose outer
+    axes cross the workers where the non-data axes do not fit in one;
+    where every axis fits, the worker's own mesh (no ``ranks``)."""
+    from .parallel.mesh import create_mesh, global_mesh
     dcn, total = pcfg.dcn_data, num_workers * local_data
     if total % dcn:
         raise ValueError(
@@ -701,9 +721,22 @@ def _worker_mesh(pcfg, positions: list, local_data: int, num_workers: int):
         raise ValueError(
             f"--dcn_data_parallel={dcn} puts {per_slice} data position(s) in "
             f"a slice, which splits a worker's {local_data} local rows")
-    return create_mesh(data=local_data, model=pcfg.model, seq=pcfg.seq,
-                       pipe=pcfg.pipe, expert=pcfg.expert, devices=positions,
-                       dcn_data=max(1, local_data // per_slice))
+    sizes = dict(model=pcfg.model, seq=pcfg.seq, pipe=pcfg.pipe,
+                 expert=pcfg.expert)
+    local_dcn = max(1, local_data // per_slice)
+    if task is None:
+        return create_mesh(data=local_data, devices=positions,
+                           dcn_data=local_dcn, **sizes)
+    mesh = global_mesh(num_workers=num_workers, rank=task,
+                       positions=positions, local_dcn=local_dcn, **sizes)
+    if not mesh.ranks.cross:
+        mesh.ranks = None
+    elif dcn > 1:
+        from .parallel.mesh import cross_process_error
+        raise cross_process_error(
+            f"--dcn_data_parallel beside the {'/'.join(mesh.ranks.cross)} "
+            "axis")
+    return mesh
 
 
 def _check_unported_flags() -> None:
@@ -965,7 +998,7 @@ def _async_exchange(state, train_step, coord, num_workers: int):
 
 
 def main(unused_argv):
-    from .cluster.server import Server
+    from .cluster.server import DISABLE_ENV, Server
     from .cluster.spec import ClusterSpec, is_chief
     from .models import registry
     from .parallel import sync as sync_lib
@@ -1025,14 +1058,30 @@ def main(unused_argv):
     num_workers = cluster.num_workers
     device = positions = bundle = None
     local_data = 1
+    # The sync trainer's workers form a process group and one global
+    # mesh (its outer axes across them where the others do not fit in a
+    # worker); an async worker, or one that trains alone, keeps a mesh
+    # of its own devices.
+    global_layout = (FLAGS.job_name == "worker" and num_workers > 1
+                     and FLAGS.mode == "train" and FLAGS.sync_replicas
+                     and os.environ.get(DISABLE_ENV, "0") != "1")
     if FLAGS.job_name == "worker":
         fixed = pcfg.pipe * pcfg.seq * pcfg.expert * pcfg.model
-        local_data = mesh_lib.local_data_size(
-            FLAGS.device, fixed, num_workers)
+        count = mesh_lib.local_data_size(FLAGS.device, 1, num_workers)
+        local_data = max(1, count // fixed)
+        n_positions = local_data * fixed
+        if global_layout and fixed > count:
+            # The outer non-data axes cross the workers.
+            local_data, n_positions = 1, count
         positions = worker_positions(FLAGS.device, FLAGS.task_index,
-                                     local_data * fixed)
+                                     n_positions)
         device = positions[0]
-        mesh = _worker_mesh(pcfg, positions, local_data, num_workers)
+        mesh = _worker_mesh(pcfg, positions, local_data, num_workers,
+                            FLAGS.task_index if global_layout else None)
+        if mesh.crosses(mesh_lib.SEQ_AXIS) and \
+                pcfg.resolved_attention() == "ulysses":
+            raise mesh_lib.cross_process_error(
+                "ulysses' all-to-all over seq")
         bundle = registry.build(FLAGS.model, FLAGS, device, mesh=mesh)
     stateful = bundle is not None and bundle.stateful_loss_fn is not None
     # Async workers meet only at the coordination service, never in a
@@ -1042,6 +1091,7 @@ def main(unused_argv):
     server = Server(cluster, FLAGS.job_name, FLAGS.task_index, device=device,
                     positions=len(positions or [device]),
                     dcn_data=FLAGS.dcn_data_parallel,
+                    mesh=mesh if global_layout else None,
                     initialize_distributed=(
                         None if FLAGS.mode == "train" and (
                             FLAGS.sync_replicas or stateful)
@@ -1065,15 +1115,26 @@ def main(unused_argv):
     else:
         print(f"Worker {task}: no process group; training alone on {device}")
 
-    if len(positions) > 1:
+    cross = mesh.ranks.cross if mesh.ranks is not None else ()
+    if len(positions) > 1 or cross:
         pipe = f"pipe={pcfg.pipe}, " if pcfg.pipe > 1 else ""
         expert = f"expert={pcfg.expert}, " if pcfg.expert > 1 else ""
         data = f"data={local_data}, " if local_data > 1 else ""
+        across = ""
+        if cross:
+            ranks = mesh.ranks
+            across = "; across the workers: " + ", ".join(
+                f"{a}={ranks.shape[a]} (this worker {a} "
+                f"{ranks.coords[a]}, ranks {ranks.axis_ranks(a)})"
+                for a in cross) + f", data={ranks.shape['data']}"
         print(f"Worker {task}: mesh {pcfg.describe()} ({data}{pipe}{expert}"
               f"seq={pcfg.seq}, model={pcfg.model}): "
               f"{len(positions)} positions on "
               f"{len(set(positions))} distinct device(s) "
-              f"{', '.join(map(str, positions))}")
+              f"{', '.join(map(str, positions))}{across}")
+        from .parallel.transport import link
+        for axis in cross:
+            print(f"Worker {task}: {axis} hops {link(mesh, axis).describe()}")
     state = bundle.state
     # Rules engage only when the mesh has a model or expert axis (JAX's
     # use_tp), so mnist_mlp with --tensor_parallel trains replicated.
@@ -1102,6 +1163,9 @@ def main(unused_argv):
         state.ema_params = {n: p.detach().clone()
                             for n, p in state.model.named_parameters()}
     if FLAGS.fsdp:
+        if cross:
+            raise mesh_lib.cross_process_error(
+                f"--fsdp beside the {'/'.join(cross)} axis")
         if bundle.place_state is not None or use_pipe:
             raise ValueError(
                 "--fsdp is incompatible with models that own their placement "
@@ -1200,8 +1264,21 @@ def main(unused_argv):
     # a process group, or every task's by a worker that trains alone (its
     # batch split into one shard a replica, as the JAX single-controller
     # worker shards its batch over its devices).
+    ranks = mesh.ranks
     all_reduce = (sync_lib.GradientAllReduce(
-        slice_groups=server.slice_groups) if server.process_group else None)
+        group=ranks.group("grad") if ranks is not None else None,
+        slice_groups=server.slice_groups,
+        partials=ranks.seq_parts if ranks is not None else 1)
+                  if server.process_group else None)
+    if ranks is not None and server.mesh_groups["grad"] == [task]:
+        # A pipe rank alone on its data line: nothing to sum.
+        all_reduce = None
+    # The feed's processes are the data coordinates: ranks that share one
+    # (the seq and pipe ranks of a data row) load the same rows.
+    data_ranks = (ranks.shape[mesh_lib.DATA_AXIS] // local_data
+                  if ranks is not None else world)
+    data_rank = (ranks.coords[mesh_lib.DATA_AXIS] // local_data
+                 if ranks is not None else task)
     coord = server.coordination_client
     # Late-bound elastic-membership context: the masked-sync replica mask
     # reads the watcher from here once it exists (built after the
@@ -1219,6 +1296,9 @@ def main(unused_argv):
     sync_mode = FLAGS.sync_replicas or use_tp or use_pipe or stateful
     use_masked = (sync_mode and not use_tp and not use_pipe and not stateful
                   and replicas_to_aggregate < num_workers and coord is not None)
+    if use_masked and cross:
+        raise mesh_lib.cross_process_error(
+            f"R<N masked sync beside the {'/'.join(cross)} axis")
     if use_masked and FLAGS.ema_decay > 0:
         raise ValueError("--ema_decay with R<N masked sync is unsupported")
     if use_masked and FLAGS.fsdp:
@@ -1411,10 +1491,11 @@ def main(unused_argv):
                   f"{rounded[1]} to --steps_per_call={k} chunk boundaries")
             log_every, validation_every = rounded
 
-    if server.process_group and FLAGS.batch_size % world:
-        # --batch_size is global: each rank trains on its share.
+    if server.process_group and FLAGS.batch_size % data_ranks:
+        # --batch_size is global: each data coordinate trains on its share.
         raise ValueError(f"--batch_size={FLAGS.batch_size} must divide "
-                         f"over the {world} workers of the process group")
+                         f"over the {data_ranks} workers of the process "
+                         "group")
 
     metrics_path = FLAGS.metrics_file
     if metrics_path and num_workers > 1:
@@ -1527,8 +1608,8 @@ def main(unused_argv):
                 batch_size=FLAGS.batch_size, train_steps=FLAGS.train_steps,
                 eval_fn=eval_fn, device=device, task_index=task,
                 sharded_feed=FLAGS.sharded_feed, mesh=mesh,
-                process_count=world if server.process_group else 1,
-                process_index=task if server.process_group else 0,
+                process_count=data_ranks if server.process_group else 1,
+                process_index=data_rank if server.process_group else 0,
                 devices=row_devices,
                 validation_every=validation_every, log_every=log_every,
                 supervisor=sv, replica_mask_fn=replica_mask_fn,

@@ -153,7 +153,7 @@ def process_feed(split, batch_size: int, *, sharded_feed: bool, mesh,
     pc, pi = process_count, process_index
     if sharded_feed:
         from ..parallel.mesh import SEQ_AXIS
-        if mesh is not None and mesh.shape[SEQ_AXIS] > 1:
+        if mesh is not None and mesh.global_shape[SEQ_AXIS] > 1:
             print_fn(f"Worker {task_index}: sharded feed unavailable with a "
                      "seq-sharded batch layout — feeding full batches")
         elif batch_size % pc:

@@ -147,9 +147,13 @@ def global_norm(params: Iterable[torch.Tensor]) -> torch.Tensor:
     are summed over the process group, the replicated
     gradients' added once, so every worker clips and logs the one global
     norm.  That sum is a collective, which every worker reaches at the
-    same point of its step."""
-    own, split, workers = [], [], 1
+    same point of its step.  A pipeline across processes holds each pipe
+    rank's own stages (their parameters marked ``pipe_mesh`` by
+    ``models/registry.py``): the squares are summed over the pipe group
+    as well, a collective too."""
+    own, split, workers, pipe_mesh = [], [], 1, None
     for p in params:
+        pipe_mesh = getattr(p, "pipe_mesh", pipe_mesh)
         if p.grad is not None:
             sq = p.grad.detach().float().pow(2).sum()
             info = getattr(p, "fsdp_info", None)
@@ -166,6 +170,11 @@ def global_norm(params: Iterable[torch.Tensor]) -> torch.Tensor:
         total = total + pieces.to(home)
     if own:
         total = total + torch.stack([x.to(home) for x in own]).sum()
+    if pipe_mesh is not None:
+        import torch.distributed as dist
+        from ..parallel.mesh import PIPE_AXIS
+        from ..parallel.transport import link
+        dist.all_reduce(total, group=link(pipe_mesh, PIPE_AXIS).group)
     return total.sqrt()
 
 

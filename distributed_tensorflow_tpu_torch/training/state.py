@@ -137,6 +137,8 @@ def _tree_fns(state: TrainState):
                                      split_fsdp_named, split_named)
     model = state.model
     fsdp = is_fsdp(model)
+    if _pipe_ranks(model) is not None:
+        return _pipe_tree_fns(state)
     if not (fsdp or is_sharded(model)):
         return state.params_to_tree, state.params_from_tree
     exchange = FsdpExchange(row_models(state)) if fsdp else None
@@ -152,12 +154,44 @@ def _tree_fns(state: TrainState):
     return to_tree, from_tree
 
 
+def _pipe_ranks(model):
+    """The pipe axis's mesh of a pipelined model whose stages are split
+    over processes (``models/gpt.PipelinedGptLM.pipe_mesh``), else
+    None."""
+    return getattr(model, "pipe_mesh", None)
+
+
+def _pipe_tree_fns(state: TrainState):
+    """``(to_tree, from_tree)`` of a pipeline across processes: every
+    pipe rank's ``{name: tensor}`` joined over the pipe group (a
+    collective: every rank builds the tree at the same step) into the
+    whole model's, and a tree cut to this rank's own entries."""
+    import torch.distributed as dist
+    from ..parallel.mesh import PIPE_AXIS
+    from ..parallel.transport import link
+    group = link(_pipe_ranks(state.model), PIPE_AXIS)
+
+    def to_tree(named):
+        mine = {n: t.detach().to("cpu", torch.float32)
+                for n, t in named.items()}
+        parts = [None] * group.size
+        dist.all_gather_object(parts, mine, group=group.group)
+        whole = {}
+        for part in parts:
+            whole.update(part)
+        return state.params_to_tree(whole)
+
+    return to_tree, state.params_from_tree
+
+
 def tree_is_collective(state) -> bool:
     """True when building ``state``'s checkpoint tree is a collective (its
-    parameters split over the workers by FSDP): every worker then builds
-    it at the same save step, and the chief writes it."""
+    parameters split over the workers by FSDP, or its pipeline's stages
+    over the pipe ranks): every worker then builds it at the same save
+    step, and the chief writes it."""
     from ..parallel.sharding import is_fsdp
-    return isinstance(state, TrainState) and is_fsdp(state.model)
+    return isinstance(state, TrainState) and (
+        is_fsdp(state.model) or _pipe_ranks(state.model) is not None)
 
 
 def param_paths(names, to_tree: Callable[[dict], dict]) -> dict:
@@ -169,8 +203,9 @@ def param_paths(names, to_tree: Callable[[dict], dict]) -> dict:
     from ..utils.pytree import tree_paths
     names = list(names)
     marked = to_tree({n: torch.tensor(float(i)) for i, n in enumerate(names)})
+    # (NaN: an entry another process holds, the pipeline's ranks.)
     return {names[int(i)]: path for path, leaf in tree_paths(marked)
-            for i in np.asarray(leaf).reshape(-1)}
+            for i in np.asarray(leaf).reshape(-1) if i == i}
 
 
 def mark_stacked_leaves(model: nn.Module, to_tree: Callable[[dict], dict]

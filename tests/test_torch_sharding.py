@@ -238,17 +238,20 @@ def test_fsdp_rules_compose_with_tp_base():
 def test_fsdp_placement_is_not_ported_yet():
     # FSDP over in-process data positions is ported (slice 8d): each
     # position's row model holds its slice; beside tensor parallelism
-    # with several local rows it is not (ROADMAP 8e).
+    # with several local rows too (slice 8e): each row's model shard is
+    # split over the rows along the dim the composed spec gives data.
     s = tsh.fsdp_state(tmesh.create_mesh(data=2, devices=CPU2),
                        _port_state("mha_gelu_learned"), min_size=1024)
     assert tsh.is_fsdp(s.model) and len(s.rows) == 1
     infos = [info for *_, info in tsh.fsdp_entries(s.rows[0])]
     assert infos and all(i.world == 2 and i.rank == 1 for i in infos)
     rules = tsh.ShardingRules([(r"kernel", tsh.P(None, "model"))])
-    with pytest.raises(NotImplementedError, match="ROADMAP.*8e"):
-        tsh.fsdp_state(tmesh.create_mesh(data=2, model=2,
-                                         devices=CPU2 * 2),
-                       _port_state("mha_gelu_learned"), rules)
+    s = tsh.fsdp_state(tmesh.create_mesh(data=2, model=2, devices=CPU2 * 2),
+                       _port_state("mha_gelu_learned"), rules, min_size=1024)
+    assert tsh.is_sharded(s.model) and len(s.rows) == 1
+    infos = [info for *_, info in tsh.fsdp_entries(s.rows[0])]
+    assert infos and all(i.world == 2 and i.rank == 1 and i.local == 2
+                         and i.spec[i.dim] == "data" for i in infos)
 
 
 def test_replicate_state_keeps_one_set_of_tensors():

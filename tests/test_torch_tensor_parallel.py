@@ -460,10 +460,11 @@ def test_cli_async_flag_with_tp_trains_in_sync_and_mlp_stays_replicated(
      "must be divisible by --expert_parallel=3"),
     (("--sequence_parallel=2",), ValueError,
      "needs a sequence-parallel attention backend"),
-    # A NAME=value item sets an environment variable: the CPU as four
-    # devices, so that the data axis has local rows.
-    (("--pipeline_parallel=2", "DTF_TORCH_CPU_DEVICES=4"), NotImplementedError,
-     "ROADMAP.*8e"),
+    # The model axis across two sync workers of one CPU each: 8f's (local
+    # rows beside the pipeline run since 8e:
+    # test_cli_pipeline_beside_local_rows_trains).
+    (("--tensor_parallel=2", "--worker_hosts=localhost:1,localhost:2"),
+     NotImplementedError, "ROADMAP.*8f"),
     (("--pipeline_parallel=2", "--gpt_matmul_int8"), ValueError,
      "--gpt_matmul_int8 with --pipeline_parallel is not wired up"),
     (("--pipeline_parallel=2", "--fsdp"), ValueError,
@@ -495,3 +496,16 @@ def test_tp_with_int8_matmuls_raises():
     for (n, p), (m, q) in zip(state.model.named_parameters(),
                               state.rows[0].named_parameters()):
         assert n == m and torch.equal(p, q)
+
+
+def test_cli_pipeline_beside_local_rows_trains(tmp_path, standalone,
+                                               monkeypatch, capsys):
+    # A NAME=value item of the flag cases above sets an environment
+    # variable; here the CPU as four devices gives the data axis two local
+    # rows beside --pipeline_parallel=2 (each row a pipelined copy).
+    monkeypatch.setenv("DTF_TORCH_CPU_DEVICES", "4")
+    result = _cli(tmp_path, "--sync_replicas=true", "--pipeline_parallel=2",
+                  "--train_steps=4")
+    assert result.final_global_step == 4
+    assert ("mesh dp-1-pp2-mb1 (data=2, pipe=2, seq=1, model=1): 4 "
+            "positions" in capsys.readouterr().out)

@@ -17,6 +17,7 @@ import subprocess
 import sys
 import threading
 
+import numpy as np
 import pytest
 import torch
 
@@ -175,20 +176,27 @@ def test_metrics_file_summaries_and_profile(tmp_path, standalone):
     assert prof["busy_share"] is None and prof["window_ms"] > 0
 
 
-# The data axis inside a worker is ported (slice 8d: --sharded_feed,
-# --dcn_data_parallel, local rows beside model, seq and expert); local rows
-# beside the pipeline, and FSDP over local rows beside tensor parallelism,
-# are 8e's.
+# The data axis inside a worker is ported (slice 8d), and so are local rows
+# beside the pipeline, FSDP over local rows beside tensor parallelism and
+# the pipe and seq axes across the workers (8e: test_layouts_of_8e_train);
+# the model and expert axes, ulysses and the DCN factor beside an axis
+# across the workers are 8f's (two sync workers of one CPU each: the
+# layout raises before any process group forms).
+TWO = "--worker_hosts=localhost:1,localhost:2"
+
+
 @pytest.mark.parametrize("flags,match", [
-    (("--sync_replicas=true", "--model=gpt_mini", "--fsdp=true",
-      "--tensor_parallel=2", "DTF_TORCH_CPU_DEVICES=4"), "item 6"),
-    (("--sync_replicas=true", "--model=gpt_mini", "--pipeline_parallel=2",
-      "DTF_TORCH_CPU_DEVICES=4"), "item 6"),
+    (("--sync_replicas=true", "--model=gpt_mini", TWO,
+      "--tensor_parallel=2"), "item 6"),
+    (("--sync_replicas=true", "--model=gpt_mini", TWO,
+      "--sequence_parallel=2", "--attention_backend=ulysses"), "item 6"),
     (("--sync_replicas=true", "--platform=cpu"), "item 8"),
+    (("--sync_replicas=true", "--model=bert_moe", TWO,
+      "--expert_parallel=2"), "item 6"),
     (("--sync_replicas=true", "--model=gpt_mini", "--pipeline_parallel=2",
-      "--pipeline_schedule=1f1b", "DTF_TORCH_CPU_DEVICES=4"), "item 6"),
-    (("--sync_replicas=true", "--model=gpt_mini", "--pipeline_parallel=2",
-      "--dcn_data_parallel=2", "DTF_TORCH_CPU_DEVICES=4"), "item 6"),
+      "--dcn_data_parallel=2",
+      "--worker_hosts=localhost:1,localhost:2,localhost:3,localhost:4"),
+     "item 6"),
     (("--sync_replicas=true", "--model=bert_moe", "--profile=p.json"),
      "item 8"),
     (("--sync_replicas=true", "--profile=p.json"), "item 8"),
@@ -202,6 +210,28 @@ def test_paths_not_ported_raise(tmp_path, standalone, monkeypatch, flags,
             monkeypatch.setenv(*f.split("=", 1))
     with pytest.raises(NotImplementedError, match=f"ROADMAP.*{match}"):
         run_main(tmp_path, *(f for f in flags if f.startswith("--")))
+
+
+@pytest.mark.parametrize("flags", [
+    ("--fsdp=true", "--tensor_parallel=2", "--fsdp_min_size=1024"),
+    ("--pipeline_parallel=2",),
+    ("--pipeline_parallel=2", "--pipeline_schedule=1f1b"),
+    ("--pipeline_parallel=2", "--dcn_data_parallel=2"),
+])
+def test_layouts_of_8e_train(tmp_path, standalone, monkeypatch, capsys,
+                             flags):
+    """The layouts that raised before slice 8e, on the CPU as four devices
+    (two local data rows): FSDP over the rows beside tensor parallelism,
+    and the rows beside the pipeline (GPipe, 1F1B, with a DCN factor of
+    two): gpt_mini trains, its loss finite, and eval restores it."""
+    monkeypatch.setenv("DTF_TORCH_CPU_DEVICES", "4")
+    common = ("--sync_replicas=true", "--model=gpt_mini", "--train_steps=4",
+              "--batch_size=8", "--bert_seq_len=32", "--log_every=2",
+              "--validation_every=0", *flags)
+    result = run_main(tmp_path, *common)
+    assert result.final_global_step == 4 and np.isfinite(result.last_loss)
+    assert "(data=2, " in capsys.readouterr().out
+    assert run_main(tmp_path, "--mode=eval", *common)["global_step"] == 4
 
 
 def test_the_default_device_needs_cuda(tmp_path, standalone, monkeypatch):

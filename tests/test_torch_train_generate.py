@@ -179,9 +179,10 @@ def test_no_checkpoint_warns_and_decodes_a_seeded_init(tmp_path, capsys):
     (["--gen_prompt_text=hi"], ValueError, "needs the run's tokenizer"),
     (["--gen_stop_text=."], ValueError, "needs the run's tokenizer"),
     # The trainer's paths not ported yet (its async mode is, since slice
-    # 7b): the parallelism axes and run profiles.
+    # 7b): the model axis across two sync workers and run profiles.
     (["--mode=train", "--job_name=worker", "--task_index=0",
-      "--pipeline_parallel=2", "DTF_TORCH_CPU_DEVICES=4"], NotImplementedError,
+      "--sync_replicas=true", "--tensor_parallel=2",
+      "--worker_hosts=localhost:1,localhost:2"], NotImplementedError,
      "ROADMAP.*item 6"),
     (["--mode=eval", "--job_name=worker", "--task_index=0",
       "--profile=p.json"], NotImplementedError, "ROADMAP.*item 8"),
